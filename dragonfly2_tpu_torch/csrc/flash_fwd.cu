@@ -1,0 +1,343 @@
+// Flash-attention forward for Hopper (sm_90a), finished-output mode.
+//
+// Replaces the TPU kernel dragonfly2_tpu/ops/flash.py::_flash_kernel
+// (launched by _flash_forward's pallas_call, flash.py:340) in the mode the
+// attention ranker's serving path uses: o = softmax(q k^T / sqrt(D)) v over
+// [B, H, L, D], a [B, L] key-validity mask, optional causal masking, online
+// softmax in base 2 with float32 statistics and accumulators. Masked keys
+// contribute nothing and rows with no valid key come out 0. The save_lse and
+// partial modes are not built here. Head dims: 16, 32, 64, 128.
+//
+// What bounds it on an H100: at the served shape, [1024, 4, 15, 32] bf16,
+// q, k, v and o are 3.9 MB each, 15.7 MB together, which the card moves in
+// ~4.7 us at 3.35 TB/s, while the products are 0.12 GFLOP, ~0.12 us at the
+// 989 TFLOP/s bf16 tensor-core peak: memory- and launch-bound. At long L
+// the products dominate (4 * B * H * L^2 * D operations).
+//
+// Design (not the TPU's block-by-block schedule; its _pick_blocks tiling
+// does not carry over):
+// - One block per (16*WARPS query rows, head, batch). Each warp owns 16
+//   query rows; WARPS (1, 2 or 4) is picked by the wrapper from L so a short
+//   set (L = 15) does not launch idle warps.
+// - K/V tiles of 64 keys are staged in shared memory as bf16 (a float32
+//   input is rounded there, as a TPU matmul of default precision does) and
+//   shared by the block's warps. Rows past L are zero-filled, so L needs no
+//   padding in the wrapper; the key-validity flags of the tile sit beside
+//   them in shared memory.
+// - Q K^T and P V run on the tensor cores through mma.sync m16n8k16 (bf16
+//   in, float32 accumulate). The S fragment is rescaled, masked and
+//   exponentiated in registers and fed back as the A operand of P V, so the
+//   [L, L] score matrix never leaves registers.
+// - Row max/sum live per thread (two rows each); max is reduced across the
+//   four threads of a row with shuffles, the sum only once at the end.
+// wgmma/TMA pipelining is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BLOCK_N = 64;  // keys per staged K/V tile
+constexpr float NEG_BIG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, __nv_bfloat16* dst) {
+  *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
+}
+
+// lower 16 bits hold the element with the smaller k index
+__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  return pack(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+__device__ __forceinline__ void load8(const float* src, __nv_bfloat16* dst) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(pack(a.x, a.y), pack(a.z, a.w), pack(b.x, b.y), pack(b.z, b.w));
+}
+
+__device__ __forceinline__ void zero8(__nv_bfloat16* dst) {
+  *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float x, float y) {
+  *reinterpret_cast<uint32_t*>(dst) = pack(x, y);
+}
+
+__device__ __forceinline__ void store2(float* dst, float x, float y) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+}
+
+// two consecutive bf16 in shared memory as one 32-bit fragment register
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename T, int D, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const uint8_t* __restrict__ mask, T* __restrict__ o,
+                 int H, int L, int num_qblocks, int causal, float scale_log2) {
+  constexpr int BM = 16 * WARPS;      // query rows per block
+  constexpr int THREADS = WARPS * 32;
+  constexpr int LDS = D + 8;          // shared row stride (bf16): conflict-free fragment loads
+  constexpr int CHUNKS = D / 8;       // 16-byte chunks per bf16 row
+  constexpr int NT = BLOCK_N / 8;     // 8-key score tiles per K/V tile
+  static_assert(BM <= BLOCK_N, "Q is staged through the K tile buffer");
+  static_assert(NT * 4 == 32, "one validity bit per score element");
+
+  __shared__ __align__(16) __nv_bfloat16 sK[BLOCK_N * LDS];
+  __shared__ __align__(16) __nv_bfloat16 sV[BLOCK_N * LDS];
+  __shared__ float sValid[BLOCK_N];
+
+  const int qb = blockIdx.x % num_qblocks;
+  const int bh = blockIdx.x / num_qblocks;
+  const int b = bh / H;
+  const size_t head = static_cast<size_t>(bh) * L * D;
+  const T* qh = q + head;
+  const T* kh = k + head;
+  const T* vh = v + head;
+  T* oh = o + head;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(b) * L : nullptr;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // fragment row within the 8-row group
+  const int t = lane & 3;   // thread within the quad
+  const int q0 = qb * BM;
+  const int row_lo = q0 + warp * 16 + g;
+  const int row_hi = row_lo + 8;
+
+  // ---- Q: stage the block's rows through sK, keep them as A fragments
+  for (int i = tid; i < BM * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS;
+    const int c = (i % CHUNKS) * 8;
+    const int row = q0 + r;
+    if (row < L) {
+      load8(qh + static_cast<size_t>(row) * D + c, sK + r * LDS + c);
+    } else {
+      zero8(sK + r * LDS + c);
+    }
+  }
+  __syncthreads();
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const __nv_bfloat16* base = sK + (warp * 16 + g) * LDS + kk * 16 + 2 * t;
+    qa[kk][0] = ld32(base);
+    qa[kk][1] = ld32(base + 8 * LDS);
+    qa[kk][2] = ld32(base + 8);
+    qa[kk][3] = ld32(base + 8 * LDS + 8);
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+  float m_row[2] = {NEG_BIG, NEG_BIG};  // running max (log2 domain) of rows lo, hi
+  float l_row[2] = {0.f, 0.f};          // this thread's share of the running sums
+
+  // causal: keys past the block's last query row are masked for every row
+  const int kv_end = causal ? min(L, q0 + BM) : L;
+  for (int n0 = 0; n0 < kv_end; n0 += BLOCK_N) {
+    __syncthreads();  // every warp is done with the previous tile (and with Q)
+    for (int i = tid; i < BLOCK_N * CHUNKS; i += THREADS) {
+      const int r = i / CHUNKS;
+      const int c = (i % CHUNKS) * 8;
+      const int key = n0 + r;
+      if (key < L) {
+        load8(kh + static_cast<size_t>(key) * D + c, sK + r * LDS + c);
+        load8(vh + static_cast<size_t>(key) * D + c, sV + r * LDS + c);
+      } else {
+        zero8(sK + r * LDS + c);
+        zero8(sV + r * LDS + c);
+      }
+    }
+    for (int i = tid; i < BLOCK_N; i += THREADS) {
+      const int key = n0 + i;
+      sValid[i] = (key < L && (mb == nullptr || mb[key] != 0)) ? 1.f : 0.f;
+    }
+    __syncthreads();
+
+    // S = Q K^T: 16 rows x 64 keys per warp, fragment layout of m16n8 C
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const __nv_bfloat16* kb = sK + (nt * 8 + g) * LDS + kk * 16 + 2 * t;
+        mma_bf16(s[nt], qa[kk], ld32(kb), ld32(kb + 8));
+      }
+    }
+
+    // scale into the log2 domain, mask, and take the tile's row maxima
+    uint32_t valid_bits = 0u;
+    float tile_max[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = nt * 8 + 2 * t + (e & 1);
+        const int row = (e < 2) ? row_lo : row_hi;
+        const bool ok = sValid[kl] > 0.f && (!causal || n0 + kl <= row);
+        const float x = ok ? s[nt][e] * scale_log2 : NEG_BIG;
+        s[nt][e] = x;
+        valid_bits |= static_cast<uint32_t>(ok) << (nt * 4 + e);
+        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+      const float m_new = fmaxf(m_row[r], tile_max[r]);
+      corr[r] = exp2f(m_row[r] - m_new);
+      m_row[r] = m_new;
+    }
+
+    // probabilities; a row with no valid key so far has m = NEG_BIG, where
+    // exp2(x - m) would be a bogus 1, so validity gates the exponential
+    float tile_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = ((valid_bits >> (nt * 4 + e)) & 1u) ? exp2f(s[nt][e] - m_row[r]) : 0.f;
+        s[nt][e] = p;
+        tile_sum[r] += p;
+      }
+    }
+    l_row[0] = l_row[0] * corr[0] + tile_sum[0];
+    l_row[1] = l_row[1] * corr[1] + tile_sum[1];
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      acc[dn][0] *= corr[0];
+      acc[dn][1] *= corr[0];
+      acc[dn][2] *= corr[1];
+      acc[dn][3] *= corr[1];
+    }
+
+    // O += P V: the S accumulators of two adjacent 8-key tiles are the A
+    // fragment of one 16-key step
+#pragma unroll
+    for (int ks = 0; ks < BLOCK_N / 16; ++ks) {
+      uint32_t pa[4];
+      pa[0] = pack(s[2 * ks][0], s[2 * ks][1]);
+      pa[1] = pack(s[2 * ks][2], s[2 * ks][3]);
+      pa[2] = pack(s[2 * ks + 1][0], s[2 * ks + 1][1]);
+      pa[3] = pack(s[2 * ks + 1][2], s[2 * ks + 1][3]);
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        const __nv_bfloat16* vb = sV + (ks * 16 + 2 * t) * LDS + dn * 8 + g;
+        const uint32_t b0 = pack(vb[0], vb[LDS]);
+        const uint32_t b1 = pack(vb[8 * LDS], vb[9 * LDS]);
+        mma_bf16(acc[dn], pa, b0, b1);
+      }
+    }
+  }
+
+  // finish: full row sums across the quad, normalise, write the valid rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+  }
+  const float inv_lo = 1.f / fmaxf(l_row[0], 1e-9f);
+  const float inv_hi = 1.f / fmaxf(l_row[1], 1e-9f);
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + 2 * t;
+    if (row_lo < L) {
+      store2(oh + static_cast<size_t>(row_lo) * D + col, acc[dn][0] * inv_lo, acc[dn][1] * inv_lo);
+    }
+    if (row_hi < L) {
+      store2(oh + static_cast<size_t>(row_hi) * D + col, acc[dn][2] * inv_hi, acc[dn][3] * inv_hi);
+    }
+  }
+}
+
+template <typename T, int D, int WARPS>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* o,
+                   int B, int H, int L, int causal, cudaStream_t stream) {
+  constexpr int BM = 16 * WARPS;
+  const int num_qblocks = (L + BM - 1) / BM;
+  const long long blocks = static_cast<long long>(num_qblocks) * B * H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
+  flash_fwd_kernel<T, D, WARPS><<<static_cast<unsigned>(blocks), WARPS * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<T*>(o), H, L, num_qblocks, causal,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t by_warps(int warps, const void* q, const void* k, const void* v, const void* mask,
+                     void* o, int B, int H, int L, int causal, cudaStream_t stream) {
+  switch (warps) {
+    case 1: return launch<T, D, 1>(q, k, v, mask, o, B, H, L, causal, stream);
+    case 2: return launch<T, D, 2>(q, k, v, mask, o, B, H, L, causal, stream);
+    case 4: return launch<T, D, 4>(q, k, v, mask, o, B, H, L, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t by_dim(int D, int warps, const void* q, const void* k, const void* v,
+                   const void* mask, void* o, int B, int H, int L, int causal,
+                   cudaStream_t stream) {
+  switch (D) {
+    case 16: return by_warps<T, 16>(warps, q, k, v, mask, o, B, H, L, causal, stream);
+    case 32: return by_warps<T, 32>(warps, q, k, v, mask, o, B, H, L, causal, stream);
+    case 64: return by_warps<T, 64>(warps, q, k, v, mask, o, B, H, L, causal, stream);
+    case 128: return by_warps<T, 128>(warps, q, k, v, mask, o, B, H, L, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q, k, v, o: contiguous [B, H, L, D]; mask: contiguous [B, L] bytes (0 =
+// invalid key) or null. dtype: 0 = bf16, 1 = float32. warps: 1, 2 or 4.
+// Launches on `stream` without synchronising; returns the cudaError_t of the
+// launch (0 = success).
+extern "C" int dfly_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
+                              void* o, int B, int H, int L, int D, int causal, int dtype,
+                              int warps, void* stream) {
+  if (B <= 0 || H <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = by_dim<__nv_bfloat16>(D, warps, q, k, v, mask, o, B, H, L, causal, s);
+  } else if (dtype == 1) {
+    err = by_dim<float>(D, warps, q, k, v, mask, o, B, H, L, causal, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+extern "C" const char* dfly_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -67,6 +67,11 @@ def pytest_configure(config):
         "markers", "procworld: real-process planet harness (tier-1, "
         "time-budgeted)"
     )
+    # the torch port's hand-written kernels run only on a CUDA device; such
+    # tests skip (inside the test) where there is none
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc (the torch port's kernels)"
+    )
 
 
 @pytest.fixture

@@ -1,0 +1,102 @@
+"""The port's flash_attention (ops/flash.py) against the reference's
+Pallas flash_attention (interpret mode on CPU, as tests/test_flash.py runs
+it) and dense_attention, on the same numpy inputs.
+
+On CPU tensors the wrapper takes the kernel's plain version; the CUDA
+kernel itself is held to that plain version by tests/test_torch_cuda.py
+and by chip_smoke.py on the card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dragonfly2_tpu.ops.flash import flash_attention as ref_flash
+from dragonfly2_tpu.parallel.ring import dense_attention as ref_dense
+from dragonfly2_tpu_torch.ops import flash
+from dragonfly2_tpu_torch.parallel.ring import dense_attention
+
+# f32: the same function in two float32 implementations; bf16: inputs
+# rounded alike, the reference kernel rounds q (pre-scaled) and p to bf16
+# for its matmuls (tests/test_attention.py:144-147 tolerance family)
+TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+
+
+def _mk(b, h, l, d, seed, fully_masked=False):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, h, l, d)).astype(np.float32) for _ in range(3))
+    mask = rng.random((b, l)) < 0.8
+    mask[:, 0] = True
+    if fully_masked:
+        mask[0] = False
+    return q, k, v, mask
+
+
+def _port(x, dtype):
+    t = torch.from_numpy(x)
+    return t if x.dtype == np.bool_ else t.to(getattr(torch, dtype))
+
+
+def _ref(x, dtype):
+    return jnp.asarray(x) if x.dtype == np.bool_ else jnp.asarray(x, getattr(jnp, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "l,causal,fully_masked",
+    [(15, False, False), (15, False, True), (15, True, False),
+     (130, False, False), (130, True, True), (130, False, True)],
+)
+def test_matches_reference_flash_and_dense(l, causal, fully_masked, dtype):
+    q, k, v, mask = _mk(2, 2, l, 32, seed=l + causal, fully_masked=fully_masked)
+    before = flash.LAUNCHES
+    out = flash.flash_attention(*(_port(x, dtype) for x in (q, k, v, mask)), causal=causal)
+    assert flash.LAUNCHES == before  # a CPU tensor never launches the kernel
+    assert out.dtype == getattr(torch, dtype) and out.shape == q.shape
+    got = out.float().numpy()
+    want_flash = np.asarray(ref_flash(*(_ref(x, dtype) for x in (q, k, v, mask)), causal=causal), np.float32)
+    want_dense = np.asarray(ref_dense(*(_ref(x, dtype) for x in (q, k, v, mask)), causal=causal), np.float32)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got, want_flash, atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, want_dense, atol=tol, rtol=tol)
+    if fully_masked:
+        assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_no_mask_matches_reference(causal):
+    q, k, v, _ = _mk(1, 2, 130, 16, seed=7)
+    got = flash.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), None, causal=causal)
+    want = np.asarray(ref_flash(q, k, v, None, causal=causal))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL["float32"], rtol=TOL["float32"])
+
+
+def test_plain_version_is_dense_attention():
+    q, k, v, mask = (torch.from_numpy(x) for x in _mk(2, 2, 40, 64, seed=3, fully_masked=True))
+    for causal in (False, True):
+        torch.testing.assert_close(
+            flash.flash_attention_plain(q, k, v, mask, causal),
+            dense_attention(q, k, v, mask, causal), rtol=0, atol=0,
+        )
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v, mask = (torch.from_numpy(x) for x in _mk(2, 2, 15, 32, seed=1))
+    with pytest.raises(ValueError, match="head dim"):
+        flash.flash_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                              v[..., :24].contiguous(), mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, mask)
+    with pytest.raises(ValueError, match="kv_mask"):
+        flash.flash_attention(q, k, v, mask.float())
+    with pytest.raises(TypeError, match="dtype"):
+        flash.flash_attention(q.half(), k.half(), v.half(), mask)
+    with pytest.raises(ValueError, match="equal"):
+        flash.flash_attention(q, k[:, :, :10].contiguous(), v, mask)
+    # neither cpu nor cuda: no silent fallback to the plain version
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"), mask.to("meta"))
+
+
+def test_warps_per_block():
+    assert [flash.warps_for(n) for n in (1, 15, 16, 17, 32, 33, 4096)] == [1, 1, 1, 2, 2, 4, 4]

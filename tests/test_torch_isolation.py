@@ -1,0 +1,39 @@
+"""The torch port stands alone: importing every module of
+dragonfly2_tpu_torch, and chip_smoke.py, loads no jax, flax or
+dragonfly2_tpu module."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import dragonfly2_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(dragonfly2_tpu_torch.__path__, "dragonfly2_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "dragonfly2_tpu")
+)
+print(f"MODULES={len(names)}")
+print(f"TORCH={'torch' in sys.modules}")
+print(f"BAD={','.join(bad)}")
+"""
+
+
+def test_port_imports_no_jax_flax_or_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    lines = dict(line.partition("=")[::2] for line in out.stdout.splitlines())
+    assert int(lines["MODULES"]) >= 20  # every module of the slice was imported
+    assert lines["TORCH"] == "True"
+    assert lines["BAD"] == "", f"port pulled in: {lines['BAD']}"
