@@ -14,8 +14,10 @@ result line:
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs, at the served shape and at long-context shapes, with the
    kernel's, the plain version's and a PyTorch library call's times
-   (CUDA events) beside the bound the card allows.
-4. main path: a full-width AttentionRanker (hidden 128, 4 heads, 2 layers)
+   (CUDA events) beside the bound the card allows. The training kernels
+   (forward with lse, dK/dV, dQ) the same, at the trained shape
+   [256, 4, 20, 32] and at the long shapes.
+4. serving path (slice 1): a full-width AttentionRanker (hidden 128, 4 heads, 2 layers)
    from a seeded generator, published to the port's bucket registry under
    a temporary fs:// location and activated, served by InferenceRPCServer
    on 127.0.0.1 with a ModelServer on cuda, and queried with
@@ -24,7 +26,17 @@ result line:
    read just after; every request must go through the kernel once per
    layer. The answers are checked against the in-process score_set (bit
    for bit) and against the same params on the CPU with the plain version.
-5. the kernels JSON line and, last, the result line.
+5. training path (slice 2): a 20,000-record trace on 10,000 hosts from the
+   port's synth (bench_trainer.py's trace), train_attention on cuda at the
+   trainer's defaults (batch 256, lr 1e-3, hidden 128) for 3 epochs, the
+   trained version published and activated as parent-ranker-attention and
+   served over ModelInfer on held-out rows. Counters are zeroed before the
+   training and again before the serving; every step must launch each
+   training kernel once per layer. Checks: finite losses, the first steps
+   replayed on the CPU with the plain versions, one step's gradients cuda
+   against cpu, wire scores equal to score_set bit for bit; prints the
+   throughput, the step p50 and a profiler breakdown of a step.
+6. the kernels JSON line and, last, the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -52,6 +64,22 @@ KERNEL_ATOL, KERNEL_RTOL = 3e-2, 2e-2
 # full ranker, cuda (kernel, cuBLAS bf16) vs cpu (plain version): bf16
 # rounding at every layer, the same family as tests/test_attention.py
 MODEL_ATOL, MODEL_RTOL = 5e-2, 5e-2
+# backward kernels vs their plain version: bf16 rounding of q, k, v, dO, P
+# and dS before the tensor cores, summed over up to L keys or queries
+GRAD_ATOL, GRAD_RTOL = 5e-2, 5e-2
+# the training path: bench_trainer.py's trace and the trainer's defaults
+TRACE_HOSTS, TRACE_RECORDS, TRACE_TASKS, MAX_PARENTS = 10_000, 20_000, 512, 20
+TRAIN_EPOCHS = 3
+REPLAY_STEPS = 8
+# cuda (kernels, bf16 cuBLAS) vs cpu (plain versions) over the first steps
+# from the same weights and batches: bf16 rounding at every layer of a
+# listwise loss of ~2.5
+REPLAY_LOSS_ATOL = 2e-2
+# one step's gradient per parameter, cuda vs cpu, relative to the
+# parameter's largest gradient element
+GRAD_REL = 5e-2
+SHIFT_INVARIANT = ("score.bias", "LayerNorm_0.bias")
+SERVE_ROWS, SERVE_REQUESTS = 256, 4  # ModelInfer requests of held-out rows
 CANDIDATES = 15  # FILTER_PARENT_LIMIT
 TASK_BUCKETS = (64, 256, 1024)  # the scheduler's eval buckets
 REQUESTS_PER_BUCKET = 6
@@ -75,6 +103,40 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def _kernels_of(prof, calls: int):
+    """(kernel name, device ms per call) from a profiler window, user
+    annotations (whose ranges overlap the kernels) left out."""
+    import torch
+
+    return sorted(
+        ((e.key, e.self_device_time_total / calls / 1e3) for e in prof.key_averages()
+         if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)),
+        key=lambda kv: -kv[1],
+    )
+
+
+def _kernel_ms(fn, symbol: str, calls: int = 20):
+    """Device time of one launch of the kernel named ``symbol`` under ``fn``
+    (torch.profiler): the kernel's own execution, where ``_time_ms`` at a
+    small shape measures the back-to-back call rate of its wrapper."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    found = [ms for key, ms in _kernels_of(prof, calls) if symbol in key]
+    return sum(found) if found else None
 
 
 def phase_device():
@@ -128,20 +190,23 @@ def _attention_inputs(gen, b, h, l, d, dtype, fully_masked_rows):
     return q, k, v, mask
 
 
-def _bound(q, mask, causal):
+def _bound(q, mask, causal, matrices=4, row_stats=0, ops_per_pair=4):
     """Least time for the function on this card: each input read once and
-    the output written once, or the products over the valid (query, key)
-    pairs of this run's mask at the dtype's peak — whichever is larger."""
+    each output written once (``matrices`` [B, H, L, D] tensors of q's
+    dtype, ``row_stats`` [B, H, L] float32 rows, the mask), or the products
+    over the valid (query, key) pairs of this run's mask at the dtype's
+    peak (``ops_per_pair`` * D operations per pair and head) — whichever is
+    larger. The forward: 4 matrices (q, k, v, o), 4 D per pair."""
     import torch
 
     b, h, l, d = q.shape
-    nbytes = 4 * q.numel() * q.element_size() + mask.numel()
+    nbytes = matrices * q.numel() * q.element_size() + row_stats * b * h * l * 4 + mask.numel()
     m = mask.to(torch.int64)
     if causal:
         pairs = int(torch.cumsum(m, dim=1).sum().item())
     else:
         pairs = int((m.sum(dim=1) * l).sum().item())
-    ops = 4 * d * h * pairs
+    ops = ops_per_pair * d * h * pairs
     mem_s = nbytes / PEAK_BYTES_PER_S
     ops_s = ops / PEAK_OPS_PER_S[str(q.dtype).removeprefix("torch.")]
     return max(mem_s, ops_s) * 1e3, ("bytes" if mem_s >= ops_s else "operations")
@@ -193,15 +258,180 @@ def phase_kernels():
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask), iters
         )
         bound_ms, bound_by = _bound(q, mask, causal)
+        kernel_ms = _kernel_ms(lambda: flash.flash_attention(q, k, v, mask, causal),
+                               "flash_fwd_kernel")
         results[name] = dict(
             shape=[b, h, l, d], causal=causal, dtype=str(dtype).removeprefix("torch."),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
         )
         print(f"kernel flash_fwd {name} {[b, h, l, d]} causal={causal} "
               f"{results[name]['dtype']}: max_abs_err {err:.3g} (no mask {no_mask_err:.3g}; "
-              f"atol {KERNEL_ATOL} rtol {KERNEL_RTOL}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+              f"atol {KERNEL_ATOL} rtol {KERNEL_RTOL}) ms {ms:.4f} (kernel {_fmt(kernel_ms)}) "
+              f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} "
+              f"({bound_by})")
+    return results
+
+
+TRAINING_KERNELS = ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")
+_COUNTERS = {
+    "flash_fwd": "LAUNCHES",
+    "flash_fwd_lse": "LSE_LAUNCHES",
+    "flash_bwd_dkv": "DKV_LAUNCHES",
+    "flash_bwd_dq": "DQ_LAUNCHES",
+}
+
+
+def _zero_counts() -> None:
+    from dragonfly2_tpu_torch.ops import flash
+
+    for counter in _COUNTERS.values():
+        setattr(flash, counter, 0)
+
+
+def _counts() -> dict:
+    from dragonfly2_tpu_torch.ops import flash
+
+    return {name: getattr(flash, counter) for name, counter in _COUNTERS.items()}
+
+
+def _library_fwd_lse_ms(q, k, v, mask, causal, iters):
+    """PyTorch's memory-efficient attention asked for its logsumexp too,
+    the one library call with the lse kernel's outputs; None where it
+    refuses these inputs."""
+    import torch
+
+    l = q.shape[2]
+    # the library wants the bias rows 8-element aligned: pad, then slice
+    bias = torch.zeros(q.shape[0], 1, l, l + (-l) % 8, device="cuda", dtype=q.dtype)[..., :l]
+    valid = mask[:, None, None, :]
+    if causal:
+        valid = valid & torch.ones(q.shape[2], q.shape[2], dtype=torch.bool, device="cuda").tril()
+    bias = bias.masked_fill_(~valid, float("-inf")).expand(-1, q.shape[1], -1, -1)
+    call = torch.ops.aten._scaled_dot_product_efficient_attention
+    try:
+        call(q, k, v, bias, True)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"library forward with lse refused {list(q.shape)}: {str(e).splitlines()[0][:120]}")
+        return None
+    return _time_ms(lambda: call(q, k, v, bias, True), iters)
+
+
+def phase_training_kernels():
+    """The training kernels against their plain versions: the forward with
+    lse (o and lse), and from the same o and lse, the dK/dV and dQ kernels.
+    Rows at the trained shape (with fully masked rows) and at slice 1's
+    long shapes. plain_ms of both backward rows is the plain backward,
+    which computes dq, dk and dv in one function; library_ms of both is
+    the backward of scaled_dot_product_attention (all three gradients),
+    to be set against the sum of the two kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    from dragonfly2_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    shapes = [
+        # name, (B, H, L, D), causal, dtype, fully masked rows, timing iters
+        ("trained", (256, 4, 20, 32), False, torch.bfloat16, True, 200),
+        ("long", (2, 4, 4096, 32), False, torch.bfloat16, False, 10),
+        ("long-causal", (2, 4, 4096, 32), True, torch.bfloat16, False, 10),
+        ("wide", (4, 8, 2048, 128), False, torch.bfloat16, False, 10),
+    ]
+    results = {name: {} for name in TRAINING_KERNELS}
+    for label, (b, h, l, d), causal, dtype, fully, iters in shapes:
+        q, k, v, mask = _attention_inputs(gen, b, h, l, d, dtype, fully)
+        do = torch.randn(b, h, l, d, generator=gen, device="cuda").to(dtype)
+        dead = ~mask.any(dim=1)
+
+        o, lse = flash.flash_attention_lse(q, k, v, mask, causal)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = flash.flash_attention_lse_plain(q, k, v, mask, causal)
+        seen = ref_lse > -1e20  # rows with a valid key
+        o_err = float((o.float() - ref_o.float()).abs().max().item())
+        lse_err = float((lse[seen] - ref_lse[seen]).abs().max().item())
+        if not (torch.allclose(o.float(), ref_o.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+                and torch.allclose(lse[seen], ref_lse[seen], atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+                and torch.isfinite(lse).all()):
+            _fail(f"flash_fwd_lse {label}: o err {o_err}, lse err {lse_err} outside "
+                  f"atol {KERNEL_ATOL} rtol {KERNEL_RTOL}")
+
+        delta = (do.float() * o.float()).sum(-1)
+        dk, dv = flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do, causal)
+        dq = flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, causal)
+        torch.cuda.synchronize()
+        ref_dq, ref_dk, ref_dv = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, causal)
+        errs = {}
+        for name, got, want in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+            errs[name] = float((got.float() - want.float()).abs().max().item())
+            if not torch.allclose(got.float(), want.float(), atol=GRAD_ATOL, rtol=GRAD_RTOL):
+                _fail(f"flash_bwd {label} {name}: max_abs_err {errs[name]} outside "
+                      f"atol {GRAD_ATOL} rtol {GRAD_RTOL}")
+            if dead.any() and got[dead].abs().max().item() != 0.0:
+                _fail(f"flash_bwd {label} {name}: fully masked batch rows are not 0")
+
+        plain_fwd_ms = _time_ms(lambda: flash.flash_attention_lse_plain(q, k, v, mask, causal),
+                                max(3, iters // 4))
+        plain_bwd_ms = _time_ms(
+            lambda: flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, causal),
+            max(3, iters // 4),
+        )
+        sdpa_mask = mask[:, None, None, :]
+        if causal:
+            sdpa_mask = sdpa_mask & torch.ones(l, l, dtype=torch.bool, device="cuda").tril()
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask)
+        library_bwd_ms = _time_ms(
+            lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True), iters
+        )
+        rows = {
+            "flash_fwd_lse": dict(
+                max_abs_err=max(o_err, lse_err),
+                ms=_time_ms(lambda: flash.flash_attention_lse(q, k, v, mask, causal), iters),
+                kernel_ms=_kernel_ms(lambda: flash.flash_attention_lse(q, k, v, mask, causal),
+                                     "flash_fwd_kernel"),
+                plain_ms=plain_fwd_ms,
+                library_ms=_library_fwd_lse_ms(q, k, v, mask, causal, iters),
+                bound=_bound(q, mask, causal, matrices=4, row_stats=1, ops_per_pair=4),
+            ),
+            "flash_bwd_dkv": dict(
+                max_abs_err=max(errs["dk"], errs["dv"]),
+                ms=_time_ms(
+                    lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do, causal),
+                    iters),
+                kernel_ms=_kernel_ms(
+                    lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do, causal),
+                    "flash_bwd_dkv_kernel"),
+                plain_ms=plain_bwd_ms,
+                library_ms=library_bwd_ms,
+                bound=_bound(q, mask, causal, matrices=6, row_stats=2, ops_per_pair=8),
+            ),
+            "flash_bwd_dq": dict(
+                max_abs_err=errs["dq"],
+                ms=_time_ms(
+                    lambda: flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, causal),
+                    iters),
+                kernel_ms=_kernel_ms(
+                    lambda: flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, causal),
+                    "flash_bwd_dq_kernel"),
+                plain_ms=plain_bwd_ms,
+                library_ms=library_bwd_ms,
+                bound=_bound(q, mask, causal, matrices=5, row_stats=2, ops_per_pair=6),
+            ),
+        }
+        for name, row in rows.items():
+            bound_ms, bound_by = row.pop("bound")
+            row.update(shape=[b, h, l, d], causal=causal, dtype=str(dtype).removeprefix("torch."),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            results[name][label] = row
+            lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+            print(f"kernel {name} {label} {[b, h, l, d]} causal={causal} {row['dtype']}: "
+                  f"max_abs_err {row['max_abs_err']:.3g} ms {row['ms']:.4f} "
+                  f"(kernel {_fmt(row['kernel_ms'])}) "
+                  f"plain_ms {row['plain_ms']:.4f} library_ms {lib} "
+                  f"bound_ms {bound_ms:.4f} ({bound_by})")
+        del sdpa_out, leaves
     return results
 
 
@@ -335,11 +565,7 @@ def _breakdown(server, batch, n, wire_p50_ms):
         for _ in range(calls):
             server.score_set(*args)
         torch.cuda.synchronize()
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / calls / 1e3) for e in prof.key_averages()
-         if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA),
-        key=lambda kv: -kv[1],
-    )
+    kernels = _kernels_of(prof, calls)
     device_ms = sum(ms for _, ms in kernels)
     if device_ms == 0:
         print(f"breakdown N={n}: wire p50 {wire_p50_ms:.3f} ms, score_set p50 {direct_ms:.3f} ms; "
@@ -351,6 +577,225 @@ def _breakdown(server, batch, n, wire_p50_ms):
           f"device kernels {device_ms:.4f} ms/request in {len(kernels)} kernels "
           f"(flash_fwd {flash_ms:.4f} ms), device busy {100 * device_ms / direct_ms:.1f}% "
           f"of score_set, {100 * device_ms / wire_p50_ms:.1f}% of the wire request; top: {top}")
+
+
+async def _serve_rows(server, name, batches):
+    """ModelInfer over the RPC for each batch; (answers, latency ms)."""
+    from dragonfly2_tpu_torch.rpc.inference import InferenceClient, InferenceRPCServer
+
+    rpc = InferenceRPCServer({name: server}, host="127.0.0.1", port=0)
+    host, port = await rpc.start()
+    client = await InferenceClient(host, port).connect()
+    answers, latency_ms = [], []
+    try:
+        if not await client.model_ready(name):
+            _fail(f"ModelReady answered false for {name} after activation")
+        for i, batch in enumerate(batches):
+            start = time.perf_counter()
+            out = await client.model_infer(name, batch, request_id=f"smoke-trained-{i}")
+            latency_ms.append((time.perf_counter() - start) * 1e3)
+            answers.append(out["scores"])
+    finally:
+        await client.close()
+        await rpc.stop()
+    return answers, latency_ms
+
+
+def _step_breakdown(trainer, idx, steps: int = 20):
+    """A training step's time: p50 over synchronised steps (host clock),
+    then a torch.profiler window for the device-busy share and the kernels
+    that take the most device time per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    times = []
+    for i in range(steps):
+        start = time.perf_counter()
+        trainer.step(idx[i % len(idx)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    p50 = statistics.median(times[3:])
+    window = 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for i in range(window):
+            trainer.step(idx[i % len(idx)])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3 / window
+    kernels = _kernels_of(prof, window)
+    device_ms = sum(ms for _, ms in kernels)
+    if device_ms == 0:
+        print(f"training step: p50 {p50:.3f} ms over {len(times) - 3} synchronised steps; "
+              "device time not measured (the profiler saw no device activity)")
+        return {"step_p50_ms": p50}
+    shares = {
+        label: sum(ms for key, ms in kernels if symbol in key)
+        for label, symbol in (("forward with lse", "flash_fwd_kernel"),
+                              ("dK/dV", "flash_bwd_dkv_kernel"), ("dQ", "flash_bwd_dq_kernel"))
+    }
+    top = "; ".join(f"{key[:60]} {ms:.4f}" for key, ms in kernels[:6])
+    print(f"training step: p50 {p50:.3f} ms over {len(times) - 3} synchronised steps; "
+          f"profiled {wall_ms:.3f} ms/step, device kernels {device_ms:.4f} ms/step in "
+          f"{len(kernels)} kernels, device busy {100 * device_ms / wall_ms:.1f}%; "
+          + ", ".join(f"{label} {ms:.4f} ms ({100 * ms / device_ms:.1f}%)"
+                      for label, ms in shares.items())
+          + f" of device time per step; top: {top}")
+    return {"step_p50_ms": p50, "device_ms": device_ms, "profiled_step_ms": wall_ms}
+
+
+def phase_training():
+    """Slice 2's main path: trace -> train_attention on cuda -> publish ->
+    serve over ModelInfer. Returns the launch counts of the training run
+    and of the serving run."""
+    import torch
+
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.models import metrics
+    from dragonfly2_tpu_torch.records import synth
+    from dragonfly2_tpu_torch.records.features import downloads_to_ranking_dataset
+    from dragonfly2_tpu_torch.registry import ModelEvaluation, ModelServer, open_registry
+    from dragonfly2_tpu_torch.registry.registry import MODEL_TYPE_ATTENTION
+    from dragonfly2_tpu_torch.training import data, train
+
+    start = time.perf_counter()
+    cluster = synth.make_cluster(TRACE_HOSTS, seed=SEED)
+    records = synth.gen_download_records(
+        cluster, TRACE_RECORDS, num_tasks=TRACE_TASKS, max_parents=MAX_PARENTS
+    )
+    ds, graph = downloads_to_ranking_dataset(records, max_parents=MAX_PARENTS)
+    print(f"trace: {len(records)} download records on {len(graph.host_ids)} hosts "
+          f"({TRACE_HOSTS} in the cluster), {TRACE_TASKS} tasks, parents {list(ds.parents.shape)}, "
+          f"valid candidates {int(ds.mask.sum())}; synth + features {time.perf_counter() - start:.1f} s "
+          "(host)")
+
+    config = TrainerConfig(epochs=TRAIN_EPOCHS)
+    layers = config.attention_num_layers
+    _zero_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = train.train_attention(ds, config, seed=SEED)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - start
+    train_counts = _counts()
+    expected = {"flash_fwd": layers, **{k: result.steps * layers for k in TRAINING_KERNELS}}
+    print(f"training: {result.steps} steps of batch {config.batch_size} over {TRAIN_EPOCHS} epochs "
+          f"in {train_s:.2f} s; launches {train_counts} (expected {expected}: steps x layers for "
+          "each training kernel, one eval batch x layers for the finished forward)")
+    if train_counts != expected:
+        _fail(f"training launches {train_counts}, expected {expected}")
+    if not np.isfinite(result.losses).all():
+        _fail("non-finite training loss")
+
+    # the split, the eval rows and the batches of the first epoch, as
+    # train_attention drew them
+    rng = np.random.default_rng(SEED)
+    eval_idx, train_idx = train._train_eval_split(rng.permutation(len(ds.mask)), 0.2)
+    batch_size = min(config.batch_size, len(train_idx))
+    first_epoch = np.stack(list(data.minibatches(len(train_idx), batch_size, rng)))
+    eb = train.take(ds, eval_idx)
+    chance = metrics.top1_selection_stats(
+        np.random.default_rng(SEED).random(eb["mask"].shape, dtype=np.float32),
+        eb["throughput"], eb["mask"],
+    )
+    em = result.eval_metrics
+    print(f"training throughput: {result.samples_per_sec:.1f} samples/s steady state (epochs after the first), "
+          f"peak epoch {result.peak_samples_per_sec:.1f}; loss first {result.losses[0]:.4f} "
+          f"last {result.losses[-1]:.4f}; eval on {len(eval_idx)} held-out rows: precision "
+          f"{em['precision']:.4f} (random picks {float(chance['precision']):.4f}), recall "
+          f"{em['recall']:.4f} of a ceiling {em['recall_ceiling']:.4f}, f1 {em['f1']:.4f}, "
+          f"regret {em['regret']:.4f} (random picks {float(chance['regret']):.4f}); "
+          f"analytic {result.analytic_flops_per_sample / 1e6:.2f} MFLOP/sample")
+
+    # the first steps again on the CPU from the same weights and batches
+    rows = train.take(ds, train_idx)
+    in_features = sum(rows[key].shape[-1] for key in ("parents", "child", "pair"))
+    cpu = train.AttentionTrainer(
+        train.build_ranker(config, in_features, SEED, None, "cpu"), rows, config.learning_rate, "cpu"
+    )
+    replay = [cpu.step(torch.from_numpy(i)).item() for i in first_epoch[:REPLAY_STEPS]]
+    replay_err = float(np.abs(np.array(replay) - np.array(result.losses[:len(replay)])).max())
+    print(f"cpu replay of the first {len(replay)} steps (plain versions): max loss difference "
+          f"{replay_err:.3g} (atol {REPLAY_LOSS_ATOL})")
+    if replay_err > REPLAY_LOSS_ATOL:
+        _fail(f"cpu replay loss differs by {replay_err}")
+
+    # one step's gradients, cuda against cpu, from the same weights
+    grads = {}
+    for device in ("cuda", "cpu"):
+        trainer = train.AttentionTrainer(
+            train.build_ranker(config, in_features, SEED, None, device), rows,
+            config.learning_rate, device,
+        )
+        trainer.loss(torch.from_numpy(first_epoch[0]).to(device)).backward()
+        grads[device] = {n: prm.grad.float().cpu() for n, prm in trainer.model.named_parameters()}
+    # the score head's and the last LayerNorm's biases shift a row's scores
+    # alike, which the listwise loss ignores: their true gradient is 0
+    largest = max(float(g.abs().max()) for g in grads["cpu"].values())
+    worst = max(
+        (float((grads["cuda"][n] - g).abs().max()) / float(g.abs().max()), n)
+        for n, g in grads["cpu"].items() if n not in SHIFT_INVARIANT
+    )
+    zero = max(float(grads[d][n].abs().max()) for d in grads for n in SHIFT_INVARIANT) / largest
+    print(f"one step's gradients, cuda vs cpu: worst parameter {worst[1]} at {worst[0]:.3g} of its "
+          f"largest element (limit {GRAD_REL}) over {len(grads['cpu']) - len(SHIFT_INVARIANT)} "
+          f"parameters; the shift-invariant biases at {zero:.3g} of the largest gradient (limit 1e-3)")
+    if worst[0] > GRAD_REL or zero > 1e-3:
+        _fail(f"gradient of {worst[1]} differs by {worst[0]} of its scale (shift-invariant {zero})")
+
+    # a steady step's time and where it goes (outside the counted run)
+    steady = train.AttentionTrainer(
+        train.build_ranker(config, in_features, SEED, result.params, "cuda"), rows,
+        config.learning_rate, "cuda",
+    )
+    breakdown = _step_breakdown(steady, torch.from_numpy(first_epoch).cuda())
+
+    name, host_id = "parent-ranker-attention", "chip-smoke-trainer"
+    with tempfile.TemporaryDirectory(prefix="dfly-smoke-train-") as tmp:
+        registry = open_registry(f"fs://models/smoke?base_dir={tmp}")
+        version = registry.create_model_version(
+            name, MODEL_TYPE_ATTENTION, host_id, result.params,
+            ModelEvaluation(recall=em["recall"], precision=em["precision"], f1_score=em["f1"]),
+            metadata={
+                "steps": result.steps,
+                "final_loss": result.losses[-1],
+                "samples_per_sec": result.samples_per_sec,
+                "hidden_dim": config.hidden_dim,
+                "recall_ceiling": em["recall_ceiling"],
+                "num_downloads": len(records),
+                "num_heads": 4,
+                "num_layers": layers,
+            },
+        )
+        registry.activate(version.model_id, version.version)
+        server = ModelServer(registry, name, host_id, MODEL_TYPE_ATTENTION, device="cuda")
+        batches = []
+        for i in range(SERVE_REQUESTS):
+            rows_i = train.take(ds, eval_idx[i * SERVE_ROWS:(i + 1) * SERVE_ROWS])
+            batches.append({"child_feats": rows_i["child"], "parent_feats": rows_i["parents"],
+                            "pair_feats": rows_i["pair"], "mask": rows_i["mask"]})
+        _zero_counts()
+        answers, latency_ms = asyncio.run(_serve_rows(server, name, batches))
+        serve_counts = _counts()
+        if server.version != version.version:
+            _fail(f"served version {server.version}, published {version.version}")
+        want = {"flash_fwd": SERVE_REQUESTS * layers, **{k: 0 for k in TRAINING_KERNELS}}
+        if serve_counts != want:
+            _fail(f"serving the trained version launched {serve_counts}, expected {want}")
+        for batch, wire in zip(batches, answers):
+            mask = batch["mask"]
+            direct = server.score_set(
+                batch["child_feats"], batch["parent_feats"], batch["pair_feats"], mask
+            ).cpu().numpy()
+            if not np.array_equal(wire, direct):
+                _fail("trained version: wire scores differ from the in-process score_set")
+            if not np.isfinite(wire[mask]).all() or not (wire[~mask] == np.float32(-1e30)).all():
+                _fail("trained version: bad scores at valid or invalid slots")
+        print(f"served {name} v{version.version} over ModelInfer: {SERVE_REQUESTS} requests of "
+              f"{SERVE_ROWS} held-out rows x {MAX_PARENTS} candidates, p50 "
+              f"{statistics.median(latency_ms[1:]):.3f} ms (first {latency_ms[0]:.3f} ms), "
+              f"flash_fwd launches {serve_counts['flash_fwd']} (= requests x layers); "
+              "wire == score_set bit for bit")
+    return train_counts, serve_counts, result, breakdown
 
 
 def main() -> None:
@@ -367,24 +812,42 @@ def main() -> None:
     phase_device()
     phase_build()
     kernels = phase_kernels()
+    training_kernels = phase_training_kernels()
     launches = phase_main_path()
+    train_counts, serve_counts, _, _ = phase_training()
 
-    served = kernels["served"]
-    line = {"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "dragonfly2_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "dragonfly2_tpu/ops/flash.py:71",
-        "launches": launches,
-        "max_abs_err": served["max_abs_err"],
-        "ms": served["ms"],
-        "plain_ms": served["plain_ms"],
-        "bound_ms": served["bound_ms"],
-        "bound_by": served["bound_by"],
-        "library_ms": served["library_ms"],
-        "shape": served["shape"],
-        "other_shapes": {k: v for k, v in kernels.items() if k != "served"},
-    }]}
+    def entry(name, source, replaces, count, rows, main_shape):
+        row = rows[main_shape]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": count,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "kernel_ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": row["shape"],
+            "other_shapes": {k: v for k, v in rows.items() if k != main_shape},
+        }
+
+    # launches: every main path's count, each read just after its run
+    # (slice 1's serving; slice 2's training, then its serving)
+    fwd_launches = launches + train_counts["flash_fwd"] + serve_counts["flash_fwd"]
+    fwd_src, bwd_src = "dragonfly2_tpu_torch/csrc/flash_fwd.cu", "dragonfly2_tpu_torch/csrc/flash_bwd.cu"
+    line = {"kernels": [
+        entry("flash_fwd", fwd_src, "dragonfly2_tpu/ops/flash.py:71", fwd_launches, kernels, "served"),
+        entry("flash_fwd_lse", fwd_src, "dragonfly2_tpu/ops/flash.py:186",
+              train_counts["flash_fwd_lse"], training_kernels["flash_fwd_lse"], "trained"),
+        entry("flash_bwd_dkv", bwd_src, "dragonfly2_tpu/ops/flash.py:418",
+              train_counts["flash_bwd_dkv"], training_kernels["flash_bwd_dkv"], "trained"),
+        entry("flash_bwd_dq", bwd_src, "dragonfly2_tpu/ops/flash.py:474",
+              train_counts["flash_bwd_dq"], training_kernels["flash_bwd_dq"], "trained"),
+    ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

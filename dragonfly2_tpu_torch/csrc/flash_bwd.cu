@@ -1,0 +1,521 @@
+// Flash-attention backward for Hopper (sm_90a): the dK/dV and dQ kernels.
+//
+// Replaces the TPU kernels dragonfly2_tpu/ops/flash.py::_flash_bwd_dkv_kernel
+// (:418, launched by the pallas_call at :615) and ::_flash_bwd_dq_kernel
+// (:474, pallas_call at :667), the backward of the reference's custom_vjp.
+// Given q, k, v, dO [B, H, L, D], the forward's lse and delta = rowsum(dO*o)
+// [B, H, L] float32, and a [B, L] key-validity mask (or none), per tile:
+//   P  = exp2(S log2(e)/sqrt(D) - lse log2(e)) on valid pairs, 0 elsewhere
+//   dV = P^T dO;  dS = P (dO V^T - delta);  dK = dS^T Q / sqrt(D);  dQ = dS K / sqrt(D)
+// Head dims 16, 32, 64, 128; bf16 or float32 in, gradients in the input dtype.
+//
+// What bounds it on an H100: at the trained shape, [256, 4, 20, 32] bf16,
+// dK/dV reads q, dO, k, v, lse and delta and writes dK, dV: 8.0 MB, ~2.4 us
+// at 3.35 TB/s, against at most 0.1 GFLOP (8 D operations per valid pair
+// per head: S, dP, dV, dK), ~0.1 us at the 989 TFLOP/s bf16 peak. dQ moves
+// 6.7 MB (~2.0 us) for 6 D operations per pair. Both are bound by bytes
+// (and, at 20 keys a set, by launch and latency); at long L the products
+// dominate.
+//
+// Design (not the TPU's grid; its _pick_blocks_bwd tiling does not carry
+// over):
+// - dK/dV: one block per (16*WARPS keys, head, batch). Each warp owns 16
+//   keys and keeps their dK and dV in float32 registers through a loop over
+//   query tiles, the loop that replaces the TPU's innermost "arbitrary" grid
+//   dimension; each is written once. The block's K and V rows, and per
+//   query tile Q, dO, lse and delta, are staged in shared memory as bf16 (a
+//   float32 input is rounded there, as the forward does). S^T = K Q^T and
+//   dP^T = V dO^T take the keys as the M dimension, so P^T and dS^T come out
+//   in accumulator layout and feed dV += P^T dO and dK += dS^T Q as A
+//   fragments without leaving registers.
+// - dQ: one block per (16*WARPS query rows, head, batch); each warp keeps 16
+//   rows of dQ in float32 registers through a loop over key tiles.
+// - Every product runs on the tensor cores (mma.sync m16n8k16, bf16 in,
+//   float32 accumulate), as in the forward. WARPS (1, 2 or 4) comes from L,
+//   so a 20-key set does not launch idle warps. The swept tile is 32 rows
+//   (16 at D = 128, which keeps the static shared memory under 48 KB).
+// - Validity (key mask, causal, rows past L) gates P explicitly, never the
+//   exponential of a masked score: a fully masked row carries a filler lse.
+// - Causal: the dK/dV loop starts at the first query tile that reaches the
+//   block's keys; the dQ loop stops after the block's last query row.
+// - Deterministic: every output element is summed by one thread in a fixed
+//   order, with no atomics.
+// wgmma/TMA pipelining is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, __nv_bfloat16* dst) {
+  *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
+}
+
+// lower 16 bits hold the element with the smaller k index
+__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  return pack(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+__device__ __forceinline__ void load8(const float* src, __nv_bfloat16* dst) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(pack(a.x, a.y), pack(a.z, a.w), pack(b.x, b.y), pack(b.z, b.w));
+}
+
+__device__ __forceinline__ void zero8(__nv_bfloat16* dst) {
+  *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float x, float y) {
+  *reinterpret_cast<uint32_t*>(dst) = pack(x, y);
+}
+
+__device__ __forceinline__ void store2(float* dst, float x, float y) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+}
+
+// two consecutive bf16 in shared memory as one 32-bit fragment register
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// rows [r0, r0 + ROWS) of a contiguous [L, D] matrix into shared memory as
+// bf16 with row stride D + 8 (conflict-free fragment loads); rows past L are 0
+template <typename T, int D, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int r0, int L,
+                                           __nv_bfloat16* dst, int tid) {
+  constexpr int LDS = D + 8;
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks per bf16 row
+  for (int i = tid; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS;
+    const int c = (i % CHUNKS) * 8;
+    const int row = r0 + r;
+    if (row < L) {
+      load8(src + static_cast<size_t>(row) * D + c, dst + r * LDS + c);
+    } else {
+      zero8(dst + r * LDS + c);
+    }
+  }
+}
+
+// A fragment (16x16, row-major) of rows row0.. and columns kk*16.. of a
+// shared matrix
+template <int LDS>
+__device__ __forceinline__ void frag_a(const __nv_bfloat16* s, int row0, int kk, int g, int t,
+                                       uint32_t a[4]) {
+  const __nv_bfloat16* base = s + (row0 + g) * LDS + kk * 16 + 2 * t;
+  a[0] = ld32(base);
+  a[1] = ld32(base + 8 * LDS);
+  a[2] = ld32(base + 8);
+  a[3] = ld32(base + 8 * LDS + 8);
+}
+
+// B fragment (16x8) with B[k][n] = M[n0 + n][kk*16 + k]: the product runs
+// along M's rows (as Q K^T runs along K's)
+template <int LDS>
+__device__ __forceinline__ void frag_b_rows(const __nv_bfloat16* m, int n0, int kk, int g, int t,
+                                            uint32_t& b0, uint32_t& b1) {
+  const __nv_bfloat16* base = m + (n0 + g) * LDS + kk * 16 + 2 * t;
+  b0 = ld32(base);
+  b1 = ld32(base + 8);
+}
+
+// B fragment (16x8) with B[k][n] = M[k0 + k][n0 + n]: the product runs down
+// M's columns (as P V runs down V's)
+template <int LDS>
+__device__ __forceinline__ void frag_b_cols(const __nv_bfloat16* m, int k0, int n0, int g, int t,
+                                            uint32_t& b0, uint32_t& b1) {
+  const __nv_bfloat16* base = m + (k0 + 2 * t) * LDS + n0 + g;
+  b0 = pack(base[0], base[LDS]);
+  b1 = pack(base[8 * LDS], base[9 * LDS]);
+}
+
+// the accumulators of two adjacent 16x8 tiles as the A fragment of one
+// 16-wide k step
+__device__ __forceinline__ void c_to_a(const float lo[4], const float hi[4], uint32_t a[4]) {
+  a[0] = pack(lo[0], lo[1]);
+  a[1] = pack(lo[2], lo[3]);
+  a[2] = pack(hi[0], hi[1]);
+  a[3] = pack(hi[2], hi[3]);
+}
+
+template <typename T, int D, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, const uint8_t* __restrict__ mask,
+                     T* __restrict__ dk, T* __restrict__ dv, int H, int L, int num_kblocks,
+                     int causal, float scale_log2, float scale) {
+  constexpr int BN = 16 * WARPS;          // keys per block
+  constexpr int BQ = D == 128 ? 16 : 32;  // queries per staged tile
+  constexpr int THREADS = WARPS * 32;
+  constexpr int LDS = D + 8;
+  constexpr int NT = BQ / 8;  // 8-query column tiles of S^T
+
+  __shared__ __align__(16) __nv_bfloat16 sK[BN * LDS];
+  __shared__ __align__(16) __nv_bfloat16 sV[BN * LDS];
+  __shared__ __align__(16) __nv_bfloat16 sQ[BQ * LDS];
+  __shared__ __align__(16) __nv_bfloat16 sdO[BQ * LDS];
+  __shared__ float sLse[BQ];  // lse * log2(e)
+  __shared__ float sDelta[BQ];
+
+  const int kb = blockIdx.x % num_kblocks;
+  const int bh = blockIdx.x / num_kblocks;
+  const int b = bh / H;
+  const size_t head = static_cast<size_t>(bh) * L * D;
+  const float* lh = lse + static_cast<size_t>(bh) * L;
+  const float* dh = delta + static_cast<size_t>(bh) * L;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(b) * L : nullptr;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // fragment row within the 8-row group
+  const int t = lane & 3;   // thread within the quad
+  const int k0 = kb * BN;
+  const int key_lo = k0 + warp * 16 + g;
+  const int key_hi = key_lo + 8;
+  const bool ok_lo = key_lo < L && (mb == nullptr || mb[key_lo] != 0);
+  const bool ok_hi = key_hi < L && (mb == nullptr || mb[key_hi] != 0);
+
+  stage_rows<T, D, BN, THREADS>(k + head, k0, L, sK, tid);
+  stage_rows<T, D, BN, THREADS>(v + head, k0, L, sV, tid);
+
+  float acc_dk[D / 8][4];
+  float acc_dv[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[dn][e] = acc_dv[dn][e] = 0.f;
+  }
+
+  // causal: queries before the block's first key see none of its keys
+  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
+  for (int q0 = q_begin; q0 < L; q0 += BQ) {
+    __syncthreads();  // every warp is done with the previous tile
+    stage_rows<T, D, BQ, THREADS>(q + head, q0, L, sQ, tid);
+    stage_rows<T, D, BQ, THREADS>(dout + head, q0, L, sdO, tid);
+    for (int i = tid; i < BQ; i += THREADS) {
+      const int row = q0 + i;
+      sLse[i] = row < L ? lh[row] * LOG2E : 0.f;
+      sDelta[i] = row < L ? dh[row] : 0.f;
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries per warp
+    float s[NT][4];
+    float dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      frag_a<LDS>(sK, warp * 16, kk, g, t, ka);
+      frag_a<LDS>(sV, warp * 16, kk, g, t, va);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t b0, b1;
+        frag_b_rows<LDS>(sQ, nt * 8, kk, g, t, b0, b1);
+        mma_bf16(s[nt], ka, b0, b1);
+        frag_b_rows<LDS>(sdO, nt * 8, kk, g, t, b0, b1);
+        mma_bf16(dp[nt], va, b0, b1);
+      }
+    }
+
+    // P^T and dS^T in place; rows are keys, columns queries
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = nt * 8 + 2 * t + (e & 1);
+        const int query = q0 + ql;
+        const int key = (e < 2) ? key_lo : key_hi;
+        const bool ok = ((e < 2) ? ok_lo : ok_hi) && query < L && (!causal || key <= query);
+        const float p = ok ? exp2f(s[nt][e] * scale_log2 - sLse[ql]) : 0.f;
+        s[nt][e] = p;
+        dp[nt][e] = p * (dp[nt][e] - sDelta[ql]);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, the queries as the k dimension
+#pragma unroll
+    for (int ks = 0; ks < BQ / 16; ++ks) {
+      uint32_t pa[4], dsa[4];
+      c_to_a(s[2 * ks], s[2 * ks + 1], pa);
+      c_to_a(dp[2 * ks], dp[2 * ks + 1], dsa);
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        uint32_t b0, b1;
+        frag_b_cols<LDS>(sdO, ks * 16, dn * 8, g, t, b0, b1);
+        mma_bf16(acc_dv[dn], pa, b0, b1);
+        frag_b_cols<LDS>(sQ, ks * 16, dn * 8, g, t, b0, b1);
+        mma_bf16(acc_dk[dn], dsa, b0, b1);
+      }
+    }
+  }
+
+  T* dkh = dk + head;
+  T* dvh = dv + head;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + 2 * t;
+    if (key_lo < L) {
+      const size_t at = static_cast<size_t>(key_lo) * D + col;
+      store2(dkh + at, acc_dk[dn][0] * scale, acc_dk[dn][1] * scale);
+      store2(dvh + at, acc_dv[dn][0], acc_dv[dn][1]);
+    }
+    if (key_hi < L) {
+      const size_t at = static_cast<size_t>(key_hi) * D + col;
+      store2(dkh + at, acc_dk[dn][2] * scale, acc_dk[dn][3] * scale);
+      store2(dvh + at, acc_dv[dn][2], acc_dv[dn][3]);
+    }
+  }
+}
+
+template <typename T, int D, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const uint8_t* __restrict__ mask,
+                    T* __restrict__ dq, int H, int L, int num_qblocks, int causal,
+                    float scale_log2, float scale) {
+  constexpr int BM = 16 * WARPS;          // query rows per block
+  constexpr int BK = D == 128 ? 16 : 32;  // keys per staged tile
+  constexpr int THREADS = WARPS * 32;
+  constexpr int LDS = D + 8;
+  constexpr int NT = BK / 8;  // 8-key column tiles of S
+
+  __shared__ __align__(16) __nv_bfloat16 sQ[BM * LDS];
+  __shared__ __align__(16) __nv_bfloat16 sdO[BM * LDS];
+  __shared__ __align__(16) __nv_bfloat16 sK[BK * LDS];
+  __shared__ __align__(16) __nv_bfloat16 sV[BK * LDS];
+  __shared__ float sValid[BK];
+
+  const int qb = blockIdx.x % num_qblocks;
+  const int bh = blockIdx.x / num_qblocks;
+  const int b = bh / H;
+  const size_t head = static_cast<size_t>(bh) * L * D;
+  const float* lh = lse + static_cast<size_t>(bh) * L;
+  const float* dh = delta + static_cast<size_t>(bh) * L;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(b) * L : nullptr;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q0 = qb * BM;
+  const int row_lo = q0 + warp * 16 + g;
+  const int row_hi = row_lo + 8;
+  const float lse2[2] = {row_lo < L ? lh[row_lo] * LOG2E : 0.f,
+                         row_hi < L ? lh[row_hi] * LOG2E : 0.f};
+  const float dlt[2] = {row_lo < L ? dh[row_lo] : 0.f, row_hi < L ? dh[row_hi] : 0.f};
+
+  stage_rows<T, D, BM, THREADS>(q + head, q0, L, sQ, tid);
+  stage_rows<T, D, BM, THREADS>(dout + head, q0, L, sdO, tid);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+
+  // causal: keys past the block's last query row are masked for every row
+  const int kv_end = causal ? min(L, q0 + BM) : L;
+  for (int n0 = 0; n0 < kv_end; n0 += BK) {
+    __syncthreads();  // every warp is done with the previous tile
+    stage_rows<T, D, BK, THREADS>(k + head, n0, L, sK, tid);
+    stage_rows<T, D, BK, THREADS>(v + head, n0, L, sV, tid);
+    for (int i = tid; i < BK; i += THREADS) {
+      const int key = n0 + i;
+      sValid[i] = (key < L && (mb == nullptr || mb[key] != 0)) ? 1.f : 0.f;
+    }
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: 16 rows x BK keys per warp
+    float s[NT][4];
+    float dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      frag_a<LDS>(sQ, warp * 16, kk, g, t, qa);
+      frag_a<LDS>(sdO, warp * 16, kk, g, t, da);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t b0, b1;
+        frag_b_rows<LDS>(sK, nt * 8, kk, g, t, b0, b1);
+        mma_bf16(s[nt], qa, b0, b1);
+        frag_b_rows<LDS>(sV, nt * 8, kk, g, t, b0, b1);
+        mma_bf16(dp[nt], da, b0, b1);
+      }
+    }
+
+    // dS in place of S
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = nt * 8 + 2 * t + (e & 1);
+        const int key = n0 + kl;
+        const int r = e >> 1;
+        const int row = r ? row_hi : row_lo;
+        const bool ok = sValid[kl] > 0.f && row < L && (!causal || key <= row);
+        const float p = ok ? exp2f(s[nt][e] * scale_log2 - lse2[r]) : 0.f;
+        s[nt][e] = p * (dp[nt][e] - dlt[r]);
+      }
+    }
+
+    // dQ += dS K, the keys as the k dimension
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      uint32_t dsa[4];
+      c_to_a(s[2 * ks], s[2 * ks + 1], dsa);
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        uint32_t b0, b1;
+        frag_b_cols<LDS>(sK, ks * 16, dn * 8, g, t, b0, b1);
+        mma_bf16(acc[dn], dsa, b0, b1);
+      }
+    }
+  }
+
+  T* dqh = dq + head;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + 2 * t;
+    if (row_lo < L) {
+      store2(dqh + static_cast<size_t>(row_lo) * D + col, acc[dn][0] * scale, acc[dn][1] * scale);
+    }
+    if (row_hi < L) {
+      store2(dqh + static_cast<size_t>(row_hi) * D + col, acc[dn][2] * scale, acc[dn][3] * scale);
+    }
+  }
+}
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  const uint8_t* mask;
+  void* d0;  // dK (dK/dV kernel) or dQ (dQ kernel)
+  void* d1;  // dV (dK/dV kernel)
+  int B, H, L, causal;
+};
+
+template <typename T, int D, int WARPS, bool DKV>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr int ROWS = 16 * WARPS;  // keys (dK/dV) or queries (dQ) per block
+  const int tiles = (a.L + ROWS - 1) / ROWS;
+  const long long blocks = static_cast<long long>(tiles) * a.B * a.H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale_log2 = LOG2E * scale;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  if constexpr (DKV) {
+    flash_bwd_dkv_kernel<T, D, WARPS><<<static_cast<unsigned>(blocks), WARPS * 32, 0, stream>>>(
+        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.d0), static_cast<T*>(a.d1),
+        a.H, a.L, tiles, a.causal, scale_log2, scale);
+  } else {
+    flash_bwd_dq_kernel<T, D, WARPS><<<static_cast<unsigned>(blocks), WARPS * 32, 0, stream>>>(
+        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.d0), a.H, a.L, tiles, a.causal,
+        scale_log2, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool DKV>
+cudaError_t by_warps(int warps, const Args& a, cudaStream_t stream) {
+  switch (warps) {
+    case 1: return launch<T, D, 1, DKV>(a, stream);
+    case 2: return launch<T, D, 2, DKV>(a, stream);
+    case 4: return launch<T, D, 4, DKV>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, bool DKV>
+cudaError_t by_dim(int D, int warps, const Args& a, cudaStream_t stream) {
+  switch (D) {
+    case 16: return by_warps<T, 16, DKV>(warps, a, stream);
+    case 32: return by_warps<T, 32, DKV>(warps, a, stream);
+    case 64: return by_warps<T, 64, DKV>(warps, a, stream);
+    case 128: return by_warps<T, 128, DKV>(warps, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool DKV>
+int by_dtype(const Args& a, int D, int dtype, int warps, void* stream) {
+  if (a.B <= 0 || a.H <= 0 || a.L <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = by_dim<__nv_bfloat16, DKV>(D, warps, a, s);
+  } else if (dtype == 1) {
+    err = by_dim<float, DKV>(D, warps, a, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// q, k, v, dout, dk, dv: contiguous [B, H, L, D]; lse, delta: contiguous
+// [B, H, L] float32; mask: contiguous [B, L] bytes (0 = invalid key) or null.
+// dtype: 0 = bf16, 1 = float32. warps: 1, 2 or 4 (16 keys each). Launches on
+// `stream` without synchronising; returns the cudaError_t of the launch.
+extern "C" int dfly_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                  const void* lse, const void* delta, const void* mask, void* dk,
+                                  void* dv, int B, int H, int L, int D, int causal, int dtype,
+                                  int warps, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+               static_cast<const uint8_t*>(mask), dk, dv, B, H, L, causal};
+  return by_dtype<true>(a, D, dtype, warps, stream);
+}
+
+// As dfly_flash_bwd_dkv, writing dq [B, H, L, D]; warps: 16 query rows each.
+extern "C" int dfly_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, const void* mask, void* dq,
+                                 int B, int H, int L, int D, int causal, int dtype, int warps,
+                                 void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+               static_cast<const uint8_t*>(mask), dq, nullptr, B, H, L, causal};
+  return by_dtype<false>(a, D, dtype, warps, stream);
+}
+
+extern "C" const char* dfly_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,18 +1,28 @@
-// Flash-attention forward for Hopper (sm_90a), finished-output mode.
+// Flash-attention forward for Hopper (sm_90a): finished output, and the
+// same with the per-row logsumexp the backward needs.
 //
 // Replaces the TPU kernel dragonfly2_tpu/ops/flash.py::_flash_kernel
-// (launched by _flash_forward's pallas_call, flash.py:340) in the mode the
-// attention ranker's serving path uses: o = softmax(q k^T / sqrt(D)) v over
-// [B, H, L, D], a [B, L] key-validity mask, optional causal masking, online
-// softmax in base 2 with float32 statistics and accumulators. Masked keys
-// contribute nothing and rows with no valid key come out 0. The save_lse and
-// partial modes are not built here. Head dims: 16, 32, 64, 128.
+// (launched by _flash_forward's pallas_call, flash.py:340) in two of its
+// modes: o = softmax(q k^T / sqrt(D)) v over [B, H, L, D], a [B, L]
+// key-validity mask, optional causal masking, online softmax in base 2 with
+// float32 statistics and accumulators. Masked keys contribute nothing and
+// rows with no valid key come out 0.
+// - dfly_flash_fwd: finished output (serving, eval).
+// - dfly_flash_fwd_lse: its save_lse mode (flash.py:186-197, training):
+//   also lse [B, H, L] f32 = m ln2 + log(max(l, 1e-30)) in natural units,
+//   from the base-2 running max m and the row sum l; a row with no valid
+//   key keeps m = -1e30, l = 0 and gets that finite filler. LSE is a
+//   template parameter, so the finished-output instances carry no branch.
+// The partial mode (ring attention) is not built here. Head dims: 16, 32,
+// 64, 128.
 //
 // What bounds it on an H100: at the served shape, [1024, 4, 15, 32] bf16,
 // q, k, v and o are 3.9 MB each, 15.7 MB together, which the card moves in
 // ~4.7 us at 3.35 TB/s, while the products are 0.12 GFLOP, ~0.12 us at the
 // 989 TFLOP/s bf16 tensor-core peak: memory- and launch-bound. At long L
-// the products dominate (4 * B * H * L^2 * D operations).
+// the products dominate (4 * B * H * L^2 * D operations). The lse mode
+// adds 4 bytes a row: at the trained shape, [256, 4, 20, 32] bf16, it
+// moves 5.3 MB (~1.6 us) for at most 0.05 GFLOP, bound by bytes.
 //
 // Design (not the TPU's block-by-block schedule; its _pick_blocks tiling
 // does not carry over):
@@ -41,6 +51,7 @@ namespace {
 constexpr int BLOCK_N = 64;  // keys per staged K/V tile
 constexpr float NEG_BIG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* src, __nv_bfloat16* dst) {
   *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
@@ -89,10 +100,10 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <typename T, int D, int WARPS>
+template <typename T, int D, int WARPS, bool LSE>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const uint8_t* __restrict__ mask, T* __restrict__ o,
+                 const uint8_t* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
                  int H, int L, int num_qblocks, int causal, float scale_log2) {
   constexpr int BM = 16 * WARPS;      // query rows per block
   constexpr int THREADS = WARPS * 32;
@@ -275,45 +286,69 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       store2(oh + static_cast<size_t>(row_hi) * D + col, acc[dn][2] * inv_hi, acc[dn][3] * inv_hi);
     }
   }
+  if constexpr (LSE) {
+    // m and l are equal across the quad after the reductions: one writer
+    if (t == 0) {
+      float* lh = lse + static_cast<size_t>(bh) * L;
+      if (row_lo < L) lh[row_lo] = m_row[0] * LN2 + logf(fmaxf(l_row[0], 1e-30f));
+      if (row_hi < L) lh[row_hi] = m_row[1] * LN2 + logf(fmaxf(l_row[1], 1e-30f));
+    }
+  }
 }
 
-template <typename T, int D, int WARPS>
+template <typename T, int D, int WARPS, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-                   int B, int H, int L, int causal, cudaStream_t stream) {
+                   float* lse, int B, int H, int L, int causal, cudaStream_t stream) {
   constexpr int BM = 16 * WARPS;
   const int num_qblocks = (L + BM - 1) / BM;
   const long long blocks = static_cast<long long>(num_qblocks) * B * H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
-  flash_fwd_kernel<T, D, WARPS><<<static_cast<unsigned>(blocks), WARPS * 32, 0, stream>>>(
+  flash_fwd_kernel<T, D, WARPS, LSE><<<static_cast<unsigned>(blocks), WARPS * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(o), H, L, num_qblocks, causal,
+      static_cast<const uint8_t*>(mask), static_cast<T*>(o), lse, H, L, num_qblocks, causal,
       scale_log2);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 cudaError_t by_warps(int warps, const void* q, const void* k, const void* v, const void* mask,
-                     void* o, int B, int H, int L, int causal, cudaStream_t stream) {
+                     void* o, float* lse, int B, int H, int L, int causal, cudaStream_t stream) {
   switch (warps) {
-    case 1: return launch<T, D, 1>(q, k, v, mask, o, B, H, L, causal, stream);
-    case 2: return launch<T, D, 2>(q, k, v, mask, o, B, H, L, causal, stream);
-    case 4: return launch<T, D, 4>(q, k, v, mask, o, B, H, L, causal, stream);
+    case 1: return launch<T, D, 1, LSE>(q, k, v, mask, o, lse, B, H, L, causal, stream);
+    case 2: return launch<T, D, 2, LSE>(q, k, v, mask, o, lse, B, H, L, causal, stream);
+    case 4: return launch<T, D, 4, LSE>(q, k, v, mask, o, lse, B, H, L, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, bool LSE>
 cudaError_t by_dim(int D, int warps, const void* q, const void* k, const void* v,
-                   const void* mask, void* o, int B, int H, int L, int causal,
+                   const void* mask, void* o, float* lse, int B, int H, int L, int causal,
                    cudaStream_t stream) {
   switch (D) {
-    case 16: return by_warps<T, 16>(warps, q, k, v, mask, o, B, H, L, causal, stream);
-    case 32: return by_warps<T, 32>(warps, q, k, v, mask, o, B, H, L, causal, stream);
-    case 64: return by_warps<T, 64>(warps, q, k, v, mask, o, B, H, L, causal, stream);
-    case 128: return by_warps<T, 128>(warps, q, k, v, mask, o, B, H, L, causal, stream);
+    case 16: return by_warps<T, 16, LSE>(warps, q, k, v, mask, o, lse, B, H, L, causal, stream);
+    case 32: return by_warps<T, 32, LSE>(warps, q, k, v, mask, o, lse, B, H, L, causal, stream);
+    case 64: return by_warps<T, 64, LSE>(warps, q, k, v, mask, o, lse, B, H, L, causal, stream);
+    case 128: return by_warps<T, 128, LSE>(warps, q, k, v, mask, o, lse, B, H, L, causal, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool LSE>
+int by_dtype(const void* q, const void* k, const void* v, const void* mask, void* o, float* lse,
+             int B, int H, int L, int D, int causal, int dtype, int warps, void* stream) {
+  if (B <= 0 || H <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = by_dim<__nv_bfloat16, LSE>(D, warps, q, k, v, mask, o, lse, B, H, L, causal, s);
+  } else if (dtype == 1) {
+    err = by_dim<float, LSE>(D, warps, q, k, v, mask, o, lse, B, H, L, causal, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -325,17 +360,16 @@ cudaError_t by_dim(int D, int warps, const void* q, const void* k, const void* v
 extern "C" int dfly_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
                               void* o, int B, int H, int L, int D, int causal, int dtype,
                               int warps, void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = by_dim<__nv_bfloat16>(D, warps, q, k, v, mask, o, B, H, L, causal, s);
-  } else if (dtype == 1) {
-    err = by_dim<float>(D, warps, q, k, v, mask, o, B, H, L, causal, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return by_dtype<false>(q, k, v, mask, o, nullptr, B, H, L, D, causal, dtype, warps, stream);
+}
+
+// As dfly_flash_fwd, and lse: contiguous [B, H, L] float32, written for
+// every row.
+extern "C" int dfly_flash_fwd_lse(const void* q, const void* k, const void* v, const void* mask,
+                                  void* o, void* lse, int B, int H, int L, int D, int causal,
+                                  int dtype, int warps, void* stream) {
+  return by_dtype<true>(q, k, v, mask, o, static_cast<float*>(lse), B, H, L, D, causal, dtype,
+                        warps, stream);
 }
 
 extern "C" const char* dfly_cuda_error_string(int err) {

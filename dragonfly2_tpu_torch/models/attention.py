@@ -5,7 +5,11 @@ list is a SET whose members attend to each other, so "is this parent
 good" can depend on what else is on offer. Tokens are [tasks, candidates,
 hidden] matmuls in the compute dtype (bf16); the attention inner product
 is injectable, and defaults to ops/flash.py's ``flash_attention`` (the
-Hopper kernel on CUDA tensors, its plain twin on CPU tensors).
+Hopper kernels on CUDA tensors, their plain twins on CPU tensors; with
+autograd on, the forward saves its logsumexp and the backward runs the
+dK/dV and dQ kernels). The reference applies ``dense_attention`` by
+default; ``flash_attention`` is the same function under the same masking
+contract.
 
 Module and parameter names follow the flax tree (``embed``,
 ``block_i/{LayerNorm_0, qkv, proj, LayerNorm_1, mlp_up, mlp_down}``, the
@@ -32,13 +36,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from dragonfly2_tpu_torch.ops.flash import flash_attention
+from dragonfly2_tpu_torch.records.features import NUM_HOST_FEATURES
 
 AttentionFn = Callable  # (q, k, v, kv_mask) -> out, all [B, H, L, D]
 
-# numeric host features per candidate (dragonfly2_tpu/records/features.py
-# HOST_NUMERIC_FEATURES) and pair features per (child, parent): same IDC and
-# location match (training/train.py _pair_feats)
-NUM_HOST_FEATURES = 12
+# pair features per (child, parent): same IDC and location match
+# (training/train.py _pair_feats)
 NUM_PAIR_FEATURES = 2
 IN_FEATURES = 2 * NUM_HOST_FEATURES + NUM_PAIR_FEATURES
 

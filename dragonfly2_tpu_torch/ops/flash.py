@@ -1,24 +1,35 @@
-"""Flash attention forward: the wrapper of the Hopper kernel and its plain twin.
+"""Flash attention: the wrappers of the Hopper kernels and their plain twins.
 
-Port of dragonfly2_tpu/ops/flash.py's ``flash_attention`` in the mode the
-attention ranker serves with: the finished output of the forward kernel
-``_flash_kernel`` (flash.py:71, launched at flash.py:340). The kernel is
-written by hand in CUDA C++ for sm_90a (csrc/flash_fwd.cu, whose header
-gives its design and its bound on an H100) and is built with nvcc at first
-use (ops/build.py).
+Port of dragonfly2_tpu/ops/flash.py's ``flash_attention`` and its
+``custom_vjp`` (flash.py:681-697). Three TPU kernels are ported, each
+written by hand in CUDA C++ for sm_90a and built with nvcc at first use
+(ops/build.py); each source's header gives its design and its bound on an
+H100:
 
-- A CUDA tensor goes to the kernel, or the wrapper raises.
-- A CPU tensor goes to ``flash_attention_plain``, which is
-  parallel/ring.py's ``dense_attention``: the same function with the same
-  masking contract, and the kernel's oracle on the card.
+- ``_flash_kernel`` (flash.py:71) in its finished-output mode ->
+  csrc/flash_fwd.cu ``dfly_flash_fwd`` (serving, eval);
+- the same kernel in its ``save_lse`` mode (flash.py:186-197) ->
+  csrc/flash_fwd.cu ``dfly_flash_fwd_lse`` (training forward);
+- ``_flash_bwd_dkv_kernel`` (flash.py:418) and ``_flash_bwd_dq_kernel``
+  (flash.py:474) -> csrc/flash_bwd.cu ``dfly_flash_bwd_dkv`` and
+  ``dfly_flash_bwd_dq`` (training backward).
 
-The save_lse and partial modes, the backward kernels and the autograd
-function are not ported yet.
+Every wrapper launches its kernel on a CUDA tensor, or raises; on a CPU
+tensor it takes the kernel's plain version, and only then. Each kernel has
+a launch counter (``LAUNCHES``, ``LSE_LAUNCHES``, ``DKV_LAUNCHES``,
+``DQ_LAUNCHES``) that only the line launching it adds to.
+
+``flash_attention`` is the public entry. With autograd recording and an
+input that requires grad it runs ``FlashAttention`` (forward with lse,
+backward through the two backward kernels); otherwise, as under
+``torch.inference_mode()`` on the serving path, one finished-output
+forward. The ``partial`` mode (ring attention) is not ported yet.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 
 import torch
@@ -26,35 +37,63 @@ import torch
 from dragonfly2_tpu_torch.ops import build
 from dragonfly2_tpu_torch.parallel.ring import dense_attention
 
-KERNEL = "flash_fwd"
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_NEG = -1e30
+_LOG2E = math.log2(math.e)
+_LN2 = math.log(2.0)
 
-# kernel launches made by flash_attention in this process; only the line
-# that launches adds to it (under a lock: the inference server launches
-# from worker threads)
-LAUNCHES = 0
+# kernel launches made in this process, one counter per kernel; only the
+# line that launches adds to it (under a lock: the inference server
+# launches from worker threads)
+LAUNCHES = 0  # finished-output forward
+LSE_LAUNCHES = 0  # forward with lse
+DKV_LAUNCHES = 0  # backward, dK/dV
+DQ_LAUNCHES = 0  # backward, dQ
 _launches_lock = threading.Lock()
 
-_lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry -> (source in csrc/, argtypes); every entry returns a cudaError_t
+_ENTRIES = {
+    "dfly_flash_fwd": ("flash_fwd", [_P] * 5 + [_I] * 7 + [_P]),
+    "dfly_flash_fwd_lse": ("flash_fwd", [_P] * 6 + [_I] * 7 + [_P]),
+    "dfly_flash_bwd_dkv": ("flash_bwd", [_P] * 9 + [_I] * 7 + [_P]),
+    "dfly_flash_bwd_dq": ("flash_bwd", [_P] * 8 + [_I] * 7 + [_P]),
+}
+_entries: dict[str, tuple] = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = build.load(KERNEL)
-        lib.dfly_flash_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        )
-        lib.dfly_flash_fwd.restype = ctypes.c_int
+def _entry(name: str):
+    """(C function, its library) for one entry, building the source if needed."""
+    if name not in _entries:
+        source, argtypes = _ENTRIES[name]
+        lib = build.load(source)
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
         lib.dfly_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dfly_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _entries[name] = (fn, lib)
+    return _entries[name]
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch one kernel on the device's current stream; raise if refused."""
+    fn, lib = _entry(name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {lib.dfly_cuda_error_string(err).decode()} ({err})"
+        )
+
+
+def _count(counter: str) -> None:
+    with _launches_lock:
+        globals()[counter] += 1
 
 
 def warps_for(length: int) -> int:
-    """Query warps per block (16 rows each): no idle warps on short sets."""
+    """Warps per block (16 rows each): no idle warps on short sets."""
     return 1 if length <= 16 else (2 if length <= 32 else 4)
 
 
@@ -83,14 +122,208 @@ def _check(q, k, v, kv_mask) -> None:
         raise ValueError("flash attention operands must share one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash attention operands must be contiguous")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+
+
+def _pointers(*tensors):
+    """Device pointers in C order (None, an absent kv_mask, as null); the
+    kernels load [B, H, L, D] rows as 16-byte vectors."""
+    if any(t is not None and t.dim() == 4 and t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash attention operands must be 16-byte aligned")
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def _need_cuda(q) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"the backward kernels take CUDA tensors, not {q.device}; "
+            "flash_attention_bwd takes the plain version on the CPU"
+        )
+
+
+def _valid_pairs(kv_mask, causal: bool, b: int, l: int, device) -> torch.Tensor:
+    """[B, 1, L, L] bool: which (query, key) pairs attend."""
+    valid = torch.ones(b, 1, 1, l, dtype=torch.bool, device=device)
+    if kv_mask is not None:
+        valid = kv_mask[:, None, None, :]
+    if causal:
+        pos = torch.arange(l, device=device)
+        valid = valid & (pos[None, :] <= pos[:, None])[None, None]
+    return valid.expand(b, 1, l, l)
+
+
+# --------------------------------------------------------------- forward
 
 
 def flash_attention_plain(q, k, v, kv_mask=None, causal: bool = False) -> torch.Tensor:
-    """The kernel's plain version: dense attention, kv_mask=None meaning
-    every key is valid."""
+    """The finished-output kernel's plain version: dense attention,
+    kv_mask=None meaning every key is valid."""
     if kv_mask is None:
         kv_mask = torch.ones(q.shape[0], q.shape[2], dtype=torch.bool, device=q.device)
     return dense_attention(q, k, v, kv_mask, causal)
+
+
+def _flash_forward(q, k, v, kv_mask, causal: bool) -> torch.Tensor:
+    """Finished output, no autograd: the kernel on CUDA, the plain version
+    on the CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_mask, causal)
+    b, h, l, d = q.shape
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    _launch(
+        "dfly_flash_fwd", q.device, *_pointers(q, k, v, kv_mask, o),
+        b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
+    )
+    _count("LAUNCHES")
+    return o
+
+
+def flash_attention_lse_plain(q, k, v, kv_mask=None, causal: bool = False):
+    """The lse kernel's plain version: (o in q's dtype, lse [B, H, L] f32).
+
+    lse is the per-row logsumexp of the scaled scores in natural units,
+    reached as the reference kernel reaches it (flash.py:194-197): row max
+    m in the base-2 domain, l = sum exp2(s - m), lse = m ln2 + log(max(l,
+    1e-30)). A row with no valid key keeps m = -1e30 and l = 0, so it gets
+    the same finite filler, and its output is 0."""
+    b, h, l, d = q.shape
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (_LOG2E / math.sqrt(d))
+    valid = _valid_pairs(kv_mask, causal, b, l, q.device)
+    s = torch.where(valid, s, torch.full_like(s, _NEG))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp2(s - m), torch.zeros_like(s))
+    row_sum = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / row_sum.clamp_min(1e-9)
+    lse = (m * _LN2 + torch.log(row_sum.clamp_min(1e-30)))[..., 0]
+    return o.to(q.dtype), lse
+
+
+def flash_attention_lse(q, k, v, kv_mask=None, causal: bool = False):
+    """(o, lse) of the forward in its save_lse mode: the kernel on CUDA,
+    the plain version on the CPU. No autograd of its own."""
+    _check(q, k, v, kv_mask)
+    if q.device.type == "cpu":
+        return flash_attention_lse_plain(q, k, v, kv_mask, causal)
+    b, h, l, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    _launch(
+        "dfly_flash_fwd_lse", q.device,
+        *_pointers(q, k, v, kv_mask, o, lse),
+        b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
+    )
+    _count("LSE_LAUNCHES")
+    return o, lse
+
+
+# -------------------------------------------------------------- backward
+
+
+def flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal: bool = False):
+    """The backward kernels' plain version: (dq, dk, dv) in q's, k's and
+    v's dtypes, step for step as the reference's _bwd_tile and its two
+    kernels (flash.py:383-415,451-458,505-508), over the whole [L, L] tile:
+
+        s = q k^T * log2(e)/sqrt(D);  p = exp2(s - lse*log2(e)) on valid pairs, 0 elsewhere
+        dp = dO v^T;  delta = rowsum(dO * o);  ds = p * (dp - delta)
+        dv = p^T dO;  dk = ds^T q / sqrt(D);  dq = ds k / sqrt(D)
+
+    with p and ds rounded to the input dtype before their products, as the
+    reference casts them. Invalid pairs are zeroed explicitly: a fully
+    masked row carries a filler lse."""
+    b, h, l, d = q.shape
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (_LOG2E / math.sqrt(d))
+    valid = _valid_pairs(kv_mask, causal, b, l, q.device)
+    p = torch.where(valid, torch.exp2(s - lse[..., None] * _LOG2E), torch.zeros_like(s))
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    p_c, ds_c = p.to(do.dtype).float(), ds.to(q.dtype).float()
+    scale = 1.0 / math.sqrt(d)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_c, dof)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds_c, qf) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds_c, kf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_check(q, o, lse, do) -> None:
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError("o and dO must match q's shape and dtype")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"lse must be float32 {tuple(q.shape[:3])}")
+    if any(t.device != q.device or not t.is_contiguous() for t in (o, lse, do)):
+        raise ValueError("o, lse and dO must be contiguous on q's device")
+
+
+def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal: bool = False):
+    """(dk, dv) from the dK/dV kernel; CUDA tensors only. ``delta`` is
+    rowsum(dO * o) in float32 [B, H, L]."""
+    _need_cuda(q)
+    b, h, l, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel():
+        _launch(
+            "dfly_flash_bwd_dkv", q.device,
+            *_pointers(q, k, v, do, lse, delta, kv_mask, dk, dv),
+            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
+        )
+        _count("DKV_LAUNCHES")
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal: bool = False):
+    """dq from the dQ kernel; CUDA tensors only."""
+    _need_cuda(q)
+    b, h, l, d = q.shape
+    dq = torch.empty_like(q)
+    if dq.numel():
+        _launch(
+            "dfly_flash_bwd_dq", q.device,
+            *_pointers(q, k, v, do, lse, delta, kv_mask, dq),
+            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
+        )
+        _count("DQ_LAUNCHES")
+    return dq
+
+
+def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, causal: bool = False):
+    """(dq, dk, dv): the two backward kernels on CUDA, the plain version on
+    the CPU. delta = rowsum(dO * o) is one plain reduction before the
+    kernels, as the reference computes it outside its kernels
+    (flash.py:562)."""
+    _check(q, k, v, kv_mask)
+    _bwd_check(q, o, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal)
+    dq = flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """flash_attention with its gradient: the forward saves (q, k, v,
+    kv_mask, o, lse) and the backward runs the dK/dV and dQ kernels, the
+    counterpart of the reference's _flash / _flash_fwd / _flash_bwd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal):
+        o, lse = flash_attention_lse(q, k, v, kv_mask, causal)
+        ctx.save_for_backward(q, k, v, kv_mask, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, o, lse, do.contiguous(), ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, kv_mask=None, causal: bool = False) -> torch.Tensor:
@@ -98,31 +331,8 @@ def flash_attention(q, k, v, kv_mask=None, causal: bool = False) -> torch.Tensor
 
     Drop-in for dense_attention and for models/attention.py's injectable
     attention_fn: invalid keys contribute nothing and fully masked rows
-    return 0. Output has q's dtype."""
+    return 0. Output has q's dtype. Differentiable in q, k and v."""
     _check(q, k, v, kv_mask)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_mask, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
-    b, h, l, d = q.shape
-    o = torch.empty_like(q)
-    if o.numel() == 0:
-        return o
-    if any(t.data_ptr() % 16 for t in (q, k, v, o)):
-        raise ValueError("flash attention operands must be 16-byte aligned")
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dfly_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if kv_mask is None else kv_mask.data_ptr(), o.data_ptr(),
-            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_fwd launch failed: {lib.dfly_cuda_error_string(err).decode()} ({err})"
-        )
-    global LAUNCHES
-    with _launches_lock:
-        LAUNCHES += 1
-    return o
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, kv_mask, causal)
+    return _flash_forward(q, k, v, kv_mask, causal)

@@ -62,3 +62,113 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
         flash.flash_attention(q, q, q, torch.ones(2, 15, dtype=torch.bool))
     with pytest.raises(ValueError, match="contiguous"):
         flash.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, None)
+
+
+# the backward: bf16 rounding of q, k, v, dO, P and dS before the tensor
+# cores (the plain version keeps P and dS in the input dtype only), summed
+# over up to L keys or queries
+GRAD_ATOL, GRAD_RTOL = 5e-2, 5e-2
+
+
+def _training_inputs(shape, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, l, d = shape
+    q, k, v, do = (torch.randn(b, h, l, d, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    mask = torch.rand(b, l, generator=gen, device="cuda") < 0.8
+    mask[:, 0] = True
+    mask[0] = False  # a fully masked batch row
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize(
+    "shape,causal,dtype",
+    [
+        ((256, 4, 20, 32), False, torch.bfloat16),  # the trained shape
+        ((2, 4, 1000, 32), True, torch.bfloat16),  # long, causal, ragged tiles
+        ((2, 2, 70, 128), True, torch.bfloat16),
+        ((3, 2, 33, 16), False, torch.float32),
+    ],
+)
+def test_training_kernels_match_plain(shape, causal, dtype):
+    _need_card()
+    q, k, v, do, mask = _training_inputs(shape, dtype)
+    for kv_mask in (mask, None):
+        counts = (flash.LSE_LAUNCHES, flash.DKV_LAUNCHES, flash.DQ_LAUNCHES)
+        o, lse = flash.flash_attention_lse(q, k, v, kv_mask, causal)
+        ref_o, ref_lse = flash.flash_attention_lse_plain(q, k, v, kv_mask, causal)
+        torch.testing.assert_close(o.float(), ref_o.float(), atol=ATOL, rtol=RTOL)
+        seen = torch.isfinite(ref_lse) & (ref_lse > -1e20)  # rows with a valid key
+        torch.testing.assert_close(lse[seen], ref_lse[seen], atol=ATOL, rtol=RTOL)
+        assert torch.isfinite(lse).all()
+        # both sides from the same o and lse: the backward kernels alone
+        got = flash.flash_attention_bwd(q, k, v, kv_mask, o, lse, do, causal)
+        want = flash.flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal)
+        assert (flash.LSE_LAUNCHES, flash.DKV_LAUNCHES, flash.DQ_LAUNCHES) == tuple(
+            c + 1 for c in counts
+        )
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == dtype and g.shape == q.shape and g.is_cuda, name
+            torch.testing.assert_close(g.float(), w.float(), atol=GRAD_ATOL, rtol=GRAD_RTOL, msg=name)
+            if kv_mask is not None:
+                assert (g[0] == 0).all(), name  # the fully masked batch row
+
+
+def test_flash_attention_autograd_on_the_card():
+    _need_card()
+    q, k, v, do, mask = _training_inputs((8, 4, 20, 32), torch.bfloat16, seed=1)
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (flash.LAUNCHES, flash.LSE_LAUNCHES, flash.DKV_LAUNCHES, flash.DQ_LAUNCHES)
+    out = flash.flash_attention(*args, mask)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(out, args, do)
+    after = (flash.LAUNCHES, flash.LSE_LAUNCHES, flash.DKV_LAUNCHES, flash.DQ_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 1]
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash.flash_attention(*cpu, mask.cpu()), cpu, do.cpu())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float().cpu(), w.float(), atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    with torch.inference_mode():
+        assert flash.flash_attention(q, k, v, mask).grad_fn is None
+    assert flash.LAUNCHES == after[0] + 1
+
+
+def test_one_training_step_gradients_match_the_plain_path():
+    """The full-width ranker's gradients from one batch, on the card (the
+    kernels) against the CPU (the plain versions), from the same weights."""
+    _need_card()
+    import numpy as np
+
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.training.train import AttentionTrainer, build_ranker
+
+    rng = np.random.default_rng(0)
+    n, p = 64, 20
+    counts = rng.integers(0, p + 1, n)
+    rows = {
+        "child": rng.standard_normal((n, 12)).astype(np.float32),
+        "parents": rng.standard_normal((n, p, 12)).astype(np.float32),
+        "pair": (rng.random((n, p, 2)) < 0.5).astype(np.float32),
+        "mask": np.arange(p)[None, :] < counts[:, None],
+        "throughput": (rng.random((n, p)) * 12).astype(np.float32),
+    }
+    grads, losses = {}, {}
+    for device in ("cuda", "cpu"):
+        model = build_ranker(TrainerConfig(), 26, seed=0, params=None, device=device)
+        trainer = AttentionTrainer(model, rows, 1e-3, device)
+        loss = trainer.loss(torch.arange(n, device=device))
+        loss.backward()
+        losses[device] = loss.item()
+        grads[device] = {name: prm.grad.float().cpu() for name, prm in model.named_parameters()}
+    assert abs(losses["cuda"] - losses["cpu"]) < 2e-2
+    # the score head's and the last LayerNorm's biases shift a row's scores
+    # alike, which the listwise loss ignores: their true gradient is 0, so
+    # both devices' must be rounding-small against the model's largest
+    largest = max(float(g.abs().max()) for g in grads["cpu"].values())
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        if name in ("score.bias", "LayerNorm_0.bias"):
+            assert max(float(got.abs().max()), float(want.abs().max())) <= 1e-3 * largest, name
+            continue
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert err <= 5e-2 * scale, (name, err, scale)
