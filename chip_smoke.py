@@ -36,7 +36,20 @@ result line:
    replayed on the CPU with the plain versions, one step's gradients cuda
    against cpu, wire scores equal to score_set bit for bit; prints the
    throughput, the step p50 and a profiler breakdown of a step.
-6. the kernels JSON line and, last, the result line.
+6. sequence parallelism (slice 3): the partial kernel against its plain
+   version at the ranker's eval shard and at two ring blocks of long
+   sequences; sharded_ring_attention with the partial kernel at
+   [2, 4, 16384, 32] on a 1 x 4 mesh of the one card (against
+   flash_attention on the whole sequence and a chunked dense oracle, with
+   exactly dp * sp^2 partial launches) and the causal zigzag ring; then
+   train_attention on a dp 2 x sp 2 mesh of the card with ring attention
+   over phase 5's trace, 1 epoch: finite losses, the first steps replayed
+   on a CPU mesh, layers * dp * sp^2 partial launches in the eval, the
+   mesh's eval scores against one device's; then train_attention with
+   Ulysses from the same seed (every training kernel steps * layers * dp *
+   sp times, the finished forward layers * dp * sp times in the eval, the
+   first losses against the ring's), and each strategy's step p50.
+7. the kernels JSON line and, last, the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -61,6 +74,14 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 495e12}  # dense tensor core: b
 # kernel vs plain version on the card: both round to bf16 where the kernel
 # feeds the tensor cores (q, k, v, p), and the output is bf16 for bf16 inputs
 KERNEL_ATOL, KERNEL_RTOL = 3e-2, 2e-2
+# at L >= 4096 a row of attention averages thousands of keys (~0.01-0.02
+# for N(0, 1) inputs at D = 32), where KERNEL_ATOL would pass a dropped key
+# tile: the ring, the causal ring and the partial kernel's ring blocks are
+# held to LONG (rtol above one bf16 ulp, 2^-7 of the value)
+LONG_ATOL, LONG_RTOL = 3e-3, 1e-2
+# the partial kernel's row_max and row_sum, every shape: float32 from the
+# same float32 scores as the plain version's (bf16 inputs are exact in f32)
+STATS_ATOL, STATS_RTOL = 1e-3, 1e-3
 # full ranker, cuda (kernel, cuBLAS bf16) vs cpu (plain version): bf16
 # rounding at every layer, the same family as tests/test_attention.py
 MODEL_ATOL, MODEL_RTOL = 5e-2, 5e-2
@@ -83,6 +104,14 @@ SERVE_ROWS, SERVE_REQUESTS = 256, 4  # ModelInfer requests of held-out rows
 CANDIDATES = 15  # FILTER_PARENT_LIMIT
 TASK_BUCKETS = (64, 256, 1024)  # the scheduler's eval buckets
 REQUESTS_PER_BUCKET = 6
+# slice 3: the ring at long L on a 1 x 4 mesh of the card, and the ranker
+# on a dp 2 x sp 2 mesh of it
+RING_SHAPE, RING_SP = (2, 4, 16384, 32), 4
+CAUSAL_RING_L = 4096
+ORACLE_ROWS = 256  # query rows a chunk of the dense oracle takes ([L, L] f32 is 8.6 GB)
+MESH_DP, MESH_SP = 2, 2
+MESH_EPOCHS = 1
+MESH_STEPS = 12  # timed steps of each strategy from the same weights
 
 
 def _fail(message: str) -> None:
@@ -176,6 +205,8 @@ def phase_build():
 
 
 def _attention_inputs(gen, b, h, l, d, dtype, fully_masked_rows):
+    """N(0, 1) q, k, v and a random key mask with a ragged tail on the last
+    batch row, and fully masked batch rows at the front if asked."""
     import torch
 
     q, k, v = (
@@ -183,10 +214,9 @@ def _attention_inputs(gen, b, h, l, d, dtype, fully_masked_rows):
     )
     mask = torch.rand(b, l, generator=gen, device="cuda") < 0.85
     mask[:, 0] = True
+    mask[-1, l - l // 8:] = False
     if fully_masked_rows:
         mask[: max(1, b // 16)] = False
-    else:
-        mask[-1, l - l // 8:] = False  # a ragged tail
     return q, k, v, mask
 
 
@@ -277,6 +307,7 @@ TRAINING_KERNELS = ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")
 _COUNTERS = {
     "flash_fwd": "LAUNCHES",
     "flash_fwd_lse": "LSE_LAUNCHES",
+    "flash_fwd_partial": "PARTIAL_LAUNCHES",
     "flash_bwd_dkv": "DKV_LAUNCHES",
     "flash_bwd_dq": "DQ_LAUNCHES",
 }
@@ -677,7 +708,8 @@ def phase_training():
     torch.cuda.synchronize()
     train_s = time.perf_counter() - start
     train_counts = _counts()
-    expected = {"flash_fwd": layers, **{k: result.steps * layers for k in TRAINING_KERNELS}}
+    expected = {"flash_fwd": layers, "flash_fwd_partial": 0,
+                **{k: result.steps * layers for k in TRAINING_KERNELS}}
     print(f"training: {result.steps} steps of batch {config.batch_size} over {TRAIN_EPOCHS} epochs "
           f"in {train_s:.2f} s; launches {train_counts} (expected {expected}: steps x layers for "
           "each training kernel, one eval batch x layers for the finished forward)")
@@ -778,7 +810,8 @@ def phase_training():
         serve_counts = _counts()
         if server.version != version.version:
             _fail(f"served version {server.version}, published {version.version}")
-        want = {"flash_fwd": SERVE_REQUESTS * layers, **{k: 0 for k in TRAINING_KERNELS}}
+        want = {"flash_fwd": SERVE_REQUESTS * layers, "flash_fwd_partial": 0,
+                **{k: 0 for k in TRAINING_KERNELS}}
         if serve_counts != want:
             _fail(f"serving the trained version launched {serve_counts}, expected {want}")
         for batch, wire in zip(batches, answers):
@@ -795,7 +828,336 @@ def phase_training():
               f"{statistics.median(latency_ms[1:]):.3f} ms (first {latency_ms[0]:.3f} ms), "
               f"flash_fwd launches {serve_counts['flash_fwd']} (= requests x layers); "
               "wire == score_set bit for bit")
-    return train_counts, serve_counts, result, breakdown
+    return train_counts, serve_counts, ds, breakdown
+
+
+def _partial_errors(got, want, atol, rtol):
+    """Max abs errors of (acc, row_max, row_sum), and whether they hold:
+    row_max (on rows with a valid key) and row_sum to STATS, acc relative
+    to its row sum (a sum over up to L keys) to ``atol``/``rtol``, and rows
+    with no valid key exactly at the filler, 0 and 0."""
+    import torch
+
+    acc, row_max, row_sum = got
+    want_acc, want_max, want_sum = want
+    live = want_sum > 0
+    scale = want_sum.clamp_min(1.0)[..., None]
+    errors = {
+        "acc": float((acc - want_acc).abs().max().item()),
+        "acc_over_row_sum": float(((acc - want_acc) / scale).abs().max().item()),
+        "row_max": float((row_max[live] - want_max[live]).abs().max().item()),
+        "row_sum": float((row_sum - want_sum).abs().max().item()),
+    }
+    ok = (
+        torch.allclose(row_max[live], want_max[live], atol=STATS_ATOL, rtol=STATS_RTOL)
+        and torch.allclose(row_sum, want_sum, atol=STATS_ATOL, rtol=STATS_RTOL)
+        and torch.allclose(acc / scale, want_acc / scale, atol=atol, rtol=rtol)
+        and bool(torch.isfinite(row_max).all() and torch.isfinite(acc).all())
+        and bool((row_max[~live] == want_max[~live]).all())
+        and bool((row_sum[~live] == 0).all() and (acc[~live] == 0).all())
+    )
+    return errors, ok
+
+
+def phase_partial_kernel(ds):
+    """The partial kernel against its plain version: at the ranker's eval
+    shard on the dp x sp mesh (held-out rows / dp, P / sp candidates; see
+    phase_mesh_training) and at ring blocks of L = 16384 and L = 8192 with
+    sp = 4. library_ms is the memory-efficient attention asked for its
+    logsumexp: the same information as (acc, row_max, row_sum) in its
+    finished (o, lse) form."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import flash
+    from dragonfly2_tpu_torch.training import train
+
+    eval_rows = len(train._train_eval_split(np.arange(len(ds.mask)), 0.2)[0])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    shapes = [
+        # name, (B, H, L, D), fully masked rows, acc tolerance, timing iters
+        ("eval-shard", (eval_rows // MESH_DP, 4, MAX_PARENTS // MESH_SP, 32), True,
+         (KERNEL_ATOL, KERNEL_RTOL), 200),
+        ("ring-block-16k", (2, 4, 4096, 32), False, (LONG_ATOL, LONG_RTOL), 20),
+        ("ring-block-wide", (4, 8, 2048, 128), True, (LONG_ATOL, LONG_RTOL), 20),
+    ]
+    results = {}
+    for name, (b, h, l, d), fully, (atol, rtol), iters in shapes:
+        q, k, v, mask = _attention_inputs(gen, b, h, l, d, torch.bfloat16, fully)
+        got = flash.flash_attention_partials(q, k, v, mask)
+        torch.cuda.synchronize()
+        errors, ok = _partial_errors(got, flash.flash_attention_partials_plain(q, k, v, mask),
+                                     atol, rtol)
+        if not ok:
+            _fail(f"flash_fwd_partial {name}: errors {errors} outside atol {atol} rtol {rtol} "
+                  f"(acc relative to its row sum; row stats atol {STATS_ATOL} rtol "
+                  f"{STATS_RTOL}), or a fully masked row not at the filler")
+        bound_ms, bound_by = _bound(q, mask, False, matrices=3 + 4 // q.element_size(),
+                                    row_stats=2, ops_per_pair=4)
+        row = dict(
+            shape=[b, h, l, d], causal=False, dtype="bfloat16", errors=errors,
+            max_abs_err=max(errors["acc_over_row_sum"], errors["row_max"]),
+            ms=_time_ms(lambda: flash.flash_attention_partials(q, k, v, mask), iters),
+            kernel_ms=_kernel_ms(lambda: flash.flash_attention_partials(q, k, v, mask),
+                                 "flash_fwd_kernel"),
+            plain_ms=_time_ms(lambda: flash.flash_attention_partials_plain(q, k, v, mask),
+                              max(3, iters // 4)),
+            library_ms=_library_fwd_lse_ms(q, k, v, mask, False, iters),
+            bound_ms=bound_ms, bound_by=bound_by,
+        )
+        results[name] = row
+        lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        print(f"kernel flash_fwd_partial {name} {[b, h, l, d]} bfloat16: max_abs_err acc "
+              f"{errors['acc']:.3g} (over its row sum {errors['acc_over_row_sum']:.3g}), row_max "
+              f"{errors['row_max']:.3g}, row_sum {errors['row_sum']:.3g} (acc atol {atol} rtol "
+              f"{rtol}, row stats atol {STATS_ATOL} rtol {STATS_RTOL}); fully masked rows at the "
+              f"filler; ms {row['ms']:.4f} (kernel "
+              f"{_fmt(row['kernel_ms'])}) plain_ms {row['plain_ms']:.4f} library_ms {lib} "
+              f"(efficient attention with lse) bound_ms {bound_ms:.4f} ({bound_by})")
+    return results
+
+
+def phase_long_ring():
+    """sharded_ring_attention with the partial kernel at L = 16384 on a
+    1 x 4 mesh of the one card, against flash_attention on the whole
+    sequence and a chunked dense oracle; then the causal zigzag ring.
+    Returns the partial kernel's launches in the counted call."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import flash
+    from dragonfly2_tpu_torch.parallel.mesh import make_mesh
+    from dragonfly2_tpu_torch.parallel.ring import (
+        dense_attention,
+        sharded_causal_ring_attention,
+        sharded_ring_attention,
+    )
+
+    card = torch.device("cuda", 0)
+    mesh = make_mesh(RING_SP, dp=1, sp=RING_SP, devices=[card] * RING_SP)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    b, h, l, d = RING_SHAPE
+    q, k, v, mask = _attention_inputs(gen, b, h, l, d, torch.bfloat16, False)
+    _zero_counts()
+    torch.cuda.synchronize()
+    out = sharded_ring_attention(mesh, q, k, v, mask, use_flash=True)
+    torch.cuda.synchronize()
+    counts = _counts()
+    expected = {name: 0 for name in _COUNTERS}
+    expected["flash_fwd_partial"] = RING_SP * RING_SP  # dp * sp^2
+    if counts != expected:
+        _fail(f"the ring at L = {l} launched {counts}, expected {expected}")
+    whole = flash.flash_attention(q, k, v, mask)
+    err = float((out.float() - whole.float()).abs().max().item())
+    if not torch.allclose(out.float(), whole.float(), atol=LONG_ATOL, rtol=LONG_RTOL):
+        _fail(f"ring vs flash_attention at L = {l}: max_abs_err {err}")
+    oracle_err = 0.0
+    for start in (0, l // 2, l - ORACLE_ROWS):
+        rows = slice(start, start + ORACLE_ROWS)
+        want = dense_attention(q[:, :, rows], k, v, mask).float()
+        got = out[:, :, rows].float()
+        oracle_err = max(oracle_err, float((got - want).abs().max().item()))
+        if not torch.allclose(got, want, atol=LONG_ATOL, rtol=LONG_RTOL):
+            _fail(f"ring vs dense_attention on query rows {start}+{ORACLE_ROWS}: {oracle_err}")
+    ring_ms = _time_ms(lambda: sharded_ring_attention(mesh, q, k, v, mask, use_flash=True), 5)
+    flash_ms = _time_ms(lambda: flash.flash_attention(q, k, v, mask), 5)
+    split = _device_split(lambda: sharded_ring_attention(mesh, q, k, v, mask, use_flash=True),
+                          "flash_fwd_kernel")
+    print(f"ring attention {list(RING_SHAPE)} bf16 on a 1 x {RING_SP} mesh of one card: partial "
+          f"launches {counts['flash_fwd_partial']} (= dp x sp^2); vs flash_attention on the whole "
+          f"sequence max_abs_err {err:.3g}, vs dense on {3 * ORACLE_ROWS} query rows "
+          f"{oracle_err:.3g} (atol {LONG_ATOL} rtol {LONG_RTOL}); ring {ring_ms:.4f} ms, "
+          f"flash_attention {flash_ms:.4f} ms (CUDA events)")
+    _print_split(f"ring at L = {l}", split, "the partial kernel")
+
+    lc = CAUSAL_RING_L
+    qc, kc, vc = (t[:, :, :lc].contiguous() for t in (q, k, v))
+    mc = mask[:, :lc].contiguous()
+    causal = sharded_causal_ring_attention(mesh, qc, kc, vc, mc)
+    want = flash.flash_attention(qc, kc, vc, mc, causal=True)
+    cerr = float((causal.float() - want.float()).abs().max().item())
+    if not torch.allclose(causal.float(), want.float(), atol=LONG_ATOL, rtol=LONG_RTOL):
+        _fail(f"causal zigzag ring vs causal flash_attention at L = {lc}: {cerr}")
+    causal_ms = _time_ms(lambda: sharded_causal_ring_attention(mesh, qc, kc, vc, mc), 5)
+    causal_flash_ms = _time_ms(lambda: flash.flash_attention(qc, kc, vc, mc, causal=True), 5)
+    print(f"causal zigzag ring [{b}, {h}, {lc}, {d}] (einsum blocks) vs causal flash_attention: "
+          f"max_abs_err {cerr:.3g} (atol {LONG_ATOL} rtol {LONG_RTOL}); ring {causal_ms:.4f} ms, "
+          f"flash_attention {causal_flash_ms:.4f} ms")
+    return counts["flash_fwd_partial"]
+
+
+def _device_split(fn, symbol: str, calls: int = 3):
+    """Where ``fn``'s time goes, from one torch.profiler window: (wall ms a
+    call, host clock and synchronised; device kernel ms a call; the kernel
+    named ``symbol``'s share of that, ms; kernels launched a call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3 / calls
+    kernels = _kernels_of(prof, calls)
+    launched = sum(e.count for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)) / calls
+    return (wall_ms, sum(ms for _, ms in kernels),
+            sum(ms for key, ms in kernels if symbol in key), launched)
+
+
+def _print_split(label, split, named):
+    wall_ms, device_ms, named_ms, launched = split
+    if device_ms == 0:
+        print(f"{label}: device time not measured (the profiler saw no device activity)")
+        return
+    print(f"{label}: profiled {wall_ms:.3f} ms a call, device kernels {device_ms:.4f} ms "
+          f"({launched:.0f} launches), of which {named} {named_ms:.4f} ms; device "
+          f"busy {100 * device_ms / wall_ms:.1f}%")
+
+
+def _step_p50(trainer, stack, steps: int):
+    """p50 of synchronised steps (host clock) over the first batches of a
+    stacked epoch, and their losses, read after each step."""
+    import torch
+
+    times, losses = [], []
+    for s in range(steps):
+        start = time.perf_counter()
+        losses.append(trainer.step_batch({key: value[s] for key, value in stack.items()}).item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times[2:]), losses
+
+
+def phase_mesh_training(ds, single_step_p50):
+    """Slice 3's main path: train_attention on a dp x sp mesh of the one
+    card with ring attention (einsum blocks under autograd, the partial
+    kernel in the eval), then the checks, then train_attention with Ulysses.
+    Returns the partial launches of the ring's run and the launch counts of
+    the Ulysses run."""
+    import torch
+
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.parallel.mesh import make_mesh, shard_stacked_batches
+    from dragonfly2_tpu_torch.training import train
+
+    card = torch.device("cuda", 0)
+    n_dev = MESH_DP * MESH_SP
+    mesh = make_mesh(n_dev, dp=MESH_DP, sp=MESH_SP, devices=[card] * n_dev)
+    config = TrainerConfig(epochs=MESH_EPOCHS)
+    layers = config.attention_num_layers
+    _zero_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = train.train_attention(ds, config, mesh=mesh, seed=SEED, sp_strategy="ring")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - start
+    counts = _counts()
+    expected = {name: 0 for name in _COUNTERS}
+    expected["flash_fwd_partial"] = layers * MESH_DP * MESH_SP * MESH_SP
+    print(f"mesh training: {result.steps} steps of batch {config.batch_size} on a dp {MESH_DP} x "
+          f"sp {MESH_SP} mesh of one card (ring attention) in {train_s:.2f} s; launches {counts} "
+          "(expected: the einsum ring under autograd, the partial kernel layers x dp x sp^2 "
+          "times in the eval)")
+    if counts != expected:
+        _fail(f"mesh training launches {counts}, expected {expected}")
+    if not np.isfinite(result.losses).all():
+        _fail("non-finite loss on the mesh")
+
+    # the split and the first epoch's batches, as train_attention drew them
+    rng = np.random.default_rng(SEED)
+    eval_idx, train_idx = train._train_eval_split(rng.permutation(len(ds.mask)), 0.2)
+    batch_size = min(config.batch_size, len(train_idx))
+    first = train.epoch_batches(ds, train_idx, batch_size, rng)
+    if first["mask"].shape[0] != result.steps // MESH_EPOCHS:
+        _fail(f"{result.steps} steps, {first['mask'].shape[0]} batches an epoch")
+    in_features = sum(first[key].shape[-1] for key in ("parents", "child", "pair"))
+
+    # the first steps again on a CPU mesh (plain versions) from the same weights
+    cpu_mesh = make_mesh(n_dev, dp=MESH_DP, sp=MESH_SP, devices=["cpu"] * n_dev)
+    cpu = train.AttentionTrainer(
+        train.build_ranker(config, in_features, SEED, None, "cpu"), None, config.learning_rate,
+        "cpu", attention_fn=train.attention_fns(cpu_mesh, "ring")[0],
+    )
+    stack_cpu = shard_stacked_batches(cpu_mesh, {k: v[:REPLAY_STEPS] for k, v in first.items()})
+    replay = [cpu.step_batch({k: v[s] for k, v in stack_cpu.items()}).item()
+              for s in range(REPLAY_STEPS)]
+    replay_err = float(np.abs(np.array(replay) - np.array(result.losses[:REPLAY_STEPS])).max())
+    print(f"cpu mesh replay of the first {REPLAY_STEPS} steps: max loss difference "
+          f"{replay_err:.3g} (atol {REPLAY_LOSS_ATOL})")
+    if replay_err > REPLAY_LOSS_ATOL:
+        _fail(f"cpu mesh replay loss differs by {replay_err}")
+
+    # the mesh's eval scores (the partial kernel) against one device's
+    # (flash_attention), from the trained weights
+    model = train.build_ranker(config, in_features, SEED, result.params, "cuda")
+    model.eval()
+    eb = train.take(ds, eval_idx)
+    mesh_scores = train.eval_scores(model, eb, train.attention_fns(mesh, "ring")[1], mesh)
+    one_scores = train.eval_scores(model, eb)
+    valid = torch.from_numpy(eb["mask"]).cuda()
+    err = float((mesh_scores[valid] - one_scores[valid]).abs().max().item())
+    if not torch.allclose(mesh_scores[valid], one_scores[valid], atol=MODEL_ATOL, rtol=MODEL_RTOL):
+        _fail(f"mesh eval scores vs one device: max_abs_err {err}")
+    em = result.eval_metrics
+    print(f"mesh eval on {len(eval_idx)} held-out rows: scores vs one device (flash_attention) "
+          f"max_abs_err {err:.3g} (atol {MODEL_ATOL} rtol {MODEL_RTOL}); precision "
+          f"{em['precision']:.4f}, recall {em['recall']:.4f} of {em['recall_ceiling']:.4f}, "
+          f"regret {em['regret']:.4f}; loss first {result.losses[0]:.4f} last "
+          f"{result.losses[-1]:.4f}; {result.samples_per_sec:.1f} samples/s")
+
+    # the same entry point with Ulysses from the same seed (the same weights
+    # and batches): flash_attention on each shard's head group, so each step
+    # launches every training kernel layers x dp x sp times and the eval the
+    # finished forward layers x dp x sp times
+    _zero_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    uly = train.train_attention(ds, config, mesh=mesh, seed=SEED, sp_strategy="ulysses")
+    torch.cuda.synchronize()
+    uly_s = time.perf_counter() - start
+    uly_counts = _counts()
+    shards = layers * MESH_DP * MESH_SP
+    expected = {name: uly.steps * shards for name in TRAINING_KERNELS}
+    expected.update(flash_fwd=shards, flash_fwd_partial=0)
+    print(f"mesh training with Ulysses: {uly.steps} steps in {uly_s:.2f} s; launches "
+          f"{uly_counts} (expected: each training kernel steps x layers x dp x sp times, the "
+          "finished forward layers x dp x sp times in the eval)")
+    if uly_counts != expected:
+        _fail(f"Ulysses mesh training launches {uly_counts}, expected {expected}")
+    if uly.steps != result.steps or not np.isfinite(uly.losses).all():
+        _fail(f"Ulysses: {uly.steps} steps (ring {result.steps}), finite losses "
+              f"{bool(np.isfinite(uly.losses).all())}")
+    uly_err = float(np.abs(np.array(uly.losses[:REPLAY_STEPS])
+                           - np.array(result.losses[:REPLAY_STEPS])).max())
+    if uly_err > REPLAY_LOSS_ATOL:
+        _fail(f"Ulysses' first {REPLAY_STEPS} losses differ from the ring's by {uly_err}")
+    em = uly.eval_metrics
+    print(f"Ulysses vs ring over the first {REPLAY_STEPS} steps: max loss difference "
+          f"{uly_err:.3g} (atol {REPLAY_LOSS_ATOL}); precision {em['precision']:.4f}, recall "
+          f"{em['recall']:.4f}; loss last {uly.losses[-1]:.4f}; {uly.samples_per_sec:.1f} samples/s")
+
+    # each strategy's step time from the same initial weights over the same batches
+    stack = shard_stacked_batches(mesh, {k: v[:MESH_STEPS] for k, v in first.items()})
+    p50 = {}
+    for strategy in ("ring", "ulysses"):
+        trainer = train.AttentionTrainer(
+            train.build_ranker(config, in_features, SEED, None, "cuda"), None,
+            config.learning_rate, "cuda", attention_fn=train.attention_fns(mesh, strategy)[0],
+        )
+        p50[strategy], losses = _step_p50(trainer, stack, MESH_STEPS)
+        batch = {key: value[0] for key, value in stack.items()}
+        _print_split(f"{strategy} mesh step",
+                     _device_split(lambda: trainer.step_batch(batch), "flash_"), "the flash kernels")
+        if not np.isfinite(losses).all():
+            _fail(f"{strategy}: non-finite loss in the timed steps")
+    print(f"step p50 (synchronised, host clock, batch {config.batch_size}): ring "
+          f"{p50['ring']:.3f} ms, ulysses {p50['ulysses']:.3f} ms on the dp {MESH_DP} x sp "
+          f"{MESH_SP} mesh; one device {single_step_p50:.3f} ms (phase 5)")
+    return counts["flash_fwd_partial"], uly_counts
 
 
 def main() -> None:
@@ -814,7 +1176,10 @@ def main() -> None:
     kernels = phase_kernels()
     training_kernels = phase_training_kernels()
     launches = phase_main_path()
-    train_counts, serve_counts, _, _ = phase_training()
+    train_counts, serve_counts, ds, breakdown = phase_training()
+    partial = phase_partial_kernel(ds)
+    ring_launches = phase_long_ring()
+    mesh_launches, uly_counts = phase_mesh_training(ds, breakdown["step_p50_ms"])
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]
@@ -836,17 +1201,23 @@ def main() -> None:
         }
 
     # launches: every main path's count, each read just after its run
-    # (slice 1's serving; slice 2's training, then its serving)
-    fwd_launches = launches + train_counts["flash_fwd"] + serve_counts["flash_fwd"]
+    # (slice 1's serving; slice 2's training, then its serving; slice 3's
+    # ring, its ring mesh training, then its Ulysses mesh training)
+    fwd_launches = (launches + train_counts["flash_fwd"] + serve_counts["flash_fwd"]
+                    + uly_counts["flash_fwd"])
+    trained = {name: train_counts[name] + uly_counts[name] for name in TRAINING_KERNELS}
     fwd_src, bwd_src = "dragonfly2_tpu_torch/csrc/flash_fwd.cu", "dragonfly2_tpu_torch/csrc/flash_bwd.cu"
     line = {"kernels": [
         entry("flash_fwd", fwd_src, "dragonfly2_tpu/ops/flash.py:71", fwd_launches, kernels, "served"),
         entry("flash_fwd_lse", fwd_src, "dragonfly2_tpu/ops/flash.py:186",
-              train_counts["flash_fwd_lse"], training_kernels["flash_fwd_lse"], "trained"),
+              trained["flash_fwd_lse"], training_kernels["flash_fwd_lse"], "trained"),
         entry("flash_bwd_dkv", bwd_src, "dragonfly2_tpu/ops/flash.py:418",
-              train_counts["flash_bwd_dkv"], training_kernels["flash_bwd_dkv"], "trained"),
+              trained["flash_bwd_dkv"], training_kernels["flash_bwd_dkv"], "trained"),
         entry("flash_bwd_dq", bwd_src, "dragonfly2_tpu/ops/flash.py:474",
-              train_counts["flash_bwd_dq"], training_kernels["flash_bwd_dq"], "trained"),
+              trained["flash_bwd_dq"], training_kernels["flash_bwd_dq"], "trained"),
+        # slice 3's main paths: the long ring, then the mesh training's eval
+        entry("flash_fwd_partial", fwd_src, "dragonfly2_tpu/ops/flash.py:177",
+              ring_launches + mesh_launches, partial, "eval-shard"),
     ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

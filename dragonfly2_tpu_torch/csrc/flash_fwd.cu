@@ -1,9 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a): finished output, and the
-// same with the per-row logsumexp the backward needs.
+// Flash-attention forward for Hopper (sm_90a) in three output modes.
 //
 // Replaces the TPU kernel dragonfly2_tpu/ops/flash.py::_flash_kernel
-// (launched by _flash_forward's pallas_call, flash.py:340) in two of its
-// modes: o = softmax(q k^T / sqrt(D)) v over [B, H, L, D], a [B, L]
+// (launched by _flash_forward's pallas_call, flash.py:340) in all three of
+// its modes: o = softmax(q k^T / sqrt(D)) v over [B, H, L, D], a [B, L]
 // key-validity mask, optional causal masking, online softmax in base 2 with
 // float32 statistics and accumulators. Masked keys contribute nothing and
 // rows with no valid key come out 0.
@@ -11,10 +10,16 @@
 // - dfly_flash_fwd_lse: its save_lse mode (flash.py:186-197, training):
 //   also lse [B, H, L] f32 = m ln2 + log(max(l, 1e-30)) in natural units,
 //   from the base-2 running max m and the row sum l; a row with no valid
-//   key keeps m = -1e30, l = 0 and gets that finite filler. LSE is a
-//   template parameter, so the finished-output instances carry no branch.
-// The partial mode (ring attention) is not built here. Head dims: 16, 32,
-// 64, 128.
+//   key keeps m = -1e30, l = 0 and gets that finite filler.
+// - dfly_flash_fwd_partial: its partial mode (flash.py:93-94,177-184, ring
+//   attention's per-block attend): no normalisation; acc [B, H, L, D] f32 =
+//   the running unnormalised P V, row_max [B, H, L] f32 = m ln2 (natural
+//   units, so the ring merges with exp), row_sum [B, H, L] f32 = l. A row
+//   with no valid key leaves with row_max = -1e30 ln2, row_sum = 0 and
+//   acc = 0: finite, so the ring's exp(row_max - new_max) never meets
+//   -inf - -inf. No causal variant, as in the reference.
+// The mode is a template parameter, so the finished-output instances carry
+// no branch. Head dims: 16, 32, 64, 128.
 //
 // What bounds it on an H100: at the served shape, [1024, 4, 15, 32] bf16,
 // q, k, v and o are 3.9 MB each, 15.7 MB together, which the card moves in
@@ -22,7 +27,11 @@
 // 989 TFLOP/s bf16 tensor-core peak: memory- and launch-bound. At long L
 // the products dominate (4 * B * H * L^2 * D operations). The lse mode
 // adds 4 bytes a row: at the trained shape, [256, 4, 20, 32] bf16, it
-// moves 5.3 MB (~1.6 us) for at most 0.05 GFLOP, bound by bytes.
+// moves 5.3 MB (~1.6 us) for at most 0.05 GFLOP, bound by bytes. The
+// partial mode writes acc in float32, twice o's bytes in bf16, plus 8
+// bytes a row: at the ring's eval shard, [2000, 4, 10, 32] bf16, 26.3 MB
+// (~7.8 us), bound by bytes; at a ring block of [2, 4, 4096, 32] the
+// products (~17.2 GFLOP, ~17.4 us) bound it.
 //
 // Design (not the TPU's block-by-block schedule; its _pick_blocks tiling
 // does not carry over):
@@ -40,11 +49,16 @@
 //   [L, L] score matrix never leaves registers.
 // - Row max/sum live per thread (two rows each); max is reduced across the
 //   four threads of a row with shuffles, the sum only once at the end.
+// - The output type follows the mode: q's type for the finished and lse
+//   modes, float32 for the partial mode's acc (8-byte float2 stores where
+//   the bf16 output stores 4 bytes).
 // wgmma/TMA pipelining is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -52,6 +66,14 @@ constexpr int BLOCK_N = 64;  // keys per staged K/V tile
 constexpr float NEG_BIG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// output modes of the kernel
+constexpr int MODE_OUT = 0;      // finished output
+constexpr int MODE_LSE = 1;      // finished output and lse
+constexpr int MODE_PARTIAL = 2;  // unnormalised acc (float32), row max, row sum
+
+template <typename T, int MODE>
+using out_t = std::conditional_t<MODE == MODE_PARTIAL, float, T>;
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* src, __nv_bfloat16* dst) {
   *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
@@ -100,10 +122,13 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <typename T, int D, int WARPS, bool LSE>
+// stat0: lse (MODE_LSE) or row max (MODE_PARTIAL); stat1: row sum
+// (MODE_PARTIAL); both unused otherwise
+template <typename T, int D, int WARPS, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const uint8_t* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
+                 const uint8_t* __restrict__ mask, out_t<T, MODE>* __restrict__ o,
+                 float* __restrict__ stat0, float* __restrict__ stat1,
                  int H, int L, int num_qblocks, int causal, float scale_log2) {
   constexpr int BM = 16 * WARPS;      // query rows per block
   constexpr int THREADS = WARPS * 32;
@@ -124,7 +149,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* qh = q + head;
   const T* kh = k + head;
   const T* vh = v + head;
-  T* oh = o + head;
+  out_t<T, MODE>* oh = o + head;
   const uint8_t* mb = mask ? mask + static_cast<size_t>(b) * L : nullptr;
 
   const int tid = threadIdx.x;
@@ -268,14 +293,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
 
-  // finish: full row sums across the quad, normalise, write the valid rows
+  // finish: full row sums across the quad, then the mode's outputs for the
+  // valid rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
     l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
   }
-  const float inv_lo = 1.f / fmaxf(l_row[0], 1e-9f);
-  const float inv_hi = 1.f / fmaxf(l_row[1], 1e-9f);
+  // the partial mode leaves acc unnormalised
+  const float inv_lo = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[0], 1e-9f);
+  const float inv_hi = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[1], 1e-9f);
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) {
     const int col = dn * 8 + 2 * t;
@@ -286,65 +313,84 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       store2(oh + static_cast<size_t>(row_hi) * D + col, acc[dn][2] * inv_hi, acc[dn][3] * inv_hi);
     }
   }
-  if constexpr (LSE) {
-    // m and l are equal across the quad after the reductions: one writer
+  // m and l are equal across the quad after the reductions: one writer
+  if constexpr (MODE == MODE_LSE) {
     if (t == 0) {
-      float* lh = lse + static_cast<size_t>(bh) * L;
+      float* lh = stat0 + static_cast<size_t>(bh) * L;
       if (row_lo < L) lh[row_lo] = m_row[0] * LN2 + logf(fmaxf(l_row[0], 1e-30f));
       if (row_hi < L) lh[row_hi] = m_row[1] * LN2 + logf(fmaxf(l_row[1], 1e-30f));
     }
   }
+  if constexpr (MODE == MODE_PARTIAL) {
+    if (t == 0) {
+      float* mh = stat0 + static_cast<size_t>(bh) * L;
+      float* sh = stat1 + static_cast<size_t>(bh) * L;
+      if (row_lo < L) {
+        mh[row_lo] = m_row[0] * LN2;
+        sh[row_lo] = l_row[0];
+      }
+      if (row_hi < L) {
+        mh[row_hi] = m_row[1] * LN2;
+        sh[row_hi] = l_row[1];
+      }
+    }
+  }
 }
 
-template <typename T, int D, int WARPS, bool LSE>
+template <typename T, int D, int WARPS, int MODE>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-                   float* lse, int B, int H, int L, int causal, cudaStream_t stream) {
+                   float* stat0, float* stat1, int B, int H, int L, int causal,
+                   cudaStream_t stream) {
   constexpr int BM = 16 * WARPS;
   const int num_qblocks = (L + BM - 1) / BM;
   const long long blocks = static_cast<long long>(num_qblocks) * B * H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
-  flash_fwd_kernel<T, D, WARPS, LSE><<<static_cast<unsigned>(blocks), WARPS * 32, 0, stream>>>(
+  flash_fwd_kernel<T, D, WARPS, MODE><<<static_cast<unsigned>(blocks), WARPS * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(o), lse, H, L, num_qblocks, causal,
-      scale_log2);
+      static_cast<const uint8_t*>(mask), static_cast<out_t<T, MODE>*>(o), stat0, stat1, H, L,
+      num_qblocks, causal, scale_log2);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool LSE>
+template <typename T, int D, int MODE>
 cudaError_t by_warps(int warps, const void* q, const void* k, const void* v, const void* mask,
-                     void* o, float* lse, int B, int H, int L, int causal, cudaStream_t stream) {
+                     void* o, float* stat0, float* stat1, int B, int H, int L, int causal,
+                     cudaStream_t stream) {
   switch (warps) {
-    case 1: return launch<T, D, 1, LSE>(q, k, v, mask, o, lse, B, H, L, causal, stream);
-    case 2: return launch<T, D, 2, LSE>(q, k, v, mask, o, lse, B, H, L, causal, stream);
-    case 4: return launch<T, D, 4, LSE>(q, k, v, mask, o, lse, B, H, L, causal, stream);
+    case 1: return launch<T, D, 1, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
+    case 2: return launch<T, D, 2, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
+    case 4: return launch<T, D, 4, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, bool LSE>
+template <typename T, int MODE>
 cudaError_t by_dim(int D, int warps, const void* q, const void* k, const void* v,
-                   const void* mask, void* o, float* lse, int B, int H, int L, int causal,
-                   cudaStream_t stream) {
+                   const void* mask, void* o, float* stat0, float* stat1, int B, int H, int L,
+                   int causal, cudaStream_t stream) {
   switch (D) {
-    case 16: return by_warps<T, 16, LSE>(warps, q, k, v, mask, o, lse, B, H, L, causal, stream);
-    case 32: return by_warps<T, 32, LSE>(warps, q, k, v, mask, o, lse, B, H, L, causal, stream);
-    case 64: return by_warps<T, 64, LSE>(warps, q, k, v, mask, o, lse, B, H, L, causal, stream);
-    case 128: return by_warps<T, 128, LSE>(warps, q, k, v, mask, o, lse, B, H, L, causal, stream);
+    case 16: return by_warps<T, 16, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
+    case 32: return by_warps<T, 32, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
+    case 64: return by_warps<T, 64, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
+    case 128: return by_warps<T, 128, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool LSE>
-int by_dtype(const void* q, const void* k, const void* v, const void* mask, void* o, float* lse,
-             int B, int H, int L, int D, int causal, int dtype, int warps, void* stream) {
+template <int MODE>
+int by_dtype(const void* q, const void* k, const void* v, const void* mask, void* o, void* stat0,
+             void* stat1, int B, int H, int L, int D, int causal, int dtype, int warps,
+             void* stream) {
   if (B <= 0 || H <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* s0 = static_cast<float*>(stat0);
+  float* s1 = static_cast<float*>(stat1);
   cudaError_t err;
   if (dtype == 0) {
-    err = by_dim<__nv_bfloat16, LSE>(D, warps, q, k, v, mask, o, lse, B, H, L, causal, s);
+    err = by_dim<__nv_bfloat16, MODE>(D, warps, q, k, v, mask, o, s0, s1, B, H, L, causal, s);
   } else if (dtype == 1) {
-    err = by_dim<float, LSE>(D, warps, q, k, v, mask, o, lse, B, H, L, causal, s);
+    err = by_dim<float, MODE>(D, warps, q, k, v, mask, o, s0, s1, B, H, L, causal, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -360,7 +406,8 @@ int by_dtype(const void* q, const void* k, const void* v, const void* mask, void
 extern "C" int dfly_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
                               void* o, int B, int H, int L, int D, int causal, int dtype,
                               int warps, void* stream) {
-  return by_dtype<false>(q, k, v, mask, o, nullptr, B, H, L, D, causal, dtype, warps, stream);
+  return by_dtype<MODE_OUT>(q, k, v, mask, o, nullptr, nullptr, B, H, L, D, causal, dtype, warps,
+                            stream);
 }
 
 // As dfly_flash_fwd, and lse: contiguous [B, H, L] float32, written for
@@ -368,8 +415,19 @@ extern "C" int dfly_flash_fwd(const void* q, const void* k, const void* v, const
 extern "C" int dfly_flash_fwd_lse(const void* q, const void* k, const void* v, const void* mask,
                                   void* o, void* lse, int B, int H, int L, int D, int causal,
                                   int dtype, int warps, void* stream) {
-  return by_dtype<true>(q, k, v, mask, o, static_cast<float*>(lse), B, H, L, D, causal, dtype,
-                        warps, stream);
+  return by_dtype<MODE_LSE>(q, k, v, mask, o, lse, nullptr, B, H, L, D, causal, dtype, warps,
+                            stream);
+}
+
+// The partial mode, never causal: acc contiguous [B, H, L, D] float32 (q of
+// either dtype), row_max and row_sum contiguous [B, H, L] float32, all
+// written for every row.
+extern "C" int dfly_flash_fwd_partial(const void* q, const void* k, const void* v,
+                                      const void* mask, void* acc, void* row_max, void* row_sum,
+                                      int B, int H, int L, int D, int dtype, int warps,
+                                      void* stream) {
+  return by_dtype<MODE_PARTIAL>(q, k, v, mask, acc, row_max, row_sum, B, H, L, D, 0, dtype, warps,
+                                stream);
 }
 
 extern "C" const char* dfly_cuda_error_string(int err) {

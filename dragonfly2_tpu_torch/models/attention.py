@@ -23,7 +23,10 @@ the other by name. Numerics follow flax, not torch defaults:
 - gelu is the tanh approximation;
 - invalid candidate slots score -1e30.
 
-The mixture-of-experts MLP (``moe_experts > 0``) is not ported yet.
+Both ``forward``s take ``mesh`` as the reference's ``__call__``s do; in
+the reference only the mixture-of-experts MLP reads it, and that MLP
+(``moe_experts > 0``) is not ported yet. Sequence parallelism comes in
+through ``attention_fn`` (parallel/ring.py, parallel/ulysses.py).
 """
 
 from __future__ import annotations
@@ -100,7 +103,7 @@ class SelfAttentionBlock(nn.Module):
         self.mlp_up = Dense(hidden_dim, 4 * hidden_dim, compute_dtype)
         self.mlp_down = Dense(4 * hidden_dim, hidden_dim, compute_dtype)
 
-    def forward(self, x, mask, attention_fn: AttentionFn = flash_attention):
+    def forward(self, x, mask, attention_fn: AttentionFn = flash_attention, mesh=None):
         batch, length, _ = x.shape
         head_dim = self.hidden_dim // self.num_heads
         h = self.LayerNorm_0(x)
@@ -177,6 +180,7 @@ class AttentionRanker(nn.Module):
         pair_feats,  # [N, P, Fp]
         mask,  # [N, P] bool
         attention_fn: AttentionFn = flash_attention,
+        mesh=None,
     ):
         n, p, _ = parent_feats.shape
         dt = self.compute_dtype
@@ -190,7 +194,7 @@ class AttentionRanker(nn.Module):
         )
         x = self.embed(tokens)
         for block in self.blocks():
-            x = block(x, mask, attention_fn)
+            x = block(x, mask, attention_fn, mesh=mesh)
         x = self.LayerNorm_0(x)
         scores = self.score(x)[..., 0]
         return scores.masked_fill(~mask, -1e30)

@@ -1,8 +1,9 @@
 """Flash attention: the wrappers of the Hopper kernels and their plain twins.
 
 Port of dragonfly2_tpu/ops/flash.py's ``flash_attention`` and its
-``custom_vjp`` (flash.py:681-697). Three TPU kernels are ported, each
-written by hand in CUDA C++ for sm_90a and built with nvcc at first use
+``custom_vjp`` (flash.py:681-697), and of ``flash_attention_partials``
+(flash.py:711). Every TPU kernel of that file is ported, each written by
+hand in CUDA C++ for sm_90a and built with nvcc at first use
 (ops/build.py); each source's header gives its design and its bound on an
 H100:
 
@@ -10,20 +11,24 @@ H100:
   csrc/flash_fwd.cu ``dfly_flash_fwd`` (serving, eval);
 - the same kernel in its ``save_lse`` mode (flash.py:186-197) ->
   csrc/flash_fwd.cu ``dfly_flash_fwd_lse`` (training forward);
+- the same kernel in its ``partial`` mode (flash.py:93-94,177-184) ->
+  csrc/flash_fwd.cu ``dfly_flash_fwd_partial`` (ring attention's blocks);
 - ``_flash_bwd_dkv_kernel`` (flash.py:418) and ``_flash_bwd_dq_kernel``
   (flash.py:474) -> csrc/flash_bwd.cu ``dfly_flash_bwd_dkv`` and
   ``dfly_flash_bwd_dq`` (training backward).
 
 Every wrapper launches its kernel on a CUDA tensor, or raises; on a CPU
 tensor it takes the kernel's plain version, and only then. Each kernel has
-a launch counter (``LAUNCHES``, ``LSE_LAUNCHES``, ``DKV_LAUNCHES``,
-``DQ_LAUNCHES``) that only the line launching it adds to.
+a launch counter (``LAUNCHES``, ``LSE_LAUNCHES``, ``PARTIAL_LAUNCHES``,
+``DKV_LAUNCHES``, ``DQ_LAUNCHES``) that only the line launching it adds
+to.
 
 ``flash_attention`` is the public entry. With autograd recording and an
 input that requires grad it runs ``FlashAttention`` (forward with lse,
 backward through the two backward kernels); otherwise, as under
 ``torch.inference_mode()`` on the serving path, one finished-output
-forward. The ``partial`` mode (ring attention) is not ported yet.
+forward. ``flash_attention_partials`` is forward-only, as in the
+reference: under autograd it raises.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ _LN2 = math.log(2.0)
 # launches from worker threads)
 LAUNCHES = 0  # finished-output forward
 LSE_LAUNCHES = 0  # forward with lse
+PARTIAL_LAUNCHES = 0  # forward, partial mode
 DKV_LAUNCHES = 0  # backward, dK/dV
 DQ_LAUNCHES = 0  # backward, dQ
 _launches_lock = threading.Lock()
@@ -57,6 +63,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
     "dfly_flash_fwd": ("flash_fwd", [_P] * 5 + [_I] * 7 + [_P]),
     "dfly_flash_fwd_lse": ("flash_fwd", [_P] * 6 + [_I] * 7 + [_P]),
+    "dfly_flash_fwd_partial": ("flash_fwd", [_P] * 7 + [_I] * 6 + [_P]),
     "dfly_flash_bwd_dkv": ("flash_bwd", [_P] * 9 + [_I] * 7 + [_P]),
     "dfly_flash_bwd_dq": ("flash_bwd", [_P] * 8 + [_I] * 7 + [_P]),
 }
@@ -219,6 +226,56 @@ def flash_attention_lse(q, k, v, kv_mask=None, causal: bool = False):
     )
     _count("LSE_LAUNCHES")
     return o, lse
+
+
+def flash_attention_partials_plain(q, k, v, kv_mask=None):
+    """The partial kernel's plain version: (acc [B, H, L, D] f32, row_max
+    [B, H, L] f32, row_sum [B, H, L] f32), reached as the reference kernel
+    reaches them (flash.py:143-165,177-184): base-2 scores, the masked row
+    max m, p = exp2(s - m) on valid keys, row_sum = sum p, acc = P V with p
+    rounded to the input dtype first (``probs.astype(vb.dtype)``), and
+    row_max = m ln2 in natural units. A row with no valid key keeps m =
+    -1e30, so row_max = -1e30 ln2, row_sum = 0 and acc = 0."""
+    b, h, l, d = q.shape
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (_LOG2E / math.sqrt(d))
+    valid = _valid_pairs(kv_mask, False, b, l, q.device)
+    s = torch.where(valid, s, torch.full_like(s, _NEG))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp2(s - m), torch.zeros_like(s))
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return acc, m[..., 0] * _LN2, p.sum(-1)
+
+
+def flash_attention_partials(q, k, v, kv_mask=None):
+    """Unnormalised flash partials of one KV block, for ring attention's
+    merges: (acc, row_max, row_sum), all float32, with ``acc / max(row_sum,
+    eps)`` the attention output over exactly this block. The kernel on
+    CUDA, the plain version on the CPU. Equal q/kv lengths, no causal mode.
+
+    Forward-only, as in the reference (the kernel has no gradient): with
+    autograd recording and an input that requires grad it raises rather
+    than return tensors cut off from the graph."""
+    _check(q, k, v, kv_mask)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention_partials has no gradient: differentiate ring attention "
+            "through its einsum path (use_flash=False)"
+        )
+    if q.device.type == "cpu":
+        return flash_attention_partials_plain(q, k, v, kv_mask)
+    b, h, l, d = q.shape
+    acc = torch.empty(b, h, l, d, dtype=torch.float32, device=q.device)
+    row_max = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
+    row_sum = torch.empty_like(row_max)
+    if acc.numel() == 0:
+        return acc, row_max, row_sum
+    _launch(
+        "dfly_flash_fwd_partial", q.device,
+        *_pointers(q, k, v, kv_mask, acc, row_max, row_sum),
+        b, h, l, d, _DTYPE_CODES[q.dtype], warps_for(l),
+    )
+    _count("PARTIAL_LAUNCHES")
+    return acc, row_max, row_sum
 
 
 # -------------------------------------------------------------- backward

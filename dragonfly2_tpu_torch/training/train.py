@@ -1,25 +1,38 @@
-"""Training of the attention parent ranker on one device, in PyTorch.
+"""Training of the attention parent ranker, in PyTorch.
 
-Port of the single-device (``mesh=None``) attention family of
-dragonfly2_tpu/training/train.py: ``train_attention`` (train.py:746-914)
+Port of the attention family of dragonfly2_tpu/training/train.py:
+``train_attention`` (train.py:746-914) on one device and on a dp x sp mesh,
 with ``TrainResult``, ``flops_basis``, ``analytic_attention_flops_per_sample``
 and the split/throughput helpers it uses. The model is
-models/attention.py's ``AttentionRanker``, whose attention runs through
-ops/flash.py: on CUDA the forward-with-lse kernel and the dK/dV and dQ
-backward kernels, on the CPU their plain versions.
+models/attention.py's ``AttentionRanker``.
 
-As in the reference's ``_make_epoch_indexed`` path, the training rows live
-on the device once and each step gathers its batch by index there; the
-host reads each epoch's losses once, and the throughput is timed against
-that read. The optimizer is AdamW with optax's ``adamw`` defaults, not
-torch's (weight decay 1e-4, not 1e-2). ``train_mlp``, ``train_gnn``, the
-mesh paths, checkpoint resume, tensor/pipeline parallelism and the MoE
-scorer are not ported yet.
+- One device (``mesh=None``): attention through ops/flash.py, on CUDA the
+  forward-with-lse kernel and the dK/dV and dQ backward kernels, on the CPU
+  their plain versions. As in the reference's ``_make_epoch_indexed`` path,
+  the training rows live on the device once and each step gathers its
+  batch by index there.
+- A mesh (parallel/mesh.py) with sp > 1: attention through ring attention
+  or Ulysses over the mesh's sp shards (``sp_strategy``), the rest of the
+  model on the mesh's first device. The training steps take the ring's
+  einsum path, as the reference does (the partials have no gradient); the
+  no-grad eval forward takes the ring's flash path, the partial kernel.
+  Batches follow the reference's ``_stacked_epochs`` step for step: a new
+  permutation each epoch, full batches only, padded to a multiple of dp.
+  Only the attention is sharded, so a dp-only mesh (sp = 1) computes on
+  its first device alone: it takes the mesh path for the reference's batch
+  order and nothing else.
+
+Either way the host reads each epoch's losses once, and the throughput is
+timed against that read. The optimizer is AdamW with optax's ``adamw``
+defaults, not torch's (weight decay 1e-4, not 1e-2). ``train_mlp``,
+``train_gnn``, checkpoint resume, tensor/pipeline/expert parallelism and
+the MoE scorer are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -34,6 +47,17 @@ from dragonfly2_tpu_torch.models.convert import (
     attention_params_to_flax,
 )
 from dragonfly2_tpu_torch.models.graphsage import listwise_rank_loss
+from dragonfly2_tpu_torch.ops.flash import flash_attention
+from dragonfly2_tpu_torch.parallel.mesh import (
+    DP_AXIS,
+    EP_AXIS,
+    PP_AXIS,
+    SP_AXIS,
+    TP_AXIS,
+    shard_stacked_batches,
+)
+from dragonfly2_tpu_torch.parallel.ring import sharded_ring_attention
+from dragonfly2_tpu_torch.parallel.ulysses import sharded_ulysses_attention
 from dragonfly2_tpu_torch.records.features import RankingDataset
 from dragonfly2_tpu_torch.training import data as D
 
@@ -181,40 +205,100 @@ def build_ranker(
 
 
 class AttentionTrainer:
-    """One attention ranker, its AdamW state and its training rows on one
-    device. ``step`` runs a train step on the rows at ``idx`` (positions
-    into those rows) and returns the loss on the device, unread."""
+    """One attention ranker, its AdamW state, the attention it trains
+    through and, when given, its training rows on one device. ``step`` runs
+    a train step on the rows at ``idx`` (positions into those rows),
+    ``step_batch`` on a batch of model inputs and labels already on the
+    device; both return the loss on the device, unread."""
 
-    def __init__(self, model: AttentionRanker, rows: dict[str, np.ndarray],
-                 learning_rate: float, device):
+    def __init__(self, model: AttentionRanker, rows: dict[str, np.ndarray] | None,
+                 learning_rate: float, device, attention_fn=flash_attention):
         self.model = model
         self.device = torch.device(device)
         self.rows = {
             key: torch.from_numpy(np.ascontiguousarray(value)).to(self.device)
-            for key, value in rows.items()
+            for key, value in (rows or {}).items()
         }
+        self.attention_fn = attention_fn
         self.optimizer = adamw(model.parameters(), learning_rate)
 
-    def loss(self, idx: torch.Tensor) -> torch.Tensor:
-        batch = {key: value[idx] for key, value in self.rows.items()}
-        scores = self.model(batch["child"], batch["parents"], batch["pair"], batch["mask"])
+    def batch_loss(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        scores = self.model(batch["child"], batch["parents"], batch["pair"], batch["mask"],
+                            attention_fn=self.attention_fn)
         return listwise_rank_loss(scores, batch["throughput"], batch["mask"])
 
-    def step(self, idx: torch.Tensor) -> torch.Tensor:
-        loss = self.loss(idx)
+    def loss(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.batch_loss({key: value[idx] for key, value in self.rows.items()})
+
+    def _apply(self, loss: torch.Tensor) -> torch.Tensor:
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
         return loss.detach()
+
+    def step(self, idx: torch.Tensor) -> torch.Tensor:
+        return self._apply(self.loss(idx))
+
+    def step_batch(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        return self._apply(self.batch_loss(batch))
+
+
+def attention_fns(mesh, sp_strategy: str):
+    """(training attention, eval attention) of the ranker. Without a mesh,
+    or with sp = 1, both are ``flash_attention``. At sp > 1 the strategy's
+    sharded attention: the ring trains through its einsum path and
+    evaluates through the partial kernel (``use_flash=True``); Ulysses
+    runs ``flash_attention`` on each head group either way."""
+    if mesh is None or mesh.shape[SP_AXIS] == 1:
+        return flash_attention, flash_attention
+    if sp_strategy == "ring":
+        return (functools.partial(sharded_ring_attention, mesh),
+                functools.partial(sharded_ring_attention, mesh, use_flash=True))
+    ulysses = functools.partial(sharded_ulysses_attention, mesh)
+    return ulysses, ulysses
+
+
+def epoch_batches(ds: RankingDataset, train_idx: np.ndarray, batch_size: int,
+                  rng: np.random.Generator) -> dict[str, np.ndarray]:
+    """One epoch of the mesh path's batches as the reference's
+    ``make_epoch_batches`` draws them (train.py:862-867): a new permutation
+    of the training rows, full batches only, stacked [steps, batch, ...]."""
+    order = rng.permutation(len(train_idx))
+    starts = range(0, len(order) - batch_size + 1, batch_size)
+    idx = np.stack([train_idx[order[s:s + batch_size]] for s in starts])
+    return take(ds, idx)
+
+
+def eval_scores(model: AttentionRanker, rows: dict[str, np.ndarray],
+                attention_fn=flash_attention, mesh=None) -> torch.Tensor:
+    """The ranker's scores of ``rows`` under inference mode, on the model's
+    device. On a mesh the rows are padded with zero (masked-out) rows to a
+    multiple of dp and the scores sliced back, as the reference pads its
+    eval batch (train.py:877-892)."""
+    n_real = rows["mask"].shape[0]
+    if mesh is not None:
+        pad = (-n_real) % mesh.shape[DP_AXIS]
+        rows = {
+            key: np.concatenate([value, np.zeros((pad,) + value.shape[1:], value.dtype)])
+            for key, value in rows.items()
+        }
+    device = next(model.parameters()).device
+    with torch.inference_mode():
+        scores = model(
+            *(torch.from_numpy(rows[key]).to(device) for key in ("child", "parents", "pair", "mask")),
+            attention_fn=attention_fn, mesh=mesh,
+        )
+    return scores[:n_real]
 
 
 def _check_supported(config: TrainerConfig, mesh, checkpointer, sp_strategy: str) -> None:
     # validated even without a mesh, so a typo fails on one device too
     if sp_strategy not in SP_STRATEGIES:
         raise ValueError(f"unknown sp_strategy {sp_strategy!r}")
-    if mesh is not None:
+    if mesh is not None and any(mesh.shape[axis] > 1 for axis in (TP_AXIS, PP_AXIS, EP_AXIS)):
         raise NotImplementedError(
-            "train_attention over a mesh (dp/sp/tp/ep/pp) is not ported yet: ROADMAP queue A12"
+            f"train_attention over a mesh with tp, pp or ep > 1 ({mesh.shape}) is not "
+            "ported yet: ROADMAP queue A12"
         )
     if checkpointer is not None:
         raise NotImplementedError(
@@ -230,6 +314,65 @@ def _check_supported(config: TrainerConfig, mesh, checkpointer, sp_strategy: str
         )
 
 
+def _train_device(mesh, device) -> torch.device:
+    """The device the model trains on: the mesh's first device on a mesh
+    (``device``, if given, must agree), else ``device`` (CUDA by default)."""
+    if mesh is None:
+        return resolve_device(device)
+    dev = mesh.first_device
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device {device} disagrees with the mesh's first device {dev}")
+    return resolve_device(dev)  # a CUDA mesh without CUDA raises
+
+
+def _index_epochs(trainer, n_train, batch_size, epochs, epoch_fusion, rng, dev):
+    """The single-device epochs: index batches into the device-resident rows,
+    in timed blocks of ``fusion`` epochs (a divisor of the epoch count, as
+    the reference's epoch fusion); each block's losses are read once.
+    Returns (losses, samples per block, seconds per block)."""
+    fusion = max(min(int(epoch_fusion), max(epochs, 1)), 1)
+    while max(epochs, 1) % fusion:
+        fusion -= 1
+    losses: list[float] = []
+    block_samples, block_secs = [], []
+    for start in range(0, epochs, fusion):
+        t0 = time.perf_counter()
+        block_losses, samples = [], 0
+        for _ in range(min(fusion, epochs - start)):
+            idx = np.stack(list(D.minibatches(n_train, batch_size, rng)))
+            idx_dev = torch.from_numpy(idx).to(dev)
+            for s in range(idx.shape[0]):
+                block_losses.append(trainer.step(idx_dev[s]))
+            samples += idx.size
+        block = torch.stack(block_losses).cpu().numpy()  # the one read per block
+        block_secs.append(time.perf_counter() - t0)
+        block_samples.append(samples)
+        losses.extend(float(v) for v in block.astype(np.float64))
+    return losses, block_samples, block_secs
+
+
+def _stacked_epochs(trainer, mesh, epochs, batch_size, make_epoch_batches):
+    """The mesh path's epochs (the reference's ``_stacked_epochs``,
+    train.py:475-509): per epoch, the host batches from
+    ``make_epoch_batches()`` stacked and placed by ``shard_stacked_batches``
+    (batch padded to a multiple of dp), then one step a batch, timed from
+    the first step to the epoch's one loss read. Returns (losses, samples
+    per epoch, seconds per epoch)."""
+    losses: list[float] = []
+    epoch_samples, epoch_secs = [], []
+    for _ in range(epochs):
+        stack = shard_stacked_batches(mesh, make_epoch_batches())
+        steps = stack["mask"].shape[0]
+        t0 = time.perf_counter()
+        ep = [trainer.step_batch({key: value[s] for key, value in stack.items()})
+              for s in range(steps)]
+        ep_losses = torch.stack(ep).cpu().numpy()  # the one read per epoch
+        epoch_secs.append(time.perf_counter() - t0)
+        epoch_samples.append(steps * batch_size)
+        losses.extend(float(v) for v in ep_losses.astype(np.float64))
+    return losses, epoch_samples, epoch_secs
+
+
 def train_attention(
     ds: RankingDataset,
     config: TrainerConfig | None = None,
@@ -241,18 +384,23 @@ def train_attention(
     device: str | torch.device | None = None,
     params: dict | None = None,
 ) -> TrainResult:
-    """Train the set-transformer parent ranker on one device (CUDA unless
-    ``device="cpu"``) and evaluate its top-1 picks on a held-out split.
+    """Train the set-transformer parent ranker and evaluate its top-1 picks
+    on a held-out split: on one device (CUDA unless ``device="cpu"``), or
+    on a mesh (parallel/mesh.py ``make_mesh``) whose sp > 1 turns on ring
+    attention or Ulysses per ``sp_strategy`` (default
+    ``config.sp_strategy``), the model on the mesh's first device. A mesh
+    with sp = 1 computes on that one device.
 
     The split and the minibatch order come from ``np.random.default_rng(seed)``
-    exactly as in the reference. The initial weights are drawn from ``seed``
+    exactly as in the reference, on one device and on a mesh alike. The
+    initial weights are drawn from ``seed``
     (``AttentionRanker.reset_parameters``), or carried across from a flax
     params tree ``params``; ``TrainResult.params`` is the trained flax tree,
     which either package's registry can publish and serve."""
     config = config or TrainerConfig()
     sp_strategy = sp_strategy or config.sp_strategy
     _check_supported(config, mesh, checkpointer, sp_strategy)
-    dev = resolve_device(device)
+    dev = _train_device(mesh, device)
     rng = np.random.default_rng(seed)
     n = ds.child.shape[0]
     perm = rng.permutation(n)
@@ -261,43 +409,30 @@ def train_attention(
     train_rows = take(ds, train_idx)
     in_features = sum(train_rows[key].shape[-1] for key in ("parents", "child", "pair"))
     model = build_ranker(config, in_features, seed, params, dev)
-    trainer = AttentionTrainer(model, train_rows, config.learning_rate, dev)
+    train_fn, eval_fn = attention_fns(mesh, sp_strategy)
     batch_size = min(config.batch_size, len(train_idx))
 
-    # epochs run in timed blocks of `fusion` (a divisor of the epoch count,
-    # as the reference's epoch fusion); each block's losses are read once
-    epochs = config.epochs
-    fusion = max(min(int(config.epoch_fusion), max(epochs, 1)), 1)
-    while max(epochs, 1) % fusion:
-        fusion -= 1
-    losses: list[float] = []
-    block_samples, block_secs = [], []
     model.train()
-    for start in range(0, epochs, fusion):
-        t0 = time.perf_counter()
-        block_losses, samples = [], 0
-        for _ in range(min(fusion, epochs - start)):
-            idx = np.stack(list(D.minibatches(len(train_idx), batch_size, rng)))
-            idx_dev = torch.from_numpy(idx).to(dev)
-            for s in range(idx.shape[0]):
-                block_losses.append(trainer.step(idx_dev[s]))
-            samples += idx.size
-        block = torch.stack(block_losses).cpu().numpy()  # the one read per block
-        block_secs.append(time.perf_counter() - t0)
-        block_samples.append(samples)
-        losses.extend(float(v) for v in block.astype(np.float64))
+    if mesh is None:
+        trainer = AttentionTrainer(model, train_rows, config.learning_rate, dev)
+        losses, block_samples, block_secs = _index_epochs(
+            trainer, len(train_idx), batch_size, config.epochs, config.epoch_fusion, rng, dev
+        )
+    else:
+        trainer = AttentionTrainer(model, None, config.learning_rate, dev, attention_fn=train_fn)
+        losses, block_samples, block_secs = _stacked_epochs(
+            trainer, mesh, config.epochs, batch_size,
+            lambda: epoch_batches(ds, train_idx, batch_size, rng),
+        )
     n_samples, dt = _steady_state_throughput(block_samples, block_secs)
     peak = _peak_rate(block_samples, block_secs)
 
     eb = take(ds, eval_idx)
     model.eval()
-    with torch.inference_mode():
-        scores = model(*(
-            torch.from_numpy(eb[key]).to(dev) for key in ("child", "parents", "pair", "mask")
-        ))
-        stats = M.top1_selection_stats(
-            scores.float().cpu(), torch.from_numpy(eb["throughput"]), torch.from_numpy(eb["mask"])
-        )
+    scores = eval_scores(model, eb, eval_fn, mesh)
+    stats = M.top1_selection_stats(
+        scores.float().cpu(), torch.from_numpy(eb["throughput"]), torch.from_numpy(eb["mask"])
+    )
     analytic = analytic_attention_flops_per_sample(
         token_feat_dim=eb["parents"].shape[-1] + eb["child"].shape[1] + eb["pair"].shape[-1],
         hidden=config.hidden_dim,

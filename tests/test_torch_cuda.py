@@ -172,3 +172,84 @@ def test_one_training_step_gradients_match_the_plain_path():
         scale = float(want.abs().max())
         err = float((got - want).abs().max())
         assert err <= 5e-2 * scale, (name, err, scale)
+
+
+# the partial kernel: acc (unnormalised, a sum over up to L keys) relative
+# to its row sum, to the forward's tolerance; row_max and row_sum to STATS
+# for bf16 inputs (float32 from the same float32 scores as the plain
+# version's), to the forward's for float32 inputs (the kernel rounds them
+# to bf16 for the tensor cores, the plain version does not)
+STATS_ATOL, STATS_RTOL = 1e-3, 1e-3
+# the ring at L = 512, where a row averages hundreds of keys (|o| ~ 0.05):
+# rtol above one bf16 ulp
+LONG_ATOL, LONG_RTOL = 3e-3, 1e-2
+FILLER = -1e30 * 0.6931471805599453  # row_max of a row with no valid key
+
+
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [
+        ((500, 4, 10, 32), torch.bfloat16),  # the ranker's eval shard at dp = sp = 2
+        ((2, 4, 1000, 32), torch.bfloat16),  # ragged tiles
+        ((2, 2, 70, 128), torch.bfloat16),
+        ((3, 2, 33, 16), torch.float32),
+    ],
+)
+def test_partial_kernel_matches_plain(shape, dtype):
+    _need_card()
+    q, k, v, _, mask = _training_inputs(shape, dtype, seed=2)
+    for kv_mask in (mask, None):
+        before = flash.PARTIAL_LAUNCHES
+        acc, row_max, row_sum = flash.flash_attention_partials(q, k, v, kv_mask)
+        assert flash.PARTIAL_LAUNCHES == before + 1
+        assert [t.dtype for t in (acc, row_max, row_sum)] == [torch.float32] * 3
+        assert acc.shape == q.shape and row_max.shape == row_sum.shape == q.shape[:3]
+        want_acc, want_max, want_sum = flash.flash_attention_partials_plain(q, k, v, kv_mask)
+        live = want_sum > 0
+        stats = (dict(atol=STATS_ATOL, rtol=STATS_RTOL) if dtype == torch.bfloat16
+                 else dict(atol=ATOL, rtol=RTOL))
+        torch.testing.assert_close(row_max[live], want_max[live], **stats)
+        torch.testing.assert_close(row_sum, want_sum, **stats)
+        scale = want_sum.clamp_min(1.0)[..., None]
+        torch.testing.assert_close(acc / scale, want_acc / scale, atol=ATOL, rtol=RTOL)
+        if kv_mask is not None:  # batch row 0 has no valid key
+            torch.testing.assert_close(row_max[0], torch.full_like(row_max[0], FILLER), rtol=1e-6,
+                                       atol=0)
+            assert (row_sum[0] == 0).all() and (acc[0] == 0).all()
+
+
+def test_partials_refuse_autograd_on_the_card():
+    _need_card()
+    q, k, v, _, mask = _training_inputs((2, 2, 20, 32), torch.bfloat16)
+    before = flash.PARTIAL_LAUNCHES
+    with pytest.raises(RuntimeError, match="no gradient"):
+        flash.flash_attention_partials(q.requires_grad_(), k, v, mask)
+    assert flash.PARTIAL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("dp,sp", [(1, 4), (2, 2)])
+def test_ring_on_one_card_matches_flash_attention(dp, sp):
+    """A dp x sp mesh of one card's device: the ring with the partial kernel
+    launches dp * sp^2 times and matches flash_attention on the whole
+    sequence; the einsum ring and the causal zigzag ring too."""
+    _need_card()
+    from dragonfly2_tpu_torch.parallel.mesh import make_mesh
+    from dragonfly2_tpu_torch.parallel.ring import (
+        sharded_causal_ring_attention,
+        sharded_ring_attention,
+    )
+
+    q, k, v, _, mask = _training_inputs((4, 4, 512, 32), torch.bfloat16, seed=3)
+    mesh = make_mesh(dp * sp, dp=dp, sp=sp, devices=[torch.device("cuda", 0)] * (dp * sp))
+    want = flash.flash_attention(q, k, v, mask)
+    before = flash.PARTIAL_LAUNCHES
+    got = sharded_ring_attention(mesh, q, k, v, mask, use_flash=True)
+    assert flash.PARTIAL_LAUNCHES == before + dp * sp * sp
+    assert got.dtype == q.dtype and got.is_cuda
+    torch.testing.assert_close(got.float(), want.float(), atol=LONG_ATOL, rtol=LONG_RTOL)
+    assert (got[0] == 0).all()  # the fully masked batch row
+    einsum = sharded_ring_attention(mesh, q, k, v, mask)
+    torch.testing.assert_close(einsum.float(), want.float(), atol=LONG_ATOL, rtol=LONG_RTOL)
+    causal = sharded_causal_ring_attention(mesh, q, k, v, mask)
+    torch.testing.assert_close(causal.float(), flash.flash_attention(q, k, v, mask, True).float(),
+                               atol=LONG_ATOL, rtol=LONG_RTOL)

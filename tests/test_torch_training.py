@@ -28,6 +28,7 @@ from dragonfly2_tpu_torch.models import metrics
 from dragonfly2_tpu_torch.models.attention import AttentionRanker
 from dragonfly2_tpu_torch.models.convert import attention_params_from_flax
 from dragonfly2_tpu_torch.models.graphsage import listwise_rank_loss
+from dragonfly2_tpu_torch.parallel.mesh import make_mesh
 from dragonfly2_tpu_torch.records import synth
 from dragonfly2_tpu_torch.records.features import downloads_to_ranking_dataset
 from dragonfly2_tpu_torch.training import data, train
@@ -294,8 +295,10 @@ def test_train_attention_draws_its_own_init_from_the_seed(rank_data):
 def test_not_yet_ported_paths_raise(rank_data):
     port_ds, _ = rank_data
     cfg = TrainerConfig(hidden_dim=32, batch_size=32, epochs=1)
+    # the dp/sp mesh path is ported (tests/test_torch_sp.py); tp/pp/ep are not
+    tp_mesh = make_mesh(2, dp=1, tp=2, devices=["cpu"] * 2)
     with pytest.raises(NotImplementedError, match="mesh"):
-        train.train_attention(port_ds, cfg, mesh=object(), device="cpu")
+        train.train_attention(port_ds, cfg, mesh=tp_mesh, device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         train.train_attention(port_ds, cfg, checkpointer=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="mixture-of-experts"):
