@@ -49,14 +49,33 @@ result line:
    Ulysses from the same seed (every training kernel steps * layers * dp *
    sp times, the finished forward layers * dp * sp times in the eval, the
    first losses against the ring's), and each strategy's step p50.
-7. the kernels JSON line and, last, the result line.
+7. the Hopper instances (slice 4): Ulysses at [2, 16, 4096, 32] on a
+   1 x 4 mesh of the card, whose shards run the forward, the forward with
+   lse and dK/dV at long L: the finished forward without grad and one
+   forward/backward with it, each sm90 instance exactly sp times, against
+   the plain versions over the whole sequence.
+8. the kernels JSON line and, last, the result line.
+
+At every long shape (the Hopper instances' shapes) the kernels are held
+to the LONG tolerances, the kernel lines give both instances' device times
+(the one ops/flash.py picks, and the other, forced through the same
+wrappers, for comparison), and a long shape whose kernel the profiler does
+not find fails the run.
+
+    python3 chip_smoke.py --threshold
+
+instead times both instances of the forward and of dK/dV at L = 16 .. 512
+(device time), the readings ops/flash.py's SM90_MIN_L is set from, and
+prints no result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import argparse
 import asyncio
+import contextlib
 import json
 import os
 import re
@@ -74,13 +93,15 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 495e12}  # dense tensor core: b
 # kernel vs plain version on the card: both round to bf16 where the kernel
 # feeds the tensor cores (q, k, v, p), and the output is bf16 for bf16 inputs
 KERNEL_ATOL, KERNEL_RTOL = 3e-2, 2e-2
-# at L >= 4096 a row of attention averages thousands of keys (~0.01-0.02
-# for N(0, 1) inputs at D = 32), where KERNEL_ATOL would pass a dropped key
-# tile: the ring, the causal ring and the partial kernel's ring blocks are
-# held to LONG (rtol above one bf16 ulp, 2^-7 of the value)
+# at long L a row of attention averages thousands of keys (~0.01-0.02 for
+# N(0, 1) inputs at L = 4096, D = 32), where KERNEL_ATOL would pass a
+# dropped key tile: every shape that takes the Hopper instances, the ring
+# and the causal ring are held to LONG (rtol above one bf16 ulp, 2^-7 of
+# the value)
 LONG_ATOL, LONG_RTOL = 3e-3, 1e-2
-# the partial kernel's row_max and row_sum, every shape: float32 from the
-# same float32 scores as the plain version's (bf16 inputs are exact in f32)
+# the partial kernel's row_max and row_sum, every shape, and the lse at the
+# long shapes: float32 from the same float32 scores as the plain version's
+# (bf16 inputs are exact in f32)
 STATS_ATOL, STATS_RTOL = 1e-3, 1e-3
 # full ranker, cuda (kernel, cuBLAS bf16) vs cpu (plain version): bf16
 # rounding at every layer, the same family as tests/test_attention.py
@@ -88,6 +109,10 @@ MODEL_ATOL, MODEL_RTOL = 5e-2, 5e-2
 # backward kernels vs their plain version: bf16 rounding of q, k, v, dO, P
 # and dS before the tensor cores, summed over up to L keys or queries
 GRAD_ATOL, GRAD_RTOL = 5e-2, 5e-2
+# gradients at the long shapes: a dK/dV element sums thousands of small
+# terms (typically 0.02-0.03 at L = 4096), where GRAD would pass a skipped
+# query tile; rtol above one bf16 ulp
+LONG_GRAD_ATOL, LONG_GRAD_RTOL = 5e-3, 1e-2
 # the training path: bench_trainer.py's trace and the trainer's defaults
 TRACE_HOSTS, TRACE_RECORDS, TRACE_TASKS, MAX_PARENTS = 10_000, 20_000, 512, 20
 TRAIN_EPOCHS = 3
@@ -112,6 +137,13 @@ ORACLE_ROWS = 256  # query rows a chunk of the dense oracle takes ([L, L] f32 is
 MESH_DP, MESH_SP = 2, 2
 MESH_EPOCHS = 1
 MESH_STEPS = 12  # timed steps of each strategy from the same weights
+# slice 4: Ulysses over a long sequence, whose shards run the Hopper
+# instances: [2, 4, 4096, 32] each, the "long" rows of the kernel phases;
+# and, with --threshold, where they overtake the mma.sync ones
+THRESHOLD_LENGTHS = (16, 20, 32, 64, 96, 128, 256, 512)
+# head dim -> (B, H): the ranker's trained batch, and the wide rows' heads
+THRESHOLD_SHAPES = {32: (256, 4), 128: (16, 8)}
+ULYSSES_SHAPE, ULYSSES_SP = (2, 16, 4096, 32), 4
 
 
 def _fail(message: str) -> None:
@@ -134,8 +166,16 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _fmt(ms) -> str:
-    return "not measured" if ms is None else f"{ms:.4f}"
+KERNEL_CALLS = 20  # launches in one profiler window of _kernel_ms
+
+
+def _fmt(row: dict, prefix: str = "kernel") -> str:
+    """A row's ``{prefix}_ms`` device time with the launches the profiler
+    recorded of the KERNEL_CALLS made."""
+    ms = row.get(f"{prefix}_ms")
+    if ms is None:
+        return "not measured"
+    return f"{ms:.4f}, {row[f'{prefix}_recorded']}/{KERNEL_CALLS} launches recorded"
 
 
 def _kernels_of(prof, calls: int):
@@ -151,21 +191,52 @@ def _kernels_of(prof, calls: int):
     )
 
 
-def _kernel_ms(fn, symbol: str, calls: int = 20):
-    """Device time of one launch of the kernel named ``symbol`` under ``fn``
-    (torch.profiler): the kernel's own execution, where ``_time_ms`` at a
-    small shape measures the back-to-back call rate of its wrapper."""
+# profiler windows taken by _kernel_ms, those that recorded fewer or more
+# of the kernel's launches than were made, and those whose launches' mean
+# and median differ by more than a fifth
+_WINDOWS = {"taken": 0, "short": 0, "over": 0, "uneven": 0}
+
+
+def _kernel_ms(fn, symbol: str, calls: int = KERNEL_CALLS, windows: int = 3):
+    """(device ms of one launch, launches recorded) of the kernel named
+    ``symbol`` under ``fn``, which launches it once a call (torch.profiler):
+    the kernel's own execution, where ``_time_ms`` at a small shape
+    measures the back-to-back call rate of its wrapper. A window may record
+    fewer of the kernel's launches than were made (on the H100 machine,
+    often 17 of 20, whichever kernel): the time is the median over the
+    launches recorded, and a window that recorded none is taken again, up
+    to ``windows`` times; (None, 0) if none did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    found = [ms for key, ms in _kernels_of(prof, calls) if symbol in key]
-    return sum(found) if found else None
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sorted(e.time_range.elapsed_us() for e in prof.events()
+                    if symbol in e.name and e.device_type == torch.autograd.DeviceType.CUDA)
+        _WINDOWS["taken"] += 1
+        _WINDOWS["short"] += len(us) < calls
+        _WINDOWS["over"] += len(us) > calls
+        if us:
+            median, mean = statistics.median(us), sum(us) / len(us)
+            uneven = abs(mean - median) > 0.2 * median
+            _WINDOWS["uneven"] += uneven
+            if uneven or len(us) > calls:
+                print(f"profiler window for {symbol}: {len(us)} of {calls} launches recorded, "
+                      f"median {median:.1f} us, mean {mean:.1f} us, range "
+                      f"{us[0]:.1f}-{us[-1]:.1f} us")
+            return median / 1e3, len(us)
+    return None, 0
+
+
+def _timed(fn, symbol: str, prefix: str = "kernel") -> dict:
+    """_kernel_ms as a row's ``{prefix}_ms`` and ``{prefix}_recorded``."""
+    ms, recorded = _kernel_ms(fn, symbol)
+    return {f"{prefix}_ms": ms, f"{prefix}_recorded": recorded}
 
 
 def phase_device():
@@ -199,8 +270,12 @@ def phase_build():
             continue
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
-        print(f"build {name}: {len(regs)} kernels, registers max {max(regs, default=0)}, "
-              f"spill stores max {max(spills, default=0)} bytes")
+        print(f"build {name}: {len(regs)} kernels, registers {min(regs, default=0)}-"
+              f"{max(regs, default=0)}, spill stores max {max(spills, default=0)} bytes")
+        if "sm90" in name:  # each instance of the Hopper sources
+            entries = re.findall(r"Compiling entry function '(\w+)'", log)
+            for entry, used, spill in zip(entries, regs, spills):
+                print(f"  {entry[-40:]}: {used} registers, {spill} bytes spilled")
     print(f"build: {len(sources)} sources in {seconds:.2f} s")
 
 
@@ -242,6 +317,54 @@ def _bound(q, mask, causal, matrices=4, row_stats=0, ops_per_pair=4):
     return max(mem_s, ops_s) * 1e3, ("bytes" if mem_s >= ops_s else "operations")
 
 
+def _is_long(shape, dtype) -> bool:
+    """Whether ops/flash.py gives this shape the Hopper instances."""
+    from dragonfly2_tpu_torch.ops import flash
+
+    return flash._sm90_path(shape[2], shape[3], dtype)
+
+
+def _symbol(kernel: str, shape, dtype) -> str:
+    """The profiler name of the instance ops/flash.py picks for ``kernel``
+    ("fwd" for every forward mode, "dkv", "dq") at this shape."""
+    sm90 = _is_long(shape, dtype)
+    return {
+        "fwd": "flash_fwd_sm90_kernel" if sm90 else "flash_fwd_kernel",
+        "dkv": "flash_bwd_dkv_sm90_kernel" if sm90 else "flash_bwd_dkv_kernel",
+        "dq": "flash_bwd_dq_kernel",
+    }[kernel]
+
+
+def _need_time(label: str, shape, dtype, ms) -> None:
+    if ms is None and _is_long(shape, dtype):
+        _fail(f"{label} {list(shape)}: the profiler found no device time for the kernel")
+
+
+@contextlib.contextmanager
+def _instance(sm90: bool):
+    """ops/flash.py's wrappers with the Hopper instances forced on or off
+    whatever the shape: the other instance's device time beside the picked
+    one's, through the same launch calls. Its launches are counted; every
+    main path zeroes the counts just before its run."""
+    from dragonfly2_tpu_torch.ops import flash
+
+    picked = flash._sm90_path
+    flash._sm90_path = lambda length, head_dim, dtype: sm90
+    try:
+        yield
+    finally:
+        flash._sm90_path = picked
+
+
+def _tolerances(shape, dtype):
+    """(output, lse, gradient) (atol, rtol) at this shape: LONG, STATS and
+    LONG_GRAD where ops/flash.py picks the Hopper instances, else KERNEL,
+    KERNEL and GRAD."""
+    if _is_long(shape, dtype):
+        return (LONG_ATOL, LONG_RTOL), (STATS_ATOL, STATS_RTOL), (LONG_GRAD_ATOL, LONG_GRAD_RTOL)
+    return (KERNEL_ATOL, KERNEL_RTOL), (KERNEL_ATOL, KERNEL_RTOL), (GRAD_ATOL, GRAD_RTOL)
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -255,29 +378,30 @@ def phase_kernels():
         ("long", (2, 4, 4096, 32), False, torch.bfloat16, False, 20),
         ("long-causal", (2, 4, 4096, 32), True, torch.bfloat16, False, 20),
         ("wide", (4, 8, 2048, 128), False, torch.bfloat16, False, 20),
+        ("long-ragged", (2, 4, 4000, 64), True, torch.bfloat16, True, 20),
         ("test-width", (4, 2, 15, 16), False, torch.bfloat16, True, 50),
         ("float32", (3, 2, 130, 64), True, torch.float32, True, 50),
     ]
     results = {}
     for name, (b, h, l, d), causal, dtype, fully, iters in shapes:
         q, k, v, mask = _attention_inputs(gen, b, h, l, d, dtype, fully)
-        out = flash.flash_attention(q, k, v, mask, causal)
-        torch.cuda.synchronize()
-        ref = flash.flash_attention_plain(q, k, v, mask, causal)
-        diff = (out.float() - ref.float()).abs()
-        err = float(diff.max().item())
-        within = bool((diff <= KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()).all().item())
-        if not within or not torch.isfinite(out).all():
-            _fail(f"kernel {name}: max_abs_err {err} outside atol {KERNEL_ATOL} rtol {KERNEL_RTOL}")
-        dead = ~mask.any(dim=1)
-        if dead.any() and out[dead].abs().max().item() != 0.0:
-            _fail(f"kernel {name}: fully masked rows are not 0")
-        no_mask_err = float(
-            (flash.flash_attention(q, k, v, None, causal).float()
-             - flash.flash_attention_plain(q, k, v, None, causal).float()).abs().max().item()
-        )
-        if no_mask_err > KERNEL_ATOL + KERNEL_RTOL * float(ref.float().abs().max().item()):
-            _fail(f"kernel {name} without a mask: max_abs_err {no_mask_err}")
+        long = _is_long(q.shape, dtype)
+        (atol, rtol), _, _ = _tolerances(q.shape, dtype)
+        errs = {}
+        for label, kv_mask in (("mask", mask), ("no mask", None)):
+            out = flash.flash_attention(q, k, v, kv_mask, causal)
+            torch.cuda.synchronize()
+            ref = flash.flash_attention_plain(q, k, v, kv_mask, causal)
+            errs[label] = float((out.float() - ref.float()).abs().max().item())
+            if (not torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
+                    or not torch.isfinite(out).all()):
+                _fail(f"kernel {name} ({label}): max_abs_err {errs[label]} outside atol {atol} "
+                      f"rtol {rtol}")
+            if kv_mask is not None:
+                dead = ~mask.any(dim=1)
+                if dead.any() and out[dead].abs().max().item() != 0.0:
+                    _fail(f"kernel {name}: fully masked rows are not 0")
+        err, no_mask_err = errs["mask"], errs["no mask"]
         ms = _time_ms(lambda: flash.flash_attention(q, k, v, mask, causal), iters)
         plain_ms = _time_ms(lambda: flash.flash_attention_plain(q, k, v, mask, causal),
                             max(3, iters // 4))
@@ -288,29 +412,50 @@ def phase_kernels():
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask), iters
         )
         bound_ms, bound_by = _bound(q, mask, causal)
-        kernel_ms = _kernel_ms(lambda: flash.flash_attention(q, k, v, mask, causal),
-                               "flash_fwd_kernel")
-        results[name] = dict(
+        row = dict(
             shape=[b, h, l, d], causal=causal, dtype=str(dtype).removeprefix("torch."),
-            max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            variant="sm90" if long else "mma.sync", max_abs_err=err, ms=ms,
+            **_timed(lambda: flash.flash_attention(q, k, v, mask, causal),
+                     _symbol("fwd", q.shape, dtype)),
+            mma_sync_kernel_ms=None,
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
         )
+        _need_time(f"kernel flash_fwd {name}", q.shape, dtype, row["kernel_ms"])
+        if long:
+            with _instance(sm90=False):
+                row.update(_timed(lambda: flash.flash_attention(q, k, v, mask, causal),
+                                  "flash_fwd_kernel", "mma_sync_kernel"))
+        results[name] = row
         print(f"kernel flash_fwd {name} {[b, h, l, d]} causal={causal} "
-              f"{results[name]['dtype']}: max_abs_err {err:.3g} (no mask {no_mask_err:.3g}; "
-              f"atol {KERNEL_ATOL} rtol {KERNEL_RTOL}) ms {ms:.4f} (kernel {_fmt(kernel_ms)}) "
-              f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} "
-              f"({bound_by})")
+              f"{row['dtype']} ({row['variant']}): max_abs_err {err:.3g} "
+              f"(no mask {no_mask_err:.3g}; atol {atol} rtol {rtol}) ms {ms:.4f} "
+              f"(kernel {_fmt(row)}{_other(row)}) plain_ms {plain_ms:.4f} library_ms "
+              f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
     return results
 
 
+def _other(row: dict) -> str:
+    """The forced mma.sync instance's device time, where a row took one."""
+    if "mma_sync_kernel_recorded" not in row:
+        return ""
+    return f"; mma.sync instance {_fmt(row, 'mma_sync_kernel')}"
+
+
 TRAINING_KERNELS = ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")
+# each function's launches of either instance, then those of the Hopper
+# instances (ops/flash.py's counters)
 _COUNTERS = {
     "flash_fwd": "LAUNCHES",
     "flash_fwd_lse": "LSE_LAUNCHES",
     "flash_fwd_partial": "PARTIAL_LAUNCHES",
     "flash_bwd_dkv": "DKV_LAUNCHES",
     "flash_bwd_dq": "DQ_LAUNCHES",
+    "flash_fwd_sm90": "FWD_SM90_LAUNCHES",
+    "flash_fwd_lse_sm90": "LSE_SM90_LAUNCHES",
+    "flash_fwd_partial_sm90": "PARTIAL_SM90_LAUNCHES",
+    "flash_bwd_dkv_sm90": "DKV_SM90_LAUNCHES",
 }
+SM90_KERNELS = tuple(name for name in _COUNTERS if name.endswith("_sm90"))
 
 
 def _zero_counts() -> None:
@@ -369,12 +514,15 @@ def phase_training_kernels():
         ("long", (2, 4, 4096, 32), False, torch.bfloat16, False, 10),
         ("long-causal", (2, 4, 4096, 32), True, torch.bfloat16, False, 10),
         ("wide", (4, 8, 2048, 128), False, torch.bfloat16, False, 10),
+        ("long-ragged", (2, 4, 4000, 64), True, torch.bfloat16, True, 10),
     ]
     results = {name: {} for name in TRAINING_KERNELS}
     for label, (b, h, l, d), causal, dtype, fully, iters in shapes:
         q, k, v, mask = _attention_inputs(gen, b, h, l, d, dtype, fully)
         do = torch.randn(b, h, l, d, generator=gen, device="cuda").to(dtype)
         dead = ~mask.any(dim=1)
+        long = _is_long(q.shape, dtype)
+        (o_atol, o_rtol), (lse_atol, lse_rtol), (g_atol, g_rtol) = _tolerances(q.shape, dtype)
 
         o, lse = flash.flash_attention_lse(q, k, v, mask, causal)
         torch.cuda.synchronize()
@@ -382,11 +530,11 @@ def phase_training_kernels():
         seen = ref_lse > -1e20  # rows with a valid key
         o_err = float((o.float() - ref_o.float()).abs().max().item())
         lse_err = float((lse[seen] - ref_lse[seen]).abs().max().item())
-        if not (torch.allclose(o.float(), ref_o.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-                and torch.allclose(lse[seen], ref_lse[seen], atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+        if not (torch.allclose(o.float(), ref_o.float(), atol=o_atol, rtol=o_rtol)
+                and torch.allclose(lse[seen], ref_lse[seen], atol=lse_atol, rtol=lse_rtol)
                 and torch.isfinite(lse).all()):
-            _fail(f"flash_fwd_lse {label}: o err {o_err}, lse err {lse_err} outside "
-                  f"atol {KERNEL_ATOL} rtol {KERNEL_RTOL}")
+            _fail(f"flash_fwd_lse {label}: o err {o_err} (atol {o_atol} rtol {o_rtol}), lse err "
+                  f"{lse_err} (atol {lse_atol} rtol {lse_rtol})")
 
         delta = (do.float() * o.float()).sum(-1)
         dk, dv = flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do, causal)
@@ -396,11 +544,15 @@ def phase_training_kernels():
         errs = {}
         for name, got, want in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
             errs[name] = float((got.float() - want.float()).abs().max().item())
-            if not torch.allclose(got.float(), want.float(), atol=GRAD_ATOL, rtol=GRAD_RTOL):
+            if not torch.allclose(got.float(), want.float(), atol=g_atol, rtol=g_rtol):
                 _fail(f"flash_bwd {label} {name}: max_abs_err {errs[name]} outside "
-                      f"atol {GRAD_ATOL} rtol {GRAD_RTOL}")
+                      f"atol {g_atol} rtol {g_rtol}")
             if dead.any() and got[dead].abs().max().item() != 0.0:
                 _fail(f"flash_bwd {label} {name}: fully masked batch rows are not 0")
+        tolerance = {"flash_fwd_lse": f"o atol {o_atol} rtol {o_rtol}, lse atol {lse_atol} rtol "
+                                      f"{lse_rtol}",
+                     "flash_bwd_dkv": f"atol {g_atol} rtol {g_rtol}",
+                     "flash_bwd_dq": f"atol {g_atol} rtol {g_rtol}"}
 
         plain_fwd_ms = _time_ms(lambda: flash.flash_attention_lse_plain(q, k, v, mask, causal),
                                 max(3, iters // 4))
@@ -416,50 +568,56 @@ def phase_training_kernels():
         library_bwd_ms = _time_ms(
             lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True), iters
         )
+        def fwd_lse():
+            return flash.flash_attention_lse(q, k, v, mask, causal)
+
+        def bwd_dkv():
+            return flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do, causal)
+
+        def bwd_dq():
+            return flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, causal)
+
         rows = {
             "flash_fwd_lse": dict(
-                max_abs_err=max(o_err, lse_err),
-                ms=_time_ms(lambda: flash.flash_attention_lse(q, k, v, mask, causal), iters),
-                kernel_ms=_kernel_ms(lambda: flash.flash_attention_lse(q, k, v, mask, causal),
-                                     "flash_fwd_kernel"),
+                max_abs_err=max(o_err, lse_err), ms=_time_ms(fwd_lse, iters),
+                **_timed(fwd_lse, _symbol("fwd", q.shape, dtype)),
                 plain_ms=plain_fwd_ms,
                 library_ms=_library_fwd_lse_ms(q, k, v, mask, causal, iters),
                 bound=_bound(q, mask, causal, matrices=4, row_stats=1, ops_per_pair=4),
             ),
             "flash_bwd_dkv": dict(
-                max_abs_err=max(errs["dk"], errs["dv"]),
-                ms=_time_ms(
-                    lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do, causal),
-                    iters),
-                kernel_ms=_kernel_ms(
-                    lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do, causal),
-                    "flash_bwd_dkv_kernel"),
+                max_abs_err=max(errs["dk"], errs["dv"]), ms=_time_ms(bwd_dkv, iters),
+                **_timed(bwd_dkv, _symbol("dkv", q.shape, dtype)),
                 plain_ms=plain_bwd_ms,
                 library_ms=library_bwd_ms,
                 bound=_bound(q, mask, causal, matrices=6, row_stats=2, ops_per_pair=8),
             ),
             "flash_bwd_dq": dict(
-                max_abs_err=errs["dq"],
-                ms=_time_ms(
-                    lambda: flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, causal),
-                    iters),
-                kernel_ms=_kernel_ms(
-                    lambda: flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, causal),
-                    "flash_bwd_dq_kernel"),
+                max_abs_err=errs["dq"], ms=_time_ms(bwd_dq, iters),
+                **_timed(bwd_dq, "flash_bwd_dq_kernel"),
                 plain_ms=plain_bwd_ms,
                 library_ms=library_bwd_ms,
                 bound=_bound(q, mask, causal, matrices=5, row_stats=2, ops_per_pair=6),
             ),
         }
+        for row in rows.values():
+            row["mma_sync_kernel_ms"] = None
+        if long:
+            with _instance(sm90=False):
+                rows["flash_fwd_lse"].update(_timed(fwd_lse, "flash_fwd_kernel", "mma_sync_kernel"))
+                rows["flash_bwd_dkv"].update(
+                    _timed(bwd_dkv, "flash_bwd_dkv_kernel", "mma_sync_kernel"))
         for name, row in rows.items():
             bound_ms, bound_by = row.pop("bound")
+            variant = "sm90" if long and name != "flash_bwd_dq" else "mma.sync"
             row.update(shape=[b, h, l, d], causal=causal, dtype=str(dtype).removeprefix("torch."),
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       variant=variant, bound_ms=bound_ms, bound_by=bound_by)
+            _need_time(f"kernel {name} {label}", q.shape, dtype, row["kernel_ms"])
             results[name][label] = row
             lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-            print(f"kernel {name} {label} {[b, h, l, d]} causal={causal} {row['dtype']}: "
-                  f"max_abs_err {row['max_abs_err']:.3g} ms {row['ms']:.4f} "
-                  f"(kernel {_fmt(row['kernel_ms'])}) "
+            print(f"kernel {name} {label} {[b, h, l, d]} causal={causal} {row['dtype']} "
+                  f"({variant}): max_abs_err {row['max_abs_err']:.3g} ({tolerance[name]}) "
+                  f"ms {row['ms']:.4f} (kernel {_fmt(row)}{_other(row)}) "
                   f"plain_ms {row['plain_ms']:.4f} library_ms {lib} "
                   f"bound_ms {bound_ms:.4f} ({bound_by})")
         del sdpa_out, leaves
@@ -495,7 +653,7 @@ async def _serve_and_query(server, name):
         if not await client.model_ready(name):
             _fail("ModelReady answered false after activation")
         answers, latency_ms = {}, {}
-        flash.LAUNCHES = 0
+        _zero_counts()
         requests = 0
         for n in TASK_BUCKETS:
             times = []
@@ -509,6 +667,8 @@ async def _serve_and_query(server, name):
                 answers[n] = out["scores"]
             latency_ms[n] = times
         launches = flash.LAUNCHES
+        if any(_counts()[name] for name in SM90_KERNELS):
+            _fail(f"serving launched a Hopper instance: {_counts()}")
     finally:
         await client.close()
         await rpc.stop()
@@ -709,7 +869,8 @@ def phase_training():
     train_s = time.perf_counter() - start
     train_counts = _counts()
     expected = {"flash_fwd": layers, "flash_fwd_partial": 0,
-                **{k: result.steps * layers for k in TRAINING_KERNELS}}
+                **{k: result.steps * layers for k in TRAINING_KERNELS},
+                **{k: 0 for k in SM90_KERNELS}}
     print(f"training: {result.steps} steps of batch {config.batch_size} over {TRAIN_EPOCHS} epochs "
           f"in {train_s:.2f} s; launches {train_counts} (expected {expected}: steps x layers for "
           "each training kernel, one eval batch x layers for the finished forward)")
@@ -811,7 +972,7 @@ def phase_training():
         if server.version != version.version:
             _fail(f"served version {server.version}, published {version.version}")
         want = {"flash_fwd": SERVE_REQUESTS * layers, "flash_fwd_partial": 0,
-                **{k: 0 for k in TRAINING_KERNELS}}
+                **{k: 0 for k in TRAINING_KERNELS}, **{k: 0 for k in SM90_KERNELS}}
         if serve_counts != want:
             _fail(f"serving the trained version launched {serve_counts}, expected {want}")
         for batch, wire in zip(batches, answers):
@@ -893,25 +1054,36 @@ def phase_partial_kernel(ds):
                   f"{STATS_RTOL}), or a fully masked row not at the filler")
         bound_ms, bound_by = _bound(q, mask, False, matrices=3 + 4 // q.element_size(),
                                     row_stats=2, ops_per_pair=4)
+        long = _is_long(q.shape, torch.bfloat16)
+
+        def partials():
+            return flash.flash_attention_partials(q, k, v, mask)
+
         row = dict(
             shape=[b, h, l, d], causal=False, dtype="bfloat16", errors=errors,
             max_abs_err=max(errors["acc_over_row_sum"], errors["row_max"]),
-            ms=_time_ms(lambda: flash.flash_attention_partials(q, k, v, mask), iters),
-            kernel_ms=_kernel_ms(lambda: flash.flash_attention_partials(q, k, v, mask),
-                                 "flash_fwd_kernel"),
+            ms=_time_ms(partials, iters),
+            **_timed(partials, _symbol("fwd", q.shape, torch.bfloat16)),
+            mma_sync_kernel_ms=None,
+            variant="sm90" if long else "mma.sync",
             plain_ms=_time_ms(lambda: flash.flash_attention_partials_plain(q, k, v, mask),
                               max(3, iters // 4)),
             library_ms=_library_fwd_lse_ms(q, k, v, mask, False, iters),
             bound_ms=bound_ms, bound_by=bound_by,
         )
+        _need_time(f"kernel flash_fwd_partial {name}", q.shape, torch.bfloat16, row["kernel_ms"])
+        if long:
+            with _instance(sm90=False):
+                row.update(_timed(partials, "flash_fwd_kernel", "mma_sync_kernel"))
         results[name] = row
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-        print(f"kernel flash_fwd_partial {name} {[b, h, l, d]} bfloat16: max_abs_err acc "
+        print(f"kernel flash_fwd_partial {name} {[b, h, l, d]} bfloat16 ({row['variant']}): "
+              f"max_abs_err acc "
               f"{errors['acc']:.3g} (over its row sum {errors['acc_over_row_sum']:.3g}), row_max "
               f"{errors['row_max']:.3g}, row_sum {errors['row_sum']:.3g} (acc atol {atol} rtol "
               f"{rtol}, row stats atol {STATS_ATOL} rtol {STATS_RTOL}); fully masked rows at the "
               f"filler; ms {row['ms']:.4f} (kernel "
-              f"{_fmt(row['kernel_ms'])}) plain_ms {row['plain_ms']:.4f} library_ms {lib} "
+              f"{_fmt(row)}{_other(row)}) plain_ms {row['plain_ms']:.4f} library_ms {lib} "
               f"(efficient attention with lse) bound_ms {bound_ms:.4f} ({bound_by})")
     return results
 
@@ -943,6 +1115,7 @@ def phase_long_ring():
     counts = _counts()
     expected = {name: 0 for name in _COUNTERS}
     expected["flash_fwd_partial"] = RING_SP * RING_SP  # dp * sp^2
+    expected["flash_fwd_partial_sm90"] = RING_SP * RING_SP  # blocks of L / sp = 4096
     if counts != expected:
         _fail(f"the ring at L = {l} launched {counts}, expected {expected}")
     whole = flash.flash_attention(q, k, v, mask)
@@ -960,13 +1133,15 @@ def phase_long_ring():
     ring_ms = _time_ms(lambda: sharded_ring_attention(mesh, q, k, v, mask, use_flash=True), 5)
     flash_ms = _time_ms(lambda: flash.flash_attention(q, k, v, mask), 5)
     split = _device_split(lambda: sharded_ring_attention(mesh, q, k, v, mask, use_flash=True),
-                          "flash_fwd_kernel")
+                          _symbol("fwd", (b, h, l // RING_SP, d), torch.bfloat16))
     print(f"ring attention {list(RING_SHAPE)} bf16 on a 1 x {RING_SP} mesh of one card: partial "
           f"launches {counts['flash_fwd_partial']} (= dp x sp^2); vs flash_attention on the whole "
           f"sequence max_abs_err {err:.3g}, vs dense on {3 * ORACLE_ROWS} query rows "
           f"{oracle_err:.3g} (atol {LONG_ATOL} rtol {LONG_RTOL}); ring {ring_ms:.4f} ms, "
           f"flash_attention {flash_ms:.4f} ms (CUDA events)")
     _print_split(f"ring at L = {l}", split, "the partial kernel")
+    if split[1] and not split[2]:
+        _fail("the ring's profile shows no partial kernel")
 
     lc = CAUSAL_RING_L
     qc, kc, vc = (t[:, :, :lc].contiguous() for t in (q, k, v))
@@ -981,7 +1156,7 @@ def phase_long_ring():
     print(f"causal zigzag ring [{b}, {h}, {lc}, {d}] (einsum blocks) vs causal flash_attention: "
           f"max_abs_err {cerr:.3g} (atol {LONG_ATOL} rtol {LONG_RTOL}); ring {causal_ms:.4f} ms, "
           f"flash_attention {causal_flash_ms:.4f} ms")
-    return counts["flash_fwd_partial"]
+    return counts["flash_fwd_partial_sm90"]
 
 
 def _device_split(fn, symbol: str, calls: int = 3):
@@ -1014,8 +1189,8 @@ def _print_split(label, split, named):
         print(f"{label}: device time not measured (the profiler saw no device activity)")
         return
     print(f"{label}: profiled {wall_ms:.3f} ms a call, device kernels {device_ms:.4f} ms "
-          f"({launched:.0f} launches), of which {named} {named_ms:.4f} ms; device "
-          f"busy {100 * device_ms / wall_ms:.1f}%")
+          f"({launched:.0f} launches), of which {named} {named_ms:.4f} ms "
+          f"({100 * named_ms / device_ms:.1f}%); device busy {100 * device_ms / wall_ms:.1f}%")
 
 
 def _step_p50(trainer, stack, steps: int):
@@ -1122,7 +1297,7 @@ def phase_mesh_training(ds, single_step_p50):
     uly_counts = _counts()
     shards = layers * MESH_DP * MESH_SP
     expected = {name: uly.steps * shards for name in TRAINING_KERNELS}
-    expected.update(flash_fwd=shards, flash_fwd_partial=0)
+    expected.update(flash_fwd=shards, flash_fwd_partial=0, **{k: 0 for k in SM90_KERNELS})
     print(f"mesh training with Ulysses: {uly.steps} steps in {uly_s:.2f} s; launches "
           f"{uly_counts} (expected: each training kernel steps x layers x dp x sp times, the "
           "finished forward layers x dp x sp times in the eval)")
@@ -1160,7 +1335,118 @@ def phase_mesh_training(ds, single_step_p50):
     return counts["flash_fwd_partial"], uly_counts
 
 
+def phase_threshold():
+    """Both instances of the forward and of dK/dV at L = 16 .. 512 (device
+    time, each forced through the wrappers): where the Hopper instances
+    overtake the mma.sync ones, the readings SM90_MIN_L is set from. Run
+    with --threshold, not in the smoke run."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for d, (b, h) in THRESHOLD_SHAPES.items():
+        for l in THRESHOLD_LENGTHS:
+            q, k, v, mask = _attention_inputs(gen, b, h, l, d, torch.bfloat16, False)
+            do = torch.randn(b, h, l, d, generator=gen, device="cuda").to(torch.bfloat16)
+            picks = "sm90" if _is_long(q.shape, torch.bfloat16) else "mma.sync"
+            o, lse = flash.flash_attention_lse(q, k, v, mask)
+            delta = (do.float() * o.float()).sum(-1)
+            row = {}
+            for sm90, instance, suffix in ((True, "sm90", "_sm90_kernel"),
+                                           (False, "mma_sync", "_kernel")):
+                with _instance(sm90):
+                    row.update(_timed(lambda: flash.flash_attention(q, k, v, mask),
+                                      "flash_fwd" + suffix, f"fwd_{instance}"))
+                    row.update(_timed(
+                        lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do),
+                        "flash_bwd_dkv" + suffix, f"dkv_{instance}"))
+            print(f"threshold [{b}, {h}, {l}, {d}] bf16 device ms: forward sm90 "
+                  f"{_fmt(row, 'fwd_sm90')} vs mma.sync {_fmt(row, 'fwd_mma_sync')}; dK/dV sm90 "
+                  f"{_fmt(row, 'dkv_sm90')} vs mma.sync {_fmt(row, 'dkv_mma_sync')} (ops/flash.py "
+                  f"picks {picks})")
+
+
+def phase_long_ulysses():
+    """Slice 4's main path: Ulysses over [2, 16, 4096, 32] on a 1 x 4 mesh
+    of the card, whose shards attend [2, 4, 4096, 32] each, the Hopper
+    instances' shapes: the finished forward without grad (serving a long
+    sequence), then one forward and backward with it (a training step's
+    attention). Counters are zeroed just before and read just after; each
+    Hopper instance must launch sp times. Checked against the plain
+    versions over the whole sequence at the long tolerances. Returns the
+    counts."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import flash
+    from dragonfly2_tpu_torch.parallel.mesh import make_mesh
+    from dragonfly2_tpu_torch.parallel.ulysses import sharded_ulysses_attention
+
+    card = torch.device("cuda", 0)
+    mesh = make_mesh(ULYSSES_SP, dp=1, sp=ULYSSES_SP, devices=[card] * ULYSSES_SP)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    b, h, l, d = ULYSSES_SHAPE
+    q, k, v, mask = _attention_inputs(gen, b, h, l, d, torch.bfloat16, True)
+    do = torch.randn(b, h, l, d, generator=gen, device="cuda").to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def step():
+        out = sharded_ulysses_attention(mesh, *leaves, mask)
+        return out, torch.autograd.grad(out, leaves, do)
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        served = sharded_ulysses_attention(mesh, q, k, v, mask)
+    trained, grads = step()
+    torch.cuda.synchronize()
+    counts = _counts()
+    expected = {name: ULYSSES_SP for name in _COUNTERS}
+    expected.update(flash_fwd_partial=0, flash_fwd_partial_sm90=0)
+    print(f"long-context Ulysses {list(ULYSSES_SHAPE)} bf16 on a 1 x {ULYSSES_SP} mesh of one "
+          f"card: launches {counts} (expected sp = {ULYSSES_SP} of each Hopper instance, of the "
+          "finished forward, the forward with lse, dK/dV and dQ; no partial)")
+    if counts != expected:
+        _fail(f"long-context Ulysses launched {counts}, expected {expected}")
+
+    # the plain versions over the whole sequence: the output and lse, then
+    # the gradients from them
+    whole, whole_lse = flash.flash_attention_lse_plain(q, k, v, mask)
+    want = flash.flash_attention_bwd_plain(q, k, v, mask, whole, whole_lse, do)
+    del whole_lse
+    errs = {"served": float((served.float() - whole.float()).abs().max().item()),
+            "trained": float((trained.float() - whole.float()).abs().max().item())}
+    for name, got in (("served", served), ("trained", trained)):
+        if not torch.allclose(got.float(), whole.float(), atol=LONG_ATOL, rtol=LONG_RTOL):
+            _fail(f"long Ulysses {name} output vs the plain version: {errs[name]}")
+    dead = ~mask.any(dim=1)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        errs[name] = float((got.float() - ref.float()).abs().max().item())
+        if not torch.allclose(got.float(), ref.float(), atol=LONG_GRAD_ATOL, rtol=LONG_GRAD_RTOL):
+            _fail(f"long Ulysses {name} vs the plain version's: {errs[name]}")
+        if got[dead].abs().max().item() != 0.0:
+            _fail(f"long Ulysses {name}: fully masked batch rows are not 0")
+    if served[dead].abs().max().item() != 0.0:
+        _fail("long Ulysses: fully masked batch rows are not 0")
+    del want, whole
+    with torch.no_grad():
+        serve_ms = _time_ms(lambda: sharded_ulysses_attention(mesh, q, k, v, mask), 5)
+    step_ms = _time_ms(step, 5)
+    print(f"long-context Ulysses vs the plain versions over the whole sequence: max_abs_err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (outputs atol {LONG_ATOL} rtol {LONG_RTOL}, gradients atol {LONG_GRAD_ATOL} rtol "
+          f"{LONG_GRAD_RTOL}); forward {serve_ms:.4f} ms, forward + backward {step_ms:.4f} ms "
+          "(CUDA events)")
+    _print_split("long Ulysses forward + backward", _device_split(step, "flash_"),
+                 "the flash kernels")
+    return counts
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--threshold", action="store_true",
+                        help="time both instances at L = 16 .. 512 instead of the smoke run")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -1173,6 +1459,9 @@ def main() -> None:
 
     phase_device()
     phase_build()
+    if args.threshold:
+        phase_threshold()
+        return
     kernels = phase_kernels()
     training_kernels = phase_training_kernels()
     launches = phase_main_path()
@@ -1180,6 +1469,7 @@ def main() -> None:
     partial = phase_partial_kernel(ds)
     ring_launches = phase_long_ring()
     mesh_launches, uly_counts = phase_mesh_training(ds, breakdown["step_p50_ms"])
+    long_counts = phase_long_ulysses()
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]
@@ -1187,11 +1477,15 @@ def main() -> None:
             "name": name,
             "route": "cuda",
             "source": source,
+            "variant": row.get("variant", "mma.sync"),
             "replaces": replaces,
             "launches": count,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "kernel_ms": row["kernel_ms"],
+            "kernel_recorded": row["kernel_recorded"],
+            "mma_sync_kernel_ms": row["mma_sync_kernel_ms"],
+            "mma_sync_kernel_recorded": row.get("mma_sync_kernel_recorded"),
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -1202,11 +1496,15 @@ def main() -> None:
 
     # launches: every main path's count, each read just after its run
     # (slice 1's serving; slice 2's training, then its serving; slice 3's
-    # ring, its ring mesh training, then its Ulysses mesh training)
+    # ring, its ring mesh training, then its Ulysses mesh training, all on
+    # the mma.sync instances but the ring's partials; slice 4's long
+    # Ulysses, all on the Hopper instances but dQ)
     fwd_launches = (launches + train_counts["flash_fwd"] + serve_counts["flash_fwd"]
                     + uly_counts["flash_fwd"])
     trained = {name: train_counts[name] + uly_counts[name] for name in TRAINING_KERNELS}
-    fwd_src, bwd_src = "dragonfly2_tpu_torch/csrc/flash_fwd.cu", "dragonfly2_tpu_torch/csrc/flash_bwd.cu"
+    src = "dragonfly2_tpu_torch/csrc/"
+    fwd_src, bwd_src = src + "flash_fwd.cu", src + "flash_bwd.cu"
+    fwd_sm90_src, dkv_sm90_src = src + "flash_fwd_sm90.cu", src + "flash_bwd_dkv_sm90.cu"
     line = {"kernels": [
         entry("flash_fwd", fwd_src, "dragonfly2_tpu/ops/flash.py:71", fwd_launches, kernels, "served"),
         entry("flash_fwd_lse", fwd_src, "dragonfly2_tpu/ops/flash.py:186",
@@ -1214,11 +1512,24 @@ def main() -> None:
         entry("flash_bwd_dkv", bwd_src, "dragonfly2_tpu/ops/flash.py:418",
               trained["flash_bwd_dkv"], training_kernels["flash_bwd_dkv"], "trained"),
         entry("flash_bwd_dq", bwd_src, "dragonfly2_tpu/ops/flash.py:474",
-              trained["flash_bwd_dq"], training_kernels["flash_bwd_dq"], "trained"),
-        # slice 3's main paths: the long ring, then the mesh training's eval
+              trained["flash_bwd_dq"] + long_counts["flash_bwd_dq"],
+              training_kernels["flash_bwd_dq"], "trained"),
+        # slice 3's main path: the mesh training's eval
         entry("flash_fwd_partial", fwd_src, "dragonfly2_tpu/ops/flash.py:177",
-              ring_launches + mesh_launches, partial, "eval-shard"),
+              mesh_launches, partial, "eval-shard"),
+        # slice 4's Hopper instances: the long Ulysses' shards, and the ring's blocks
+        entry("flash_fwd_sm90", fwd_sm90_src, "dragonfly2_tpu/ops/flash.py:71",
+              long_counts["flash_fwd_sm90"], kernels, "long"),
+        entry("flash_fwd_lse_sm90", fwd_sm90_src, "dragonfly2_tpu/ops/flash.py:186",
+              long_counts["flash_fwd_lse_sm90"], training_kernels["flash_fwd_lse"], "long"),
+        entry("flash_fwd_partial_sm90", fwd_sm90_src, "dragonfly2_tpu/ops/flash.py:177",
+              ring_launches, partial, "ring-block-16k"),
+        entry("flash_bwd_dkv_sm90", dkv_sm90_src, "dragonfly2_tpu/ops/flash.py:418",
+              long_counts["flash_bwd_dkv_sm90"], training_kernels["flash_bwd_dkv"], "long"),
     ]}
+    print(f"profiler: of {_WINDOWS['taken']} kernel windows, {_WINDOWS['short']} recorded fewer "
+          f"launches than were made, {_WINDOWS['over']} more, and {_WINDOWS['uneven']} had a "
+          "mean a fifth off their median; kernel times are medians over the launches recorded")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``, where
-the hash covers the source, the flags and the compiler path, so an edited
-source builds anew and an unchanged one is reused. The build happens at
+the hash covers the source, every header it includes from ``csrc/`` (the
+``#include "..."`` lines, followed through the headers), the flags and the
+compiler path, so an edited source or header builds anew and an unchanged
+one is reused. The build happens at
 first use, on the machine with the card; nothing here runs at import.
 """
 
@@ -13,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -29,6 +32,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def nvcc_path() -> str:
@@ -42,10 +46,29 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); CUDA kernels build on the GPU machine")
 
 
+def _source_files(name: str) -> list[pathlib.Path]:
+    """``csrc/<name>.cu`` and the csrc files it includes with quotes,
+    directly or through another such header, each once, in the order
+    first met."""
+    files, pending = [], [CSRC_DIR / f"{name}.cu"]
+    while pending:
+        path = pending.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        for include in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            header = path.parent / include.decode()
+            if header.is_file():
+                pending.append(header)
+    return files
+
+
 def _library_path(name: str, nvcc: str) -> pathlib.Path:
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + repr((NVCC_FLAGS, nvcc)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in _source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update(repr((NVCC_FLAGS, nvcc)).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: list[str]) -> dict[str, str]:

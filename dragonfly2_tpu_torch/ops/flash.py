@@ -17,11 +17,21 @@ H100:
   (flash.py:474) -> csrc/flash_bwd.cu ``dfly_flash_bwd_dkv`` and
   ``dfly_flash_bwd_dq`` (training backward).
 
+The forward (all three modes) and dK/dV have two instances each: the
+mma.sync ones above, and Hopper redesigns with TMA, wgmma and a ring of
+dynamic shared memory for long sequences, csrc/flash_fwd_sm90.cu
+(``dfly_flash_fwd_sm90``, ``dfly_flash_fwd_lse_sm90``,
+``dfly_flash_fwd_partial_sm90``) and csrc/flash_bwd_dkv_sm90.cu
+(``dfly_flash_bwd_dkv_sm90``). ``_sm90_path`` picks one from the shape and
+dtype alone; a refused launch raises, it never falls back to the other.
+
 Every wrapper launches its kernel on a CUDA tensor, or raises; on a CPU
-tensor it takes the kernel's plain version, and only then. Each kernel has
-a launch counter (``LAUNCHES``, ``LSE_LAUNCHES``, ``PARTIAL_LAUNCHES``,
-``DKV_LAUNCHES``, ``DQ_LAUNCHES``) that only the line launching it adds
-to.
+tensor it takes the kernel's plain version, and only then. Each function
+has a launch counter (``LAUNCHES``, ``LSE_LAUNCHES``, ``PARTIAL_LAUNCHES``,
+``DKV_LAUNCHES``, ``DQ_LAUNCHES``) that counts its launches of either
+instance, and each Hopper instance one more (``FWD_SM90_LAUNCHES``,
+``LSE_SM90_LAUNCHES``, ``PARTIAL_SM90_LAUNCHES``, ``DKV_SM90_LAUNCHES``);
+only the lines launching add to them.
 
 ``flash_attention`` is the public entry. With autograd recording and an
 input that requires grad it runs ``FlashAttention`` (forward with lse,
@@ -56,7 +66,20 @@ LSE_LAUNCHES = 0  # forward with lse
 PARTIAL_LAUNCHES = 0  # forward, partial mode
 DKV_LAUNCHES = 0  # backward, dK/dV
 DQ_LAUNCHES = 0  # backward, dQ
+# of those, the launches of the Hopper (TMA + wgmma) instances
+FWD_SM90_LAUNCHES = 0
+LSE_SM90_LAUNCHES = 0
+PARTIAL_SM90_LAUNCHES = 0
+DKV_SM90_LAUNCHES = 0
 _launches_lock = threading.Lock()
+
+# The Hopper instances take bf16 at L above this. Shorter sets (the
+# ranker's 10-20 candidates) and float32 (which TMA cannot round to bf16 on
+# the way in) keep the mma.sync instances. Set from both instances' device
+# times on an H100 (python3 chip_smoke.py --threshold, PERF.md): at the
+# trained batch [256, 4, L, 32] the mma.sync ones win up to L = 64 (one
+# 128-row Hopper block is mostly padding there) and lose from L = 96.
+SM90_MIN_L = 64
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> (source in csrc/, argtypes); every entry returns a cudaError_t
@@ -66,6 +89,10 @@ _ENTRIES = {
     "dfly_flash_fwd_partial": ("flash_fwd", [_P] * 7 + [_I] * 6 + [_P]),
     "dfly_flash_bwd_dkv": ("flash_bwd", [_P] * 9 + [_I] * 7 + [_P]),
     "dfly_flash_bwd_dq": ("flash_bwd", [_P] * 8 + [_I] * 7 + [_P]),
+    "dfly_flash_fwd_sm90": ("flash_fwd_sm90", [_P] * 5 + [_I] * 5 + [_P]),
+    "dfly_flash_fwd_lse_sm90": ("flash_fwd_sm90", [_P] * 6 + [_I] * 5 + [_P]),
+    "dfly_flash_fwd_partial_sm90": ("flash_fwd_sm90", [_P] * 7 + [_I] * 4 + [_P]),
+    "dfly_flash_bwd_dkv_sm90": ("flash_bwd_dkv_sm90", [_P] * 9 + [_I] * 5 + [_P]),
 }
 _entries: dict[str, tuple] = {}
 
@@ -94,14 +121,22 @@ def _launch(name: str, device: torch.device, *args) -> None:
         )
 
 
-def _count(counter: str) -> None:
+def _count(*counters: str) -> None:
     with _launches_lock:
-        globals()[counter] += 1
+        for counter in counters:
+            globals()[counter] += 1
 
 
 def warps_for(length: int) -> int:
-    """Warps per block (16 rows each): no idle warps on short sets."""
+    """Warps per block (16 rows each) of the mma.sync instances: no idle
+    warps on short sets."""
     return 1 if length <= 16 else (2 if length <= 32 else 4)
+
+
+def _sm90_path(length: int, head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the forward and dK/dV take their Hopper instances: bf16 at
+    L above SM90_MIN_L. Shape and dtype alone decide."""
+    return dtype == torch.bfloat16 and head_dim in HEAD_DIMS and length > SM90_MIN_L
 
 
 def _check(q, k, v, kv_mask) -> None:
@@ -180,11 +215,16 @@ def _flash_forward(q, k, v, kv_mask, causal: bool) -> torch.Tensor:
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    _launch(
-        "dfly_flash_fwd", q.device, *_pointers(q, k, v, kv_mask, o),
-        b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
-    )
-    _count("LAUNCHES")
+    pointers = _pointers(q, k, v, kv_mask, o)
+    if _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_fwd_sm90", q.device, *pointers, b, h, l, d, int(causal))
+        _count("LAUNCHES", "FWD_SM90_LAUNCHES")
+    else:
+        _launch(
+            "dfly_flash_fwd", q.device, *pointers,
+            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
+        )
+        _count("LAUNCHES")
     return o
 
 
@@ -219,12 +259,16 @@ def flash_attention_lse(q, k, v, kv_mask=None, causal: bool = False):
     lse = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    _launch(
-        "dfly_flash_fwd_lse", q.device,
-        *_pointers(q, k, v, kv_mask, o, lse),
-        b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
-    )
-    _count("LSE_LAUNCHES")
+    pointers = _pointers(q, k, v, kv_mask, o, lse)
+    if _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_fwd_lse_sm90", q.device, *pointers, b, h, l, d, int(causal))
+        _count("LSE_LAUNCHES", "LSE_SM90_LAUNCHES")
+    else:
+        _launch(
+            "dfly_flash_fwd_lse", q.device, *pointers,
+            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
+        )
+        _count("LSE_LAUNCHES")
     return o, lse
 
 
@@ -269,12 +313,16 @@ def flash_attention_partials(q, k, v, kv_mask=None):
     row_sum = torch.empty_like(row_max)
     if acc.numel() == 0:
         return acc, row_max, row_sum
-    _launch(
-        "dfly_flash_fwd_partial", q.device,
-        *_pointers(q, k, v, kv_mask, acc, row_max, row_sum),
-        b, h, l, d, _DTYPE_CODES[q.dtype], warps_for(l),
-    )
-    _count("PARTIAL_LAUNCHES")
+    pointers = _pointers(q, k, v, kv_mask, acc, row_max, row_sum)
+    if _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_fwd_partial_sm90", q.device, *pointers, b, h, l, d)
+        _count("PARTIAL_LAUNCHES", "PARTIAL_SM90_LAUNCHES")
+    else:
+        _launch(
+            "dfly_flash_fwd_partial", q.device, *pointers,
+            b, h, l, d, _DTYPE_CODES[q.dtype], warps_for(l),
+        )
+        _count("PARTIAL_LAUNCHES")
     return acc, row_max, row_sum
 
 
@@ -324,10 +372,15 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal: bool = Fal
     _need_cuda(q)
     b, h, l, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if dk.numel():
+    if not dk.numel():
+        return dk, dv
+    pointers = _pointers(q, k, v, do, lse, delta, kv_mask, dk, dv)
+    if _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_bwd_dkv_sm90", q.device, *pointers, b, h, l, d, int(causal))
+        _count("DKV_LAUNCHES", "DKV_SM90_LAUNCHES")
+    else:
         _launch(
-            "dfly_flash_bwd_dkv", q.device,
-            *_pointers(q, k, v, do, lse, delta, kv_mask, dk, dv),
+            "dfly_flash_bwd_dkv", q.device, *pointers,
             b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
         )
         _count("DKV_LAUNCHES")

@@ -180,9 +180,13 @@ def test_one_training_step_gradients_match_the_plain_path():
 # version's), to the forward's for float32 inputs (the kernel rounds them
 # to bf16 for the tensor cores, the plain version does not)
 STATS_ATOL, STATS_RTOL = 1e-3, 1e-3
-# the ring at L = 512, where a row averages hundreds of keys (|o| ~ 0.05):
-# rtol above one bf16 ulp
+# the ring at L = 512 and the Hopper instances at L = 1000 .. 4097, where a
+# row averages hundreds or thousands of keys (|o| ~ 0.01-0.05) and the
+# forward's tolerance would pass a dropped key tile: rtol above one bf16 ulp
 LONG_ATOL, LONG_RTOL = 3e-3, 1e-2
+# gradients there: a dK/dV element sums hundreds or thousands of small
+# terms (~0.02-0.03 at L = 4096), where GRAD would pass a skipped query tile
+LONG_GRAD_ATOL, LONG_GRAD_RTOL = 5e-3, 1e-2
 FILLER = -1e30 * 0.6931471805599453  # row_max of a row with no valid key
 
 
@@ -253,3 +257,113 @@ def test_ring_on_one_card_matches_flash_attention(dp, sp):
     causal = sharded_causal_ring_attention(mesh, q, k, v, mask)
     torch.testing.assert_close(causal.float(), flash.flash_attention(q, k, v, mask, True).float(),
                                atol=LONG_ATOL, rtol=LONG_RTOL)
+
+
+# --------------------------------------------- the Hopper (sm90) instances
+
+SM90_ENTRIES = {
+    "dfly_flash_fwd_sm90", "dfly_flash_fwd_lse_sm90", "dfly_flash_fwd_partial_sm90",
+    "dfly_flash_bwd_dkv_sm90",
+}
+SM90_COUNTERS = ("FWD_SM90_LAUNCHES", "LSE_SM90_LAUNCHES", "PARTIAL_SM90_LAUNCHES",
+                 "DKV_SM90_LAUNCHES")
+
+
+def _sm90_counts():
+    return {name: getattr(flash, name) for name in SM90_COUNTERS}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("l", [1000, 4000, 4097])
+def test_sm90_instances_match_plain(l, d, causal):
+    """Ragged long lengths at every head dim: the three forward modes and
+    dK/dV (beside the unchanged dQ) against their plain versions at the
+    long tolerances, with a mask (batch row 0 fully masked) and without,
+    and the per-variant counters."""
+    _need_card()
+    assert flash._sm90_path(l, d, torch.bfloat16)
+    q, k, v, do, mask = _training_inputs((2, 2, l, d), torch.bfloat16, seed=l + d)
+    tol = dict(atol=LONG_ATOL, rtol=LONG_RTOL)
+    for kv_mask in (mask, None):
+        before = _sm90_counts()
+        out = flash.flash_attention(q, k, v, kv_mask, causal)
+        torch.testing.assert_close(out.float(), flash.flash_attention_plain(q, k, v, kv_mask, causal)
+                                   .float(), **tol)
+        o, lse = flash.flash_attention_lse(q, k, v, kv_mask, causal)
+        ref_o, ref_lse = flash.flash_attention_lse_plain(q, k, v, kv_mask, causal)
+        torch.testing.assert_close(o.float(), ref_o.float(), **tol)
+        assert torch.equal(o, out)  # one kernel, two modes: the same output
+        seen = ref_lse > -1e20  # rows with a valid key
+        torch.testing.assert_close(lse[seen], ref_lse[seen], atol=STATS_ATOL, rtol=STATS_RTOL)
+        assert torch.isfinite(lse).all()
+
+        acc, row_max, row_sum = flash.flash_attention_partials(q, k, v, kv_mask)
+        want_acc, want_max, want_sum = flash.flash_attention_partials_plain(q, k, v, kv_mask)
+        live = want_sum > 0
+        torch.testing.assert_close(row_max[live], want_max[live], atol=STATS_ATOL, rtol=STATS_RTOL)
+        torch.testing.assert_close(row_sum, want_sum, atol=STATS_ATOL, rtol=STATS_RTOL)
+        scale = want_sum.clamp_min(1.0)[..., None]
+        torch.testing.assert_close(acc / scale, want_acc / scale, atol=LONG_ATOL, rtol=LONG_RTOL)
+
+        dq_before = flash.DQ_LAUNCHES
+        got = flash.flash_attention_bwd(q, k, v, kv_mask, o, lse, do, causal)
+        want = flash.flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == torch.bfloat16 and g.shape == q.shape, name
+            torch.testing.assert_close(g.float(), w.float(), atol=LONG_GRAD_ATOL,
+                                       rtol=LONG_GRAD_RTOL, msg=lambda m, name=name: f"{name}: {m}")
+        assert flash.DQ_LAUNCHES == dq_before + 1
+        assert _sm90_counts() == {name: count + 1 for name, count in before.items()}
+        if kv_mask is not None:  # batch row 0 has no valid key
+            assert (out[0] == 0).all() and (o[0] == 0).all()
+            torch.testing.assert_close(row_max[0], torch.full_like(row_max[0], FILLER), rtol=1e-6,
+                                       atol=0)
+            assert (row_sum[0] == 0).all() and (acc[0] == 0).all()
+            for name, g in zip(("dq", "dk", "dv"), got):
+                assert (g[0] == 0).all(), name
+
+
+def test_sm90_path_never_reaches_the_plain_version_or_the_mma_sync_instance(monkeypatch):
+    """A CUDA tensor on the Hopper path goes to the Hopper instances (and
+    the one dQ kernel), or the call raises."""
+    _need_card()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("flash_attention_plain", "dense_attention", "flash_attention_lse_plain",
+                 "flash_attention_partials_plain", "flash_attention_bwd_plain"):
+        monkeypatch.setattr(flash, name, refuse)
+    launched = []
+    real = flash._launch
+    monkeypatch.setattr(flash, "_launch",
+                        lambda name, *a: launched.append(name) or real(name, *a))
+    q, k, v, do, mask = _training_inputs((2, 2, 300, 64), torch.bfloat16, seed=4)
+    flash.flash_attention(q, k, v, mask)
+    flash.flash_attention_partials(q, k, v, mask)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.autograd.grad(flash.flash_attention(*leaves, mask, True), leaves, do)
+    assert launched == ["dfly_flash_fwd_sm90", "dfly_flash_fwd_partial_sm90",
+                        "dfly_flash_fwd_lse_sm90", "dfly_flash_bwd_dkv_sm90", "dfly_flash_bwd_dq"]
+    # an operand TMA cannot read (8 bytes off a 16-byte boundary) raises
+    skewed = torch.empty(q.numel() + 4, dtype=q.dtype, device="cuda")[4:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        flash.flash_attention(skewed, k, v, mask)
+    assert len(launched) == 5
+
+
+def test_short_sets_keep_the_mma_sync_instances():
+    """The ranker's shapes (served, trained, eval shard) and float32 launch
+    the mma.sync instances only."""
+    _need_card()
+    before = _sm90_counts()
+    for shape, dtype in (((64, 4, 15, 32), torch.bfloat16), ((64, 4, 20, 32), torch.bfloat16),
+                         ((64, 4, 10, 32), torch.bfloat16), ((2, 2, 300, 64), torch.float32)):
+        q, k, v, do, mask = _training_inputs(shape, dtype)
+        flash.flash_attention(q, k, v, mask)
+        flash.flash_attention_partials(q, k, v, mask)
+        o, lse = flash.flash_attention_lse(q, k, v, mask)
+        flash.flash_attention_bwd(q, k, v, mask, o, lse, do)
+    torch.cuda.synchronize()
+    assert _sm90_counts() == before

@@ -26,16 +26,24 @@ from dragonfly2_tpu_torch.ops import flash
 # never bit for bit.
 TOL = {"float32": 1e-4, "bfloat16": 6e-2}
 
-# (L, causal, mask): "mask" random keys off; "dead" batch row 0 has no valid
-# key; "none" kv_mask=None; "ones" an all-ones mask
+# (L, causal, mask, head dim): "mask" random keys off; "dead" batch row 0
+# has no valid key; "none" kv_mask=None; "ones" an all-ones mask. L = 65 and
+# 129 sit one past a 64-row tile and a 128-row block, the Hopper instances'
+# tile edges, at the head dims whose tiles split into 64-column blocks.
 CASES = [
-    (20, False, "mask"),
-    (20, True, "dead"),
-    (20, False, "none"),
-    (20, True, "ones"),
-    (70, True, "mask"),
-    (70, False, "dead"),
+    (20, False, "mask", 16),
+    (20, True, "dead", 16),
+    (20, False, "none", 16),
+    (20, True, "ones", 16),
+    (70, True, "mask", 16),
+    (70, False, "dead", 16),
+    (65, True, "dead", 64),
+    (65, True, "dead", 128),
+    (129, True, "dead", 64),
+    (129, True, "dead", 128),
 ]
+# ids as before head dims were cases: "20-False-mask", then "-d64" etc.
+CASE_IDS = [f"{l}-{c}-{m}" + ("" if d == 16 else f"-d{d}") for l, c, m, d in CASES]
 DTYPES = ["float32", "bfloat16"]
 
 
@@ -82,9 +90,9 @@ def _rows_with_a_key(mask, l, b, causal):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("l,causal,mask_kind", CASES)
-def test_forward_lse_matches_reference(l, causal, mask_kind, dtype):
-    q, k, v, _, mask = _mk(l, mask_kind, seed=l + causal)
+@pytest.mark.parametrize("l,causal,mask_kind,d", CASES, ids=CASE_IDS)
+def test_forward_lse_matches_reference(l, causal, mask_kind, d, dtype):
+    q, k, v, _, mask = _mk(l, mask_kind, seed=l + causal, d=d)
     q, k, v = (_round(x, dtype) for x in (q, k, v))
     o, lse = flash.flash_attention_lse(*(_port(x, dtype) for x in (q, k, v, mask)), causal=causal)
     assert o.dtype == getattr(torch, dtype) and lse.dtype == torch.float32
@@ -109,11 +117,11 @@ def test_forward_lse_matches_reference(l, causal, mask_kind, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("l,causal,mask_kind", CASES)
-def test_backward_twin_matches_reference(l, causal, mask_kind, dtype):
+@pytest.mark.parametrize("l,causal,mask_kind,d", CASES, ids=CASE_IDS)
+def test_backward_twin_matches_reference(l, causal, mask_kind, d, dtype):
     """flash_attention_bwd_plain against _flash_backward (both backward
     kernels, interpret mode), fed the same q, k, v, o, lse and dO."""
-    q, k, v, do, mask = _mk(l, mask_kind, seed=100 + l + causal)
+    q, k, v, do, mask = _mk(l, mask_kind, seed=100 + l + causal, d=d)
     rq, rk, rv, rdo, rmask = (_ref(x, dtype) for x in (q, k, v, do, mask))
     o, lse = _flash_forward(rq, rk, rv, rmask, causal=causal, save_lse=True)
     want = _flash_backward(rq, rk, rv, rmask, o, lse, rdo, causal)
@@ -131,11 +139,11 @@ def test_backward_twin_matches_reference(l, causal, mask_kind, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("l,causal,mask_kind", CASES)
-def test_end_to_end_gradients_match_reference(l, causal, mask_kind, dtype):
+@pytest.mark.parametrize("l,causal,mask_kind,d", CASES, ids=CASE_IDS)
+def test_end_to_end_gradients_match_reference(l, causal, mask_kind, d, dtype):
     """torch.autograd.grad through the port's flash_attention against
     jax.grad of the reference's flash_attention (its custom_vjp)."""
-    q, k, v, _, mask = _mk(l, mask_kind, seed=200 + l + causal)
+    q, k, v, _, mask = _mk(l, mask_kind, seed=200 + l + causal, d=d)
     q, k, v = (_round(x, dtype) for x in (q, k, v))
     tq, tk, tv = (_port(x, dtype).requires_grad_() for x in (q, k, v))
     out = flash.flash_attention(tq, tk, tv, _port(mask, dtype), causal=causal)

@@ -1,0 +1,220 @@
+"""The choice between the flash kernels' two instances (ops/flash.py's
+``_sm90_path``), the ctypes signatures of every C entry, and the build's
+content hash over the headers a source includes. Jax-free and CPU-only:
+the kernels themselves are held to their plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
+
+import pathlib
+import re
+
+import pytest
+import torch
+
+from dragonfly2_tpu_torch.ops import build, flash
+
+SM90_ENTRIES = {
+    "dfly_flash_fwd": "dfly_flash_fwd_sm90",
+    "dfly_flash_fwd_lse": "dfly_flash_fwd_lse_sm90",
+    "dfly_flash_fwd_partial": "dfly_flash_fwd_partial_sm90",
+    "dfly_flash_bwd_dkv": "dfly_flash_bwd_dkv_sm90",
+}
+
+
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [
+        ((1024, 4, 15, 32), torch.bfloat16),  # served
+        ((256, 4, 20, 32), torch.bfloat16),  # trained
+        ((2000, 4, 10, 32), torch.bfloat16),  # the ring's eval shard at dp = sp = 2
+        ((500, 4, 10, 32), torch.bfloat16),
+        ((4, 2, 15, 16), torch.bfloat16),
+        ((2, 4, 4096, 32), torch.float32),  # TMA does not round float32 to bf16
+        ((4, 8, 2048, 128), torch.float32),
+        ((3, 2, flash.SM90_MIN_L, 64), torch.bfloat16),
+    ],
+)
+def test_short_sets_and_float32_keep_the_mma_sync_instances(shape, dtype):
+    _, _, l, d = shape
+    assert not flash._sm90_path(l, d, dtype)
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 4, 4096, 32), (2, 4, 4000, 64), (4, 8, 2048, 128), (2, 1, 16384, 32), (2, 2, 1000, 16),
+     (1, 1, flash.SM90_MIN_L + 1, 128)],
+)
+def test_long_bf16_takes_the_hopper_instances(shape):
+    _, _, l, d = shape
+    assert flash._sm90_path(l, d, torch.bfloat16)
+
+
+def test_a_head_dim_no_kernel_takes_is_never_the_hopper_path():
+    assert not any(flash._sm90_path(l, d, torch.bfloat16) for l in (10, 4097) for d in (8, 48, 256))
+
+
+# ------------------------------------------------- routing, without a card
+
+
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, name, device, *args):
+        self.calls.append((name, args))
+
+
+@pytest.fixture
+def routed(monkeypatch):
+    """The wrappers' kernel branch on meta tensors: launches recorded, not
+    made, and the device checks that only a card passes switched off."""
+    recorder = _Recorder()
+    monkeypatch.setattr(flash, "_launch", recorder)
+    monkeypatch.setattr(flash, "_check", lambda *a: None)
+    monkeypatch.setattr(flash, "_need_cuda", lambda q: None)
+    for name in ("LAUNCHES", "LSE_LAUNCHES", "PARTIAL_LAUNCHES", "DKV_LAUNCHES", "DQ_LAUNCHES",
+                 "FWD_SM90_LAUNCHES", "LSE_SM90_LAUNCHES", "PARTIAL_SM90_LAUNCHES",
+                 "DKV_SM90_LAUNCHES"):
+        monkeypatch.setattr(flash, name, 0)
+    return recorder
+
+
+def _meta(shape, dtype):
+    b, _, l, _ = shape
+    q = torch.empty(shape, dtype=dtype, device="meta")
+    return q, torch.empty(b, l, dtype=torch.bool, device="meta")
+
+
+_CALLS = {
+    "dfly_flash_fwd": lambda q, m: flash._flash_forward(q, q, q, m, True),
+    "dfly_flash_fwd_lse": lambda q, m: flash.flash_attention_lse(q, q, q, m, True),
+    "dfly_flash_fwd_partial": lambda q, m: flash.flash_attention_partials(q, q, q, m),
+    "dfly_flash_bwd_dkv": lambda q, m: flash.flash_attention_bwd_dkv(
+        q, q, q, m, q[..., 0].float(), q[..., 0].float(), q, True),
+}
+_COUNTERS = {
+    "dfly_flash_fwd": ("LAUNCHES", "FWD_SM90_LAUNCHES"),
+    "dfly_flash_fwd_lse": ("LSE_LAUNCHES", "LSE_SM90_LAUNCHES"),
+    "dfly_flash_fwd_partial": ("PARTIAL_LAUNCHES", "PARTIAL_SM90_LAUNCHES"),
+    "dfly_flash_bwd_dkv": ("DKV_LAUNCHES", "DKV_SM90_LAUNCHES"),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_CALLS))
+@pytest.mark.parametrize(
+    "shape,dtype,hopper",
+    [((256, 4, 20, 32), torch.bfloat16, False), ((2, 4, 4096, 32), torch.bfloat16, True),
+     ((2, 4, 4096, 32), torch.float32, False)],
+)
+def test_each_wrapper_launches_the_instance_its_shape_selects(routed, entry, shape, dtype, hopper):
+    q, mask = _meta(shape, dtype)
+    _CALLS[entry](q, mask)
+    (name, args), = routed.calls
+    b, h, l, d = shape
+    total, sm90 = _COUNTERS[entry]
+    assert getattr(flash, total) == 1 and getattr(flash, sm90) == int(hopper)
+    argtypes = flash._ENTRIES[name][1]
+    assert len(args) == len(argtypes) - 1  # the wrapper adds the stream
+    # the partial mode takes no causal flag; the others take causal=True here
+    dims = args[-4:] if entry == "dfly_flash_fwd_partial" else args[-5:-1]
+    if hopper:
+        assert name == SM90_ENTRIES[entry] and dims == (b, h, l, d)
+    else:
+        assert name == entry and args[-2:] == (flash._DTYPE_CODES[dtype], flash.warps_for(l))
+        dims = args[-6:-2] if entry == "dfly_flash_fwd_partial" else args[-7:-3]
+        assert dims == (b, h, l, d)
+
+
+def test_dq_keeps_its_one_instance(routed):
+    for shape in ((256, 4, 20, 32), (2, 4, 4096, 32)):
+        q, mask = _meta(shape, torch.bfloat16)
+        flash.flash_attention_bwd_dq(q, q, q, mask, q[..., 0].float(), q[..., 0].float(), q)
+    assert [name for name, _ in routed.calls] == ["dfly_flash_bwd_dq"] * 2
+
+
+def test_cpu_tensors_take_the_plain_versions_at_long_l(monkeypatch):
+    """The Hopper path is a CUDA path: a CPU tensor at a long bf16 shape
+    still takes the plain version and launches nothing."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached a kernel launch")
+
+    monkeypatch.setattr(flash, "_launch", refuse)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, flash.SM90_MIN_L + 3, 16, generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    assert flash._sm90_path(q.shape[2], 16, q.dtype)
+    out = flash.flash_attention(q, k, v)
+    torch.testing.assert_close(out, flash.flash_attention_plain(q, k, v), rtol=0, atol=0)
+    o, lse = flash.flash_attention_lse(q, k, v, None, True)
+    assert o.shape == q.shape and torch.isfinite(lse).all()
+    acc, row_max, row_sum = flash.flash_attention_partials(q, k, v)
+    assert acc.dtype == torch.float32 and (row_sum > 0).all()
+
+
+# ------------------------------------------- the C entries' ctypes signatures
+
+_EXTERN = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
+
+
+def _c_signatures():
+    """{entry: (source stem, ['p' or 'i' per parameter])} of every
+    ``extern "C" int`` function in csrc/*.cu."""
+    found = {}
+    for path in sorted(build.CSRC_DIR.glob("*.cu")):
+        for name, params in _EXTERN.findall(path.read_text()):
+            kinds = []
+            for param in params.split(","):
+                param = " ".join(param.split())
+                assert "*" in param or param.startswith("int "), (name, param)
+                kinds.append("p" if "*" in param else "i")
+            assert name not in found, f"{name} defined twice"
+            found[name] = (path.stem, kinds)
+    return found
+
+
+def test_every_c_entry_has_argtypes_and_every_argtype_an_entry():
+    assert set(_c_signatures()) == set(flash._ENTRIES)
+
+
+@pytest.mark.parametrize("name", sorted(flash._ENTRIES))
+def test_argtypes_match_the_extern_c_signature(name):
+    """Count and order of pointer and int parameters: an int where the C
+    side takes a pointer would cut the pointer to 32 bits."""
+    source, argtypes = flash._ENTRIES[name]
+    stem, kinds = _c_signatures()[name]
+    assert source == stem
+    assert [("p" if t is flash._P else "i") for t in argtypes] == kinds
+
+
+# ------------------------------------------------------ the build's hash
+
+
+def _write(path: pathlib.Path, text: str) -> None:
+    path.write_text(text)
+
+
+def test_library_path_follows_every_included_header(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    _write(tmp_path / "k.cu", '#include <cuda.h>\n#include "a.cuh"\nint k;\n')
+    _write(tmp_path / "a.cuh", '#pragma once\n#include "b.cuh"\n')
+    _write(tmp_path / "b.cuh", "// b\n")
+    _write(tmp_path / "other.cuh", "// not included\n")
+    first = build._library_path("k", "/nvcc")
+    assert [p.name for p in build._source_files("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    assert build._library_path("k", "/nvcc") == first
+
+    _write(tmp_path / "other.cuh", "// edited, still not included\n")
+    assert build._library_path("k", "/nvcc") == first
+    _write(tmp_path / "b.cuh", "// b, edited\n")  # included through a.cuh
+    second = build._library_path("k", "/nvcc")
+    assert second != first
+    _write(tmp_path / "a.cuh", '#pragma once\n#include "b.cuh"\n// edited\n')
+    third = build._library_path("k", "/nvcc")
+    assert third not in (first, second)
+    assert build._library_path("k", "/other/nvcc") != third
+
+
+def test_the_hopper_sources_hash_their_shared_header():
+    names = [p.name for p in build._source_files("flash_fwd_sm90")]
+    assert names == ["flash_fwd_sm90.cu", "sm90.cuh"]
+    assert [p.name for p in build._source_files("flash_bwd_dkv_sm90")][1:] == ["sm90.cuh"]
+    assert [p.name for p in build._source_files("flash_bwd")] == ["flash_bwd.cu"]
