@@ -49,9 +49,9 @@ result line:
    Ulysses from the same seed (every training kernel steps * layers * dp *
    sp times, the finished forward layers * dp * sp times in the eval, the
    first losses against the ring's), and each strategy's step p50.
-7. the Hopper instances (slice 4): Ulysses at [2, 16, 4096, 32] on a
-   1 x 4 mesh of the card, whose shards run the forward, the forward with
-   lse and dK/dV at long L: the finished forward without grad and one
+7. the Hopper instances (slices 4 and 5): Ulysses at [2, 16, 4096, 32] on
+   a 1 x 4 mesh of the card, whose shards run the forward, the forward with
+   lse, dK/dV and dQ at long L: the finished forward without grad and one
    forward/backward with it, each sm90 instance exactly sp times, against
    the plain versions over the whole sequence.
 8. the kernels JSON line and, last, the result line.
@@ -64,9 +64,9 @@ not find fails the run.
 
     python3 chip_smoke.py --threshold
 
-instead times both instances of the forward and of dK/dV at L = 16 .. 512
-(device time), the readings ops/flash.py's SM90_MIN_L is set from, and
-prints no result line.
+instead times both instances of the forward, of dK/dV and of dQ at
+L = 16 .. 512 (device time), the readings ops/flash.py's SM90_MIN_L is set
+from, and prints no result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -275,8 +275,21 @@ def phase_build():
         if "sm90" in name:  # each instance of the Hopper sources
             entries = re.findall(r"Compiling entry function '(\w+)'", log)
             for entry, used, spill in zip(entries, regs, spills):
-                print(f"  {entry[-40:]}: {used} registers, {spill} bytes spilled")
+                print(f"  {_instance_label(entry)}: {used} registers, {spill} bytes spilled")
+            # wgmma issued one at a time: registers ran short
+            for why, entry in re.findall(
+                    r"wgmma.mma_async instructions are serialized due to (.*?) for the function "
+                    r"'(\w+)'", log):
+                print(f"  {_instance_label(entry)}: wgmma serialized ({why})")
     print(f"build: {len(sources)} sources in {seconds:.2f} s")
+
+
+def _instance_label(entry: str) -> str:
+    """``kernel<template arguments>`` of a mangled kernel name."""
+    m = re.search(r"\d(flash_\w+?_kernel)I((?:Li\d+E)+)E", entry)
+    if m is None:
+        return entry[-40:]
+    return f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
 
 
 def _attention_inputs(gen, b, h, l, d, dtype, fully_masked_rows):
@@ -331,7 +344,7 @@ def _symbol(kernel: str, shape, dtype) -> str:
     return {
         "fwd": "flash_fwd_sm90_kernel" if sm90 else "flash_fwd_kernel",
         "dkv": "flash_bwd_dkv_sm90_kernel" if sm90 else "flash_bwd_dkv_kernel",
-        "dq": "flash_bwd_dq_kernel",
+        "dq": "flash_bwd_dq_sm90_kernel" if sm90 else "flash_bwd_dq_kernel",
     }[kernel]
 
 
@@ -454,6 +467,7 @@ _COUNTERS = {
     "flash_fwd_lse_sm90": "LSE_SM90_LAUNCHES",
     "flash_fwd_partial_sm90": "PARTIAL_SM90_LAUNCHES",
     "flash_bwd_dkv_sm90": "DKV_SM90_LAUNCHES",
+    "flash_bwd_dq_sm90": "DQ_SM90_LAUNCHES",
 }
 SM90_KERNELS = tuple(name for name in _COUNTERS if name.endswith("_sm90"))
 
@@ -594,7 +608,7 @@ def phase_training_kernels():
             ),
             "flash_bwd_dq": dict(
                 max_abs_err=errs["dq"], ms=_time_ms(bwd_dq, iters),
-                **_timed(bwd_dq, "flash_bwd_dq_kernel"),
+                **_timed(bwd_dq, _symbol("dq", q.shape, dtype)),
                 plain_ms=plain_bwd_ms,
                 library_ms=library_bwd_ms,
                 bound=_bound(q, mask, causal, matrices=5, row_stats=2, ops_per_pair=6),
@@ -607,9 +621,11 @@ def phase_training_kernels():
                 rows["flash_fwd_lse"].update(_timed(fwd_lse, "flash_fwd_kernel", "mma_sync_kernel"))
                 rows["flash_bwd_dkv"].update(
                     _timed(bwd_dkv, "flash_bwd_dkv_kernel", "mma_sync_kernel"))
+                rows["flash_bwd_dq"].update(
+                    _timed(bwd_dq, "flash_bwd_dq_kernel", "mma_sync_kernel"))
         for name, row in rows.items():
             bound_ms, bound_by = row.pop("bound")
-            variant = "sm90" if long and name != "flash_bwd_dq" else "mma.sync"
+            variant = "sm90" if long else "mma.sync"
             row.update(shape=[b, h, l, d], causal=causal, dtype=str(dtype).removeprefix("torch."),
                        variant=variant, bound_ms=bound_ms, bound_by=bound_by)
             _need_time(f"kernel {name} {label}", q.shape, dtype, row["kernel_ms"])
@@ -1336,10 +1352,10 @@ def phase_mesh_training(ds, single_step_p50):
 
 
 def phase_threshold():
-    """Both instances of the forward and of dK/dV at L = 16 .. 512 (device
-    time, each forced through the wrappers): where the Hopper instances
-    overtake the mma.sync ones, the readings SM90_MIN_L is set from. Run
-    with --threshold, not in the smoke run."""
+    """Both instances of the forward, of dK/dV and of dQ at L = 16 .. 512
+    (device time, each forced through the wrappers): where the Hopper
+    instances overtake the mma.sync ones, the readings SM90_MIN_L is set
+    from. Run with --threshold, not in the smoke run."""
     import torch
 
     from dragonfly2_tpu_torch.ops import flash
@@ -1361,18 +1377,23 @@ def phase_threshold():
                     row.update(_timed(
                         lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do),
                         "flash_bwd_dkv" + suffix, f"dkv_{instance}"))
+                    row.update(_timed(
+                        lambda: flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do),
+                        "flash_bwd_dq" + suffix, f"dq_{instance}"))
             print(f"threshold [{b}, {h}, {l}, {d}] bf16 device ms: forward sm90 "
                   f"{_fmt(row, 'fwd_sm90')} vs mma.sync {_fmt(row, 'fwd_mma_sync')}; dK/dV sm90 "
-                  f"{_fmt(row, 'dkv_sm90')} vs mma.sync {_fmt(row, 'dkv_mma_sync')} (ops/flash.py "
+                  f"{_fmt(row, 'dkv_sm90')} vs mma.sync {_fmt(row, 'dkv_mma_sync')}; dQ sm90 "
+                  f"{_fmt(row, 'dq_sm90')} vs mma.sync {_fmt(row, 'dq_mma_sync')} (ops/flash.py "
                   f"picks {picks})")
 
 
 def phase_long_ulysses():
-    """Slice 4's main path: Ulysses over [2, 16, 4096, 32] on a 1 x 4 mesh
-    of the card, whose shards attend [2, 4, 4096, 32] each, the Hopper
-    instances' shapes: the finished forward without grad (serving a long
-    sequence), then one forward and backward with it (a training step's
-    attention). Counters are zeroed just before and read just after; each
+    """Slices 4 and 5's main path: Ulysses over [2, 16, 4096, 32] on a
+    1 x 4 mesh of the card, whose shards attend [2, 4, 4096, 32] each, the
+    Hopper instances' shapes: the finished forward without grad (serving a
+    long sequence), then one forward and backward with it (a training
+    step's attention: the forward with lse, dK/dV and dQ, all Hopper
+    instances). Counters are zeroed just before and read just after; each
     Hopper instance must launch sp times. Checked against the plain
     versions over the whole sequence at the long tolerances. Returns the
     counts."""
@@ -1497,14 +1518,15 @@ def main() -> None:
     # launches: every main path's count, each read just after its run
     # (slice 1's serving; slice 2's training, then its serving; slice 3's
     # ring, its ring mesh training, then its Ulysses mesh training, all on
-    # the mma.sync instances but the ring's partials; slice 4's long
-    # Ulysses, all on the Hopper instances but dQ)
+    # the mma.sync instances but the ring's partials; slices 4 and 5's long
+    # Ulysses, all on the Hopper instances)
     fwd_launches = (launches + train_counts["flash_fwd"] + serve_counts["flash_fwd"]
                     + uly_counts["flash_fwd"])
     trained = {name: train_counts[name] + uly_counts[name] for name in TRAINING_KERNELS}
     src = "dragonfly2_tpu_torch/csrc/"
     fwd_src, bwd_src = src + "flash_fwd.cu", src + "flash_bwd.cu"
     fwd_sm90_src, dkv_sm90_src = src + "flash_fwd_sm90.cu", src + "flash_bwd_dkv_sm90.cu"
+    dq_sm90_src = src + "flash_bwd_dq_sm90.cu"
     line = {"kernels": [
         entry("flash_fwd", fwd_src, "dragonfly2_tpu/ops/flash.py:71", fwd_launches, kernels, "served"),
         entry("flash_fwd_lse", fwd_src, "dragonfly2_tpu/ops/flash.py:186",
@@ -1512,12 +1534,11 @@ def main() -> None:
         entry("flash_bwd_dkv", bwd_src, "dragonfly2_tpu/ops/flash.py:418",
               trained["flash_bwd_dkv"], training_kernels["flash_bwd_dkv"], "trained"),
         entry("flash_bwd_dq", bwd_src, "dragonfly2_tpu/ops/flash.py:474",
-              trained["flash_bwd_dq"] + long_counts["flash_bwd_dq"],
-              training_kernels["flash_bwd_dq"], "trained"),
+              trained["flash_bwd_dq"], training_kernels["flash_bwd_dq"], "trained"),
         # slice 3's main path: the mesh training's eval
         entry("flash_fwd_partial", fwd_src, "dragonfly2_tpu/ops/flash.py:177",
               mesh_launches, partial, "eval-shard"),
-        # slice 4's Hopper instances: the long Ulysses' shards, and the ring's blocks
+        # slices 4 and 5's Hopper instances: the long Ulysses' shards, and the ring's blocks
         entry("flash_fwd_sm90", fwd_sm90_src, "dragonfly2_tpu/ops/flash.py:71",
               long_counts["flash_fwd_sm90"], kernels, "long"),
         entry("flash_fwd_lse_sm90", fwd_sm90_src, "dragonfly2_tpu/ops/flash.py:186",
@@ -1526,6 +1547,8 @@ def main() -> None:
               ring_launches, partial, "ring-block-16k"),
         entry("flash_bwd_dkv_sm90", dkv_sm90_src, "dragonfly2_tpu/ops/flash.py:418",
               long_counts["flash_bwd_dkv_sm90"], training_kernels["flash_bwd_dkv"], "long"),
+        entry("flash_bwd_dq_sm90", dq_sm90_src, "dragonfly2_tpu/ops/flash.py:474",
+              long_counts["flash_bwd_dq_sm90"], training_kernels["flash_bwd_dq"], "long"),
     ]}
     print(f"profiler: of {_WINDOWS['taken']} kernel windows, {_WINDOWS['short']} recorded fewer "
           f"launches than were made, {_WINDOWS['over']} more, and {_WINDOWS['uneven']} had a "

@@ -1,8 +1,12 @@
-// Flash-attention backward for Hopper (sm_90a): the dK/dV and dQ kernels.
+// Flash-attention backward for Hopper (sm_90a): the dK/dV and dQ kernels
+// of short sets and float32.
 //
 // Replaces the TPU kernels dragonfly2_tpu/ops/flash.py::_flash_bwd_dkv_kernel
 // (:418, launched by the pallas_call at :615) and ::_flash_bwd_dq_kernel
 // (:474, pallas_call at :667), the backward of the reference's custom_vjp.
+// ops/flash.py launches these instances for float32 and for L up to
+// SM90_MIN_L (the ranker's sets); bf16 above it takes the TMA + wgmma
+// redesigns, csrc/flash_bwd_dkv_sm90.cu and csrc/flash_bwd_dq_sm90.cu.
 // Given q, k, v, dO [B, H, L, D], the forward's lse and delta = rowsum(dO*o)
 // [B, H, L] float32, and a [B, L] key-validity mask (or none), per tile:
 //   P  = exp2(S log2(e)/sqrt(D) - lse log2(e)) on valid pairs, 0 elsewhere
@@ -40,7 +44,6 @@
 //   block's keys; the dQ loop stops after the block's last query row.
 // - Deterministic: every output element is summed by one thread in a fixed
 //   order, with no atomics.
-// wgmma/TMA pipelining is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -6,7 +6,7 @@
 // dragonfly2_tpu/ops/flash.py::_flash_bwd_dkv_kernel (:418, launched by the
 // pallas_call at :615), as csrc/flash_bwd.cu's dfly_flash_bwd_dkv does at
 // every L; ops/flash.py picks this source for bf16 inputs above SM90_MIN_L
-// (_sm90_path). The dQ kernel stays flash_bwd.cu's. Given q, k, v, dO
+// (_sm90_path), as it picks flash_bwd_dq_sm90.cu for dQ. Given q, k, v, dO
 // [B, H, L, D] bf16, the forward's lse and delta = rowsum(dO * o) [B, H, L]
 // float32, a [B, L] key-validity mask (or none) and the causal flag, per
 // (key, query) pair:
@@ -18,7 +18,7 @@
 // What bounds it on an H100: 8 B H L^2 D operations (S^T, dP^T, dV, dK)
 // against 6 B H L D bf16 elements and 2 B H L float32 rows moved. At
 // [4, 8, 2048, 128] that is 137 GFLOP, 139 us at the 989 TFLOP/s bf16 peak
-// (117 us over the valid pairs of an 85% mask), against 12.6 MB, 3.8 us:
+// (117 us over the valid pairs of an 85% mask), against 101 MB, 30 us:
 // bound by operations. Each pair also costs an exp2 and a few float32
 // operations.
 //

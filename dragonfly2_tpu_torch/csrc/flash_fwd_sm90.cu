@@ -22,7 +22,7 @@
 // What bounds it on an H100: 4 B H L^2 D operations (Q K^T and P V) against
 // 4 B H L D bf16 elements moved (q, k, v, o; the partial mode's float32 acc
 // adds 2 B H L D bytes). At [4, 8, 2048, 128] that is 68.7 GFLOP, 69 us at
-// the 989 TFLOP/s bf16 tensor-core peak, against 8.4 us of bytes: bound by
+// the 989 TFLOP/s bf16 tensor-core peak, against 67 MB, 20 us of bytes: bound by
 // operations, as is every L above a few hundred. Beside the products every
 // (query, key) pair costs an exp2 and a few float32 operations, so at head
 // dim 32 the multi-function unit and the FMA pipes come close to the tensor
@@ -31,10 +31,10 @@
 // Design:
 // - One block per (128 query rows, head, batch): two consumer warpgroups of
 //   64 rows each and one producer warp, 288 threads, so the register file
-//   goes almost whole to the consumers without setmaxnreg: up to 224
-//   registers a thread at head dims 64 and 128 (one block an SM), 112 at 16
-//   and 32 (two blocks an SM, four consumer warpgroups to hide each other's
-//   latency).
+//   goes mostly to the consumers without setmaxnreg: up to 168 registers a
+//   thread at head dims 64 and 128 (one block an SM; ptxas's cap for 288
+//   threads), 96 at 16 and 32 (two blocks an SM, four consumer warpgroups
+//   to hide each other's latency).
 // - The producer warp issues TMA loads: the block's Q tile once, then K/V
 //   tiles of 64 keys into a three-stage ring in dynamic shared memory, each
 //   stage completing on a full barrier and released by an empty barrier that
@@ -48,8 +48,9 @@
 //   no valid key exponentiating against 0 so it never gets exp2(x - m) = 1;
 //   tiles with every key valid and off the causal diagonal skip the masking,
 //   the producer's ballot of the tile's keys being one 64-bit word) and fed
-//   back, rounded to bf16,
-//   as the register A operand of O += P V, with V the MN-major B operand.
+//   back, rounded to bf16, as the register A operand of O += P V, with V the
+//   MN-major B operand. The producer's ring, the tile products, the masking
+//   and the A-operand packing are sm90.cuh's, shared with dQ.
 //   The [L, L] scores never leave registers.
 // - Within a warpgroup, tile j's S = Q K^T and tile j-1's O += P V are
 //   issued together; tile j's softmax runs while P V is on the tensor cores,
@@ -85,7 +86,7 @@ struct Fwd {
   static constexpr int BM = 128;  // query rows per block
   static constexpr int BN = 64;   // keys per K/V tile
   static constexpr int STAGES = 3;
-  // blocks an SM: two at head dims 16 and 32 (up to 112 registers a
+  // blocks an SM: two at head dims 16 and 32 (up to 96 registers a
   // thread), where one block's two warpgroups leave the SM waiting on
   // latency; one from 64, whose accumulators need more
   static constexpr int MIN_BLOCKS = D <= 32 ? 2 : 1;
@@ -101,58 +102,9 @@ struct Fwd {
   static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
   static constexpr int OFF_VALID = OFF_V + STAGES * KV_BYTES;  // a 64-bit key mask a stage
   static constexpr int OFF_BAR = OFF_VALID + STAGES * 8;
-  static_assert(BN == 64, "one bit of a 64-bit word per key of a tile");
   static constexpr int BARS = 1 + 2 * STAGES;  // Q, full[], empty[]
   static constexpr int SMEM = OFF_BAR + BARS * 8 + 1024;  // + room to align the base
 };
-
-// S += Q_w K^T over D: 64 query rows of a warpgroup x BN keys of a K tile
-template <typename C>
-__device__ __forceinline__ void scores(float (&sc)[C::BN / 2], const uint8_t* sQw,
-                                       const uint8_t* kt) {
-#pragma unroll
-  for (int kk = 0; kk < C::D / 16; ++kk) {
-    const int blk = kk * 16 / C::COLS;       // column block
-    const int at = (kk * 16 % C::COLS) * 2;  // bytes into its swizzled rows
-    wgmma_ss_n64(sc, smem_desc<C::ROW_BYTES, false>(sQw + blk * C::BM * C::ROW_BYTES + at),
-                 smem_desc<C::ROW_BYTES, false>(kt + blk * C::BN * C::ROW_BYTES + at));
-  }
-}
-
-// O += P V over a V tile, P the register A operand (16 keys a k step), V
-// MN-major, one wgmma per column block of O
-template <typename C>
-__device__ __forceinline__ void p_times_v(float (&acc)[C::D / 2], const uint32_t (&pa)[C::BN / 16][4],
-                                          const uint8_t* vt) {
-#pragma unroll
-  for (int c = 0; c < C::CBLOCKS; ++c) {
-#pragma unroll
-    for (int ks = 0; ks < C::BN / 16; ++ks) {
-      wgmma_rs<C::COLS>(acc + c * (C::COLS / 2), pa[ks],
-                        smem_desc<C::ROW_BYTES, true>(vt + c * C::BN * C::ROW_BYTES +
-                                                      ks * 16 * C::ROW_BYTES));
-    }
-  }
-}
-
-// masked (query, key) pairs of the tile to -inf: keys whose bit of ``bits``
-// (shifted so bit 8 nt + (e & 1) is this thread's key 8 nt + 2 t + (e & 1))
-// is 0, if MASKED; keys past the row, if DIAG (a causal tile that reaches
-// past the warp's first row)
-template <typename C, bool MASKED, bool DIAG>
-__device__ __forceinline__ void mask_tile(float (&sc)[C::BN / 2], uint64_t bits, int n0,
-                                          int row_lo, int row_hi, int t) {
-#pragma unroll
-  for (int nt = 0; nt < C::BN / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      bool ok = true;
-      if (MASKED) ok = (bits >> (nt * 8 + (e & 1))) & 1u;
-      if (DIAG) ok = ok && n0 + nt * 8 + 2 * t + (e & 1) <= ((e < 2) ? row_lo : row_hi);
-      sc[4 * nt + e] = ok ? sc[4 * nt + e] : -INFINITY;
-    }
-  }
-}
 
 // the tile's scores become probabilities in place: mask, update the running
 // max m (log2 domain) and sum l of the thread's rows lo and hi (the max
@@ -165,16 +117,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[C::BN / 2], float (&m_r
                                              float (&l_row)[2], float (&corr)[2],
                                              uint64_t valid, int n0, int row_lo, int row_hi,
                                              int t, bool diag, float scale_log2) {
-  const uint64_t bits = valid >> (2 * t);
-  if (valid != ~0ull) {
-    if (diag) {
-      mask_tile<C, true, true>(sc, bits, n0, row_lo, row_hi, t);
-    } else {
-      mask_tile<C, true, false>(sc, bits, n0, row_lo, row_hi, t);
-    }
-  } else if (diag) {
-    mask_tile<C, false, true>(sc, bits, n0, row_lo, row_hi, t);
-  }
+  mask_scores<C>(sc, valid, n0, row_lo, row_hi, t, diag);
   float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int nt = 0; nt < C::BN / 8; ++nt) {
@@ -203,18 +146,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[C::BN / 2], float (&m_r
   }
   l_row[0] = l_row[0] * corr[0] + tile_sum[0];
   l_row[1] = l_row[1] * corr[1] + tile_sum[1];
-}
-
-// two adjacent 8-key accumulator tiles, rounded to bf16, are one 16-key A
-// fragment
-template <typename C>
-__device__ __forceinline__ void to_a_operand(const float (&sc)[C::BN / 2],
-                                             uint32_t (&pa)[C::BN / 16][4]) {
-#pragma unroll
-  for (int ks = 0; ks < C::BN / 16; ++ks) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) pa[ks][r] = pack_bf16(sc[8 * ks + 2 * r], sc[8 * ks + 2 * r + 1]);
-  }
 }
 
 // stat0: lse (MODE_LSE) or row max (MODE_PARTIAL); stat1: row sum
@@ -268,27 +199,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         tma_load_3d(sQ + c * C::BM * C::ROW_BYTES, &tm_q, bar_q, c * C::COLS, q0, bh);
       }
     }
-    for (int j = 0; j < n_tiles; ++j) {
-      const int s = j % C::STAGES;
-      const int n0 = j * C::BN;
-      mbar_wait(&empty[s], ((j / C::STAGES) & 1) ^ 1);
-      const int key0 = n0 + lane;
-      const int key1 = key0 + 32;
-      const uint32_t lo = __ballot_sync(0xffffffffu, key0 < L && (mb == nullptr || mb[key0] != 0));
-      const uint32_t hi = __ballot_sync(0xffffffffu, key1 < L && (mb == nullptr || mb[key1] != 0));
-      if (lane == 0) {
-        sValid[s] = lo | (static_cast<uint64_t>(hi) << 32);
-        mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
-#pragma unroll
-        for (int c = 0; c < C::CBLOCKS; ++c) {
-          const int at = s * C::KV_BYTES + c * C::BN * C::ROW_BYTES;
-          tma_load_3d(sK + at, &tm_k, &full[s], c * C::COLS, n0, bh);
-          tma_load_3d(sV + at, &tm_v, &full[s], c * C::COLS, n0, bh);
-        }
-      } else {
-        mbar_arrive(&full[s]);
-      }
-    }
+    produce_kv<C>(&tm_k, &tm_v, sK, sV, sValid, full, empty, mb, n_tiles, L, bh, lane);
     return;
   }
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma flash kernels
-// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu): mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and instructions, and the host-side TMA
-// descriptor encoder.
+// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu, flash_bwd_dq_sm90.cu):
+// mbarriers, TMA tile loads, wgmma shared-memory descriptors and
+// instructions, the tile products of the kernels whose block owns query
+// rows, and the host-side TMA descriptor encoder.
 //
 // Tile layout. A [rows, D] bf16 tile sits in shared memory as D / COLS
 // column blocks of [rows, COLS] (COLS = min(D, 64), so a row of a block is
@@ -30,6 +31,7 @@
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up in libcuda at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -262,6 +264,128 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ------------------------------------------- query-row blocks, key tiles
+//
+// The forward and dQ own BM query rows a block, 64 a consumer warpgroup,
+// and sweep [BN, D] key tiles (K, V). C is the kernel's tile configuration:
+// D, BM, BN, STAGES, KV_BYTES (one K or V tile) and COLS, ROW_BYTES,
+// CBLOCKS of the layout above. A thread's [64, BN] score accumulators hold
+// its rows lo (g) and hi (g + 8) against keys 8 nt + 2 t + (e & 1) in
+// register 4 nt + e.
+
+// The producer warp's K/V ring over key tiles 0 .. n_tiles - 1: tile j
+// waits for stage j % STAGES to be empty, its lanes ballot the tile's key
+// validity (key < L and the batch row's mask byte, mb null for none) into
+// valid[stage], and lane 0 loads the K and V tiles by TMA onto full[stage]
+template <typename C>
+__device__ __forceinline__ void produce_kv(const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                           uint8_t* sK, uint8_t* sV, uint64_t* valid,
+                                           uint64_t* full, uint64_t* empty, const uint8_t* mb,
+                                           int n_tiles, int L, int bh, int lane) {
+  static_assert(C::BN == 64, "one bit of a 64-bit word per key of a tile");
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % C::STAGES;
+    const int n0 = j * C::BN;
+    mbar_wait(&empty[s], ((j / C::STAGES) & 1) ^ 1);
+    const int key0 = n0 + lane;
+    const int key1 = key0 + 32;
+    const uint32_t lo = __ballot_sync(0xffffffffu, key0 < L && (mb == nullptr || mb[key0] != 0));
+    const uint32_t hi = __ballot_sync(0xffffffffu, key1 < L && (mb == nullptr || mb[key1] != 0));
+    if (lane == 0) {
+      valid[s] = lo | (static_cast<uint64_t>(hi) << 32);
+      mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::CBLOCKS; ++c) {
+        const int at = s * C::KV_BYTES + c * C::BN * C::ROW_BYTES;
+        tma_load_3d(sK + at, tm_k, &full[s], c * C::COLS, n0, bh);
+        tma_load_3d(sV + at, tm_v, &full[s], c * C::COLS, n0, bh);
+      }
+    } else {
+      mbar_arrive(&full[s]);
+    }
+  }
+}
+
+// S += A_w B^T over D: 64 rows of a warpgroup's slice of a [BM, D] tile
+// (Q, or dO) x the BN rows of a key tile (K, or V), both K-major
+template <typename C>
+__device__ __forceinline__ void scores(float (&sc)[C::BN / 2], const uint8_t* aw,
+                                       const uint8_t* kt) {
+#pragma unroll
+  for (int kk = 0; kk < C::D / 16; ++kk) {
+    const int blk = kk * 16 / C::COLS;       // column block
+    const int at = (kk * 16 % C::COLS) * 2;  // bytes into its swizzled rows
+    wgmma_ss_n64(sc, smem_desc<C::ROW_BYTES, false>(aw + blk * C::BM * C::ROW_BYTES + at),
+                 smem_desc<C::ROW_BYTES, false>(kt + blk * C::BN * C::ROW_BYTES + at));
+  }
+}
+
+// O += P V over a key tile, P the register A operand (16 keys a k step),
+// the tile MN-major, one wgmma per column block of O; dQ's dS K is the same
+// product with K in V's place
+template <typename C>
+__device__ __forceinline__ void p_times_v(float (&acc)[C::D / 2], const uint32_t (&pa)[C::BN / 16][4],
+                                          const uint8_t* vt) {
+#pragma unroll
+  for (int c = 0; c < C::CBLOCKS; ++c) {
+#pragma unroll
+    for (int ks = 0; ks < C::BN / 16; ++ks) {
+      wgmma_rs<C::COLS>(acc + c * (C::COLS / 2), pa[ks],
+                        smem_desc<C::ROW_BYTES, true>(vt + c * C::BN * C::ROW_BYTES +
+                                                      ks * 16 * C::ROW_BYTES));
+    }
+  }
+}
+
+// masked (query, key) pairs of the tile to -inf: keys whose bit of ``bits``
+// (shifted so bit 8 nt + (e & 1) is this thread's key 8 nt + 2 t + (e & 1))
+// is 0, if MASKED; keys past the row, if DIAG (a causal tile that reaches
+// past the warp's first row)
+template <typename C, bool MASKED, bool DIAG>
+__device__ __forceinline__ void mask_tile(float (&sc)[C::BN / 2], uint64_t bits, int n0,
+                                          int row_lo, int row_hi, int t) {
+#pragma unroll
+  for (int nt = 0; nt < C::BN / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bool ok = true;
+      if (MASKED) ok = (bits >> (nt * 8 + (e & 1))) & 1u;
+      if (DIAG) ok = ok && n0 + nt * 8 + 2 * t + (e & 1) <= ((e < 2) ? row_lo : row_hi);
+      sc[4 * nt + e] = ok ? sc[4 * nt + e] : -INFINITY;
+    }
+  }
+}
+
+// mask_tile where needed: ``valid`` is the tile's key-validity ballot (bit
+// n: key n0 + n), all ones on a tile with no invalid key; ``diag``, the
+// tile reaches past the warp's first row of a causal block
+template <typename C>
+__device__ __forceinline__ void mask_scores(float (&sc)[C::BN / 2], uint64_t valid, int n0,
+                                            int row_lo, int row_hi, int t, bool diag) {
+  const uint64_t bits = valid >> (2 * t);
+  if (valid != ~0ull) {
+    if (diag) {
+      mask_tile<C, true, true>(sc, bits, n0, row_lo, row_hi, t);
+    } else {
+      mask_tile<C, true, false>(sc, bits, n0, row_lo, row_hi, t);
+    }
+  } else if (diag) {
+    mask_tile<C, false, true>(sc, bits, n0, row_lo, row_hi, t);
+  }
+}
+
+// two adjacent 8-key accumulator tiles, rounded to bf16, are one 16-key A
+// fragment
+template <typename C>
+__device__ __forceinline__ void to_a_operand(const float (&sc)[C::BN / 2],
+                                             uint32_t (&pa)[C::BN / 16][4]) {
+#pragma unroll
+  for (int ks = 0; ks < C::BN / 16; ++ks) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[ks][r] = pack_bf16(sc[8 * ks + 2 * r], sc[8 * ks + 2 * r + 1]);
+  }
 }
 
 // ---------------------------------------------------------------- the host

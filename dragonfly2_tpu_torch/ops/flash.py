@@ -17,21 +17,22 @@ H100:
   (flash.py:474) -> csrc/flash_bwd.cu ``dfly_flash_bwd_dkv`` and
   ``dfly_flash_bwd_dq`` (training backward).
 
-The forward (all three modes) and dK/dV have two instances each: the
-mma.sync ones above, and Hopper redesigns with TMA, wgmma and a ring of
-dynamic shared memory for long sequences, csrc/flash_fwd_sm90.cu
-(``dfly_flash_fwd_sm90``, ``dfly_flash_fwd_lse_sm90``,
-``dfly_flash_fwd_partial_sm90``) and csrc/flash_bwd_dkv_sm90.cu
-(``dfly_flash_bwd_dkv_sm90``). ``_sm90_path`` picks one from the shape and
-dtype alone; a refused launch raises, it never falls back to the other.
+Every one of them has two instances: the mma.sync ones above, and Hopper
+redesigns with TMA, wgmma and a ring of dynamic shared memory for long
+sequences, csrc/flash_fwd_sm90.cu (``dfly_flash_fwd_sm90``,
+``dfly_flash_fwd_lse_sm90``, ``dfly_flash_fwd_partial_sm90``),
+csrc/flash_bwd_dkv_sm90.cu (``dfly_flash_bwd_dkv_sm90``) and
+csrc/flash_bwd_dq_sm90.cu (``dfly_flash_bwd_dq_sm90``). ``_sm90_path``
+picks one from the shape and dtype alone; a refused launch raises, it
+never falls back to the other.
 
 Every wrapper launches its kernel on a CUDA tensor, or raises; on a CPU
 tensor it takes the kernel's plain version, and only then. Each function
 has a launch counter (``LAUNCHES``, ``LSE_LAUNCHES``, ``PARTIAL_LAUNCHES``,
 ``DKV_LAUNCHES``, ``DQ_LAUNCHES``) that counts its launches of either
 instance, and each Hopper instance one more (``FWD_SM90_LAUNCHES``,
-``LSE_SM90_LAUNCHES``, ``PARTIAL_SM90_LAUNCHES``, ``DKV_SM90_LAUNCHES``);
-only the lines launching add to them.
+``LSE_SM90_LAUNCHES``, ``PARTIAL_SM90_LAUNCHES``, ``DKV_SM90_LAUNCHES``,
+``DQ_SM90_LAUNCHES``); only the lines launching add to them.
 
 ``flash_attention`` is the public entry. With autograd recording and an
 input that requires grad it runs ``FlashAttention`` (forward with lse,
@@ -71,14 +72,16 @@ FWD_SM90_LAUNCHES = 0
 LSE_SM90_LAUNCHES = 0
 PARTIAL_SM90_LAUNCHES = 0
 DKV_SM90_LAUNCHES = 0
+DQ_SM90_LAUNCHES = 0
 _launches_lock = threading.Lock()
 
 # The Hopper instances take bf16 at L above this. Shorter sets (the
 # ranker's 10-20 candidates) and float32 (which TMA cannot round to bf16 on
 # the way in) keep the mma.sync instances. Set from both instances' device
-# times on an H100 (python3 chip_smoke.py --threshold, PERF.md): at the
-# trained batch [256, 4, L, 32] the mma.sync ones win up to L = 64 (one
-# 128-row Hopper block is mostly padding there) and lose from L = 96.
+# times of the forward, dK/dV and dQ on an H100 (python3 chip_smoke.py
+# --threshold, PERF.md): at the trained batch [256, 4, L, 32] the mma.sync
+# ones win up to L = 64 (one 128-row Hopper block is mostly padding there)
+# and lose from L = 96.
 SM90_MIN_L = 64
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -93,6 +96,7 @@ _ENTRIES = {
     "dfly_flash_fwd_lse_sm90": ("flash_fwd_sm90", [_P] * 6 + [_I] * 5 + [_P]),
     "dfly_flash_fwd_partial_sm90": ("flash_fwd_sm90", [_P] * 7 + [_I] * 4 + [_P]),
     "dfly_flash_bwd_dkv_sm90": ("flash_bwd_dkv_sm90", [_P] * 9 + [_I] * 5 + [_P]),
+    "dfly_flash_bwd_dq_sm90": ("flash_bwd_dq_sm90", [_P] * 8 + [_I] * 5 + [_P]),
 }
 _entries: dict[str, tuple] = {}
 
@@ -134,8 +138,8 @@ def warps_for(length: int) -> int:
 
 
 def _sm90_path(length: int, head_dim: int, dtype: torch.dtype) -> bool:
-    """Whether the forward and dK/dV take their Hopper instances: bf16 at
-    L above SM90_MIN_L. Shape and dtype alone decide."""
+    """Whether the forward, dK/dV and dQ take their Hopper instances: bf16
+    at L above SM90_MIN_L. Shape and dtype alone decide."""
     return dtype == torch.bfloat16 and head_dim in HEAD_DIMS and length > SM90_MIN_L
 
 
@@ -392,10 +396,15 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal: bool = Fals
     _need_cuda(q)
     b, h, l, d = q.shape
     dq = torch.empty_like(q)
-    if dq.numel():
+    if not dq.numel():
+        return dq
+    pointers = _pointers(q, k, v, do, lse, delta, kv_mask, dq)
+    if _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_bwd_dq_sm90", q.device, *pointers, b, h, l, d, int(causal))
+        _count("DQ_LAUNCHES", "DQ_SM90_LAUNCHES")
+    else:
         _launch(
-            "dfly_flash_bwd_dq", q.device,
-            *_pointers(q, k, v, do, lse, delta, kv_mask, dq),
+            "dfly_flash_bwd_dq", q.device, *pointers,
             b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
         )
         _count("DQ_LAUNCHES")

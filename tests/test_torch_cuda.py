@@ -263,10 +263,10 @@ def test_ring_on_one_card_matches_flash_attention(dp, sp):
 
 SM90_ENTRIES = {
     "dfly_flash_fwd_sm90", "dfly_flash_fwd_lse_sm90", "dfly_flash_fwd_partial_sm90",
-    "dfly_flash_bwd_dkv_sm90",
+    "dfly_flash_bwd_dkv_sm90", "dfly_flash_bwd_dq_sm90",
 }
 SM90_COUNTERS = ("FWD_SM90_LAUNCHES", "LSE_SM90_LAUNCHES", "PARTIAL_SM90_LAUNCHES",
-                 "DKV_SM90_LAUNCHES")
+                 "DKV_SM90_LAUNCHES", "DQ_SM90_LAUNCHES")
 
 
 def _sm90_counts():
@@ -275,12 +275,13 @@ def _sm90_counts():
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("l", [1000, 4000, 4097])
+@pytest.mark.parametrize("l", [96, 1000, 4000, 4097])
 def test_sm90_instances_match_plain(l, d, causal):
-    """Ragged long lengths at every head dim: the three forward modes and
-    dK/dV (beside the unchanged dQ) against their plain versions at the
-    long tolerances, with a mask (batch row 0 fully masked) and without,
-    and the per-variant counters."""
+    """Ragged lengths at every head dim, from the shortest Hopper set (one
+    partial 128-row block, a ragged key tile) up: the three forward modes,
+    dK/dV and dQ against their plain versions at the long tolerances, with
+    a mask (batch row 0 fully masked) and without, and the per-variant
+    counters."""
     _need_card()
     assert flash._sm90_path(l, d, torch.bfloat16)
     q, k, v, do, mask = _training_inputs((2, 2, l, d), torch.bfloat16, seed=l + d)
@@ -325,8 +326,8 @@ def test_sm90_instances_match_plain(l, d, causal):
 
 
 def test_sm90_path_never_reaches_the_plain_version_or_the_mma_sync_instance(monkeypatch):
-    """A CUDA tensor on the Hopper path goes to the Hopper instances (and
-    the one dQ kernel), or the call raises."""
+    """A CUDA tensor on the Hopper path goes to the Hopper instances, or
+    the call raises."""
     _need_card()
 
     def refuse(*args, **kwargs):
@@ -345,7 +346,8 @@ def test_sm90_path_never_reaches_the_plain_version_or_the_mma_sync_instance(monk
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     torch.autograd.grad(flash.flash_attention(*leaves, mask, True), leaves, do)
     assert launched == ["dfly_flash_fwd_sm90", "dfly_flash_fwd_partial_sm90",
-                        "dfly_flash_fwd_lse_sm90", "dfly_flash_bwd_dkv_sm90", "dfly_flash_bwd_dq"]
+                        "dfly_flash_fwd_lse_sm90", "dfly_flash_bwd_dkv_sm90",
+                        "dfly_flash_bwd_dq_sm90"]
     # an operand TMA cannot read (8 bytes off a 16-byte boundary) raises
     skewed = torch.empty(q.numel() + 4, dtype=q.dtype, device="cuda")[4:].view(q.shape)
     with pytest.raises(ValueError, match="aligned"):
@@ -353,10 +355,14 @@ def test_sm90_path_never_reaches_the_plain_version_or_the_mma_sync_instance(monk
     assert len(launched) == 5
 
 
-def test_short_sets_keep_the_mma_sync_instances():
+def test_short_sets_keep_the_mma_sync_instances(monkeypatch):
     """The ranker's shapes (served, trained, eval shard) and float32 launch
     the mma.sync instances only."""
     _need_card()
+    launched = []
+    real = flash._launch
+    monkeypatch.setattr(flash, "_launch",
+                        lambda name, *a: launched.append(name) or real(name, *a))
     before = _sm90_counts()
     for shape, dtype in (((64, 4, 15, 32), torch.bfloat16), ((64, 4, 20, 32), torch.bfloat16),
                          ((64, 4, 10, 32), torch.bfloat16), ((2, 2, 300, 64), torch.float32)):
@@ -367,3 +373,4 @@ def test_short_sets_keep_the_mma_sync_instances():
         flash.flash_attention_bwd(q, k, v, mask, o, lse, do)
     torch.cuda.synchronize()
     assert _sm90_counts() == before
+    assert len(launched) == 4 * 5 and not SM90_ENTRIES & set(launched)

@@ -17,6 +17,7 @@ SM90_ENTRIES = {
     "dfly_flash_fwd_lse": "dfly_flash_fwd_lse_sm90",
     "dfly_flash_fwd_partial": "dfly_flash_fwd_partial_sm90",
     "dfly_flash_bwd_dkv": "dfly_flash_bwd_dkv_sm90",
+    "dfly_flash_bwd_dq": "dfly_flash_bwd_dq_sm90",
 }
 
 
@@ -73,7 +74,7 @@ def routed(monkeypatch):
     monkeypatch.setattr(flash, "_need_cuda", lambda q: None)
     for name in ("LAUNCHES", "LSE_LAUNCHES", "PARTIAL_LAUNCHES", "DKV_LAUNCHES", "DQ_LAUNCHES",
                  "FWD_SM90_LAUNCHES", "LSE_SM90_LAUNCHES", "PARTIAL_SM90_LAUNCHES",
-                 "DKV_SM90_LAUNCHES"):
+                 "DKV_SM90_LAUNCHES", "DQ_SM90_LAUNCHES"):
         monkeypatch.setattr(flash, name, 0)
     return recorder
 
@@ -90,12 +91,15 @@ _CALLS = {
     "dfly_flash_fwd_partial": lambda q, m: flash.flash_attention_partials(q, q, q, m),
     "dfly_flash_bwd_dkv": lambda q, m: flash.flash_attention_bwd_dkv(
         q, q, q, m, q[..., 0].float(), q[..., 0].float(), q, True),
+    "dfly_flash_bwd_dq": lambda q, m: flash.flash_attention_bwd_dq(
+        q, q, q, m, q[..., 0].float(), q[..., 0].float(), q, True),
 }
 _COUNTERS = {
     "dfly_flash_fwd": ("LAUNCHES", "FWD_SM90_LAUNCHES"),
     "dfly_flash_fwd_lse": ("LSE_LAUNCHES", "LSE_SM90_LAUNCHES"),
     "dfly_flash_fwd_partial": ("PARTIAL_LAUNCHES", "PARTIAL_SM90_LAUNCHES"),
     "dfly_flash_bwd_dkv": ("DKV_LAUNCHES", "DKV_SM90_LAUNCHES"),
+    "dfly_flash_bwd_dq": ("DQ_LAUNCHES", "DQ_SM90_LAUNCHES"),
 }
 
 
@@ -122,13 +126,6 @@ def test_each_wrapper_launches_the_instance_its_shape_selects(routed, entry, sha
         assert name == entry and args[-2:] == (flash._DTYPE_CODES[dtype], flash.warps_for(l))
         dims = args[-6:-2] if entry == "dfly_flash_fwd_partial" else args[-7:-3]
         assert dims == (b, h, l, d)
-
-
-def test_dq_keeps_its_one_instance(routed):
-    for shape in ((256, 4, 20, 32), (2, 4, 4096, 32)):
-        q, mask = _meta(shape, torch.bfloat16)
-        flash.flash_attention_bwd_dq(q, q, q, mask, q[..., 0].float(), q[..., 0].float(), q)
-    assert [name for name, _ in routed.calls] == ["dfly_flash_bwd_dq"] * 2
 
 
 def test_cpu_tensors_take_the_plain_versions_at_long_l(monkeypatch):
@@ -216,5 +213,6 @@ def test_library_path_follows_every_included_header(tmp_path, monkeypatch):
 def test_the_hopper_sources_hash_their_shared_header():
     names = [p.name for p in build._source_files("flash_fwd_sm90")]
     assert names == ["flash_fwd_sm90.cu", "sm90.cuh"]
-    assert [p.name for p in build._source_files("flash_bwd_dkv_sm90")][1:] == ["sm90.cuh"]
+    for name in ("flash_bwd_dkv_sm90", "flash_bwd_dq_sm90"):
+        assert [p.name for p in build._source_files(name)] == [f"{name}.cu", "sm90.cuh"]
     assert [p.name for p in build._source_files("flash_bwd")] == ["flash_bwd.cu"]
