@@ -54,7 +54,27 @@ result line:
    lse, dK/dV and dQ at long L: the finished forward without grad and one
    forward/backward with it, each sm90 instance exactly sp times, against
    the plain versions over the whole sequence.
-8. the kernels JSON line and, last, the result line.
+8. the scheduler's rule-arm decision program (slice 6): a deployment at
+   the scheduler's Config defaults (16,384 hosts, 65,536 peers, 4,096
+   tasks; DAG capacity 256) recorded from the reference's replay as
+   bench_loop.py runs it (10,000 hosts, 512 tasks, seed 0, to 1,000,000
+   pieces, then one round of 1,024 downloads;
+   dragonfly2_tpu_torch/data/tick_deployment.npz, written by
+   tests/test_torch_tick_deployment.py), its tick of 1,024 waiting peers
+   built as the reference's _tick_fused builds it (native DAG legality),
+   TickMirror on the card and four fused chunks of 256, each dispatched
+   under torch.cuda.set_sync_debug_mode("error"). Checks: CUDA == CPU
+   (selections and int segments byte for byte, scores and ledger rows
+   within 1e-6), the shadow transport, the dirty-row mirror against a
+   fresh one, the DAG twins against the native answers. Prints the
+   chunk's times at buckets 64/256/1024 (dispatch, dispatch + drain,
+   device time and launches), the mirror sync's time,
+   schedule_from_packed at 1024 x 15 and 1024 x 64, and the whole tick at
+   bench_loop's 64 waiting peers and at 1,024.
+9. the kernels JSON line and, last, the result line.
+
+Phase 3's forward rows include a head dim no instance has (D = 24,
+padded to 32 with q pre-scaled by sqrt(32/24)).
 
 At every long shape (the Hopper instances' shapes) the kernels are held
 to the LONG tolerances, the kernel lines give both instances' device times
@@ -197,7 +217,7 @@ def _kernels_of(prof, calls: int):
 _WINDOWS = {"taken": 0, "short": 0, "over": 0, "uneven": 0}
 
 
-def _kernel_ms(fn, symbol: str, calls: int = KERNEL_CALLS, windows: int = 3):
+def _kernel_ms(fn, symbol: str, calls: int = KERNEL_CALLS, windows: int = 6):
     """(device ms of one launch, launches recorded) of the kernel named
     ``symbol`` under ``fn``, which launches it once a call (torch.profiler):
     the kernel's own execution, where ``_time_ms`` at a small shape
@@ -205,7 +225,10 @@ def _kernel_ms(fn, symbol: str, calls: int = KERNEL_CALLS, windows: int = 3):
     fewer of the kernel's launches than were made (on the H100 machine,
     often 17 of 20, whichever kernel): the time is the median over the
     launches recorded, and a window that recorded none is taken again, up
-    to ``windows`` times; (None, 0) if none did."""
+    to ``windows`` times (on that machine three windows in a row once
+    recorded none of a kernel, in a run whose other windows all found
+    theirs);
+    (None, 0) if none did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -230,6 +253,8 @@ def _kernel_ms(fn, symbol: str, calls: int = KERNEL_CALLS, windows: int = 3):
                       f"median {median:.1f} us, mean {mean:.1f} us, range "
                       f"{us[0]:.1f}-{us[-1]:.1f} us")
             return median / 1e3, len(us)
+        print(f"profiler window for {symbol}: none of {calls} launches recorded; taking another")
+        time.sleep(0.5)
     return None, 0
 
 
@@ -331,10 +356,12 @@ def _bound(q, mask, causal, matrices=4, row_stats=0, ops_per_pair=4):
 
 
 def _is_long(shape, dtype) -> bool:
-    """Whether ops/flash.py gives this shape the Hopper instances."""
+    """Whether ops/flash.py gives this shape the Hopper instances (at the
+    head dim it pads to, for one outside the instances)."""
     from dragonfly2_tpu_torch.ops import flash
 
-    return flash._sm90_path(shape[2], shape[3], dtype)
+    d_pad = next((d for d in flash.HEAD_DIMS if d >= shape[3]), shape[3])
+    return flash._sm90_path(shape[2], d_pad, dtype)
 
 
 def _symbol(kernel: str, shape, dtype) -> str:
@@ -394,6 +421,8 @@ def phase_kernels():
         ("long-ragged", (2, 4, 4000, 64), True, torch.bfloat16, True, 20),
         ("test-width", (4, 2, 15, 16), False, torch.bfloat16, True, 50),
         ("float32", (3, 2, 130, 64), True, torch.float32, True, 50),
+        # a head dim no instance has: padded to 32 with q pre-scaled
+        ("head-dim-24", (2, 4, 1000, 24), True, torch.bfloat16, True, 20),
     ]
     results = {}
     for name, (b, h, l, d), causal, dtype, fully, iters in shapes:
@@ -404,7 +433,11 @@ def phase_kernels():
         for label, kv_mask in (("mask", mask), ("no mask", None)):
             out = flash.flash_attention(q, k, v, kv_mask, causal)
             torch.cuda.synchronize()
-            ref = flash.flash_attention_plain(q, k, v, kv_mask, causal)
+            if d in flash.HEAD_DIMS:
+                ref = flash.flash_attention_plain(q, k, v, kv_mask, causal)
+            else:  # the plain version of what the kernel computes: the padded inputs
+                ref = flash.flash_attention_plain(*flash._padded(q, k, v)[:3], kv_mask,
+                                                  causal)[..., :d]
             errs[label] = float((out.float() - ref.float()).abs().max().item())
             if (not torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
                     or not torch.isfinite(out).all()):
@@ -1463,6 +1496,455 @@ def phase_long_ulysses():
     return counts
 
 
+# slice 6: the scheduler's rule-arm decision program at the scheduler's
+# Config defaults (state capacities 16,384 hosts, 65,536 peers, 4,096
+# tasks; DAG capacity 256; cost ring 32; K = FILTER_PARENT_LIMIT = 15
+# candidates, CANDIDATE_PARENT_LIMIT = 4 selected), over a deployment
+# recorded from the reference's replay as bench_loop.py runs it (10,000
+# hosts, 512 tasks, seed 0; tests/test_torch_tick_deployment.py records it)
+TICK_RECORDING = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "dragonfly2_tpu_torch", "data", "tick_deployment.npz")
+TICK_DAG_CAPACITY, TICK_K, TICK_LIMIT = 256, 15, 4
+TICK_WAITING = 1024  # the recorded burst tick's size; bench_loop's ticks hold ~64
+BENCH_LOOP_WAITING = 64
+TICK_BUCKETS = (64, 256, 1024)
+SERVING_K = 64  # ops/evaluator.py's 1k x 64 serving shape
+# the tick on CUDA against the CPU: the same float32 operations in the
+# same order on both, so scores and ledger rows agree to rounding
+TICK_ATOL = 1e-6
+TICK_TIMING_CALLS = 20
+# ClusterState's constructor arguments, as the recording stores them
+TICK_STATE_DIMS = ("max_hosts", "max_tasks", "max_peers", "piece_cost_capacity",
+                   "piece_bitset_words")
+
+
+def load_tick_deployment(path: str = TICK_RECORDING) -> dict:
+    """The recorded deployment on the port's host-side state: the
+    ClusterState (live rows, ids and free lists as recorded), a TaskDAG
+    and slot map per task, the quarantine mask, and the recorded tick's
+    waiting peer rows in order with their (task, DAG slot) and blocklists
+    as peer rows."""
+    from dragonfly2_tpu_torch.graph.dag import TaskDAG
+    from dragonfly2_tpu_torch.state.cluster import ClusterState
+
+    z = np.load(path)
+    st = ClusterState(**dict(zip(TICK_STATE_DIMS, z["state.dims"].tolist())))
+    rows = {kind: z[f"state.{kind}_rows"] for kind in ("host", "task", "peer")}
+    for name, value in vars(st).items():
+        if isinstance(value, np.ndarray):
+            value[rows[name.split("_", 1)[0]]] = z[f"col.{name}"]
+    for kind, kind_rows in rows.items():
+        ids, by_id = getattr(st, f"_{kind}_id"), getattr(st, f"_{kind}_by_id")
+        for row, ident in zip(kind_rows.tolist(), z[f"state.{kind}_ids"].tolist()):
+            ids[row], by_id[ident] = ident, row
+        getattr(st, f"_{kind}_free")._free = z[f"state.{kind}_free"].tolist()
+    st.host_epoch = int(z["state.host_epoch"])
+    st.peer_dirty[:] = True  # nothing of it is mirrored yet
+    dags, slot_pidx = {}, {}
+    for i, task_id in enumerate(z["dag.task_ids"].tolist()):
+        dag = dags[task_id] = TaskDAG(TICK_DAG_CAPACITY)
+        for name in ("adj", "present", "in_degree", "out_degree"):
+            getattr(dag, name)[...] = z[f"dag.{name}"][i]
+        slot_pidx[task_id] = z["dag.slot_pidx"][i].copy()
+    waiting = np.array([st.peer_index(p) for p in z["waiting.peer_ids"].tolist()], np.int64)
+    peer_slot = {int(r): (t, int(s)) for r, t, s in zip(
+        waiting, z["waiting.task_ids"].tolist(), z["waiting.dag_slot"].tolist())}
+    ptr, blocked = z["waiting.block_ptr"], z["waiting.block_rows"]
+    blocklists = {int(r): set(blocked[ptr[i]:ptr[i + 1]].tolist())
+                  for i, r in enumerate(waiting) if ptr[i + 1] > ptr[i]}
+    return {"state": st, "dags": dags, "slot_pidx": slot_pidx, "peer_slot": peer_slot,
+            "qmask": z["qmask"].copy(), "waiting": waiting, "blocklists": blocklists,
+            "edges": sum(d.edge_count() for d in dags.values()), "meta": z["meta"].copy()}
+
+
+def _tick_inputs(dep, waiting, k, rng):
+    """The host half of a tick for ``waiting`` peer rows, as the
+    reference's SchedulerService._tick_fused builds it
+    (cluster/scheduler.py:1840-1903): per task group the shared
+    _sample_rows draw and in-degrees from the DAG, the blocklists resolved
+    to sample positions, and the DAG-legality superset from
+    can_add_edges_pairs (the native library). Returns the grids and the
+    host ms of the fill and of the legality prefilters."""
+    from dragonfly2_tpu_torch.cluster.scheduler import _sample_rows
+
+    st, slot_pidx = dep["state"], dep["slot_pidx"]
+    b = waiting.size
+    start = time.perf_counter()
+    child_slot = np.array([dep["peer_slot"][int(p)][1] for p in waiting], np.int64)
+    groups = {}
+    for i, p in enumerate(waiting):
+        groups.setdefault(dep["peer_slot"][int(p)][0], []).append(i)
+    samples = np.full((b, k), -1, np.int64)
+    ind = np.zeros((b, k), np.int32)
+    task_row = np.full(b, -1, np.int64)
+    for task_id, rows in groups.items():
+        dag = dep["dags"][task_id]
+        live = np.flatnonzero(dag.present)
+        r = np.fromiter(rows, np.int64, len(rows))
+        if live.size == 0 or task_id not in slot_pidx:
+            continue
+        trow = st.task_index(task_id)
+        if trow is not None:
+            task_row[r] = trow
+        s = _sample_rows(rng, live, r.size, k)
+        cols_r = np.arange(s.shape[1])
+        samples[r[:, None], cols_r] = s
+        ind[r[:, None], cols_r] = dag.in_degree[s]
+    fill_ms = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    bl0 = np.zeros((b, k), bool)
+    for i, p in enumerate(waiting):
+        blocked = dep["blocklists"].get(int(p))
+        if blocked:
+            spx = slot_pidx[dep["peer_slot"][int(p)][0]]
+            srow = samples[i]
+            prow = np.where(srow >= 0, spx[np.clip(srow, 0, None)], -1)
+            bl0[i] = np.isin(prow, np.fromiter(blocked, np.int64, len(blocked)))
+    ca0 = np.zeros((b, k), bool)
+    for task_id, rows in groups.items():
+        r = np.asarray(rows)
+        sub = samples[r]
+        rr, cc = np.nonzero(sub >= 0)
+        if rr.size:
+            ca0[r[rr], cc] = dep["dags"][task_id].can_add_edges_pairs(sub[rr, cc], child_slot[r][rr])
+    legality_ms = (time.perf_counter() - start) * 1e3
+    return {"samples": samples, "ind": ind, "task_row": task_row,
+            "child": waiting.astype(np.int32), "bl0": bl0, "ca0": ca0,
+            "child_slot": child_slot, "fill_ms": fill_ms, "legality_ms": legality_ms}
+
+
+def _tick_inbuf(inp, s, e, bsz):
+    from dragonfly2_tpu_torch.ops import tick
+
+    return tick.build_inbuf(bsz, inp["samples"][s:e], inp["ind"][s:e], inp["task_row"][s:e],
+                            inp["child"][s:e], inp["bl0"][s:e], inp["ca0"][s:e])
+
+
+def _guarded(fn):
+    """``fn()`` with any host synchronisation on the card an error: the
+    proof that a chunk's call reads nothing back."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        _fail(f"the fused chunk synchronised with the host inside its call: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _check_tick_out(got, want, bsz, label):
+    """CUDA output against the CPU's: the selection's indices and every int
+    segment byte for byte, the scores and ledger rows within TICK_ATOL."""
+    from dragonfly2_tpu_torch.ops import tick
+
+    g = tick.decode_out(got, bsz, TICK_K, TICK_LIMIT, True)
+    w = tick.decode_out(want, bsz, TICK_K, TICK_LIMIT, True)
+    for name, value in w.items():
+        if value.dtype == np.int32 and not np.array_equal(g[name], value):
+            _fail(f"tick {label}: {name} differs between CUDA and the CPU")
+    if not np.array_equal(g["selection"][..., 0], w["selection"][..., 0]):
+        _fail(f"tick {label}: selected candidates differ between CUDA and the CPU")
+    valid = w["selection"][..., 0] >= 0
+    err = float(np.abs(g["selection"][..., 1][valid] - w["selection"][..., 1][valid]).max(
+        initial=0.0))
+    led_err = float(np.abs(g["led_feats"] - w["led_feats"]).max())
+    if err > TICK_ATOL or led_err > TICK_ATOL or not np.isfinite(g["selection"][..., 1][valid]).all():
+        _fail(f"tick {label}: scores differ by {err}, ledger rows by {led_err} (atol {TICK_ATOL})")
+    return int(valid.sum()), err, led_err, g
+
+
+def _event_ms(fn, calls: int):
+    """Medians over ``calls`` synchronised calls of ``fn``: (host ms of the
+    call alone, CUDA-event ms from before the call to after its last
+    work, host ms of the call and its read-back). ``fn`` returns the
+    device tensor the caller would read back."""
+    import torch
+
+    host, device, drained = [], [], []
+    for i in range(calls + 3):
+        torch.cuda.synchronize()
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start = time.perf_counter()
+        a.record()
+        out = fn()
+        z.record()
+        mid = time.perf_counter()
+        out.cpu()
+        end = time.perf_counter()
+        torch.cuda.synchronize()
+        if i >= 3:
+            host.append((mid - start) * 1e3)
+            device.append(a.elapsed_time(z))
+            drained.append((end - start) * 1e3)
+    return statistics.median(host), statistics.median(device), statistics.median(drained)
+
+
+def _host_ops(fn, launches: int, label: str, calls: int = 5) -> None:
+    """Where a launch-bound call's host time goes: the host ops with the
+    most self CPU time a call (torch.profiler), beside a control of as
+    many tiny in-place adds as the call launches kernels (this machine's
+    cost of one eager op)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = sorted(((e.key, e.self_cpu_time_total / calls / 1e3, e.count / calls)
+                  for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                 key=lambda op: -op[1])
+    x = torch.zeros(256, 15, device="cuda")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(launches):
+        x.add_(1)
+    torch.cuda.synchronize()
+    control_ms = (time.perf_counter() - start) * 1e3
+    print(f"{label}, host ops by self CPU ms a call: "
+          + "; ".join(f"{name} {ms:.3f} ({n:.0f}x)" for name, ms, n in ops[:10])
+          + f". Control: {launches} tiny in-place adds take {control_ms:.3f} ms on the host")
+
+
+def phase_scheduler_tick(card: str):
+    """Slice 6's main path: the recorded tick's waiting peers (about
+    TICK_WAITING) through the fused decision program on the card, as the
+    reference's _tick_fused runs it: the host fill and legality
+    prefilters, the TickMirror sync, then the chunks of _chunk_stride(b)
+    rows, each dispatched under the sync guard and drained with one
+    read-back.
+    Checks: the CUDA tick against the port's CPU run on the same inputs,
+    the shadow transport (the fused chunk's device-built buffer through
+    schedule_from_packed gives the fused selection), the dirty-row mirror
+    against a fresh one, and the DAG twins against the native answers.
+    Prints the chunk's times at three buckets, its device time and
+    launches, the mirror sync's time, schedule_from_packed at 1024 x 15
+    and 1024 x SERVING_K, and the whole tick on the host clock at
+    bench_loop's 64 waiting peers and at the recorded b."""
+    import copy
+
+    import torch
+
+    from dragonfly2_tpu_torch import native
+    from dragonfly2_tpu_torch.cluster.scheduler import _bucket_rows, _chunk_stride
+    from dragonfly2_tpu_torch.graph import dag as dag_mod
+    from dragonfly2_tpu_torch.ops import evaluator as ev
+    from dragonfly2_tpu_torch.ops import tick
+
+    if not native.ensure_built() or native.get_lib() is None:
+        _fail("the native library (native/dfnative.cpp) did not build or load")
+    start = time.perf_counter()
+    dep = load_tick_deployment()
+    st, slot_pidx, qmask, waiting = dep["state"], dep["slot_pidx"], dep["qmask"], dep["waiting"]
+    b = waiting.size
+    if b < TICK_WAITING:
+        _fail(f"the recorded tick holds {b} waiting peers, fewer than {TICK_WAITING}")
+    hosts, tasks, seed, per_round, _, burst, _, rounds, pieces = dep["meta"][:9].tolist()
+    groups = len({dep["peer_slot"][int(p)][0] for p in waiting})
+    print(f"tick deployment recorded from the reference's replay ({hosts} hosts, {tasks} tasks, "
+          f"seed {seed}, {per_round} downloads a round to {pieces} pieces, then {burst}; "
+          f"{rounds} rounds): "
+          f"{st.counts()} of capacity hosts {st.max_hosts}, tasks {st.max_tasks}, peers "
+          f"{st.max_peers}; {len(dep['dags'])} task DAGs, {dep['edges']} edges; "
+          f"{int(qmask.sum())} quarantined hosts; a tick of {b} waiting peers in {groups} task "
+          f"groups, {len(dep['blocklists'])} with blocklists; loaded in "
+          f"{time.perf_counter() - start:.1f} s (host)")
+    cpu_state = copy.deepcopy(st)
+
+    inp = _tick_inputs(dep, waiting, TICK_K, np.random.default_rng(SEED + 7))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    mirror = tick.TickMirror(st, TICK_DAG_CAPACITY)
+    cols = mirror.sync(slot_pidx, st.task_index, set(slot_pidx), qmask)
+    torch.cuda.synchronize()
+    full_sync_ms = (time.perf_counter() - start) * 1e3
+    cpu_cols = tick.TickMirror(cpu_state, TICK_DAG_CAPACITY, device="cpu").sync(
+        slot_pidx, cpu_state.task_index, set(slot_pidx), qmask)
+    for name, value in cpu_cols.items():
+        if not torch.equal(cols[name].cpu(), value):
+            _fail(f"mirror column {name} differs between CUDA and the CPU")
+
+    # the tick: chunks pipelined as the reference's tick pipelines them
+    stride = _chunk_stride(b)
+    spans = [(s, min(s + stride, b)) for s in range(0, b, stride)]
+    flash_before = _counts()
+    outs = []
+    for s, e in spans:
+        bsz = _bucket_rows(e - s)
+        inbuf = _tick_inbuf(inp, s, e, bsz)
+        out = _guarded(lambda: tick.fused_tick_chunk(inbuf, cols, bsz, TICK_K, 32, 5, 12,
+                                                     limit=TICK_LIMIT, emit_led=True))
+        outs.append((s, e, bsz, inbuf, out))
+    selected = 0
+    errs = [0.0, 0.0]
+    for s, e, bsz, inbuf, out in outs:
+        got = out.cpu().numpy()  # the chunk's one read-back
+        want = tick.fused_tick_chunk(inbuf, cpu_cols, bsz, TICK_K, 32, 5, 12, limit=TICK_LIMIT,
+                                     emit_led=True).numpy()
+        n, err, led_err, dec = _check_tick_out(got, want, bsz, f"rows {s}:{e}")
+        selected += n
+        errs = [max(errs[0], err), max(errs[1], led_err)]
+        # the shadow transport, on the card and guarded as well
+        flat, packed = _guarded(lambda: tick.fused_tick_chunk(
+            inbuf, cols, bsz, TICK_K, 32, 5, 12, limit=TICK_LIMIT, emit_led=True,
+            emit_packed=True))
+        shadow = ev.schedule_from_packed(packed, bsz, TICK_K, 32, 5, 12, limit=TICK_LIMIT)
+        # bit patterns: the int segments hold NaN patterns as float32 (-1 is one)
+        if (not torch.equal(flat.view(torch.int32), out.view(torch.int32))
+                or not np.array_equal(shadow.cpu().numpy(), dec["selection"])):
+            _fail(f"tick rows {s}:{e}: the shadow transport does not give the fused selection")
+        _, cpu_packed = tick.fused_tick_chunk(inbuf, cpu_cols, bsz, TICK_K, 32, 5, 12,
+                                              limit=TICK_LIMIT, emit_packed=True)
+        if not torch.equal(packed.cpu(), cpu_packed):
+            _fail(f"tick rows {s}:{e}: the device-built shadow buffer differs from the CPU's")
+    if _counts() != flash_before:
+        _fail("the tick launched a flash kernel")
+    if selected == 0:
+        _fail("the tick selected no parent")
+    print(f"tick of {b} waiting peers in {len(spans)} chunks of {stride} (K {TICK_K}, "
+          f"limit {TICK_LIMIT}): CUDA == CPU (selections and int segments byte for byte, scores "
+          f"max diff {errs[0]:.3g}, ledger rows {errs[1]:.3g}, atol {TICK_ATOL}); {selected} "
+          "parents selected; each chunk's call ran under set_sync_debug_mode('error') with its "
+          "staging copy; the shadow buffer through schedule_from_packed == the fused selection")
+
+    # the DAG twins on the card against the native answers of the tick's pairs
+    rows_dags = [dep["dags"][dep["peer_slot"][int(p)][0]] for p in waiting]
+    adj, present = dag_mod.stacked_adjacency(rows_dags)
+    parent = torch.from_numpy(inp["samples"]).cuda()
+    child = torch.from_numpy(inp["child_slot"]).cuda()
+    twin = dag_mod.batch_can_add_edge(adj, present, parent, child).cpu().numpy()
+    asked = inp["samples"] >= 0
+    if not np.array_equal(twin[asked], inp["ca0"][asked]):
+        _fail("batch_can_add_edge on CUDA differs from the native legality answers")
+    reach = dag_mod.batch_reachable(adj, child[:, None].expand_as(parent), parent).cpu().numpy()
+    cycles = asked & reach & inp["ca0"]
+    if cycles.any():
+        _fail("batch_reachable on CUDA finds a cycle the native check allowed")
+    twin_ms = _time_ms(lambda: dag_mod.batch_can_add_edge(adj, present, parent, child), 3)
+    print(f"DAG twins on CUDA over the tick's {int(asked.sum())} pairs ({b} graphs of "
+          f"{TICK_DAG_CAPACITY}): batch_can_add_edge == the native can_add_edges_pairs, "
+          f"{int((asked & ~inp['ca0']).sum())} pairs refused; {twin_ms:.3f} ms (CUDA events)")
+    del adj, present
+
+    # the mirror after 1,024 dirty peer rows and 64 dirty tasks, against a fresh one
+    rng = np.random.default_rng(SEED + 8)
+    dirty_rows = rng.choice(np.flatnonzero(st.peer_alive), 1024, replace=False)
+    live_costs = st.peer_piece_costs[st.peer_piece_cost_count > 0, 0]
+    st.record_pieces_batch(dirty_rows, rng.integers(0, 4096, 1024),
+                           rng.choice(live_costs, 1024), now=1.0)
+    st.peer_state[dirty_rows[::2]] = 7  # SUCCEEDED
+    dirty_tasks = set()
+    open_tasks = sorted(t for t, spx in slot_pidx.items()
+                        if (spx < 0).any() and st.task_index(t) is not None)
+    host_rows = np.flatnonzero(st.host_alive)
+    for task_id in rng.choice(open_tasks, min(64, len(open_tasks)), replace=False).tolist():
+        dag, spx = dep["dags"][task_id], slot_pidx[task_id]
+        slot = int(np.flatnonzero(spx < 0)[0])
+        p = st.add_peer(f"{task_id}-late", st.task_index(task_id), int(rng.choice(host_rows)))
+        dag.add_vertex(slot)
+        spx[slot] = p
+        dirty_tasks.add(task_id)
+    st.host_upload_used[:64] += 1
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    n_dirty_tasks = len(dirty_tasks)  # sync consumes the set
+    synced = mirror.sync(slot_pidx, st.task_index, dirty_tasks, qmask)
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - start) * 1e3
+    st.peer_dirty[:] = True
+    fresh = tick.TickMirror(st, TICK_DAG_CAPACITY).sync(slot_pidx, st.task_index,
+                                                      set(slot_pidx), qmask)
+    for name, value in fresh.items():
+        if not torch.equal(synced[name], value):
+            _fail(f"mirror column {name} after the incremental sync differs from a fresh mirror's")
+    print(f"mirror sync: full {full_sync_ms:.3f} ms, incremental after 1024 dirty peer rows and "
+          f"{n_dirty_tasks} dirty tasks {sync_ms:.3f} ms (host clock, synchronised; {card}); "
+          "== a fresh mirror")
+
+    # the chunk's times at the three buckets
+    for bsz in TICK_BUCKETS:
+        binp = _tick_inputs(dep, waiting[:bsz], TICK_K, np.random.default_rng(bsz))
+        inbuf = _tick_inbuf(binp, 0, bsz, bsz)
+        host_ms, device_ms, drained_ms = _event_ms(
+            lambda: tick.fused_tick_chunk(inbuf, cols, bsz, TICK_K, 32, 5, 12, limit=TICK_LIMIT,
+                                          emit_led=True), TICK_TIMING_CALLS)
+        split = _device_split(lambda: tick.fused_tick_chunk(
+            inbuf, cols, bsz, TICK_K, 32, 5, 12, limit=TICK_LIMIT, emit_led=True), "", calls=5)
+        print(f"fused_tick_chunk bucket {bsz}: dispatch {host_ms:.3f} ms host, {device_ms:.3f} ms "
+              f"CUDA events; dispatch + drain {drained_ms:.3f} ms host (medians of "
+              f"{TICK_TIMING_CALLS}); profiled {split[0]:.3f} ms a call, device kernels "
+              f"{split[1]:.4f} ms in {split[3]:.0f} launches, device busy "
+              f"{100 * split[1] / split[0] if split[0] else 0:.1f}% ({card})")
+        if bsz == stride:
+            _host_ops(lambda: tick.fused_tick_chunk(inbuf, cols, bsz, TICK_K, 32, 5, 12,
+                                                    limit=TICK_LIMIT, emit_led=True),
+                      round(split[3]), f"fused_tick_chunk bucket {bsz}")
+
+    # schedule_from_packed at 1024 x 15 and 1024 x SERVING_K
+    rows = waiting[:TICK_WAITING]
+    for kk in (TICK_K, SERVING_K):
+        kinp = _tick_inputs(dep, rows, kk, np.random.default_rng(kk))
+        samples = kinp["samples"]
+        cand = np.zeros_like(samples)
+        for i, p in enumerate(rows):
+            spx = slot_pidx[dep["peer_slot"][int(p)][0]]
+            cand[i] = np.where(samples[i] >= 0, spx[np.clip(samples[i], 0, None)], 0)
+        feats = st.gather_candidates(rows, cand, samples >= 0).as_dict()
+        buf = ev.pack_eval_batch(feats, kinp["bl0"], kinp["ind"], kinp["ca0"])
+        args = (buf, TICK_WAITING, kk, 32, 5, 12)
+        gpu = ev.schedule_from_packed(*args, limit=TICK_LIMIT).cpu().numpy()
+        cpu = ev.schedule_from_packed(*args, limit=TICK_LIMIT, device="cpu").numpy()
+        valid = cpu[..., 0] >= 0
+        if (not np.array_equal(gpu[..., 0], cpu[..., 0])
+                or np.abs(gpu[..., 1][valid] - cpu[..., 1][valid]).max(initial=0.0) > TICK_ATOL):
+            _fail(f"schedule_from_packed {TICK_WAITING} x {kk}: CUDA differs from the CPU")
+        host_ms, device_ms, drained_ms = _event_ms(
+            lambda: ev.schedule_from_packed(*args, limit=TICK_LIMIT), TICK_TIMING_CALLS)
+        print(f"schedule_from_packed {TICK_WAITING} x {kk} ({buf.nbytes} bytes in): CUDA == CPU "
+              f"({int(valid.sum())} selected); call {host_ms:.3f} ms host, {device_ms:.3f} ms CUDA "
+              f"events; call + read-back {drained_ms:.3f} ms host ({card})")
+
+    # the whole tick on the host clock, as the scheduler runs it: at
+    # bench_loop's size (the first 64 waiting rows, one chunk) and the
+    # recorded burst's
+    for n in (BENCH_LOOP_WAITING, b):
+        n_spans = [(s, min(s + _chunk_stride(n), n)) for s in range(0, n, _chunk_stride(n))]
+        runs = []
+        for run in range(5):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            inp = _tick_inputs(dep, waiting[:n], TICK_K, np.random.default_rng(SEED + 9 + run))
+            t0 = time.perf_counter()
+            cols = mirror.sync(slot_pidx, st.task_index, set(), qmask)
+            t1 = time.perf_counter()
+            in_flight, drained = None, []
+            for s, e in n_spans:  # chunk i+1 is dispatched before chunk i is read back
+                bsz = _bucket_rows(e - s)
+                out = tick.fused_tick_chunk(_tick_inbuf(inp, s, e, bsz), cols, bsz, TICK_K, 32, 5,
+                                            12, limit=TICK_LIMIT, emit_led=True)
+                if in_flight is not None:
+                    drained.append(tick.decode_out(in_flight[0].cpu().numpy(), in_flight[1],
+                                                   TICK_K, TICK_LIMIT, True))
+                in_flight = (out, bsz)
+            drained.append(tick.decode_out(in_flight[0].cpu().numpy(), in_flight[1], TICK_K,
+                                           TICK_LIMIT, True))
+            end = time.perf_counter()
+            if sum(int((d["selection"][..., 0] >= 0).sum()) for d in drained) == 0:
+                _fail(f"the timed tick of {n} selected no parent")
+            runs.append(((end - start) * 1e3, inp["fill_ms"], inp["legality_ms"],
+                         (t1 - t0) * 1e3, (end - t1) * 1e3))
+        total, fill, legality, sync, chunks = min(runs, key=lambda r: abs(
+            r[0] - statistics.median(x[0] for x in runs)))
+        print(f"whole tick of {n} waiting peers (host clock, the run nearest the median of 5): "
+              f"{total:.3f} ms = fill {fill:.3f} + legality {legality:.3f} + sync {sync:.3f} + "
+              f"{len(n_spans)} chunks dispatched and drained {chunks:.3f} ms ({card})")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--threshold", action="store_true",
@@ -1478,7 +1960,7 @@ def main() -> None:
     except ImportError as e:
         _fail(f"the dragonfly2_tpu_torch package is not beside chip_smoke.py ({e})")
 
-    phase_device()
+    card = phase_device()
     phase_build()
     if args.threshold:
         phase_threshold()
@@ -1491,6 +1973,7 @@ def main() -> None:
     ring_launches = phase_long_ring()
     mesh_launches, uly_counts = phase_mesh_training(ds, breakdown["step_p50_ms"])
     long_counts = phase_long_ulysses()
+    phase_scheduler_tick(card)
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]

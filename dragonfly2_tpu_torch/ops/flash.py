@@ -40,6 +40,17 @@ backward through the two backward kernels); otherwise, as under
 ``torch.inference_mode()`` on the serving path, one finished-output
 forward. ``flash_attention_partials`` is forward-only, as in the
 reference: under autograd it raises.
+
+Head dims: the kernels have instances at D in ``HEAD_DIMS`` (16, 32, 64,
+128); the reference takes any D, and so does every function here. On the
+CPU the plain versions take any D. On CUDA the shape alone decides, before
+any launch: a D below 128 outside the set is zero-padded to the next
+instance's D_pad, with q pre-scaled by sqrt(D_pad/D) so that the kernel's
+1/sqrt(D_pad) yields 1/sqrt(D), and the output sliced back to D (in
+``flash_attention`` autograd carries the pad, the scale and the slice, so
+both backward kernels see D_pad). A D above 128 has no instance yet, so on
+CUDA it is refused with a ValueError before any launch; it never runs the
+plain version on the card. A refused launch raises too.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ import math
 import threading
 
 import torch
+import torch.nn.functional as F
 
 from dragonfly2_tpu_torch.ops import build
 from dragonfly2_tpu_torch.parallel.ring import dense_attention
@@ -154,8 +166,6 @@ def _check(q, k, v, kv_mask) -> None:
             f"flash attention takes bf16 or float32 q/k/v of one dtype, got "
             f"{q.dtype} {k.dtype} {v.dtype}"
         )
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
     tensors = [q, k, v]
     if kv_mask is not None:
         b, _, l, _ = q.shape
@@ -170,6 +180,42 @@ def _check(q, k, v, kv_mask) -> None:
         raise ValueError("flash attention operands must be contiguous")
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+
+
+def _instance_dim(q) -> None:
+    """The kernels take only the head dims of their instances; the public
+    functions pad any other D below 128 before they get here."""
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(
+            f"head dim {q.shape[-1]} has no kernel instance (HEAD_DIMS {HEAD_DIMS}); "
+            "flash_attention pads it"
+        )
+
+
+def _padded_route(q) -> bool:
+    """Whether a call at q's head dim takes the padded route, from the
+    shape alone: a CUDA tensor with D < 128 outside HEAD_DIMS. A CUDA D
+    above 128 has no instance and is refused here, before any launch."""
+    d = q.shape[-1]
+    if q.device.type != "cuda" or d in HEAD_DIMS:
+        return False
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(
+            f"head dim {d} has no kernel instance on CUDA (HEAD_DIMS {HEAD_DIMS}; "
+            "D below 128 is padded, D above is not taken)"
+        )
+    return True
+
+
+def _padded(q, k, v):
+    """(q, k, v) zero-padded from D to the next instance's D_pad, q
+    pre-scaled by sqrt(D_pad/D) so that 1/sqrt(D_pad) scores as 1/sqrt(D),
+    and the scale."""
+    d = q.shape[-1]
+    d_pad = next(x for x in HEAD_DIMS if x >= d)
+    scale = math.sqrt(d_pad / d)
+    pad = (0, d_pad - d)
+    return F.pad(q * scale, pad), F.pad(k, pad), F.pad(v, pad), scale
 
 
 def _pointers(*tensors):
@@ -215,6 +261,7 @@ def _flash_forward(q, k, v, kv_mask, causal: bool) -> torch.Tensor:
     on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_mask, causal)
+    _instance_dim(q)
     b, h, l, d = q.shape
     o = torch.empty_like(q)
     if o.numel() == 0:
@@ -258,6 +305,9 @@ def flash_attention_lse(q, k, v, kv_mask=None, causal: bool = False):
     _check(q, k, v, kv_mask)
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, kv_mask, causal)
+    if _padded_route(q):
+        o, lse = flash_attention_lse(*_padded(q, k, v)[:3], kv_mask, causal)
+        return o[..., : q.shape[-1]].contiguous(), lse
     b, h, l, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
@@ -311,6 +361,9 @@ def flash_attention_partials(q, k, v, kv_mask=None):
         )
     if q.device.type == "cpu":
         return flash_attention_partials_plain(q, k, v, kv_mask)
+    if _padded_route(q):
+        acc, row_max, row_sum = flash_attention_partials(*_padded(q, k, v)[:3], kv_mask)
+        return acc[..., : q.shape[-1]].contiguous(), row_max, row_sum
     b, h, l, d = q.shape
     acc = torch.empty(b, h, l, d, dtype=torch.float32, device=q.device)
     row_max = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
@@ -374,6 +427,7 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal: bool = Fal
     """(dk, dv) from the dK/dV kernel; CUDA tensors only. ``delta`` is
     rowsum(dO * o) in float32 [B, H, L]."""
     _need_cuda(q)
+    _instance_dim(q)
     b, h, l, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if not dk.numel():
@@ -394,6 +448,7 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal: bool = Fal
 def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal: bool = False):
     """dq from the dQ kernel; CUDA tensors only."""
     _need_cuda(q)
+    _instance_dim(q)
     b, h, l, d = q.shape
     dq = torch.empty_like(q)
     if not dq.numel():
@@ -420,6 +475,16 @@ def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, causal: bool = False):
     _bwd_check(q, o, lse, do)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal)
+    if _padded_route(q):
+        # o and dO pad with zeros (delta = rowsum(dO * o) unchanged); dq of
+        # the pre-scaled q carries the scale once more by the chain rule
+        d = q.shape[-1]
+        qp, kp, vp, scale = _padded(q, k, v)
+        pad = (0, qp.shape[-1] - d)
+        dq, dk, dv = flash_attention_bwd(qp, kp, vp, kv_mask, F.pad(o, pad), lse,
+                                         F.pad(do, pad), causal)
+        return ((dq[..., :d] * scale).contiguous(), dk[..., :d].contiguous(),
+                dv[..., :d].contiguous())
     delta = (do.float() * o.float()).sum(-1)
     dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal)
     dq = flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal)
@@ -452,6 +517,9 @@ def flash_attention(q, k, v, kv_mask=None, causal: bool = False) -> torch.Tensor
     attention_fn: invalid keys contribute nothing and fully masked rows
     return 0. Output has q's dtype. Differentiable in q, k and v."""
     _check(q, k, v, kv_mask)
+    if _padded_route(q):  # autograd carries the pad, the scale and the slice
+        out = flash_attention(*_padded(q, k, v)[:3], kv_mask, causal)
+        return out[..., : q.shape[-1]].contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, kv_mask, causal)
     return _flash_forward(q, k, v, kv_mask, causal)

@@ -1,12 +1,12 @@
 """Columnar feature extraction: trace records -> dense padded arrays.
 
-A copy of the ranking half of dragonfly2_tpu/records/features.py: host
-numeric features, ``RankingDataset``, ``HostGraph`` and
-``downloads_to_ranking_dataset`` (the evaluator batch and topology pairs
-are not ported yet). Everything here is numpy: ragged parent/piece lists
-become zero-padded arrays + masks, categorical identity fields (IDC,
-location path elements) become stable int64 hash codes
-(utils/digest.stable_hash64). The feature surface mirrors what the
+A copy of dragonfly2_tpu/records/features.py: host numeric features, the
+evaluator batch (``CandidateFeatures``, ``downloads_to_eval_batch``), the
+topology pairs, ``RankingDataset``, ``HostGraph`` and
+``downloads_to_ranking_dataset``. Everything here is numpy: ragged
+parent/piece lists become zero-padded arrays + masks, categorical identity
+fields (IDC, location path elements, host ids) become stable int64 hash
+codes (utils/digest.stable_hash64). The feature surface mirrors what the
 upstream evaluator reads off resource.Peer/Host
 (scheduler/scheduling/evaluator/evaluator_base.go:86-188).
 """
@@ -18,8 +18,8 @@ import dataclasses
 import numpy as np
 
 from dragonfly2_tpu_torch.config.constants import CONSTANTS
-from dragonfly2_tpu_torch.records.schema import DownloadRecord, HostRecord
-from dragonfly2_tpu_torch.state.fsm import HostType
+from dragonfly2_tpu_torch.records.schema import DownloadRecord, HostRecord, NetworkTopologyRecord
+from dragonfly2_tpu_torch.state.fsm import HostType, PeerState
 from dragonfly2_tpu_torch.utils.digest import stable_hash64
 
 MAX_LOC = CONSTANTS.MAX_LOCATION_ELEMENTS
@@ -100,6 +100,149 @@ def host_numeric_features(h: HostRecord) -> np.ndarray:
         )
         / HOST_FEATURE_SCALE
     )
+
+
+@dataclasses.dataclass
+class CandidateFeatures:
+    """The (B, K)-shaped arrays the batched evaluator kernel consumes.
+
+    B = concurrent scheduling requests (child peers), K = padded candidate
+    parents per request. All identity comparisons are precomputed int codes.
+    """
+
+    valid: np.ndarray                 # (B, K) bool — candidate slot populated
+    finished_pieces: np.ndarray       # (B, K) int32 parent finished piece count
+    child_finished_pieces: np.ndarray  # (B,) int32
+    total_piece_count: np.ndarray     # (B,) int32 (0 = unknown)
+    upload_count: np.ndarray          # (B, K) int64
+    upload_failed_count: np.ndarray   # (B, K) int64
+    upload_limit: np.ndarray          # (B, K) int32
+    upload_used: np.ndarray           # (B, K) int32 concurrent uploads in flight
+    host_type: np.ndarray             # (B, K) int8 (HostType)
+    peer_state: np.ndarray            # (B, K) int8 (PeerState)
+    parent_idc: np.ndarray            # (B, K) int64
+    child_idc: np.ndarray             # (B,) int64
+    parent_location: np.ndarray       # (B, K, MAX_LOC) int64
+    child_location: np.ndarray        # (B, MAX_LOC) int64
+    parent_host_id: np.ndarray        # (B, K) int64 hashed host id
+    child_host_id: np.ndarray         # (B,) int64
+    avg_rtt_ns: np.ndarray            # (B, K) float32 probe EWMA (0 = no probes)
+    has_rtt: np.ndarray               # (B, K) bool
+    piece_costs: np.ndarray           # (B, K, C) float32 recent piece costs ring
+    piece_cost_count: np.ndarray      # (B, K) int32 number of valid costs
+    numeric: np.ndarray               # (B, K, NUM_HOST_FEATURES) float32 (ml evaluator)
+    child_numeric: np.ndarray         # (B, NUM_HOST_FEATURES) float32
+
+    @classmethod
+    def zeros(cls, b: int, k: int, cost_capacity: int = CONSTANTS.PIECE_COST_CAPACITY):
+        return cls(
+            valid=np.zeros((b, k), dtype=bool),
+            finished_pieces=np.zeros((b, k), dtype=np.int32),
+            child_finished_pieces=np.zeros((b,), dtype=np.int32),
+            total_piece_count=np.zeros((b,), dtype=np.int32),
+            upload_count=np.zeros((b, k), dtype=np.int64),
+            upload_failed_count=np.zeros((b, k), dtype=np.int64),
+            upload_limit=np.zeros((b, k), dtype=np.int32),
+            upload_used=np.zeros((b, k), dtype=np.int32),
+            host_type=np.zeros((b, k), dtype=np.int8),
+            peer_state=np.zeros((b, k), dtype=np.int8),
+            parent_idc=np.zeros((b, k), dtype=np.int64),
+            child_idc=np.zeros((b,), dtype=np.int64),
+            parent_location=np.zeros((b, k, MAX_LOC), dtype=np.int64),
+            child_location=np.zeros((b, MAX_LOC), dtype=np.int64),
+            parent_host_id=np.zeros((b, k), dtype=np.int64),
+            child_host_id=np.zeros((b,), dtype=np.int64),
+            avg_rtt_ns=np.zeros((b, k), dtype=np.float32),
+            has_rtt=np.zeros((b, k), dtype=bool),
+            piece_costs=np.zeros((b, k, cost_capacity), dtype=np.float32),
+            piece_cost_count=np.zeros((b, k), dtype=np.int32),
+            numeric=np.zeros((b, k, NUM_HOST_FEATURES), dtype=np.float32),
+            child_numeric=np.zeros((b, NUM_HOST_FEATURES), dtype=np.float32),
+        )
+
+    def as_dict(self) -> dict[str, np.ndarray]:
+        return dataclasses.asdict(self)
+
+
+def downloads_to_eval_batch(
+    records: list[DownloadRecord],
+    batch_tasks: int | None = None,
+    batch_candidates: int | None = None,
+) -> CandidateFeatures:
+    """Replay download traces as evaluator scoring requests.
+
+    Each record becomes one row: the child peer asking for parents, its
+    recorded parents as the candidate set (the trace-replay harness from
+    SURVEY.md §7 stage 2).
+    """
+    b = batch_tasks or len(records)
+    k = batch_candidates or CONSTANTS.MAX_PARENTS_PER_RECORD
+    feats = CandidateFeatures.zeros(b, k)
+    cost_cap = feats.piece_costs.shape[-1]
+    for i, rec in enumerate(records[:b]):
+        feats.child_finished_pieces[i] = rec.finished_piece_count
+        feats.total_piece_count[i] = rec.task.total_piece_count
+        feats.child_idc[i] = idc_code(rec.host.network.idc)
+        feats.child_location[i] = location_codes(rec.host.network.location)
+        feats.child_host_id[i] = stable_hash64(rec.host.id) if rec.host.id else 0
+        feats.child_numeric[i] = host_numeric_features(rec.host)
+        for j, parent in enumerate(rec.parents[:k]):
+            h = parent.host
+            feats.valid[i, j] = True
+            feats.finished_pieces[i, j] = parent.finished_piece_count
+            feats.upload_count[i, j] = h.upload_count
+            feats.upload_failed_count[i, j] = h.upload_failed_count
+            feats.upload_limit[i, j] = h.concurrent_upload_limit
+            feats.upload_used[i, j] = h.concurrent_upload_count
+            feats.host_type[i, j] = int(HostType.from_name(h.type))
+            feats.peer_state[i, j] = int(PeerState.from_name(parent.state))
+            feats.parent_idc[i, j] = idc_code(h.network.idc)
+            feats.parent_location[i, j] = location_codes(h.network.location)
+            feats.parent_host_id[i, j] = stable_hash64(h.id) if h.id else 0
+            feats.numeric[i, j] = host_numeric_features(h)
+            costs = [p.cost for p in parent.pieces][-cost_cap:]
+            feats.piece_cost_count[i, j] = len(costs)
+            feats.piece_costs[i, j, : len(costs)] = np.asarray(costs, dtype=np.float32)
+    return feats
+
+
+def topology_to_pairs(records: list[NetworkTopologyRecord]) -> tuple[np.ndarray, np.ndarray]:
+    """Probe pairs -> (X, y) for the MLP RTT regressor.
+
+    X = [src numeric basics, dst numeric basics, same_idc, loc_match_depth/5]
+    y = log1p(average_rtt_ms) — log-scale keeps the 0.1ms..100ms range sane.
+    """
+    xs, ys = [], []
+    for rec in records:
+        src = rec.host
+        src_idc = idc_code(src.network.idc)
+        src_loc = location_codes(src.network.location)
+        src_seed = 1.0 if HostType.from_name(src.type) != HostType.NORMAL else 0.0
+        for dst in rec.dest_hosts:
+            if dst.probes.average_rtt <= 0:
+                continue
+            dst_idc = idc_code(dst.network.idc)
+            dst_loc = location_codes(dst.network.location)
+            match_depth = location_match_depth(src_loc, dst_loc)
+            xs.append(
+                [
+                    src_seed,
+                    np.log1p(src.network.tcp_connection_count),
+                    np.log1p(src.network.upload_tcp_connection_count),
+                    1.0 if HostType.from_name(dst.type) != HostType.NORMAL else 0.0,
+                    np.log1p(dst.network.tcp_connection_count),
+                    np.log1p(dst.network.upload_tcp_connection_count),
+                    1.0 if (src_idc != 0 and src_idc == dst_idc) else 0.0,
+                    match_depth / MAX_LOC,
+                ]
+            )
+            ys.append(np.log1p(dst.probes.average_rtt / 1e6))
+    if not xs:
+        return np.zeros((0, 8), np.float32), np.zeros((0,), np.float32)
+    return np.asarray(xs, dtype=np.float32), np.asarray(ys, dtype=np.float32)
+
+
+NUM_PAIR_FEATURES = 8
 
 
 @dataclasses.dataclass

@@ -7,6 +7,7 @@ test skips, inside the test, where there is no CUDA device."""
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from dragonfly2_tpu_torch.ops import flash
 
@@ -374,3 +375,241 @@ def test_short_sets_keep_the_mma_sync_instances(monkeypatch):
     torch.cuda.synchronize()
     assert _sm90_counts() == before
     assert len(launched) == 4 * 5 and not SM90_ENTRIES & set(launched)
+
+
+# ----------------------------------- head dims outside the instances (C2)
+
+
+# the padded route rounds the pre-scaled q to bf16 once, as the
+# reference's forward rounds its pre-scaled q (flash.py:262): a score moves
+# by up to 2^-9 * sum |q_d k_d| / sqrt(D), ~0.01 for N(0, 1) inputs at
+# D = 24, which a row's max (and lse) carries whole, and bf16 outputs and
+# gradients then differ by an ulp or a few (the plain versions alone, on
+# the CPU: up to 0.9 of the long output tolerance, 1.6 of the long
+# gradient one). So against the plain versions at D = 24 the route is held
+# to the bf16-rounding family (ATOL/RTOL, GRAD_*) and the row stats to
+# PAD_STATS; the kernels themselves are held to the plain versions of what
+# they compute (the padded, pre-scaled inputs) at the usual tolerances,
+# the long ones at L = 1000.
+PAD_STATS_ATOL, PAD_STATS_RTOL = 2e-2, 1e-2
+
+
+@pytest.mark.parametrize("l", [15, 1000])
+def test_head_dim_24_pads_to_an_instance(l):
+    """D = 24 on the card: zero-padded to 32 with q pre-scaled, through
+    the instance at 32 (the Hopper one at L = 1000): forward, lse,
+    partials, backward and autograd against the plain versions of the
+    padded inputs, and against the plain versions at D = 24."""
+    _need_card()
+    q, k, v, do, mask = _training_inputs((2, 4, l, 24), torch.bfloat16, seed=l)
+    qp, kp, vp, scale = flash._padded(q, k, v)
+    pad = (0, qp.shape[-1] - 24)
+    long = l > flash.SM90_MIN_L
+    tol = dict(atol=LONG_ATOL, rtol=LONG_RTOL) if long else dict(atol=ATOL, rtol=RTOL)
+    stats = dict(atol=STATS_ATOL, rtol=STATS_RTOL)
+    grad_tol = (dict(atol=LONG_GRAD_ATOL, rtol=LONG_GRAD_RTOL) if long
+                else dict(atol=GRAD_ATOL, rtol=GRAD_RTOL))
+    # against the plain versions at D = 24 (the route, not the kernels)
+    route_tol, route_grad = dict(atol=ATOL, rtol=RTOL), dict(atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    pad_stats = dict(atol=PAD_STATS_ATOL, rtol=PAD_STATS_RTOL)
+    for causal in (False, True):
+        before = _sm90_counts(), flash.LAUNCHES
+        out = flash.flash_attention(q, k, v, mask, causal)
+        assert out.shape == q.shape and out.dtype == q.dtype and out.is_contiguous()
+        assert flash.LAUNCHES == before[1] + 1
+        assert (_sm90_counts()["FWD_SM90_LAUNCHES"] == before[0]["FWD_SM90_LAUNCHES"] + 1) == long
+        padded = flash.flash_attention_plain(qp, kp, vp, mask, causal)[..., :24]
+        torch.testing.assert_close(out.float(), padded.float(), **tol)
+        torch.testing.assert_close(out.float(), flash.flash_attention_plain(q, k, v, mask, causal)
+                                   .float(), **route_tol)
+        assert (out[0] == 0).all()
+        o, lse = flash.flash_attention_lse(q, k, v, mask, causal)
+        pad_o, pad_lse = flash.flash_attention_lse_plain(qp, kp, vp, mask, causal)
+        ref_o, ref_lse = flash.flash_attention_lse_plain(q, k, v, mask, causal)
+        seen = ref_lse > -1e20
+        torch.testing.assert_close(o.float(), pad_o[..., :24].float(), **tol)
+        torch.testing.assert_close(o.float(), ref_o.float(), **route_tol)
+        torch.testing.assert_close(lse[seen], pad_lse[seen], **stats)
+        torch.testing.assert_close(lse[seen], ref_lse[seen], **pad_stats)
+        got = flash.flash_attention_bwd(q, k, v, mask, o, lse, do, causal)
+        dqp, dkp, dvp = flash.flash_attention_bwd_plain(qp, kp, vp, mask, F.pad(o, pad), lse,
+                                                        F.pad(do, pad), causal)
+        pad_want = ((dqp[..., :24].float() * scale), dkp[..., :24], dvp[..., :24])
+        want = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, causal)
+        for name, g, pw, w in zip(("dq", "dk", "dv"), got, pad_want, want):
+            assert g.shape == q.shape and g.dtype == q.dtype, name
+            torch.testing.assert_close(g.float(), pw.float(), **grad_tol,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+            torch.testing.assert_close(g.float(), w.float(), **route_grad,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        counts = flash.LSE_LAUNCHES, flash.DKV_LAUNCHES, flash.DQ_LAUNCHES
+        auto = torch.autograd.grad(flash.flash_attention(*leaves, mask, causal), leaves, do)
+        assert (flash.LSE_LAUNCHES, flash.DKV_LAUNCHES, flash.DQ_LAUNCHES) == tuple(
+            c + 1 for c in counts)
+        for name, g, w in zip(("dq", "dk", "dv"), auto, got):
+            torch.testing.assert_close(g.float(), w.float(), **grad_tol,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+    acc, row_max, row_sum = flash.flash_attention_partials(q, k, v, mask)
+    for (want_acc, want_max, want_sum), row_tol, acc_tol in (
+            (flash.flash_attention_partials_plain(qp, kp, vp, mask), stats, tol),
+            (flash.flash_attention_partials_plain(q, k, v, mask), pad_stats, route_tol)):
+        want_acc = want_acc[..., :24]
+        live = want_sum > 0
+        torch.testing.assert_close(row_max[live], want_max[live], **row_tol)
+        torch.testing.assert_close(row_sum, want_sum, **row_tol)
+        scale_rows = want_sum.clamp_min(1.0)[..., None]
+        torch.testing.assert_close(acc / scale_rows, want_acc / scale_rows, **acc_tol)
+
+
+def test_head_dim_above_128_is_refused_before_any_launch():
+    """No instance takes D > 128: every CUDA entry raises from the shape,
+    launches nothing and never runs the plain version in its place."""
+    _need_card()
+    q, k, v, do, mask = _training_inputs((2, 2, 40, 160), torch.bfloat16, seed=5)
+    o, lse = flash.flash_attention_lse_plain(q, k, v, mask)
+    names = ("LAUNCHES", "LSE_LAUNCHES", "PARTIAL_LAUNCHES", "DKV_LAUNCHES", "DQ_LAUNCHES",
+             *SM90_COUNTERS)
+    before = [getattr(flash, name) for name in names]
+    calls = (lambda: flash.flash_attention(q, k, v, mask),
+             lambda: flash.flash_attention(*(t.clone().requires_grad_() for t in (q, k, v)), mask),
+             lambda: flash.flash_attention_lse(q, k, v, mask),
+             lambda: flash.flash_attention_partials(q, k, v, mask),
+             lambda: flash.flash_attention_bwd(q, k, v, mask, o, lse, do))
+    for call in calls:
+        with pytest.raises(ValueError, match="head dim 160"):
+            call()
+    assert [getattr(flash, name) for name in names] == before
+
+
+# ------------------------------------------------- the scheduler's tick
+
+
+def _tick_state(seed):
+    """A small seeded port state: hosts (two of them quarantined), tasks,
+    peers in every state with cost rings, identity hashes above 2^31."""
+    import numpy as np
+
+    from dragonfly2_tpu_torch.state.cluster import MAX_LOC, NUM_HOST_FEATURES, ClusterState
+
+    r = np.random.default_rng(seed)
+    st = ClusterState(max_hosts=48, max_tasks=6, max_peers=128)
+    for i in range(40):
+        st.upsert_host(f"h{i}", id_hash=int(r.integers(1, 1 << 62)), host_type=int(r.integers(0, 2)),
+                       idc=int(r.integers(0, 3)), location=r.integers(0, 3, MAX_LOC),
+                       upload_limit=int(r.integers(0, 8)), upload_count=int(r.integers(0, 20)),
+                       upload_failed=int(r.integers(0, 4)),
+                       numeric=r.random(NUM_HOST_FEATURES).astype(np.float32))
+    for i in range(6):
+        st.upsert_task(f"t{i}", total_pieces=int(r.integers(0, 40)))
+    for i in range(120):
+        p = st.add_peer(f"p{i}", int(r.integers(0, 6)), int(r.integers(0, 40)))
+        st.peer_state[p] = int(r.integers(0, 10))
+        for _ in range(int(r.integers(0, 40))):
+            st.record_piece(p, int(r.integers(0, 50)), float(r.lognormal(18, 0.5)))
+    slot = {f"t{i}": np.where(r.random(64) < 0.7, r.integers(0, 128, 64), -1).astype(np.int32)
+            for i in range(6)}
+    qmask = np.zeros(48, bool)
+    qmask[[1, 5]] = True
+    return st, slot, qmask
+
+
+def _tick_inbuf(seed, bsz, b, k=15):
+    import numpy as np
+
+    from dragonfly2_tpu_torch.ops import tick
+
+    r = np.random.default_rng(seed)
+    samples = r.integers(-1, 64, (b, k))
+    samples[0] = -1  # a row with no candidate
+    task_row = r.integers(-1, 6, b)
+    child = r.integers(0, 128, b)
+    child[1] = -1
+    return tick.build_inbuf(bsz, samples, r.integers(0, 3, (b, k)), task_row, child,
+                            r.random((b, k)) < 0.2, r.random((b, k)) < 0.8)
+
+
+def test_fused_tick_on_the_card_equals_the_cpu():
+    """TickMirror.sync and fused_tick_chunk on CUDA against the CPU on the
+    same state: cols identical, int segments and selections identical,
+    scores and ledger rows within 1e-6, the shadow buffer byte for byte,
+    with pad rows, task_row -1 and a child row of -1; and no read-back
+    inside the chunk's call."""
+    _need_card()
+    import copy
+
+    import numpy as np
+
+    from dragonfly2_tpu_torch.ops import evaluator as ev
+    from dragonfly2_tpu_torch.ops import tick
+
+    st, slot, qmask = _tick_state(0)
+    out = {}
+    for device in ("cpu", "cuda"):
+        s = copy.deepcopy(st)
+        cols = tick.TickMirror(s, 64, device=device).sync(slot, s.task_index, set(slot), qmask)
+        assert all(v.device.type == device for v in cols.values())
+        out[device] = [cols]
+        for b, bsz in ((20, 64), (256, 256)):
+            inbuf = _tick_inbuf(b, bsz, b)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                flat, packed = tick.fused_tick_chunk(inbuf, cols, bsz, 15, 32, 5, 12, limit=4,
+                                                     emit_led=True, emit_packed=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            shadow = ev.schedule_from_packed(packed, bsz, 15, 32, 5, 12, limit=4)
+            out[device].append((flat.cpu().numpy(), packed.cpu().numpy(), shadow.cpu().numpy()))
+    for name, value in out["cpu"][0].items():
+        assert torch.equal(out["cuda"][0][name].cpu(), value), name
+    for (flat, packed, shadow), (cflat, cpacked, cshadow), bsz in zip(out["cuda"][1:],
+                                                                       out["cpu"][1:], (64, 256)):
+        g, w = (tick.decode_out(x, bsz, 15, 4, True) for x in (flat, cflat))
+        for name in ("cand_peer_idx", "cand_slots", "cand_host_slots", "cand_valid",
+                     "quarantine_skipped"):
+            assert np.array_equal(g[name], w[name]), name
+        assert np.array_equal(g["selection"][..., 0], w["selection"][..., 0])
+        valid = w["selection"][..., 0] >= 0
+        assert valid.any() and not valid.all()
+        np.testing.assert_allclose(g["selection"][..., 1][valid], w["selection"][..., 1][valid],
+                                   atol=1e-6, rtol=0)
+        np.testing.assert_allclose(g["led_feats"], w["led_feats"], atol=1e-6, rtol=0)
+        assert np.array_equal(packed, cpacked)
+        assert np.array_equal(shadow[..., 0], g["selection"][..., 0])
+        assert np.array_equal(cshadow, w["selection"])
+
+
+def test_topk_and_schedule_from_packed_on_the_card_equal_the_cpu():
+    _need_card()
+    import numpy as np
+
+    from dragonfly2_tpu_torch.ops import evaluator as ev
+    from dragonfly2_tpu_torch.ops import tick
+    from dragonfly2_tpu_torch.ops.topk import masked_top_k
+
+    r = np.random.default_rng(2)
+    scores = np.round(r.random((64, 200)) * 16).astype(np.float32)  # ties
+    scores[:, 0] = np.nan
+    scores[:, 1] = -np.inf
+    scores[:, 2] = np.inf
+    mask = r.random((64, 200)) < 0.5
+    mask[0] = False  # an all-invalid row
+    for width, k in ((15, 4), (64, 15), (200, 6)):
+        s, m = torch.from_numpy(scores[:, :width].copy()), torch.from_numpy(mask[:, :width].copy())
+        cpu = masked_top_k(s, m, k)
+        gpu = masked_top_k(s.cuda(), m.cuda(), k)
+        for a, b_ in zip(gpu, cpu):
+            assert torch.equal(a.cpu(), b_)
+    st, slot, qmask = _tick_state(1)
+    cols = tick.TickMirror(st, 64, device="cpu").sync(slot, st.task_index, set(slot), qmask)
+    _, packed = tick.fused_tick_chunk(_tick_inbuf(3, 64, 50), cols, 64, 15, 32, 5, 12,
+                                      emit_packed=True)
+    buf = packed.numpy()
+    for algorithm in ("default", "nt"):
+        gpu = ev.schedule_from_packed(buf, 64, 15, 32, 5, 12, algorithm=algorithm, limit=4)
+        assert gpu.is_cuda
+        cpu = ev.schedule_from_packed(buf, 64, 15, 32, 5, 12, algorithm=algorithm, limit=4,
+                                      device="cpu")
+        assert torch.equal(gpu.cpu(), cpu)

@@ -6,6 +6,7 @@ On CPU tensors the wrapper takes the kernel's plain version; the CUDA
 kernel itself is held to that plain version by tests/test_torch_cuda.py
 and by chip_smoke.py on the card."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,9 +83,10 @@ def test_plain_version_is_dense_attention():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q, k, v, mask = (torch.from_numpy(x) for x in _mk(2, 2, 15, 32, seed=1))
-    with pytest.raises(ValueError, match="head dim"):
-        flash.flash_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
-                              v[..., :24].contiguous(), mask)
+    # a head dim no instance has is taken (the reference takes any D)
+    q24, k24, v24 = (x[..., :24].contiguous() for x in (q, k, v))
+    torch.testing.assert_close(flash.flash_attention(q24, k24, v24, mask),
+                               dense_attention(q24, k24, v24, mask), rtol=0, atol=0)
     with pytest.raises(ValueError, match="contiguous"):
         flash.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, mask)
     with pytest.raises(ValueError, match="kv_mask"):
@@ -100,3 +102,79 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_warps_per_block():
     assert [flash.warps_for(n) for n in (1, 15, 16, 17, 32, 33, 4096)] == [1, 1, 1, 2, 2, 4, 4]
+
+
+# any head dim: on the CPU the plain versions; the gradients of the
+# reference's Pallas flash_attention through its custom_vjp (interpret
+# mode), float32 (the tests/test_torch_flash_bwd.py family)
+GRAD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [8, 24, 48, 96])
+def test_any_head_dim_matches_reference(d, causal):
+    q, k, v, mask = _mk(2, 2, 15, d, seed=d + causal, fully_masked=True)
+    do = np.random.default_rng(d).standard_normal(q.shape).astype(np.float32)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    before = flash.LAUNCHES, flash.LSE_LAUNCHES
+    out = flash.flash_attention(*leaves, torch.from_numpy(mask), causal=causal)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    assert (flash.LAUNCHES, flash.LSE_LAUNCHES) == before
+    assert out.shape == q.shape
+    want = np.asarray(ref_flash(q, k, v, mask, causal=causal))
+    np.testing.assert_allclose(out.detach().numpy(), want, atol=TOL["float32"], rtol=TOL["float32"])
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_dense(q, k, v, mask, causal=causal)),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+    assert (out.detach().numpy()[0] == 0).all()  # the fully masked batch row
+
+    def loss(q, k, v):
+        return (ref_flash(q, k, v, mask, causal=causal) * do).sum()
+
+    want_grads = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=name)
+        assert (g.numpy()[0] == 0).all(), name
+
+
+@pytest.mark.parametrize("d", [8, 24, 48, 96])
+def test_padded_route_is_the_same_function(d):
+    """The CUDA route for a head dim outside the instances, as algebra on
+    the plain versions: zero-pad to D_pad with q pre-scaled by
+    sqrt(D_pad/D), slice back, and dq scaled once more, gives the unpadded
+    output, lse, partials and gradients (float32, to rounding)."""
+    q, k, v, mask = (torch.from_numpy(x) for x in _mk(2, 2, 15, d, seed=d, fully_masked=True))
+    do = torch.from_numpy(np.random.default_rng(d).standard_normal(q.shape).astype(np.float32))
+    qp, kp, vp, scale = flash._padded(q, k, v)
+    d_pad = qp.shape[-1]
+    assert d_pad == min(x for x in flash.HEAD_DIMS if x >= d) and scale == (d_pad / d) ** 0.5
+    tol = dict(atol=1e-6, rtol=1e-5)
+    for causal in (False, True):
+        o, lse = flash.flash_attention_lse_plain(q, k, v, mask, causal)
+        op, lsep = flash.flash_attention_lse_plain(qp, kp, vp, mask, causal)
+        torch.testing.assert_close(op[..., :d], o, **tol)
+        assert (op[..., d:] == 0).all()
+        torch.testing.assert_close(lsep, lse, **tol)
+        pad = (0, d_pad - d)
+        dqp, dkp, dvp = flash.flash_attention_bwd_plain(
+            qp, kp, vp, mask, torch.nn.functional.pad(o, pad), lse,
+            torch.nn.functional.pad(do, pad), causal)
+        dq, dk, dv = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, causal)
+        torch.testing.assert_close(dqp[..., :d] * scale, dq, **tol)
+        torch.testing.assert_close(dkp[..., :d], dk, **tol)
+        torch.testing.assert_close(dvp[..., :d], dv, **tol)
+    acc, row_max, row_sum = flash.flash_attention_partials_plain(q, k, v, mask)
+    accp, maxp, sump = flash.flash_attention_partials_plain(qp, kp, vp, mask)
+    torch.testing.assert_close(accp[..., :d], acc, **tol)
+    torch.testing.assert_close(maxp, row_max, **tol)
+    torch.testing.assert_close(sump, row_sum, **tol)
+
+
+def test_kernel_wrappers_refuse_a_head_dim_without_an_instance():
+    """The launch paths themselves take only the instances' head dims:
+    the public functions pad before they get there."""
+    q = torch.zeros(1, 1, 4, 24)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        flash._instance_dim(q)
+    flash._instance_dim(torch.zeros(1, 1, 4, 32))
+    # on the CPU the plain versions take any D: no padding, no refusal
+    assert not flash._padded_route(q) and not flash._padded_route(torch.zeros(1, 1, 4, 160))

@@ -20,6 +20,7 @@ bad = sorted(
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "dragonfly2_tpu")
 )
 print(f"MODULES={len(names)}")
+print(f"NAMES={','.join(names)}")
 print(f"TORCH={'torch' in sys.modules}")
 print(f"BAD={','.join(bad)}")
 """
@@ -35,5 +36,9 @@ def test_port_imports_no_jax_flax_or_reference():
     assert out.returncode == 0, out.stderr
     lines = dict(line.partition("=")[::2] for line in out.stdout.splitlines())
     assert int(lines["MODULES"]) >= 20  # every module of the slice was imported
+    names = set(lines["NAMES"].split(","))
+    for module in ("ops.topk", "ops.evaluator", "ops.tick", "state.cluster", "graph.dag",
+                   "native", "cluster.scheduler", "records.features"):
+        assert f"dragonfly2_tpu_torch.{module}" in names, module
     assert lines["TORCH"] == "True"
     assert lines["BAD"] == "", f"port pulled in: {lines['BAD']}"

@@ -253,12 +253,23 @@ EVAL_ROWS = 2
 
 
 def test_train_attention_matches_reference(rank_data):
+    _train_attention_matches(rank_data, hidden_dim=64)  # 4 heads: head dim 16
+
+
+def test_train_attention_at_head_dim_24_matches_reference(rank_data):
+    """A width whose head dim no kernel instance has (hidden 96, 4 heads:
+    D = 24), which the reference trains: the port trains it too (on the
+    CPU through the plain versions; on CUDA flash_attention pads it)."""
+    _train_attention_matches(rank_data, hidden_dim=96)
+
+
+def _train_attention_matches(rank_data, hidden_dim):
     port_ds, ref_ds = rank_data
-    cfg = dict(hidden_dim=64, batch_size=32, epochs=2)  # 4 heads: head dim 16
+    cfg = dict(hidden_dim=hidden_dim, batch_size=32, epochs=2)
     want = ref_train.train_attention(ref_ds, RefTrainerConfig(**cfg), seed=0)
     # the reference's initial weights, carried across: flax's threefry init
     # cannot be redrawn in torch
-    init = RefRanker(hidden_dim=64, num_layers=2).init(
+    init = RefRanker(hidden_dim=hidden_dim, num_layers=2).init(
         jax.random.key(0), ref_ds.child[:2], ref_ds.parents[:2],
         ref_train._pair_feats(ref_ds, np.arange(2)), ref_ds.mask[:2],
     )
