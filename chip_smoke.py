@@ -71,10 +71,27 @@ result line:
    device time and launches), the mirror sync's time,
    schedule_from_packed at 1024 x 15 and 1024 x 64, and the whole tick at
    bench_loop's 64 waiting peers and at 1,024.
-9. the kernels JSON line and, last, the result line.
+9. the wide instances (slice 7, ROADMAP C3): every entry's head dim 256
+   instance against the plain version of what it computes at D = 160
+   (padded to 256) and 256, L = 40 and 2048, causal and not; D = 320
+   refused by every entry before any launch; each instance timed at
+   [4, 4, 1024, 256]. Then their main path: the ranker at hidden 768 with
+   4 heads (head dim 192) trained for an epoch on phase 5's trace, and the
+   ring over [2, 4, 4096, 192] on a 1 x 4 mesh of the card.
+10. the scheduler service (slice 7): SchedulerService on the card driven
+   by the port's ClusterSimulator at bench_loop.py's default replay
+   (10,000 hosts, 512 tasks, seed 0, 64 downloads a round, Config()
+   defaults, a TraceStorage), 300 rounds and one flash-crowd round of
+   1,024 downloads: the tick's p50 and p99, each phase's median, pieces
+   per second, the launches and device busy share of 5 profiled rounds.
+   Checks: 30 rounds on the CPU and on the card give the same selections
+   (parent ids exact, scores within 1e-6) and the same pieces, completed
+   and piece_cost_ns_total; fused_tick=False agrees with True on the card
+   over 10 rounds at tests/test_fused_tick.py's size.
+11. the kernels JSON line and, last, the result line.
 
 Phase 3's forward rows include a head dim no instance has (D = 24,
-padded to 32 with q pre-scaled by sqrt(32/24)).
+zero-padded to 32 and scored at D = 24's softmax scale).
 
 At every long shape (the Hopper instances' shapes) the kernels are held
 to the LONG tolerances, the kernel lines give both instances' device times
@@ -421,7 +438,7 @@ def phase_kernels():
         ("long-ragged", (2, 4, 4000, 64), True, torch.bfloat16, True, 20),
         ("test-width", (4, 2, 15, 16), False, torch.bfloat16, True, 50),
         ("float32", (3, 2, 130, 64), True, torch.float32, True, 50),
-        # a head dim no instance has: padded to 32 with q pre-scaled
+        # a head dim no instance has: zero-padded to 32, scored at D = 24's scale
         ("head-dim-24", (2, 4, 1000, 24), True, torch.bfloat16, True, 20),
     ]
     results = {}
@@ -433,11 +450,7 @@ def phase_kernels():
         for label, kv_mask in (("mask", mask), ("no mask", None)):
             out = flash.flash_attention(q, k, v, kv_mask, causal)
             torch.cuda.synchronize()
-            if d in flash.HEAD_DIMS:
-                ref = flash.flash_attention_plain(q, k, v, kv_mask, causal)
-            else:  # the plain version of what the kernel computes: the padded inputs
-                ref = flash.flash_attention_plain(*flash._padded(q, k, v)[:3], kv_mask,
-                                                  causal)[..., :d]
+            ref = flash.flash_attention_plain(q, k, v, kv_mask, causal)
             errs[label] = float((out.float() - ref.float()).abs().max().item())
             if (not torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
                     or not torch.isfinite(out).all()):
@@ -883,6 +896,93 @@ def _step_breakdown(trainer, idx, steps: int = 20):
     return {"step_p50_ms": p50, "device_ms": device_ms, "profiled_step_ms": wall_ms}
 
 
+def _first_epoch(ds, config):
+    """(eval rows, train rows, the first epoch's batches of train rows):
+    the split and the minibatch order as train_attention draws them from
+    SEED."""
+    from dragonfly2_tpu_torch.training import data, train
+
+    rng = np.random.default_rng(SEED)
+    eval_idx, train_idx = train._train_eval_split(rng.permutation(len(ds.mask)), 0.2)
+    batch_size = min(config.batch_size, len(train_idx))
+    return eval_idx, train_idx, np.stack(list(data.minibatches(len(train_idx), batch_size, rng)))
+
+
+def _replay_on_cpu(ds, config, losses, train_idx, first_epoch, steps: int, label: str = "",
+                   rounding=None):
+    """A cuda train_attention run's first ``steps`` steps again on the
+    CPU's plain versions, from the same weights and batches (losses within
+    REPLAY_LOSS_ATOL); then one step's gradients, cuda against cpu, from
+    the same weights: each parameter within GRAD_REL of its largest
+    element. Given ``rounding``, an attention function one bf16 rounding
+    of q away from the plain version, the CPU's gradients through it set
+    the floor: the limit is then twice the difference that rounding makes,
+    where that is above GRAD_REL. Returns (the train rows, in_features)."""
+    import torch
+
+    from dragonfly2_tpu_torch.training import train
+
+    rows = train.take(ds, train_idx)
+    in_features = sum(rows[key].shape[-1] for key in ("parents", "child", "pair"))
+    cpu = train.AttentionTrainer(
+        train.build_ranker(config, in_features, SEED, None, "cpu"), rows, config.learning_rate, "cpu"
+    )
+    replay = [cpu.step(torch.from_numpy(i)).item() for i in first_epoch[:steps]]
+    replay_err = float(np.abs(np.array(replay) - np.array(losses[:len(replay)])).max())
+    print(f"{label}cpu replay of the first {len(replay)} steps (plain versions): max loss "
+          f"difference {replay_err:.3g} (atol {REPLAY_LOSS_ATOL})")
+    if replay_err > REPLAY_LOSS_ATOL:
+        _fail(f"{label}cpu replay loss differs by {replay_err}")
+
+    def gradients(device, **kwargs):
+        trainer = train.AttentionTrainer(
+            train.build_ranker(config, in_features, SEED, None, device), rows,
+            config.learning_rate, device, **kwargs,
+        )
+        trainer.loss(torch.from_numpy(first_epoch[0]).to(device)).backward()
+        return {n: prm.grad.float().cpu() for n, prm in trainer.model.named_parameters()}
+
+    def worst_of(got, want):
+        return max((float((got[n] - g).abs().max()) / float(g.abs().max()), n)
+                   for n, g in want.items() if n not in SHIFT_INVARIANT)
+
+    grads = {device: gradients(device) for device in ("cuda", "cpu")}
+    # the score head's and the last LayerNorm's biases shift a row's scores
+    # alike, which the listwise loss ignores: their true gradient is 0
+    largest = max(float(g.abs().max()) for g in grads["cpu"].values())
+    worst = worst_of(grads["cuda"], grads["cpu"])
+    zero = max(float(grads[d][n].abs().max()) for d in grads for n in SHIFT_INVARIANT) / largest
+    limit, floor = GRAD_REL, ""
+    if rounding is not None:
+        moved = worst_of(gradients("cpu", attention_fn=rounding), grads["cpu"])
+        limit = max(GRAD_REL, 2 * moved[0])
+        floor = (f"; one bf16 rounding of q moves the CPU's gradients by {moved[0]:.3g} "
+                 f"({moved[1]})")
+    print(f"{label}one step's gradients, cuda vs cpu: worst parameter {worst[1]} at "
+          f"{worst[0]:.3g} of its largest element (limit {limit:.3g}) over "
+          f"{len(grads['cpu']) - len(SHIFT_INVARIANT)} parameters; the shift-invariant biases at "
+          f"{zero:.3g} of the largest gradient (limit 1e-3){floor}")
+    if worst[0] > limit or zero > 1e-3:
+        _fail(f"{label}gradient of {worst[1]} differs by {worst[0]} of its scale "
+              f"(shift-invariant {zero})")
+    return rows, in_features
+
+
+def _prescaled_attention(q, k, v, kv_mask=None, causal=False):
+    """flash_attention one bf16 rounding of q away: q scaled by
+    sqrt(256 / D) and rounded to its dtype once, zero-padded to 256 with k
+    and v (whose 1/sqrt(256) undoes the scale), the output sliced back."""
+    import torch.nn.functional as F
+
+    from dragonfly2_tpu_torch.ops import flash
+
+    d = q.shape[-1]
+    pad = (0, 256 - d)
+    out = flash.flash_attention(F.pad(q * (256 / d) ** 0.5, pad), F.pad(k, pad), F.pad(v, pad),
+                                kv_mask, causal)
+    return out[..., :d]
+
+
 def phase_training():
     """Slice 2's main path: trace -> train_attention on cuda -> publish ->
     serve over ModelInfer. Returns the launch counts of the training run
@@ -895,7 +995,7 @@ def phase_training():
     from dragonfly2_tpu_torch.records.features import downloads_to_ranking_dataset
     from dragonfly2_tpu_torch.registry import ModelEvaluation, ModelServer, open_registry
     from dragonfly2_tpu_torch.registry.registry import MODEL_TYPE_ATTENTION
-    from dragonfly2_tpu_torch.training import data, train
+    from dragonfly2_tpu_torch.training import train
 
     start = time.perf_counter()
     cluster = synth.make_cluster(TRACE_HOSTS, seed=SEED)
@@ -928,12 +1028,7 @@ def phase_training():
     if not np.isfinite(result.losses).all():
         _fail("non-finite training loss")
 
-    # the split, the eval rows and the batches of the first epoch, as
-    # train_attention drew them
-    rng = np.random.default_rng(SEED)
-    eval_idx, train_idx = train._train_eval_split(rng.permutation(len(ds.mask)), 0.2)
-    batch_size = min(config.batch_size, len(train_idx))
-    first_epoch = np.stack(list(data.minibatches(len(train_idx), batch_size, rng)))
+    eval_idx, train_idx, first_epoch = _first_epoch(ds, config)
     eb = train.take(ds, eval_idx)
     chance = metrics.top1_selection_stats(
         np.random.default_rng(SEED).random(eb["mask"].shape, dtype=np.float32),
@@ -948,42 +1043,8 @@ def phase_training():
           f"regret {em['regret']:.4f} (random picks {float(chance['regret']):.4f}); "
           f"analytic {result.analytic_flops_per_sample / 1e6:.2f} MFLOP/sample")
 
-    # the first steps again on the CPU from the same weights and batches
-    rows = train.take(ds, train_idx)
-    in_features = sum(rows[key].shape[-1] for key in ("parents", "child", "pair"))
-    cpu = train.AttentionTrainer(
-        train.build_ranker(config, in_features, SEED, None, "cpu"), rows, config.learning_rate, "cpu"
-    )
-    replay = [cpu.step(torch.from_numpy(i)).item() for i in first_epoch[:REPLAY_STEPS]]
-    replay_err = float(np.abs(np.array(replay) - np.array(result.losses[:len(replay)])).max())
-    print(f"cpu replay of the first {len(replay)} steps (plain versions): max loss difference "
-          f"{replay_err:.3g} (atol {REPLAY_LOSS_ATOL})")
-    if replay_err > REPLAY_LOSS_ATOL:
-        _fail(f"cpu replay loss differs by {replay_err}")
-
-    # one step's gradients, cuda against cpu, from the same weights
-    grads = {}
-    for device in ("cuda", "cpu"):
-        trainer = train.AttentionTrainer(
-            train.build_ranker(config, in_features, SEED, None, device), rows,
-            config.learning_rate, device,
-        )
-        trainer.loss(torch.from_numpy(first_epoch[0]).to(device)).backward()
-        grads[device] = {n: prm.grad.float().cpu() for n, prm in trainer.model.named_parameters()}
-    # the score head's and the last LayerNorm's biases shift a row's scores
-    # alike, which the listwise loss ignores: their true gradient is 0
-    largest = max(float(g.abs().max()) for g in grads["cpu"].values())
-    worst = max(
-        (float((grads["cuda"][n] - g).abs().max()) / float(g.abs().max()), n)
-        for n, g in grads["cpu"].items() if n not in SHIFT_INVARIANT
-    )
-    zero = max(float(grads[d][n].abs().max()) for d in grads for n in SHIFT_INVARIANT) / largest
-    print(f"one step's gradients, cuda vs cpu: worst parameter {worst[1]} at {worst[0]:.3g} of its "
-          f"largest element (limit {GRAD_REL}) over {len(grads['cpu']) - len(SHIFT_INVARIANT)} "
-          f"parameters; the shift-invariant biases at {zero:.3g} of the largest gradient (limit 1e-3)")
-    if worst[0] > GRAD_REL or zero > 1e-3:
-        _fail(f"gradient of {worst[1]} differs by {worst[0]} of its scale (shift-invariant {zero})")
-
+    rows, in_features = _replay_on_cpu(ds, config, result.losses, train_idx, first_epoch,
+                                       REPLAY_STEPS)
     # a steady step's time and where it goes (outside the counted run)
     steady = train.AttentionTrainer(
         train.build_ranker(config, in_features, SEED, result.params, "cuda"), rows,
@@ -1496,6 +1557,312 @@ def phase_long_ulysses():
     return counts
 
 
+
+# slice 7 (C3): the wide instances, head dims above 128. Checked at D = 160
+# (padded to 256) and 256, short and long L, causal and not, and at the
+# wide ranker's own training batch with its key mask; D = 320, above the
+# largest instance, must be refused before any launch. The main path is
+# the ranker at hidden 768 with its 4 heads (D = 192, padded to 256)
+# trained for an epoch, and the ring at WIDE_RING_SHAPE on a 1 x 4 mesh of
+# the card for the partials; the kernels line's rows are timed at the
+# shapes those runs give each kernel
+WIDE_CHECK_DIMS, WIDE_CHECK_LENGTHS, WIDE_REFUSED_DIM = (160, 256), (40, 2048), 320
+WIDE_HIDDEN = 768
+WIDE_HEAD_DIM = WIDE_HIDDEN // 4
+WIDE_RING_SHAPE, WIDE_RING_SP = (2, 4, 4096, WIDE_HEAD_DIM), 4
+WIDE_REPLAY_STEPS = 2  # a step at hidden 768 takes seconds on the CPU
+_WIDE_COUNTERS = {
+    "flash_fwd_wide": "FWD_WIDE_LAUNCHES",
+    "flash_fwd_lse_wide": "LSE_WIDE_LAUNCHES",
+    "flash_fwd_partial_wide": "PARTIAL_WIDE_LAUNCHES",
+    "flash_bwd_dkv_wide": "DKV_WIDE_LAUNCHES",
+    "flash_bwd_dq_wide": "DQ_WIDE_LAUNCHES",
+}
+
+
+def _wide_counts() -> dict:
+    from dragonfly2_tpu_torch.ops import flash
+
+    return {name: getattr(flash, counter) for name, counter in _WIDE_COUNTERS.items()}
+
+
+def _zero_wide_counts() -> None:
+    from dragonfly2_tpu_torch.ops import flash
+
+    for counter in _WIDE_COUNTERS.values():
+        setattr(flash, counter, 0)
+
+
+def _wide_config():
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+
+    return TrainerConfig(epochs=1, hidden_dim=WIDE_HIDDEN)
+
+
+def _ranker_masks(ds):
+    """The wide ranker's key masks on the card: its first training batch's
+    and its eval rows', as train_attention draws them."""
+    import torch
+
+    eval_idx, train_idx, first_epoch = _first_epoch(ds, _wide_config())
+    return (torch.from_numpy(ds.mask[train_idx][first_epoch[0]]).cuda(),
+            torch.from_numpy(ds.mask[eval_idx]).cuda())
+
+
+def phase_wide_kernels(ds):
+    """Every entry's wide instance against the plain version at the call's
+    own D (a D below 256 is zero-padded and scored at D's scale): at each
+    checked D, L and causal flag with a mask holding fully masked batch rows, and at
+    the wide ranker's first training batch with its own key mask; D =
+    WIDE_REFUSED_DIM refused by every entry with nothing launched; then
+    each instance's row at the shape its main path gives it (device time,
+    the plain version's, a library call's where there is one, and the
+    bound of the unpadded function). Returns {kernel: {shape key: row}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from dragonfly2_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    train_mask, eval_mask = _ranker_masks(ds)
+    cases = [(2, l, d, causal, None) for d in WIDE_CHECK_DIMS for l in WIDE_CHECK_LENGTHS
+             for causal in (False, True)]
+    cases.append((*train_mask.shape, WIDE_HEAD_DIM, False, train_mask))
+    worst = {name: 0.0 for name in _WIDE_COUNTERS}
+    for b, l, d, causal, given in cases:
+        q, k, v, mask = _attention_inputs(gen, b, 4, l, d, torch.bfloat16, given is None)
+        if given is not None:
+            mask = given
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        long = l > 1000
+        atol, rtol = (LONG_ATOL, LONG_RTOL) if long else (KERNEL_ATOL, KERNEL_RTOL)
+        g_atol, g_rtol = (LONG_GRAD_ATOL, LONG_GRAD_RTOL) if long else (GRAD_ATOL, GRAD_RTOL)
+        label = f"B = {b}, D = {d}, L = {l}, causal={causal}"
+        if given is not None:
+            label += " (the wide ranker's first batch and its mask)"
+        before = _wide_counts()
+        out = flash.flash_attention(q, k, v, mask, causal)
+        o, lse = flash.flash_attention_lse(q, k, v, mask, causal)
+        got_dq, got_dk, got_dv = flash.flash_attention_bwd(q, k, v, mask, o, lse, do, causal)
+        acc = row_max = row_sum = None
+        if not causal:
+            acc, row_max, row_sum = flash.flash_attention_partials(q, k, v, mask)
+        torch.cuda.synchronize()
+        want = {name: before[name] + 1 for name in _WIDE_COUNTERS}
+        if causal:
+            want["flash_fwd_partial_wide"] -= 1
+        if _wide_counts() != want:
+            _fail(f"wide {label}: launches {_wide_counts()}, expected {want}")
+        ref_o, ref_lse = flash.flash_attention_lse_plain(q, k, v, mask, causal)
+        seen = ref_lse > -1e20
+        errs = {
+            "flash_fwd_wide": float((out.float() - ref_o.float()).abs().max().item()),
+            "flash_fwd_lse_wide": max(
+                float((o.float() - ref_o.float()).abs().max().item()),
+                float((lse[seen] - ref_lse[seen]).abs().max().item())),
+        }
+        if not (torch.allclose(out.float(), ref_o.float(), atol=atol, rtol=rtol)
+                and torch.equal(o, out)
+                and torch.allclose(lse[seen], ref_lse[seen], atol=STATS_ATOL, rtol=STATS_RTOL)):
+            _fail(f"wide forward {label}: errors {errs} (atol {atol} rtol {rtol}, lse atol "
+                  f"{STATS_ATOL})")
+        dead = ~mask.any(dim=1)
+        if dead.any() and out[dead].abs().max().item() != 0.0:
+            _fail(f"wide forward {label}: fully masked rows are not 0")
+        if acc is not None:
+            want_acc, want_max, want_sum = flash.flash_attention_partials_plain(q, k, v, mask)
+            perr, ok = _partial_errors((acc, row_max, row_sum), (want_acc, want_max, want_sum),
+                                       atol, rtol)
+            errs["flash_fwd_partial_wide"] = max(perr["acc_over_row_sum"], perr["row_max"],
+                                                 perr["row_sum"])
+            if not ok:
+                _fail(f"wide partials {label}: errors {perr}")
+        want_dq, want_dk, want_dv = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do,
+                                                                    causal)
+        for name, g, w in (("dq", got_dq, want_dq), ("dk", got_dk, want_dk),
+                           ("dv", got_dv, want_dv)):
+            err = float((g.float() - w.float()).abs().max().item())
+            kernel = "flash_bwd_dq_wide" if name == "dq" else "flash_bwd_dkv_wide"
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+            if not torch.allclose(g.float(), w.float(), atol=g_atol, rtol=g_rtol):
+                _fail(f"wide backward {label} {name}: max_abs_err {err} (atol {g_atol} rtol "
+                      f"{g_rtol})")
+            if dead.any() and g[dead].abs().max().item() != 0.0:
+                _fail(f"wide backward {label} {name}: fully masked rows are not 0")
+        for name, err in errs.items():
+            worst[name] = max(worst[name], err)
+        print(f"wide {label}: max_abs_err " + ", ".join(
+            f"{name} {err:.3g}" for name, err in errs.items())
+            + f" (outputs atol {atol} rtol {rtol}, gradients atol {g_atol} rtol {g_rtol})")
+
+    # above the largest instance: refused from the shape, nothing launched
+    q, k, v, mask = _attention_inputs(gen, 2, 2, 40, WIDE_REFUSED_DIM, torch.bfloat16, False)
+    lse = torch.zeros(q.shape[:3], device="cuda")
+    before = _counts(), _wide_counts()
+    for call in (lambda: flash.flash_attention(q, k, v, mask),
+                 lambda: flash.flash_attention_lse(q, k, v, mask),
+                 lambda: flash.flash_attention_partials(q, k, v, mask),
+                 lambda: flash.flash_attention_bwd(q, k, v, mask, q, lse, q)):
+        try:
+            call()
+        except ValueError:
+            continue
+        _fail(f"head dim {WIDE_REFUSED_DIM} was not refused")
+    if (_counts(), _wide_counts()) != before:
+        _fail(f"head dim {WIDE_REFUSED_DIM} launched a kernel")
+    print(f"head dim {WIDE_REFUSED_DIM}: every entry refused before any launch")
+
+    iters = 10
+    results = {}
+
+    def row(name, key, q, fn, symbol, plain_ms, library_ms, bound):
+        """Time ``fn`` (one launch of ``name``'s instance) and keep its row."""
+        bound_ms, bound_by = bound
+        r = dict(shape=list(q.shape), causal=False, dtype="bfloat16", variant="wide",
+                 max_abs_err=worst[name], ms=_time_ms(fn, iters), **_timed(fn, symbol),
+                 mma_sync_kernel_ms=None, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=bound_ms, bound_by=bound_by)
+        if r["kernel_ms"] is None:
+            _fail(f"kernel {name} {list(q.shape)}: the profiler found no device time")
+        results[name] = {key: r}
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+        print(f"kernel {name} {list(q.shape)} bf16 (wide, {key}, head dim padded to 256): "
+              f"max_abs_err {worst[name]:.3g} over the checked shapes; ms {r['ms']:.4f} (kernel "
+              f"{_fmt(r)}) plain_ms {plain_ms:.4f} library_ms {lib} bound_ms {bound_ms:.4f} "
+              f"({bound_by}, of the unpadded function)")
+
+    def ranker_inputs(mask):
+        q, k, v, _ = _attention_inputs(gen, mask.shape[0], 4, mask.shape[1], WIDE_HEAD_DIM,
+                                       torch.bfloat16, False)
+        return q, k, v, mask
+
+    # the ranker's eval: the finished forward over every eval row
+    q, k, v, mask = ranker_inputs(eval_mask)
+    sdpa_mask = mask[:, None, None, :]
+    row("flash_fwd_wide", "ranker-eval", q, lambda: flash.flash_attention(q, k, v, mask),
+        "flash_fwd_wide_kernel", _time_ms(lambda: flash.flash_attention_plain(q, k, v, mask), 3),
+        _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask), iters),
+        _bound(q, mask, False))
+
+    # the ranker's training step: the forward with lse, then the backward
+    # kernels as its backward launches them, on the inputs padded to 256
+    q, k, v, mask = ranker_inputs(train_mask)
+    sdpa_mask = mask[:, None, None, :]
+    row("flash_fwd_lse_wide", "ranker-train", q, lambda: flash.flash_attention_lse(q, k, v, mask),
+        "flash_fwd_wide_kernel",
+        _time_ms(lambda: flash.flash_attention_lse_plain(q, k, v, mask), 3),
+        _library_fwd_lse_ms(q, k, v, mask, False, iters), _bound(q, mask, False, row_stats=1))
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = flash.flash_attention_lse(q, k, v, mask)
+    qp, kp, vp, dop = flash._padded(q, k, v, do)
+    delta = (do.float() * o.float()).sum(-1)
+    scale = flash._scale(q)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask)
+    library_bwd_ms = _time_ms(
+        lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True), iters)
+    plain_bwd_ms = _time_ms(lambda: flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do),
+                            3)
+    row("flash_bwd_dkv_wide", "ranker-train", q,
+        lambda: flash.flash_attention_bwd_dkv(qp, kp, vp, mask, lse, delta, dop, False, scale),
+        "flash_bwd_dkv_wide_kernel", plain_bwd_ms, library_bwd_ms,
+        _bound(q, mask, False, matrices=6, row_stats=2, ops_per_pair=8))
+    row("flash_bwd_dq_wide", "ranker-train", q,
+        lambda: flash.flash_attention_bwd_dq(qp, kp, vp, mask, lse, delta, dop, False, scale),
+        "flash_bwd_dq_wide_kernel", plain_bwd_ms, library_bwd_ms,
+        _bound(q, mask, False, matrices=5, row_stats=2, ops_per_pair=6))
+    del sdpa_out, leaves
+
+    # one block of the wide ring: a shard's queries against one shard's keys
+    b, h, l, d = WIDE_RING_SHAPE
+    q, k, v, mask = _attention_inputs(gen, b, h, l // WIDE_RING_SP, d, torch.bfloat16, False)
+    row("flash_fwd_partial_wide", "ring-block", q,
+        lambda: flash.flash_attention_partials(q, k, v, mask), "flash_fwd_wide_kernel",
+        _time_ms(lambda: flash.flash_attention_partials_plain(q, k, v, mask), 3),
+        _library_fwd_lse_ms(q, k, v, mask, False, iters),
+        _bound(q, mask, False, matrices=3 + 4 // q.element_size(), row_stats=2))
+    return results
+
+
+def phase_wide_path(ds):
+    """Slice 7's main path for the wide instances: the ranker at hidden
+    WIDE_HIDDEN with its 4 heads (head dim 192, padded to 256) trained for
+    an epoch on phase 5's trace, whose steps run the forward with lse,
+    dK/dV and dQ and whose eval runs the finished forward, its first steps
+    replayed on the CPU's plain versions from the same weights and
+    batches; then the ring at WIDE_RING_SHAPE on a 1 x WIDE_RING_SP mesh of
+    the card, whose blocks run the partials, against flash_attention on
+    the whole sequence and the dense oracle on sampled query rows. Counters
+    are zeroed just before each run and read just after. Returns the wide
+    launches of both runs."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import flash
+    from dragonfly2_tpu_torch.parallel.mesh import make_mesh
+    from dragonfly2_tpu_torch.parallel.ring import dense_attention, sharded_ring_attention
+    from dragonfly2_tpu_torch.training import train
+
+    config = _wide_config()
+    layers = config.attention_num_layers
+    _zero_counts()
+    _zero_wide_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = train.train_attention(ds, config, seed=SEED)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - start
+    counts, wide = _counts(), _wide_counts()
+    expected = {"flash_fwd_wide": layers, "flash_fwd_lse_wide": result.steps * layers,
+                "flash_fwd_partial_wide": 0, "flash_bwd_dkv_wide": result.steps * layers,
+                "flash_bwd_dq_wide": result.steps * layers}
+    # every launch of the wrappers went to a wide instance
+    expected_all = {"flash_fwd": layers, "flash_fwd_lse": result.steps * layers,
+                    "flash_bwd_dkv": result.steps * layers, "flash_bwd_dq": result.steps * layers}
+    print(f"wide ranker (hidden {WIDE_HIDDEN}, 4 heads, head dim {WIDE_HEAD_DIM} padded to "
+          f"256): {result.steps} steps in {train_s:.2f} s, losses {result.losses[0]:.4f} -> "
+          f"{result.losses[-1]:.4f}; wide launches {wide} (expected {expected})")
+    if wide != expected or any(counts[k] != v for k, v in expected_all.items()):
+        _fail(f"the wide ranker launched {wide} / {counts}, expected {expected}")
+    if not np.isfinite(result.losses).all():
+        _fail("the wide ranker's loss is not finite")
+    _, train_idx, first_epoch = _first_epoch(ds, config)
+    _replay_on_cpu(ds, config, result.losses, train_idx, first_epoch, WIDE_REPLAY_STEPS,
+                   label="wide ranker: ", rounding=_prescaled_attention)
+
+    card = torch.device("cuda", 0)
+    mesh = make_mesh(WIDE_RING_SP, dp=1, sp=WIDE_RING_SP, devices=[card] * WIDE_RING_SP)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    b, h, l, d = WIDE_RING_SHAPE
+    q, k, v, mask = _attention_inputs(gen, b, h, l, d, torch.bfloat16, False)
+    _zero_counts()
+    _zero_wide_counts()
+    torch.cuda.synchronize()
+    out = sharded_ring_attention(mesh, q, k, v, mask, use_flash=True)
+    torch.cuda.synchronize()
+    ring = _wide_counts()
+    if ring != {**{name: 0 for name in _WIDE_COUNTERS},
+                "flash_fwd_partial_wide": WIDE_RING_SP * WIDE_RING_SP}:
+        _fail(f"the wide ring launched {ring}, expected dp x sp^2 = {WIDE_RING_SP ** 2} partials")
+    whole = flash.flash_attention(q, k, v, mask)
+    err = float((out.float() - whole.float()).abs().max().item())
+    if not torch.allclose(out.float(), whole.float(), atol=LONG_ATOL, rtol=LONG_RTOL):
+        _fail(f"the wide ring vs flash_attention at L = {l}: max_abs_err {err}")
+    oracle_err = 0.0
+    for start in (0, l // 2, l - ORACLE_ROWS):
+        rows = slice(start, start + ORACLE_ROWS)
+        want = dense_attention(q[:, :, rows], k, v, mask).float()
+        got = out[:, :, rows].float()
+        oracle_err = max(oracle_err, float((got - want).abs().max().item()))
+        if not torch.allclose(got, want, atol=LONG_ATOL, rtol=LONG_RTOL):
+            _fail(f"the wide ring vs dense_attention on query rows {start}+{ORACLE_ROWS}: "
+                  f"{oracle_err}")
+    print(f"wide ring {list(WIDE_RING_SHAPE)} bf16 on a 1 x {WIDE_RING_SP} mesh of one card: "
+          f"partial launches {ring['flash_fwd_partial_wide']}; vs flash_attention on the whole "
+          f"sequence max_abs_err {err:.3g}, vs dense on {3 * ORACLE_ROWS} query rows at head dim "
+          f"{d} {oracle_err:.3g} (atol {LONG_ATOL} rtol {LONG_RTOL})")
+    return {name: wide[name] + ring[name] for name in _WIDE_COUNTERS}
+
+
 # slice 6: the scheduler's rule-arm decision program at the scheduler's
 # Config defaults (state capacities 16,384 hosts, 65,536 peers, 4,096
 # tasks; DAG capacity 256; cost ring 32; K = FILTER_PARENT_LIMIT = 15
@@ -1945,6 +2312,221 @@ def phase_scheduler_tick(card: str):
               f"{len(n_spans)} chunks dispatched and drained {chunks:.3f} ms ({card})")
 
 
+
+# slice 7: the scheduler service on the card, as an operator runs it, at
+# bench_loop.py's default replay (10,000 hosts, 512 tasks, seed 0, 64
+# downloads a round) under Config() defaults (16,384 hosts, 65,536 peers,
+# 4,096 tasks, K = 15; the fused tick, the decision ledger and the SLO
+# engine on), with a TraceStorage in a temporary directory. bench_loop
+# runs ~960 rounds to 1,000,000 pieces; the timed run is cut to
+# SERVICE_ROUNDS to stay in the time limit. bench_loop's probe rounds are
+# not run: the port's probes wait for ROADMAP A5b
+SERVICE_HOSTS, SERVICE_TASKS, SERVICE_DOWNLOADS = 10_000, 512, 64
+SERVICE_ROUNDS = 300
+SERVICE_FLASH_CROWD = 1024
+SERVICE_PARITY_ROUNDS = 30  # CUDA against the CPU at the same scale
+SERVICE_PROFILED_TICKS = 5
+SERVICE_WRAPPER_ROUNDS = 20  # rounds of each entry-wrapper mode, taken in turn
+SERVICE_SCORE_ATOL = 1e-6
+# fused_tick=False against True on the card, at tests/test_fused_tick.py's size
+ORACLE_HOSTS, ORACLE_TASKS, ORACLE_DOWNLOADS, ORACLE_ROUNDS = 40, 5, 5, 10
+
+
+def _service(device, data_dir, hosts=SERVICE_HOSTS, tasks=SERVICE_TASKS, fused=True):
+    from dragonfly2_tpu_torch.cluster.scheduler import SchedulerService
+    from dragonfly2_tpu_torch.cluster.simulator import ClusterSimulator
+    from dragonfly2_tpu_torch.config.config import Config
+    from dragonfly2_tpu_torch.records.storage import TraceStorage
+
+    cfg = Config()
+    cfg.scheduler.fused_tick = fused
+    svc = SchedulerService(config=cfg, storage=TraceStorage(data_dir), seed=SEED, device=device)
+    sim = ClusterSimulator(svc, num_hosts=hosts, num_tasks=tasks, seed=SEED,
+                           deterministic_peer_ids=True)
+    return svc, sim
+
+
+def _service_round(svc, sim, downloads: int):
+    """One bench_loop round: new downloads, the seed triggers, the tick
+    (host clock, ms), every response acted on, the GC sweep. Returns the
+    tick's ms and its selections [(peer, [(parent, score), ...])]."""
+    for _ in range(downloads):
+        sim.start_download()
+    sim.consume_seed_triggers()
+    start = time.perf_counter()
+    responses = svc.tick()
+    tick_ms = (time.perf_counter() - start) * 1e3
+    for resp in responses:
+        sim._act(resp)
+    svc.run_gc()
+    return tick_ms, [(r.peer_id, [(p.peer_id, p.score) for p in r.candidate_parents])
+                     for r in responses if hasattr(r, "candidate_parents")]
+
+
+def _same_selections(got, want, label: str) -> float:
+    """Parent ids exactly, scores within SERVICE_SCORE_ATOL; the worst
+    score difference."""
+    if [p for p, _ in got] != [p for p, _ in want]:
+        _fail(f"{label}: the responses' peers differ")
+    err = 0.0
+    for (peer, g), (_, w) in zip(got, want):
+        if [pid for pid, _ in g] != [pid for pid, _ in w]:
+            _fail(f"{label}: {peer}'s parents differ: {g} vs {w}")
+        err = max([err] + [abs(a - b) for (_, a), (_, b) in zip(g, w)])
+    if err > SERVICE_SCORE_ATOL:
+        _fail(f"{label}: scores differ by {err} (atol {SERVICE_SCORE_ATOL})")
+    return err
+
+
+def _paired_runs(make, variants, rounds, downloads, label):
+    """The same seeded service run twice, ``make(variant, data_dir)``
+    building each of the two ``variants`` (a device, or a fused_tick
+    flag), held equal: selections and the replay's stats."""
+    runs = []
+    for variant in variants:
+        with tempfile.TemporaryDirectory() as data_dir:
+            svc, sim = make(variant, data_dir)
+            selections = []
+            for _ in range(rounds):
+                selections += _service_round(svc, sim, downloads)[1]
+            runs.append((selections, sim.stats))
+    (want, want_stats), (got, got_stats) = runs
+    err = _same_selections(got, want, label)
+    for key in ("pieces", "completed", "piece_cost_ns_total"):
+        if getattr(got_stats, key) != getattr(want_stats, key):
+            _fail(f"{label}: {key} {getattr(got_stats, key)} vs {getattr(want_stats, key)}")
+    print(f"{label}: {len(got)} selections equal (parent ids exact, scores within "
+          f"{err:.3g}); pieces {got_stats.pieces}, completed {got_stats.completed}, "
+          f"piece_cost_ns_total {got_stats.piece_cost_ns_total} equal")
+
+
+def _wrapper_cost(svc, sim) -> None:
+    """The entry wrappers' cost in the tick (telemetry/flight.py): rounds
+    taken in turn with the device entries bare, wrapped as they ship
+    (counting calls) and wrapped with TRACK_SIGNATURES on; each mode's
+    median fused_dispatch phase and tick, host clock."""
+    from dragonfly2_tpu_torch.ops import evaluator as ev
+    from dragonfly2_tpu_torch.ops import tick as tk
+    from dragonfly2_tpu_torch.telemetry import flight
+
+    wrapped = {(module, name): getattr(module, name) for module, name in (
+        (ev, "schedule_from_packed"), (tk, "fused_tick_chunk"), (tk, "_scatter_rows"))}
+    modes = ("bare", "counted", "signatures")
+    dispatch, ticks = ({mode: [] for mode in modes} for _ in range(2))
+    try:
+        for _ in range(SERVICE_WRAPPER_ROUNDS):
+            for mode in modes:
+                for (module, name), wrapper in wrapped.items():
+                    setattr(module, name, wrapper.__wrapped__ if mode == "bare" else wrapper)
+                flight.TRACK_SIGNATURES = mode == "signatures"
+                ticks[mode].append(_service_round(svc, sim, SERVICE_DOWNLOADS)[0])
+                dispatch[mode].append(svc.recorder.snapshot(1)[0]["fused_dispatch"])
+    finally:
+        for (module, name), wrapper in wrapped.items():
+            setattr(module, name, wrapper)
+        flight.TRACK_SIGNATURES = False
+    print(f"service entry wrappers, {SERVICE_WRAPPER_ROUNDS} rounds of each mode in turn: "
+          + "; ".join(f"{mode} fused_dispatch p50 {statistics.median(dispatch[mode]):.4f} ms, "
+                      f"tick p50 {statistics.median(ticks[mode]):.4f} ms" for mode in modes))
+
+
+def phase_scheduler_service(card: str):
+    """Slice 7's main path: SchedulerService on the card driven by the
+    port's ClusterSimulator through its entries (announce_host,
+    register_peer, tick, piece and peer reports, run_gc), as bench_loop.py
+    replays: warmup, SERVICE_ROUNDS rounds of SERVICE_DOWNLOADS, then one
+    flash-crowd round of SERVICE_FLASH_CROWD. Prints the tick's p50 and
+    p99 on the host clock, each PhaseRecorder phase's median, pieces per
+    second, and the launches and device busy share of
+    SERVICE_PROFILED_TICKS profiled ticks. Checks: the same seeded run of
+    SERVICE_PARITY_ROUNDS on the CPU and on the card gives the same
+    selections and the same pieces, completed and piece_cost_ns_total;
+    fused_tick=False agrees with True on the card at
+    tests/test_fused_tick.py's size; no tick launches a flash kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _paired_runs(lambda device, data_dir: _service(device, data_dir), ("cpu", "cuda"),
+                 SERVICE_PARITY_ROUNDS, SERVICE_DOWNLOADS,
+                 f"service CPU vs CUDA, {SERVICE_PARITY_ROUNDS} rounds at {SERVICE_HOSTS} hosts")
+    _paired_runs(lambda fused, data_dir: _service("cuda", data_dir, ORACLE_HOSTS, ORACLE_TASKS,
+                                                  fused=fused),
+                 (True, False), ORACLE_ROUNDS, ORACLE_DOWNLOADS,
+                 f"service on CUDA, fused_tick=False vs True, {ORACLE_ROUNDS} rounds at "
+                 f"{ORACLE_HOSTS} hosts")
+
+    with tempfile.TemporaryDirectory() as data_dir:
+        start = time.perf_counter()
+        svc, sim = _service("cuda", data_dir)
+        setup_s = time.perf_counter() - start
+        start = time.perf_counter()
+        svc.warmup()
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - start
+        _zero_counts()
+        _zero_wide_counts()
+        ticks = []
+        start = time.perf_counter()
+        for _ in range(SERVICE_ROUNDS):
+            ticks.append(_service_round(svc, sim, SERVICE_DOWNLOADS)[0])
+        wall = time.perf_counter() - start
+        pieces = sim.stats.pieces
+        crowd_ms, crowd = _service_round(svc, sim, SERVICE_FLASH_CROWD)
+        if any(_counts().values()) or any(_wide_counts().values()):
+            _fail(f"the scheduler's ticks launched a flash kernel: {_counts()}")
+        if not any(sel for _, sel in crowd):
+            _fail("the flash-crowd tick selected no parent")
+        p50 = statistics.median(ticks)
+        p99 = sorted(ticks)[int(0.99 * (len(ticks) - 1))]
+        phases = svc.recorder.phase_p50s(SERVICE_ROUNDS)
+        print(f"service on the card ({SERVICE_HOSTS} hosts, {SERVICE_TASKS} tasks, seed {SEED}, "
+              f"{SERVICE_DOWNLOADS} downloads a round, Config() defaults; set-up {setup_s:.2f} s, "
+              f"warmup {warmup_s:.2f} s): {SERVICE_ROUNDS} rounds in {wall:.2f} s, {pieces} pieces "
+              f"= {pieces / wall:.1f} pieces/s; tick p50 {p50:.3f} ms, p99 {p99:.3f} ms (host "
+              f"clock); stats {sim.stats.completed} completed, {sim.stats.back_to_source} back to "
+              f"source; counts {svc.counts()} ({card})")
+        print("service tick phases, median ms over the timed rounds: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+        print(f"service flash-crowd tick of {SERVICE_FLASH_CROWD} downloads: {crowd_ms:.3f} ms "
+              f"(host clock), {len(crowd)} selections; its phases: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in svc.recorder.snapshot(1)[0].items()))
+        led = svc.decisions.counters()
+        slo = svc.slo.verdict()
+        print(f"service decision ledger {led}; SLO verdict {slo['state']}; trace rows "
+              f"{svc.storage.downloads.count()}")
+        if led["decisions"] == 0 or svc.storage.downloads.count() == 0:
+            _fail("the service recorded no decision or no download trace")
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            tick_ms = sum(_service_round(svc, sim, SERVICE_DOWNLOADS)[0]
+                          for _ in range(SERVICE_PROFILED_TICKS))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+        kernels = _kernels_of(prof, SERVICE_PROFILED_TICKS)
+        device_ms = sum(ms for _, ms in kernels)
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.self_device_time_total > 0
+                       and e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)) / SERVICE_PROFILED_TICKS
+        if device_ms == 0:
+            print("service profiled rounds: device time not measured (the profiler saw no "
+                  "device activity)")
+        else:
+            # the device works only inside the ticks: busy over the ticks'
+            # wall, and over the whole rounds' (the simulator's host work too)
+            busy_ticks = 100 * device_ms * SERVICE_PROFILED_TICKS / tick_ms
+            busy_rounds = 100 * device_ms * SERVICE_PROFILED_TICKS / wall_ms
+            print(f"service profiled rounds ({SERVICE_PROFILED_TICKS} of {SERVICE_DOWNLOADS} "
+                  f"downloads): {wall_ms / SERVICE_PROFILED_TICKS:.3f} ms a round, of it the tick "
+                  f"{tick_ms / SERVICE_PROFILED_TICKS:.3f} ms (host clock, profiled); device "
+                  f"kernels {device_ms:.4f} ms a tick over {launches:.0f} launches; device busy "
+                  f"{busy_ticks:.1f}% of the ticks, {busy_rounds:.1f}% of the rounds; top "
+                  "kernels: " + "; ".join(f"{k[:60]} {ms:.4f}" for k, ms in kernels[:6]))
+        _wrapper_cost(svc, sim)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--threshold", action="store_true",
@@ -1974,6 +2556,9 @@ def main() -> None:
     mesh_launches, uly_counts = phase_mesh_training(ds, breakdown["step_p50_ms"])
     long_counts = phase_long_ulysses()
     phase_scheduler_tick(card)
+    wide = phase_wide_kernels(ds)
+    wide_launches = phase_wide_path(ds)
+    phase_scheduler_service(card)
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]
@@ -2032,7 +2617,22 @@ def main() -> None:
               long_counts["flash_bwd_dkv_sm90"], training_kernels["flash_bwd_dkv"], "long"),
         entry("flash_bwd_dq_sm90", dq_sm90_src, "dragonfly2_tpu/ops/flash.py:474",
               long_counts["flash_bwd_dq_sm90"], training_kernels["flash_bwd_dq"], "long"),
+        # slice 7's wide instances (head dims above 128): the wide ranker's
+        # training and eval, and the wide ring's blocks
+        entry("flash_fwd_wide", fwd_src, "dragonfly2_tpu/ops/flash.py:71",
+              wide_launches["flash_fwd_wide"], wide["flash_fwd_wide"], "ranker-eval"),
+        entry("flash_fwd_lse_wide", fwd_src, "dragonfly2_tpu/ops/flash.py:186",
+              wide_launches["flash_fwd_lse_wide"], wide["flash_fwd_lse_wide"], "ranker-train"),
+        entry("flash_fwd_partial_wide", fwd_src, "dragonfly2_tpu/ops/flash.py:177",
+              wide_launches["flash_fwd_partial_wide"], wide["flash_fwd_partial_wide"], "ring-block"),
+        entry("flash_bwd_dkv_wide", bwd_src, "dragonfly2_tpu/ops/flash.py:418",
+              wide_launches["flash_bwd_dkv_wide"], wide["flash_bwd_dkv_wide"], "ranker-train"),
+        entry("flash_bwd_dq_wide", bwd_src, "dragonfly2_tpu/ops/flash.py:474",
+              wide_launches["flash_bwd_dq_wide"], wide["flash_bwd_dq_wide"], "ranker-train"),
     ]}
+    if not all(row["launches"] > 0 for row in line["kernels"]):
+        _fail("a kernel of the path was launched no time on its main path: "
+              + ", ".join(row["name"] for row in line["kernels"] if not row["launches"]))
     print(f"profiler: of {_WINDOWS['taken']} kernel windows, {_WINDOWS['short']} recorded fewer "
           f"launches than were made, {_WINDOWS['over']} more, and {_WINDOWS['uneven']} had a "
           "mean a fifth off their median; kernel times are medians over the launches recorded")

@@ -11,7 +11,8 @@
 // [B, H, L] float32, and a [B, L] key-validity mask (or none), per tile:
 //   P  = exp2(S log2(e)/sqrt(D) - lse log2(e)) on valid pairs, 0 elsewhere
 //   dV = P^T dO;  dS = P (dO V^T - delta);  dK = dS^T Q / sqrt(D);  dQ = dS K / sqrt(D)
-// Head dims 16, 32, 64, 128; bf16 or float32 in, gradients in the input dtype.
+// Head dims 16, 32, 64, 128, and 256 in the wide instances (end of file);
+// bf16 or float32 in, gradients in the input dtype.
 //
 // What bounds it on an H100: at the trained shape, [256, 4, 20, 32] bf16,
 // dK/dV reads q, dO, k, v, lse and delta and writes dK, dV: 8.0 MB, ~2.4 us
@@ -432,6 +433,7 @@ struct Args {
   void* d0;  // dK (dK/dV kernel) or dQ (dQ kernel)
   void* d1;  // dV (dK/dV kernel)
   int B, H, L, causal;
+  float scale;  // the softmax scale, 1/sqrt(D) of the head dim the caller means
 };
 
 template <typename T, int D, int WARPS, bool DKV>
@@ -440,7 +442,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int tiles = (a.L + ROWS - 1) / ROWS;
   const long long blocks = static_cast<long long>(tiles) * a.B * a.H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale = a.scale;
   const float scale_log2 = LOG2E * scale;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -494,18 +496,353 @@ int by_dtype(const Args& a, int D, int dtype, int warps, void* stream) {
   return static_cast<int>(err);
 }
 
+
+// ---- the wide instances: head dims above 128 (ops/flash.py pads D in
+// (128, 256] to 256 and takes no D above it)
+//
+// At D = 256 a warp's 16 keys of dK and dV in float32 registers are 256 a
+// thread, and the staged K, V, Q and dO tiles overflow 48 KB of static
+// shared memory. So each block's 8 warps split the work two ways, WIDE_RG
+// groups of 16 rows (keys for dK/dV, queries for dQ) times WIDE_CQ column
+// quarters of D, with every tile in dynamic shared memory (~71 KB at
+// D = 256). Per 32-row swept tile:
+// 1. warp (rg, cq) computes S and dP (S^T and dP^T for dK/dV) for its 16
+//    rows against the tile's rows cq*8 .. cq*8 + 7 over the whole depth D,
+//    fragments read from shared memory as it goes, forms P and dS as the
+//    instances above do and writes them, rounded to bf16 as those instances
+//    round them for their products, into shared tiles;
+// 2. after a barrier each warp reads its row group's 16 x 32 P and dS back
+//    as A fragments and accumulates its own D/4 columns: dV += P^T dO and
+//    dK += dS^T Q (64 float32 registers a thread for both), or dQ += dS K.
+// No product is computed twice; every output element is summed by one
+// thread in a fixed order. Bound on an H100: at [4, 4, 1024, 256] bf16,
+// dK/dV does 8 D operations per pair (34.4 GFLOP, ~34.7 us at 989
+// TFLOP/s) and dQ 6 D (25.8 GFLOP, ~26.1 us), against 8 and 6 [B, H, L,
+// D] bf16 tensors read or written (67 MB, ~20 us; 50 MB, ~15 us): bound by
+// operations. Simple before fast: mma.sync, no pipelining.
+
+constexpr int WIDE_RG = 2;             // groups of 16 rows a block
+constexpr int WIDE_CQ = 4;             // column quarters of D
+constexpr int WIDE_WARPS = WIDE_RG * WIDE_CQ;
+constexpr int WIDE_ROWS = 16 * WIDE_RG;  // keys (dK/dV) or queries (dQ) per block
+constexpr int WIDE_SWEEP = 8 * WIDE_CQ;  // swept queries (dK/dV) or keys (dQ) per tile
+constexpr int WIDE_LDP = WIDE_SWEEP + 8; // bf16 row stride of the P and dS tiles
+
+template <int D>
+constexpr size_t wide_bwd_smem() {
+  return static_cast<size_t>(2 * WIDE_ROWS + 2 * WIDE_SWEEP) * (D + 8) * sizeof(__nv_bfloat16) +
+         static_cast<size_t>(2 * WIDE_ROWS * WIDE_LDP) * sizeof(__nv_bfloat16) +
+         static_cast<size_t>(2 * WIDE_SWEEP) * sizeof(float);
+}
+
+__device__ __forceinline__ void put_bf16(__nv_bfloat16* dst, float x) {
+  *dst = __float2bfloat16_rn(x);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const uint8_t* __restrict__ mask, T* __restrict__ dk,
+                          T* __restrict__ dv, int H, int L, int num_kblocks, int causal,
+                          float scale_log2, float scale) {
+  constexpr int THREADS = WIDE_WARPS * 32;
+  constexpr int LDS = D + 8;
+  constexpr int DC = D / WIDE_CQ;
+  static_assert(DC % 8 == 0, "whole 8-column tiles a warp");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sV = sK + WIDE_ROWS * LDS;
+  __nv_bfloat16* sQ = sV + WIDE_ROWS * LDS;
+  __nv_bfloat16* sdO = sQ + WIDE_SWEEP * LDS;
+  __nv_bfloat16* sP = sdO + WIDE_SWEEP * LDS;  // P^T [keys][queries]
+  __nv_bfloat16* sdS = sP + WIDE_ROWS * WIDE_LDP;
+  float* sLse = reinterpret_cast<float*>(sdS + WIDE_ROWS * WIDE_LDP);  // lse * log2(e)
+  float* sDelta = sLse + WIDE_SWEEP;
+
+  const int kb = blockIdx.x % num_kblocks;
+  const int bh = blockIdx.x / num_kblocks;
+  const int b = bh / H;
+  const size_t head = static_cast<size_t>(bh) * L * D;
+  const float* lh = lse + static_cast<size_t>(bh) * L;
+  const float* dh = delta + static_cast<size_t>(bh) * L;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(b) * L : nullptr;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rg = warp / WIDE_CQ;
+  const int cq = warp % WIDE_CQ;
+  const int k0 = kb * WIDE_ROWS;
+  const int key_lo = k0 + rg * 16 + g;
+  const int key_hi = key_lo + 8;
+  const bool ok_lo = key_lo < L && (mb == nullptr || mb[key_lo] != 0);
+  const bool ok_hi = key_hi < L && (mb == nullptr || mb[key_hi] != 0);
+
+  stage_rows<T, D, WIDE_ROWS, THREADS>(k + head, k0, L, sK, tid);
+  stage_rows<T, D, WIDE_ROWS, THREADS>(v + head, k0, L, sV, tid);
+
+  float acc_dk[DC / 8][4];
+  float acc_dv[DC / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DC / 8; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[dn][e] = acc_dv[dn][e] = 0.f;
+  }
+
+  const int q_begin = causal ? (k0 / WIDE_SWEEP) * WIDE_SWEEP : 0;
+  for (int q0 = q_begin; q0 < L; q0 += WIDE_SWEEP) {
+    __syncthreads();  // every warp is done with the previous tile's Q, dO, P and dS
+    stage_rows<T, D, WIDE_SWEEP, THREADS>(q + head, q0, L, sQ, tid);
+    stage_rows<T, D, WIDE_SWEEP, THREADS>(dout + head, q0, L, sdO, tid);
+    for (int i = tid; i < WIDE_SWEEP; i += THREADS) {
+      const int row = q0 + i;
+      sLse[i] = row < L ? lh[row] * LOG2E : 0.f;
+      sDelta[i] = row < L ? dh[row] : 0.f;
+    }
+    __syncthreads();
+
+    // 1. S^T and dP^T of keys rg*16.. against queries cq*8..
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    float dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4], b0, b1;
+      frag_a<LDS>(sK, rg * 16, kk, g, t, ka);
+      frag_a<LDS>(sV, rg * 16, kk, g, t, va);
+      frag_b_rows<LDS>(sQ, cq * 8, kk, g, t, b0, b1);
+      mma_bf16(s, ka, b0, b1);
+      frag_b_rows<LDS>(sdO, cq * 8, kk, g, t, b0, b1);
+      mma_bf16(dp, va, b0, b1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ql = cq * 8 + 2 * t + (e & 1);
+      const int query = q0 + ql;
+      const int key = (e < 2) ? key_lo : key_hi;
+      const bool ok = ((e < 2) ? ok_lo : ok_hi) && query < L && (!causal || key <= query);
+      const float p = ok ? exp2f(s[e] * scale_log2 - sLse[ql]) : 0.f;
+      const int at = (rg * 16 + g + 8 * (e >> 1)) * WIDE_LDP + ql;
+      put_bf16(sP + at, p);
+      put_bf16(sdS + at, p * (dp[e] - sDelta[ql]));
+    }
+    __syncthreads();
+
+    // 2. dV += P^T dO and dK += dS^T Q over the warp's columns
+#pragma unroll
+    for (int ks = 0; ks < WIDE_SWEEP / 16; ++ks) {
+      uint32_t pa[4], dsa[4];
+      frag_a<WIDE_LDP>(sP, rg * 16, ks, g, t, pa);
+      frag_a<WIDE_LDP>(sdS, rg * 16, ks, g, t, dsa);
+#pragma unroll
+      for (int dn = 0; dn < DC / 8; ++dn) {
+        uint32_t b0, b1;
+        frag_b_cols<LDS>(sdO, ks * 16, cq * DC + dn * 8, g, t, b0, b1);
+        mma_bf16(acc_dv[dn], pa, b0, b1);
+        frag_b_cols<LDS>(sQ, ks * 16, cq * DC + dn * 8, g, t, b0, b1);
+        mma_bf16(acc_dk[dn], dsa, b0, b1);
+      }
+    }
+  }
+
+  T* dkh = dk + head;
+  T* dvh = dv + head;
+#pragma unroll
+  for (int dn = 0; dn < DC / 8; ++dn) {
+    const int col = cq * DC + dn * 8 + 2 * t;
+    if (key_lo < L) {
+      const size_t at = static_cast<size_t>(key_lo) * D + col;
+      store2(dkh + at, acc_dk[dn][0] * scale, acc_dk[dn][1] * scale);
+      store2(dvh + at, acc_dv[dn][0], acc_dv[dn][1]);
+    }
+    if (key_hi < L) {
+      const size_t at = static_cast<size_t>(key_hi) * D + col;
+      store2(dkh + at, acc_dk[dn][2] * scale, acc_dk[dn][3] * scale);
+      store2(dvh + at, acc_dv[dn][2], acc_dv[dn][3]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const uint8_t* __restrict__ mask, T* __restrict__ dq, int H, int L,
+                         int num_qblocks, int causal, float scale_log2, float scale) {
+  constexpr int THREADS = WIDE_WARPS * 32;
+  constexpr int LDS = D + 8;
+  constexpr int DC = D / WIDE_CQ;
+  static_assert(DC % 8 == 0, "whole 8-column tiles a warp");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sdO = sQ + WIDE_ROWS * LDS;
+  __nv_bfloat16* sK = sdO + WIDE_ROWS * LDS;
+  __nv_bfloat16* sV = sK + WIDE_SWEEP * LDS;
+  __nv_bfloat16* sdS = sV + WIDE_SWEEP * LDS;  // dS [queries][keys]
+  float* sValid = reinterpret_cast<float*>(sdS + 2 * WIDE_ROWS * WIDE_LDP);
+
+  const int qb = blockIdx.x % num_qblocks;
+  const int bh = blockIdx.x / num_qblocks;
+  const int b = bh / H;
+  const size_t head = static_cast<size_t>(bh) * L * D;
+  const float* lh = lse + static_cast<size_t>(bh) * L;
+  const float* dh = delta + static_cast<size_t>(bh) * L;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(b) * L : nullptr;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rg = warp / WIDE_CQ;
+  const int cq = warp % WIDE_CQ;
+  const int q0 = qb * WIDE_ROWS;
+  const int row_lo = q0 + rg * 16 + g;
+  const int row_hi = row_lo + 8;
+  const float lse2[2] = {row_lo < L ? lh[row_lo] * LOG2E : 0.f,
+                         row_hi < L ? lh[row_hi] * LOG2E : 0.f};
+  const float dlt[2] = {row_lo < L ? dh[row_lo] : 0.f, row_hi < L ? dh[row_hi] : 0.f};
+
+  stage_rows<T, D, WIDE_ROWS, THREADS>(q + head, q0, L, sQ, tid);
+  stage_rows<T, D, WIDE_ROWS, THREADS>(dout + head, q0, L, sdO, tid);
+
+  float acc[DC / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DC / 8; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+
+  const int kv_end = causal ? min(L, q0 + WIDE_ROWS) : L;
+  for (int n0 = 0; n0 < kv_end; n0 += WIDE_SWEEP) {
+    __syncthreads();  // every warp is done with the previous tile's K, V and dS
+    stage_rows<T, D, WIDE_SWEEP, THREADS>(k + head, n0, L, sK, tid);
+    stage_rows<T, D, WIDE_SWEEP, THREADS>(v + head, n0, L, sV, tid);
+    for (int i = tid; i < WIDE_SWEEP; i += THREADS) {
+      const int key = n0 + i;
+      sValid[i] = (key < L && (mb == nullptr || mb[key] != 0)) ? 1.f : 0.f;
+    }
+    __syncthreads();
+
+    // 1. S and dP of rows rg*16.. against keys cq*8..
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    float dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], da[4], b0, b1;
+      frag_a<LDS>(sQ, rg * 16, kk, g, t, qa);
+      frag_a<LDS>(sdO, rg * 16, kk, g, t, da);
+      frag_b_rows<LDS>(sK, cq * 8, kk, g, t, b0, b1);
+      mma_bf16(s, qa, b0, b1);
+      frag_b_rows<LDS>(sV, cq * 8, kk, g, t, b0, b1);
+      mma_bf16(dp, da, b0, b1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kl = cq * 8 + 2 * t + (e & 1);
+      const int key = n0 + kl;
+      const int r = e >> 1;
+      const int row = r ? row_hi : row_lo;
+      const bool ok = sValid[kl] > 0.f && row < L && (!causal || key <= row);
+      const float p = ok ? exp2f(s[e] * scale_log2 - lse2[r]) : 0.f;
+      put_bf16(sdS + (rg * 16 + g + 8 * r) * WIDE_LDP + kl, p * (dp[e] - dlt[r]));
+    }
+    __syncthreads();
+
+    // 2. dQ += dS K over the warp's columns
+#pragma unroll
+    for (int ks = 0; ks < WIDE_SWEEP / 16; ++ks) {
+      uint32_t dsa[4];
+      frag_a<WIDE_LDP>(sdS, rg * 16, ks, g, t, dsa);
+#pragma unroll
+      for (int dn = 0; dn < DC / 8; ++dn) {
+        uint32_t b0, b1;
+        frag_b_cols<LDS>(sK, ks * 16, cq * DC + dn * 8, g, t, b0, b1);
+        mma_bf16(acc[dn], dsa, b0, b1);
+      }
+    }
+  }
+
+  T* dqh = dq + head;
+#pragma unroll
+  for (int dn = 0; dn < DC / 8; ++dn) {
+    const int col = cq * DC + dn * 8 + 2 * t;
+    if (row_lo < L) {
+      store2(dqh + static_cast<size_t>(row_lo) * D + col, acc[dn][0] * scale, acc[dn][1] * scale);
+    }
+    if (row_hi < L) {
+      store2(dqh + static_cast<size_t>(row_hi) * D + col, acc[dn][2] * scale, acc[dn][3] * scale);
+    }
+  }
+}
+
+template <typename T, int D, bool DKV>
+cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
+  const int tiles = (a.L + WIDE_ROWS - 1) / WIDE_ROWS;
+  const long long blocks = static_cast<long long>(tiles) * a.B * a.H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  constexpr size_t smem = wide_bwd_smem<D>();
+  const float scale = a.scale;
+  const float scale_log2 = LOG2E * scale;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  cudaError_t err;
+  if constexpr (DKV) {
+    auto kernel = flash_bwd_dkv_wide_kernel<T, D>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(blocks), WIDE_WARPS * 32, smem, stream>>>(
+        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.d0), static_cast<T*>(a.d1),
+        a.H, a.L, tiles, a.causal, scale_log2, scale);
+  } else {
+    auto kernel = flash_bwd_dq_wide_kernel<T, D>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(blocks), WIDE_WARPS * 32, smem, stream>>>(
+        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.d0), a.H, a.L, tiles,
+        a.causal, scale_log2, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <bool DKV>
+int wide_by_dtype(const Args& a, int D, int dtype, void* stream) {
+  if (a.B <= 0 || a.H <= 0 || a.L <= 0 || D != 256) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_wide<__nv_bfloat16, 256, DKV>(a, s);
+  } else if (dtype == 1) {
+    err = launch_wide<float, 256, DKV>(a, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // q, k, v, dout, dk, dv: contiguous [B, H, L, D]; lse, delta: contiguous
 // [B, H, L] float32; mask: contiguous [B, L] bytes (0 = invalid key) or null.
-// dtype: 0 = bf16, 1 = float32. warps: 1, 2 or 4 (16 keys each). Launches on
-// `stream` without synchronising; returns the cudaError_t of the launch.
+// dtype: 0 = bf16, 1 = float32. warps: 1, 2 or 4 (16 keys each). scale: the
+// softmax scale, 1/sqrt(D) of the head dim the caller means (ops/flash.py
+// zero-pads a head dim outside the instances and passes its own). Launches
+// on `stream` without synchronising; returns the cudaError_t of the launch.
 extern "C" int dfly_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, const void* mask, void* dk,
                                   void* dv, int B, int H, int L, int D, int causal, int dtype,
-                                  int warps, void* stream) {
+                                  int warps, float scale, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               static_cast<const uint8_t*>(mask), dk, dv, B, H, L, causal};
+               static_cast<const uint8_t*>(mask), dk, dv, B, H, L, causal, scale};
   return by_dtype<true>(a, D, dtype, warps, stream);
 }
 
@@ -513,10 +850,30 @@ extern "C" int dfly_flash_bwd_dkv(const void* q, const void* k, const void* v, c
 extern "C" int dfly_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, const void* mask, void* dq,
                                  int B, int H, int L, int D, int causal, int dtype, int warps,
-                                 void* stream) {
+                                 float scale, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               static_cast<const uint8_t*>(mask), dq, nullptr, B, H, L, causal};
+               static_cast<const uint8_t*>(mask), dq, nullptr, B, H, L, causal, scale};
   return by_dtype<false>(a, D, dtype, warps, stream);
+}
+
+// The wide instances (head dim 256); arguments as the entries above
+// without `warps`.
+extern "C" int dfly_flash_bwd_dkv_wide(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       const void* mask, void* dk, void* dv, int B, int H, int L,
+                                       int D, int causal, int dtype, float scale, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+               static_cast<const uint8_t*>(mask), dk, dv, B, H, L, causal, scale};
+  return wide_by_dtype<true>(a, D, dtype, stream);
+}
+
+extern "C" int dfly_flash_bwd_dq_wide(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* delta,
+                                      const void* mask, void* dq, int B, int H, int L, int D,
+                                      int causal, int dtype, float scale, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+               static_cast<const uint8_t*>(mask), dq, nullptr, B, H, L, causal, scale};
+  return wide_by_dtype<false>(a, D, dtype, stream);
 }
 
 extern "C" const char* dfly_cuda_error_string(int err) {

@@ -273,6 +273,7 @@ struct Args {
   const uint8_t* mask;
   void* dq;
   int B, H, L, causal;
+  float scale;  // the softmax scale, 1/sqrt(D) of the head dim the caller means
 };
 
 template <int D>
@@ -291,7 +292,7 @@ int launch(const Args& a, cudaStream_t stream) {
   auto kernel = flash_bwd_dq_sm90_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale = a.scale;
   kernel<<<static_cast<unsigned>(blocks), C::THREADS, C::SMEM, stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, a.mask, static_cast<__nv_bfloat16*>(a.dq), a.H, a.L,
       num_qblocks, a.causal, LOG2E * scale, scale);
@@ -302,16 +303,17 @@ int launch(const Args& a, cudaStream_t stream) {
 
 // q, k, v, dout, dq: contiguous bf16 [B, H, L, D], 16-byte aligned; lse,
 // delta: contiguous [B, H, L] float32; mask: contiguous [B, L] bytes (0 =
-// invalid key) or null. Launches on `stream` without synchronising; returns
+// invalid key) or null. scale: the softmax scale, 1/sqrt(D) of the head
+// dim the caller means. Launches on `stream` without synchronising; returns
 // 0, the cudaError_t of the launch, or sm90::TMAP_ERROR + the CUresult of a
 // refused TMA descriptor.
 extern "C" int dfly_flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       const void* mask, void* dq, int B, int H, int L, int D,
-                                      int causal, void* stream) {
+                                      int causal, float scale, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               static_cast<const uint8_t*>(mask), dq, B, H, L, causal};
+               static_cast<const uint8_t*>(mask), dq, B, H, L, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch<16>(a, s);

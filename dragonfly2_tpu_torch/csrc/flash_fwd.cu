@@ -19,7 +19,8 @@
 //   acc = 0: finite, so the ring's exp(row_max - new_max) never meets
 //   -inf - -inf. No causal variant, as in the reference.
 // The mode is a template parameter, so the finished-output instances carry
-// no branch. Head dims: 16, 32, 64, 128.
+// no branch. Head dims: 16, 32, 64, 128, and 256 in the wide instance
+// (end of file).
 //
 // What bounds it on an H100: at the served shape, [1024, 4, 15, 32] bf16,
 // q, k, v and o are 3.9 MB each, 15.7 MB together, which the card moves in
@@ -339,13 +340,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int D, int WARPS, int MODE>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-                   float* stat0, float* stat1, int B, int H, int L, int causal,
+                   float* stat0, float* stat1, int B, int H, int L, int causal, float scale,
                    cudaStream_t stream) {
   constexpr int BM = 16 * WARPS;
   const int num_qblocks = (L + BM - 1) / BM;
   const long long blocks = static_cast<long long>(num_qblocks) * B * H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
+  const float scale_log2 = LOG2E * scale;
   flash_fwd_kernel<T, D, WARPS, MODE><<<static_cast<unsigned>(blocks), WARPS * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<out_t<T, MODE>*>(o), stat0, stat1, H, L,
@@ -356,11 +357,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 template <typename T, int D, int MODE>
 cudaError_t by_warps(int warps, const void* q, const void* k, const void* v, const void* mask,
                      void* o, float* stat0, float* stat1, int B, int H, int L, int causal,
-                     cudaStream_t stream) {
+                     float scale, cudaStream_t stream) {
   switch (warps) {
-    case 1: return launch<T, D, 1, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
-    case 2: return launch<T, D, 2, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
-    case 4: return launch<T, D, 4, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
+    case 1: return launch<T, D, 1, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
+    case 2: return launch<T, D, 2, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
+    case 4: return launch<T, D, 4, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -368,12 +369,12 @@ cudaError_t by_warps(int warps, const void* q, const void* k, const void* v, con
 template <typename T, int MODE>
 cudaError_t by_dim(int D, int warps, const void* q, const void* k, const void* v,
                    const void* mask, void* o, float* stat0, float* stat1, int B, int H, int L,
-                   int causal, cudaStream_t stream) {
+                   int causal, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return by_warps<T, 16, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
-    case 32: return by_warps<T, 32, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
-    case 64: return by_warps<T, 64, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
-    case 128: return by_warps<T, 128, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, stream);
+    case 16: return by_warps<T, 16, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
+    case 32: return by_warps<T, 32, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
+    case 64: return by_warps<T, 64, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
+    case 128: return by_warps<T, 128, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -381,16 +382,290 @@ cudaError_t by_dim(int D, int warps, const void* q, const void* k, const void* v
 template <int MODE>
 int by_dtype(const void* q, const void* k, const void* v, const void* mask, void* o, void* stat0,
              void* stat1, int B, int H, int L, int D, int causal, int dtype, int warps,
-             void* stream) {
+             float scale, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* s0 = static_cast<float*>(stat0);
   float* s1 = static_cast<float*>(stat1);
   cudaError_t err;
   if (dtype == 0) {
-    err = by_dim<__nv_bfloat16, MODE>(D, warps, q, k, v, mask, o, s0, s1, B, H, L, causal, s);
+    err = by_dim<__nv_bfloat16, MODE>(D, warps, q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
   } else if (dtype == 1) {
-    err = by_dim<float, MODE>(D, warps, q, k, v, mask, o, s0, s1, B, H, L, causal, s);
+    err = by_dim<float, MODE>(D, warps, q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+
+// ---- the wide instance: head dims above 128 (ops/flash.py pads D in
+// (128, 256] to 256 and takes no D above it)
+//
+// At D = 256 a warp cannot keep 16 rows of O in float32 registers (128 a
+// thread) beside its Q fragments and a score tile, and Q with 64-key K/V
+// tiles overflows 48 KB of static shared memory. So the block's 8 warps
+// split the work two ways, WIDE_RG row groups of 16 query rows times
+// WIDE_CQ column quarters of D, and every tile lives in dynamic shared
+// memory (Q 32 rows, K and V 32 keys, each D + 8 bf16 a row, and a 32 x 32
+// float score tile: 55 KB at D = 256). Per 32-key tile:
+// 1. warp (rg, cq) computes the scores of its 16 rows against the tile's
+//    keys cq*8 .. cq*8 + 7 over the whole depth D, with Q and K fragments
+//    read from shared memory as it goes (nothing of Q is held), and writes
+//    them, scaled into the log2 domain and masked to -inf, into the score
+//    tile;
+// 2. after a barrier every warp of row group rg reads the group's 16 x 32
+//    scores back in the mma accumulator layout and takes the same online
+//    softmax step (the same arithmetic in the same order, so the four
+//    copies of a row's max and sum agree bit for bit), then accumulates
+//    P V into its own D/4 columns of O, 64 float32 registers a thread.
+// No product is computed twice. Numerics as the instances above: bf16
+// operands, float32 statistics and accumulators, P rounded to bf16 for P V.
+// Bound on an H100: at [4, 4, 1024, 256] bf16 the products are 17.2 GFLOP
+// (~17.4 us at 989 TFLOP/s) against 33.6 MB for q, k, v and o (~10.0 us at
+// 3.35 TB/s): bound by operations from L ~ 600 up, by bytes below. Simple
+// before fast: mma.sync, no pipelining.
+
+constexpr int WIDE_RG = 2;                // row groups of 16 query rows
+constexpr int WIDE_CQ = 4;                // column quarters of D
+constexpr int WIDE_WARPS = WIDE_RG * WIDE_CQ;
+constexpr int WIDE_BM = 16 * WIDE_RG;     // query rows per block
+constexpr int WIDE_BN = 8 * WIDE_CQ;      // keys per tile: 8 a warp in step 1
+constexpr int WIDE_LDSS = WIDE_BN + 4;    // score tile row stride (floats)
+
+// -inf, a masked score of the wide instance
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+template <int D>
+constexpr size_t wide_fwd_smem() {
+  return static_cast<size_t>(WIDE_BM + 2 * WIDE_BN) * (D + 8) * sizeof(__nv_bfloat16) +
+         static_cast<size_t>(WIDE_BM * WIDE_LDSS + WIDE_BN) * sizeof(float);
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void stage_wide(const T* __restrict__ src, int r0, int rows, int L,
+                                           __nv_bfloat16* dst, int tid) {
+  constexpr int LDS = D + 8;
+  constexpr int CHUNKS = D / 8;
+  for (int i = tid; i < rows * CHUNKS; i += WIDE_WARPS * 32) {
+    const int r = i / CHUNKS;
+    const int c = (i % CHUNKS) * 8;
+    const int row = r0 + r;
+    if (row < L) {
+      load8(src + static_cast<size_t>(row) * D + c, dst + r * LDS + c);
+    } else {
+      zero8(dst + r * LDS + c);
+    }
+  }
+}
+
+template <typename T, int D, int MODE>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const uint8_t* __restrict__ mask, out_t<T, MODE>* __restrict__ o,
+                      float* __restrict__ stat0, float* __restrict__ stat1,
+                      int H, int L, int num_qblocks, int causal, float scale_log2) {
+  constexpr int LDS = D + 8;
+  constexpr int DC = D / WIDE_CQ;  // columns of O a warp accumulates
+  constexpr int NT = WIDE_BN / 8;  // 8-key tiles of the score tile
+  static_assert(DC % 8 == 0, "whole 8-column tiles a warp");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = sQ + WIDE_BM * LDS;
+  __nv_bfloat16* sV = sK + WIDE_BN * LDS;
+  float* sS = reinterpret_cast<float*>(sV + WIDE_BN * LDS);
+  float* sValid = sS + WIDE_BM * WIDE_LDSS;
+
+  const int qb = blockIdx.x % num_qblocks;
+  const int bh = blockIdx.x / num_qblocks;
+  const int b = bh / H;
+  const size_t head = static_cast<size_t>(bh) * L * D;
+  out_t<T, MODE>* oh = o + head;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(b) * L : nullptr;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rg = warp / WIDE_CQ;
+  const int cq = warp % WIDE_CQ;
+  const int q0 = qb * WIDE_BM;
+  const int row_lo = q0 + rg * 16 + g;
+  const int row_hi = row_lo + 8;
+
+  stage_wide<T, D>(q + head, q0, WIDE_BM, L, sQ, tid);
+
+  float acc[DC / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DC / 8; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+  float m_row[2] = {NEG_BIG, NEG_BIG};
+  float l_row[2] = {0.f, 0.f};
+
+  const int kv_end = causal ? min(L, q0 + WIDE_BM) : L;
+  for (int n0 = 0; n0 < kv_end; n0 += WIDE_BN) {
+    __syncthreads();  // every warp is done with the previous tile and its scores
+    stage_wide<T, D>(k + head, n0, WIDE_BN, L, sK, tid);
+    stage_wide<T, D>(v + head, n0, WIDE_BN, L, sV, tid);
+    for (int i = tid; i < WIDE_BN; i += WIDE_WARPS * 32) {
+      const int key = n0 + i;
+      sValid[i] = (key < L && (mb == nullptr || mb[key] != 0)) ? 1.f : 0.f;
+    }
+    __syncthreads();
+
+    // 1. scores of rows rg*16.. against keys cq*8.., the whole depth
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const __nv_bfloat16* qa = sQ + (rg * 16 + g) * LDS + kk * 16 + 2 * t;
+      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LDS), ld32(qa + 8), ld32(qa + 8 * LDS + 8)};
+      const __nv_bfloat16* kb = sK + (cq * 8 + g) * LDS + kk * 16 + 2 * t;
+      mma_bf16(s, a, ld32(kb), ld32(kb + 8));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kl = cq * 8 + 2 * t + (e & 1);
+      const int row = (e < 2) ? row_lo : row_hi;
+      const bool ok = sValid[kl] > 0.f && (!causal || n0 + kl <= row);
+      // -inf: exp2 of a masked score is 0 even while the row's max is NEG_BIG
+      sS[(rg * 16 + g + 8 * (e >> 1)) * WIDE_LDSS + kl] = ok ? s[e] * scale_log2 : neg_inf();
+    }
+    __syncthreads();
+
+    // 2. the row group's scores in accumulator layout, the online softmax step
+    float p[NT][4];
+    float tile_max[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sS[(rg * 16 + g + 8 * (e >> 1)) * WIDE_LDSS + nt * 8 + 2 * t + (e & 1)];
+        p[nt][e] = x;
+        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+      const float m_new = fmaxf(m_row[r], tile_max[r]);
+      corr[r] = exp2f(m_row[r] - m_new);
+      m_row[r] = m_new;
+    }
+    float tile_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = exp2f(p[nt][e] - m_row[e >> 1]);
+        p[nt][e] = x;
+        tile_sum[e >> 1] += x;
+      }
+    }
+    l_row[0] = l_row[0] * corr[0] + tile_sum[0];
+    l_row[1] = l_row[1] * corr[1] + tile_sum[1];
+#pragma unroll
+    for (int dn = 0; dn < DC / 8; ++dn) {
+      acc[dn][0] *= corr[0];
+      acc[dn][1] *= corr[0];
+      acc[dn][2] *= corr[1];
+      acc[dn][3] *= corr[1];
+    }
+#pragma unroll
+    for (int ks = 0; ks < WIDE_BN / 16; ++ks) {
+      uint32_t pa[4];
+      pa[0] = pack(p[2 * ks][0], p[2 * ks][1]);
+      pa[1] = pack(p[2 * ks][2], p[2 * ks][3]);
+      pa[2] = pack(p[2 * ks + 1][0], p[2 * ks + 1][1]);
+      pa[3] = pack(p[2 * ks + 1][2], p[2 * ks + 1][3]);
+#pragma unroll
+      for (int dn = 0; dn < DC / 8; ++dn) {
+        const __nv_bfloat16* vb = sV + (ks * 16 + 2 * t) * LDS + cq * DC + dn * 8 + g;
+        const uint32_t b0 = pack(vb[0], vb[LDS]);
+        const uint32_t b1 = pack(vb[8 * LDS], vb[9 * LDS]);
+        mma_bf16(acc[dn], pa, b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+  }
+  const float inv_lo = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[0], 1e-9f);
+  const float inv_hi = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[1], 1e-9f);
+#pragma unroll
+  for (int dn = 0; dn < DC / 8; ++dn) {
+    const int col = cq * DC + dn * 8 + 2 * t;
+    if (row_lo < L) {
+      store2(oh + static_cast<size_t>(row_lo) * D + col, acc[dn][0] * inv_lo, acc[dn][1] * inv_lo);
+    }
+    if (row_hi < L) {
+      store2(oh + static_cast<size_t>(row_hi) * D + col, acc[dn][2] * inv_hi, acc[dn][3] * inv_hi);
+    }
+  }
+  // the four column warps hold the same statistics: the first one writes
+  if constexpr (MODE == MODE_LSE) {
+    if (cq == 0 && t == 0) {
+      float* lh = stat0 + static_cast<size_t>(bh) * L;
+      if (row_lo < L) lh[row_lo] = m_row[0] * LN2 + logf(fmaxf(l_row[0], 1e-30f));
+      if (row_hi < L) lh[row_hi] = m_row[1] * LN2 + logf(fmaxf(l_row[1], 1e-30f));
+    }
+  }
+  if constexpr (MODE == MODE_PARTIAL) {
+    if (cq == 0 && t == 0) {
+      float* mh = stat0 + static_cast<size_t>(bh) * L;
+      float* sh = stat1 + static_cast<size_t>(bh) * L;
+      if (row_lo < L) {
+        mh[row_lo] = m_row[0] * LN2;
+        sh[row_lo] = l_row[0];
+      }
+      if (row_hi < L) {
+        mh[row_hi] = m_row[1] * LN2;
+        sh[row_hi] = l_row[1];
+      }
+    }
+  }
+}
+
+template <typename T, int D, int MODE>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* mask, void* o,
+                        float* stat0, float* stat1, int B, int H, int L, int causal, float scale,
+                        cudaStream_t stream) {
+  const int num_qblocks = (L + WIDE_BM - 1) / WIDE_BM;
+  const long long blocks = static_cast<long long>(num_qblocks) * B * H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  constexpr size_t smem = wide_fwd_smem<D>();
+  auto kernel = flash_fwd_wide_kernel<T, D, MODE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = LOG2E * scale;
+  kernel<<<static_cast<unsigned>(blocks), WIDE_WARPS * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<out_t<T, MODE>*>(o), stat0, stat1, H, L,
+      num_qblocks, causal, scale_log2);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+int wide_by_dtype(const void* q, const void* k, const void* v, const void* mask, void* o,
+                  void* stat0, void* stat1, int B, int H, int L, int D, int causal, int dtype,
+                  float scale, void* stream) {
+  if (B <= 0 || H <= 0 || L <= 0 || D != 256) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* s0 = static_cast<float*>(stat0);
+  float* s1 = static_cast<float*>(stat1);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_wide<__nv_bfloat16, 256, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
+  } else if (dtype == 1) {
+    err = launch_wide<float, 256, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -401,22 +676,24 @@ int by_dtype(const void* q, const void* k, const void* v, const void* mask, void
 
 // q, k, v, o: contiguous [B, H, L, D]; mask: contiguous [B, L] bytes (0 =
 // invalid key) or null. dtype: 0 = bf16, 1 = float32. warps: 1, 2 or 4.
-// Launches on `stream` without synchronising; returns the cudaError_t of the
-// launch (0 = success).
+// scale: the softmax scale of the scores, 1/sqrt(D) of the head dim the
+// caller means (ops/flash.py zero-pads a head dim outside the instances
+// and passes its own). Launches on `stream` without synchronising; returns
+// the cudaError_t of the launch (0 = success).
 extern "C" int dfly_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
                               void* o, int B, int H, int L, int D, int causal, int dtype,
-                              int warps, void* stream) {
+                              int warps, float scale, void* stream) {
   return by_dtype<MODE_OUT>(q, k, v, mask, o, nullptr, nullptr, B, H, L, D, causal, dtype, warps,
-                            stream);
+                            scale, stream);
 }
 
 // As dfly_flash_fwd, and lse: contiguous [B, H, L] float32, written for
 // every row.
 extern "C" int dfly_flash_fwd_lse(const void* q, const void* k, const void* v, const void* mask,
                                   void* o, void* lse, int B, int H, int L, int D, int causal,
-                                  int dtype, int warps, void* stream) {
+                                  int dtype, int warps, float scale, void* stream) {
   return by_dtype<MODE_LSE>(q, k, v, mask, o, lse, nullptr, B, H, L, D, causal, dtype, warps,
-                            stream);
+                            scale, stream);
 }
 
 // The partial mode, never causal: acc contiguous [B, H, L, D] float32 (q of
@@ -425,9 +702,33 @@ extern "C" int dfly_flash_fwd_lse(const void* q, const void* k, const void* v, c
 extern "C" int dfly_flash_fwd_partial(const void* q, const void* k, const void* v,
                                       const void* mask, void* acc, void* row_max, void* row_sum,
                                       int B, int H, int L, int D, int dtype, int warps,
-                                      void* stream) {
+                                      float scale, void* stream) {
   return by_dtype<MODE_PARTIAL>(q, k, v, mask, acc, row_max, row_sum, B, H, L, D, 0, dtype, warps,
-                                stream);
+                                scale, stream);
+}
+
+// The wide instance (head dim 256), one entry per mode; arguments as the
+// entries above without `warps`.
+extern "C" int dfly_flash_fwd_wide(const void* q, const void* k, const void* v, const void* mask,
+                                   void* o, int B, int H, int L, int D, int causal, int dtype,
+                                   float scale, void* stream) {
+  return wide_by_dtype<MODE_OUT>(q, k, v, mask, o, nullptr, nullptr, B, H, L, D, causal, dtype,
+                                 scale, stream);
+}
+
+extern "C" int dfly_flash_fwd_lse_wide(const void* q, const void* k, const void* v,
+                                       const void* mask, void* o, void* lse, int B, int H, int L,
+                                       int D, int causal, int dtype, float scale, void* stream) {
+  return wide_by_dtype<MODE_LSE>(q, k, v, mask, o, lse, nullptr, B, H, L, D, causal, dtype,
+                                 scale, stream);
+}
+
+extern "C" int dfly_flash_fwd_partial_wide(const void* q, const void* k, const void* v,
+                                           const void* mask, void* acc, void* row_max,
+                                           void* row_sum, int B, int H, int L, int D, int dtype,
+                                           float scale, void* stream) {
+  return wide_by_dtype<MODE_PARTIAL>(q, k, v, mask, acc, row_max, row_sum, B, H, L, D, 0, dtype,
+                                     scale, stream);
 }
 
 extern "C" const char* dfly_cuda_error_string(int err) {

@@ -328,7 +328,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int D, int MODE>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* o, float* stat0,
-           float* stat1, int B, int H, int L, int causal, cudaStream_t stream) {
+           float* stat1, int B, int H, int L, int causal, float scale, cudaStream_t stream) {
   using C = Fwd<D>;
   const long long planes = static_cast<long long>(B) * H;
   const int num_qblocks = (L + C::BM - 1) / C::BM;
@@ -342,7 +342,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   auto kernel = flash_fwd_sm90_kernel<D, MODE>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
+  const float scale_log2 = LOG2E * scale;
   kernel<<<static_cast<unsigned>(blocks), C::THREADS, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<const uint8_t*>(mask), static_cast<out_t<MODE>*>(o), stat0, stat1, H,
       L, num_qblocks, causal, scale_log2);
@@ -351,16 +351,16 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
 
 template <int MODE>
 int by_dim(const void* q, const void* k, const void* v, const void* mask, void* o, void* stat0,
-           void* stat1, int B, int H, int L, int D, int causal, void* stream) {
+           void* stat1, int B, int H, int L, int D, int causal, float scale, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* s0 = static_cast<float*>(stat0);
   float* s1 = static_cast<float*>(stat1);
   switch (D) {
-    case 16: return launch<16, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, s);
-    case 32: return launch<32, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, s);
-    case 64: return launch<64, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, s);
-    case 128: return launch<128, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, s);
+    case 16: return launch<16, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
+    case 32: return launch<32, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
+    case 64: return launch<64, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
+    case 128: return launch<128, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -368,28 +368,31 @@ int by_dim(const void* q, const void* k, const void* v, const void* mask, void* 
 }  // namespace
 
 // q, k, v, o: contiguous bf16 [B, H, L, D], 16-byte aligned; mask:
-// contiguous [B, L] bytes (0 = invalid key) or null. Launches on `stream`
+// contiguous [B, L] bytes (0 = invalid key) or null. scale: the softmax
+// scale, 1/sqrt(D) of the head dim the caller means. Launches on `stream`
 // without synchronising; returns 0, the cudaError_t of the launch, or
 // sm90::TMAP_ERROR + the CUresult of a refused TMA descriptor.
 extern "C" int dfly_flash_fwd_sm90(const void* q, const void* k, const void* v, const void* mask,
-                                   void* o, int B, int H, int L, int D, int causal, void* stream) {
-  return by_dim<MODE_OUT>(q, k, v, mask, o, nullptr, nullptr, B, H, L, D, causal, stream);
+                                   void* o, int B, int H, int L, int D, int causal, float scale,
+                                   void* stream) {
+  return by_dim<MODE_OUT>(q, k, v, mask, o, nullptr, nullptr, B, H, L, D, causal, scale, stream);
 }
 
 // As dfly_flash_fwd_sm90, and lse: contiguous [B, H, L] float32.
 extern "C" int dfly_flash_fwd_lse_sm90(const void* q, const void* k, const void* v,
                                        const void* mask, void* o, void* lse, int B, int H, int L,
-                                       int D, int causal, void* stream) {
-  return by_dim<MODE_LSE>(q, k, v, mask, o, lse, nullptr, B, H, L, D, causal, stream);
+                                       int D, int causal, float scale, void* stream) {
+  return by_dim<MODE_LSE>(q, k, v, mask, o, lse, nullptr, B, H, L, D, causal, scale, stream);
 }
 
 // The partial mode, never causal: acc contiguous [B, H, L, D] float32,
 // row_max and row_sum contiguous [B, H, L] float32.
 extern "C" int dfly_flash_fwd_partial_sm90(const void* q, const void* k, const void* v,
                                            const void* mask, void* acc, void* row_max,
-                                           void* row_sum, int B, int H, int L, int D,
+                                           void* row_sum, int B, int H, int L, int D, float scale,
                                            void* stream) {
-  return by_dim<MODE_PARTIAL>(q, k, v, mask, acc, row_max, row_sum, B, H, L, D, 0, stream);
+  return by_dim<MODE_PARTIAL>(q, k, v, mask, acc, row_max, row_sum, B, H, L, D, 0, scale,
+                              stream);
 }
 
 extern "C" const char* dfly_cuda_error_string(int err) { return sm90::error_string(err); }

@@ -1,13 +1,15 @@
-"""Native host kernels through ctypes: the DAG reachability queries.
+"""Native host kernels through ctypes: the DAG reachability queries and
+the trace store's numeric CSV parse.
 
 The port's own loader for the repository's ``native/dfnative.cpp`` (used
 as it is, read-only), after dragonfly2_tpu/native/__init__.py. The source
 is compiled once with g++ into ``dragonfly2_tpu_torch/_build/``, under a
 name that carries a hash of the source and the flags, and loaded with
 ctypes, on the first call that needs it (a blocking build). These are
-host-side C++ functions of the DAG's mutation path, not device kernels:
-where the library cannot be built or loaded, graph/dag.py keeps its own
-numpy BFS, which is the same host semantics.
+host-side C++ functions of the DAG's mutation path and of records/storage.py's ``numeric_matrix``, not
+device kernels: where the library cannot be built or loaded, graph/dag.py
+keeps its own numpy BFS and storage.py its csv-module parse, which are the
+same host semantics.
 """
 
 from __future__ import annotations
@@ -66,6 +68,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         u64p, ctypes.c_int64, ctypes.c_int64, i64p, i64p, ctypes.c_int64, i32p,
     ]
     lib.df_dag_reachable_batch.restype = None
+    lib.df_csv_parse_numeric.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+    ]
+    lib.df_csv_parse_numeric.restype = ctypes.c_int64
     return lib
 
 
@@ -148,3 +155,22 @@ def dag_reachable_batch(adj: np.ndarray, srcs: np.ndarray, dsts: np.ndarray
     if (out < 0).any():
         return None  # native-side allocation failure
     return out.astype(bool)
+
+
+def csv_parse_numeric(data: bytes, n_cols: int, skip_header: bool = True,
+                      max_rows: int | None = None) -> np.ndarray | None:
+    """Parse CSV bytes into an (rows, n_cols) float64 matrix; non-numeric
+    fields become NaN. None when the native lib is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    if max_rows is None:
+        max_rows = data.count(b"\n") + 1
+    out = np.empty((max(max_rows, 1), n_cols), np.float64)
+    rows = lib.df_csv_parse_numeric(
+        data, len(data), n_cols, 1 if skip_header else 0,
+        _as_ptr(out, ctypes.c_double), max_rows,
+    )
+    if rows < 0:
+        return None
+    return out[:rows]

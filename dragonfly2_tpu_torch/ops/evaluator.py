@@ -453,6 +453,16 @@ def schedule_from_packed(buf, b: int, k: int, c: int, l: int, n: int,
     return _pack_selection(values, indices, valid)
 
 
+
+# Call and signature counters (telemetry/flight.py), as the reference
+# instruments its jitted entry; nothing here waits for the device, so the
+# pipelined tick keeps its overlap.
+from dragonfly2_tpu_torch.telemetry.flight import instrument_entry as _instrument_entry  # noqa: E402
+
+schedule_from_packed = _instrument_entry(
+    schedule_from_packed, "evaluator.schedule_from_packed", service="scheduler"
+)
+
 def find_success_parent(feats: dict, blocklist=None, in_degree=None, can_add_edge=None,
                         algorithm: str = "default") -> dict:
     """Best already-Succeeded parent per child (FindSuccessParent,

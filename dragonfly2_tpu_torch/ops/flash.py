@@ -17,22 +17,24 @@ H100:
   (flash.py:474) -> csrc/flash_bwd.cu ``dfly_flash_bwd_dkv`` and
   ``dfly_flash_bwd_dq`` (training backward).
 
-Every one of them has two instances: the mma.sync ones above, and Hopper
-redesigns with TMA, wgmma and a ring of dynamic shared memory for long
+Every one of them has three instances: the mma.sync ones above, the wide
+mma.sync ones for head dim 256 in the same two sources (``*_wide``), and
+Hopper redesigns with TMA, wgmma and a ring of dynamic shared memory for long
 sequences, csrc/flash_fwd_sm90.cu (``dfly_flash_fwd_sm90``,
 ``dfly_flash_fwd_lse_sm90``, ``dfly_flash_fwd_partial_sm90``),
 csrc/flash_bwd_dkv_sm90.cu (``dfly_flash_bwd_dkv_sm90``) and
-csrc/flash_bwd_dq_sm90.cu (``dfly_flash_bwd_dq_sm90``). ``_sm90_path``
-picks one from the shape and dtype alone; a refused launch raises, it
-never falls back to the other.
+csrc/flash_bwd_dq_sm90.cu (``dfly_flash_bwd_dq_sm90``). The head dim and
+``_sm90_path`` pick one from the shape and dtype alone; a refused launch
+raises, it never falls back to another.
 
 Every wrapper launches its kernel on a CUDA tensor, or raises; on a CPU
 tensor it takes the kernel's plain version, and only then. Each function
 has a launch counter (``LAUNCHES``, ``LSE_LAUNCHES``, ``PARTIAL_LAUNCHES``,
-``DKV_LAUNCHES``, ``DQ_LAUNCHES``) that counts its launches of either
-instance, and each Hopper instance one more (``FWD_SM90_LAUNCHES``,
+``DKV_LAUNCHES``, ``DQ_LAUNCHES``) that counts its launches of any
+instance, and each Hopper and wide instance one more (``FWD_SM90_LAUNCHES``,
 ``LSE_SM90_LAUNCHES``, ``PARTIAL_SM90_LAUNCHES``, ``DKV_SM90_LAUNCHES``,
-``DQ_SM90_LAUNCHES``); only the lines launching add to them.
+``DQ_SM90_LAUNCHES``; ``FWD_WIDE_LAUNCHES`` .. ``DQ_WIDE_LAUNCHES``); only
+the lines launching add to them.
 
 ``flash_attention`` is the public entry. With autograd recording and an
 input that requires grad it runs ``FlashAttention`` (forward with lse,
@@ -42,15 +44,16 @@ forward. ``flash_attention_partials`` is forward-only, as in the
 reference: under autograd it raises.
 
 Head dims: the kernels have instances at D in ``HEAD_DIMS`` (16, 32, 64,
-128); the reference takes any D, and so does every function here. On the
+128) and, wide, in ``WIDE_DIMS`` (256); the reference takes any D. On the
 CPU the plain versions take any D. On CUDA the shape alone decides, before
-any launch: a D below 128 outside the set is zero-padded to the next
-instance's D_pad, with q pre-scaled by sqrt(D_pad/D) so that the kernel's
-1/sqrt(D_pad) yields 1/sqrt(D), and the output sliced back to D (in
-``flash_attention`` autograd carries the pad, the scale and the slice, so
-both backward kernels see D_pad). A D above 128 has no instance yet, so on
-CUDA it is refused with a ValueError before any launch; it never runs the
-plain version on the card. A refused launch raises too.
+any launch: a D up to 256 outside the instances is zero-padded to the next
+instance's D_pad, the kernels score with the softmax scale of the unpadded
+D (every C entry takes it), and the outputs and gradients are sliced back
+to D. Zero columns add nothing to q k^T, dO v^T or rowsum(dO o), so the
+padded call computes the unpadded function, and nothing is rounded on the
+way. A D above 256 has no instance, so on CUDA it is refused with a
+ValueError before any launch; it never runs the plain version on the card.
+A refused launch raises too.
 """
 
 from __future__ import annotations
@@ -65,7 +68,9 @@ import torch.nn.functional as F
 from dragonfly2_tpu_torch.ops import build
 from dragonfly2_tpu_torch.parallel.ring import dense_attention
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)  # the mma.sync and Hopper instances
+WIDE_DIMS = (256,)  # the wide mma.sync instances
+INSTANCE_DIMS = HEAD_DIMS + WIDE_DIMS
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _NEG = -1e30
 _LOG2E = math.log2(math.e)
@@ -85,6 +90,12 @@ LSE_SM90_LAUNCHES = 0
 PARTIAL_SM90_LAUNCHES = 0
 DKV_SM90_LAUNCHES = 0
 DQ_SM90_LAUNCHES = 0
+# and those of the wide (head dim 256) instances
+FWD_WIDE_LAUNCHES = 0
+LSE_WIDE_LAUNCHES = 0
+PARTIAL_WIDE_LAUNCHES = 0
+DKV_WIDE_LAUNCHES = 0
+DQ_WIDE_LAUNCHES = 0
 _launches_lock = threading.Lock()
 
 # The Hopper instances take bf16 at L above this. Shorter sets (the
@@ -96,19 +107,25 @@ _launches_lock = threading.Lock()
 # and lose from L = 96.
 SM90_MIN_L = 64
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry -> (source in csrc/, argtypes); every entry returns a cudaError_t
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry -> (source in csrc/, argtypes); every entry takes the pointers,
+# the ints, the softmax scale and the stream, and returns a cudaError_t
 _ENTRIES = {
-    "dfly_flash_fwd": ("flash_fwd", [_P] * 5 + [_I] * 7 + [_P]),
-    "dfly_flash_fwd_lse": ("flash_fwd", [_P] * 6 + [_I] * 7 + [_P]),
-    "dfly_flash_fwd_partial": ("flash_fwd", [_P] * 7 + [_I] * 6 + [_P]),
-    "dfly_flash_bwd_dkv": ("flash_bwd", [_P] * 9 + [_I] * 7 + [_P]),
-    "dfly_flash_bwd_dq": ("flash_bwd", [_P] * 8 + [_I] * 7 + [_P]),
-    "dfly_flash_fwd_sm90": ("flash_fwd_sm90", [_P] * 5 + [_I] * 5 + [_P]),
-    "dfly_flash_fwd_lse_sm90": ("flash_fwd_sm90", [_P] * 6 + [_I] * 5 + [_P]),
-    "dfly_flash_fwd_partial_sm90": ("flash_fwd_sm90", [_P] * 7 + [_I] * 4 + [_P]),
-    "dfly_flash_bwd_dkv_sm90": ("flash_bwd_dkv_sm90", [_P] * 9 + [_I] * 5 + [_P]),
-    "dfly_flash_bwd_dq_sm90": ("flash_bwd_dq_sm90", [_P] * 8 + [_I] * 5 + [_P]),
+    "dfly_flash_fwd": ("flash_fwd", [_P] * 5 + [_I] * 7 + [_F, _P]),
+    "dfly_flash_fwd_lse": ("flash_fwd", [_P] * 6 + [_I] * 7 + [_F, _P]),
+    "dfly_flash_fwd_partial": ("flash_fwd", [_P] * 7 + [_I] * 6 + [_F, _P]),
+    "dfly_flash_bwd_dkv": ("flash_bwd", [_P] * 9 + [_I] * 7 + [_F, _P]),
+    "dfly_flash_bwd_dq": ("flash_bwd", [_P] * 8 + [_I] * 7 + [_F, _P]),
+    "dfly_flash_fwd_sm90": ("flash_fwd_sm90", [_P] * 5 + [_I] * 5 + [_F, _P]),
+    "dfly_flash_fwd_lse_sm90": ("flash_fwd_sm90", [_P] * 6 + [_I] * 5 + [_F, _P]),
+    "dfly_flash_fwd_partial_sm90": ("flash_fwd_sm90", [_P] * 7 + [_I] * 4 + [_F, _P]),
+    "dfly_flash_bwd_dkv_sm90": ("flash_bwd_dkv_sm90", [_P] * 9 + [_I] * 5 + [_F, _P]),
+    "dfly_flash_bwd_dq_sm90": ("flash_bwd_dq_sm90", [_P] * 8 + [_I] * 5 + [_F, _P]),
+    "dfly_flash_fwd_wide": ("flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "dfly_flash_fwd_lse_wide": ("flash_fwd", [_P] * 6 + [_I] * 6 + [_F, _P]),
+    "dfly_flash_fwd_partial_wide": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_F, _P]),
+    "dfly_flash_bwd_dkv_wide": ("flash_bwd", [_P] * 9 + [_I] * 6 + [_F, _P]),
+    "dfly_flash_bwd_dq_wide": ("flash_bwd", [_P] * 8 + [_I] * 6 + [_F, _P]),
 }
 _entries: dict[str, tuple] = {}
 
@@ -182,40 +199,46 @@ def _check(q, k, v, kv_mask) -> None:
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
 
 
-def _instance_dim(q) -> None:
+def _instance_dim(q) -> bool:
     """The kernels take only the head dims of their instances; the public
-    functions pad any other D below 128 before they get here."""
-    if q.shape[-1] not in HEAD_DIMS:
+    functions pad any other D up to 256 before they get here. Whether the
+    D is a wide instance's."""
+    if q.shape[-1] not in INSTANCE_DIMS:
         raise ValueError(
-            f"head dim {q.shape[-1]} has no kernel instance (HEAD_DIMS {HEAD_DIMS}); "
+            f"head dim {q.shape[-1]} has no kernel instance (INSTANCE_DIMS {INSTANCE_DIMS}); "
             "flash_attention pads it"
         )
+    return q.shape[-1] in WIDE_DIMS
 
 
 def _padded_route(q) -> bool:
     """Whether a call at q's head dim takes the padded route, from the
-    shape alone: a CUDA tensor with D < 128 outside HEAD_DIMS. A CUDA D
-    above 128 has no instance and is refused here, before any launch."""
+    shape alone: a CUDA tensor with D <= 256 outside INSTANCE_DIMS. A CUDA
+    D above 256 has no instance and is refused here, before any launch."""
     d = q.shape[-1]
-    if q.device.type != "cuda" or d in HEAD_DIMS:
+    if q.device.type != "cuda" or d in INSTANCE_DIMS:
         return False
-    if d > HEAD_DIMS[-1]:
+    if d > INSTANCE_DIMS[-1]:
         raise ValueError(
-            f"head dim {d} has no kernel instance on CUDA (HEAD_DIMS {HEAD_DIMS}; "
-            "D below 128 is padded, D above is not taken)"
+            f"head dim {d} has no kernel instance on CUDA (INSTANCE_DIMS {INSTANCE_DIMS}; "
+            f"D up to {INSTANCE_DIMS[-1]} is padded, D above is not taken)"
         )
     return True
 
 
-def _padded(q, k, v):
-    """(q, k, v) zero-padded from D to the next instance's D_pad, q
-    pre-scaled by sqrt(D_pad/D) so that 1/sqrt(D_pad) scores as 1/sqrt(D),
-    and the scale."""
-    d = q.shape[-1]
-    d_pad = next(x for x in HEAD_DIMS if x >= d)
-    scale = math.sqrt(d_pad / d)
-    pad = (0, d_pad - d)
-    return F.pad(q * scale, pad), F.pad(k, pad), F.pad(v, pad), scale
+def _padded(*tensors):
+    """The [B, H, L, D] tensors zero-padded from D to the next instance's
+    D_pad. With the softmax scale of D (``_scale``) a kernel computes the
+    unpadded function on them."""
+    d = tensors[0].shape[-1]
+    pad = (0, next(x for x in INSTANCE_DIMS if x >= d) - d)
+    return [F.pad(t, pad) for t in tensors]
+
+
+def _scale(q) -> float:
+    """The softmax scale of a call at q's head dim, 1/sqrt(D): what the
+    kernels get, at the padded head dim too."""
+    return 1.0 / math.sqrt(q.shape[-1])
 
 
 def _pointers(*tensors):
@@ -261,26 +284,38 @@ def _flash_forward(q, k, v, kv_mask, causal: bool) -> torch.Tensor:
     on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_mask, causal)
-    _instance_dim(q)
+    if _padded_route(q):
+        o = _forward_kernel(*_padded(q, k, v), kv_mask, causal, _scale(q))
+        return o[..., : q.shape[-1]].contiguous()
+    return _forward_kernel(q, k, v, kv_mask, causal, _scale(q))
+
+
+def _forward_kernel(q, k, v, kv_mask, causal: bool, scale: float) -> torch.Tensor:
+    wide = _instance_dim(q)
     b, h, l, d = q.shape
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
     pointers = _pointers(q, k, v, kv_mask, o)
-    if _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_fwd_sm90", q.device, *pointers, b, h, l, d, int(causal))
+    if wide:
+        _launch("dfly_flash_fwd_wide", q.device, *pointers,
+                b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
+        _count("LAUNCHES", "FWD_WIDE_LAUNCHES")
+    elif _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_fwd_sm90", q.device, *pointers, b, h, l, d, int(causal), scale)
         _count("LAUNCHES", "FWD_SM90_LAUNCHES")
     else:
         _launch(
             "dfly_flash_fwd", q.device, *pointers,
-            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
+            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l), scale,
         )
         _count("LAUNCHES")
     return o
 
 
-def flash_attention_lse_plain(q, k, v, kv_mask=None, causal: bool = False):
-    """The lse kernel's plain version: (o in q's dtype, lse [B, H, L] f32).
+def flash_attention_lse_plain(q, k, v, kv_mask=None, causal: bool = False, scale=None):
+    """The lse kernel's plain version: (o in q's dtype, lse [B, H, L] f32),
+    scoring with ``scale`` (1/sqrt(D) when None), as the kernels take it.
 
     lse is the per-row logsumexp of the scaled scores in natural units,
     reached as the reference kernel reaches it (flash.py:194-197): row max
@@ -288,7 +323,8 @@ def flash_attention_lse_plain(q, k, v, kv_mask=None, causal: bool = False):
     1e-30)). A row with no valid key keeps m = -1e30 and l = 0, so it gets
     the same finite filler, and its output is 0."""
     b, h, l, d = q.shape
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (_LOG2E / math.sqrt(d))
+    scale = _scale(q) if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (_LOG2E * scale)
     valid = _valid_pairs(kv_mask, causal, b, l, q.device)
     s = torch.where(valid, s, torch.full_like(s, _NEG))
     m = s.amax(-1, keepdim=True)
@@ -306,36 +342,47 @@ def flash_attention_lse(q, k, v, kv_mask=None, causal: bool = False):
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, kv_mask, causal)
     if _padded_route(q):
-        o, lse = flash_attention_lse(*_padded(q, k, v)[:3], kv_mask, causal)
+        o, lse = _lse_kernel(*_padded(q, k, v), kv_mask, causal, _scale(q))
         return o[..., : q.shape[-1]].contiguous(), lse
+    return _lse_kernel(q, k, v, kv_mask, causal, _scale(q))
+
+
+def _lse_kernel(q, k, v, kv_mask, causal: bool, scale: float):
+    wide = _instance_dim(q)
     b, h, l, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
     pointers = _pointers(q, k, v, kv_mask, o, lse)
-    if _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_fwd_lse_sm90", q.device, *pointers, b, h, l, d, int(causal))
+    if wide:
+        _launch("dfly_flash_fwd_lse_wide", q.device, *pointers,
+                b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
+        _count("LSE_LAUNCHES", "LSE_WIDE_LAUNCHES")
+    elif _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_fwd_lse_sm90", q.device, *pointers, b, h, l, d, int(causal), scale)
         _count("LSE_LAUNCHES", "LSE_SM90_LAUNCHES")
     else:
         _launch(
             "dfly_flash_fwd_lse", q.device, *pointers,
-            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
+            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l), scale,
         )
         _count("LSE_LAUNCHES")
     return o, lse
 
 
-def flash_attention_partials_plain(q, k, v, kv_mask=None):
+def flash_attention_partials_plain(q, k, v, kv_mask=None, scale=None):
     """The partial kernel's plain version: (acc [B, H, L, D] f32, row_max
-    [B, H, L] f32, row_sum [B, H, L] f32), reached as the reference kernel
+    [B, H, L] f32, row_sum [B, H, L] f32), scoring with ``scale``
+    (1/sqrt(D) when None), reached as the reference kernel
     reaches them (flash.py:143-165,177-184): base-2 scores, the masked row
     max m, p = exp2(s - m) on valid keys, row_sum = sum p, acc = P V with p
     rounded to the input dtype first (``probs.astype(vb.dtype)``), and
     row_max = m ln2 in natural units. A row with no valid key keeps m =
     -1e30, so row_max = -1e30 ln2, row_sum = 0 and acc = 0."""
     b, h, l, d = q.shape
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (_LOG2E / math.sqrt(d))
+    scale = _scale(q) if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (_LOG2E * scale)
     valid = _valid_pairs(kv_mask, False, b, l, q.device)
     s = torch.where(valid, s, torch.full_like(s, _NEG))
     m = s.amax(-1, keepdim=True)
@@ -362,8 +409,13 @@ def flash_attention_partials(q, k, v, kv_mask=None):
     if q.device.type == "cpu":
         return flash_attention_partials_plain(q, k, v, kv_mask)
     if _padded_route(q):
-        acc, row_max, row_sum = flash_attention_partials(*_padded(q, k, v)[:3], kv_mask)
+        acc, row_max, row_sum = _partials_kernel(*_padded(q, k, v), kv_mask, _scale(q))
         return acc[..., : q.shape[-1]].contiguous(), row_max, row_sum
+    return _partials_kernel(q, k, v, kv_mask, _scale(q))
+
+
+def _partials_kernel(q, k, v, kv_mask, scale: float):
+    wide = _instance_dim(q)
     b, h, l, d = q.shape
     acc = torch.empty(b, h, l, d, dtype=torch.float32, device=q.device)
     row_max = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
@@ -371,13 +423,17 @@ def flash_attention_partials(q, k, v, kv_mask=None):
     if acc.numel() == 0:
         return acc, row_max, row_sum
     pointers = _pointers(q, k, v, kv_mask, acc, row_max, row_sum)
-    if _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_fwd_partial_sm90", q.device, *pointers, b, h, l, d)
+    if wide:
+        _launch("dfly_flash_fwd_partial_wide", q.device, *pointers,
+                b, h, l, d, _DTYPE_CODES[q.dtype], scale)
+        _count("PARTIAL_LAUNCHES", "PARTIAL_WIDE_LAUNCHES")
+    elif _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_fwd_partial_sm90", q.device, *pointers, b, h, l, d, scale)
         _count("PARTIAL_LAUNCHES", "PARTIAL_SM90_LAUNCHES")
     else:
         _launch(
             "dfly_flash_fwd_partial", q.device, *pointers,
-            b, h, l, d, _DTYPE_CODES[q.dtype], warps_for(l),
+            b, h, l, d, _DTYPE_CODES[q.dtype], warps_for(l), scale,
         )
         _count("PARTIAL_LAUNCHES")
     return acc, row_max, row_sum
@@ -386,7 +442,7 @@ def flash_attention_partials(q, k, v, kv_mask=None):
 # -------------------------------------------------------------- backward
 
 
-def flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal: bool = False):
+def flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal: bool = False, scale=None):
     """The backward kernels' plain version: (dq, dk, dv) in q's, k's and
     v's dtypes, step for step as the reference's _bwd_tile and its two
     kernels (flash.py:383-415,451-458,505-508), over the whole [L, L] tile:
@@ -395,19 +451,20 @@ def flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal: bool = False
         dp = dO v^T;  delta = rowsum(dO * o);  ds = p * (dp - delta)
         dv = p^T dO;  dk = ds^T q / sqrt(D);  dq = ds k / sqrt(D)
 
-    with p and ds rounded to the input dtype before their products, as the
+    with ``scale`` in place of 1/sqrt(D) when given, as the kernels take
+    it, and p and ds rounded to the input dtype before their products, as the
     reference casts them. Invalid pairs are zeroed explicitly: a fully
     masked row carries a filler lse."""
     b, h, l, d = q.shape
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (_LOG2E / math.sqrt(d))
+    scale = _scale(q) if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (_LOG2E * scale)
     valid = _valid_pairs(kv_mask, causal, b, l, q.device)
     p = torch.where(valid, torch.exp2(s - lse[..., None] * _LOG2E), torch.zeros_like(s))
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
     delta = (dof * o.float()).sum(-1, keepdim=True)
     ds = p * (dp - delta)
     p_c, ds_c = p.to(do.dtype).float(), ds.to(q.dtype).float()
-    scale = 1.0 / math.sqrt(d)
     dv = torch.einsum("bhqk,bhqd->bhkd", p_c, dof)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds_c, qf) * scale
     dq = torch.einsum("bhqk,bhkd->bhqd", ds_c, kf) * scale
@@ -423,44 +480,59 @@ def _bwd_check(q, o, lse, do) -> None:
         raise ValueError("o, lse and dO must be contiguous on q's device")
 
 
-def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal: bool = False):
+def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal: bool = False,
+                            scale=None):
     """(dk, dv) from the dK/dV kernel; CUDA tensors only. ``delta`` is
-    rowsum(dO * o) in float32 [B, H, L]."""
+    rowsum(dO * o) in float32 [B, H, L]; ``scale`` the softmax scale,
+    1/sqrt(D) when None (the padded route passes the unpadded D's)."""
     _need_cuda(q)
-    _instance_dim(q)
+    wide = _instance_dim(q)
+    scale = _scale(q) if scale is None else scale
     b, h, l, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if not dk.numel():
         return dk, dv
     pointers = _pointers(q, k, v, do, lse, delta, kv_mask, dk, dv)
-    if _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_bwd_dkv_sm90", q.device, *pointers, b, h, l, d, int(causal))
+    if wide:
+        _launch("dfly_flash_bwd_dkv_wide", q.device, *pointers,
+                b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
+        _count("DKV_LAUNCHES", "DKV_WIDE_LAUNCHES")
+    elif _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_bwd_dkv_sm90", q.device, *pointers, b, h, l, d, int(causal),
+                scale)
         _count("DKV_LAUNCHES", "DKV_SM90_LAUNCHES")
     else:
         _launch(
             "dfly_flash_bwd_dkv", q.device, *pointers,
-            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
+            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l), scale,
         )
         _count("DKV_LAUNCHES")
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal: bool = False):
-    """dq from the dQ kernel; CUDA tensors only."""
+def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal: bool = False,
+                           scale=None):
+    """dq from the dQ kernel; CUDA tensors only; ``scale`` as for dK/dV."""
     _need_cuda(q)
-    _instance_dim(q)
+    wide = _instance_dim(q)
+    scale = _scale(q) if scale is None else scale
     b, h, l, d = q.shape
     dq = torch.empty_like(q)
     if not dq.numel():
         return dq
     pointers = _pointers(q, k, v, do, lse, delta, kv_mask, dq)
-    if _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_bwd_dq_sm90", q.device, *pointers, b, h, l, d, int(causal))
+    if wide:
+        _launch("dfly_flash_bwd_dq_wide", q.device, *pointers,
+                b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
+        _count("DQ_LAUNCHES", "DQ_WIDE_LAUNCHES")
+    elif _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_bwd_dq_sm90", q.device, *pointers, b, h, l, d, int(causal),
+                scale)
         _count("DQ_LAUNCHES", "DQ_SM90_LAUNCHES")
     else:
         _launch(
             "dfly_flash_bwd_dq", q.device, *pointers,
-            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l),
+            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l), scale,
         )
         _count("DQ_LAUNCHES")
     return dq
@@ -475,19 +547,15 @@ def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, causal: bool = False):
     _bwd_check(q, o, lse, do)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal)
-    if _padded_route(q):
-        # o and dO pad with zeros (delta = rowsum(dO * o) unchanged); dq of
-        # the pre-scaled q carries the scale once more by the chain rule
-        d = q.shape[-1]
-        qp, kp, vp, scale = _padded(q, k, v)
-        pad = (0, qp.shape[-1] - d)
-        dq, dk, dv = flash_attention_bwd(qp, kp, vp, kv_mask, F.pad(o, pad), lse,
-                                         F.pad(do, pad), causal)
-        return ((dq[..., :d] * scale).contiguous(), dk[..., :d].contiguous(),
-                dv[..., :d].contiguous())
+    scale, d = _scale(q), q.shape[-1]
+    padded = _padded_route(q)
+    if padded:  # o and dO pad with zeros too: delta = rowsum(dO * o) is unchanged
+        q, k, v, o, do = _padded(q, k, v, o, do)
     delta = (do.float() * o.float()).sum(-1)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal)
-    dq = flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal, scale)
+    dq = flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal, scale)
+    if padded:
+        return dq[..., :d].contiguous(), dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dq, dk, dv
 
 
@@ -517,9 +585,6 @@ def flash_attention(q, k, v, kv_mask=None, causal: bool = False) -> torch.Tensor
     attention_fn: invalid keys contribute nothing and fully masked rows
     return 0. Output has q's dtype. Differentiable in q, k and v."""
     _check(q, k, v, kv_mask)
-    if _padded_route(q):  # autograd carries the pad, the scale and the slice
-        out = flash_attention(*_padded(q, k, v)[:3], kv_mask, causal)
-        return out[..., : q.shape[-1]].contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, kv_mask, causal)
     return _flash_forward(q, k, v, kv_mask, causal)

@@ -563,3 +563,13 @@ def warm_scatters(state, dag_capacity: int, device=None) -> None:
             idx = np.full(nb, shape[0], np.int32)  # all pads: drop
             rows = np.zeros((nb, shape[1]), np_dt)
             _scatter_rows(torch.zeros(shape, dtype=dt, device=dev), idx, rows)
+
+
+# Call and signature counters (telemetry/flight.py), as the reference
+# instruments its jitted entries; nothing here waits for the device.
+from dragonfly2_tpu_torch.telemetry.flight import instrument_entry as _instrument_entry  # noqa: E402
+
+fused_tick_chunk = _instrument_entry(
+    fused_tick_chunk, "tick.fused_tick_chunk", service="scheduler"
+)
+_scatter_rows = _instrument_entry(_scatter_rows, "tick.scatter_rows", service="scheduler")

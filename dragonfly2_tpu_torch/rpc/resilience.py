@@ -1,4 +1,8 @@
-"""Failure-domain resilience primitives for the RPC edge.
+"""Port of dragonfly2_tpu/rpc/resilience.py, whole: the deadline scopes,
+the per-target ``CircuitBreaker``, ``BreakerBoard`` and the process's
+``open_breaker_census``.
+
+Failure-domain resilience primitives for the RPC edge.
 
 Two capabilities the reference gets from gRPC + pkg/retry and this codebase
 previously lacked end to end:
@@ -23,18 +27,19 @@ previously lacked end to end:
   closes or re-opens the breaker. This generalizes SyncSchedulerClient's
   old ad-hoc ``dial_failure_ttl`` cache to every client in the tree.
 
-Port of dragonfly2_tpu/rpc/resilience.py: the deadline scopes and the
-per-target ``CircuitBreaker``. The reference's ``BreakerBoard`` and its
-process census export through the telemetry metrics families, which the
-port has not taken over yet; they arrive with them.
+Breaker state and deadline outcomes export through
+``telemetry.series.resilience_series`` (``dragonfly_<service>_rpc_breaker_*``
+and ``dragonfly_<service>_rpc_deadline_*`` families).
 """
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import contextvars
 import threading
 import time
+import weakref
 
 from dragonfly2_tpu_torch.utils import dferrors
 
@@ -221,3 +226,106 @@ class CircuitBreaker:
         with self._mu:
             self._probing = False
 
+
+class BreakerBoard:
+    """Per-service registry of per-target breakers, wired to the
+    ``dragonfly_<service>_rpc_breaker_*`` telemetry families. One board per
+    client object (pool / sync client), so tests and multi-cluster tools
+    don't share failure state through a process-global."""
+
+    def __init__(self, service: str, failure_threshold: int = 2,
+                 open_ttl: float = 5.0, registry=None):
+        from dragonfly2_tpu_torch.telemetry import default_registry
+        from dragonfly2_tpu_torch.telemetry.series import resilience_series
+
+        self.service = service
+        self.failure_threshold = failure_threshold
+        self.open_ttl = open_ttl
+        self.metrics = resilience_series(registry or default_registry(), service)
+        self._mu = threading.Lock()
+        self._breakers: dict[str, CircuitBreaker] = {}
+        _register_board(self)
+
+    def open_count(self) -> int:
+        """Breakers currently NOT closed (open or half-open probing) —
+        the per-board contribution to the process-wide census the soak
+        timeline samples (telemetry/timeline.py)."""
+        with self._mu:
+            breakers = list(self._breakers.values())
+        return sum(1 for b in breakers if b.state != "closed")
+
+    def get(self, target: str) -> CircuitBreaker:
+        with self._mu:
+            breaker = self._breakers.get(target)
+            if breaker is None:
+                breaker = self._breakers[target] = CircuitBreaker(
+                    target,
+                    failure_threshold=self.failure_threshold,
+                    open_ttl=self.open_ttl,
+                    on_transition=self._observe_transition,
+                )
+                self.metrics.breaker_state.labels(target).set(0.0)
+            return breaker
+
+    def _observe_transition(self, target: str, state: str) -> None:
+        self.metrics.breaker_state.labels(target).set(_STATE_VALUE[state])
+        self.metrics.breaker_transitions.labels(target, state).inc()
+
+    def acquire(self, target: str) -> str:
+        """get(target).acquire() + the fast-fail counter on BreakerOpen."""
+        try:
+            return self.get(target).acquire()
+        except BreakerOpen:
+            self.metrics.breaker_fast_fail.labels(target).inc()
+            raise
+
+    def allows(self, target: str) -> bool:
+        return self.get(target).allows()
+
+    def targets(self) -> list[str]:
+        with self._mu:
+            return list(self._breakers)
+
+    def record_outcome(self, target: str, error: BaseException | None) -> None:
+        """Single classification point for a dial/probe outcome, shared by
+        every call site so the three dial paths cannot drift: None ->
+        success; a transport failure (OSError incl. ConnectionError, or a
+        timeout) -> failure; anything else (cancellation, a codec bug) is
+        NOT evidence against the target -> release the probe slot without
+        opening the breaker."""
+        breaker = self.get(target)
+        if error is None:
+            breaker.record_success()
+        elif isinstance(error, (OSError, TimeoutError, asyncio.TimeoutError)):
+            breaker.record_failure()
+        else:
+            breaker.release()
+
+    def drop(self, target: str) -> None:
+        """Forget a decommissioned target (dynconfig removed it from the
+        active set): its gauge resets to closed so dashboards don't alert
+        forever on a scheduler that no longer exists."""
+        with self._mu:
+            if self._breakers.pop(target, None) is not None:
+                self.metrics.breaker_state.labels(target).set(0.0)
+
+
+# Weak census of live boards (boards stay per-client-object — no failure
+# state is shared through this; it only answers "how many breakers are
+# open anywhere in this process right now" for the soak timeline and the
+# /debug/flight surface).
+_BOARDS: "weakref.WeakSet[BreakerBoard]" = weakref.WeakSet()
+_boards_mu = threading.Lock()
+
+
+def _register_board(board: "BreakerBoard") -> None:
+    with _boards_mu:
+        _BOARDS.add(board)
+
+
+def open_breaker_census() -> int:
+    """Process-wide count of non-closed circuit breakers across every
+    live BreakerBoard."""
+    with _boards_mu:
+        boards = list(_BOARDS)
+    return sum(b.open_count() for b in boards)

@@ -7,7 +7,6 @@ test skips, inside the test, where there is no CUDA device."""
 
 import pytest
 import torch
-import torch.nn.functional as F
 
 from dragonfly2_tpu_torch.ops import flash
 
@@ -380,67 +379,44 @@ def test_short_sets_keep_the_mma_sync_instances(monkeypatch):
 # ----------------------------------- head dims outside the instances (C2)
 
 
-# the padded route rounds the pre-scaled q to bf16 once, as the
-# reference's forward rounds its pre-scaled q (flash.py:262): a score moves
-# by up to 2^-9 * sum |q_d k_d| / sqrt(D), ~0.01 for N(0, 1) inputs at
-# D = 24, which a row's max (and lse) carries whole, and bf16 outputs and
-# gradients then differ by an ulp or a few (the plain versions alone, on
-# the CPU: up to 0.9 of the long output tolerance, 1.6 of the long
-# gradient one). So against the plain versions at D = 24 the route is held
-# to the bf16-rounding family (ATOL/RTOL, GRAD_*) and the row stats to
-# PAD_STATS; the kernels themselves are held to the plain versions of what
-# they compute (the padded, pre-scaled inputs) at the usual tolerances,
-# the long ones at L = 1000.
-PAD_STATS_ATOL, PAD_STATS_RTOL = 2e-2, 1e-2
+# The padded route zero-pads q, k, v (and o, dO) to the next instance and
+# gives the kernels the unpadded D's softmax scale, so it computes the
+# unpadded function: its outputs, row stats and gradients are held to the
+# plain versions at D itself, at the kernels' own tolerances (the long ones
+# at L = 1000). tests/test_torch_flash.py holds the algebra on the CPU.
 
 
 @pytest.mark.parametrize("l", [15, 1000])
 def test_head_dim_24_pads_to_an_instance(l):
-    """D = 24 on the card: zero-padded to 32 with q pre-scaled, through
-    the instance at 32 (the Hopper one at L = 1000): forward, lse,
-    partials, backward and autograd against the plain versions of the
-    padded inputs, and against the plain versions at D = 24."""
+    """D = 24 on the card: zero-padded to 32 and scored at D = 24's scale,
+    through the instance at 32 (the Hopper one at L = 1000): forward, lse,
+    partials, backward and autograd against the plain versions at D = 24."""
     _need_card()
     q, k, v, do, mask = _training_inputs((2, 4, l, 24), torch.bfloat16, seed=l)
-    qp, kp, vp, scale = flash._padded(q, k, v)
-    pad = (0, qp.shape[-1] - 24)
     long = l > flash.SM90_MIN_L
     tol = dict(atol=LONG_ATOL, rtol=LONG_RTOL) if long else dict(atol=ATOL, rtol=RTOL)
     stats = dict(atol=STATS_ATOL, rtol=STATS_RTOL)
     grad_tol = (dict(atol=LONG_GRAD_ATOL, rtol=LONG_GRAD_RTOL) if long
                 else dict(atol=GRAD_ATOL, rtol=GRAD_RTOL))
-    # against the plain versions at D = 24 (the route, not the kernels)
-    route_tol, route_grad = dict(atol=ATOL, rtol=RTOL), dict(atol=GRAD_ATOL, rtol=GRAD_RTOL)
-    pad_stats = dict(atol=PAD_STATS_ATOL, rtol=PAD_STATS_RTOL)
     for causal in (False, True):
         before = _sm90_counts(), flash.LAUNCHES
         out = flash.flash_attention(q, k, v, mask, causal)
         assert out.shape == q.shape and out.dtype == q.dtype and out.is_contiguous()
         assert flash.LAUNCHES == before[1] + 1
         assert (_sm90_counts()["FWD_SM90_LAUNCHES"] == before[0]["FWD_SM90_LAUNCHES"] + 1) == long
-        padded = flash.flash_attention_plain(qp, kp, vp, mask, causal)[..., :24]
-        torch.testing.assert_close(out.float(), padded.float(), **tol)
         torch.testing.assert_close(out.float(), flash.flash_attention_plain(q, k, v, mask, causal)
-                                   .float(), **route_tol)
+                                   .float(), **tol)
         assert (out[0] == 0).all()
         o, lse = flash.flash_attention_lse(q, k, v, mask, causal)
-        pad_o, pad_lse = flash.flash_attention_lse_plain(qp, kp, vp, mask, causal)
         ref_o, ref_lse = flash.flash_attention_lse_plain(q, k, v, mask, causal)
         seen = ref_lse > -1e20
-        torch.testing.assert_close(o.float(), pad_o[..., :24].float(), **tol)
-        torch.testing.assert_close(o.float(), ref_o.float(), **route_tol)
-        torch.testing.assert_close(lse[seen], pad_lse[seen], **stats)
-        torch.testing.assert_close(lse[seen], ref_lse[seen], **pad_stats)
+        torch.testing.assert_close(o.float(), ref_o.float(), **tol)
+        torch.testing.assert_close(lse[seen], ref_lse[seen], **stats)
         got = flash.flash_attention_bwd(q, k, v, mask, o, lse, do, causal)
-        dqp, dkp, dvp = flash.flash_attention_bwd_plain(qp, kp, vp, mask, F.pad(o, pad), lse,
-                                                        F.pad(do, pad), causal)
-        pad_want = ((dqp[..., :24].float() * scale), dkp[..., :24], dvp[..., :24])
         want = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, causal)
-        for name, g, pw, w in zip(("dq", "dk", "dv"), got, pad_want, want):
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
             assert g.shape == q.shape and g.dtype == q.dtype, name
-            torch.testing.assert_close(g.float(), pw.float(), **grad_tol,
-                                       msg=lambda m, name=name: f"{name}: {m}")
-            torch.testing.assert_close(g.float(), w.float(), **route_grad,
+            torch.testing.assert_close(g.float(), w.float(), **grad_tol,
                                        msg=lambda m, name=name: f"{name}: {m}")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         counts = flash.LSE_LAUNCHES, flash.DKV_LAUNCHES, flash.DQ_LAUNCHES
@@ -451,35 +427,136 @@ def test_head_dim_24_pads_to_an_instance(l):
             torch.testing.assert_close(g.float(), w.float(), **grad_tol,
                                        msg=lambda m, name=name: f"{name}: {m}")
     acc, row_max, row_sum = flash.flash_attention_partials(q, k, v, mask)
-    for (want_acc, want_max, want_sum), row_tol, acc_tol in (
-            (flash.flash_attention_partials_plain(qp, kp, vp, mask), stats, tol),
-            (flash.flash_attention_partials_plain(q, k, v, mask), pad_stats, route_tol)):
-        want_acc = want_acc[..., :24]
-        live = want_sum > 0
-        torch.testing.assert_close(row_max[live], want_max[live], **row_tol)
-        torch.testing.assert_close(row_sum, want_sum, **row_tol)
-        scale_rows = want_sum.clamp_min(1.0)[..., None]
-        torch.testing.assert_close(acc / scale_rows, want_acc / scale_rows, **acc_tol)
+    want_acc, want_max, want_sum = flash.flash_attention_partials_plain(q, k, v, mask)
+    live = want_sum > 0
+    torch.testing.assert_close(row_max[live], want_max[live], **stats)
+    torch.testing.assert_close(row_sum, want_sum, **stats)
+    scale_rows = want_sum.clamp_min(1.0)[..., None]
+    torch.testing.assert_close(acc / scale_rows, want_acc / scale_rows, **tol)
 
 
-def test_head_dim_above_128_is_refused_before_any_launch():
-    """No instance takes D > 128: every CUDA entry raises from the shape,
-    launches nothing and never runs the plain version in its place."""
+WIDE_COUNTERS = ("FWD_WIDE_LAUNCHES", "LSE_WIDE_LAUNCHES", "PARTIAL_WIDE_LAUNCHES",
+                 "DKV_WIDE_LAUNCHES", "DQ_WIDE_LAUNCHES")
+WIDE_ENTRIES = ["dfly_flash_fwd_wide", "dfly_flash_fwd_lse_wide", "dfly_flash_fwd_partial_wide",
+                "dfly_flash_bwd_dkv_wide", "dfly_flash_bwd_dq_wide"]
+
+
+def _wide_counts():
+    return {name: getattr(flash, name) for name in WIDE_COUNTERS}
+
+
+def test_head_dim_above_128_is_refused_before_any_launch(monkeypatch):
+    """A head dim above 128 takes the wide instance (D = 160 padded to
+    256): every CUDA entry launches it once and no plain version runs in
+    its place. Above the largest instance (D = 320) every entry is refused
+    from the shape, before any launch."""
     _need_card()
     q, k, v, do, mask = _training_inputs((2, 2, 40, 160), torch.bfloat16, seed=5)
     o, lse = flash.flash_attention_lse_plain(q, k, v, mask)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("flash_attention_plain", "dense_attention", "flash_attention_lse_plain",
+                 "flash_attention_partials_plain", "flash_attention_bwd_plain"):
+        monkeypatch.setattr(flash, name, refuse)
+    launched = []
+    real = flash._launch
+    monkeypatch.setattr(flash, "_launch",
+                        lambda name, *a: launched.append(name) or real(name, *a))
+    before = _wide_counts(), _sm90_counts()
+    flash.flash_attention(q, k, v, mask)
+    flash.flash_attention_partials(q, k, v, mask)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.autograd.grad(flash.flash_attention(*leaves, mask), leaves, do)
+    assert sorted(launched) == sorted(WIDE_ENTRIES)
+    assert _wide_counts() == {name: count + 1 for name, count in before[0].items()}
+    assert _sm90_counts() == before[1]
+
+    launched.clear()
+    q, k, v, do, mask = _training_inputs((2, 2, 40, 320), torch.bfloat16, seed=6)
     names = ("LAUNCHES", "LSE_LAUNCHES", "PARTIAL_LAUNCHES", "DKV_LAUNCHES", "DQ_LAUNCHES",
-             *SM90_COUNTERS)
-    before = [getattr(flash, name) for name in names]
+             *SM90_COUNTERS, *WIDE_COUNTERS)
+    counts = [getattr(flash, name) for name in names]
     calls = (lambda: flash.flash_attention(q, k, v, mask),
              lambda: flash.flash_attention(*(t.clone().requires_grad_() for t in (q, k, v)), mask),
              lambda: flash.flash_attention_lse(q, k, v, mask),
              lambda: flash.flash_attention_partials(q, k, v, mask),
-             lambda: flash.flash_attention_bwd(q, k, v, mask, o, lse, do))
+             lambda: flash.flash_attention_bwd(q, k, v, mask, q, torch.zeros_like(q[..., 0],
+                                                                                 dtype=torch.float32), do))
     for call in calls:
-        with pytest.raises(ValueError, match="head dim 160"):
+        with pytest.raises(ValueError, match="head dim 320"):
             call()
-    assert [getattr(flash, name) for name in names] == before
+    assert [getattr(flash, name) for name in names] == counts and not launched
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("l", [40, 1000])
+def test_wide_instances_match_plain(l, d, causal):
+    """The wide instances at a short and a long ragged L: the three forward
+    modes, dK/dV, dQ and autograd against the plain versions at D (at D =
+    160 the route zero-pads to 256 and scores at D's scale)."""
+    _need_card()
+    q, k, v, do, mask = _training_inputs((2, 2, l, d), torch.bfloat16, seed=l + d + causal)
+    tol, grad_tol = dict(atol=ATOL, rtol=RTOL), dict(atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    stats = dict(atol=STATS_ATOL, rtol=STATS_RTOL)
+    for kv_mask in (mask, None):
+        before = _wide_counts()
+        out = flash.flash_attention(q, k, v, kv_mask, causal)
+        assert out.shape == q.shape and out.dtype == q.dtype
+        torch.testing.assert_close(out.float(), flash.flash_attention_plain(
+            q, k, v, kv_mask, causal).float(), **tol)
+        o, lse = flash.flash_attention_lse(q, k, v, kv_mask, causal)
+        ref_o, ref_lse = flash.flash_attention_lse_plain(q, k, v, kv_mask, causal)
+        assert torch.equal(o, out)  # one kernel, two modes
+        seen = ref_lse > -1e20
+        torch.testing.assert_close(lse[seen], ref_lse[seen], **stats)
+        assert torch.isfinite(lse).all()
+        acc, row_max, row_sum = flash.flash_attention_partials(q, k, v, kv_mask)
+        want_acc, want_max, want_sum = flash.flash_attention_partials_plain(q, k, v, kv_mask)
+        live = want_sum > 0
+        torch.testing.assert_close(row_max[live], want_max[live], atol=STATS_ATOL,
+                                   rtol=STATS_RTOL)
+        torch.testing.assert_close(row_sum, want_sum, atol=STATS_ATOL, rtol=STATS_RTOL)
+        rows = want_sum.clamp_min(1.0)[..., None]
+        torch.testing.assert_close(acc / rows, want_acc / rows, **tol)
+        got = flash.flash_attention_bwd(q, k, v, kv_mask, o, lse, do, causal)
+        want = flash.flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.shape == q.shape and g.dtype == q.dtype, name
+            torch.testing.assert_close(g.float(), w.float(), **grad_tol,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+        assert _wide_counts() == {name: count + 1 for name, count in before.items()}
+        if kv_mask is not None:  # batch row 0 has no valid key
+            assert (out[0] == 0).all() and (acc[0] == 0).all() and (row_sum[0] == 0).all()
+            torch.testing.assert_close(row_max[0], torch.full_like(row_max[0], FILLER),
+                                       rtol=1e-6, atol=0)
+            for name, g in zip(("dq", "dk", "dv"), got):
+                assert (g[0] == 0).all(), name
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(flash.flash_attention(*leaves, mask, causal), leaves, do)
+    o, lse = flash.flash_attention_lse(q, k, v, mask, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), auto,
+                          flash.flash_attention_bwd(q, k, v, mask, o, lse, do, causal)):
+        assert torch.equal(g, w), name
+
+
+def test_wide_instances_take_float32():
+    """float32 at D = 256 (rounded to bf16 in shared memory, as the other
+    mma.sync instances round it): forward and both backward kernels."""
+    _need_card()
+    q, k, v, do, mask = _training_inputs((2, 2, 70, 256), torch.float32, seed=9)
+    out = flash.flash_attention(q, k, v, mask, True)
+    torch.testing.assert_close(out, flash.flash_attention_plain(q, k, v, mask, True),
+                               atol=ATOL, rtol=RTOL)
+    o, lse = flash.flash_attention_lse(q, k, v, mask, True)
+    got = flash.flash_attention_bwd(q, k, v, mask, o, lse, do, True)
+    want = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32, name
+        torch.testing.assert_close(g, w, atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                   msg=lambda m, name=name: f"{name}: {m}")
 
 
 # ------------------------------------------------- the scheduler's tick

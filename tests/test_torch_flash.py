@@ -139,31 +139,30 @@ def test_any_head_dim_matches_reference(d, causal):
 @pytest.mark.parametrize("d", [8, 24, 48, 96])
 def test_padded_route_is_the_same_function(d):
     """The CUDA route for a head dim outside the instances, as algebra on
-    the plain versions: zero-pad to D_pad with q pre-scaled by
-    sqrt(D_pad/D), slice back, and dq scaled once more, gives the unpadded
-    output, lse, partials and gradients (float32, to rounding)."""
+    the plain versions: zero-pad q, k, v (and o, dO) to D_pad, score with
+    the unpadded D's softmax scale as the kernels are given it, and slice
+    back: the unpadded output, lse, partials and gradients (float32, to
+    rounding)."""
     q, k, v, mask = (torch.from_numpy(x) for x in _mk(2, 2, 15, d, seed=d, fully_masked=True))
     do = torch.from_numpy(np.random.default_rng(d).standard_normal(q.shape).astype(np.float32))
-    qp, kp, vp, scale = flash._padded(q, k, v)
-    d_pad = qp.shape[-1]
-    assert d_pad == min(x for x in flash.HEAD_DIMS if x >= d) and scale == (d_pad / d) ** 0.5
+    qp, kp, vp = flash._padded(q, k, v)
+    d_pad, scale = qp.shape[-1], flash._scale(q)
+    assert d_pad == min(x for x in flash.HEAD_DIMS if x >= d) and scale == 1 / d ** 0.5
     tol = dict(atol=1e-6, rtol=1e-5)
     for causal in (False, True):
         o, lse = flash.flash_attention_lse_plain(q, k, v, mask, causal)
-        op, lsep = flash.flash_attention_lse_plain(qp, kp, vp, mask, causal)
+        op, lsep = flash.flash_attention_lse_plain(qp, kp, vp, mask, causal, scale)
         torch.testing.assert_close(op[..., :d], o, **tol)
         assert (op[..., d:] == 0).all()
         torch.testing.assert_close(lsep, lse, **tol)
-        pad = (0, d_pad - d)
-        dqp, dkp, dvp = flash.flash_attention_bwd_plain(
-            qp, kp, vp, mask, torch.nn.functional.pad(o, pad), lse,
-            torch.nn.functional.pad(do, pad), causal)
+        dqp, dkp, dvp = flash.flash_attention_bwd_plain(qp, kp, vp, mask, *flash._padded(o), lse,
+                                                        *flash._padded(do), causal, scale)
         dq, dk, dv = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, causal)
-        torch.testing.assert_close(dqp[..., :d] * scale, dq, **tol)
+        torch.testing.assert_close(dqp[..., :d], dq, **tol)
         torch.testing.assert_close(dkp[..., :d], dk, **tol)
         torch.testing.assert_close(dvp[..., :d], dv, **tol)
     acc, row_max, row_sum = flash.flash_attention_partials_plain(q, k, v, mask)
-    accp, maxp, sump = flash.flash_attention_partials_plain(qp, kp, vp, mask)
+    accp, maxp, sump = flash.flash_attention_partials_plain(qp, kp, vp, mask, scale)
     torch.testing.assert_close(accp[..., :d], acc, **tol)
     torch.testing.assert_close(maxp, row_max, **tol)
     torch.testing.assert_close(sump, row_sum, **tol)
@@ -178,3 +177,52 @@ def test_kernel_wrappers_refuse_a_head_dim_without_an_instance():
     flash._instance_dim(torch.zeros(1, 1, 4, 32))
     # on the CPU the plain versions take any D: no padding, no refusal
     assert not flash._padded_route(q) and not flash._padded_route(torch.zeros(1, 1, 4, 160))
+
+
+# head dims above 128 (the wide instances on the card, ROADMAP C3): on the
+# CPU the plain versions, held to the reference's Pallas kernels
+# (interpret mode) and dense_attention, float32
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [160, 256])
+def test_head_dims_above_128_match_reference(d, causal):
+    from dragonfly2_tpu.ops.flash import _flash_forward as ref_forward
+    from dragonfly2_tpu.ops.flash import flash_attention_partials as ref_partials
+
+    q, k, v, mask = _mk(2, 2, 15, d, seed=d + causal, fully_masked=True)
+    do = np.random.default_rng(d).standard_normal(q.shape).astype(np.float32)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    counts = (flash.LAUNCHES, flash.LSE_LAUNCHES, flash.PARTIAL_LAUNCHES, flash.FWD_WIDE_LAUNCHES,
+              flash.LSE_WIDE_LAUNCHES, flash.PARTIAL_WIDE_LAUNCHES)
+    out = flash.flash_attention(*leaves, torch.from_numpy(mask), causal=causal)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    tol = dict(atol=TOL["float32"], rtol=TOL["float32"])
+    want = np.asarray(ref_flash(q, k, v, mask, causal=causal))
+    np.testing.assert_allclose(out.detach().numpy(), want, **tol)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(ref_dense(q, k, v, mask, causal=causal)), **tol)
+    assert (out.detach().numpy()[0] == 0).all()  # the fully masked batch row
+
+    def loss(q, k, v):
+        return (ref_flash(q, k, v, mask, causal=causal) * do).sum()
+
+    want_grads = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=name)
+
+    tq, tk, tv, tm = (torch.from_numpy(x) for x in (q, k, v, mask))
+    o, lse = flash.flash_attention_lse(tq, tk, tv, tm, causal)
+    want_o, want_lse = ref_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   jnp.asarray(mask), causal, save_lse=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **tol)
+    acc, row_max, row_sum = flash.flash_attention_partials(tq, tk, tv, tm)
+    want_acc, want_max, want_sum = (np.asarray(x) for x in ref_partials(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask)))
+    np.testing.assert_allclose(row_max.numpy(), want_max, **tol)
+    np.testing.assert_allclose(row_sum.numpy(), want_sum, **tol)
+    rows = np.maximum(want_sum, 1.0)[..., None]
+    np.testing.assert_allclose(acc.numpy() / rows, want_acc / rows, **tol)
+    # a CPU tensor takes the plain versions and launches nothing
+    assert (flash.LAUNCHES, flash.LSE_LAUNCHES, flash.PARTIAL_LAUNCHES, flash.FWD_WIDE_LAUNCHES,
+            flash.LSE_WIDE_LAUNCHES, flash.PARTIAL_WIDE_LAUNCHES) == counts

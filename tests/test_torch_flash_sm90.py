@@ -4,6 +4,7 @@ content hash over the headers a source includes. Jax-free and CPU-only:
 the kernels themselves are held to their plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
+import math
 import pathlib
 import re
 
@@ -118,6 +119,8 @@ def test_each_wrapper_launches_the_instance_its_shape_selects(routed, entry, sha
     assert getattr(flash, total) == 1 and getattr(flash, sm90) == int(hopper)
     argtypes = flash._ENTRIES[name][1]
     assert len(args) == len(argtypes) - 1  # the wrapper adds the stream
+    args, scale = args[:-1], args[-1]  # the softmax scale comes last
+    assert scale == 1 / math.sqrt(shape[3])
     # the partial mode takes no causal flag; the others take causal=True here
     dims = args[-4:] if entry == "dfly_flash_fwd_partial" else args[-5:-1]
     if hopper:
@@ -127,6 +130,60 @@ def test_each_wrapper_launches_the_instance_its_shape_selects(routed, entry, sha
         dims = args[-6:-2] if entry == "dfly_flash_fwd_partial" else args[-7:-3]
         assert dims == (b, h, l, d)
 
+
+WIDE_ENTRIES = {name: f"{name}_wide" for name in _CALLS}
+WIDE_COUNTERS = {
+    "dfly_flash_fwd": "FWD_WIDE_LAUNCHES",
+    "dfly_flash_fwd_lse": "LSE_WIDE_LAUNCHES",
+    "dfly_flash_fwd_partial": "PARTIAL_WIDE_LAUNCHES",
+    "dfly_flash_bwd_dkv": "DKV_WIDE_LAUNCHES",
+    "dfly_flash_bwd_dq": "DQ_WIDE_LAUNCHES",
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_CALLS))
+@pytest.mark.parametrize("shape,dtype", [((2, 4, 40, 256), torch.bfloat16),
+                                         ((2, 4, 4096, 256), torch.bfloat16),
+                                         ((2, 4, 70, 256), torch.float32)])
+def test_head_dim_256_launches_the_wide_instance_at_every_length(monkeypatch, routed, entry,
+                                                                 shape, dtype):
+    """D = 256 takes the wide instance whatever L and dtype (never the
+    Hopper one), counted in its total and its wide part; the entry takes
+    (B, H, L, D, causal, dtype, scale) after the pointers, no warps."""
+    for name in WIDE_COUNTERS.values():
+        monkeypatch.setattr(flash, name, 0)
+    q, mask = _meta(shape, dtype)
+    _CALLS[entry](q, mask)
+    (name, args), = routed.calls
+    assert name == WIDE_ENTRIES[entry]
+    total, sm90 = _COUNTERS[entry]
+    assert getattr(flash, total) == 1 and getattr(flash, sm90) == 0
+    assert getattr(flash, WIDE_COUNTERS[entry]) == 1
+    assert len(args) == len(flash._ENTRIES[name][1]) - 1
+    b, h, l, d = shape
+    args, scale = args[:-1], args[-1]
+    assert scale == 1 / math.sqrt(d)
+    if entry == "dfly_flash_fwd_partial":
+        assert args[-5:] == (b, h, l, d, flash._DTYPE_CODES[dtype])
+    else:
+        assert args[-6:] == (b, h, l, d, 1, flash._DTYPE_CODES[dtype])
+
+
+def test_head_dims_pad_to_the_next_instance_up_to_256():
+    """D_pad for every D up to 256, and the instances' own head dims;
+    above 256 no instance takes it."""
+    assert flash.INSTANCE_DIMS == (16, 32, 64, 128, 256)
+    for d, d_pad in ((8, 16), (24, 32), (96, 128), (129, 256), (160, 256), (192, 256)):
+        q = torch.ones(1, 1, 4, d)
+        qp, kp, vp = flash._padded(q, q, q)
+        assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == d_pad
+        assert torch.equal(qp[..., :d], q) and not qp[..., d:].any()
+        assert flash._scale(q) == 1 / math.sqrt(d)  # the kernels score at the unpadded D
+    assert flash._instance_dim(torch.zeros(1, 1, 4, 256)) is True
+    assert flash._instance_dim(torch.zeros(1, 1, 4, 128)) is False
+    for d in (160, 320):
+        with pytest.raises(ValueError, match="no kernel instance"):
+            flash._instance_dim(torch.zeros(1, 1, 4, d))
 
 def test_cpu_tensors_take_the_plain_versions_at_long_l(monkeypatch):
     """The Hopper path is a CUDA path: a CPU tensor at a long bf16 shape
@@ -153,7 +210,7 @@ _EXTERN = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
 
 
 def _c_signatures():
-    """{entry: (source stem, ['p' or 'i' per parameter])} of every
+    """{entry: (source stem, ['p', 'i' or 'f' per parameter])} of every
     ``extern "C" int`` function in csrc/*.cu."""
     found = {}
     for path in sorted(build.CSRC_DIR.glob("*.cu")):
@@ -161,8 +218,8 @@ def _c_signatures():
             kinds = []
             for param in params.split(","):
                 param = " ".join(param.split())
-                assert "*" in param or param.startswith("int "), (name, param)
-                kinds.append("p" if "*" in param else "i")
+                assert "*" in param or param.startswith(("int ", "float ")), (name, param)
+                kinds.append("p" if "*" in param else param[0])
             assert name not in found, f"{name} defined twice"
             found[name] = (path.stem, kinds)
     return found
@@ -174,12 +231,13 @@ def test_every_c_entry_has_argtypes_and_every_argtype_an_entry():
 
 @pytest.mark.parametrize("name", sorted(flash._ENTRIES))
 def test_argtypes_match_the_extern_c_signature(name):
-    """Count and order of pointer and int parameters: an int where the C
-    side takes a pointer would cut the pointer to 32 bits."""
+    """Count and order of pointer, int and float parameters: an int where
+    the C side takes a pointer would cut the pointer to 32 bits, and a
+    float passed as an int would arrive as garbage."""
     source, argtypes = flash._ENTRIES[name]
     stem, kinds = _c_signatures()[name]
     assert source == stem
-    assert [("p" if t is flash._P else "i") for t in argtypes] == kinds
+    assert [{flash._P: "p", flash._I: "i", flash._F: "f"}[t] for t in argtypes] == kinds
 
 
 # ------------------------------------------------------ the build's hash

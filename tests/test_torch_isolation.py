@@ -38,7 +38,13 @@ def test_port_imports_no_jax_flax_or_reference():
     assert int(lines["MODULES"]) >= 20  # every module of the slice was imported
     names = set(lines["NAMES"].split(","))
     for module in ("ops.topk", "ops.evaluator", "ops.tick", "state.cluster", "graph.dag",
-                   "native", "cluster.scheduler", "records.features"):
+                   "native", "cluster.scheduler", "records.features",
+                   # slice 7: the scheduler service and what it imports
+                   "config.config", "records.schema", "records.storage", "records.synth",
+                   "cluster.messages", "cluster.quarantine", "cluster.simulator",
+                   "ops.segment", "telemetry", "telemetry.metrics", "telemetry.series",
+                   "telemetry.flight", "telemetry.decisions", "telemetry.slo",
+                   "rpc.resilience", "scenarios", "scenarios.spec", "scenarios.engine"):
         assert f"dragonfly2_tpu_torch.{module}" in names, module
     assert lines["TORCH"] == "True"
     assert lines["BAD"] == "", f"port pulled in: {lines['BAD']}"
