@@ -71,13 +71,19 @@ result line:
    device time and launches), the mirror sync's time,
    schedule_from_packed at 1024 x 15 and 1024 x 64, and the whole tick at
    bench_loop's 64 waiting peers and at 1,024.
-9. the wide instances (slice 7, ROADMAP C3): every entry's head dim 256
-   instance against the plain version of what it computes at D = 160
-   (padded to 256) and 256, L = 40 and 2048, causal and not; D = 320
-   refused by every entry before any launch; each instance timed at
-   [4, 4, 1024, 256]. Then their main path: the ranker at hidden 768 with
-   4 heads (head dim 192) trained for an epoch on phase 5's trace, and the
-   ring over [2, 4, 4096, 192] on a 1 x 4 mesh of the card.
+9. the wide instances (slices 7-8, ROADMAP C3): every entry at head dims
+   above 128, each taken as it is, against the plain version of what it
+   computes at D = 160, 192, 256, 320 and 512, L = 40 and 2048, causal and
+   not, float32 too at D = 320 and 512; the wide mma.sync instances at
+   every D, the wide Hopper ones (TMA + wgmma: the forward in its three
+   modes and dK/dV) for bf16 at D up to 256 above WIDE_SM90_MIN_L, and
+   forced at the wide ranker's batch. Each instance timed at its main
+   path's shape (its device time beside the other instance's) and each
+   wide mma.sync one at D = 320. Then their main paths: the ranker at
+   hidden 768 with 4 heads (head dim 192) trained for an epoch on phase
+   5's trace; the ring over its eval batch on a 1 x 2 mesh; the ring over
+   [2, 4, 4096, 192] on a 1 x 4 mesh; Ulysses over [2, 16, 4096, 192] on a
+   1 x 4 mesh, without grad and with.
 10. the scheduler service (slice 7): SchedulerService on the card driven
    by the port's ClusterSimulator at bench_loop.py's default replay
    (10,000 hosts, 512 tasks, seed 0, 64 downloads a round, Config()
@@ -89,6 +95,11 @@ result line:
    and piece_cost_ns_total; fused_tick=False agrees with True on the card
    over 10 rounds at tests/test_fused_tick.py's size.
 11. the kernels JSON line and, last, the result line.
+
+Between phases 3 and 4, the host cost of the forward with lse's wrapper at
+the trained shape, step by step (_check, the output allocations,
+_pointers, the device context, the stream lookup, the ctypes call, the
+counter), and the wrapper with _launch as it is and as it stood before.
 
 Phase 3's forward rows include a head dim no instance has (D = 24,
 zero-padded to 32 and scored at D = 24's softmax scale).
@@ -103,7 +114,9 @@ not find fails the run.
 
 instead times both instances of the forward, of dK/dV and of dQ at
 L = 16 .. 512 (device time), the readings ops/flash.py's SM90_MIN_L is set
-from, and prints no result line.
+from, and both wide instances of the forward with lse and of dK/dV at
+D = 192 and 256 over L = 16 .. 2048 (WIDE_SM90_MIN_L's readings), and
+prints no result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -180,6 +193,12 @@ MESH_STEPS = 12  # timed steps of each strategy from the same weights
 THRESHOLD_LENGTHS = (16, 20, 32, 64, 96, 128, 256, 512)
 # head dim -> (B, H): the ranker's trained batch, and the wide rows' heads
 THRESHOLD_SHAPES = {32: (256, 4), 128: (16, 8)}
+# the wide instances' readings (WIDE_SM90_MIN_L): the wide ranker's 4 heads
+# at D = 192 and 256, B = WIDE_THRESHOLD_TOKENS // L sets (256 at L = 20,
+# the ranker's training batch)
+WIDE_THRESHOLD_DIMS = (192, 256)
+WIDE_THRESHOLD_LENGTHS = (16, 20, 32, 64, 96, 128, 256, 512, 1024, 2048)
+WIDE_THRESHOLD_TOKENS = 5120
 ULYSSES_SHAPE, ULYSSES_SP = (2, 16, 4096, 32), 4
 
 
@@ -314,9 +333,10 @@ def phase_build():
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
         print(f"build {name}: {len(regs)} kernels, registers {min(regs, default=0)}-"
               f"{max(regs, default=0)}, spill stores max {max(spills, default=0)} bytes")
-        if "sm90" in name:  # each instance of the Hopper sources
-            entries = re.findall(r"Compiling entry function '(\w+)'", log)
-            for entry, used, spill in zip(entries, regs, spills):
+        # each instance of the Hopper sources, and the wide ones of the others
+        entries = re.findall(r"Compiling entry function '(\w+)'", log)
+        for entry, used, spill in zip(entries, regs, spills):
+            if "sm90" in name or "wide" in entry:
                 print(f"  {_instance_label(entry)}: {used} registers, {spill} bytes spilled")
             # wgmma issued one at a time: registers ran short
             for why, entry in re.findall(
@@ -327,10 +347,12 @@ def phase_build():
 
 
 def _instance_label(entry: str) -> str:
-    """``kernel<template arguments>`` of a mangled kernel name."""
+    """``kernel<template arguments>`` of a mangled kernel name (``kernel``
+    alone where it takes none)."""
     m = re.search(r"\d(flash_\w+?_kernel)I((?:Li\d+E)+)E", entry)
     if m is None:
-        return entry[-40:]
+        plain = re.search(r"\d(flash_\w+?_kernel)", entry)
+        return plain.group(1) if plain else entry[-40:]
     return f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
 
 
@@ -406,7 +428,7 @@ def _instance(sm90: bool):
     from dragonfly2_tpu_torch.ops import flash
 
     picked = flash._sm90_path
-    flash._sm90_path = lambda length, head_dim, dtype: sm90
+    flash._sm90_path = lambda length, head_dim, dtype, kernel="fwd": sm90
     try:
         yield
     finally:
@@ -684,6 +706,108 @@ def phase_training_kernels():
                   f"bound_ms {bound_ms:.4f} ({bound_by})")
         del sdpa_out, leaves
     return results
+
+
+LAUNCH_COST_CALLS = 2000  # host-clock calls of each step of the wrapper
+
+
+def _host_us(step, calls: int = LAUNCH_COST_CALLS) -> float:
+    """Host microseconds a call of ``step`` (perf_counter over ``calls``
+    calls after a warm-up; what it enqueues is drained outside the window)."""
+    import torch
+
+    for _ in range(50):
+        step()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        step()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def _launch_entering(name, device, *args):
+    """ops/flash.py's _launch as it stood before: the device's context
+    entered and left at every launch."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import flash
+
+    fn, lib = flash._entry(name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.dfly_cuda_error_string(err).decode()}")
+
+
+def phase_launch_cost(card: str):
+    """The host cost of a wrapper, step by step: the mma.sync forward with
+    lse at the trained shape [256, 4, 20, 32] (its wrapper's CUDA-event
+    time is its host call rate), each step of flash_attention_lse and
+    _launch timed alone on the host clock; then the whole wrapper with
+    _launch as ops/flash.py has it and as it stood before (the device
+    context entered at every launch), in turns."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    q, k, v, mask = _attention_inputs(gen, 256, 4, 20, 32, torch.bfloat16, True)
+    b, h, l, d = q.shape
+    dev = q.device
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, l, dtype=torch.float32, device=dev)
+    fn, _ = flash._entry("dfly_flash_fwd_lse")
+    args = flash._pointers(q, k, v, mask, o, lse) + [b, h, l, d, 0, 0, flash.warps_for(l),
+                                                      flash._scale(q)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counted = flash.LSE_LAUNCHES
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {
+        "_check": lambda: flash._check(q, k, v, mask),
+        "routing (_padded_route, _is_wide, _sm90_path)": lambda: (
+            flash._padded_route(q), flash._is_wide(d), flash._sm90_path(l, d, q.dtype)),
+        "torch.empty (o, lse)": lambda: (
+            torch.empty_like(q), torch.empty(b, h, l, dtype=torch.float32, device=dev)),
+        "_pointers": lambda: flash._pointers(q, k, v, mask, o, lse),
+        "_entry lookup": lambda: flash._entry("dfly_flash_fwd_lse"),
+        "torch.cuda.device context": context,
+        "current_stream(device).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "ctypes call (the launch)": lambda: fn(*args, stream),
+        "_count under its lock": lambda: flash._count("LSE_LAUNCHES"),
+    }
+    costs = {name: _host_us(step) for name, step in steps.items()}
+    flash.LSE_LAUNCHES = counted
+    wrapper = lambda: flash.flash_attention_lse(q, k, v, mask)  # noqa: E731
+    whole = _host_us(wrapper)
+    flash.LSE_LAUNCHES = counted
+    print(f"launch cost of the forward with lse's wrapper, [256, 4, 20, 32] bf16 ({card}), host "
+          "us a call: " + ", ".join(f"{name} {us:.2f}" for name, us in costs.items())
+          + f"; the whole wrapper {whole:.2f} (the listed steps sum to "
+          f"{sum(costs.values()):.2f}; the device context and the stream lookup run inside the "
+          "wrapper's one _launch)")
+    committed = flash._launch
+    readings = {"committed": [], "entering": []}
+    for turn in ("committed", "entering", "entering", "committed"):
+        flash._launch = committed if turn == "committed" else _launch_entering
+        try:
+            readings[turn].append((_host_us(wrapper), _time_ms(wrapper, 500)))
+        finally:
+            flash._launch = committed
+    flash.LSE_LAUNCHES = counted
+    for turn, pairs in readings.items():
+        print(f"launch cost: the wrapper with _launch {turn} ("
+              + ("as ops/flash.py has it" if turn == "committed"
+                 else "the device context entered at every launch, as before")
+              + "): host " + " / ".join(f"{us:.2f} us" for us, _ in pairs) + ", CUDA events "
+              + " / ".join(f"{ms:.4f} ms" for _, ms in pairs) + " (turns 1 and 4, or 2 and 3)")
+    return costs
 
 
 def _requests(n: int, rng: np.random.Generator):
@@ -1102,13 +1226,15 @@ def phase_training():
     return train_counts, serve_counts, ds, breakdown
 
 
-def _partial_errors(got, want, atol, rtol):
+def _partial_errors(got, want, atol, rtol, stats=(STATS_ATOL, STATS_RTOL)):
     """Max abs errors of (acc, row_max, row_sum), and whether they hold:
-    row_max (on rows with a valid key) and row_sum to STATS, acc relative
-    to its row sum (a sum over up to L keys) to ``atol``/``rtol``, and rows
-    with no valid key exactly at the filler, 0 and 0."""
+    row_max (on rows with a valid key) and row_sum to ``stats`` (STATS by
+    default), acc relative to its row sum (a sum over up to L keys) to
+    ``atol``/``rtol``, and rows with no valid key exactly at the filler, 0
+    and 0."""
     import torch
 
+    s_atol, s_rtol = stats
     acc, row_max, row_sum = got
     want_acc, want_max, want_sum = want
     live = want_sum > 0
@@ -1120,8 +1246,8 @@ def _partial_errors(got, want, atol, rtol):
         "row_sum": float((row_sum - want_sum).abs().max().item()),
     }
     ok = (
-        torch.allclose(row_max[live], want_max[live], atol=STATS_ATOL, rtol=STATS_RTOL)
-        and torch.allclose(row_sum, want_sum, atol=STATS_ATOL, rtol=STATS_RTOL)
+        torch.allclose(row_max[live], want_max[live], atol=s_atol, rtol=s_rtol)
+        and torch.allclose(row_sum, want_sum, atol=s_atol, rtol=s_rtol)
         and torch.allclose(acc / scale, want_acc / scale, atol=atol, rtol=rtol)
         and bool(torch.isfinite(row_max).all() and torch.isfinite(acc).all())
         and bool((row_max[~live] == want_max[~live]).all())
@@ -1449,7 +1575,10 @@ def phase_threshold():
     """Both instances of the forward, of dK/dV and of dQ at L = 16 .. 512
     (device time, each forced through the wrappers): where the Hopper
     instances overtake the mma.sync ones, the readings SM90_MIN_L is set
-    from. Run with --threshold, not in the smoke run."""
+    from; then both wide instances of the forward and of dK/dV at D = 192
+    and 256, L = 16 .. 2048 (the wide dQ has one instance), the readings
+    WIDE_SM90_MIN_L is set from. Run with --threshold, not in the smoke
+    run."""
     import torch
 
     from dragonfly2_tpu_torch.ops import flash
@@ -1479,6 +1608,29 @@ def phase_threshold():
                   f"{_fmt(row, 'dkv_sm90')} vs mma.sync {_fmt(row, 'dkv_mma_sync')}; dQ sm90 "
                   f"{_fmt(row, 'dq_sm90')} vs mma.sync {_fmt(row, 'dq_mma_sync')} (ops/flash.py "
                   f"picks {picks})")
+    for d in WIDE_THRESHOLD_DIMS:
+        for l in WIDE_THRESHOLD_LENGTHS:
+            b, h = max(2, WIDE_THRESHOLD_TOKENS // l), 4
+            q, k, v, mask = _attention_inputs(gen, b, h, l, d, torch.bfloat16, False)
+            do = torch.randn(b, h, l, d, generator=gen, device="cuda").to(torch.bfloat16)
+            picks = _wide_instance("flash_fwd", l, d, torch.bfloat16)
+            o, lse = flash.flash_attention_lse(q, k, v, mask)
+            delta = (do.float() * o.float()).sum(-1)
+            row = {}
+            for sm90, instance in ((True, "sm90"), (False, "mma_sync")):
+                with _instance(sm90):
+                    row.update(_timed(lambda: flash.flash_attention_lse(q, k, v, mask),
+                                      _WIDE_SYMBOLS["flash_fwd_lse_wide" + ("_sm90" if sm90
+                                                                            else "")],
+                                      f"fwd_{instance}"))
+                    row.update(_timed(
+                        lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do),
+                        _WIDE_SYMBOLS["flash_bwd_dkv_wide" + ("_sm90" if sm90 else "")],
+                        f"dkv_{instance}"))
+            print(f"threshold wide [{b}, {h}, {l}, {d}] bf16 device ms: forward with lse sm90 "
+                  f"{_fmt(row, 'fwd_sm90')} vs mma.sync {_fmt(row, 'fwd_mma_sync')}; dK/dV sm90 "
+                  f"{_fmt(row, 'dkv_sm90')} vs mma.sync {_fmt(row, 'dkv_mma_sync')} (ops/flash.py "
+                  f"picks {picks.removeprefix('flash_fwd_')})")
 
 
 def phase_long_ulysses():
@@ -1558,25 +1710,54 @@ def phase_long_ulysses():
 
 
 
-# slice 7 (C3): the wide instances, head dims above 128. Checked at D = 160
-# (padded to 256) and 256, short and long L, causal and not, and at the
-# wide ranker's own training batch with its key mask; D = 320, above the
-# largest instance, must be refused before any launch. The main path is
-# the ranker at hidden 768 with its 4 heads (D = 192, padded to 256)
-# trained for an epoch, and the ring at WIDE_RING_SHAPE on a 1 x 4 mesh of
-# the card for the partials; the kernels line's rows are timed at the
-# shapes those runs give each kernel
-WIDE_CHECK_DIMS, WIDE_CHECK_LENGTHS, WIDE_REFUSED_DIM = (160, 256), (40, 2048), 320
+# slices 7-8 (C3): the wide instances, head dims above 128, each taken as
+# it is (no pad copy; 130 -> 136 is the only padding left above 128).
+# Checked at D = 160, 192 and 256 (the wide Hopper instances of the forward
+# and dK/dV at long L, bf16) and 320 and 512 (above 256: the wide mma.sync
+# instances split D into 256-column chunks), short and long L, causal and
+# not, in bf16 and, at D = 320 and 512, float32; and at the wide ranker's
+# own training batch with its key mask. The main paths: the ranker at hidden
+# 768 with its 4 heads (D = 192) trained for an epoch (the mma.sync wide
+# forward with lse, dK/dV and dQ) and evaluated (the finished forward); the
+# ring over its eval batch on a 1 x 2 mesh (10 keys a shard: the mma.sync
+# wide partials); the ring at WIDE_RING_SHAPE on a 1 x 4 mesh (the wide
+# Hopper partials); and Ulysses over WIDE_ULYSSES_SHAPE on a 1 x 4 mesh (the
+# wide Hopper forward, forward with lse and dK/dV, and the wide dQ). The
+# kernels line's rows are timed at the shapes those runs give each kernel.
+WIDE_CHECK_DIMS, WIDE_CHECK_LENGTHS = (160, 192, 256, 320, 512), (40, 2048)
+WIDE_FLOAT32_DIMS = (320, 512)  # float32 at L = 40
+WIDE_C3_DIM = 320  # each wide mma.sync instance also timed at this D
 WIDE_HIDDEN = 768
 WIDE_HEAD_DIM = WIDE_HIDDEN // 4
+# the ranker above 256: hidden 1280, head dim 320 (C3's main path)
+WIDE_C3_HIDDEN = 4 * WIDE_C3_DIM
 WIDE_RING_SHAPE, WIDE_RING_SP = (2, 4, 4096, WIDE_HEAD_DIM), 4
+WIDE_EVAL_RING_SP = 2
+WIDE_ULYSSES_SHAPE, WIDE_ULYSSES_SP = (2, 16, 4096, WIDE_HEAD_DIM), 4
 WIDE_REPLAY_STEPS = 2  # a step at hidden 768 takes seconds on the CPU
+# each wide instance -> its ops/flash.py counter: the mma.sync instances
+# ("_wide"), then the Hopper ones ("_wide_sm90"; the wide dQ has none)
 _WIDE_COUNTERS = {
     "flash_fwd_wide": "FWD_WIDE_LAUNCHES",
     "flash_fwd_lse_wide": "LSE_WIDE_LAUNCHES",
     "flash_fwd_partial_wide": "PARTIAL_WIDE_LAUNCHES",
     "flash_bwd_dkv_wide": "DKV_WIDE_LAUNCHES",
     "flash_bwd_dq_wide": "DQ_WIDE_LAUNCHES",
+    "flash_fwd_wide_sm90": "FWD_WIDE_SM90_LAUNCHES",
+    "flash_fwd_lse_wide_sm90": "LSE_WIDE_SM90_LAUNCHES",
+    "flash_fwd_partial_wide_sm90": "PARTIAL_WIDE_SM90_LAUNCHES",
+    "flash_bwd_dkv_wide_sm90": "DKV_WIDE_SM90_LAUNCHES",
+}
+# profiler names of the wide instances' kernels
+_WIDE_SYMBOLS = {
+    "flash_fwd_wide": "flash_fwd_wide_kernel", "flash_fwd_lse_wide": "flash_fwd_wide_kernel",
+    "flash_fwd_partial_wide": "flash_fwd_wide_kernel",
+    "flash_bwd_dkv_wide": "flash_bwd_dkv_wide_kernel",
+    "flash_bwd_dq_wide": "flash_bwd_dq_wide_kernel",
+    "flash_fwd_wide_sm90": "flash_fwd_sm90_kernel",
+    "flash_fwd_lse_wide_sm90": "flash_fwd_sm90_kernel",
+    "flash_fwd_partial_wide_sm90": "flash_fwd_sm90_kernel",
+    "flash_bwd_dkv_wide_sm90": "flash_bwd_dkv_wide_sm90_kernel",
 }
 
 
@@ -1593,10 +1774,21 @@ def _zero_wide_counts() -> None:
         setattr(flash, counter, 0)
 
 
-def _wide_config():
+def _wide_instance(function: str, l: int, d: int, dtype) -> str:
+    """The wide instance ops/flash.py picks for ``function`` ("flash_fwd",
+    "flash_fwd_lse", "flash_fwd_partial", "flash_bwd_dkv", "flash_bwd_dq")
+    at a wide (L, D, dtype)."""
+    from dragonfly2_tpu_torch.ops import flash
+
+    kernel = "dkv" if function == "flash_bwd_dkv" else "fwd"
+    hopper = function != "flash_bwd_dq" and flash._sm90_path(l, d, dtype, kernel)
+    return function + ("_wide_sm90" if hopper else "_wide")
+
+
+def _wide_config(hidden: int = WIDE_HIDDEN):
     from dragonfly2_tpu_torch.config.config import TrainerConfig
 
-    return TrainerConfig(epochs=1, hidden_dim=WIDE_HIDDEN)
+    return TrainerConfig(epochs=1, hidden_dim=hidden)
 
 
 def _ranker_masks(ds):
@@ -1609,15 +1801,90 @@ def _ranker_masks(ds):
             torch.from_numpy(ds.mask[eval_idx]).cuda())
 
 
+def _check_wide_case(gen, b, l, d, causal, dtype, given, worst):
+    """Every entry at one wide shape against the plain version of what it
+    computes, each launch counted on the instance ops/flash.py picks; the
+    errors folded into ``worst``, keyed by instance."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import flash
+
+    q, k, v, mask = _attention_inputs(gen, b, 4, l, d, dtype, given is None)
+    if given is not None:
+        mask = given
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    long = l > 1000
+    atol, rtol = (LONG_ATOL, LONG_RTOL) if long else (KERNEL_ATOL, KERNEL_RTOL)
+    g_atol, g_rtol = (LONG_GRAD_ATOL, LONG_GRAD_RTOL) if long else (GRAD_ATOL, GRAD_RTOL)
+    # row statistics of bf16 operands are exact float32 sums; a float32
+    # input is rounded to bf16 in shared memory, as phase 3's float32 rows
+    s_atol, s_rtol = (STATS_ATOL, STATS_RTOL) if dtype == torch.bfloat16 else (atol, rtol)
+    label = f"B = {b}, D = {d}, L = {l}, causal={causal}, {str(dtype).removeprefix('torch.')}"
+    if given is not None:
+        label += " (the wide ranker's first batch and its mask)"
+    functions = ["flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"]
+    if not causal:
+        functions.append("flash_fwd_partial")
+    picked = {fn: _wide_instance(fn, l, d, dtype) for fn in functions}
+    before = _wide_counts()
+    out = flash.flash_attention(q, k, v, mask, causal)
+    o, lse = flash.flash_attention_lse(q, k, v, mask, causal)
+    got_dq, got_dk, got_dv = flash.flash_attention_bwd(q, k, v, mask, o, lse, do, causal)
+    partials = None if causal else flash.flash_attention_partials(q, k, v, mask)
+    torch.cuda.synchronize()
+    want = dict(before)
+    for name in picked.values():
+        want[name] += 1
+    if _wide_counts() != want:
+        _fail(f"wide {label}: launches {_wide_counts()}, expected {want}")
+    ref_o, ref_lse = flash.flash_attention_lse_plain(q, k, v, mask, causal)
+    seen = ref_lse > -1e20
+    errs = {
+        picked["flash_fwd"]: float((out.float() - ref_o.float()).abs().max().item()),
+        picked["flash_fwd_lse"]: max(
+            float((o.float() - ref_o.float()).abs().max().item()),
+            float((lse[seen] - ref_lse[seen]).abs().max().item())),
+    }
+    if not (torch.allclose(out.float(), ref_o.float(), atol=atol, rtol=rtol)
+            and torch.equal(o, out) and torch.isfinite(lse).all()
+            and torch.allclose(lse[seen], ref_lse[seen], atol=s_atol, rtol=s_rtol)):
+        _fail(f"wide forward {label}: errors {errs} (atol {atol} rtol {rtol}, lse atol {s_atol})")
+    dead = ~mask.any(dim=1)
+    if dead.any() and out[dead].abs().max().item() != 0.0:
+        _fail(f"wide forward {label}: fully masked rows are not 0")
+    if partials is not None:
+        perr, ok = _partial_errors(partials, flash.flash_attention_partials_plain(q, k, v, mask),
+                                   atol, rtol, (s_atol, s_rtol))
+        errs[picked["flash_fwd_partial"]] = max(perr["acc_over_row_sum"], perr["row_max"],
+                                                perr["row_sum"])
+        if not ok:
+            _fail(f"wide partials {label}: errors {perr}")
+    want_dq, want_dk, want_dv = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, causal)
+    for name, g, w in (("dq", got_dq, want_dq), ("dk", got_dk, want_dk), ("dv", got_dv, want_dv)):
+        err = float((g.float() - w.float()).abs().max().item())
+        kernel = picked["flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"]
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        if not torch.allclose(g.float(), w.float(), atol=g_atol, rtol=g_rtol):
+            _fail(f"wide backward {label} {name}: max_abs_err {err} (atol {g_atol} rtol {g_rtol})")
+        if dead.any() and g[dead].abs().max().item() != 0.0:
+            _fail(f"wide backward {label} {name}: fully masked rows are not 0")
+    for name, err in errs.items():
+        worst[name] = max(worst[name], err)
+    print(f"wide {label}: max_abs_err " + ", ".join(
+        f"{name} {err:.3g}" for name, err in errs.items())
+        + f" (outputs atol {atol} rtol {rtol}, gradients atol {g_atol} rtol {g_rtol})")
+
+
 def phase_wide_kernels(ds):
-    """Every entry's wide instance against the plain version at the call's
-    own D (a D below 256 is zero-padded and scored at D's scale): at each
-    checked D, L and causal flag with a mask holding fully masked batch rows, and at
-    the wide ranker's first training batch with its own key mask; D =
-    WIDE_REFUSED_DIM refused by every entry with nothing launched; then
-    each instance's row at the shape its main path gives it (device time,
-    the plain version's, a library call's where there is one, and the
-    bound of the unpadded function). Returns {kernel: {shape key: row}}."""
+    """Every wide instance against the plain version at the call's own D:
+    at each checked D, L and causal flag with a mask holding fully masked
+    batch rows, float32 above 256, and at the wide ranker's first training
+    batch with its own key mask (on the instances ops/flash.py picks there,
+    and on the wide Hopper ones forced); then each instance's row at the
+    shape its main path gives it (wrapper ms, device ms beside the other
+    instance's, the plain version's ms, a library call's where there is
+    one, and the bound), and each wide mma.sync instance's at D =
+    WIDE_C3_DIM. Returns {kernel: {shape key: row}}."""
     import torch
     import torch.nn.functional as F
 
@@ -1625,242 +1892,300 @@ def phase_wide_kernels(ds):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     train_mask, eval_mask = _ranker_masks(ds)
-    cases = [(2, l, d, causal, None) for d in WIDE_CHECK_DIMS for l in WIDE_CHECK_LENGTHS
-             for causal in (False, True)]
-    cases.append((*train_mask.shape, WIDE_HEAD_DIM, False, train_mask))
     worst = {name: 0.0 for name in _WIDE_COUNTERS}
-    for b, l, d, causal, given in cases:
-        q, k, v, mask = _attention_inputs(gen, b, 4, l, d, torch.bfloat16, given is None)
-        if given is not None:
-            mask = given
-        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
-        long = l > 1000
-        atol, rtol = (LONG_ATOL, LONG_RTOL) if long else (KERNEL_ATOL, KERNEL_RTOL)
-        g_atol, g_rtol = (LONG_GRAD_ATOL, LONG_GRAD_RTOL) if long else (GRAD_ATOL, GRAD_RTOL)
-        label = f"B = {b}, D = {d}, L = {l}, causal={causal}"
-        if given is not None:
-            label += " (the wide ranker's first batch and its mask)"
-        before = _wide_counts()
-        out = flash.flash_attention(q, k, v, mask, causal)
-        o, lse = flash.flash_attention_lse(q, k, v, mask, causal)
-        got_dq, got_dk, got_dv = flash.flash_attention_bwd(q, k, v, mask, o, lse, do, causal)
-        acc = row_max = row_sum = None
-        if not causal:
-            acc, row_max, row_sum = flash.flash_attention_partials(q, k, v, mask)
-        torch.cuda.synchronize()
-        want = {name: before[name] + 1 for name in _WIDE_COUNTERS}
-        if causal:
-            want["flash_fwd_partial_wide"] -= 1
-        if _wide_counts() != want:
-            _fail(f"wide {label}: launches {_wide_counts()}, expected {want}")
-        ref_o, ref_lse = flash.flash_attention_lse_plain(q, k, v, mask, causal)
-        seen = ref_lse > -1e20
-        errs = {
-            "flash_fwd_wide": float((out.float() - ref_o.float()).abs().max().item()),
-            "flash_fwd_lse_wide": max(
-                float((o.float() - ref_o.float()).abs().max().item()),
-                float((lse[seen] - ref_lse[seen]).abs().max().item())),
-        }
-        if not (torch.allclose(out.float(), ref_o.float(), atol=atol, rtol=rtol)
-                and torch.equal(o, out)
-                and torch.allclose(lse[seen], ref_lse[seen], atol=STATS_ATOL, rtol=STATS_RTOL)):
-            _fail(f"wide forward {label}: errors {errs} (atol {atol} rtol {rtol}, lse atol "
-                  f"{STATS_ATOL})")
-        dead = ~mask.any(dim=1)
-        if dead.any() and out[dead].abs().max().item() != 0.0:
-            _fail(f"wide forward {label}: fully masked rows are not 0")
-        if acc is not None:
-            want_acc, want_max, want_sum = flash.flash_attention_partials_plain(q, k, v, mask)
-            perr, ok = _partial_errors((acc, row_max, row_sum), (want_acc, want_max, want_sum),
-                                       atol, rtol)
-            errs["flash_fwd_partial_wide"] = max(perr["acc_over_row_sum"], perr["row_max"],
-                                                 perr["row_sum"])
-            if not ok:
-                _fail(f"wide partials {label}: errors {perr}")
-        want_dq, want_dk, want_dv = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do,
-                                                                    causal)
-        for name, g, w in (("dq", got_dq, want_dq), ("dk", got_dk, want_dk),
-                           ("dv", got_dv, want_dv)):
-            err = float((g.float() - w.float()).abs().max().item())
-            kernel = "flash_bwd_dq_wide" if name == "dq" else "flash_bwd_dkv_wide"
-            errs[kernel] = max(errs.get(kernel, 0.0), err)
-            if not torch.allclose(g.float(), w.float(), atol=g_atol, rtol=g_rtol):
-                _fail(f"wide backward {label} {name}: max_abs_err {err} (atol {g_atol} rtol "
-                      f"{g_rtol})")
-            if dead.any() and g[dead].abs().max().item() != 0.0:
-                _fail(f"wide backward {label} {name}: fully masked rows are not 0")
-        for name, err in errs.items():
-            worst[name] = max(worst[name], err)
-        print(f"wide {label}: max_abs_err " + ", ".join(
-            f"{name} {err:.3g}" for name, err in errs.items())
-            + f" (outputs atol {atol} rtol {rtol}, gradients atol {g_atol} rtol {g_rtol})")
-
-    # above the largest instance: refused from the shape, nothing launched
-    q, k, v, mask = _attention_inputs(gen, 2, 2, 40, WIDE_REFUSED_DIM, torch.bfloat16, False)
-    lse = torch.zeros(q.shape[:3], device="cuda")
-    before = _counts(), _wide_counts()
-    for call in (lambda: flash.flash_attention(q, k, v, mask),
-                 lambda: flash.flash_attention_lse(q, k, v, mask),
-                 lambda: flash.flash_attention_partials(q, k, v, mask),
-                 lambda: flash.flash_attention_bwd(q, k, v, mask, q, lse, q)):
-        try:
-            call()
-        except ValueError:
-            continue
-        _fail(f"head dim {WIDE_REFUSED_DIM} was not refused")
-    if (_counts(), _wide_counts()) != before:
-        _fail(f"head dim {WIDE_REFUSED_DIM} launched a kernel")
-    print(f"head dim {WIDE_REFUSED_DIM}: every entry refused before any launch")
+    for d in WIDE_CHECK_DIMS:
+        for l in WIDE_CHECK_LENGTHS:
+            for causal in (False, True):
+                _check_wide_case(gen, 2, l, d, causal, torch.bfloat16, None, worst)
+    for d in WIDE_FLOAT32_DIMS:
+        _check_wide_case(gen, 2, 40, d, False, torch.float32, None, worst)
+    ranker = (train_mask.shape[0], train_mask.shape[1], WIDE_HEAD_DIM, False, torch.bfloat16)
+    _check_wide_case(gen, *ranker, train_mask, worst)
+    with _instance(sm90=True):  # the wide Hopper instances at the ranker's own batch
+        _check_wide_case(gen, *ranker, train_mask, worst)
 
     iters = 10
-    results = {}
+    results = {name: {} for name in _WIDE_COUNTERS}
 
-    def row(name, key, q, fn, symbol, plain_ms, library_ms, bound):
-        """Time ``fn`` (one launch of ``name``'s instance) and keep its row."""
+    def row(function, key, q, call, plain_ms, library_ms, bound):
+        """Time ``call`` (one launch of the instance ops/flash.py picks for
+        ``function`` at q's shape), and the other wide instance's device
+        time through the same call, and keep the row."""
+        b, h, l, d = q.shape
+        name = _wide_instance(function, l, d, q.dtype)
         bound_ms, bound_by = bound
-        r = dict(shape=list(q.shape), causal=False, dtype="bfloat16", variant="wide",
-                 max_abs_err=worst[name], ms=_time_ms(fn, iters), **_timed(fn, symbol),
-                 mma_sync_kernel_ms=None, plain_ms=plain_ms, library_ms=library_ms,
-                 bound_ms=bound_ms, bound_by=bound_by)
+        r = dict(shape=list(q.shape), causal=False, dtype="bfloat16",
+                 variant="wide sm90" if name.endswith("_sm90") else "wide mma.sync",
+                 max_abs_err=worst[name], ms=_time_ms(call, iters),
+                 **_timed(call, _WIDE_SYMBOLS[name]), mma_sync_kernel_ms=None,
+                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         if r["kernel_ms"] is None:
             _fail(f"kernel {name} {list(q.shape)}: the profiler found no device time")
-        results[name] = {key: r}
+        other = ""
+        if function != "flash_bwd_dq" and d <= flash.WIDE_SM90_MAX_DIM:
+            hopper = not name.endswith("_sm90")
+            other_name = function + ("_wide_sm90" if hopper else "_wide")
+            with _instance(sm90=hopper):
+                r.update(_timed(call, _WIDE_SYMBOLS[other_name], "other_kernel"))
+            r["other_variant"] = other_name
+            other = f"; {other_name} forced {_fmt(r, 'other_kernel')}"
+        results[name][key] = r
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"kernel {name} {list(q.shape)} bf16 (wide, {key}, head dim padded to 256): "
-              f"max_abs_err {worst[name]:.3g} over the checked shapes; ms {r['ms']:.4f} (kernel "
-              f"{_fmt(r)}) plain_ms {plain_ms:.4f} library_ms {lib} bound_ms {bound_ms:.4f} "
-              f"({bound_by}, of the unpadded function)")
+        print(f"kernel {name} {list(q.shape)} bf16 ({key}): max_abs_err {worst[name]:.3g} over "
+              f"the checked shapes; ms {r['ms']:.4f} (kernel {_fmt(r)}{other}) plain_ms "
+              f"{plain_ms:.4f} library_ms {lib} bound_ms {bound_ms:.4f} ({bound_by})")
 
-    def ranker_inputs(mask):
-        q, k, v, _ = _attention_inputs(gen, mask.shape[0], 4, mask.shape[1], WIDE_HEAD_DIM,
-                                       torch.bfloat16, False)
-        return q, k, v, mask
+    def inputs(b, l, d, mask=None, h=4):
+        q, k, v, m = _attention_inputs(gen, b, h, l, d, torch.bfloat16, False)
+        return q, k, v, (m if mask is None else mask)
 
-    # the ranker's eval: the finished forward over every eval row
-    q, k, v, mask = ranker_inputs(eval_mask)
-    sdpa_mask = mask[:, None, None, :]
-    row("flash_fwd_wide", "ranker-eval", q, lambda: flash.flash_attention(q, k, v, mask),
-        "flash_fwd_wide_kernel", _time_ms(lambda: flash.flash_attention_plain(q, k, v, mask), 3),
-        _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask), iters),
-        _bound(q, mask, False))
+    def forward_row(key, q, k, v, mask):
+        sdpa_mask = mask[:, None, None, :]
+        row("flash_fwd", key, q, lambda: flash.flash_attention(q, k, v, mask),
+            _time_ms(lambda: flash.flash_attention_plain(q, k, v, mask), 3),
+            _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask), iters),
+            _bound(q, mask, False))
 
-    # the ranker's training step: the forward with lse, then the backward
-    # kernels as its backward launches them, on the inputs padded to 256
-    q, k, v, mask = ranker_inputs(train_mask)
-    sdpa_mask = mask[:, None, None, :]
-    row("flash_fwd_lse_wide", "ranker-train", q, lambda: flash.flash_attention_lse(q, k, v, mask),
-        "flash_fwd_wide_kernel",
-        _time_ms(lambda: flash.flash_attention_lse_plain(q, k, v, mask), 3),
-        _library_fwd_lse_ms(q, k, v, mask, False, iters), _bound(q, mask, False, row_stats=1))
-    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    o, lse = flash.flash_attention_lse(q, k, v, mask)
-    qp, kp, vp, dop = flash._padded(q, k, v, do)
-    delta = (do.float() * o.float()).sum(-1)
-    scale = flash._scale(q)
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask)
-    library_bwd_ms = _time_ms(
-        lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True), iters)
-    plain_bwd_ms = _time_ms(lambda: flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do),
-                            3)
-    row("flash_bwd_dkv_wide", "ranker-train", q,
-        lambda: flash.flash_attention_bwd_dkv(qp, kp, vp, mask, lse, delta, dop, False, scale),
-        "flash_bwd_dkv_wide_kernel", plain_bwd_ms, library_bwd_ms,
-        _bound(q, mask, False, matrices=6, row_stats=2, ops_per_pair=8))
-    row("flash_bwd_dq_wide", "ranker-train", q,
-        lambda: flash.flash_attention_bwd_dq(qp, kp, vp, mask, lse, delta, dop, False, scale),
-        "flash_bwd_dq_wide_kernel", plain_bwd_ms, library_bwd_ms,
-        _bound(q, mask, False, matrices=5, row_stats=2, ops_per_pair=6))
-    del sdpa_out, leaves
+    def training_rows(key, q, k, v, mask, dkv=True, dq=True):
+        """The forward with lse, then the backward kernels as the backward
+        launches them, from its o and lse."""
+        row("flash_fwd_lse", key, q, lambda: flash.flash_attention_lse(q, k, v, mask),
+            _time_ms(lambda: flash.flash_attention_lse_plain(q, k, v, mask), 3),
+            _library_fwd_lse_ms(q, k, v, mask, False, iters), _bound(q, mask, False, row_stats=1))
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        o, lse = flash.flash_attention_lse(q, k, v, mask)
+        delta = (do.float() * o.float()).sum(-1)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask[:, None, None, :])
+        library_bwd_ms = _time_ms(
+            lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True), iters)
+        plain_bwd_ms = _time_ms(
+            lambda: flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do), 3)
+        if dkv:
+            row("flash_bwd_dkv", key, q,
+                lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do),
+                plain_bwd_ms, library_bwd_ms,
+                _bound(q, mask, False, matrices=6, row_stats=2, ops_per_pair=8))
+        if dq:
+            row("flash_bwd_dq", key, q,
+                lambda: flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do),
+                plain_bwd_ms, library_bwd_ms,
+                _bound(q, mask, False, matrices=5, row_stats=2, ops_per_pair=6))
 
-    # one block of the wide ring: a shard's queries against one shard's keys
+    def partial_row(key, q, k, v, mask):
+        row("flash_fwd_partial", key, q, lambda: flash.flash_attention_partials(q, k, v, mask),
+            _time_ms(lambda: flash.flash_attention_partials_plain(q, k, v, mask), 3),
+            _library_fwd_lse_ms(q, k, v, mask, False, iters),
+            _bound(q, mask, False, matrices=3 + 4 // q.element_size(), row_stats=2))
+
+    # the ranker's eval (the finished forward over every eval row) and its
+    # training step, at its head dim and at WIDE_C3_DIM
+    for d, suffix in ((WIDE_HEAD_DIM, ""), (WIDE_C3_DIM, f"-d{WIDE_C3_DIM}")):
+        forward_row("ranker-eval" + suffix, *inputs(eval_mask.shape[0], eval_mask.shape[1], d,
+                                                    eval_mask))
+        training_rows("ranker-train" + suffix, *inputs(train_mask.shape[0], train_mask.shape[1], d,
+                                                       train_mask))
+    # the ring over the eval rows on a 1 x WIDE_EVAL_RING_SP mesh: a shard's
+    # queries against one shard's keys
+    shard = eval_mask.shape[1] // WIDE_EVAL_RING_SP
+    partial_row("eval-ring-shard", *inputs(eval_mask.shape[0], shard, WIDE_HEAD_DIM,
+                                           eval_mask[:, :shard].contiguous()))
+    # one block of the long ring, at its head dim and at WIDE_C3_DIM
     b, h, l, d = WIDE_RING_SHAPE
-    q, k, v, mask = _attention_inputs(gen, b, h, l // WIDE_RING_SP, d, torch.bfloat16, False)
-    row("flash_fwd_partial_wide", "ring-block", q,
-        lambda: flash.flash_attention_partials(q, k, v, mask), "flash_fwd_wide_kernel",
-        _time_ms(lambda: flash.flash_attention_partials_plain(q, k, v, mask), 3),
-        _library_fwd_lse_ms(q, k, v, mask, False, iters),
-        _bound(q, mask, False, matrices=3 + 4 // q.element_size(), row_stats=2))
+    partial_row("ring-block", *inputs(b, l // WIDE_RING_SP, d))
+    partial_row(f"ring-block-d{WIDE_C3_DIM}", *inputs(b, l // WIDE_RING_SP, WIDE_C3_DIM))
+    # a shard of the long Ulysses: the training step's kernels at [2, 4, 4096, 192]
+    b, h, l, d = WIDE_ULYSSES_SHAPE
+    shard = inputs(b, l, d, h=h // WIDE_ULYSSES_SP)
+    forward_row("ulysses-shard", *shard)
+    training_rows("ulysses-shard", *shard)
     return results
 
 
 def phase_wide_path(ds):
-    """Slice 7's main path for the wide instances: the ranker at hidden
-    WIDE_HIDDEN with its 4 heads (head dim 192, padded to 256) trained for
-    an epoch on phase 5's trace, whose steps run the forward with lse,
-    dK/dV and dQ and whose eval runs the finished forward, its first steps
-    replayed on the CPU's plain versions from the same weights and
-    batches; then the ring at WIDE_RING_SHAPE on a 1 x WIDE_RING_SP mesh of
-    the card, whose blocks run the partials, against flash_attention on
-    the whole sequence and the dense oracle on sampled query rows. Counters
-    are zeroed just before each run and read just after. Returns the wide
-    launches of both runs."""
+    """The wide instances' main paths. The ranker at hidden WIDE_HIDDEN
+    with its 4 heads (head dim 192) trained for an epoch on phase 5's trace,
+    whose steps run the forward with lse, dK/dV and dQ and whose eval runs
+    the finished forward, its first steps replayed on the CPU's plain
+    versions from the same weights and batches; the same at hidden
+    WIDE_C3_HIDDEN (head dim 320, above 256: the wide mma.sync instances),
+    its losses finite; the ring over its eval
+    batch (the finished forward's shape) on a 1 x WIDE_EVAL_RING_SP mesh,
+    whose blocks run the mma.sync wide partials; the ring at
+    WIDE_RING_SHAPE on a 1 x WIDE_RING_SP mesh, whose blocks run the wide
+    Hopper partials, against flash_attention on the whole sequence and the
+    dense oracle on sampled query rows; and Ulysses over WIDE_ULYSSES_SHAPE
+    on a 1 x WIDE_ULYSSES_SP mesh, without grad (the wide Hopper forward)
+    and with (the wide Hopper forward with lse and dK/dV, the wide dQ),
+    against the plain versions over the whole sequence. Counters are zeroed
+    just before each run and read just after. Returns the wide launches of
+    all five runs."""
     import torch
 
     from dragonfly2_tpu_torch.ops import flash
     from dragonfly2_tpu_torch.parallel.mesh import make_mesh
     from dragonfly2_tpu_torch.parallel.ring import dense_attention, sharded_ring_attention
+    from dragonfly2_tpu_torch.parallel.ulysses import sharded_ulysses_attention
     from dragonfly2_tpu_torch.training import train
 
-    config = _wide_config()
-    layers = config.attention_num_layers
-    _zero_counts()
-    _zero_wide_counts()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    result = train.train_attention(ds, config, seed=SEED)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - start
-    counts, wide = _counts(), _wide_counts()
-    expected = {"flash_fwd_wide": layers, "flash_fwd_lse_wide": result.steps * layers,
-                "flash_fwd_partial_wide": 0, "flash_bwd_dkv_wide": result.steps * layers,
-                "flash_bwd_dq_wide": result.steps * layers}
-    # every launch of the wrappers went to a wide instance
-    expected_all = {"flash_fwd": layers, "flash_fwd_lse": result.steps * layers,
-                    "flash_bwd_dkv": result.steps * layers, "flash_bwd_dq": result.steps * layers}
-    print(f"wide ranker (hidden {WIDE_HIDDEN}, 4 heads, head dim {WIDE_HEAD_DIM} padded to "
-          f"256): {result.steps} steps in {train_s:.2f} s, losses {result.losses[0]:.4f} -> "
-          f"{result.losses[-1]:.4f}; wide launches {wide} (expected {expected})")
-    if wide != expected or any(counts[k] != v for k, v in expected_all.items()):
-        _fail(f"the wide ranker launched {wide} / {counts}, expected {expected}")
-    if not np.isfinite(result.losses).all():
-        _fail("the wide ranker's loss is not finite")
-    _, train_idx, first_epoch = _first_epoch(ds, config)
-    _replay_on_cpu(ds, config, result.losses, train_idx, first_epoch, WIDE_REPLAY_STEPS,
-                   label="wide ranker: ", rounding=_prescaled_attention)
+    none = {name: 0 for name in _WIDE_COUNTERS}
+    total = dict(none)
+    for hidden in (WIDE_HIDDEN, WIDE_C3_HIDDEN):
+        config = _wide_config(hidden)
+        d, layers = hidden // 4, config.attention_num_layers
+        _zero_counts()
+        _zero_wide_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = train.train_attention(ds, config, seed=SEED)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - start
+        counts, wide = _counts(), _wide_counts()
+        # the steps and the eval at the sets' L
+        l = ds.mask.shape[1]
+        expected = dict(none)
+        for function, n in (("flash_fwd", layers), ("flash_fwd_lse", result.steps * layers),
+                            ("flash_bwd_dkv", result.steps * layers),
+                            ("flash_bwd_dq", result.steps * layers)):
+            expected[_wide_instance(function, l, d, torch.bfloat16)] += n
+        # every launch of the wrappers went to a wide instance
+        expected_all = {"flash_fwd": layers, "flash_fwd_lse": result.steps * layers,
+                        "flash_bwd_dkv": result.steps * layers,
+                        "flash_bwd_dq": result.steps * layers}
+        print(f"wide ranker (hidden {hidden}, 4 heads, head dim {d}, unpadded): "
+              f"{result.steps} steps in {train_s:.2f} s, losses {result.losses[0]:.4f} -> "
+              f"{result.losses[-1]:.4f}; wide launches "
+              f"{({k: v for k, v in wide.items() if v})} (expected "
+              f"{({k: v for k, v in expected.items() if v})})")
+        if wide != expected or any(counts[k] != v for k, v in expected_all.items()):
+            _fail(f"the wide ranker at hidden {hidden} launched {wide} / {counts}, expected "
+                  f"{expected}")
+        if not np.isfinite(result.losses).all():
+            _fail(f"the wide ranker's loss at hidden {hidden} is not finite")
+        if hidden == WIDE_HIDDEN:
+            _, train_idx, first_epoch = _first_epoch(ds, config)
+            _replay_on_cpu(ds, config, result.losses, train_idx, first_epoch, WIDE_REPLAY_STEPS,
+                           label="wide ranker: ", rounding=_prescaled_attention)
+        for name in total:
+            total[name] += wide[name]
 
     card = torch.device("cuda", 0)
-    mesh = make_mesh(WIDE_RING_SP, dp=1, sp=WIDE_RING_SP, devices=[card] * WIDE_RING_SP)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+
+    def ring(shape, sp, mask=None):
+        """sharded_ring_attention on a 1 x sp mesh of the card, its wide
+        launches read just after, and flash_attention over the whole
+        sequence."""
+        mesh = make_mesh(sp, dp=1, sp=sp, devices=[card] * sp)
+        b, h, l, d = shape
+        q, k, v, m = _attention_inputs(gen, b, h, l, d, torch.bfloat16, False)
+        m = m if mask is None else mask
+        _zero_counts()
+        _zero_wide_counts()
+        torch.cuda.synchronize()
+        out = sharded_ring_attention(mesh, q, k, v, m, use_flash=True)
+        torch.cuda.synchronize()
+        launched = _wide_counts()
+        whole = flash.flash_attention(q, k, v, m)
+        return q, k, v, m, out, whole, launched
+
+    # the ring over the eval batch: 10 keys a shard, the mma.sync partials
+    _, eval_mask = _ranker_masks(ds)
+    b, l = eval_mask.shape
+    shape = (b, 4, l, WIDE_HEAD_DIM)
+    *_, out, whole, launched = ring(shape, WIDE_EVAL_RING_SP, eval_mask)
+    want = {**none, "flash_fwd_partial_wide": WIDE_EVAL_RING_SP ** 2}
+    if launched != want:
+        _fail(f"the ring over the wide eval batch launched {launched}, expected {want}")
+    err = float((out.float() - whole.float()).abs().max().item())
+    if not torch.allclose(out.float(), whole.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
+        _fail(f"the ring over the wide eval batch vs flash_attention: max_abs_err {err}")
+    print(f"wide eval ring {list(shape)} bf16 on a 1 x {WIDE_EVAL_RING_SP} mesh of one card: "
+          f"partial launches {launched['flash_fwd_partial_wide']} (mma.sync wide, {l // 2} keys "
+          f"a shard); vs flash_attention max_abs_err {err:.3g} (atol {KERNEL_ATOL} rtol "
+          f"{KERNEL_RTOL})")
+    for name in total:
+        total[name] += launched[name]
+
+    # the long ring: the wide Hopper partials
+    q, k, v, mask, out, whole, launched = ring(WIDE_RING_SHAPE, WIDE_RING_SP)
+    want = {**none, _wide_instance("flash_fwd_partial", WIDE_RING_SHAPE[2] // WIDE_RING_SP,
+                                   WIDE_HEAD_DIM, torch.bfloat16): WIDE_RING_SP ** 2}
+    if launched != want:
+        _fail(f"the wide ring launched {launched}, expected {want}")
     b, h, l, d = WIDE_RING_SHAPE
-    q, k, v, mask = _attention_inputs(gen, b, h, l, d, torch.bfloat16, False)
-    _zero_counts()
-    _zero_wide_counts()
-    torch.cuda.synchronize()
-    out = sharded_ring_attention(mesh, q, k, v, mask, use_flash=True)
-    torch.cuda.synchronize()
-    ring = _wide_counts()
-    if ring != {**{name: 0 for name in _WIDE_COUNTERS},
-                "flash_fwd_partial_wide": WIDE_RING_SP * WIDE_RING_SP}:
-        _fail(f"the wide ring launched {ring}, expected dp x sp^2 = {WIDE_RING_SP ** 2} partials")
-    whole = flash.flash_attention(q, k, v, mask)
     err = float((out.float() - whole.float()).abs().max().item())
     if not torch.allclose(out.float(), whole.float(), atol=LONG_ATOL, rtol=LONG_RTOL):
         _fail(f"the wide ring vs flash_attention at L = {l}: max_abs_err {err}")
     oracle_err = 0.0
     for start in (0, l // 2, l - ORACLE_ROWS):
         rows = slice(start, start + ORACLE_ROWS)
-        want = dense_attention(q[:, :, rows], k, v, mask).float()
+        want_rows = dense_attention(q[:, :, rows], k, v, mask).float()
         got = out[:, :, rows].float()
-        oracle_err = max(oracle_err, float((got - want).abs().max().item()))
-        if not torch.allclose(got, want, atol=LONG_ATOL, rtol=LONG_RTOL):
+        oracle_err = max(oracle_err, float((got - want_rows).abs().max().item()))
+        if not torch.allclose(got, want_rows, atol=LONG_ATOL, rtol=LONG_RTOL):
             _fail(f"the wide ring vs dense_attention on query rows {start}+{ORACLE_ROWS}: "
                   f"{oracle_err}")
     print(f"wide ring {list(WIDE_RING_SHAPE)} bf16 on a 1 x {WIDE_RING_SP} mesh of one card: "
-          f"partial launches {ring['flash_fwd_partial_wide']}; vs flash_attention on the whole "
-          f"sequence max_abs_err {err:.3g}, vs dense on {3 * ORACLE_ROWS} query rows at head dim "
-          f"{d} {oracle_err:.3g} (atol {LONG_ATOL} rtol {LONG_RTOL})")
-    return {name: wide[name] + ring[name] for name in _WIDE_COUNTERS}
+          f"launches {({k: v for k, v in launched.items() if v})}; vs flash_attention on the "
+          f"whole sequence max_abs_err {err:.3g}, vs dense on {3 * ORACLE_ROWS} query rows at "
+          f"head dim {d} {oracle_err:.3g} (atol {LONG_ATOL} rtol {LONG_RTOL})")
+    for name in total:
+        total[name] += launched[name]
+    del q, k, v, out, whole
+
+    # the long Ulysses: the wide Hopper forward (no grad), then a training
+    # step's attention (forward with lse, dK/dV, dQ)
+    sp = WIDE_ULYSSES_SP
+    mesh = make_mesh(sp, dp=1, sp=sp, devices=[card] * sp)
+    b, h, l, d = WIDE_ULYSSES_SHAPE
+    q, k, v, mask = _attention_inputs(gen, b, h, l, d, torch.bfloat16, True)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def step():
+        o = sharded_ulysses_attention(mesh, *leaves, mask)
+        return o, torch.autograd.grad(o, leaves, do)
+
+    _zero_counts()
+    _zero_wide_counts()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        served = sharded_ulysses_attention(mesh, q, k, v, mask)
+    trained, grads = step()
+    torch.cuda.synchronize()
+    launched = _wide_counts()
+    want = dict(none)
+    for fn in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"):
+        want[_wide_instance(fn, l, d, torch.bfloat16)] = sp
+    if launched != want:
+        _fail(f"the wide Ulysses launched {launched}, expected {want}")
+    whole, whole_lse = flash.flash_attention_lse_plain(q, k, v, mask)
+    ref = flash.flash_attention_bwd_plain(q, k, v, mask, whole, whole_lse, do)
+    del whole_lse
+    errs = {}
+    dead = ~mask.any(dim=1)
+    for name, got, w, atol, rtol in (
+            ("served", served, whole, LONG_ATOL, LONG_RTOL),
+            ("trained", trained, whole, LONG_ATOL, LONG_RTOL),
+            *((n, g, r, LONG_GRAD_ATOL, LONG_GRAD_RTOL)
+              for n, g, r in zip(("dq", "dk", "dv"), grads, ref))):
+        errs[name] = float((got.float() - w.float()).abs().max().item())
+        if not torch.allclose(got.float(), w.float(), atol=atol, rtol=rtol):
+            _fail(f"the wide Ulysses {name} vs the plain version: {errs[name]}")
+        if got[dead].abs().max().item() != 0.0:
+            _fail(f"the wide Ulysses {name}: fully masked batch rows are not 0")
+    del ref, whole
+    print(f"wide Ulysses {list(WIDE_ULYSSES_SHAPE)} bf16 on a 1 x {sp} mesh of one card: "
+          f"launches {({k: v for k, v in launched.items() if v})}; vs the plain versions over "
+          "the whole sequence max_abs_err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (outputs atol {LONG_ATOL} rtol {LONG_RTOL}, gradients atol {LONG_GRAD_ATOL} rtol "
+          f"{LONG_GRAD_RTOL})")
+    for name in total:
+        total[name] += launched[name]
+    _print_split("wide Ulysses forward + backward", _device_split(step, "flash_"),
+                 "the flash kernels")
+    return total
 
 
 # slice 6: the scheduler's rule-arm decision program at the scheduler's
@@ -2530,7 +2855,8 @@ def phase_scheduler_service(card: str):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--threshold", action="store_true",
-                        help="time both instances at L = 16 .. 512 instead of the smoke run")
+                        help="time both instances at L = 16 .. 512, and both wide ones at "
+                             "D = 192 and 256 over L = 16 .. 2048, instead of the smoke run")
     args = parser.parse_args()
     try:
         import torch
@@ -2549,6 +2875,7 @@ def main() -> None:
         return
     kernels = phase_kernels()
     training_kernels = phase_training_kernels()
+    phase_launch_cost(card)
     launches = phase_main_path()
     train_counts, serve_counts, ds, breakdown = phase_training()
     partial = phase_partial_kernel(ds)
@@ -2575,6 +2902,8 @@ def main() -> None:
             "kernel_recorded": row["kernel_recorded"],
             "mma_sync_kernel_ms": row["mma_sync_kernel_ms"],
             "mma_sync_kernel_recorded": row.get("mma_sync_kernel_recorded"),
+            "other_variant": row.get("other_variant"),
+            "other_kernel_ms": row.get("other_kernel_ms"),
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -2617,18 +2946,31 @@ def main() -> None:
               long_counts["flash_bwd_dkv_sm90"], training_kernels["flash_bwd_dkv"], "long"),
         entry("flash_bwd_dq_sm90", dq_sm90_src, "dragonfly2_tpu/ops/flash.py:474",
               long_counts["flash_bwd_dq_sm90"], training_kernels["flash_bwd_dq"], "long"),
-        # slice 7's wide instances (head dims above 128): the wide ranker's
-        # training and eval, and the wide ring's blocks
+        # slices 7-8's wide instances (head dims above 128): the wide
+        # ranker's training and eval, the ring over its eval batch, the long
+        # ring's blocks and the long Ulysses' shards
         entry("flash_fwd_wide", fwd_src, "dragonfly2_tpu/ops/flash.py:71",
               wide_launches["flash_fwd_wide"], wide["flash_fwd_wide"], "ranker-eval"),
         entry("flash_fwd_lse_wide", fwd_src, "dragonfly2_tpu/ops/flash.py:186",
               wide_launches["flash_fwd_lse_wide"], wide["flash_fwd_lse_wide"], "ranker-train"),
         entry("flash_fwd_partial_wide", fwd_src, "dragonfly2_tpu/ops/flash.py:177",
-              wide_launches["flash_fwd_partial_wide"], wide["flash_fwd_partial_wide"], "ring-block"),
+              wide_launches["flash_fwd_partial_wide"], wide["flash_fwd_partial_wide"],
+              "eval-ring-shard"),
         entry("flash_bwd_dkv_wide", bwd_src, "dragonfly2_tpu/ops/flash.py:418",
               wide_launches["flash_bwd_dkv_wide"], wide["flash_bwd_dkv_wide"], "ranker-train"),
         entry("flash_bwd_dq_wide", bwd_src, "dragonfly2_tpu/ops/flash.py:474",
               wide_launches["flash_bwd_dq_wide"], wide["flash_bwd_dq_wide"], "ranker-train"),
+        entry("flash_fwd_wide_sm90", fwd_sm90_src, "dragonfly2_tpu/ops/flash.py:71",
+              wide_launches["flash_fwd_wide_sm90"], wide["flash_fwd_wide_sm90"], "ulysses-shard"),
+        entry("flash_fwd_lse_wide_sm90", fwd_sm90_src, "dragonfly2_tpu/ops/flash.py:186",
+              wide_launches["flash_fwd_lse_wide_sm90"], wide["flash_fwd_lse_wide_sm90"],
+              "ulysses-shard"),
+        entry("flash_fwd_partial_wide_sm90", fwd_sm90_src, "dragonfly2_tpu/ops/flash.py:177",
+              wide_launches["flash_fwd_partial_wide_sm90"], wide["flash_fwd_partial_wide_sm90"],
+              "ring-block"),
+        entry("flash_bwd_dkv_wide_sm90", dkv_sm90_src, "dragonfly2_tpu/ops/flash.py:418",
+              wide_launches["flash_bwd_dkv_wide_sm90"], wide["flash_bwd_dkv_wide_sm90"],
+              "ulysses-shard"),
     ]}
     if not all(row["launches"] > 0 for row in line["kernels"]):
         _fail("a kernel of the path was launched no time on its main path: "

@@ -11,7 +11,8 @@
 // [B, H, L] float32, and a [B, L] key-validity mask (or none), per tile:
 //   P  = exp2(S log2(e)/sqrt(D) - lse log2(e)) on valid pairs, 0 elsewhere
 //   dV = P^T dO;  dS = P (dO V^T - delta);  dK = dS^T Q / sqrt(D);  dQ = dS K / sqrt(D)
-// Head dims 16, 32, 64, 128, and 256 in the wide instances (end of file);
+// Head dims 16, 32, 64, 128, and in the wide instances (end of file) any D
+// with D % 8 == 0, taken above 128;
 // bf16 or float32 in, gradients in the input dtype.
 //
 // What bounds it on an H100: at the trained shape, [256, 4, 20, 32] bf16,
@@ -497,59 +498,103 @@ int by_dtype(const Args& a, int D, int dtype, int warps, void* stream) {
 }
 
 
-// ---- the wide instances: head dims above 128 (ops/flash.py pads D in
-// (128, 256] to 256 and takes no D above it)
+// ---- the wide instances: head dims above 128, any D with D % 8 == 0
+//
+// The head dim is a run-time argument. Rows are staged in chunks of
+// WIDE_DW = 256 columns, each 16-byte vector below D loaded and the
+// shared-memory columns from D up to the chunk's width zeroed, so no caller
+// pads D and no column past D is read or written. blockIdx.y picks the
+// block's chunk of output columns, c0 = 256 blockIdx.y. The products that
+// run along D (S and dP, or S^T and dP^T) sum over every depth chunk; the
+// chunks are taken in an order that ends on c0, so the tiles the
+// accumulation reads (Q and dO for dK/dV, K for dQ) hold the block's own
+// columns when it starts. For D <= 256 there is one chunk and the block's
+// own rows (K and V, or Q and dO) stay in shared memory for its life;
+// above 256 every depth chunk is staged in turn, and each output chunk's
+// block recomputes S and dP (the repair of head dims above 256: right, not
+// fast).
 //
 // At D = 256 a warp's 16 keys of dK and dV in float32 registers are 256 a
 // thread, and the staged K, V, Q and dO tiles overflow 48 KB of static
 // shared memory. So each block's 8 warps split the work two ways, WIDE_RG
 // groups of 16 rows (keys for dK/dV, queries for dQ) times WIDE_CQ column
-// quarters of D, with every tile in dynamic shared memory (~71 KB at
-// D = 256). Per 32-row swept tile:
+// quarters of the chunk, with every tile in dynamic shared memory (~71
+// KB). Per 32-row swept tile:
 // 1. warp (rg, cq) computes S and dP (S^T and dP^T for dK/dV) for its 16
 //    rows against the tile's rows cq*8 .. cq*8 + 7 over the whole depth D,
 //    fragments read from shared memory as it goes, forms P and dS as the
 //    instances above do and writes them, rounded to bf16 as those instances
 //    round them for their products, into shared tiles;
 // 2. after a barrier each warp reads its row group's 16 x 32 P and dS back
-//    as A fragments and accumulates its own D/4 columns: dV += P^T dO and
-//    dK += dS^T Q (64 float32 registers a thread for both), or dQ += dS K.
-// No product is computed twice; every output element is summed by one
-// thread in a fixed order. Bound on an H100: at [4, 4, 1024, 256] bf16,
-// dK/dV does 8 D operations per pair (34.4 GFLOP, ~34.7 us at 989
+//    as A fragments and accumulates its own 64 columns of the chunk: dV +=
+//    P^T dO and dK += dS^T Q (64 float32 registers a thread for both), or
+//    dQ += dS K, skipping 8-column tiles at or past D.
+// No product is computed twice at D <= 256; every output element is summed
+// by one thread in a fixed order. Bound on an H100: at [4, 4, 1024, 256]
+// bf16, dK/dV does 8 D operations per pair (34.4 GFLOP, ~34.7 us at 989
 // TFLOP/s) and dQ 6 D (25.8 GFLOP, ~26.1 us), against 8 and 6 [B, H, L,
 // D] bf16 tensors read or written (67 MB, ~20 us; 50 MB, ~15 us): bound by
-// operations. Simple before fast: mma.sync, no pipelining.
+// operations. Simple before fast: mma.sync, no pipelining; bf16 dK/dV at
+// D <= 256 above WIDE_DKV_SM90_MIN_L (ops/flash.py) takes
+// flash_bwd_dkv_sm90.cu's wide instance instead.
 
+constexpr int WIDE_DW = 256;             // columns of a staged chunk of D
+constexpr int WIDE_LDS = WIDE_DW + 8;    // shared row stride (bf16)
 constexpr int WIDE_RG = 2;             // groups of 16 rows a block
-constexpr int WIDE_CQ = 4;             // column quarters of D
+constexpr int WIDE_CQ = 4;             // column quarters of a chunk
 constexpr int WIDE_WARPS = WIDE_RG * WIDE_CQ;
+constexpr int WIDE_THREADS = WIDE_WARPS * 32;
 constexpr int WIDE_ROWS = 16 * WIDE_RG;  // keys (dK/dV) or queries (dQ) per block
 constexpr int WIDE_SWEEP = 8 * WIDE_CQ;  // swept queries (dK/dV) or keys (dQ) per tile
 constexpr int WIDE_LDP = WIDE_SWEEP + 8; // bf16 row stride of the P and dS tiles
 
-template <int D>
 constexpr size_t wide_bwd_smem() {
-  return static_cast<size_t>(2 * WIDE_ROWS + 2 * WIDE_SWEEP) * (D + 8) * sizeof(__nv_bfloat16) +
+  return static_cast<size_t>(2 * WIDE_ROWS + 2 * WIDE_SWEEP) * WIDE_LDS * sizeof(__nv_bfloat16) +
          static_cast<size_t>(2 * WIDE_ROWS * WIDE_LDP) * sizeof(__nv_bfloat16) +
          static_cast<size_t>(2 * WIDE_SWEEP) * sizeof(float);
+}
+
+// rows [r0, r0 + ROWS), columns [c0, c0 + WIDE_DW) of a contiguous [L, D]
+// matrix into shared memory as bf16; rows past L and columns past D are 0
+template <typename T, int ROWS>
+__device__ __forceinline__ void stage_wide(const T* __restrict__ src, int r0, int L, int D, int c0,
+                                           __nv_bfloat16* dst, int tid) {
+  constexpr int CHUNKS = WIDE_DW / 8;
+  for (int i = tid; i < ROWS * CHUNKS; i += WIDE_THREADS) {
+    const int r = i / CHUNKS;
+    const int c = (i % CHUNKS) * 8;
+    const int row = r0 + r;
+    if (row < L && c0 + c < D) {
+      load8(src + static_cast<size_t>(row) * D + c0 + c, dst + r * WIDE_LDS + c);
+    } else {
+      zero8(dst + r * WIDE_LDS + c);
+    }
+  }
+}
+
+// the first column of the i-th depth chunk a block of output chunk
+// blockIdx.y takes: the order ends on its own chunk
+__device__ __forceinline__ int depth_chunk(int i, int chunks) {
+  return ((static_cast<int>(blockIdx.y) + 1 + i) % chunks) * WIDE_DW;
 }
 
 __device__ __forceinline__ void put_bf16(__nv_bfloat16* dst, float x) {
   *dst = __float2bfloat16_rn(x);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(WIDE_WARPS * 32)
+// two blocks an SM (at most 128 registers a thread) for both wide
+// kernels: one leaves the SM waiting on the barriers and the loads of its
+// single tile
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS, 2)
 flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const uint8_t* __restrict__ mask, T* __restrict__ dk,
-                          T* __restrict__ dv, int H, int L, int num_kblocks, int causal,
+                          T* __restrict__ dv, int H, int L, int D, int num_kblocks, int causal,
                           float scale_log2, float scale) {
-  constexpr int THREADS = WIDE_WARPS * 32;
-  constexpr int LDS = D + 8;
-  constexpr int DC = D / WIDE_CQ;
+  constexpr int LDS = WIDE_LDS;
+  constexpr int DC = WIDE_DW / WIDE_CQ;
   static_assert(DC % 8 == 0, "whole 8-column tiles a warp");
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -565,6 +610,7 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kb = blockIdx.x % num_kblocks;
   const int bh = blockIdx.x / num_kblocks;
   const int b = bh / H;
+  const int chunks = gridDim.y;
   const size_t head = static_cast<size_t>(bh) * L * D;
   const float* lh = lse + static_cast<size_t>(bh) * L;
   const float* dh = delta + static_cast<size_t>(bh) * L;
@@ -582,9 +628,13 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int key_hi = key_lo + 8;
   const bool ok_lo = key_lo < L && (mb == nullptr || mb[key_lo] != 0);
   const bool ok_hi = key_hi < L && (mb == nullptr || mb[key_hi] != 0);
+  const int col0 = blockIdx.y * WIDE_DW + cq * DC;  // the warp's first output column
+  const bool resident = chunks == 1;  // D <= 256: K and V staged once
 
-  stage_rows<T, D, WIDE_ROWS, THREADS>(k + head, k0, L, sK, tid);
-  stage_rows<T, D, WIDE_ROWS, THREADS>(v + head, k0, L, sV, tid);
+  if (resident) {
+    stage_wide<T, WIDE_ROWS>(k + head, k0, L, D, 0, sK, tid);
+    stage_wide<T, WIDE_ROWS>(v + head, k0, L, D, 0, sV, tid);
+  }
 
   float acc_dk[DC / 8][4];
   float acc_dv[DC / 8][4];
@@ -597,27 +647,37 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_begin = causal ? (k0 / WIDE_SWEEP) * WIDE_SWEEP : 0;
   for (int q0 = q_begin; q0 < L; q0 += WIDE_SWEEP) {
     __syncthreads();  // every warp is done with the previous tile's Q, dO, P and dS
-    stage_rows<T, D, WIDE_SWEEP, THREADS>(q + head, q0, L, sQ, tid);
-    stage_rows<T, D, WIDE_SWEEP, THREADS>(dout + head, q0, L, sdO, tid);
-    for (int i = tid; i < WIDE_SWEEP; i += THREADS) {
+    for (int i = tid; i < WIDE_SWEEP; i += WIDE_THREADS) {
       const int row = q0 + i;
       sLse[i] = row < L ? lh[row] * LOG2E : 0.f;
       sDelta[i] = row < L ? dh[row] : 0.f;
     }
-    __syncthreads();
 
-    // 1. S^T and dP^T of keys rg*16.. against queries cq*8..
+    // 1. S^T and dP^T of keys rg*16.. against queries cq*8.., over every
+    // depth chunk, ending on the block's own
     float s[4] = {0.f, 0.f, 0.f, 0.f};
     float dp[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = 0; i < chunks; ++i) {
+      const int d0 = depth_chunk(i, chunks);
+      if (i > 0) __syncthreads();  // every warp is done with the previous chunk
+      if (!resident) {
+        stage_wide<T, WIDE_ROWS>(k + head, k0, L, D, d0, sK, tid);
+        stage_wide<T, WIDE_ROWS>(v + head, k0, L, D, d0, sV, tid);
+      }
+      stage_wide<T, WIDE_SWEEP>(q + head, q0, L, D, d0, sQ, tid);
+      stage_wide<T, WIDE_SWEEP>(dout + head, q0, L, D, d0, sdO, tid);
+      __syncthreads();
+      const int kk_end = (min(D - d0, WIDE_DW) + 15) / 16;  // zero columns past D
 #pragma unroll 4
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4], b0, b1;
-      frag_a<LDS>(sK, rg * 16, kk, g, t, ka);
-      frag_a<LDS>(sV, rg * 16, kk, g, t, va);
-      frag_b_rows<LDS>(sQ, cq * 8, kk, g, t, b0, b1);
-      mma_bf16(s, ka, b0, b1);
-      frag_b_rows<LDS>(sdO, cq * 8, kk, g, t, b0, b1);
-      mma_bf16(dp, va, b0, b1);
+      for (int kk = 0; kk < kk_end; ++kk) {
+        uint32_t ka[4], va[4], b0, b1;
+        frag_a<LDS>(sK, rg * 16, kk, g, t, ka);
+        frag_a<LDS>(sV, rg * 16, kk, g, t, va);
+        frag_b_rows<LDS>(sQ, cq * 8, kk, g, t, b0, b1);
+        mma_bf16(s, ka, b0, b1);
+        frag_b_rows<LDS>(sdO, cq * 8, kk, g, t, b0, b1);
+        mma_bf16(dp, va, b0, b1);
+      }
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -640,6 +700,7 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       frag_a<WIDE_LDP>(sdS, rg * 16, ks, g, t, dsa);
 #pragma unroll
       for (int dn = 0; dn < DC / 8; ++dn) {
+        if (col0 + dn * 8 >= D) continue;  // the tile's columns are all past D
         uint32_t b0, b1;
         frag_b_cols<LDS>(sdO, ks * 16, cq * DC + dn * 8, g, t, b0, b1);
         mma_bf16(acc_dv[dn], pa, b0, b1);
@@ -653,7 +714,8 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* dvh = dv + head;
 #pragma unroll
   for (int dn = 0; dn < DC / 8; ++dn) {
-    const int col = cq * DC + dn * 8 + 2 * t;
+    const int col = col0 + dn * 8 + 2 * t;
+    if (col0 + dn * 8 >= D) continue;  // D % 8 == 0: a tile is all below D or all past it
     if (key_lo < L) {
       const size_t at = static_cast<size_t>(key_lo) * D + col;
       store2(dkh + at, acc_dk[dn][0] * scale, acc_dk[dn][1] * scale);
@@ -667,16 +729,15 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(WIDE_WARPS * 32)
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS, 2)
 flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const uint8_t* __restrict__ mask, T* __restrict__ dq, int H, int L,
-                         int num_qblocks, int causal, float scale_log2, float scale) {
-  constexpr int THREADS = WIDE_WARPS * 32;
-  constexpr int LDS = D + 8;
-  constexpr int DC = D / WIDE_CQ;
+                         int D, int num_qblocks, int causal, float scale_log2, float scale) {
+  constexpr int LDS = WIDE_LDS;
+  constexpr int DC = WIDE_DW / WIDE_CQ;
   static_assert(DC % 8 == 0, "whole 8-column tiles a warp");
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -690,6 +751,7 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qb = blockIdx.x % num_qblocks;
   const int bh = blockIdx.x / num_qblocks;
   const int b = bh / H;
+  const int chunks = gridDim.y;
   const size_t head = static_cast<size_t>(bh) * L * D;
   const float* lh = lse + static_cast<size_t>(bh) * L;
   const float* dh = delta + static_cast<size_t>(bh) * L;
@@ -708,9 +770,13 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float lse2[2] = {row_lo < L ? lh[row_lo] * LOG2E : 0.f,
                          row_hi < L ? lh[row_hi] * LOG2E : 0.f};
   const float dlt[2] = {row_lo < L ? dh[row_lo] : 0.f, row_hi < L ? dh[row_hi] : 0.f};
+  const int col0 = blockIdx.y * WIDE_DW + cq * DC;  // the warp's first output column
+  const bool resident = chunks == 1;  // D <= 256: Q and dO staged once
 
-  stage_rows<T, D, WIDE_ROWS, THREADS>(q + head, q0, L, sQ, tid);
-  stage_rows<T, D, WIDE_ROWS, THREADS>(dout + head, q0, L, sdO, tid);
+  if (resident) {
+    stage_wide<T, WIDE_ROWS>(q + head, q0, L, D, 0, sQ, tid);
+    stage_wide<T, WIDE_ROWS>(dout + head, q0, L, D, 0, sdO, tid);
+  }
 
   float acc[DC / 8][4];
 #pragma unroll
@@ -721,26 +787,36 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(L, q0 + WIDE_ROWS) : L;
   for (int n0 = 0; n0 < kv_end; n0 += WIDE_SWEEP) {
     __syncthreads();  // every warp is done with the previous tile's K, V and dS
-    stage_rows<T, D, WIDE_SWEEP, THREADS>(k + head, n0, L, sK, tid);
-    stage_rows<T, D, WIDE_SWEEP, THREADS>(v + head, n0, L, sV, tid);
-    for (int i = tid; i < WIDE_SWEEP; i += THREADS) {
+    for (int i = tid; i < WIDE_SWEEP; i += WIDE_THREADS) {
       const int key = n0 + i;
       sValid[i] = (key < L && (mb == nullptr || mb[key] != 0)) ? 1.f : 0.f;
     }
-    __syncthreads();
 
-    // 1. S and dP of rows rg*16.. against keys cq*8..
+    // 1. S and dP of rows rg*16.. against keys cq*8.., over every depth
+    // chunk, ending on the block's own
     float s[4] = {0.f, 0.f, 0.f, 0.f};
     float dp[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = 0; i < chunks; ++i) {
+      const int d0 = depth_chunk(i, chunks);
+      if (i > 0) __syncthreads();  // every warp is done with the previous chunk
+      if (!resident) {
+        stage_wide<T, WIDE_ROWS>(q + head, q0, L, D, d0, sQ, tid);
+        stage_wide<T, WIDE_ROWS>(dout + head, q0, L, D, d0, sdO, tid);
+      }
+      stage_wide<T, WIDE_SWEEP>(k + head, n0, L, D, d0, sK, tid);
+      stage_wide<T, WIDE_SWEEP>(v + head, n0, L, D, d0, sV, tid);
+      __syncthreads();
+      const int kk_end = (min(D - d0, WIDE_DW) + 15) / 16;  // zero columns past D
 #pragma unroll 4
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4], b0, b1;
-      frag_a<LDS>(sQ, rg * 16, kk, g, t, qa);
-      frag_a<LDS>(sdO, rg * 16, kk, g, t, da);
-      frag_b_rows<LDS>(sK, cq * 8, kk, g, t, b0, b1);
-      mma_bf16(s, qa, b0, b1);
-      frag_b_rows<LDS>(sV, cq * 8, kk, g, t, b0, b1);
-      mma_bf16(dp, da, b0, b1);
+      for (int kk = 0; kk < kk_end; ++kk) {
+        uint32_t qa[4], da[4], b0, b1;
+        frag_a<LDS>(sQ, rg * 16, kk, g, t, qa);
+        frag_a<LDS>(sdO, rg * 16, kk, g, t, da);
+        frag_b_rows<LDS>(sK, cq * 8, kk, g, t, b0, b1);
+        mma_bf16(s, qa, b0, b1);
+        frag_b_rows<LDS>(sV, cq * 8, kk, g, t, b0, b1);
+        mma_bf16(dp, da, b0, b1);
+      }
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -761,6 +837,7 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       frag_a<WIDE_LDP>(sdS, rg * 16, ks, g, t, dsa);
 #pragma unroll
       for (int dn = 0; dn < DC / 8; ++dn) {
+        if (col0 + dn * 8 >= D) continue;  // the tile's columns are all past D
         uint32_t b0, b1;
         frag_b_cols<LDS>(sK, ks * 16, cq * DC + dn * 8, g, t, b0, b1);
         mma_bf16(acc[dn], dsa, b0, b1);
@@ -771,7 +848,8 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* dqh = dq + head;
 #pragma unroll
   for (int dn = 0; dn < DC / 8; ++dn) {
-    const int col = cq * DC + dn * 8 + 2 * t;
+    const int col = col0 + dn * 8 + 2 * t;
+    if (col0 + dn * 8 >= D) continue;  // D % 8 == 0: a tile is all below D or all past it
     if (row_lo < L) {
       store2(dqh + static_cast<size_t>(row_lo) * D + col, acc[dn][0] * scale, acc[dn][1] * scale);
     }
@@ -781,12 +859,14 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool DKV>
-cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
+template <typename T, bool DKV>
+cudaError_t launch_wide(const Args& a, int D, cudaStream_t stream) {
   const int tiles = (a.L + WIDE_ROWS - 1) / WIDE_ROWS;
   const long long blocks = static_cast<long long>(tiles) * a.B * a.H;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  constexpr size_t smem = wide_bwd_smem<D>();
+  const int chunks = (D + WIDE_DW - 1) / WIDE_DW;
+  if (blocks > 0x7fffffffLL || chunks > 65535) return cudaErrorInvalidValue;
+  constexpr size_t smem = wide_bwd_smem();
+  const dim3 grid(static_cast<unsigned>(blocks), chunks);
   const float scale = a.scale;
   const float scale_log2 = LOG2E * scale;
   const T* q = static_cast<const T*>(a.q);
@@ -795,20 +875,20 @@ cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
   const T* dout = static_cast<const T*>(a.dout);
   cudaError_t err;
   if constexpr (DKV) {
-    auto kernel = flash_bwd_dkv_wide_kernel<T, D>;
+    auto kernel = flash_bwd_dkv_wide_kernel<T>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    kernel<<<static_cast<unsigned>(blocks), WIDE_WARPS * 32, smem, stream>>>(
+    kernel<<<grid, WIDE_THREADS, smem, stream>>>(
         q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.d0), static_cast<T*>(a.d1),
-        a.H, a.L, tiles, a.causal, scale_log2, scale);
+        a.H, a.L, D, tiles, a.causal, scale_log2, scale);
   } else {
-    auto kernel = flash_bwd_dq_wide_kernel<T, D>;
+    auto kernel = flash_bwd_dq_wide_kernel<T>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    kernel<<<static_cast<unsigned>(blocks), WIDE_WARPS * 32, smem, stream>>>(
-        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.d0), a.H, a.L, tiles,
+    kernel<<<grid, WIDE_THREADS, smem, stream>>>(
+        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.d0), a.H, a.L, D, tiles,
         a.causal, scale_log2, scale);
   }
   return cudaGetLastError();
@@ -816,13 +896,16 @@ cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
 
 template <bool DKV>
 int wide_by_dtype(const Args& a, int D, int dtype, void* stream) {
-  if (a.B <= 0 || a.H <= 0 || a.L <= 0 || D != 256) return static_cast<int>(cudaErrorInvalidValue);
+  // rows are read as 16-byte vectors: D % 8 == 0 (ops/flash.py pads others)
+  if (a.B <= 0 || a.H <= 0 || a.L <= 0 || D <= 0 || D % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_wide<__nv_bfloat16, 256, DKV>(a, s);
+    err = launch_wide<__nv_bfloat16, DKV>(a, D, s);
   } else if (dtype == 1) {
-    err = launch_wide<float, 256, DKV>(a, s);
+    err = launch_wide<float, DKV>(a, D, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -856,8 +939,8 @@ extern "C" int dfly_flash_bwd_dq(const void* q, const void* k, const void* v, co
   return by_dtype<false>(a, D, dtype, warps, stream);
 }
 
-// The wide instances (head dim 256); arguments as the entries above
-// without `warps`.
+// The wide instances (any head dim D % 8 == 0, taken above 128);
+// arguments as the entries above without `warps`.
 extern "C" int dfly_flash_bwd_dkv_wide(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        const void* mask, void* dk, void* dv, int B, int H, int L,

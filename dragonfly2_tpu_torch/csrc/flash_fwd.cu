@@ -19,8 +19,8 @@
 //   acc = 0: finite, so the ring's exp(row_max - new_max) never meets
 //   -inf - -inf. No causal variant, as in the reference.
 // The mode is a template parameter, so the finished-output instances carry
-// no branch. Head dims: 16, 32, 64, 128, and 256 in the wide instance
-// (end of file).
+// no branch. Head dims: 16, 32, 64, 128, and in the wide instance (end of
+// file) any D with D % 8 == 0, taken above 128.
 //
 // What bounds it on an H100: at the served shape, [1024, 4, 15, 32] bf16,
 // q, k, v and o are 3.9 MB each, 15.7 MB together, which the card moves in
@@ -399,16 +399,26 @@ int by_dtype(const void* q, const void* k, const void* v, const void* mask, void
 }
 
 
-// ---- the wide instance: head dims above 128 (ops/flash.py pads D in
-// (128, 256] to 256 and takes no D above it)
+// ---- the wide instance: head dims above 128, any D with D % 8 == 0
+//
+// The head dim is a run-time argument. A block stages rows in chunks of
+// WIDE_DW = 256 columns, each 16-byte vector of a row that lies below D
+// loaded and the shared-memory columns from D up to the chunk's width
+// zeroed, so no caller pads D and no column past D is read or written.
+// blockIdx.y picks the block's chunk of output columns, c0 = 256
+// blockIdx.y; the scores of a key tile sum over every depth chunk of D. For
+// D <= 256 there is one chunk and Q stays in shared memory for the block's
+// life; above 256 each depth chunk of Q and K is staged in turn, and each
+// output chunk's block recomputes the scores (the repair of head dims above
+// 256: right, not fast; ops/flash.py sends them nowhere else).
 //
 // At D = 256 a warp cannot keep 16 rows of O in float32 registers (128 a
-// thread) beside its Q fragments and a score tile, and Q with 64-key K/V
+// thread) beside its Q fragments and a score tile, and Q with 32-key K/V
 // tiles overflows 48 KB of static shared memory. So the block's 8 warps
 // split the work two ways, WIDE_RG row groups of 16 query rows times
-// WIDE_CQ column quarters of D, and every tile lives in dynamic shared
-// memory (Q 32 rows, K and V 32 keys, each D + 8 bf16 a row, and a 32 x 32
-// float score tile: 55 KB at D = 256). Per 32-key tile:
+// WIDE_CQ column quarters of the chunk, and every tile lives in dynamic
+// shared memory (Q 32 rows, K and V 32 keys, each 256 + 8 bf16 a row, and a
+// 32 x 32 float score tile: 55 KB). Per 32-key tile:
 // 1. warp (rg, cq) computes the scores of its 16 rows against the tile's
 //    keys cq*8 .. cq*8 + 7 over the whole depth D, with Q and K fragments
 //    read from shared memory as it goes (nothing of Q is held), and writes
@@ -418,16 +428,20 @@ int by_dtype(const void* q, const void* k, const void* v, const void* mask, void
 //    scores back in the mma accumulator layout and takes the same online
 //    softmax step (the same arithmetic in the same order, so the four
 //    copies of a row's max and sum agree bit for bit), then accumulates
-//    P V into its own D/4 columns of O, 64 float32 registers a thread.
-// No product is computed twice. Numerics as the instances above: bf16
-// operands, float32 statistics and accumulators, P rounded to bf16 for P V.
-// Bound on an H100: at [4, 4, 1024, 256] bf16 the products are 17.2 GFLOP
-// (~17.4 us at 989 TFLOP/s) against 33.6 MB for q, k, v and o (~10.0 us at
-// 3.35 TB/s): bound by operations from L ~ 600 up, by bytes below. Simple
-// before fast: mma.sync, no pipelining.
+//    P V into its own 64 columns of the chunk, 64 float32 registers a
+//    thread, skipping 8-column tiles at or past D.
+// Numerics as the instances above: bf16 operands, float32 statistics and
+// accumulators, P rounded to bf16 for P V. Bound on an H100: at
+// [4, 4, 1024, 256] bf16 the products are 17.2 GFLOP (~17.4 us at 989
+// TFLOP/s) against 33.6 MB for q, k, v and o (~10.0 us at 3.35 TB/s): bound
+// by operations from L ~ 600 up, by bytes below. Simple before fast:
+// mma.sync, no pipelining; bf16 at D <= 256 above WIDE_SM90_MIN_L
+// (ops/flash.py) takes the Hopper instance (flash_fwd_sm90.cu) instead.
 
+constexpr int WIDE_DW = 256;              // columns of a staged chunk of D
+constexpr int WIDE_LDS = WIDE_DW + 8;     // shared row stride (bf16)
 constexpr int WIDE_RG = 2;                // row groups of 16 query rows
-constexpr int WIDE_CQ = 4;                // column quarters of D
+constexpr int WIDE_CQ = 4;                // column quarters of a chunk
 constexpr int WIDE_WARPS = WIDE_RG * WIDE_CQ;
 constexpr int WIDE_BM = 16 * WIDE_RG;     // query rows per block
 constexpr int WIDE_BN = 8 * WIDE_CQ;      // keys per tile: 8 a warp in step 1
@@ -436,38 +450,41 @@ constexpr int WIDE_LDSS = WIDE_BN + 4;    // score tile row stride (floats)
 // -inf, a masked score of the wide instance
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-template <int D>
 constexpr size_t wide_fwd_smem() {
-  return static_cast<size_t>(WIDE_BM + 2 * WIDE_BN) * (D + 8) * sizeof(__nv_bfloat16) +
+  return static_cast<size_t>(WIDE_BM + 2 * WIDE_BN) * WIDE_LDS * sizeof(__nv_bfloat16) +
          static_cast<size_t>(WIDE_BM * WIDE_LDSS + WIDE_BN) * sizeof(float);
 }
 
-template <typename T, int D>
+// rows r0 .. r0 + rows - 1, columns c0 .. c0 + WIDE_DW - 1 of a contiguous
+// [L, D] matrix into shared memory as bf16; rows past L and columns past D
+// are 0
+template <typename T>
 __device__ __forceinline__ void stage_wide(const T* __restrict__ src, int r0, int rows, int L,
-                                           __nv_bfloat16* dst, int tid) {
-  constexpr int LDS = D + 8;
-  constexpr int CHUNKS = D / 8;
+                                           int D, int c0, __nv_bfloat16* dst, int tid) {
+  constexpr int CHUNKS = WIDE_DW / 8;
   for (int i = tid; i < rows * CHUNKS; i += WIDE_WARPS * 32) {
     const int r = i / CHUNKS;
     const int c = (i % CHUNKS) * 8;
     const int row = r0 + r;
-    if (row < L) {
-      load8(src + static_cast<size_t>(row) * D + c, dst + r * LDS + c);
+    if (row < L && c0 + c < D) {
+      load8(src + static_cast<size_t>(row) * D + c0 + c, dst + r * WIDE_LDS + c);
     } else {
-      zero8(dst + r * LDS + c);
+      zero8(dst + r * WIDE_LDS + c);
     }
   }
 }
 
-template <typename T, int D, int MODE>
-__global__ void __launch_bounds__(WIDE_WARPS * 32)
+// two blocks an SM (at most 128 registers a thread): one leaves the SM
+// waiting on the barriers and the loads of its single tile
+template <typename T, int MODE>
+__global__ void __launch_bounds__(WIDE_WARPS * 32, 2)
 flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const uint8_t* __restrict__ mask, out_t<T, MODE>* __restrict__ o,
                       float* __restrict__ stat0, float* __restrict__ stat1,
-                      int H, int L, int num_qblocks, int causal, float scale_log2) {
-  constexpr int LDS = D + 8;
-  constexpr int DC = D / WIDE_CQ;  // columns of O a warp accumulates
-  constexpr int NT = WIDE_BN / 8;  // 8-key tiles of the score tile
+                      int H, int L, int D, int num_qblocks, int causal, float scale_log2) {
+  constexpr int LDS = WIDE_LDS;
+  constexpr int DC = WIDE_DW / WIDE_CQ;  // columns of O a warp accumulates
+  constexpr int NT = WIDE_BN / 8;        // 8-key tiles of the score tile
   static_assert(DC % 8 == 0, "whole 8-column tiles a warp");
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -480,6 +497,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const int qb = blockIdx.x % num_qblocks;
   const int bh = blockIdx.x / num_qblocks;
   const int b = bh / H;
+  const int c0 = blockIdx.y * WIDE_DW;  // the block's output columns c0 ..
   const size_t head = static_cast<size_t>(bh) * L * D;
   out_t<T, MODE>* oh = o + head;
   const uint8_t* mb = mask ? mask + static_cast<size_t>(b) * L : nullptr;
@@ -494,8 +512,10 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const int q0 = qb * WIDE_BM;
   const int row_lo = q0 + rg * 16 + g;
   const int row_hi = row_lo + 8;
+  const int col0 = c0 + cq * DC;        // the warp's first output column
+  const bool resident = D <= WIDE_DW;  // one depth chunk: Q staged once
 
-  stage_wide<T, D>(q + head, q0, WIDE_BM, L, sQ, tid);
+  if (resident) stage_wide<T>(q + head, q0, WIDE_BM, L, D, 0, sQ, tid);
 
   float acc[DC / 8][4];
 #pragma unroll
@@ -508,22 +528,28 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const int kv_end = causal ? min(L, q0 + WIDE_BM) : L;
   for (int n0 = 0; n0 < kv_end; n0 += WIDE_BN) {
     __syncthreads();  // every warp is done with the previous tile and its scores
-    stage_wide<T, D>(k + head, n0, WIDE_BN, L, sK, tid);
-    stage_wide<T, D>(v + head, n0, WIDE_BN, L, sV, tid);
+    stage_wide<T>(v + head, n0, WIDE_BN, L, D, c0, sV, tid);
     for (int i = tid; i < WIDE_BN; i += WIDE_WARPS * 32) {
       const int key = n0 + i;
       sValid[i] = (key < L && (mb == nullptr || mb[key] != 0)) ? 1.f : 0.f;
     }
-    __syncthreads();
 
-    // 1. scores of rows rg*16.. against keys cq*8.., the whole depth
+    // 1. scores of rows rg*16.. against keys cq*8.., the whole depth, one
+    // chunk of D at a time
     float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int d0 = 0; d0 < D; d0 += WIDE_DW) {
+      if (d0 > 0) __syncthreads();  // every warp is done with the previous chunk
+      if (!resident) stage_wide<T>(q + head, q0, WIDE_BM, L, D, d0, sQ, tid);
+      stage_wide<T>(k + head, n0, WIDE_BN, L, D, d0, sK, tid);
+      __syncthreads();
+      const int kk_end = (min(D - d0, WIDE_DW) + 15) / 16;  // zero columns past D
 #pragma unroll 4
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const __nv_bfloat16* qa = sQ + (rg * 16 + g) * LDS + kk * 16 + 2 * t;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LDS), ld32(qa + 8), ld32(qa + 8 * LDS + 8)};
-      const __nv_bfloat16* kb = sK + (cq * 8 + g) * LDS + kk * 16 + 2 * t;
-      mma_bf16(s, a, ld32(kb), ld32(kb + 8));
+      for (int kk = 0; kk < kk_end; ++kk) {
+        const __nv_bfloat16* qa = sQ + (rg * 16 + g) * LDS + kk * 16 + 2 * t;
+        const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LDS), ld32(qa + 8), ld32(qa + 8 * LDS + 8)};
+        const __nv_bfloat16* kb = sK + (cq * 8 + g) * LDS + kk * 16 + 2 * t;
+        mma_bf16(s, a, ld32(kb), ld32(kb + 8));
+      }
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -584,6 +610,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
       pa[3] = pack(p[2 * ks + 1][2], p[2 * ks + 1][3]);
 #pragma unroll
       for (int dn = 0; dn < DC / 8; ++dn) {
+        if (col0 + dn * 8 >= D) continue;  // the tile's columns are all past D
         const __nv_bfloat16* vb = sV + (ks * 16 + 2 * t) * LDS + cq * DC + dn * 8 + g;
         const uint32_t b0 = pack(vb[0], vb[LDS]);
         const uint32_t b1 = pack(vb[8 * LDS], vb[9 * LDS]);
@@ -601,7 +628,8 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const float inv_hi = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[1], 1e-9f);
 #pragma unroll
   for (int dn = 0; dn < DC / 8; ++dn) {
-    const int col = cq * DC + dn * 8 + 2 * t;
+    const int col = col0 + dn * 8 + 2 * t;
+    if (col0 + dn * 8 >= D) continue;  // D % 8 == 0: a tile is all below D or all past it
     if (row_lo < L) {
       store2(oh + static_cast<size_t>(row_lo) * D + col, acc[dn][0] * inv_lo, acc[dn][1] * inv_lo);
     }
@@ -609,16 +637,17 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
       store2(oh + static_cast<size_t>(row_hi) * D + col, acc[dn][2] * inv_hi, acc[dn][3] * inv_hi);
     }
   }
-  // the four column warps hold the same statistics: the first one writes
+  // every block of a row block and the four column warps hold the same
+  // statistics: the first column warp of the first chunk writes
   if constexpr (MODE == MODE_LSE) {
-    if (cq == 0 && t == 0) {
+    if (blockIdx.y == 0 && cq == 0 && t == 0) {
       float* lh = stat0 + static_cast<size_t>(bh) * L;
       if (row_lo < L) lh[row_lo] = m_row[0] * LN2 + logf(fmaxf(l_row[0], 1e-30f));
       if (row_hi < L) lh[row_hi] = m_row[1] * LN2 + logf(fmaxf(l_row[1], 1e-30f));
     }
   }
   if constexpr (MODE == MODE_PARTIAL) {
-    if (cq == 0 && t == 0) {
+    if (blockIdx.y == 0 && cq == 0 && t == 0) {
       float* mh = stat0 + static_cast<size_t>(bh) * L;
       float* sh = stat1 + static_cast<size_t>(bh) * L;
       if (row_lo < L) {
@@ -633,22 +662,23 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   }
 }
 
-template <typename T, int D, int MODE>
+template <typename T, int MODE>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* mask, void* o,
-                        float* stat0, float* stat1, int B, int H, int L, int causal, float scale,
-                        cudaStream_t stream) {
+                        float* stat0, float* stat1, int B, int H, int L, int D, int causal,
+                        float scale, cudaStream_t stream) {
   const int num_qblocks = (L + WIDE_BM - 1) / WIDE_BM;
   const long long blocks = static_cast<long long>(num_qblocks) * B * H;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  constexpr size_t smem = wide_fwd_smem<D>();
-  auto kernel = flash_fwd_wide_kernel<T, D, MODE>;
+  const int chunks = (D + WIDE_DW - 1) / WIDE_DW;
+  if (blocks > 0x7fffffffLL || chunks > 65535) return cudaErrorInvalidValue;
+  constexpr size_t smem = wide_fwd_smem();
+  auto kernel = flash_fwd_wide_kernel<T, MODE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const float scale_log2 = LOG2E * scale;
-  kernel<<<static_cast<unsigned>(blocks), WIDE_WARPS * 32, smem, stream>>>(
+  kernel<<<dim3(static_cast<unsigned>(blocks), chunks), WIDE_WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<out_t<T, MODE>*>(o), stat0, stat1, H, L,
+      static_cast<const uint8_t*>(mask), static_cast<out_t<T, MODE>*>(o), stat0, stat1, H, L, D,
       num_qblocks, causal, scale_log2);
   return cudaGetLastError();
 }
@@ -657,15 +687,18 @@ template <int MODE>
 int wide_by_dtype(const void* q, const void* k, const void* v, const void* mask, void* o,
                   void* stat0, void* stat1, int B, int H, int L, int D, int causal, int dtype,
                   float scale, void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || D != 256) return static_cast<int>(cudaErrorInvalidValue);
+  // rows are read as 16-byte vectors: D % 8 == 0 (ops/flash.py pads others)
+  if (B <= 0 || H <= 0 || L <= 0 || D <= 0 || D % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* s0 = static_cast<float*>(stat0);
   float* s1 = static_cast<float*>(stat1);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_wide<__nv_bfloat16, 256, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
+    err = launch_wide<__nv_bfloat16, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
   } else if (dtype == 1) {
-    err = launch_wide<float, 256, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
+    err = launch_wide<float, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -707,8 +740,8 @@ extern "C" int dfly_flash_fwd_partial(const void* q, const void* k, const void* 
                                 scale, stream);
 }
 
-// The wide instance (head dim 256), one entry per mode; arguments as the
-// entries above without `warps`.
+// The wide instance (any head dim D % 8 == 0, taken above 128), one entry
+// per mode; arguments as the entries above without `warps`.
 extern "C" int dfly_flash_fwd_wide(const void* q, const void* k, const void* v, const void* mask,
                                    void* o, int B, int H, int L, int D, int causal, int dtype,
                                    float scale, void* stream) {

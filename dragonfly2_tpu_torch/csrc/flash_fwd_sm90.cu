@@ -17,7 +17,13 @@
 // - dfly_flash_fwd_partial_sm90: unnormalised acc [B, H, L, D] f32, row_max
 //   = m ln2 and row_sum = l [B, H, L] f32; a row with no valid key leaves
 //   with row_max = -1e30 ln2, row_sum = 0, acc = 0. Never causal.
-// Rows with no valid key come out exactly 0. Head dims 16, 32, 64, 128.
+// Rows with no valid key come out exactly 0. Head dims 16, 32, 64, 128;
+// and the wide instances (dfly_flash_fwd_wide_sm90,
+// dfly_flash_fwd_lse_wide_sm90, dfly_flash_fwd_partial_wide_sm90) take any
+// head dim in (128, 256] with D % 8 == 0 as it is, at a compile-time width
+// of 192 (D up to 192) or 256: the tensor maps hold the real D, so the
+// columns past it arrive as zeros and add nothing to Q K^T, and the stores
+// stop at D. No caller pads.
 //
 // What bounds it on an H100: 4 B H L^2 D operations (Q K^T and P V) against
 // 4 B H L D bf16 elements moved (q, k, v, o; the partial mode's float32 acc
@@ -58,6 +64,18 @@
 // - Causal blocks stop at the last key tile that reaches their last row.
 // - One thread of each quad writes the per-row statistics; the outputs are
 //   stored from the accumulators, stopping at L.
+// - The wide instances (width W = 192 or 256) replace the TPU kernel's
+//   wide calls as csrc/flash_fwd.cu's wide mma.sync instance does at every
+//   L, for bf16 above WIDE_SM90_MIN_L (ops/flash.py). O for 64 rows at
+//   W = 256 is 128 float32 registers a thread, with S (32) and P's A
+//   fragments (16) beside it: past the 168 that ptxas gives a 288-thread
+//   block. So a wide block has one consumer warpgroup of 64 rows and the
+//   producer warp, 160 threads with up to 255 registers each, and the
+//   same code path. Shared memory at W = 256: Q 32 KB and three stages of
+//   K and V at 32 KB each, 224 KB of the 227 KB a block may have. Bound on
+//   an H100: at the ring's block, [2, 4, 1024, 192] bf16, 4 B H L^2 D =
+//   6.4 GFLOP (6.5 us at 989 TFLOP/s) against 6.3 MB of q, k, v and a
+//   float32 acc (1.9 us): bound by operations.
 
 #include <math.h>
 
@@ -82,8 +100,10 @@ using out_t = std::conditional_t<MODE == MODE_PARTIAL, float, __nv_bfloat16>;
 
 template <int HEAD_DIM>
 struct Fwd {
-  static constexpr int D = HEAD_DIM;
-  static constexpr int BM = 128;  // query rows per block
+  static constexpr int D = HEAD_DIM;  // the wide instances' compile-time width
+  static constexpr bool WIDE = D > 128;
+  static constexpr int WGS = WIDE ? 1 : 2;  // consumer warpgroups, 64 rows each
+  static constexpr int BM = 64 * WGS;       // query rows per block
   static constexpr int BN = 64;   // keys per K/V tile
   static constexpr int STAGES = 3;
   // blocks an SM: two at head dims 16 and 32 (up to 96 registers a
@@ -93,7 +113,7 @@ struct Fwd {
   static constexpr int COLS = D < 64 ? D : 64;  // columns per swizzled block
   static constexpr int ROW_BYTES = COLS * 2;
   static constexpr int CBLOCKS = D / COLS;
-  static constexpr int CONSUMER_WARPS = 8;
+  static constexpr int CONSUMER_WARPS = 4 * WGS;
   static constexpr int THREADS = CONSUMER_WARPS * 32 + 32;
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BN * D * 2;  // one K or one V tile
@@ -104,6 +124,7 @@ struct Fwd {
   static constexpr int OFF_BAR = OFF_VALID + STAGES * 8;
   static constexpr int BARS = 1 + 2 * STAGES;  // Q, full[], empty[]
   static constexpr int SMEM = OFF_BAR + BARS * 8 + 1024;  // + room to align the base
+  static_assert(SMEM <= 232448, "a block's shared memory on sm_90");
 };
 
 // the tile's scores become probabilities in place: mask, update the running
@@ -156,8 +177,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, const uint8_t* __restrict__ mask,
                       out_t<MODE>* __restrict__ o, float* __restrict__ stat0,
-                      float* __restrict__ stat1, int H, int L, int num_qblocks, int causal,
-                      float scale_log2) {
+                      float* __restrict__ stat1, int H, int L, int d, int num_qblocks,
+                      int causal, float scale_log2) {
   using C = Fwd<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -289,16 +310,19 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   // the partial mode leaves acc unnormalised
   const float inv_lo = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[0], 1e-9f);
   const float inv_hi = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[1], 1e-9f);
-  out_t<MODE>* oh = o + static_cast<size_t>(bh) * L * D;
+  // rows of d elements: d == D but at the wide instances, whose stores
+  // stop at d (d % 8 == 0: an 8-column tile is all below it or all past it)
+  out_t<MODE>* oh = o + static_cast<size_t>(bh) * L * d;
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) {
     const int col = dn * 8 + 2 * t;
+    if (C::WIDE && dn * 8 >= d) continue;
     if (row_lo < L) {
-      store2(oh + static_cast<size_t>(row_lo) * D + col, acc[4 * dn] * inv_lo,
+      store2(oh + static_cast<size_t>(row_lo) * d + col, acc[4 * dn] * inv_lo,
              acc[4 * dn + 1] * inv_lo);
     }
     if (row_hi < L) {
-      store2(oh + static_cast<size_t>(row_hi) * D + col, acc[4 * dn + 2] * inv_hi,
+      store2(oh + static_cast<size_t>(row_hi) * d + col, acc[4 * dn + 2] * inv_hi,
              acc[4 * dn + 3] * inv_hi);
     }
   }
@@ -326,18 +350,20 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// d: the tensors' head dim, D itself but at the wide widths (d <= D)
 template <int D, int MODE>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* o, float* stat0,
-           float* stat1, int B, int H, int L, int causal, float scale, cudaStream_t stream) {
+           float* stat1, int B, int H, int L, int d, int causal, float scale,
+           cudaStream_t stream) {
   using C = Fwd<D>;
   const long long planes = static_cast<long long>(B) * H;
   const int num_qblocks = (L + C::BM - 1) / C::BM;
   const long long blocks = planes * num_qblocks;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  int err = encode_rows(&tq, q, D, L, planes, C::BM);
-  if (err == 0) err = encode_rows(&tk, k, D, L, planes, C::BN);
-  if (err == 0) err = encode_rows(&tv, v, D, L, planes, C::BN);
+  int err = encode_rows(&tq, q, d, L, planes, C::BM);
+  if (err == 0) err = encode_rows(&tk, k, d, L, planes, C::BN);
+  if (err == 0) err = encode_rows(&tv, v, d, L, planes, C::BN);
   if (err != 0) return err;
   auto kernel = flash_fwd_sm90_kernel<D, MODE>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
@@ -345,7 +371,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   const float scale_log2 = LOG2E * scale;
   kernel<<<static_cast<unsigned>(blocks), C::THREADS, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<const uint8_t*>(mask), static_cast<out_t<MODE>*>(o), stat0, stat1, H,
-      L, num_qblocks, causal, scale_log2);
+      L, d, num_qblocks, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -357,12 +383,28 @@ int by_dim(const void* q, const void* k, const void* v, const void* mask, void* 
   float* s0 = static_cast<float*>(stat0);
   float* s1 = static_cast<float*>(stat1);
   switch (D) {
-    case 16: return launch<16, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
-    case 32: return launch<32, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
-    case 64: return launch<64, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
-    case 128: return launch<128, MODE>(q, k, v, mask, o, s0, s1, B, H, L, causal, scale, s);
+    case 16: return launch<16, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
+    case 32: return launch<32, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
+    case 64: return launch<64, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
+    case 128: return launch<128, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// the wide instances: a head dim in (128, 256] with D % 8 == 0, at the
+// width 192 up to D = 192, else 256
+template <int MODE>
+int wide_by_dim(const void* q, const void* k, const void* v, const void* mask, void* o,
+                void* stat0, void* stat1, int B, int H, int L, int D, int causal, float scale,
+                void* stream) {
+  if (B <= 0 || H <= 0 || L <= 0 || D <= 128 || D > 256 || D % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* s0 = static_cast<float*>(stat0);
+  float* s1 = static_cast<float*>(stat1);
+  if (D <= 192) return launch<192, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
+  return launch<256, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
 }
 
 }  // namespace
@@ -393,6 +435,29 @@ extern "C" int dfly_flash_fwd_partial_sm90(const void* q, const void* k, const v
                                            void* stream) {
   return by_dim<MODE_PARTIAL>(q, k, v, mask, acc, row_max, row_sum, B, H, L, D, 0, scale,
                               stream);
+}
+
+// The wide instances, one entry per mode: arguments as the entries above,
+// D in (128, 256] with D % 8 == 0.
+extern "C" int dfly_flash_fwd_wide_sm90(const void* q, const void* k, const void* v,
+                                        const void* mask, void* o, int B, int H, int L, int D,
+                                        int causal, float scale, void* stream) {
+  return wide_by_dim<MODE_OUT>(q, k, v, mask, o, nullptr, nullptr, B, H, L, D, causal, scale,
+                               stream);
+}
+
+extern "C" int dfly_flash_fwd_lse_wide_sm90(const void* q, const void* k, const void* v,
+                                            const void* mask, void* o, void* lse, int B, int H,
+                                            int L, int D, int causal, float scale, void* stream) {
+  return wide_by_dim<MODE_LSE>(q, k, v, mask, o, lse, nullptr, B, H, L, D, causal, scale, stream);
+}
+
+extern "C" int dfly_flash_fwd_partial_wide_sm90(const void* q, const void* k, const void* v,
+                                                const void* mask, void* acc, void* row_max,
+                                                void* row_sum, int B, int H, int L, int D,
+                                                float scale, void* stream) {
+  return wide_by_dim<MODE_PARTIAL>(q, k, v, mask, acc, row_max, row_sum, B, H, L, D, 0, scale,
+                                   stream);
 }
 
 extern "C" const char* dfly_cuda_error_string(int err) { return sm90::error_string(err); }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma flash kernels
-// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu, flash_bwd_dq_sm90.cu):
+// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu, flash_bwd_dq_sm90.cu, their
+// wide instances included):
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and
 // instructions, the tile products of the kernels whose block owns query
 // rows, and the host-side TMA descriptor encoder.
@@ -9,7 +10,10 @@
 // 32, 64 or 128 bytes), each written by one TMA box with the swizzle of its
 // row width (32B, 64B, 128B) and read by wgmma through a descriptor of the
 // same swizzle. Every block starts on a 1024-byte boundary, so the swizzle
-// pattern (a function of the shared address) is the same for both.
+// pattern (a function of the shared address) is the same for both. The
+// wide instances' D (their compile-time width, 192 or 256) may exceed the
+// tensor's head dim: the tensor map holds the real one, so the columns
+// past it, and whole boxes past it, arrive as zeros.
 // - K-major operand (the reduction runs along a row: Q and K in Q K^T, K
 //   and Q in K Q^T): the descriptor points at the first row; a 16-element
 //   k step advances the start address by 32 bytes inside the swizzled row;
@@ -172,6 +176,24 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a, uint64_t
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d[16] += A (64 x 16, shared, K-major) * B (16 x 32, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
@@ -416,7 +438,8 @@ inline EncodeTiledFn tensor_map_encoder() {
 
 // TMA descriptor of a contiguous bf16 [planes, rows, D] tensor, read in
 // boxes of [box_rows, cols] (cols = min(D, 64)) with the swizzle smem_desc
-// expects; 0, or TMAP_ERROR + the CUresult
+// expects (D % 8 == 0: a row's stride is a multiple of 16 bytes); 0, or
+// TMAP_ERROR + the CUresult
 inline int encode_rows(CUtensorMap* map, const void* base, int D, int rows, long long planes,
                        int box_rows) {
   const EncodeTiledFn encode = tensor_map_encoder();

@@ -17,13 +17,16 @@ H100:
   (flash.py:474) -> csrc/flash_bwd.cu ``dfly_flash_bwd_dkv`` and
   ``dfly_flash_bwd_dq`` (training backward).
 
-Every one of them has three instances: the mma.sync ones above, the wide
-mma.sync ones for head dim 256 in the same two sources (``*_wide``), and
-Hopper redesigns with TMA, wgmma and a ring of dynamic shared memory for long
-sequences, csrc/flash_fwd_sm90.cu (``dfly_flash_fwd_sm90``,
+Every one of them has these instances: the mma.sync ones above at the head
+dims of ``HEAD_DIMS``; the wide mma.sync ones for any head dim above 128 in
+the same two sources (``*_wide``); Hopper redesigns with TMA, wgmma and a
+ring of dynamic shared memory for long sequences at ``HEAD_DIMS``,
+csrc/flash_fwd_sm90.cu (``dfly_flash_fwd_sm90``,
 ``dfly_flash_fwd_lse_sm90``, ``dfly_flash_fwd_partial_sm90``),
 csrc/flash_bwd_dkv_sm90.cu (``dfly_flash_bwd_dkv_sm90``) and
-csrc/flash_bwd_dq_sm90.cu (``dfly_flash_bwd_dq_sm90``). The head dim and
+csrc/flash_bwd_dq_sm90.cu (``dfly_flash_bwd_dq_sm90``); and wide Hopper
+ones of the forward (three modes) and of dK/dV for head dims in (128,
+256], ``*_wide_sm90`` in the same sources. The head dim and
 ``_sm90_path`` pick one from the shape and dtype alone; a refused launch
 raises, it never falls back to another.
 
@@ -33,8 +36,10 @@ has a launch counter (``LAUNCHES``, ``LSE_LAUNCHES``, ``PARTIAL_LAUNCHES``,
 ``DKV_LAUNCHES``, ``DQ_LAUNCHES``) that counts its launches of any
 instance, and each Hopper and wide instance one more (``FWD_SM90_LAUNCHES``,
 ``LSE_SM90_LAUNCHES``, ``PARTIAL_SM90_LAUNCHES``, ``DKV_SM90_LAUNCHES``,
-``DQ_SM90_LAUNCHES``; ``FWD_WIDE_LAUNCHES`` .. ``DQ_WIDE_LAUNCHES``); only
-the lines launching add to them.
+``DQ_SM90_LAUNCHES``; ``FWD_WIDE_LAUNCHES`` .. ``DQ_WIDE_LAUNCHES``;
+``FWD_WIDE_SM90_LAUNCHES``, ``LSE_WIDE_SM90_LAUNCHES``,
+``PARTIAL_WIDE_SM90_LAUNCHES``, ``DKV_WIDE_SM90_LAUNCHES``); only the lines
+launching add to them.
 
 ``flash_attention`` is the public entry. With autograd recording and an
 input that requires grad it runs ``FlashAttention`` (forward with lse,
@@ -43,17 +48,19 @@ backward through the two backward kernels); otherwise, as under
 forward. ``flash_attention_partials`` is forward-only, as in the
 reference: under autograd it raises.
 
-Head dims: the kernels have instances at D in ``HEAD_DIMS`` (16, 32, 64,
-128) and, wide, in ``WIDE_DIMS`` (256); the reference takes any D. On the
-CPU the plain versions take any D. On CUDA the shape alone decides, before
-any launch: a D up to 256 outside the instances is zero-padded to the next
-instance's D_pad, the kernels score with the softmax scale of the unpadded
-D (every C entry takes it), and the outputs and gradients are sliced back
-to D. Zero columns add nothing to q k^T, dO v^T or rowsum(dO o), so the
-padded call computes the unpadded function, and nothing is rounded on the
-way. A D above 256 has no instance, so on CUDA it is refused with a
-ValueError before any launch; it never runs the plain version on the card.
-A refused launch raises too.
+Head dims: the reference takes any D, and so does the port. On the CPU the
+plain versions take any D. On CUDA the shape alone decides, before any
+launch (``_kernel_dim``): a D in ``HEAD_DIMS`` (16, 32, 64, 128) goes to
+its instances; a D above 128 with D % 8 == 0 goes to the wide instances as
+it is, which read the head dim at run time (16-byte row vectors, columns
+past D zeroed in shared memory, stores stopping at D; above 256 they split
+D into 256-column chunks); any other D is zero-padded, below 128 to the
+next of ``HEAD_DIMS``, above it to the next multiple of 8. A padded call
+gives the kernels the softmax scale of the unpadded D (every C entry takes
+it) and slices the outputs and gradients back to D. Zero columns add
+nothing to q k^T, dO v^T or rowsum(dO o), so the padded call computes the
+unpadded function, and nothing is rounded on the way. No D is refused, and
+a CUDA tensor never runs a plain version; a refused launch raises.
 """
 
 from __future__ import annotations
@@ -69,8 +76,9 @@ from dragonfly2_tpu_torch.ops import build
 from dragonfly2_tpu_torch.parallel.ring import dense_attention
 
 HEAD_DIMS = (16, 32, 64, 128)  # the mma.sync and Hopper instances
-WIDE_DIMS = (256,)  # the wide mma.sync instances
-INSTANCE_DIMS = HEAD_DIMS + WIDE_DIMS
+# the wide instances take any D above HEAD_DIMS[-1] with D % 8 == 0; their
+# Hopper ones, of the forward and dK/dV, D up to WIDE_SM90_MAX_DIM
+WIDE_SM90_MAX_DIM = 256
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _NEG = -1e30
 _LOG2E = math.log2(math.e)
@@ -90,12 +98,17 @@ LSE_SM90_LAUNCHES = 0
 PARTIAL_SM90_LAUNCHES = 0
 DKV_SM90_LAUNCHES = 0
 DQ_SM90_LAUNCHES = 0
-# and those of the wide (head dim 256) instances
+# and those of the wide mma.sync instances (head dims above 128)
 FWD_WIDE_LAUNCHES = 0
 LSE_WIDE_LAUNCHES = 0
 PARTIAL_WIDE_LAUNCHES = 0
 DKV_WIDE_LAUNCHES = 0
 DQ_WIDE_LAUNCHES = 0
+# and those of the wide Hopper (TMA + wgmma) instances
+FWD_WIDE_SM90_LAUNCHES = 0
+LSE_WIDE_SM90_LAUNCHES = 0
+PARTIAL_WIDE_SM90_LAUNCHES = 0
+DKV_WIDE_SM90_LAUNCHES = 0
 _launches_lock = threading.Lock()
 
 # The Hopper instances take bf16 at L above this. Shorter sets (the
@@ -106,6 +119,15 @@ _launches_lock = threading.Lock()
 # ones win up to L = 64 (one 128-row Hopper block is mostly padding there)
 # and lose from L = 96.
 SM90_MIN_L = 64
+# The wide Hopper instances take bf16 at a wide head dim up to 256: the
+# forward (all three modes) at L above WIDE_SM90_MIN_L, dK/dV at L above
+# WIDE_DKV_SM90_MIN_L. Set from both wide instances' device times at
+# D = 192 and 256 (python3 chip_smoke.py --threshold, PERF.md): the
+# mma.sync forward wins at L = 16-32 (a 64-row Hopper block holds one set
+# of L rows) and loses from L = 64; the mma.sync dK/dV wins at L = 16-20
+# and loses from 32. The ranker's sets (L = 20) keep both mma.sync ones.
+WIDE_SM90_MIN_L = 32
+WIDE_DKV_SM90_MIN_L = 20
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> (source in csrc/, argtypes); every entry takes the pointers,
@@ -126,6 +148,10 @@ _ENTRIES = {
     "dfly_flash_fwd_partial_wide": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_F, _P]),
     "dfly_flash_bwd_dkv_wide": ("flash_bwd", [_P] * 9 + [_I] * 6 + [_F, _P]),
     "dfly_flash_bwd_dq_wide": ("flash_bwd", [_P] * 8 + [_I] * 6 + [_F, _P]),
+    "dfly_flash_fwd_wide_sm90": ("flash_fwd_sm90", [_P] * 5 + [_I] * 5 + [_F, _P]),
+    "dfly_flash_fwd_lse_wide_sm90": ("flash_fwd_sm90", [_P] * 6 + [_I] * 5 + [_F, _P]),
+    "dfly_flash_fwd_partial_wide_sm90": ("flash_fwd_sm90", [_P] * 7 + [_I] * 4 + [_F, _P]),
+    "dfly_flash_bwd_dkv_wide_sm90": ("flash_bwd_dkv_sm90", [_P] * 9 + [_I] * 5 + [_F, _P]),
 }
 _entries: dict[str, tuple] = {}
 
@@ -144,10 +170,18 @@ def _entry(name: str):
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch one kernel on the device's current stream; raise if refused."""
+    """Launch one kernel on the device's current stream; raise if refused.
+    The launch goes to the current device, so another device's is made
+    current for it; the usual call, on the current device, skips that
+    context's two device switches (a tenth of a short set's wrapper on
+    the host, PERF.md)."""
     fn, lib = _entry(name)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: {lib.dfly_cuda_error_string(err).decode()} ({err})"
@@ -166,10 +200,19 @@ def warps_for(length: int) -> int:
     return 1 if length <= 16 else (2 if length <= 32 else 4)
 
 
-def _sm90_path(length: int, head_dim: int, dtype: torch.dtype) -> bool:
-    """Whether the forward, dK/dV and dQ take their Hopper instances: bf16
-    at L above SM90_MIN_L. Shape and dtype alone decide."""
-    return dtype == torch.bfloat16 and head_dim in HEAD_DIMS and length > SM90_MIN_L
+def _sm90_path(length: int, head_dim: int, dtype: torch.dtype, kernel: str = "fwd") -> bool:
+    """Whether ``kernel`` ("fwd" for the forward's three modes, "dkv",
+    "dq") takes its Hopper instance: bf16 at L above SM90_MIN_L at the head
+    dims of HEAD_DIMS, and at a wide head dim up to WIDE_SM90_MAX_DIM above
+    WIDE_SM90_MIN_L (the forward) or WIDE_DKV_SM90_MIN_L (dK/dV; the wide
+    dQ has the mma.sync instance alone). Shape and dtype alone decide."""
+    if dtype != torch.bfloat16:
+        return False
+    if head_dim in HEAD_DIMS:
+        return length > SM90_MIN_L
+    min_l = WIDE_DKV_SM90_MIN_L if kernel == "dkv" else WIDE_SM90_MIN_L
+    return (_is_wide(head_dim) and head_dim <= WIDE_SM90_MAX_DIM and head_dim % 8 == 0
+            and length > min_l)
 
 
 def _check(q, k, v, kv_mask) -> None:
@@ -199,39 +242,37 @@ def _check(q, k, v, kv_mask) -> None:
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
 
 
-def _instance_dim(q) -> bool:
-    """The kernels take only the head dims of their instances; the public
-    functions pad any other D up to 256 before they get here. Whether the
-    D is a wide instance's."""
-    if q.shape[-1] not in INSTANCE_DIMS:
-        raise ValueError(
-            f"head dim {q.shape[-1]} has no kernel instance (INSTANCE_DIMS {INSTANCE_DIMS}); "
-            "flash_attention pads it"
-        )
-    return q.shape[-1] in WIDE_DIMS
+def _kernel_dim(d: int) -> int:
+    """The head dim the kernels take for a call at D, from D alone: D itself
+    where an instance takes it (HEAD_DIMS, or above 128 a multiple of 8, as
+    the wide instances read rows in 16-byte vectors), else the next such
+    D, to which the call is zero-padded."""
+    if d in HEAD_DIMS or (_is_wide(d) and d % 8 == 0):
+        return d
+    if d < HEAD_DIMS[-1]:
+        return next(x for x in HEAD_DIMS if x >= d)
+    return d + (-d) % 8
+
+
+def _is_wide(d: int) -> bool:
+    """Whether head dim D takes the wide instances."""
+    return d > HEAD_DIMS[-1]
 
 
 def _padded_route(q) -> bool:
     """Whether a call at q's head dim takes the padded route, from the
-    shape alone: a CUDA tensor with D <= 256 outside INSTANCE_DIMS. A CUDA
-    D above 256 has no instance and is refused here, before any launch."""
+    shape alone: a tensor off the CPU (the kernels' route) whose D is not a
+    kernel's (``_kernel_dim``)."""
     d = q.shape[-1]
-    if q.device.type != "cuda" or d in INSTANCE_DIMS:
-        return False
-    if d > INSTANCE_DIMS[-1]:
-        raise ValueError(
-            f"head dim {d} has no kernel instance on CUDA (INSTANCE_DIMS {INSTANCE_DIMS}; "
-            f"D up to {INSTANCE_DIMS[-1]} is padded, D above is not taken)"
-        )
-    return True
+    return q.device.type != "cpu" and _kernel_dim(d) != d
 
 
 def _padded(*tensors):
-    """The [B, H, L, D] tensors zero-padded from D to the next instance's
-    D_pad. With the softmax scale of D (``_scale``) a kernel computes the
-    unpadded function on them."""
+    """The [B, H, L, D] tensors zero-padded from D to ``_kernel_dim(D)``.
+    With the softmax scale of D (``_scale``) a kernel computes the unpadded
+    function on them."""
     d = tensors[0].shape[-1]
-    pad = (0, next(x for x in INSTANCE_DIMS if x >= d) - d)
+    pad = (0, _kernel_dim(d) - d)
     return [F.pad(t, pad) for t in tensors]
 
 
@@ -291,13 +332,15 @@ def _flash_forward(q, k, v, kv_mask, causal: bool) -> torch.Tensor:
 
 
 def _forward_kernel(q, k, v, kv_mask, causal: bool, scale: float) -> torch.Tensor:
-    wide = _instance_dim(q)
     b, h, l, d = q.shape
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
     pointers = _pointers(q, k, v, kv_mask, o)
-    if wide:
+    if _is_wide(d) and _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_fwd_wide_sm90", q.device, *pointers, b, h, l, d, int(causal), scale)
+        _count("LAUNCHES", "FWD_WIDE_SM90_LAUNCHES")
+    elif _is_wide(d):
         _launch("dfly_flash_fwd_wide", q.device, *pointers,
                 b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
         _count("LAUNCHES", "FWD_WIDE_LAUNCHES")
@@ -348,14 +391,17 @@ def flash_attention_lse(q, k, v, kv_mask=None, causal: bool = False):
 
 
 def _lse_kernel(q, k, v, kv_mask, causal: bool, scale: float):
-    wide = _instance_dim(q)
     b, h, l, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
     pointers = _pointers(q, k, v, kv_mask, o, lse)
-    if wide:
+    if _is_wide(d) and _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_fwd_lse_wide_sm90", q.device, *pointers, b, h, l, d, int(causal),
+                scale)
+        _count("LSE_LAUNCHES", "LSE_WIDE_SM90_LAUNCHES")
+    elif _is_wide(d):
         _launch("dfly_flash_fwd_lse_wide", q.device, *pointers,
                 b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
         _count("LSE_LAUNCHES", "LSE_WIDE_LAUNCHES")
@@ -415,7 +461,6 @@ def flash_attention_partials(q, k, v, kv_mask=None):
 
 
 def _partials_kernel(q, k, v, kv_mask, scale: float):
-    wide = _instance_dim(q)
     b, h, l, d = q.shape
     acc = torch.empty(b, h, l, d, dtype=torch.float32, device=q.device)
     row_max = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
@@ -423,7 +468,10 @@ def _partials_kernel(q, k, v, kv_mask, scale: float):
     if acc.numel() == 0:
         return acc, row_max, row_sum
     pointers = _pointers(q, k, v, kv_mask, acc, row_max, row_sum)
-    if wide:
+    if _is_wide(d) and _sm90_path(l, d, q.dtype):
+        _launch("dfly_flash_fwd_partial_wide_sm90", q.device, *pointers, b, h, l, d, scale)
+        _count("PARTIAL_LAUNCHES", "PARTIAL_WIDE_SM90_LAUNCHES")
+    elif _is_wide(d):
         _launch("dfly_flash_fwd_partial_wide", q.device, *pointers,
                 b, h, l, d, _DTYPE_CODES[q.dtype], scale)
         _count("PARTIAL_LAUNCHES", "PARTIAL_WIDE_LAUNCHES")
@@ -484,16 +532,24 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal: bool = Fal
                             scale=None):
     """(dk, dv) from the dK/dV kernel; CUDA tensors only. ``delta`` is
     rowsum(dO * o) in float32 [B, H, L]; ``scale`` the softmax scale,
-    1/sqrt(D) when None (the padded route passes the unpadded D's)."""
+    1/sqrt(D) when None (the padded route passes the unpadded D's). A D no
+    kernel takes is zero-padded here and the gradients sliced back."""
     _need_cuda(q)
-    wide = _instance_dim(q)
     scale = _scale(q) if scale is None else scale
     b, h, l, d = q.shape
+    if _padded_route(q):
+        qp, kp, vp, dop = _padded(q, k, v, do)
+        dk, dv = flash_attention_bwd_dkv(qp, kp, vp, kv_mask, lse, delta, dop, causal, scale)
+        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if not dk.numel():
         return dk, dv
     pointers = _pointers(q, k, v, do, lse, delta, kv_mask, dk, dv)
-    if wide:
+    if _is_wide(d) and _sm90_path(l, d, q.dtype, "dkv"):
+        _launch("dfly_flash_bwd_dkv_wide_sm90", q.device, *pointers, b, h, l, d, int(causal),
+                scale)
+        _count("DKV_LAUNCHES", "DKV_WIDE_SM90_LAUNCHES")
+    elif _is_wide(d):
         _launch("dfly_flash_bwd_dkv_wide", q.device, *pointers,
                 b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
         _count("DKV_LAUNCHES", "DKV_WIDE_LAUNCHES")
@@ -512,16 +568,21 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal: bool = Fal
 
 def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal: bool = False,
                            scale=None):
-    """dq from the dQ kernel; CUDA tensors only; ``scale`` as for dK/dV."""
+    """dq from the dQ kernel; CUDA tensors only; ``scale`` and a D no
+    kernel takes as for dK/dV. A wide D takes the wide mma.sync instance at
+    every L."""
     _need_cuda(q)
-    wide = _instance_dim(q)
     scale = _scale(q) if scale is None else scale
     b, h, l, d = q.shape
+    if _padded_route(q):
+        qp, kp, vp, dop = _padded(q, k, v, do)
+        return flash_attention_bwd_dq(qp, kp, vp, kv_mask, lse, delta, dop, causal,
+                                      scale)[..., :d].contiguous()
     dq = torch.empty_like(q)
     if not dq.numel():
         return dq
     pointers = _pointers(q, k, v, do, lse, delta, kv_mask, dq)
-    if wide:
+    if _is_wide(d):
         _launch("dfly_flash_bwd_dq_wide", q.device, *pointers,
                 b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
         _count("DQ_LAUNCHES", "DQ_WIDE_LAUNCHES")

@@ -437,70 +437,217 @@ def test_head_dim_24_pads_to_an_instance(l):
 
 WIDE_COUNTERS = ("FWD_WIDE_LAUNCHES", "LSE_WIDE_LAUNCHES", "PARTIAL_WIDE_LAUNCHES",
                  "DKV_WIDE_LAUNCHES", "DQ_WIDE_LAUNCHES")
+WIDE_SM90_COUNTERS = ("FWD_WIDE_SM90_LAUNCHES", "LSE_WIDE_SM90_LAUNCHES",
+                      "PARTIAL_WIDE_SM90_LAUNCHES", "DKV_WIDE_SM90_LAUNCHES")
 WIDE_ENTRIES = ["dfly_flash_fwd_wide", "dfly_flash_fwd_lse_wide", "dfly_flash_fwd_partial_wide",
                 "dfly_flash_bwd_dkv_wide", "dfly_flash_bwd_dq_wide"]
+PLAIN_VERSIONS = ("flash_attention_plain", "dense_attention", "flash_attention_lse_plain",
+                  "flash_attention_partials_plain", "flash_attention_bwd_plain")
 
 
 def _wide_counts():
-    return {name: getattr(flash, name) for name in WIDE_COUNTERS}
+    return {name: getattr(flash, name) for name in WIDE_COUNTERS + WIDE_SM90_COUNTERS}
 
 
-def test_head_dim_above_128_is_refused_before_any_launch(monkeypatch):
-    """A head dim above 128 takes the wide instance (D = 160 padded to
-    256): every CUDA entry launches it once and no plain version runs in
-    its place. Above the largest instance (D = 320) every entry is refused
-    from the shape, before any launch."""
-    _need_card()
-    q, k, v, do, mask = _training_inputs((2, 2, 40, 160), torch.bfloat16, seed=5)
-    o, lse = flash.flash_attention_lse_plain(q, k, v, mask)
-
+def _refuse_plain(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached a plain version")
 
-    for name in ("flash_attention_plain", "dense_attention", "flash_attention_lse_plain",
-                 "flash_attention_partials_plain", "flash_attention_bwd_plain"):
+    for name in PLAIN_VERSIONS:
         monkeypatch.setattr(flash, name, refuse)
+
+
+def _record_launches(monkeypatch):
     launched = []
     real = flash._launch
     monkeypatch.setattr(flash, "_launch",
                         lambda name, *a: launched.append(name) or real(name, *a))
-    before = _wide_counts(), _sm90_counts()
+    return launched
+
+
+def _plain_outputs(q, k, v, do, mask, causal):
+    """Every entry's plain version at q's own D: (o, lse, partials, the
+    backward from (o, lse))."""
+    o, lse = flash.flash_attention_lse_plain(q, k, v, mask, causal)
+    partials = flash.flash_attention_partials_plain(q, k, v, mask)
+    return o, lse, partials, flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do, causal)
+
+
+def _check_partials(got, want, tol, stats=None):
+    """The partials against the plain version's: row_max and row_sum to
+    ``stats`` (STATS by default), acc over row_sum to ``tol``."""
+    acc, row_max, row_sum = got
+    want_acc, want_max, want_sum = want
+    stats = stats or dict(atol=STATS_ATOL, rtol=STATS_RTOL)
+    live = want_sum > 0
+    torch.testing.assert_close(row_max[live], want_max[live], **stats)
+    torch.testing.assert_close(row_sum, want_sum, **stats)
+    rows = want_sum.clamp_min(1.0)[..., None]
+    torch.testing.assert_close(acc / rows, want_acc / rows, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [320, 512])
+def test_head_dim_above_128_is_refused_before_any_launch(monkeypatch, d, dtype):
+    """No head dim is refused any more (ROADMAP C3 closed): above 256 every
+    entry (the finished forward, with lse, the partials, dK/dV, dQ, and
+    autograd through FlashAttention) launches the wide mma.sync instance,
+    which splits D into 256-column chunks, unpadded, and matches the plain
+    versions at D in bf16 and float32; no plain version runs on a CUDA
+    tensor."""
+    _need_card()
+    q, k, v, do, mask = _training_inputs((2, 2, 40, d), dtype, seed=d)
+    ref_o, ref_lse, ref_partials, ref_grads = _plain_outputs(q, k, v, do, mask, False)
+    _refuse_plain(monkeypatch)
+    monkeypatch.setattr(flash, "_padded", lambda *t: pytest.fail("a wide D was padded"))
+    launched = _record_launches(monkeypatch)
+    before = _wide_counts()
+    tol, grad_tol = dict(atol=ATOL, rtol=RTOL), dict(atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    # row statistics: from float32 scores of bf16 operands, which the plain
+    # version's float32 operands are not (the kernel rounds them in shared
+    # memory), so float32 inputs hold them to the kernel tolerance, as
+    # test_training_kernels_match_plain does
+    stats = dict(atol=STATS_ATOL, rtol=STATS_RTOL) if dtype == torch.bfloat16 else tol
+    out = flash.flash_attention(q, k, v, mask)
+    torch.testing.assert_close(out.float(), ref_o.float(), **tol)
+    o, lse = flash.flash_attention_lse(q, k, v, mask)
+    assert torch.equal(o, out)
+    seen = ref_lse > -1e20
+    torch.testing.assert_close(lse[seen], ref_lse[seen], **stats)
+    _check_partials(flash.flash_attention_partials(q, k, v, mask), ref_partials, tol, stats)
+    # the backward kernels from the plain version's o and lse, as the plain one takes them
+    got = flash.flash_attention_bwd(q, k, v, mask, ref_o, ref_lse, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, ref_grads):
+        assert g.shape == q.shape and g.dtype == dtype, name
+        torch.testing.assert_close(g.float(), w.float(), **grad_tol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(flash.flash_attention(*leaves, mask), leaves, do)
+    for name, g, w in zip(("dq", "dk", "dv"), auto, ref_grads):
+        torch.testing.assert_close(g.float(), w.float(), **grad_tol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    torch.cuda.synchronize()
+    assert sorted(set(launched)) == sorted(WIDE_ENTRIES)
+    counts = _wide_counts()
+    assert {n: counts[n] - before[n] for n in WIDE_COUNTERS} == {
+        "FWD_WIDE_LAUNCHES": 1, "LSE_WIDE_LAUNCHES": 2, "PARTIAL_WIDE_LAUNCHES": 1,
+        "DKV_WIDE_LAUNCHES": 2, "DQ_WIDE_LAUNCHES": 2}
+    assert all(counts[n] == before[n] for n in WIDE_SM90_COUNTERS)
+
+
+def _wide_names(l, d, dtype):
+    """The wide entry each of the forward, the partials, the forward with
+    lse, dK/dV and dQ launches at (L, D, dtype), from the thresholds."""
+    fwd = "_wide_sm90" if flash._sm90_path(l, d, dtype) else "_wide"
+    dkv = "_wide_sm90" if flash._sm90_path(l, d, dtype, "dkv") else "_wide"
+    return ["dfly_flash_fwd" + fwd, "dfly_flash_fwd_partial" + fwd, "dfly_flash_fwd_lse" + fwd,
+            "dfly_flash_bwd_dkv" + dkv, "dfly_flash_bwd_dq_wide"]
+
+
+@pytest.mark.parametrize("l,dtype", [(20, torch.bfloat16), (1000, torch.bfloat16),
+                                     (40, torch.float32)])
+def test_wide_route_makes_no_pad_copy(monkeypatch, l, dtype):
+    """D = 192, the wide ranker's head dim, goes to the wide instances as
+    it is: the padding helper is never called, at the ranker's L = 20 (the
+    mma.sync ones), at L = 1000 (the Hopper forward and dK/dV) and in
+    float32 (mma.sync everywhere)."""
+    _need_card()
+    q, k, v, do, mask = _training_inputs((2, 2, l, 192), dtype, seed=l)
+    monkeypatch.setattr(flash, "_padded", lambda *t: pytest.fail("a wide D was padded"))
+    launched = _record_launches(monkeypatch)
     flash.flash_attention(q, k, v, mask)
     flash.flash_attention_partials(q, k, v, mask)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    torch.autograd.grad(flash.flash_attention(*leaves, mask), leaves, do)
-    assert sorted(launched) == sorted(WIDE_ENTRIES)
-    assert _wide_counts() == {name: count + 1 for name, count in before[0].items()}
-    assert _sm90_counts() == before[1]
+    grads = torch.autograd.grad(flash.flash_attention(*leaves, mask, True), leaves, do)
+    torch.cuda.synchronize()
+    assert all(g.shape == q.shape for g in grads)
+    assert launched == _wide_names(l, 192, dtype)
+    if dtype == torch.float32:
+        assert not any(name.endswith("_sm90") for name in launched)
 
-    launched.clear()
-    q, k, v, do, mask = _training_inputs((2, 2, 40, 320), torch.bfloat16, seed=6)
-    names = ("LAUNCHES", "LSE_LAUNCHES", "PARTIAL_LAUNCHES", "DKV_LAUNCHES", "DQ_LAUNCHES",
-             *SM90_COUNTERS, *WIDE_COUNTERS)
-    counts = [getattr(flash, name) for name in names]
-    calls = (lambda: flash.flash_attention(q, k, v, mask),
-             lambda: flash.flash_attention(*(t.clone().requires_grad_() for t in (q, k, v)), mask),
-             lambda: flash.flash_attention_lse(q, k, v, mask),
-             lambda: flash.flash_attention_partials(q, k, v, mask),
-             lambda: flash.flash_attention_bwd(q, k, v, mask, q, torch.zeros_like(q[..., 0],
-                                                                                 dtype=torch.float32), do))
-    for call in calls:
-        with pytest.raises(ValueError, match="head dim 320"):
-            call()
-    assert [getattr(flash, name) for name in names] == counts and not launched
+
+WIDE_SM90_CASES = [
+    # the ranker's training batch with a ragged key mask, forced onto the
+    # Hopper instances whatever the threshold
+    ((256, 4, 20, 192), False, True),
+    ((2, 2, 1000, 192), False, False), ((2, 2, 1000, 192), True, False),
+    ((2, 2, 4097, 192), False, False), ((2, 2, 4097, 256), True, False),
+    ((2, 2, 1000, 136), True, False), ((2, 2, 1000, 200), False, False),
+]
+
+
+@pytest.mark.parametrize("shape,causal,forced", WIDE_SM90_CASES)
+def test_wide_sm90_instances_match_plain(monkeypatch, shape, causal, forced):
+    """The wide Hopper instances (forward in its three modes, dK/dV)
+    against the plain versions (the long tolerances at long L), with a mask holding
+    fully masked batch rows and ragged rows, and without; the counters
+    prove that they ran and that the wide dQ took its mma.sync instance."""
+    _need_card()
+    if forced:
+        monkeypatch.setattr(flash, "WIDE_SM90_MIN_L", 0)
+        monkeypatch.setattr(flash, "WIDE_DKV_SM90_MIN_L", 0)
+    b, h, l, d = shape
+    assert flash._sm90_path(l, d, torch.bfloat16) and flash._sm90_path(l, d, torch.bfloat16, "dkv")
+    q, k, v, do, mask = _training_inputs(shape, torch.bfloat16, seed=l + d + causal)
+    lengths = torch.randint(1, l + 1, (b,), generator=torch.Generator().manual_seed(l)).cuda()
+    mask &= torch.arange(l, device="cuda")[None, :] < lengths[:, None]  # ragged sets
+    mask[1:, 0] = True
+    mask[0] = False
+    # the long tolerances where a row averages hundreds of keys; the short
+    # sets' own at the ranker's 20
+    long = l > flash.SM90_MIN_L
+    tol = dict(atol=LONG_ATOL, rtol=LONG_RTOL) if long else dict(atol=ATOL, rtol=RTOL)
+    grad_tol = (dict(atol=LONG_GRAD_ATOL, rtol=LONG_GRAD_RTOL) if long
+                else dict(atol=GRAD_ATOL, rtol=GRAD_RTOL))
+    for kv_mask in (mask, None):
+        before = _wide_counts()
+        out = flash.flash_attention(q, k, v, kv_mask, causal)
+        ref_o, ref_lse = flash.flash_attention_lse_plain(q, k, v, kv_mask, causal)
+        torch.testing.assert_close(out.float(), ref_o.float(), **tol)
+        o, lse = flash.flash_attention_lse(q, k, v, kv_mask, causal)
+        assert torch.equal(o, out)
+        seen = ref_lse > -1e20
+        torch.testing.assert_close(lse[seen], ref_lse[seen], atol=STATS_ATOL, rtol=STATS_RTOL)
+        assert torch.isfinite(lse).all()
+        partials = flash.flash_attention_partials(q, k, v, kv_mask)
+        _check_partials(partials, flash.flash_attention_partials_plain(q, k, v, kv_mask), tol)
+        got = flash.flash_attention_bwd(q, k, v, kv_mask, o, lse, do, causal)
+        want = flash.flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.shape == q.shape and g.dtype == q.dtype, name
+            torch.testing.assert_close(g.float(), w.float(), **grad_tol,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+        counts = _wide_counts()
+        assert {n: counts[n] - before[n] for n in counts} == {
+            **{n: 1 for n in WIDE_SM90_COUNTERS}, **{n: 0 for n in WIDE_COUNTERS},
+            "DQ_WIDE_LAUNCHES": 1}
+        if kv_mask is not None:  # batch row 0 has no valid key
+            acc, row_max, row_sum = partials
+            assert (out[0] == 0).all() and (acc[0] == 0).all() and (row_sum[0] == 0).all()
+            torch.testing.assert_close(row_max[0], torch.full_like(row_max[0], FILLER),
+                                       rtol=1e-6, atol=0)
+            for name, g in zip(("dq", "dk", "dv"), got):
+                assert (g[0] == 0).all(), name
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 192, 256])
 @pytest.mark.parametrize("l", [40, 1000])
 def test_wide_instances_match_plain(l, d, causal):
     """The wide instances at a short and a long ragged L: the three forward
-    modes, dK/dV, dQ and autograd against the plain versions at D (at D =
-    160 the route zero-pads to 256 and scores at D's scale)."""
+    modes, dK/dV, dQ and autograd against the plain versions at D, each
+    taken as it is, on the instance the thresholds pick (the wide Hopper
+    forward and dK/dV at both lengths, the wide dQ on mma.sync)."""
     _need_card()
     q, k, v, do, mask = _training_inputs((2, 2, l, d), torch.bfloat16, seed=l + d + causal)
     tol, grad_tol = dict(atol=ATOL, rtol=RTOL), dict(atol=GRAD_ATOL, rtol=GRAD_RTOL)
     stats = dict(atol=STATS_ATOL, rtol=STATS_RTOL)
+    counter = {"dfly_flash_fwd": "FWD", "dfly_flash_fwd_partial": "PARTIAL",
+               "dfly_flash_fwd_lse": "LSE", "dfly_flash_bwd_dkv": "DKV", "dfly_flash_bwd_dq": "DQ"}
+    one_each = {n: 0 for n in WIDE_COUNTERS + WIDE_SM90_COUNTERS}
+    for name in _wide_names(l, d, torch.bfloat16):
+        base, _, instance = name.partition("_wide")
+        one_each[f"{counter[base]}_WIDE{instance.upper()}_LAUNCHES"] = 1
     for kv_mask in (mask, None):
         before = _wide_counts()
         out = flash.flash_attention(q, k, v, kv_mask, causal)
@@ -527,7 +674,8 @@ def test_wide_instances_match_plain(l, d, causal):
             assert g.shape == q.shape and g.dtype == q.dtype, name
             torch.testing.assert_close(g.float(), w.float(), **grad_tol,
                                        msg=lambda m, name=name: f"{name}: {m}")
-        assert _wide_counts() == {name: count + 1 for name, count in before.items()}
+        counts = _wide_counts()
+        assert {n: counts[n] - before[n] for n in counts} == one_each
         if kv_mask is not None:  # batch row 0 has no valid key
             assert (out[0] == 0).all() and (acc[0] == 0).all() and (row_sum[0] == 0).all()
             torch.testing.assert_close(row_max[0], torch.full_like(row_max[0], FILLER),

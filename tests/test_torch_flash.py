@@ -169,21 +169,25 @@ def test_padded_route_is_the_same_function(d):
 
 
 def test_kernel_wrappers_refuse_a_head_dim_without_an_instance():
-    """The launch paths themselves take only the instances' head dims:
-    the public functions pad before they get there."""
-    q = torch.zeros(1, 1, 4, 24)
-    with pytest.raises(ValueError, match="no kernel instance"):
-        flash._instance_dim(q)
-    flash._instance_dim(torch.zeros(1, 1, 4, 32))
-    # on the CPU the plain versions take any D: no padding, no refusal
-    assert not flash._padded_route(q) and not flash._padded_route(torch.zeros(1, 1, 4, 160))
+    """No head dim is refused: the kernels take D in HEAD_DIMS and any D
+    above 128 with D % 8 == 0 as it is (192, 320: no pad copy), and the
+    route pads any other D to the next one a kernel takes (130 -> 136).
+    On the CPU the plain versions take any D: no padding."""
+    for d in (32, 136, 192, 256, 320, 512):
+        assert flash._kernel_dim(d) == d
+        assert not flash._padded_route(torch.zeros(1, 1, 4, d, device="meta"))
+    assert flash._kernel_dim(24) == 32 and flash._kernel_dim(130) == 136
+    assert flash._padded_route(torch.zeros(1, 1, 4, 130, device="meta"))
+    q = torch.zeros(1, 1, 4, 130)
+    assert flash._padded(q)[0].shape[-1] == 136
+    assert not flash._padded_route(q) and not flash._padded_route(torch.zeros(1, 1, 4, 24))
 
 
 # head dims above 128 (the wide instances on the card, ROADMAP C3): on the
 # CPU the plain versions, held to the reference's Pallas kernels
 # (interpret mode) and dense_attention, float32
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 192, 256, 320, 512])
 def test_head_dims_above_128_match_reference(d, causal):
     from dragonfly2_tpu.ops.flash import _flash_forward as ref_forward
     from dragonfly2_tpu.ops.flash import flash_attention_partials as ref_partials

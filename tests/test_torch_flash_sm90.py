@@ -51,7 +51,10 @@ def test_long_bf16_takes_the_hopper_instances(shape):
 
 
 def test_a_head_dim_no_kernel_takes_is_never_the_hopper_path():
-    assert not any(flash._sm90_path(l, d, torch.bfloat16) for l in (10, 4097) for d in (8, 48, 256))
+    """Head dims the kernels never see (padded first: 8, 48, 130) and wide
+    ones past the wide Hopper instances' 256 (320) take no Hopper instance."""
+    assert not any(flash._sm90_path(l, d, torch.bfloat16)
+                   for l in (10, 4097) for d in (8, 48, 130, 320))
 
 
 # ------------------------------------------------- routing, without a card
@@ -141,49 +144,94 @@ WIDE_COUNTERS = {
 }
 
 
+def test_the_wide_thresholds_follow_the_cards_readings():
+    """The wide thresholds as the card's readings set them (PERF.md): the
+    ranker's sets (L = 20) keep the wide mma.sync forward and dK/dV; at
+    L = 32 dK/dV takes its Hopper instance and the forward does not; from
+    L = 64 both do; float32 and D above 256 never."""
+    bf16 = torch.bfloat16
+    assert not flash._sm90_path(20, 192, bf16) and not flash._sm90_path(20, 192, bf16, "dkv")
+    assert not flash._sm90_path(32, 256, bf16) and flash._sm90_path(32, 256, bf16, "dkv")
+    assert flash._sm90_path(64, 192, bf16) and flash._sm90_path(1024, 256, bf16, "dkv")
+    assert not flash._sm90_path(4096, 192, torch.float32, "dkv")
+    assert not flash._sm90_path(4096, 320, bf16) and not flash._sm90_path(4096, 320, bf16, "dkv")
+
+
+WIDE_SM90_COUNTERS = {
+    "dfly_flash_fwd": "FWD_WIDE_SM90_LAUNCHES",
+    "dfly_flash_fwd_lse": "LSE_WIDE_SM90_LAUNCHES",
+    "dfly_flash_fwd_partial": "PARTIAL_WIDE_SM90_LAUNCHES",
+    "dfly_flash_bwd_dkv": "DKV_WIDE_SM90_LAUNCHES",
+}
+
+
 @pytest.mark.parametrize("entry", sorted(_CALLS))
 @pytest.mark.parametrize("shape,dtype", [((2, 4, 40, 256), torch.bfloat16),
                                          ((2, 4, 4096, 256), torch.bfloat16),
-                                         ((2, 4, 70, 256), torch.float32)])
+                                         ((2, 4, 70, 256), torch.float32),
+                                         ((256, 4, 20, 192), torch.bfloat16),
+                                         ((2, 4, 1024, 192), torch.bfloat16),
+                                         ((2, 4, 4096, 320), torch.bfloat16),
+                                         ((2, 4, 40, 512), torch.float32),
+                                         ((2, 4, 1000, 130), torch.bfloat16)])
 def test_head_dim_256_launches_the_wide_instance_at_every_length(monkeypatch, routed, entry,
                                                                  shape, dtype):
-    """D = 256 takes the wide instance whatever L and dtype (never the
-    Hopper one), counted in its total and its wide part; the entry takes
-    (B, H, L, D, causal, dtype, scale) after the pointers, no warps."""
-    for name in WIDE_COUNTERS.values():
+    """A D above 128 (256, and 192, 320, 512 alike) takes a wide instance
+    at every L and dtype, unpadded (130 padded to 136 only): the wide
+    Hopper one for the forward above WIDE_SM90_MIN_L and for dK/dV above
+    WIDE_DKV_SM90_MIN_L, in bf16 at D up to 256, else the wide mma.sync
+    one, counted in its total and its own part. The mma.sync entry
+    takes (B, H, L, D, causal, dtype, scale) after the pointers, no warps;
+    the Hopper one (B, H, L, D, causal, scale)."""
+    for name in (*WIDE_COUNTERS.values(), *WIDE_SM90_COUNTERS.values()):
         monkeypatch.setattr(flash, name, 0)
     q, mask = _meta(shape, dtype)
     _CALLS[entry](q, mask)
     (name, args), = routed.calls
-    assert name == WIDE_ENTRIES[entry]
+    b, h, l, d = shape
+    d_kernel = d + (-d) % 8  # D = 130 is zero-padded to 136, the others go as they are
+    min_l = flash.WIDE_DKV_SM90_MIN_L if entry == "dfly_flash_bwd_dkv" else flash.WIDE_SM90_MIN_L
+    hopper = entry in WIDE_SM90_COUNTERS and dtype == torch.bfloat16 and d <= 256 and l > min_l
+    assert name == WIDE_ENTRIES[entry] + ("_sm90" if hopper else "")
     total, sm90 = _COUNTERS[entry]
     assert getattr(flash, total) == 1 and getattr(flash, sm90) == 0
-    assert getattr(flash, WIDE_COUNTERS[entry]) == 1
+    assert getattr(flash, WIDE_COUNTERS[entry]) == int(not hopper)
+    if entry in WIDE_SM90_COUNTERS:
+        assert getattr(flash, WIDE_SM90_COUNTERS[entry]) == int(hopper)
     assert len(args) == len(flash._ENTRIES[name][1]) - 1
-    b, h, l, d = shape
     args, scale = args[:-1], args[-1]
     assert scale == 1 / math.sqrt(d)
-    if entry == "dfly_flash_fwd_partial":
-        assert args[-5:] == (b, h, l, d, flash._DTYPE_CODES[dtype])
+    assert args[0] is not None and len(args) == len(flash._ENTRIES[name][1]) - 2
+    if hopper:
+        dims = args[-4:] if entry == "dfly_flash_fwd_partial" else args[-5:-1]
+        assert dims == (b, h, l, d_kernel)
+    elif entry == "dfly_flash_fwd_partial":
+        assert args[-5:] == (b, h, l, d_kernel, flash._DTYPE_CODES[dtype])
     else:
-        assert args[-6:] == (b, h, l, d, 1, flash._DTYPE_CODES[dtype])
+        assert args[-6:] == (b, h, l, d_kernel, 1, flash._DTYPE_CODES[dtype])
 
 
 def test_head_dims_pad_to_the_next_instance_up_to_256():
-    """D_pad for every D up to 256, and the instances' own head dims;
-    above 256 no instance takes it."""
-    assert flash.INSTANCE_DIMS == (16, 32, 64, 128, 256)
-    for d, d_pad in ((8, 16), (24, 32), (96, 128), (129, 256), (160, 256), (192, 256)):
+    """The head dim a kernel takes for each D, from D alone: the instances'
+    own, any D above 128 with D % 8 == 0 as it is (192, 320, 512: no pad
+    copy), the next instance below 128, and the next multiple of 8 above
+    it (130 -> 136). The scale is always the unpadded D's."""
+    assert flash.HEAD_DIMS == (16, 32, 64, 128)
+    for d in (16, 32, 64, 128, 136, 192, 200, 256, 320, 512):
+        assert flash._kernel_dim(d) == d
+        assert not flash._padded_route(torch.zeros(1, 1, 4, d, device="meta"))
+    for d, d_pad in ((8, 16), (24, 32), (96, 128), (129, 136), (130, 136), (250, 256),
+                     (321, 328)):
+        assert flash._kernel_dim(d) == d_pad
+        assert flash._padded_route(torch.zeros(1, 1, 4, d, device="meta"))
         q = torch.ones(1, 1, 4, d)
+        assert not flash._padded_route(q)  # the CPU takes the plain versions at any D
         qp, kp, vp = flash._padded(q, q, q)
         assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == d_pad
         assert torch.equal(qp[..., :d], q) and not qp[..., d:].any()
         assert flash._scale(q) == 1 / math.sqrt(d)  # the kernels score at the unpadded D
-    assert flash._instance_dim(torch.zeros(1, 1, 4, 256)) is True
-    assert flash._instance_dim(torch.zeros(1, 1, 4, 128)) is False
-    for d in (160, 320):
-        with pytest.raises(ValueError, match="no kernel instance"):
-            flash._instance_dim(torch.zeros(1, 1, 4, d))
+    assert flash._is_wide(136) and flash._is_wide(320) and not flash._is_wide(128)
+
 
 def test_cpu_tensors_take_the_plain_versions_at_long_l(monkeypatch):
     """The Hopper path is a CUDA path: a CPU tensor at a long bf16 shape
