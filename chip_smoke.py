@@ -71,17 +71,20 @@ result line:
    device time and launches), the mirror sync's time,
    schedule_from_packed at 1024 x 15 and 1024 x 64, and the whole tick at
    bench_loop's 64 waiting peers and at 1,024.
-9. the wide instances (slices 7-8, ROADMAP C3): every entry at head dims
+9. the wide instances (slices 7-9, ROADMAP C3): every entry at head dims
    above 128, each taken as it is, against the plain version of what it
    computes at D = 160, 192, 256, 320 and 512, L = 40 and 2048, causal and
    not, float32 too at D = 320 and 512; the wide mma.sync instances at
-   every D, the wide Hopper ones (TMA + wgmma: the forward in its three
-   modes and dK/dV) for bf16 at D up to 256 above WIDE_SM90_MIN_L, and
-   forced at the wide ranker's batch. Each instance timed at its main
-   path's shape (its device time beside the other instance's) and each
-   wide mma.sync one at D = 320. Then their main paths: the ranker at
-   hidden 768 with 4 heads (head dim 192) trained for an epoch on phase
-   5's trace; the ring over its eval batch on a 1 x 2 mesh; the ring over
+   every D (the forward's one-pass kernel above 256), the wide Hopper ones
+   (TMA + wgmma: the forward in its three modes, dK/dV and dQ) for bf16 at
+   D up to 256 above their thresholds, and forced at the wide ranker's
+   batch; that batch is checked at D = 320 too. Each instance timed at its
+   main path's shape (its device time beside the other instance's, the
+   forward's rows held to the plain version there) and each wide mma.sync
+   one at D = 320. Then their main paths: the ranker at hidden 768 with 4
+   heads (head dim 192) trained for an epoch on phase 5's trace, and at
+   hidden 1280 (head dim 320); the ring over its eval batch on a 1 x 2
+   mesh; the ring over
    [2, 4, 4096, 192] on a 1 x 4 mesh; Ulysses over [2, 16, 4096, 192] on a
    1 x 4 mesh, without grad and with.
 10. the scheduler service (slice 7): SchedulerService on the card driven
@@ -114,9 +117,9 @@ not find fails the run.
 
 instead times both instances of the forward, of dK/dV and of dQ at
 L = 16 .. 512 (device time), the readings ops/flash.py's SM90_MIN_L is set
-from, and both wide instances of the forward with lse and of dK/dV at
-D = 192 and 256 over L = 16 .. 2048 (WIDE_SM90_MIN_L's readings), and
-prints no result line.
+from, and both wide instances of the forward with lse, of dK/dV and of dQ
+at D = 192 and 256 over L = 16 .. 2048 (the WIDE_*SM90_MIN_L readings),
+and prints no result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -125,6 +128,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import collections
 import contextlib
 import json
 import os
@@ -254,8 +258,9 @@ _WINDOWS = {"taken": 0, "short": 0, "over": 0, "uneven": 0}
 
 
 def _kernel_ms(fn, symbol: str, calls: int = KERNEL_CALLS, windows: int = 6):
-    """(device ms of one launch, launches recorded) of the kernel named
-    ``symbol`` under ``fn``, which launches it once a call (torch.profiler):
+    """(device ms of one launch, launches recorded, the names matched) of
+    the kernel whose name holds ``symbol`` under ``fn``, which launches it
+    once a call (torch.profiler):
     the kernel's own execution, where ``_time_ms`` at a small shape
     measures the back-to-back call rate of its wrapper. A window may record
     fewer of the kernel's launches than were made (on the H100 machine,
@@ -264,7 +269,7 @@ def _kernel_ms(fn, symbol: str, calls: int = KERNEL_CALLS, windows: int = 6):
     to ``windows`` times (on that machine three windows in a row once
     recorded none of a kernel, in a run whose other windows all found
     theirs);
-    (None, 0) if none did."""
+    (None, 0, []) if none did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -275,8 +280,9 @@ def _kernel_ms(fn, symbol: str, calls: int = KERNEL_CALLS, windows: int = 6):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sorted(e.time_range.elapsed_us() for e in prof.events()
-                    if symbol in e.name and e.device_type == torch.autograd.DeviceType.CUDA)
+        matched = [e for e in prof.events()
+                   if symbol in e.name and e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sorted(e.time_range.elapsed_us() for e in matched)
         _WINDOWS["taken"] += 1
         _WINDOWS["short"] += len(us) < calls
         _WINDOWS["over"] += len(us) > calls
@@ -288,16 +294,19 @@ def _kernel_ms(fn, symbol: str, calls: int = KERNEL_CALLS, windows: int = 6):
                 print(f"profiler window for {symbol}: {len(us)} of {calls} launches recorded, "
                       f"median {median:.1f} us, mean {mean:.1f} us, range "
                       f"{us[0]:.1f}-{us[-1]:.1f} us")
-            return median / 1e3, len(us)
+            found = re.compile(r"\w*" + re.escape(symbol) + r"\w*")
+            names = sorted({found.search(e.name).group(0) for e in matched})
+            return median / 1e3, len(us), names
         print(f"profiler window for {symbol}: none of {calls} launches recorded; taking another")
         time.sleep(0.5)
-    return None, 0
+    return None, 0, []
 
 
 def _timed(fn, symbol: str, prefix: str = "kernel") -> dict:
-    """_kernel_ms as a row's ``{prefix}_ms`` and ``{prefix}_recorded``."""
-    ms, recorded = _kernel_ms(fn, symbol)
-    return {f"{prefix}_ms": ms, f"{prefix}_recorded": recorded}
+    """_kernel_ms as a row's ``{prefix}_ms``, ``{prefix}_recorded`` and
+    ``{prefix}_names``."""
+    ms, recorded, names = _kernel_ms(fn, symbol)
+    return {f"{prefix}_ms": ms, f"{prefix}_recorded": recorded, f"{prefix}_names": names}
 
 
 def phase_device():
@@ -1575,9 +1584,9 @@ def phase_threshold():
     """Both instances of the forward, of dK/dV and of dQ at L = 16 .. 512
     (device time, each forced through the wrappers): where the Hopper
     instances overtake the mma.sync ones, the readings SM90_MIN_L is set
-    from; then both wide instances of the forward and of dK/dV at D = 192
-    and 256, L = 16 .. 2048 (the wide dQ has one instance), the readings
-    WIDE_SM90_MIN_L is set from. Run with --threshold, not in the smoke
+    from; then both wide instances of the forward, of dK/dV and of dQ at
+    D = 192 and 256, L = 16 .. 2048, the readings the WIDE_*SM90_MIN_L
+    thresholds are set from. Run with --threshold, not in the smoke
     run."""
     import torch
 
@@ -1613,7 +1622,6 @@ def phase_threshold():
             b, h = max(2, WIDE_THRESHOLD_TOKENS // l), 4
             q, k, v, mask = _attention_inputs(gen, b, h, l, d, torch.bfloat16, False)
             do = torch.randn(b, h, l, d, generator=gen, device="cuda").to(torch.bfloat16)
-            picks = _wide_instance("flash_fwd", l, d, torch.bfloat16)
             o, lse = flash.flash_attention_lse(q, k, v, mask)
             delta = (do.float() * o.float()).sum(-1)
             row = {}
@@ -1627,10 +1635,17 @@ def phase_threshold():
                         lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do),
                         _WIDE_SYMBOLS["flash_bwd_dkv_wide" + ("_sm90" if sm90 else "")],
                         f"dkv_{instance}"))
+                    row.update(_timed(
+                        lambda: flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do),
+                        _WIDE_SYMBOLS["flash_bwd_dq_wide" + ("_sm90" if sm90 else "")],
+                        f"dq_{instance}"))
+            picks = ", ".join(_wide_instance(fn, l, d, torch.bfloat16).removeprefix("flash_")
+                              for fn in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
             print(f"threshold wide [{b}, {h}, {l}, {d}] bf16 device ms: forward with lse sm90 "
                   f"{_fmt(row, 'fwd_sm90')} vs mma.sync {_fmt(row, 'fwd_mma_sync')}; dK/dV sm90 "
-                  f"{_fmt(row, 'dkv_sm90')} vs mma.sync {_fmt(row, 'dkv_mma_sync')} (ops/flash.py "
-                  f"picks {picks.removeprefix('flash_fwd_')})")
+                  f"{_fmt(row, 'dkv_sm90')} vs mma.sync {_fmt(row, 'dkv_mma_sync')}; dQ sm90 "
+                  f"{_fmt(row, 'dq_sm90')} vs mma.sync {_fmt(row, 'dq_mma_sync')} (ops/flash.py "
+                  f"picks {picks})")
 
 
 def phase_long_ulysses():
@@ -1710,11 +1725,12 @@ def phase_long_ulysses():
 
 
 
-# slices 7-8 (C3): the wide instances, head dims above 128, each taken as
+# slices 7-9 (C3): the wide instances, head dims above 128, each taken as
 # it is (no pad copy; 130 -> 136 is the only padding left above 128).
-# Checked at D = 160, 192 and 256 (the wide Hopper instances of the forward
-# and dK/dV at long L, bf16) and 320 and 512 (above 256: the wide mma.sync
-# instances split D into 256-column chunks), short and long L, causal and
+# Checked at D = 160, 192 and 256 (the wide Hopper instances of the forward,
+# dK/dV and dQ at long L, bf16) and 320 and 512 (above 256: the wide
+# mma.sync instances, the forward's one-pass kernel and the backward's
+# 256-column chunks), short and long L, causal and
 # not, in bf16 and, at D = 320 and 512, float32; and at the wide ranker's
 # own training batch with its key mask. The main paths: the ranker at hidden
 # 768 with its 4 heads (D = 192) trained for an epoch (the mma.sync wide
@@ -1722,8 +1738,8 @@ def phase_long_ulysses():
 # ring over its eval batch on a 1 x 2 mesh (10 keys a shard: the mma.sync
 # wide partials); the ring at WIDE_RING_SHAPE on a 1 x 4 mesh (the wide
 # Hopper partials); and Ulysses over WIDE_ULYSSES_SHAPE on a 1 x 4 mesh (the
-# wide Hopper forward, forward with lse and dK/dV, and the wide dQ). The
-# kernels line's rows are timed at the shapes those runs give each kernel.
+# wide Hopper forward, forward with lse, dK/dV and dQ). The kernels line's
+# rows are timed at the shapes those runs give each kernel.
 WIDE_CHECK_DIMS, WIDE_CHECK_LENGTHS = (160, 192, 256, 320, 512), (40, 2048)
 WIDE_FLOAT32_DIMS = (320, 512)  # float32 at L = 40
 WIDE_C3_DIM = 320  # each wide mma.sync instance also timed at this D
@@ -1736,7 +1752,7 @@ WIDE_EVAL_RING_SP = 2
 WIDE_ULYSSES_SHAPE, WIDE_ULYSSES_SP = (2, 16, 4096, WIDE_HEAD_DIM), 4
 WIDE_REPLAY_STEPS = 2  # a step at hidden 768 takes seconds on the CPU
 # each wide instance -> its ops/flash.py counter: the mma.sync instances
-# ("_wide"), then the Hopper ones ("_wide_sm90"; the wide dQ has none)
+# ("_wide"), then the Hopper ones ("_wide_sm90")
 _WIDE_COUNTERS = {
     "flash_fwd_wide": "FWD_WIDE_LAUNCHES",
     "flash_fwd_lse_wide": "LSE_WIDE_LAUNCHES",
@@ -1747,17 +1763,22 @@ _WIDE_COUNTERS = {
     "flash_fwd_lse_wide_sm90": "LSE_WIDE_SM90_LAUNCHES",
     "flash_fwd_partial_wide_sm90": "PARTIAL_WIDE_SM90_LAUNCHES",
     "flash_bwd_dkv_wide_sm90": "DKV_WIDE_SM90_LAUNCHES",
+    "flash_bwd_dq_wide_sm90": "DQ_WIDE_SM90_LAUNCHES",
 }
-# profiler names of the wide instances' kernels
+# profiler names of the wide instances' kernels; "flash_fwd_wide" names
+# both kernels of the wide mma.sync forward (the one-pass one its C side
+# picks for D in (256, 512], the chunked one otherwise): a row prints the
+# name the profiler found
 _WIDE_SYMBOLS = {
-    "flash_fwd_wide": "flash_fwd_wide_kernel", "flash_fwd_lse_wide": "flash_fwd_wide_kernel",
-    "flash_fwd_partial_wide": "flash_fwd_wide_kernel",
+    "flash_fwd_wide": "flash_fwd_wide", "flash_fwd_lse_wide": "flash_fwd_wide",
+    "flash_fwd_partial_wide": "flash_fwd_wide",
     "flash_bwd_dkv_wide": "flash_bwd_dkv_wide_kernel",
     "flash_bwd_dq_wide": "flash_bwd_dq_wide_kernel",
     "flash_fwd_wide_sm90": "flash_fwd_sm90_kernel",
     "flash_fwd_lse_wide_sm90": "flash_fwd_sm90_kernel",
     "flash_fwd_partial_wide_sm90": "flash_fwd_sm90_kernel",
     "flash_bwd_dkv_wide_sm90": "flash_bwd_dkv_wide_sm90_kernel",
+    "flash_bwd_dq_wide_sm90": "flash_bwd_dq_wide_sm90_kernel",
 }
 
 
@@ -1780,9 +1801,8 @@ def _wide_instance(function: str, l: int, d: int, dtype) -> str:
     at a wide (L, D, dtype)."""
     from dragonfly2_tpu_torch.ops import flash
 
-    kernel = "dkv" if function == "flash_bwd_dkv" else "fwd"
-    hopper = function != "flash_bwd_dq" and flash._sm90_path(l, d, dtype, kernel)
-    return function + ("_wide_sm90" if hopper else "_wide")
+    kernel = {"flash_bwd_dkv": "dkv", "flash_bwd_dq": "dq"}.get(function, "fwd")
+    return function + ("_wide_sm90" if flash._sm90_path(l, d, dtype, kernel) else "_wide")
 
 
 def _wide_config(hidden: int = WIDE_HIDDEN):
@@ -1804,7 +1824,7 @@ def _ranker_masks(ds):
 def _check_wide_case(gen, b, l, d, causal, dtype, given, worst):
     """Every entry at one wide shape against the plain version of what it
     computes, each launch counted on the instance ops/flash.py picks; the
-    errors folded into ``worst``, keyed by instance."""
+    errors folded into ``worst``, keyed by (instance, D, dtype)."""
     import torch
 
     from dragonfly2_tpu_torch.ops import flash
@@ -1869,7 +1889,7 @@ def _check_wide_case(gen, b, l, d, causal, dtype, given, worst):
         if dead.any() and g[dead].abs().max().item() != 0.0:
             _fail(f"wide backward {label} {name}: fully masked rows are not 0")
     for name, err in errs.items():
-        worst[name] = max(worst[name], err)
+        worst[name, d, dtype] = max(worst[name, d, dtype], err)
     print(f"wide {label}: max_abs_err " + ", ".join(
         f"{name} {err:.3g}" for name, err in errs.items())
         + f" (outputs atol {atol} rtol {rtol}, gradients atol {g_atol} rtol {g_rtol})")
@@ -1879,12 +1899,16 @@ def phase_wide_kernels(ds):
     """Every wide instance against the plain version at the call's own D:
     at each checked D, L and causal flag with a mask holding fully masked
     batch rows, float32 above 256, and at the wide ranker's first training
-    batch with its own key mask (on the instances ops/flash.py picks there,
-    and on the wide Hopper ones forced); then each instance's row at the
-    shape its main path gives it (wrapper ms, device ms beside the other
-    instance's, the plain version's ms, a library call's where there is
-    one, and the bound), and each wide mma.sync instance's at D =
-    WIDE_C3_DIM. Returns {kernel: {shape key: row}}."""
+    batch with its own key mask at D = 192 (on the instances ops/flash.py
+    picks there, and on the wide Hopper ones forced) and at D =
+    WIDE_C3_DIM; then each instance's row at the shape its main path gives
+    it (wrapper ms, device ms beside the other instance's, the plain
+    version's ms, a library call's where there is one, and the bound), and
+    each wide mma.sync instance's at D = WIDE_C3_DIM, each forward row's
+    outputs held to the plain version's at that shape. A row's max_abs_err
+    is its instance's worst at its own D and dtype: the C entries pick
+    their kernel from those alone, so that is the kernel the row times.
+    Returns {kernel: {shape key: row}}."""
     import torch
     import torch.nn.functional as F
 
@@ -1892,7 +1916,7 @@ def phase_wide_kernels(ds):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     train_mask, eval_mask = _ranker_masks(ds)
-    worst = {name: 0.0 for name in _WIDE_COUNTERS}
+    worst = collections.defaultdict(float)  # (instance, D, dtype) -> max abs error
     for d in WIDE_CHECK_DIMS:
         for l in WIDE_CHECK_LENGTHS:
             for causal in (False, True):
@@ -1903,6 +1927,10 @@ def phase_wide_kernels(ds):
     _check_wide_case(gen, *ranker, train_mask, worst)
     with _instance(sm90=True):  # the wide Hopper instances at the ranker's own batch
         _check_wide_case(gen, *ranker, train_mask, worst)
+    # the same batch at the hidden-WIDE_C3_HIDDEN ranker's head dim (the
+    # forward's one-pass kernel, the wide mma.sync backward)
+    _check_wide_case(gen, train_mask.shape[0], train_mask.shape[1], WIDE_C3_DIM, False,
+                     torch.bfloat16, train_mask, worst)
 
     iters = 10
     results = {name: {} for name in _WIDE_COUNTERS}
@@ -1913,16 +1941,18 @@ def phase_wide_kernels(ds):
         time through the same call, and keep the row."""
         b, h, l, d = q.shape
         name = _wide_instance(function, l, d, q.dtype)
+        if (name, d, q.dtype) not in worst:
+            _fail(f"kernel {name} was not checked at D = {d} in {q.dtype}")
         bound_ms, bound_by = bound
         r = dict(shape=list(q.shape), causal=False, dtype="bfloat16",
                  variant="wide sm90" if name.endswith("_sm90") else "wide mma.sync",
-                 max_abs_err=worst[name], ms=_time_ms(call, iters),
+                 max_abs_err=worst[name, d, q.dtype], ms=_time_ms(call, iters),
                  **_timed(call, _WIDE_SYMBOLS[name]), mma_sync_kernel_ms=None,
                  plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         if r["kernel_ms"] is None:
             _fail(f"kernel {name} {list(q.shape)}: the profiler found no device time")
         other = ""
-        if function != "flash_bwd_dq" and d <= flash.WIDE_SM90_MAX_DIM:
+        if d <= flash.WIDE_SM90_MAX_DIM:
             hopper = not name.endswith("_sm90")
             other_name = function + ("_wide_sm90" if hopper else "_wide")
             with _instance(sm90=hopper):
@@ -1931,15 +1961,33 @@ def phase_wide_kernels(ds):
             other = f"; {other_name} forced {_fmt(r, 'other_kernel')}"
         results[name][key] = r
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"kernel {name} {list(q.shape)} bf16 ({key}): max_abs_err {worst[name]:.3g} over "
-              f"the checked shapes; ms {r['ms']:.4f} (kernel {_fmt(r)}{other}) plain_ms "
+        print(f"kernel {name} {list(q.shape)} bf16 ({key}): max_abs_err "
+              f"{worst[name, d, q.dtype]:.3g} over the checked bf16 shapes at D = {d}; ms "
+              f"{r['ms']:.4f} (kernel "
+              f"{', '.join(r['kernel_names'])} {_fmt(r)}{other}) plain_ms "
               f"{plain_ms:.4f} library_ms {lib} bound_ms {bound_ms:.4f} ({bound_by})")
 
     def inputs(b, l, d, mask=None, h=4):
         q, k, v, m = _attention_inputs(gen, b, h, l, d, torch.bfloat16, False)
         return q, k, v, (m if mask is None else mask)
 
+    def tolerance(q):
+        return (LONG_ATOL, LONG_RTOL) if q.shape[2] > 1000 else (KERNEL_ATOL, KERNEL_RTOL)
+
     def forward_row(key, q, k, v, mask):
+        """The finished forward at this shape, held to the plain version,
+        then its row."""
+        name, d = _wide_instance("flash_fwd", q.shape[2], q.shape[3], q.dtype), q.shape[3]
+        got = flash.flash_attention(q, k, v, mask).float()
+        want = flash.flash_attention_plain(q, k, v, mask).float()
+        atol, rtol = tolerance(q)
+        err = float((got - want).abs().max().item())
+        if not torch.allclose(got, want, atol=atol, rtol=rtol):
+            _fail(f"wide forward {key} {list(q.shape)}: max_abs_err {err} "
+                  f"(atol {atol} rtol {rtol})")
+        worst[name, d, q.dtype] = max(worst[name, d, q.dtype], err)
+        print(f"wide forward {key} {list(q.shape)} bf16 vs the plain version: max_abs_err "
+              f"{err:.3g} (atol {atol} rtol {rtol})")
         sdpa_mask = mask[:, None, None, :]
         row("flash_fwd", key, q, lambda: flash.flash_attention(q, k, v, mask),
             _time_ms(lambda: flash.flash_attention_plain(q, k, v, mask), 3),
@@ -1973,6 +2021,18 @@ def phase_wide_kernels(ds):
                 _bound(q, mask, False, matrices=5, row_stats=2, ops_per_pair=6))
 
     def partial_row(key, q, k, v, mask):
+        """The partials at this shape, held to the plain version's, then
+        their row."""
+        name, d = _wide_instance("flash_fwd_partial", q.shape[2], q.shape[3], q.dtype), q.shape[3]
+        errs, ok = _partial_errors(flash.flash_attention_partials(q, k, v, mask),
+                                   flash.flash_attention_partials_plain(q, k, v, mask),
+                                   *tolerance(q))
+        if not ok:
+            _fail(f"wide partials {key} {list(q.shape)}: errors {errs}")
+        print(f"wide partials {key} {list(q.shape)} bf16 vs the plain version: max_abs_err "
+              + ", ".join(f"{part} {err:.3g}" for part, err in errs.items()))
+        worst[name, d, q.dtype] = max(worst[name, d, q.dtype], errs["acc_over_row_sum"],
+                                      errs["row_max"], errs["row_sum"])
         row("flash_fwd_partial", key, q, lambda: flash.flash_attention_partials(q, k, v, mask),
             _time_ms(lambda: flash.flash_attention_partials_plain(q, k, v, mask), 3),
             _library_fwd_lse_ms(q, k, v, mask, False, iters),
@@ -2008,7 +2068,8 @@ def phase_wide_path(ds):
     whose steps run the forward with lse, dK/dV and dQ and whose eval runs
     the finished forward, its first steps replayed on the CPU's plain
     versions from the same weights and batches; the same at hidden
-    WIDE_C3_HIDDEN (head dim 320, above 256: the wide mma.sync instances),
+    WIDE_C3_HIDDEN (head dim 320, above 256: the wide mma.sync instances,
+    the forward's one-pass kernel),
     its losses finite; the ring over its eval
     batch (the finished forward's shape) on a 1 x WIDE_EVAL_RING_SP mesh,
     whose blocks run the mma.sync wide partials; the ring at
@@ -2016,7 +2077,7 @@ def phase_wide_path(ds):
     Hopper partials, against flash_attention on the whole sequence and the
     dense oracle on sampled query rows; and Ulysses over WIDE_ULYSSES_SHAPE
     on a 1 x WIDE_ULYSSES_SP mesh, without grad (the wide Hopper forward)
-    and with (the wide Hopper forward with lse and dK/dV, the wide dQ),
+    and with (the wide Hopper forward with lse, dK/dV and dQ),
     against the plain versions over the whole sequence. Counters are zeroed
     just before each run and read just after. Returns the wide launches of
     all five runs."""
@@ -2855,8 +2916,9 @@ def phase_scheduler_service(card: str):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--threshold", action="store_true",
-                        help="time both instances at L = 16 .. 512, and both wide ones at "
-                             "D = 192 and 256 over L = 16 .. 2048, instead of the smoke run")
+                        help="time both instances at L = 16 .. 512, and both wide ones of the "
+                             "forward, dK/dV and dQ at D = 192 and 256 over L = 16 .. 2048, "
+                             "instead of the smoke run")
     args = parser.parse_args()
     try:
         import torch
@@ -2970,6 +3032,9 @@ def main() -> None:
               "ring-block"),
         entry("flash_bwd_dkv_wide_sm90", dkv_sm90_src, "dragonfly2_tpu/ops/flash.py:418",
               wide_launches["flash_bwd_dkv_wide_sm90"], wide["flash_bwd_dkv_wide_sm90"],
+              "ulysses-shard"),
+        entry("flash_bwd_dq_wide_sm90", dq_sm90_src, "dragonfly2_tpu/ops/flash.py:474",
+              wide_launches["flash_bwd_dq_wide_sm90"], wide["flash_bwd_dq_wide_sm90"],
               "ulysses-shard"),
     ]}
     if not all(row["launches"] > 0 for row in line["kernels"]):

@@ -20,7 +20,8 @@
 //   -inf - -inf. No causal variant, as in the reference.
 // The mode is a template parameter, so the finished-output instances carry
 // no branch. Head dims: 16, 32, 64, 128, and in the wide instance (end of
-// file) any D with D % 8 == 0, taken above 128.
+// file) any D with D % 8 == 0, taken above 128: its one-pass kernel for D
+// in (256, 512], its chunked kernel at the others.
 //
 // What bounds it on an H100: at the served shape, [1024, 4, 15, 32] bf16,
 // q, k, v and o are 3.9 MB each, 15.7 MB together, which the card moves in
@@ -408,9 +409,11 @@ int by_dtype(const void* q, const void* k, const void* v, const void* mask, void
 // blockIdx.y picks the block's chunk of output columns, c0 = 256
 // blockIdx.y; the scores of a key tile sum over every depth chunk of D. For
 // D <= 256 there is one chunk and Q stays in shared memory for the block's
-// life; above 256 each depth chunk of Q and K is staged in turn, and each
-// output chunk's block recomputes the scores (the repair of head dims above
-// 256: right, not fast; ops/flash.py sends them nowhere else).
+// life. D in (256, 512] takes the one-pass instance below
+// (flash_fwd_wide_onepass_kernel), which scores each key tile once; above
+// 512 this kernel's chunked route stays: each depth chunk of Q and K is
+// staged in turn, and each output chunk's block recomputes the scores
+// (right, not fast; no main path reaches it).
 //
 // At D = 256 a warp cannot keep 16 rows of O in float32 registers (128 a
 // thread) beside its Q fragments and a score tile, and Q with 32-key K/V
@@ -683,6 +686,345 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
+// ---- the one-pass wide instance: head dims in (256, ONEPASS_MAX_DIM]
+//
+// flash_fwd_wide_kernel above 256 split D into 256-column output chunks
+// along blockIdx.y, each chunk's block recomputing every score over the
+// whole depth and restaging Q per depth chunk, with three of the second
+// chunk's four column warps idle at D = 320. This instance gives one block
+// every output column of its 32 query rows: its warps are WIDE_RG row
+// groups of 16 rows times CW = ceil(D / 64) column warps of 64 columns (CW =
+// 5 at D = 320, 8 at 512; a template parameter, so a warp's O is 32 float32
+// registers at every D), and per 32-key tile
+// 1. the first eight warps compute the tile's 8 (16-row x 8-key) score
+//    tiles over the whole depth, once, Q and K fragments read from shared
+//    memory, and write them, scaled into the log2 domain and masked to
+//    -inf, into a shared score tile;
+// 2. after a barrier every warp of row group rg takes the same online
+//    softmax step from the group's scores (the same arithmetic in the same
+//    order: the CW copies of a row's max and sum agree bit for bit) and
+//    accumulates P V into its own 64 columns, skipping 8-column tiles past
+//    D (only at a D that is not a multiple of 64).
+// Q is staged once. bf16 rows are staged by cp.async (16 bytes a copy, rows
+// past L and the columns from D to the next multiple of 16 zero-filled), and
+// the next key tile's K, V and key flags are in flight while the current
+// tile computes: two stages of K and V. float32 rows are rounded to bf16 on
+// the way in, synchronously. Shared memory: Q, two stages of K and V (32
+// rows of CW * 64 + 8 bf16 each) and the score tile: 107 KB at D = 320, two
+// blocks an SM (at most 102 registers a thread); 167 KB at D = 512, one.
+// Bound on an H100: the hidden-1280 ranker's eval, [4000, 4, 20, 320] bf16,
+// moves q, k, v and o, 819 MB (245 us at 3.35 TB/s), for 4.2 GFLOP: bound by
+// bytes, so the cp.async staging keeps a block's whole Q, K and V in flight
+// at once, and a second block an SM computes while the first loads. At a
+// ring block, [2, 4, 1024, 320], the products (10.7 GFLOP, 11 us) bound it.
+// Numerics as the chunked instance's: bf16 operands, float32 statistics
+// and accumulators, P rounded to bf16 for P V, exp2 in the log2 domain, a
+// row with no valid key giving 0 and the same lse filler, every output
+// element summed by one thread in key order. Above ONEPASS_MAX_DIM, where O
+// would need more column warps than a block holds next to its tiles,
+// flash_fwd_wide_kernel's chunked route stays (no main path reaches it).
+
+constexpr int ONEPASS_MAX_DIM = 512;
+constexpr int ONEPASS_BN = 32;                          // keys per tile
+constexpr int ONEPASS_SCORE_WARPS = WIDE_RG * ONEPASS_BN / 8;  // 16 x 8 score tiles of a key tile
+constexpr int ONEPASS_LDSS = ONEPASS_BN + 4;           // score tile row stride (floats)
+
+template <int CW>
+struct Onepass {
+  static constexpr int WARPS = WIDE_RG * CW;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int LDS = CW * 64 + 8;      // shared row stride (bf16)
+  static constexpr int TILE = ONEPASS_BN * LDS;  // one K or V stage
+  static constexpr size_t SMEM =
+      static_cast<size_t>(WIDE_BM * LDS + 4 * TILE) * sizeof(__nv_bfloat16) +
+      static_cast<size_t>(WIDE_BM * ONEPASS_LDSS + 2 * ONEPASS_BN) * sizeof(float);
+  // two blocks an SM where their shared memory fits (D up to 320)
+  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
+  static_assert(WARPS >= ONEPASS_SCORE_WARPS, "a warp for every score tile");
+  static_assert(SMEM <= 232448, "a block's shared memory on sm_90");
+};
+
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows r0 .. r0 + rows - 1 of a contiguous [L, D] matrix into shared rows
+// of LDS bf16, columns 0 .. 16 ceil(D / 16) - 1: rows past L and the columns
+// from D on are 0. bf16 by cp.async (the caller commits and waits), float32
+// rounded to bf16 on the way in.
+template <typename T, int THREADS, int LDS>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int r0, int rows, int L,
+                                           int D, __nv_bfloat16* dst, int tid) {
+  const int chunks = (D + 15) / 16 * 2;
+  for (int i = tid; i < rows * chunks; i += THREADS) {
+    const int r = i / chunks;
+    const int c = (i - r * chunks) * 8;
+    const int row = r0 + r;
+    const bool in = row < L && c < D;
+    const T* from = src + (in ? static_cast<size_t>(row) * D + c : 0);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      cp_async16(dst + r * LDS + c, from, in);
+    } else if (in) {
+      load8(from, dst + r * LDS + c);
+    } else {
+      zero8(dst + r * LDS + c);
+    }
+  }
+}
+
+// key tile n0's K, V and key flags (key < L and its mask byte) into a stage
+template <typename T, int CW>
+__device__ __forceinline__ void stage_key_tile(const T* __restrict__ kh, const T* __restrict__ vh,
+                                               const uint8_t* __restrict__ mb, int n0, int L,
+                                               int D, __nv_bfloat16* sK, __nv_bfloat16* sV,
+                                               float* valid, int tid) {
+  using C = Onepass<CW>;
+  stage_rows<T, C::THREADS, C::LDS>(kh, n0, ONEPASS_BN, L, D, sK, tid);
+  stage_rows<T, C::THREADS, C::LDS>(vh, n0, ONEPASS_BN, L, D, sV, tid);
+  for (int i = tid; i < ONEPASS_BN; i += C::THREADS) {
+    const int key = n0 + i;
+    valid[i] = (key < L && (mb == nullptr || mb[key] != 0)) ? 1.f : 0.f;
+  }
+  cp_async_commit();
+}
+
+template <typename T, int MODE, int CW>
+__global__ void __launch_bounds__(Onepass<CW>::THREADS, Onepass<CW>::MIN_BLOCKS)
+flash_fwd_wide_onepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                              out_t<T, MODE>* __restrict__ o, float* __restrict__ stat0,
+                              float* __restrict__ stat1, int H, int L, int D, int num_qblocks,
+                              int causal, float scale_log2) {
+  using C = Onepass<CW>;
+  constexpr int LDS = C::LDS;
+  constexpr int NT = ONEPASS_BN / 8;  // 8-key tiles of the score tile
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = sQ + WIDE_BM * LDS;  // stage s at sK + s * TILE
+  __nv_bfloat16* sV = sK + 2 * C::TILE;
+  float* sS = reinterpret_cast<float*>(sV + 2 * C::TILE);
+  float* sValid = sS + WIDE_BM * ONEPASS_LDSS;  // stage s at sValid + s * ONEPASS_BN
+
+  const int qb = blockIdx.x % num_qblocks;
+  const int bh = blockIdx.x / num_qblocks;
+  const int b = bh / H;
+  const size_t head = static_cast<size_t>(bh) * L * D;
+  const T* kh = k + head;
+  const T* vh = v + head;
+  out_t<T, MODE>* oh = o + head;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(b) * L : nullptr;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rg = warp / CW;  // step 2: the warp's row group and its 64 columns
+  const int cw = warp % CW;
+  const int q0 = qb * WIDE_BM;
+  const int row_lo = q0 + rg * 16 + g;
+  const int row_hi = row_lo + 8;
+  const int col0 = cw * 64;
+  const int kk_end = (D + 15) / 16;  // depth steps; the columns from D on are 0
+  const int kv_end = causal ? min(L, q0 + WIDE_BM) : L;
+  const int n_tiles = (kv_end + ONEPASS_BN - 1) / ONEPASS_BN;
+
+  stage_rows<T, C::THREADS, LDS>(q + head, q0, WIDE_BM, L, D, sQ, tid);
+  stage_key_tile<T, CW>(kh, vh, mb, 0, L, D, sK, sV, sValid, tid);  // commits Q with it
+
+  float acc[8][4];
+#pragma unroll
+  for (int dn = 0; dn < 8; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+  float m_row[2] = {NEG_BIG, NEG_BIG};
+  float l_row[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    const int n0 = j * ONEPASS_BN;
+    cp_async_wait_all();
+    __syncthreads();  // tile j (and Q) arrived; every warp is done with tile j-1
+    if (j + 1 < n_tiles) {  // the next tile into the other stage, in flight meanwhile
+      stage_key_tile<T, CW>(kh, vh, mb, n0 + ONEPASS_BN, L, D, sK + (st ^ 1) * C::TILE,
+                            sV + (st ^ 1) * C::TILE, sValid + (st ^ 1) * ONEPASS_BN, tid);
+    }
+    const __nv_bfloat16* kt = sK + st * C::TILE;
+    const __nv_bfloat16* vt = sV + st * C::TILE;
+    const float* valid = sValid + st * ONEPASS_BN;
+
+    // 1. the tile's scores, once: warp w < 8 takes rows 16 (w / 4).. against
+    // keys 8 (w % 4).. over the whole depth
+    if (warp < ONEPASS_SCORE_WARPS) {
+      const int srow = (warp >> 2) * 16;
+      const int skey = (warp & 3) * 8;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int kk = 0; kk < kk_end; ++kk) {
+        const __nv_bfloat16* qa = sQ + (srow + g) * LDS + kk * 16 + 2 * t;
+        const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LDS), ld32(qa + 8), ld32(qa + 8 * LDS + 8)};
+        const __nv_bfloat16* kb = kt + (skey + g) * LDS + kk * 16 + 2 * t;
+        mma_bf16(s, a, ld32(kb), ld32(kb + 8));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = skey + 2 * t + (e & 1);
+        const int r = srow + g + 8 * (e >> 1);
+        const bool ok = valid[kl] > 0.f && (!causal || n0 + kl <= q0 + r);
+        // -inf: exp2 of a masked score is 0 even while the row's max is NEG_BIG
+        sS[r * ONEPASS_LDSS + kl] = ok ? s[e] * scale_log2 : neg_inf();
+      }
+    }
+    __syncthreads();
+
+    // 2. the row group's scores in accumulator layout, the online softmax step
+    float p[NT][4];
+    float tile_max[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sS[(rg * 16 + g + 8 * (e >> 1)) * ONEPASS_LDSS + nt * 8 + 2 * t + (e & 1)];
+        p[nt][e] = x;
+        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+      const float m_new = fmaxf(m_row[r], tile_max[r]);
+      corr[r] = exp2f(m_row[r] - m_new);
+      m_row[r] = m_new;
+    }
+    float tile_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = exp2f(p[nt][e] - m_row[e >> 1]);
+        p[nt][e] = x;
+        tile_sum[e >> 1] += x;
+      }
+    }
+    l_row[0] = l_row[0] * corr[0] + tile_sum[0];
+    l_row[1] = l_row[1] * corr[1] + tile_sum[1];
+#pragma unroll
+    for (int dn = 0; dn < 8; ++dn) {
+      acc[dn][0] *= corr[0];
+      acc[dn][1] *= corr[0];
+      acc[dn][2] *= corr[1];
+      acc[dn][3] *= corr[1];
+    }
+#pragma unroll
+    for (int ks = 0; ks < ONEPASS_BN / 16; ++ks) {
+      uint32_t pa[4];
+      pa[0] = pack(p[2 * ks][0], p[2 * ks][1]);
+      pa[1] = pack(p[2 * ks][2], p[2 * ks][3]);
+      pa[2] = pack(p[2 * ks + 1][0], p[2 * ks + 1][1]);
+      pa[3] = pack(p[2 * ks + 1][2], p[2 * ks + 1][3]);
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn) {
+        if (col0 + dn * 8 >= D) continue;  // the tile's columns are all past D
+        const __nv_bfloat16* vb = vt + (ks * 16 + 2 * t) * LDS + col0 + dn * 8 + g;
+        const uint32_t b0 = pack(vb[0], vb[LDS]);
+        const uint32_t b1 = pack(vb[8 * LDS], vb[9 * LDS]);
+        mma_bf16(acc[dn], pa, b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+  }
+  const float inv_lo = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[0], 1e-9f);
+  const float inv_hi = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[1], 1e-9f);
+#pragma unroll
+  for (int dn = 0; dn < 8; ++dn) {
+    const int col = col0 + dn * 8 + 2 * t;
+    if (col0 + dn * 8 >= D) continue;  // D % 8 == 0: a tile is all below D or all past it
+    if (row_lo < L) {
+      store2(oh + static_cast<size_t>(row_lo) * D + col, acc[dn][0] * inv_lo, acc[dn][1] * inv_lo);
+    }
+    if (row_hi < L) {
+      store2(oh + static_cast<size_t>(row_hi) * D + col, acc[dn][2] * inv_hi, acc[dn][3] * inv_hi);
+    }
+  }
+  // the CW column warps of a row group hold the same statistics: the first writes
+  if constexpr (MODE == MODE_LSE) {
+    if (cw == 0 && t == 0) {
+      float* lh = stat0 + static_cast<size_t>(bh) * L;
+      if (row_lo < L) lh[row_lo] = m_row[0] * LN2 + logf(fmaxf(l_row[0], 1e-30f));
+      if (row_hi < L) lh[row_hi] = m_row[1] * LN2 + logf(fmaxf(l_row[1], 1e-30f));
+    }
+  }
+  if constexpr (MODE == MODE_PARTIAL) {
+    if (cw == 0 && t == 0) {
+      float* mh = stat0 + static_cast<size_t>(bh) * L;
+      float* sh = stat1 + static_cast<size_t>(bh) * L;
+      if (row_lo < L) {
+        mh[row_lo] = m_row[0] * LN2;
+        sh[row_lo] = l_row[0];
+      }
+      if (row_hi < L) {
+        mh[row_hi] = m_row[1] * LN2;
+        sh[row_hi] = l_row[1];
+      }
+    }
+  }
+}
+
+template <typename T, int MODE, int CW>
+cudaError_t launch_onepass(const void* q, const void* k, const void* v, const void* mask, void* o,
+                           float* stat0, float* stat1, int B, int H, int L, int D, int causal,
+                           float scale, cudaStream_t stream) {
+  using C = Onepass<CW>;
+  const int num_qblocks = (L + WIDE_BM - 1) / WIDE_BM;
+  const long long blocks = static_cast<long long>(num_qblocks) * B * H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_wide_onepass_kernel<T, MODE, CW>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::SMEM));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), C::THREADS, C::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<out_t<T, MODE>*>(o), stat0, stat1, H, L, D,
+      num_qblocks, causal, LOG2E * scale);
+  return cudaGetLastError();
+}
+
+// the wide instance for one dtype: one pass for D in (256, ONEPASS_MAX_DIM],
+// else the chunked kernel (one chunk up to 256)
+template <typename T, int MODE>
+cudaError_t wide_by_dim(const void* q, const void* k, const void* v, const void* mask, void* o,
+                        float* s0, float* s1, int B, int H, int L, int D, int causal, float scale,
+                        cudaStream_t s) {
+  if (D <= WIDE_DW || D > ONEPASS_MAX_DIM) {
+    return launch_wide<T, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
+  }
+  switch ((D + 63) / 64) {  // column warps of 64 columns
+    case 5: return launch_onepass<T, MODE, 5>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
+    case 6: return launch_onepass<T, MODE, 6>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
+    case 7: return launch_onepass<T, MODE, 7>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
+    default: return launch_onepass<T, MODE, 8>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
+  }
+}
+
 template <int MODE>
 int wide_by_dtype(const void* q, const void* k, const void* v, const void* mask, void* o,
                   void* stat0, void* stat1, int B, int H, int L, int D, int causal, int dtype,
@@ -696,9 +1038,9 @@ int wide_by_dtype(const void* q, const void* k, const void* v, const void* mask,
   float* s1 = static_cast<float*>(stat1);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_wide<__nv_bfloat16, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
+    err = wide_by_dim<__nv_bfloat16, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
   } else if (dtype == 1) {
-    err = launch_wide<float, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
+    err = wide_by_dim<float, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -740,8 +1082,9 @@ extern "C" int dfly_flash_fwd_partial(const void* q, const void* k, const void* 
                                 scale, stream);
 }
 
-// The wide instance (any head dim D % 8 == 0, taken above 128), one entry
-// per mode; arguments as the entries above without `warps`.
+// The wide instance (any head dim D % 8 == 0, taken above 128; one pass
+// over the key tiles for D in (256, 512], chunks of 256 columns above), one
+// entry per mode; arguments as the entries above without `warps`.
 extern "C" int dfly_flash_fwd_wide(const void* q, const void* k, const void* v, const void* mask,
                                    void* o, int B, int H, int L, int D, int causal, int dtype,
                                    float scale, void* stream) {

@@ -25,10 +25,12 @@ csrc/flash_fwd_sm90.cu (``dfly_flash_fwd_sm90``,
 ``dfly_flash_fwd_lse_sm90``, ``dfly_flash_fwd_partial_sm90``),
 csrc/flash_bwd_dkv_sm90.cu (``dfly_flash_bwd_dkv_sm90``) and
 csrc/flash_bwd_dq_sm90.cu (``dfly_flash_bwd_dq_sm90``); and wide Hopper
-ones of the forward (three modes) and of dK/dV for head dims in (128,
-256], ``*_wide_sm90`` in the same sources. The head dim and
-``_sm90_path`` pick one from the shape and dtype alone; a refused launch
-raises, it never falls back to another.
+ones of the forward (three modes), of dK/dV and of dQ for head dims in
+(128, 256], ``*_wide_sm90`` in the same sources. The wide mma.sync forward
+scores each key tile once for head dims in (256, 512] (its C side picks
+that kernel from D) and splits D into 256-column chunks only above. The
+head dim and ``_sm90_path`` pick one from the shape and dtype alone; a
+refused launch raises, it never falls back to another.
 
 Every wrapper launches its kernel on a CUDA tensor, or raises; on a CPU
 tensor it takes the kernel's plain version, and only then. Each function
@@ -38,8 +40,8 @@ instance, and each Hopper and wide instance one more (``FWD_SM90_LAUNCHES``,
 ``LSE_SM90_LAUNCHES``, ``PARTIAL_SM90_LAUNCHES``, ``DKV_SM90_LAUNCHES``,
 ``DQ_SM90_LAUNCHES``; ``FWD_WIDE_LAUNCHES`` .. ``DQ_WIDE_LAUNCHES``;
 ``FWD_WIDE_SM90_LAUNCHES``, ``LSE_WIDE_SM90_LAUNCHES``,
-``PARTIAL_WIDE_SM90_LAUNCHES``, ``DKV_WIDE_SM90_LAUNCHES``); only the lines
-launching add to them.
+``PARTIAL_WIDE_SM90_LAUNCHES``, ``DKV_WIDE_SM90_LAUNCHES``,
+``DQ_WIDE_SM90_LAUNCHES``); only the lines launching add to them.
 
 ``flash_attention`` is the public entry. With autograd recording and an
 input that requires grad it runs ``FlashAttention`` (forward with lse,
@@ -53,9 +55,10 @@ plain versions take any D. On CUDA the shape alone decides, before any
 launch (``_kernel_dim``): a D in ``HEAD_DIMS`` (16, 32, 64, 128) goes to
 its instances; a D above 128 with D % 8 == 0 goes to the wide instances as
 it is, which read the head dim at run time (16-byte row vectors, columns
-past D zeroed in shared memory, stores stopping at D; above 256 they split
-D into 256-column chunks); any other D is zero-padded, below 128 to the
-next of ``HEAD_DIMS``, above it to the next multiple of 8. A padded call
+past D zeroed in shared memory, stores stopping at D; above 256 the
+backward's split D into 256-column chunks, the forward's only above
+512); any other D is zero-padded, below 128 to the next of
+``HEAD_DIMS``, above it to the next multiple of 8. A padded call
 gives the kernels the softmax scale of the unpadded D (every C entry takes
 it) and slices the outputs and gradients back to D. Zero columns add
 nothing to q k^T, dO v^T or rowsum(dO o), so the padded call computes the
@@ -77,7 +80,7 @@ from dragonfly2_tpu_torch.parallel.ring import dense_attention
 
 HEAD_DIMS = (16, 32, 64, 128)  # the mma.sync and Hopper instances
 # the wide instances take any D above HEAD_DIMS[-1] with D % 8 == 0; their
-# Hopper ones, of the forward and dK/dV, D up to WIDE_SM90_MAX_DIM
+# Hopper ones, of the forward, dK/dV and dQ, D up to WIDE_SM90_MAX_DIM
 WIDE_SM90_MAX_DIM = 256
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _NEG = -1e30
@@ -109,6 +112,7 @@ FWD_WIDE_SM90_LAUNCHES = 0
 LSE_WIDE_SM90_LAUNCHES = 0
 PARTIAL_WIDE_SM90_LAUNCHES = 0
 DKV_WIDE_SM90_LAUNCHES = 0
+DQ_WIDE_SM90_LAUNCHES = 0
 _launches_lock = threading.Lock()
 
 # The Hopper instances take bf16 at L above this. Shorter sets (the
@@ -121,13 +125,15 @@ _launches_lock = threading.Lock()
 SM90_MIN_L = 64
 # The wide Hopper instances take bf16 at a wide head dim up to 256: the
 # forward (all three modes) at L above WIDE_SM90_MIN_L, dK/dV at L above
-# WIDE_DKV_SM90_MIN_L. Set from both wide instances' device times at
-# D = 192 and 256 (python3 chip_smoke.py --threshold, PERF.md): the
-# mma.sync forward wins at L = 16-32 (a 64-row Hopper block holds one set
-# of L rows) and loses from L = 64; the mma.sync dK/dV wins at L = 16-20
-# and loses from 32. The ranker's sets (L = 20) keep both mma.sync ones.
+# WIDE_DKV_SM90_MIN_L, dQ at L above WIDE_DQ_SM90_MIN_L. Set from both wide
+# instances' device times at D = 192 and 256 (python3 chip_smoke.py
+# --threshold, PERF.md): the mma.sync forward wins at L = 16-32 (a 64-row
+# Hopper block holds one set of L rows) and loses from L = 64; the mma.sync
+# dK/dV wins at L = 16-20 and loses from 32. The ranker's sets (L = 20)
+# keep the three mma.sync ones.
 WIDE_SM90_MIN_L = 32
 WIDE_DKV_SM90_MIN_L = 20
+WIDE_DQ_SM90_MIN_L = 32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> (source in csrc/, argtypes); every entry takes the pointers,
@@ -152,6 +158,7 @@ _ENTRIES = {
     "dfly_flash_fwd_lse_wide_sm90": ("flash_fwd_sm90", [_P] * 6 + [_I] * 5 + [_F, _P]),
     "dfly_flash_fwd_partial_wide_sm90": ("flash_fwd_sm90", [_P] * 7 + [_I] * 4 + [_F, _P]),
     "dfly_flash_bwd_dkv_wide_sm90": ("flash_bwd_dkv_sm90", [_P] * 9 + [_I] * 5 + [_F, _P]),
+    "dfly_flash_bwd_dq_wide_sm90": ("flash_bwd_dq_sm90", [_P] * 8 + [_I] * 5 + [_F, _P]),
 }
 _entries: dict[str, tuple] = {}
 
@@ -204,13 +211,14 @@ def _sm90_path(length: int, head_dim: int, dtype: torch.dtype, kernel: str = "fw
     """Whether ``kernel`` ("fwd" for the forward's three modes, "dkv",
     "dq") takes its Hopper instance: bf16 at L above SM90_MIN_L at the head
     dims of HEAD_DIMS, and at a wide head dim up to WIDE_SM90_MAX_DIM above
-    WIDE_SM90_MIN_L (the forward) or WIDE_DKV_SM90_MIN_L (dK/dV; the wide
-    dQ has the mma.sync instance alone). Shape and dtype alone decide."""
+    WIDE_SM90_MIN_L (the forward), WIDE_DKV_SM90_MIN_L (dK/dV) or
+    WIDE_DQ_SM90_MIN_L (dQ). Shape and dtype alone decide."""
     if dtype != torch.bfloat16:
         return False
     if head_dim in HEAD_DIMS:
         return length > SM90_MIN_L
-    min_l = WIDE_DKV_SM90_MIN_L if kernel == "dkv" else WIDE_SM90_MIN_L
+    min_l = (WIDE_DKV_SM90_MIN_L if kernel == "dkv"
+             else WIDE_DQ_SM90_MIN_L if kernel == "dq" else WIDE_SM90_MIN_L)
     return (_is_wide(head_dim) and head_dim <= WIDE_SM90_MAX_DIM and head_dim % 8 == 0
             and length > min_l)
 
@@ -569,8 +577,7 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal: bool = Fal
 def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal: bool = False,
                            scale=None):
     """dq from the dQ kernel; CUDA tensors only; ``scale`` and a D no
-    kernel takes as for dK/dV. A wide D takes the wide mma.sync instance at
-    every L."""
+    kernel takes as for dK/dV."""
     _need_cuda(q)
     scale = _scale(q) if scale is None else scale
     b, h, l, d = q.shape
@@ -582,7 +589,11 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal: bool = Fals
     if not dq.numel():
         return dq
     pointers = _pointers(q, k, v, do, lse, delta, kv_mask, dq)
-    if _is_wide(d):
+    if _is_wide(d) and _sm90_path(l, d, q.dtype, "dq"):
+        _launch("dfly_flash_bwd_dq_wide_sm90", q.device, *pointers, b, h, l, d, int(causal),
+                scale)
+        _count("DQ_LAUNCHES", "DQ_WIDE_SM90_LAUNCHES")
+    elif _is_wide(d):
         _launch("dfly_flash_bwd_dq_wide", q.device, *pointers,
                 b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
         _count("DQ_LAUNCHES", "DQ_WIDE_LAUNCHES")

@@ -438,7 +438,8 @@ def test_head_dim_24_pads_to_an_instance(l):
 WIDE_COUNTERS = ("FWD_WIDE_LAUNCHES", "LSE_WIDE_LAUNCHES", "PARTIAL_WIDE_LAUNCHES",
                  "DKV_WIDE_LAUNCHES", "DQ_WIDE_LAUNCHES")
 WIDE_SM90_COUNTERS = ("FWD_WIDE_SM90_LAUNCHES", "LSE_WIDE_SM90_LAUNCHES",
-                      "PARTIAL_WIDE_SM90_LAUNCHES", "DKV_WIDE_SM90_LAUNCHES")
+                      "PARTIAL_WIDE_SM90_LAUNCHES", "DKV_WIDE_SM90_LAUNCHES",
+                      "DQ_WIDE_SM90_LAUNCHES")
 WIDE_ENTRIES = ["dfly_flash_fwd_wide", "dfly_flash_fwd_lse_wide", "dfly_flash_fwd_partial_wide",
                 "dfly_flash_bwd_dkv_wide", "dfly_flash_bwd_dq_wide"]
 PLAIN_VERSIONS = ("flash_attention_plain", "dense_attention", "flash_attention_lse_plain",
@@ -538,10 +539,10 @@ def test_head_dim_above_128_is_refused_before_any_launch(monkeypatch, d, dtype):
 def _wide_names(l, d, dtype):
     """The wide entry each of the forward, the partials, the forward with
     lse, dK/dV and dQ launches at (L, D, dtype), from the thresholds."""
-    fwd = "_wide_sm90" if flash._sm90_path(l, d, dtype) else "_wide"
-    dkv = "_wide_sm90" if flash._sm90_path(l, d, dtype, "dkv") else "_wide"
+    fwd, dkv, dq = ("_wide_sm90" if flash._sm90_path(l, d, dtype, kernel) else "_wide"
+                    for kernel in ("fwd", "dkv", "dq"))
     return ["dfly_flash_fwd" + fwd, "dfly_flash_fwd_partial" + fwd, "dfly_flash_fwd_lse" + fwd,
-            "dfly_flash_bwd_dkv" + dkv, "dfly_flash_bwd_dq_wide"]
+            "dfly_flash_bwd_dkv" + dkv, "dfly_flash_bwd_dq" + dq]
 
 
 @pytest.mark.parametrize("l,dtype", [(20, torch.bfloat16), (1000, torch.bfloat16),
@@ -578,16 +579,17 @@ WIDE_SM90_CASES = [
 
 @pytest.mark.parametrize("shape,causal,forced", WIDE_SM90_CASES)
 def test_wide_sm90_instances_match_plain(monkeypatch, shape, causal, forced):
-    """The wide Hopper instances (forward in its three modes, dK/dV)
+    """The wide Hopper instances (forward in its three modes, dK/dV, dQ)
     against the plain versions (the long tolerances at long L), with a mask holding
     fully masked batch rows and ragged rows, and without; the counters
-    prove that they ran and that the wide dQ took its mma.sync instance."""
+    prove that they ran."""
     _need_card()
     if forced:
         monkeypatch.setattr(flash, "WIDE_SM90_MIN_L", 0)
         monkeypatch.setattr(flash, "WIDE_DKV_SM90_MIN_L", 0)
+        monkeypatch.setattr(flash, "WIDE_DQ_SM90_MIN_L", 0)
     b, h, l, d = shape
-    assert flash._sm90_path(l, d, torch.bfloat16) and flash._sm90_path(l, d, torch.bfloat16, "dkv")
+    assert all(flash._sm90_path(l, d, torch.bfloat16, kernel) for kernel in ("fwd", "dkv", "dq"))
     q, k, v, do, mask = _training_inputs(shape, torch.bfloat16, seed=l + d + causal)
     lengths = torch.randint(1, l + 1, (b,), generator=torch.Generator().manual_seed(l)).cuda()
     mask &= torch.arange(l, device="cuda")[None, :] < lengths[:, None]  # ragged sets
@@ -619,8 +621,7 @@ def test_wide_sm90_instances_match_plain(monkeypatch, shape, causal, forced):
                                        msg=lambda m, name=name: f"{name}: {m}")
         counts = _wide_counts()
         assert {n: counts[n] - before[n] for n in counts} == {
-            **{n: 1 for n in WIDE_SM90_COUNTERS}, **{n: 0 for n in WIDE_COUNTERS},
-            "DQ_WIDE_LAUNCHES": 1}
+            **{n: 1 for n in WIDE_SM90_COUNTERS}, **{n: 0 for n in WIDE_COUNTERS}}
         if kv_mask is not None:  # batch row 0 has no valid key
             acc, row_max, row_sum = partials
             assert (out[0] == 0).all() and (acc[0] == 0).all() and (row_sum[0] == 0).all()
@@ -637,7 +638,7 @@ def test_wide_instances_match_plain(l, d, causal):
     """The wide instances at a short and a long ragged L: the three forward
     modes, dK/dV, dQ and autograd against the plain versions at D, each
     taken as it is, on the instance the thresholds pick (the wide Hopper
-    forward and dK/dV at both lengths, the wide dQ on mma.sync)."""
+    forward, dK/dV and dQ at both lengths)."""
     _need_card()
     q, k, v, do, mask = _training_inputs((2, 2, l, d), torch.bfloat16, seed=l + d + causal)
     tol, grad_tol = dict(atol=ATOL, rtol=RTOL), dict(atol=GRAD_ATOL, rtol=GRAD_RTOL)
@@ -688,6 +689,94 @@ def test_wide_instances_match_plain(l, d, causal):
     for name, g, w in zip(("dq", "dk", "dv"), auto,
                           flash.flash_attention_bwd(q, k, v, mask, o, lse, do, causal)):
         assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [33, 64, 65, 4097])
+@pytest.mark.parametrize("d", [136, 192, 256])
+def test_wide_dq_sm90_matches_plain(monkeypatch, d, l, causal):
+    """The wide Hopper dQ, forced at every L (a ragged key tile at 33 and
+    65, one whole tile at 64, 65 tiles at 4097), at both compile-time
+    widths (136 and 192 at 192, 256 at 256), against the plain version
+    from the same o and lse, with a fully masked batch row (exactly 0) and
+    without a mask; no plain version runs on a CUDA tensor."""
+    _need_card()
+    monkeypatch.setattr(flash, "WIDE_DQ_SM90_MIN_L", 0)
+    q, k, v, do, mask = _training_inputs((2, 2, l, d), torch.bfloat16, seed=l + d + causal)
+    long = l > flash.SM90_MIN_L
+    grad_tol = (dict(atol=LONG_GRAD_ATOL, rtol=LONG_GRAD_RTOL) if long
+                else dict(atol=GRAD_ATOL, rtol=GRAD_RTOL))
+    cases = []
+    for kv_mask in (mask, None):
+        o, lse = flash.flash_attention_lse_plain(q, k, v, kv_mask, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        want = flash.flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal)[0]
+        cases.append((kv_mask, lse, delta, want))
+    _refuse_plain(monkeypatch)
+    launched = _record_launches(monkeypatch)
+    for kv_mask, lse, delta, want in cases:
+        before = flash.DQ_LAUNCHES, flash.DQ_WIDE_SM90_LAUNCHES, flash.DQ_WIDE_LAUNCHES
+        got = flash.flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal)
+        torch.cuda.synchronize()
+        assert (flash.DQ_LAUNCHES, flash.DQ_WIDE_SM90_LAUNCHES, flash.DQ_WIDE_LAUNCHES) == (
+            before[0] + 1, before[1] + 1, before[2])
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), **grad_tol)
+        if kv_mask is not None:
+            assert (got[0] == 0).all()  # batch row 0 has no valid key
+    assert launched == ["dfly_flash_bwd_dq_wide_sm90"] * 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("l", [1, 20, 33, 1024])
+@pytest.mark.parametrize("d", [264, 320, 384, 512])
+def test_forward_above_256_matches_plain(monkeypatch, d, l, dtype):
+    """The wide forward's one-pass kernel (D in (256, 512]: 5 to 8 column
+    warps; L = 1 and 20 one key tile, 33 a ragged second, 1024 thirty-two
+    with the next in flight) in its three modes, causal or not for the
+    finished output and lse, against the plain versions, with a fully
+    masked batch row; one launch each at the call's own D, no plain
+    version and no pad copy."""
+    _need_card()
+    q, k, v, _, mask = _training_inputs((2, 2, l, d), dtype, seed=l + d)
+    # the kernel's operands are bf16 (float32 inputs are rounded to bf16 in
+    # shared memory): the plain version on those operands holds both dtypes
+    # to the long tolerances at L = 1024 and lse to STATS. A float32 call's
+    # output is also held to the plain version on its unrounded inputs, to
+    # the kernel tolerance (the rounding moves a causal call's first rows, a
+    # few keys each, by up to ~0.01 at any L)
+    rq, rk, rv = (t.to(torch.bfloat16).to(dtype) for t in (q, k, v))
+    tol = dict(atol=LONG_ATOL, rtol=LONG_RTOL) if l > 1000 else dict(atol=ATOL, rtol=RTOL)
+    stats = dict(atol=STATS_ATOL, rtol=STATS_RTOL)
+    refs = {causal: flash.flash_attention_lse_plain(rq, rk, rv, mask, causal)
+            for causal in (False, True)}
+    unrounded = {causal: flash.flash_attention_plain(q, k, v, mask, causal)
+                 for causal in (False, True) if dtype == torch.float32}
+    ref_partials = flash.flash_attention_partials_plain(rq, rk, rv, mask)
+    _refuse_plain(monkeypatch)
+    monkeypatch.setattr(flash, "_padded", lambda *t: pytest.fail("a wide D was padded"))
+    launched = _record_launches(monkeypatch)
+    before = _wide_counts()
+    for causal, (ref_o, ref_lse) in refs.items():
+        out = flash.flash_attention(q, k, v, mask, causal)
+        torch.testing.assert_close(out.float(), ref_o.float(), **tol)
+        if causal in unrounded:
+            torch.testing.assert_close(out, unrounded[causal], atol=ATOL, rtol=RTOL)
+        o, lse = flash.flash_attention_lse(q, k, v, mask, causal)
+        assert torch.equal(o, out)  # one kernel, two modes
+        seen = ref_lse > -1e20
+        torch.testing.assert_close(lse[seen], ref_lse[seen], **stats)
+        assert torch.isfinite(lse).all() and (out[0] == 0).all()
+    partials = flash.flash_attention_partials(q, k, v, mask)
+    _check_partials(partials, ref_partials, tol, stats)
+    assert (partials[0][0] == 0).all() and (partials[2][0] == 0).all()
+    torch.cuda.synchronize()
+    assert launched == ["dfly_flash_fwd_wide", "dfly_flash_fwd_lse_wide"] * 2 + [
+        "dfly_flash_fwd_partial_wide"]
+    counts = _wide_counts()
+    assert {n: counts[n] - before[n] for n in counts} == {
+        **{n: 0 for n in counts}, "FWD_WIDE_LAUNCHES": 2, "LSE_WIDE_LAUNCHES": 2,
+        "PARTIAL_WIDE_LAUNCHES": 1}
 
 
 def test_wide_instances_take_float32():

@@ -187,7 +187,7 @@ def test_kernel_wrappers_refuse_a_head_dim_without_an_instance():
 # CPU the plain versions, held to the reference's Pallas kernels
 # (interpret mode) and dense_attention, float32
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [160, 192, 256, 320, 512])
+@pytest.mark.parametrize("d", [160, 192, 256, 264, 320, 384, 512])
 def test_head_dims_above_128_match_reference(d, causal):
     from dragonfly2_tpu.ops.flash import _flash_forward as ref_forward
     from dragonfly2_tpu.ops.flash import flash_attention_partials as ref_partials

@@ -146,15 +146,20 @@ WIDE_COUNTERS = {
 
 def test_the_wide_thresholds_follow_the_cards_readings():
     """The wide thresholds as the card's readings set them (PERF.md): the
-    ranker's sets (L = 20) keep the wide mma.sync forward and dK/dV; at
+    ranker's sets (L = 20) keep the wide mma.sync forward, dK/dV and dQ; at
     L = 32 dK/dV takes its Hopper instance and the forward does not; from
-    L = 64 both do; float32 and D above 256 never."""
+    L = 64 all three do; float32 and D above 256 never."""
     bf16 = torch.bfloat16
     assert not flash._sm90_path(20, 192, bf16) and not flash._sm90_path(20, 192, bf16, "dkv")
     assert not flash._sm90_path(32, 256, bf16) and flash._sm90_path(32, 256, bf16, "dkv")
     assert flash._sm90_path(64, 192, bf16) and flash._sm90_path(1024, 256, bf16, "dkv")
     assert not flash._sm90_path(4096, 192, torch.float32, "dkv")
     assert not flash._sm90_path(4096, 320, bf16) and not flash._sm90_path(4096, 320, bf16, "dkv")
+    assert not flash._sm90_path(20, 192, bf16, "dq") and not flash._sm90_path(20, 256, bf16, "dq")
+    assert flash._sm90_path(64, 192, bf16, "dq") and flash._sm90_path(4096, 256, bf16, "dq")
+    assert not flash._sm90_path(4096, 192, torch.float32, "dq")
+    assert not flash._sm90_path(4096, 320, bf16, "dq")
+    assert flash.WIDE_DQ_SM90_MIN_L < 4096
 
 
 WIDE_SM90_COUNTERS = {
@@ -162,12 +167,16 @@ WIDE_SM90_COUNTERS = {
     "dfly_flash_fwd_lse": "LSE_WIDE_SM90_LAUNCHES",
     "dfly_flash_fwd_partial": "PARTIAL_WIDE_SM90_LAUNCHES",
     "dfly_flash_bwd_dkv": "DKV_WIDE_SM90_LAUNCHES",
+    "dfly_flash_bwd_dq": "DQ_WIDE_SM90_LAUNCHES",
 }
+_WIDE_MIN_L = {"dfly_flash_bwd_dkv": "WIDE_DKV_SM90_MIN_L", "dfly_flash_bwd_dq": "WIDE_DQ_SM90_MIN_L"}
 
 
 @pytest.mark.parametrize("entry", sorted(_CALLS))
 @pytest.mark.parametrize("shape,dtype", [((2, 4, 40, 256), torch.bfloat16),
                                          ((2, 4, 4096, 256), torch.bfloat16),
+                                         ((2, 4, 4096, 192), torch.bfloat16),
+                                         ((2, 4, 4096, 192), torch.float32),
                                          ((2, 4, 70, 256), torch.float32),
                                          ((256, 4, 20, 192), torch.bfloat16),
                                          ((2, 4, 1024, 192), torch.bfloat16),
@@ -177,9 +186,11 @@ WIDE_SM90_COUNTERS = {
 def test_head_dim_256_launches_the_wide_instance_at_every_length(monkeypatch, routed, entry,
                                                                  shape, dtype):
     """A D above 128 (256, and 192, 320, 512 alike) takes a wide instance
-    at every L and dtype, unpadded (130 padded to 136 only): the wide
-    Hopper one for the forward above WIDE_SM90_MIN_L and for dK/dV above
-    WIDE_DKV_SM90_MIN_L, in bf16 at D up to 256, else the wide mma.sync
+    at every L and dtype, unpadded (130 padded to 136 only), and the
+    forward one launch above 256 too: the wide
+    Hopper one for the forward above WIDE_SM90_MIN_L, for dK/dV above
+    WIDE_DKV_SM90_MIN_L and for dQ above WIDE_DQ_SM90_MIN_L, in bf16 at D
+    up to 256, else the wide mma.sync
     one, counted in its total and its own part. The mma.sync entry
     takes (B, H, L, D, causal, dtype, scale) after the pointers, no warps;
     the Hopper one (B, H, L, D, causal, scale)."""
@@ -190,14 +201,13 @@ def test_head_dim_256_launches_the_wide_instance_at_every_length(monkeypatch, ro
     (name, args), = routed.calls
     b, h, l, d = shape
     d_kernel = d + (-d) % 8  # D = 130 is zero-padded to 136, the others go as they are
-    min_l = flash.WIDE_DKV_SM90_MIN_L if entry == "dfly_flash_bwd_dkv" else flash.WIDE_SM90_MIN_L
+    min_l = getattr(flash, _WIDE_MIN_L.get(entry, "WIDE_SM90_MIN_L"))
     hopper = entry in WIDE_SM90_COUNTERS and dtype == torch.bfloat16 and d <= 256 and l > min_l
     assert name == WIDE_ENTRIES[entry] + ("_sm90" if hopper else "")
     total, sm90 = _COUNTERS[entry]
     assert getattr(flash, total) == 1 and getattr(flash, sm90) == 0
     assert getattr(flash, WIDE_COUNTERS[entry]) == int(not hopper)
-    if entry in WIDE_SM90_COUNTERS:
-        assert getattr(flash, WIDE_SM90_COUNTERS[entry]) == int(hopper)
+    assert getattr(flash, WIDE_SM90_COUNTERS[entry]) == int(hopper)
     assert len(args) == len(flash._ENTRIES[name][1]) - 1
     args, scale = args[:-1], args[-1]
     assert scale == 1 / math.sqrt(d)
