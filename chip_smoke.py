@@ -9,8 +9,11 @@ Phases, each of which must pass or the script exits non-zero without a
 result line:
 
 1. device: require CUDA; print the card's name and power limit.
-2. build: compile every CUDA source of the path (ops/build.py) and print
-   the build time and the compiler's register/spill report.
+2. build: compile every CUDA source of the path and the host launcher
+   through which ops/flash.py makes every launch (ops/build.py; one nvcc
+   per source and g++ for the launcher, all started together), and print
+   the build time, the launcher's own seconds and the compiler's
+   register/spill report.
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs, at the served shape and at long-context shapes, with the
    kernel's, the plain version's and a PyTorch library call's times
@@ -100,9 +103,13 @@ result line:
 11. the kernels JSON line and, last, the result line.
 
 Between phases 3 and 4, the host cost of the forward with lse's wrapper at
-the trained shape, step by step (_check, the output allocations,
-_pointers, the device context, the stream lookup, the ctypes call, the
-counter), and the wrapper with _launch as it is and as it stood before.
+the ranker's two trained shapes, [256, 4, 20, 32] and [256, 4, 20, 192]:
+each step of the wrapper through the launcher, and of the ctypes control
+(this script's own copy of the wrapper as it stood before the launcher:
+checks, output allocations and pointers in Python around a ctypes call),
+then the wrapper, the control and the library call in four alternating
+turns, by CUDA events and by the host clock, with the launcher's outputs
+held to the control's bit for bit.
 
 Phase 3's forward rows include a head dim no instance has (D = 24,
 zero-padded to 32 and scored at D = 24's softmax scale).
@@ -130,6 +137,7 @@ import argparse
 import asyncio
 import collections
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -137,6 +145,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -330,18 +339,24 @@ def phase_device():
 def phase_build():
     from dragonfly2_tpu_torch.ops import build
 
-    sources = sorted(p.stem for p in build.CSRC_DIR.glob("*.cu"))
+    sources = build.kernel_sources()
     start = time.perf_counter()
-    logs = build.build_all(sources)
+    reports = build.build_all([*sources, build.LAUNCHER])
     seconds = time.perf_counter() - start
-    for name, log in logs.items():
+    for name, (log, own_seconds) in reports.items():
+        if name == build.LAUNCHER:
+            print(f"build {name} (the host launcher, g++, PyTorch's per-operator headers): "
+                  + (f"{own_seconds:.2f} s of compile and link" if own_seconds else "already built")
+                  + (f"; compiler said: {log.strip()[:2000]}" if log.strip() else ""))
+            continue
         if not log:
             print(f"build {name}: already built")
             continue
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
-        print(f"build {name}: {len(regs)} kernels, registers {min(regs, default=0)}-"
-              f"{max(regs, default=0)}, spill stores max {max(spills, default=0)} bytes")
+        print(f"build {name}: {len(regs)} kernels in {own_seconds:.2f} s, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores max "
+              f"{max(spills, default=0)} bytes")
         # each instance of the Hopper sources, and the wide ones of the others
         entries = re.findall(r"Compiling entry function '(\w+)'", log)
         for entry, used, spill in zip(entries, regs, spills):
@@ -352,7 +367,7 @@ def phase_build():
                     r"wgmma.mma_async instructions are serialized due to (.*?) for the function "
                     r"'(\w+)'", log):
                 print(f"  {_instance_label(entry)}: wgmma serialized ({why})")
-    print(f"build: {len(sources)} sources in {seconds:.2f} s")
+    print(f"build: {len(sources)} sources and the launcher in {seconds:.2f} s")
 
 
 def _instance_label(entry: str) -> str:
@@ -562,10 +577,10 @@ def _counts() -> dict:
     return {name: getattr(flash, counter) for name, counter in _COUNTERS.items()}
 
 
-def _library_fwd_lse_ms(q, k, v, mask, causal, iters):
+def _library_fwd_lse(q, k, v, mask, causal):
     """PyTorch's memory-efficient attention asked for its logsumexp too,
-    the one library call with the lse kernel's outputs; None where it
-    refuses these inputs."""
+    the one library call with the lse kernel's outputs, as a callable;
+    None where it refuses these inputs."""
     import torch
 
     l = q.shape[2]
@@ -582,7 +597,13 @@ def _library_fwd_lse_ms(q, k, v, mask, causal, iters):
     except RuntimeError as e:
         print(f"library forward with lse refused {list(q.shape)}: {str(e).splitlines()[0][:120]}")
         return None
-    return _time_ms(lambda: call(q, k, v, bias, True), iters)
+    return lambda: call(q, k, v, bias, True)
+
+
+def _library_fwd_lse_ms(q, k, v, mask, causal, iters):
+    """_library_fwd_lse's CUDA-event time; None where it refuses."""
+    call = _library_fwd_lse(q, k, v, mask, causal)
+    return None if call is None else _time_ms(call, iters)
 
 
 def phase_training_kernels():
@@ -718,6 +739,17 @@ def phase_training_kernels():
 
 
 LAUNCH_COST_CALLS = 2000  # host-clock calls of each step of the wrapper
+LAUNCH_TURNS = ("control", "launcher", "launcher", "control")  # who goes first in each turn
+# a turn takes each side in LAUNCH_WINDOWS windows, interleaved with the
+# other sides' so that all of them meet the same host, and reads each
+# side's medians: LAUNCH_EVENT_CALLS calls by CUDA events and
+# LAUNCH_HOST_CALLS by the host clock a window
+LAUNCH_WINDOWS = 5
+LAUNCH_EVENT_CALLS = 200
+LAUNCH_HOST_CALLS = 500
+# the ranker's trained batch at hidden 128 (the mma.sync instance) and at
+# hidden 768 (head dim 192, the wide mma.sync instance)
+LAUNCH_SHAPES = ((256, 4, 20, 32), (256, 4, 20, 192))
 
 
 def _host_us(step, calls: int = LAUNCH_COST_CALLS) -> float:
@@ -736,87 +768,191 @@ def _host_us(step, calls: int = LAUNCH_COST_CALLS) -> float:
     return seconds / calls * 1e6
 
 
-def _launch_entering(name, device, *args):
-    """ops/flash.py's _launch as it stood before: the device's context
-    entered and left at every launch."""
-    import torch
+class _CtypesControl:
+    """The forward with lse as ops/flash.py made it before the launcher:
+    its checks, routing, output allocations, pointers and stream lookup in
+    Python around a ctypes call of dfly_flash_fwd_lse or
+    dfly_flash_fwd_lse_wide, counted under a lock. The control of
+    phase_launch_cost; nothing in the package uses it. Its steps are its
+    methods, which that phase also times one by one."""
 
-    from dragonfly2_tpu_torch.ops import flash
+    def __init__(self):
+        from dragonfly2_tpu_torch.ops import build
 
-    fn, lib = flash._entry(name)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.dfly_cuda_error_string(err).decode()}")
+        self.lib = ctypes.CDLL(str(build._library_path("flash_fwd", build.nvcc_path())))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.fns = {}
+        for name, ints in (("dfly_flash_fwd_lse", 7), ("dfly_flash_fwd_lse_wide", 6)):
+            fn = getattr(self.lib, name)
+            fn.argtypes, fn.restype = [p] * 6 + [i] * ints + [f, p], ctypes.c_int
+            self.fns[name] = fn
+        self.lib.dfly_cuda_error_string.argtypes = [i]
+        self.lib.dfly_cuda_error_string.restype = ctypes.c_char_p
+        self.lock, self.launches = threading.Lock(), 0
+
+    @staticmethod
+    def check(q, k, v, mask):
+        from dragonfly2_tpu_torch.ops import flash
+
+        flash._check(q, k, v, mask)
+
+    @staticmethod
+    def route(q):
+        from dragonfly2_tpu_torch.ops import flash
+
+        _, _, l, d = q.shape
+        if flash._padded_route(q) or flash._sm90_path(l, d, q.dtype):
+            raise ValueError("the control takes the mma.sync and wide instances alone")
+        wide = flash._is_wide(d)
+        return ("dfly_flash_fwd_lse_wide", ()) if wide else ("dfly_flash_fwd_lse",
+                                                             (flash.warps_for(l),))
+
+    @staticmethod
+    def outputs(q):
+        import torch
+
+        b, h, l, _ = q.shape
+        return torch.empty_like(q), torch.empty(b, h, l, dtype=torch.float32, device=q.device)
+
+    @staticmethod
+    def pointers(*tensors):
+        if any(t is not None and t.dim() == 4 and t.data_ptr() % 16 for t in tensors):
+            raise ValueError("flash attention operands must be 16-byte aligned")
+        return [None if t is None else t.data_ptr() for t in tensors]
+
+    def launch(self, name, device, *args):
+        import torch
+
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if device.index is None or device.index == torch.cuda.current_device():
+            err = self.fns[name](*args, stream)
+        else:
+            with torch.cuda.device(device):
+                err = self.fns[name](*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: "
+                               f"{self.lib.dfly_cuda_error_string(err).decode()} ({err})")
+
+    def count(self):
+        with self.lock:
+            self.launches += 1
+
+    def __call__(self, q, k, v, mask, causal=False):
+        import torch
+
+        from dragonfly2_tpu_torch.ops import flash
+
+        self.check(q, k, v, mask)
+        name, warps = self.route(q)
+        o, lse = self.outputs(q)
+        b, h, l, d = q.shape
+        dtype = 0 if q.dtype == torch.bfloat16 else 1
+        self.launch(name, q.device, *self.pointers(q, k, v, mask, o, lse),
+                    b, h, l, d, int(causal), dtype, *warps, flash._scale(q))
+        self.count()
+        return o, lse
 
 
 def phase_launch_cost(card: str):
-    """The host cost of a wrapper, step by step: the mma.sync forward with
-    lse at the trained shape [256, 4, 20, 32] (its wrapper's CUDA-event
-    time is its host call rate), each step of flash_attention_lse and
-    _launch timed alone on the host clock; then the whole wrapper with
-    _launch as ops/flash.py has it and as it stood before (the device
-    context entered at every launch), in turns."""
+    """The host cost of the forward with lse's wrapper at the ranker's two
+    trained shapes (LAUNCH_SHAPES; at L = 20 a wrapper's CUDA-event time
+    is its host call rate): each step of the wrapper through the launcher
+    and of the ctypes control timed alone on the host clock, then the
+    wrapper, the control and the library call in LAUNCH_TURNS, by CUDA
+    events and by the host clock, the two sides first in turn, each turn
+    the medians of LAUNCH_WINDOWS interleaved windows. The launcher's
+    outputs must equal the control's bit for bit."""
     import torch
 
-    from dragonfly2_tpu_torch.ops import flash
+    from dragonfly2_tpu_torch.ops import build, flash
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
-    q, k, v, mask = _attention_inputs(gen, 256, 4, 20, 32, torch.bfloat16, True)
-    b, h, l, d = q.shape
-    dev = q.device
-    o = torch.empty_like(q)
-    lse = torch.empty(b, h, l, dtype=torch.float32, device=dev)
-    fn, _ = flash._entry("dfly_flash_fwd_lse")
-    args = flash._pointers(q, k, v, mask, o, lse) + [b, h, l, d, 0, 0, flash.warps_for(l),
-                                                      flash._scale(q)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    counted = flash.LSE_LAUNCHES
-
-    def context():
-        with torch.cuda.device(dev):
-            pass
-
-    steps = {
-        "_check": lambda: flash._check(q, k, v, mask),
-        "routing (_padded_route, _is_wide, _sm90_path)": lambda: (
-            flash._padded_route(q), flash._is_wide(d), flash._sm90_path(l, d, q.dtype)),
-        "torch.empty (o, lse)": lambda: (
-            torch.empty_like(q), torch.empty(b, h, l, dtype=torch.float32, device=dev)),
-        "_pointers": lambda: flash._pointers(q, k, v, mask, o, lse),
-        "_entry lookup": lambda: flash._entry("dfly_flash_fwd_lse"),
-        "torch.cuda.device context": context,
-        "current_stream(device).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
-        "torch.cuda.current_device()": torch.cuda.current_device,
-        "ctypes call (the launch)": lambda: fn(*args, stream),
-        "_count under its lock": lambda: flash._count("LSE_LAUNCHES"),
-    }
-    costs = {name: _host_us(step) for name, step in steps.items()}
-    flash.LSE_LAUNCHES = counted
-    wrapper = lambda: flash.flash_attention_lse(q, k, v, mask)  # noqa: E731
-    whole = _host_us(wrapper)
-    flash.LSE_LAUNCHES = counted
-    print(f"launch cost of the forward with lse's wrapper, [256, 4, 20, 32] bf16 ({card}), host "
-          "us a call: " + ", ".join(f"{name} {us:.2f}" for name, us in costs.items())
-          + f"; the whole wrapper {whole:.2f} (the listed steps sum to "
-          f"{sum(costs.values()):.2f}; the device context and the stream lookup run inside the "
-          "wrapper's one _launch)")
-    committed = flash._launch
-    readings = {"committed": [], "entering": []}
-    for turn in ("committed", "entering", "entering", "committed"):
-        flash._launch = committed if turn == "committed" else _launch_entering
-        try:
-            readings[turn].append((_host_us(wrapper), _time_ms(wrapper, 500)))
-        finally:
-            flash._launch = committed
-    flash.LSE_LAUNCHES = counted
-    for turn, pairs in readings.items():
-        print(f"launch cost: the wrapper with _launch {turn} ("
-              + ("as ops/flash.py has it" if turn == "committed"
-                 else "the device context entered at every launch, as before")
-              + "): host " + " / ".join(f"{us:.2f} us" for us, _ in pairs) + ", CUDA events "
-              + " / ".join(f"{ms:.4f} ms" for _, ms in pairs) + " (turns 1 and 4, or 2 and 3)")
-    return costs
+    control = _CtypesControl()
+    counted = {name: getattr(flash, name) for name in ("LSE_LAUNCHES", "LSE_WIDE_LAUNCHES")}
+    results = {}
+    for shape in LAUNCH_SHAPES:
+        q, k, v, mask = _attention_inputs(gen, *shape, torch.bfloat16, True)
+        b, h, l, d = q.shape
+        dev = q.device
+        got, want = flash.flash_attention_lse(q, k, v, mask), control(q, k, v, mask)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            _fail(f"launch cost {list(shape)}: the launcher's outputs differ from the ctypes "
+                  "control's on the same inputs")
+        print(f"launch bits {list(shape)}: the launcher's o and lse equal the ctypes control's "
+              "bit for bit")
+        name, warps = control.route(q)  # the entry the launcher's route takes too
+        o, lse = control.outputs(q)
+        args = control.pointers(q, k, v, mask, o, lse) + [b, h, l, d, 0, 0, *warps, flash._scale(q)]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kind, instance = flash.ENTRIES[name]
+        launch = getattr(build.launcher(), kind)
+        scale = flash._scale(q)
+        launcher_steps = {
+            "_need_cuda (q.is_cuda)": lambda: flash._need_cuda(q),
+            "q.is_cpu and _padded_route": lambda: (q.is_cpu, flash._padded_route(q)),
+            "routing (_is_wide, _sm90_path, _ROUTES, warps_for)": lambda: (
+                flash._is_wide(d), flash._sm90_path(l, d, q.dtype, "lse"),
+                flash._ROUTES["lse", instance], flash.warps_for(l)),
+            "_scale": lambda: flash._scale(q),
+            "_launch's lookups (ENTRIES, build.launcher(), getattr)": lambda: getattr(
+                build.launcher(), flash.ENTRIES[name][0]),
+            "the launcher's call (checks, at::empty x2, device guard, stream, launch, wrap)":
+                lambda: launch(instance, q, k, v, mask, False, scale, flash.warps_for(l)),
+            "_count under its lock": lambda: flash._count("LSE_LAUNCHES"),
+        }
+        control_steps = {
+            "_check": lambda: control.check(q, k, v, mask),
+            "routing (_padded_route, _sm90_path, _is_wide, warps_for)": lambda: control.route(q),
+            "torch.empty (o, lse)": lambda: control.outputs(q),
+            "_pointers": lambda: control.pointers(q, k, v, mask, o, lse),
+            "current_stream(device).cuda_stream":
+                lambda: torch.cuda.current_stream(dev).cuda_stream,
+            "torch.cuda.current_device()": torch.cuda.current_device,
+            "ctypes call (the launch)": lambda: control.fns[name](*args, stream),
+            "count under a lock": control.count,
+        }
+        wrapper = lambda: flash.flash_attention_lse(q, k, v, mask)  # noqa: E731
+        controlled = lambda: control(q, k, v, mask)  # noqa: E731
+        library = _library_fwd_lse(q, k, v, mask, False)
+        for side, steps, whole in (("launcher", launcher_steps, wrapper),
+                                   ("ctypes control", control_steps, controlled)):
+            costs = {step: _host_us(fn) for step, fn in steps.items()}
+            print(f"launch cost {list(shape)} bf16 ({card}), {side}, host us a call: "
+                  + ", ".join(f"{step} {us:.2f}" for step, us in costs.items())
+                  + f"; the whole wrapper {_host_us(whole):.2f} (the steps sum to "
+                  f"{sum(costs.values()):.2f})")
+        sides = {"launcher": wrapper, "control": controlled, "library": library}
+        order = [side for side in sides if sides[side] is not None]
+        turns = {side: [] for side in order}
+        for first in LAUNCH_TURNS:
+            order.sort(key=lambda side: (side != first, side == "library"))
+            windows = {side: [] for side in order}
+            for _ in range(LAUNCH_WINDOWS):
+                for side in order:
+                    windows[side].append((_host_us(sides[side], LAUNCH_HOST_CALLS),
+                                          _time_ms(sides[side], LAUNCH_EVENT_CALLS)))
+            for side, readings in windows.items():
+                turns[side].append((statistics.median(us for us, _ in readings),
+                                    statistics.median(ms for _, ms in readings)))
+        for side, readings in turns.items():
+            print(f"launch turns {list(shape)} ({card}), {side}: CUDA events "
+                  + " / ".join(f"{ms:.4f}" for _, ms in readings) + " ms, host "
+                  + " / ".join(f"{us:.2f}" for us, _ in readings) + " us (turns 1-4, each the "
+                  f"median of {LAUNCH_WINDOWS} interleaved windows; control first in turns 1 "
+                  "and 4, the launcher in 2 and 3)")
+        if "library" in turns:
+            under = sum(ms < lib_ms for (_, ms), (_, lib_ms)
+                        in zip(turns["launcher"], turns["library"]))
+            medians = {side: statistics.median(ms for _, ms in turns[side]) for side in turns}
+            print(f"launch verdict {list(shape)} ({card}): the launcher's wrapper "
+                  f"{medians['launcher']:.4f} ms median against the library's "
+                  f"{medians['library']:.4f} and the control's {medians['control']:.4f}; under "
+                  f"the library in {under} of {len(LAUNCH_TURNS)} turns")
+        results[tuple(shape)] = turns
+    for name, count in counted.items():
+        setattr(flash, name, count)
+    return results
 
 
 def _requests(n: int, rng: np.random.Generator):

@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_entries.h"
+
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
@@ -914,12 +916,7 @@ int wide_by_dtype(const Args& a, int D, int dtype, void* stream) {
 
 }  // namespace
 
-// q, k, v, dout, dk, dv: contiguous [B, H, L, D]; lse, delta: contiguous
-// [B, H, L] float32; mask: contiguous [B, L] bytes (0 = invalid key) or null.
-// dtype: 0 = bf16, 1 = float32. warps: 1, 2 or 4 (16 keys each). scale: the
-// softmax scale, 1/sqrt(D) of the head dim the caller means (ops/flash.py
-// zero-pads a head dim outside the instances and passes its own). Launches
-// on `stream` without synchronising; returns the cudaError_t of the launch.
+// The entries, declared with their layouts in flash_entries.h.
 extern "C" int dfly_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, const void* mask, void* dk,
                                   void* dv, int B, int H, int L, int D, int causal, int dtype,
@@ -929,7 +926,6 @@ extern "C" int dfly_flash_bwd_dkv(const void* q, const void* k, const void* v, c
   return by_dtype<true>(a, D, dtype, warps, stream);
 }
 
-// As dfly_flash_bwd_dkv, writing dq [B, H, L, D]; warps: 16 query rows each.
 extern "C" int dfly_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, const void* mask, void* dq,
                                  int B, int H, int L, int D, int causal, int dtype, int warps,
@@ -939,8 +935,6 @@ extern "C" int dfly_flash_bwd_dq(const void* q, const void* k, const void* v, co
   return by_dtype<false>(a, D, dtype, warps, stream);
 }
 
-// The wide instances (any head dim D % 8 == 0, taken above 128);
-// arguments as the entries above without `warps`.
 extern "C" int dfly_flash_bwd_dkv_wide(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        const void* mask, void* dk, void* dv, int B, int H, int L,

@@ -80,6 +80,7 @@
 // (75 MB, 22 us): bound by operations. At D = 192 the fourth column block
 // is zeros: a quarter of the products is spent on them.
 
+#include "flash_entries.h"
 #include "sm90.cuh"
 
 namespace {
@@ -643,12 +644,7 @@ int launch_wide(const Args& a, int d, cudaStream_t stream) {
 
 }  // namespace
 
-// q, k, v, dout, dk, dv: contiguous bf16 [B, H, L, D], 16-byte aligned;
-// lse, delta: contiguous [B, H, L] float32; mask: contiguous [B, L] bytes
-// (0 = invalid key) or null. scale: the softmax scale, 1/sqrt(D) of the
-// head dim the caller means. Launches on `stream` without synchronising;
-// returns 0, the cudaError_t of the launch, or sm90::TMAP_ERROR + the
-// CUresult of a refused TMA descriptor.
+// The entries, declared with their layouts in flash_entries.h.
 extern "C" int dfly_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        const void* mask, void* dk, void* dv, int B, int H, int L,
@@ -666,8 +662,6 @@ extern "C" int dfly_flash_bwd_dkv_sm90(const void* q, const void* k, const void*
   }
 }
 
-// The wide instance: arguments as dfly_flash_bwd_dkv_sm90, D in (128, 256]
-// with D % 8 == 0.
 extern "C" int dfly_flash_bwd_dkv_wide_sm90(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* delta,
                                             const void* mask, void* dk, void* dv, int B, int H,

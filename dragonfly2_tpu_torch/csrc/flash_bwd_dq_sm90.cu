@@ -97,6 +97,7 @@
 //   the dS tile 9 KB: 202 KB of the 227 KB a block may take. At W = 192, 153
 //   KB; no product is spent on a zero column block at D = 192.
 
+#include "flash_entries.h"
 #include "sm90.cuh"
 
 namespace {
@@ -604,12 +605,7 @@ int launch_wide(const Args& a, int d, cudaStream_t stream) {
 
 }  // namespace
 
-// q, k, v, dout, dq: contiguous bf16 [B, H, L, D], 16-byte aligned; lse,
-// delta: contiguous [B, H, L] float32; mask: contiguous [B, L] bytes (0 =
-// invalid key) or null. scale: the softmax scale, 1/sqrt(D) of the head
-// dim the caller means. Launches on `stream` without synchronising; returns
-// 0, the cudaError_t of the launch, or sm90::TMAP_ERROR + the CUresult of a
-// refused TMA descriptor.
+// The entries, declared with their layouts in flash_entries.h.
 extern "C" int dfly_flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       const void* mask, void* dq, int B, int H, int L, int D,
@@ -627,8 +623,6 @@ extern "C" int dfly_flash_bwd_dq_sm90(const void* q, const void* k, const void* 
   }
 }
 
-// The wide instance: arguments as dfly_flash_bwd_dq_sm90, D in (128, 256]
-// with D % 8 == 0, at a compile-time width of 192 (D up to 192) or 256.
 extern "C" int dfly_flash_bwd_dq_wide_sm90(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse, const void* delta,
                                            const void* mask, void* dq, int B, int H, int L, int D,

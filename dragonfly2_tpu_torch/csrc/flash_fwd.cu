@@ -62,6 +62,8 @@
 
 #include <type_traits>
 
+#include "flash_entries.h"
+
 namespace {
 
 constexpr int BLOCK_N = 64;  // keys per staged K/V tile
@@ -1049,12 +1051,7 @@ int wide_by_dtype(const void* q, const void* k, const void* v, const void* mask,
 
 }  // namespace
 
-// q, k, v, o: contiguous [B, H, L, D]; mask: contiguous [B, L] bytes (0 =
-// invalid key) or null. dtype: 0 = bf16, 1 = float32. warps: 1, 2 or 4.
-// scale: the softmax scale of the scores, 1/sqrt(D) of the head dim the
-// caller means (ops/flash.py zero-pads a head dim outside the instances
-// and passes its own). Launches on `stream` without synchronising; returns
-// the cudaError_t of the launch (0 = success).
+// The entries, declared with their layouts in flash_entries.h.
 extern "C" int dfly_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
                               void* o, int B, int H, int L, int D, int causal, int dtype,
                               int warps, float scale, void* stream) {
@@ -1062,8 +1059,6 @@ extern "C" int dfly_flash_fwd(const void* q, const void* k, const void* v, const
                             scale, stream);
 }
 
-// As dfly_flash_fwd, and lse: contiguous [B, H, L] float32, written for
-// every row.
 extern "C" int dfly_flash_fwd_lse(const void* q, const void* k, const void* v, const void* mask,
                                   void* o, void* lse, int B, int H, int L, int D, int causal,
                                   int dtype, int warps, float scale, void* stream) {
@@ -1071,9 +1066,6 @@ extern "C" int dfly_flash_fwd_lse(const void* q, const void* k, const void* v, c
                             scale, stream);
 }
 
-// The partial mode, never causal: acc contiguous [B, H, L, D] float32 (q of
-// either dtype), row_max and row_sum contiguous [B, H, L] float32, all
-// written for every row.
 extern "C" int dfly_flash_fwd_partial(const void* q, const void* k, const void* v,
                                       const void* mask, void* acc, void* row_max, void* row_sum,
                                       int B, int H, int L, int D, int dtype, int warps,
@@ -1082,9 +1074,6 @@ extern "C" int dfly_flash_fwd_partial(const void* q, const void* k, const void* 
                                 scale, stream);
 }
 
-// The wide instance (any head dim D % 8 == 0, taken above 128; one pass
-// over the key tiles for D in (256, 512], chunks of 256 columns above), one
-// entry per mode; arguments as the entries above without `warps`.
 extern "C" int dfly_flash_fwd_wide(const void* q, const void* k, const void* v, const void* mask,
                                    void* o, int B, int H, int L, int D, int causal, int dtype,
                                    float scale, void* stream) {

@@ -81,6 +81,7 @@
 
 #include <type_traits>
 
+#include "flash_entries.h"
 #include "sm90.cuh"
 
 namespace {
@@ -409,26 +410,19 @@ int wide_by_dim(const void* q, const void* k, const void* v, const void* mask, v
 
 }  // namespace
 
-// q, k, v, o: contiguous bf16 [B, H, L, D], 16-byte aligned; mask:
-// contiguous [B, L] bytes (0 = invalid key) or null. scale: the softmax
-// scale, 1/sqrt(D) of the head dim the caller means. Launches on `stream`
-// without synchronising; returns 0, the cudaError_t of the launch, or
-// sm90::TMAP_ERROR + the CUresult of a refused TMA descriptor.
+// The entries, declared with their layouts in flash_entries.h.
 extern "C" int dfly_flash_fwd_sm90(const void* q, const void* k, const void* v, const void* mask,
                                    void* o, int B, int H, int L, int D, int causal, float scale,
                                    void* stream) {
   return by_dim<MODE_OUT>(q, k, v, mask, o, nullptr, nullptr, B, H, L, D, causal, scale, stream);
 }
 
-// As dfly_flash_fwd_sm90, and lse: contiguous [B, H, L] float32.
 extern "C" int dfly_flash_fwd_lse_sm90(const void* q, const void* k, const void* v,
                                        const void* mask, void* o, void* lse, int B, int H, int L,
                                        int D, int causal, float scale, void* stream) {
   return by_dim<MODE_LSE>(q, k, v, mask, o, lse, nullptr, B, H, L, D, causal, scale, stream);
 }
 
-// The partial mode, never causal: acc contiguous [B, H, L, D] float32,
-// row_max and row_sum contiguous [B, H, L] float32.
 extern "C" int dfly_flash_fwd_partial_sm90(const void* q, const void* k, const void* v,
                                            const void* mask, void* acc, void* row_max,
                                            void* row_sum, int B, int H, int L, int D, float scale,
@@ -437,8 +431,6 @@ extern "C" int dfly_flash_fwd_partial_sm90(const void* q, const void* k, const v
                               stream);
 }
 
-// The wide instances, one entry per mode: arguments as the entries above,
-// D in (128, 256] with D % 8 == 0.
 extern "C" int dfly_flash_fwd_wide_sm90(const void* q, const void* k, const void* v,
                                         const void* mask, void* o, int B, int H, int L, int D,
                                         int causal, float scale, void* stream) {

@@ -38,10 +38,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_entries.h"
+
 namespace sm90 {
 
 // a TMA descriptor cuTensorMapEncodeTiled refused: the entry returns this + the CUresult
-constexpr int TMAP_ERROR = 10000;
+constexpr int TMAP_ERROR = DFLY_TMAP_ERROR;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

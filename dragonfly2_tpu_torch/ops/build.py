@@ -1,37 +1,56 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's CUDA sources and their host launcher, and load the launcher.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``, where
-the hash covers the source, every header it includes from ``csrc/`` (the
-``#include "..."`` lines, followed through the headers), the flags and the
-compiler path, so an edited source or header builds anew and an unchanged
-one is reused. The build happens at
-first use, on the machine with the card; nothing here runs at import.
+Each ``csrc/<name>.cu`` exposes a plain C interface (declared in
+``csrc/flash_entries.h``) and is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into ``_build/lib<name>-<hash>.so``, where the hash covers
+the source, every header it includes from ``csrc/`` (the ``#include "..."``
+lines, followed through the headers), the flags and the compiler path, so
+an edited source or header builds anew and an unchanged one is reused.
+
+``csrc/flash_launch.cpp`` is the host launcher through which ops/flash.py
+makes every launch: a CPython extension module compiled by ``g++``
+against PyTorch's per-operator headers (never ``torch/extension.h``) and
+Python's, and linked to the kernel libraries (found beside it through an
+rpath of ``$ORIGIN``) and to PyTorch's, into
+``_build/libflash_launch-<hash>.so``. Its hash also covers the PyTorch
+version, the C++ ABI flag and the kernel libraries' names, which hold their
+own hashes. Its object compiles together with the kernel sources; the link
+follows them.
+
+The build happens at first use, on the machine with the card, and a failed
+one raises; nothing here runs at import.
 """
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import pathlib
 import re
 import shutil
 import subprocess
+import sysconfig
 import threading
+import time
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+LAUNCHER = "flash_launch"  # csrc/flash_launch.cpp
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-w")
+# PyTorch's and the CUDA runtime's libraries the launcher calls into
+LAUNCHER_LIBS = ("-lc10", "-lc10_cuda", "-ltorch_cpu", "-ltorch_python", "-lcudart")
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_launcher = None
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
@@ -46,11 +65,23 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); CUDA kernels build on the GPU machine")
 
 
+def cxx_path() -> str:
+    compiler = shutil.which("g++")
+    if compiler is None:
+        raise RuntimeError("g++ not found: it builds the kernels' host launcher")
+    return compiler
+
+
+def kernel_sources() -> list[str]:
+    """The kernel sources, ``csrc/<name>.cu``, by name."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
 def _source_files(name: str) -> list[pathlib.Path]:
-    """``csrc/<name>.cu`` and the csrc files it includes with quotes,
-    directly or through another such header, each once, in the order
-    first met."""
-    files, pending = [], [CSRC_DIR / f"{name}.cu"]
+    """``csrc/<name>.cu`` (``.cpp`` for the launcher) and the csrc files it
+    includes with quotes, directly or through another such header, each
+    once, in the order first met."""
+    files, pending = [], [CSRC_DIR / (f"{name}.cpp" if name == LAUNCHER else f"{name}.cu")]
     while pending:
         path = pending.pop(0)
         if path in files:
@@ -63,50 +94,144 @@ def _source_files(name: str) -> list[pathlib.Path]:
     return files
 
 
-def _library_path(name: str, nvcc: str) -> pathlib.Path:
+def _hashed_path(name: str, *settings) -> pathlib.Path:
+    """``_build/lib<name>-<hash>.so``, the hash over the source, the csrc
+    headers it includes and ``settings``."""
     digest = hashlib.sha256()
     for path in _source_files(name):
         digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
-    digest.update(repr((NVCC_FLAGS, nvcc)).encode())
+    digest.update(repr(settings).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all(names: list[str]) -> dict[str, str]:
-    """Compile every named source that is not built yet, one nvcc process
-    per source, all started together; raises if any compile fails. Returns
-    each source's compiler report (ptxas registers, shared memory and
-    spills), empty for a source that was already built."""
+def _library_path(name: str, nvcc: str) -> pathlib.Path:
+    return _hashed_path(name, NVCC_FLAGS, nvcc)
+
+
+def launcher_flags(kernel_libraries: list[pathlib.Path]) -> tuple[list[str], list[str]]:
+    """(compile flags, link flags) of the launcher: PyTorch's include dirs
+    with the CUDA runtime's and Python's, PyTorch's C++ ABI, and a link to
+    the kernel libraries by name with an rpath of ``$ORIGIN`` (they sit
+    beside it) and to PyTorch's and the CUDA runtime's libraries."""
+    import torch
+    from torch.utils import cpp_extension
+
+    python_include = sysconfig.get_paths()["include"]
+    if not os.path.isfile(os.path.join(python_include, "Python.h")):
+        raise RuntimeError(f"Python.h not found in {python_include}: the launcher is a CPython "
+                           "extension module and needs Python's headers")
+    includes = [*cpp_extension.include_paths(device_type="cuda"), python_include]
+    compile_flags = [*CXX_FLAGS, f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+                     *(f"-I{d}" for d in includes)]
+    link_flags = ["-shared", f"-L{BUILD_DIR}", *(f"-l:{p.name}" for p in kernel_libraries),
+                  "-Wl,-rpath,$ORIGIN",
+                  *(f"-L{d}" for d in cpp_extension.library_paths(device_type="cuda")),
+                  *LAUNCHER_LIBS]
+    return compile_flags, link_flags
+
+
+def _launcher_path(cxx: str, flags: tuple[list[str], list[str]]) -> pathlib.Path:
+    import torch
+
+    return _hashed_path(LAUNCHER, flags, cxx, torch.__version__,
+                        bool(torch._C._GLIBCXX_USE_CXX11_ABI))
+
+
+def _launcher_build():
+    """(path, compile command, link command) of the launcher; the compile
+    writes an object file beside the path, the link a temporary file."""
+    cxx, nvcc = cxx_path(), nvcc_path()
+    flags = launcher_flags([_library_path(name, nvcc) for name in kernel_sources()])
+    path = _launcher_path(cxx, flags)
+    obj = path.with_name(f"{path.name}.{os.getpid()}.o")
+    compile_cmd = [cxx, *flags[0], "-c", str(CSRC_DIR / f"{LAUNCHER}.cpp"), "-o", str(obj)]
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    link_cmd = [cxx, str(obj), *flags[1], "-o", str(tmp)]
+    return path, compile_cmd, link_cmd
+
+
+def _run_together(commands: dict[str, list[str]], reports: dict) -> dict[str, int]:
+    """Start every command at once and wait for all; each one's output and
+    seconds go to ``reports``. Returns each one's exit code."""
+    start, procs, codes = time.perf_counter(), {}, {}
+    for name, cmd in commands.items():
+        log = pathlib.Path(cmd[cmd.index("-o") + 1] + ".log")  # beside what the command writes
+        with open(log, "w") as sink:
+            procs[name] = (subprocess.Popen(cmd, stdout=sink, stderr=subprocess.STDOUT), log)
+    while procs:
+        for name, (proc, log) in list(procs.items()):
+            if proc.poll() is not None:
+                codes[name] = proc.returncode
+                reports[name] = (log.read_text(), time.perf_counter() - start)
+                log.unlink()
+                del procs[name]
+        time.sleep(0.02)
+    return codes
+
+
+def build_all(names: list[str]) -> dict[str, tuple[str, float]]:
+    """Build every named source that is not built yet (the kernel sources
+    by name, the launcher as LAUNCHER; naming the launcher builds every
+    kernel source too): one nvcc process per kernel source and g++ for the
+    launcher's object, all started together, then the launcher's link.
+    Raises if any step fails. Returns each one's compiler report (ptxas
+    registers, shared memory and spills for a kernel source) and seconds
+    (the launcher's: its compile's and its link's), ("", 0.0) for one
+    already built."""
     nvcc = nvcc_path()
+    if LAUNCHER in names:
+        names = sorted(set(names) | set(kernel_sources()))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _library_path(name, nvcc) for name in names}
-    procs, logs = {}, {name: "" for name in names}
-    for name, path in paths.items():
-        if path.exists():
-            continue
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
-            tmp.unlink(missing_ok=True)
+    steps = {}  # name -> (command, the file it writes, the built file)
+    for name in names:
+        if name == LAUNCHER:
+            path, cmd, link_cmd = _launcher_build()
         else:
-            os.replace(tmp, paths[name])
+            path = _library_path(name, nvcc)
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        if not path.exists():
+            steps[name] = (cmd, pathlib.Path(cmd[cmd.index("-o") + 1]), path)
+    reports = {name: ("", 0.0) for name in names}
+    codes = _run_together({name: cmd for name, (cmd, _, _) in steps.items()}, reports)
+    failed = []
+    for name, (cmd, out, path) in steps.items():
+        if codes[name] != 0:
+            failed.append(f"{name}: {cmd[0]} exited {codes[name]}\n{reports[name][0]}")
+            out.unlink(missing_ok=True)
+        elif name != LAUNCHER:
+            os.replace(out, path)
+    if LAUNCHER in steps and not failed:  # link once every kernel library is in place
+        _, obj, path = steps[LAUNCHER]
+        start = time.perf_counter()
+        linked = subprocess.run(link_cmd, capture_output=True, text=True)
+        obj.unlink()
+        report, seconds = reports[LAUNCHER]
+        reports[LAUNCHER] = (report + linked.stdout + linked.stderr,
+                             seconds + time.perf_counter() - start)
+        if linked.returncode != 0:
+            failed.append(f"{LAUNCHER}: link exited {linked.returncode}\n{linked.stderr}")
+        else:
+            os.replace(link_cmd[-1], path)
+    elif LAUNCHER in steps:
+        steps[LAUNCHER][1].unlink(missing_ok=True)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return logs
+    return reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            build_all([name])
-            lib = _loaded[name] = ctypes.CDLL(str(_library_path(name, nvcc_path())))
-        return lib
+def launcher():
+    """The launcher module, building it and the kernel libraries it links
+    at first use."""
+    global _launcher
+    if _launcher is None:
+        with _lock:
+            if _launcher is None:
+                build_all([LAUNCHER])
+                path = _launcher_build()[0]
+                loader = importlib.machinery.ExtensionFileLoader(LAUNCHER, str(path))
+                spec = importlib.util.spec_from_file_location(LAUNCHER, path, loader=loader)
+                module = importlib.util.module_from_spec(spec)
+                loader.exec_module(module)
+                _launcher = module
+    return _launcher

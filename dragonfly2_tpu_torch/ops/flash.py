@@ -32,6 +32,13 @@ that kernel from D) and splits D into 256-column chunks only above. The
 head dim and ``_sm90_path`` pick one from the shape and dtype alone; a
 refused launch raises, it never falls back to another.
 
+Every launch goes through one compiled host launcher,
+csrc/flash_launch.cpp (built with the kernels by ops/build.py), called at
+one site, ``_launch``: Python routes the call to an instance and the
+launcher checks the operands, allocates the outputs, enters the device and
+launches on its current stream, in C++: at the ranker's short sets these
+steps, not the kernels, set a call's time (PERF.md).
+
 Every wrapper launches its kernel on a CUDA tensor, or raises; on a CPU
 tensor it takes the kernel's plain version, and only then. Each function
 has a launch counter (``LAUNCHES``, ``LSE_LAUNCHES``, ``PARTIAL_LAUNCHES``,
@@ -68,7 +75,6 @@ a CUDA tensor never runs a plain version; a refused launch raises.
 
 from __future__ import annotations
 
-import ctypes
 import math
 import threading
 
@@ -82,7 +88,7 @@ HEAD_DIMS = (16, 32, 64, 128)  # the mma.sync and Hopper instances
 # the wide instances take any D above HEAD_DIMS[-1] with D % 8 == 0; their
 # Hopper ones, of the forward, dK/dV and dQ, D up to WIDE_SM90_MAX_DIM
 WIDE_SM90_MAX_DIM = 256
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPES = (torch.bfloat16, torch.float32)
 _NEG = -1e30
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
@@ -135,64 +141,54 @@ WIDE_SM90_MIN_L = 32
 WIDE_DKV_SM90_MIN_L = 20
 WIDE_DQ_SM90_MIN_L = 32
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry -> (source in csrc/, argtypes); every entry takes the pointers,
-# the ints, the softmax scale and the stream, and returns a cudaError_t
-_ENTRIES = {
-    "dfly_flash_fwd": ("flash_fwd", [_P] * 5 + [_I] * 7 + [_F, _P]),
-    "dfly_flash_fwd_lse": ("flash_fwd", [_P] * 6 + [_I] * 7 + [_F, _P]),
-    "dfly_flash_fwd_partial": ("flash_fwd", [_P] * 7 + [_I] * 6 + [_F, _P]),
-    "dfly_flash_bwd_dkv": ("flash_bwd", [_P] * 9 + [_I] * 7 + [_F, _P]),
-    "dfly_flash_bwd_dq": ("flash_bwd", [_P] * 8 + [_I] * 7 + [_F, _P]),
-    "dfly_flash_fwd_sm90": ("flash_fwd_sm90", [_P] * 5 + [_I] * 5 + [_F, _P]),
-    "dfly_flash_fwd_lse_sm90": ("flash_fwd_sm90", [_P] * 6 + [_I] * 5 + [_F, _P]),
-    "dfly_flash_fwd_partial_sm90": ("flash_fwd_sm90", [_P] * 7 + [_I] * 4 + [_F, _P]),
-    "dfly_flash_bwd_dkv_sm90": ("flash_bwd_dkv_sm90", [_P] * 9 + [_I] * 5 + [_F, _P]),
-    "dfly_flash_bwd_dq_sm90": ("flash_bwd_dq_sm90", [_P] * 8 + [_I] * 5 + [_F, _P]),
-    "dfly_flash_fwd_wide": ("flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _P]),
-    "dfly_flash_fwd_lse_wide": ("flash_fwd", [_P] * 6 + [_I] * 6 + [_F, _P]),
-    "dfly_flash_fwd_partial_wide": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_F, _P]),
-    "dfly_flash_bwd_dkv_wide": ("flash_bwd", [_P] * 9 + [_I] * 6 + [_F, _P]),
-    "dfly_flash_bwd_dq_wide": ("flash_bwd", [_P] * 8 + [_I] * 6 + [_F, _P]),
-    "dfly_flash_fwd_wide_sm90": ("flash_fwd_sm90", [_P] * 5 + [_I] * 5 + [_F, _P]),
-    "dfly_flash_fwd_lse_wide_sm90": ("flash_fwd_sm90", [_P] * 6 + [_I] * 5 + [_F, _P]),
-    "dfly_flash_fwd_partial_wide_sm90": ("flash_fwd_sm90", [_P] * 7 + [_I] * 4 + [_F, _P]),
-    "dfly_flash_bwd_dkv_wide_sm90": ("flash_bwd_dkv_sm90", [_P] * 9 + [_I] * 5 + [_F, _P]),
-    "dfly_flash_bwd_dq_wide_sm90": ("flash_bwd_dq_sm90", [_P] * 8 + [_I] * 5 + [_F, _P]),
+# The instances, as the launcher (csrc/flash_launch.cpp) numbers them; the
+# mma.sync one also takes its warps (``warps_for``).
+MMA_SYNC, WIDE, SM90, WIDE_SM90 = 0, 1, 2, 3
+# each kind of launch (a function of the launcher): its mma.sync C entry,
+# its counter and the prefix of its other instances' counters
+_KINDS = {
+    "fwd": ("dfly_flash_fwd", "LAUNCHES", "FWD"),
+    "lse": ("dfly_flash_fwd_lse", "LSE_LAUNCHES", "LSE"),
+    "partial": ("dfly_flash_fwd_partial", "PARTIAL_LAUNCHES", "PARTIAL"),
+    "dkv": ("dfly_flash_bwd_dkv", "DKV_LAUNCHES", "DKV"),
+    "dq": ("dfly_flash_bwd_dq", "DQ_LAUNCHES", "DQ"),
 }
-_entries: dict[str, tuple] = {}
+_SUFFIXES = {MMA_SYNC: "", WIDE: "_wide", SM90: "_sm90", WIDE_SM90: "_wide_sm90"}
+# (kind, instance) -> (C entry, the counters its launch adds to)
+_ROUTES = {
+    (kind, instance): (base + suffix,
+                       (total,) if instance == MMA_SYNC
+                       else (total, f"{part}{suffix.upper()}_LAUNCHES"))
+    for kind, (base, total, part) in _KINDS.items() for instance, suffix in _SUFFIXES.items()
+}
+# C entry -> (kind, instance): the 20 entries the launcher calls
+ENTRIES = {name: route for route, (name, _) in _ROUTES.items()}
 
 
-def _entry(name: str):
-    """(C function, its library) for one entry, building the source if needed."""
-    if name not in _entries:
-        source, argtypes = _ENTRIES[name]
-        lib = build.load(source)
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        lib.dfly_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.dfly_cuda_error_string.restype = ctypes.c_char_p
-        _entries[name] = (fn, lib)
-    return _entries[name]
+def _launch(name: str, q, *args):
+    """Launch C entry ``name`` through the compiled launcher (built by
+    ops/build.py at first use): it checks q and the other operands, raises
+    ValueError or TypeError for what the kernels do not take, allocates the
+    outputs on q's device, launches on that device's current stream and
+    raises RuntimeError if the launch is refused. Returns the outputs. The
+    one call site of every launch."""
+    kind, instance = ENTRIES[name]
+    return getattr(build.launcher(), kind)(instance, q, *args)
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch one kernel on the device's current stream; raise if refused.
-    The launch goes to the current device, so another device's is made
-    current for it; the usual call, on the current device, skips that
-    context's two device switches (a tenth of a short set's wrapper on
-    the host, PERF.md)."""
-    fn, lib = _entry(name)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if device.index is None or device.index == torch.cuda.current_device():
-        err = fn(*args, stream)
-    else:
-        with torch.cuda.device(device):
-            err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{name} launch failed: {lib.dfly_cuda_error_string(err).decode()} ({err})"
-        )
+def _kernel(kind: str, q, *args):
+    """The launch of ``kind`` ("fwd", "lse", "partial", "dkv", "dq") at the
+    instance q's shape and dtype select, with the kind's other operands,
+    and its counters; returns the outputs. An empty q launches nothing."""
+    _, _, l, d = q.shape
+    instance = WIDE if _is_wide(d) else MMA_SYNC
+    if _sm90_path(l, d, q.dtype, kind):
+        instance += SM90
+    name, counters = _ROUTES[kind, instance]
+    outputs = _launch(name, q, *args, warps_for(l))
+    if q.numel():
+        _count(*counters)
+    return outputs
 
 
 def _count(*counters: str) -> None:
@@ -208,11 +204,12 @@ def warps_for(length: int) -> int:
 
 
 def _sm90_path(length: int, head_dim: int, dtype: torch.dtype, kernel: str = "fwd") -> bool:
-    """Whether ``kernel`` ("fwd" for the forward's three modes, "dkv",
-    "dq") takes its Hopper instance: bf16 at L above SM90_MIN_L at the head
-    dims of HEAD_DIMS, and at a wide head dim up to WIDE_SM90_MAX_DIM above
-    WIDE_SM90_MIN_L (the forward), WIDE_DKV_SM90_MIN_L (dK/dV) or
-    WIDE_DQ_SM90_MIN_L (dQ). Shape and dtype alone decide."""
+    """Whether ``kernel`` ("fwd", "lse" or "partial" for the forward's
+    three modes, "dkv", "dq") takes its Hopper instance: bf16 at L above
+    SM90_MIN_L at the head dims of HEAD_DIMS, and at a wide head dim up to
+    WIDE_SM90_MAX_DIM above WIDE_SM90_MIN_L (the forward),
+    WIDE_DKV_SM90_MIN_L (dK/dV) or WIDE_DQ_SM90_MIN_L (dQ). Shape and dtype
+    alone decide."""
     if dtype != torch.bfloat16:
         return False
     if head_dim in HEAD_DIMS:
@@ -229,7 +226,7 @@ def _check(q, k, v, kv_mask) -> None:
             f"flash attention takes equal [B, H, L, D] q/k/v, got "
             f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}"
         )
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash attention takes bf16 or float32 q/k/v of one dtype, got "
             f"{q.dtype} {k.dtype} {v.dtype}"
@@ -272,7 +269,7 @@ def _padded_route(q) -> bool:
     shape alone: a tensor off the CPU (the kernels' route) whose D is not a
     kernel's (``_kernel_dim``)."""
     d = q.shape[-1]
-    return q.device.type != "cpu" and _kernel_dim(d) != d
+    return not q.is_cpu and _kernel_dim(d) != d
 
 
 def _padded(*tensors):
@@ -290,19 +287,12 @@ def _scale(q) -> float:
     return 1.0 / math.sqrt(q.shape[-1])
 
 
-def _pointers(*tensors):
-    """Device pointers in C order (None, an absent kv_mask, as null); the
-    kernels load [B, H, L, D] rows as 16-byte vectors."""
-    if any(t is not None and t.dim() == 4 and t.data_ptr() % 16 for t in tensors):
-        raise ValueError("flash attention operands must be 16-byte aligned")
-    return [None if t is None else t.data_ptr() for t in tensors]
-
-
 def _need_cuda(q) -> None:
-    if q.device.type != "cuda":
+    """The kernels' route takes CUDA tensors; the launcher checks the rest."""
+    if not q.is_cuda:
         raise ValueError(
-            f"the backward kernels take CUDA tensors, not {q.device}; "
-            "flash_attention_bwd takes the plain version on the CPU"
+            f"the flash kernels take CUDA tensors, not {q.device}: flash attention runs on cuda "
+            "or cpu, and on the CPU the wrappers take the plain versions"
         )
 
 
@@ -331,37 +321,15 @@ def flash_attention_plain(q, k, v, kv_mask=None, causal: bool = False) -> torch.
 def _flash_forward(q, k, v, kv_mask, causal: bool) -> torch.Tensor:
     """Finished output, no autograd: the kernel on CUDA, the plain version
     on the CPU."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
+        _check(q, k, v, kv_mask)
         return flash_attention_plain(q, k, v, kv_mask, causal)
     if _padded_route(q):
-        o = _forward_kernel(*_padded(q, k, v), kv_mask, causal, _scale(q))
+        _check(q, k, v, kv_mask)
+        o = _kernel("fwd", *_padded(q, k, v), kv_mask, causal, _scale(q))
         return o[..., : q.shape[-1]].contiguous()
-    return _forward_kernel(q, k, v, kv_mask, causal, _scale(q))
-
-
-def _forward_kernel(q, k, v, kv_mask, causal: bool, scale: float) -> torch.Tensor:
-    b, h, l, d = q.shape
-    o = torch.empty_like(q)
-    if o.numel() == 0:
-        return o
-    pointers = _pointers(q, k, v, kv_mask, o)
-    if _is_wide(d) and _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_fwd_wide_sm90", q.device, *pointers, b, h, l, d, int(causal), scale)
-        _count("LAUNCHES", "FWD_WIDE_SM90_LAUNCHES")
-    elif _is_wide(d):
-        _launch("dfly_flash_fwd_wide", q.device, *pointers,
-                b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
-        _count("LAUNCHES", "FWD_WIDE_LAUNCHES")
-    elif _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_fwd_sm90", q.device, *pointers, b, h, l, d, int(causal), scale)
-        _count("LAUNCHES", "FWD_SM90_LAUNCHES")
-    else:
-        _launch(
-            "dfly_flash_fwd", q.device, *pointers,
-            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l), scale,
-        )
-        _count("LAUNCHES")
-    return o
+    _need_cuda(q)
+    return _kernel("fwd", q, k, v, kv_mask, causal, _scale(q))
 
 
 def flash_attention_lse_plain(q, k, v, kv_mask=None, causal: bool = False, scale=None):
@@ -389,40 +357,15 @@ def flash_attention_lse_plain(q, k, v, kv_mask=None, causal: bool = False, scale
 def flash_attention_lse(q, k, v, kv_mask=None, causal: bool = False):
     """(o, lse) of the forward in its save_lse mode: the kernel on CUDA,
     the plain version on the CPU. No autograd of its own."""
-    _check(q, k, v, kv_mask)
-    if q.device.type == "cpu":
+    if q.is_cpu:
+        _check(q, k, v, kv_mask)
         return flash_attention_lse_plain(q, k, v, kv_mask, causal)
     if _padded_route(q):
-        o, lse = _lse_kernel(*_padded(q, k, v), kv_mask, causal, _scale(q))
+        _check(q, k, v, kv_mask)
+        o, lse = _kernel("lse", *_padded(q, k, v), kv_mask, causal, _scale(q))
         return o[..., : q.shape[-1]].contiguous(), lse
-    return _lse_kernel(q, k, v, kv_mask, causal, _scale(q))
-
-
-def _lse_kernel(q, k, v, kv_mask, causal: bool, scale: float):
-    b, h, l, d = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
-    if o.numel() == 0:
-        return o, lse
-    pointers = _pointers(q, k, v, kv_mask, o, lse)
-    if _is_wide(d) and _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_fwd_lse_wide_sm90", q.device, *pointers, b, h, l, d, int(causal),
-                scale)
-        _count("LSE_LAUNCHES", "LSE_WIDE_SM90_LAUNCHES")
-    elif _is_wide(d):
-        _launch("dfly_flash_fwd_lse_wide", q.device, *pointers,
-                b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
-        _count("LSE_LAUNCHES", "LSE_WIDE_LAUNCHES")
-    elif _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_fwd_lse_sm90", q.device, *pointers, b, h, l, d, int(causal), scale)
-        _count("LSE_LAUNCHES", "LSE_SM90_LAUNCHES")
-    else:
-        _launch(
-            "dfly_flash_fwd_lse", q.device, *pointers,
-            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l), scale,
-        )
-        _count("LSE_LAUNCHES")
-    return o, lse
+    _need_cuda(q)
+    return _kernel("lse", q, k, v, kv_mask, causal, _scale(q))
 
 
 def flash_attention_partials_plain(q, k, v, kv_mask=None, scale=None):
@@ -454,45 +397,20 @@ def flash_attention_partials(q, k, v, kv_mask=None):
     Forward-only, as in the reference (the kernel has no gradient): with
     autograd recording and an input that requires grad it raises rather
     than return tensors cut off from the graph."""
-    _check(q, k, v, kv_mask)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError(
             "flash_attention_partials has no gradient: differentiate ring attention "
             "through its einsum path (use_flash=False)"
         )
-    if q.device.type == "cpu":
+    if q.is_cpu:
+        _check(q, k, v, kv_mask)
         return flash_attention_partials_plain(q, k, v, kv_mask)
     if _padded_route(q):
-        acc, row_max, row_sum = _partials_kernel(*_padded(q, k, v), kv_mask, _scale(q))
+        _check(q, k, v, kv_mask)
+        acc, row_max, row_sum = _kernel("partial", *_padded(q, k, v), kv_mask, _scale(q))
         return acc[..., : q.shape[-1]].contiguous(), row_max, row_sum
-    return _partials_kernel(q, k, v, kv_mask, _scale(q))
-
-
-def _partials_kernel(q, k, v, kv_mask, scale: float):
-    b, h, l, d = q.shape
-    acc = torch.empty(b, h, l, d, dtype=torch.float32, device=q.device)
-    row_max = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
-    row_sum = torch.empty_like(row_max)
-    if acc.numel() == 0:
-        return acc, row_max, row_sum
-    pointers = _pointers(q, k, v, kv_mask, acc, row_max, row_sum)
-    if _is_wide(d) and _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_fwd_partial_wide_sm90", q.device, *pointers, b, h, l, d, scale)
-        _count("PARTIAL_LAUNCHES", "PARTIAL_WIDE_SM90_LAUNCHES")
-    elif _is_wide(d):
-        _launch("dfly_flash_fwd_partial_wide", q.device, *pointers,
-                b, h, l, d, _DTYPE_CODES[q.dtype], scale)
-        _count("PARTIAL_LAUNCHES", "PARTIAL_WIDE_LAUNCHES")
-    elif _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_fwd_partial_sm90", q.device, *pointers, b, h, l, d, scale)
-        _count("PARTIAL_LAUNCHES", "PARTIAL_SM90_LAUNCHES")
-    else:
-        _launch(
-            "dfly_flash_fwd_partial", q.device, *pointers,
-            b, h, l, d, _DTYPE_CODES[q.dtype], warps_for(l), scale,
-        )
-        _count("PARTIAL_LAUNCHES")
-    return acc, row_max, row_sum
+    _need_cuda(q)
+    return _kernel("partial", q, k, v, kv_mask, _scale(q))
 
 
 # -------------------------------------------------------------- backward
@@ -544,34 +462,13 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal: bool = Fal
     kernel takes is zero-padded here and the gradients sliced back."""
     _need_cuda(q)
     scale = _scale(q) if scale is None else scale
-    b, h, l, d = q.shape
     if _padded_route(q):
+        _check(q, k, v, kv_mask)
+        d = q.shape[-1]
         qp, kp, vp, dop = _padded(q, k, v, do)
         dk, dv = flash_attention_bwd_dkv(qp, kp, vp, kv_mask, lse, delta, dop, causal, scale)
         return dk[..., :d].contiguous(), dv[..., :d].contiguous()
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if not dk.numel():
-        return dk, dv
-    pointers = _pointers(q, k, v, do, lse, delta, kv_mask, dk, dv)
-    if _is_wide(d) and _sm90_path(l, d, q.dtype, "dkv"):
-        _launch("dfly_flash_bwd_dkv_wide_sm90", q.device, *pointers, b, h, l, d, int(causal),
-                scale)
-        _count("DKV_LAUNCHES", "DKV_WIDE_SM90_LAUNCHES")
-    elif _is_wide(d):
-        _launch("dfly_flash_bwd_dkv_wide", q.device, *pointers,
-                b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
-        _count("DKV_LAUNCHES", "DKV_WIDE_LAUNCHES")
-    elif _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_bwd_dkv_sm90", q.device, *pointers, b, h, l, d, int(causal),
-                scale)
-        _count("DKV_LAUNCHES", "DKV_SM90_LAUNCHES")
-    else:
-        _launch(
-            "dfly_flash_bwd_dkv", q.device, *pointers,
-            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l), scale,
-        )
-        _count("DKV_LAUNCHES")
-    return dk, dv
+    return _kernel("dkv", q, k, v, do, lse, delta, kv_mask, causal, scale)
 
 
 def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal: bool = False,
@@ -580,48 +477,29 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal: bool = Fals
     kernel takes as for dK/dV."""
     _need_cuda(q)
     scale = _scale(q) if scale is None else scale
-    b, h, l, d = q.shape
     if _padded_route(q):
+        _check(q, k, v, kv_mask)
+        d = q.shape[-1]
         qp, kp, vp, dop = _padded(q, k, v, do)
         return flash_attention_bwd_dq(qp, kp, vp, kv_mask, lse, delta, dop, causal,
                                       scale)[..., :d].contiguous()
-    dq = torch.empty_like(q)
-    if not dq.numel():
-        return dq
-    pointers = _pointers(q, k, v, do, lse, delta, kv_mask, dq)
-    if _is_wide(d) and _sm90_path(l, d, q.dtype, "dq"):
-        _launch("dfly_flash_bwd_dq_wide_sm90", q.device, *pointers, b, h, l, d, int(causal),
-                scale)
-        _count("DQ_LAUNCHES", "DQ_WIDE_SM90_LAUNCHES")
-    elif _is_wide(d):
-        _launch("dfly_flash_bwd_dq_wide", q.device, *pointers,
-                b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], scale)
-        _count("DQ_LAUNCHES", "DQ_WIDE_LAUNCHES")
-    elif _sm90_path(l, d, q.dtype):
-        _launch("dfly_flash_bwd_dq_sm90", q.device, *pointers, b, h, l, d, int(causal),
-                scale)
-        _count("DQ_LAUNCHES", "DQ_SM90_LAUNCHES")
-    else:
-        _launch(
-            "dfly_flash_bwd_dq", q.device, *pointers,
-            b, h, l, d, int(causal), _DTYPE_CODES[q.dtype], warps_for(l), scale,
-        )
-        _count("DQ_LAUNCHES")
-    return dq
+    return _kernel("dq", q, k, v, do, lse, delta, kv_mask, causal, scale)
 
 
 def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, causal: bool = False):
     """(dq, dk, dv): the two backward kernels on CUDA, the plain version on
     the CPU. delta = rowsum(dO * o) is one plain reduction before the
     kernels, as the reference computes it outside its kernels
-    (flash.py:562)."""
-    _check(q, k, v, kv_mask)
+    (flash.py:562); o, lse and dO are checked before it, q, k, v and the
+    mask by the launcher on CUDA."""
     _bwd_check(q, o, lse, do)
-    if q.device.type == "cpu":
+    if q.is_cpu:
+        _check(q, k, v, kv_mask)
         return flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal)
     scale, d = _scale(q), q.shape[-1]
     padded = _padded_route(q)
     if padded:  # o and dO pad with zeros too: delta = rowsum(dO * o) is unchanged
+        _check(q, k, v, kv_mask)
         q, k, v, o, do = _padded(q, k, v, o, do)
     delta = (do.float() * o.float()).sum(-1)
     dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal, scale)
@@ -655,8 +533,9 @@ def flash_attention(q, k, v, kv_mask=None, causal: bool = False) -> torch.Tensor
 
     Drop-in for dense_attention and for models/attention.py's injectable
     attention_fn: invalid keys contribute nothing and fully masked rows
-    return 0. Output has q's dtype. Differentiable in q, k and v."""
-    _check(q, k, v, kv_mask)
+    return 0. Output has q's dtype. Differentiable in q, k and v. The
+    operands are checked once, on the route taken: by the plain version's
+    wrapper on the CPU, by the launcher on CUDA."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, kv_mask, causal)
     return _flash_forward(q, k, v, kv_mask, causal)

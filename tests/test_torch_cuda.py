@@ -336,10 +336,10 @@ def test_sm90_path_never_reaches_the_plain_version_or_the_mma_sync_instance(monk
     for name in ("flash_attention_plain", "dense_attention", "flash_attention_lse_plain",
                  "flash_attention_partials_plain", "flash_attention_bwd_plain"):
         monkeypatch.setattr(flash, name, refuse)
-    launched = []
+    launched = []  # the launches made: the launcher checks the operands before it launches
     real = flash._launch
     monkeypatch.setattr(flash, "_launch",
-                        lambda name, *a: launched.append(name) or real(name, *a))
+                        lambda name, *a: (real(name, *a), launched.append(name))[0])
     q, k, v, do, mask = _training_inputs((2, 2, 300, 64), torch.bfloat16, seed=4)
     flash.flash_attention(q, k, v, mask)
     flash.flash_attention_partials(q, k, v, mask)
@@ -794,6 +794,142 @@ def test_wide_instances_take_float32():
         assert g.dtype == torch.float32, name
         torch.testing.assert_close(g, w, atol=GRAD_ATOL, rtol=GRAD_RTOL,
                                    msg=lambda m, name=name: f"{name}: {m}")
+
+
+# ---------------------------- the host launcher (csrc/flash_launch.cpp)
+
+COUNTERS = ("LAUNCHES", "LSE_LAUNCHES", "PARTIAL_LAUNCHES", "DKV_LAUNCHES", "DQ_LAUNCHES")
+
+
+def _all_counts():
+    return {name: getattr(flash, name) for name in COUNTERS}
+
+
+def _every_kind(q, k, v, do, mask, lse, delta):
+    """One launch of each kind of the launcher, through the wrappers."""
+    with torch.no_grad():
+        fwd = flash.flash_attention(q, k, v, mask, True)
+    return (fwd, flash.flash_attention_lse(q, k, v, mask, True),
+            flash.flash_attention_partials(q, k, v, mask),
+            flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do, True),
+            flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, True))
+
+
+def _flat(outputs):
+    flat = []
+    for out in outputs:
+        flat.extend(out if isinstance(out, tuple) else (out,))
+    return flat
+
+
+@pytest.mark.parametrize("d", [32, 192])
+def test_the_launcher_launches_on_the_current_stream(d):
+    """Every kind launched under a side stream goes to that stream: the
+    side stream first sleeps, then writes the operands; a launch on any
+    other stream would read them before they are written. Read after the
+    side stream syncs, the outputs equal the same calls' on the default
+    stream."""
+    _need_card()
+    q, k, v, do, mask = _training_inputs((64, 4, 20, d), torch.bfloat16, seed=21)
+    o, lse = flash.flash_attention_lse(q, k, v, mask, True)
+    delta = (do.float() * o.float()).sum(-1)
+    want = _flat(_every_kind(q, k, v, do, mask, lse, delta))
+    late = [torch.full_like(t, 7.0) for t in (q, k, v, do)]  # what a stream that does not wait reads
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        for t, source in zip(late, (q, k, v, do)):
+            t.copy_(source)
+        got = _flat(_every_kind(*late, mask, lse, delta))
+    side.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("d", [32, 192])
+def test_launches_from_two_threads_give_the_single_thread_result(d):
+    """Two worker threads launching at once, as the inference server's
+    do, with the interpreter switching threads as often as it can: every
+    output equals the single thread's and every launch is counted."""
+    import sys
+    import threading
+
+    _need_card()
+    q, k, v, do, mask = _training_inputs((256, 4, 20, d), torch.bfloat16, seed=22)
+    want = flash.flash_attention_lse(q, k, v, mask)
+    torch.cuda.synchronize()
+    before = flash.LSE_LAUNCHES
+    calls, results, errors = 100, {}, []
+    barrier = threading.Barrier(2)
+
+    def worker(i):
+        try:
+            barrier.wait(timeout=30)
+            outs = [flash.flash_attention_lse(q, k, v, mask) for _ in range(calls)]
+            torch.cuda.synchronize()
+            results[i] = outs
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert sorted(results) == [0, 1] and flash.LSE_LAUNCHES == before + 2 * calls
+    for outs in results.values():
+        for o, lse in outs:
+            assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+
+
+@pytest.mark.parametrize("misuse,error,match", [
+    ("cpu_operand", ValueError, "one device"),
+    ("mixed_dtypes", TypeError, "dtype"),
+    ("non_contiguous", ValueError, "contiguous"),
+    ("misaligned", ValueError, "aligned"),
+])
+def test_each_misuse_raises_before_any_launch(misuse, error, match):
+    """What the kernels do not take raises its Python type from the
+    launcher, for every kind, with nothing counted and no kernel run: a
+    CPU operand beside CUDA ones, k of another dtype, a non-contiguous or
+    a misaligned k."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _need_card()
+    q, k, v, do, mask = _training_inputs((8, 4, 20, 32), torch.bfloat16, seed=23)
+    o, lse = flash.flash_attention_lse(q, k, v, mask)
+    delta = (do.float() * o.float()).sum(-1)
+    bad = {
+        "cpu_operand": lambda: k.cpu(),
+        "mixed_dtypes": lambda: k.float(),
+        "non_contiguous": lambda: k.transpose(2, 3).contiguous().transpose(2, 3),
+        "misaligned": lambda: torch.empty(k.numel() + 4, dtype=k.dtype,
+                                          device="cuda")[4:].view(k.shape).copy_(k),
+    }[misuse]()
+    calls = [
+        lambda: flash._flash_forward(q, bad, v, mask, False),
+        lambda: flash.flash_attention_lse(q, bad, v, mask),
+        lambda: flash.flash_attention_partials(q, bad, v, mask),
+        lambda: flash.flash_attention_bwd_dkv(q, bad, v, mask, lse, delta, do),
+        lambda: flash.flash_attention_bwd_dq(q, bad, v, mask, lse, delta, do),
+    ]
+    torch.cuda.synchronize()
+    before = _all_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            with pytest.raises(error, match=match):
+                call()
+        torch.cuda.synchronize()
+    assert _all_counts() == before
+    assert not [e.name for e in prof.events() if "flash" in e.name
+                and e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 # ------------------------------------------------- the scheduler's tick

@@ -1,12 +1,16 @@
-"""The choice between the flash kernels' two instances (ops/flash.py's
-``_sm90_path``), the ctypes signatures of every C entry, and the build's
-content hash over the headers a source includes. Jax-free and CPU-only:
+"""The choice between the flash kernels' instances (ops/flash.py's
+``_sm90_path``) and the launches each wrapper makes through the launcher's
+one call site, every C entry's declaration in csrc/flash_entries.h
+against its definition and the launcher's call of it, and the build: the
+launcher's command and the content hashes over the headers a source
+includes. Jax-free and CPU-only:
 the kernels themselves are held to their plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import math
 import pathlib
 import re
+import sysconfig
 
 import pytest
 import torch
@@ -61,11 +65,22 @@ def test_a_head_dim_no_kernel_takes_is_never_the_hopper_path():
 
 
 class _Recorder:
+    """Stands in for ``flash._launch``: records (C entry, q, the other
+    arguments) and returns outputs of the launcher's shapes on q's device."""
+
     def __init__(self):
         self.calls = []
 
-    def __call__(self, name, device, *args):
-        self.calls.append((name, args))
+    def __call__(self, name, q, *args):
+        self.calls.append((name, q, args))
+        rows = q[..., 0].float()  # [B, H, L] float32
+        return {
+            "fwd": lambda: torch.empty_like(q),
+            "lse": lambda: (torch.empty_like(q), rows),
+            "partial": lambda: (q.float(), rows, rows.clone()),
+            "dkv": lambda: (torch.empty_like(q), torch.empty_like(q)),
+            "dq": lambda: torch.empty_like(q),
+        }[flash.ENTRIES[name][0]]()
 
 
 @pytest.fixture
@@ -116,22 +131,40 @@ _COUNTERS = {
 def test_each_wrapper_launches_the_instance_its_shape_selects(routed, entry, shape, dtype, hopper):
     q, mask = _meta(shape, dtype)
     _CALLS[entry](q, mask)
-    (name, args), = routed.calls
+    (name, q_seen, args), = routed.calls
     b, h, l, d = shape
     total, sm90 = _COUNTERS[entry]
     assert getattr(flash, total) == 1 and getattr(flash, sm90) == int(hopper)
-    argtypes = flash._ENTRIES[name][1]
-    assert len(args) == len(argtypes) - 1  # the wrapper adds the stream
-    args, scale = args[:-1], args[-1]  # the softmax scale comes last
-    assert scale == 1 / math.sqrt(shape[3])
-    # the partial mode takes no causal flag; the others take causal=True here
-    dims = args[-4:] if entry == "dfly_flash_fwd_partial" else args[-5:-1]
-    if hopper:
-        assert name == SM90_ENTRIES[entry] and dims == (b, h, l, d)
+    assert name == (SM90_ENTRIES[entry] if hopper else entry)
+    assert flash.ENTRIES[name] == (_KIND[entry], flash.SM90 if hopper else flash.MMA_SYNC)
+    _check_launch_arguments(entry, q_seen, args, shape, (b, h, l, d), dtype, mask)
+
+
+# the launcher's kind of launch for each wrapper's entry
+_KIND = {"dfly_flash_fwd": "fwd", "dfly_flash_fwd_lse": "lse",
+         "dfly_flash_fwd_partial": "partial", "dfly_flash_bwd_dkv": "dkv",
+         "dfly_flash_bwd_dq": "dq"}
+
+
+def _check_launch_arguments(entry, q, args, shape, kernel_shape, dtype, mask):
+    """The arguments of one launch: q at the kernel's head dim and dtype,
+    k, v (and the backward's dO, lse, delta) of q's shape, the key mask,
+    causal (True in _CALLS) where the kind has it, the unpadded D's softmax
+    scale and warps_for(L), which only the mma.sync instances use."""
+    l, d = shape[2], shape[3]
+    assert tuple(q.shape) == kernel_shape and q.dtype == dtype
+    *operands, scale, warps = args
+    assert scale == 1 / math.sqrt(d) and warps == flash.warps_for(l)
+    if entry == "dfly_flash_fwd_partial":
+        k, v, kv_mask = operands
+    elif entry in ("dfly_flash_fwd", "dfly_flash_fwd_lse"):
+        k, v, kv_mask, causal = operands
+        assert causal is True
     else:
-        assert name == entry and args[-2:] == (flash._DTYPE_CODES[dtype], flash.warps_for(l))
-        dims = args[-6:-2] if entry == "dfly_flash_fwd_partial" else args[-7:-3]
-        assert dims == (b, h, l, d)
+        k, v, do, lse, delta, kv_mask, causal = operands
+        assert causal is True and tuple(do.shape) == kernel_shape
+        assert tuple(lse.shape) == tuple(delta.shape) == kernel_shape[:3]
+    assert tuple(k.shape) == tuple(v.shape) == kernel_shape and kv_mask is mask
 
 
 WIDE_ENTRIES = {name: f"{name}_wide" for name in _CALLS}
@@ -191,14 +224,13 @@ def test_head_dim_256_launches_the_wide_instance_at_every_length(monkeypatch, ro
     Hopper one for the forward above WIDE_SM90_MIN_L, for dK/dV above
     WIDE_DKV_SM90_MIN_L and for dQ above WIDE_DQ_SM90_MIN_L, in bf16 at D
     up to 256, else the wide mma.sync
-    one, counted in its total and its own part. The mma.sync entry
-    takes (B, H, L, D, causal, dtype, scale) after the pointers, no warps;
-    the Hopper one (B, H, L, D, causal, scale)."""
+    one, counted in its total and its own part, with the launch's
+    arguments at the head dim the kernel takes."""
     for name in (*WIDE_COUNTERS.values(), *WIDE_SM90_COUNTERS.values()):
         monkeypatch.setattr(flash, name, 0)
     q, mask = _meta(shape, dtype)
     _CALLS[entry](q, mask)
-    (name, args), = routed.calls
+    (name, q_seen, args), = routed.calls
     b, h, l, d = shape
     d_kernel = d + (-d) % 8  # D = 130 is zero-padded to 136, the others go as they are
     min_l = getattr(flash, _WIDE_MIN_L.get(entry, "WIDE_SM90_MIN_L"))
@@ -208,17 +240,8 @@ def test_head_dim_256_launches_the_wide_instance_at_every_length(monkeypatch, ro
     assert getattr(flash, total) == 1 and getattr(flash, sm90) == 0
     assert getattr(flash, WIDE_COUNTERS[entry]) == int(not hopper)
     assert getattr(flash, WIDE_SM90_COUNTERS[entry]) == int(hopper)
-    assert len(args) == len(flash._ENTRIES[name][1]) - 1
-    args, scale = args[:-1], args[-1]
-    assert scale == 1 / math.sqrt(d)
-    assert args[0] is not None and len(args) == len(flash._ENTRIES[name][1]) - 2
-    if hopper:
-        dims = args[-4:] if entry == "dfly_flash_fwd_partial" else args[-5:-1]
-        assert dims == (b, h, l, d_kernel)
-    elif entry == "dfly_flash_fwd_partial":
-        assert args[-5:] == (b, h, l, d_kernel, flash._DTYPE_CODES[dtype])
-    else:
-        assert args[-6:] == (b, h, l, d_kernel, 1, flash._DTYPE_CODES[dtype])
+    assert flash.ENTRIES[name] == (_KIND[entry], flash.WIDE_SM90 if hopper else flash.WIDE)
+    _check_launch_arguments(entry, q_seen, args, shape, (b, h, l, d_kernel), dtype, mask)
 
 
 def test_head_dims_pad_to_the_next_instance_up_to_256():
@@ -262,40 +285,93 @@ def test_cpu_tensors_take_the_plain_versions_at_long_l(monkeypatch):
     assert acc.dtype == torch.float32 and (row_sum > 0).all()
 
 
-# ------------------------------------------- the C entries' ctypes signatures
+# ------------- the C entries: declarations, definitions, the launcher's calls
 
-_EXTERN = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
+_DEFINED = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)\s*\{', re.S)
+_DECLARED = re.compile(r'^int\s+(\w+)\s*\(([^)]*)\);', re.S | re.M)
+_INSTANCE_ENUM = re.compile(r"enum Instance[^{]*\{([^}]*)\}")
 
 
-def _c_signatures():
-    """{entry: (source stem, ['p', 'i' or 'f' per parameter])} of every
-    ``extern "C" int`` function in csrc/*.cu."""
+def _kinds(params: str) -> list[str]:
+    """'p', 'i' or 'f' for each parameter: pointer, int or float."""
+    kinds = []
+    for param in params.split(","):
+        param = " ".join(param.split())
+        assert "*" in param or param.startswith(("int ", "float ")), param
+        kinds.append("p" if "*" in param else param[0])
+    return kinds
+
+
+def _c_definitions():
+    """{entry: (source stem, kinds)} of every ``extern "C" int`` function
+    defined in csrc/*.cu."""
     found = {}
     for path in sorted(build.CSRC_DIR.glob("*.cu")):
-        for name, params in _EXTERN.findall(path.read_text()):
-            kinds = []
-            for param in params.split(","):
-                param = " ".join(param.split())
-                assert "*" in param or param.startswith(("int ", "float ")), (name, param)
-                kinds.append("p" if "*" in param else param[0])
+        for name, params in _DEFINED.findall(path.read_text()):
             assert name not in found, f"{name} defined twice"
-            found[name] = (path.stem, kinds)
+            found[name] = (path.stem, _kinds(params))
     return found
 
 
-def test_every_c_entry_has_argtypes_and_every_argtype_an_entry():
-    assert set(_c_signatures()) == set(flash._ENTRIES)
+def _c_declarations():
+    text = (build.CSRC_DIR / "flash_entries.h").read_text()
+    found = {}
+    for name, params in _DECLARED.findall(text):
+        assert name not in found, f"{name} declared twice"
+        found[name] = _kinds(params)
+    return found
 
 
-@pytest.mark.parametrize("name", sorted(flash._ENTRIES))
-def test_argtypes_match_the_extern_c_signature(name):
-    """Count and order of pointer, int and float parameters: an int where
-    the C side takes a pointer would cut the pointer to 32 bits, and a
-    float passed as an int would arrive as garbage."""
-    source, argtypes = flash._ENTRIES[name]
-    stem, kinds = _c_signatures()[name]
-    assert source == stem
-    assert [{flash._P: "p", flash._I: "i", flash._F: "f"}[t] for t in argtypes] == kinds
+def _launcher_calls(name: str):
+    """(the arguments, the instance case it sits under) of the launcher's
+    one call of entry ``name``."""
+    text = (build.CSRC_DIR / "flash_launch.cpp").read_text()
+    starts = [m.end() for m in re.finditer(rf"\b{name}\(", text)]
+    assert len(starts) == 1, f"the launcher calls {name} {len(starts)} times"
+    depth, args, current = 1, [], ""
+    for char in text[starts[0]:]:
+        depth += (char == "(") - (char == ")")
+        if depth == 0:
+            break
+        if char == "," and depth == 1:
+            args.append(current)
+            current = ""
+        else:
+            current += char
+    args.append(current)
+    case = re.findall(r"case (\w+):", text[:starts[0]])[-1]
+    return [" ".join(a.split()) for a in args], case
+
+
+def test_every_c_entry_is_declared_and_launched():
+    """Every entry the .cu sources define is declared once in
+    flash_entries.h and routed by ops/flash.py, and the launcher numbers
+    its instances as ops/flash.py does."""
+    assert set(_c_definitions()) == set(_c_declarations()) == set(flash.ENTRIES)
+    assert len(flash.ENTRIES) == 20
+    enum = _INSTANCE_ENUM.search((build.CSRC_DIR / "flash_launch.cpp").read_text()).group(1)
+    numbers = dict(item.replace(" ", "").split("=") for item in enum.split(","))
+    assert {name: int(value) for name, value in numbers.items()} == {
+        "MMA_SYNC": flash.MMA_SYNC, "WIDE": flash.WIDE, "SM90": flash.SM90,
+        "WIDE_SM90": flash.WIDE_SM90}
+
+
+@pytest.mark.parametrize("name", sorted(flash.ENTRIES))
+def test_declaration_matches_the_definition_and_the_launcher_calls_it(name):
+    """Count and order of pointer, int and float parameters, declared and
+    defined alike, and the launcher's call of the entry under the case of
+    the instance ops/flash.py routes to it, with as many arguments as it
+    takes and the stream last."""
+    stem, kinds = _c_definitions()[name]
+    assert _c_declarations()[name] == kinds
+    kind, instance = flash.ENTRIES[name]
+    forward, hopper = kind in ("fwd", "lse", "partial"), instance in (flash.SM90, flash.WIDE_SM90)
+    assert stem == ("flash_fwd" if forward else "flash_bwd") + (
+        "" if not hopper else "_sm90" if forward else f"_{kind}_sm90")
+    args, case = _launcher_calls(name)
+    assert len(args) == len(kinds) and args[-1] == "a.stream"
+    assert case == {flash.MMA_SYNC: "MMA_SYNC", flash.WIDE: "WIDE", flash.SM90: "SM90",
+                    flash.WIDE_SM90: "WIDE_SM90"}[instance]
 
 
 # ------------------------------------------------------ the build's hash
@@ -327,8 +403,61 @@ def test_library_path_follows_every_included_header(tmp_path, monkeypatch):
 
 
 def test_the_hopper_sources_hash_their_shared_header():
-    names = [p.name for p in build._source_files("flash_fwd_sm90")]
-    assert names == ["flash_fwd_sm90.cu", "sm90.cuh"]
-    for name in ("flash_bwd_dkv_sm90", "flash_bwd_dq_sm90"):
-        assert [p.name for p in build._source_files(name)] == [f"{name}.cu", "sm90.cuh"]
-    assert [p.name for p in build._source_files("flash_bwd")] == ["flash_bwd.cu"]
+    """Each source hashes the entries' header it includes, the Hopper ones
+    sm90.cuh too, and the launcher its .cpp and the header."""
+    for name in ("flash_fwd_sm90", "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90"):
+        assert [p.name for p in build._source_files(name)] == [
+            f"{name}.cu", "flash_entries.h", "sm90.cuh"]
+    for name in ("flash_fwd", "flash_bwd"):
+        assert [p.name for p in build._source_files(name)] == [f"{name}.cu", "flash_entries.h"]
+    assert [p.name for p in build._source_files(build.LAUNCHER)] == [
+        "flash_launch.cpp", "flash_entries.h"]
+
+
+# --------------------------------------------------------- the launcher's build
+
+
+def test_the_launcher_command_has_the_abi_and_torchs_include_and_library_dirs(monkeypatch):
+    """The launcher compiles with PyTorch's C++ ABI and include dirs (the
+    CUDA runtime's among them) and Python's, links to the kernel libraries
+    by name beside it and to PyTorch's library dirs, and includes
+    PyTorch's per-operator headers, never torch/extension.h or
+    ATen/ATen.h."""
+    from torch.utils import cpp_extension
+
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", "/toolkits/cuda-12")
+    libraries = [build.BUILD_DIR / "libflash_fwd-0123456789abcdef.so",
+                 build.BUILD_DIR / "libflash_bwd-fedcba9876543210.so"]
+    compile_flags, link_flags = build.launcher_flags(libraries)
+    assert f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}" in compile_flags
+    includes = [*cpp_extension.include_paths(device_type="cuda"), sysconfig.get_paths()["include"]]
+    assert "/toolkits/cuda-12/include" in includes
+    assert [f for f in compile_flags if f.startswith("-I")] == [f"-I{d}" for d in includes]
+    assert {"-l:libflash_fwd-0123456789abcdef.so", "-l:libflash_bwd-fedcba9876543210.so",
+            f"-L{build.BUILD_DIR}", "-Wl,-rpath,$ORIGIN", "-shared"} <= set(link_flags)
+    library_dirs = [f"-L{d}" for d in cpp_extension.library_paths(device_type="cuda")]
+    assert library_dirs and set(library_dirs) <= set(link_flags)
+    assert set(build.LAUNCHER_LIBS) <= set(link_flags)
+    included = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]',
+                          (build.CSRC_DIR / "flash_launch.cpp").read_text(), re.M)
+    assert "ATen/ops/empty.h" in included and "flash_entries.h" in included
+    assert not {"torch/extension.h", "ATen/ATen.h"} & set(included)
+
+
+def test_the_launcher_hash_moves_with_its_source_a_header_and_torch(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    _write(tmp_path / "flash_launch.cpp", '#include <Python.h>\n#include "e.h"\n')
+    _write(tmp_path / "e.h", "// entries\n")
+    flags = (["-O2"], ["-l:libflash_fwd-0.so"])
+    first = build._launcher_path("/g++", flags)
+    assert first.name.startswith("libflash_launch-") and build._launcher_path("/g++", flags) == first
+    _write(tmp_path / "flash_launch.cpp", '#include <Python.h>\n#include "e.h"\n// edited\n')
+    second = build._launcher_path("/g++", flags)
+    _write(tmp_path / "e.h", "// entries, edited\n")
+    third = build._launcher_path("/g++", flags)
+    monkeypatch.setattr(torch, "__version__", torch.__version__ + ".other")
+    fourth = build._launcher_path("/g++", flags)
+    assert len({first, second, third, fourth}) == 4
+    # a kernel library's new hash is a new link, and another compiler a new build
+    assert build._launcher_path("/g++", (["-O2"], ["-l:libflash_fwd-1.so"])) != fourth
+    assert build._launcher_path("/other/g++", flags) != fourth
