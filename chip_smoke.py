@@ -81,10 +81,15 @@ result line:
    every D (the forward's one-pass kernel above 256), the wide Hopper ones
    (TMA + wgmma: the forward in its three modes, dK/dV and dQ) for bf16 at
    D up to 256 above their thresholds, and forced at the wide ranker's
-   batch; that batch is checked at D = 320 too. Each instance timed at its
-   main path's shape (its device time beside the other instance's, the
-   forward's rows held to the plain version there) and each wide mma.sync
-   one at D = 320. Then their main paths: the ranker at hidden 768 with 4
+   batch; that batch is checked at D = 320 too; then slice 11's two
+   kernels at their edges on 3 x 5 sets (the packed short-set forward at
+   D = 136, 192 and 256, L = 1 .. 32, float32 too; the one-pass dK/dV at
+   D = 264 .. 512, L = 1, 20, 33 and 1024). Each instance timed at its
+   main path's shape (its device time beside the other instance's; before
+   any timing, both instances' outputs there held to the plain version
+   with the row's tolerances; at the wide eval shape both forward
+   instances also timed in turns) and each wide mma.sync one at D = 320.
+   Then their main paths: the ranker at hidden 768 with 4
    heads (head dim 192) trained for an epoch on phase 5's trace, and at
    hidden 1280 (head dim 320); the ring over its eval batch on a 1 x 2
    mesh; the ring over
@@ -127,6 +132,15 @@ L = 16 .. 512 (device time), the readings ops/flash.py's SM90_MIN_L is set
 from, and both wide instances of the forward with lse, of dK/dV and of dQ
 at D = 192 and 256 over L = 16 .. 2048 (the WIDE_*SM90_MIN_L readings),
 and prints no result line.
+
+    python3 chip_smoke.py --rows [--tree DIR]
+
+instead holds the kernels of the four rows slice 11 redesigned (the ring's
+eval-shard partials, the wide eval forward, the wide ranker's forward with
+lse, the hidden-1280 dK/dV) to their plain versions at their main paths'
+shapes and times them, with the package from DIR (another commit's
+checkout, built there) or beside the script; run it for two trees in turns
+to compare their kernels in one call. No result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -268,8 +282,9 @@ _WINDOWS = {"taken": 0, "short": 0, "over": 0, "uneven": 0}
 
 def _kernel_ms(fn, symbol: str, calls: int = KERNEL_CALLS, windows: int = 6):
     """(device ms of one launch, launches recorded, the names matched) of
-    the kernel whose name holds ``symbol`` under ``fn``, which launches it
-    once a call (torch.profiler):
+    the kernel whose name ``symbol`` (a regular expression, most often a
+    plain name) finds under ``fn``, which launches it once a call
+    (torch.profiler):
     the kernel's own execution, where ``_time_ms`` at a small shape
     measures the back-to-back call rate of its wrapper. A window may record
     fewer of the kernel's launches than were made (on the H100 machine,
@@ -290,7 +305,7 @@ def _kernel_ms(fn, symbol: str, calls: int = KERNEL_CALLS, windows: int = 6):
                 fn()
             torch.cuda.synchronize()
         matched = [e for e in prof.events()
-                   if symbol in e.name and e.device_type == torch.autograd.DeviceType.CUDA]
+                   if re.search(symbol, e.name) and e.device_type == torch.autograd.DeviceType.CUDA]
         us = sorted(e.time_range.elapsed_us() for e in matched)
         _WINDOWS["taken"] += 1
         _WINDOWS["short"] += len(us) < calls
@@ -303,7 +318,7 @@ def _kernel_ms(fn, symbol: str, calls: int = KERNEL_CALLS, windows: int = 6):
                 print(f"profiler window for {symbol}: {len(us)} of {calls} launches recorded, "
                       f"median {median:.1f} us, mean {mean:.1f} us, range "
                       f"{us[0]:.1f}-{us[-1]:.1f} us")
-            found = re.compile(r"\w*" + re.escape(symbol) + r"\w*")
+            found = re.compile(r"\w*(?:" + symbol + r")\w*")
             names = sorted({found.search(e.name).group(0) for e in matched})
             return median / 1e3, len(us), names
         print(f"profiler window for {symbol}: none of {calls} launches recorded; taking another")
@@ -360,7 +375,7 @@ def phase_build():
         # each instance of the Hopper sources, and the wide ones of the others
         entries = re.findall(r"Compiling entry function '(\w+)'", log)
         for entry, used, spill in zip(entries, regs, spills):
-            if "sm90" in name or "wide" in entry:
+            if "sm90" in name or "wide" in entry or "onepass" in entry:
                 print(f"  {_instance_label(entry)}: {used} registers, {spill} bytes spilled")
             # wgmma issued one at a time: registers ran short
             for why, entry in re.findall(
@@ -1878,6 +1893,12 @@ def phase_long_ulysses():
 # rows are timed at the shapes those runs give each kernel.
 WIDE_CHECK_DIMS, WIDE_CHECK_LENGTHS = (160, 192, 256, 320, 512), (40, 2048)
 WIDE_FLOAT32_DIMS = (320, 512)  # float32 at L = 40
+# slice 11's two kernels at their edges, on B x H = 3 x 5 sets: the packed
+# short-set forward (D up to 256, L up to 32; float32 too at L = 10) and the
+# one-pass dK/dV (D in (256, 512])
+WIDE_EDGE_SETS = (3, 5)
+WIDE_SETS_DIMS, WIDE_SETS_LENGTHS = (136, 192, 256), (1, 7, 10, 16, 20, 31, 32)
+WIDE_DKV_ONEPASS_DIMS, WIDE_DKV_ONEPASS_LENGTHS = (264, 320, 384, 512), (1, 20, 33, 1024)
 WIDE_C3_DIM = 320  # each wide mma.sync instance also timed at this D
 WIDE_HIDDEN = 768
 WIDE_HEAD_DIM = WIDE_HIDDEN // 4
@@ -1901,14 +1922,17 @@ _WIDE_COUNTERS = {
     "flash_bwd_dkv_wide_sm90": "DKV_WIDE_SM90_LAUNCHES",
     "flash_bwd_dq_wide_sm90": "DQ_WIDE_SM90_LAUNCHES",
 }
-# profiler names of the wide instances' kernels; "flash_fwd_wide" names
-# both kernels of the wide mma.sync forward (the one-pass one its C side
-# picks for D in (256, 512], the chunked one otherwise): a row prints the
-# name the profiler found
+# profiler names (regular expressions) of the wide instances' kernels;
+# "flash_fwd_wide" names the three kernels of the wide mma.sync forward (the
+# packed-sets one its C side picks for D up to 256 at L up to 32, the
+# one-pass one for D in (256, 512], the chunked one otherwise), and the
+# dK/dV pattern its two kernels (one pass for D in (256, 512], chunked
+# otherwise) but not the wide Hopper dK/dV's flash_bwd_dkv_wide_sm90_kernel:
+# a row prints the name the profiler found
 _WIDE_SYMBOLS = {
     "flash_fwd_wide": "flash_fwd_wide", "flash_fwd_lse_wide": "flash_fwd_wide",
     "flash_fwd_partial_wide": "flash_fwd_wide",
-    "flash_bwd_dkv_wide": "flash_bwd_dkv_wide_kernel",
+    "flash_bwd_dkv_wide": r"flash_bwd_dkv_(?:wide|onepass)_kernel",
     "flash_bwd_dq_wide": "flash_bwd_dq_wide_kernel",
     "flash_fwd_wide_sm90": "flash_fwd_sm90_kernel",
     "flash_fwd_lse_wide_sm90": "flash_fwd_sm90_kernel",
@@ -1957,15 +1981,16 @@ def _ranker_masks(ds):
             torch.from_numpy(ds.mask[eval_idx]).cuda())
 
 
-def _check_wide_case(gen, b, l, d, causal, dtype, given, worst):
-    """Every entry at one wide shape against the plain version of what it
-    computes, each launch counted on the instance ops/flash.py picks; the
-    errors folded into ``worst``, keyed by (instance, D, dtype)."""
+def _check_wide_case(gen, b, l, d, causal, dtype, given, worst, h=4):
+    """Every entry at one wide shape [b, h, l, d] against the plain version
+    of what it computes, each launch counted on the instance ops/flash.py
+    picks; the errors folded into ``worst``, keyed by (instance, D,
+    dtype)."""
     import torch
 
     from dragonfly2_tpu_torch.ops import flash
 
-    q, k, v, mask = _attention_inputs(gen, b, 4, l, d, dtype, given is None)
+    q, k, v, mask = _attention_inputs(gen, b, h, l, d, dtype, given is None)
     if given is not None:
         mask = given
     do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
@@ -1975,7 +2000,8 @@ def _check_wide_case(gen, b, l, d, causal, dtype, given, worst):
     # row statistics of bf16 operands are exact float32 sums; a float32
     # input is rounded to bf16 in shared memory, as phase 3's float32 rows
     s_atol, s_rtol = (STATS_ATOL, STATS_RTOL) if dtype == torch.bfloat16 else (atol, rtol)
-    label = f"B = {b}, D = {d}, L = {l}, causal={causal}, {str(dtype).removeprefix('torch.')}"
+    label = (f"B = {b}, H = {h}, D = {d}, L = {l}, causal={causal}, "
+             f"{str(dtype).removeprefix('torch.')}")
     if given is not None:
         label += " (the wide ranker's first batch and its mask)"
     functions = ["flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"]
@@ -2037,13 +2063,18 @@ def phase_wide_kernels(ds):
     batch rows, float32 above 256, and at the wide ranker's first training
     batch with its own key mask at D = 192 (on the instances ops/flash.py
     picks there, and on the wide Hopper ones forced) and at D =
-    WIDE_C3_DIM; then each instance's row at the shape its main path gives
-    it (wrapper ms, device ms beside the other instance's, the plain
-    version's ms, a library call's where there is one, and the bound), and
-    each wide mma.sync instance's at D = WIDE_C3_DIM, each forward row's
-    outputs held to the plain version's at that shape. A row's max_abs_err
-    is its instance's worst at its own D and dtype: the C entries pick
-    their kernel from those alone, so that is the kernel the row times.
+    WIDE_C3_DIM, and slice 11's two kernels at their edge shapes; then
+    each instance's row at the shape its main path gives it (wrapper ms,
+    device ms beside the other instance's, the plain version's ms, a
+    library call's where there is one, and the bound), and each wide
+    mma.sync instance's at D = WIDE_C3_DIM. Before any timing, a row holds
+    its instance's outputs at that shape, and the other instance's forced
+    through the same call, to the plain version with the row's own
+    tolerances, and prints both errors; at the wide eval shape the two
+    forward instances are also timed in turns. A row's max_abs_err is its
+    instance's worst at its own D and dtype, over every kernel its C side
+    picks at that D (the forward's packed-sets kernel at L up to 32, the
+    chunked one above), and row_max_abs_err its error at the row's shape.
     Returns {kernel: {shape key: row}}."""
     import torch
     import torch.nn.functional as F
@@ -2067,37 +2098,67 @@ def phase_wide_kernels(ds):
     # forward's one-pass kernel, the wide mma.sync backward)
     _check_wide_case(gen, train_mask.shape[0], train_mask.shape[1], WIDE_C3_DIM, False,
                      torch.bfloat16, train_mask, worst)
+    # the packed short-set forward at its edges: B H = 15 sets, so sets
+    # straddle its 32-row blocks at every L but 1, 16 and 32, batch row 0
+    # fully masked
+    b, h = WIDE_EDGE_SETS
+    for d in WIDE_SETS_DIMS:
+        for l in WIDE_SETS_LENGTHS:
+            for causal in (False, True):
+                _check_wide_case(gen, b, l, d, causal, torch.bfloat16, None, worst, h)
+        _check_wide_case(gen, b, 10, d, False, torch.float32, None, worst, h)
+    # the one-pass dK/dV at one, a ragged and many swept query tiles (one
+    # stage at L = 1 and 20, two from 33)
+    for d in WIDE_DKV_ONEPASS_DIMS:
+        for l in WIDE_DKV_ONEPASS_LENGTHS:
+            for causal in (False, True):
+                _check_wide_case(gen, b, l, d, causal, torch.bfloat16, None, worst, h)
 
     iters = 10
     results = {name: {} for name in _WIDE_COUNTERS}
 
-    def row(function, key, q, call, plain_ms, library_ms, bound):
-        """Time ``call`` (one launch of the instance ops/flash.py picks for
-        ``function`` at q's shape), and the other wide instance's device
-        time through the same call, and keep the row."""
+    def row(function, key, q, call, plain_ms, library_ms, bound, check):
+        """Hold ``call`` (one launch of the instance ops/flash.py picks for
+        ``function`` at q's shape) to the plain version by ``check`` (the
+        call's outputs -> (max abs error, whether within the row's own
+        tolerances)), and the other wide instance forced through the same
+        call too, before any timing; then time both and keep the row."""
         b, h, l, d = q.shape
         name = _wide_instance(function, l, d, q.dtype)
         if (name, d, q.dtype) not in worst:
             _fail(f"kernel {name} was not checked at D = {d} in {q.dtype}")
-        bound_ms, bound_by = bound
-        r = dict(shape=list(q.shape), causal=False, dtype="bfloat16",
-                 variant="wide sm90" if name.endswith("_sm90") else "wide mma.sync",
-                 max_abs_err=worst[name, d, q.dtype], ms=_time_ms(call, iters),
-                 **_timed(call, _WIDE_SYMBOLS[name]), mma_sync_kernel_ms=None,
-                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-        if r["kernel_ms"] is None:
-            _fail(f"kernel {name} {list(q.shape)}: the profiler found no device time")
-        other = ""
+        err, ok = check(call())
+        if not ok:
+            _fail(f"kernel {name} {list(q.shape)} ({key}) vs the plain version: max_abs_err {err}")
+        worst[name, d, q.dtype] = max(worst[name, d, q.dtype], err)
+        other_name = None
         if d <= flash.WIDE_SM90_MAX_DIM:
             hopper = not name.endswith("_sm90")
             other_name = function + ("_wide_sm90" if hopper else "_wide")
             with _instance(sm90=hopper):
+                other_err, ok = check(call())
+            if not ok:
+                _fail(f"kernel {other_name} forced at {list(q.shape)} ({key}) vs the plain "
+                      f"version: max_abs_err {other_err}")
+        bound_ms, bound_by = bound
+        r = dict(shape=list(q.shape), causal=False, dtype="bfloat16",
+                 variant="wide sm90" if name.endswith("_sm90") else "wide mma.sync",
+                 max_abs_err=worst[name, d, q.dtype], row_max_abs_err=err,
+                 ms=_time_ms(call, iters), **_timed(call, _WIDE_SYMBOLS[name]),
+                 mma_sync_kernel_ms=None, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=bound_ms, bound_by=bound_by)
+        if r["kernel_ms"] is None:
+            _fail(f"kernel {name} {list(q.shape)}: the profiler found no device time")
+        other = ""
+        if other_name is not None:
+            with _instance(sm90=hopper):
                 r.update(_timed(call, _WIDE_SYMBOLS[other_name], "other_kernel"))
-            r["other_variant"] = other_name
-            other = f"; {other_name} forced {_fmt(r, 'other_kernel')}"
+            r.update(other_variant=other_name, other_max_abs_err=other_err)
+            other = (f"; {other_name} forced {', '.join(r['other_kernel_names'])} "
+                     f"{_fmt(r, 'other_kernel')}, max_abs_err {other_err:.3g} here")
         results[name][key] = r
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"kernel {name} {list(q.shape)} bf16 ({key}): max_abs_err "
+        print(f"kernel {name} {list(q.shape)} bf16 ({key}): max_abs_err {err:.3g} here, "
               f"{worst[name, d, q.dtype]:.3g} over the checked bf16 shapes at D = {d}; ms "
               f"{r['ms']:.4f} (kernel "
               f"{', '.join(r['kernel_names'])} {_fmt(r)}{other}) plain_ms "
@@ -2110,32 +2171,60 @@ def phase_wide_kernels(ds):
     def tolerance(q):
         return (LONG_ATOL, LONG_RTOL) if q.shape[2] > 1000 else (KERNEL_ATOL, KERNEL_RTOL)
 
+    def grad_tolerance(q):
+        return (LONG_GRAD_ATOL, LONG_GRAD_RTOL) if q.shape[2] > 1000 else (GRAD_ATOL, GRAD_RTOL)
+
+    def held(pairs, tol, stats=None):
+        """(max abs error, ok) of (got, want) pairs to ``tol``; ``stats``
+        (lse against the plain lse on the rows with a valid key) to STATS."""
+        err, ok = 0.0, True
+        for got, want in pairs:
+            err = max(err, float((got.float() - want.float()).abs().max().item()))
+            ok = ok and bool(torch.allclose(got.float(), want.float(), atol=tol[0], rtol=tol[1]))
+        if stats is not None:
+            lse, want_lse = stats
+            seen = want_lse > -1e20
+            err = max(err, float((lse[seen] - want_lse[seen]).abs().max().item()))
+            ok = ok and bool(torch.isfinite(lse).all()) and bool(
+                torch.allclose(lse[seen], want_lse[seen], atol=STATS_ATOL, rtol=STATS_RTOL))
+        return err, ok
+
+    def forward_turns(key, q, k, v, mask):
+        """Both wide instances of the finished forward at this shape, forced
+        in turns (Hopper, mma.sync, mma.sync, Hopper), each already held to
+        the plain version by its row: every turn's CUDA-event ms of the
+        call and the profiler's device ms of its kernel."""
+        call = lambda: flash.flash_attention(q, k, v, mask)  # noqa: E731
+        turns = []
+        for hopper in (True, False, False, True):
+            name = "flash_fwd_wide" + ("_sm90" if hopper else "")
+            with _instance(sm90=hopper):
+                ms = _time_ms(call, iters)
+                device, recorded, names = _kernel_ms(call, _WIDE_SYMBOLS[name])
+            device = "not measured" if device is None else f"{device:.4f}"
+            turns.append(f"{name} ({', '.join(names)}) {ms:.4f} ms, device {device}, "
+                         f"{recorded}/{KERNEL_CALLS} recorded")
+        print(f"wide forward {key} {list(q.shape)} bf16, both instances forced in turns: "
+              + "; ".join(turns))
+
     def forward_row(key, q, k, v, mask):
-        """The finished forward at this shape, held to the plain version,
-        then its row."""
-        name, d = _wide_instance("flash_fwd", q.shape[2], q.shape[3], q.dtype), q.shape[3]
-        got = flash.flash_attention(q, k, v, mask).float()
-        want = flash.flash_attention_plain(q, k, v, mask).float()
-        atol, rtol = tolerance(q)
-        err = float((got - want).abs().max().item())
-        if not torch.allclose(got, want, atol=atol, rtol=rtol):
-            _fail(f"wide forward {key} {list(q.shape)}: max_abs_err {err} "
-                  f"(atol {atol} rtol {rtol})")
-        worst[name, d, q.dtype] = max(worst[name, d, q.dtype], err)
-        print(f"wide forward {key} {list(q.shape)} bf16 vs the plain version: max_abs_err "
-              f"{err:.3g} (atol {atol} rtol {rtol})")
+        """The finished forward's row at this shape."""
+        want = flash.flash_attention_plain(q, k, v, mask)
         sdpa_mask = mask[:, None, None, :]
         row("flash_fwd", key, q, lambda: flash.flash_attention(q, k, v, mask),
             _time_ms(lambda: flash.flash_attention_plain(q, k, v, mask), 3),
             _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask), iters),
-            _bound(q, mask, False))
+            _bound(q, mask, False), lambda out: held([(out, want)], tolerance(q)))
 
     def training_rows(key, q, k, v, mask, dkv=True, dq=True):
         """The forward with lse, then the backward kernels as the backward
         launches them, from its o and lse."""
+        want_o, want_lse = flash.flash_attention_lse_plain(q, k, v, mask)
         row("flash_fwd_lse", key, q, lambda: flash.flash_attention_lse(q, k, v, mask),
             _time_ms(lambda: flash.flash_attention_lse_plain(q, k, v, mask), 3),
-            _library_fwd_lse_ms(q, k, v, mask, False, iters), _bound(q, mask, False, row_stats=1))
+            _library_fwd_lse_ms(q, k, v, mask, False, iters), _bound(q, mask, False, row_stats=1),
+            lambda got: held([(got[0], want_o)], tolerance(q), (got[1], want_lse)))
+        del want_o, want_lse
         do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
         o, lse = flash.flash_attention_lse(q, k, v, mask)
         delta = (do.float() * o.float()).sum(-1)
@@ -2145,40 +2234,41 @@ def phase_wide_kernels(ds):
             lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True), iters)
         plain_bwd_ms = _time_ms(
             lambda: flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do), 3)
+        want_dq, want_dk, want_dv = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do)
         if dkv:
             row("flash_bwd_dkv", key, q,
                 lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do),
                 plain_bwd_ms, library_bwd_ms,
-                _bound(q, mask, False, matrices=6, row_stats=2, ops_per_pair=8))
+                _bound(q, mask, False, matrices=6, row_stats=2, ops_per_pair=8),
+                lambda got: held(zip(got, (want_dk, want_dv)), grad_tolerance(q)))
         if dq:
             row("flash_bwd_dq", key, q,
                 lambda: flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do),
                 plain_bwd_ms, library_bwd_ms,
-                _bound(q, mask, False, matrices=5, row_stats=2, ops_per_pair=6))
+                _bound(q, mask, False, matrices=5, row_stats=2, ops_per_pair=6),
+                lambda got: held([(got, want_dq)], grad_tolerance(q)))
 
     def partial_row(key, q, k, v, mask):
-        """The partials at this shape, held to the plain version's, then
-        their row."""
-        name, d = _wide_instance("flash_fwd_partial", q.shape[2], q.shape[3], q.dtype), q.shape[3]
-        errs, ok = _partial_errors(flash.flash_attention_partials(q, k, v, mask),
-                                   flash.flash_attention_partials_plain(q, k, v, mask),
-                                   *tolerance(q))
-        if not ok:
-            _fail(f"wide partials {key} {list(q.shape)}: errors {errs}")
-        print(f"wide partials {key} {list(q.shape)} bf16 vs the plain version: max_abs_err "
-              + ", ".join(f"{part} {err:.3g}" for part, err in errs.items()))
-        worst[name, d, q.dtype] = max(worst[name, d, q.dtype], errs["acc_over_row_sum"],
-                                      errs["row_max"], errs["row_sum"])
+        """The partials' row at this shape."""
+        want = flash.flash_attention_partials_plain(q, k, v, mask)
+
+        def check(got):
+            errs, ok = _partial_errors(got, want, *tolerance(q))
+            return max(errs["acc_over_row_sum"], errs["row_max"], errs["row_sum"]), ok
+
         row("flash_fwd_partial", key, q, lambda: flash.flash_attention_partials(q, k, v, mask),
             _time_ms(lambda: flash.flash_attention_partials_plain(q, k, v, mask), 3),
             _library_fwd_lse_ms(q, k, v, mask, False, iters),
-            _bound(q, mask, False, matrices=3 + 4 // q.element_size(), row_stats=2))
+            _bound(q, mask, False, matrices=3 + 4 // q.element_size(), row_stats=2), check)
 
     # the ranker's eval (the finished forward over every eval row) and its
     # training step, at its head dim and at WIDE_C3_DIM
     for d, suffix in ((WIDE_HEAD_DIM, ""), (WIDE_C3_DIM, f"-d{WIDE_C3_DIM}")):
-        forward_row("ranker-eval" + suffix, *inputs(eval_mask.shape[0], eval_mask.shape[1], d,
-                                                    eval_mask))
+        eval_inputs = inputs(eval_mask.shape[0], eval_mask.shape[1], d, eval_mask)
+        forward_row("ranker-eval" + suffix, *eval_inputs)
+        if d <= flash.WIDE_SM90_MAX_DIM:
+            forward_turns("ranker-eval" + suffix, *eval_inputs)
+        del eval_inputs
         training_rows("ranker-train" + suffix, *inputs(train_mask.shape[0], train_mask.shape[1], d,
                                                        train_mask))
     # the ring over the eval rows on a 1 x WIDE_EVAL_RING_SP mesh: a shard's
@@ -2196,6 +2286,67 @@ def phase_wide_kernels(ds):
     forward_row("ulysses-shard", *shard)
     training_rows("ulysses-shard", *shard)
     return results
+
+
+# slice 11's redesigned rows at their main paths' shapes (random 85% key
+# masks in place of the ranker's): the ring's eval-shard partials, the wide
+# eval forward, the wide ranker's forward with lse, the hidden-1280 dK/dV
+ROWS = (
+    ("eval-ring-shard partials", "partial", (4000, 4, 10, 192)),
+    ("ranker-eval forward", "fwd", (4000, 4, 20, 192)),
+    ("ranker-train forward with lse", "lse", (256, 4, 20, 192)),
+    ("hidden-1280 dK/dV", "dkv", (256, 4, 20, 320)),
+)
+
+
+def phase_rows(tree: str) -> None:
+    """The kernels of ROWS through the public wrappers of the package
+    imported (``--tree``), each held to its plain version, then timed:
+    CUDA-event ms of the call and the profiler's device ms of its kernel,
+    by a pattern that names the kernels of both this tree and the one
+    before it. Run once per tree, in turns, to compare two commits' kernels
+    in one call."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    for label, kind, shape in ROWS:
+        b, h, l, d = shape
+        q, k, v, mask = _attention_inputs(gen, b, h, l, d, torch.bfloat16, False)
+        if kind == "dkv":
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+            o, lse = flash.flash_attention_lse(q, k, v, mask)
+            delta = (do.float() * o.float()).sum(-1)
+            call = lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do)  # noqa: E731
+            want = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do)[1:]
+            tol = (GRAD_ATOL, GRAD_RTOL)
+        else:
+            call = {"fwd": lambda: (flash.flash_attention(q, k, v, mask),),
+                    "lse": lambda: flash.flash_attention_lse(q, k, v, mask)[:1],
+                    "partial": lambda: flash.flash_attention_partials(q, k, v, mask)}[kind]
+            want = {"fwd": lambda: (flash.flash_attention_plain(q, k, v, mask),),
+                    "lse": lambda: flash.flash_attention_lse_plain(q, k, v, mask)[:1],
+                    "partial": lambda: flash.flash_attention_partials_plain(q, k, v, mask)}[kind]()
+            tol = (KERNEL_ATOL, KERNEL_RTOL)
+        if kind == "partial":
+            errs, ok = _partial_errors(call(), want, *tol)
+            err = max(errs["acc_over_row_sum"], errs["row_max"], errs["row_sum"])
+        else:
+            got = call()
+            err = max(float((g.float() - w.float()).abs().max().item()) for g, w in zip(got, want))
+            ok = all(torch.allclose(g.float(), w.float(), atol=tol[0], rtol=tol[1])
+                     for g, w in zip(got, want))
+        if not ok:
+            _fail(f"rows {tree}: {label} {list(shape)} vs the plain version: max_abs_err {err}")
+        symbol = _WIDE_SYMBOLS["flash_bwd_dkv_wide" if kind == "dkv" else "flash_fwd_wide"]
+        ms = _time_ms(call, 20)
+        device, recorded, names = _kernel_ms(call, symbol)
+        if device is None:
+            _fail(f"rows {tree}: {label}: the profiler found no device time")
+        print(f"rows {tree}: {label} {list(shape)} bf16: max_abs_err {err:.3g}; ms {ms:.4f}, "
+              f"device {device:.4f} ({', '.join(names)}, {recorded}/{KERNEL_CALLS} recorded)")
+        del q, k, v, mask, want
 
 
 def phase_wide_path(ds):
@@ -3055,21 +3206,32 @@ def main() -> None:
                         help="time both instances at L = 16 .. 512, and both wide ones of the "
                              "forward, dK/dV and dQ at D = 192 and 256 over L = 16 .. 2048, "
                              "instead of the smoke run")
+    parser.add_argument("--rows", action="store_true",
+                        help="time only the kernels of the rows slice 11 redesigned, at their "
+                             "main paths' shapes, instead of the smoke run")
+    parser.add_argument("--tree", default=None,
+                        help="import dragonfly2_tpu_torch from this checkout instead of the one "
+                             "beside the script (with --rows: another commit's kernels, built "
+                             "there, timed by the same code)")
     args = parser.parse_args()
     try:
         import torch
     except ImportError:
         _fail("torch is not installed")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    tree = os.path.abspath(args.tree) if args.tree else os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, tree)
     try:
         import dragonfly2_tpu_torch  # noqa: F401
     except ImportError as e:
-        _fail(f"the dragonfly2_tpu_torch package is not beside chip_smoke.py ({e})")
+        _fail(f"the dragonfly2_tpu_torch package is not in {tree} ({e})")
 
     card = phase_device()
     phase_build()
     if args.threshold:
         phase_threshold()
+        return
+    if args.rows:
+        phase_rows(args.tree or ".")
         return
     kernels = phase_kernels()
     training_kernels = phase_training_kernels()
@@ -3107,6 +3269,8 @@ def main() -> None:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "shape": row["shape"],
+            # the kernels the profiler found behind the entry at every row's shape
+            "kernels_reached": sorted({n for r in rows.values() for n in r.get("kernel_names") or ()}),
             "other_shapes": {k: v for k, v in rows.items() if k != main_shape},
         }
 

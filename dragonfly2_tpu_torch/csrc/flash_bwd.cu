@@ -12,7 +12,7 @@
 //   P  = exp2(S log2(e)/sqrt(D) - lse log2(e)) on valid pairs, 0 elsewhere
 //   dV = P^T dO;  dS = P (dO V^T - delta);  dK = dS^T Q / sqrt(D);  dQ = dS K / sqrt(D)
 // Head dims 16, 32, 64, 128, and in the wide instances (end of file) any D
-// with D % 8 == 0, taken above 128;
+// with D % 8 == 0, taken above 128 (dK/dV in one pass for D in (256, 512]);
 // bf16 or float32 in, gradients in the input dtype.
 //
 // What bounds it on an H100: at the trained shape, [256, 4, 20, 32] bf16,
@@ -50,6 +50,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_entries.h"
 
@@ -514,7 +516,9 @@ int by_dtype(const Args& a, int D, int dtype, int warps, void* stream) {
 // own rows (K and V, or Q and dO) stay in shared memory for its life;
 // above 256 every depth chunk is staged in turn, and each output chunk's
 // block recomputes S and dP (the repair of head dims above 256: right, not
-// fast).
+// fast). dK/dV for D in (256, 512] takes the one-pass instance below
+// (flash_bwd_dkv_onepass_kernel) instead: this kernel's chunks remain for
+// dQ above 256 and dK/dV above 512.
 //
 // At D = 256 a warp's 16 keys of dK and dV in float32 registers are 256 a
 // thread, and the staged K, V, Q and dO tiles overflow 48 KB of static
@@ -861,6 +865,344 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- dK/dV above head dim 256 in one pass: D in (256, ONEPASS_MAX_DIM]
+//
+// flash_bwd_dkv_wide_kernel splits D above 256 into 256-column output
+// chunks along blockIdx.y: at D = 320 each key block runs as two blocks,
+// each restaging K, V, Q and dO per depth chunk and recomputing S^T and dP^T
+// over all 320 columns, with three of the second block's four column warps
+// idle past D. This instance gives one block every output column of its 32
+// keys' dK and dV: WIDE_RG row groups of 16 keys times CW = ceil(D / 64)
+// column warps of 64 columns (CW = 5 at D = 320, 8 at 512; a template
+// parameter, so each warp holds 64 float32 registers for both
+// accumulators at every D). K and V are staged once. Per swept tile of 32
+// queries:
+// 1. the first eight warps compute the tile's 8 (16-key x 8-query) tiles of
+//    S^T and dP^T over the whole depth, once, fragments read from shared
+//    memory, form P^T and dS^T as the chunked kernel does and write them,
+//    rounded to bf16, into shared tiles;
+// 2. after a barrier every warp reads its row group's 16 x 32 P^T and dS^T
+//    back as A fragments and accumulates dV += P^T dO and dK += dS^T Q over
+//    its own 64 columns, skipping 8-column tiles past D (only at a D that is
+//    not a multiple of 64).
+// Q and dO (and the tile's lse and delta) are staged per tile by cp.async
+// for bf16 (float32 is rounded to bf16 on the way in, synchronously), the
+// next tile in flight in a second stage where L holds more than one tile
+// and shared memory allows. Footprint at D = 320: K and V 42 KB, a stage of
+// Q and dO 42 KB, P^T and dS^T 5 KB: 89 KB with one stage (two blocks an
+// SM, at most 102 registers a thread), 131 KB with two; at D = 512, 138 KB
+// and 205 KB (one block an SM from D = 384 on). The ranker's sets (L = 20)
+// sweep one tile, so they take one stage. Fragments come from shared
+// memory by ldmatrix (.trans for the B operands of dV += P^T dO and dK +=
+// dS^T Q, two 8-column tiles a load). The sets are not packed across
+// blocks as the forward's short-set instance packs them: a 32-key block
+// holds one set of 20 keys and 12 rows of padding, and a packed block
+// would sweep two or three query tiles.
+// Bound on an H100: the hidden-1280 ranker's training, [256, 4, 20, 320]
+// bf16, reads q, k, v, dO, lse and delta and writes dK and dV: 78.9 MB,
+// 0.024 ms at 3.35 TB/s, against 1.7 GFLOP at most: bound by bytes, so
+// every load of a block is in flight at once and a second block an SM
+// computes while the first loads. Numerics as the chunked kernel's; every
+// output element is summed by one thread in a fixed order. Above
+// ONEPASS_MAX_DIM the chunked kernel stays (no main path reaches it), and
+// dQ above 256 keeps its chunks.
+
+constexpr int ONEPASS_MAX_DIM = 512;
+constexpr int ONEPASS_SCORE_WARPS = WIDE_RG * WIDE_SWEEP / 8;  // 16 x 8 tiles of S^T
+
+template <int CW>
+struct DkvOnepass {
+  static constexpr int WARPS = WIDE_RG * CW;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int LDS = CW * 64 + 8;         // shared row stride (bf16)
+  static constexpr int TILE = WIDE_SWEEP * LDS;   // Q or dO of one stage
+  // K, V, P^T and dS^T; and a stage: Q, dO, lse and delta
+  static constexpr size_t FIXED =
+      static_cast<size_t>(2 * WIDE_ROWS * LDS + 2 * WIDE_ROWS * WIDE_LDP) * sizeof(__nv_bfloat16);
+  static constexpr size_t STAGE = static_cast<size_t>(2 * TILE) * sizeof(__nv_bfloat16) +
+                                  static_cast<size_t>(2 * WIDE_SWEEP) * sizeof(float);
+  // two blocks an SM where their one-stage shared memory fits and they keep
+  // at least 96 registers a thread (D up to 320: ptxas then spills 34-90
+  // bytes, which measured faster than one block an SM without spills)
+  static constexpr int MIN_BLOCKS =
+      2 * (FIXED + STAGE + 1024) <= 233472 && 65536 / (2 * THREADS) >= 96 ? 2 : 1;
+  static constexpr bool TWO_STAGES = FIXED + 2 * STAGE <= 232448;
+  static_assert(WARPS >= ONEPASS_SCORE_WARPS, "a warp for every score tile");
+  static_assert(FIXED + STAGE <= 232448, "a block's shared memory on sm_90");
+};
+
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ldmatrix: 8x8 tiles of b16 from shared memory, lanes 8i .. 8i + 7 giving
+// the rows of tile i; lane l receives row l / 4, elements 2 (l % 4) and
+// 2 (l % 4) + 1 of each tile (the mma.sync fragment layout), or with .trans
+// column l / 4, rows 2 (l % 4) and 2 (l % 4) + 1
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// two tiles: lanes 0 .. 15 give the addresses
+__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// rows r0 .. r0 + rows - 1 of a contiguous [L, D] matrix into shared rows
+// of LDS bf16, columns 0 .. LDS - 9: rows past L and the columns from D on
+// are 0. bf16 by cp.async (the caller commits and waits), float32 rounded
+// to bf16 on the way in. The chunks a row are a compile-time count, so the
+// index split is a multiply, not a division.
+template <typename T, int THREADS, int LDS>
+__device__ __forceinline__ void stage_rows_async(const T* __restrict__ src, int r0, int rows,
+                                                 int L, int D, __nv_bfloat16* dst, int tid) {
+  constexpr int CHUNKS = (LDS - 8) / 8;  // 16-byte chunks of a staged row
+  for (int i = tid; i < rows * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS;
+    const int c = (i - r * CHUNKS) * 8;
+    const int row = r0 + r;
+    const bool in = row < L && c < D;
+    const T* from = src + (in ? static_cast<size_t>(row) * D + c : 0);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      cp_async16(dst + r * LDS + c, from, in);
+    } else if (in) {
+      load8(from, dst + r * LDS + c);
+    } else {
+      zero8(dst + r * LDS + c);
+    }
+  }
+}
+
+// query tile q0's Q, dO, lse * log2(e) and delta into a stage, committed
+template <typename T, int CW>
+__device__ __forceinline__ void stage_query_tile(const T* __restrict__ q,
+                                                 const T* __restrict__ dout,
+                                                 const float* __restrict__ lh,
+                                                 const float* __restrict__ dh, int q0, int L,
+                                                 int D, __nv_bfloat16* sQ, __nv_bfloat16* sdO,
+                                                 float* sLse, float* sDelta, int tid) {
+  using C = DkvOnepass<CW>;
+  stage_rows_async<T, C::THREADS, C::LDS>(q, q0, WIDE_SWEEP, L, D, sQ, tid);
+  stage_rows_async<T, C::THREADS, C::LDS>(dout, q0, WIDE_SWEEP, L, D, sdO, tid);
+  for (int i = tid; i < WIDE_SWEEP; i += C::THREADS) {
+    const int row = q0 + i;
+    sLse[i] = row < L ? lh[row] * LOG2E : 0.f;
+    sDelta[i] = row < L ? dh[row] : 0.f;
+  }
+  cp_async_commit();
+}
+
+template <typename T, int CW>
+__global__ void __launch_bounds__(DkvOnepass<CW>::THREADS, DkvOnepass<CW>::MIN_BLOCKS)
+flash_bwd_dkv_onepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             const uint8_t* __restrict__ mask, T* __restrict__ dk,
+                             T* __restrict__ dv, int H, int L, int D, int num_kblocks,
+                             int causal, int stages, float scale_log2, float scale) {
+  using C = DkvOnepass<CW>;
+  constexpr int LDS = C::LDS;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sV = sK + WIDE_ROWS * LDS;
+  __nv_bfloat16* sP = sV + WIDE_ROWS * LDS;  // P^T [keys][queries]
+  __nv_bfloat16* sdS = sP + WIDE_ROWS * WIDE_LDP;
+  __nv_bfloat16* sQ = sdS + WIDE_ROWS * WIDE_LDP;  // stage s at sQ + s * TILE
+  __nv_bfloat16* sdO = sQ + stages * C::TILE;
+  float* sLse = reinterpret_cast<float*>(sdO + stages * C::TILE);  // stage s at + s * WIDE_SWEEP
+  float* sDelta = sLse + stages * WIDE_SWEEP;
+
+  const int kb = blockIdx.x % num_kblocks;
+  const int bh = blockIdx.x / num_kblocks;
+  const int b = bh / H;
+  const size_t head = static_cast<size_t>(bh) * L * D;
+  const float* lh = lse + static_cast<size_t>(bh) * L;
+  const float* dh = delta + static_cast<size_t>(bh) * L;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(b) * L : nullptr;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rg = warp / CW;  // step 2: the warp's row group of keys and its 64 columns
+  const int cw = warp % CW;
+  const int lrow = lane & 7;  // ldmatrix: the row this lane addresses in tile lane / 8
+  const int ltile = lane >> 3;
+  const int k0 = kb * WIDE_ROWS;
+  const int col0 = cw * 64;
+  const int kk_end = (D + 15) / 16;  // depth steps; the columns from D on are 0
+  // step 1: warp w < 8 takes keys 16 (w / 4).. against queries 8 (w % 4)..
+  const int skey = (warp >> 2) * 16;
+  const int sq = (warp & 3) * 8;
+  const int key_lo = k0 + skey + g;
+  const int key_hi = key_lo + 8;
+  const bool ok_lo = key_lo < L && (mb == nullptr || mb[key_lo] != 0);
+  const bool ok_hi = key_hi < L && (mb == nullptr || mb[key_hi] != 0);
+  // causal: queries before the block's first key see none of its keys
+  const int q_begin = causal ? k0 : 0;
+  const int n_tiles = (L - q_begin + WIDE_SWEEP - 1) / WIDE_SWEEP;
+
+  stage_rows_async<T, C::THREADS, LDS>(k + head, k0, WIDE_ROWS, L, D, sK, tid);
+  stage_rows_async<T, C::THREADS, LDS>(v + head, k0, WIDE_ROWS, L, D, sV, tid);
+  stage_query_tile<T, CW>(q + head, dout + head, lh, dh, q_begin, L, D, sQ, sdO, sLse, sDelta,
+                          tid);  // commits K and V with it
+
+  float acc_dk[8][4];
+  float acc_dv[8][4];
+#pragma unroll
+  for (int dn = 0; dn < 8; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[dn][e] = acc_dv[dn][e] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int q0 = q_begin + j * WIDE_SWEEP;
+    const int st = stages == 2 ? (j & 1) : 0;
+    if (stages == 1 && j > 0) {
+      __syncthreads();  // every warp is done with tile j-1's Q and dO
+      stage_query_tile<T, CW>(q + head, dout + head, lh, dh, q0, L, D, sQ, sdO, sLse, sDelta,
+                              tid);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // tile j arrived; every warp is done with tile j-1's P^T and dS^T
+    if (stages == 2 && j + 1 < n_tiles) {  // the next tile into the other stage, in flight
+      stage_query_tile<T, CW>(q + head, dout + head, lh, dh, q0 + WIDE_SWEEP, L, D,
+                              sQ + (st ^ 1) * C::TILE, sdO + (st ^ 1) * C::TILE,
+                              sLse + (st ^ 1) * WIDE_SWEEP, sDelta + (st ^ 1) * WIDE_SWEEP, tid);
+    }
+    const __nv_bfloat16* tq = sQ + st * C::TILE;
+    const __nv_bfloat16* tdo = sdO + st * C::TILE;
+    const float* tl = sLse + st * WIDE_SWEEP;
+    const float* td = sDelta + st * WIDE_SWEEP;
+
+    // 1. S^T and dP^T, once, over the whole depth
+    if (warp < ONEPASS_SCORE_WARPS) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      float dp[4] = {0.f, 0.f, 0.f, 0.f};
+      // A: K and V rows skey + 8 (tile & 1).., columns 8 (tile >> 1).. of
+      // the step; B: Q and dO rows sq.., columns 8 (tile & 1).. of the step
+      const int a_at = (skey + lrow + (ltile & 1) * 8) * LDS + (ltile >> 1) * 8;
+      const int b_at = (sq + lrow) * LDS + (ltile & 1) * 8;
+#pragma unroll 4
+      for (int kk = 0; kk < kk_end; ++kk) {
+        uint32_t ka[4], va[4], qb[2], db[2];
+        ldsm_x4(ka, sK + a_at + kk * 16);
+        ldsm_x4(va, sV + a_at + kk * 16);
+        ldsm_x2(qb, tq + b_at + kk * 16);
+        ldsm_x2(db, tdo + b_at + kk * 16);
+        mma_bf16(s, ka, qb[0], qb[1]);
+        mma_bf16(dp, va, db[0], db[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = sq + 2 * t + (e & 1);
+        const int query = q0 + ql;
+        const int key = (e < 2) ? key_lo : key_hi;
+        const bool ok = ((e < 2) ? ok_lo : ok_hi) && query < L && (!causal || key <= query);
+        const float p = ok ? exp2f(s[e] * scale_log2 - tl[ql]) : 0.f;
+        const int at = (skey + g + 8 * (e >> 1)) * WIDE_LDP + ql;
+        put_bf16(sP + at, p);
+        put_bf16(sdS + at, p * (dp[e] - td[ql]));
+      }
+    }
+    __syncthreads();
+
+    // 2. dV += P^T dO and dK += dS^T Q over the warp's columns; B of two
+    // 8-column tiles at once: dO and Q rows ks * 16 + 8 (tile & 1)..,
+    // columns 8 (tile >> 1).., transposed
+#pragma unroll
+    for (int ks = 0; ks < WIDE_SWEEP / 16; ++ks) {
+      uint32_t pa[4], dsa[4];
+      const int p_at = (rg * 16 + lrow + (ltile & 1) * 8) * WIDE_LDP + ks * 16 + (ltile >> 1) * 8;
+      ldsm_x4(pa, sP + p_at);
+      ldsm_x4(dsa, sdS + p_at);
+      const int v_at = (ks * 16 + lrow + (ltile & 1) * 8) * LDS + col0 + (ltile >> 1) * 8;
+#pragma unroll
+      for (int dn = 0; dn < 8; dn += 2) {
+        if (col0 + dn * 8 >= D) break;  // the tiles' columns are all past D
+        const bool second = col0 + dn * 8 + 8 < D;
+        uint32_t b[4];
+        ldsm_x4_trans(b, tdo + v_at + dn * 8);
+        mma_bf16(acc_dv[dn], pa, b[0], b[1]);
+        if (second) mma_bf16(acc_dv[dn + 1], pa, b[2], b[3]);
+        ldsm_x4_trans(b, tq + v_at + dn * 8);
+        mma_bf16(acc_dk[dn], dsa, b[0], b[1]);
+        if (second) mma_bf16(acc_dk[dn + 1], dsa, b[2], b[3]);
+      }
+    }
+  }
+
+  T* dkh = dk + head;
+  T* dvh = dv + head;
+  const int row_lo = k0 + rg * 16 + g;  // the warp's keys in step 2
+  const int row_hi = row_lo + 8;
+#pragma unroll
+  for (int dn = 0; dn < 8; ++dn) {
+    const int col = col0 + dn * 8 + 2 * t;
+    if (col0 + dn * 8 >= D) continue;  // D % 8 == 0: a tile is all below D or all past it
+    if (row_lo < L) {
+      const size_t at = static_cast<size_t>(row_lo) * D + col;
+      store2(dkh + at, acc_dk[dn][0] * scale, acc_dk[dn][1] * scale);
+      store2(dvh + at, acc_dv[dn][0], acc_dv[dn][1]);
+    }
+    if (row_hi < L) {
+      const size_t at = static_cast<size_t>(row_hi) * D + col;
+      store2(dkh + at, acc_dk[dn][2] * scale, acc_dk[dn][3] * scale);
+      store2(dvh + at, acc_dv[dn][2], acc_dv[dn][3]);
+    }
+  }
+}
+
+template <typename T, int CW>
+cudaError_t launch_dkv_onepass(const Args& a, int D, cudaStream_t stream) {
+  using C = DkvOnepass<CW>;
+  const int tiles = (a.L + WIDE_ROWS - 1) / WIDE_ROWS;
+  const long long blocks = static_cast<long long>(tiles) * a.B * a.H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // a second stage of Q and dO only where a block sweeps more than one tile
+  const int stages = a.L > WIDE_SWEEP && C::TWO_STAGES ? 2 : 1;
+  const size_t smem = C::FIXED + stages * C::STAGE;
+  auto kernel = flash_bwd_dkv_onepass_kernel<T, CW>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), C::THREADS, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.delta, a.mask, static_cast<T*>(a.d0),
+      static_cast<T*>(a.d1), a.H, a.L, D, tiles, a.causal, stages, LOG2E * a.scale, a.scale);
+  return cudaGetLastError();
+}
+
 template <typename T, bool DKV>
 cudaError_t launch_wide(const Args& a, int D, cudaStream_t stream) {
   const int tiles = (a.L + WIDE_ROWS - 1) / WIDE_ROWS;
@@ -896,6 +1238,23 @@ cudaError_t launch_wide(const Args& a, int D, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the wide instance for one dtype: dK/dV in one pass for D in (256,
+// ONEPASS_MAX_DIM], else the chunked kernel (one chunk up to 256)
+template <typename T, bool DKV>
+cudaError_t wide_by_dim(const Args& a, int D, cudaStream_t s) {
+  if constexpr (DKV) {
+    if (D > WIDE_DW && D <= ONEPASS_MAX_DIM) {
+      switch ((D + 63) / 64) {  // column warps of 64 columns
+        case 5: return launch_dkv_onepass<T, 5>(a, D, s);
+        case 6: return launch_dkv_onepass<T, 6>(a, D, s);
+        case 7: return launch_dkv_onepass<T, 7>(a, D, s);
+        default: return launch_dkv_onepass<T, 8>(a, D, s);
+      }
+    }
+  }
+  return launch_wide<T, DKV>(a, D, s);
+}
+
 template <bool DKV>
 int wide_by_dtype(const Args& a, int D, int dtype, void* stream) {
   // rows are read as 16-byte vectors: D % 8 == 0 (ops/flash.py pads others)
@@ -905,9 +1264,9 @@ int wide_by_dtype(const Args& a, int D, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_wide<__nv_bfloat16, DKV>(a, D, s);
+    err = wide_by_dim<__nv_bfloat16, DKV>(a, D, s);
   } else if (dtype == 1) {
-    err = launch_wide<float, DKV>(a, D, s);
+    err = wide_by_dim<float, DKV>(a, D, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -20,8 +20,9 @@
 //   -inf - -inf. No causal variant, as in the reference.
 // The mode is a template parameter, so the finished-output instances carry
 // no branch. Head dims: 16, 32, 64, 128, and in the wide instance (end of
-// file) any D with D % 8 == 0, taken above 128: its one-pass kernel for D
-// in (256, 512], its chunked kernel at the others.
+// file) any D with D % 8 == 0, taken above 128: its packed-sets kernel for
+// D up to 256 at L up to 32, its one-pass kernel for D in (256, 512], its
+// chunked kernel at the others.
 //
 // What bounds it on an H100: at the served shape, [1024, 4, 15, 32] bf16,
 // q, k, v and o are 3.9 MB each, 15.7 MB together, which the card moves in
@@ -411,7 +412,9 @@ int by_dtype(const void* q, const void* k, const void* v, const void* mask, void
 // blockIdx.y picks the block's chunk of output columns, c0 = 256
 // blockIdx.y; the scores of a key tile sum over every depth chunk of D. For
 // D <= 256 there is one chunk and Q stays in shared memory for the block's
-// life. D in (256, 512] takes the one-pass instance below
+// life; at L up to 32 the packed-sets instance below
+// (flash_fwd_wide_sets_kernel) takes those D instead. D in (256, 512]
+// takes the one-pass instance below
 // (flash_fwd_wide_onepass_kernel), which scores each key tile once; above
 // 512 this kernel's chunked route stays: each depth chunk of Q and K is
 // staged in turn, and each output chunk's block recomputes the scores
@@ -761,17 +764,48 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// ldmatrix: 8x8 tiles of b16 from shared memory, lanes 8i .. 8i + 7 giving
+// the rows of tile i; lane l receives row l / 4, elements 2 (l % 4) and
+// 2 (l % 4) + 1 of each tile (the mma.sync fragment layout), or with .trans
+// column l / 4, rows 2 (l % 4) and 2 (l % 4) + 1
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// two tiles: lanes 0 .. 15 give the addresses
+__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
 // rows r0 .. r0 + rows - 1 of a contiguous [L, D] matrix into shared rows
-// of LDS bf16, columns 0 .. 16 ceil(D / 16) - 1: rows past L and the columns
-// from D on are 0. bf16 by cp.async (the caller commits and waits), float32
-// rounded to bf16 on the way in.
+// of LDS bf16, columns 0 .. LDS - 9: rows past L and the columns from D on
+// are 0. bf16 by cp.async (the caller commits and waits), float32 rounded
+// to bf16 on the way in. The chunks a row are a compile-time count, so the
+// index split is a multiply, not a division.
 template <typename T, int THREADS, int LDS>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ src, int r0, int rows, int L,
                                            int D, __nv_bfloat16* dst, int tid) {
-  const int chunks = (D + 15) / 16 * 2;
-  for (int i = tid; i < rows * chunks; i += THREADS) {
-    const int r = i / chunks;
-    const int c = (i - r * chunks) * 8;
+  constexpr int CHUNKS = (LDS - 8) / 8;  // 16-byte chunks of a staged row
+  for (int i = tid; i < rows * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS;
+    const int c = (i - r * CHUNKS) * 8;
     const int row = r0 + r;
     const bool in = row < L && c < D;
     const T* from = src + (in ? static_cast<size_t>(row) * D + c : 0);
@@ -1010,12 +1044,355 @@ cudaError_t launch_onepass(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
-// the wide instance for one dtype: one pass for D in (256, ONEPASS_MAX_DIM],
-// else the chunked kernel (one chunk up to 256)
+// ---- the wide instance for short sets: D in (128, 256], L up to WIDE_SETS_MAX_L
+//
+// flash_fwd_wide_kernel gives a block 32 query rows of one (b, h) set: at
+// the ranker's L = 10 (the ring's eval shard) 22 of them are padding, at
+// L = 20 12, and each of the 16,000 blocks at [4000, 4, 10, 192] makes one
+// round of synchronous loads, a barrier, the products and a barrier on its
+// single key tile: latency, not bandwidth, bounds it. This instance packs
+// the sets. q, k and v are contiguous [B, H, L, D], so the rows of
+// consecutive (b, h) sets are one contiguous [B H L, D] matrix; a block
+// takes 32 consecutive rows of it, whatever sets they belong to (parts of
+// up to 5 sets at L = 10), and sweeps the key rows from its first row's
+// set's start to its last row's set's end (under causal, to its last row)
+// in 64-key tiles. A row's set is row / L and its batch row set / H; a
+// score stays finite only where the key's set is the row's, mask[set / H,
+// key % L] holds and, under causal, key % L <= row % L. Padding is only the
+// rows past B H L in the last block (under 1 / 32 of the grid), and the
+// grid at [4000, 4, 10, 192] is 5,000 blocks. Per block:
+// - Q and the first key tile's K, V and each key's set (-1 for a masked key
+//   or one past the sweep) and position are staged together, by cp.async
+//   for bf16 (float32 is rounded to bf16 on the way in, synchronously), with
+//   the one-pass instance's staging helpers. A 64-key tile holds every key
+//   of a block's sets at L up to 21 (at most 63 of them), so at the
+//   ranker's L = 10 and 20 a block makes one round: all its loads in
+//   flight at once, one score step, one softmax step, one P V step. Above
+//   L = 21 a block may sweep a second tile, staged after the first.
+//   Measured on an H100: one 64-key round beat two 32-key tiles in two
+//   stages with both in flight from the start by 8-15% at the main path's
+//   three shapes (chip_smoke.py --rows); the second stage's shared memory
+//   would cost a block an SM.
+// - SETS_RG row groups of 16 rows times CW = 3 (D up to 192) or 4 column
+//   warps of 64 columns: the 8 SETS_RG (16-row x 8-key) score tiles of a key
+//   tile are spread over the warps and computed once over the whole depth,
+//   and a score tile whose rows' sets and keys' sets do not meet skips its
+//   products (at L = 10 most of them); then every warp of row group rg
+//   takes the online softmax step from the group's scores and accumulates
+//   P V into its own 64 columns, as the one-pass instance does, skipping a
+//   16-key step whose sets the row group's do not meet. Fragments come
+//   from shared memory by ldmatrix (.trans for V, two 8-column tiles a
+//   load).
+// Shared memory: Q (32 rows), K and V (64 rows), CW * 64 + 8 bf16 a row,
+// and the score tile: 74 KB at CW = 3 (three blocks an SM), 94 KB at 4
+// (two). 64-row blocks (four row groups) measured slower at every main-path
+// shape. Bound on an H100: the ring's eval shard, [4000, 4, 10, 192] bf16
+// in the partial mode, moves q, k and v (184 MB) and a float32 acc (123
+// MB), 0.092 ms at 3.35 TB/s, for 1.0 GFLOP: bound by bytes, so a block
+// keeps all of its loads in flight at once, and two or three blocks an SM
+// hide each other's barriers. Numerics as the other wide instances': bf16
+// operands, float32 statistics and accumulators, P rounded to bf16 for
+// P V, exp2 in the log2 domain, a row with no valid key giving 0 and the
+// same lse filler, every output element summed by one thread in key order.
+// Longer sets keep flash_fwd_wide_kernel (bf16 above WIDE_SM90_MIN_L =
+// WIDE_SETS_MAX_L takes the Hopper instance in ops/flash.py; float32 and
+// a forced mma.sync route reach the chunked kernel there).
+
+constexpr int WIDE_SETS_MAX_L = 32;
+constexpr int SETS_RG = 2;   // row groups of 16 flattened query rows a block
+constexpr int SETS_BN = 64;  // keys a tile: every key of a block's sets at L up to 21
+constexpr int SETS_LDSS = SETS_BN + 4;  // score tile row stride (floats)
+
+template <int CW>
+struct Sets {
+  static constexpr int BM = 16 * SETS_RG;  // flattened query rows a block
+  static constexpr int WARPS = SETS_RG * CW;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int LDS = CW * 64 + 8;        // shared row stride (bf16)
+  static constexpr int TILE = SETS_BN * LDS;  // K or V of a tile
+  static constexpr int SCORE_TILES = SETS_RG * SETS_BN / 8;
+  static constexpr size_t SMEM =
+      static_cast<size_t>(BM * LDS + 2 * TILE) * sizeof(__nv_bfloat16) +
+      static_cast<size_t>(BM * SETS_LDSS) * sizeof(float) +
+      static_cast<size_t>(2 * BM + 2 * SETS_BN) * sizeof(int);
+  // as many blocks an SM as their shared memory allows, at no fewer than
+  // 96 registers a thread
+  static constexpr int FIT = static_cast<int>(233472 / (SMEM + 1024));
+  static constexpr int BY_REGS = 65536 / (THREADS * 96);
+  static constexpr int MIN_BLOCKS = FIT < BY_REGS ? FIT : (BY_REGS > 0 ? BY_REGS : 1);
+  static_assert(SMEM <= 232448, "a block's shared memory on sm_90");
+};
+
+// key tile n0's K, V and each key's set and position into shared memory,
+// committed; keys at or past key_end, and masked keys, get set -1
+template <typename T, int CW>
+__device__ __forceinline__ void stage_set_tile(const T* __restrict__ k, const T* __restrict__ v,
+                                               const uint8_t* __restrict__ mask, int n0,
+                                               int key_end, int H, int L, int D,
+                                               __nv_bfloat16* sK, __nv_bfloat16* sV,
+                                               int* key_set, int* key_pos, int tid) {
+  using C = Sets<CW>;
+  stage_rows<T, C::THREADS, C::LDS>(k, n0, SETS_BN, key_end, D, sK, tid);
+  stage_rows<T, C::THREADS, C::LDS>(v, n0, SETS_BN, key_end, D, sV, tid);
+  for (int i = tid; i < SETS_BN; i += C::THREADS) {
+    const int key = n0 + i;
+    const int set = key / L;
+    const int pos = key - set * L;
+    const bool ok = key < key_end &&
+                    (mask == nullptr || mask[static_cast<size_t>(set / H) * L + pos] != 0);
+    key_set[i] = ok ? set : -1;
+    key_pos[i] = pos;
+  }
+  cp_async_commit();
+}
+
+template <typename T, int MODE, int CW>
+__global__ void __launch_bounds__(Sets<CW>::THREADS, Sets<CW>::MIN_BLOCKS)
+flash_fwd_wide_sets_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                           out_t<T, MODE>* __restrict__ o, float* __restrict__ stat0,
+                           float* __restrict__ stat1, int H, int L, int D, int N, int causal,
+                           float scale_log2) {
+  using C = Sets<CW>;
+  constexpr int LDS = C::LDS;
+  constexpr int NT = SETS_BN / 8;  // 8-key tiles of the score tile
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = sQ + C::BM * LDS;
+  __nv_bfloat16* sV = sK + C::TILE;
+  float* sS = reinterpret_cast<float*>(sV + C::TILE);
+  int* sRowSet = reinterpret_cast<int*>(sS + C::BM * SETS_LDSS);
+  int* sRowPos = sRowSet + C::BM;
+  int* sKeySet = sRowPos + C::BM;
+  int* sKeyPos = sKeySet + SETS_BN;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rg = warp / CW;  // step 2: the warp's row group and its 64 columns
+  const int cw = warp % CW;
+  const int lrow = lane & 7;  // ldmatrix: the row this lane addresses in tile lane / 8
+  const int ltile = lane >> 3;
+  const int r0 = blockIdx.x * C::BM;  // the block's first flattened row
+  const int r_last = min(r0 + C::BM, N) - 1;
+  const int key_begin = (r0 / L) * L;
+  const int key_end = causal ? r_last + 1 : min(N, (r_last / L + 1) * L);
+  const int n_tiles = (key_end - key_begin + SETS_BN - 1) / SETS_BN;
+  const int row_lo = r0 + rg * 16 + g;
+  const int row_hi = row_lo + 8;
+  const int col0 = cw * 64;
+  const int kk_end = (D + 15) / 16;  // depth steps; the columns from D on are 0
+
+  for (int i = tid; i < C::BM; i += C::THREADS) {
+    const int row = r0 + i;
+    const int set = row / L;
+    sRowSet[i] = row < N ? set : -2;  // a row past the last matches no key
+    sRowPos[i] = row - set * L;
+  }
+  stage_rows<T, C::THREADS, LDS>(q, r0, C::BM, N, D, sQ, tid);
+  stage_set_tile<T, CW>(k, v, mask, key_begin, key_end, H, L, D, sK, sV, sKeySet, sKeyPos,
+                        tid);  // commits Q with it
+  // the row group's sets, first and last: a 16-key step of P V that meets
+  // neither holds only zeros
+  const int rg_row = r0 + rg * 16;
+  const int rg_first_set = rg_row / L;
+  const int rg_last_set = min(rg_row + 15, N - 1) / L;
+
+  float acc[8][4];
+#pragma unroll
+  for (int dn = 0; dn < 8; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+  float m_row[2] = {NEG_BIG, NEG_BIG};
+  float l_row[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int n0 = key_begin + j * SETS_BN;
+    if (j > 0) {  // a second tile (L above 21 only), once every warp is done with the first
+      __syncthreads();
+      stage_set_tile<T, CW>(k, v, mask, n0, key_end, H, L, D, sK, sV, sKeySet, sKeyPos, tid);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // tile j (and Q, the row sets) arrived
+
+    // 1. the tile's scores, once: score tile sc is rows 16 (sc / NT).. against
+    // keys 8 (sc % NT)..; its products are skipped where no row's set meets
+    // a key's set
+    for (int sc = warp; sc < C::SCORE_TILES; sc += C::WARPS) {
+      const int srow = (sc / NT) * 16;
+      const int skey = (sc % NT) * 8;
+      const int first_key = n0 + skey;
+      const int last_key = min(first_key + 7, key_end - 1);
+      const int first_row = r0 + srow;
+      const int last_row = min(first_row + 15, N - 1);
+      const bool meet = first_key <= last_key && first_key / L <= last_row / L &&
+                        last_key / L >= first_row / L;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      if (meet) {
+        // A: Q rows srow + 8 (tile & 1).., columns 8 (tile >> 1).. of the
+        // step; B: K rows skey.., columns 8 (tile & 1).. of the step
+        const __nv_bfloat16* qa = sQ + (srow + lrow + (ltile & 1) * 8) * LDS + (ltile >> 1) * 8;
+        const __nv_bfloat16* kb = sK + (skey + lrow) * LDS + (ltile & 1) * 8;
+#pragma unroll 4
+        for (int kk = 0; kk < kk_end; ++kk) {
+          uint32_t a[4], b[2];
+          ldsm_x4(a, qa + kk * 16);
+          ldsm_x2(b, kb + kk * 16);
+          mma_bf16(s, a, b[0], b[1]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = skey + 2 * t + (e & 1);
+        const int r = srow + g + 8 * (e >> 1);
+        const bool ok = sKeySet[kl] == sRowSet[r] && (!causal || sKeyPos[kl] <= sRowPos[r]);
+        // -inf: exp2 of a masked score is 0 even while the row's max is NEG_BIG
+        sS[r * SETS_LDSS + kl] = ok ? s[e] * scale_log2 : neg_inf();
+      }
+    }
+    __syncthreads();
+
+    // 2. the row group's scores in accumulator layout, the online softmax step
+    float p[NT][4];
+    float tile_max[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sS[(rg * 16 + g + 8 * (e >> 1)) * SETS_LDSS + nt * 8 + 2 * t + (e & 1)];
+        p[nt][e] = x;
+        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+      const float m_new = fmaxf(m_row[r], tile_max[r]);
+      corr[r] = exp2f(m_row[r] - m_new);
+      m_row[r] = m_new;
+    }
+    float tile_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = exp2f(p[nt][e] - m_row[e >> 1]);
+        p[nt][e] = x;
+        tile_sum[e >> 1] += x;
+      }
+    }
+    l_row[0] = l_row[0] * corr[0] + tile_sum[0];
+    l_row[1] = l_row[1] * corr[1] + tile_sum[1];
+#pragma unroll
+    for (int dn = 0; dn < 8; ++dn) {
+      acc[dn][0] *= corr[0];
+      acc[dn][1] *= corr[0];
+      acc[dn][2] *= corr[1];
+      acc[dn][3] *= corr[1];
+    }
+#pragma unroll
+    for (int ks = 0; ks < SETS_BN / 16; ++ks) {
+      const int first_key = n0 + ks * 16;
+      const int last_key = min(first_key + 15, key_end - 1);
+      if (first_key > last_key || first_key / L > rg_last_set || last_key / L < rg_first_set) {
+        continue;  // no key of the step is in a set of the row group's
+      }
+      uint32_t pa[4];
+      pa[0] = pack(p[2 * ks][0], p[2 * ks][1]);
+      pa[1] = pack(p[2 * ks][2], p[2 * ks][3]);
+      pa[2] = pack(p[2 * ks + 1][0], p[2 * ks + 1][1]);
+      pa[3] = pack(p[2 * ks + 1][2], p[2 * ks + 1][3]);
+      // B of two 8-column tiles at once: V rows ks * 16 + 8 (tile & 1)..,
+      // columns 8 (tile >> 1).., transposed
+      const __nv_bfloat16* vb = sV + (ks * 16 + lrow + (ltile & 1) * 8) * LDS + col0 +
+                                (ltile >> 1) * 8;
+#pragma unroll
+      for (int dn = 0; dn < 8; dn += 2) {
+        if (col0 + dn * 8 >= D) break;  // the tiles' columns are all past D
+        uint32_t b[4];
+        ldsm_x4_trans(b, vb + dn * 8);
+        mma_bf16(acc[dn], pa, b[0], b[1]);
+        if (col0 + dn * 8 + 8 < D) mma_bf16(acc[dn + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+  }
+  const float inv_lo = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[0], 1e-9f);
+  const float inv_hi = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[1], 1e-9f);
+#pragma unroll
+  for (int dn = 0; dn < 8; ++dn) {
+    const int col = col0 + dn * 8 + 2 * t;
+    if (col0 + dn * 8 >= D) continue;  // D % 8 == 0: a tile is all below D or all past it
+    if (row_lo < N) {
+      store2(o + static_cast<size_t>(row_lo) * D + col, acc[dn][0] * inv_lo, acc[dn][1] * inv_lo);
+    }
+    if (row_hi < N) {
+      store2(o + static_cast<size_t>(row_hi) * D + col, acc[dn][2] * inv_hi, acc[dn][3] * inv_hi);
+    }
+  }
+  // the CW column warps of a row group hold the same statistics: the first
+  // writes, at the flattened row ([B, H, L] is [B H L])
+  if constexpr (MODE == MODE_LSE) {
+    if (cw == 0 && t == 0) {
+      if (row_lo < N) stat0[row_lo] = m_row[0] * LN2 + logf(fmaxf(l_row[0], 1e-30f));
+      if (row_hi < N) stat0[row_hi] = m_row[1] * LN2 + logf(fmaxf(l_row[1], 1e-30f));
+    }
+  }
+  if constexpr (MODE == MODE_PARTIAL) {
+    if (cw == 0 && t == 0) {
+      if (row_lo < N) {
+        stat0[row_lo] = m_row[0] * LN2;
+        stat1[row_lo] = l_row[0];
+      }
+      if (row_hi < N) {
+        stat0[row_hi] = m_row[1] * LN2;
+        stat1[row_hi] = l_row[1];
+      }
+    }
+  }
+}
+
+template <typename T, int MODE, int CW>
+cudaError_t launch_sets(const void* q, const void* k, const void* v, const void* mask, void* o,
+                        float* stat0, float* stat1, int B, int H, int L, int D, int causal,
+                        float scale, cudaStream_t stream) {
+  using C = Sets<CW>;
+  const long long rows = static_cast<long long>(B) * H * L;
+  // flattened row and key indices, and a tile past the last, stay in int
+  if (rows > 0x7fffffffLL - 2 * SETS_BN) return cudaErrorInvalidValue;
+  const int n = static_cast<int>(rows);
+  auto kernel = flash_fwd_wide_sets_kernel<T, MODE, CW>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::SMEM));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>((n + C::BM - 1) / C::BM), C::THREADS, C::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<out_t<T, MODE>*>(o), stat0, stat1, H, L, D,
+      n, causal, LOG2E * scale);
+  return cudaGetLastError();
+}
+
+// the wide instance for one dtype: the packed sets for D up to 256 at L up
+// to WIDE_SETS_MAX_L, one pass for D in (256, ONEPASS_MAX_DIM], else the
+// chunked kernel (one chunk up to 256)
 template <typename T, int MODE>
 cudaError_t wide_by_dim(const void* q, const void* k, const void* v, const void* mask, void* o,
                         float* s0, float* s1, int B, int H, int L, int D, int causal, float scale,
                         cudaStream_t s) {
+  if (D <= WIDE_DW && L <= WIDE_SETS_MAX_L) {  // column warps of 64 columns: 3 or 4
+    return D <= 192 ? launch_sets<T, MODE, 3>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s)
+                    : launch_sets<T, MODE, 4>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
+  }
   if (D <= WIDE_DW || D > ONEPASS_MAX_DIM) {
     return launch_wide<T, MODE>(q, k, v, mask, o, s0, s1, B, H, L, D, causal, scale, s);
   }

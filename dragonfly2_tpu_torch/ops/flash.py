@@ -27,8 +27,11 @@ csrc/flash_bwd_dkv_sm90.cu (``dfly_flash_bwd_dkv_sm90``) and
 csrc/flash_bwd_dq_sm90.cu (``dfly_flash_bwd_dq_sm90``); and wide Hopper
 ones of the forward (three modes), of dK/dV and of dQ for head dims in
 (128, 256], ``*_wide_sm90`` in the same sources. The wide mma.sync forward
-scores each key tile once for head dims in (256, 512] (its C side picks
-that kernel from D) and splits D into 256-column chunks only above. The
+packs short sets into its blocks for head dims up to 256 at L up to 32,
+scores each key tile once for head dims in (256, 512] and splits D into
+256-column chunks only above; the wide mma.sync dK/dV computes every
+column of its keys in one pass for head dims in (256, 512], and dQ splits D
+above 256 (the C sides pick those kernels from L and D). The
 head dim and ``_sm90_path`` pick one from the shape and dtype alone; a
 refused launch raises, it never falls back to another.
 
@@ -62,9 +65,9 @@ plain versions take any D. On CUDA the shape alone decides, before any
 launch (``_kernel_dim``): a D in ``HEAD_DIMS`` (16, 32, 64, 128) goes to
 its instances; a D above 128 with D % 8 == 0 goes to the wide instances as
 it is, which read the head dim at run time (16-byte row vectors, columns
-past D zeroed in shared memory, stores stopping at D; above 256 the
-backward's split D into 256-column chunks, the forward's only above
-512); any other D is zero-padded, below 128 to the next of
+past D zeroed in shared memory, stores stopping at D; above 256 dQ
+splits D into 256-column chunks, the forward and dK/dV only above 512);
+any other D is zero-padded, below 128 to the next of
 ``HEAD_DIMS``, above it to the next multiple of 8. A padded call
 gives the kernels the softmax scale of the unpadded D (every C entry takes
 it) and slices the outputs and gradients back to D. Zero columns add

@@ -492,8 +492,9 @@ def _check_partials(got, want, tol, stats=None):
 def test_head_dim_above_128_is_refused_before_any_launch(monkeypatch, d, dtype):
     """No head dim is refused any more (ROADMAP C3 closed): above 256 every
     entry (the finished forward, with lse, the partials, dK/dV, dQ, and
-    autograd through FlashAttention) launches the wide mma.sync instance,
-    which splits D into 256-column chunks, unpadded, and matches the plain
+    autograd through FlashAttention) launches the wide mma.sync instance
+    (the forward and dK/dV in one pass, dQ in 256-column chunks),
+    unpadded, and matches the plain
     versions at D in bf16 and float32; no plain version runs on a CUDA
     tensor."""
     _need_card()
@@ -777,6 +778,118 @@ def test_forward_above_256_matches_plain(monkeypatch, d, l, dtype):
     assert {n: counts[n] - before[n] for n in counts} == {
         **{n: 0 for n in counts}, "FWD_WIDE_LAUNCHES": 2, "LSE_WIDE_LAUNCHES": 2,
         "PARTIAL_WIDE_LAUNCHES": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [136, 192, 256])
+@pytest.mark.parametrize("l", [1, 7, 10, 16, 20, 31, 32])
+def test_packed_short_sets_match_plain(monkeypatch, l, d, causal, dtype):
+    """The wide forward's packed-sets kernel (D up to 256 at L up to 32: 32
+    flattened rows a block, whatever sets they belong to) in its three
+    modes, the finished output and lse causal or not, the partials
+    without, on B x H = 3 x 5 sets, so sets straddle the blocks at every L
+    but 1, 16 and 32, against the plain versions; batch row 0 has no valid
+    key and comes out exactly 0 (the partials' row_max at the filler); and
+    without a mask. One launch each, counted on the *_WIDE_LAUNCHES
+    counters; no plain version and no pad copy."""
+    _need_card()
+    q, k, v, _, mask = _training_inputs((3, 5, l, d), dtype, seed=l + d + causal)
+    # the kernel rounds float32 operands to bf16 in shared memory: the plain
+    # version on the rounded values holds both dtypes, lse and the row
+    # statistics to STATS, as test_forward_above_256_matches_plain does
+    rq, rk, rv = (t.to(torch.bfloat16).to(dtype) for t in (q, k, v))
+    tol, stats = dict(atol=ATOL, rtol=RTOL), dict(atol=STATS_ATOL, rtol=STATS_RTOL)
+    refs = {masked: (*flash.flash_attention_lse_plain(rq, rk, rv, kv_mask, causal),
+                     None if causal else flash.flash_attention_partials_plain(rq, rk, rv, kv_mask))
+            for masked, kv_mask in ((True, mask), (False, None))}
+    _refuse_plain(monkeypatch)
+    monkeypatch.setattr(flash, "_padded", lambda *t: pytest.fail("a wide D was padded"))
+    launched = _record_launches(monkeypatch)
+    before = _wide_counts()
+    for masked, (ref_o, ref_lse, ref_partials) in refs.items():
+        kv_mask = mask if masked else None
+        out = flash.flash_attention(q, k, v, kv_mask, causal)
+        torch.testing.assert_close(out.float(), ref_o.float(), **tol)
+        o, lse = flash.flash_attention_lse(q, k, v, kv_mask, causal)
+        assert torch.equal(o, out)  # one kernel, two modes
+        seen = ref_lse > -1e20
+        torch.testing.assert_close(lse[seen], ref_lse[seen], **stats)
+        assert torch.isfinite(lse).all()
+        if masked:
+            assert (out[0] == 0).all()
+        if not causal:
+            acc, row_max, row_sum = flash.flash_attention_partials(q, k, v, kv_mask)
+            _check_partials((acc, row_max, row_sum), ref_partials, tol, stats)
+            if masked:
+                assert (acc[0] == 0).all() and (row_sum[0] == 0).all()
+                torch.testing.assert_close(row_max[0], torch.full_like(row_max[0], FILLER),
+                                           rtol=1e-6, atol=0)
+    torch.cuda.synchronize()
+    want = ["dfly_flash_fwd_wide", "dfly_flash_fwd_lse_wide"] + (
+        [] if causal else ["dfly_flash_fwd_partial_wide"])
+    assert launched == want * 2
+    counts = _wide_counts()
+    assert {n: counts[n] - before[n] for n in counts} == {
+        **{n: 0 for n in counts}, "FWD_WIDE_LAUNCHES": 2, "LSE_WIDE_LAUNCHES": 2,
+        "PARTIAL_WIDE_LAUNCHES": 0 if causal else 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [1, 20, 33, 1024])
+@pytest.mark.parametrize("d", [264, 320, 384, 512])
+def test_dkv_above_256_in_one_pass_matches_plain(monkeypatch, d, l, causal, dtype):
+    """dK/dV's one-pass kernel (D in (256, 512]: 5 to 8 column warps; L = 1
+    and 20 sweep one query tile in one stage, 33 a ragged second tile and
+    1024 thirty-two, in two stages) against flash_attention_bwd_plain from
+    the same o and lse; batch row 0 has no valid key, so its dK and dV are
+    exactly 0; and without a mask. One launch each, counted on
+    DKV_WIDE_LAUNCHES; no plain version and no pad copy."""
+    _need_card()
+    q, k, v, do, mask = _training_inputs((2, 2, l, d), dtype, seed=l + d + causal)
+    # bf16-representable operands, which the kernel takes as they are, and
+    # an o in bf16, so that the plain version run in bf16 on the same values
+    # rounds where the kernel rounds (its operands, P and dS): the long
+    # tolerances where a dK/dV row sums hundreds of queries. A float32 call
+    # is also held to the plain version in float32, which keeps P and dS in
+    # float32, to the kernel tolerance (test_training_kernels_match_plain's)
+    q, k, v, do = (t.to(torch.bfloat16).to(dtype) for t in (q, k, v, do))
+    long = l > flash.SM90_MIN_L
+    grad_tol = (dict(atol=LONG_GRAD_ATOL, rtol=LONG_GRAD_RTOL) if long
+                else dict(atol=GRAD_ATOL, rtol=GRAD_RTOL))
+    cases = []
+    for kv_mask in (mask, None):
+        o, lse = flash.flash_attention_lse_plain(q, k, v, kv_mask, causal)
+        o = o.to(torch.bfloat16).to(dtype)
+        delta = (do.float() * o.float()).sum(-1)
+        want = flash.flash_attention_bwd_plain(
+            *(t.to(torch.bfloat16) for t in (q, k, v)), kv_mask, o.to(torch.bfloat16), lse,
+            do.to(torch.bfloat16), causal)[1:]
+        unrounded = (flash.flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal)[1:]
+                     if dtype == torch.float32 else None)
+        cases.append((kv_mask, lse, delta, want, unrounded))
+    _refuse_plain(monkeypatch)
+    monkeypatch.setattr(flash, "_padded", lambda *t: pytest.fail("a wide D was padded"))
+    launched = _record_launches(monkeypatch)
+    for kv_mask, lse, delta, want, unrounded in cases:
+        before = _wide_counts()
+        got = flash.flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal)
+        torch.cuda.synchronize()
+        counts = _wide_counts()
+        assert {n: counts[n] - before[n] for n in counts} == {
+            **{n: 0 for n in counts}, "DKV_WIDE_LAUNCHES": 1}
+        for i, name in enumerate(("dk", "dv")):
+            g = got[i]
+            assert g.dtype == dtype and g.shape == q.shape, name
+            torch.testing.assert_close(g.float(), want[i].float(), **grad_tol,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+            if unrounded is not None:
+                torch.testing.assert_close(g, unrounded[i], atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                           msg=lambda m, name=name: f"{name} (float32 plain): {m}")
+            if kv_mask is not None:
+                assert (g[0] == 0).all(), name
+    assert launched == ["dfly_flash_bwd_dkv_wide"] * 2
 
 
 def test_wide_instances_take_float32():

@@ -230,3 +230,54 @@ def test_head_dims_above_128_match_reference(d, causal):
     # a CPU tensor takes the plain versions and launches nothing
     assert (flash.LAUNCHES, flash.LSE_LAUNCHES, flash.PARTIAL_LAUNCHES, flash.FWD_WIDE_LAUNCHES,
             flash.LSE_WIDE_LAUNCHES, flash.PARTIAL_WIDE_LAUNCHES) == counts
+
+
+# the regime of the card's packed-sets forward (D up to 256 at L up to 32)
+# and one-pass dK/dV (D in (256, 512]): several short sets, B x H = 15 sets
+# (not a multiple of the kernels' 32-row blocks), batch row 0 fully masked;
+# the plain versions, which the card holds those kernels to, against the
+# reference's Pallas kernels (interpret mode), dense_attention and
+# jax.grad, float32
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(3, 5, 10, 192), (3, 5, 20, 320)], ids=["l10-d192", "l20-d320"])
+def test_packed_short_sets_match_reference(shape, causal):
+    from dragonfly2_tpu.ops.flash import _flash_forward as ref_forward
+    from dragonfly2_tpu.ops.flash import flash_attention_partials as ref_partials
+
+    b, h, l, d = shape
+    q, k, v, mask = _mk(b, h, l, d, seed=l + d + causal, fully_masked=True)
+    do = np.random.default_rng(l + d).standard_normal(q.shape).astype(np.float32)
+    tol = dict(atol=TOL["float32"], rtol=TOL["float32"])
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = flash.flash_attention(*leaves, torch.from_numpy(mask), causal=causal)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_flash(q, k, v, mask, causal=causal)),
+                               **tol)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(ref_dense(q, k, v, mask, causal=causal)), **tol)
+    assert (out.detach().numpy()[0] == 0).all()  # the fully masked batch row
+
+    def loss(q, k, v):
+        return (ref_flash(q, k, v, mask, causal=causal) * do).sum()
+
+    want_grads = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=name)
+        assert (g.numpy()[0] == 0).all(), name
+
+    tq, tk, tv, tm = (torch.from_numpy(x) for x in (q, k, v, mask))
+    o, lse = flash.flash_attention_lse(tq, tk, tv, tm, causal)
+    want_o, want_lse = ref_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   jnp.asarray(mask), causal, save_lse=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **tol)
+    if not causal:  # the partials have no causal mode, as in the reference
+        acc, row_max, row_sum = flash.flash_attention_partials(tq, tk, tv, tm)
+        want_acc, want_max, want_sum = (np.asarray(x) for x in ref_partials(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask)))
+        np.testing.assert_allclose(row_max.numpy(), want_max, **tol)
+        np.testing.assert_allclose(row_sum.numpy(), want_sum, **tol)
+        rows = np.maximum(want_sum, 1.0)[..., None]
+        np.testing.assert_allclose(acc.numpy() / rows, want_acc / rows, **tol)
+        assert (acc.numpy()[0] == 0).all() and (row_sum.numpy()[0] == 0).all()

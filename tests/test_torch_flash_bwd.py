@@ -241,3 +241,42 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
         flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do)
     with pytest.raises(ValueError, match="CUDA"):
         flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do)
+
+
+# the regime of the card's one-pass dK/dV and packed-sets forward: B x H =
+# 3 x 5 short sets, batch row 0 with no valid key, at the head dims those
+# kernels take (192 at L = 10, 320 at L = 20)
+PACKED_CASES = [(10, 192), (20, 320)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l,d", PACKED_CASES, ids=[f"l{l}-d{d}" for l, d in PACKED_CASES])
+def test_backward_twin_matches_reference_on_packed_sets(l, d, causal, dtype):
+    """flash_attention_bwd_plain against _flash_backward (interpret mode)
+    and the forward with lse against _flash_forward, on several short sets
+    of the wide head dims; the dead batch row's gradients are exactly 0."""
+    q, k, v, do, mask = _mk(l, "dead", seed=300 + l + causal, b=3, h=5, d=d)
+    rq, rk, rv, rdo, rmask = (_ref(x, dtype) for x in (q, k, v, do, mask))
+    o, lse = _flash_forward(rq, rk, rv, rmask, causal=causal, save_lse=True)
+    want = _flash_backward(rq, rk, rv, rmask, o, lse, rdo, causal)
+    got = flash.flash_attention_bwd(
+        *(_port(x, dtype) for x in (q, k, v, mask)),
+        _port(np.array(o, np.float32), dtype), torch.from_numpy(np.array(lse)),
+        _port(do, dtype), causal,
+    )
+    tol = TOL[dtype]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == getattr(torch, dtype), name
+        np.testing.assert_allclose(_np(g), _np(w), atol=tol, rtol=tol, err_msg=name)
+        assert (_np(g)[0] == 0).all(), name
+    # the forward with lse on the same values, against the reference's
+    rounded = [_round(x, dtype) for x in (q, k, v)]
+    got_o, got_lse = flash.flash_attention_lse(*(_port(x, dtype) for x in (*rounded, mask)),
+                                               causal=causal)
+    want_o, want_lse = _flash_forward(*(_ref(x, "float32") for x in (*rounded, mask)),
+                                      causal=causal, save_lse=True)
+    rows = np.broadcast_to(_rows_with_a_key(mask, l, 3, causal), got_lse.shape)
+    np.testing.assert_allclose(_np(got_o), _np(want_o), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(got_lse)[rows], _np(want_lse)[rows], atol=tol, rtol=tol)
+    assert (_np(got_o)[0] == 0).all()
