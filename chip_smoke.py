@@ -77,14 +77,15 @@ result line:
 9. the wide instances (slices 7-9, ROADMAP C3): every entry at head dims
    above 128, each taken as it is, against the plain version of what it
    computes at D = 160, 192, 256, 320 and 512, L = 40 and 2048, causal and
-   not, float32 too at D = 320 and 512; the wide mma.sync instances at
+   not, float32 too at D = 192, 320 and 512; the wide mma.sync instances at
    every D (the forward's one-pass kernel above 256), the wide Hopper ones
    (TMA + wgmma: the forward in its three modes, dK/dV and dQ) for bf16 at
    D up to 256 above their thresholds, and forced at the wide ranker's
-   batch; that batch is checked at D = 320 too; then slice 11's two
+   batch; that batch is checked at D = 320 too; then slices 11-12's
    kernels at their edges on 3 x 5 sets (the packed short-set forward at
-   D = 136, 192 and 256, L = 1 .. 32, float32 too; the one-pass dK/dV at
-   D = 264 .. 512, L = 1, 20, 33 and 1024). Each instance timed at its
+   D = 136, 192 and 256, L = 1 .. 32, float32 too; the one-pass dQ and
+   dK/dV at D = 136 .. 512, L = 1, 20, 32, 33 and 1024, the Hopper
+   instances forced off; the chunked backward at D = 640). Each instance timed at its
    main path's shape (its device time beside the other instance's; before
    any timing, both instances' outputs there held to the plain version
    with the row's tolerances; at the wide eval shape both forward
@@ -135,10 +136,10 @@ and prints no result line.
 
     python3 chip_smoke.py --rows [--tree DIR]
 
-instead holds the kernels of the four rows slice 11 redesigned (the ring's
-eval-shard partials, the wide eval forward, the wide ranker's forward with
-lse, the hidden-1280 dK/dV) to their plain versions at their main paths'
-shapes and times them, with the package from DIR (another commit's
+instead holds the kernels of the seven rows slices 11-12 redesigned (the
+ring's eval-shard partials, the wide eval forward, the wide ranker's
+forward with lse, the hidden-1280 dK/dV and dQ, the hidden-768 dK/dV and
+dQ) to their plain versions at their main paths' shapes and times them, with the package from DIR (another commit's
 checkout, built there) or beside the script; run it for two trees in turns
 to compare their kernels in one call. No result line.
 
@@ -386,13 +387,15 @@ def phase_build():
 
 
 def _instance_label(entry: str) -> str:
-    """``kernel<template arguments>`` of a mangled kernel name (``kernel``
-    alone where it takes none)."""
-    m = re.search(r"\d(flash_\w+?_kernel)I((?:Li\d+E)+)E", entry)
+    """``kernel<template arguments>`` of a mangled kernel name (its element
+    type, where it is the first, and its integers; ``kernel`` alone where it
+    takes none)."""
+    m = re.search(r"\d(flash_\w+?_kernel)I(13__nv_bfloat16|f)?((?:Li\d+E)+)E", entry)
     if m is None:
         plain = re.search(r"\d(flash_\w+?_kernel)", entry)
         return plain.group(1) if plain else entry[-40:]
-    return f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+    dtype = {"13__nv_bfloat16": ["bf16"], "f": ["float32"]}.get(m.group(2), [])
+    return f"{m.group(1)}<{', '.join(dtype + re.findall(r'Li(\d+)E', m.group(3)))}>"
 
 
 def _attention_inputs(gen, b, h, l, d, dtype, fully_masked_rows):
@@ -1892,13 +1895,17 @@ def phase_long_ulysses():
 # wide Hopper forward, forward with lse, dK/dV and dQ). The kernels line's
 # rows are timed at the shapes those runs give each kernel.
 WIDE_CHECK_DIMS, WIDE_CHECK_LENGTHS = (160, 192, 256, 320, 512), (40, 2048)
-WIDE_FLOAT32_DIMS = (320, 512)  # float32 at L = 40
-# slice 11's two kernels at their edges, on B x H = 3 x 5 sets: the packed
+WIDE_FLOAT32_DIMS = (192, 320, 512)  # float32 at L = 40
+# slices 11-12's kernels at their edges, on B x H = 3 x 5 sets: the packed
 # short-set forward (D up to 256, L up to 32; float32 too at L = 10) and the
-# one-pass dK/dV (D in (256, 512])
+# one-pass dQ and dK/dV (D in (128, 512]; at D up to 256 the wide Hopper
+# instances forced off, so every L reaches them); and one D above 512 for
+# the chunked backward kernels that remain there
 WIDE_EDGE_SETS = (3, 5)
 WIDE_SETS_DIMS, WIDE_SETS_LENGTHS = (136, 192, 256), (1, 7, 10, 16, 20, 31, 32)
-WIDE_DKV_ONEPASS_DIMS, WIDE_DKV_ONEPASS_LENGTHS = (264, 320, 384, 512), (1, 20, 33, 1024)
+WIDE_ONEPASS_DIMS = (136, 192, 256, 264, 320, 384, 512)
+WIDE_ONEPASS_LENGTHS = (1, 20, 32, 33, 1024)
+WIDE_CHUNKED_DIM = 640
 WIDE_C3_DIM = 320  # each wide mma.sync instance also timed at this D
 WIDE_HIDDEN = 768
 WIDE_HEAD_DIM = WIDE_HIDDEN // 4
@@ -1926,14 +1933,15 @@ _WIDE_COUNTERS = {
 # "flash_fwd_wide" names the three kernels of the wide mma.sync forward (the
 # packed-sets one its C side picks for D up to 256 at L up to 32, the
 # one-pass one for D in (256, 512], the chunked one otherwise), and the
-# dK/dV pattern its two kernels (one pass for D in (256, 512], chunked
-# otherwise) but not the wide Hopper dK/dV's flash_bwd_dkv_wide_sm90_kernel:
-# a row prints the name the profiler found
+# dK/dV and dQ patterns their two kernels each (one pass for D in (128,
+# 512], chunked otherwise) but not the wide Hopper ones'
+# flash_bwd_{dkv,dq}_wide_sm90_kernel: a row prints the name the profiler
+# found
 _WIDE_SYMBOLS = {
     "flash_fwd_wide": "flash_fwd_wide", "flash_fwd_lse_wide": "flash_fwd_wide",
     "flash_fwd_partial_wide": "flash_fwd_wide",
     "flash_bwd_dkv_wide": r"flash_bwd_dkv_(?:wide|onepass)_kernel",
-    "flash_bwd_dq_wide": "flash_bwd_dq_wide_kernel",
+    "flash_bwd_dq_wide": r"flash_bwd_dq_(?:wide|onepass)_kernel",
     "flash_fwd_wide_sm90": "flash_fwd_sm90_kernel",
     "flash_fwd_lse_wide_sm90": "flash_fwd_sm90_kernel",
     "flash_fwd_partial_wide_sm90": "flash_fwd_sm90_kernel",
@@ -2063,7 +2071,7 @@ def phase_wide_kernels(ds):
     batch rows, float32 above 256, and at the wide ranker's first training
     batch with its own key mask at D = 192 (on the instances ops/flash.py
     picks there, and on the wide Hopper ones forced) and at D =
-    WIDE_C3_DIM, and slice 11's two kernels at their edge shapes; then
+    WIDE_C3_DIM, and slices 11-12's kernels at their edge shapes; then
     each instance's row at the shape its main path gives it (wrapper ms,
     device ms beside the other instance's, the plain version's ms, a
     library call's where there is one, and the bound), and each wide
@@ -2107,12 +2115,15 @@ def phase_wide_kernels(ds):
             for causal in (False, True):
                 _check_wide_case(gen, b, l, d, causal, torch.bfloat16, None, worst, h)
         _check_wide_case(gen, b, 10, d, False, torch.float32, None, worst, h)
-    # the one-pass dK/dV at one, a ragged and many swept query tiles (one
-    # stage at L = 1 and 20, two from 33)
-    for d in WIDE_DKV_ONEPASS_DIMS:
-        for l in WIDE_DKV_ONEPASS_LENGTHS:
-            for causal in (False, True):
-                _check_wide_case(gen, b, l, d, causal, torch.bfloat16, None, worst, h)
+    # the one-pass dQ and dK/dV at one, a ragged, a whole and many swept
+    # tiles (one stage up to L = 32, two from 33), on the mma.sync
+    # instances at every L; then the chunked backward above 512
+    with _instance(sm90=False):
+        for d in WIDE_ONEPASS_DIMS:
+            for l in WIDE_ONEPASS_LENGTHS:
+                for causal in (False, True):
+                    _check_wide_case(gen, b, l, d, causal, torch.bfloat16, None, worst, h)
+    _check_wide_case(gen, b, 40, WIDE_CHUNKED_DIM, False, torch.bfloat16, None, worst, h)
 
     iters = 10
     results = {name: {} for name in _WIDE_COUNTERS}
@@ -2288,14 +2299,18 @@ def phase_wide_kernels(ds):
     return results
 
 
-# slice 11's redesigned rows at their main paths' shapes (random 85% key
-# masks in place of the ranker's): the ring's eval-shard partials, the wide
-# eval forward, the wide ranker's forward with lse, the hidden-1280 dK/dV
+# slices 11-12's redesigned rows at their main paths' shapes (random 85%
+# key masks in place of the ranker's): the ring's eval-shard partials, the
+# wide eval forward, the wide ranker's forward with lse, and the wide
+# rankers' backward kernels at hidden 1280 and 768
 ROWS = (
     ("eval-ring-shard partials", "partial", (4000, 4, 10, 192)),
     ("ranker-eval forward", "fwd", (4000, 4, 20, 192)),
     ("ranker-train forward with lse", "lse", (256, 4, 20, 192)),
     ("hidden-1280 dK/dV", "dkv", (256, 4, 20, 320)),
+    ("hidden-1280 dQ", "dq", (256, 4, 20, 320)),
+    ("hidden-768 dK/dV", "dkv", (256, 4, 20, 192)),
+    ("hidden-768 dQ", "dq", (256, 4, 20, 192)),
 )
 
 
@@ -2314,12 +2329,18 @@ def phase_rows(tree: str) -> None:
     for label, kind, shape in ROWS:
         b, h, l, d = shape
         q, k, v, mask = _attention_inputs(gen, b, h, l, d, torch.bfloat16, False)
-        if kind == "dkv":
+        if kind in ("dkv", "dq"):
             do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
             o, lse = flash.flash_attention_lse(q, k, v, mask)
             delta = (do.float() * o.float()).sum(-1)
-            call = lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do)  # noqa: E731
-            want = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do)[1:]
+            grads = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do)
+            if kind == "dkv":
+                call = lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do)  # noqa: E731
+                want = grads[1:]
+            else:
+                call = lambda: (flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do),)  # noqa: E731
+                want = grads[:1]
+            del grads
             tol = (GRAD_ATOL, GRAD_RTOL)
         else:
             call = {"fwd": lambda: (flash.flash_attention(q, k, v, mask),),
@@ -2339,7 +2360,8 @@ def phase_rows(tree: str) -> None:
                      for g, w in zip(got, want))
         if not ok:
             _fail(f"rows {tree}: {label} {list(shape)} vs the plain version: max_abs_err {err}")
-        symbol = _WIDE_SYMBOLS["flash_bwd_dkv_wide" if kind == "dkv" else "flash_fwd_wide"]
+        symbol = _WIDE_SYMBOLS[{"dkv": "flash_bwd_dkv_wide",
+                                "dq": "flash_bwd_dq_wide"}.get(kind, "flash_fwd_wide")]
         ms = _time_ms(call, 20)
         device, recorded, names = _kernel_ms(call, symbol)
         if device is None:
@@ -3207,7 +3229,7 @@ def main() -> None:
                              "forward, dK/dV and dQ at D = 192 and 256 over L = 16 .. 2048, "
                              "instead of the smoke run")
     parser.add_argument("--rows", action="store_true",
-                        help="time only the kernels of the rows slice 11 redesigned, at their "
+                        help="time only the kernels of the rows slices 11-12 redesigned, at their "
                              "main paths' shapes, instead of the smoke run")
     parser.add_argument("--tree", default=None,
                         help="import dragonfly2_tpu_torch from this checkout instead of the one "

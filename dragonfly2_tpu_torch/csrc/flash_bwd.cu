@@ -12,8 +12,8 @@
 //   P  = exp2(S log2(e)/sqrt(D) - lse log2(e)) on valid pairs, 0 elsewhere
 //   dV = P^T dO;  dS = P (dO V^T - delta);  dK = dS^T Q / sqrt(D);  dQ = dS K / sqrt(D)
 // Head dims 16, 32, 64, 128, and in the wide instances (end of file) any D
-// with D % 8 == 0, taken above 128 (dK/dV in one pass for D in (256, 512]);
-// bf16 or float32 in, gradients in the input dtype.
+// with D % 8 == 0, taken above 128 (dQ and dK/dV in one pass for D in (128,
+// 512]); bf16 or float32 in, gradients in the input dtype.
 //
 // What bounds it on an H100: at the trained shape, [256, 4, 20, 32] bf16,
 // dK/dV reads q, dO, k, v, lse and delta and writes dK, dV: 8.0 MB, ~2.4 us
@@ -512,13 +512,11 @@ int by_dtype(const Args& a, int D, int dtype, int warps, void* stream) {
 // run along D (S and dP, or S^T and dP^T) sum over every depth chunk; the
 // chunks are taken in an order that ends on c0, so the tiles the
 // accumulation reads (Q and dO for dK/dV, K for dQ) hold the block's own
-// columns when it starts. For D <= 256 there is one chunk and the block's
-// own rows (K and V, or Q and dO) stay in shared memory for its life;
-// above 256 every depth chunk is staged in turn, and each output chunk's
-// block recomputes S and dP (the repair of head dims above 256: right, not
-// fast). dK/dV for D in (256, 512] takes the one-pass instance below
-// (flash_bwd_dkv_onepass_kernel) instead: this kernel's chunks remain for
-// dQ above 256 and dK/dV above 512.
+// columns when it starts. Every depth chunk is staged in turn, and each
+// output chunk's block recomputes S and dP (the repair of head dims above
+// 256: right, not fast). Every D in (128, 512] takes the one-pass instances below
+// (flash_bwd_dq_onepass_kernel, flash_bwd_dkv_onepass_kernel) instead: these
+// chunked kernels remain only above 512, where no main path reaches them.
 //
 // At D = 256 a warp's 16 keys of dK and dV in float32 registers are 256 a
 // thread, and the staged K, V, Q and dO tiles overflow 48 KB of static
@@ -540,9 +538,7 @@ int by_dtype(const Args& a, int D, int dtype, int warps, void* stream) {
 // bf16, dK/dV does 8 D operations per pair (34.4 GFLOP, ~34.7 us at 989
 // TFLOP/s) and dQ 6 D (25.8 GFLOP, ~26.1 us), against 8 and 6 [B, H, L,
 // D] bf16 tensors read or written (67 MB, ~20 us; 50 MB, ~15 us): bound by
-// operations. Simple before fast: mma.sync, no pipelining; bf16 dK/dV at
-// D <= 256 above WIDE_DKV_SM90_MIN_L (ops/flash.py) takes
-// flash_bwd_dkv_sm90.cu's wide instance instead.
+// operations. Simple before fast: mma.sync, no pipelining.
 
 constexpr int WIDE_DW = 256;             // columns of a staged chunk of D
 constexpr int WIDE_LDS = WIDE_DW + 8;    // shared row stride (bf16)
@@ -635,12 +631,6 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool ok_lo = key_lo < L && (mb == nullptr || mb[key_lo] != 0);
   const bool ok_hi = key_hi < L && (mb == nullptr || mb[key_hi] != 0);
   const int col0 = blockIdx.y * WIDE_DW + cq * DC;  // the warp's first output column
-  const bool resident = chunks == 1;  // D <= 256: K and V staged once
-
-  if (resident) {
-    stage_wide<T, WIDE_ROWS>(k + head, k0, L, D, 0, sK, tid);
-    stage_wide<T, WIDE_ROWS>(v + head, k0, L, D, 0, sV, tid);
-  }
 
   float acc_dk[DC / 8][4];
   float acc_dv[DC / 8][4];
@@ -666,10 +656,8 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < chunks; ++i) {
       const int d0 = depth_chunk(i, chunks);
       if (i > 0) __syncthreads();  // every warp is done with the previous chunk
-      if (!resident) {
-        stage_wide<T, WIDE_ROWS>(k + head, k0, L, D, d0, sK, tid);
-        stage_wide<T, WIDE_ROWS>(v + head, k0, L, D, d0, sV, tid);
-      }
+      stage_wide<T, WIDE_ROWS>(k + head, k0, L, D, d0, sK, tid);
+      stage_wide<T, WIDE_ROWS>(v + head, k0, L, D, d0, sV, tid);
       stage_wide<T, WIDE_SWEEP>(q + head, q0, L, D, d0, sQ, tid);
       stage_wide<T, WIDE_SWEEP>(dout + head, q0, L, D, d0, sdO, tid);
       __syncthreads();
@@ -777,12 +765,6 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          row_hi < L ? lh[row_hi] * LOG2E : 0.f};
   const float dlt[2] = {row_lo < L ? dh[row_lo] : 0.f, row_hi < L ? dh[row_hi] : 0.f};
   const int col0 = blockIdx.y * WIDE_DW + cq * DC;  // the warp's first output column
-  const bool resident = chunks == 1;  // D <= 256: Q and dO staged once
-
-  if (resident) {
-    stage_wide<T, WIDE_ROWS>(q + head, q0, L, D, 0, sQ, tid);
-    stage_wide<T, WIDE_ROWS>(dout + head, q0, L, D, 0, sdO, tid);
-  }
 
   float acc[DC / 8][4];
 #pragma unroll
@@ -805,10 +787,8 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < chunks; ++i) {
       const int d0 = depth_chunk(i, chunks);
       if (i > 0) __syncthreads();  // every warp is done with the previous chunk
-      if (!resident) {
-        stage_wide<T, WIDE_ROWS>(q + head, q0, L, D, d0, sQ, tid);
-        stage_wide<T, WIDE_ROWS>(dout + head, q0, L, D, d0, sdO, tid);
-      }
+      stage_wide<T, WIDE_ROWS>(q + head, q0, L, D, d0, sQ, tid);
+      stage_wide<T, WIDE_ROWS>(dout + head, q0, L, D, d0, sdO, tid);
       stage_wide<T, WIDE_SWEEP>(k + head, n0, L, D, d0, sK, tid);
       stage_wide<T, WIDE_SWEEP>(v + head, n0, L, D, d0, sV, tid);
       __syncthreads();
@@ -865,70 +845,104 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- dK/dV above head dim 256 in one pass: D in (256, ONEPASS_MAX_DIM]
+// ---- dQ and dK/dV in one pass: D in (128, ONEPASS_MAX_DIM]
 //
-// flash_bwd_dkv_wide_kernel splits D above 256 into 256-column output
-// chunks along blockIdx.y: at D = 320 each key block runs as two blocks,
-// each restaging K, V, Q and dO per depth chunk and recomputing S^T and dP^T
-// over all 320 columns, with three of the second block's four column warps
-// idle past D. This instance gives one block every output column of its 32
-// keys' dK and dV: WIDE_RG row groups of 16 keys times CW = ceil(D / 64)
-// column warps of 64 columns (CW = 5 at D = 320, 8 at 512; a template
-// parameter, so each warp holds 64 float32 registers for both
-// accumulators at every D). K and V are staged once. Per swept tile of 32
-// queries:
-// 1. the first eight warps compute the tile's 8 (16-key x 8-query) tiles of
-//    S^T and dP^T over the whole depth, once, fragments read from shared
-//    memory, form P^T and dS^T as the chunked kernel does and write them,
-//    rounded to bf16, into shared tiles;
-// 2. after a barrier every warp reads its row group's 16 x 32 P^T and dS^T
-//    back as A fragments and accumulates dV += P^T dO and dK += dS^T Q over
-//    its own 64 columns, skipping 8-column tiles past D (only at a D that is
-//    not a multiple of 64).
-// Q and dO (and the tile's lse and delta) are staged per tile by cp.async
-// for bf16 (float32 is rounded to bf16 on the way in, synchronously), the
-// next tile in flight in a second stage where L holds more than one tile
-// and shared memory allows. Footprint at D = 320: K and V 42 KB, a stage of
-// Q and dO 42 KB, P^T and dS^T 5 KB: 89 KB with one stage (two blocks an
-// SM, at most 102 registers a thread), 131 KB with two; at D = 512, 138 KB
-// and 205 KB (one block an SM from D = 384 on). The ranker's sets (L = 20)
-// sweep one tile, so they take one stage. Fragments come from shared
-// memory by ldmatrix (.trans for the B operands of dV += P^T dO and dK +=
-// dS^T Q, two 8-column tiles a load). The sets are not packed across
-// blocks as the forward's short-set instance packs them: a 32-key block
-// holds one set of 20 keys and 12 rows of padding, and a packed block
-// would sweep two or three query tiles.
-// Bound on an H100: the hidden-1280 ranker's training, [256, 4, 20, 320]
-// bf16, reads q, k, v, dO, lse and delta and writes dK and dV: 78.9 MB,
-// 0.024 ms at 3.35 TB/s, against 1.7 GFLOP at most: bound by bytes, so
-// every load of a block is in flight at once and a second block an SM
-// computes while the first loads. Numerics as the chunked kernel's; every
-// output element is summed by one thread in a fixed order. Above
-// ONEPASS_MAX_DIM the chunked kernel stays (no main path reaches it), and
-// dQ above 256 keeps its chunks.
+// flash_bwd_dq_onepass_kernel replaces the TPU kernel
+// dragonfly2_tpu/ops/flash.py::_flash_bwd_dq_kernel (:474) and
+// flash_bwd_dkv_onepass_kernel ::_flash_bwd_dkv_kernel (:418) at these head
+// dims, where the wide mma.sync instances are routed (float32, and bf16 at
+// L up to ops/flash.py's WIDE_DQ_SM90_MIN_L / WIDE_DKV_SM90_MIN_L or D
+// above 256). The chunked kernels above split D above 256 into 256-column output
+// chunks along blockIdx.y: at D = 320 each block of 32 rows runs as two
+// blocks, each restaging its operands per depth chunk and recomputing S and
+// dP over all 320 columns, with three of the second block's four column
+// warps idle past D. At D up to 256 they stage with plain loads through
+// registers (about one 16-byte load in flight a thread), the swept tile
+// behind the block's own rows and a barrier, fix the block at four column
+// quarters of 64 columns (two of eight warps idle in step 2 at D = 192) and
+// read fragments as single 32-bit shared loads. The one-pass instances
+// replace them for every D in (128, ONEPASS_MAX_DIM]: one block gives every
+// output column of its 32 rows (keys for dK/dV, queries for dQ), WIDE_RG
+// row groups of 16 rows times CW column warps of CWID columns (template
+// parameters: 4 x 48 at D up to 192, 4 x 64 up to 256, then ceil(D / 64) x
+// 64, so that both row groups' warps number at least the eight score tiles
+// of step 1 and no more than one warp a row group idles past D). The
+// block's rows of two operands (K and V, or Q and dO) stay in shared memory;
+// per swept tile of 32 rows (queries for dK/dV, keys for dQ):
+// 1. the first eight warps compute the tile's 8 (16 x 8) tiles of S^T and
+//    dP^T (dK/dV) or S and dP (dQ) over the whole depth, once, fragments
+//    read from shared memory, form P^T and dS^T or dS as the chunked kernels
+//    do (the same key mask, causal rule and bf16 rounding) and write them
+//    into shared tiles;
+// 2. after a barrier every warp reads its row group's 16 x 32 scores back
+//    as A fragments and accumulates over its own columns, dV += P^T dO and
+//    dK += dS^T Q, or dQ += dS K, skipping 8-column tiles past D.
+// Every operand is staged by cp.async for bf16 (float32 is rounded to bf16
+// on the way in, synchronously), the block's rows and its first swept tile
+// in one group before the first wait, the next tile in flight in a second
+// stage where L holds more than one tile and shared memory allows; dK/dV's
+// lse and delta ride with each query tile, dQ's lse and delta of its rows
+// stay in registers and each key tile's validity is read from the mask.
+// Fragments come from shared memory by ldmatrix (.trans for the B operands
+// of step 2, two 8-column tiles a load). A bf16 output goes back through the
+// shared rows step 1 no longer reads (K and V for dK/dV, Q for dQ) and
+// leaves in 16-byte stores, 5-17% faster on the card than the fragments'
+// own 4-byte stores; float32 keeps those. Footprint with one stage: dK/dV
+// 57 KB at D = 192 and 89 KB at 320, dQ 54 KB and 87 KB; a second stage
+// adds 25 KB / 42 KB. Blocks an SM: as many as shared memory allows and
+// that keep 32 registers a thread beyond dK/dV's two accumulators (three at
+// 48 columns a warp, 80 registers with ~80 bytes spilled, 4% faster than
+// two; two at 64 columns up to D = 320, where two with ~90 bytes spilled
+// beat one clean block) and 80 for dQ's one accumulator (three at D up to
+// 256, 9% faster than two, and four, at 64 registers, 5% slower; two up to
+// 384). The ranker's sets (L = 20) sweep one tile, so a block makes one
+// round trip to memory. Sets are not packed across blocks as the forward's
+// short-set instance packs them: a 32-row block holds one set of 20 rows
+// and 12 rows of padding.
+// Bound on an H100: the wide rankers' training, bf16, reads q, k, v, dO,
+// lse and delta and writes dK and dV (dQ): at [256, 4, 20, 192] 47.3 MB
+// (39.5 MB), 0.0141 ms (0.0118 ms) at 3.35 TB/s, at [256, 4, 20, 320] 78.9
+// MB (65.8 MB), 0.0235 ms (0.0196 ms), against at most 0.6 and 1.0 GFLOP:
+// bound by bytes, so every load of a block is in flight at once and another
+// block an SM computes while one loads. Every output element is summed by
+// one thread in a fixed order. Above ONEPASS_MAX_DIM the chunked kernels
+// stay (no main path reaches them).
 
 constexpr int ONEPASS_MAX_DIM = 512;
-constexpr int ONEPASS_SCORE_WARPS = WIDE_RG * WIDE_SWEEP / 8;  // 16 x 8 tiles of S^T
+constexpr int ONEPASS_SCORE_WARPS = WIDE_RG * WIDE_SWEEP / 8;  // 16 x 8 score tiles
+constexpr size_t SM_SMEM = 233472;     // shared memory of an SM on sm_90, bytes
+constexpr size_t BLOCK_SMEM = 232448;  // of one block
 
-template <int CW>
-struct DkvOnepass {
+// blocks an SM, up to four, whose shared memory (and 1 KB each the
+// runtime keeps) fits and that keep at least min_regs registers a thread
+constexpr int blocks_an_sm(size_t smem, int threads, int min_regs) {
+  int n = 1;
+  while (n < 4 && (n + 1) * (smem + 1024) <= SM_SMEM && 65536 / ((n + 1) * threads) >= min_regs) {
+    ++n;
+  }
+  return n;
+}
+
+template <bool DKV, int CW, int CWID>
+struct Onepass {
   static constexpr int WARPS = WIDE_RG * CW;
   static constexpr int THREADS = WARPS * 32;
-  static constexpr int LDS = CW * 64 + 8;         // shared row stride (bf16)
-  static constexpr int TILE = WIDE_SWEEP * LDS;   // Q or dO of one stage
-  // K, V, P^T and dS^T; and a stage: Q, dO, lse and delta
+  static constexpr int DN = CWID / 8;            // 8-column tiles a warp accumulates
+  static constexpr int LDS = CW * CWID + 8;      // shared row stride (bf16)
+  static constexpr int TILE = WIDE_SWEEP * LDS;  // one operand of a swept tile
+  // the block's rows of two operands and the bf16 score tiles (P^T and
+  // dS^T, or dS); a stage: the swept tile's two operands, and dK/dV's lse
+  // and delta
   static constexpr size_t FIXED =
-      static_cast<size_t>(2 * WIDE_ROWS * LDS + 2 * WIDE_ROWS * WIDE_LDP) * sizeof(__nv_bfloat16);
+      static_cast<size_t>(2 * WIDE_ROWS * LDS + (DKV ? 2 : 1) * WIDE_ROWS * WIDE_LDP) *
+      sizeof(__nv_bfloat16);
   static constexpr size_t STAGE = static_cast<size_t>(2 * TILE) * sizeof(__nv_bfloat16) +
-                                  static_cast<size_t>(2 * WIDE_SWEEP) * sizeof(float);
-  // two blocks an SM where their one-stage shared memory fits and they keep
-  // at least 96 registers a thread (D up to 320: ptxas then spills 34-90
-  // bytes, which measured faster than one block an SM without spills)
-  static constexpr int MIN_BLOCKS =
-      2 * (FIXED + STAGE + 1024) <= 233472 && 65536 / (2 * THREADS) >= 96 ? 2 : 1;
-  static constexpr bool TWO_STAGES = FIXED + 2 * STAGE <= 232448;
+                                  (DKV ? static_cast<size_t>(2 * WIDE_SWEEP) * sizeof(float) : 0);
+  static constexpr int MIN_BLOCKS = blocks_an_sm(FIXED + STAGE, THREADS, DKV ? 8 * DN + 32 : 80);
+  static constexpr bool TWO_STAGES = FIXED + 2 * STAGE <= BLOCK_SMEM;
+  static_assert(CWID % 16 == 0, "ldmatrix.trans B operands: pairs of 8-column tiles");
   static_assert(WARPS >= ONEPASS_SCORE_WARPS, "a warp for every score tile");
-  static_assert(FIXED + STAGE <= 232448, "a block's shared memory on sm_90");
+  static_assert(FIXED + STAGE <= BLOCK_SMEM, "a block's shared memory on sm_90");
 };
 
 __device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const void* src, bool in) {
@@ -1001,34 +1015,85 @@ __device__ __forceinline__ void stage_rows_async(const T* __restrict__ src, int 
   }
 }
 
-// query tile q0's Q, dO, lse * log2(e) and delta into a stage, committed
-template <typename T, int CW>
+// swept tile r0 of two operands (Q and dO, or K and V) into a stage,
+// committed with every copy issued before it
+template <typename T, int THREADS, int LDS>
+__device__ __forceinline__ void stage_swept_tile(const T* __restrict__ x, const T* __restrict__ y,
+                                                 int r0, int L, int D, __nv_bfloat16* sx,
+                                                 __nv_bfloat16* sy, int tid) {
+  stage_rows_async<T, THREADS, LDS>(x, r0, WIDE_SWEEP, L, D, sx, tid);
+  stage_rows_async<T, THREADS, LDS>(y, r0, WIDE_SWEEP, L, D, sy, tid);
+  cp_async_commit();
+}
+
+// dK/dV's query tile q0: Q and dO in flight first, then its lse * log2(e)
+// and delta
+template <typename T, int THREADS, int LDS>
 __device__ __forceinline__ void stage_query_tile(const T* __restrict__ q,
                                                  const T* __restrict__ dout,
                                                  const float* __restrict__ lh,
                                                  const float* __restrict__ dh, int q0, int L,
                                                  int D, __nv_bfloat16* sQ, __nv_bfloat16* sdO,
                                                  float* sLse, float* sDelta, int tid) {
-  using C = DkvOnepass<CW>;
-  stage_rows_async<T, C::THREADS, C::LDS>(q, q0, WIDE_SWEEP, L, D, sQ, tid);
-  stage_rows_async<T, C::THREADS, C::LDS>(dout, q0, WIDE_SWEEP, L, D, sdO, tid);
-  for (int i = tid; i < WIDE_SWEEP; i += C::THREADS) {
+  stage_swept_tile<T, THREADS, LDS>(q, dout, q0, L, D, sQ, sdO, tid);
+  for (int i = tid; i < WIDE_SWEEP; i += THREADS) {
     const int row = q0 + i;
     sLse[i] = row < L ? lh[row] * LOG2E : 0.f;
     sDelta[i] = row < L ? dh[row] : 0.f;
   }
-  cp_async_commit();
 }
 
-template <typename T, int CW>
-__global__ void __launch_bounds__(DkvOnepass<CW>::THREADS, DkvOnepass<CW>::MIN_BLOCKS)
+// step 2's product for one warp: acc[dn] += A (16 x 32 scores of rows
+// a_row.. in a [32][WIDE_LDP] tile) times B = rows 0 .. 31, columns col0
+// .. col0 + 8 DN - 1 of a swept tile, read transposed two 8-column tiles at
+// a time, each 16-row step's B tiles rows 16 ks + 8 (tile & 1) .., columns
+// 8 (tile >> 1) ..
+template <int DN, int LDS>
+__device__ __forceinline__ void accumulate_swept(float (&acc)[DN][4], const __nv_bfloat16* scores,
+                                                 int a_row, const __nv_bfloat16* tile, int col0,
+                                                 int D, int lrow, int ltile) {
+#pragma unroll
+  for (int ks = 0; ks < WIDE_SWEEP / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, scores + (a_row + lrow + (ltile & 1) * 8) * WIDE_LDP + ks * 16 + (ltile >> 1) * 8);
+    const int b_at = (ks * 16 + lrow + (ltile & 1) * 8) * LDS + col0 + (ltile >> 1) * 8;
+#pragma unroll
+    for (int dn = 0; dn < DN; dn += 2) {
+      if (col0 + dn * 8 >= D) break;  // the tiles' columns are all past D
+      uint32_t b[4];
+      ldsm_x4_trans(b, tile + b_at + dn * 8);
+      mma_bf16(acc[dn], a, b[0], b[1]);
+      if (col0 + dn * 8 + 8 < D) mma_bf16(acc[dn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// rows r0 .. r0 + 31 below L, columns below D, of a bf16 output from shared
+// rows of LDS bf16 to device memory, a 16-byte store each
+template <int THREADS, int LDS>
+__device__ __forceinline__ void store_rows(const __nv_bfloat16* src, int r0, int L, int D,
+                                           __nv_bfloat16* __restrict__ dst, int tid) {
+  constexpr int CHUNKS = (LDS - 8) / 8;
+  for (int i = tid; i < WIDE_ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS;
+    const int c = (i - r * CHUNKS) * 8;
+    if (r0 + r < L && c < D) {
+      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r0 + r) * D + c) =
+          *reinterpret_cast<const uint4*>(src + r * LDS + c);
+    }
+  }
+}
+
+template <typename T, int CW, int CWID>
+__global__ void __launch_bounds__((Onepass<true, CW, CWID>::THREADS),
+                                  (Onepass<true, CW, CWID>::MIN_BLOCKS))
 flash_bwd_dkv_onepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const T* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              const uint8_t* __restrict__ mask, T* __restrict__ dk,
                              T* __restrict__ dv, int H, int L, int D, int num_kblocks,
                              int causal, int stages, float scale_log2, float scale) {
-  using C = DkvOnepass<CW>;
+  using C = Onepass<true, CW, CWID>;
   constexpr int LDS = C::LDS;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1054,12 +1119,12 @@ flash_bwd_dkv_onepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int rg = warp / CW;  // step 2: the warp's row group of keys and its 64 columns
+  const int rg = warp / CW;  // step 2: the warp's row group of keys and its columns
   const int cw = warp % CW;
   const int lrow = lane & 7;  // ldmatrix: the row this lane addresses in tile lane / 8
   const int ltile = lane >> 3;
   const int k0 = kb * WIDE_ROWS;
-  const int col0 = cw * 64;
+  const int col0 = cw * CWID;
   const int kk_end = (D + 15) / 16;  // depth steps; the columns from D on are 0
   // step 1: warp w < 8 takes keys 16 (w / 4).. against queries 8 (w % 4)..
   const int skey = (warp >> 2) * 16;
@@ -1074,13 +1139,13 @@ flash_bwd_dkv_onepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   stage_rows_async<T, C::THREADS, LDS>(k + head, k0, WIDE_ROWS, L, D, sK, tid);
   stage_rows_async<T, C::THREADS, LDS>(v + head, k0, WIDE_ROWS, L, D, sV, tid);
-  stage_query_tile<T, CW>(q + head, dout + head, lh, dh, q_begin, L, D, sQ, sdO, sLse, sDelta,
-                          tid);  // commits K and V with it
+  stage_query_tile<T, C::THREADS, LDS>(q + head, dout + head, lh, dh, q_begin, L, D, sQ, sdO,
+                                       sLse, sDelta, tid);  // commits K and V with it
 
-  float acc_dk[8][4];
-  float acc_dv[8][4];
+  float acc_dk[C::DN][4];
+  float acc_dv[C::DN][4];
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn) {
+  for (int dn = 0; dn < C::DN; ++dn) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_dk[dn][e] = acc_dv[dn][e] = 0.f;
   }
@@ -1090,15 +1155,16 @@ flash_bwd_dkv_onepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int st = stages == 2 ? (j & 1) : 0;
     if (stages == 1 && j > 0) {
       __syncthreads();  // every warp is done with tile j-1's Q and dO
-      stage_query_tile<T, CW>(q + head, dout + head, lh, dh, q0, L, D, sQ, sdO, sLse, sDelta,
-                              tid);
+      stage_query_tile<T, C::THREADS, LDS>(q + head, dout + head, lh, dh, q0, L, D, sQ, sdO,
+                                           sLse, sDelta, tid);
     }
     cp_async_wait_all();
     __syncthreads();  // tile j arrived; every warp is done with tile j-1's P^T and dS^T
     if (stages == 2 && j + 1 < n_tiles) {  // the next tile into the other stage, in flight
-      stage_query_tile<T, CW>(q + head, dout + head, lh, dh, q0 + WIDE_SWEEP, L, D,
-                              sQ + (st ^ 1) * C::TILE, sdO + (st ^ 1) * C::TILE,
-                              sLse + (st ^ 1) * WIDE_SWEEP, sDelta + (st ^ 1) * WIDE_SWEEP, tid);
+      stage_query_tile<T, C::THREADS, LDS>(
+          q + head, dout + head, lh, dh, q0 + WIDE_SWEEP, L, D, sQ + (st ^ 1) * C::TILE,
+          sdO + (st ^ 1) * C::TILE, sLse + (st ^ 1) * WIDE_SWEEP, sDelta + (st ^ 1) * WIDE_SWEEP,
+          tid);
     }
     const __nv_bfloat16* tq = sQ + st * C::TILE;
     const __nv_bfloat16* tdo = sdO + st * C::TILE;
@@ -1137,69 +1203,227 @@ flash_bwd_dkv_onepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // 2. dV += P^T dO and dK += dS^T Q over the warp's columns; B of two
-    // 8-column tiles at once: dO and Q rows ks * 16 + 8 (tile & 1)..,
-    // columns 8 (tile >> 1).., transposed
-#pragma unroll
-    for (int ks = 0; ks < WIDE_SWEEP / 16; ++ks) {
-      uint32_t pa[4], dsa[4];
-      const int p_at = (rg * 16 + lrow + (ltile & 1) * 8) * WIDE_LDP + ks * 16 + (ltile >> 1) * 8;
-      ldsm_x4(pa, sP + p_at);
-      ldsm_x4(dsa, sdS + p_at);
-      const int v_at = (ks * 16 + lrow + (ltile & 1) * 8) * LDS + col0 + (ltile >> 1) * 8;
-#pragma unroll
-      for (int dn = 0; dn < 8; dn += 2) {
-        if (col0 + dn * 8 >= D) break;  // the tiles' columns are all past D
-        const bool second = col0 + dn * 8 + 8 < D;
-        uint32_t b[4];
-        ldsm_x4_trans(b, tdo + v_at + dn * 8);
-        mma_bf16(acc_dv[dn], pa, b[0], b[1]);
-        if (second) mma_bf16(acc_dv[dn + 1], pa, b[2], b[3]);
-        ldsm_x4_trans(b, tq + v_at + dn * 8);
-        mma_bf16(acc_dk[dn], dsa, b[0], b[1]);
-        if (second) mma_bf16(acc_dk[dn + 1], dsa, b[2], b[3]);
-      }
-    }
+    // 2. dV += P^T dO and dK += dS^T Q over the warp's columns
+    accumulate_swept<C::DN, LDS>(acc_dv, sP, rg * 16, tdo, col0, D, lrow, ltile);
+    accumulate_swept<C::DN, LDS>(acc_dk, sdS, rg * 16, tq, col0, D, lrow, ltile);
   }
 
   T* dkh = dk + head;
   T* dvh = dv + head;
-  const int row_lo = k0 + rg * 16 + g;  // the warp's keys in step 2
-  const int row_hi = row_lo + 8;
+  const int rl = rg * 16 + g;  // the warp's keys in step 2, from k0
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    // K and V are free since the last tile's step 1: dK and dV go through
+    // them to 16-byte stores
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn) {
-    const int col = col0 + dn * 8 + 2 * t;
-    if (col0 + dn * 8 >= D) continue;  // D % 8 == 0: a tile is all below D or all past it
-    if (row_lo < L) {
-      const size_t at = static_cast<size_t>(row_lo) * D + col;
-      store2(dkh + at, acc_dk[dn][0] * scale, acc_dk[dn][1] * scale);
-      store2(dvh + at, acc_dv[dn][0], acc_dv[dn][1]);
+    for (int dn = 0; dn < C::DN; ++dn) {
+      const int col = col0 + dn * 8 + 2 * t;
+      store2(sK + rl * LDS + col, acc_dk[dn][0] * scale, acc_dk[dn][1] * scale);
+      store2(sK + (rl + 8) * LDS + col, acc_dk[dn][2] * scale, acc_dk[dn][3] * scale);
+      store2(sV + rl * LDS + col, acc_dv[dn][0], acc_dv[dn][1]);
+      store2(sV + (rl + 8) * LDS + col, acc_dv[dn][2], acc_dv[dn][3]);
     }
-    if (row_hi < L) {
-      const size_t at = static_cast<size_t>(row_hi) * D + col;
-      store2(dkh + at, acc_dk[dn][2] * scale, acc_dk[dn][3] * scale);
-      store2(dvh + at, acc_dv[dn][2], acc_dv[dn][3]);
+    __syncthreads();
+    store_rows<C::THREADS, LDS>(sK, k0, L, D, dkh, tid);
+    store_rows<C::THREADS, LDS>(sV, k0, L, D, dvh, tid);
+  } else {
+    const int row_lo = k0 + rl;
+    const int row_hi = row_lo + 8;
+#pragma unroll
+    for (int dn = 0; dn < C::DN; ++dn) {
+      const int col = col0 + dn * 8 + 2 * t;
+      if (col0 + dn * 8 >= D) continue;  // D % 8 == 0: a tile is all below D or all past it
+      if (row_lo < L) {
+        const size_t at = static_cast<size_t>(row_lo) * D + col;
+        store2(dkh + at, acc_dk[dn][0] * scale, acc_dk[dn][1] * scale);
+        store2(dvh + at, acc_dv[dn][0], acc_dv[dn][1]);
+      }
+      if (row_hi < L) {
+        const size_t at = static_cast<size_t>(row_hi) * D + col;
+        store2(dkh + at, acc_dk[dn][2] * scale, acc_dk[dn][3] * scale);
+        store2(dvh + at, acc_dv[dn][2], acc_dv[dn][3]);
+      }
     }
   }
 }
 
-template <typename T, int CW>
-cudaError_t launch_dkv_onepass(const Args& a, int D, cudaStream_t stream) {
-  using C = DkvOnepass<CW>;
+template <typename T, int CW, int CWID>
+__global__ void __launch_bounds__((Onepass<false, CW, CWID>::THREADS),
+                                  (Onepass<false, CW, CWID>::MIN_BLOCKS))
+flash_bwd_dq_onepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            const uint8_t* __restrict__ mask, T* __restrict__ dq, int H, int L,
+                            int D, int num_qblocks, int causal, int stages, float scale_log2,
+                            float scale) {
+  using C = Onepass<false, CW, CWID>;
+  constexpr int LDS = C::LDS;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sdO = sQ + WIDE_ROWS * LDS;
+  __nv_bfloat16* sdS = sdO + WIDE_ROWS * LDS;       // dS [queries][keys]
+  __nv_bfloat16* sK = sdS + WIDE_ROWS * WIDE_LDP;  // stage s at sK + s * TILE
+  __nv_bfloat16* sV = sK + stages * C::TILE;
+
+  const int qb = blockIdx.x % num_qblocks;
+  const int bh = blockIdx.x / num_qblocks;
+  const int b = bh / H;
+  const size_t head = static_cast<size_t>(bh) * L * D;
+  const float* lh = lse + static_cast<size_t>(bh) * L;
+  const float* dh = delta + static_cast<size_t>(bh) * L;
+  const uint8_t* mb = mask ? mask + static_cast<size_t>(b) * L : nullptr;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rg = warp / CW;  // step 2: the warp's row group of queries and its columns
+  const int cw = warp % CW;
+  const int lrow = lane & 7;  // ldmatrix: the row this lane addresses in tile lane / 8
+  const int ltile = lane >> 3;
+  const int q0 = qb * WIDE_ROWS;
+  const int col0 = cw * CWID;
+  const int kk_end = (D + 15) / 16;  // depth steps; the columns from D on are 0
+  // step 1: warp w < 8 takes queries 16 (w / 4).. against keys 8 (w % 4)..
+  const int sq = (warp >> 2) * 16;
+  const int sk = (warp & 3) * 8;
+  const int srow_lo = q0 + sq + g;
+  const int srow_hi = srow_lo + 8;
+  const float lse2[2] = {srow_lo < L ? lh[srow_lo] * LOG2E : 0.f,
+                         srow_hi < L ? lh[srow_hi] * LOG2E : 0.f};
+  const float dlt[2] = {srow_lo < L ? dh[srow_lo] : 0.f, srow_hi < L ? dh[srow_hi] : 0.f};
+  // causal: keys past the block's last query row are masked for every row
+  const int kv_end = causal ? min(L, q0 + WIDE_ROWS) : L;
+  const int n_tiles = (kv_end + WIDE_SWEEP - 1) / WIDE_SWEEP;
+
+  stage_rows_async<T, C::THREADS, LDS>(q + head, q0, WIDE_ROWS, L, D, sQ, tid);
+  stage_rows_async<T, C::THREADS, LDS>(dout + head, q0, WIDE_ROWS, L, D, sdO, tid);
+  stage_swept_tile<T, C::THREADS, LDS>(k + head, v + head, 0, L, D, sK, sV,
+                                       tid);  // commits Q and dO with it
+
+  float acc[C::DN][4];
+#pragma unroll
+  for (int dn = 0; dn < C::DN; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int n0 = j * WIDE_SWEEP;
+    const int st = stages == 2 ? (j & 1) : 0;
+    if (stages == 1 && j > 0) {
+      __syncthreads();  // every warp is done with tile j-1's K and V
+      stage_swept_tile<T, C::THREADS, LDS>(k + head, v + head, n0, L, D, sK, sV, tid);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // tile j arrived; every warp is done with tile j-1's dS
+    if (stages == 2 && j + 1 < n_tiles) {  // the next tile into the other stage, in flight
+      stage_swept_tile<T, C::THREADS, LDS>(k + head, v + head, n0 + WIDE_SWEEP, L, D,
+                                           sK + (st ^ 1) * C::TILE, sV + (st ^ 1) * C::TILE, tid);
+    }
+    const __nv_bfloat16* tk = sK + st * C::TILE;
+    const __nv_bfloat16* tv = sV + st * C::TILE;
+
+    // 1. S and dP, once, over the whole depth
+    if (warp < ONEPASS_SCORE_WARPS) {
+      const int key0 = n0 + sk + 2 * t;  // the thread's two keys
+      const bool kv0 = key0 < L && (mb == nullptr || mb[key0] != 0);
+      const bool kv1 = key0 + 1 < L && (mb == nullptr || mb[key0 + 1] != 0);
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      float dp[4] = {0.f, 0.f, 0.f, 0.f};
+      // A: Q and dO rows sq + 8 (tile & 1).., columns 8 (tile >> 1).. of
+      // the step; B: K and V rows sk.., columns 8 (tile & 1).. of the step
+      const int a_at = (sq + lrow + (ltile & 1) * 8) * LDS + (ltile >> 1) * 8;
+      const int b_at = (sk + lrow) * LDS + (ltile & 1) * 8;
+#pragma unroll 4
+      for (int kk = 0; kk < kk_end; ++kk) {
+        uint32_t qa[4], da[4], kb2[2], vb[2];
+        ldsm_x4(qa, sQ + a_at + kk * 16);
+        ldsm_x4(da, sdO + a_at + kk * 16);
+        ldsm_x2(kb2, tk + b_at + kk * 16);
+        ldsm_x2(vb, tv + b_at + kk * 16);
+        mma_bf16(s, qa, kb2[0], kb2[1]);
+        mma_bf16(dp, da, vb[0], vb[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int row = r ? srow_hi : srow_lo;
+        const int key = key0 + (e & 1);
+        const bool ok = ((e & 1) ? kv1 : kv0) && row < L && (!causal || key <= row);
+        const float p = ok ? exp2f(s[e] * scale_log2 - lse2[r]) : 0.f;
+        put_bf16(sdS + (sq + g + 8 * r) * WIDE_LDP + sk + 2 * t + (e & 1), p * (dp[e] - dlt[r]));
+      }
+    }
+    __syncthreads();
+
+    // 2. dQ += dS K over the warp's columns
+    accumulate_swept<C::DN, LDS>(acc, sdS, rg * 16, tk, col0, D, lrow, ltile);
+  }
+
+  T* dqh = dq + head;
+  const int rl = rg * 16 + g;  // the warp's queries in step 2, from q0
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    // Q is free since the last tile's step 1: dQ goes through it to 16-byte
+    // stores
+#pragma unroll
+    for (int dn = 0; dn < C::DN; ++dn) {
+      const int col = col0 + dn * 8 + 2 * t;
+      store2(sQ + rl * LDS + col, acc[dn][0] * scale, acc[dn][1] * scale);
+      store2(sQ + (rl + 8) * LDS + col, acc[dn][2] * scale, acc[dn][3] * scale);
+    }
+    __syncthreads();
+    store_rows<C::THREADS, LDS>(sQ, q0, L, D, dqh, tid);
+  } else {
+    const int row_lo = q0 + rl;
+    const int row_hi = row_lo + 8;
+#pragma unroll
+    for (int dn = 0; dn < C::DN; ++dn) {
+      const int col = col0 + dn * 8 + 2 * t;
+      if (col0 + dn * 8 >= D) continue;  // D % 8 == 0: a tile is all below D or all past it
+      if (row_lo < L) {
+        store2(dqh + static_cast<size_t>(row_lo) * D + col, acc[dn][0] * scale,
+               acc[dn][1] * scale);
+      }
+      if (row_hi < L) {
+        store2(dqh + static_cast<size_t>(row_hi) * D + col, acc[dn][2] * scale,
+               acc[dn][3] * scale);
+      }
+    }
+  }
+}
+
+template <typename T, bool DKV, int CW, int CWID>
+cudaError_t launch_onepass(const Args& a, int D, cudaStream_t stream) {
+  using C = Onepass<DKV, CW, CWID>;
   const int tiles = (a.L + WIDE_ROWS - 1) / WIDE_ROWS;
   const long long blocks = static_cast<long long>(tiles) * a.B * a.H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // a second stage of Q and dO only where a block sweeps more than one tile
+  // a second stage of the swept tile only where a block sweeps more than one
   const int stages = a.L > WIDE_SWEEP && C::TWO_STAGES ? 2 : 1;
   const size_t smem = C::FIXED + stages * C::STAGE;
-  auto kernel = flash_bwd_dkv_onepass_kernel<T, CW>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(blocks), C::THREADS, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, a.mask, static_cast<T*>(a.d0),
-      static_cast<T*>(a.d1), a.H, a.L, D, tiles, a.causal, stages, LOG2E * a.scale, a.scale);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  cudaError_t err;
+  if constexpr (DKV) {
+    auto kernel = flash_bwd_dkv_onepass_kernel<T, CW, CWID>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(blocks), C::THREADS, smem, stream>>>(
+        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.d0), static_cast<T*>(a.d1),
+        a.H, a.L, D, tiles, a.causal, stages, LOG2E * a.scale, a.scale);
+  } else {
+    auto kernel = flash_bwd_dq_onepass_kernel<T, CW, CWID>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(blocks), C::THREADS, smem, stream>>>(
+        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.d0), a.H, a.L, D, tiles,
+        a.causal, stages, LOG2E * a.scale, a.scale);
+  }
   return cudaGetLastError();
 }
 
@@ -1238,18 +1462,19 @@ cudaError_t launch_wide(const Args& a, int D, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the wide instance for one dtype: dK/dV in one pass for D in (256,
-// ONEPASS_MAX_DIM], else the chunked kernel (one chunk up to 256)
+// the wide instance for one dtype: dQ and dK/dV in one pass for D in
+// (128, ONEPASS_MAX_DIM], the column warps sized to D; else the chunked
+// kernel
 template <typename T, bool DKV>
 cudaError_t wide_by_dim(const Args& a, int D, cudaStream_t s) {
-  if constexpr (DKV) {
-    if (D > WIDE_DW && D <= ONEPASS_MAX_DIM) {
-      switch ((D + 63) / 64) {  // column warps of 64 columns
-        case 5: return launch_dkv_onepass<T, 5>(a, D, s);
-        case 6: return launch_dkv_onepass<T, 6>(a, D, s);
-        case 7: return launch_dkv_onepass<T, 7>(a, D, s);
-        default: return launch_dkv_onepass<T, 8>(a, D, s);
-      }
+  if (D > 128 && D <= ONEPASS_MAX_DIM) {
+    if (D <= 192) return launch_onepass<T, DKV, 4, 48>(a, D, s);
+    switch ((D + 63) / 64) {  // column warps of 64 columns
+      case 4: return launch_onepass<T, DKV, 4, 64>(a, D, s);
+      case 5: return launch_onepass<T, DKV, 5, 64>(a, D, s);
+      case 6: return launch_onepass<T, DKV, 6, 64>(a, D, s);
+      case 7: return launch_onepass<T, DKV, 7, 64>(a, D, s);
+      default: return launch_onepass<T, DKV, 8, 64>(a, D, s);
     }
   }
   return launch_wide<T, DKV>(a, D, s);

@@ -29,9 +29,9 @@ ones of the forward (three modes), of dK/dV and of dQ for head dims in
 (128, 256], ``*_wide_sm90`` in the same sources. The wide mma.sync forward
 packs short sets into its blocks for head dims up to 256 at L up to 32,
 scores each key tile once for head dims in (256, 512] and splits D into
-256-column chunks only above; the wide mma.sync dK/dV computes every
-column of its keys in one pass for head dims in (256, 512], and dQ splits D
-above 256 (the C sides pick those kernels from L and D). The
+256-column chunks only above; the wide mma.sync dK/dV and dQ compute every
+column of their rows in one pass for head dims in (128, 512] and split D
+into chunks only above (the C sides pick those kernels from L and D). The
 head dim and ``_sm90_path`` pick one from the shape and dtype alone; a
 refused launch raises, it never falls back to another.
 

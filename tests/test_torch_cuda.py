@@ -892,6 +892,74 @@ def test_dkv_above_256_in_one_pass_matches_plain(monkeypatch, d, l, causal, dtyp
     assert launched == ["dfly_flash_bwd_dkv_wide"] * 2
 
 
+# the one-pass dQ and dK/dV at their edges: every column-warp layout (4 x
+# 48 at 136 and 192, 4 x 64 at 256, 5 to 8 x 64 above), one swept tile in
+# one stage (L = 1, 20, 32), a ragged second tile (33) and thirty-two in two
+# stages (1024)
+ONEPASS_DIMS = [136, 192, 256, 264, 320, 384, 512]
+ONEPASS_LENGTHS = [1, 20, 32, 33, 1024]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", ONEPASS_LENGTHS)
+@pytest.mark.parametrize("d", ONEPASS_DIMS)
+def test_wide_backward_in_one_pass_matches_plain(monkeypatch, d, l, causal, dtype):
+    """flash_attention_bwd_dq and flash_attention_bwd_dkv on the wide
+    mma.sync entries (the Hopper thresholds raised past every L, so bf16 at
+    D up to 256 reaches the one-pass kernels too) against
+    flash_attention_bwd_plain from the same o and lse, on B x H = 3 x 5
+    sets; batch row 0 has no valid key, so its gradients are exactly 0; and
+    without a mask. One launch each, counted on DQ_WIDE_LAUNCHES and
+    DKV_WIDE_LAUNCHES; no plain version and no pad copy."""
+    _need_card()
+    monkeypatch.setattr(flash, "WIDE_DKV_SM90_MIN_L", 1 << 30)
+    monkeypatch.setattr(flash, "WIDE_DQ_SM90_MIN_L", 1 << 30)
+    q, k, v, do, mask = _training_inputs((3, 5, l, d), dtype, seed=2 * (l + d) + causal)
+    # bf16-representable operands and o, so that the plain version run in
+    # bf16 on the same values rounds where the kernels round (operands, P
+    # and dS): the long tolerances where a row sums hundreds of terms. A
+    # float32 call is also held to the float32 plain version, which keeps P
+    # and dS in float32, at 5e-2
+    q, k, v, do = (t.to(torch.bfloat16).to(dtype) for t in (q, k, v, do))
+    long = l > flash.SM90_MIN_L
+    grad_tol = (dict(atol=LONG_GRAD_ATOL, rtol=LONG_GRAD_RTOL) if long
+                else dict(atol=GRAD_ATOL, rtol=GRAD_RTOL))
+    cases = []
+    for kv_mask in (mask, None):
+        o, lse = flash.flash_attention_lse_plain(q, k, v, kv_mask, causal)
+        o = o.to(torch.bfloat16).to(dtype)
+        delta = (do.float() * o.float()).sum(-1)
+        want = flash.flash_attention_bwd_plain(
+            *(t.to(torch.bfloat16) for t in (q, k, v)), kv_mask, o.to(torch.bfloat16), lse,
+            do.to(torch.bfloat16), causal)
+        unrounded = (flash.flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, causal)
+                     if dtype == torch.float32 else None)
+        cases.append((kv_mask, lse, delta, want, unrounded))
+    _refuse_plain(monkeypatch)
+    monkeypatch.setattr(flash, "_padded", lambda *t: pytest.fail("a wide D was padded"))
+    launched = _record_launches(monkeypatch)
+    for kv_mask, lse, delta, want, unrounded in cases:
+        before = _wide_counts()
+        got = (flash.flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, causal),
+               *flash.flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, causal))
+        torch.cuda.synchronize()
+        counts = _wide_counts()
+        assert {n: counts[n] - before[n] for n in counts} == {
+            **{n: 0 for n in counts}, "DQ_WIDE_LAUNCHES": 1, "DKV_WIDE_LAUNCHES": 1}
+        for i, name in enumerate(("dq", "dk", "dv")):
+            g = got[i]
+            assert g.dtype == dtype and g.shape == q.shape, name
+            torch.testing.assert_close(g.float(), want[i].float(), **grad_tol,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+            if unrounded is not None:
+                torch.testing.assert_close(g, unrounded[i], atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                           msg=lambda m, name=name: f"{name} (float32 plain): {m}")
+            if kv_mask is not None:
+                assert (g[0] == 0).all(), name
+    assert launched == ["dfly_flash_bwd_dq_wide", "dfly_flash_bwd_dkv_wide"] * 2
+
+
 def test_wide_instances_take_float32():
     """float32 at D = 256 (rounded to bf16 in shared memory, as the other
     mma.sync instances round it): forward and both backward kernels."""

@@ -243,10 +243,13 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
         flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do)
 
 
-# the regime of the card's one-pass dK/dV and packed-sets forward: B x H =
-# 3 x 5 short sets, batch row 0 with no valid key, at the head dims those
-# kernels take (192 at L = 10, 320 at L = 20)
-PACKED_CASES = [(10, 192), (20, 320)]
+# the regime of the card's one-pass dQ and dK/dV and packed-sets forward:
+# B x H = 3 x 5 short sets, batch row 0 with no valid key, at the head dims
+# those kernels take (192 at L = 10, 320 at L = 20), and the one-pass
+# backward's column-warp layouts and swept tiles (4 x 48 columns at 136 and
+# 192, 4 x 64 at 256 with one whole tile, 5 x 64 at 264 with one row and at
+# 320 with a ragged second tile)
+PACKED_CASES = [(10, 192), (20, 320), (20, 136), (20, 192), (32, 256), (1, 264), (33, 320)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
