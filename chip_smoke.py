@@ -19,7 +19,14 @@ result line:
    kernel's, the plain version's and a PyTorch library call's times
    (CUDA events) beside the bound the card allows. The training kernels
    (forward with lse, dK/dV, dQ) the same, at the trained shape
-   [256, 4, 20, 32] and at the long shapes.
+   [256, 4, 20, 32] and at the long shapes. At the ranker's D = 32 rows
+   (served, trained, and phase 6's eval shard) the Hopper instance is
+   forced too, held to the plain version at the row's shape and timed
+   beside the picked one. Then slice 13's packed-sets kernels (the
+   forward in three modes and dK/dV at L up to 32) at their edges: D = 32
+   and 128, L = 1, 10, 15, 20, 21, 22 and 32 on 3 x 5 sets with batch row
+   0 fully masked, causal or not, bf16 and float32, every launch counted,
+   and the kernel names the profiler finds behind each entry.
 4. serving path (slice 1): a full-width AttentionRanker (hidden 128, 4 heads, 2 layers)
    from a seeded generator, published to the port's bucket registry under
    a temporary fs:// location and activated, served by InferenceRPCServer
@@ -136,12 +143,13 @@ and prints no result line.
 
     python3 chip_smoke.py --rows [--tree DIR]
 
-instead holds the kernels of the seven rows slices 11-12 redesigned (the
-ring's eval-shard partials, the wide eval forward, the wide ranker's
-forward with lse, the hidden-1280 dK/dV and dQ, the hidden-768 dK/dV and
-dQ) to their plain versions at their main paths' shapes and times them, with the package from DIR (another commit's
-checkout, built there) or beside the script; run it for two trees in turns
-to compare their kernels in one call. No result line.
+instead holds the kernels of the ranker's D = 32 rows (the trained
+forward with lse, dK/dV and dQ at [256, 4, 20, 32], the served forward at
+[1024, 4, 15, 32], the ring's eval-shard partials at [2000, 4, 10, 32]) to
+their plain versions at those shapes and times them, with the package
+from DIR (another commit's checkout, built there) or beside the script;
+run it for two trees in turns to compare their kernels in one call. No
+result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -225,7 +233,7 @@ THRESHOLD_SHAPES = {32: (256, 4), 128: (16, 8)}
 # at D = 192 and 256, B = WIDE_THRESHOLD_TOKENS // L sets (256 at L = 20,
 # the ranker's training batch)
 WIDE_THRESHOLD_DIMS = (192, 256)
-WIDE_THRESHOLD_LENGTHS = (16, 20, 32, 64, 96, 128, 256, 512, 1024, 2048)
+WIDE_THRESHOLD_LENGTHS = (16, 20, 32, 48, 64, 96, 128, 256, 512, 1024, 2048)
 WIDE_THRESHOLD_TOKENS = 5120
 ULYSSES_SHAPE, ULYSSES_SP = (2, 16, 4096, 32), 4
 
@@ -376,7 +384,7 @@ def phase_build():
         # each instance of the Hopper sources, and the wide ones of the others
         entries = re.findall(r"Compiling entry function '(\w+)'", log)
         for entry, used, spill in zip(entries, regs, spills):
-            if "sm90" in name or "wide" in entry or "onepass" in entry:
+            if "sm90" in name or any(kind in entry for kind in ("wide", "onepass", "_sets_")):
                 print(f"  {_instance_label(entry)}: {used} registers, {spill} bytes spilled")
             # wgmma issued one at a time: registers ran short
             for why, entry in re.findall(
@@ -448,12 +456,24 @@ def _is_long(shape, dtype) -> bool:
 def _symbol(kernel: str, shape, dtype) -> str:
     """The profiler name of the instance ops/flash.py picks for ``kernel``
     ("fwd" for every forward mode, "dkv", "dq") at this shape."""
-    sm90 = _is_long(shape, dtype)
-    return {
-        "fwd": "flash_fwd_sm90_kernel" if sm90 else "flash_fwd_kernel",
-        "dkv": "flash_bwd_dkv_sm90_kernel" if sm90 else "flash_bwd_dkv_kernel",
-        "dq": "flash_bwd_dq_sm90_kernel" if sm90 else "flash_bwd_dq_kernel",
-    }[kernel]
+    if _is_long(shape, dtype):
+        return _SM90_SYMBOLS[kernel]
+    return _mma_sync_symbol(kernel, shape[2])
+
+
+_SM90_SYMBOLS = {"fwd": "flash_fwd_sm90_kernel", "dkv": "flash_bwd_dkv_sm90_kernel",
+                 "dq": "flash_bwd_dq_sm90_kernel"}
+
+
+def _mma_sync_symbol(kernel: str, length: int) -> str:
+    """The profiler name of the mma.sync instance's kernel of ``kernel``
+    ("fwd", "dkv", "dq") at L: the forward's and dK/dV's C sides launch
+    their packed-sets kernels at L up to SETS_MAX_L."""
+    from dragonfly2_tpu_torch.ops import flash
+
+    sets = "sets_" if length <= flash.SETS_MAX_L and kernel != "dq" else ""
+    return {"fwd": f"flash_fwd_{sets}kernel", "dkv": f"flash_bwd_dkv_{sets}kernel",
+            "dq": "flash_bwd_dq_kernel"}[kernel]
 
 
 def _need_time(label: str, shape, dtype, ms) -> None:
@@ -477,13 +497,20 @@ def _instance(sm90: bool):
         flash._sm90_path = picked
 
 
+# the D = 32 rows of the ranker's paths, whose picked instance is the
+# mma.sync one (its packed-sets kernels): the Hopper instance is forced there
+# too, held to the plain version at the row's shape first and timed beside
+HOPPER_FORCED_ROWS = ("served", "trained", "eval-shard")
+
+
 def _tolerances(shape, dtype):
     """(output, lse, gradient) (atol, rtol) at this shape: LONG, STATS and
     LONG_GRAD where ops/flash.py picks the Hopper instances, else KERNEL,
-    KERNEL and GRAD."""
+    STATS and GRAD (lse is a float32 sum of the same float32 scores at
+    every shape)."""
     if _is_long(shape, dtype):
         return (LONG_ATOL, LONG_RTOL), (STATS_ATOL, STATS_RTOL), (LONG_GRAD_ATOL, LONG_GRAD_RTOL)
-    return (KERNEL_ATOL, KERNEL_RTOL), (KERNEL_ATOL, KERNEL_RTOL), (GRAD_ATOL, GRAD_RTOL)
+    return (KERNEL_ATOL, KERNEL_RTOL), (STATS_ATOL, STATS_RTOL), (GRAD_ATOL, GRAD_RTOL)
 
 
 def phase_kernels():
@@ -525,6 +552,16 @@ def phase_kernels():
                 if dead.any() and out[dead].abs().max().item() != 0.0:
                     _fail(f"kernel {name}: fully masked rows are not 0")
         err, no_mask_err = errs["mask"], errs["no mask"]
+        forced = not long and name in HOPPER_FORCED_ROWS
+        if forced:
+            with _instance(sm90=True):
+                got = flash.flash_attention(q, k, v, mask, causal)
+                torch.cuda.synchronize()
+            ref = flash.flash_attention_plain(q, k, v, mask, causal)
+            other_err = float((got.float() - ref.float()).abs().max().item())
+            if not torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol):
+                _fail(f"kernel {name}: the Hopper instance forced, max_abs_err {other_err} outside "
+                      f"atol {atol} rtol {rtol}")
         ms = _time_ms(lambda: flash.flash_attention(q, k, v, mask, causal), iters)
         plain_ms = _time_ms(lambda: flash.flash_attention_plain(q, k, v, mask, causal),
                             max(3, iters // 4))
@@ -548,6 +585,11 @@ def phase_kernels():
             with _instance(sm90=False):
                 row.update(_timed(lambda: flash.flash_attention(q, k, v, mask, causal),
                                   "flash_fwd_kernel", "mma_sync_kernel"))
+        if forced:
+            with _instance(sm90=True):
+                row.update(_timed(lambda: flash.flash_attention(q, k, v, mask, causal),
+                                  "flash_fwd_sm90_kernel", "other_kernel"))
+            row.update(other_variant="flash_fwd_sm90", other_max_abs_err=other_err)
         results[name] = row
         print(f"kernel flash_fwd {name} {[b, h, l, d]} causal={causal} "
               f"{row['dtype']} ({row['variant']}): max_abs_err {err:.3g} "
@@ -558,10 +600,15 @@ def phase_kernels():
 
 
 def _other(row: dict) -> str:
-    """The forced mma.sync instance's device time, where a row took one."""
-    if "mma_sync_kernel_recorded" not in row:
-        return ""
-    return f"; mma.sync instance {_fmt(row, 'mma_sync_kernel')}"
+    """The forced other instance's device time, where a row took one: the
+    mma.sync one at a long shape, the Hopper one at a D = 32 row of the
+    ranker's paths."""
+    if "mma_sync_kernel_recorded" in row:
+        return f"; mma.sync instance {_fmt(row, 'mma_sync_kernel')}"
+    if "other_kernel_recorded" in row:
+        return (f"; Hopper instance forced {_fmt(row, 'other_kernel')}, max_abs_err "
+                f"{row['other_max_abs_err']:.3g}")
+    return ""
 
 
 TRAINING_KERNELS = ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")
@@ -679,6 +726,26 @@ def phase_training_kernels():
                       f"atol {g_atol} rtol {g_rtol}")
             if dead.any() and got[dead].abs().max().item() != 0.0:
                 _fail(f"flash_bwd {label} {name}: fully masked batch rows are not 0")
+        forced = not long and label in HOPPER_FORCED_ROWS
+        if forced:  # the Hopper instances at the row's shape, from the same o and lse
+            with _instance(sm90=True):
+                f_o, f_lse = flash.flash_attention_lse(q, k, v, mask, causal)
+                f_dk, f_dv = flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do, causal)
+                f_dq = flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, causal)
+                torch.cuda.synchronize()
+            other_errs = {
+                "flash_fwd_lse": max(float((f_o.float() - ref_o.float()).abs().max().item()),
+                                     float((f_lse[seen] - ref_lse[seen]).abs().max().item())),
+                "flash_bwd_dkv": max(float((f_dk.float() - ref_dk.float()).abs().max().item()),
+                                     float((f_dv.float() - ref_dv.float()).abs().max().item())),
+                "flash_bwd_dq": float((f_dq.float() - ref_dq.float()).abs().max().item()),
+            }
+            held = (torch.allclose(f_o.float(), ref_o.float(), atol=o_atol, rtol=o_rtol)
+                    and torch.allclose(f_lse[seen], ref_lse[seen], atol=lse_atol, rtol=lse_rtol)
+                    and all(torch.allclose(got.float(), want.float(), atol=g_atol, rtol=g_rtol)
+                            for got, want in ((f_dk, ref_dk), (f_dv, ref_dv), (f_dq, ref_dq))))
+            if not held:
+                _fail(f"training kernels {label}: the Hopper instances forced, errors {other_errs}")
         tolerance = {"flash_fwd_lse": f"o atol {o_atol} rtol {o_rtol}, lse atol {lse_atol} rtol "
                                       f"{lse_rtol}",
                      "flash_bwd_dkv": f"atol {g_atol} rtol {g_rtol}",
@@ -739,6 +806,14 @@ def phase_training_kernels():
                     _timed(bwd_dkv, "flash_bwd_dkv_kernel", "mma_sync_kernel"))
                 rows["flash_bwd_dq"].update(
                     _timed(bwd_dq, "flash_bwd_dq_kernel", "mma_sync_kernel"))
+        if forced:
+            with _instance(sm90=True):
+                for name, fn, symbol in (("flash_fwd_lse", fwd_lse, "flash_fwd_sm90_kernel"),
+                                         ("flash_bwd_dkv", bwd_dkv, "flash_bwd_dkv_sm90_kernel"),
+                                         ("flash_bwd_dq", bwd_dq, "flash_bwd_dq_sm90_kernel")):
+                    rows[name].update(_timed(fn, symbol, "other_kernel"),
+                                      other_variant=name + "_sm90",
+                                      other_max_abs_err=other_errs[name])
         for name, row in rows.items():
             bound_ms, bound_by = row.pop("bound")
             variant = "sm90" if long else "mma.sync"
@@ -754,6 +829,108 @@ def phase_training_kernels():
                   f"bound_ms {bound_ms:.4f} ({bound_by})")
         del sdpa_out, leaves
     return results
+
+
+# slice 13's packed-sets kernels at their edges: B x H = 3 x 5 sets, where
+# a block holds 32 / L whole sets, so the last block is short at most L; L
+# from 1 (32 sets a block) through 10 and 15 (three, two) to 20-32 (one);
+# batch row 0 fully masked
+SETS_EDGE_SETS = (3, 5)
+SETS_EDGE_DIMS = (32, 128)
+SETS_EDGE_LENGTHS = (1, 10, 15, 20, 21, 22, 32)
+
+
+def phase_sets_kernels():
+    """The packed-sets kernels of the forward (three modes) and of dK/dV
+    against their plain versions at the edge shapes, causal or not, bf16
+    and float32: every output within KERNEL, lse and the partials' row
+    statistics within STATS, gradients within GRAD (float32 is rounded to
+    bf16 in shared memory, so both sides take the rounded values); one
+    launch of each counted a call; then, at L = 22, the kernel names the
+    profiler finds behind each entry."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    b, h = SETS_EDGE_SETS
+    worst = collections.defaultdict(float)
+    for d in SETS_EDGE_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for l in SETS_EDGE_LENGTHS:
+                for causal in (False, True):
+                    q, k, v, mask = _attention_inputs(gen, b, h, l, d, dtype, True)
+                    q, k, v = (t.to(torch.bfloat16).to(dtype) for t in (q, k, v))
+                    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+                    do = do.to(dtype)
+                    label = f"[{b}, {h}, {l}, {d}] causal={causal} {str(dtype)[6:]}"
+                    before = _counts()
+                    out = flash.flash_attention(q, k, v, mask, causal)
+                    o, lse = flash.flash_attention_lse(q, k, v, mask, causal)
+                    delta = (do.float() * o.float()).sum(-1)
+                    dk, dv = flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do, causal)
+                    partials = None if causal else flash.flash_attention_partials(q, k, v, mask)
+                    torch.cuda.synchronize()
+                    expected = dict(before, flash_fwd=before["flash_fwd"] + 1,
+                                    flash_fwd_lse=before["flash_fwd_lse"] + 1,
+                                    flash_bwd_dkv=before["flash_bwd_dkv"] + 1,
+                                    flash_fwd_partial=before["flash_fwd_partial"] + (not causal))
+                    if _counts() != expected:
+                        _fail(f"sets kernels {label}: launches {_counts()}, expected {expected}")
+                    ref_o, ref_lse = flash.flash_attention_lse_plain(q, k, v, mask, causal)
+                    seen = ref_lse > -1e20
+                    errs = {"fwd": float((out.float() - ref_o.float()).abs().max().item()),
+                            "lse": max(float((o.float() - ref_o.float()).abs().max().item()),
+                                       float((lse[seen] - ref_lse[seen]).abs().max().item()))}
+                    ok = (torch.allclose(out.float(), ref_o.float(), atol=KERNEL_ATOL,
+                                         rtol=KERNEL_RTOL)
+                          and torch.equal(o, out) and bool(torch.isfinite(lse).all())
+                          and torch.allclose(lse[seen], ref_lse[seen], atol=STATS_ATOL,
+                                             rtol=STATS_RTOL)
+                          and bool((out[0] == 0).all()))
+                    _, ref_dk, ref_dv = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do,
+                                                                        causal)
+                    errs["dkv"] = max(float((dk.float() - ref_dk.float()).abs().max().item()),
+                                      float((dv.float() - ref_dv.float()).abs().max().item()))
+                    ok = ok and all(
+                        torch.allclose(got.float(), want.float(), atol=GRAD_ATOL, rtol=GRAD_RTOL)
+                        and bool((got[0] == 0).all()) for got, want in ((dk, ref_dk), (dv, ref_dv)))
+                    if partials is not None:
+                        perr, pok = _partial_errors(
+                            partials, flash.flash_attention_partials_plain(q, k, v, mask),
+                            KERNEL_ATOL, KERNEL_RTOL)
+                        errs["partial"] = max(perr["acc_over_row_sum"], perr["row_max"],
+                                              perr["row_sum"])
+                        ok = ok and pok
+                    if not ok:
+                        _fail(f"sets kernels {label} vs the plain versions: errors {errs} (outputs "
+                              f"atol {KERNEL_ATOL} rtol {KERNEL_RTOL}, lse and row statistics "
+                              f"{STATS_ATOL}, gradients {GRAD_ATOL}), or batch row 0 not 0")
+                    for kind, err in errs.items():
+                        worst[kind, d, dtype] = max(worst[kind, d, dtype], err)
+            print(f"sets kernels D = {d} {str(dtype)[6:]} on {b} x {h} sets, L = "
+                  f"{', '.join(map(str, SETS_EDGE_LENGTHS))}, causal and not: max_abs_err "
+                  + ", ".join(f"{kind} {worst[kind, d, dtype]:.3g}"
+                              for kind in ("fwd", "lse", "partial", "dkv"))
+                  + f" (outputs atol {KERNEL_ATOL} rtol {KERNEL_RTOL}, lse and row statistics "
+                  f"{STATS_ATOL}, gradients {GRAD_ATOL} rtol {GRAD_RTOL}); every launch counted")
+        # the kernels behind each entry at the one-tile limit's far side
+        q, k, v, mask = _attention_inputs(gen, b, h, 22, d, torch.bfloat16, True)
+        o, lse = flash.flash_attention_lse(q, k, v, mask)
+        delta = (o.float() * o.float()).sum(-1)
+        reached = {}
+        for name, call in (
+                ("fwd", lambda: flash.flash_attention(q, k, v, mask)),
+                ("lse", lambda: flash.flash_attention_lse(q, k, v, mask)),
+                ("partial", lambda: flash.flash_attention_partials(q, k, v, mask)),
+                ("dkv", lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, o))):
+            _, _, names = _kernel_ms(call, r"flash_\w+_kernel", calls=5)
+            reached[name] = names
+            symbol = _mma_sync_symbol("dkv" if name == "dkv" else "fwd", 22)
+            if names != [symbol]:
+                _fail(f"sets kernels D = {d} L = 22: {name} reached {names}, not {symbol}")
+        print(f"sets kernels D = {d} at [{b}, {h}, 22, {d}] bf16, the kernels the profiler found: "
+              + "; ".join(f"{name} {', '.join(names)}" for name, names in reached.items()))
 
 
 LAUNCH_COST_CALLS = 2000  # host-clock calls of each step of the wrapper
@@ -1169,9 +1346,10 @@ def _step_breakdown(trainer, idx, steps: int = 20):
               "device time not measured (the profiler saw no device activity)")
         return {"step_p50_ms": p50}
     shares = {
-        label: sum(ms for key, ms in kernels if symbol in key)
-        for label, symbol in (("forward with lse", "flash_fwd_kernel"),
-                              ("dK/dV", "flash_bwd_dkv_kernel"), ("dQ", "flash_bwd_dq_kernel"))
+        label: sum(ms for key, ms in kernels if re.search(symbol, key))
+        for label, symbol in (("forward with lse", r"flash_fwd_(?:sets_)?kernel"),
+                              ("dK/dV", r"flash_bwd_dkv_(?:sets_)?kernel"),
+                              ("dQ", "flash_bwd_dq_kernel"))
     }
     top = "; ".join(f"{key[:60]} {ms:.4f}" for key, ms in kernels[:6])
     print(f"training step: p50 {p50:.3f} ms over {len(times) - 3} synchronised steps; "
@@ -1454,6 +1632,15 @@ def phase_partial_kernel(ds):
         bound_ms, bound_by = _bound(q, mask, False, matrices=3 + 4 // q.element_size(),
                                     row_stats=2, ops_per_pair=4)
         long = _is_long(q.shape, torch.bfloat16)
+        forced = not long and name in HOPPER_FORCED_ROWS
+        if forced:
+            with _instance(sm90=True):
+                got = flash.flash_attention_partials(q, k, v, mask)
+                torch.cuda.synchronize()
+            other, ok = _partial_errors(got, flash.flash_attention_partials_plain(q, k, v, mask),
+                                        atol, rtol)
+            if not ok:
+                _fail(f"flash_fwd_partial {name}: the Hopper instance forced, errors {other}")
 
         def partials():
             return flash.flash_attention_partials(q, k, v, mask)
@@ -1474,6 +1661,11 @@ def phase_partial_kernel(ds):
         if long:
             with _instance(sm90=False):
                 row.update(_timed(partials, "flash_fwd_kernel", "mma_sync_kernel"))
+        if forced:
+            with _instance(sm90=True):
+                row.update(_timed(partials, "flash_fwd_sm90_kernel", "other_kernel"))
+            row.update(other_variant="flash_fwd_partial_sm90",
+                       other_max_abs_err=max(other["acc_over_row_sum"], other["row_max"]))
         results[name] = row
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         print(f"kernel flash_fwd_partial {name} {[b, h, l, d]} bfloat16 ({row['variant']}): "
@@ -1755,17 +1947,18 @@ def phase_threshold():
             o, lse = flash.flash_attention_lse(q, k, v, mask)
             delta = (do.float() * o.float()).sum(-1)
             row = {}
-            for sm90, instance, suffix in ((True, "sm90", "_sm90_kernel"),
-                                           (False, "mma_sync", "_kernel")):
+            for sm90, instance in ((True, "sm90"), (False, "mma_sync")):
+                symbol = (_SM90_SYMBOLS if sm90 else
+                          {kernel: _mma_sync_symbol(kernel, l) for kernel in _SM90_SYMBOLS})
                 with _instance(sm90):
                     row.update(_timed(lambda: flash.flash_attention(q, k, v, mask),
-                                      "flash_fwd" + suffix, f"fwd_{instance}"))
+                                      symbol["fwd"], f"fwd_{instance}"))
                     row.update(_timed(
                         lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do),
-                        "flash_bwd_dkv" + suffix, f"dkv_{instance}"))
+                        symbol["dkv"], f"dkv_{instance}"))
                     row.update(_timed(
                         lambda: flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do),
-                        "flash_bwd_dq" + suffix, f"dq_{instance}"))
+                        symbol["dq"], f"dq_{instance}"))
             print(f"threshold [{b}, {h}, {l}, {d}] bf16 device ms: forward sm90 "
                   f"{_fmt(row, 'fwd_sm90')} vs mma.sync {_fmt(row, 'fwd_mma_sync')}; dK/dV sm90 "
                   f"{_fmt(row, 'dkv_sm90')} vs mma.sync {_fmt(row, 'dkv_mma_sync')}; dQ sm90 "
@@ -1786,18 +1979,24 @@ def phase_threshold():
                                                                             else "")],
                                       f"fwd_{instance}"))
                     row.update(_timed(
-                        lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do),
-                        _WIDE_SYMBOLS["flash_bwd_dkv_wide" + ("_sm90" if sm90 else "")],
-                        f"dkv_{instance}"))
-                    row.update(_timed(
                         lambda: flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do),
                         _WIDE_SYMBOLS["flash_bwd_dq_wide" + ("_sm90" if sm90 else "")],
                         f"dq_{instance}"))
+            # dK/dV's two instances in turns (Hopper, mma.sync, mma.sync, Hopper):
+            # the WIDE_DKV_SM90_MIN_L readings
+            for turn, sm90 in enumerate((True, False, False, True)):
+                instance = ("sm90" if sm90 else "mma_sync") + ("_2" if turn > 1 else "")
+                with _instance(sm90):
+                    row.update(_timed(
+                        lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do),
+                        _WIDE_SYMBOLS["flash_bwd_dkv_wide" + ("_sm90" if sm90 else "")],
+                        f"dkv_{instance}"))
             picks = ", ".join(_wide_instance(fn, l, d, torch.bfloat16).removeprefix("flash_")
                               for fn in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
             print(f"threshold wide [{b}, {h}, {l}, {d}] bf16 device ms: forward with lse sm90 "
-                  f"{_fmt(row, 'fwd_sm90')} vs mma.sync {_fmt(row, 'fwd_mma_sync')}; dK/dV sm90 "
-                  f"{_fmt(row, 'dkv_sm90')} vs mma.sync {_fmt(row, 'dkv_mma_sync')}; dQ sm90 "
+                  f"{_fmt(row, 'fwd_sm90')} vs mma.sync {_fmt(row, 'fwd_mma_sync')}; dK/dV in turns "
+                  f"sm90 {_fmt(row, 'dkv_sm90')}, mma.sync {_fmt(row, 'dkv_mma_sync')}, mma.sync "
+                  f"{_fmt(row, 'dkv_mma_sync_2')}, sm90 {_fmt(row, 'dkv_sm90_2')}; dQ sm90 "
                   f"{_fmt(row, 'dq_sm90')} vs mma.sync {_fmt(row, 'dq_mma_sync')} (ops/flash.py "
                   f"picks {picks})")
 
@@ -2299,19 +2498,20 @@ def phase_wide_kernels(ds):
     return results
 
 
-# slices 11-12's redesigned rows at their main paths' shapes (random 85%
-# key masks in place of the ranker's): the ring's eval-shard partials, the
-# wide eval forward, the wide ranker's forward with lse, and the wide
-# rankers' backward kernels at hidden 1280 and 768
+# the D = 32 rows of the ranker's paths at their shapes (random 85% key
+# masks in place of the ranker's): the training step's forward with lse,
+# dK/dV and dQ (slice 13 redesigned the first two, dQ is the control), the
+# served forward and the ring's eval-shard partials
 ROWS = (
-    ("eval-ring-shard partials", "partial", (4000, 4, 10, 192)),
-    ("ranker-eval forward", "fwd", (4000, 4, 20, 192)),
-    ("ranker-train forward with lse", "lse", (256, 4, 20, 192)),
-    ("hidden-1280 dK/dV", "dkv", (256, 4, 20, 320)),
-    ("hidden-1280 dQ", "dq", (256, 4, 20, 320)),
-    ("hidden-768 dK/dV", "dkv", (256, 4, 20, 192)),
-    ("hidden-768 dQ", "dq", (256, 4, 20, 192)),
+    ("trained forward with lse", "lse", (256, 4, 20, 32)),
+    ("trained dK/dV", "dkv", (256, 4, 20, 32)),
+    ("trained dQ", "dq", (256, 4, 20, 32)),
+    ("served forward", "fwd", (1024, 4, 15, 32)),
+    ("eval-shard partials", "partial", (2000, 4, 10, 32)),
 )
+# profiler names of ROWS' kernels in this tree and the one before it (the
+# packed-sets kernels here, flash_fwd_kernel and flash_bwd_dkv_kernel there)
+_ROW_SYMBOLS = {"dkv": r"flash_bwd_dkv_(?:sets_)?kernel", "dq": "flash_bwd_dq_kernel"}
 
 
 def phase_rows(tree: str) -> None:
@@ -2360,8 +2560,7 @@ def phase_rows(tree: str) -> None:
                      for g, w in zip(got, want))
         if not ok:
             _fail(f"rows {tree}: {label} {list(shape)} vs the plain version: max_abs_err {err}")
-        symbol = _WIDE_SYMBOLS[{"dkv": "flash_bwd_dkv_wide",
-                                "dq": "flash_bwd_dq_wide"}.get(kind, "flash_fwd_wide")]
+        symbol = _ROW_SYMBOLS.get(kind, r"flash_fwd_(?:sets_)?kernel")
         ms = _time_ms(call, 20)
         device, recorded, names = _kernel_ms(call, symbol)
         if device is None:
@@ -3229,8 +3428,8 @@ def main() -> None:
                              "forward, dK/dV and dQ at D = 192 and 256 over L = 16 .. 2048, "
                              "instead of the smoke run")
     parser.add_argument("--rows", action="store_true",
-                        help="time only the kernels of the rows slices 11-12 redesigned, at their "
-                             "main paths' shapes, instead of the smoke run")
+                        help="time only the kernels of the ranker's D = 32 rows, at their main "
+                             "paths' shapes, instead of the smoke run")
     parser.add_argument("--tree", default=None,
                         help="import dragonfly2_tpu_torch from this checkout instead of the one "
                              "beside the script (with --rows: another commit's kernels, built "
@@ -3257,6 +3456,7 @@ def main() -> None:
         return
     kernels = phase_kernels()
     training_kernels = phase_training_kernels()
+    phase_sets_kernels()
     phase_launch_cost(card)
     launches = phase_main_path()
     train_counts, serve_counts, ds, breakdown = phase_training()

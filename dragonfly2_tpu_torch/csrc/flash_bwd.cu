@@ -7,6 +7,11 @@
 // ops/flash.py launches these instances for float32 and for L up to
 // SM90_MIN_L (the ranker's sets); bf16 above it takes the TMA + wgmma
 // redesigns, csrc/flash_bwd_dkv_sm90.cu and csrc/flash_bwd_dq_sm90.cu.
+// dK/dV's C side sends L up to SETS_MAX_L = 32 (the ranker's trained
+// sets) to flash_bwd_dkv_sets_kernel (end of file), whose blocks hold the
+// keys of whole consecutive sets and sweep the same sets' queries in one
+// memory round trip; flash_bwd_dkv_kernel below takes longer L, and dQ
+// keeps flash_bwd_dq_kernel at every L up to SM90_MIN_L.
 // Given q, k, v, dO [B, H, L, D], the forward's lse and delta = rowsum(dO*o)
 // [B, H, L] float32, and a [B, L] key-validity mask (or none), per tile:
 //   P  = exp2(S log2(e)/sqrt(D) - lse log2(e)) on valid pairs, 0 elsewhere
@@ -475,8 +480,23 @@ cudaError_t by_warps(int warps, const Args& a, cudaStream_t stream) {
   }
 }
 
+// dK/dV's packed-sets kernel (below), taken at L up to SETS_MAX_L
+constexpr int SETS_MAX_L = 32;
+
+template <typename T, int D>
+cudaError_t launch_dkv_sets(const Args& a, cudaStream_t stream);
+
 template <typename T, bool DKV>
 cudaError_t by_dim(int D, int warps, const Args& a, cudaStream_t stream) {
+  if (DKV && a.L <= SETS_MAX_L) {
+    switch (D) {
+      case 16: return launch_dkv_sets<T, 16>(a, stream);
+      case 32: return launch_dkv_sets<T, 32>(a, stream);
+      case 64: return launch_dkv_sets<T, 64>(a, stream);
+      case 128: return launch_dkv_sets<T, 128>(a, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (D) {
     case 16: return by_warps<T, 16, DKV>(warps, a, stream);
     case 32: return by_warps<T, 32, DKV>(warps, a, stream);
@@ -1496,6 +1516,273 @@ int wide_by_dtype(const Args& a, int D, int dtype, void* stream) {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// ---- dK/dV's packed-sets kernel: D in 16, 32, 64, 128, L up to SETS_MAX_L
+//
+// flash_bwd_dkv_kernel gives a block 16 WARPS keys of one (b, h) set: at the
+// ranker's trained shape, [256, 4, 20, 32], a 2-warp block holds 20 live
+// keys of 32 and sweeps a 32-query tile, stages K and V synchronously, then
+// after a barrier Q, dO, lse and delta (two memory round trips in series),
+// and writes dK and dV in 4-byte fragment stores: its 1,024 blocks of 64
+// threads sit at 36% of the bytes' bound. This kernel packs the sets as the
+// forward's flash_fwd_sets_kernel does: the keys of consecutive (b, h) sets
+// form one [B H L, D] matrix, and a block owns the keys of DKV_SETS_ROWS /
+// L whole consecutive sets (one at the ranker's L = 20) and sweeps the
+// queries of the same sets, so one 32-query tile holds every query its keys
+// see and no query is staged by two blocks. On the card (PERF.md), blocks
+// of 32 consecutive keys whatever their sets staged 1.9 times the queries
+// at L = 20 and gained nothing, and blocks of 64 keys of whole sets were
+// slower than these 32. A pair (query, key) counts only where the
+// query's set is the key's, mask[set / H, key % L] holds and, under
+// causal, key <= query (the same set: key % L <= query % L); a fully masked
+// key gets dK = dV = 0. Per block:
+// - K, V, Q and dO of its rows as bf16 by cp.async (float32 rounded to bf16
+//   on the way in, synchronously), lse and delta by 4-byte cp.async, and
+//   each query's set, with one commit and one wait: one memory round trip.
+// - Each warp owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T for
+//   them; P^T and dS^T stay in registers as the A fragments of dV += P^T dO
+//   and dK += dS^T Q, as flash_bwd_dkv_kernel's do; fragments come from
+//   shared memory by ldmatrix (.trans for the B operands of the second
+//   products). An 8-query tile, or a 16-query step, whose queries lie
+//   outside the sets of the warp's keys is skipped.
+// - bf16 dK scale and dV go through the warp's own K and V rows to 16-byte
+//   row stores; float32 keeps the fragments' 8-byte stores.
+// The function is _flash_bwd_dkv_kernel's: delta = rowsum(dO o) comes from
+// the caller (ops/flash.py), P and dS are rounded to bf16 for their
+// products, every output element is summed by one thread in query order,
+// no atomics. Bound on an H100: at [256, 4, 20, 32] bf16 it reads q, k, v,
+// dO, lse and delta and writes dK and dV, 8.0 MB (2.4 us at 3.35 TB/s),
+// against at most 0.1 GFLOP: bound by bytes, so every load of a block is in
+// flight at once and each byte is staged once. flash_bwd_dkv_kernel keeps
+// L in (SETS_MAX_L, SM90_MIN_L] and float32 above it.
+
+constexpr int DKV_SETS_ROWS = 32;  // keys, and swept queries, a block holds at most
+
+template <int D>
+struct DkvSets {
+  static constexpr int ROWS = DKV_SETS_ROWS;
+  static constexpr int THREADS = ROWS / 16 * 32;  // a warp per 16 keys
+  static constexpr int LDS = D + 8;               // shared row stride (bf16)
+  // K, V, Q and dO of the block's rows, their lse, delta and query sets
+  static constexpr size_t SMEM =
+      static_cast<size_t>(4 * ROWS) * LDS * sizeof(__nv_bfloat16) +
+      static_cast<size_t>(ROWS) * (2 * sizeof(float) + sizeof(int));
+  static_assert(ROWS >= SETS_MAX_L, "a block holds a whole set");
+  static_assert(SMEM <= 48 * 1024, "within the default dynamic shared memory");
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DkvSets<D>::THREADS)
+flash_bwd_dkv_sets_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const uint8_t* __restrict__ mask, T* __restrict__ dk,
+                          T* __restrict__ dv, int H, int L, int N, int block_rows, int causal,
+                          float scale_log2, float scale) {
+  using C = DkvSets<D>;
+  constexpr int LDS = C::LDS;
+  constexpr int ROWS = C::ROWS;
+  constexpr int KK = D / 16;               // depth steps
+  constexpr int NT = ROWS / 8;             // 8-query tiles of S^T
+  constexpr int OCH = D * sizeof(T) / 16;  // 16-byte chunks of an output row
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sV = sK + ROWS * LDS;
+  __nv_bfloat16* sQ = sV + ROWS * LDS;
+  __nv_bfloat16* sdO = sQ + ROWS * LDS;
+  float* sLse = reinterpret_cast<float*>(sdO + ROWS * LDS);
+  float* sDelta = sLse + ROWS;
+  int* sQSet = reinterpret_cast<int*>(sDelta + ROWS);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lrow = lane & 7;  // ldmatrix: the row this lane addresses in tile lane / 8
+  const int ltile = lane >> 3;
+  // the block's keys, and queries: whole sets r0 .. r_end - 1
+  const int r0 = blockIdx.x * block_rows;
+  const int r_end = min(N, r0 + block_rows);
+  // the warp's keys, and the queries of their sets (none before its first
+  // key under causal)
+  const int w0 = r0 + warp * 16;
+  const int w_last = min(w0 + 15, r_end - 1);
+  const int wq_begin = w0 >= r_end ? 0 : causal ? w0 : (w0 / L) * L;
+  const int wq_end = w0 >= r_end ? 0 : min(r_end, (w_last / L + 1) * L);
+  const int key_lo = w0 + g;
+  const int key_hi = key_lo + 8;
+
+  stage_rows_async<T, C::THREADS, LDS>(k, r0, ROWS, r_end, D, sK, tid);
+  stage_rows_async<T, C::THREADS, LDS>(v, r0, ROWS, r_end, D, sV, tid);
+  stage_rows_async<T, C::THREADS, LDS>(q, r0, ROWS, r_end, D, sQ, tid);
+  stage_rows_async<T, C::THREADS, LDS>(dout, r0, ROWS, r_end, D, sdO, tid);
+  for (int i = tid; i < ROWS; i += C::THREADS) {
+    const int row = r0 + i;
+    const bool in = row < r_end;
+    cp_async4(sLse + i, lse + (in ? row : 0), in);
+    cp_async4(sDelta + i, delta + (in ? row : 0), in);
+    sQSet[i] = in ? row / L : -2;  // a query past the block matches no key
+  }
+  cp_async_commit();
+  // a key's set, -1 for a masked key or one past the block
+  auto key_set = [&](int key) {
+    if (key >= r_end) return -1;
+    const int set = key / L;
+    return mask == nullptr || mask[static_cast<size_t>(set / H) * L + key - set * L] != 0 ? set
+                                                                                          : -1;
+  };
+  const int set_lo = key_set(key_lo);
+  const int set_hi = key_set(key_hi);
+  cp_async_wait_all();
+  __syncthreads();  // K, V, Q, dO, lse, delta and the query sets arrived
+
+  // S^T = K Q^T and dP^T = V dO^T over the 8-query tiles that hold a query
+  // of the warp's sets; the others stay 0
+  bool meet[NT];
+  float s[NT][4];
+  float dp[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int first_q = r0 + nt * 8;
+    meet[nt] = first_q < wq_end && first_q + 8 > wq_begin;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+  }
+  // A: the warp's K and V rows 8 (tile & 1).., columns 8 (tile >> 1).. of a
+  // depth step
+  const int a_at = (warp * 16 + lrow + (ltile & 1) * 8) * LDS + (ltile >> 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    uint32_t ka[4], va[4];
+    ldsm_x4(ka, sK + a_at + kk * 16);
+    ldsm_x4(va, sV + a_at + kk * 16);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (!meet[nt]) continue;
+      // B: Q and dO rows nt * 8.., columns 8 (tile & 1).. of the step
+      const int b_at = (nt * 8 + lrow) * LDS + kk * 16 + (ltile & 1) * 8;
+      uint32_t qb[2], db[2];
+      ldsm_x2(qb, sQ + b_at);
+      ldsm_x2(db, sdO + b_at);
+      mma_bf16(s[nt], ka, qb[0], qb[1]);
+      mma_bf16(dp[nt], va, db[0], db[1]);
+    }
+  }
+
+  // P^T and dS^T in place; rows are keys, columns queries
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (!meet[nt]) continue;
+    const int2 qset = *reinterpret_cast<const int2*>(sQSet + nt * 8 + 2 * t);
+    const float2 ql = *reinterpret_cast<const float2*>(sLse + nt * 8 + 2 * t);
+    const float2 qd = *reinterpret_cast<const float2*>(sDelta + nt * 8 + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int query = r0 + nt * 8 + 2 * t + (e & 1);
+      const int key = (e < 2) ? key_lo : key_hi;
+      const bool ok = ((e & 1) ? qset.y : qset.x) == (e < 2 ? set_lo : set_hi) &&
+                      (!causal || key <= query);
+      const float p = ok ? exp2f(s[nt][e] * scale_log2 - ((e & 1) ? ql.y : ql.x) * LOG2E) : 0.f;
+      s[nt][e] = p;
+      dp[nt][e] = p * (dp[nt][e] - ((e & 1) ? qd.y : qd.x));
+    }
+  }
+
+  // dV = P^T dO and dK = dS^T Q over the 16-query steps that meet the
+  // warp's sets, the queries as the k dimension
+  float acc_dk[D / 8][4];
+  float acc_dv[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[dn][e] = acc_dv[dn][e] = 0.f;
+  }
+#pragma unroll
+  for (int ks = 0; ks < ROWS / 16; ++ks) {
+    if (!meet[2 * ks] && !meet[2 * ks + 1]) continue;
+    uint32_t pa[4], dsa[4];
+    c_to_a(s[2 * ks], s[2 * ks + 1], pa);
+    c_to_a(dp[2 * ks], dp[2 * ks + 1], dsa);
+    // B of two 8-column tiles at once: rows ks * 16 + 8 (tile & 1)..,
+    // columns 8 (tile >> 1).., transposed
+    const int b_at = (ks * 16 + lrow + (ltile & 1) * 8) * LDS + (ltile >> 1) * 8;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; dn += 2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, sdO + b_at + dn * 8);
+      mma_bf16(acc_dv[dn], pa, b[0], b[1]);
+      mma_bf16(acc_dv[dn + 1], pa, b[2], b[3]);
+      ldsm_x4_trans(b, sQ + b_at + dn * 8);
+      mma_bf16(acc_dk[dn], dsa, b[0], b[1]);
+      mma_bf16(acc_dk[dn + 1], dsa, b[2], b[3]);
+    }
+  }
+
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    // the warp's own K and V rows (only this warp read them) take its dK
+    // and dV, which leave in 16-byte row stores
+    __nv_bfloat16* dk_rows = sK + warp * 16 * LDS;
+    __nv_bfloat16* dv_rows = sV + warp * 16 * LDS;
+    __syncwarp();
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int col = dn * 8 + 2 * t;
+      store2(dk_rows + g * LDS + col, acc_dk[dn][0] * scale, acc_dk[dn][1] * scale);
+      store2(dk_rows + (g + 8) * LDS + col, acc_dk[dn][2] * scale, acc_dk[dn][3] * scale);
+      store2(dv_rows + g * LDS + col, acc_dv[dn][0], acc_dv[dn][1]);
+      store2(dv_rows + (g + 8) * LDS + col, acc_dv[dn][2], acc_dv[dn][3]);
+    }
+    __syncwarp();
+    for (int i = lane; i < 16 * OCH; i += 32) {
+      const int r = i / OCH;
+      const int c = i - r * OCH;
+      if (w0 + r < r_end) {
+        const size_t at = static_cast<size_t>(w0 + r) * D;
+        reinterpret_cast<uint4*>(dk + at)[c] = reinterpret_cast<const uint4*>(dk_rows + r * LDS)[c];
+        reinterpret_cast<uint4*>(dv + at)[c] = reinterpret_cast<const uint4*>(dv_rows + r * LDS)[c];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int col = dn * 8 + 2 * t;
+      if (key_lo < r_end) {
+        const size_t at = static_cast<size_t>(key_lo) * D + col;
+        store2(dk + at, acc_dk[dn][0] * scale, acc_dk[dn][1] * scale);
+        store2(dv + at, acc_dv[dn][0], acc_dv[dn][1]);
+      }
+      if (key_hi < r_end) {
+        const size_t at = static_cast<size_t>(key_hi) * D + col;
+        store2(dk + at, acc_dk[dn][2] * scale, acc_dk[dn][3] * scale);
+        store2(dv + at, acc_dv[dn][2], acc_dv[dn][3]);
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv_sets(const Args& a, cudaStream_t stream) {
+  using C = DkvSets<D>;
+  const long long rows = static_cast<long long>(a.B) * a.H * a.L;
+  // flattened key and query indices, and a block past the last, stay in int
+  if (rows > 0x7fffffffLL - 2 * C::ROWS) return cudaErrorInvalidValue;
+  const int n = static_cast<int>(rows);
+  const int block_rows = C::ROWS / a.L * a.L;  // whole sets
+  flash_bwd_dkv_sets_kernel<T, D>
+      <<<static_cast<unsigned>((n + block_rows - 1) / block_rows), C::THREADS, C::SMEM, stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+          static_cast<const T*>(a.dout), a.lse, a.delta, a.mask, static_cast<T*>(a.d0),
+          static_cast<T*>(a.d1), a.H, a.L, n, block_rows, a.causal, LOG2E * a.scale, a.scale);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -22,7 +22,12 @@
 // no branch. Head dims: 16, 32, 64, 128, and in the wide instance (end of
 // file) any D with D % 8 == 0, taken above 128: its packed-sets kernel for
 // D up to 256 at L up to 32, its one-pass kernel for D in (256, 512], its
-// chunked kernel at the others.
+// chunked kernel at the others. At the head dims 16-128 the C side sends L
+// up to SETS_MAX_L = 32 (the ranker's sets: served, trained and the ring's
+// eval shard) to flash_fwd_sets_kernel (end of file), whose blocks hold
+// whole consecutive sets of the flattened [B H L, D] rows and stage each
+// byte once in one memory round trip; flash_fwd_kernel below takes longer
+// L, and float32 above SM90_MIN_L.
 //
 // What bounds it on an H100: at the served shape, [1024, 4, 15, 32] bf16,
 // q, k, v and o are 3.9 MB each, 15.7 MB together, which the card moves in
@@ -370,10 +375,28 @@ cudaError_t by_warps(int warps, const void* q, const void* k, const void* v, con
   }
 }
 
+// the packed-sets kernel of the head-dim instances (below), taken at L up to
+// SETS_MAX_L
+constexpr int SETS_MAX_L = 32;
+
+template <typename T, int D, int MODE>
+cudaError_t launch_narrow_sets(const void* q, const void* k, const void* v, const void* mask,
+                               void* o, float* stat0, float* stat1, int B, int H, int L,
+                               int causal, float scale, cudaStream_t stream);
+
 template <typename T, int MODE>
 cudaError_t by_dim(int D, int warps, const void* q, const void* k, const void* v,
                    const void* mask, void* o, float* stat0, float* stat1, int B, int H, int L,
                    int causal, float scale, cudaStream_t stream) {
+  if (L <= SETS_MAX_L) {
+    switch (D) {
+      case 16: return launch_narrow_sets<T, 16, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
+      case 32: return launch_narrow_sets<T, 32, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
+      case 64: return launch_narrow_sets<T, 64, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
+      case 128: return launch_narrow_sets<T, 128, MODE>(q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (D) {
     case 16: return by_warps<T, 16, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
     case 32: return by_warps<T, 32, MODE>(warps, q, k, v, mask, o, stat0, stat1, B, H, L, causal, scale, stream);
@@ -1424,6 +1447,285 @@ int wide_by_dtype(const void* q, const void* k, const void* v, const void* mask,
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// ---- the packed-sets kernel of the head-dim instances: D in 16, 32, 64,
+// 128, L up to SETS_MAX_L
+//
+// flash_fwd_kernel gives a block 16 WARPS query rows of one (b, h) set:
+// at the ranker's sets (L = 10, 15, 20) a 2-warp block holds 20 live rows
+// of 32, stages a 64-key K/V tile of which 20 rows are live (the rest
+// zero-filled, 5/8 of its products on zeros), and makes two memory round
+// trips in series (Q, a barrier, K and V, a barrier) before 4-byte stores:
+// at [256, 4, 20, 32] its 1,024 blocks of 64 threads sit at 25% of the
+// bytes' bound. This kernel packs the sets: q, k and v are contiguous [B,
+// H, L, D], so the rows of consecutive (b, h) sets form one [B H L, D]
+// matrix, and a block takes the rows of NARROW_ROWS / L whole consecutive
+// sets (30 of its 32 rows at L = 10 and 15, 20 at L = 20, 32 at 16 and
+// 32): its keys are its own rows, so one 32-key tile holds every key its
+// rows see and no key is staged by two blocks. On the card (PERF.md),
+// blocks of 32 or 64 consecutive rows whatever their sets staged the keys
+// of the sets they cut twice and were slower, and blocks of 64 or 128
+// rows of whole sets were slower than these 32: at the ranker's shapes a
+// block is bound by its warps' latency, not by its padding rows, and a
+// short score tile keeps a warp's chain short. A row's set is row / L and
+// its batch row set / H; a score
+// stays finite only where the key's set is the row's, mask[set / H, key %
+// L] holds and, under causal, key <= row (the same set: key % L <= row %
+// L). Per block:
+// - Q, K and V of its rows, and each key's set (-1 for a masked key or one
+//   past the block), are staged together, bf16 by cp.async (float32
+//   rounded to bf16 on the way in, synchronously), with one commit and one
+//   wait: one memory round trip.
+// - Each warp owns 16 rows and keeps S, P and the softmax statistics in
+//   registers, as flash_fwd_kernel does; fragments come from shared memory
+//   by ldmatrix (.trans for V). An 8-key score tile, or a 16-key P V step,
+//   whose keys lie outside the sets of the warp's rows is skipped (at
+//   L = 10 a warp's 16 rows meet at most two of a block's three sets).
+// - Outputs go through shared memory (bf16 through the warp's own Q rows,
+//   float32 through the K tile after a barrier) and leave as 16-byte row
+//   stores; lse, row max and row sum are written once a row.
+// Numerics as flash_fwd_kernel's: bf16 operands, float32 statistics and
+// accumulators, P rounded to bf16 for P V, exp2 in the log2 domain (a
+// masked score is -inf, so its exp2 is 0 while the row's max is still
+// NEG_BIG), a row with no valid key giving 0 and the same lse filler, every
+// output element summed by one thread in key order, no atomics.
+// Bound on an H100: the trained shape, [256, 4, 20, 32] bf16 with lse,
+// moves 5.3 MB (1.6 us at 3.35 TB/s) for at most 0.05 GFLOP; the served
+// [1024, 4, 15, 32] 15.7 MB (4.7 us); the ring's eval shard in the partial
+// mode, [2000, 4, 10, 32], 26.3 MB (7.8 us): bound by bytes, so a block
+// keeps every load in flight at once and stages each byte once.
+// flash_fwd_kernel keeps L in (SETS_MAX_L, SM90_MIN_L] and float32 above
+// it.
+
+constexpr int NARROW_WARPS = 2;                  // 16-row warps a block
+constexpr int NARROW_ROWS = 16 * NARROW_WARPS;  // rows, and keys, a block holds at most
+static_assert(NARROW_ROWS >= SETS_MAX_L, "a block holds a whole set");
+
+template <int D>
+struct NarrowSets {
+  static constexpr int THREADS = NARROW_WARPS * 32;
+  static constexpr int LDS = D + 8;  // shared row stride (bf16): conflict-free ldmatrix
+  static constexpr size_t SMEM =
+      static_cast<size_t>(3 * NARROW_ROWS) * LDS * sizeof(__nv_bfloat16) +
+      static_cast<size_t>(NARROW_ROWS) * sizeof(int);
+  static_assert(SMEM <= 48 * 1024, "within the default dynamic shared memory");
+};
+
+template <typename T, int D, int MODE>
+__global__ void __launch_bounds__(NarrowSets<D>::THREADS)
+flash_fwd_sets_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const uint8_t* __restrict__ mask, out_t<T, MODE>* __restrict__ o,
+                      float* __restrict__ stat0, float* __restrict__ stat1, int H, int L, int N,
+                      int block_rows, int causal, float scale_log2) {
+  using C = NarrowSets<D>;
+  using O = out_t<T, MODE>;
+  constexpr int LDS = C::LDS;
+  constexpr int KK = D / 16;               // depth steps
+  constexpr int NT = NARROW_ROWS / 8;      // 8-key score tiles of the key tile
+  constexpr int OS = D + 8;                // row stride of the staged output (elements)
+  constexpr int OCH = D * sizeof(O) / 16;  // 16-byte chunks of an output row
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = sQ + NARROW_ROWS * LDS;
+  __nv_bfloat16* sV = sK + NARROW_ROWS * LDS;
+  int* sKeySet = reinterpret_cast<int*>(sV + NARROW_ROWS * LDS);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lrow = lane & 7;  // ldmatrix: the row this lane addresses in tile lane / 8
+  const int ltile = lane >> 3;
+  // the block's rows, and keys: whole sets r0 .. r_end - 1
+  const int r0 = blockIdx.x * block_rows;
+  const int r_end = min(N, r0 + block_rows);
+  // the warp's rows, and the keys of their sets (none past the last row
+  // under causal)
+  const int w0 = r0 + warp * 16;
+  const int w_last = min(w0 + 15, r_end - 1);
+  const int wk_begin = w0 < r_end ? (w0 / L) * L : 0;
+  const int wk_end = w0 >= r_end ? 0 : causal ? w_last + 1 : min(r_end, (w_last / L + 1) * L);
+  const int row_lo = w0 + g;
+  const int row_hi = row_lo + 8;
+  const int set_lo = row_lo < r_end ? row_lo / L : -2;  // a row past the block matches no key
+  const int set_hi = row_hi < r_end ? row_hi / L : -2;
+
+  stage_rows<T, C::THREADS, LDS>(q, r0, NARROW_ROWS, r_end, D, sQ, tid);
+  stage_rows<T, C::THREADS, LDS>(k, r0, NARROW_ROWS, r_end, D, sK, tid);
+  stage_rows<T, C::THREADS, LDS>(v, r0, NARROW_ROWS, r_end, D, sV, tid);
+  for (int i = tid; i < NARROW_ROWS; i += C::THREADS) {
+    const int key = r0 + i;
+    const int set = key / L;
+    const bool ok = key < r_end &&
+                    (mask == nullptr || mask[static_cast<size_t>(set / H) * L + key - set * L] != 0);
+    sKeySet[i] = ok ? set : -1;
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();  // Q, K, V and the key sets arrived
+
+  uint32_t qa[KK][4];  // the warp's Q rows as A fragments
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    ldsm_x4(qa[kk], sQ + (warp * 16 + lrow + (ltile & 1) * 8) * LDS + kk * 16 + (ltile >> 1) * 8);
+  }
+
+  // S = Q K^T over the 8-key tiles that hold a key of the warp's sets; the
+  // others stay -inf
+  bool meet[NT];
+  float s[NT][4];
+  float m_row[2] = {NEG_BIG, NEG_BIG};  // the row maxima (log2 domain) of rows lo, hi
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int first_key = r0 + nt * 8;
+    meet[nt] = first_key < wk_end && first_key + 8 > wk_begin;
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = neg_inf();
+    if (!meet[nt]) continue;
+    float acc_s[4] = {0.f, 0.f, 0.f, 0.f};
+    // B: K rows nt * 8.., columns 8 (tile).. of two depth steps
+    const __nv_bfloat16* kb = sK + (nt * 8 + lrow) * LDS + ltile * 8;
+    if constexpr (KK == 1) {
+      uint32_t b[2];
+      ldsm_x2(b, kb);
+      mma_bf16(acc_s, qa[0], b[0], b[1]);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KK; kk += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, kb + kk * 16);
+        mma_bf16(acc_s, qa[kk], b[0], b[1]);
+        mma_bf16(acc_s, qa[kk + 1], b[2], b[3]);
+      }
+    }
+    const int2 kset = *reinterpret_cast<const int2*>(sKeySet + nt * 8 + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = first_key + 2 * t + (e & 1);
+      const bool ok = ((e & 1) ? kset.y : kset.x) == (e < 2 ? set_lo : set_hi) &&
+                      (!causal || key <= (e < 2 ? row_lo : row_hi));
+      if (ok) {
+        s[nt][e] = acc_s[e] * scale_log2;
+        m_row[e >> 1] = fmaxf(m_row[e >> 1], s[nt][e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m_row[r] = fmaxf(m_row[r], __shfl_xor_sync(0xffffffffu, m_row[r], 1));
+    m_row[r] = fmaxf(m_row[r], __shfl_xor_sync(0xffffffffu, m_row[r], 2));
+  }
+  float l_row[2] = {0.f, 0.f};  // this thread's share of the row sums
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (!meet[nt]) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s[nt][e] - m_row[e >> 1]);
+      s[nt][e] = p;
+      l_row[e >> 1] += p;
+    }
+  }
+
+  // O = P V over the 16-key steps that meet the warp's sets
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+#pragma unroll
+  for (int ks = 0; ks < NARROW_ROWS / 16; ++ks) {
+    if (!meet[2 * ks] && !meet[2 * ks + 1]) continue;
+    uint32_t pa[4];  // a skipped 8-key tile's -inf scores are 0 here
+    pa[0] = meet[2 * ks] ? pack(s[2 * ks][0], s[2 * ks][1]) : 0u;
+    pa[1] = meet[2 * ks] ? pack(s[2 * ks][2], s[2 * ks][3]) : 0u;
+    pa[2] = meet[2 * ks + 1] ? pack(s[2 * ks + 1][0], s[2 * ks + 1][1]) : 0u;
+    pa[3] = meet[2 * ks + 1] ? pack(s[2 * ks + 1][2], s[2 * ks + 1][3]) : 0u;
+    // B of two 8-column tiles at once: V rows ks * 16 + 8 (tile & 1)..,
+    // columns 8 (tile >> 1).., transposed
+    const __nv_bfloat16* vb = sV + (ks * 16 + lrow + (ltile & 1) * 8) * LDS + (ltile >> 1) * 8;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; dn += 2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, vb + dn * 8);
+      mma_bf16(acc[dn], pa, b[0], b[1]);
+      mma_bf16(acc[dn + 1], pa, b[2], b[3]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+  }
+  const float inv_lo = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[0], 1e-9f);
+  const float inv_hi = MODE == MODE_PARTIAL ? 1.f : 1.f / fmaxf(l_row[1], 1e-9f);
+  // the warp's 16 output rows through shared memory: bf16 through its own Q
+  // rows (only this warp read them), float32 through the K tile once every
+  // warp is done with it
+  O* so;
+  if constexpr (sizeof(O) == 2) {
+    __syncwarp();
+    so = reinterpret_cast<O*>(sQ) + warp * 16 * OS;
+  } else {
+    __syncthreads();
+    so = reinterpret_cast<O*>(sK) + warp * 16 * OS;
+  }
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + 2 * t;
+    store2(so + g * OS + col, acc[dn][0] * inv_lo, acc[dn][1] * inv_lo);
+    store2(so + (g + 8) * OS + col, acc[dn][2] * inv_hi, acc[dn][3] * inv_hi);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * OCH; i += 32) {
+    const int r = i / OCH;
+    const int c = i - r * OCH;
+    if (w0 + r < r_end) {
+      reinterpret_cast<uint4*>(o + static_cast<size_t>(w0 + r) * D)[c] =
+          reinterpret_cast<const uint4*>(so + r * OS)[c];
+    }
+  }
+  // m and l are equal across the quad after the reductions: one writer, at
+  // the flattened row ([B, H, L] is [B H L])
+  if constexpr (MODE == MODE_LSE) {
+    if (t == 0) {
+      if (row_lo < r_end) stat0[row_lo] = m_row[0] * LN2 + logf(fmaxf(l_row[0], 1e-30f));
+      if (row_hi < r_end) stat0[row_hi] = m_row[1] * LN2 + logf(fmaxf(l_row[1], 1e-30f));
+    }
+  }
+  if constexpr (MODE == MODE_PARTIAL) {
+    if (t == 0) {
+      if (row_lo < r_end) {
+        stat0[row_lo] = m_row[0] * LN2;
+        stat1[row_lo] = l_row[0];
+      }
+      if (row_hi < r_end) {
+        stat0[row_hi] = m_row[1] * LN2;
+        stat1[row_hi] = l_row[1];
+      }
+    }
+  }
+}
+
+template <typename T, int D, int MODE>
+cudaError_t launch_narrow_sets(const void* q, const void* k, const void* v, const void* mask,
+                               void* o, float* stat0, float* stat1, int B, int H, int L,
+                               int causal, float scale, cudaStream_t stream) {
+  using C = NarrowSets<D>;
+  const long long rows = static_cast<long long>(B) * H * L;
+  // flattened row and key indices, and a block past the last, stay in int
+  if (rows > 0x7fffffffLL - 2 * NARROW_ROWS) return cudaErrorInvalidValue;
+  const int n = static_cast<int>(rows);
+  const int block_rows = NARROW_ROWS / L * L;  // whole sets
+  flash_fwd_sets_kernel<T, D, MODE>
+      <<<static_cast<unsigned>((n + block_rows - 1) / block_rows), C::THREADS, C::SMEM, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<const uint8_t*>(mask), static_cast<out_t<T, MODE>*>(o), stat0, stat1, H, L,
+          n, block_rows, causal, LOG2E * scale);
+  return cudaGetLastError();
 }
 
 }  // namespace

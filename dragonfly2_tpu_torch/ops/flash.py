@@ -132,16 +132,24 @@ _launches_lock = threading.Lock()
 # ones win up to L = 64 (one 128-row Hopper block is mostly padding there)
 # and lose from L = 96.
 SM90_MIN_L = 64
+# At L up to this the mma.sync forward (three modes) and dK/dV C sides
+# launch their packed-sets kernels, whose blocks take whole consecutive
+# sets of the flattened [B H L, D] rows (flash_fwd_sets_kernel and
+# flash_bwd_dkv_sets_kernel, csrc/flash_fwd.cu and csrc/flash_bwd.cu, where
+# SETS_MAX_L decides); the mirror names them for the profiler.
+SETS_MAX_L = 32
 # The wide Hopper instances take bf16 at a wide head dim up to 256: the
 # forward (all three modes) at L above WIDE_SM90_MIN_L, dK/dV at L above
 # WIDE_DKV_SM90_MIN_L, dQ at L above WIDE_DQ_SM90_MIN_L. Set from both wide
 # instances' device times at D = 192 and 256 (python3 chip_smoke.py
 # --threshold, PERF.md): the mma.sync forward wins at L = 16-32 (a 64-row
-# Hopper block holds one set of L rows) and loses from L = 64; the mma.sync
-# dK/dV wins at L = 16-20 and loses from 32. The ranker's sets (L = 20)
-# keep the three mma.sync ones.
+# Hopper block holds one set of L rows) and loses from L = 64; the one-pass
+# mma.sync dK/dV wins at L = 16-32 and the Hopper one leads from L = 48
+# (at both D; the two trade places at 64-96, Hopper leads again from 128);
+# the one-pass dQ wins up to 32. The ranker's sets (L = 20) keep the three
+# mma.sync ones.
 WIDE_SM90_MIN_L = 32
-WIDE_DKV_SM90_MIN_L = 20
+WIDE_DKV_SM90_MIN_L = 32
 WIDE_DQ_SM90_MIN_L = 32
 
 # The instances, as the launcher (csrc/flash_launch.cpp) numbers them; the

@@ -837,6 +837,70 @@ def test_packed_short_sets_match_plain(monkeypatch, l, d, causal, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("l", [1, 10, 15, 20, 21, 22, 32])
+def test_packed_sets_at_the_head_dims_match_plain(monkeypatch, l, d, causal, dtype):
+    """The mma.sync forward's and dK/dV's packed-sets kernels (D in
+    HEAD_DIMS at L up to SETS_MAX_L: a block holds the rows, or keys, of
+    32 / L whole sets) on B x H = 3 x 5 sets, so the last block is short
+    at most L: the forward in its three modes (the
+    partials without causal) and dK/dV against the plain versions, with a
+    mask whose batch row 0 has no valid key (exactly 0 out, the partials'
+    row_max at the filler, dK = dV = 0) and without. dK/dV takes the plain
+    forward's lse and delta. One launch of each counted; no plain version
+    on the card."""
+    _need_card()
+    q, k, v, do, mask = _training_inputs((3, 5, l, d), dtype, seed=l + d + causal)
+    # the kernels round float32 operands to bf16 in shared memory: the plain
+    # versions take the rounded values, so lse and the row statistics hold
+    # to STATS in both dtypes
+    rq, rk, rv, rdo = (t.to(torch.bfloat16).to(dtype) for t in (q, k, v, do))
+    tol, stats = dict(atol=ATOL, rtol=RTOL), dict(atol=STATS_ATOL, rtol=STATS_RTOL)
+    refs = {}
+    for masked, kv_mask in ((True, mask), (False, None)):
+        o, lse = flash.flash_attention_lse_plain(rq, rk, rv, kv_mask, causal)
+        delta = (rdo.float() * o.float()).sum(-1)
+        _, dk, dv = flash.flash_attention_bwd_plain(rq, rk, rv, kv_mask, o, lse, rdo, causal)
+        partials = None if causal else flash.flash_attention_partials_plain(rq, rk, rv, kv_mask)
+        refs[masked] = (o, lse, delta, dk, dv, partials)
+    _refuse_plain(monkeypatch)
+    launched = _record_launches(monkeypatch)
+    before = {name: getattr(flash, name) for name in ("LAUNCHES", "LSE_LAUNCHES",
+                                                      "PARTIAL_LAUNCHES", "DKV_LAUNCHES")}
+    for masked, (ref_o, ref_lse, delta, ref_dk, ref_dv, ref_partials) in refs.items():
+        kv_mask = mask if masked else None
+        out = flash.flash_attention(q, k, v, kv_mask, causal)
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), ref_o.float(), **tol)
+        o, lse = flash.flash_attention_lse(q, k, v, kv_mask, causal)
+        assert torch.equal(o, out)  # one kernel, two modes
+        seen = ref_lse > -1e20
+        torch.testing.assert_close(lse[seen], ref_lse[seen], **stats)
+        assert torch.isfinite(lse).all()
+        dk, dv = flash.flash_attention_bwd_dkv(q, k, v, kv_mask, ref_lse, delta, do, causal)
+        for name, g, w in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+            assert g.dtype == dtype and g.shape == q.shape, name
+            torch.testing.assert_close(g.float(), w.float(), atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+        if masked:
+            assert (out[0] == 0).all() and (dk[0] == 0).all() and (dv[0] == 0).all()
+        if not causal:
+            acc, row_max, row_sum = flash.flash_attention_partials(q, k, v, kv_mask)
+            _check_partials((acc, row_max, row_sum), ref_partials, tol, stats)
+            if masked:
+                assert (acc[0] == 0).all() and (row_sum[0] == 0).all()
+                torch.testing.assert_close(row_max[0], torch.full_like(row_max[0], FILLER),
+                                           rtol=1e-6, atol=0)
+    torch.cuda.synchronize()
+    calls = ["dfly_flash_fwd", "dfly_flash_fwd_lse", "dfly_flash_bwd_dkv"] + (
+        [] if causal else ["dfly_flash_fwd_partial"])
+    assert launched == calls * 2
+    assert {name: getattr(flash, name) - count for name, count in before.items()} == {
+        "LAUNCHES": 2, "LSE_LAUNCHES": 2, "DKV_LAUNCHES": 2, "PARTIAL_LAUNCHES": 0 if causal else 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("l", [1, 20, 33, 1024])
 @pytest.mark.parametrize("d", [264, 320, 384, 512])
 def test_dkv_above_256_in_one_pass_matches_plain(monkeypatch, d, l, causal, dtype):

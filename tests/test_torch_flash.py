@@ -281,3 +281,59 @@ def test_packed_short_sets_match_reference(shape, causal):
         rows = np.maximum(want_sum, 1.0)[..., None]
         np.testing.assert_allclose(acc.numpy() / rows, want_acc / rows, **tol)
         assert (acc.numpy()[0] == 0).all() and (row_sum.numpy()[0] == 0).all()
+
+
+# the regime of the card's packed-sets forward and dK/dV at the head dims of
+# HEAD_DIMS (L up to SETS_MAX_L, a block 32 / L whole sets): B x H = 15
+# sets, so the last block is short at most L, L from 1 (32 sets a block)
+# through 10 and 15 (three, two) to 20-32 (one), batch row 0 fully masked; the
+# plain versions, which the card holds those kernels to, against the
+# reference's Pallas kernels (interpret mode), dense_attention and
+# jax.grad, float32
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [1, 10, 15, 20, 21, 22, 32])
+@pytest.mark.parametrize("d", [32, 128])
+def test_packed_short_sets_at_the_head_dims_match_reference(d, l, causal):
+    from dragonfly2_tpu.ops.flash import _flash_forward as ref_forward
+    from dragonfly2_tpu.ops.flash import flash_attention_partials as ref_partials
+
+    q, k, v, mask = _mk(3, 5, l, d, seed=l + d + causal, fully_masked=True)
+    do = np.random.default_rng(l + d).standard_normal(q.shape).astype(np.float32)
+    tol = dict(atol=TOL["float32"], rtol=TOL["float32"])
+    tq, tk, tv, tm, tdo = (torch.from_numpy(x) for x in (q, k, v, mask, do))
+    counts = (flash.LAUNCHES, flash.LSE_LAUNCHES, flash.PARTIAL_LAUNCHES, flash.DKV_LAUNCHES)
+
+    out = flash.flash_attention(tq, tk, tv, tm, causal=causal)
+    want, vjp = jax.vjp(lambda q, k, v: ref_flash(q, k, v, mask, causal=causal),
+                        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_dense(q, k, v, mask, causal=causal)),
+                               **tol)
+    assert (out.numpy()[0] == 0).all()  # the fully masked batch row
+
+    o, lse = flash.flash_attention_lse(tq, tk, tv, tm, causal)
+    want_o, want_lse = ref_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   jnp.asarray(mask), causal, save_lse=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **tol)
+
+    # dK/dV from the forward's o and lse, as the kernel gets them
+    _, dk, dv = flash.flash_attention_bwd_plain(tq, tk, tv, tm, o, lse, tdo, causal)
+    _, want_dk, want_dv = vjp(jnp.asarray(do))
+    for name, g, w in (("dk", dk, want_dk), ("dv", dv, want_dv)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=name)
+        assert (g.numpy()[0] == 0).all(), name
+
+    if not causal:  # the partials have no causal mode, as in the reference
+        acc, row_max, row_sum = flash.flash_attention_partials(tq, tk, tv, tm)
+        want_acc, want_max, want_sum = (np.asarray(x) for x in ref_partials(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask)))
+        np.testing.assert_allclose(row_max.numpy(), want_max, **tol)
+        np.testing.assert_allclose(row_sum.numpy(), want_sum, **tol)
+        rows = np.maximum(want_sum, 1.0)[..., None]
+        np.testing.assert_allclose(acc.numpy() / rows, want_acc / rows, **tol)
+        assert (acc.numpy()[0] == 0).all() and (row_sum.numpy()[0] == 0).all()
+    # CPU tensors take the plain versions and launch nothing
+    assert (flash.LAUNCHES, flash.LSE_LAUNCHES, flash.PARTIAL_LAUNCHES,
+            flash.DKV_LAUNCHES) == counts

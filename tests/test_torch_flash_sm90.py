@@ -180,11 +180,15 @@ WIDE_COUNTERS = {
 def test_the_wide_thresholds_follow_the_cards_readings():
     """The wide thresholds as the card's readings set them (PERF.md): the
     ranker's sets (L = 20) keep the wide mma.sync forward, dK/dV and dQ; at
-    L = 32 dK/dV takes its Hopper instance and the forward does not; from
-    L = 64 all three do; float32 and D above 256 never."""
+    L = 32 all three keep them (the one-pass dK/dV leads the Hopper one
+    there at D = 192 and 256); at L = 48, where the Hopper dK/dV starts to
+    lead, and from L = 64 all three take their Hopper instances; float32
+    and D above 256 never."""
     bf16 = torch.bfloat16
     assert not flash._sm90_path(20, 192, bf16) and not flash._sm90_path(20, 192, bf16, "dkv")
-    assert not flash._sm90_path(32, 256, bf16) and flash._sm90_path(32, 256, bf16, "dkv")
+    assert not flash._sm90_path(32, 256, bf16) and not flash._sm90_path(32, 256, bf16, "dkv")
+    assert not flash._sm90_path(32, 192, bf16, "dkv")
+    assert flash._sm90_path(48, 192, bf16, "dkv") and flash._sm90_path(48, 256, bf16, "dkv")
     assert flash._sm90_path(64, 192, bf16) and flash._sm90_path(1024, 256, bf16, "dkv")
     assert not flash._sm90_path(4096, 192, torch.float32, "dkv")
     assert not flash._sm90_path(4096, 320, bf16) and not flash._sm90_path(4096, 320, bf16, "dkv")
@@ -193,6 +197,18 @@ def test_the_wide_thresholds_follow_the_cards_readings():
     assert not flash._sm90_path(4096, 192, torch.float32, "dq")
     assert not flash._sm90_path(4096, 320, bf16, "dq")
     assert flash.WIDE_DQ_SM90_MIN_L < 4096
+
+
+def test_the_sets_limit_mirrors_both_sources():
+    """ops/flash.py's SETS_MAX_L, which names the packed-sets kernels for
+    the profiler, is the limit both C sides route by: the forward's
+    (csrc/flash_fwd.cu) and dK/dV's (csrc/flash_bwd.cu), read from their
+    text."""
+    for source in ("flash_fwd.cu", "flash_bwd.cu"):
+        text = (build.CSRC_DIR / source).read_text()
+        assert re.findall(r"\bconstexpr int SETS_MAX_L = (\d+);", text) == [
+            str(flash.SETS_MAX_L)], source
+        assert "L <= SETS_MAX_L" in text, source
 
 
 WIDE_SM90_COUNTERS = {
