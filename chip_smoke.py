@@ -22,8 +22,8 @@ result line:
    [256, 4, 20, 32] and at the long shapes. At the ranker's D = 32 rows
    (served, trained, and phase 6's eval shard) the Hopper instance is
    forced too, held to the plain version at the row's shape and timed
-   beside the picked one. Then slice 13's packed-sets kernels (the
-   forward in three modes and dK/dV at L up to 32) at their edges: D = 32
+   beside the picked one. Then the packed-sets kernels (slice 13's forward
+   in three modes and dK/dV, slice 15's dQ, at L up to 32) at their edges: D = 32
    and 128, L = 1, 10, 15, 20, 21, 22 and 32 on 3 x 5 sets with batch row
    0 fully masked, causal or not, bf16 and float32, every launch counted,
    and the kernel names the profiler finds behind each entry.
@@ -467,13 +467,13 @@ _SM90_SYMBOLS = {"fwd": "flash_fwd_sm90_kernel", "dkv": "flash_bwd_dkv_sm90_kern
 
 def _mma_sync_symbol(kernel: str, length: int) -> str:
     """The profiler name of the mma.sync instance's kernel of ``kernel``
-    ("fwd", "dkv", "dq") at L: the forward's and dK/dV's C sides launch
-    their packed-sets kernels at L up to SETS_MAX_L."""
+    ("fwd", "dkv", "dq") at L: the forward's, dK/dV's and dQ's C sides
+    launch their packed-sets kernels at L up to SETS_MAX_L."""
     from dragonfly2_tpu_torch.ops import flash
 
-    sets = "sets_" if length <= flash.SETS_MAX_L and kernel != "dq" else ""
+    sets = "sets_" if length <= flash.SETS_MAX_L else ""
     return {"fwd": f"flash_fwd_{sets}kernel", "dkv": f"flash_bwd_dkv_{sets}kernel",
-            "dq": "flash_bwd_dq_kernel"}[kernel]
+            "dq": f"flash_bwd_dq_{sets}kernel"}[kernel]
 
 
 def _need_time(label: str, shape, dtype, ms) -> None:
@@ -831,7 +831,7 @@ def phase_training_kernels():
     return results
 
 
-# slice 13's packed-sets kernels at their edges: B x H = 3 x 5 sets, where
+# the packed-sets kernels (slices 13 and 15) at their edges: B x H = 3 x 5 sets, where
 # a block holds 32 / L whole sets, so the last block is short at most L; L
 # from 1 (32 sets a block) through 10 and 15 (three, two) to 20-32 (one);
 # batch row 0 fully masked
@@ -841,13 +841,14 @@ SETS_EDGE_LENGTHS = (1, 10, 15, 20, 21, 22, 32)
 
 
 def phase_sets_kernels():
-    """The packed-sets kernels of the forward (three modes) and of dK/dV
-    against their plain versions at the edge shapes, causal or not, bf16
-    and float32: every output within KERNEL, lse and the partials' row
+    """The packed-sets kernels of the forward (three modes), of dK/dV and
+    of dQ against their plain versions at the edge shapes, causal or not,
+    bf16 and float32: every output within KERNEL, lse and the partials' row
     statistics within STATS, gradients within GRAD (float32 is rounded to
-    bf16 in shared memory, so both sides take the rounded values); one
-    launch of each counted a call; then, at L = 22, the kernel names the
-    profiler finds behind each entry."""
+    bf16 in shared memory, so both sides take the rounded values), batch
+    row 0 (no valid key) exactly 0; one launch of each counted a call;
+    then, at L = 22, the kernel names the profiler finds behind each
+    entry."""
     import torch
 
     from dragonfly2_tpu_torch.ops import flash
@@ -869,11 +870,13 @@ def phase_sets_kernels():
                     o, lse = flash.flash_attention_lse(q, k, v, mask, causal)
                     delta = (do.float() * o.float()).sum(-1)
                     dk, dv = flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do, causal)
+                    dq = flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, causal)
                     partials = None if causal else flash.flash_attention_partials(q, k, v, mask)
                     torch.cuda.synchronize()
                     expected = dict(before, flash_fwd=before["flash_fwd"] + 1,
                                     flash_fwd_lse=before["flash_fwd_lse"] + 1,
                                     flash_bwd_dkv=before["flash_bwd_dkv"] + 1,
+                                    flash_bwd_dq=before["flash_bwd_dq"] + 1,
                                     flash_fwd_partial=before["flash_fwd_partial"] + (not causal))
                     if _counts() != expected:
                         _fail(f"sets kernels {label}: launches {_counts()}, expected {expected}")
@@ -888,13 +891,15 @@ def phase_sets_kernels():
                           and torch.allclose(lse[seen], ref_lse[seen], atol=STATS_ATOL,
                                              rtol=STATS_RTOL)
                           and bool((out[0] == 0).all()))
-                    _, ref_dk, ref_dv = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse, do,
-                                                                        causal)
+                    ref_dq, ref_dk, ref_dv = flash.flash_attention_bwd_plain(q, k, v, mask, o, lse,
+                                                                             do, causal)
                     errs["dkv"] = max(float((dk.float() - ref_dk.float()).abs().max().item()),
                                       float((dv.float() - ref_dv.float()).abs().max().item()))
+                    errs["dq"] = float((dq.float() - ref_dq.float()).abs().max().item())
                     ok = ok and all(
                         torch.allclose(got.float(), want.float(), atol=GRAD_ATOL, rtol=GRAD_RTOL)
-                        and bool((got[0] == 0).all()) for got, want in ((dk, ref_dk), (dv, ref_dv)))
+                        and bool((got[0] == 0).all())
+                        for got, want in ((dk, ref_dk), (dv, ref_dv), (dq, ref_dq)))
                     if partials is not None:
                         perr, pok = _partial_errors(
                             partials, flash.flash_attention_partials_plain(q, k, v, mask),
@@ -911,7 +916,7 @@ def phase_sets_kernels():
             print(f"sets kernels D = {d} {str(dtype)[6:]} on {b} x {h} sets, L = "
                   f"{', '.join(map(str, SETS_EDGE_LENGTHS))}, causal and not: max_abs_err "
                   + ", ".join(f"{kind} {worst[kind, d, dtype]:.3g}"
-                              for kind in ("fwd", "lse", "partial", "dkv"))
+                              for kind in ("fwd", "lse", "partial", "dkv", "dq"))
                   + f" (outputs atol {KERNEL_ATOL} rtol {KERNEL_RTOL}, lse and row statistics "
                   f"{STATS_ATOL}, gradients {GRAD_ATOL} rtol {GRAD_RTOL}); every launch counted")
         # the kernels behind each entry at the one-tile limit's far side
@@ -923,10 +928,11 @@ def phase_sets_kernels():
                 ("fwd", lambda: flash.flash_attention(q, k, v, mask)),
                 ("lse", lambda: flash.flash_attention_lse(q, k, v, mask)),
                 ("partial", lambda: flash.flash_attention_partials(q, k, v, mask)),
-                ("dkv", lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, o))):
+                ("dkv", lambda: flash.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, o)),
+                ("dq", lambda: flash.flash_attention_bwd_dq(q, k, v, mask, lse, delta, o))):
             _, _, names = _kernel_ms(call, r"flash_\w+_kernel", calls=5)
             reached[name] = names
-            symbol = _mma_sync_symbol("dkv" if name == "dkv" else "fwd", 22)
+            symbol = _mma_sync_symbol(name if name in ("dkv", "dq") else "fwd", 22)
             if names != [symbol]:
                 _fail(f"sets kernels D = {d} L = 22: {name} reached {names}, not {symbol}")
         print(f"sets kernels D = {d} at [{b}, {h}, 22, {d}] bf16, the kernels the profiler found: "
@@ -1349,7 +1355,7 @@ def _step_breakdown(trainer, idx, steps: int = 20):
         label: sum(ms for key, ms in kernels if re.search(symbol, key))
         for label, symbol in (("forward with lse", r"flash_fwd_(?:sets_)?kernel"),
                               ("dK/dV", r"flash_bwd_dkv_(?:sets_)?kernel"),
-                              ("dQ", "flash_bwd_dq_kernel"))
+                              ("dQ", r"flash_bwd_dq_(?:sets_)?kernel"))
     }
     top = "; ".join(f"{key[:60]} {ms:.4f}" for key, ms in kernels[:6])
     print(f"training step: p50 {p50:.3f} ms over {len(times) - 3} synchronised steps; "
@@ -2500,7 +2506,7 @@ def phase_wide_kernels(ds):
 
 # the D = 32 rows of the ranker's paths at their shapes (random 85% key
 # masks in place of the ranker's): the training step's forward with lse,
-# dK/dV and dQ (slice 13 redesigned the first two, dQ is the control), the
+# dK/dV and dQ (slice 13 redesigned the first two, slice 15 dQ), the
 # served forward and the ring's eval-shard partials
 ROWS = (
     ("trained forward with lse", "lse", (256, 4, 20, 32)),
@@ -2509,9 +2515,10 @@ ROWS = (
     ("served forward", "fwd", (1024, 4, 15, 32)),
     ("eval-shard partials", "partial", (2000, 4, 10, 32)),
 )
-# profiler names of ROWS' kernels in this tree and the one before it (the
-# packed-sets kernels here, flash_fwd_kernel and flash_bwd_dkv_kernel there)
-_ROW_SYMBOLS = {"dkv": r"flash_bwd_dkv_(?:sets_)?kernel", "dq": "flash_bwd_dq_kernel"}
+# profiler names of ROWS' kernels in this tree and the ones before it (the
+# packed-sets kernels here; flash_fwd_kernel and flash_bwd_dkv_kernel before
+# slice 13, flash_bwd_dq_kernel before slice 15)
+_ROW_SYMBOLS = {"dkv": r"flash_bwd_dkv_(?:sets_)?kernel", "dq": r"flash_bwd_dq_(?:sets_)?kernel"}
 
 
 def phase_rows(tree: str) -> None:

@@ -7,11 +7,14 @@
 // ops/flash.py launches these instances for float32 and for L up to
 // SM90_MIN_L (the ranker's sets); bf16 above it takes the TMA + wgmma
 // redesigns, csrc/flash_bwd_dkv_sm90.cu and csrc/flash_bwd_dq_sm90.cu.
-// dK/dV's C side sends L up to SETS_MAX_L = 32 (the ranker's trained
-// sets) to flash_bwd_dkv_sets_kernel (end of file), whose blocks hold the
-// keys of whole consecutive sets and sweep the same sets' queries in one
-// memory round trip; flash_bwd_dkv_kernel below takes longer L, and dQ
-// keeps flash_bwd_dq_kernel at every L up to SM90_MIN_L.
+// Both C sides send L up to SETS_MAX_L = 32 (the ranker's trained sets)
+// to the packed-sets kernels (end of file), whose blocks hold the rows of
+// whole consecutive sets of the flattened [B H L, D] matrices in one memory
+// round trip: flash_bwd_dkv_sets_kernel (a block's keys sweep the same
+// sets' queries) and flash_bwd_dq_sets_kernel (its queries sweep the same
+// sets' keys), which replaces flash_bwd_dq_kernel there. The tile loops
+// below, flash_bwd_dkv_kernel and flash_bwd_dq_kernel, take L in
+// (SETS_MAX_L, SM90_MIN_L] in bf16 and every longer L in float32.
 // Given q, k, v, dO [B, H, L, D], the forward's lse and delta = rowsum(dO*o)
 // [B, H, L] float32, and a [B, L] key-validity mask (or none), per tile:
 //   P  = exp2(S log2(e)/sqrt(D) - lse log2(e)) on valid pairs, 0 elsewhere
@@ -23,13 +26,14 @@
 // What bounds it on an H100: at the trained shape, [256, 4, 20, 32] bf16,
 // dK/dV reads q, dO, k, v, lse and delta and writes dK, dV: 8.0 MB, ~2.4 us
 // at 3.35 TB/s, against at most 0.1 GFLOP (8 D operations per valid pair
-// per head: S, dP, dV, dK), ~0.1 us at the 989 TFLOP/s bf16 peak. dQ moves
-// 6.7 MB (~2.0 us) for 6 D operations per pair. Both are bound by bytes
-// (and, at 20 keys a set, by launch and latency); at long L the products
-// dominate.
+// per head: S, dP, dV, dK), ~0.1 us at the 989 TFLOP/s bf16 peak. dQ reads
+// q, dO, k, v, lse and delta and writes dQ: 6.7 MB, ~2.0 us at 3.35 TB/s,
+// against ~0.08 GFLOP (6 D operations per pair: S, dP, dQ). Both are bound
+// by bytes (and, at 20 keys a set, by launch and latency); at long L the
+// products dominate.
 //
-// Design (not the TPU's grid; its _pick_blocks_bwd tiling does not carry
-// over):
+// Design of the tile loops (not the TPU's grid; its _pick_blocks_bwd
+// tiling does not carry over):
 // - dK/dV: one block per (16*WARPS keys, head, batch). Each warp owns 16
 //   keys and keeps their dK and dV in float32 registers through a loop over
 //   query tiles, the loop that replaces the TPU's innermost "arbitrary" grid
@@ -480,20 +484,21 @@ cudaError_t by_warps(int warps, const Args& a, cudaStream_t stream) {
   }
 }
 
-// dK/dV's packed-sets kernel (below), taken at L up to SETS_MAX_L
+// the packed-sets kernels of dK/dV and of dQ (below), taken at L up to
+// SETS_MAX_L
 constexpr int SETS_MAX_L = 32;
 
-template <typename T, int D>
-cudaError_t launch_dkv_sets(const Args& a, cudaStream_t stream);
+template <typename T, int D, bool DKV>
+cudaError_t launch_sets(const Args& a, cudaStream_t stream);
 
 template <typename T, bool DKV>
 cudaError_t by_dim(int D, int warps, const Args& a, cudaStream_t stream) {
-  if (DKV && a.L <= SETS_MAX_L) {
+  if (a.L <= SETS_MAX_L) {
     switch (D) {
-      case 16: return launch_dkv_sets<T, 16>(a, stream);
-      case 32: return launch_dkv_sets<T, 32>(a, stream);
-      case 64: return launch_dkv_sets<T, 64>(a, stream);
-      case 128: return launch_dkv_sets<T, 128>(a, stream);
+      case 16: return launch_sets<T, 16, DKV>(a, stream);
+      case 32: return launch_sets<T, 32, DKV>(a, stream);
+      case 64: return launch_sets<T, 64, DKV>(a, stream);
+      case 128: return launch_sets<T, 128, DKV>(a, stream);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1527,7 +1532,7 @@ int wide_by_dtype(const Args& a, int D, int dtype, void* stream) {
 // and writes dK and dV in 4-byte fragment stores: its 1,024 blocks of 64
 // threads sit at 36% of the bytes' bound. This kernel packs the sets as the
 // forward's flash_fwd_sets_kernel does: the keys of consecutive (b, h) sets
-// form one [B H L, D] matrix, and a block owns the keys of DKV_SETS_ROWS /
+// form one [B H L, D] matrix, and a block owns the keys of BWD_SETS_ROWS /
 // L whole consecutive sets (one at the ranker's L = 20) and sweeps the
 // queries of the same sets, so one 32-query tile holds every query its keys
 // see and no query is staged by two blocks. On the card (PERF.md), blocks
@@ -1557,14 +1562,17 @@ int wide_by_dtype(const Args& a, int D, int dtype, void* stream) {
 // flight at once and each byte is staged once. flash_bwd_dkv_kernel keeps
 // L in (SETS_MAX_L, SM90_MIN_L] and float32 above it.
 
-constexpr int DKV_SETS_ROWS = 32;  // keys, and swept queries, a block holds at most
+// rows a block of either packed-sets kernel holds at most: keys and swept
+// queries (dK/dV), or queries and swept keys (dQ)
+constexpr int BWD_SETS_ROWS = 32;
 
 template <int D>
-struct DkvSets {
-  static constexpr int ROWS = DKV_SETS_ROWS;
-  static constexpr int THREADS = ROWS / 16 * 32;  // a warp per 16 keys
+struct BwdSets {
+  static constexpr int ROWS = BWD_SETS_ROWS;
+  static constexpr int THREADS = ROWS / 16 * 32;  // a warp per 16 rows
   static constexpr int LDS = D + 8;               // shared row stride (bf16)
-  // K, V, Q and dO of the block's rows, their lse, delta and query sets
+  // K, V, Q and dO of the block's rows, their lse, delta and the sets of
+  // one side (dK/dV: the queries', dQ: the keys')
   static constexpr size_t SMEM =
       static_cast<size_t>(4 * ROWS) * LDS * sizeof(__nv_bfloat16) +
       static_cast<size_t>(ROWS) * (2 * sizeof(float) + sizeof(int));
@@ -1579,14 +1587,14 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in)
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(DkvSets<D>::THREADS)
+__global__ void __launch_bounds__(BwdSets<D>::THREADS)
 flash_bwd_dkv_sets_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const uint8_t* __restrict__ mask, T* __restrict__ dk,
                           T* __restrict__ dv, int H, int L, int N, int block_rows, int causal,
                           float scale_log2, float scale) {
-  using C = DkvSets<D>;
+  using C = BwdSets<D>;
   constexpr int LDS = C::LDS;
   constexpr int ROWS = C::ROWS;
   constexpr int KK = D / 16;               // depth steps
@@ -1769,19 +1777,242 @@ flash_bwd_dkv_sets_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- dQ's packed-sets kernel: D in 16, 32, 64, 128, L up to SETS_MAX_L
+//
+// flash_bwd_dq_kernel gives a block 16 WARPS query rows of one (b, h) set:
+// at the ranker's trained shape, [256, 4, 20, 32], a 2-warp block holds 20
+// live rows of 32 and sweeps a 32-key tile, stages Q and dO synchronously,
+// then after a barrier K, V and the keys' validity (two memory round trips
+// in series), and writes dQ in 4-byte fragment stores: its 1,024 blocks of
+// 64 threads sit at 36% of the bytes' bound. This kernel packs the sets as
+// flash_bwd_dkv_sets_kernel does, with queries and keys swapped: the
+// queries of consecutive (b, h) sets form one [B H L, D] matrix, and a
+// block owns the queries of BWD_SETS_ROWS / L whole consecutive sets (one
+// at the ranker's L = 20) and sweeps the keys of the same sets, so one
+// 32-key tile holds every key its queries see, with no second tile and no
+// rescaling, and no key is staged by two blocks. On the card (PERF.md),
+// blocks of 64 rows of whole sets (4 warps, three sets at L = 20) were
+// slower than these 32, as they were for dK/dV. A pair (query, key)
+// counts only where the key's set is the query's, mask[set / H, key % L]
+// holds and, under causal, key <= query (the same set: key % L <= query %
+// L); a query with no valid key carries the lse filler and gets dQ = 0, P
+// being zeroed explicitly, never the exponential of a masked score. Per
+// block:
+// - Q, dO, K and V of its rows as bf16 by cp.async (float32 rounded to bf16
+//   on the way in, synchronously), lse and delta by 4-byte cp.async, and
+//   each key's set (-1 for a masked key or one past the block), with one
+//   commit and one wait: one memory round trip.
+// - Each warp owns 16 queries and computes S = Q K^T and dP = dO V^T on
+//   the 8-key tiles that hold keys of its queries' sets; P and dS stay in
+//   registers as the A fragments of dQ += dS K, K the B operand by
+//   ldmatrix.trans. A 16-key step outside the warp's sets is skipped.
+// - bf16 dQ scale goes through the warp's own Q rows (only this warp read
+//   them, so no block barrier) to 16-byte row stores; float32 keeps the
+//   fragments' 8-byte stores.
+// The function is _flash_bwd_dq_kernel's: delta = rowsum(dO o) comes from
+// the caller (ops/flash.py), dS is rounded to bf16 for its product, every
+// output element is summed by one thread in key order, no atomics. Bound
+// on an H100: at [256, 4, 20, 32] bf16 it reads q, k, v, dO, lse and delta
+// and writes dQ, 6.7 MB (2.0 us at 3.35 TB/s), against ~0.08 GFLOP: bound
+// by bytes, so every load of a block is in flight at once and each byte is
+// staged once. flash_bwd_dq_kernel keeps L in (SETS_MAX_L, SM90_MIN_L] and
+// float32 above it.
+
 template <typename T, int D>
-cudaError_t launch_dkv_sets(const Args& a, cudaStream_t stream) {
-  using C = DkvSets<D>;
+__global__ void __launch_bounds__(BwdSets<D>::THREADS)
+flash_bwd_dq_sets_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const uint8_t* __restrict__ mask, T* __restrict__ dq, int H, int L,
+                         int N, int block_rows, int causal, float scale_log2, float scale) {
+  using C = BwdSets<D>;
+  constexpr int LDS = C::LDS;
+  constexpr int ROWS = C::ROWS;
+  constexpr int KK = D / 16;               // depth steps
+  constexpr int NT = ROWS / 8;             // 8-key tiles of S
+  constexpr int OCH = D * sizeof(T) / 16;  // 16-byte chunks of an output row
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sdO = sQ + ROWS * LDS;
+  __nv_bfloat16* sK = sdO + ROWS * LDS;
+  __nv_bfloat16* sV = sK + ROWS * LDS;
+  float* sLse = reinterpret_cast<float*>(sV + ROWS * LDS);
+  float* sDelta = sLse + ROWS;
+  int* sKeySet = reinterpret_cast<int*>(sDelta + ROWS);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lrow = lane & 7;  // ldmatrix: the row this lane addresses in tile lane / 8
+  const int ltile = lane >> 3;
+  // the block's queries, and keys: whole sets r0 .. r_end - 1
+  const int r0 = blockIdx.x * block_rows;
+  const int r_end = min(N, r0 + block_rows);
+  // the warp's queries, and the keys of their sets (none past its last
+  // query under causal)
+  const int w0 = r0 + warp * 16;
+  const int w_last = min(w0 + 15, r_end - 1);
+  const int wk_begin = w0 < r_end ? (w0 / L) * L : 0;
+  const int wk_end = w0 >= r_end ? 0 : causal ? w_last + 1 : min(r_end, (w_last / L + 1) * L);
+  const int row_lo = w0 + g;
+  const int row_hi = row_lo + 8;
+  const int set_lo = row_lo < r_end ? row_lo / L : -2;  // a query past the block matches no key
+  const int set_hi = row_hi < r_end ? row_hi / L : -2;
+
+  stage_rows_async<T, C::THREADS, LDS>(q, r0, ROWS, r_end, D, sQ, tid);
+  stage_rows_async<T, C::THREADS, LDS>(dout, r0, ROWS, r_end, D, sdO, tid);
+  stage_rows_async<T, C::THREADS, LDS>(k, r0, ROWS, r_end, D, sK, tid);
+  stage_rows_async<T, C::THREADS, LDS>(v, r0, ROWS, r_end, D, sV, tid);
+  for (int i = tid; i < ROWS; i += C::THREADS) {
+    const int row = r0 + i;
+    const bool in = row < r_end;
+    cp_async4(sLse + i, lse + (in ? row : 0), in);
+    cp_async4(sDelta + i, delta + (in ? row : 0), in);
+    const int set = row / L;
+    sKeySet[i] = in && (mask == nullptr || mask[static_cast<size_t>(set / H) * L + row - set * L] != 0)
+                     ? set
+                     : -1;
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();  // Q, dO, K, V, lse, delta and the key sets arrived
+
+  // S = Q K^T and dP = dO V^T over the 8-key tiles that hold a key of the
+  // warp's sets; the others stay 0
+  bool meet[NT];
+  float s[NT][4];
+  float dp[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int first_key = r0 + nt * 8;
+    meet[nt] = first_key < wk_end && first_key + 8 > wk_begin;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+  }
+  // A: the warp's Q and dO rows 8 (tile & 1).., columns 8 (tile >> 1).. of
+  // a depth step
+  const int a_at = (warp * 16 + lrow + (ltile & 1) * 8) * LDS + (ltile >> 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    uint32_t qa[4], da[4];
+    ldsm_x4(qa, sQ + a_at + kk * 16);
+    ldsm_x4(da, sdO + a_at + kk * 16);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (!meet[nt]) continue;
+      // B: K and V rows nt * 8.., columns 8 (tile & 1).. of the step
+      const int b_at = (nt * 8 + lrow) * LDS + kk * 16 + (ltile & 1) * 8;
+      uint32_t kb[2], vb[2];
+      ldsm_x2(kb, sK + b_at);
+      ldsm_x2(vb, sV + b_at);
+      mma_bf16(s[nt], qa, kb[0], kb[1]);
+      mma_bf16(dp[nt], da, vb[0], vb[1]);
+    }
+  }
+
+  // dS in place of S; rows are queries, columns keys
+  const int lo = warp * 16 + g;  // the rows lo and lo + 8 of the block
+  const float lse2[2] = {sLse[lo] * LOG2E, sLse[lo + 8] * LOG2E};
+  const float dlt[2] = {sDelta[lo], sDelta[lo + 8]};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (!meet[nt]) continue;
+    const int2 kset = *reinterpret_cast<const int2*>(sKeySet + nt * 8 + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = r0 + nt * 8 + 2 * t + (e & 1);
+      const int r = e >> 1;
+      const bool ok = ((e & 1) ? kset.y : kset.x) == (r ? set_hi : set_lo) &&
+                      (!causal || key <= (r ? row_hi : row_lo));
+      const float p = ok ? exp2f(s[nt][e] * scale_log2 - lse2[r]) : 0.f;
+      s[nt][e] = p * (dp[nt][e] - dlt[r]);
+    }
+  }
+
+  // dQ = dS K over the 16-key steps that meet the warp's sets, the keys as
+  // the k dimension
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+#pragma unroll
+  for (int ks = 0; ks < ROWS / 16; ++ks) {
+    if (!meet[2 * ks] && !meet[2 * ks + 1]) continue;
+    uint32_t dsa[4];
+    c_to_a(s[2 * ks], s[2 * ks + 1], dsa);
+    // B of two 8-column tiles at once: K rows ks * 16 + 8 (tile & 1)..,
+    // columns 8 (tile >> 1).., transposed
+    const int b_at = (ks * 16 + lrow + (ltile & 1) * 8) * LDS + (ltile >> 1) * 8;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; dn += 2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, sK + b_at + dn * 8);
+      mma_bf16(acc[dn], dsa, b[0], b[1]);
+      mma_bf16(acc[dn + 1], dsa, b[2], b[3]);
+    }
+  }
+
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    // the warp's own Q rows (only this warp read them) take its dQ, which
+    // leaves in 16-byte row stores
+    __nv_bfloat16* dq_rows = sQ + warp * 16 * LDS;
+    __syncwarp();
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int col = dn * 8 + 2 * t;
+      store2(dq_rows + g * LDS + col, acc[dn][0] * scale, acc[dn][1] * scale);
+      store2(dq_rows + (g + 8) * LDS + col, acc[dn][2] * scale, acc[dn][3] * scale);
+    }
+    __syncwarp();
+    for (int i = lane; i < 16 * OCH; i += 32) {
+      const int r = i / OCH;
+      const int c = i - r * OCH;
+      if (w0 + r < r_end) {
+        reinterpret_cast<uint4*>(dq + static_cast<size_t>(w0 + r) * D)[c] =
+            reinterpret_cast<const uint4*>(dq_rows + r * LDS)[c];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int col = dn * 8 + 2 * t;
+      if (row_lo < r_end) {
+        store2(dq + static_cast<size_t>(row_lo) * D + col, acc[dn][0] * scale, acc[dn][1] * scale);
+      }
+      if (row_hi < r_end) {
+        store2(dq + static_cast<size_t>(row_hi) * D + col, acc[dn][2] * scale, acc[dn][3] * scale);
+      }
+    }
+  }
+}
+
+// the packed-sets kernel of dK/dV or of dQ: a block of 32 / L whole sets
+template <typename T, int D, bool DKV>
+cudaError_t launch_sets(const Args& a, cudaStream_t stream) {
+  using C = BwdSets<D>;
   const long long rows = static_cast<long long>(a.B) * a.H * a.L;
   // flattened key and query indices, and a block past the last, stay in int
   if (rows > 0x7fffffffLL - 2 * C::ROWS) return cudaErrorInvalidValue;
   const int n = static_cast<int>(rows);
   const int block_rows = C::ROWS / a.L * a.L;  // whole sets
-  flash_bwd_dkv_sets_kernel<T, D>
-      <<<static_cast<unsigned>((n + block_rows - 1) / block_rows), C::THREADS, C::SMEM, stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-          static_cast<const T*>(a.dout), a.lse, a.delta, a.mask, static_cast<T*>(a.d0),
-          static_cast<T*>(a.d1), a.H, a.L, n, block_rows, a.causal, LOG2E * a.scale, a.scale);
+  const unsigned blocks = static_cast<unsigned>((n + block_rows - 1) / block_rows);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  if constexpr (DKV) {
+    flash_bwd_dkv_sets_kernel<T, D><<<blocks, C::THREADS, C::SMEM, stream>>>(
+        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.d0), static_cast<T*>(a.d1), a.H,
+        a.L, n, block_rows, a.causal, LOG2E * a.scale, a.scale);
+  } else {
+    flash_bwd_dq_sets_kernel<T, D><<<blocks, C::THREADS, C::SMEM, stream>>>(
+        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.d0), a.H, a.L, n, block_rows,
+        a.causal, LOG2E * a.scale, a.scale);
+  }
   return cudaGetLastError();
 }
 

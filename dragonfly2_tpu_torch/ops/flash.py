@@ -132,11 +132,12 @@ _launches_lock = threading.Lock()
 # ones win up to L = 64 (one 128-row Hopper block is mostly padding there)
 # and lose from L = 96.
 SM90_MIN_L = 64
-# At L up to this the mma.sync forward (three modes) and dK/dV C sides
+# At L up to this the mma.sync forward (three modes), dK/dV and dQ C sides
 # launch their packed-sets kernels, whose blocks take whole consecutive
-# sets of the flattened [B H L, D] rows (flash_fwd_sets_kernel and
-# flash_bwd_dkv_sets_kernel, csrc/flash_fwd.cu and csrc/flash_bwd.cu, where
-# SETS_MAX_L decides); the mirror names them for the profiler.
+# sets of the flattened [B H L, D] rows (flash_fwd_sets_kernel,
+# flash_bwd_dkv_sets_kernel and flash_bwd_dq_sets_kernel, csrc/flash_fwd.cu
+# and csrc/flash_bwd.cu, where SETS_MAX_L decides); the mirror names them
+# for the profiler.
 SETS_MAX_L = 32
 # The wide Hopper instances take bf16 at a wide head dim up to 256: the
 # forward (all three modes) at L above WIDE_SM90_MIN_L, dK/dV at L above

@@ -840,15 +840,15 @@ def test_packed_short_sets_match_plain(monkeypatch, l, d, causal, dtype):
 @pytest.mark.parametrize("d", [32, 128])
 @pytest.mark.parametrize("l", [1, 10, 15, 20, 21, 22, 32])
 def test_packed_sets_at_the_head_dims_match_plain(monkeypatch, l, d, causal, dtype):
-    """The mma.sync forward's and dK/dV's packed-sets kernels (D in
-    HEAD_DIMS at L up to SETS_MAX_L: a block holds the rows, or keys, of
-    32 / L whole sets) on B x H = 3 x 5 sets, so the last block is short
-    at most L: the forward in its three modes (the
-    partials without causal) and dK/dV against the plain versions, with a
-    mask whose batch row 0 has no valid key (exactly 0 out, the partials'
-    row_max at the filler, dK = dV = 0) and without. dK/dV takes the plain
-    forward's lse and delta. One launch of each counted; no plain version
-    on the card."""
+    """The mma.sync forward's, dK/dV's and dQ's packed-sets kernels (D in
+    HEAD_DIMS at L up to SETS_MAX_L: a block holds the rows, keys or
+    queries of 32 / L whole sets) on B x H = 3 x 5 sets, so the last block
+    is short at most L: the forward in its three modes (the
+    partials without causal), dK/dV and dQ against the plain versions, with
+    a mask whose batch row 0 has no valid key (exactly 0 out, the partials'
+    row_max at the filler, dK = dV = dQ = 0) and without. dK/dV and dQ take
+    the plain forward's lse and delta. One launch of each counted; no plain
+    version on the card."""
     _need_card()
     q, k, v, do, mask = _training_inputs((3, 5, l, d), dtype, seed=l + d + causal)
     # the kernels round float32 operands to bf16 in shared memory: the plain
@@ -860,14 +860,15 @@ def test_packed_sets_at_the_head_dims_match_plain(monkeypatch, l, d, causal, dty
     for masked, kv_mask in ((True, mask), (False, None)):
         o, lse = flash.flash_attention_lse_plain(rq, rk, rv, kv_mask, causal)
         delta = (rdo.float() * o.float()).sum(-1)
-        _, dk, dv = flash.flash_attention_bwd_plain(rq, rk, rv, kv_mask, o, lse, rdo, causal)
+        dq, dk, dv = flash.flash_attention_bwd_plain(rq, rk, rv, kv_mask, o, lse, rdo, causal)
         partials = None if causal else flash.flash_attention_partials_plain(rq, rk, rv, kv_mask)
-        refs[masked] = (o, lse, delta, dk, dv, partials)
+        refs[masked] = (o, lse, delta, dq, dk, dv, partials)
     _refuse_plain(monkeypatch)
     launched = _record_launches(monkeypatch)
     before = {name: getattr(flash, name) for name in ("LAUNCHES", "LSE_LAUNCHES",
-                                                      "PARTIAL_LAUNCHES", "DKV_LAUNCHES")}
-    for masked, (ref_o, ref_lse, delta, ref_dk, ref_dv, ref_partials) in refs.items():
+                                                      "PARTIAL_LAUNCHES", "DKV_LAUNCHES",
+                                                      "DQ_LAUNCHES")}
+    for masked, (ref_o, ref_lse, delta, ref_dq, ref_dk, ref_dv, ref_partials) in refs.items():
         kv_mask = mask if masked else None
         out = flash.flash_attention(q, k, v, kv_mask, causal)
         assert out.dtype == dtype and out.shape == q.shape
@@ -878,12 +879,14 @@ def test_packed_sets_at_the_head_dims_match_plain(monkeypatch, l, d, causal, dty
         torch.testing.assert_close(lse[seen], ref_lse[seen], **stats)
         assert torch.isfinite(lse).all()
         dk, dv = flash.flash_attention_bwd_dkv(q, k, v, kv_mask, ref_lse, delta, do, causal)
-        for name, g, w in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        dq = flash.flash_attention_bwd_dq(q, k, v, kv_mask, ref_lse, delta, do, causal)
+        for name, g, w in (("dk", dk, ref_dk), ("dv", dv, ref_dv), ("dq", dq, ref_dq)):
             assert g.dtype == dtype and g.shape == q.shape, name
             torch.testing.assert_close(g.float(), w.float(), atol=GRAD_ATOL, rtol=GRAD_RTOL,
                                        msg=lambda m, name=name: f"{name}: {m}")
         if masked:
             assert (out[0] == 0).all() and (dk[0] == 0).all() and (dv[0] == 0).all()
+            assert (dq[0] == 0).all()
         if not causal:
             acc, row_max, row_sum = flash.flash_attention_partials(q, k, v, kv_mask)
             _check_partials((acc, row_max, row_sum), ref_partials, tol, stats)
@@ -892,11 +895,12 @@ def test_packed_sets_at_the_head_dims_match_plain(monkeypatch, l, d, causal, dty
                 torch.testing.assert_close(row_max[0], torch.full_like(row_max[0], FILLER),
                                            rtol=1e-6, atol=0)
     torch.cuda.synchronize()
-    calls = ["dfly_flash_fwd", "dfly_flash_fwd_lse", "dfly_flash_bwd_dkv"] + (
+    calls = ["dfly_flash_fwd", "dfly_flash_fwd_lse", "dfly_flash_bwd_dkv", "dfly_flash_bwd_dq"] + (
         [] if causal else ["dfly_flash_fwd_partial"])
     assert launched == calls * 2
     assert {name: getattr(flash, name) - count for name, count in before.items()} == {
-        "LAUNCHES": 2, "LSE_LAUNCHES": 2, "DKV_LAUNCHES": 2, "PARTIAL_LAUNCHES": 0 if causal else 2}
+        "LAUNCHES": 2, "LSE_LAUNCHES": 2, "DKV_LAUNCHES": 2, "DQ_LAUNCHES": 2,
+        "PARTIAL_LAUNCHES": 0 if causal else 2}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -337,3 +337,30 @@ def test_packed_short_sets_at_the_head_dims_match_reference(d, l, causal):
     # CPU tensors take the plain versions and launch nothing
     assert (flash.LAUNCHES, flash.LSE_LAUNCHES, flash.PARTIAL_LAUNCHES,
             flash.DKV_LAUNCHES) == counts
+
+
+# the regime of the card's packed-sets dQ at the head dims of HEAD_DIMS (L
+# up to SETS_MAX_L, a block the queries of 32 / L whole sets, sweeping their
+# keys), at the same edges: the port's backward (on the CPU its plain
+# version) from the forward's o and lse, as the kernels get them, against
+# jax.vjp of the reference's Pallas flash_attention (its dQ kernel in
+# interpret mode), float32
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [1, 10, 15, 20, 21, 22, 32])
+@pytest.mark.parametrize("d", [32, 128])
+def test_packed_short_sets_dq_at_the_head_dims_matches_reference(d, l, causal):
+    q, k, v, mask = _mk(3, 5, l, d, seed=l + d + causal, fully_masked=True)
+    do = np.random.default_rng(l + d + 1).standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv, tm, tdo = (torch.from_numpy(x) for x in (q, k, v, mask, do))
+    counts = (flash.DKV_LAUNCHES, flash.DQ_LAUNCHES, flash.LSE_LAUNCHES)
+
+    o, lse = flash.flash_attention_lse(tq, tk, tv, tm, causal)
+    dq, _, _ = flash.flash_attention_bwd(tq, tk, tv, tm, o, lse, tdo, causal)
+    _, vjp = jax.vjp(lambda q, k, v: ref_flash(q, k, v, mask, causal=causal),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want_dq, _, _ = vjp(jnp.asarray(do))
+    assert dq.shape == q.shape and dq.dtype == torch.float32
+    np.testing.assert_allclose(dq.numpy(), np.asarray(want_dq), atol=GRAD_TOL, rtol=GRAD_TOL)
+    assert (dq.numpy()[0] == 0).all()  # the fully masked batch row
+    # CPU tensors take the plain versions and launch nothing
+    assert (flash.DKV_LAUNCHES, flash.DQ_LAUNCHES, flash.LSE_LAUNCHES) == counts

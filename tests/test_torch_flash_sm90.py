@@ -202,13 +202,24 @@ def test_the_wide_thresholds_follow_the_cards_readings():
 def test_the_sets_limit_mirrors_both_sources():
     """ops/flash.py's SETS_MAX_L, which names the packed-sets kernels for
     the profiler, is the limit both C sides route by: the forward's
-    (csrc/flash_fwd.cu) and dK/dV's (csrc/flash_bwd.cu), read from their
-    text."""
+    (csrc/flash_fwd.cu) and dK/dV's and dQ's (csrc/flash_bwd.cu), read
+    from their text: the backward's C side takes its packed-sets branch for
+    both kernels, and that branch launches both packed-sets kernels."""
     for source in ("flash_fwd.cu", "flash_bwd.cu"):
         text = (build.CSRC_DIR / source).read_text()
         assert re.findall(r"\bconstexpr int SETS_MAX_L = (\d+);", text) == [
             str(flash.SETS_MAX_L)], source
         assert "L <= SETS_MAX_L" in text, source
+    text = (build.CSRC_DIR / "flash_bwd.cu").read_text()
+    by_dim = re.search(r"cudaError_t by_dim\(.*?\n\}\n", text, re.S).group(0)
+    branch = re.search(r"if \((.*?L <= SETS_MAX_L)\) \{(.*?)\n  \}", by_dim, re.S)
+    assert branch.group(1) == "a.L <= SETS_MAX_L"  # dK/dV (DKV) and dQ alike
+    for d in flash.HEAD_DIMS:
+        assert f"case {d}: return launch_sets<T, {d}, DKV>(a, stream);" in branch.group(2)
+    launch = re.search(r"cudaError_t launch_sets\(const Args& a, cudaStream_t stream\) \{.*?\n\}\n",
+                       text, re.S).group(0)
+    assert re.search(r"if constexpr \(DKV\) \{\s*flash_bwd_dkv_sets_kernel<T, D><<<.*?\} else \{"
+                     r"\s*flash_bwd_dq_sets_kernel<T, D><<<", launch, re.S)
 
 
 WIDE_SM90_COUNTERS = {
