@@ -103,17 +103,38 @@ result line:
    mesh; the ring over
    [2, 4, 4096, 192] on a 1 x 4 mesh; Ulysses over [2, 16, 4096, 192] on a
    1 x 4 mesh, without grad and with.
-10. the scheduler service (slice 7): SchedulerService on the card driven
-   by the port's ClusterSimulator at bench_loop.py's default replay
+10. the scheduler service (slices 7 and 16): SchedulerService on the card
+   driven by the port's ClusterSimulator at bench_loop.py's default replay
    (10,000 hosts, 512 tasks, seed 0, 64 downloads a round, Config()
-   defaults, a TraceStorage), 300 rounds and one flash-crowd round of
-   1,024 downloads: the tick's p50 and p99, each phase's median, pieces
-   per second, the launches and device busy share of 5 profiled rounds.
-   Checks: 30 rounds on the CPU and on the card give the same selections
-   (parent ids exact, scores within 1e-6) and the same pieces, completed
-   and piece_cost_ns_total; fused_tick=False agrees with True on the card
-   over 10 rounds at tests/test_fused_tick.py's size.
-11. the kernels JSON line and, last, the result line.
+   defaults, a TraceStorage, and bench_loop's ProbeStore of 2^17 pairs
+   with a probe round of 8 sources every 50 rounds), 300 rounds and one
+   flash-crowd round of 1,024 downloads: the tick's p50 and p99, each
+   phase's median, pieces per second, the probe rounds' median, the pairs
+   stored, the probed-count total, the topology rows snapshot_topology
+   writes, the launches and device busy share of 5 profiled rounds.
+   Checks: 30 rounds (a probe round every 10) on the CPU and on the card
+   give the same selections (parent ids exact, scores within 1e-6), the
+   same pieces, completed and piece_cost_ns_total, and the same probe
+   store (ring, cursor, count, probed_count, averages); fused_tick=False
+   agrees with True on the card over 10 rounds at tests/test_fused_tick.py's
+   size.
+11. the nt arm on measured RTTs (slice 16): the same deployment with
+   algorithm "nt", its store warmed from the simulator's link model
+   (warm_from_link_model), probed every 50 rounds, 300 timed rounds, as
+   phase 10 prints them. Checks: the tick ran unfused, candidates carried
+   measured RTTs, 30 paired rounds give CUDA == CPU as in phase 10.
+12. the graph models (slice 16): GraphSAGERanker (hidden 128, 2 layers,
+   bf16) over phase 5's host graph on both aggregation paths (segment
+   sums over graph_arrays with edges padded to edge_bucket; the dense
+   adjacency of dense_graph_arrays), each against its CPU twin, the dense
+   against the segment embeddings, embed_subset over gather_coo_subgraph
+   frontiers of 64 and 1 dirty hosts against the full embed's rows (every
+   other row unchanged bit for bit), score on one 256-row rank_batches
+   batch, and ProbeRTTRegressor (hidden 128, 3 layers) over
+   topology_to_pairs of phase 11's snapshot; each embed's p50 by CUDA
+   events, device ms and launches. No flash kernel launches in phases
+   10-12.
+13. the kernels JSON line and, last, the result line.
 
 Between phases 3 and 4, the host cost of the forward with lse's wrapper at
 the ranker's two trained shapes, [256, 4, 20, 32] and [256, 4, 20, 192]:
@@ -1570,7 +1591,7 @@ def phase_training():
               f"{statistics.median(latency_ms[1:]):.3f} ms (first {latency_ms[0]:.3f} ms), "
               f"flash_fwd launches {serve_counts['flash_fwd']} (= requests x layers); "
               "wire == score_set bit for bit")
-    return train_counts, serve_counts, ds, breakdown
+    return train_counts, serve_counts, ds, graph, breakdown
 
 
 def _partial_errors(got, want, atol, rtol, stats=(STATS_ATOL, STATS_RTOL)):
@@ -3218,10 +3239,10 @@ def phase_scheduler_tick(card: str):
 # bench_loop.py's default replay (10,000 hosts, 512 tasks, seed 0, 64
 # downloads a round) under Config() defaults (16,384 hosts, 65,536 peers,
 # 4,096 tasks, K = 15; the fused tick, the decision ledger and the SLO
-# engine on), with a TraceStorage in a temporary directory. bench_loop
-# runs ~960 rounds to 1,000,000 pieces; the timed run is cut to
-# SERVICE_ROUNDS to stay in the time limit. bench_loop's probe rounds are
-# not run: the port's probes wait for ROADMAP A5b
+# engine on), with a TraceStorage in a temporary directory and, since
+# slice 16, bench_loop's probe store and probe rounds (bench_loop.py:91-92,
+# 141-142). bench_loop runs ~960 rounds to 1,000,000 pieces; the timed run
+# is cut to SERVICE_ROUNDS to stay in the time limit
 SERVICE_HOSTS, SERVICE_TASKS, SERVICE_DOWNLOADS = 10_000, 512, 64
 SERVICE_ROUNDS = 300
 SERVICE_FLASH_CROWD = 1024
@@ -3229,11 +3250,18 @@ SERVICE_PARITY_ROUNDS = 30  # CUDA against the CPU at the same scale
 SERVICE_PROFILED_TICKS = 5
 SERVICE_WRAPPER_ROUNDS = 20  # rounds of each entry-wrapper mode, taken in turn
 SERVICE_SCORE_ATOL = 1e-6
+# bench_loop's ProbeStore(max_pairs=1 << 17) and run_probe_round(sources=8)
+# every 50 rounds; every 10 in the paired rounds, so that 30 hold three
+PROBE_PAIRS, PROBE_SOURCES, PROBE_EVERY, PARITY_PROBE_EVERY = 1 << 17, 8, 50, 10
 # fused_tick=False against True on the card, at tests/test_fused_tick.py's size
 ORACLE_HOSTS, ORACLE_TASKS, ORACLE_DOWNLOADS, ORACLE_ROUNDS = 40, 5, 5, 10
 
 
-def _service(device, data_dir, hosts=SERVICE_HOSTS, tasks=SERVICE_TASKS, fused=True):
+def _service(device, data_dir, hosts=SERVICE_HOSTS, tasks=SERVICE_TASKS, fused=True,
+             algorithm="default", warm=False):
+    """bench_loop's service with its probe store; ``warm`` seeds the store
+    first from the simulator's link model (cluster/probes.warm_from_link_model)."""
+    from dragonfly2_tpu_torch.cluster.probes import ProbeStore, warm_from_link_model
     from dragonfly2_tpu_torch.cluster.scheduler import SchedulerService
     from dragonfly2_tpu_torch.cluster.simulator import ClusterSimulator
     from dragonfly2_tpu_torch.config.config import Config
@@ -3241,16 +3269,24 @@ def _service(device, data_dir, hosts=SERVICE_HOSTS, tasks=SERVICE_TASKS, fused=T
 
     cfg = Config()
     cfg.scheduler.fused_tick = fused
-    svc = SchedulerService(config=cfg, storage=TraceStorage(data_dir), seed=SEED, device=device)
+    cfg.evaluator.algorithm = algorithm
+    probes = ProbeStore(max_pairs=PROBE_PAIRS, max_hosts=cfg.scheduler.max_hosts, device=device)
+    svc = SchedulerService(config=cfg, storage=TraceStorage(data_dir), probes=probes, seed=SEED,
+                           device=device)
     sim = ClusterSimulator(svc, num_hosts=hosts, num_tasks=tasks, seed=SEED,
                            deterministic_peer_ids=True)
+    if warm:
+        slotted = [(h, svc.state.host_index(h.id)) for h in sim.cluster.hosts
+                   if svc.state.host_index(h.id) is not None]
+        warm_from_link_model(probes, slotted, lambda src, dst, key: sim.cluster.rtt_ns(src, dst))
     return svc, sim
 
 
-def _service_round(svc, sim, downloads: int):
+def _service_round(svc, sim, downloads: int, probe: bool = False):
     """One bench_loop round: new downloads, the seed triggers, the tick
-    (host clock, ms), every response acted on, the GC sweep. Returns the
-    tick's ms and its selections [(peer, [(parent, score), ...])]."""
+    (host clock, ms), every response acted on, a probe round if asked
+    (host clock, ms), the GC sweep. Returns the tick's ms, its selections
+    [(peer, [(parent, score), ...])] and the probe round's ms (or None)."""
     for _ in range(downloads):
         sim.start_download()
     sim.consume_seed_triggers()
@@ -3259,9 +3295,28 @@ def _service_round(svc, sim, downloads: int):
     tick_ms = (time.perf_counter() - start) * 1e3
     for resp in responses:
         sim._act(resp)
+    probe_ms = None
+    if probe:
+        start = time.perf_counter()
+        sim.run_probe_round(sources=PROBE_SOURCES)
+        probe_ms = (time.perf_counter() - start) * 1e3
     svc.run_gc()
     return tick_ms, [(r.peer_id, [(p.peer_id, p.score) for p in r.candidate_parents])
-                     for r in responses if hasattr(r, "candidate_parents")]
+                     for r in responses if hasattr(r, "candidate_parents")], probe_ms
+
+
+def _run_rounds(svc, sim, rounds: int, downloads: int, probe_every: int):
+    """``rounds`` rounds with a probe round after every ``probe_every``-th,
+    as bench_loop's replay takes them: (tick ms, selections, probe ms)."""
+    ticks, selections, probes = [], [], []
+    for i in range(1, rounds + 1):
+        tick_ms, selected, probe_ms = _service_round(svc, sim, downloads,
+                                                     probe=i % probe_every == 0)
+        ticks.append(tick_ms)
+        selections += selected
+        if probe_ms is not None:
+            probes.append(probe_ms)
+    return ticks, selections, probes
 
 
 def _same_selections(got, want, label: str) -> float:
@@ -3279,26 +3334,38 @@ def _same_selections(got, want, label: str) -> float:
     return err
 
 
-def _paired_runs(make, variants, rounds, downloads, label):
+def _paired_runs(make, variants, rounds, downloads, label, probe_every=PARITY_PROBE_EVERY):
     """The same seeded service run twice, ``make(variant, data_dir)``
     building each of the two ``variants`` (a device, or a fused_tick
-    flag), held equal: selections and the replay's stats."""
+    flag), held equal: selections, the replay's stats and the probe
+    store's ring, cursor, count, probed counts and averages."""
+    import torch
+
     runs = []
     for variant in variants:
         with tempfile.TemporaryDirectory() as data_dir:
             svc, sim = make(variant, data_dir)
-            selections = []
-            for _ in range(rounds):
-                selections += _service_round(svc, sim, downloads)[1]
-            runs.append((selections, sim.stats))
-    (want, want_stats), (got, got_stats) = runs
+            selections = _run_rounds(svc, sim, rounds, downloads, probe_every)[1]
+            store = svc.probes
+            runs.append((selections, sim.stats, {
+                name: getattr(store, name).cpu()
+                for name in ("ring", "cursor", "count", "probed_count")
+            } | {"average": torch.from_numpy(store.average)}, store._next))
+    (want, want_stats, want_store, want_pairs), (got, got_stats, got_store, got_pairs) = runs
     err = _same_selections(got, want, label)
     for key in ("pieces", "completed", "piece_cost_ns_total"):
         if getattr(got_stats, key) != getattr(want_stats, key):
             _fail(f"{label}: {key} {getattr(got_stats, key)} vs {getattr(want_stats, key)}")
+    for name, value in want_store.items():
+        if not torch.equal(got_store[name], value):
+            _fail(f"{label}: the probe stores' {name} differ")
+    if got_pairs != want_pairs or got_pairs == 0:
+        _fail(f"{label}: probe pairs {got_pairs} vs {want_pairs}")
     print(f"{label}: {len(got)} selections equal (parent ids exact, scores within "
           f"{err:.3g}); pieces {got_stats.pieces}, completed {got_stats.completed}, "
-          f"piece_cost_ns_total {got_stats.piece_cost_ns_total} equal")
+          f"piece_cost_ns_total {got_stats.piece_cost_ns_total} equal; probe stores "
+          f"(a probe round every {probe_every} rounds, {got_pairs} pairs) ring, cursor, count, "
+          "probed_count and averages equal")
 
 
 def _wrapper_cost(svc, sim) -> None:
@@ -3331,22 +3398,105 @@ def _wrapper_cost(svc, sim) -> None:
                       f"tick p50 {statistics.median(ticks[mode]):.4f} ms" for mode in modes))
 
 
-def phase_scheduler_service(card: str):
-    """Slice 7's main path: SchedulerService on the card driven by the
-    port's ClusterSimulator through its entries (announce_host,
-    register_peer, tick, piece and peer reports, run_gc), as bench_loop.py
-    replays: warmup, SERVICE_ROUNDS rounds of SERVICE_DOWNLOADS, then one
-    flash-crowd round of SERVICE_FLASH_CROWD. Prints the tick's p50 and
-    p99 on the host clock, each PhaseRecorder phase's median, pieces per
-    second, and the launches and device busy share of
-    SERVICE_PROFILED_TICKS profiled ticks. Checks: the same seeded run of
-    SERVICE_PARITY_ROUNDS on the CPU and on the card gives the same
-    selections and the same pieces, completed and piece_cost_ns_total;
-    fused_tick=False agrees with True on the card at
-    tests/test_fused_tick.py's size; no tick launches a flash kernel."""
+def _profile_rounds(svc, sim, label: str) -> None:
+    """Launches a tick and the device's busy share over
+    SERVICE_PROFILED_TICKS profiled rounds (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        tick_ms = sum(_service_round(svc, sim, SERVICE_DOWNLOADS)[0]
+                      for _ in range(SERVICE_PROFILED_TICKS))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    kernels = _kernels_of(prof, SERVICE_PROFILED_TICKS)
+    device_ms = sum(ms for _, ms in kernels)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)) / SERVICE_PROFILED_TICKS
+    if device_ms == 0:
+        print(f"{label} profiled rounds: device time not measured (the profiler saw no device "
+              "activity)")
+        return
+    # the device works only inside the ticks: busy over the ticks' wall,
+    # and over the whole rounds' (the simulator's host work too)
+    busy_ticks = 100 * device_ms * SERVICE_PROFILED_TICKS / tick_ms
+    busy_rounds = 100 * device_ms * SERVICE_PROFILED_TICKS / wall_ms
+    print(f"{label} profiled rounds ({SERVICE_PROFILED_TICKS} of {SERVICE_DOWNLOADS} "
+          f"downloads): {wall_ms / SERVICE_PROFILED_TICKS:.3f} ms a round, of it the tick "
+          f"{tick_ms / SERVICE_PROFILED_TICKS:.3f} ms (host clock, profiled); device "
+          f"kernels {device_ms:.4f} ms a tick over {launches:.0f} launches; device busy "
+          f"{busy_ticks:.1f}% of the ticks, {busy_rounds:.1f}% of the rounds; top "
+          "kernels: " + "; ".join(f"{k[:60]} {ms:.4f}" for k, ms in kernels[:6]))
+
+
+def _timed_service(svc, sim, label: str, card: str):
+    """Warmup, then SERVICE_ROUNDS timed rounds with bench_loop's probe
+    rounds, no flash kernel launched: prints the tick's p50 and p99, the
+    phases' medians, pieces a second and the probe rounds. Returns the
+    probe rounds' ms."""
+    import torch
+
+    start = time.perf_counter()
+    svc.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - start
+    _zero_counts()
+    _zero_wide_counts()
+    start = time.perf_counter()
+    ticks, _, probe_ms = _run_rounds(svc, sim, SERVICE_ROUNDS, SERVICE_DOWNLOADS, PROBE_EVERY)
+    wall = time.perf_counter() - start
+    if any(_counts().values()) or any(_wide_counts().values()):
+        _fail(f"{label}: the ticks launched a flash kernel: {_counts()}")
+    pieces = sim.stats.pieces
+    p50 = statistics.median(ticks)
+    p99 = sorted(ticks)[int(0.99 * (len(ticks) - 1))]
+    print(f"{label} on the card ({SERVICE_HOSTS} hosts, {SERVICE_TASKS} tasks, seed {SEED}, "
+          f"{SERVICE_DOWNLOADS} downloads a round, algorithm {svc.algorithm}, fused tick "
+          f"{svc._tick_mirror is not None}; warmup {warmup_s:.2f} s): {SERVICE_ROUNDS} rounds in "
+          f"{wall:.2f} s, {pieces} pieces = {pieces / wall:.1f} pieces/s; tick p50 {p50:.3f} ms, "
+          f"p99 {p99:.3f} ms (host clock); stats {sim.stats.completed} completed, "
+          f"{sim.stats.back_to_source} back to source; counts {svc.counts()} ({card})")
+    print(f"{label} tick phases, median ms over the timed rounds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in svc.recorder.phase_p50s(SERVICE_ROUNDS).items()))
+    return probe_ms
+
+
+def _probe_summary(svc, label: str, probe_ms) -> int:
+    """Prints the probe rounds and the store; writes the topology snapshot
+    to trace storage (snapshot_topology) and returns its rows."""
+    store = svc.probes
+    rows = svc.snapshot_topology()
+    svc.storage.flush()
+    print(f"{label} probes (a ProbeStore of {PROBE_PAIRS} pairs, a round of {PROBE_SOURCES} "
+          f"sources every {PROBE_EVERY} rounds): {len(probe_ms)} timed probe rounds, median "
+          f"{statistics.median(probe_ms):.3f} ms (host clock); pairs stored {store._next}; "
+          f"probed-count total {int(store.probed_count.sum())}; topology rows written {rows}")
+    if not probe_ms or rows == 0 or store._next == 0:
+        _fail(f"{label}: the probe rounds stored nothing or the snapshot wrote no row")
+    return rows
+
+
+def phase_scheduler_service(card: str):
+    """Slice 7's main path: SchedulerService on the card driven by the
+    port's ClusterSimulator through its entries (announce_host,
+    register_peer, tick, piece and peer reports, run_gc, the probe rounds),
+    as bench_loop.py replays: warmup, SERVICE_ROUNDS rounds of
+    SERVICE_DOWNLOADS with a probe round every PROBE_EVERY, then one
+    flash-crowd round of SERVICE_FLASH_CROWD and the topology snapshot.
+    Prints the tick's p50 and p99 on the host clock, each PhaseRecorder
+    phase's median, pieces per second, the probe rounds' median, the pairs
+    stored, the probed-count total and the topology rows written, and the
+    launches and device busy share of SERVICE_PROFILED_TICKS profiled
+    ticks. Checks: the same seeded run of SERVICE_PARITY_ROUNDS (a probe
+    round every PARITY_PROBE_EVERY) on the CPU and on the card gives the
+    same selections, the same pieces, completed and piece_cost_ns_total,
+    and the same probe store; fused_tick=False agrees with True on the
+    card at tests/test_fused_tick.py's size; no tick launches a flash
+    kernel."""
     _paired_runs(lambda device, data_dir: _service(device, data_dir), ("cpu", "cuda"),
                  SERVICE_PARITY_ROUNDS, SERVICE_DOWNLOADS,
                  f"service CPU vs CUDA, {SERVICE_PARITY_ROUNDS} rounds at {SERVICE_HOSTS} hosts")
@@ -3354,78 +3504,227 @@ def phase_scheduler_service(card: str):
                                                   fused=fused),
                  (True, False), ORACLE_ROUNDS, ORACLE_DOWNLOADS,
                  f"service on CUDA, fused_tick=False vs True, {ORACLE_ROUNDS} rounds at "
-                 f"{ORACLE_HOSTS} hosts")
+                 f"{ORACLE_HOSTS} hosts", probe_every=3)
 
     with tempfile.TemporaryDirectory() as data_dir:
-        start = time.perf_counter()
         svc, sim = _service("cuda", data_dir)
-        setup_s = time.perf_counter() - start
-        start = time.perf_counter()
-        svc.warmup()
-        torch.cuda.synchronize()
-        warmup_s = time.perf_counter() - start
-        _zero_counts()
-        _zero_wide_counts()
-        ticks = []
-        start = time.perf_counter()
-        for _ in range(SERVICE_ROUNDS):
-            ticks.append(_service_round(svc, sim, SERVICE_DOWNLOADS)[0])
-        wall = time.perf_counter() - start
-        pieces = sim.stats.pieces
-        crowd_ms, crowd = _service_round(svc, sim, SERVICE_FLASH_CROWD)
+        probe_ms = _timed_service(svc, sim, "service", card)
+        crowd_ms, crowd, _ = _service_round(svc, sim, SERVICE_FLASH_CROWD)
         if any(_counts().values()) or any(_wide_counts().values()):
             _fail(f"the scheduler's ticks launched a flash kernel: {_counts()}")
         if not any(sel for _, sel in crowd):
             _fail("the flash-crowd tick selected no parent")
-        p50 = statistics.median(ticks)
-        p99 = sorted(ticks)[int(0.99 * (len(ticks) - 1))]
-        phases = svc.recorder.phase_p50s(SERVICE_ROUNDS)
-        print(f"service on the card ({SERVICE_HOSTS} hosts, {SERVICE_TASKS} tasks, seed {SEED}, "
-              f"{SERVICE_DOWNLOADS} downloads a round, Config() defaults; set-up {setup_s:.2f} s, "
-              f"warmup {warmup_s:.2f} s): {SERVICE_ROUNDS} rounds in {wall:.2f} s, {pieces} pieces "
-              f"= {pieces / wall:.1f} pieces/s; tick p50 {p50:.3f} ms, p99 {p99:.3f} ms (host "
-              f"clock); stats {sim.stats.completed} completed, {sim.stats.back_to_source} back to "
-              f"source; counts {svc.counts()} ({card})")
-        print("service tick phases, median ms over the timed rounds: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
         print(f"service flash-crowd tick of {SERVICE_FLASH_CROWD} downloads: {crowd_ms:.3f} ms "
               f"(host clock), {len(crowd)} selections; its phases: "
               + ", ".join(f"{k} {v:.3f}" for k, v in svc.recorder.snapshot(1)[0].items()))
+        _probe_summary(svc, "service", probe_ms)
         led = svc.decisions.counters()
         slo = svc.slo.verdict()
         print(f"service decision ledger {led}; SLO verdict {slo['state']}; trace rows "
               f"{svc.storage.downloads.count()}")
         if led["decisions"] == 0 or svc.storage.downloads.count() == 0:
             _fail("the service recorded no decision or no download trace")
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            start = time.perf_counter()
-            tick_ms = sum(_service_round(svc, sim, SERVICE_DOWNLOADS)[0]
-                          for _ in range(SERVICE_PROFILED_TICKS))
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - start) * 1e3
-        kernels = _kernels_of(prof, SERVICE_PROFILED_TICKS)
-        device_ms = sum(ms for _, ms in kernels)
-        launches = sum(e.count for e in prof.key_averages()
-                       if e.self_device_time_total > 0
-                       and e.device_type == torch.autograd.DeviceType.CUDA
-                       and not getattr(e, "is_user_annotation", False)) / SERVICE_PROFILED_TICKS
-        if device_ms == 0:
-            print("service profiled rounds: device time not measured (the profiler saw no "
-                  "device activity)")
-        else:
-            # the device works only inside the ticks: busy over the ticks'
-            # wall, and over the whole rounds' (the simulator's host work too)
-            busy_ticks = 100 * device_ms * SERVICE_PROFILED_TICKS / tick_ms
-            busy_rounds = 100 * device_ms * SERVICE_PROFILED_TICKS / wall_ms
-            print(f"service profiled rounds ({SERVICE_PROFILED_TICKS} of {SERVICE_DOWNLOADS} "
-                  f"downloads): {wall_ms / SERVICE_PROFILED_TICKS:.3f} ms a round, of it the tick "
-                  f"{tick_ms / SERVICE_PROFILED_TICKS:.3f} ms (host clock, profiled); device "
-                  f"kernels {device_ms:.4f} ms a tick over {launches:.0f} launches; device busy "
-                  f"{busy_ticks:.1f}% of the ticks, {busy_rounds:.1f}% of the rounds; top "
-                  "kernels: " + "; ".join(f"{k[:60]} {ms:.4f}" for k, ms in kernels[:6]))
+        _profile_rounds(svc, sim, "service")
         _wrapper_cost(svc, sim)
+
+
+def _count_rtt_hits(store) -> list:
+    """Wrap the store's RTT gather to count [candidates gathered, those
+    with a measured RTT]."""
+    hits = [0, 0]
+    gather = store.gather_candidate_rtt
+
+    def counted(child_host_slots, cand_host_slots):
+        avg, has = gather(child_host_slots, cand_host_slots)
+        hits[0] += has.size
+        hits[1] += int(has.sum())
+        return avg, has
+
+    store.gather_candidate_rtt = counted
+    return hits
+
+
+def phase_scheduler_nt(card: str):
+    """Slice 16's main path: the nt arm on measured RTTs. The same
+    deployment as phase 10 with ``algorithm="nt"``, its ProbeStore warmed
+    from the simulator's link model (warm_from_link_model), a probe round
+    every PROBE_EVERY rounds, SERVICE_ROUNDS timed rounds: the tick's p50
+    and p99, the phases' medians, pieces per second, launches and busy
+    share. Checks: the tick ran unfused (the host RTT gather), candidates
+    carried measured RTTs, no flash kernel launched, and
+    SERVICE_PARITY_ROUNDS on the CPU and on the card give equal
+    selections, stats and probe stores. Returns the topology records the
+    snapshot wrote to trace storage."""
+    def make(device, data_dir):
+        return _service(device, data_dir, algorithm="nt", warm=True)
+
+    _paired_runs(make, ("cpu", "cuda"), SERVICE_PARITY_ROUNDS, SERVICE_DOWNLOADS,
+                 f"nt service CPU vs CUDA, {SERVICE_PARITY_ROUNDS} rounds at {SERVICE_HOSTS} hosts")
+    with tempfile.TemporaryDirectory() as data_dir:
+        start = time.perf_counter()
+        svc, sim = make("cuda", data_dir)
+        warm_s = time.perf_counter() - start
+        if svc._tick_mirror is not None:
+            _fail("the probed nt arm took the fused tick")
+        hits = _count_rtt_hits(svc.probes)
+        print(f"nt service: set-up with the warm pass {warm_s:.2f} s, {svc.probes._next} pairs "
+              "warmed from the link model")
+        probe_ms = _timed_service(svc, sim, "nt service", card)
+        if hits[1] == 0:
+            _fail("the nt arm gathered no measured RTT")
+        print(f"nt service RTT gather: {hits[1]} of {hits[0]} candidates carried a measured RTT "
+              f"({100 * hits[1] / hits[0]:.1f}%)")
+        _probe_summary(svc, "nt service", probe_ms)
+        topology = svc.storage.list_network_topologies()
+        _profile_rounds(svc, sim, "nt service")
+    return topology
+
+
+# slice 16: the graph models at full width (TrainerConfig's hidden 128,
+# GraphSAGE's 2 layers) over phase 5's host graph (10,000 hosts, ~417,000
+# directed edges), on both aggregation paths. bf16 compute: each side
+# rounds its products and gelus to bf16 in its own order and the card's
+# segment sums are atomics, a few bf16 ulps of embeddings up to ~4
+GRAPH_LAYERS = 2
+GRAPH_ATOL, GRAPH_RTOL = 5e-2, 5e-2
+GRAPH_CALLS = 10  # timed embeds a path
+GRAPH_FRONTIERS = (64, 1)  # dirty hosts of each embed_subset frontier
+GRAPH_BATCH = 256  # rank_batches rows scored
+MLP_HIDDEN, MLP_LAYERS = 128, 3
+
+
+def _on(arrays: dict, device) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
+
+
+def _embed(model, a: dict):
+    return model.embed(a["node_feats"], a["edge_src"], a["edge_dst"], a["edge_feats"],
+                       adj=a.get("adj"), edge_mean=a.get("edge_mean"))
+
+
+def _hold(label: str, got, want, atol=GRAPH_ATOL, rtol=GRAPH_RTOL) -> float:
+    """got (card) against want (CPU twin) within atol + rtol * |want|; the
+    worst absolute difference."""
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        _fail(f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)}, or non-finite values")
+    err = (got - want).abs()
+    if (err > atol + rtol * want.abs()).any():
+        _fail(f"{label}: differs by up to {float(err.max()):.4g} (atol {atol}, rtol {rtol})")
+    return float(err.max())
+
+
+def phase_graph_models(ds, graph, topology, card: str):
+    """Slice 16's models at full width on the card, each held to its CPU
+    twin (the same module and weights on the CPU): GraphSAGERanker's embed
+    on the segment path (graph_arrays with edges padded to edge_bucket) and
+    the dense one (dense_graph_arrays), the dense against the segment
+    embeddings, embed_subset over gather_coo_subgraph frontiers against the
+    full embed's rows with every other table row unchanged, score on one
+    rank_batches batch, and ProbeRTTRegressor over topology_to_pairs of the
+    nt phase's snapshot. Prints each path's embed p50 (CUDA events), device
+    ms and launches (profiler). No flash kernel may launch."""
+    import copy
+
+    import torch
+
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.models import GraphSAGERanker, ProbeRTTRegressor
+    from dragonfly2_tpu_torch.ops.segment import gather_coo_subgraph
+    from dragonfly2_tpu_torch.records.features import topology_to_pairs
+    from dragonfly2_tpu_torch.training.data import (dense_graph_arrays, edge_bucket,
+                                                     graph_arrays, rank_batches)
+
+    hidden = TrainerConfig().hidden_dim
+    twin = GraphSAGERanker(hidden, GRAPH_LAYERS).reset_parameters(
+        torch.Generator().manual_seed(SEED))
+    model = copy.deepcopy(twin).to("cuda")
+    start = time.perf_counter()
+    seg = graph_arrays(graph, pad_edges_to=edge_bucket(len(graph.edge_src)))
+    dense = dense_graph_arrays(graph)
+    print(f"graph models: GraphSAGERanker hidden {hidden}, {GRAPH_LAYERS} layers, bf16, over "
+          f"{len(graph.host_ids)} hosts and {len(graph.edge_src)} edges (padded to "
+          f"{len(seg['edge_src'])}, sink row {seg['node_feats'].shape[0] - 1}); graph arrays "
+          f"{time.perf_counter() - start:.1f} s (host)")
+    _zero_counts()
+    _zero_wide_counts()
+    emb = {}
+    with torch.no_grad():
+        for path, arrays in (("segment", seg), ("dense", dense)):
+            on_card, on_cpu = _on(arrays, "cuda"), _on(arrays, "cpu")
+            emb[path] = _embed(model, on_card)
+            err = _hold(f"{path} embed, CUDA vs CPU", emb[path], _embed(twin, on_cpu))
+            _, event_ms, _ = _event_ms(lambda: _embed(model, on_card), GRAPH_CALLS)
+            wall_ms, device_ms, _, launched = _device_split(lambda: _embed(model, on_card), "")
+            print(f"graph embed, {path} path ({card}): CUDA vs CPU within {err:.4g} (atol "
+                  f"{GRAPH_ATOL}, rtol {GRAPH_RTOL}); p50 {event_ms:.3f} ms (CUDA events, "
+                  f"{GRAPH_CALLS} calls); profiled {wall_ms:.3f} ms a call, device "
+                  f"{device_ms:.4f} ms over {launched:.0f} launches")
+        n = len(graph.host_ids)
+        err = _hold("dense vs segment embed on the card", emb["dense"], emb["segment"][:n])
+        print(f"graph embed: dense path vs segment path on the card within {err:.4g}")
+
+        full = emb["segment"].float()
+        rows = seg["node_feats"].shape[0]
+        if rows != n + 1:  # gather_coo_subgraph's padding aliases a sink row
+            _fail("graph_arrays appended no sink row (the edges filled their bucket)")
+        rng = np.random.default_rng(SEED)
+        for dirty in GRAPH_FRONTIERS:
+            frontier = rng.choice(n, dirty, replace=False)
+            sub = gather_coo_subgraph(seg["edge_src"], seg["edge_dst"], frontier, rows,
+                                      max_frac=1.0)
+            feats = np.where(sub["edge_pad"][:, None], 0.0,
+                             seg["edge_feats"][sub["edge_index"]]).astype(np.float32)
+            table = torch.randn(full.shape, generator=torch.Generator().manual_seed(dirty)).cuda()
+            fresh = model.embed_subset(
+                *(_on({"n": seg["node_feats"][sub["nodes"]], "s": sub["edge_src"],
+                       "d": sub["edge_dst"], "e": feats}, "cuda").values()),
+                table, *(_on({"l": sub["target_local"], "g": sub["target_global"]},
+                             "cuda").values()))
+            targets = torch.from_numpy(sub["target_global"][sub["target_global"] < rows]).long()
+            kept = torch.ones(rows, dtype=torch.bool)
+            kept[targets] = False
+            if not torch.equal(fresh.cpu()[kept], table.cpu()[kept]):
+                _fail(f"embed_subset over {dirty} dirty hosts changed a row outside its targets")
+            err = _hold(f"embed_subset over {dirty} dirty hosts vs the full embed",
+                        fresh.cpu()[targets], full.cpu()[targets])
+            print(f"graph embed_subset, a frontier of {dirty} dirty hosts: "
+                  f"{len(sub['nodes'])} subgraph nodes, {int((~sub['edge_pad']).sum())} edges, "
+                  f"{len(targets)} targets of {len(sub['target_global'])} (padding dropped): "
+                  f"targets vs the full embed within {err:.4g}, the other {int(kept.sum())} "
+                  "table rows unchanged bit for bit")
+
+        batch = next(rank_batches(ds, GRAPH_BATCH, np.random.default_rng(SEED)))
+        child = torch.from_numpy(batch.child_idx).long()
+        parents = torch.from_numpy(batch.parent_idx).long()
+        pair = torch.from_numpy(batch.pair_feats)
+        cpu_emb = full.cpu()
+        got = model.score(full[child.cuda()], full[parents.cuda()], pair.cuda())
+        err = _hold("score, CUDA vs CPU", got, twin.score(cpu_emb[child], cpu_emb[parents], pair))
+        print(f"graph score of a {GRAPH_BATCH}-row rank_batches batch ({list(pair.shape)}): "
+              f"CUDA vs CPU within {err:.4g}")
+
+        x, y = topology_to_pairs(topology)
+        if len(x) == 0:
+            _fail("the nt phase's snapshot held no probe pair")
+        mlp_twin = ProbeRTTRegressor(MLP_HIDDEN, MLP_LAYERS).reset_parameters(
+            torch.Generator().manual_seed(SEED))
+        mlp = copy.deepcopy(mlp_twin).to("cuda")
+        xt = torch.from_numpy(x)
+        got = mlp(xt.cuda())
+        err = _hold("ProbeRTTRegressor, CUDA vs CPU", got, mlp_twin(xt))
+        _, event_ms, _ = _event_ms(lambda: mlp(xt.cuda()), GRAPH_CALLS)
+        print(f"ProbeRTTRegressor (hidden {MLP_HIDDEN}, {MLP_LAYERS} layers, bf16) over "
+              f"topology_to_pairs of the nt phase's {len(topology)} topology records: "
+              f"{len(x)} pairs x {x.shape[1]} features, y log1p(ms) in [{y.min():.3f}, "
+              f"{y.max():.3f}]; CUDA vs CPU within {err:.4g}; p50 {event_ms:.3f} ms (CUDA "
+              "events, the upload included)")
+    if any(_counts().values()) or any(_wide_counts().values()):
+        _fail(f"the graph models launched a flash kernel: {_counts()}")
 
 
 def main() -> None:
@@ -3466,7 +3765,7 @@ def main() -> None:
     phase_sets_kernels()
     phase_launch_cost(card)
     launches = phase_main_path()
-    train_counts, serve_counts, ds, breakdown = phase_training()
+    train_counts, serve_counts, ds, graph, breakdown = phase_training()
     partial = phase_partial_kernel(ds)
     ring_launches = phase_long_ring()
     mesh_launches, uly_counts = phase_mesh_training(ds, breakdown["step_p50_ms"])
@@ -3475,6 +3774,8 @@ def main() -> None:
     wide = phase_wide_kernels(ds)
     wide_launches = phase_wide_path(ds)
     phase_scheduler_service(card)
+    topology = phase_scheduler_nt(card)
+    phase_graph_models(ds, graph, topology, card)
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]

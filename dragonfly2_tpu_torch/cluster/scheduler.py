@@ -11,10 +11,12 @@ and ``nt``), line for line where the logic is host code. What differs:
   (``_to_host``);
 - nothing compiles, so ``warmup`` runs each bucket's program once and
   drains no cost cards;
+- ``probes`` is the port's ``cluster/probes.ProbeStore`` on the
+  service's device (another device raises);
 - constructor values that need a module not ported yet raise
-  ``NotImplementedError`` naming its ROADMAP item: ``probes`` (A5b),
-  ``ml_evaluator`` or ``algorithm="ml"`` (A7), ``algorithm="plugin"``
-  (A9); so does ``flight_dump`` (A10). The ml arm (its packed transport
+  ``NotImplementedError`` naming its ROADMAP item: ``ml_evaluator`` or
+  ``algorithm="ml"`` (A7), ``algorithm="plugin"`` (A9); so does
+  ``flight_dump`` (A10). The ml arm (its packed transport
   and the counterfactual shadow arm, which needs an ml snapshot to score
   the rule arm's batches against) is not ported here: A7 ports it with
   ``MLEvaluator``. Without it the reference's shadow arm never runs, so
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from dragonfly2_tpu_torch.cluster import messages as msg
+from dragonfly2_tpu_torch.cluster.probes import ProbeStore
 from dragonfly2_tpu_torch.cluster.quarantine import QuarantineBoard
 from dragonfly2_tpu_torch.config.config import Config
 from dragonfly2_tpu_torch.config.constants import CONSTANTS
@@ -128,7 +131,7 @@ class SchedulerService:
         self,
         config: Config | None = None,
         storage: TraceStorage | None = None,
-        probes=None,
+        probes: ProbeStore | None = None,
         ml_evaluator=None,
         seed: int = 0,
         metrics_registry=None,
@@ -141,10 +144,6 @@ class SchedulerService:
 
         self.config = config or Config()
         algorithm = self.config.evaluator.algorithm
-        if probes is not None:
-            raise NotImplementedError(
-                "SchedulerService(probes=...) needs cluster/probes.py, not ported yet "
-                "(ROADMAP A5b)")
         if ml_evaluator is not None or algorithm == "ml":
             raise NotImplementedError(
                 "the ml arm (ml_evaluator, algorithm='ml') needs the port's MLEvaluator, "
@@ -155,6 +154,9 @@ class SchedulerService:
         # the device programs' device: the card unless the caller asks for
         # the CPU; no CUDA raises here, nothing falls back
         self.device = resolve_device(device)
+        if probes is not None and probes.device != self.device:
+            raise ValueError(
+                f"the probe store is on {probes.device}, the service on {self.device}")
         native.ensure_built()  # one-time; cycle checks ride the native path
         sched = self.config.scheduler
         self.state = ClusterState(

@@ -1,7 +1,8 @@
 """Port of dragonfly2_tpu/cluster/simulator.py: the same ``random.Random``
 stream (``self.rng = self.cluster.rng``) and the same numpy draws, so a
 seed drives the port's service through the same requests as the
-reference's. The probe round waits for the port's probes (ROADMAP A5b).
+reference's, probe rounds included (the probe key is utils/prng's, drawn
+from the same ``randint``).
 
 Mini-cluster simulator — the e2e harness standing in for the reference's
 kind-cluster tests (SURVEY.md §4 tier 2: "multi-process mini-cluster ...
@@ -25,7 +26,7 @@ import numpy as np
 from dragonfly2_tpu_torch.cluster import messages as msg
 from dragonfly2_tpu_torch.cluster.scheduler import SchedulerService
 from dragonfly2_tpu_torch.records import synth
-from dragonfly2_tpu_torch.utils import idgen
+from dragonfly2_tpu_torch.utils import idgen, prng
 
 
 @dataclasses.dataclass
@@ -627,11 +628,37 @@ class ClusterSimulator:
     def run_probe_round(self, sources: int = 8) -> int:
         """Probe cycle (SyncProbes flow, SURVEY.md §3.3): random sources ping
         scheduler-chosen least-probed targets; results land in the ProbeStore."""
-        if self.scheduler.probes is None:
+        probes = self.scheduler.probes
+        if probes is None:
             return 0
-        # unreachable today: the port's SchedulerService refuses probes
-        raise NotImplementedError(
-            "the probe round needs cluster/probes.py, not ported yet (ROADMAP A5b)")
+        n = 0
+        alive = np.asarray(self.scheduler.state.host_alive[: self.scheduler.state.max_hosts])
+        # slot -> host resolved once per round (a 10k-entry dict per
+        # SOURCE dominated the probe round's wall at scale)
+        slot_to_host = {
+            self.scheduler.state.host_index(h.id): h for h in self.cluster.hosts
+            if self.scheduler.state.host_index(h.id) is not None
+        }
+        for _ in range(sources):
+            src = self.rng.choice(self.cluster.hosts)
+            src_slot = self.scheduler.state.host_index(src.id)
+            if src_slot is None:
+                continue
+            targets = probes.find_probed_hosts(
+                alive, prng.key(self.rng.randint(0, 1 << 30)), k=5
+            )
+            srcs, dsts, rtts = [], [], []
+            for t in targets:
+                dst = slot_to_host.get(int(t))
+                if dst is None or dst.id == src.id:
+                    continue
+                srcs.append(src_slot)
+                dsts.append(int(t))
+                rtts.append(float(self._probe_rtt_ns(src, dst)))
+            if srcs:
+                probes.enqueue(np.asarray(srcs), np.asarray(dsts), np.asarray(rtts))
+                n += len(srcs)
+        return n
 
     def _probe_rtt_ns(self, src, dst) -> int:
         """One probe measurement: scenario link model when a scenario is

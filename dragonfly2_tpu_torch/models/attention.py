@@ -53,13 +53,36 @@ class Dense(nn.Linear):
     """flax.linen.Dense(dtype=compute_dtype): float32 parameters, inputs and
     parameters cast to the compute dtype for the product."""
 
-    def __init__(self, in_features: int, out_features: int, compute_dtype: torch.dtype):
-        super().__init__(in_features, out_features)
+    def __init__(self, in_features: int, out_features: int, compute_dtype: torch.dtype,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+@torch.no_grad()
+def flax_init_(root: nn.Module, generator: torch.Generator) -> nn.Module:
+    """flax's init for every Dense and LayerNorm under ``root``: lecun-normal
+    kernels (truncated at 2 sigma), zero biases, unit LayerNorm scales —
+    drawn from ``generator`` in module order. Returns ``root``."""
+    for module in root.modules():
+        if isinstance(module, Dense):
+            fan_in = module.weight.shape[1]
+            # stddev of the untruncated normal, as variance_scaling sets it
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(
+                module.weight, std=std, a=-2 * std, b=2 * std, generator=generator
+            )
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, LayerNorm):
+            module.scale.fill_(1.0)
+            module.bias.zero_()
+    return root
 
 
 class LayerNorm(nn.Module):
@@ -155,23 +178,8 @@ class AttentionRanker(nn.Module):
     def blocks(self) -> list[SelfAttentionBlock]:
         return [getattr(self, f"block_{i}") for i in range(self.num_layers)]
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> "AttentionRanker":
-        """flax's init: lecun-normal kernels (truncated at 2 sigma), zero
-        biases, unit LayerNorm scales — drawn from ``generator``."""
-        for module in self.modules():
-            if isinstance(module, Dense):
-                fan_in = module.weight.shape[1]
-                # stddev of the untruncated normal, as variance_scaling sets it
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                nn.init.trunc_normal_(
-                    module.weight, std=std, a=-2 * std, b=2 * std, generator=generator
-                )
-                module.bias.zero_()
-            elif isinstance(module, LayerNorm):
-                module.scale.fill_(1.0)
-                module.bias.zero_()
-        return self
+        return flax_init_(self, generator)
 
     def forward(
         self,

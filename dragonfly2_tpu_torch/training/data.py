@@ -1,10 +1,15 @@
 """Training input pipeline: ragged traces -> fixed-shape batches.
 
-The minibatch index stream of dragonfly2_tpu/training/data.py: one static
-batch shape per model, minibatches cycled with a seeded permutation, the
-final short batch wrapped around so every step sees the same shape. It
-draws from the same ``np.random.Generator`` in the same order as the
-reference, so a seed gives both packages the same batches.
+From dragonfly2_tpu/training/data.py: the minibatch index stream (one
+static batch shape per model, minibatches cycled with a seeded
+permutation, the final short batch wrapped around so every step sees the
+same shape), the ranker's ``rank_batches``, and the graph inputs of the
+GraphSAGE ranker (``graph_arrays`` for the segment path,
+``dense_graph_arrays`` for the dense-adjacency one). It draws from the
+same ``np.random.Generator`` in the same order as the reference, so a
+seed gives both packages the same batches. Everything here is numpy; the
+caller moves it to its device. The decision-ledger exporters wait for
+the trainer (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -12,6 +17,9 @@ from __future__ import annotations
 from typing import Iterator
 
 import numpy as np
+
+from dragonfly2_tpu_torch.models.graphsage import RankBatch
+from dragonfly2_tpu_torch.records.features import HostGraph, RankingDataset
 
 
 def minibatches(
@@ -25,3 +33,89 @@ def minibatches(
         if len(idx) < batch_size:
             idx = np.concatenate([idx, order[: batch_size - len(idx)]])
         yield idx
+
+
+def rank_batches(
+    ds: RankingDataset, batch_size: int, rng: np.random.Generator, shuffle: bool = True
+) -> Iterator[RankBatch]:
+    n = ds.child.shape[0]
+    pair_feats = np.concatenate(
+        [ds.same_idc[..., None], ds.loc_match[..., None]], axis=-1
+    ).astype(np.float32)
+    for idx in minibatches(n, batch_size, rng, shuffle):
+        yield RankBatch(
+            child_idx=ds.child_host_idx[idx],
+            parent_idx=ds.parent_host_idx[idx],
+            pair_feats=pair_feats[idx],
+            throughput=ds.throughput[idx],
+            mask=ds.mask[idx],
+        )
+
+
+def graph_arrays(graph: HostGraph, pad_edges_to: int | None = None) -> dict:
+    """HostGraph -> dict of arrays for GraphSAGERanker, with optional edge
+    padding to a static bucket size. Padded edges are self-loops on a
+    dedicated sink node appended here (the LAST node row, zero features),
+    so they never touch a real host's mean."""
+    node_feats = graph.node_feats
+    e = graph.edge_src.shape[0]
+    if pad_edges_to is not None and pad_edges_to > e:
+        pad = pad_edges_to - e
+        node_feats = np.concatenate(
+            [node_feats, np.zeros((1,) + node_feats.shape[1:], node_feats.dtype)]
+        )
+        sink = node_feats.shape[0] - 1
+        edge_src = np.concatenate([graph.edge_src, np.full(pad, sink, np.int32)])
+        edge_dst = np.concatenate([graph.edge_dst, np.full(pad, sink, np.int32)])
+        edge_feats = np.concatenate(
+            [graph.edge_feats, np.zeros((pad,) + graph.edge_feats.shape[1:], np.float32)]
+        )
+    else:
+        edge_src, edge_dst, edge_feats = graph.edge_src, graph.edge_dst, graph.edge_feats
+    return {
+        "node_feats": node_feats.astype(np.float32),
+        "edge_src": edge_src.astype(np.int32),
+        "edge_dst": edge_dst.astype(np.int32),
+        "edge_feats": edge_feats.astype(np.float32),
+    }
+
+
+def edge_bucket(e: int, granularity: int = 4096) -> int:
+    """Round edge count up to a bucket so graph growth keeps few shapes."""
+    return max(granularity, ((e + granularity - 1) // granularity) * granularity)
+
+
+# Above this node count the [N, N] adjacency would cross ~2 GB of device
+# memory and the segment path wins.
+DENSE_ADJ_MAX_NODES = 16_384
+
+
+def dense_graph_arrays(graph: HostGraph) -> dict:
+    """HostGraph -> arrays for the dense-aggregation path
+    (models/graphsage.SAGELayer adj= branch): `adj` is the row-normalized
+    neighbor matrix (adj @ h == mean over N(v)), `edge_mean` the static
+    per-node mean of incident edge features. Same math as the segment
+    path: one product instead of gather + scatter-add per layer."""
+    n = graph.node_feats.shape[0]
+    if n > DENSE_ADJ_MAX_NODES:
+        raise ValueError(
+            f"{n} nodes > DENSE_ADJ_MAX_NODES={DENSE_ADJ_MAX_NODES}; use graph_arrays instead"
+        )
+    adj = np.zeros((n, n), np.float32)
+    np.add.at(adj, (graph.edge_src, graph.edge_dst), 1.0)
+    cnt = np.maximum(adj.sum(axis=1, keepdims=True), 1.0)
+    adj /= cnt
+    edge_sum = np.zeros((n, graph.edge_feats.shape[1]), np.float32)
+    np.add.at(edge_sum, graph.edge_src, graph.edge_feats.astype(np.float32))
+    edge_mean = edge_sum / cnt
+    return {
+        "node_feats": graph.node_feats.astype(np.float32),
+        # segment inputs kept for API compatibility; unused on this path
+        "edge_src": graph.edge_src.astype(np.int32),
+        "edge_dst": graph.edge_dst.astype(np.int32),
+        "edge_feats": graph.edge_feats.astype(np.float32),
+        # f16 on the host: halves the one-time transfer; the model casts
+        # to its compute dtype before the product
+        "adj": adj.astype(np.float16),
+        "edge_mean": edge_mean,
+    }

@@ -1312,3 +1312,68 @@ def test_topk_and_schedule_from_packed_on_the_card_equal_the_cpu():
         cpu = ev.schedule_from_packed(buf, 64, 15, 32, 5, 12, algorithm=algorithm, limit=4,
                                       device="cpu")
         assert torch.equal(gpu.cpu(), cpu)
+
+
+# slice 16: the probe store's scatters and the segment reductions on the card,
+# against the same calls on the CPU
+
+
+def test_ewma_enqueue_with_duplicates_matches_the_cpu():
+    """Duplicate pair ids in one batch: the last write wins on the card too
+    (a CUDA scatter promises no winner; the port writes every duplicate
+    with the last value). Rings, cursors, counts and averages exactly."""
+    _need_card()
+    from dragonfly2_tpu_torch.ops import ewma
+
+    gen = torch.Generator().manual_seed(0)
+    state = {d: (torch.zeros(300, 5), torch.zeros(300, dtype=torch.int32),
+                 torch.zeros(300, dtype=torch.int32)) for d in ("cpu", "cuda")}
+    state["cuda"] = tuple(t.cuda() for t in state["cuda"])
+    for _ in range(20):
+        pair_idx = torch.randint(0, 300, (900,), generator=gen)  # ~3 writes a pair
+        rtt = torch.rand(900, generator=gen) * 1e7
+        out = {}
+        for dev in ("cpu", "cuda"):
+            *state[dev], avg = ewma.enqueue(*state[dev], pair_idx.to(dev), rtt.to(dev))
+            out[dev] = (*state[dev], avg)
+        for got, want in zip(out["cuda"], out["cpu"]):
+            assert torch.equal(got.cpu(), want)
+    counts = torch.zeros(300, dtype=torch.int32)
+    hosts = torch.randint(0, 300, (2000,), generator=gen)
+    assert torch.equal(ewma.probed_count_increment(counts.cuda(), hosts.cuda()).cpu(),
+                       ewma.probed_count_increment(counts, hosts))
+
+
+def test_least_probed_hosts_on_the_card_matches_the_cpu():
+    _need_card()
+    from dragonfly2_tpu_torch.ops import ewma
+
+    counts = torch.randint(0, 3, (10_000,), generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    alive = torch.rand(10_000, generator=torch.Generator().manual_seed(2)) > 0.2
+    for seed in (0, 12345, 2**30 - 1):
+        idx, valid = ewma.least_probed_hosts(counts.cuda(), alive.cuda(), (0, seed), k=50)
+        want_idx, want_valid = ewma.least_probed_hosts(counts, alive, (0, seed), k=50)
+        assert torch.equal(idx.cpu(), want_idx) and torch.equal(valid.cpu(), want_valid)
+
+
+@pytest.mark.parametrize("shape", [(50_000,), (50_000, 128)])
+def test_segment_reductions_match_the_cpu(shape):
+    """Sums and means within float32 atomics' reordering; max and count
+    exactly; ids past either end dropped on both devices."""
+    _need_card()
+    from dragonfly2_tpu_torch.ops import segment
+
+    gen = torch.Generator().manual_seed(3)
+    n = 10_000
+    ids = torch.randint(-5, n + 5, (shape[0],), generator=gen, dtype=torch.int32)
+    data = torch.randn(shape, generator=gen)
+    for name in ("segment_sum", "segment_mean", "segment_max"):
+        got = getattr(segment, name)(data.cuda(), ids.cuda(), n).cpu()
+        want = getattr(segment, name)(data, ids, n)
+        if name == "segment_max":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(segment.segment_count(ids.cuda(), n).cpu(),
+                       segment.segment_count(ids, n))

@@ -44,7 +44,10 @@ def test_port_imports_no_jax_flax_or_reference():
                    "cluster.messages", "cluster.quarantine", "cluster.simulator",
                    "ops.segment", "telemetry", "telemetry.metrics", "telemetry.series",
                    "telemetry.flight", "telemetry.decisions", "telemetry.slo",
-                   "rpc.resilience", "scenarios", "scenarios.spec", "scenarios.engine"):
+                   "rpc.resilience", "scenarios", "scenarios.spec", "scenarios.engine",
+                   # slice 16: probes, the segment reductions and the graph models
+                   "utils.prng", "ops.ewma", "cluster.probes", "models", "models.graphsage",
+                   "models.mlp", "models.convert", "training.data"):
         assert f"dragonfly2_tpu_torch.{module}" in names, module
     assert lines["TORCH"] == "True"
     assert lines["BAD"] == "", f"port pulled in: {lines['BAD']}"

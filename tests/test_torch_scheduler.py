@@ -20,12 +20,16 @@ import numpy as np
 import pytest
 import torch
 
+from dragonfly2_tpu.cluster.probes import ProbeStore as RefProbeStore
+from dragonfly2_tpu.cluster.probes import warm_from_link_model as ref_warm
 from dragonfly2_tpu.cluster.scheduler import SchedulerService as RefService
 from dragonfly2_tpu.cluster.simulator import ClusterSimulator as RefSimulator
 from dragonfly2_tpu.config.config import Config as RefConfig
 from dragonfly2_tpu.records.storage import TraceStorage as RefStorage
 from dragonfly2_tpu.scenarios import builtin_scenarios as ref_scenarios
 from dragonfly2_tpu_torch.cluster import scheduler as port_scheduler
+from dragonfly2_tpu_torch.cluster.probes import ProbeStore
+from dragonfly2_tpu_torch.cluster.probes import warm_from_link_model as warm_port
 from dragonfly2_tpu_torch.cluster.scheduler import SchedulerService
 from dragonfly2_tpu_torch.cluster.simulator import ClusterSimulator
 from dragonfly2_tpu_torch.config.config import Config
@@ -33,13 +37,14 @@ from dragonfly2_tpu_torch.records.storage import TraceStorage
 from dragonfly2_tpu_torch.scenarios import builtin_scenarios
 
 SCORE_ATOL = 1e-6
+PROBE_EVERY = 3  # rounds between probe rounds, where a case has probes
 # download-record columns read from the wall clock at the service's calls
 CLOCK_SUFFIXES = (".created_at", ".updated_at")
 CLOCK_COLUMNS = ("created_at", "updated_at", "cost")
 
 
 def _run(port: bool, topology, seed: int, tmp_path, fused=True, vectorized=True,
-         algorithm="default", rounds=10):
+         algorithm="default", rounds=10, probes=False, warm=False):
     cfg = Config() if port else RefConfig()
     cfg.scheduler.vectorized_control = vectorized
     cfg.scheduler.fused_tick = fused
@@ -47,22 +52,46 @@ def _run(port: bool, topology, seed: int, tmp_path, fused=True, vectorized=True,
     storage_cls = TraceStorage if port else RefStorage
     storage = storage_cls(tmp_path / ("port" if port else "ref"))
     if port:
-        svc = SchedulerService(config=cfg, storage=storage, seed=seed + 100, device="cpu")
+        store = ProbeStore(max_pairs=1 << 12, max_hosts=cfg.scheduler.max_hosts,
+                           device="cpu") if probes else None
+        svc = SchedulerService(config=cfg, storage=storage, probes=store, seed=seed + 100,
+                               device="cpu")
         scenario = builtin_scenarios()[topology] if topology else None
         sim_cls = ClusterSimulator
     else:
-        svc = RefService(config=cfg, storage=storage, seed=seed + 100)
+        store = RefProbeStore(max_pairs=1 << 12,
+                              max_hosts=cfg.scheduler.max_hosts) if probes else None
+        svc = RefService(config=cfg, storage=storage, probes=store, seed=seed + 100)
         scenario = ref_scenarios()[topology] if topology else None
         sim_cls = RefSimulator
-    assert (svc._tick_mirror is not None) == (fused and vectorized)
+    # the probed nt arm gathers RTTs on the host: the fused tick stays off
+    fusable = fused and vectorized and not (probes and algorithm == "nt")
+    assert (svc._tick_mirror is not None) == fusable
     sim = sim_cls(svc, num_hosts=40, num_tasks=5, seed=seed, scenario=scenario,
                   deterministic_peer_ids=True)
+    if port and probes:  # count the candidates that carried a measured RTT
+        gather, store.rtt_hits = store.gather_candidate_rtt, 0
+
+        def counted(child_slots, cand_slots):
+            avg, has = gather(child_slots, cand_slots)
+            store.rtt_hits += int(has.sum())
+            return avg, has
+
+        store.gather_candidate_rtt = counted
+    if warm:
+        slotted = [(h, svc.state.host_index(h.id)) for h in sim.cluster.hosts
+                   if svc.state.host_index(h.id) is not None]
+        (warm_port if port else ref_warm)(store, slotted, sim.engine.rtt_ns)
     selections = []
-    for _ in range(rounds):
+    for i in range(rounds):
         for resp in sim.run_round(new_downloads=5):
             if hasattr(resp, "candidate_parents"):
                 selections.append((resp.peer_id, [(p.peer_id, p.score)
                                                   for p in resp.candidate_parents]))
+        if probes and i % PROBE_EVERY == PROBE_EVERY - 1:
+            sim.run_probe_round(sources=4)
+    if probes:
+        svc.snapshot_topology(now_ns=1)
     storage.flush()
     return selections, sim.stats, svc, storage
 
@@ -94,7 +123,45 @@ CASES = [
 @pytest.mark.parametrize("topology,seed,fused,vectorized,algorithm", CASES)
 def test_service_matches_reference_on_paired_seeds(topology, seed, fused, vectorized,
                                                    algorithm, tmp_path):
-    kw = dict(fused=fused, vectorized=vectorized, algorithm=algorithm)
+    _assert_paired(topology, seed, tmp_path, fused=fused, vectorized=vectorized,
+                   algorithm=algorithm)
+
+
+# with a probe store and a probe round every PROBE_EVERY rounds: the nt arm
+# on measured RTTs (unfused), one store warmed from the scenario's link model
+# first, and bench_loop.py's configuration (default, fused, probed)
+PROBED_CASES = [
+    (None, 5, "nt", False),
+    ("bandwidth_skew", 17, "nt", True),
+    ("chaos", 3, "nt", False),
+    (None, 3, "default", False),
+]
+
+
+@pytest.mark.parametrize("topology,seed,algorithm,warm", PROBED_CASES)
+def test_probed_service_matches_reference_on_paired_seeds(topology, seed, algorithm, warm,
+                                                          tmp_path):
+    _, svc, storage, ref_svc, ref_storage = _assert_paired(
+        topology, seed, tmp_path, algorithm=algorithm, probes=True, warm=warm)
+    # the probe store's device state and its host mirror, exactly
+    for name in ("ring", "cursor", "count", "probed_count"):
+        np.testing.assert_array_equal(getattr(svc.probes, name).numpy(),
+                                      np.asarray(getattr(ref_svc.probes, name)), err_msg=name)
+    np.testing.assert_array_equal(svc.probes.average, ref_svc.probes.average)
+    assert svc.probes._next == ref_svc.probes._next > 0
+    # the networktopology rows snapshot_topology wrote
+    got = [line for path in storage.topologies.all_paths()
+           for line in path.read_text().splitlines()]
+    want = [line for path in ref_storage.topologies.all_paths()
+            for line in path.read_text().splitlines()]
+    assert len(got) > 1 and got == want
+    if algorithm == "nt":  # measured RTTs reached the blend
+        assert svc.probes.rtt_hits > 0
+
+
+def _assert_paired(topology, seed, tmp_path, **kw):
+    """Both services on one seed: selections, SimStats, counts, the
+    decision ledger and the download rows held equal."""
     want, want_stats, ref_svc, ref_storage = _run(False, topology, seed, tmp_path, **kw)
     got, got_stats, svc, storage = _run(True, topology, seed, tmp_path, **kw)
     assert want, "the reference produced no selection"
@@ -127,6 +194,7 @@ def test_service_matches_reference_on_paired_seeds(topology, seed, fused, vector
     assert got_header == want_header
     assert len(got_rows) == len(want_rows) == storage.downloads.count() > 0
     assert got_rows == want_rows
+    return got, svc, storage, ref_svc, ref_storage
 
 
 def test_tick_phases_are_recorded():
@@ -168,7 +236,6 @@ def test_warmup_runs_every_bucket_of_the_packed_and_fused_entries(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        (dict(probes=object()), "A5b"),
         (dict(ml_evaluator=object()), "A7"),
         (dict(algorithm="ml"), "A7"),
         (dict(algorithm="plugin"), "A9"),
@@ -204,3 +271,11 @@ def test_drain_reads_back_tensors_and_passes_arrays():
     a = port_scheduler._to_host(t)
     assert isinstance(a, np.ndarray) and a.shape == (2, 3)
     assert port_scheduler._to_host(a) is a
+
+
+def test_the_probe_store_must_be_on_the_service_device():
+    class Elsewhere:
+        device = torch.device("cuda", 0)
+
+    with pytest.raises(ValueError, match="probe store is on cuda"):
+        SchedulerService(probes=Elsewhere(), device="cpu")
