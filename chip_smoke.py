@@ -134,7 +134,26 @@ result line:
    topology_to_pairs of phase 11's snapshot; each embed's p50 by CUDA
    events, device ms and launches. No flash kernel launches in phases
    10-12.
-13. the kernels JSON line and, last, the result line.
+13. the ml arm (slice 17): GraphSAGERanker (hidden 128, 2 layers, bf16,
+   seed-0 weights) published to the port's bucket registry and served by
+   ModelServer("gnn") on the card behind MLEvaluator; a NaN-poisoned
+   second version is rejected by the activation gate while v1 keeps
+   serving. Then bench_loop.py phase 3's ml arm (algorithm "ml", peer TTL
+   10 s, GC every 1 s, 1,024 peers a task; 10,000 hosts, 32 tasks, seed
+   2, 64 downloads a round), its embeddings refreshed inline once and then
+   on the worker every 10 rounds, 300 timed rounds: the tick's p50 and
+   p99, the phases' medians, pieces per second and the mean piece cost,
+   the refresh counts and seconds, launches and busy share of 5 profiled
+   rounds; and the rule arm at the same seed with the evaluator attached,
+   whose ml shadow re-scores each tick (shadow_compared, the shadow_score
+   median). Checks: the ml scoring of the timed run's first chunks on the
+   card against the CPU on the same table (selections equal on every row
+   outside the bf16 margin), a float32 paired run of 30 rounds CPU
+   against CUDA compared tick by tick (at the first tick that differs,
+   each differing row's CPU margin under the float32 tolerance), the
+   incremental refresh against the full embed (every other row unchanged
+   bit for bit), shadow_compared > 0, no flash kernel launched.
+14. the kernels JSON line and, last, the result line.
 
 Between phases 3 and 4, the host cost of the forward with lse's wrapper at
 the ranker's two trained shapes, [256, 4, 20, 32] and [256, 4, 20, 192]:
@@ -3727,6 +3746,343 @@ def phase_graph_models(ds, graph, topology, card: str):
         _fail(f"the graph models launched a flash kernel: {_counts()}")
 
 
+# slice 17: the ml arm on the card, at bench_loop.py phase 3's arm settings
+# (bench_loop.py:299-327: algorithm "ml", peer TTL 10 s, GC every 1 s, 1,024
+# peers a task, piece timeout 30 s, Config()'s 16,384 hosts and 4,096 tasks;
+# 10,000 hosts, 32 tasks, simulator seed 2, 64 downloads a round; the
+# embedding refresh inline once, then on the worker every 10 rounds). The
+# ranker is TrainerConfig's hidden 128, 2 layers, bf16, with random seed-0
+# weights (phase 12's). bench_loop runs an arm to max(pieces // 4, 2000)
+# pieces; the timed run is cut to ML_ROUNDS rounds, phase 10's cut
+ML_HOSTS, ML_TASKS, ML_SEED, ML_DOWNLOADS = 10_000, 32, 2, 64
+ML_ROUNDS = 300
+ML_SHADOW_ROUNDS = 100  # the rule arm with the ml shadow: cut to keep the phase near 60 s
+ML_REFRESH_EVERY = 10
+ML_PARITY_ROUNDS = 30
+ML_SCORED_CHUNKS = 4  # the timed run's first chunks, scored again on the CPU
+ML_HOST_ID = "sched-host-1"
+# bf16 ensemble scores on the card against the CPU on one table: the
+# tests' port-vs-reference gap is at most 5.5e-3, and a row whose least gap
+# down to the cut exceeds twice that cannot flip; float32: a flipped row's
+# CPU margin lies under ML_F32_TOL (the scores' CPU-vs-card gap is ~1e-7)
+ML_MARGIN_TOL = 1.2e-2
+ML_F32_TOL = 1e-5
+
+
+def _ml_service(device, evaluator, algorithm="ml", bench_gc=True):
+    """bench_loop's arm: a fresh service and simulator. ``bench_gc=False``
+    keeps Config()'s peer TTL, so that two runs of one seed at different
+    speeds evict alike (the arm's 10 s TTL reads the wall clock)."""
+    from dragonfly2_tpu_torch.cluster.scheduler import SchedulerService
+    from dragonfly2_tpu_torch.cluster.simulator import ClusterSimulator
+    from dragonfly2_tpu_torch.config.config import Config
+
+    cfg = Config()
+    cfg.evaluator.algorithm = algorithm
+    if bench_gc:
+        cfg.scheduler.peer_ttl_seconds = 10.0
+        cfg.scheduler.peer_gc_interval_seconds = 1.0
+    cfg.scheduler.max_peers_per_task = 1024
+    cfg.scheduler.piece_download_timeout_seconds = 30.0
+    svc = SchedulerService(config=cfg, ml_evaluator=evaluator, device=device)
+    sim = ClusterSimulator(svc, num_hosts=ML_HOSTS, num_tasks=ML_TASKS, seed=ML_SEED,
+                           deterministic_peer_ids=True)
+    return svc, sim
+
+
+def _ml_margins(model, table, buf, dims, limit):
+    """Per row of a packed chunk, on the CPU: the least gap between
+    consecutive valid ensemble scores, sorted down, from the first to the
+    (limit + 1)-th (inf where the row has fewer than two)."""
+    import torch
+
+    from dragonfly2_tpu_torch.ops import evaluator as ev
+    from dragonfly2_tpu_torch.registry import serving
+
+    f = ev.unpack_eval_batch(torch.from_numpy(buf), *dims)
+    scores = serving._ml_scores(model, table, f["child_host_slot"], f["cand_host_slot"], f,
+                                "default")
+    mask = ev.filter_candidates(f, f["blocklist"], f["in_degree"], f["can_add_edge"])
+    s = torch.where(mask, scores, -torch.inf).sort(-1, descending=True).values[:, : limit + 1]
+    both = torch.isfinite(s[:, :-1]) & torch.isfinite(s[:, 1:])
+    return torch.where(both, s[:, :-1] - s[:, 1:], torch.inf).min(-1).values
+
+
+def _record_ml_calls(evaluator, calls: list, keep):
+    """Wrap the evaluator's schedule_from_packed to keep (buf, dims,
+    snapshot, limit, read-back) of the calls that pinned a committed
+    snapshot (the ticks), while ``keep(calls)`` allows."""
+    inner = evaluator.schedule_from_packed
+
+    def recorded(buf, b, k, c, l, n, **kw):
+        out = inner(buf, b, k, c, l, n, **kw)
+        snap = kw.get("snap")
+        if getattr(snap, "host_emb", None) is not None and keep(calls):
+            calls.append((np.array(buf, copy=True), (b, k, c, l, n), snap, kw["limit"],
+                          out.cpu().numpy()))
+        return out
+
+    evaluator.schedule_from_packed = recorded
+
+
+def _ml_paired_f32(reg, hidden: int) -> None:
+    """The ml arm at float32, CPU against CUDA, ML_PARITY_ROUNDS rounds
+    with an inline refresh every ML_REFRESH_EVERY, compared chunk by
+    chunk: up to the first chunk that differs every input buffer must be
+    equal; at that chunk each differing row's CPU margin must lie under
+    ML_F32_TOL, and the comparison stops there."""
+    import torch
+
+    from dragonfly2_tpu_torch.models import GraphSAGERanker
+    from dragonfly2_tpu_torch.registry import GNN_MODEL_NAME, MLEvaluator, ModelServer
+
+    runs = {}
+    for device in ("cpu", "cuda"):
+        server = ModelServer(reg, GNN_MODEL_NAME, ML_HOST_ID, "gnn", device=device,
+                             model=GraphSAGERanker(hidden, GRAPH_LAYERS, torch.float32))
+        server.refresh()
+        evaluator = MLEvaluator(server)
+        svc, sim = _ml_service(device, evaluator, bench_gc=False)
+        calls, rounds_of = [], []
+        _record_ml_calls(evaluator, calls, lambda c: True)
+        evaluator.refresh_embeddings(svc.serving_graph_arrays(), wait=True)
+        for r in range(1, ML_PARITY_ROUNDS + 1):
+            _service_round(svc, sim, ML_DOWNLOADS)
+            rounds_of += [r] * (len(calls) - len(rounds_of))
+            if r % ML_REFRESH_EVERY == 0:
+                evaluator.refresh_embeddings(svc.serving_graph_arrays(), wait=True)
+        evaluator.close()
+        runs[device] = (calls, rounds_of, sim.stats)
+    (want, rounds, want_stats), (got, _, got_stats) = runs["cpu"], runs["cuda"]
+    if len(got) != len(want) and got_stats == want_stats:
+        _fail(f"ml f32 paired: {len(got)} vs {len(want)} chunks with equal stats")
+    for i, ((buf, dims, snap, limit, w), (gbuf, _, _, _, g)) in enumerate(zip(want, got)):
+        if not np.array_equal(buf, gbuf):
+            _fail(f"ml f32 paired: chunk {i} (round {rounds[i]}) got another input while every "
+                  "earlier selection was equal")
+        differ = ~(g[..., 0] == w[..., 0]).all(-1)
+        if not differ.any():
+            continue
+        margins = _ml_margins(snap.model, snap.host_emb, buf, dims, limit).numpy()
+        worst = float(margins[differ].max())
+        print(f"ml f32 paired CPU vs CUDA: first difference at chunk {i} (round "
+              f"{rounds[i]}): {int(differ.sum())} rows, their CPU margins at most {worst:.3g} "
+              f"(tolerance {ML_F32_TOL})")
+        if worst >= ML_F32_TOL:
+            _fail(f"ml f32 paired: a row with CPU margin {worst} >= {ML_F32_TOL} differs")
+        return
+    if got_stats != want_stats:
+        _fail(f"ml f32 paired: equal selections but stats {got_stats} vs {want_stats}")
+    print(f"ml f32 paired CPU vs CUDA, {ML_PARITY_ROUNDS} rounds at {ML_HOSTS} hosts: all "
+          f"{len(got)} chunks select alike; pieces {got_stats.pieces}, completed "
+          f"{got_stats.completed}, piece_cost_ns_total {got_stats.piece_cost_ns_total} equal")
+
+
+def phase_ml_arm(card: str):
+    """Slice 17's main path: the ml arm served on the card (see the
+    module docstring, phase 13)."""
+    import copy
+
+    import torch
+
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.models import GraphSAGERanker
+    from dragonfly2_tpu_torch.models.convert import graphsage_params_to_flax
+    from dragonfly2_tpu_torch.objectstorage.backends import FilesystemBackend
+    from dragonfly2_tpu_torch.ops.segment import gather_coo_subgraph
+    from dragonfly2_tpu_torch.registry import (GNN_MODEL_NAME, BucketModelRegistry,
+                                               MLEvaluator, ModelEvaluation, ModelServer,
+                                               serving)
+
+    phase_start = time.perf_counter()
+    hidden = TrainerConfig().hidden_dim
+    model = GraphSAGERanker(hidden, GRAPH_LAYERS).reset_parameters(
+        torch.Generator().manual_seed(SEED)).cuda()
+    _zero_counts()
+    _zero_wide_counts()
+    with tempfile.TemporaryDirectory() as root:
+        reg = BucketModelRegistry(FilesystemBackend(root), "models")
+        tree = graphsage_params_to_flax(model)
+        meta = {"hidden_dim": hidden, "num_layers": GRAPH_LAYERS}
+        v1 = reg.create_model_version(GNN_MODEL_NAME, "gnn", ML_HOST_ID, tree, ModelEvaluation(),
+                                      metadata=meta)
+        reg.activate(v1.model_id, v1.version)
+        server = ModelServer(reg, GNN_MODEL_NAME, ML_HOST_ID, "gnn")
+        if not server.refresh() or server.device.type != "cuda":
+            _fail("the gnn ModelServer served nothing on the card")
+        if any(not torch.equal(server.params[k], v) for k, v in model.state_dict().items()):
+            _fail("the served weights are not the published ones")
+        evaluator = MLEvaluator(server)
+        svc, sim = _ml_service("cuda", evaluator)
+        start = time.perf_counter()
+        evaluator.refresh_embeddings(svc.serving_graph_arrays(), wait=True)
+        first_s = time.perf_counter() - start
+        if evaluator.committed_versions[-1] != (v1.version, 1):
+            _fail(f"the first refresh committed {list(evaluator.committed_versions)}")
+
+        # the activation gate: a NaN-poisoned v2 never serves
+        poisoned = copy.deepcopy(tree)
+        poisoned["params"]["sage_0"]["self"]["kernel"][0, 0] = np.nan
+        v2 = reg.create_model_version(GNN_MODEL_NAME, "gnn", ML_HOST_ID, poisoned,
+                                      ModelEvaluation(), metadata=meta)
+        reg.activate(v2.model_id, v2.version)
+        if not server.refresh() or server.version != v2.version:
+            _fail("the server did not load the poisoned version")
+        evaluator.refresh_embeddings(svc.serving_graph_arrays(), wait=True)
+        snap = evaluator.serving_snapshot()
+        active = reg.active_version(v1.model_id).version
+        rejected = evaluator._metrics.activation_rejected.value("nonfinite_params")
+        if (evaluator.rejection_count != 1 or snap.params_version != v1.version
+                or active != v1.version or rejected < 1):
+            _fail(f"the gate let v2 through: rejections {evaluator.rejection_count}, serving "
+                  f"v{snap.params_version}, registry active v{active}")
+        if not server.refresh() or server.version != v1.version:
+            _fail("the server did not fall back to v1")
+        print(f"ml arm: GraphSAGERanker hidden {hidden}, {GRAPH_LAYERS} layers, bf16, published "
+              f"as {v1.model_id} v1 and served on the card (first inline refresh {first_s:.3f} s, "
+              f"table {tuple(snap.host_emb.shape)}); a NaN-poisoned v2 rejected by the gate "
+              f"(nonfinite_params counted {rejected:.0f}), serving stayed on v{snap.params_version} "
+              f"(emb v{snap.emb_version}), the registry fell back to v{active}, the server "
+              f"reloaded v{server.version}")
+
+        # the timed ml arm, as bench_loop's: the counters reset after the
+        # warm refresh, every later refresh on the worker
+        evaluator.refresh_blocking_s = evaluator.refresh_compute_s = 0.0
+        evaluator.refresh_count = evaluator.incremental_refresh_count = 0
+        chunks = []
+        _record_ml_calls(evaluator, chunks, lambda c: len(c) < ML_SCORED_CHUNKS)
+        start = time.perf_counter()
+        svc.warmup()
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - start
+        ticks, graph_ms, enqueue_ms = [], [], []
+        start = time.perf_counter()
+        for r in range(1, ML_ROUNDS + 1):
+            ticks.append(_service_round(svc, sim, ML_DOWNLOADS)[0])
+            if r == ML_SHADOW_ROUNDS:  # the rule arm's run ends here
+                at_cut = sim.stats.piece_cost_ns_total / max(sim.stats.pieces, 1) / 1e6
+            if r % ML_REFRESH_EVERY == 0:
+                t0 = time.perf_counter()
+                graph = svc.serving_graph_arrays()
+                t1 = time.perf_counter()
+                evaluator.refresh_embeddings(graph)
+                graph_ms.append((t1 - t0) * 1e3)
+                enqueue_ms.append((time.perf_counter() - t1) * 1e3)
+        wall = time.perf_counter() - start
+        evaluator.close(drain=True)
+        st = sim.stats
+        p50, p99 = statistics.median(ticks), sorted(ticks)[int(0.99 * (len(ticks) - 1))]
+        ml_cost = st.piece_cost_ns_total / max(st.pieces, 1) / 1e6
+        print(f"ml arm on the card ({ML_HOSTS} hosts, {ML_TASKS} tasks, seed {ML_SEED}, "
+              f"{ML_DOWNLOADS} downloads a round, fused tick {svc._tick_mirror is not None}; "
+              f"warmup {warmup_s:.2f} s): {ML_ROUNDS} rounds in {wall:.2f} s, {st.pieces} pieces "
+              f"= {st.pieces / wall:.1f} pieces/s, mean piece cost {ml_cost:.4f} ms; tick p50 "
+              f"{p50:.3f} ms, p99 {p99:.3f} ms (host clock); completed {st.completed}, back to "
+              f"source {st.back_to_source}; served from {evaluator.last_used_versions} ({card})")
+        print("ml arm tick phases, median ms over the timed rounds: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in svc.recorder.phase_p50s(ML_ROUNDS).items()))
+        print(f"ml arm refreshes on the worker: {evaluator.refresh_count} "
+              f"({evaluator.incremental_refresh_count} incremental), refresh_blocking_s "
+              f"{evaluator.refresh_blocking_s:.4f}, refresh_compute_s "
+              f"{evaluator.refresh_compute_s:.4f}; serving_graph_arrays {sum(graph_ms):.1f} ms "
+              f"over {len(graph_ms)} calls (median {statistics.median(graph_ms):.3f}, "
+              f"{graph['edge_src'].shape[0]} padded edges at the last), the enqueue "
+              f"{sum(enqueue_ms):.3f} ms in all (host clock)")
+        if evaluator.refresh_count == 0 or evaluator.last_used_versions[0] != v1.version:
+            _fail("the ml arm refreshed nothing on the worker or did not serve v1")
+
+        # the timed run's first chunks, again on the CPU on the same table
+        inside, rows, worst = 0, 0, 0.0
+        for buf, dims, snap, limit, got in chunks:
+            cpu_model, cpu_table = copy.deepcopy(snap.model).cpu(), snap.host_emb.cpu()
+            want = serving._ml_schedule_from_packed(cpu_model, cpu_table, buf, *dims,
+                                                    limit).numpy()
+            margins = _ml_margins(cpu_model, cpu_table, buf, dims, limit).numpy()
+            wide = margins > ML_MARGIN_TOL
+            same = (got[..., 0] == want[..., 0]).all(-1)
+            if not same[wide].all():
+                _fail(f"ml scoring: {int((~same[wide]).sum())} rows outside the margin "
+                      f"{ML_MARGIN_TOL} select otherwise on the card")
+            sel = got[..., 0] >= 0
+            worst = max(worst, float(np.abs(got[..., 1][sel] - want[..., 1][sel]).max()))
+            inside += int((~wide).sum())
+            rows += dims[0]
+        print(f"ml scoring of {len(chunks)} chunks ({rows} rows), card vs CPU on the same "
+              f"table: selections equal on every row outside the margin {ML_MARGIN_TOL} "
+              f"({inside} rows inside it), selected scores within {worst:.3g}")
+
+        # the incremental refresh against the full embed
+        for _ in range(2):
+            _service_round(svc, sim, ML_DOWNLOADS)
+        graph = svc.serving_graph_arrays()
+        n = graph["node_feats"].shape[0]
+        dirty = graph["dirty_slots"]
+        old = evaluator.serving_snapshot().host_emb.clone()
+        if len(dirty) == 0 or old.shape[0] != n:
+            _fail(f"no frontier to refresh ({len(dirty)} dirty, table {old.shape[0]} vs {n})")
+        evaluator.INCREMENTAL_MAX_FRAC = 1.0
+        count = evaluator.incremental_refresh_count
+        start = time.perf_counter()
+        evaluator.refresh_embeddings(dict(graph, full_sync=False), wait=True)
+        inc_s = time.perf_counter() - start
+        if evaluator.incremental_refresh_count != count + 1:
+            _fail("the frontier's refresh did not take the incremental path")
+        fresh = evaluator.serving_snapshot().host_emb
+        start = time.perf_counter()
+        full = server.embed_hosts(graph)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - start
+        sub = gather_coo_subgraph(graph["edge_src"], graph["edge_dst"], dirty, n, max_frac=1.0)
+        targets = torch.from_numpy(sub["target_global"][sub["target_global"] < n]).long()
+        kept = torch.ones(n, dtype=torch.bool)
+        kept[targets] = False
+        if not torch.equal(fresh.cpu()[kept], old.cpu()[kept]):
+            _fail("the incremental refresh changed a row outside its targets")
+        err = _hold("incremental refresh vs the full embed", fresh.cpu()[targets],
+                    full.cpu()[targets])
+        print(f"ml incremental refresh of {len(dirty)} dirty hosts: {len(targets)} target rows "
+              f"within {err:.4g} of the full embed (atol {GRAPH_ATOL}, rtol {GRAPH_RTOL}), the "
+              f"other {int(kept.sum())} rows unchanged bit for bit; {inc_s * 1e3:.3f} ms inline "
+              f"against {full_s * 1e3:.3f} ms for the full embed (host clock)")
+        _profile_rounds(svc, sim, "ml arm")
+        del svc, sim
+
+        # the rule arm at the same seed with the evaluator attached: its ml
+        # shadow re-scores every tick's batch from the fused program's buffer
+        svc, sim = _ml_service("cuda", evaluator, algorithm="default")
+        evaluator.refresh_embeddings(svc.serving_graph_arrays(), wait=True)
+        svc.warmup()
+        if not svc._shadow_ml_ready:
+            _fail("warmup did not ready the ml shadow arm")
+        ticks = []
+        start = time.perf_counter()
+        for _ in range(ML_SHADOW_ROUNDS):
+            ticks.append(_service_round(svc, sim, ML_DOWNLOADS)[0])
+        wall = time.perf_counter() - start
+        st = sim.stats
+        led = svc.decisions.counters()
+        shadow = [ph["shadow_score"] for ph in svc.recorder.snapshot(ML_SHADOW_ROUNDS)
+                  if "shadow_score" in ph]
+        cost = st.piece_cost_ns_total / max(st.pieces, 1) / 1e6
+        print(f"rule arm with the ml shadow ({ML_HOSTS} hosts, {ML_TASKS} tasks, seed {ML_SEED}, "
+              f"fused tick {svc._tick_mirror is not None}): {ML_SHADOW_ROUNDS} rounds in "
+              f"{wall:.2f} s, "
+              f"{st.pieces} pieces = {st.pieces / wall:.1f} pieces/s (the shadow's work "
+              f"included), mean piece cost {cost:.4f} ms (the ml arm's {at_cut:.4f} over its "
+              f"first {ML_SHADOW_ROUNDS} rounds); tick p50 "
+              f"{statistics.median(ticks):.3f} ms; shadow_compared {led['shadow_compared']}, "
+              f"shadow_top1_disagree {led['shadow_top1_disagree']}, shadow_score median "
+              f"{statistics.median(shadow) if shadow else float('nan'):.3f} ms a tick")
+        if led["shadow_compared"] == 0:
+            _fail("the ml shadow compared nothing")
+        del svc, sim
+
+        _ml_paired_f32(reg, hidden)
+    if any(_counts().values()) or any(_wide_counts().values()):
+        _fail(f"the ml arm launched a flash kernel: {_counts()}")
+    print(f"ml arm phase: {time.perf_counter() - phase_start:.1f} s")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--threshold", action="store_true",
@@ -3776,6 +4132,7 @@ def main() -> None:
     phase_scheduler_service(card)
     topology = phase_scheduler_nt(card)
     phase_graph_models(ds, graph, topology, card)
+    phase_ml_arm(card)
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]

@@ -2,7 +2,9 @@
 batched device evaluator.
 
 Port of dragonfly2_tpu/cluster/scheduler.py for the rule arm (``default``
-and ``nt``), line for line where the logic is host code. What differs:
+and ``nt``) and the ml arm (``ml``, an ``MLEvaluator`` of
+registry/serving.py), line for line where the logic is host code. What
+differs:
 
 - the device programs are the port's (ops/evaluator.py, ops/tick.py),
   run on ``device`` (the card unless ``device="cpu"``); the reference's
@@ -10,17 +12,15 @@ and ``nt``), line for line where the logic is host code. What differs:
   never reads a tensor back, its drain makes the one read-back
   (``_to_host``);
 - nothing compiles, so ``warmup`` runs each bucket's program once and
-  drains no cost cards;
-- ``probes`` is the port's ``cluster/probes.ProbeStore`` on the
-  service's device (another device raises);
-- constructor values that need a module not ported yet raise
-  ``NotImplementedError`` naming its ROADMAP item: ``ml_evaluator`` or
-  ``algorithm="ml"`` (A7), ``algorithm="plugin"`` (A9); so does
-  ``flight_dump`` (A10). The ml arm (its packed transport
-  and the counterfactual shadow arm, which needs an ml snapshot to score
-  the rule arm's batches against) is not ported here: A7 ports it with
-  ``MLEvaluator``. Without it the reference's shadow arm never runs, so
-  ``shadow_scoring`` changes nothing in the port.
+  drains no cost cards; the ml shadow arm's readiness gate
+  (``_shadow_ml_ready``) and its background warm thread
+  (``eval-warmup-shadow``) stay, so the shadow arm starts on the tick the
+  reference's does;
+- ``probes`` is the port's ``cluster/probes.ProbeStore`` and
+  ``ml_evaluator`` the port's ``MLEvaluator``, each on the service's
+  device (another device raises);
+- ``algorithm="plugin"`` raises ``NotImplementedError`` naming its
+  ROADMAP item (A9); so does ``flight_dump`` (A10).
 
 Capability parity with scheduler/service/service_v2.go (AnnouncePeer
 dispatch :89-204, handleRegisterPeerRequest :820 with size-scope fast
@@ -144,10 +144,6 @@ class SchedulerService:
 
         self.config = config or Config()
         algorithm = self.config.evaluator.algorithm
-        if ml_evaluator is not None or algorithm == "ml":
-            raise NotImplementedError(
-                "the ml arm (ml_evaluator, algorithm='ml') needs the port's MLEvaluator, "
-                "not ported yet (ROADMAP A7)")
         if algorithm == "plugin":
             raise NotImplementedError(
                 "algorithm='plugin' needs utils/plugins, not ported yet (ROADMAP A9)")
@@ -157,6 +153,9 @@ class SchedulerService:
         if probes is not None and probes.device != self.device:
             raise ValueError(
                 f"the probe store is on {probes.device}, the service on {self.device}")
+        if ml_evaluator is not None and ml_evaluator.device != self.device:
+            raise ValueError(
+                f"the ml evaluator is on {ml_evaluator.device}, the service on {self.device}")
         native.ensure_built()  # one-time; cycle checks ride the native path
         sched = self.config.scheduler
         self.state = ClusterState(
@@ -167,6 +166,7 @@ class SchedulerService:
         )
         self.storage = storage
         self.probes = probes
+        self.ml_evaluator = ml_evaluator
         self.rng = np.random.default_rng(seed)
         self._last_storage_flush = 0.0
         # In-product flight recorder for the tick's per-phase wall times
@@ -204,11 +204,12 @@ class SchedulerService:
         # gather → scoring → selection run as ONE donated bucket-padded
         # dispatch per chunk; only DAG legality, blocklist resolution and
         # response emission stay host-side. Eligibility is decided once —
-        # every input is fixed at construction: the probed-nt arm needs
-        # the host-side RTT gather the fused program deliberately excludes
-        # (nt WITHOUT probes zero-fills RTT on both paths, so it stays
-        # eligible). fused_tick=False keeps the numpy fill + packed
-        # transport as the decision-equivalence oracle.
+        # every input is fixed at construction: the ml arm keeps its own
+        # transport, and the probed-nt arm needs the host-side RTT gather
+        # the fused program deliberately excludes (nt WITHOUT probes
+        # zero-fills RTT on both paths, so it stays eligible).
+        # fused_tick=False keeps the numpy fill + packed transport as the
+        # decision-equivalence oracle.
         self.fused_tick = bool(getattr(sched, "fused_tick", True))
         self._tick_mirror = None
         self._fused_dirty_tasks: set[str] = set()
@@ -312,15 +313,23 @@ class SchedulerService:
         # Decision provenance ledger (telemetry/decisions.py): every
         # applied selection's candidate set + feature rows + scores +
         # chosen parent, joined to outcomes as terminal peer events
-        # land (the reference also attaches the inactive arm's shadow
-        # ranking, which needs the ml arm, A7). Resolvers bind to ClusterState only (no
+        # land, with the inactive arm's counterfactual shadow ranking
+        # attached per tick. Resolvers bind to ClusterState only (no
         # cycle through the service); the weak name registry serves the
         # process-wide /debug/flight dump.
         self.decisions = None
         self._tick_counter = 0
+        self.shadow_scoring = bool(getattr(sched, "shadow_scoring", True))
+        # ml-as-shadow readiness gate: the ml packed program runs once OFF
+        # the tick path before the shadow arm may use it — warmup() runs
+        # it when a snapshot already serves; a snapshot committing LATER
+        # triggers a one-shot background warm. Nothing compiles here, but
+        # the gate keeps the reference's order of events: the shadow arm
+        # starts on the tick the reference's does.
+        self._shadow_ml_ready = False
+        self._shadow_warm_thread: threading.Thread | None = None
         # Streaming SLO engine on the WALL clock (telemetry/slo.py):
-        # tick-latency and breaker-census SLIs observed (shadow regret
-        # needs the shadow arm, A7)
+        # tick-latency, shadow-regret and breaker-census SLIs observed
         # per tick under mu, burn-rate alerts feeding the process
         # /debug/health verdict plane. The megascale lab runs its OWN
         # engine on the event clock (megascale/engine.py) — this one is
@@ -329,6 +338,8 @@ class SchedulerService:
         self._slo_tick_budget_ms = float(
             getattr(sched, "slo_tick_budget_ms", 250.0)
         )
+        self._slo_prev_shadow = (0, 0)  # (compared, disagree) counters
+        self._slo_regret_losing = False
         if getattr(sched, "slo_enabled", True):
             from dragonfly2_tpu_torch.telemetry.slo import SLOEngine, scheduler_slo_specs
 
@@ -1190,13 +1201,22 @@ class SchedulerService:
         """Run the serving device programs once for every batch bucket,
         on zero-filled throwaway inputs, so the first serving tick pays
         no first-use cost (the card's context and the allocator's pools).
-        Safe to run from a background thread: it touches no service
-        state."""
+        The inactive arm's program runs too when shadow scoring is on: the
+        rule twin always, the ml twin once a snapshot has committed (it
+        then marks the ml shadow arm ready). Safe to run from a background
+        thread: it touches no service state but that flag, under mu."""
         from dragonfly2_tpu_torch.records.features import CandidateFeatures
 
         k = self.config.scheduler.filter_parent_limit
         limit = self.config.scheduler.candidate_parent_limit
         algorithm = self.algorithm if self.algorithm in ("default", "nt") else "default"
+        use_ml = self.ml_evaluator is not None and self.algorithm == "ml"
+        shadow_on = self.decisions is not None and self.shadow_scoring
+        warm_rule_shadow = shadow_on and use_ml
+        warm_ml_shadow = (
+            shadow_on and not use_ml and self.ml_evaluator is not None
+            and self.ml_evaluator.serving_snapshot() is not None
+        )
         for bsz in _EVAL_BUCKETS:
             feats = CandidateFeatures.zeros(bsz, k, self.state.piece_cost_capacity)
             fd = feats.as_dict()
@@ -1204,16 +1224,30 @@ class SchedulerService:
             l = fd["parent_location"].shape[-1]
             n = fd["numeric"].shape[-1]
             buf = ev.pack_eval_batch(fd)
-            out = ev.schedule_from_packed(
-                buf, bsz, k, c, l, n, algorithm=algorithm, limit=limit,
-                device=self.device,
-            )
+            if use_ml:
+                out = self.ml_evaluator.schedule_from_packed(buf, bsz, k, c, l, n, limit=limit)
+            else:
+                out = ev.schedule_from_packed(
+                    buf, bsz, k, c, l, n, algorithm=algorithm, limit=limit,
+                    device=self.device,
+                )
             _to_host(out)  # the program has run to its end
+            if warm_ml_shadow:
+                _to_host(self.ml_evaluator.schedule_from_packed(
+                    buf, bsz, k, c, l, n, limit=limit, record_used=False))
+            elif warm_rule_shadow:
+                fb = self.ml_evaluator.fallback
+                _to_host(ev.schedule_from_packed(
+                    buf, bsz, k, c, l, n, algorithm=fb if fb in ("default", "nt") else "default",
+                    limit=limit, device=self.device,
+                ))
         if self._tick_mirror is not None:
             # Fused-tick warms (ops/tick.py): the fused program for every
-            # bucket and the mirror's scatter signatures — all on
-            # zero-filled throwaway arrays, never the live mirror, so this
-            # stays background-thread safe like the rest of warmup.
+            # bucket (+ its emit_packed variant feeding the ml shadow
+            # entry, when a snapshot already serves) and the mirror's
+            # scatter signatures — all on zero-filled throwaway arrays,
+            # never the live mirror, so this stays background-thread safe
+            # like the rest of warmup.
             from dragonfly2_tpu_torch.ops import tick as tk
 
             cols = tk.warm_cols(self.state, self._dag_capacity, device=self.device)
@@ -1228,10 +1262,76 @@ class SchedulerService:
                     emit_led=emit_led, emit_packed=False,
                 )
                 _to_host(out)
+                if warm_ml_shadow:
+                    out, _sbuf = tk.fused_tick_chunk(
+                        tk.warm_inputs(bsz, k), cols, bsz, k, cost_c,
+                        loc_l, num_n, algorithm=algorithm, limit=limit,
+                        emit_led=emit_led, emit_packed=True,
+                    )
+                    _to_host(out)
             tk.warm_scatters(self.state, self._dag_capacity, device=self.device)
+        if warm_ml_shadow:
+            with self.mu:
+                self._shadow_ml_ready = True
         # The reference drains its cost-card captures here (the one-time
         # duplicate compile per bucket signature). PyTorch compiles
         # nothing, so there is nothing to drain.
+
+    def _ensure_shadow_warm(self) -> None:
+        """Spawn the one-shot background warm of the ml shadow entry
+        (caller holds service.mu). Idempotent: a live warm thread or a
+        ready flag makes this a no-op."""
+        t = self._shadow_warm_thread
+        if self._shadow_ml_ready or (t is not None and t.is_alive()):
+            return
+        t = threading.Thread(
+            target=self._warm_shadow_ml, name="eval-warmup-shadow",
+            daemon=True,
+        )
+        self._shadow_warm_thread = t
+        t.start()
+
+    def _warm_shadow_ml(self) -> None:
+        """Run the ml packed program for every bucket on a background
+        thread (the warmup() discipline for a snapshot that committed
+        AFTER cold start): touches only zero-filled local arrays, no
+        service state; flips _shadow_ml_ready under mu when every bucket
+        has run."""
+        from dragonfly2_tpu_torch.records.features import CandidateFeatures
+
+        try:
+            k = self.config.scheduler.filter_parent_limit
+            limit = self.config.scheduler.candidate_parent_limit
+            for bsz in _EVAL_BUCKETS:
+                fd = CandidateFeatures.zeros(bsz, k, self.state.piece_cost_capacity).as_dict()
+                c = fd["piece_costs"].shape[-1]
+                l = fd["parent_location"].shape[-1]
+                n = fd["numeric"].shape[-1]
+                _to_host(self.ml_evaluator.schedule_from_packed(
+                    ev.pack_eval_batch(fd), bsz, k, c, l, n, limit=limit, record_used=False))
+                if self._tick_mirror is not None:
+                    # the first shadowed FUSED tick needs the emit_packed
+                    # variant of the fused program too (ops/tick.py)
+                    from dragonfly2_tpu_torch.ops import tick as tk
+
+                    fout, _sbuf = tk.fused_tick_chunk(
+                        tk.warm_inputs(bsz, k),
+                        tk.warm_cols(self.state, self._dag_capacity, device=self.device),
+                        bsz, k, c, l, n,
+                        algorithm=(
+                            self.algorithm if self.algorithm in ("default", "nt")
+                            else "default"
+                        ),
+                        limit=limit,
+                        emit_led=self.decisions is not None,
+                        emit_packed=True,
+                    )
+                    _to_host(fout)
+        except Exception:  # noqa: BLE001 - shadow stays off; serving unaffected
+            logger.exception("background shadow warm failed")
+            return
+        with self.mu:
+            self._shadow_ml_ready = True
 
     def tick(self) -> list:
         """Run ONE batched scheduling round over every pending peer.
@@ -1254,37 +1354,74 @@ class SchedulerService:
         showed they were not.
         """
         t0 = time.perf_counter()
+        refresh_regret = False
         with self.mu:
             responses = self._tick_locked()
             if self.slo is not None:
                 try:
-                    self._observe_slo((time.perf_counter() - t0) * 1e3)
+                    refresh_regret = self._observe_slo((time.perf_counter() - t0) * 1e3)
                 except Exception:  # noqa: BLE001 - telemetry must not break the tick
-                    pass
+                    refresh_regret = False
+        if refresh_regret:
+            try:
+                self._refresh_slo_regret()
+            except Exception:  # noqa: BLE001 - telemetry must not break the tick
+                pass
         return responses
 
-    def _observe_slo(self, tick_ms: float) -> None:
-        """Feed the live SLO engine one tick's SLIs (caller holds mu).
+    def _observe_slo(self, tick_ms: float) -> bool:
+        """Feed the live SLO engine one tick's SLIs (caller holds mu —
+        the delta bookkeeping below must stay single-writer under the
+        same lock that serializes ticks).
 
         - tick_latency: the whole-tick wall time against the configured
           budget (the PhaseRecorder ring carries the same tick's phase
           split; this is its end-to-end sum including lock wait — the
           latency a caller actually observed);
+        - shadow_regret: new shadow comparisons from the decision
+          ledger; disagreements count against the budget only while the
+          measured fail-rate regret says the active arm is LOSING;
         - breakers: the process-wide open-breaker census.
 
-        The reference's third SLI, shadow_regret, reads the shadow arm's
-        comparisons, which need the ml arm (ROADMAP A7); without it the
-        reference observes nothing there either. Stepped on the wall
-        clock in minutes (perf_counter; this engine never rides replay
-        surfaces)."""
+        Stepped on the wall clock in minutes (perf_counter; this engine
+        never rides replay surfaces). Returns True when the regret sign is
+        due for re-estimation — that ledger ring scan is too heavy for
+        this critical section, so tick() runs it AFTER releasing mu
+        (_refresh_slo_regret)."""
         slo = self.slo
         over = tick_ms > self._slo_tick_budget_ms
         slo.observe("tick_latency", good=0 if over else 1, bad=1 if over else 0)
+        refresh = False
+        led = self.decisions
+        if led is not None:
+            c = led.counters()
+            compared, disagree = c["shadow_compared"], c["shadow_top1_disagree"]
+            prev_c, prev_d = self._slo_prev_shadow
+            d_comp, d_dis = compared - prev_c, disagree - prev_d
+            self._slo_prev_shadow = (compared, disagree)
+            if d_comp > 0:
+                bad = d_dis if self._slo_regret_losing else 0
+                slo.observe("shadow_regret", good=max(d_comp - bad, 0), bad=bad)
+            refresh = self._tick_counter % 64 == 0
         from dragonfly2_tpu_torch.rpc.resilience import open_breaker_census
 
         open_b = open_breaker_census()
         slo.observe("breakers", good=0 if open_b else 1, bad=open_b)
         slo.step(time.perf_counter() / 60.0)
+        return refresh
+
+    def _refresh_slo_regret(self) -> None:
+        """Re-estimate the shadow-regret sign OUTSIDE mu: the ledger
+        report walks the divergence/outcome rings (a real scan at 4096
+        capacity), the ledger has its own lock, and the result is one
+        GIL-atomic bool the next tick's _observe_slo reads — a one-tick
+        lag in the sign is harmless, a ring scan inside the serving
+        critical section is not."""
+        led = self.decisions
+        if led is None:
+            return
+        regret = led.report().get("regret_fail_rate")
+        self._slo_regret_losing = regret is not None and regret > 0.0
 
     def _tick_locked(self) -> list:
         recorder = self.recorder
@@ -1377,23 +1514,74 @@ class SchedulerService:
         loc_l = fd["parent_location"].shape[-1]
         num_n = fd["numeric"].shape[-1]
         algorithm = self.algorithm if self.algorithm in ("default", "nt") else "default"
+        use_ml = self.ml_evaluator is not None and self.algorithm == "ml"
+        # Pin ONE serving snapshot for the whole tick: the background
+        # refresh may commit between two chunks of the same batch, and
+        # peers of one tick must be ranked against one embedding table
+        # (pinning None keeps later chunks on the fallback path too). The
+        # pinned snapshot stays referenced until the tick's last drain.
+        ml_snap = self.ml_evaluator.serving_snapshot() if use_ml else None
+
+        # Decision-ledger context + counterfactual shadow arm. The arm
+        # that actually scores this tick is attributed honestly: an ml
+        # tick without a committed snapshot serves the rule fallback and
+        # is recorded as such. The shadow arm is the INACTIVE one — the
+        # rule blend when ml serves, the committed ml snapshot when the
+        # rule does — re-scoring the same packed candidate batch;
+        # nothing when no inactive arm exists (rule active, no served
+        # snapshot).
+        arm_code = ARM_CODES["ml"] if use_ml and ml_snap is not None else ARM_CODES[algorithm]
+        shadow_mode = None
+        shadow_alg = "default"
+        shadow_snap = None
+        shadow_arm_code = -1
+        shadow_due = (
+            self._tick_counter
+            % max(int(getattr(self.config.scheduler, "shadow_every", 1)), 1)
+            == 0
+        )
+        if led is not None and self.shadow_scoring and shadow_due:
+            if use_ml and ml_snap is not None:
+                fb = self.ml_evaluator.fallback
+                shadow_alg = fb if fb in ("default", "nt") else "default"
+                shadow_mode = "rule"
+                shadow_arm_code = ARM_CODES[shadow_alg]
+            elif not use_ml and self.ml_evaluator is not None:
+                shadow_snap = self.ml_evaluator.serving_snapshot()
+                if shadow_snap is not None:
+                    if self._shadow_ml_ready:
+                        shadow_mode = "ml"
+                        shadow_arm_code = ARM_CODES["ml"]
+                    else:
+                        # snapshot committed after warmup (or warmup
+                        # never ran): run the ml packed program once on a
+                        # background thread; shadow stays off until then
+                        self._ensure_shadow_warm()
         # Decision-ledger context: the apply paths record every applied
         # row under the arm that scored it
         led_ctx = None
         if led is not None:
             led_ctx = {
                 "tick": self._tick_counter,
-                "arm": ARM_CODES[algorithm],
+                "arm": arm_code,
                 "feats": led_feats,
                 "child_peer_idx": child_peer_idx,
                 "child_host_slots": child_host_slots,
                 "cand_host_slots": cand_host_slots,
+                # per-row ledger ring slot + its seq, filled by the
+                # apply paths so the end-of-tick shadow drain can join
+                # row-for-row (the seq guards against a mid-tick ring
+                # wrap reassigning a slot to a later decision)
+                "slot_of_row": np.full(b, -1, np.int64),
+                "seq_of_row": np.full(b, -1, np.int64),
             }
+        shadow_inflight: list[tuple[int, int, object]] = []
 
         def _dispatch_chunk(s: int, e: int):
             """Pack rows [s:e) and dispatch their device call WITHOUT
             blocking on the result (stream-ordered launches): the returned
-            value is an in-flight device tensor the drain step reads."""
+            value is an in-flight device tensor the drain step reads, with
+            the shadow arm's re-score of the same rows when it is on."""
             bsz = _bucket_rows(e - s)
             buf = ev.pack_eval_batch(
                 {name: _pad_rows(v[s:e], bsz) for name, v in fd.items()},
@@ -1404,12 +1592,48 @@ class SchedulerService:
                 cand_host_slot=_pad_rows(cand_host_slots[s:e], bsz),
             )
             recorder.mark("pack")
-            packed = ev.schedule_from_packed(
-                buf, bsz, k, cost_c, loc_l, num_n,
-                algorithm=algorithm, limit=limit, device=self.device,
-            )
+            sbuf = None
+            if shadow_mode is not None:
+                # The shadow arm scores the SAME packed batch from its own
+                # staging buffer, copied before the active call, as the
+                # reference copies it before its donating call. Copy wall
+                # is credited to the shadow_score phase, never to
+                # pack/dispatch.
+                t_sh = time.perf_counter()
+                sbuf = buf.copy()
+                recorder.add("shadow_score", (time.perf_counter() - t_sh) * 1e3)
+                recorder.sync()
+            if use_ml:
+                packed = self.ml_evaluator.schedule_from_packed(
+                    buf, bsz, k, cost_c, loc_l, num_n, limit=limit, snap=ml_snap,
+                )
+            else:
+                packed = ev.schedule_from_packed(
+                    buf, bsz, k, cost_c, loc_l, num_n,
+                    algorithm=algorithm, limit=limit, device=self.device,
+                )
             recorder.mark("dispatch")
-            return packed
+            shadow_packed = None
+            if sbuf is not None:
+                # Counterfactual dispatch AFTER the active chunk's (the
+                # serving call keeps priority); its read-back waits for
+                # the end-of-tick drain valve (_drain_shadow).
+                t_sh = time.perf_counter()
+                if shadow_mode == "ml":
+                    # record_used=False: a counterfactual re-score must
+                    # not claim the ml version SERVED this tick
+                    shadow_packed = self.ml_evaluator.schedule_from_packed(
+                        sbuf, bsz, k, cost_c, loc_l, num_n, limit=limit,
+                        snap=shadow_snap, record_used=False,
+                    )
+                else:
+                    shadow_packed = ev.schedule_from_packed(
+                        sbuf, bsz, k, cost_c, loc_l, num_n,
+                        algorithm=shadow_alg, limit=limit, device=self.device,
+                    )
+                recorder.add("shadow_score", (time.perf_counter() - t_sh) * 1e3)
+                recorder.sync()
+            return packed, shadow_packed
 
         def _drain_chunk(s: int, e: int, packed, overlapped: bool) -> None:
             """Block on chunk [s:e)'s D2H, then apply its selections.
@@ -1485,7 +1709,11 @@ class SchedulerService:
         in_flight: tuple | None = None
         for s, e in spans:
             t0 = time.perf_counter()
-            packed = _dispatch_chunk(s, e)
+            packed, shadow_packed = _dispatch_chunk(s, e)
+            if shadow_packed is not None:
+                # in-flight counterfactual result; drained once, at the
+                # end-of-tick valve, never between chunks
+                shadow_inflight.append((s, e, shadow_packed))
             if in_flight is not None:
                 # this chunk's pack+dispatch ran while the previous
                 # chunk's device call was in flight — overlapped host work
@@ -1493,6 +1721,11 @@ class SchedulerService:
                 _drain_chunk(*in_flight, overlapped=True)
             in_flight = (s, e, packed)
         _drain_chunk(*in_flight, overlapped=False)
+        if shadow_inflight and led_ctx is not None:
+            self._drain_shadow(
+                shadow_inflight, led_ctx["slot_of_row"],
+                led_ctx["seq_of_row"], shadow_arm_code,
+            )
         # Aggregate phases for the operator-facing comparison (satellite:
         # control_dispatch is a REAL recorded phase now, not bench_loop's
         # trivial-dispatch link-RTT probe): control_dispatch sums the
@@ -1618,6 +1851,32 @@ class SchedulerService:
         algorithm = (
             self.algorithm if self.algorithm in ("default", "nt") else "default"
         )
+        # Counterfactual shadow arm: fused eligibility already excludes
+        # the ml active arm, so the only possible shadow is the committed
+        # ml snapshot re-scoring the same candidate batch — fed from the
+        # pack-identical buffer the fused program emits ON DEVICE
+        # (emit_packed), through the ml packed entry.
+        shadow_mode = None
+        shadow_snap = None
+        shadow_arm_code = -1
+        shadow_due = (
+            self._tick_counter
+            % max(int(getattr(self.config.scheduler, "shadow_every", 1)), 1)
+            == 0
+        )
+        if (
+            led is not None
+            and self.shadow_scoring
+            and shadow_due
+            and self.ml_evaluator is not None
+        ):
+            shadow_snap = self.ml_evaluator.serving_snapshot()
+            if shadow_snap is not None:
+                if self._shadow_ml_ready:
+                    shadow_mode = "ml"
+                    shadow_arm_code = ARM_CODES["ml"]
+                else:
+                    self._ensure_shadow_warm()
         # Whole-batch result arrays the per-chunk drains fill: the apply
         # path (_apply_chunk_batch, UNCHANGED from the oracle) and the
         # ledger indexing read full-batch arrays by row.
@@ -1636,6 +1895,8 @@ class SchedulerService:
                 "child_peer_idx": child_peer_idx,
                 "child_host_slots": st.peer_host[child_peer_idx].astype(np.int32),
                 "cand_host_slots": cand_host_slots,
+                "slot_of_row": np.full(b, -1, np.int64),
+                "seq_of_row": np.full(b, -1, np.int64),
             }
         # Mirror sync: fold every dirty peer row / dirty task slot table /
         # changed host column into the device mirrors and snapshot this
@@ -1647,10 +1908,13 @@ class SchedulerService:
         recorder.add("fused_dispatch", (time.perf_counter() - t0) * 1e3)
         recorder.sync()
         qskip_total = 0
+        shadow_inflight: list[tuple[int, int, object]] = []
 
         def _dispatch_fused(s: int, e: int):
             """Build rows [s:e)'s staging buffer and issue the fused
-            device call WITHOUT blocking (stream-ordered launches)."""
+            device call WITHOUT blocking (stream-ordered launches); with the
+            shadow arm on, its packed re-score launches right behind the
+            serving call on the device-built buffer."""
             bsz = _bucket_rows(e - s)
             t0 = time.perf_counter()
             inbuf = tk.build_inbuf(
@@ -1663,10 +1927,20 @@ class SchedulerService:
             out = tk.fused_tick_chunk(
                 inbuf, cols, bsz, k, cost_c, loc_l, num_n,
                 algorithm=algorithm, limit=limit,
-                emit_led=emit_led, emit_packed=False,
+                emit_led=emit_led, emit_packed=shadow_mode is not None,
             )
             recorder.add("fused_dispatch", (time.perf_counter() - t0) * 1e3)
             recorder.sync()
+            if shadow_mode is not None:
+                out, sbuf = out
+                t_sh = time.perf_counter()
+                shadow_packed = self.ml_evaluator.schedule_from_packed(
+                    sbuf, bsz, k, cost_c, loc_l, num_n, limit=limit,
+                    snap=shadow_snap, record_used=False,
+                )
+                shadow_inflight.append((s, e, shadow_packed))
+                recorder.add("shadow_score", (time.perf_counter() - t_sh) * 1e3)
+                recorder.sync()
             return out
 
         def _drain_fused(s: int, e: int, out, overlapped: bool) -> None:
@@ -1722,6 +1996,11 @@ class SchedulerService:
             # same counter, same tick, as the oracle's fill-time incs —
             # the skip decision just came back from the device
             self._series.quarantine_skipped.labels().inc(qskip_total)
+        if shadow_inflight and led_ctx is not None:
+            self._drain_shadow(
+                shadow_inflight, led_ctx["slot_of_row"],
+                led_ctx["seq_of_row"], shadow_arm_code,
+            )
         # Phase-accounting seam (benchwatch longitudinal comparison):
         # control_dispatch stays "all host-side work per tick" — the
         # fused split's host phases — while the device conversation
@@ -2090,7 +2369,7 @@ class SchedulerService:
             )
         if led_ctx is not None and rec_rows:
             rows = np.asarray(rec_rows, np.int64)
-            self.decisions.record_batch(
+            slots, seqs = self.decisions.record_batch(
                 led_ctx["tick"], led_ctx["arm"],
                 led_ctx["child_peer_idx"][rows],
                 led_ctx["child_host_slots"][rows],
@@ -2104,6 +2383,8 @@ class SchedulerService:
                 np.asarray(rec_chosen, np.int64),
                 rec_peer_ids, rec_task_ids, rec_chosen_ids,
             )
+            led_ctx["slot_of_row"][rows] = slots
+            led_ctx["seq_of_row"][rows] = seqs
 
     def _record_loop_decision(self, led_ctx: dict, i: int, pending: _Pending,
                               meta: _PeerMeta, parents: list, ranked_pos: list,
@@ -2122,7 +2403,7 @@ class SchedulerService:
         sel_acc = flags[:limit] + [False] * max(pad, 0)
         chosen = next(p for p, f in zip(ranked_pos, flags) if f)
         rows = np.asarray([i], np.int64)
-        self.decisions.record_batch(
+        slots, seqs = self.decisions.record_batch(
             led_ctx["tick"], led_ctx["arm"],
             led_ctx["child_peer_idx"][rows],
             led_ctx["child_host_slots"][rows],
@@ -2137,6 +2418,36 @@ class SchedulerService:
             [pending.peer_id], [meta.task_id],
             [response.candidate_parents[0].peer_id],
         )
+        led_ctx["slot_of_row"][rows] = slots
+        led_ctx["seq_of_row"][rows] = seqs
+
+    def _drain_shadow(self, inflight: list, slot_of_row: np.ndarray,
+                      seq_of_row: np.ndarray, shadow_arm_code: int):
+        """End-of-tick drain valve for the counterfactual shadow arm's
+        in-flight device results: the ONLY place shadow selections come
+        back to the host. Runs strictly after the last serving chunk's
+        drain — the shadow read-back can never serialize the pipelined
+        tick — and its wall is credited to the `shadow_score` phase,
+        outside the control_dispatch/device_call aggregates."""
+        recorder = self.recorder
+        t0 = time.perf_counter()
+        limit = self.config.scheduler.candidate_parent_limit
+        b = slot_of_row.shape[0]
+        pos = np.full((b, limit), -1, np.int64)
+        scores = np.full((b, limit), np.nan, np.float32)
+        for s, e, packed in inflight:
+            arr = _to_host(packed)[: e - s]
+            sel, valid, sc = ev.unpack_selection(arr)
+            ll = min(limit, sel.shape[1])
+            pos[s:e, :ll] = np.where(valid, sel, -1)[:, :ll]
+            scores[s:e, :ll] = np.where(valid, sc, np.nan)[:, :ll]
+        entry = self.decisions.record_shadow(
+            slot_of_row, seq_of_row, pos, scores, shadow_arm_code,
+            self._tick_counter,
+        )
+        recorder.add("shadow_score", (time.perf_counter() - t0) * 1e3)
+        recorder.sync()
+        return entry
 
     def _finish_normal_response(self, pending: _Pending, meta: _PeerMeta,
                                 kept: list) -> msg.NormalTaskResponse:

@@ -97,7 +97,6 @@ class SchedulerConfig:
     # per-tick divergence and, once outcomes join, measured per-arm
     # regret. No-ops when no inactive arm is available (rule active
     # without a served ml snapshot), so the default costs nothing there.
-    # The port has no ml arm yet (ROADMAP A7), so no shadow arm runs.
     shadow_scoring: bool = True
     # Shadow every Nth tick (deterministic — keyed on the tick counter,
     # never wall time). 1 = every tick. On a CPU-device rig the shadow

@@ -24,6 +24,7 @@ class ProbeRTTRegressor(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  in_features: int = NUM_PAIR_FEATURES):
         super().__init__()
+        self.hidden_dim = hidden_dim
         self.num_layers = num_layers
         self.compute_dtype = compute_dtype
         widths = [in_features] + [hidden_dim] * (num_layers - 1) + [1]

@@ -17,6 +17,12 @@ MODEL_TYPE_MLP = "mlp"
 # set-transformer ranker family (models/attention.py)
 MODEL_TYPE_ATTENTION = "attention"
 
+# The registered name of the scheduler's parent ranker (the ml arm's gnn
+# model). A copy of dragonfly2_tpu/cluster/trainer_service.py:52's, which
+# the trainer publishes under; it moves there when the trainer service is
+# ported (ROADMAP A8).
+GNN_MODEL_NAME = "parent-ranker"
+
 STATE_INACTIVE = "inactive"
 STATE_ACTIVE = "active"
 # A version that failed an integrity or canary check. Bad versions can

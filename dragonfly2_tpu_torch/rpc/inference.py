@@ -11,7 +11,7 @@ and the compute runs on the GPU this process owns.
 
 Port of dragonfly2_tpu/rpc/inference.py with the same messages, contracts
 and error surfaces; frames interoperate with the reference in both
-directions. Only the attention model type is served so far.
+directions. The attention, gnn and mlp model types are served.
 
 Tensors travel as raw little-endian bytes + dtype + shape (KServe v2's
 `raw_input_contents` convention) over the same length-prefixed msgpack
@@ -316,12 +316,18 @@ class InferenceRPCServer:
             raise dferrors.InvalidArgument(
                 f"model {request.model_name!r} needs inputs {want}, missing {missing}"
             )
-        if server.model_type != "attention":
-            raise NotImplementedError(f"{server.model_type} inference is not ported yet")
-        out = serving.attention_score(
-            model, params, tensors["child_feats"], tensors["parent_feats"],
-            tensors["pair_feats"], tensors["mask"],
-        )
+        if server.model_type == "mlp":
+            out = serving.mlp_apply(model, tensors["features"])
+        elif server.model_type == "attention":
+            out = serving.attention_score(
+                model, params, tensors["child_feats"], tensors["parent_feats"],
+                tensors["pair_feats"], tensors["mask"],
+            )
+        else:  # gnn candidate scoring against caller-supplied embeddings
+            out = serving.gnn_score(
+                model, tensors["host_emb"], tensors["child_host"],
+                tensors["cand_host"], tensors["pair_feats"],
+            )
         return ModelInferResponse(
             model_name=request.model_name,
             model_version=str(version),

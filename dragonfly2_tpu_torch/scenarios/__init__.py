@@ -19,9 +19,9 @@ premise needs, deterministically from a (spec, seed) pair:
                 fault schedule, independent of wall clock), plus the
                 ``FaultInjector`` the real client upload path consumes;
 
-The reference's ``ab`` (the scenario-matrix A/B harness) and its
-megascale builtins come with the ml arm (ROADMAP A7) and the scale labs
-(A11).
+The reference's ``ab`` (the scenario-matrix A/B harness, which trains
+through the trainer service) comes with the trainer (ROADMAP A8), its
+megascale builtins with the scale labs (A11).
 """
 
 from dragonfly2_tpu_torch.scenarios.spec import (  # noqa: F401

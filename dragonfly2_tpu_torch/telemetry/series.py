@@ -1,8 +1,8 @@
 """Port of dragonfly2_tpu/telemetry/series.py: the metric families the
 scheduler service exports (the scheduler's, the decision ledger's, the
-SLO engine's, the rpc breakers' and the device entry counters'). The
-daemon, manager, trainer, megascale, cost-card, timeline, tail and
-process families come with their modules.
+SLO engine's, the rpc breakers', the device entry counters' and the ml
+arm's activation gate's). The daemon, manager, trainer, megascale,
+cost-card, timeline, tail and process families come with their modules.
 
 Capability parity with scheduler/metrics/metrics.go:44-454 (per-RPC
 totals + failure twins, `traffic` by type/task_type/task_tag/task_app/
@@ -238,6 +238,24 @@ def jit_series(reg, service: str) -> _Namespace:
         cache_entries=reg.gauge(
             f"dragonfly_{service}_jit_cache_entries",
             "live compile-cache entries per wrapped jitted function", ("fn",),
+        ),
+    )
+
+
+def serving_series(reg) -> _Namespace:
+    """Guarded model activation (registry/serving.py): every new params
+    version is gated — sha256 manifest at load, finite-leaves check, and
+    a canary scoring pass — before it can become the serving snapshot."""
+    c = reg.counter
+    return _Namespace(
+        activation_rejected=c(
+            "dragonfly_serving_activation_rejected_total",
+            "params versions rejected by the activation gate (serving "
+            "stays on the last-good snapshot)", ("reason",),
+        ),
+        activation_accepted=c(
+            "dragonfly_serving_activation_accepted_total",
+            "params versions that passed the activation gate",
         ),
     )
 

@@ -302,7 +302,7 @@ def _check_supported(config: TrainerConfig, mesh, checkpointer, sp_strategy: str
         )
     if checkpointer is not None:
         raise NotImplementedError(
-            "checkpoint resume (training/checkpoint.py) is not ported yet: ROADMAP queue A7"
+            "checkpoint resume (training/checkpoint.py) is not ported yet: ROADMAP queue A8"
         )
     if config.attention_tp or config.attention_pp:
         raise NotImplementedError(

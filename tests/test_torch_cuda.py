@@ -1377,3 +1377,189 @@ def test_segment_reductions_match_the_cpu(shape):
             torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     assert torch.equal(segment.segment_count(ids.cuda(), n).cpu(),
                        segment.segment_count(ids, n))
+
+
+# slice 17: the ml arm's serving on the card, against the same calls on the
+# CPU. bf16 selections are held equal on every row whose margin (the least
+# gap between consecutive valid ensemble scores down to the cut, on the
+# CPU's side) exceeds ML_MARGIN_TOL; the rows inside it are counted
+ML_MARGIN_TOL = 1.2e-2
+ML_LIMIT = 4
+
+
+def _ml_model(hidden=64, dtype=torch.bfloat16, seed=0):
+    from dragonfly2_tpu_torch.models.graphsage import GraphSAGERanker
+
+    return GraphSAGERanker(hidden, 2, dtype).reset_parameters(
+        torch.Generator().manual_seed(seed)).eval().requires_grad_(False)
+
+
+def _ml_graph(n=4096, edges=32768, seed=0):
+    import numpy as np
+
+    from dragonfly2_tpu_torch.records.features import NUM_HOST_FEATURES
+
+    r = np.random.default_rng(seed)
+    return {"node_feats": r.normal(size=(n, NUM_HOST_FEATURES)).astype(np.float32),
+            "edge_src": r.integers(0, n - 1, edges).astype(np.int32),
+            "edge_dst": r.integers(0, n - 1, edges).astype(np.int32),
+            "edge_feats": r.normal(size=(edges, 2)).astype(np.float32)}
+
+
+def _ml_buf(b=256, k=15, n_hosts=4096, seed=0):
+    import numpy as np
+
+    from dragonfly2_tpu_torch.ops import evaluator as ev
+    from dragonfly2_tpu_torch.records.features import CandidateFeatures
+    from dragonfly2_tpu_torch.state.fsm import PeerState
+
+    r = np.random.default_rng(seed)
+    f = CandidateFeatures.zeros(b, k)
+    f.valid[:] = r.random((b, k)) < 0.8
+    f.finished_pieces[:] = r.integers(0, 64, (b, k))
+    f.total_piece_count[:] = 64
+    f.upload_count[:] = r.integers(0, 100, (b, k))
+    f.upload_limit[:] = r.integers(1, 20, (b, k))
+    f.upload_used[:] = r.integers(0, 10, (b, k))
+    f.peer_state[:] = int(PeerState.SUCCEEDED)
+    f.parent_idc[:] = r.integers(0, 4, (b, k))
+    f.child_idc[:] = r.integers(0, 4, b)
+    f.parent_host_id[:] = np.arange(1, b * k + 1).reshape(b, k)
+    fd = f.as_dict()
+    buf = ev.pack_eval_batch(fd, in_degree=r.integers(0, 3, (b, k)).astype(np.int32),
+                             child_host_slot=r.integers(0, n_hosts, b).astype(np.int32),
+                             cand_host_slot=r.integers(0, n_hosts, (b, k)).astype(np.int32))
+    return buf, (b, k, fd["piece_costs"].shape[-1], fd["parent_location"].shape[-1],
+                 fd["numeric"].shape[-1])
+
+
+def test_ml_schedule_from_packed_on_the_card_equals_the_cpu_outside_the_margin():
+    _need_card()
+    import copy
+
+    from dragonfly2_tpu_torch.ops import evaluator as ev
+    from dragonfly2_tpu_torch.registry import serving
+
+    model = _ml_model()
+    table = serving._gnn_embed(model, _ml_graph())
+    card, card_table = copy.deepcopy(model).cuda(), table.cuda()
+    for seed in range(3):
+        buf, dims = _ml_buf(seed=seed)
+        got = serving._ml_schedule_from_packed(card, card_table, buf, *dims, ML_LIMIT)
+        assert got.is_cuda
+        got = got.cpu()
+        want = serving._ml_schedule_from_packed(model, table, buf, *dims, ML_LIMIT)
+        f = ev.unpack_eval_batch(torch.from_numpy(buf), *dims)
+        scores = serving._ml_scores(model, table, f["child_host_slot"], f["cand_host_slot"], f,
+                                    "default")
+        mask = ev.filter_candidates(f, f["blocklist"], f["in_degree"], f["can_add_edge"])
+        wide = torch.ones(dims[0], dtype=torch.bool)
+        for i in range(dims[0]):
+            s = scores[i][mask[i]].sort(descending=True).values[: ML_LIMIT + 1]
+            if s.numel() > 1:
+                wide[i] = bool((s[:-1] - s[1:]).min() > ML_MARGIN_TOL)
+        same = (got[..., 0] == want[..., 0]).all(-1)
+        assert int(wide.sum()) >= dims[0] // 8
+        assert same[wide].all(), f"{int((~same[wide]).sum())} rows outside the margin differ"
+        sel = got[..., 0] >= 0
+        torch.testing.assert_close(got[..., 1][sel], want[..., 1][sel], atol=ML_MARGIN_TOL / 2,
+                                   rtol=0)
+
+
+def _ml_evaluator_on_card(tmp_path, seed=0):
+    from dragonfly2_tpu_torch.models import convert
+    from dragonfly2_tpu_torch.objectstorage.backends import FilesystemBackend
+    from dragonfly2_tpu_torch.registry import (BucketModelRegistry, MLEvaluator,
+                                               ModelEvaluation, ModelServer)
+
+    reg = BucketModelRegistry(FilesystemBackend(tmp_path), "models")
+    tree = convert.graphsage_params_to_flax(_ml_model(seed=seed))
+    mv = reg.create_model_version("ranker", "gnn", "h", tree, ModelEvaluation(),
+                                  metadata={"hidden_dim": 64})
+    reg.activate(mv.model_id, mv.version)
+    server = ModelServer(reg, "ranker", "h", "gnn")
+    assert server.refresh() and server.device.type == "cuda"
+    return reg, server, MLEvaluator(server), tree
+
+
+def test_the_refresh_on_its_own_stream_commits_the_inline_table(tmp_path):
+    """The worker's refresh (its own CUDA stream, synchronized before the
+    commit) and an inline one commit tables within phase 12's embed
+    tolerance of each other (the segment sums are atomics)."""
+    _need_card()
+    import time
+
+    graph = _ml_graph()
+    _, _, background, _ = _ml_evaluator_on_card(tmp_path / "a")
+    _, _, inline, _ = _ml_evaluator_on_card(tmp_path / "b")
+    try:
+        background.refresh_embeddings(dict(graph))
+        deadline = time.monotonic() + 60
+        while background.serving_snapshot() is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        inline.refresh_embeddings(dict(graph), wait=True)
+        stream = background._stream
+        assert stream is not None and stream != torch.cuda.default_stream()
+        got, want = background.serving_snapshot().host_emb, inline.serving_snapshot().host_emb
+        assert got.is_cuda and got.shape == (4096, 64)
+        torch.testing.assert_close(got.float(), want.float(), atol=5e-2, rtol=5e-2)
+    finally:
+        background.close()
+        inline.close()
+
+
+def test_a_tick_during_refreshes_reads_one_consistent_snapshot(tmp_path):
+    """A thread refreshes in a loop (full and incremental, a params flip
+    among them) while ticks score on the card: each call serves the
+    (params_version, emb_version) of the snapshot it pinned, a pair
+    committed as a unit, and its output equals the same call recomputed
+    from that snapshot."""
+    _need_card()
+    import threading
+
+    import numpy as np
+
+    from dragonfly2_tpu_torch.models import convert
+    from dragonfly2_tpu_torch.registry import ModelEvaluation, serving
+
+    graph = _ml_graph()
+    reg, server, evaluator, tree = _ml_evaluator_on_card(tmp_path)
+    evaluator.refresh_embeddings(dict(graph), wait=True)
+    buf, dims = _ml_buf()
+    rng = np.random.default_rng(1)
+    stop = threading.Event()
+
+    def hammer():
+        i = 0
+        while not stop.is_set():
+            i += 1
+            evaluator.refresh_embeddings(dict(
+                graph, dirty_slots=rng.integers(0, 4096, 8).astype(np.int32),
+                full_sync=i % 5 == 0))
+
+    thread = threading.Thread(target=hammer, name="race-hammer")
+    thread.start()
+    used = []
+    try:
+        for i in range(60):
+            if i == 30:
+                flipped = convert.graphsage_params_to_flax(_ml_model(seed=1))
+                mv = reg.create_model_version("ranker", "gnn", "h", flipped, ModelEvaluation(),
+                                              metadata={"hidden_dim": 64})
+                reg.activate(mv.model_id, mv.version)
+                assert server.refresh()
+            snap = evaluator.serving_snapshot()
+            out = evaluator.schedule_from_packed(buf, *dims, limit=ML_LIMIT, snap=snap)
+            assert evaluator.last_used_versions == (snap.params_version, snap.emb_version)
+            again = serving._ml_schedule_from_packed(snap.model, snap.host_emb, buf, *dims,
+                                                     ML_LIMIT)
+            assert torch.equal(out, again)
+            used.append(evaluator.last_used_versions)
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+        evaluator.close()
+    # the deque keeps the last 256 commits: the newest served pairs are in it
+    assert used[-1] in set(evaluator.committed_versions)
+    assert len(set(used)) > 2 and evaluator.refresh_count > 2
+    assert used[-1][0] == server.version

@@ -235,7 +235,9 @@ def test_entry_points_refuse_a_missing_cuda_device(registries):
     with pytest.raises(RuntimeError, match="CUDA"):
         ModelServer(reg, NAME, HOST, MODEL_TYPE_ATTENTION)
     assert resolve_device("cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError):
-        ModelServer(reg, NAME, HOST, "gnn", device="cpu")
-    with pytest.raises(NotImplementedError):
-        MLEvaluator(None)
+    # the gnn server and the ml evaluator on it refuse it alike
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelServer(reg, NAME, HOST, "gnn")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MLEvaluator(ModelServer(reg, NAME, HOST, "gnn"))
+    assert MLEvaluator(ModelServer(reg, NAME, HOST, "gnn", device="cpu")).device.type == "cpu"
