@@ -153,7 +153,29 @@ result line:
    each differing row's CPU margin under the float32 tolerance), the
    incremental refresh against the full embed (every other row unchanged
    bit for bit), shadow_compared > 0, no flash kernel launched.
-14. the kernels JSON line and, last, the result line.
+14. the trainer (slice 18): the Announcer streams phase 10's traces (its
+   timed rounds and the flash crowd) and the topology rows phases 10-11
+   snapshot to TrainerService on the card at TrainerConfig's defaults
+   (hidden 128, batch 256, lr 1e-3, 10 epochs) with the attention family
+   on and a checkpoint directory: train_gnn on the dense path over the
+   10,000-host graph, train_attention through the training kernels,
+   train_mlp over topology_to_pairs, three versions published to a
+   filesystem ModelRegistry and activated. Prints each model's steps,
+   samples/s, epoch mean losses, eval metrics and flash launches, the
+   GNN's analytic flops and achieved share of the bf16 peak beside
+   gnn_roofline_bound's step bound and MFU ceiling, each model's step p50
+   by CUDA events, a profiler breakdown of 5 GNN steps and the announce's
+   wall. Checks: finite losses, the GNN's and the MLP's last epoch mean
+   below their first, no flash launch by the GNN or the MLP, each training
+   kernel once a layer a step in the attention training, the checkpoint
+   directory empty after success, the first 3 GNN and MLP steps replayed
+   on the CPU from the same weights and batches, one GNN step's gradients
+   CUDA against CPU, the three versions active and loading against the
+   serving modules' shapes; then the MLP resumed on the card (2 epochs,
+   then 4: exactly 2 more epochs of steps, then 4: none, the params bit
+   for bit); then the trained GNN served on phase 13's ml arm for 100
+   rounds, its tick p50 and mean piece cost beside the rule arm's.
+15. the kernels JSON line and, last, the result line.
 
 Between phases 3 and 4, the host cost of the forward with lse's wrapper at
 the ranker's two trained shapes, [256, 4, 20, 32] and [256, 4, 20, 192]:
@@ -203,6 +225,7 @@ import contextlib
 import ctypes
 import json
 import os
+import pathlib
 import re
 import statistics
 import subprocess
@@ -3499,7 +3522,7 @@ def _probe_summary(svc, label: str, probe_ms) -> int:
     return rows
 
 
-def phase_scheduler_service(card: str):
+def phase_scheduler_service(card: str, trace_dir: str):
     """Slice 7's main path: SchedulerService on the card driven by the
     port's ClusterSimulator through its entries (announce_host,
     register_peer, tick, piece and peer reports, run_gc, the probe rounds),
@@ -3515,7 +3538,8 @@ def phase_scheduler_service(card: str):
     same selections, the same pieces, completed and piece_cost_ns_total,
     and the same probe store; fused_tick=False agrees with True on the
     card at tests/test_fused_tick.py's size; no tick launches a flash
-    kernel."""
+    kernel. The timed service writes its traces under ``trace_dir``;
+    returns its TraceStorage, which phase 14 trains on."""
     _paired_runs(lambda device, data_dir: _service(device, data_dir), ("cpu", "cuda"),
                  SERVICE_PARITY_ROUNDS, SERVICE_DOWNLOADS,
                  f"service CPU vs CUDA, {SERVICE_PARITY_ROUNDS} rounds at {SERVICE_HOSTS} hosts")
@@ -3525,26 +3549,26 @@ def phase_scheduler_service(card: str):
                  f"service on CUDA, fused_tick=False vs True, {ORACLE_ROUNDS} rounds at "
                  f"{ORACLE_HOSTS} hosts", probe_every=3)
 
-    with tempfile.TemporaryDirectory() as data_dir:
-        svc, sim = _service("cuda", data_dir)
-        probe_ms = _timed_service(svc, sim, "service", card)
-        crowd_ms, crowd, _ = _service_round(svc, sim, SERVICE_FLASH_CROWD)
-        if any(_counts().values()) or any(_wide_counts().values()):
-            _fail(f"the scheduler's ticks launched a flash kernel: {_counts()}")
-        if not any(sel for _, sel in crowd):
-            _fail("the flash-crowd tick selected no parent")
-        print(f"service flash-crowd tick of {SERVICE_FLASH_CROWD} downloads: {crowd_ms:.3f} ms "
-              f"(host clock), {len(crowd)} selections; its phases: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in svc.recorder.snapshot(1)[0].items()))
-        _probe_summary(svc, "service", probe_ms)
-        led = svc.decisions.counters()
-        slo = svc.slo.verdict()
-        print(f"service decision ledger {led}; SLO verdict {slo['state']}; trace rows "
-              f"{svc.storage.downloads.count()}")
-        if led["decisions"] == 0 or svc.storage.downloads.count() == 0:
-            _fail("the service recorded no decision or no download trace")
-        _profile_rounds(svc, sim, "service")
-        _wrapper_cost(svc, sim)
+    svc, sim = _service("cuda", trace_dir)
+    probe_ms = _timed_service(svc, sim, "service", card)
+    crowd_ms, crowd, _ = _service_round(svc, sim, SERVICE_FLASH_CROWD)
+    if any(_counts().values()) or any(_wide_counts().values()):
+        _fail(f"the scheduler's ticks launched a flash kernel: {_counts()}")
+    if not any(sel for _, sel in crowd):
+        _fail("the flash-crowd tick selected no parent")
+    print(f"service flash-crowd tick of {SERVICE_FLASH_CROWD} downloads: {crowd_ms:.3f} ms "
+          f"(host clock), {len(crowd)} selections; its phases: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in svc.recorder.snapshot(1)[0].items()))
+    _probe_summary(svc, "service", probe_ms)
+    led = svc.decisions.counters()
+    slo = svc.slo.verdict()
+    print(f"service decision ledger {led}; SLO verdict {slo['state']}; trace rows "
+          f"{svc.storage.downloads.count()}")
+    if led["decisions"] == 0 or svc.storage.downloads.count() == 0:
+        _fail("the service recorded no decision or no download trace")
+    _profile_rounds(svc, sim, "service")
+    _wrapper_cost(svc, sim)
+    return svc.storage
 
 
 def _count_rtt_hits(store) -> list:
@@ -3878,9 +3902,10 @@ def _ml_paired_f32(reg, hidden: int) -> None:
           f"{got_stats.completed}, piece_cost_ns_total {got_stats.piece_cost_ns_total} equal")
 
 
-def phase_ml_arm(card: str):
+def phase_ml_arm(card: str) -> dict:
     """Slice 17's main path: the ml arm served on the card (see the
-    module docstring, phase 13)."""
+    module docstring, phase 13). Returns the mean piece cost over the first
+    ML_SHADOW_ROUNDS rounds of the rule arm and of the seed-0 ml arm."""
     import copy
 
     import torch
@@ -4081,6 +4106,381 @@ def phase_ml_arm(card: str):
     if any(_counts().values()) or any(_wide_counts().values()):
         _fail(f"the ml arm launched a flash kernel: {_counts()}")
     print(f"ml arm phase: {time.perf_counter() - phase_start:.1f} s")
+    return {"rule": cost, "ml": at_cut}
+
+
+# slice 18: the trainer on the card, through TrainerService behind the
+# Announcer, over phase 10's traces (its 300 rounds and flash crowd) and
+# the topology rows phases 10-11 snapshot; TrainerConfig's defaults (hidden
+# 128, batch 256, lr 1e-3, 10 epochs), the attention family on
+TRAINER_HOST_ID = ML_HOST_ID
+TRAINER_REPLAY_STEPS = 3
+# the bf16 loss tolerances of tests/test_torch_trainer.py: the GNN's
+# listwise loss, and the MLP's weighted MSE (which starts near 10, where
+# bf16 carries ~0.04)
+TRAINER_GNN_LOSS_ATOL, TRAINER_MLP_LOSS_ATOL = 2e-2, 5e-2
+TRAINER_STEP_CALLS = 20  # steps timed by CUDA events, a model
+TRAINER_PROFILED_STEPS = 5
+TRAINER_SERVE_ROUNDS = 100  # the trained GNN on phase 13's ml arm
+TRAINER_RESUME_EPOCHS = (2, 4, 4)
+
+
+@contextlib.contextmanager
+def _trainer_calls(service_module):
+    """Wrap the trainer service's train_gnn, train_attention and train_mlp
+    while the block runs: each call's flash launch counts (zeroed just
+    before it, read just after), its wall, its inputs and its result, by
+    family."""
+    import torch
+
+    calls, originals = {}, {}
+    for family in ("gnn", "attention", "mlp"):
+        inner = getattr(service_module, f"train_{family}")
+
+        def wrapped(*args, inner=inner, family=family, **kwargs):
+            _zero_counts()
+            _zero_wide_counts()
+            start = time.perf_counter()
+            result = inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls[family] = {"args": args, "kwargs": kwargs, "result": result,
+                             "wall_s": time.perf_counter() - start,
+                             "counts": _counts(), "wide": _wide_counts()}
+            return result
+
+        originals[family] = inner
+        setattr(service_module, f"train_{family}", wrapped)
+    try:
+        yield calls
+    finally:
+        for family, inner in originals.items():
+            setattr(service_module, f"train_{family}", inner)
+
+
+def _epoch_means(result, epochs: int) -> list:
+    per = result.steps // epochs
+    return [float(np.mean(result.losses[e * per:(e + 1) * per])) for e in range(epochs)]
+
+
+def _step_ms(trainer, idx) -> float:
+    """A trainer's step p50 by CUDA events over TRAINER_STEP_CALLS steps on
+    its device-resident rows (the trained weights go on moving)."""
+    done = [0]
+
+    def step():
+        done[0] += 1
+        return trainer.step(idx[done[0] % len(idx)])
+
+    return _event_ms(step, TRAINER_STEP_CALLS)[1]
+
+
+def _profile_steps(trainer, idx, label: str) -> None:
+    """Launches, device ms and the busy share of TRAINER_PROFILED_STEPS steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = TRAINER_PROFILED_STEPS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for i in range(n):
+            trainer.step(idx[i % len(idx)])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3 / n
+    kernels = _kernels_of(prof, n)
+    device_ms = sum(ms for _, ms in kernels)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)) / n
+    if device_ms == 0:
+        print(f"{label} profiled steps: device time not measured (the profiler saw no device "
+              "activity)")
+        return
+    print(f"{label} profiled steps ({n}): {wall_ms:.3f} ms a step (host clock, profiled), "
+          f"device kernels {device_ms:.4f} ms a step over {launches:.0f} launches, device busy "
+          f"{100 * device_ms / wall_ms:.1f}%; top kernels: "
+          + "; ".join(f"{k[:60]} {ms:.4f}" for k, ms in kernels[:5]))
+
+
+def _first_batches(n_rows: int, batch_size: int, steps: int):
+    """(train rows, the first ``steps`` batches) as the trainers draw them
+    from SEED: the split, then each epoch's minibatches in turn (a small
+    set has fewer batches an epoch than ``steps``)."""
+    from dragonfly2_tpu_torch.training import data, train
+
+    rng = np.random.default_rng(SEED)
+    _, train_idx = train._train_eval_split(rng.permutation(n_rows), 0.2)
+    batch = min(batch_size, len(train_idx))
+    batches = []
+    while len(batches) < steps:
+        batches += list(data.minibatches(len(train_idx), batch, rng))
+    return train_idx, np.stack(batches[:steps])
+
+
+def _trainer_replays(calls, config, garrs) -> None:
+    """The first GNN and MLP steps replayed on the CPU from the same initial
+    weights and batches (losses within the CPU tests' bf16 tolerances), and
+    one GNN step's gradients, CUDA against CPU, each parameter's within
+    GRAD_REL of its largest element (the head's output bias, true gradient
+    0, rounding-small)."""
+    import torch
+
+    from dragonfly2_tpu_torch.training import train
+
+    ds, graph = calls["gnn"]["args"][:2]
+    train_idx, first = _first_batches(len(ds.mask), config.batch_size, TRAINER_REPLAY_STEPS)
+    rows = train._rank_rows(train._take_rank_batch(ds, train_idx))
+
+    def gnn_trainer(device):
+        model = train.build_graphsage(config, graph, SEED, None, device)
+        return train.GNNTrainer(model, rows, garrs, config.learning_rate, device)
+
+    cpu = gnn_trainer("cpu")
+    replay = [cpu.step(torch.from_numpy(i)).item() for i in first]
+    got = calls["gnn"]["result"].losses[:len(replay)]
+    err = float(np.abs(np.array(replay) - np.array(got)).max())
+    print(f"trainer: GNN's first {len(replay)} steps replayed on the CPU (dense path "
+          f"{'adj' in garrs}): "
+          f"max loss difference {err:.3g} (atol {TRAINER_GNN_LOSS_ATOL})")
+    if err > TRAINER_GNN_LOSS_ATOL:
+        _fail(f"the GNN's CPU replay differs by {err}")
+
+    grads = {}
+    for device in ("cuda", "cpu"):
+        trainer = gnn_trainer(device)
+        trainer.loss(torch.from_numpy(first[0]).to(device)).backward()
+        grads[device] = {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters()}
+    largest = max(float(g.abs().max()) for g in grads["cpu"].values())
+    worst = max((float((grads["cuda"][n] - g).abs().max()) / float(g.abs().max()), n)
+                for n, g in grads["cpu"].items() if n != "head_out.bias")
+    zero = max(float(grads[d]["head_out.bias"].abs().max()) for d in grads) / largest
+    print(f"trainer: one GNN step's gradients, cuda vs cpu: worst parameter {worst[1]} at "
+          f"{worst[0]:.3g} of its largest element (limit {GRAD_REL}); the head's output bias "
+          f"(shift-invariant) at {zero:.3g} of the largest gradient (limit 1e-2)")
+    if worst[0] > GRAD_REL or zero > 1e-2:
+        _fail(f"the GNN gradient of {worst[1]} differs by {worst[0]} of its scale "
+              f"(shift-invariant {zero})")
+
+    x, y = calls["mlp"]["args"][:2]
+    train_idx, first = _first_batches(len(y), config.batch_size, TRAINER_REPLAY_STEPS)
+    mlp = train.MLPTrainer(train.build_regressor(config, x.shape[1], SEED, None, "cpu"),
+                           {"x": x[train_idx], "y": y[train_idx],
+                            "w": np.ones(len(train_idx), np.float32)},
+                           config.learning_rate, "cpu")
+    replay = [mlp.step(torch.from_numpy(i)).item() for i in first]
+    got = calls["mlp"]["result"].losses[:len(replay)]
+    err = float(np.abs(np.array(replay) - np.array(got)).max())
+    print(f"trainer: MLP's first {len(replay)} steps replayed on the CPU: max loss difference "
+          f"{err:.3g} (atol {TRAINER_MLP_LOSS_ATOL})")
+    if err > TRAINER_MLP_LOSS_ATOL:
+        _fail(f"the MLP's CPU replay differs by {err}")
+
+
+def _trainer_timings(calls, config, garrs) -> None:
+    """Each model's step p50 by CUDA events from its trained weights, and a
+    profiler breakdown of the GNN's steps."""
+    import torch
+
+    from dragonfly2_tpu_torch.training import train
+
+    ds, graph = calls["gnn"]["args"][:2]
+    train_idx, first = _first_batches(len(ds.mask), config.batch_size, 8)
+    idx = torch.from_numpy(first).cuda()
+    gnn = train.GNNTrainer(
+        train.build_graphsage(config, graph, SEED, calls["gnn"]["result"].params, "cuda"),
+        train._rank_rows(train._take_rank_batch(ds, train_idx)), garrs, config.learning_rate,
+        "cuda")
+    rows = train.take(ds, train_idx)
+    in_features = sum(rows[key].shape[-1] for key in ("parents", "child", "pair"))
+    att = train.AttentionTrainer(
+        train.build_ranker(config, in_features, SEED, calls["attention"]["result"].params,
+                           "cuda"), rows, config.learning_rate, "cuda")
+    x, y = calls["mlp"]["args"][:2]
+    mlp_idx, mlp_first = _first_batches(len(y), config.batch_size, 8)
+    mlp = train.MLPTrainer(
+        train.build_regressor(config, x.shape[1], SEED, calls["mlp"]["result"].params, "cuda"),
+        {"x": x[mlp_idx], "y": y[mlp_idx], "w": np.ones(len(mlp_idx), np.float32)},
+        config.learning_rate, "cuda")
+    p50 = {"gnn": _step_ms(gnn, idx), "attention": _step_ms(att, idx),
+           "mlp": _step_ms(mlp, torch.from_numpy(mlp_first).cuda())}
+    print("trainer: step p50 by CUDA events over "
+          f"{TRAINER_STEP_CALLS} steps from the trained weights: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in p50.items()))
+    _profile_steps(gnn, idx, "trainer: GNN")
+
+
+def _trainer_resume(x, y, config, root) -> None:
+    """train_mlp on the card for 2 epochs with a TrainCheckpointer, then 4
+    from it (exactly 2 more epochs of steps), then 4 again (0 steps, the
+    checkpoint's params bit for bit)."""
+    import dataclasses
+
+    from dragonfly2_tpu_torch.training import train
+    from dragonfly2_tpu_torch.training.checkpoint import TrainCheckpointer
+
+    ck = TrainCheckpointer(os.path.join(root, "resume"))
+    results = [train.train_mlp(x, y, dataclasses.replace(config, epochs=e), seed=SEED,
+                               checkpointer=ck)
+               for e in TRAINER_RESUME_EPOCHS]
+    first, resumed, again = results
+    per_epoch = first.steps // TRAINER_RESUME_EPOCHS[0]
+    same = all((again.params["params"][layer][key] == value).all()
+               for layer, leaves in resumed.params["params"].items()
+               for key, value in leaves.items())
+    print(f"trainer: MLP resume on the card: {first.steps} steps in {TRAINER_RESUME_EPOCHS[0]} "
+          f"epochs, then {resumed.steps} resumed to {TRAINER_RESUME_EPOCHS[1]} epochs, then "
+          f"{again.steps}; saved steps {ck.all_steps()}; the complete run's params are the "
+          f"checkpoint's bit for bit: {same}")
+    if resumed.steps != 2 * per_epoch or again.steps != 0 or not same:
+        _fail("the MLP's resume on the card trained the wrong number of steps or changed params")
+
+
+def _trainer_serve(registry, rule_cost) -> None:
+    """Phase 13's ml arm for TRAINER_SERVE_ROUNDS rounds at its settings, on
+    the trained GNN version from the registry: the tick p50 and the mean
+    piece cost beside the rule arm's at the same seed (an observation)."""
+    import torch
+
+    from dragonfly2_tpu_torch.cluster.trainer_service import GNN_MODEL_NAME
+    from dragonfly2_tpu_torch.registry import MLEvaluator, ModelServer
+
+    server = ModelServer(registry, GNN_MODEL_NAME, TRAINER_HOST_ID, "gnn")
+    if not server.refresh() or server.device.type != "cuda":
+        _fail("the trained GNN did not load into a ModelServer on the card")
+    evaluator = MLEvaluator(server)
+    svc, sim = _ml_service("cuda", evaluator)
+    evaluator.refresh_embeddings(svc.serving_graph_arrays(), wait=True)
+    svc.warmup()
+    torch.cuda.synchronize()
+    ticks = []
+    start = time.perf_counter()
+    for r in range(1, TRAINER_SERVE_ROUNDS + 1):
+        ticks.append(_service_round(svc, sim, ML_DOWNLOADS)[0])
+        if r % ML_REFRESH_EVERY == 0:
+            evaluator.refresh_embeddings(svc.serving_graph_arrays())
+    wall = time.perf_counter() - start
+    evaluator.close(drain=True)
+    st = sim.stats
+    cost = st.piece_cost_ns_total / max(st.pieces, 1) / 1e6
+    print(f"trainer: the trained GNN (v{server.version}) on the ml arm ({ML_HOSTS} hosts, "
+          f"{ML_TASKS} tasks, seed {ML_SEED}): {TRAINER_SERVE_ROUNDS} rounds in {wall:.2f} s, "
+          f"{st.pieces} pieces, tick p50 {statistics.median(ticks):.3f} ms (host clock), mean "
+          f"piece cost {cost:.4f} ms; the rule arm at the same seed and rounds (phase 13) "
+          f"{rule_cost['rule']:.4f} ms, the seed-0 weights' ml arm {rule_cost['ml']:.4f} ms; "
+          f"served {evaluator.last_used_versions} (an observation, no claim)")
+    if evaluator.last_used_versions[0] != server.version or st.pieces == 0:
+        _fail("the ml arm did not serve the trained version")
+
+
+def phase_trainer(card: str, storage, topology, rule_cost) -> None:
+    """Slice 18's main path: the Announcer streams phase 10's traces to
+    TrainerService on the card (train_gnn on the dense path, train_attention
+    through the training kernels, train_mlp over the topology pairs), which
+    publishes three versions to a filesystem ModelRegistry; then the MLP's
+    resume and the trained GNN served on the ml arm (the module docstring,
+    phase 14)."""
+    from dragonfly2_tpu_torch.cluster import trainer_service
+    from dragonfly2_tpu_torch.cluster.announcer import Announcer
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.models import GraphSAGERanker, ProbeRTTRegressor
+    from dragonfly2_tpu_torch.models.attention import AttentionRanker
+    from dragonfly2_tpu_torch.models.convert import params_to_flax
+    from dragonfly2_tpu_torch.records.storage import HostTraceStorage
+    from dragonfly2_tpu_torch.registry import ModelRegistry
+    from dragonfly2_tpu_torch.training import train
+
+    phase_start = time.perf_counter()
+    for rec in topology:  # phase 11's snapshot beside phase 10's
+        storage.create_network_topology(rec)
+    storage.flush()
+    with tempfile.TemporaryDirectory() as root, _trainer_calls(trainer_service) as calls:
+        registry = ModelRegistry(os.path.join(root, "registry"))
+        config = TrainerConfig(train_attention=True, checkpoint_dir=os.path.join(root, "ck"))
+        service = trainer_service.TrainerService(
+            HostTraceStorage(os.path.join(root, "trainer")), registry, config)
+        announcer = Announcer(TRAINER_HOST_ID, storage, service, interval_seconds=0)
+        start = time.perf_counter()
+        if not announcer.maybe_announce():
+            _fail("the announcer did not announce")
+        announce_s = time.perf_counter() - start
+        if set(calls) != {"gnn", "attention", "mlp"}:
+            _fail(f"the service trained {sorted(calls)}, not the three families")
+        ds, graph = calls["gnn"]["args"][:2]
+        x = calls["mlp"]["args"][0]
+        print(f"trainer: maybe_announce {announce_s:.2f} s (host clock) over "
+              f"{storage.downloads.count()} download rows ({len(ds.mask)} ranking rows on "
+              f"{graph.node_feats.shape[0]} hosts, {graph.edge_src.shape[0]} edges) and "
+              f"{len(x)} topology pairs; TrainerConfig hidden {config.hidden_dim}, batch "
+              f"{config.batch_size}, lr {config.learning_rate}, {config.epochs} epochs ({card})")
+        for family in ("gnn", "attention", "mlp"):
+            c = calls[family]
+            res = c["result"]
+            if not res.losses or not np.isfinite(res.losses).all():
+                _fail(f"the {family} training's losses are not finite")
+            means = _epoch_means(res, config.epochs)
+            print(f"trainer: {family} {res.steps} steps in {c['wall_s']:.2f} s (eval and "
+                  f"set-up included), {res.samples_per_sec:.1f} samples/s, peak "
+                  f"{res.peak_samples_per_sec:.1f}; epoch mean loss {means[0]:.4f} -> "
+                  f"{means[-1]:.4f}; eval {res.eval_metrics}; flash launches "
+                  f"{ {k: v for k, v in c['counts'].items() if v} }")
+            if family != "attention" and not means[-1] < means[0]:
+                _fail(f"the {family}'s last epoch's mean loss is not below its first")
+        for family in ("gnn", "mlp"):
+            if any(calls[family]["counts"].values()) or any(calls[family]["wide"].values()):
+                _fail(f"the {family} training launched a flash kernel: {calls[family]['counts']}")
+        att = calls["attention"]
+        steps, layers = att["result"].steps, config.attention_num_layers
+        want = {name: steps * layers for name in TRAINING_KERNELS}
+        got = {name: att["counts"][name] for name in TRAINING_KERNELS}
+        if got != want:
+            _fail(f"the attention training launched {got}, want {want} (once a layer a step)")
+        print(f"trainer: the attention training launched each training kernel once a layer a "
+              f"step: {got} over {steps} steps of {layers} layers")
+        if any(p.is_file() for p in pathlib.Path(root, "ck").rglob("*")):
+            _fail("the checkpoint directory is not empty after the service's success")
+
+        gnn = calls["gnn"]["result"]
+        garrs, dense = train.gnn_graph_arrays(graph)
+        bound = train.gnn_roofline_bound(
+            n_nodes=graph.node_feats.shape[0], node_feat_dim=graph.node_feats.shape[1],
+            edge_feat_dim=graph.edge_feats.shape[1], hidden=config.hidden_dim,
+            batch=min(config.batch_size, len(ds.mask)), parents=ds.parent_host_idx.shape[1],
+            pair_feat_dim=2, dense_adj=dense)
+        achieved = gnn.analytic_flops_per_sample * gnn.samples_per_sec
+        print(f"trainer: GNN analytic_gnn_flops_per_sample {gnn.analytic_flops_per_sample:.4g} "
+              f"(dense {dense}); achieved {achieved / 1e12:.4f} TFLOP/s = "
+              f"{100 * achieved / PEAK_OPS_PER_S['bfloat16']:.3f}% of the card's bf16 peak; "
+              f"gnn_roofline_bound at this shape: step_time_us_lb {bound['step_time_us_lb']}, "
+              f"mfu_ceiling_pct {bound['mfu_ceiling_pct']} ({bound['statement']})")
+        mlp = calls["mlp"]["result"]
+        print(f"trainer: GNN precision {gnn.eval_metrics['precision']:.4f}, recall "
+              f"{gnn.eval_metrics['recall']:.4f}, F1 {gnn.eval_metrics['f1']:.4f}, recall_ceiling "
+              f"{gnn.eval_metrics['recall_ceiling']:.4f}; MLP MSE {mlp.eval_metrics['mse']:.4f}, "
+              f"MAE {mlp.eval_metrics['mae']:.4f}")
+
+        templates = {
+            trainer_service.GNN_MODEL_NAME: GraphSAGERanker(config.hidden_dim),
+            trainer_service.ATTENTION_MODEL_NAME: AttentionRanker(config.hidden_dim,
+                                                                  in_features=26),
+            trainer_service.MLP_MODEL_NAME: ProbeRTTRegressor(config.hidden_dim),
+        }
+        for name, module in templates.items():
+            mid = registry.model_id(name, TRAINER_HOST_ID)
+            active = registry.active_version(mid)
+            if active is None or active.state != "active":
+                _fail(f"{name} has no active version")
+            registry.load_params(mid, active.version, template=params_to_flax(module))
+        print(f"trainer: {len(templates)} versions active in the filesystem ModelRegistry, each "
+              "loading against its serving module's shapes: "
+              + ", ".join(f"{m['model_id']} v{m['active_version']}"
+                          for m in registry.list_models()))
+
+        _trainer_replays(calls, config, garrs)
+        _trainer_timings(calls, config, garrs)
+        _trainer_resume(calls["mlp"]["args"][0], calls["mlp"]["args"][1], config, root)
+        _trainer_serve(registry, rule_cost)
+    print(f"trainer phase: {time.perf_counter() - phase_start:.1f} s")
 
 
 def main() -> None:
@@ -4129,10 +4529,12 @@ def main() -> None:
     phase_scheduler_tick(card)
     wide = phase_wide_kernels(ds)
     wide_launches = phase_wide_path(ds)
-    phase_scheduler_service(card)
-    topology = phase_scheduler_nt(card)
-    phase_graph_models(ds, graph, topology, card)
-    phase_ml_arm(card)
+    with tempfile.TemporaryDirectory() as trace_dir:  # phase 10's traces, kept for phase 14
+        storage = phase_scheduler_service(card, trace_dir)
+        topology = phase_scheduler_nt(card)
+        phase_graph_models(ds, graph, topology, card)
+        rule_cost = phase_ml_arm(card)
+        phase_trainer(card, storage, topology, rule_cost)
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]

@@ -141,8 +141,7 @@ class TrainerConfig:
     epochs: int = 10
     hidden_dim: int = 128
     # non-empty -> per-model train-state checkpoints under this dir, so an
-    # interrupted training resumes at the next epoch (not ported yet: the
-    # port's train_attention refuses a checkpointer)
+    # interrupted training resumes at the next epoch
     checkpoint_dir: str = ""
     # >1 times this many epochs as one block: the loss read and the
     # throughput bookkeeping coarsen to the block
@@ -150,8 +149,8 @@ class TrainerConfig:
     # also train and publish the attention parent ranker
     train_attention: bool = False
     # --- parallelism knobs for the attention ranker; each axis turns on
-    # from the config alone with a mesh that has it (none of the mesh paths
-    # is ported yet: the port trains on one device)
+    # from the config alone with a mesh that has it (the port trains on dp
+    # and sp; tp, pp and ep raise, ROADMAP A12)
     # sequence parallelism: "ring" or "ulysses", when the mesh has sp > 1
     sp_strategy: str = "ring"
     # tensor parallelism of qkv/proj and the FFN, when the mesh has tp > 1

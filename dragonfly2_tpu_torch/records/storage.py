@@ -289,6 +289,7 @@ class HostTraceStorage:
             f.write(data)
 
     def _iter(self, prefix: str, cls: Type) -> Iterator:
+        own = _schema.header(cls)
         for path in sorted(self.base.glob(f"{prefix}-*{CSV_EXT}")):
             with path.open(newline="") as f:
                 reader = csv.reader(f)
@@ -297,10 +298,17 @@ class HostTraceStorage:
                     # Concatenated uploads repeat the header mid-file.
                     if _looks_like_header(values):
                         header = values
+                        positional = header == own
                         continue
                     if header is None:
                         continue
-                    yield _schema.unflatten(cls, dict(zip(header, values)))
+                    if positional and len(values) == len(own):
+                        # this package's own layout: the compiled positional
+                        # codec (TraceStorage's read path), the same record
+                        # as the column dict gives at a fraction of the cost
+                        yield _schema.from_row(cls, values)
+                    else:
+                        yield _schema.unflatten(cls, dict(zip(header, values)))
 
     def list_downloads(self) -> list[DownloadRecord]:
         return list(self._iter(DOWNLOAD_FILE_PREFIX, DownloadRecord))

@@ -30,9 +30,11 @@ Key layout under an optional prefix:
 Port of dragonfly2_tpu/registry/bucket.py with the same blob layout.
 Params are encoded and decoded by utils/flax_msgpack.py, byte for byte the
 layout flax.serialization writes, so a version published by either package
-loads in the other. `open_registry` opens ``fs://bucket/prefix?base_dir=``;
-the orbax filesystem registry behind a plain path and the signed vendor
-buckets are not ported yet.
+loads in the other. `open_registry` opens ``fs://bucket/prefix?base_dir=``
+here and a plain path as the filesystem ``ModelRegistry``
+(registry/registry.py: this registry over the filesystem backend, params
+in this layout, not orbax's); the signed vendor buckets are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -314,16 +316,16 @@ def _check_against_template(template: Any, tree: Any, path: str = "") -> None:
 
 
 def open_registry(spec) -> BucketModelRegistry:
-    """Dispatch a --registry-dir value: ``fs://bucket/prefix?base_dir=DIR``
-    opens the bucket registry over the filesystem backend. A plain path
-    (the reference's orbax ModelRegistry) and the s3/oss/obs URLs are not
-    ported yet and raise NotImplementedError."""
+    """Dispatch a --registry-dir value: a plain path opens the filesystem
+    ``ModelRegistry`` (registry/registry.py; params in the bucket layout);
+    ``fs://bucket/prefix?base_dir=DIR`` opens the bucket registry over the
+    filesystem backend. The s3/oss/obs URLs are not ported yet and raise
+    NotImplementedError."""
     spec = str(spec)
     if "://" not in spec:
-        raise NotImplementedError(
-            "the orbax filesystem ModelRegistry is not ported; use "
-            "fs://bucket/prefix?base_dir=DIR"
-        )
+        from dragonfly2_tpu_torch.registry.registry import ModelRegistry
+
+        return ModelRegistry(spec)
     u = urllib.parse.urlsplit(spec)
     q = {k: v[-1] for k, v in urllib.parse.parse_qs(u.query).items()}
     bucket = u.netloc

@@ -18,10 +18,13 @@ premise needs, deterministically from a (spec, seed) pair:
                 counter-based hashing (same seed + spec => identical
                 fault schedule, independent of wall clock), plus the
                 ``FaultInjector`` the real client upload path consumes;
+- ``ab``:       the scenario-matrix A/B harness running
+                {default, ml, random[, nt]} evaluators across a scenario
+                grid with paired seeds and confidence intervals; its ml
+                arm trains through the trainer service.
 
-The reference's ``ab`` (the scenario-matrix A/B harness, which trains
-through the trainer service) comes with the trainer (ROADMAP A8), its
-megascale builtins with the scale labs (A11).
+The reference's megascale builtins come with the scale labs (ROADMAP A11),
+its ``bench_scenarios.py`` CLI with the port's bench harness (A6).
 """
 
 from dragonfly2_tpu_torch.scenarios.spec import (  # noqa: F401

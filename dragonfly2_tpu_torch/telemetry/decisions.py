@@ -111,6 +111,30 @@ def compact_features(fd: dict, in_degree: np.ndarray,
     )
 
 
+def extract_dump_rows(doc) -> list[dict]:
+    """Every decision-ledger row reachable in a dump document (a raw
+    ledger dump, a flight dump, or a bench/megascale report embedding
+    one), in seq order: the one walker over the dump shape, which the
+    trainer's exporter (training/data.py) reads through."""
+    rows: list[dict] = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            r = node.get("rows")
+            if isinstance(r, list) and "counters" in node and "features" in node:
+                rows.extend(x for x in r if isinstance(x, dict))
+                return
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+
+    walk(doc)
+    rows.sort(key=lambda r: r.get("seq", 0))
+    return rows
+
+
 # Weak named registry (mirrors flight.register_recorder / the timeline
 # registry) so the process-wide /debug/flight dump finds the live
 # scheduler's ledger without a handle on the service. Last wins.

@@ -7,9 +7,11 @@ same shape), the ranker's ``rank_batches``, and the graph inputs of the
 GraphSAGE ranker (``graph_arrays`` for the segment path,
 ``dense_graph_arrays`` for the dense-adjacency one). It draws from the
 same ``np.random.Generator`` in the same order as the reference, so a
-seed gives both packages the same batches. Everything here is numpy; the
-caller moves it to its device. The decision-ledger exporters wait for
-the trainer (ROADMAP A8).
+seed gives both packages the same batches. Also the decision-ledger
+exporters (``decision_rows``, ``decisions_to_rank_arrays``,
+``decision_rank_batches``), which turn a ledger dump
+(telemetry/decisions.py) into ranking batches. Everything here is numpy;
+the caller moves it to its device.
 """
 
 from __future__ import annotations
@@ -49,6 +51,101 @@ def rank_batches(
             pair_feats=pair_feats[idx],
             throughput=ds.throughput[idx],
             mask=ds.mask[idx],
+        )
+
+
+# --------------------------------------------------------------- decisions
+#
+# Ledger -> training-trace exporter (telemetry/decisions.py): the decision
+# ledger records, per applied selection, the candidate host slots and pair
+# features and, once the outcome joins, the chosen parent's measured
+# download: the (child, candidates, label) shape the ranker trains on. Host
+# indices are the scheduler's host SLOTS, the node space
+# serving_graph_arrays feeds the embedding table, so a batch from here
+# scores against the serving host graph as it is.
+
+
+def decision_rows(doc) -> list[dict]:
+    """Every decision-ledger row reachable in a dump document, in seq
+    order (telemetry/decisions.py ``extract_dump_rows``)."""
+    from dragonfly2_tpu_torch.telemetry.decisions import extract_dump_rows
+
+    return extract_dump_rows(doc)
+
+
+def decisions_to_rank_arrays(rows: list[dict]) -> dict:
+    """Ledger rows -> fixed-shape ranking arrays.
+
+    Keeps only decisions with a joined COMPLETED outcome and a chosen
+    parent; the label is ``log1p(bytes/sec)`` of the measured download,
+    at the chosen candidate's position. The time basis is the outcome's
+    ``cost_ms`` (the download cost summed from reported piece costs: virtual
+    time in a replay, measured transfer time in production), ``ttc_ms`` only
+    for dumps that predate it. Non-chosen candidates ride as context rows
+    with ``mask=False``: one labeled action per decision.
+
+    Returns ``{child_idx (N,), parent_idx (N,P), pair_feats (N,P,2),
+    throughput (N,P), mask (N,P)}`` with P = the max candidate count.
+    """
+    def _basis_ms(r: dict) -> float:
+        o = r.get("outcome") or {}
+        return float(o.get("cost_ms") or o.get("ttc_ms") or 0.0)
+
+    def _labeled(r: dict) -> bool:
+        o = r.get("outcome") or {}
+        return (
+            o.get("state") == "completed"
+            and r.get("chosen_pos", -1) >= 0
+            and _basis_ms(r) > 0
+            and bool(o.get("bytes"))
+        )
+
+    usable = [r for r in rows if _labeled(r)]
+    p = max((len(r.get("candidates", ())) for r in usable), default=0)
+    n = len(usable)
+    out = {
+        "child_idx": np.zeros(n, np.int32),
+        "parent_idx": np.zeros((n, p), np.int32),
+        "pair_feats": np.zeros((n, p, 2), np.float32),
+        "throughput": np.zeros((n, p), np.float32),
+        "mask": np.zeros((n, p), bool),
+    }
+    for i, r in enumerate(usable):
+        out["child_idx"][i] = int(r.get("child_host_slot", 0))
+        o = r["outcome"]
+        bps = float(o["bytes"]) / max(_basis_ms(r) / 1e3, 1e-9)
+        for c in r.get("candidates", ()):
+            j = int(c["pos"])
+            if j >= p:
+                continue
+            out["parent_idx"][i, j] = max(int(c.get("host_slot", 0)), 0)
+            feats = c.get("features", {})
+            out["pair_feats"][i, j, 0] = float(feats.get("same_idc", 0.0))
+            out["pair_feats"][i, j, 1] = float(feats.get("loc_match", 0.0))
+        chosen = int(r["chosen_pos"])
+        if chosen < p:
+            out["throughput"][i, chosen] = np.log1p(bps)
+            out["mask"][i, chosen] = True
+    return out
+
+
+def decision_rank_batches(
+    rows: list[dict], batch_size: int, rng: np.random.Generator,
+    shuffle: bool = True,
+) -> Iterator[RankBatch]:
+    """Ledger rows -> ``RankBatch`` minibatches (static shapes by the same
+    wrap-around bucketing as ``rank_batches``)."""
+    arrays = decisions_to_rank_arrays(rows)
+    n = arrays["child_idx"].shape[0]
+    if n == 0:
+        return
+    for idx in minibatches(n, batch_size, rng, shuffle):
+        yield RankBatch(
+            child_idx=arrays["child_idx"][idx],
+            parent_idx=arrays["parent_idx"][idx],
+            pair_feats=arrays["pair_feats"][idx],
+            throughput=arrays["throughput"][idx],
+            mask=arrays["mask"][idx],
         )
 
 

@@ -1563,3 +1563,178 @@ def test_a_tick_during_refreshes_reads_one_consistent_snapshot(tmp_path):
     assert used[-1] in set(evaluator.committed_versions)
     assert len(set(used)) > 2 and evaluator.refresh_count > 2
     assert used[-1][0] == server.version
+
+
+# --------------------------------------------------------------- the trainer
+
+
+def _rank_trace(hosts=80, records=200, tasks=16):
+    from dragonfly2_tpu_torch.records import synth
+    from dragonfly2_tpu_torch.records.features import downloads_to_ranking_dataset
+
+    cluster = synth.make_cluster(hosts, seed=11)
+    return downloads_to_ranking_dataset(synth.gen_download_records(cluster, records,
+                                                                   num_tasks=tasks))
+
+
+def _step_on(device, trainer_of, idx):
+    """One AdamW step of ``trainer_of(device)`` on rows ``idx``: (loss,
+    gradients, parameters after the step), on the host."""
+    trainer = trainer_of(device)
+    loss = trainer.loss(torch.from_numpy(idx).to(device))
+    trainer.optimizer.zero_grad()
+    loss.backward()
+    grads = {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters()}
+    trainer.optimizer.step()
+    params = {n: p.detach().float().cpu() for n, p in trainer.model.named_parameters()}
+    return loss.item(), grads, params
+
+
+def _held(got, want, loose=(), rel=5e-2):
+    """Each parameter's gradient (or value) within ``rel`` of its largest
+    element; ``loose`` ones (true gradient 0) rounding-small against the
+    largest of all."""
+    largest = max(float(g.abs().max()) for g in want.values())
+    for name, w in want.items():
+        g = got[name]
+        if name in loose:
+            assert max(float(g.abs().max()), float(w.abs().max())) <= 1e-2 * largest, name
+            continue
+        assert float((g - w).abs().max()) <= rel * float(w.abs().max()) + 1e-6, name
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "segment"])
+def test_gnn_step_on_the_card_matches_the_cpu(dense):
+    """train_gnn's step (bf16 GraphSAGE over the whole graph, the listwise
+    loss, AdamW) from the same weights on one batch: the loss within 2e-2,
+    each gradient within 5e-2 of its largest element (bf16 rounding at every
+    layer, the card's segment sums atomics), the head's output bias (shift-
+    invariant, true gradient 0) rounding-small; the AdamW step moves every
+    parameter alike (lr 1e-3 a step: within 2e-3 absolute)."""
+    _need_card()
+    import numpy as np
+
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.training import data, train
+
+    ds, graph = _rank_trace()
+    garrs = data.dense_graph_arrays(graph) if dense else data.graph_arrays(
+        graph, pad_edges_to=data.edge_bucket(graph.edge_src.shape[0]))
+    rows = train._rank_rows(train._take_rank_batch(ds, np.arange(len(ds.mask))))
+    cfg = TrainerConfig(hidden_dim=128)
+
+    def trainer_of(device):
+        model = train.build_graphsage(cfg, graph, 0, None, device)
+        return train.GNNTrainer(model, rows, garrs, cfg.learning_rate, device)
+
+    idx = np.random.default_rng(0).permutation(len(ds.mask))[:64]
+    (cuda_loss, cuda_grads, cuda_params), (cpu_loss, cpu_grads, cpu_params) = (
+        _step_on(d, trainer_of, idx) for d in ("cuda", "cpu"))
+    assert abs(cuda_loss - cpu_loss) < 2e-2
+    _held(cuda_grads, cpu_grads, loose=("head_out.bias",))
+    for name, want in cpu_params.items():
+        assert float((cuda_params[name] - want).abs().max()) <= 2e-3, name
+
+
+def test_mlp_step_on_the_card_matches_the_cpu():
+    """train_mlp's step (bf16 regressor, weighted MSE, AdamW) from the same
+    weights on one batch: the loss within 2e-2 relative, each gradient
+    within 5e-2 of its largest element, the step within 2e-3."""
+    _need_card()
+    import numpy as np
+
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.records import synth
+    from dragonfly2_tpu_torch.records.features import topology_to_pairs
+    from dragonfly2_tpu_torch.training import train
+
+    x, y = topology_to_pairs(synth.gen_network_topology_records(synth.make_cluster(80, seed=11),
+                                                                300))
+    rows = {"x": x, "y": y, "w": np.ones(len(y), np.float32)}
+    cfg = TrainerConfig(hidden_dim=128)
+
+    def trainer_of(device):
+        model = train.build_regressor(cfg, x.shape[1], 0, None, device)
+        return train.MLPTrainer(model, rows, cfg.learning_rate, device)
+
+    idx = np.random.default_rng(0).permutation(len(y))[:256]
+    (cuda_loss, cuda_grads, cuda_params), (cpu_loss, cpu_grads, cpu_params) = (
+        _step_on(d, trainer_of, idx) for d in ("cuda", "cpu"))
+    assert abs(cuda_loss - cpu_loss) <= 2e-2 * abs(cpu_loss)
+    _held(cuda_grads, cpu_grads)
+    for name, want in cpu_params.items():
+        assert float((cuda_params[name] - want).abs().max()) <= 2e-3, name
+
+
+def test_a_checkpoint_saved_on_the_card_restores_on_the_cpu(tmp_path):
+    """train_mlp on the card with a checkpointer; the CPU resumes from it
+    (a complete run: zero steps, the card's params bit for bit) and a
+    longer CPU run trains on from the card's AdamW state."""
+    _need_card()
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.records import synth
+    from dragonfly2_tpu_torch.records.features import topology_to_pairs
+    from dragonfly2_tpu_torch.training import train
+    from dragonfly2_tpu_torch.training.checkpoint import TrainCheckpointer
+
+    x, y = topology_to_pairs(synth.gen_network_topology_records(synth.make_cluster(80, seed=11),
+                                                                300))
+    ck = TrainCheckpointer(tmp_path / "ck")
+    cfg = TrainerConfig(hidden_dim=32, batch_size=64, epochs=2)
+    card = train.train_mlp(x, y, cfg, checkpointer=ck, device="cuda")
+    assert ck.latest_step() == 1 and card.steps == 2 * 19
+    state = ck.restore()
+    assert {leaf["exp_avg"].shape for leaf in state["opt_state"].values()}
+    cpu = train.train_mlp(x, y, cfg, checkpointer=ck, device="cpu")
+    assert cpu.steps == 0
+    for layer, leaves in card.params["params"].items():
+        for key, value in leaves.items():
+            assert (cpu.params["params"][layer][key] == value).all(), (layer, key)
+    more = train.train_mlp(x, y, TrainerConfig(hidden_dim=32, batch_size=64, epochs=3),
+                           checkpointer=ck, device="cpu")
+    assert more.steps == 19 and ck.latest_step() == 2
+
+
+def test_trainer_service_on_the_card_publishes_three_versions(tmp_path):
+    """TrainerService(device="cuda") with the attention family on: three
+    active versions from a small trace, each loading against its serving
+    module's shapes; the attention training launched the training kernels."""
+    _need_card()
+    from dragonfly2_tpu_torch.cluster.trainer_service import (
+        ATTENTION_MODEL_NAME,
+        GNN_MODEL_NAME,
+        MLP_MODEL_NAME,
+        TrainerService,
+    )
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.models import convert
+    from dragonfly2_tpu_torch.models.attention import AttentionRanker
+    from dragonfly2_tpu_torch.models.graphsage import GraphSAGERanker
+    from dragonfly2_tpu_torch.models.mlp import ProbeRTTRegressor
+    from dragonfly2_tpu_torch.records import synth
+    from dragonfly2_tpu_torch.records.storage import HostTraceStorage, TraceStorage
+    from dragonfly2_tpu_torch.registry import ModelRegistry
+
+    cluster = synth.make_cluster(24, seed=1)
+    store = TraceStorage(tmp_path / "traces")
+    for rec in synth.gen_download_records(cluster, 120, num_tasks=8):
+        store.create_download(rec)
+    for rec in synth.gen_network_topology_records(cluster, 60):
+        store.create_network_topology(rec)
+    store.flush()
+    registry = ModelRegistry(tmp_path / "registry")
+    svc = TrainerService(HostTraceStorage(tmp_path / "trainer"), registry,
+                         TrainerConfig(epochs=2, batch_size=32, hidden_dim=32,
+                                       train_attention=True), device="cuda")
+    svc.train_mlp_chunk("h1", store.open_download())
+    svc.train_gnn_chunk("h1", store.open_network_topology())
+    before = flash.DKV_LAUNCHES
+    outcome = svc.train_finish("h1")
+    assert flash.DKV_LAUNCHES > before
+    for name, module in ((GNN_MODEL_NAME, GraphSAGERanker(32)),
+                         (ATTENTION_MODEL_NAME, AttentionRanker(32, in_features=26)),
+                         (MLP_MODEL_NAME, ProbeRTTRegressor(32))):
+        mid = registry.model_id(name, "h1")
+        assert registry.active_version(mid).version == 1, name
+        registry.load_params(mid, 1, template=convert.params_to_flax(module))
+    assert outcome.gnn_result.steps > 0 and outcome.mlp_result.steps > 0

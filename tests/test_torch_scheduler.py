@@ -51,8 +51,8 @@ from dragonfly2_tpu_torch.models.graphsage import GraphSAGERanker
 from dragonfly2_tpu_torch.objectstorage.backends import FilesystemBackend
 from dragonfly2_tpu_torch.records.features import NUM_HOST_FEATURES
 from dragonfly2_tpu_torch.records.storage import TraceStorage
-from dragonfly2_tpu_torch.registry import BucketModelRegistry, MLEvaluator, ModelServer
-from dragonfly2_tpu_torch.registry.registry import GNN_MODEL_NAME, MODEL_TYPE_GNN
+from dragonfly2_tpu_torch.registry import GNN_MODEL_NAME, BucketModelRegistry, MLEvaluator, ModelServer
+from dragonfly2_tpu_torch.registry.registry import MODEL_TYPE_GNN
 from dragonfly2_tpu_torch.scenarios import builtin_scenarios
 from dragonfly2_tpu_torch.telemetry import metrics
 

@@ -32,6 +32,7 @@ from dragonfly2_tpu_torch.parallel.mesh import make_mesh
 from dragonfly2_tpu_torch.records import synth
 from dragonfly2_tpu_torch.records.features import downloads_to_ranking_dataset
 from dragonfly2_tpu_torch.training import data, train
+from dragonfly2_tpu_torch.training.checkpoint import TrainCheckpointer
 
 
 def _port_dataset(seed, hosts, records, tasks):
@@ -303,15 +304,22 @@ def test_train_attention_draws_its_own_init_from_the_seed(rank_data):
     assert a.steps == 3  # 160 training rows in batches of 64, the last wrapped
 
 
-def test_not_yet_ported_paths_raise(rank_data):
+def test_not_yet_ported_paths_raise(rank_data, tmp_path):
     port_ds, _ = rank_data
     cfg = TrainerConfig(hidden_dim=32, batch_size=32, epochs=1)
     # the dp/sp mesh path is ported (tests/test_torch_sp.py); tp/pp/ep are not
     tp_mesh = make_mesh(2, dp=1, tp=2, devices=["cpu"] * 2)
     with pytest.raises(NotImplementedError, match="mesh"):
         train.train_attention(port_ds, cfg, mesh=tp_mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        train.train_attention(port_ds, cfg, checkpointer=object(), device="cpu")
+    # checkpoint resume is ported: one epoch, then a run of two resumes
+    # after it and trains one more (tests/test_torch_trainer.py holds it
+    # to the reference's resumed run)
+    ck = TrainCheckpointer(tmp_path / "ck")
+    first = train.train_attention(port_ds, cfg, checkpointer=ck, device="cpu")
+    assert ck.latest_step() == 0 and first.steps == 5  # 160 training rows / 32
+    resumed = train.train_attention(port_ds, dataclasses.replace(cfg, epochs=2),
+                                    checkpointer=ck, device="cpu")
+    assert resumed.steps == first.steps and ck.all_steps() == [0, 1]
     with pytest.raises(NotImplementedError, match="mixture-of-experts"):
         train.train_attention(port_ds, dataclasses.replace(cfg, attention_moe_experts=4), device="cpu")
     with pytest.raises(NotImplementedError, match="parallelism"):
