@@ -175,7 +175,36 @@ result line:
    then 4: exactly 2 more epochs of steps, then 4: none, the params bit
    for bit); then the trained GNN served on phase 13's ml arm for 100
    rounds, its tick p50 and mean piece cost beside the rule arm's.
-15. the kernels JSON line and, last, the result line.
+15. the processes (slice 19): the port's trainer and scheduler started as
+   processes on the card through python -m dragonfly2_tpu_torch.cmd (the
+   trainer with train_attention on and TrainerConfig's defaults otherwise,
+   the scheduler on Config() defaults with the ml arm, the registry, the
+   announce loop to the trainer and both metrics ports); daemons played
+   over the wire from this process, one SchedulerClientPool (one
+   connection) per daemon host as a dfdaemon holds it: 1,024 hosts
+   announce, 64 report probe rounds, 4,096 downloads of 16 tasks (each
+   task's first peer back-sources, the rest fetch their 4 pieces from the
+   parents the tick picked, 128 in flight), then 80 finished peers of each
+   task leave and a flash crowd of 1,024 registrations, one from each
+   host, is sent in one burst. The scheduler's network topology collect
+   ticker writes the probe graph the trainer's MLP trains on. Prints the
+   time from each process's start to its READY line, RegisterPeer to
+   answer p50 and p99 and the crowd's last answer, the peers each tick
+   answered (grouped by the tick span id its answers carry) with the
+   largest, the scheduler's tick
+   and batch histograms and announce_peer totals from its /metrics, the
+   wall from the first announce upload to three active versions (gnn,
+   attention, mlp) in the registry, the ml arm's log line naming the
+   trained GNN version, 256 more downloads on it, ModelInfer on the
+   attention version over the INFER port (p50) against this process's
+   ModelServer on the same card and inputs, and the exits on SIGTERM.
+   Checks: every registration answered by the tick, one tick of the crowd
+   holding more than 256 peers (the evaluator's 1,024 bucket), the three versions
+   active, the ml arm serving the trained GNN, ModelInfer equal bit for bit
+   to the in-process ModelServer (flash_fwd launched once a layer there),
+   both processes exiting 0 within 10 s of SIGTERM, and at least one
+   download trace row on disk for each finished download.
+16. the kernels JSON line and, last, the result line.
 
 Between phases 3 and 4, the host cost of the forward with lse's wrapper at
 the ranker's two trained shapes, [256, 4, 20, 32] and [256, 4, 20, 192]:
@@ -227,6 +256,7 @@ import json
 import os
 import pathlib
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -4483,6 +4513,631 @@ def phase_trainer(card: str, storage, topology, rule_cost) -> None:
     print(f"trainer phase: {time.perf_counter() - phase_start:.1f} s")
 
 
+# ------------------------------------------------------------------ phase 15
+
+PROC_HOSTS = 1024
+PROC_TASKS = 16
+PROC_DOWNLOADS = 4096  # the tasks' first peers included
+PROC_CROWD = 1024  # registrations of the flash crowd, sent in one burst
+PROC_ML_DOWNLOADS = 256  # after the ml arm serves the trained GNN
+# finished peers of each task that leave before the crowd: 4,096 downloads
+# fill the 16 tasks' DAGs (Config's max_peers_per_task, 256)
+PROC_CHURN = (PROC_CROWD + PROC_ML_DOWNLOADS) // PROC_TASKS
+PROC_PIECE, PROC_PIECES = 4 << 20, 4
+PROC_INFLIGHT = 128  # downloads in flight at once
+PROC_DIALS = 64  # connections dialled at once (the server's listen backlog is 100)
+PROC_FILES = 4 * PROC_HOSTS  # open files this process and the scheduler need
+PROC_BUCKET = TASK_BUCKETS[-2]  # a tick above this many peers fills the largest bucket
+PROC_PROBE_SOURCES, PROC_PROBE_COUNT = 64, 10
+# seconds between the scheduler's uploads: the first comes after the wire
+# play (~45 s of host time), the next this long after the first training
+# answered, long after the checks: SIGTERM must not meet a training, which
+# the trainer finishes before it exits
+PROC_ANNOUNCE_S = 60.0
+# the scheduler's network topology collect ticker (2 h in the Go
+# scheduler): snapshots land after the probe rounds and before the upload
+PROC_TOPOLOGY_S = 15.0
+PROC_REFRESH_S = 1.0  # the ml arm's refresh loop
+PROC_READY_S = 180.0
+PROC_VERSIONS_S = 300.0  # from the scheduler's start to three active versions
+PROC_STOP_S = 10.0
+PROC_INFER_N, PROC_INFER_CALLS = 256, 20
+PROC_SCHED_ID = "chip-smoke-scheduler"
+
+
+class _Process:
+    """One launcher process: its READY line and the seconds it took, its
+    stderr in a file, and a SIGTERM stop that must exit 0 in time."""
+
+    def __init__(self, name: str, args: list, tree: str, log_path: str):
+        self.name, self.log_path = name, log_path
+        env = dict(os.environ, PYTHONPATH=tree)
+        start = time.perf_counter()
+        with open(log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "dragonfly2_tpu_torch.cmd", *args], cwd=tree, env=env,
+                stdout=subprocess.PIPE, stderr=log, text=True)
+        line: list = []
+        reader = threading.Thread(target=lambda: line.append(self.proc.stdout.readline()),
+                                  daemon=True)
+        reader.start()
+        reader.join(PROC_READY_S)
+        self.ready_s = time.perf_counter() - start
+        if not line or not line[0].startswith("READY"):
+            self.kill()
+            _fail(f"the {name} process printed no READY line in {self.ready_s:.1f} s "
+                  f"(rc {self.proc.returncode}): {line}; its log ends: {self.log()[-3000:]}")
+        self.ready = line[0].split()
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+    def stop(self) -> float:
+        if not self.alive():
+            _fail(f"the {self.name} process died (rc {self.proc.returncode}): "
+                  f"{self.log()[-3000:]}")
+        start = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=PROC_STOP_S)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            _fail(f"the {self.name} process did not exit within {PROC_STOP_S} s of SIGTERM")
+        seconds = time.perf_counter() - start
+        if rc != 0:
+            _fail(f"the {self.name} process exited {rc} on SIGTERM: {self.log()[-3000:]}")
+        return seconds
+
+
+def _proc_hosts(msg):
+    return [msg.HostInfo(host_id=f"proc-host-{i}", hostname=f"proc-node-{i}",
+                         ip=f"10.{64 + i // 256}.{i % 256}.1", idc=f"idc-{i % 4}",
+                         location=f"region-{i % 2}|zone-{i % 8}", port=8002, download_port=8001)
+            for i in range(PROC_HOSTS)]
+
+
+def _raise_open_files() -> None:
+    """Room for one connection a daemon host on both ends: this process's
+    soft limit of open files, which the launchers inherit, raised to the
+    hard limit where it is below PROC_FILES."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft != resource.RLIM_INFINITY and soft < PROC_FILES:
+        if hard != resource.RLIM_INFINITY and hard < PROC_FILES:
+            _fail(f"the hard limit of open files is {hard}; {PROC_HOSTS} daemon connections "
+                  f"need {PROC_FILES}")
+        resource.setrlimit(resource.RLIMIT_NOFILE, (PROC_FILES, hard))
+
+
+class _WirePeers:
+    """Daemons over the wire, as a dfdaemon's conductor plays them: each
+    daemon host a SchedulerClientPool with its own connection to the
+    scheduler; register, wait for the answer, then back-source or fetch
+    the pieces from the parents the tick picked, and finish. Each answer's
+    tick is known by the tick span id the server sends with it."""
+
+    def __init__(self, host: str, port: int):
+        from dragonfly2_tpu_torch.cluster import messages as msg
+
+        self.msg, self.host, self.port = msg, host, port
+        self.hosts = _proc_hosts(msg)
+        self.latency_ms: list = []
+        self.arrived: list = []
+        self.ticks: list = []  # the tick span id of each answer, in arrival order
+        self.answers = collections.Counter()
+        self.pools, self.conns = [], []
+        self.dirty: set = set()  # hosts whose frames no barrier has covered
+
+    async def open(self) -> None:
+        from dragonfly2_tpu_torch.rpc.client import SchedulerClientPool
+
+        self.pools = [SchedulerClientPool([(self.host, self.port)]) for _ in self.hosts]
+        gate = asyncio.Semaphore(PROC_DIALS)
+
+        async def dial(h):
+            async with gate:
+                return await self.pools[h].for_task(self.hosts[h].host_id)
+
+        self.conns = await asyncio.gather(*(dial(h) for h in range(len(self.hosts))))
+
+    async def close(self) -> None:
+        await asyncio.gather(*(pool.close() for pool in self.pools))
+
+    def conn(self, h: int):
+        self.dirty.add(h)
+        return self.conns[h]
+
+    async def barrier(self) -> None:
+        """Every frame sent so far has been applied: one round trip on
+        each connection that sent since the last barrier (the server reads
+        a connection's frames in order)."""
+        hosts, self.dirty = sorted(self.dirty), set()
+        await asyncio.gather(*(self.conns[h].stat_task("barrier", timeout=120) for h in hosts))
+
+    async def announce(self) -> None:
+        for i, h in enumerate(self.hosts):
+            await self.conn(i).send(self.msg.AnnounceHostRequest(host=h))
+        await self.barrier()
+
+    async def probe(self) -> int:
+        pairs = 0
+        for s in range(PROC_PROBE_SOURCES):
+            src = self.hosts[s * (PROC_HOSTS // PROC_PROBE_SOURCES)]
+            targets = await self.conn(s).sync_probes(src.host_id, count=PROC_PROBE_COUNT,
+                                                     timeout=120)
+            await self.conn(s).send(self.msg.ProbeFinishedRequest(host_id=src.host_id, results=[
+                self.msg.ProbeResult(host_id=t.host_id, rtt_ns=(200 + 37 * ((s + j) % 23)) * 1000)
+                for j, t in enumerate(targets)]))
+            pairs += len(targets)
+        await self.barrier()
+        return pairs
+
+    async def leave(self, items) -> None:
+        for peer_id, _, h in items:
+            await self.conn(h).send(self.msg.LeavePeerRequest(peer_id=peer_id))
+        await self.barrier()
+
+    async def register(self, peer_id: str, task_id: str, h: int):
+        """Send one registration; returns its response queue and send time."""
+        conn = self.conn(h)
+        queue = conn.subscribe(peer_id)
+        start = time.perf_counter()
+        await conn.send(self.msg.RegisterPeerRequest(
+            peer_id=peer_id, task_id=task_id, host=self.hosts[h],
+            url=f"https://origin.example/{task_id}.bin",
+            content_length=PROC_PIECE * PROC_PIECES, piece_length=PROC_PIECE))
+        return queue, start
+
+    async def answer(self, peer_id: str, h: int, queue, start: float):
+        """The tick's answer to a registration, its latency recorded."""
+        answer = await asyncio.wait_for(queue.get(), 300)
+        self.arrived.append(time.perf_counter())
+        self.latency_ms.append((self.arrived[-1] - start) * 1e3)
+        self.ticks.append((getattr(answer, "trace_context", None) or {}).get("span_id"))
+        self.conn(h).unsubscribe(peer_id)
+        self.answers[type(answer).__name__] += 1
+        return answer
+
+    async def finish(self, peer_id: str, h: int, answer) -> None:
+        """Back-source, or fetch the pieces from the tick's parents; finish."""
+        m, conn = self.msg, self.conn(h)
+        kind = type(answer).__name__
+        cost = (2 + h % 8) * 1_000_000
+        if kind == "NeedBackToSourceResponse":
+            await conn.send(m.DownloadPeerBackToSourceStartedRequest(peer_id=peer_id))
+            for n in range(PROC_PIECES):
+                await conn.send(m.DownloadPieceFinishedRequest(
+                    peer_id=peer_id, piece_number=n, length=PROC_PIECE, cost_ns=cost))
+            await conn.send(m.DownloadPeerBackToSourceFinishedRequest(
+                peer_id=peer_id, content_length=PROC_PIECE * PROC_PIECES,
+                piece_count=PROC_PIECES))
+        elif kind == "NormalTaskResponse" and answer.candidate_parents:
+            parents = answer.candidate_parents
+            for n in range(PROC_PIECES):
+                await conn.send(m.DownloadPieceFinishedRequest(
+                    peer_id=peer_id, piece_number=n, length=PROC_PIECE, cost_ns=cost,
+                    parent_peer_id=parents[n % len(parents)].peer_id))
+            await conn.send(m.DownloadPeerFinishedRequest(
+                peer_id=peer_id, content_length=PROC_PIECE * PROC_PIECES,
+                piece_count=PROC_PIECES))
+        else:
+            _fail(f"peer {peer_id}: the scheduler answered {answer}")
+
+    async def downloads(self, items, limit: int = PROC_INFLIGHT) -> None:
+        gate = asyncio.Semaphore(limit)
+
+        async def one(peer_id, task_id, h):
+            async with gate:
+                queue, start = await self.register(peer_id, task_id, h)
+                await self.finish(peer_id, h, await self.answer(peer_id, h, queue, start))
+
+        await asyncio.gather(*(one(*item) for item in items))
+        await self.barrier()
+
+    async def crowd(self, items) -> float:
+        """Every registration sent in one burst, then every answer awaited;
+        returns the ms from the first send to the last answer."""
+        start = time.perf_counter()
+        sent = [(peer_id, h, *(await self.register(peer_id, task_id, h)))
+                for peer_id, task_id, h in items]
+        self.crowd_sent_ms = (time.perf_counter() - start) * 1e3
+        gate = asyncio.Semaphore(PROC_INFLIGHT)
+        first = len(self.arrived)
+
+        async def one(peer_id, h, queue, t0):
+            answer = await self.answer(peer_id, h, queue, t0)
+            async with gate:
+                await self.finish(peer_id, h, answer)
+
+        await asyncio.gather(*(one(*s) for s in sent))
+        await self.barrier()
+        return (max(self.arrived[first:]) - start) * 1e3
+
+    def tick_sizes(self, first: int = 0, last: int | None = None) -> list:
+        """Peers answered by each tick, for the answers first:last, largest first."""
+        ticks = self.ticks[first:last]
+        if None in ticks:
+            _fail("an answer came without its tick's span id")
+        return sorted(collections.Counter(ticks).values(), reverse=True)
+
+
+class _Watcher(threading.Thread):
+    """Polls the trainer's /metrics and the registry every 0.1 s from the
+    processes' start: the first announce upload's time (the trainer's
+    first dataset chunk) and the time all three versions are active."""
+
+    def __init__(self, metrics_port: int, registry, names):
+        super().__init__(name="proc-watcher", daemon=True)
+        self.metrics_port, self.registry, self.names = metrics_port, registry, names
+        self.upload_at = self.active_at = None
+        self.versions = None
+        self.halt = threading.Event()
+
+    def run(self) -> None:
+        reg = self.registry
+        while not self.halt.is_set() and self.active_at is None:
+            now = time.perf_counter()
+            if self.upload_at is None:
+                try:
+                    got = _scrape(self.metrics_port)
+                except OSError:
+                    got = {}
+                if any(k.startswith("dragonfly_trainer_train_chunks_total") for k in got):
+                    self.upload_at = now
+            else:
+                try:
+                    versions = {n: reg.active_version(reg.model_id(n, PROC_SCHED_ID))
+                                for n in self.names}
+                except (OSError, ValueError):
+                    versions = {}
+                if versions and all(v is not None for v in versions.values()):
+                    self.versions, self.active_at = versions, now
+            self.halt.wait(0.1)
+
+
+def _dispatch_ms(device, requests) -> float:
+    """Host ms of one RegisterPeer dispatch on the card without the wire:
+    SchedulerRPCServer._dispatch under svc.mu, as its pool threads run it,
+    on a service at Config()'s defaults, its hosts announced first."""
+    from dragonfly2_tpu_torch.cluster import messages as msg
+    from dragonfly2_tpu_torch.cluster.probes import ProbeStore
+    from dragonfly2_tpu_torch.cluster.scheduler import SchedulerService
+    from dragonfly2_tpu_torch.config.config import Config
+    from dragonfly2_tpu_torch.rpc.server import SchedulerRPCServer
+
+    cfg = Config()
+    svc = SchedulerService(config=cfg, device=device, probes=ProbeStore(
+        max_hosts=cfg.scheduler.max_hosts, device=device))
+    server, owned = SchedulerRPCServer(svc), set()
+    for h in _proc_hosts(msg):
+        with svc.mu:
+            server._dispatch(msg.AnnounceHostRequest(host=h), owned)
+    start = time.perf_counter()
+    for request in requests:
+        with svc.mu:
+            server._dispatch(request, owned)
+    return (time.perf_counter() - start) * 1e3 / len(requests)
+
+
+def _scrape(port: int) -> dict:
+    """The monitor's /metrics as {name{labels}: value}."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def _wait_for(predicate, timeout: float, what: str, procs=()):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        value = predicate()
+        if value:
+            return value
+        for p in procs:
+            if not p.alive():
+                _fail(f"the {p.name} process died while waiting for {what} (rc "
+                      f"{p.proc.returncode}): {p.log()[-3000:]}")
+        time.sleep(0.1)
+    _fail(f"timed out after {timeout:.0f} s waiting for {what}")
+
+
+def _pct(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def phase_processes(card: str, tree: str, device=None, trainer_config=None) -> None:
+    """Slice 19's main path: the port's trainer and scheduler as processes
+    on the card through python -m dragonfly2_tpu_torch.cmd, with daemons
+    played over the wire from this process (the module docstring, phase
+    15). ``device`` and ``trainer_config`` are for a rehearsal on the CPU."""
+    import torch
+
+    from dragonfly2_tpu_torch.cluster.trainer_service import (
+        ATTENTION_MODEL_NAME, GNN_MODEL_NAME, MLP_MODEL_NAME,
+    )
+    from dragonfly2_tpu_torch.ops import flash
+    from dragonfly2_tpu_torch.registry import ModelRegistry, ModelServer
+    from dragonfly2_tpu_torch.rpc.inference import InferenceClient
+
+    phase_start = time.perf_counter()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the two processes
+    dev_args = ["--device", device] if device else []
+    _raise_open_files()
+    procs: list = []
+    watcher = None
+    with tempfile.TemporaryDirectory(prefix="dfly-procs-") as root:
+        registry_dir = os.path.join(root, "registry")
+        sched_dir = os.path.join(root, "scheduler")
+        config_path = os.path.join(root, "trainer.json")
+        with open(config_path, "w") as f:
+            json.dump({"trainer": {"train_attention": True, **(trainer_config or {})}}, f)
+        try:
+            trainer = _Process("trainer", [
+                "trainer", *dev_args, "--data-dir", os.path.join(root, "trainer"),
+                "--registry-dir", registry_dir, "--config", config_path, "--metrics-port", "0"],
+                tree, os.path.join(root, "trainer.log"))
+            procs.append(trainer)
+            t_host, t_port, t_metrics = trainer.ready[1], trainer.ready[2], int(trainer.ready[4])
+            sched = _Process("scheduler", [
+                "scheduler", *dev_args, "--data-dir", sched_dir, "--registry-dir", registry_dir,
+                "--algorithm", "ml", "--trainer", f"{t_host}:{t_port}",
+                "--announce-interval", str(PROC_ANNOUNCE_S),
+                "--network-topology-collect-interval", str(PROC_TOPOLOGY_S),
+                "--ml-refresh-interval", str(PROC_REFRESH_S),
+                "--scheduler-host-id", PROC_SCHED_ID, "--metrics-port", "0"],
+                tree, os.path.join(root, "scheduler.log"))
+            procs.append(sched)
+            sched_start = time.perf_counter() - sched.ready_s
+            registry = ModelRegistry(registry_dir)
+            watcher = _Watcher(t_metrics, registry,
+                               (GNN_MODEL_NAME, ATTENTION_MODEL_NAME, MLP_MODEL_NAME))
+            watcher.start()
+            r = sched.ready
+            if r[3] != "INFER" or r[6] != "METRICS":
+                _fail(f"the scheduler's READY line lacks INFER or METRICS: {' '.join(r)}")
+            s_host, s_port, i_port, s_metrics = r[1], int(r[2]), int(r[5]), int(r[7])
+            print(f"processes: READY after {trainer.ready_s:.2f} s (trainer: "
+                  f"{' '.join(trainer.ready)}) and {sched.ready_s:.2f} s (scheduler: "
+                  f"{' '.join(r)}), from process start, host clock ({card})")
+
+            # -- the daemons over the wire
+            peers = _WirePeers(s_host, s_port)
+            rng = np.random.default_rng(SEED)
+
+            async def play():
+                t_dial = time.perf_counter()
+                await peers.open()
+                try:
+                    t0 = time.perf_counter()
+                    await peers.announce()
+                    pairs = await peers.probe()
+                    t1 = time.perf_counter()
+                    await peers.downloads([(f"proc-t{t}-p0", f"proc-task-{t}", t * 61 % PROC_HOSTS)
+                                           for t in range(PROC_TASKS)])
+                    rest = [(f"proc-t{t}-p{i}", f"proc-task-{t}", int(h))
+                            for i in range(1, PROC_DOWNLOADS // PROC_TASKS)
+                            for t, h in zip(range(PROC_TASKS),
+                                            rng.integers(0, PROC_HOSTS, PROC_TASKS))]
+                    await peers.downloads(rest)
+                    t2 = time.perf_counter()
+                    downloads_ms = list(peers.latency_ms)
+                    await peers.leave(rest[:PROC_CHURN * PROC_TASKS])
+                    # one registration from each of the crowd's hosts
+                    crowd = [(f"proc-crowd-{i}", f"proc-task-{i % PROC_TASKS}", int(h))
+                             for i, h in enumerate(rng.permutation(PROC_HOSTS)[:PROC_CROWD])]
+                    before = await asyncio.to_thread(_scrape, s_metrics)
+                    crowd_ms = await peers.crowd(crowd)
+                    return (pairs, downloads_ms, crowd_ms, before, t0 - t_dial, t1 - t0, t2 - t1,
+                            time.perf_counter() - t2)
+                finally:
+                    await peers.close()
+
+            (pairs, downloads_ms, crowd_ms, before, dial_s, setup_s, play_s,
+             crowd_s) = asyncio.run(play())
+            play_done = time.perf_counter()
+            n_down = len(downloads_ms)
+            if n_down != PROC_DOWNLOADS or sum(peers.answers.values()) != PROC_DOWNLOADS + PROC_CROWD:
+                _fail(f"answers {dict(peers.answers)} for {PROC_DOWNLOADS} downloads and "
+                      f"{PROC_CROWD} in the crowd")
+            crowd_lat = peers.latency_ms[n_down:]
+            down_ticks, crowd_ticks = peers.tick_sizes(0, n_down), peers.tick_sizes(n_down)
+            print(f"processes: {PROC_HOSTS} connections dialled, one a daemon host, in "
+                  f"{dial_s:.2f} s; {PROC_HOSTS} hosts announced and {pairs} probe pairs reported "
+                  f"in {setup_s:.2f} s; {PROC_DOWNLOADS} downloads of {PROC_TASKS} tasks "
+                  f"({PROC_PIECES} pieces each, {PROC_INFLIGHT} in flight) in "
+                  f"{play_s:.2f} s, every one answered by the tick "
+                  f"({dict(peers.answers)} with the crowd); RegisterPeer to answer p50 "
+                  f"{_pct(downloads_ms, 50):.3f} ms p99 {_pct(downloads_ms, 99):.3f} ms (host "
+                  f"clock of this process, which plays the daemons and sets the pace); "
+                  f"{PROC_CHURN * PROC_TASKS} finished peers left, then a flash crowd of "
+                  f"{PROC_CROWD} sent in one burst: last answer {crowd_ms:.1f} ms after the "
+                  f"first send (answers p50 {_pct(crowd_lat, 50):.1f} ms p99 "
+                  f"{_pct(crowd_lat, 99):.1f} ms), finished in {crowd_s:.2f} s ({card})")
+            m = _scrape(s_metrics)
+            crowd_hist = {k.split('le="')[1].rstrip('"}'): m[k] - before.get(k, 0.0) for k in m
+                          if k.startswith("dragonfly_scheduler_tick_batch_size_bucket")}
+            crowd_phases = {k.split('phase="')[1].rstrip('"}'): 1e3 * (m[k] - before.get(k, 0.0))
+                            for k in m if k.startswith("dragonfly_scheduler_tick_phase_seconds_sum")}
+            tick_key = "dragonfly_scheduler_tick_seconds_sum"
+            crowd_tick_ms = 1e3 * (m.get(tick_key, 0.0) - before.get(tick_key, 0.0))
+            print(f"processes: peers each tick answered (by the tick span id on each answer): "
+                  f"the downloads {len(down_ticks)} ticks, largest {down_ticks[:5]}, median "
+                  f"{statistics.median(down_ticks)}; the crowd {len(crowd_ticks)} ticks, sizes "
+                  f"{crowd_ticks[:8]}{' ...' if len(crowd_ticks) > 8 else ''}; the crowd's ticks "
+                  f"in /metrics' peers-a-tick buckets, cumulative {crowd_hist}")
+            print(f"processes: the crowd's time: its {PROC_CROWD} frames sent in "
+                  f"{peers.crowd_sent_ms:.1f} ms (this process); first answer "
+                  f"{min(crowd_lat):.1f} ms, last {crowd_ms:.1f} ms after the first send; its "
+                  f"ticks {crowd_tick_ms:.1f} ms in all (the server's clock from a tick's start "
+                  f"to its thread's return, its wait for a pool thread and svc.mu included), "
+                  f"phases inside svc.tick() (ms, summed) "
+                  f"{ {k: round(v, 3) for k, v in crowd_phases.items() if v} } ({card})")
+            if crowd_ticks[0] <= PROC_BUCKET:
+                _fail(f"no tick of the crowd held more than {PROC_BUCKET} peers (largest "
+                      f"{crowd_ticks[0]}): the largest bucket was never filled")
+            ticks = m.get("dragonfly_scheduler_tick_seconds_count", 0.0)
+            tick_sum = m.get("dragonfly_scheduler_tick_seconds_sum", 0.0)
+            batches = {k.split('le="')[1].rstrip('"}'): v for k, v in m.items()
+                       if k.startswith("dragonfly_scheduler_tick_batch_size_bucket")}
+            tick_buckets = {k.split('le="')[1].rstrip('"}'): v for k, v in m.items()
+                            if k.startswith("dragonfly_scheduler_tick_seconds_bucket")}
+            announce = {k.split('type="')[1].rstrip('"}'): v for k, v in m.items()
+                        if k.startswith("dragonfly_scheduler_announce_peer_total{")}
+            registered = announce.get("RegisterPeerRequest", 0.0)
+            print(f"processes: scheduler /metrics: {ticks:.0f} ticks, mean "
+                  f"{1e3 * tick_sum / max(ticks, 1):.3f} ms (the server's clock around the tick "
+                  f"thread); tick_seconds buckets {tick_buckets}; peers a tick, cumulative "
+                  f"buckets {batches}; announce_peer totals {announce}")
+            if registered != PROC_DOWNLOADS + PROC_CROWD:
+                _fail(f"the scheduler counted {registered} RegisterPeer frames")
+            if ticks <= 0:
+                _fail("the scheduler's /metrics shows no tick")
+
+            # -- the trainer: three active versions in the registry
+            _wait_for(lambda: watcher.active_at, PROC_VERSIONS_S,
+                      "the first upload and three active versions", procs)
+            versions = watcher.versions
+            print(f"processes: first announce upload seen {watcher.upload_at - sched_start:.1f} s "
+                  f"after the scheduler started (the play took {play_done - sched_start:.1f} s); "
+                  f"three versions active {watcher.active_at - watcher.upload_at:.2f} s after the "
+                  f"upload (host clock, polled every 0.1 s): "
+                  + ", ".join(f"{n} v{v.version}" for n, v in versions.items()))
+            gnn_version = versions[GNN_MODEL_NAME].version
+            line = f"ml evaluator serving model version {gnn_version}"
+            _wait_for(lambda: line in sched.log(), 120, f"the scheduler's log line '{line}'",
+                      procs)
+
+            # -- the ml arm scores ticks with the trained GNN
+            peers2 = _WirePeers(s_host, s_port)
+
+            async def ml_play():
+                await peers2.open()
+                try:
+                    await peers2.downloads([(f"proc-ml-{i}", f"proc-task-{i % PROC_TASKS}",
+                                             int(rng.integers(0, PROC_HOSTS)))
+                                            for i in range(PROC_ML_DOWNLOADS)])
+                finally:
+                    await peers2.close()
+
+            asyncio.run(ml_play())
+            m = _scrape(s_metrics)
+            accepted = m.get("dragonfly_serving_activation_accepted_total", 0.0)
+            rejected = sum(v for k, v in m.items()
+                           if k.startswith("dragonfly_serving_activation_rejected_total"))
+            print(f"processes: the scheduler's ml arm serves the trained GNN v{gnn_version} (its "
+                  f"log: '{line}'; activation gate accepted {accepted:.0f}, rejected "
+                  f"{rejected:.0f}); {PROC_ML_DOWNLOADS} more downloads on it, answers "
+                  f"{dict(peers2.answers)}, p50 {_pct(peers2.latency_ms, 50):.3f} ms")
+            if accepted < 1 or rejected or sum(peers2.answers.values()) != PROC_ML_DOWNLOADS:
+                _fail("the ml arm did not serve the trained GNN")
+
+            # -- ModelInfer on the attention version, against this process
+            batch = _requests(PROC_INFER_N, rng)
+
+            async def infer():
+                client = await InferenceClient(s_host, i_port).connect()
+                try:
+                    if not await client.model_ready(ATTENTION_MODEL_NAME):
+                        _fail("ModelReady answered false for the attention version")
+                    meta = await client.model_metadata(ATTENTION_MODEL_NAME)
+                    times, outs = [], []
+                    for i in range(PROC_INFER_CALLS + 1):
+                        start = time.perf_counter()
+                        out = await client.model_infer(ATTENTION_MODEL_NAME, batch,
+                                                       request_id=f"proc-{i}")
+                        times.append((time.perf_counter() - start) * 1e3)
+                        outs.append(out["scores"])
+                    return meta, times, outs
+                finally:
+                    await client.close()
+
+            meta, times, outs = asyncio.run(infer())
+            want_version = str(versions[ATTENTION_MODEL_NAME].version)
+            if meta.versions != [want_version]:
+                _fail(f"the INFER port serves {meta.versions}, the registry has {want_version}")
+            if any(not np.array_equal(o, outs[0]) for o in outs):
+                _fail("repeated ModelInfer requests answered differently")
+            local = ModelServer(registry, ATTENTION_MODEL_NAME, PROC_SCHED_ID, "attention",
+                                device=device)
+            if not local.refresh() or str(local.version) != want_version:
+                _fail("this process's ModelServer did not load the attention version")
+            _zero_counts()
+            direct = local.score_set(batch["child_feats"], batch["parent_feats"],
+                                     batch["pair_feats"], batch["mask"]).cpu().numpy()
+            launched = flash.LAUNCHES
+            mask = batch["mask"]
+            if not np.isfinite(outs[0][mask]).all():
+                _fail("ModelInfer: non-finite score at a valid slot")
+            equal = np.array_equal(outs[0], direct)
+            print(f"processes: ModelInfer {ATTENTION_MODEL_NAME} v{want_version} at N = "
+                  f"{PROC_INFER_N} x {CANDIDATES} over the INFER port: p50 "
+                  f"{statistics.median(times[1:]):.3f} ms over {PROC_INFER_CALLS} warm calls "
+                  f"(first {times[0]:.3f} ms; host clock); this process's ModelServer on the same "
+                  f"card and inputs: {'equal bit for bit' if equal else 'DIFFERENT'} (bf16 "
+                  f"ranker, float32 scores), flash_fwd launches {launched} in that call "
+                  f"(once a layer)")
+            if not equal:
+                _fail(f"ModelInfer over the wire differs from this process's ModelServer by "
+                      f"{float(np.abs(outs[0][mask] - direct[mask]).max())}")
+            if device is None and launched != local.model.num_layers:
+                _fail(f"the in-process ModelServer launched flash_fwd {launched} times")
+
+            # -- shutdown: the scheduler flushes its trace rows, both exit 0;
+            # the scheduler first, before its next upload can start a training
+            since = time.perf_counter() - watcher.active_at
+            if since > PROC_ANNOUNCE_S - 5:
+                _fail(f"the checks took {since:.0f} s after the versions went active: the "
+                      f"scheduler's next upload ({PROC_ANNOUNCE_S:.0f} s) may have begun")
+            stop_s = {p.name: p.stop() for p in (sched, trainer)}
+            rows = 0
+            for path in pathlib.Path(sched_dir).glob("download*.csv"):
+                with open(path) as f:
+                    rows += sum(1 for _ in f) - 1
+            done = PROC_DOWNLOADS + PROC_CROWD + PROC_ML_DOWNLOADS
+            print(f"processes: SIGTERM -> exit 0 in {stop_s['scheduler']:.2f} s (scheduler) and "
+                  f"{stop_s['trainer']:.2f} s (trainer); {rows} download rows on disk for "
+                  f"{done} finished downloads")
+            if rows < done:
+                _fail(f"{rows} download trace rows on disk, fewer than the {done} downloads")
+
+            # -- what one RegisterPeer dispatch costs the server, without the wire
+            reqs = [peers.msg.RegisterPeerRequest(
+                peer_id=f"proc-cost-{i}", task_id=f"proc-task-{i % PROC_TASKS}",
+                host=peers.hosts[i], url=f"https://origin.example/proc-task-{i % PROC_TASKS}.bin",
+                content_length=PROC_PIECE * PROC_PIECES, piece_length=PROC_PIECE)
+                for i in range(PROC_CROWD)]
+            per = _dispatch_ms(device or "cuda", reqs)
+            print(f"processes: one RegisterPeer dispatch in this process (SchedulerRPCServer."
+                  f"_dispatch under svc.mu on a Config() service on {device or 'the card'}, no "
+                  f"wire, no thread hop): {per:.3f} ms, host clock, the mean of {PROC_CROWD}; "
+                  f"the crowd's {PROC_CROWD} would take {per * PROC_CROWD:.1f} ms in a row "
+                  f"({card})")
+        finally:
+            if watcher is not None:
+                watcher.halt.set()
+                watcher.join(5)
+            for p in procs:
+                p.kill()
+    print(f"processes phase: {time.perf_counter() - phase_start:.1f} s")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--threshold", action="store_true",
@@ -4535,6 +5190,7 @@ def main() -> None:
         phase_graph_models(ds, graph, topology, card)
         rule_cost = phase_ml_arm(card)
         phase_trainer(card, storage, topology, rule_cost)
+    phase_processes(card, tree)
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]

@@ -1,5 +1,6 @@
-"""Native host kernels through ctypes: the DAG reachability queries and
-the trace store's numeric CSV parse.
+"""Native host kernels through ctypes: the DAG reachability queries, the
+trace store's numeric CSV parse and the hash ring's FNV-1a 64 hashes and
+ring picks.
 
 The port's own loader for the repository's ``native/dfnative.cpp`` (used
 as it is, read-only), after dragonfly2_tpu/native/__init__.py. The source
@@ -8,8 +9,9 @@ name that carries a hash of the source and the flags, and loaded with
 ctypes, on the first call that needs it (a blocking build). These are
 host-side C++ functions of the DAG's mutation path and of records/storage.py's ``numeric_matrix``, not
 device kernels: where the library cannot be built or loaded, graph/dag.py
-keeps its own numpy BFS and storage.py its csv-module parse, which are the
-same host semantics.
+keeps its own numpy BFS, storage.py its csv-module parse and
+utils/hashring.py the pure-Python FNV-1a 64 and numpy bisect below, which
+are the same host semantics.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ logger = logging.getLogger(__name__)
 _SRC = pathlib.Path(__file__).resolve().parents[2] / "native" / "dfnative.cpp"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+_MASK64 = 0xFFFFFFFFFFFFFFFF
 
 _lock = threading.Lock()  # serializes the build and the load
 _lib: ctypes.CDLL | None = None
@@ -59,9 +62,16 @@ def _build(path: pathlib.Path) -> bool:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    u8p = ctypes.POINTER(ctypes.c_uint8)
     u64p = ctypes.POINTER(ctypes.c_uint64)
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.df_fnv1a64.argtypes = [u8p, ctypes.c_int64]
+    lib.df_fnv1a64.restype = ctypes.c_uint64
+    lib.df_fnv1a64_batch.argtypes = [u8p, i64p, ctypes.c_int64, u64p]
+    lib.df_fnv1a64_batch.restype = None
+    lib.df_ring_pick_batch.argtypes = [u64p, ctypes.c_int64, u64p, ctypes.c_int64, i64p]
+    lib.df_ring_pick_batch.restype = None
     lib.df_dag_reachable.argtypes = [u64p] + [ctypes.c_int64] * 4
     lib.df_dag_reachable.restype = ctypes.c_int32
     lib.df_dag_reachable_batch.argtypes = [
@@ -108,6 +118,56 @@ def available() -> bool:
 
 def _as_ptr(arr: np.ndarray, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def fnv1a64(data: bytes) -> int:
+    """FNV-1a 64 of `data` — native when available, else pure Python.
+    Both paths are the exact same function, so ring placements agree
+    across mixed fleets."""
+    lib = get_lib()
+    if lib is not None:
+        buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data) if data else (ctypes.c_uint8 * 1)()
+        return int(lib.df_fnv1a64(buf, len(data)))
+    h = 0xCBF29CE484222325
+    for byte in data:
+        h ^= byte
+        h = (h * 0x100000001B3) & _MASK64
+    h ^= h >> 33
+    h = (h * 0xFF51AFD7ED558CCD) & _MASK64
+    h ^= h >> 33
+    h = (h * 0xC4CEB9FE1A85EC53) & _MASK64
+    h ^= h >> 33
+    return h
+
+
+def fnv1a64_batch(keys: list[bytes]) -> np.ndarray:
+    lib = get_lib()
+    if lib is None:
+        return np.asarray([fnv1a64(k) for k in keys], np.uint64)
+    buf = b"".join(keys)
+    offsets = np.zeros(len(keys) + 1, np.int64)
+    np.cumsum([len(k) for k in keys], out=offsets[1:])
+    out = np.zeros(len(keys), np.uint64)
+    cbuf = (ctypes.c_uint8 * max(len(buf), 1)).from_buffer_copy(buf or b"\0")
+    lib.df_fnv1a64_batch(cbuf, _as_ptr(offsets, ctypes.c_int64), len(keys), _as_ptr(out, ctypes.c_uint64))
+    return out
+
+
+def ring_pick_batch(ring_hashes: np.ndarray, key_hashes: np.ndarray) -> np.ndarray:
+    """For each key hash, index into the sorted ring (bisect semantics)."""
+    ring_hashes = np.ascontiguousarray(ring_hashes, np.uint64)
+    key_hashes = np.ascontiguousarray(key_hashes, np.uint64)
+    out = np.zeros(key_hashes.shape[0], np.int64)
+    lib = get_lib()
+    if lib is None:
+        idx = np.searchsorted(ring_hashes, key_hashes, side="right")
+        return idx % len(ring_hashes)
+    lib.df_ring_pick_batch(
+        _as_ptr(ring_hashes, ctypes.c_uint64), len(ring_hashes),
+        _as_ptr(key_hashes, ctypes.c_uint64), len(key_hashes),
+        _as_ptr(out, ctypes.c_int64),
+    )
+    return out
 
 
 def dag_reachable(adj: np.ndarray, src: int, dst: int) -> bool | None:

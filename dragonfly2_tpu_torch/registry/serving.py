@@ -294,6 +294,11 @@ class _EmbSnapshot:
     params_version: int | None
     host_emb: torch.Tensor
     emb_version: int
+    # on CUDA: recorded on the refresh's stream after the table's last
+    # kernel. The refresh lands that stream before it commits, which is
+    # what makes the table complete; a tick's stream also waits on this
+    # event, a device-side second guard should a commit ever skip the land
+    ready: Any = None
 
 
 def _refresh_worker_main(eval_ref: "weakref.ref[MLEvaluator]",
@@ -542,6 +547,20 @@ class MLEvaluator:
         if self._stream is not None:
             self._stream.synchronize()
 
+    def _ready_event(self):
+        """An event after the refresh's device work (None on the CPU).
+        What guarantees a committed table is complete is ``_land()``: the
+        refresh synchronises its stream before it commits, whichever
+        thread refreshed (the evaluator's worker, or a caller's
+        refresh_embeddings(graph, True) on a pool thread). The event is a
+        second guard on the device: the reading stream waits on it, so the
+        order would hold even for a commit that did not land first."""
+        if self._stream is None:
+            return None
+        event = torch.cuda.Event()
+        event.record(self._stream)
+        return event
+
     def _perform_refresh(self, graph: dict) -> None:
         """Compute + commit one refresh (caller holds _compute_mu)."""
         model, params, version = self.server.snapshot()
@@ -618,6 +637,7 @@ class MLEvaluator:
             params_version=version,
             host_emb=emb,
             emb_version=(committed.emb_version + 1) if committed else 1,
+            ready=self._ready_event(),
         )
         self._committed = snapshot
         self.committed_versions.append(
@@ -684,13 +704,19 @@ class MLEvaluator:
     # ---------------------------------------------------------- serving
 
     def _serve_from(self, snap: _EmbSnapshot, record_used: bool) -> None:
-        """Book one schedule call on ``snap``: the audit pair, and the
-        table marked used on the caller's stream (the allocator then
-        keeps its memory until that stream's work on it is done)."""
+        """Book one schedule call on ``snap``: the audit pair, the
+        caller's stream made to wait on the refresh's ``ready`` event (a
+        second guard: the refresh landed its stream before it committed),
+        and the table marked used on that stream
+        (the allocator then keeps its memory until that stream's work on
+        it is done)."""
         if record_used:
             self.last_used_versions = (snap.params_version, snap.emb_version)
         if snap.host_emb.is_cuda:
-            snap.host_emb.record_stream(torch.cuda.current_stream(snap.host_emb.device))
+            stream = torch.cuda.current_stream(snap.host_emb.device)
+            if snap.ready is not None:
+                stream.wait_event(snap.ready)
+            snap.host_emb.record_stream(stream)
 
     def schedule(
         self,

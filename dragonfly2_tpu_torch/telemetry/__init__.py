@@ -1,16 +1,18 @@
-"""Telemetry: metrics, tracing, the flight recorder and the SLO engine.
+"""Telemetry: metrics and their HTTP server, tracing, the flight recorder
+and the SLO engine with its health verdict.
 
 As dragonfly2_tpu/telemetry/__init__.py, less what is not ported yet (the
-exposition server, the cost cards, the soak timelines and the health
-verdict plane); nothing here pulls in a device library.
+cost cards, the soak timelines); nothing here pulls in a device library.
 """
 
 from dragonfly2_tpu_torch.telemetry.metrics import (  # noqa: F401
     Counter,
     Gauge,
     Histogram,
+    MonitorServer,
     Registry,
     default_registry,
+    serve_metrics,
 )
 from dragonfly2_tpu_torch.telemetry.tracing import (  # noqa: F401
     Span,
@@ -26,4 +28,5 @@ from dragonfly2_tpu_torch.telemetry.slo import (  # noqa: F401
     BurnRateRule,
     SLOEngine,
     SLOSpec,
+    health_verdict,
 )

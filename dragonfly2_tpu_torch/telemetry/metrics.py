@@ -1,7 +1,8 @@
 """Port of dragonfly2_tpu/telemetry/metrics.py: the collectors,
-``Registry`` and ``default_registry``. The reference's ``/metrics`` and
-debug HTTP server (``serve_metrics``) comes with the service processes
-(ROADMAP A9).
+``Registry``, ``default_registry`` and the per-service observability HTTP
+server (``serve_metrics``: ``/metrics``, ``/debug/stacks``,
+``/debug/profile``, ``/debug/health``). Its ``/debug/flight`` route
+answers an error naming ROADMAP A10, where the flight recorder's dump is.
 
 Prometheus-compatible metrics: counters, gauges, histograms, with the
 label sets of the reference's per-service metrics packages
@@ -12,6 +13,7 @@ Prometheus can scrape it; no external client library.
 
 from __future__ import annotations
 
+import http.server
 import threading
 import time
 from typing import Iterable
@@ -240,6 +242,160 @@ _DEFAULT = Registry()
 
 def default_registry() -> Registry:
     return _DEFAULT
+
+
+FLIGHT_NOT_PORTED = (
+    "the flight recorder's dump (/debug/flight) is not ported yet (ROADMAP A10)"
+)
+
+
+def _sample_stacks(seconds: float, interval_s: float = 0.01) -> str:
+    """Poor-man's py-spy: aggregate `sys._current_frames()` samples into
+    per-frame inclusive counts across all threads."""
+    import collections
+    import sys
+    import time as _time
+
+    counts: collections.Counter[str] = collections.Counter()
+    me = threading.get_ident()
+    samples = 0
+    deadline = _time.monotonic() + seconds
+    while _time.monotonic() < deadline:
+        for tid, frame in sys._current_frames().items():
+            if tid == me:
+                continue
+            while frame is not None:
+                code = frame.f_code
+                # co_qualname needs 3.11; fall back to the bare name so
+                # the endpoint answers instead of killing the handler
+                # thread mid-response on 3.10
+                qualname = getattr(code, "co_qualname", code.co_name)
+                counts[f"{code.co_filename}:{frame.f_lineno} {qualname}"] += 1
+                frame = frame.f_back
+        samples += 1
+        _time.sleep(interval_s)
+    lines = [f"# {samples} samples over {seconds:.1f}s (10ms interval), inclusive counts"]
+    for frame_id, n in counts.most_common(80):
+        lines.append(f"{n:8d} {frame_id}")
+    return "\n".join(lines) + "\n"
+
+
+class MonitorServer(http.server.ThreadingHTTPServer):
+    """ThreadingHTTPServer whose shutdown() is GRACEFUL: stop
+    serve_forever, join the serving thread, close the listening socket.
+    The base class leaves the acceptor thread and the bound socket behind
+    — every test/daemon that starts a monitor leaked a listener until the
+    process died."""
+
+    _serve_thread: threading.Thread | None = None
+
+    def shutdown(self) -> None:  # noqa: A003 - stdlib API name
+        super().shutdown()
+        thread = self._serve_thread
+        if thread is not None and thread is not threading.current_thread():
+            thread.join(timeout=5)
+        self._serve_thread = None
+        self.server_close()
+
+
+def serve_metrics(registry: Registry | None = None, port: int = 0) -> MonitorServer:
+    """Serve the per-service observability HTTP endpoint on a background
+    thread (the reference starts a Prometheus `/metrics` server per
+    service plus pprof/statsview via InitMonitor,
+    cmd/dependency/dependency.go:95-138):
+
+    - `/metrics` — Prometheus text exposition
+    - `/debug/stacks` — current stack of every thread (pprof goroutine
+      profile equivalent; faulthandler)
+    - `/debug/profile?seconds=N` — sampling profiler: sample every
+      thread's stack every 10 ms for N seconds (default 2, max 30) and
+      return frames ranked by inclusive sample count (cProfile only sees
+      the calling thread; sampling `sys._current_frames()` sees the whole
+      process, like the pprof CPU profile does)
+    - `/debug/flight` — answers 501 with FLIGHT_NOT_PORTED: the
+      flight-recorder dump is ROADMAP A10
+    - `/debug/health` — the SLO health verdict plane (telemetry/slo.py:
+      ok/degraded/critical with firing-alert causes; 503 on critical)
+
+    Returns the server (.server_address for the bound port, .shutdown()
+    to stop — graceful: joins the serving thread and closes the socket)."""
+    reg = registry or _DEFAULT
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 - stdlib API
+            path, _, query = self.path.partition("?")
+            path = path.rstrip("/")
+            if path in ("", "/metrics"):
+                return self._send(reg.expose().encode(), "text/plain; version=0.0.4")
+            if path == "/debug/stacks":
+                import sys
+                import traceback
+
+                names = {t.ident: t.name for t in threading.enumerate()}
+                parts = []
+                for tid, frame in sys._current_frames().items():
+                    parts.append(f"Thread {names.get(tid, '?')} (id {tid}):")
+                    parts.append("".join(traceback.format_stack(frame)))
+                return self._send("\n".join(parts).encode())
+            if path == "/debug/profile":
+                import urllib.parse as _up
+
+                params = dict(_up.parse_qsl(query))
+                try:
+                    seconds = float(params.get("seconds", 2) or 2)
+                except ValueError:
+                    self.send_error(400, "seconds must be a number")
+                    return
+                seconds = min(max(seconds, 0.1), 30.0)
+                return self._send(_sample_stacks(seconds).encode())
+            if path == "/debug/flight":
+                # the flight recorder's dump is not ported (ROADMAP A10):
+                # an error that says so, never a partial dump
+                self.send_error(501, FLIGHT_NOT_PORTED)
+                return
+            if path == "/debug/health":
+                import json
+
+                from dragonfly2_tpu_torch.telemetry import slo as _slo
+
+                try:
+                    kwargs = _slo.parse_health_query(query)
+                except ValueError as e:
+                    self.send_error(400, str(e))
+                    return
+                # the machine-readable verdict plane (same body as the
+                # mux route — telemetry/slo.health_verdict): 503 on
+                # `critical` for probes, compact JSON so the max_bytes
+                # cap is the bytes actually shipped
+                doc = _slo.health_verdict(**kwargs)
+                body = json.dumps(
+                    doc, separators=(",", ":"), default=str
+                ).encode()
+                return self._send(
+                    body, "application/json",
+                    status=503 if doc["state"] == _slo.VERDICT_CRITICAL
+                    else 200,
+                )
+            self.send_error(404)
+
+        def _send(self, body: bytes, ctype: str = "text/plain",
+                  status: int = 200):
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):  # silence per-request stderr noise
+            pass
+
+    server = MonitorServer(("127.0.0.1", port), Handler)
+    thread = threading.Thread(
+        target=server.serve_forever, name="metrics-http", daemon=True
+    )
+    server._serve_thread = thread
+    thread.start()
+    return server
 
 
 class Timer:

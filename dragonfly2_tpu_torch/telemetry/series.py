@@ -1,8 +1,9 @@
 """Port of dragonfly2_tpu/telemetry/series.py: the metric families the
-scheduler service exports (the scheduler's, the decision ledger's, the
-SLO engine's, the rpc breakers', the device entry counters' and the ml
-arm's activation gate's). The daemon, manager, trainer, megascale,
-cost-card, timeline, tail and process families come with their modules.
+scheduler and trainer services export (the scheduler's, the trainer's,
+the decision ledger's, the SLO engine's, the rpc breakers', the device
+entry counters' and the ml arm's activation gate's), the traffic label
+values and the version gauge. The daemon, manager, megascale, cost-card,
+timeline, tail and process families come with their modules.
 
 Capability parity with scheduler/metrics/metrics.go:44-454 (per-RPC
 totals + failure twins, `traffic` by type/task_type/task_tag/task_app/
@@ -13,6 +14,14 @@ can call them freely.
 """
 
 from __future__ import annotations
+
+from dragonfly2_tpu_torch import version as _version
+
+# traffic type label values (scheduler/metrics/metrics.go:24-38)
+TRAFFIC_P2P = "p2p"
+TRAFFIC_BACK_TO_SOURCE = "back_to_source"
+HOST_TRAFFIC_UPLOAD = "upload"
+HOST_TRAFFIC_DOWNLOAD = "download"
 
 
 class _Namespace:
@@ -242,6 +251,20 @@ def jit_series(reg, service: str) -> _Namespace:
     )
 
 
+def trainer_series(reg) -> _Namespace:
+    c = reg.counter
+    return _Namespace(
+        training=c("dragonfly_trainer_training_total", "training runs"),
+        training_failure=c(
+            "dragonfly_trainer_training_failure_total", "failed training runs"
+        ),
+        train_chunks=c(
+            "dragonfly_trainer_train_chunks_total", "dataset chunks", ("dataset",)
+        ),
+        train_runs=c("dragonfly_trainer_train_total", "train runs", ("state",)),
+    )
+
+
 def serving_series(reg) -> _Namespace:
     """Guarded model activation (registry/serving.py): every new params
     version is gated — sha256 manifest at load, finite-leaves check, and
@@ -303,3 +326,7 @@ def slo_series(reg) -> _Namespace:
             ("source", "sli", "outcome"),
         ),
     )
+
+
+def register_version(reg, service: str) -> None:
+    _version.register_version_gauge(reg, service)

@@ -1,8 +1,9 @@
-"""Port of dragonfly2_tpu/telemetry/slo.py: ``SLOEngine`` and
-``scheduler_slo_specs``, what the scheduler service runs. The process
-verdict plane (``health_verdict`` and its ``/debug/health`` query), the
-megascale SLI derivation and the artifact report come with the modules
-that serve or write them.
+"""Port of dragonfly2_tpu/telemetry/slo.py: ``SLOEngine``,
+``scheduler_slo_specs`` and the process verdict plane
+(``health_verdict`` and its ``/debug/health`` query,
+``parse_health_query``), what the scheduler service and its HTTP routes
+run. The megascale SLI derivation and the artifact report come with the
+modules that write them (ROADMAP A11).
 
 Streaming SLO engine: declarative objectives over sliding good/bad
 counters and multi-window multi-burn-rate alerting, after the Google SRE
@@ -31,10 +32,11 @@ replay outcomes).
 from __future__ import annotations
 
 import dataclasses
+import json
 import threading
 import weakref
 from collections import deque
-from typing import Any, Iterable
+from typing import Any, Iterable, Mapping
 
 SEVERITY_PAGE = "page"
 SEVERITY_TICKET = "ticket"
@@ -495,6 +497,104 @@ def live_engines() -> dict[str, SLOEngine]:
             else:
                 out[name] = eng
     return out
+
+
+# ------------------------------------------------------ the verdict plane
+
+
+# Hard payload bound for the /debug/health routes: the verdict is meant
+# for probes and dashboards, not bulk export — far smaller than the
+# flight dump's 2 MiB.
+HEALTH_MAX_BYTES = 256 << 10
+
+
+def parse_health_query(query: str) -> dict:
+    """``?last_n=&max_bytes=`` → :func:`health_verdict` kwargs — shared
+    by the mux and monitor ``/debug/health`` routes (the same contract
+    as flight.parse_flight_query). Raises ValueError with a
+    client-facing message on bad input (the routes answer 400)."""
+    import urllib.parse as _up
+
+    kwargs: dict = {}
+    for key, value in _up.parse_qsl(query or ""):
+        if key == "last_n":
+            try:
+                kwargs["last_n"] = max(int(value), 0)
+            except ValueError:
+                raise ValueError("last_n must be an integer") from None
+        elif key == "max_bytes":
+            try:
+                kwargs["max_bytes"] = max(int(value), 1024)
+            except ValueError:
+                raise ValueError("max_bytes must be an integer") from None
+    return kwargs
+
+
+def _health_nbytes(body: Mapping[str, Any]) -> int:
+    return len(json.dumps(body, separators=(",", ":"), default=str))
+
+
+def health_verdict(last_n: int = 32,
+                   max_bytes: int | None = HEALTH_MAX_BYTES) -> dict:
+    """The process health verdict: every live SLO engine's verdict
+    merged worst-wins, with firing alerts as causes and the newest
+    alert transitions. Plain data; ``max_bytes`` is a hard compact-JSON
+    cap enforced by shedding alert-log entries oldest-first (then the
+    per-SLO evaluation detail) with a ``truncated`` marker."""
+    engines = live_engines()
+    worst = VERDICT_OK
+    causes: list[dict] = []
+    slos: dict[str, dict] = {}
+    log: list[dict] = []
+    for name in sorted(engines):
+        eng = engines[name]
+        d = eng.dump(last_n=last_n)
+        v = d["verdict"]
+        if VERDICT_CODES[v["state"]] > VERDICT_CODES[worst]:
+            worst = v["state"]
+        for cause in v["causes"]:
+            causes.append({"source": name, **cause})
+        slos[name] = {
+            "state": v["state"],
+            "pages_fired": d["pages_fired"],
+            "tickets_fired": d["tickets_fired"],
+            "evaluations": d["evaluations"],
+        }
+        # per-source tails, NOT one merged tail-slice: engines run on
+        # different clocks (event rounds vs wall minutes), so a global
+        # sort or slice would let one engine's backlog displace another
+        # engine's newer — possibly currently-firing — transitions.
+        # Each engine's dump already bounds its own log to last_n
+        # (newest-last); byte growth is bounded by the max_bytes shed.
+        for entry in d["alert_log"]:
+            log.append({"source": name, **entry})
+    body: dict = {
+        "state": worst,
+        "state_code": VERDICT_CODES[worst],
+        "causes": causes,
+        "slos": slos,
+        "alert_log": log,
+        "sources": sorted(engines),
+    }
+    if max_bytes is not None and _health_nbytes(body) > max_bytes:
+        dropped = 0
+        while body["alert_log"] and _health_nbytes(body) > max_bytes:
+            shed = max(len(body["alert_log"]) // 2, 1)
+            dropped += shed
+            body["alert_log"] = body["alert_log"][shed:]
+            body["truncated"] = {
+                "max_bytes": max_bytes, "dropped_alert_log": dropped,
+            }
+        if _health_nbytes(body) > max_bytes:
+            # evaluation detail is the next-largest variable block; the
+            # scalar skeleton (state/causes/sources) is the floor
+            for entry in body["slos"].values():
+                entry.pop("evaluations", None)
+            body["truncated"] = {
+                "max_bytes": max_bytes, "dropped_alert_log": dropped,
+                "dropped_evaluations": True,
+            }
+    return body
 
 
 # ------------------------------------------------- scheduler (wall clock)

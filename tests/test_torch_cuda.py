@@ -1738,3 +1738,119 @@ def test_trainer_service_on_the_card_publishes_three_versions(tmp_path):
         assert registry.active_version(mid).version == 1, name
         registry.load_params(mid, 1, template=convert.params_to_flax(module))
     assert outcome.gnn_result.steps > 0 and outcome.mlp_result.steps > 0
+
+
+# ----------------------------------------------------- the processes' edge
+
+
+def _answers_close(got, want, atol=1e-6):
+    """Equal answers, a parent's float score within atol (the card's
+    float32 blend rounds differently from the CPU's, phase 10's 1e-6)."""
+    if isinstance(got, dict) and isinstance(want, dict):
+        return got.keys() == want.keys() and all(
+            _answers_close(got[k], want[k], atol) for k in got)
+    if isinstance(got, list) and isinstance(want, list):
+        return len(got) == len(want) and all(_answers_close(a, b, atol) for a, b in zip(got, want))
+    if isinstance(got, float) and isinstance(want, float):
+        return abs(got - want) <= atol
+    return got == want
+
+
+def test_scheduler_server_on_the_card_answers_the_scripted_sequence_as_on_the_cpu():
+    """tests/torch_wire_script.py's peer sequence through the port's client
+    into the port's SchedulerRPCServer, its service on the card and then on
+    the CPU: the same answers (parent ids, states and counts exactly)."""
+    _need_card()
+    import asyncio
+
+    import torch_wire_script
+
+    from dragonfly2_tpu_torch.cluster import messages as msg
+    from dragonfly2_tpu_torch.cluster.scheduler import SchedulerService
+    from dragonfly2_tpu_torch.rpc import client, server
+
+    async def run(device):
+        svc = SchedulerService(seed=3, device=device)
+        srv = server.SchedulerRPCServer(svc)
+        host, port = await srv.start()
+        try:
+            return await torch_wire_script.play(client, msg, host, port)
+        finally:
+            await srv.stop()
+
+    on_card, on_cpu = asyncio.run(run("cuda")), asyncio.run(run("cpu"))
+    assert len(on_card) == 13
+    assert _answers_close(on_card, on_cpu), (on_card, on_cpu)
+
+
+def test_two_threads_refresh_and_read_the_ml_snapshot_without_a_torn_read(tmp_path):
+    """The scheduler process's two callers of one MLEvaluator: a thread
+    refreshing inline (refresh_embeddings(graph, True), as cmd.py's refresh
+    loop does from a pool thread, a params flip among the refreshes) and a
+    thread scoring ticks on its own stream. A refresh lands its stream
+    before it commits (what makes the table complete), and every committed
+    snapshot also carries its refresh's event, which the reading stream
+    waits on as a second guard; each call serves the pair
+    of the snapshot it pinned, and its output equals the same call made
+    again from that snapshot after the device is idle."""
+    _need_card()
+    import threading
+
+    import numpy as np
+
+    from dragonfly2_tpu_torch.models import convert
+    from dragonfly2_tpu_torch.registry import ModelEvaluation, serving
+
+    graph = _ml_graph()
+    reg, server, evaluator, _ = _ml_evaluator_on_card(tmp_path)
+    evaluator.refresh_embeddings(dict(graph), wait=True)
+    buf, dims = _ml_buf()
+    rng = np.random.default_rng(2)
+    stop, errors, served = threading.Event(), [], []
+
+    def refresher():
+        try:
+            i = 0
+            while not stop.is_set():
+                i += 1
+                if i == 5:
+                    flipped = convert.graphsage_params_to_flax(_ml_model(seed=1))
+                    mv = reg.create_model_version("ranker", "gnn", "h", flipped,
+                                                  ModelEvaluation(), metadata={"hidden_dim": 64})
+                    reg.activate(mv.model_id, mv.version)
+                    server.refresh()
+                evaluator.refresh_embeddings(dict(
+                    graph, dirty_slots=rng.integers(0, 4096, 8).astype(np.int32),
+                    full_sync=i % 3 == 0), True)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    def reader():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for _ in range(40):
+                    snap = evaluator.serving_snapshot()
+                    assert isinstance(snap.ready, torch.cuda.Event)
+                    out = evaluator.schedule_from_packed(buf, *dims, limit=ML_LIMIT, snap=snap)
+                    pair = evaluator.last_used_versions
+                    torch.cuda.current_stream().synchronize()
+                    served.append((pair, (snap.params_version, snap.emb_version), out, snap))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=refresher, name="race-refresher"),
+               threading.Thread(target=reader, name="race-reader")]
+    for t in threads:
+        t.start()
+    threads[1].join(timeout=120)
+    stop.set()
+    threads[0].join(timeout=120)
+    evaluator.close()
+    assert not errors, errors
+    assert len(served) == 40
+    torch.cuda.synchronize()
+    for pair, pinned, out, snap in served:
+        assert pair == pinned
+        again = serving._ml_schedule_from_packed(snap.model, snap.host_emb, buf, *dims, ML_LIMIT)
+        assert torch.equal(out, again)
+    assert len({p for p, *_ in served}) > 1 and evaluator.refresh_count > 2

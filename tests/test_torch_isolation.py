@@ -47,7 +47,11 @@ def test_port_imports_no_jax_flax_or_reference():
                    "rpc.resilience", "scenarios", "scenarios.spec", "scenarios.engine",
                    # slice 16: probes, the segment reductions and the graph models
                    "utils.prng", "ops.ewma", "cluster.probes", "models", "models.graphsage",
-                   "models.mlp", "models.convert", "training.data"):
+                   "models.mlp", "models.convert", "training.data",
+                   # slice 19: the processes, their wire servers and clients
+                   "version", "cmd", "rpc.server", "rpc.client", "rpc.mux", "rpc.wire",
+                   "cluster.service_v1", "utils.retry", "utils.vsock", "utils.hashring",
+                   "utils.certs"):
         assert f"dragonfly2_tpu_torch.{module}" in names, module
     assert lines["TORCH"] == "True"
     assert lines["BAD"] == "", f"port pulled in: {lines['BAD']}"
