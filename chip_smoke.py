@@ -204,7 +204,31 @@ result line:
    to the in-process ModelServer (flash_fwd launched once a layer there),
    both processes exiting 0 within 10 s of SIGTERM, and at least one
    download trace row on disk for each finished download.
-16. the kernels JSON line and, last, the result line.
+16. the data plane (slice 20): the port's scheduler started as a process
+   on the card at Config()'s defaults (the rule arm, the fused tick, a
+   metrics port), an origin in this script serving one image of 4 blobs
+   (128, 64, 32 and 16 MiB of seeded random bytes: 60 pieces of 4 MiB),
+   and 16 dfdaemon processes (python -m dragonfly2_tpu_torch.cmd
+   dfdaemon, hostnames df-00 .. df-15, each with its proxy hijacking
+   '/blobs/' and a metrics port), started together. Stage 1: df-00 pulls
+   the image through its proxy and back-sources. Stage 2: df-01 .. df-15
+   pull it at once through their proxies, 60 fetches in flight, as every
+   node of a rollout pulls one image through its registry mirror. Stage
+   3: two dfget processes (python -m dragonfly2_tpu_torch.client.cli
+   dfget --no-back-source) fetch the 128 MiB blob. Prints the time to
+   READY (the scheduler; the daemons' p50 and max), stage 1's wall and
+   MiB/s, stage 2's per-blob completion p50 and p99 across the nodes,
+   aggregate MiB/s and wall, the dfget wall, the scheduler's ticks and
+   peers a tick for each stage from its /metrics, pieces from the origin
+   and from parents, origin bytes over image bytes, the daemons'
+   downloads by dominant tail phase (their /metrics), and the SIGTERM to
+   exit times. Checks: every body and file has the origin's sha256; the
+   origin serves no data GET after stage 1 (every later piece came from a
+   peer the card's tick picked); at least one download trace row on disk
+   for each finished download; every process exits 0 within 10 s of
+   SIGTERM; no dfdaemon or dfget process holds a CUDA context (neither
+   among nvidia-smi's compute pids nor mapping libcuda or libtorch).
+17. the kernels JSON line and, last, the result line.
 
 Between phases 3 and 4, the host cost of the forward with lse's wrapper at
 the ranker's two trained shapes, [256, 4, 20, 32] and [256, 4, 20, 192]:
@@ -5138,6 +5162,333 @@ def phase_processes(card: str, tree: str, device=None, trainer_config=None) -> N
     print(f"processes phase: {time.perf_counter() - phase_start:.1f} s")
 
 
+# ------------------------------------------------------------------ phase 16
+
+DATA_DAEMONS = 16
+DATA_BLOBS_MIB = (128, 64, 32, 16)  # one image's layers: 60 pieces of 4 MiB, 240 MiB
+DATA_DFGETS = 2  # dfget processes pulling the first blob with --no-back-source
+DATA_FETCH_S = 300.0  # a proxy answers after the whole download: its socket timeout
+DATA_STOP_S = 10.0
+
+
+class _DataOrigin:
+    """The image's registry: its blobs over HTTP with Range support,
+    counting HEADs, data GETs (the range probe included), piece GETs and
+    the bytes sent."""
+
+    def __init__(self, blobs: dict):
+        import http.server
+
+        self.blobs = blobs
+        self.heads = self.gets = self.piece_gets = self.bytes = 0
+        self.mu = threading.Lock()
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args):
+                pass
+
+            def do_HEAD(self):
+                with outer.mu:
+                    outer.heads += 1
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(outer.blobs[self.path])))
+                self.end_headers()
+
+            def do_GET(self):
+                data, status = memoryview(outer.blobs[self.path]), 200
+                rng = self.headers.get("Range")
+                if rng and rng.startswith("bytes="):
+                    start, _, end = rng[len("bytes="):].partition("-")
+                    data = data[int(start or 0):int(end) + 1 if end else len(data)]
+                    status = 206
+                with outer.mu:
+                    outer.gets += 1
+                    outer.piece_gets += len(data) > 1  # not the bytes=0-0 range probe
+                    outer.bytes += len(data)
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+        self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def counts(self) -> tuple:
+        with self.mu:
+            return self.heads, self.gets, self.piece_gets, self.bytes
+
+    def stop(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def _proxy_fetch(proxy_port: int, url: str) -> tuple:
+    """One GET through a daemon's proxy: (sha256 of the body, bytes, the
+    X-Dragonfly-Via header, seconds)."""
+    import hashlib
+    import urllib.request
+
+    start = time.perf_counter()
+    req = urllib.request.Request(url)
+    req.set_proxy(f"127.0.0.1:{proxy_port}", "http")
+    h, n = hashlib.sha256(), 0
+    with urllib.request.urlopen(req, timeout=DATA_FETCH_S) as resp:
+        via = resp.headers.get("X-Dragonfly-Via")
+        while True:
+            chunk = resp.read(1 << 20)
+            if not chunk:
+                break
+            h.update(chunk)
+            n += len(chunk)
+    return h.hexdigest(), n, via, time.perf_counter() - start
+
+
+def _cuda_pids() -> set | None:
+    """PIDs holding a CUDA context, as nvidia-smi lists them (None where
+    nvidia-smi does not answer)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if out.returncode != 0:
+        return None
+    return {int(w) for w in out.stdout.split() if w.strip().isdigit()}
+
+
+def _maps_cuda(pid: int) -> bool:
+    """Whether a process has the CUDA driver or torch mapped."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            maps = f.read()
+    except OSError:
+        return False
+    return "libcuda" in maps or "libtorch" in maps
+
+
+def _no_cuda_context(procs: dict, listed: set | None) -> None:
+    for name, pid in procs.items():
+        if (listed is not None and pid in listed) or _maps_cuda(pid):
+            _fail(f"the {name} process (pid {pid}) holds a CUDA context or maps torch")
+
+
+def _tail_dominant(ports) -> dict:
+    """Downloads by their dominant tail phase, summed over the daemons'
+    /metrics (dragonfly_tail_dominant_total of their dfdaemon.tail)."""
+    out: collections.Counter = collections.Counter()
+    for port in ports:
+        for key, value in _scrape(port).items():
+            if key.startswith("dragonfly_tail_dominant_total{"):
+                out[key.split('phase="')[1].split('"')[0]] += int(value)
+    return dict(out)
+
+
+def _tick_stats(m: dict) -> tuple:
+    return (m.get("dragonfly_scheduler_tick_seconds_count", 0.0),
+            m.get("dragonfly_scheduler_tick_batch_size_sum", 0.0),
+            m.get("dragonfly_scheduler_tick_seconds_sum", 0.0),
+            {k.split('le="')[1].rstrip('"}'): v for k, v in m.items()
+             if k.startswith("dragonfly_scheduler_tick_batch_size_bucket")})
+
+
+def _traffic(m: dict) -> dict:
+    out: collections.Counter = collections.Counter()
+    for key, value in m.items():
+        if key.startswith("dragonfly_scheduler_traffic{"):
+            out[key.split('type="')[1].split('"')[0]] += value
+    return dict(out)
+
+
+def phase_data_plane(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
+                     blobs_mib=DATA_BLOBS_MIB) -> None:
+    """Slice 20's main path: 16 dfdaemon processes and 2 dfget processes
+    move one image's blobs between peers the scheduler's tick on the card
+    picks (the module docstring, phase 16). ``device``, ``daemons`` and
+    ``blobs_mib`` are for a rehearsal on the CPU."""
+    import concurrent.futures
+    import hashlib
+
+    phase_start = time.perf_counter()
+    _raise_open_files()
+    rng = np.random.default_rng(SEED)
+    blobs = {f"/v2/library/app/blobs/sha256-{i}": rng.integers(0, 256, mib << 20, dtype=np.uint8)
+             .tobytes() for i, mib in enumerate(blobs_mib)}
+    shas = {path: hashlib.sha256(b).hexdigest() for path, b in blobs.items()}
+    image = sum(len(b) for b in blobs.values())
+    origin = _DataOrigin(blobs)
+    urls = [origin.base + path for path in blobs]
+    dev_args = ["--device", device] if device else []
+    procs: list = []
+    with tempfile.TemporaryDirectory(prefix="dfly-data-") as root:
+        try:
+            sched = _Process("scheduler", [
+                "scheduler", *dev_args, "--data-dir", os.path.join(root, "traces"),
+                "--metrics-port", "0"], tree, os.path.join(root, "scheduler.log"))
+            procs.append(sched)
+            s_addr, s_metrics = f"{sched.ready[1]}:{sched.ready[2]}", int(sched.ready[4])
+
+            def start(i):
+                name = f"df-{i:02d}"
+                return _Process(name, [
+                    "dfdaemon", "--data-dir", os.path.join(root, name), "--scheduler", s_addr,
+                    "--hostname", name, "--proxy", "--proxy-rule", "/blobs/",
+                    "--metrics-port", "0"], tree, os.path.join(root, f"{name}.log"))
+
+            with concurrent.futures.ThreadPoolExecutor(daemons) as pool:
+                dfs = list(pool.map(start, range(daemons)))
+            procs.extend(dfs)
+            for d in dfs:
+                if d.ready[3] != "PROXY" or d.ready[5] != "METRICS":
+                    _fail(f"{d.name}'s READY line lacks PROXY or METRICS: {' '.join(d.ready)}")
+            proxy = {d.name: int(d.ready[4]) for d in dfs}
+            metrics = {d.name: int(d.ready[6]) for d in dfs}
+            ready = sorted(d.ready_s for d in dfs)
+            print(f"data plane: READY after {sched.ready_s:.2f} s (scheduler, {' '.join(sched.ready)}); "
+                  f"{daemons} dfdaemons started together, READY p50 {statistics.median(ready):.2f} s "
+                  f"max {ready[-1]:.2f} s (df-00: {' '.join(dfs[0].ready)}), host clock ({card})")
+            m0 = _scrape(s_metrics)
+
+            def fetch(name, url):
+                digest, n, via, seconds = _proxy_fetch(proxy[name], url)
+                path = url[len(origin.base):]
+                if digest != shas[path] or n != len(blobs[path]) or via != "p2p":
+                    _fail(f"{name} {path} through its proxy: sha256 {digest} ({n} bytes, via "
+                          f"{via}), the origin's {shas[path]} ({len(blobs[path])} bytes)")
+                return name, path, seconds
+
+            # -- stage 1: the first node pulls the image and back-sources
+            start_s = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(len(urls)) as pool:
+                list(pool.map(lambda u: fetch("df-00", u), urls))
+            wall1 = time.perf_counter() - start_s
+            heads1, gets1, pieces1, bytes1 = origin.counts()
+            print(f"data plane: stage 1, df-00 pulls the image ({len(urls)} blobs, "
+                  f"{image / 2**20:.0f} MiB) through its proxy: {wall1:.2f} s, "
+                  f"{image / 2**20 / wall1:.1f} MiB/s; the origin served {gets1} data GETs "
+                  f"({pieces1} pieces, {bytes1 / image:.3f} image) and {heads1} HEADs")
+            m1 = _scrape(s_metrics)
+
+            # -- stage 2: every other node pulls the image at once
+            jobs = [(d.name, u) for d in dfs[1:] for u in urls]
+            done_at = collections.defaultdict(list)
+            start_s = time.perf_counter()
+            listed = None
+            with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+                futures = [pool.submit(fetch, name, u) for name, u in jobs]
+                time.sleep(min(1.0, DATA_FETCH_S))
+                listed = _cuda_pids()  # mid-stage, while every daemon downloads
+                for f in concurrent.futures.as_completed(futures):
+                    name, path, seconds = f.result()
+                    done_at[path].append(time.perf_counter() - start_s)
+            wall2 = time.perf_counter() - start_s
+            heads2, gets2, pieces2, bytes2 = origin.counts()
+            moved = (daemons - 1) * image
+            per_blob = "; ".join(
+                f"{len(blobs[p]) >> 20} MiB p50 {_pct(done_at[p], 50):.2f} s p99 "
+                f"{_pct(done_at[p], 99):.2f} s" for p in blobs)
+            print(f"data plane: stage 2, {daemons - 1} nodes pull the image at once ({len(jobs)} "
+                  f"fetches in flight): wall {wall2:.2f} s, {moved / 2**20 / wall2:.1f} MiB/s "
+                  f"aggregate; per-blob completion across nodes: {per_blob}")
+            _no_cuda_context({d.name: d.proc.pid for d in dfs}, listed)
+            if listed is not None:
+                print(f"data plane: nvidia-smi lists compute pids {sorted(listed)} (scheduler "
+                      f"{sched.proc.pid}); no dfdaemon among them or mapping libcuda/libtorch")
+            m2 = _scrape(s_metrics)
+
+            # -- stage 3: dfget processes, no back-source
+            first = urls[0]
+            dfget_env = dict(os.environ, PYTHONPATH=tree)
+            outs = [os.path.join(root, f"dfget-{i}.bin") for i in range(DATA_DFGETS)]
+            start_s = time.perf_counter()
+            getters = [subprocess.Popen(
+                [sys.executable, "-m", "dragonfly2_tpu_torch.client.cli", "dfget", first,
+                 "-o", outs[i], "--scheduler", s_addr, "--data-dir",
+                 os.path.join(root, f"dfget-{i}"), "--no-back-source", "--ip", f"127.0.0.{2 + i}"],
+                cwd=tree, env=dfget_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for i in range(DATA_DFGETS)]
+            time.sleep(0.5)
+            listed3 = _cuda_pids()
+            _no_cuda_context({f"dfget-{i}": g.pid for i, g in enumerate(getters)
+                              if g.poll() is None}, listed3)
+            for i, g in enumerate(getters):
+                try:
+                    out, _ = g.communicate(timeout=DATA_FETCH_S)
+                except subprocess.TimeoutExpired:
+                    g.kill()
+                    g.wait()
+                    _fail(f"dfget-{i} did not finish in {DATA_FETCH_S:.0f} s")
+                if g.returncode != 0:
+                    _fail(f"dfget-{i} exited {g.returncode}: {out[-3000:]}")
+            wall3 = time.perf_counter() - start_s
+            for path in outs:
+                with open(path, "rb") as f:
+                    digest = hashlib.file_digest(f, "sha256").hexdigest()
+                if digest != shas[first[len(origin.base):]]:
+                    _fail(f"{path}: sha256 {digest}, not the origin's")
+            heads3, gets3, pieces3, bytes3 = origin.counts()
+            print(f"data plane: stage 3, {DATA_DFGETS} dfget processes fetch the "
+                  f"{blobs_mib[0]} MiB blob with --no-back-source: {wall3:.2f} s")
+            if (gets3, pieces3) != (gets1, pieces1):
+                _fail(f"the origin served {gets3 - gets1} data GETs after stage 1 "
+                      f"({gets2 - gets1} in stage 2): a later piece did not come from a peer")
+
+            # -- the scheduler and the daemons' own accounts
+            m3 = _scrape(s_metrics)
+            ticks, peers, tick_s, buckets = _tick_stats(m3)
+            deltas = []
+            for label, a, b in (("stage 1", m0, m1), ("stage 2", m1, m2), ("stage 3", m2, m3)):
+                ta, pa, sa, _ = _tick_stats(a)
+                tb, pb, sb, _ = _tick_stats(b)
+                deltas.append(f"{label} {tb - ta:.0f} ticks, {pb - pa:.0f} peers "
+                              f"({(pb - pa) / max(tb - ta, 1):.2f} a tick), tick mean "
+                              f"{(sb - sa) / max(tb - ta, 1) * 1e3:.3f} ms")
+            print(f"data plane: the scheduler's /metrics (its tick on {device or 'the card'}): "
+                  f"{'; '.join(deltas)}; in all {ticks:.0f} ticks, {peers:.0f} peers, "
+                  f"peers a tick cumulative buckets {buckets}")
+            traffic = _traffic(m3)
+            piece_tasks = sum(v for port in metrics.values() for k, v in _scrape(port).items()
+                              if k.startswith("dragonfly_dfdaemon_piece_task_total"))
+            from_parents = piece_tasks - pieces3
+            print(f"data plane: pieces: {pieces3} from the origin, {from_parents:.0f} from parents "
+                  f"by the dfdaemons' piece counters (+ {DATA_DFGETS} x "
+                  f"{-(-(blobs_mib[0] << 20) // (4 << 20))} by the dfgets); the scheduler's "
+                  f"traffic bytes {traffic}; origin bytes / image bytes "
+                  f"{bytes3 / image:.3f}")
+            if from_parents < (daemons - 1) * len(blobs) or traffic.get("p2p", 0) <= 0:
+                _fail(f"{from_parents} pieces from parents and p2p traffic {traffic}")
+            dominant = _tail_dominant(metrics.values())
+            print(f"data plane: the dfdaemons' tail attribution, downloads by dominant phase: "
+                  f"{dominant}")
+            finished = daemons * len(blobs) + DATA_DFGETS
+            if sum(dominant.values()) < daemons * len(blobs):
+                _fail(f"the daemons' tail planes observed {sum(dominant.values())} downloads")
+
+            # -- shutdown: every process exits 0 on SIGTERM within 10 s
+            stop_s = {}
+            for p in [*dfs, sched]:
+                stop_s[p.name] = p.stop()
+            df_stops = sorted(stop_s[d.name] for d in dfs)
+            rows = 0
+            for path in pathlib.Path(root, "traces").glob("download*.csv"):
+                with open(path) as f:
+                    rows += sum(1 for _ in f) - 1
+            print(f"data plane: SIGTERM -> exit 0 in p50 {statistics.median(df_stops):.2f} s max "
+                  f"{df_stops[-1]:.2f} s (dfdaemons), {stop_s['scheduler']:.2f} s (scheduler); "
+                  f"{rows} download rows on disk for {finished} finished downloads")
+            if rows < finished:
+                _fail(f"{rows} download trace rows on disk, fewer than the {finished} downloads")
+        finally:
+            for p in procs:
+                p.kill()
+            origin.stop()
+    print(f"data plane phase: {time.perf_counter() - phase_start:.1f} s")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--threshold", action="store_true",
@@ -5191,6 +5542,7 @@ def main() -> None:
         rule_cost = phase_ml_arm(card)
         phase_trainer(card, storage, topology, rule_cost)
     phase_processes(card, tree)
+    phase_data_plane(card, tree)
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]

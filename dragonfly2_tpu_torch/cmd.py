@@ -1,22 +1,28 @@
-"""Service launchers — the `cmd/{scheduler,trainer}` tier of the port.
+"""Service launchers — the `cmd/{scheduler,trainer,dfdaemon}` tier of the port.
 
-Port of dragonfly2_tpu/cmd.py's scheduler and trainer subcommands, with
-the reference's flags and `READY` lines: one module, one subcommand per
-service, a YAML/JSON config via --config plus flag overrides, graceful
-SIGINT/SIGTERM shutdown. Each service prints exactly one
-`READY <host> <port>` line once its listener is bound (the scheduler adds
-`INFER <host> <port>` with --registry-dir, and either adds
-`METRICS <port>` with --metrics-port), so a parent process can wait on
-startup without polling.
+Port of dragonfly2_tpu/cmd.py's scheduler, trainer and dfdaemon
+subcommands, with the reference's flags and `READY` lines: one module,
+one subcommand per service, a YAML/JSON config via --config plus flag
+overrides, graceful SIGINT/SIGTERM shutdown. Each service prints exactly
+one `READY <host> <port>` line once its listener is bound (the scheduler
+adds `INFER <host> <port>` with --registry-dir; the dfdaemon prints
+`READY <ip> <upload port>` and adds `PROXY <port>` with --proxy and
+`SNI <port>` with --sni-proxy; each adds `METRICS <port>` with
+--metrics-port), so a parent process can wait on startup without polling.
 
     python -m dragonfly2_tpu_torch.cmd scheduler --port 8002 --data-dir /var/df
     python -m dragonfly2_tpu_torch.cmd trainer   --port 8004 --data-dir ... --registry-dir ...
+    python -m dragonfly2_tpu_torch.cmd dfdaemon  --data-dir ... --scheduler host:8002
+
+The file/cache/object CLIs (dfget/dfcache/dfstore) live in client/cli.py.
 
 What differs from the reference:
 
-- `--device` (both subcommands): the services' torch device, the CUDA
-  card by default. Without a card the process exits non-zero with
+- `--device` (scheduler and trainer): the services' torch device, the
+  CUDA card by default. Without a card the process exits non-zero with
   device.py's error unless it is given `--device cpu`; nothing falls back.
+  The dfdaemon takes none: it does no tensor work and imports no torch,
+  so a machine runs many daemons beside a scheduler on the card.
 - `--registry-dir` opens the port's filesystem ModelRegistry (the bucket
   layout, registry/registry.py), and the scheduler serves its gnn, mlp
   and attention versions through ModelServers built from their modules.
@@ -29,12 +35,14 @@ What differs from the reference:
 - the process logs at INFO on stderr (the reference configures no
   handler, so its INFO lines are lost): the scheduler's registry host id
   and each GNN version its ml arm starts serving among them.
-- the manager and dfdaemon subcommands, and the scheduler's and
-  trainer's manager edges (`--manager`, `--tls-issue`), exit non-zero
-  with a message naming their ROADMAP item (A9 part 3: the manager, its
-  dynconfig and certificate issuance; A9 part 2: the dfdaemon). None of
-  them starts a process that lacks its edge. `--tls-dir` with the
-  material already in place serves mTLS.
+- the manager subcommand, and every service's manager edges
+  (`--manager`, `--tls-issue`) and the dfdaemon's `--object-storage`,
+  exit non-zero with a message naming ROADMAP A9 part 3 (the manager, its
+  dynconfig, certificate issuance and the object-storage service). None
+  of them starts a process that lacks its edge. `--tls-dir` with the
+  material already in place serves mTLS (the dfdaemon dials its
+  schedulers over it). A megascale `--scenario` (the lab's specs,
+  ROADMAP A11) exits non-zero naming A11.
 """
 
 from __future__ import annotations
@@ -48,12 +56,18 @@ import sys
 
 NOT_PORTED = {
     "manager": "the manager is not ported yet (ROADMAP A9 part 3)",
-    "dfdaemon": "the dfdaemon is not ported yet (ROADMAP A9 part 2)",
+    "--object-storage": "--object-storage needs the daemon's object-storage service "
+                        "(objectstorage/service.py), not ported yet (ROADMAP A9 part 3)",
     "--manager": "--manager needs the manager's RPC, registration and dynconfig, "
                  "not ported yet (ROADMAP A9 part 3)",
     "--tls-issue": "--tls-issue needs the manager's IssueCertificate RPC, not ported yet "
                    "(ROADMAP A9 part 3); put cert.pem/key.pem/ca.pem in --tls-dir instead",
 }
+
+
+# the megascale lab's scenario specs (the reference's megascale_scenarios),
+# which a dfdaemon's --scenario may name there
+MEGASCALE_SCENARIOS = ("planet", "soak", "fleet", "procday")
 
 
 def idgen_host_id(ip: str, hostname: str) -> str:
@@ -332,21 +346,107 @@ async def _serve_trainer(args) -> int:
     return 0
 
 
-def _common(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--device", default=None,
-                   help="torch device of the services (default: the CUDA card; "
-                   "'cpu' to run without one)")
+def _proxy_rules(specs: list[str]) -> list:
+    from dragonfly2_tpu_torch.client.transport import ProxyRule
+
+    rules = []
+    for spec in specs:
+        # REGEX[=>REDIRECT_HOST]; prefix with 'direct:' to bypass P2P
+        direct = spec.startswith("direct:")
+        if direct:
+            spec = spec[len("direct:"):]
+        # '=>' separates regex from redirect host: a bare '=' is common
+        # inside URL-query regexes and must stay part of the pattern
+        regex, _, redirect = spec.partition("=>")
+        if "=" in regex and not redirect:
+            print(
+                f"warning: --proxy-rule {spec!r} has '=' but no '=>' — the whole "
+                "string is treated as the regex (redirect needs '=>HOST')",
+                file=sys.stderr,
+            )
+        rules.append(ProxyRule(regex=regex, direct=direct, redirect=redirect))
+    return rules
+
+
+def _fault_injector(args):
+    """--scenario: the scenario lab's faults in a real daemon process (the
+    flaky parent): the spec's FaultInjector on the upload server, so this
+    daemon serves pieces on the spec's deterministic error/stall
+    schedule."""
+    if not args.scenario:
+        return None
+    from dragonfly2_tpu_torch.scenarios.engine import FaultInjector
+    from dragonfly2_tpu_torch.scenarios.spec import builtin_scenarios
+
+    if args.scenario in MEGASCALE_SCENARIOS:
+        raise SystemExit(f"dfdaemon: --scenario {args.scenario} is a megascale lab spec, "
+                         "not ported yet (ROADMAP A11)")
+    specs = builtin_scenarios()
+    if args.scenario not in specs:
+        raise SystemExit(f"dfdaemon: unknown --scenario {args.scenario!r}; "
+                         f"known: {', '.join(sorted(specs))}")
+    return FaultInjector(specs[args.scenario], seed=args.scenario_seed)
+
+
+async def _serve_dfdaemon(args) -> int:
+    from dragonfly2_tpu_torch.client.daemon import Daemon
+
+    _refuse_manager_edges(args)
+    if args.object_storage:
+        raise SystemExit(f"dfdaemon: {NOT_PORTED['--object-storage']}")
+    injector = _fault_injector(args)
+    tls_mat = _tls_material(args)
+    daemon = Daemon(
+        fault_injector=injector,
+        data_dir=args.data_dir,
+        scheduler_addresses=[_parse_addr(s) for s in args.scheduler],
+        hostname=args.hostname or "",
+        ip=args.ip,
+        host_type=args.host_type,
+        idc=args.idc,
+        location=args.location,
+        probe_interval=args.probe_interval,
+        proxy=args.proxy,
+        proxy_rules=_proxy_rules(args.proxy_rule or []),
+        registry_mirror=args.registry_mirror,
+        sni_proxy=args.sni_proxy,
+        sni_allowed_hosts=args.sni_allow or None,
+        ssl_context=tls_mat.client_context() if tls_mat else None,
+    )
+    _wire_otlp(args, "dfdaemon")
+    await daemon.start()
+    ready = f"READY {daemon.ip} {daemon.upload.port}"
+    if daemon.proxy is not None:
+        ready += f" PROXY {daemon.proxy.port}"
+    if daemon.sni_proxy is not None:
+        ready += f" SNI {daemon.sni_proxy.port}"
+    try:
+        async with _monitored(args, ready) as line:
+            await _run_until_signalled(line)
+    finally:
+        await daemon.stop()
+    return 0
+
+
+def _edges(p: argparse.ArgumentParser) -> None:
     p.add_argument("--otlp-endpoint", default=None,
                    help="OTLP/HTTP collector base URL for span export (--jaeger parity)")
     p.add_argument("--metrics-port", type=int, default=None,
                    help="observability HTTP: /metrics /debug/stacks /debug/profile "
                    "/debug/health")
-    p.add_argument("--tls-dir", default=None,
-                   help="cert.pem/key.pem/ca.pem dir; serves cluster mTLS when set")
     p.add_argument("--tls-issue", action="store_true",
                    help="refused: certificate issuance is ROADMAP A9 part 3")
     p.add_argument("--manager", default="",
                    help="refused: the manager edge is ROADMAP A9 part 3")
+
+
+def _common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device of the services (default: the CUDA card; "
+                   "'cpu' to run without one)")
+    p.add_argument("--tls-dir", default=None,
+                   help="cert.pem/key.pem/ca.pem dir; serves cluster mTLS when set")
+    _edges(p)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -410,15 +510,53 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--epochs", type=int, default=0)
     _common(t)
 
-    for name, what in (("manager", "REST control plane"), ("dfdaemon", "peer data-plane daemon")):
-        sub.add_parser(name, help=f"{what}: {NOT_PORTED[name]}")
+    d = sub.add_parser("dfdaemon", help="peer data-plane daemon")
+    d.add_argument("--data-dir", required=True)
+    d.add_argument("--scheduler", action="append", required=True,
+                   help="host:port (repeatable)")
+    d.add_argument("--ip", default="127.0.0.1")
+    d.add_argument("--hostname", default=None,
+                   help="peer identity (default: socket.gethostname(); MUST "
+                   "differ between daemons sharing one machine — the "
+                   "scheduler keys hosts on host-id-v2(ip, hostname), so "
+                   "two daemons with one identity collapse into one host "
+                   "and can never serve each other)")
+    d.add_argument("--host-type", default="normal", choices=("normal", "super"))
+    d.add_argument("--idc", default="")
+    d.add_argument("--location", default="")
+    d.add_argument("--probe-interval", type=float, default=0.0)
+    d.add_argument("--object-storage", action="store_true",
+                   help="refused: the object-storage service is ROADMAP A9 part 3")
+    d.add_argument("--proxy", action="store_true",
+                   help="serve the HTTP(S) forward proxy listener")
+    d.add_argument("--registry-mirror", default="",
+                   help="reverse-proxy base URL for relative requests")
+    d.add_argument("--sni-proxy", action="store_true",
+                   help="serve the raw-TLS SNI passthrough listener "
+                   "(refuses every host unless --sni-allow is given)")
+    d.add_argument("--sni-allow", action="append", default=[],
+                   help="hostname (or suffix) the SNI proxy may dial (repeatable)")
+    d.add_argument("--proxy-rule", action="append", default=[],
+                   help="P2P hijack rule REGEX[=>REDIRECT_HOST]; prefix "
+                   "'direct:' to match-but-bypass (repeatable)")
+    d.add_argument("--scenario", default="",
+                   help="scenario-lab spec name (scenarios/spec.py); attaches "
+                   "the spec's FaultInjector to this daemon's upload server "
+                   "so it serves pieces as the deterministic flaky parent")
+    d.add_argument("--scenario-seed", type=int, default=0,
+                   help="seed for --scenario fault schedules")
+    d.add_argument("--tls-dir", default=None,
+                   help="cert.pem/key.pem/ca.pem dir; dials schedulers over mTLS")
+    _edges(d)
+
+    sub.add_parser("manager", help=f"REST control plane: {NOT_PORTED['manager']}")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
-    if args.cmd in ("manager", "dfdaemon"):  # whatever flags the reference's take
+    if args.cmd == "manager":  # whatever flags the reference's takes
         raise SystemExit(f"{args.cmd}: {NOT_PORTED[args.cmd]}")
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
@@ -426,7 +564,8 @@ def main(argv: list[str] | None = None) -> int:
         level=logging.INFO, stream=sys.stderr,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
-    runner = {"scheduler": _serve_scheduler, "trainer": _serve_trainer}[args.cmd]
+    runner = {"scheduler": _serve_scheduler, "trainer": _serve_trainer,
+              "dfdaemon": _serve_dfdaemon}[args.cmd]
     return asyncio.run(runner(args))
 
 

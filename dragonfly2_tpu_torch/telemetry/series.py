@@ -1,9 +1,10 @@
 """Port of dragonfly2_tpu/telemetry/series.py: the metric families the
 scheduler and trainer services export (the scheduler's, the trainer's,
 the decision ledger's, the SLO engine's, the rpc breakers', the device
-entry counters' and the ml arm's activation gate's), the traffic label
-values and the version gauge. The daemon, manager, megascale, cost-card,
-timeline, tail and process families come with their modules.
+entry counters', the ml arm's activation gate's, the dfdaemon's and the
+tail plane's), the traffic label values and the version gauge. The
+manager, megascale, cost-card, timeline and process families come with
+their modules.
 
 Capability parity with scheduler/metrics/metrics.go:44-454 (per-RPC
 totals + failure twins, `traffic` by type/task_type/task_tag/task_app/
@@ -324,6 +325,97 @@ def slo_series(reg) -> _Namespace:
             "dragonfly_slo_sli_events_total",
             "good/bad SLI events accounted by the streaming SLO engine",
             ("source", "sli", "outcome"),
+        ),
+    )
+
+
+def daemon_series(reg) -> _Namespace:
+    c = reg.counter
+    return _Namespace(
+        proxy_request=c(
+            "dragonfly_dfdaemon_proxy_request_total", "proxy requests", ("method",)
+        ),
+        proxy_request_via=c(
+            "dragonfly_dfdaemon_proxy_request_via_dragonfly_total",
+            "proxy requests routed through P2P",
+        ),
+        proxy_request_not_via=c(
+            "dragonfly_dfdaemon_proxy_request_not_via_dragonfly_total",
+            "proxy requests passed straight through",
+        ),
+        peer_task=c("dragonfly_dfdaemon_peer_task_total", "peer tasks started"),
+        peer_task_failed=c(
+            "dragonfly_dfdaemon_peer_task_failed_total", "peer tasks failed", ("type",)
+        ),
+        piece_task=c("dragonfly_dfdaemon_piece_task_total", "piece downloads"),
+        piece_task_failed=c(
+            "dragonfly_dfdaemon_piece_task_failed_total", "piece downloads failed"
+        ),
+        file_task=c("dragonfly_dfdaemon_file_task_total", "file tasks"),
+        stream_task=c("dragonfly_dfdaemon_stream_task_total", "stream tasks"),
+        seed_peer_download=c(
+            "dragonfly_dfdaemon_seed_peer_download_total", "seed downloads"
+        ),
+        seed_peer_download_failure=c(
+            "dragonfly_dfdaemon_seed_peer_download_failure_total",
+            "seed downloads failed",
+        ),
+        seed_peer_download_traffic=c(
+            "dragonfly_dfdaemon_seed_peer_download_traffic", "seed bytes", ("type",)
+        ),
+        peer_task_cache_hit=c(
+            "dragonfly_dfdaemon_peer_task_cache_hit_total", "local reuse hits"
+        ),
+        scheduler_failover=c(
+            "dragonfly_dfdaemon_scheduler_failover_total",
+            "downloads recovered by failing over to another scheduler "
+            "after the announce stream died",
+        ),
+        seed_task_reannounce=c(
+            "dragonfly_dfdaemon_seed_task_reannounce_total",
+            "completed tasks re-announced to a scheduler that triggered a "
+            "seed download this daemon already holds",
+        ),
+    )
+
+
+def tail_series(reg) -> _Namespace:
+    """Tail-attribution families (telemetry/tailtrace.py): per-region
+    completion/dominant-phase counters bumped on every observed
+    download, plus the TTC-quantile, phase-share and exemplar-retention
+    gauges refreshed at dump/report time — the live-scrape mirror of the
+    deterministic ``tail`` block in megascale artifacts and the
+    ``tail`` section of ``/debug/flight``."""
+    return _Namespace(
+        completions=reg.counter(
+            "dragonfly_tail_completions_total",
+            "downloads whose TTC was decomposed by the tail plane",
+            ("source", "region"),
+        ),
+        dominant=reg.counter(
+            "dragonfly_tail_dominant_total",
+            "downloads whose attributed time was dominated by this "
+            "lifecycle phase",
+            ("source", "region", "phase"),
+        ),
+        ttc_ms=reg.gauge(
+            "dragonfly_tail_ttc_ms",
+            "time-to-complete quantile (ms) from the tail plane's "
+            "streaming sketch — includes scheduler-wait time, unlike the "
+            "transfer-only region percentiles",
+            ("source", "region", "quantile"),
+        ),
+        phase_share=reg.gauge(
+            "dragonfly_tail_phase_share",
+            "fraction of all attributed download time spent in this "
+            "lifecycle phase (shares sum to 1 per region)",
+            ("source", "region", "phase"),
+        ),
+        exemplars_kept=reg.gauge(
+            "dragonfly_tail_exemplars_kept",
+            "exemplar downloads currently retained by the deterministic "
+            "sampler (slowest-K always kept; uniform ring bounded)",
+            ("source", "kind"),
         ),
     )
 

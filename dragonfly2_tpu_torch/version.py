@@ -11,7 +11,10 @@ version PyTorch was built with (``"none"`` for a CPU-only build), both in
 
 from __future__ import annotations
 
+import importlib.util
+import pathlib
 import platform as _platform
+import sys
 
 MAJOR = "2"
 MINOR = "2"
@@ -21,9 +24,24 @@ BUILD_PLATFORM = f"{_platform.system().lower()}/{_platform.machine()}"
 
 
 def _torch_versions() -> tuple[str, str]:
-    import torch
-
-    return str(torch.__version__), str(torch.version.cuda or "none")
+    """PyTorch's version and its CUDA version. A process that has not
+    loaded torch (the dfdaemon and its CLIs) reads them from the
+    installed build's torch/version.py, which imports nothing of torch,
+    so reporting them never loads it."""
+    torch = sys.modules.get("torch")
+    if torch is not None:
+        return str(torch.__version__), str(torch.version.cuda or "none")
+    spec = importlib.util.find_spec("torch")
+    if spec is None or not spec.submodule_search_locations:
+        return "none", "none"
+    path = pathlib.Path(spec.submodule_search_locations[0]) / "version.py"
+    probe = importlib.util.spec_from_file_location("_dragonfly_torch_version", path)
+    module = importlib.util.module_from_spec(probe)
+    try:
+        probe.loader.exec_module(module)
+    except OSError:
+        return "none", "none"
+    return str(module.__version__), str(getattr(module, "cuda", None) or "none")
 
 
 def version() -> str:

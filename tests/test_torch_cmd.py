@@ -7,9 +7,13 @@ peers play over the wire through the port's client (hosts announce, first
 peers back-source, later ones take the tick's parents, probe rounds feed
 the topology); the announce loop reaches the trainer, which publishes gnn
 and mlp; the scheduler's ml arm starts serving the GNN version; SIGTERM
-stops both with exit 0 within 10 s, the trace rows flushed. Then what the
-launchers refuse: the manager and dfdaemon (A9's later parts), their
-manager edges, and a default device without a card.
+stops both with exit 0 within 10 s, the trace rows flushed. Then the data
+plane: a scheduler process, two dfdaemon processes and the reference's
+dfdaemon (READY lines of one format), files pulled through the daemons'
+proxies and by a dfget process, each verified, the origin fetched once;
+a dfdaemon dialing an mTLS scheduler with --tls-dir. Then what the launchers refuse: the manager, every manager edge and the
+dfdaemon's object storage (A9 part 3), a megascale scenario (A11), and a
+default device without a card.
 """
 
 from __future__ import annotations
@@ -184,17 +188,24 @@ def test_scheduler_and_trainer_processes_close_the_loop(tmp_path):
     assert rows >= 48
 
 
+DFDAEMON = ["dfdaemon", "--data-dir", "d", "--scheduler", "127.0.0.1:1"]
+
+
 @pytest.mark.parametrize("argv,env,needle", [
     (["manager"], {}, "ROADMAP A9 part 3"),
-    (["dfdaemon", "--data-dir", "d", "--scheduler", "127.0.0.1:1"], {}, "ROADMAP A9 part 2"),
+    (DFDAEMON + ["--manager", "127.0.0.1:1"], {}, "ROADMAP A9 part 3"),
+    (DFDAEMON + ["--object-storage"], {}, "ROADMAP A9 part 3"),
+    (DFDAEMON + ["--tls-issue"], {}, "ROADMAP A9 part 3"),
+    (DFDAEMON + ["--scenario", "soak"], {}, "ROADMAP A11"),
     (["scheduler", "--device", "cpu", "--manager", "127.0.0.1:1"], {}, "ROADMAP A9 part 3"),
     (["trainer", "--device", "cpu", "--data-dir", "d", "--registry-dir", "r", "--tls-issue"], {},
      "ROADMAP A9 part 3"),
     (["scheduler"], {"CUDA_VISIBLE_DEVICES": ""}, "torch.cuda.is_available() is False"),
     (["trainer", "--data-dir", "d", "--registry-dir", "r"], {"CUDA_VISIBLE_DEVICES": ""},
      "torch.cuda.is_available() is False"),
-], ids=["manager", "dfdaemon", "scheduler-manager", "trainer-tls-issue", "scheduler-no-card",
-        "trainer-no-card"])
+], ids=["manager", "dfdaemon-manager", "dfdaemon-object-storage", "dfdaemon-tls-issue",
+        "dfdaemon-megascale-scenario", "scheduler-manager", "trainer-tls-issue",
+        "scheduler-no-card", "trainer-no-card"])
 def test_launcher_refusals_exit_nonzero(tmp_path, argv, env, needle):
     out = subprocess.run(_cmd(*argv), cwd=tmp_path, env=_env(**env), capture_output=True,
                          text=True, timeout=120)
@@ -210,3 +221,158 @@ def test_version_and_tls_dir_without_material(tmp_path):
     out = subprocess.run(_cmd("scheduler", "--device", "cpu", "--tls-dir", str(tmp_path / "tls")),
                          cwd=REPO, env=_env(), capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "no cert material" in out.stderr
+
+
+# ------------------------------------------------------------ data plane
+
+
+class _Origin:
+    """Blobs over HTTP with Range support, counting data GETs."""
+
+    def __init__(self, blobs: dict):
+        import http.server
+
+        self.blobs, self.gets = blobs, 0
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args):
+                pass
+
+            def do_HEAD(self):
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(outer.blobs[self.path])))
+                self.end_headers()
+
+            def do_GET(self):
+                outer.gets += 1
+                data, status = outer.blobs[self.path], 200
+                rng = self.headers.get("Range")
+                if rng and rng.startswith("bytes="):
+                    start, _, end = rng[len("bytes="):].partition("-")
+                    data = data[int(start or 0):int(end) + 1 if end else len(data)]
+                    status = 206
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+        self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+
+def _via_proxy(port: int, url: str) -> tuple[str, bytes]:
+    import urllib.request
+
+    req = urllib.request.Request(url)
+    req.set_proxy(f"127.0.0.1:{port}", "http")
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.headers.get("X-Dragonfly-Via"), resp.read()
+
+
+def _loads_torch(pid: int) -> bool:
+    with open(f"/proc/{pid}/maps") as f:
+        return "libtorch" in f.read()
+
+
+def test_dfdaemon_processes_serve_a_swarm(tmp_path):
+    import hashlib
+
+    import numpy as np
+
+    blob = np.random.default_rng(0).integers(0, 256, 600_000, dtype=np.uint8).tobytes()
+    origin = _Origin({"/blobs/layer": blob})
+    url, sha = origin.base + "/blobs/layer", hashlib.sha256(blob).hexdigest()
+    sched = None
+    daemons: dict = {}
+    stopped = []
+    try:
+        sched, s_ready, _ = _spawn(
+            ["scheduler", "--device", "cpu", "--data-dir", str(tmp_path / "traces")],
+            tmp_path / "sched.log")
+        addr = f"{s_ready[1]}:{s_ready[2]}"
+        for name in ("df-a", "df-b"):
+            daemons[name] = _spawn(
+                ["dfdaemon", "--data-dir", str(tmp_path / name), "--scheduler", addr,
+                 "--hostname", name, "--proxy", "--proxy-rule", "/blobs/", "--metrics-port", "0"],
+                tmp_path / f"{name}.log")
+        ref_args = ["dfdaemon", "--data-dir", str(tmp_path / "ref"), "--scheduler", addr,
+                    "--hostname", "df-ref", "--proxy", "--proxy-rule", "/blobs/",
+                    "--metrics-port", "0"]
+        start = time.monotonic()
+        with open(tmp_path / "ref.log", "w") as log:
+            ref = subprocess.Popen([sys.executable, "-m", "dragonfly2_tpu.cmd", *ref_args],
+                                   cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=log,
+                                   text=True)
+        daemons["df-ref"] = (ref, ref.stdout.readline().split(), time.monotonic() - start)
+        shapes = {name: [w if not w.isdigit() else "N" for w in ready]
+                  for name, (_, ready, _) in daemons.items()}
+        assert shapes["df-a"] == shapes["df-ref"] == [
+            "READY", "127.0.0.1", "N", "PROXY", "N", "METRICS", "N"], shapes
+        for name in ("df-a", "df-b"):
+            assert not _loads_torch(daemons[name][0].pid), f"{name} loaded torch"
+
+        via, body = _via_proxy(int(daemons["df-a"][1][4]), url)
+        assert via == "p2p" and hashlib.sha256(body).hexdigest() == sha
+        gets = origin.gets
+        for name in ("df-b", "df-ref"):
+            via, body = _via_proxy(int(daemons[name][1][4]), url)
+            assert via == "p2p" and hashlib.sha256(body).hexdigest() == sha, name
+        out = tmp_path / "dfget.bin"
+        got = subprocess.run(
+            [sys.executable, "-m", "dragonfly2_tpu_torch.client.cli", "dfget", url, "-o", str(out),
+             "--scheduler", addr, "--data-dir", str(tmp_path / "dfget"), "--no-back-source",
+             "--ip", "127.0.0.2"],
+            cwd=REPO, env=_env(), capture_output=True, text=True, timeout=120)
+        assert got.returncode == 0, got.stderr
+        assert hashlib.sha256(out.read_bytes()).hexdigest() == sha
+        assert origin.gets == gets, "a later peer went to the origin"
+    finally:
+        for name, (proc, _, _) in daemons.items():
+            stopped.append((name, *_stop(proc)))
+        if sched is not None:
+            stopped.append(("scheduler", *_stop(sched)))
+        origin.server.shutdown()
+        origin.server.server_close()
+    for name, rc, seconds in stopped:
+        assert rc == 0 and seconds < 10, (name, rc, seconds)
+    rows = sum(len(p.read_text().splitlines()) - 1
+               for p in (tmp_path / "traces").glob("download*.csv"))
+    assert rows >= 4  # df-a, df-b, df-ref and dfget finished downloads
+
+
+def test_dfdaemon_dials_a_tls_scheduler(tmp_path):
+    """--tls-dir with the material in place: the scheduler serves mTLS and
+    the dfdaemon dials it over mTLS; a pull through its proxy is
+    scheduled (back to the origin, as the task's first peer)."""
+    import hashlib
+
+    from dragonfly2_tpu_torch.utils import certs
+
+    certs.self_signed_material(tmp_path / "tls", "cluster")
+    blob = bytes(range(256)) * 4000
+    origin = _Origin({"/blobs/one": blob})
+    procs = []
+    try:
+        sched, s_ready, _ = _spawn(
+            ["scheduler", "--device", "cpu", "--tls-dir", str(tmp_path / "tls")],
+            tmp_path / "sched.log")
+        procs.append(("scheduler", sched))
+        daemon, d_ready, _ = _spawn(
+            ["dfdaemon", "--data-dir", str(tmp_path / "d"), "--scheduler",
+             f"{s_ready[1]}:{s_ready[2]}", "--hostname", "tls-node", "--proxy",
+             "--proxy-rule", "/blobs/", "--tls-dir", str(tmp_path / "tls")],
+            tmp_path / "daemon.log")
+        procs.append(("dfdaemon", daemon))
+        via, body = _via_proxy(int(d_ready[4]), origin.base + "/blobs/one")
+        assert via == "p2p" and hashlib.sha256(body).digest() == hashlib.sha256(blob).digest()
+        assert "back-to-source" not in (tmp_path / "daemon.log").read_text()  # no schedule timeout
+    finally:
+        stopped = [(name, *_stop(p)) for name, p in reversed(procs)]
+        origin.server.shutdown()
+        origin.server.server_close()
+    for name, rc, seconds in stopped:
+        assert rc == 0 and seconds < 10, (name, rc, seconds)

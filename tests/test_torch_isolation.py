@@ -51,7 +51,13 @@ def test_port_imports_no_jax_flax_or_reference():
                    # slice 19: the processes, their wire servers and clients
                    "version", "cmd", "rpc.server", "rpc.client", "rpc.mux", "rpc.wire",
                    "cluster.service_v1", "utils.retry", "utils.vsock", "utils.hashring",
-                   "utils.certs"):
+                   "utils.certs",
+                   # slice 20: the dfdaemon, its CLIs and what they import
+                   "client", "client.storage", "client.source", "client.object_sources",
+                   "client.piece_manager", "client.dispatcher", "client.upload",
+                   "client.conductor", "client.daemon", "client.transport", "client.proxy",
+                   "client.cli", "utils.container", "utils.gc", "utils.hoststat",
+                   "telemetry.timeline", "telemetry.tailtrace"):
         assert f"dragonfly2_tpu_torch.{module}" in names, module
     assert lines["TORCH"] == "True"
     assert lines["BAD"] == "", f"port pulled in: {lines['BAD']}"
