@@ -228,7 +228,47 @@ result line:
    for each finished download; every process exits 0 within 10 s of
    SIGTERM; no dfdaemon or dfget process holds a CUDA context (neither
    among nvidia-smi's compute pids nor mapping libcuda or libtorch).
-17. the kernels JSON line and, last, the result line.
+17. the manager (slice 21): the port's manager started as a process
+   (python -m dragonfly2_tpu_torch.cmd manager: a SQLite file, a model
+   registry directory, its REST, RPC and metrics ports), a cluster created
+   over REST with candidate_parent_limit 4, two schedulers on the card (the
+   rule arm with --manager, a keepalive interval of 2 s and a dynconfig
+   interval of 1 s; the ml arm on the manager's registry, not registered),
+   a seed dfdaemon and 16 dfdaemons with --manager and no --scheduler, and
+   an OCI registry stub in this script (a schema-2 manifest, a config blob
+   and four layers of 128, 64, 32 and 16 MiB of seeded random bytes over
+   127.0.0.1, as the reference's tests/test_image_preheat.py FakeRegistry
+   serves them). (a) The scheduler registers itself and the script
+   registers the seed process over the manager's RPC (the reference's
+   dfdaemon has no such edge); the manager lists both active within one
+   keepalive interval of their READY lines, the scheduler's dynconfig
+   snapshot lists the seed, and every daemon took the scheduler from the
+   manager. (b) One POST /api/v1/jobs of type preheat with the image's
+   manifest URL: the job reaches SUCCESS; its task ids equal
+   idgen.task_id_v1 of the blob URLs; the registry served each blob's
+   bytes once; then the 16 daemons pull the image at once through their
+   proxies and 2 dfget processes (python -m
+   dragonfly2_tpu_torch.client.cli dfget --no-back-source; dfget takes no
+   --manager in either package) pull the 128 MiB layer from the scheduler
+   the manager lists; every body has the registry's sha256 and the
+   registry serves no data GET after the preheat, while REST GETs are
+   timed against the daemons' GetSchedulers polls. (c) Wire peers on the
+   128 MiB layer's task ask the card's scheduler for parents (answers of 3
+   or 4 candidates must occur), a REST PATCH lowers the cluster's
+   candidate_parent_limit to 2, and every answer from the first obeying
+   one on offers at most 2, the first within 3 dynconfig intervals. (d)
+   Two seeded GraphSAGERanker versions (hidden 128, the flax msgpack
+   layout) go in through the manager's CreateModel RPC; each REST
+   activation (PATCH /api/v1/models/:id) makes the ml scheduler log
+   "ml evaluator serving model version N". (e) SIGTERM to every process:
+   each exits 0 within 10 s; the scheduler's download rows name the seed
+   among the daemons' parents. Prints the READY and registration times,
+   the job's create-to-SUCCESS time, the stage's wall, aggregate MiB/s and
+   per-daemon p50 and p99, the dfget wall, origin bytes over image bytes,
+   REST p50 and p99, the dynconfig apply time, the activation-to-serving
+   times, the scheduler's tick count, mean and histogram p50 bound, and
+   the exit times.
+18. the kernels JSON line and, last, the result line.
 
 Between phases 3 and 4, the host cost of the forward with lse's wrapper at
 the ranker's two trained shapes, [256, 4, 20, 32] and [256, 4, 20, 192]:
@@ -4586,7 +4626,8 @@ class _Process:
                                   daemon=True)
         reader.start()
         reader.join(PROC_READY_S)
-        self.ready_s = time.perf_counter() - start
+        self.ready_at = time.perf_counter()
+        self.ready_s = self.ready_at - start
         if not line or not line[0].startswith("READY"):
             self.kill()
             _fail(f"the {name} process printed no READY line in {self.ready_s:.1f} s "
@@ -5489,6 +5530,494 @@ def phase_data_plane(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
     print(f"data plane phase: {time.perf_counter() - phase_start:.1f} s")
 
 
+MGR_KEEPALIVE_S = 2.0  # the scheduler's keepalive interval: registered to active within one
+MGR_DYNCONFIG_S = 1.0  # the scheduler's and the daemons' dynconfig interval
+MGR_LIMITS = (4, 2)  # the cluster's candidate_parent_limit before and after the PATCH
+MGR_APPLY_S = 3 * MGR_DYNCONFIG_S  # a loop's sleep plus the snapshot's expiry, and the RPC
+MGR_PROBE_HOSTS = 64  # wire peers asking the card's scheduler for parents around the PATCH
+MGR_PROBES_BEFORE = 8
+MGR_PROBES_AFTER = 12  # answers held to the new limit after the first that obeys it
+MGR_JOB_S = 180.0  # the preheat job from create to SUCCESS
+MGR_SERVE_S = 60.0  # an activation to the ml arm's log line
+MGR_REST_GAP_S = 0.05  # REST GETs timed while the daemons poll the manager
+MGR_SCHED_ID = "chip-smoke-ml-scheduler"
+MGR_REPO = "smoke/app"
+
+
+class _OCIRegistry:
+    """The image's registry, as the reference's tests/test_image_preheat.py
+    FakeRegistry serves one: a manifest (schema 2: a config blob and the
+    layers) and the blobs over HTTP with Range support on 127.0.0.1,
+    counting manifest GETs, the bytes=0-0 range probes, HEADs and each
+    blob's piece bytes."""
+
+    MANIFEST = "application/vnd.docker.distribution.manifest.v2+json"
+
+    def __init__(self, layers: list):
+        import hashlib
+        import http.server
+
+        config = json.dumps({"architecture": "amd64", "os": "linux",
+                             "rootfs": {"type": "layers"}}).encode()
+        self.order = [config, *layers]  # the manifest's References(): config first
+        self.digests = ["sha256:" + hashlib.sha256(b).hexdigest() for b in self.order]
+        self.blobs = dict(zip(self.digests, self.order))
+        layer_type = "application/vnd.docker.image.rootfs.diff.tar.gzip"
+        self.manifest = json.dumps({
+            "schemaVersion": 2, "mediaType": self.MANIFEST,
+            "config": {"mediaType": "application/vnd.docker.container.image.v1+json",
+                       "digest": self.digests[0], "size": len(config)},
+            "layers": [{"mediaType": layer_type, "digest": d, "size": len(self.blobs[d])}
+                       for d in self.digests[1:]],
+        }).encode()
+        self.manifest_gets = self.probes = self.heads = 0
+        self.piece_bytes = collections.Counter()
+        self.mu = threading.Lock()
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args):
+                pass
+
+            def _blob(self):
+                return outer.blobs.get(self.path.rsplit("/", 1)[-1])
+
+            def do_HEAD(self):
+                blob = self._blob()
+                with outer.mu:
+                    outer.heads += 1
+                self.send_response(200 if blob is not None else 404)
+                self.send_header("Content-Length", str(len(blob or b"")))
+                self.end_headers()
+
+            def do_GET(self):
+                if self.path == f"/v2/{MGR_REPO}/manifests/latest":
+                    with outer.mu:
+                        outer.manifest_gets += 1
+                    self.send_response(200)
+                    self.send_header("Content-Type", outer.MANIFEST)
+                    self.send_header("Content-Length", str(len(outer.manifest)))
+                    self.end_headers()
+                    self.wfile.write(outer.manifest)
+                    return
+                blob = self._blob()
+                if blob is None:
+                    self.send_error(404)
+                    return
+                data, status = memoryview(blob), 200
+                rng = self.headers.get("Range")
+                if rng and rng.startswith("bytes="):
+                    start, _, end = rng[len("bytes="):].partition("-")
+                    data = data[int(start or 0):int(end) + 1 if end else len(data)]
+                    status = 206
+                with outer.mu:
+                    if rng == "bytes=0-0":
+                        outer.probes += 1
+                    else:
+                        outer.piece_bytes[self.path.rsplit("/", 1)[-1]] += len(data)
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+        self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.manifest_url = f"{self.base}/v2/{MGR_REPO}/manifests/latest"
+        self.urls = [f"{self.base}/v2/{MGR_REPO}/blobs/{d}" for d in self.digests]
+
+    def counts(self) -> tuple:
+        with self.mu:
+            return self.manifest_gets, self.probes, self.heads, dict(self.piece_bytes)
+
+    def stop(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class _Rest:
+    """The manager's REST API, every call timed by the host clock."""
+
+    def __init__(self, base: str):
+        self.base, self.token, self.ms = base, None, []
+
+    def __call__(self, method: str, path: str, body=None, timed: bool = True):
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, method=method,
+                                     data=None if body is None else json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        if self.token:
+            req.add_header("Authorization", f"Bearer {self.token}")
+        start = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                out = json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            _fail(f"manager REST {method} {path}: {e.code} {e.read()[:500]!r}")
+        if timed:
+            self.ms.append((time.perf_counter() - start) * 1e3)
+        return out
+
+
+def _hist_p50_ms(m: dict, name: str) -> tuple:
+    """(count, mean ms, the upper bound in ms of the bucket that holds the
+    median) of a Prometheus histogram in a /metrics scrape."""
+    count = m.get(f"{name}_count", 0.0)
+    buckets = sorted((float(k.split('le="')[1].rstrip('"}')), v) for k, v in m.items()
+                     if k.startswith(f"{name}_bucket"))
+    bound = next((le for le, v in buckets if v >= count / 2), float("inf"))
+    return count, m.get(f"{name}_sum", 0.0) / max(count, 1) * 1e3, bound * 1e3
+
+
+async def _manager_call(rpc: str, request):
+    from dragonfly2_tpu_torch.manager.rpc import ManagerClient
+
+    host, _, port = rpc.rpartition(":")
+    client = await ManagerClient(host, int(port)).connect()
+    try:
+        return await client.call(request)
+    finally:
+        await client.close()
+
+
+async def _limit_probes(host: str, port: int, task_id: str, url: str, size: int,
+                        patch) -> tuple:
+    """Wire peers on one of the image's tasks ask the card's scheduler for
+    parents: MGR_PROBES_BEFORE answers, then ``patch()`` (the REST PATCH
+    of the cluster's limit), then answers until the first that offers at
+    most the new limit and MGR_PROBES_AFTER more. Each peer leaves once
+    answered. Returns (before counts, [(seconds after the PATCH, count)])."""
+    from dragonfly2_tpu_torch.cluster import messages as msg
+    from dragonfly2_tpu_torch.rpc.client import SchedulerConnection
+
+    conn = await SchedulerConnection(host, port).connect()
+    hosts = [msg.HostInfo(host_id=f"limit-host-{i}", hostname=f"limit-node-{i}",
+                          ip=f"10.96.{i // 256}.{i % 256 + 1}", port=8002, download_port=8001)
+             for i in range(MGR_PROBE_HOSTS)]
+    asked = 0
+
+    async def ask() -> int:
+        nonlocal asked
+        peer_id, h = f"limit-peer-{asked}", hosts[asked % MGR_PROBE_HOSTS]
+        asked += 1
+        queue = conn.subscribe(peer_id)
+        await conn.send(msg.RegisterPeerRequest(peer_id=peer_id, task_id=task_id, host=h,
+                                                url=url, content_length=size,
+                                                piece_length=4 << 20))
+        answer = await asyncio.wait_for(queue.get(), 30)
+        await conn.send(msg.LeavePeerRequest(peer_id=peer_id))
+        if type(answer).__name__ != "NormalTaskResponse":
+            _fail(f"the card's scheduler answered a peer of {task_id} with {answer}")
+        return len(answer.candidate_parents)
+
+    try:
+        for h in hosts:
+            await conn.send(msg.AnnounceHostRequest(host=h))
+        before = [await ask() for _ in range(MGR_PROBES_BEFORE)]
+        t_patch = time.perf_counter()
+        await asyncio.to_thread(patch)
+        after, obeyed = [], 0
+        while obeyed <= MGR_PROBES_AFTER:
+            n = await ask()
+            after.append((time.perf_counter() - t_patch, n))
+            if obeyed or n <= MGR_LIMITS[1]:
+                obeyed += 1
+            if not obeyed and after[-1][0] > 10 * MGR_APPLY_S:
+                break
+        return before, after
+    finally:
+        await conn.close()
+
+
+def phase_manager(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
+                  blobs_mib=DATA_BLOBS_MIB) -> None:
+    """Slice 21's main path: the manager over the port's cluster on the
+    card (the module docstring, phase 17). ``device``, ``daemons`` and
+    ``blobs_mib`` are for a rehearsal on the CPU."""
+    import concurrent.futures
+    import hashlib
+
+    import torch
+
+    from dragonfly2_tpu_torch.cluster.trainer_service import GNN_MODEL_NAME
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.manager import rpc as mrpc
+    from dragonfly2_tpu_torch.models.convert import graphsage_params_to_flax
+    from dragonfly2_tpu_torch.models.graphsage import GraphSAGERanker
+    from dragonfly2_tpu_torch.records.storage import TraceStorage
+    from dragonfly2_tpu_torch.training.checkpoint import params_to_bytes
+    from dragonfly2_tpu_torch.utils import idgen
+
+    phase_start = time.perf_counter()
+    _raise_open_files()
+    rng = np.random.default_rng(SEED + 17)
+    oci = _OCIRegistry([rng.integers(0, 256, mib << 20, dtype=np.uint8).tobytes()
+                        for mib in blobs_mib])
+    image = sum(len(b) for b in oci.order)
+    shas = {url: hashlib.sha256(b).hexdigest() for url, b in zip(oci.urls, oci.order)}
+    dev_args = ["--device", device] if device else []
+    where = device or "the card"
+    procs: list = []
+    with tempfile.TemporaryDirectory(prefix="dfly-mgr-") as root:
+        def log(name):
+            return os.path.join(root, f"{name}.log")
+
+        try:
+            # -- the manager, its cluster, the schedulers (a) registration
+            mgr = _Process("manager", [
+                "manager", "--db", os.path.join(root, "manager.db"), "--registry-dir",
+                os.path.join(root, "registry"), "--metrics-port", "0"], tree, log("manager"))
+            procs.append(mgr)
+            if mgr.ready[3] != "RPC" or mgr.ready[5] != "METRICS":
+                _fail(f"the manager's READY line lacks RPC or METRICS: {' '.join(mgr.ready)}")
+            rest, rpc = _Rest(f"http://{mgr.ready[1]}:{mgr.ready[2]}"), f"{mgr.ready[1]}:{mgr.ready[4]}"
+            rest.token = rest("POST", "/api/v1/users/signin",
+                              {"name": "root", "password": "dragonfly"})["token"]
+            cluster = rest("POST", "/api/v1/clusters", {
+                "name": "smoke", "is_default": True,
+                "scheduler_cluster_config": {"candidate_parent_limit": MGR_LIMITS[0]}})
+            sc_id, spc_id = cluster["scheduler_cluster_id"], cluster["seed_peer_cluster_id"]
+            with concurrent.futures.ThreadPoolExecutor(2) as pool:
+                fa = pool.submit(_Process, "scheduler", [
+                    "scheduler", *dev_args, "--data-dir", os.path.join(root, "traces"),
+                    "--manager", rpc, "--cluster-id", str(sc_id), "--hostname", "sched-a",
+                    "--keepalive-interval", str(MGR_KEEPALIVE_S),
+                    "--dynconfig-interval", str(MGR_DYNCONFIG_S), "--metrics-port", "0"],
+                    tree, log("scheduler"))
+                fb = pool.submit(_Process, "ml-scheduler", [
+                    "scheduler", *dev_args, "--data-dir", os.path.join(root, "traces-ml"),
+                    "--registry-dir", os.path.join(root, "registry"), "--algorithm", "ml",
+                    "--scheduler-host-id", MGR_SCHED_ID, "--hostname", "sched-ml",
+                    "--ml-refresh-interval", "0.5"], tree, log("ml-scheduler"))
+                sched, ml_sched = fa.result(), fb.result()
+            procs += [sched, ml_sched]
+            s_port, s_metrics = int(sched.ready[2]), int(sched.ready[4])
+            _wait_for(lambda: [r for r in rest("GET", "/api/v1/schedulers", timed=False)
+                               if r["state"] == "active" and r["port"] == s_port],
+                      2 * PROC_READY_S, "the manager to list the scheduler active", procs)
+            sched_active_s = time.perf_counter() - sched.ready_at
+            seed = _Process("seed", [
+                "dfdaemon", "--data-dir", os.path.join(root, "seed"), "--manager", rpc,
+                "--hostname", "seed", "--host-type", "super",
+                "--dynconfig-interval", str(MGR_DYNCONFIG_S), "--metrics-port", "0"],
+                tree, log("seed"))
+            procs.append(seed)
+            # the reference's dfdaemon registers no seed peer with the
+            # manager (its keepalive edge is the scheduler's): this script
+            # registers the seed process over the manager's RPC, as the
+            # reference's tests do, and sends its first keepalive
+            for request in (mrpc.RegisterInstanceRequest(
+                    source_type="seed_peer", host_name="seed", ip=seed.ready[1],
+                    port=int(seed.ready[2]), cluster_id=spc_id),
+                    mrpc.KeepAliveRequest(source_type="seed_peer", host_name="seed",
+                                          ip=seed.ready[1], cluster_id=spc_id)):
+                asyncio.run(_manager_call(rpc, request))
+            _wait_for(lambda: [r for r in rest("GET", "/api/v1/seed-peers", timed=False)
+                               if r["state"] == "active"], MGR_KEEPALIVE_S,
+                      "the manager to list the seed peer active", procs)
+            seed_active_s = time.perf_counter() - seed.ready_at
+            if sched_active_s > MGR_KEEPALIVE_S:
+                _fail(f"the scheduler went active {sched_active_s:.2f} s after its READY, more "
+                      f"than one keepalive interval ({MGR_KEEPALIVE_S} s)")
+            snapshot = pathlib.Path(root, "traces", f"dynconfig-cluster{sc_id}.json")
+            _wait_for(lambda: snapshot.exists() and json.loads(snapshot.read_text())["seed_peers"],
+                      3 * MGR_APPLY_S, "the scheduler's dynconfig to list the seed", procs)
+
+            def start(i):
+                name = f"df-{i:02d}"
+                return _Process(name, [
+                    "dfdaemon", "--data-dir", os.path.join(root, name), "--manager", rpc,
+                    "--hostname", name, "--proxy", "--proxy-rule", "/blobs/",
+                    "--dynconfig-interval", str(MGR_DYNCONFIG_S), "--metrics-port", "0"],
+                    tree, log(name))
+
+            with concurrent.futures.ThreadPoolExecutor(daemons) as pool:
+                dfs = list(pool.map(start, range(daemons)))
+            procs.extend(dfs)
+            for d in [seed, *dfs]:
+                with open(os.path.join(root, d.name, "dynconfig.json")) as f:
+                    listed = [(e["ip"], e["port"]) for e in json.load(f)["schedulers"]]
+                if listed != [(sched.ready[1], s_port)]:
+                    _fail(f"{d.name} took the scheduler list {listed} from the manager")
+            ready = sorted(d.ready_s for d in dfs)
+            print(f"manager: READY after {mgr.ready_s:.2f} s ({' '.join(mgr.ready)}); schedulers "
+                  f"{sched.ready_s:.2f} s (rule arm, --manager) and {ml_sched.ready_s:.2f} s (ml "
+                  f"arm) on {where}; the scheduler active {sched_active_s:.3f} s and the seed peer "
+                  f"{seed_active_s:.3f} s after their READY (keepalive interval "
+                  f"{MGR_KEEPALIVE_S} s); {daemons} dfdaemons with --manager and no --scheduler "
+                  f"READY p50 {statistics.median(ready):.2f} s max {ready[-1]:.2f} s, each "
+                  f"listing the scheduler the manager gave it, host clock ({card})")
+
+            # -- (b) image preheat through the manager's job, then the pulls
+            start_s = time.perf_counter()
+            job = rest("POST", "/api/v1/jobs", {"type": "preheat", "args": {
+                "type": "image", "url": oci.manifest_url, "platform": "linux/amd64"}})
+            want_ids = [idgen.task_id_v1(u) for u in oci.urls]
+            if job["state"] != "PENDING" or job["result"]["task_ids"] != want_ids:
+                _fail(f"the preheat job {job} does not hold the daemons' task ids {want_ids}")
+            done = _wait_for(lambda: (lambda j: j if j["state"] != "PENDING" else None)(
+                rest("GET", f"/api/v1/jobs/{job['id']}")), MGR_JOB_S, "the preheat job", procs)
+            job_s = time.perf_counter() - start_s
+            if done["state"] != "SUCCESS":
+                _fail(f"the preheat job ended {done['state']}: {done['result']}")
+            manifests, probes, heads, pieces = oci.counts()
+            unequal = {d: n for d, n in pieces.items() if n != len(oci.blobs[d])}
+            if unequal or len(pieces) != len(oci.blobs):
+                _fail(f"the registry served blob bytes {pieces}, not each blob once")
+            print(f"manager: image preheat ({len(oci.urls)} blobs, config and "
+                  f"{len(blobs_mib)} layers, {image / 2**20:.1f} MiB) from POST /api/v1/jobs to "
+                  f"SUCCESS {job_s:.2f} s; the registry served {manifests} manifest GETs, "
+                  f"{probes} range probes, {heads} HEADs and each blob's bytes once; task ids "
+                  f"equal idgen.task_id_v1 of the blob URLs, host clock ({card})")
+
+            polls = {"stop": False}
+
+            def poll_rest():
+                while not polls["stop"]:
+                    rest("GET", "/api/v1/schedulers")
+                    time.sleep(MGR_REST_GAP_S)
+
+            rest.ms.clear()
+            poller = threading.Thread(target=poll_rest, daemon=True)
+            poller.start()
+            proxy = {d.name: int(d.ready[4]) for d in dfs}
+            jobs = [(d.name, u) for d in dfs for u in oci.urls]
+            node_done = collections.defaultdict(float)
+            start_s = time.perf_counter()
+
+            def fetch(name, url):
+                digest, n, via, _ = _proxy_fetch(proxy[name], url)
+                if digest != shas[url] or via != "p2p":
+                    _fail(f"{name} {url} through its proxy: sha256 {digest} ({n} bytes, via {via})")
+                return name, time.perf_counter() - start_s
+
+            with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+                for name, at in pool.map(lambda j: fetch(*j), jobs):
+                    node_done[name] = max(node_done[name], at)
+            wall = time.perf_counter() - start_s
+            polls["stop"] = True
+            poller.join()
+            rest_ms = list(rest.ms)
+            dfget_sched = asyncio.run(_manager_call(rpc, mrpc.GetSchedulersRequest(
+                ip="127.0.0.2", hostname="dfget"))).schedulers
+            addr = f"{dfget_sched[0].ip}:{dfget_sched[0].port}"
+            big = oci.urls[1 + int(np.argmax(blobs_mib))]
+            dfget_s = time.perf_counter()
+            for i in range(DATA_DFGETS):
+                out = os.path.join(root, f"dfget-{i}.bin")
+                got = subprocess.run(
+                    [sys.executable, "-m", "dragonfly2_tpu_torch.client.cli", "dfget", big,
+                     "-o", out, "--scheduler", addr, "--data-dir", os.path.join(root, f"dfget-{i}"),
+                     "--no-back-source", "--ip", f"127.0.0.{2 + i}"],
+                    cwd=tree, env=dict(os.environ, PYTHONPATH=tree), capture_output=True,
+                    text=True, timeout=DATA_FETCH_S)
+                if got.returncode != 0:
+                    _fail(f"dfget-{i} exited {got.returncode}: {got.stderr[-3000:]}")
+                with open(out, "rb") as f:
+                    if hashlib.file_digest(f, "sha256").hexdigest() != shas[big]:
+                        _fail(f"dfget-{i}: sha256 differs from the registry's")
+            dfget_s = time.perf_counter() - dfget_s
+            pulled = oci.counts()
+            if (pulled[1], pulled[3]) != (probes, pieces):  # HEADs carry no data
+                _fail(f"the registry served {pulled} after the preheat: a pull back-sourced")
+            per_node = list(node_done.values())
+            origin_bytes = sum(pieces.values()) + probes
+            print(f"manager: {daemons} dfdaemons pull the preheated image at once through their "
+                  f"proxies ({len(jobs)} fetches): wall {wall:.2f} s, "
+                  f"{daemons * image / 2**20 / wall:.1f} MiB/s aggregate, per daemon p50 "
+                  f"{_pct(per_node, 50):.2f} s p99 {_pct(per_node, 99):.2f} s; "
+                  f"{DATA_DFGETS} dfget --no-back-source of the {max(blobs_mib)} MiB layer from "
+                  f"the scheduler the manager lists ({addr}): {dfget_s:.2f} s; no data GET at "
+                  f"the registry after the preheat ({pulled[2] - heads} HEADs); origin bytes / "
+                  f"image bytes {origin_bytes / image:.3f}; REST GET p50 "
+                  f"{_pct(rest_ms, 50):.3f} ms p99 {_pct(rest_ms, 99):.3f} ms over "
+                  f"{len(rest_ms)} calls while {daemons + 1} daemons poll GetSchedulers every "
+                  f"{MGR_DYNCONFIG_S} s, host clock ({card})")
+
+            # -- (c) dynconfig on the card's tick
+            def patch():
+                rest("PATCH", f"/api/v1/scheduler-clusters/{sc_id}",
+                     {"config": {"candidate_parent_limit": MGR_LIMITS[1]}})
+
+            before, after = asyncio.run(_limit_probes(
+                sched.ready[1], s_port, want_ids[1], oci.urls[1], len(oci.order[1]), patch))
+            if max(before) <= MGR_LIMITS[1]:
+                _fail(f"before the PATCH the answers offered {before} candidates: none above "
+                      f"{MGR_LIMITS[1]}, so the limit's change would prove nothing")
+            first = next((i for i, (_, n) in enumerate(after) if n <= MGR_LIMITS[1]), None)
+            if first is None:
+                _fail(f"no answer obeyed the limit {MGR_LIMITS[1]} after the PATCH: {after}")
+            apply_s = after[first][0]
+            late = [n for _, n in after[first:] if n > MGR_LIMITS[1]]
+            if late or apply_s > MGR_APPLY_S:
+                _fail(f"after the PATCH: first obeying answer at {apply_s:.2f} s (bound "
+                      f"{MGR_APPLY_S} s), later answers above the limit {late}")
+            print(f"manager: dynconfig: answers offered {before} candidate parents at limit "
+                  f"{MGR_LIMITS[0]}; PATCH candidate_parent_limit {MGR_LIMITS[1]} -> first "
+                  f"answer obeying it {apply_s * 1e3:.1f} ms later (interval "
+                  f"{MGR_DYNCONFIG_S} s), then {len(after) - first - 1} more, all at most "
+                  f"{MGR_LIMITS[1]}, host clock ({card})")
+
+            # -- (d) model activation through the manager to the ml arm
+            hidden = TrainerConfig().hidden_dim
+            versions = []
+            for k in range(2):
+                model = GraphSAGERanker(hidden, GRAPH_LAYERS).reset_parameters(
+                    torch.Generator().manual_seed(SEED + k))
+                created = asyncio.run(_manager_call(rpc, mrpc.CreateModelRequest(
+                    name=GNN_MODEL_NAME, type="gnn", scheduler_host_id=MGR_SCHED_ID,
+                    params_blob=params_to_bytes(graphsage_params_to_flax(model)),
+                    evaluation={})))
+                versions.append(created.version)
+            rows = {r["version"]: r for r in rest("GET", f"/api/v1/models?model_id="
+                                                       f"{created.model_id}")}
+            served = []
+            for v in versions:
+                start_s = time.perf_counter()
+                row = rest("PATCH", f"/api/v1/models/{rows[v]['id']}", {"state": "active"})
+                if row["state"] != "active":
+                    _fail(f"PATCH /api/v1/models/{rows[v]['id']} left it {row['state']}")
+                _wait_for(lambda: f"ml evaluator serving model version {v}" in ml_sched.log(),
+                          MGR_SERVE_S, f"the ml arm to serve version {v}", procs)
+                served.append(time.perf_counter() - start_s)
+            print(f"manager: CreateModel published GNN versions {versions} (hidden {hidden}, "
+                  f"seeded, flax msgpack) to the manager's registry; each REST activation to the "
+                  f"ml arm's 'serving model version' line: "
+                  f"{', '.join(f'v{v} {s:.2f} s' for v, s in zip(versions, served))} (refresh "
+                  f"every 0.5 s), host clock ({card})")
+
+            # -- (e) shutdown, then the scheduler's own account
+            m = _scrape(s_metrics)
+            ticks, tick_mean, tick_p50 = _hist_p50_ms(m, "dragonfly_scheduler_tick_seconds")
+            stop_s = {p.name: p.stop() for p in [*dfs, seed, ml_sched, sched, mgr]}
+            storage = TraceStorage(os.path.join(root, "traces"))
+            parents = collections.Counter(
+                p.host.hostname for r in storage.list_downloads()
+                if r.host.hostname.startswith("df-") for p in r.parents)
+            storage.close()
+            if not parents.get("seed"):
+                _fail(f"the daemons' downloads name no seed among their parents: {parents}")
+            df_stops = sorted(stop_s[d.name] for d in dfs)
+            print(f"manager: the scheduler on {where}: {ticks:.0f} ticks, mean {tick_mean:.3f} ms, "
+                  f"p50 at most {tick_p50:.3f} ms by its histogram's buckets; the daemons' "
+                  f"download rows name {parents['seed']} parent entries on the seed of "
+                  f"{sum(parents.values())}; SIGTERM -> exit 0 in p50 "
+                  f"{statistics.median(df_stops):.2f} s max {df_stops[-1]:.2f} s (dfdaemons), "
+                  + ", ".join(f"{n} {stop_s[n]:.2f} s" for n in ("seed", "ml-scheduler",
+                                                                   "scheduler", "manager"))
+                  + f", host clock ({card})")
+        finally:
+            for p in procs:
+                p.kill()
+            oci.stop()
+    print(f"manager phase: {time.perf_counter() - phase_start:.1f} s")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--threshold", action="store_true",
@@ -5543,6 +6072,7 @@ def main() -> None:
         phase_trainer(card, storage, topology, rule_cost)
     phase_processes(card, tree)
     phase_data_plane(card, tree)
+    phase_manager(card, tree)
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]

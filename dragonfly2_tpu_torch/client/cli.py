@@ -211,10 +211,10 @@ def _dfstore(args) -> int:
 
 def _dfstore_remote(args) -> int:
     """dfstore against a daemon's object-storage HTTP API: the client and
-    the service are ROADMAP A9 part 3, so this exits 1 naming it."""
+    the service are ROADMAP A9 part 3a, so this exits 1 naming it."""
     print(
         "dfstore --endpoint needs the daemon's object-storage service "
-        "(objectstorage/service.py), not ported yet (ROADMAP A9 part 3)",
+        "(objectstorage/service.py), not ported yet (ROADMAP A9 part 3a)",
         file=sys.stderr,
     )
     return 1

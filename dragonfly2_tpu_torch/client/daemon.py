@@ -6,12 +6,16 @@ manager + announcer + probe loop + GC, one process per host. The task
 manager dedups concurrent downloads of the same task
 (peertask_manager.go:47-54) and exposes the file/stream entry points.
 
-Port of dragonfly2_tpu/client/daemon.py less its manager edges: the
-object-storage listener (``object_storage=True``) and the manager-fed
-scheduler list (``manager_address``, the dynconfig loop) need the
-manager's RPC and objectstorage/service.py, not ported yet (ROADMAP A9
-part 3), and the constructor refuses them. The daemon imports no torch:
-its device work is the scheduler's tick, in the scheduler's process.
+Port of dragonfly2_tpu/client/daemon.py less its object-storage listener
+(``object_storage=True``), which needs objectstorage/service.py, not
+ported yet (ROADMAP A9 part 3a): the constructor refuses it. The
+manager-fed scheduler list (``manager_address``, the dynconfig loop) is
+the reference's, with one departure: a daemon given a manager and no
+scheduler address (the reference requires one) takes its first list
+from the manager in ``start()``, before any scheduler is dialled, as the
+Go dfdaemon's dynconfig loads at construction. The daemon imports no
+torch: its device work is the scheduler's tick, in the scheduler's
+process.
 """
 
 from __future__ import annotations
@@ -62,17 +66,13 @@ class Daemon:
         sni_allowed_hosts: list[str] | None = None,
         ssl_context=None,
         manager_address: tuple[str, int] | None = None,
+        dynconfig_interval: float = 60.0,
         fault_injector=None,
     ):
         if object_storage:
             raise NotImplementedError(
                 "Daemon(object_storage=True) needs objectstorage/service.py, not "
-                "ported yet (ROADMAP A9 part 3)"
-            )
-        if manager_address is not None:
-            raise NotImplementedError(
-                "Daemon(manager_address=...) needs the manager's RPC and the "
-                "dynconfig scheduler list, not ported yet (ROADMAP A9 part 3)"
+                "ported yet (ROADMAP A9 part 3a)"
             )
         self.hostname = hostname or socket.gethostname()
         self.ip = ip
@@ -89,7 +89,12 @@ class Daemon:
         # daemon's piece serving errors/stalls per the injected schedule
         self.upload = UploadServer(self.storage, host=ip, fault_injector=fault_injector,
                                    on_piece_rot=self._report_piece_rot)
-        self.pool = SchedulerClientPool(scheduler_addresses, ssl_context=ssl_context)
+        self.ssl_context = ssl_context
+        # with a manager and no static list the pool is built from the
+        # manager's first answer, in start() (_apply_scheduler_list)
+        self.pool = None
+        if scheduler_addresses or manager_address is None:
+            self.pool = SchedulerClientPool(scheduler_addresses, ssl_context=ssl_context)
         self.shaper = TrafficShaper(total_rate_bps, mode="sampling" if total_rate_bps else "plain")
         self.gc = GC()
         self.gc.add(
@@ -120,6 +125,14 @@ class Daemon:
         # chaos harness reads recovery time from flight data, not from
         # stopwatches around the test.
         self.failover_recorder = PhaseRecorder(maxlen=256, name="dfdaemon.failover")
+        # Manager-fed scheduler list (client/config/dynconfig_manager.go:346
+        # + the pkg/resolver refresh): when a manager address is given, the
+        # daemon learns/refreshes its scheduler set instead of trusting the
+        # static --scheduler flags forever.
+        self.manager_address = manager_address
+        self.dynconfig_interval = dynconfig_interval
+        self.dynconfig = None
+        self._dynconfig_task: asyncio.Task | None = None
         self._probe_task: asyncio.Task | None = None
         # event loop captured at start(): verify-on-serve rot reports fire
         # on upload-server handler threads and must hop onto it
@@ -171,6 +184,23 @@ class Daemon:
             await self.sni_proxy.start()
         if self.probe_interval > 0:
             self._probe_task = asyncio.create_task(self._probe_loop())
+        if self.manager_address is not None:
+            from dragonfly2_tpu_torch.utils.dynconfig import Dynconfig
+
+            self.dynconfig = Dynconfig(
+                self._fetch_scheduler_list,
+                cache_path=self.data_dir / "dynconfig.json",
+                expire=max(self.dynconfig_interval, 1.0),
+            )
+            self.dynconfig.register(self._apply_scheduler_list)
+            if self.pool is None:
+                # no static list: the manager's first answer is the list
+                await asyncio.to_thread(self.dynconfig.get)
+                if self.pool is None:
+                    raise RuntimeError(
+                        f"the manager at {self.manager_address[0]}:"
+                        f"{self.manager_address[1]} lists no active scheduler")
+            self._dynconfig_task = asyncio.create_task(self._dynconfig_loop())
         if self.is_seed:
             # Seed mode: connect + announce to every scheduler up front so
             # TriggerSeedRequests can reach this host, then serve them
@@ -181,7 +211,8 @@ class Daemon:
         logger.info("daemon %s up (upload :%d)", self.host_id, self.upload.port)
 
     async def stop(self, leave: bool = True) -> None:
-        for task in (self._probe_task, *self._seed_tasks, *self._seed_downloads):
+        for task in (self._probe_task, self._dynconfig_task,
+                     *self._seed_tasks, *self._seed_downloads):
             if task is None:
                 continue
             task.cancel()
@@ -190,6 +221,7 @@ class Daemon:
             except asyncio.CancelledError:
                 pass
         self._probe_task = None
+        self._dynconfig_task = None
         self._seed_tasks.clear()
         if self.proxy is not None:
             await self.proxy.stop()
@@ -567,6 +599,67 @@ class Daemon:
         except Exception:  # noqa: BLE001 - a failed seed must not kill the loop
             self.metrics.seed_peer_download_failure.labels().inc()
             logger.exception("seed download failed for %s", trigger.url)
+
+    # ---------------------------------------------------------- dynconfig
+
+    def _fetch_scheduler_list(self) -> dict:
+        """Sync Dynconfig client: one GetSchedulers call against the
+        manager (client/config/dynconfig_manager.go:346 list-schedulers
+        refresh). Runs on a worker thread, so a private event loop per
+        fetch keeps the engine's sync contract."""
+        import dataclasses
+
+        from dragonfly2_tpu_torch.manager.rpc import GetSchedulersRequest, ManagerClient
+        from dragonfly2_tpu_torch.utils import retry
+
+        host, port = self.manager_address
+
+        async def go():
+            client = await ManagerClient(
+                host, port, ssl_context=self.ssl_context
+            ).connect()
+            try:
+                resp = await client.call(GetSchedulersRequest(
+                    ip=self.ip, hostname=self.hostname,
+                    idc=self.idc, location=self.location,
+                ))
+                return {"schedulers": [dataclasses.asdict(e) for e in resp.schedulers]}
+            finally:
+                await client.close()
+
+        # jittered retry absorbs one transient manager blip per refresh
+        # instead of skipping a whole dynconfig interval; non-retryable
+        # DFErrors (Unauthenticated — a bad cert won't heal on retry)
+        # abort straight to the Dynconfig disk-cache fallback
+        return retry.run(
+            lambda: asyncio.run(go()),
+            init_backoff=0.2, max_backoff=1.0, max_attempts=2,
+        )
+
+    def _apply_scheduler_list(self, data: dict) -> None:
+        """Dynconfig observer: feed the ACTIVE schedulers into the pool's
+        hash ring (the resolver refresh hook, rpc/client.py
+        update_addresses). An empty active set keeps the current ring —
+        a flapping manager must not strand the daemon with no schedulers.
+        A daemon without a static list builds its pool from the first
+        active set."""
+        active = [
+            (e["ip"], int(e["port"]))
+            for e in data.get("schedulers", [])
+            if e.get("state") == "active" and e.get("port")
+        ]
+        if active and self.pool is None:
+            self.pool = SchedulerClientPool(active, ssl_context=self.ssl_context)
+        elif active:
+            self.pool.update_addresses(active)
+
+    async def _dynconfig_loop(self) -> None:
+        while True:
+            try:
+                await asyncio.to_thread(self.dynconfig.get)
+            except Exception as e:  # noqa: BLE001 - manager may be down
+                logger.debug("dynconfig refresh failed: %s", e)
+            await asyncio.sleep(max(self.dynconfig_interval, 1.0))
 
     # -------------------------------------------------------------- probes
 

@@ -2,7 +2,7 @@
 
 Port of dragonfly2_tpu/client/object_sources.py apart from
 ``ObjectStoreSource``: the s3/oss/obs schemes are registered as a source
-whose every call raises naming ROADMAP A9 part 3 (the signed vendor
+whose every call raises naming ROADMAP A9 part 3a (the signed vendor
 clients it needs). ``HdfsSource``, ``OrasSource`` and
 ``fetch_bearer_token`` are the reference's.
 
@@ -88,7 +88,7 @@ class ObjectStoreSource:
     """The s3/oss/obs schemes, registered so a URL of theirs names what
     it lacks: the reference's client signs vendor HTTP through
     objectstorage/remote.py and signing.py, which are not ported yet
-    (ROADMAP A9 part 3). Every call raises."""
+    (ROADMAP A9 part 3a). Every call raises."""
 
     def __init__(self, scheme: str):
         self.scheme = scheme
@@ -97,7 +97,7 @@ class ObjectStoreSource:
         raise NotImplementedError(
             f"{self.scheme}:// back-source needs the signed object-storage "
             "clients (objectstorage/remote.py, signing.py), not ported yet "
-            "(ROADMAP A9 part 3)"
+            "(ROADMAP A9 part 3a)"
         )
 
     def content_length(self, url: str, headers: dict | None = None) -> int:

@@ -9,7 +9,7 @@ hdfs (WebHDFS), and oras (OCI pull) in `object_sources.py`, registered
 lazily on first lookup.
 
 Port of dragonfly2_tpu/client/source.py, whole; the s3/oss/obs clients
-it registers raise naming ROADMAP A9 part 3 (object_sources.py).
+it registers raise naming ROADMAP A9 part 3a (object_sources.py).
 """
 
 from __future__ import annotations

@@ -19,8 +19,10 @@ differs:
 - ``probes`` is the port's ``cluster/probes.ProbeStore`` and
   ``ml_evaluator`` the port's ``MLEvaluator``, each on the service's
   device (another device raises);
-- ``algorithm="plugin"`` raises ``NotImplementedError`` naming its
-  ROADMAP item (A9); so does ``flight_dump`` (A10).
+- ``algorithm="plugin"`` loads the evaluator plugin (utils/plugins.py)
+  and hands it the same numpy feature dict as the reference does: it
+  scores on the host, then filtering and top-k run on the service's
+  device; ``flight_dump`` raises naming its ROADMAP item (A10).
 
 Capability parity with scheduler/service/service_v2.go (AnnouncePeer
 dispatch :89-204, handleRegisterPeerRequest :820 with size-scope fast
@@ -143,10 +145,6 @@ class SchedulerService:
         from dragonfly2_tpu_torch.telemetry.series import scheduler_series
 
         self.config = config or Config()
-        algorithm = self.config.evaluator.algorithm
-        if algorithm == "plugin":
-            raise NotImplementedError(
-                "algorithm='plugin' needs utils/plugins, not ported yet (ROADMAP A9)")
         # the device programs' device: the card unless the caller asks for
         # the CPU; no CUDA raises here, nothing falls back
         self.device = resolve_device(device)
@@ -186,6 +184,18 @@ class SchedulerService:
         )
         self.tick_phases = self.recorder.ring  # same deque; legacy readers
         self.algorithm = self.config.evaluator.algorithm
+        # "plugin": an externally supplied scorer replaces the linear blend
+        # while every filter rule still applies (evaluator plugin.go; loader
+        # contract: utils/plugins). The object must expose
+        # `evaluate(feats: dict) -> (B, K) scores` over numpy features.
+        self.plugin_evaluator = None
+        if self.algorithm == "plugin":
+            from dragonfly2_tpu_torch.utils import plugins
+
+            evcfg = self.config.evaluator
+            self.plugin_evaluator = plugins.load(
+                evcfg.plugin_dir, "evaluator", evcfg.plugin_name
+            )
         self._dags: dict[str, TaskDAG] = {}
         self._dag_capacity = _round_up_64(sched.max_peers_per_task)
         self._peer_meta: dict[str, _PeerMeta] = {}
@@ -204,8 +214,8 @@ class SchedulerService:
         # gather → scoring → selection run as ONE donated bucket-padded
         # dispatch per chunk; only DAG legality, blocklist resolution and
         # response emission stay host-side. Eligibility is decided once —
-        # every input is fixed at construction: the ml arm keeps its own
-        # transport, and the probed-nt arm needs the host-side RTT gather
+        # every input is fixed at construction: the ml and plugin arms
+        # keep their own transports, and the probed-nt arm needs the host-side RTT gather
         # the fused program deliberately excludes (nt WITHOUT probes
         # zero-fills RTT on both paths, so it stays eligible).
         # fused_tick=False keeps the numpy fill + packed transport as the
@@ -216,6 +226,7 @@ class SchedulerService:
         if (
             self.fused_tick
             and self.vectorized_control
+            and self.plugin_evaluator is None
             and self.algorithm in ("default", "nt")
             and (self.probes is None or self.algorithm != "nt")
         ):
@@ -1209,6 +1220,8 @@ class SchedulerService:
 
         k = self.config.scheduler.filter_parent_limit
         limit = self.config.scheduler.candidate_parent_limit
+        if self.plugin_evaluator is not None:
+            return  # plugin path keeps the dict transport; nothing to warm
         algorithm = self.algorithm if self.algorithm in ("default", "nt") else "default"
         use_ml = self.ml_evaluator is not None and self.algorithm == "ml"
         shadow_on = self.decisions is not None and self.shadow_scoring
@@ -1529,8 +1542,13 @@ class SchedulerService:
         # rule blend when ml serves, the committed ml snapshot when the
         # rule does — re-scoring the same packed candidate batch;
         # nothing when no inactive arm exists (rule active, no served
-        # snapshot).
-        arm_code = ARM_CODES["ml"] if use_ml and ml_snap is not None else ARM_CODES[algorithm]
+        # snapshot) or on the plugin path (no packed transport).
+        if self.plugin_evaluator is not None:
+            arm_code = ARM_CODES["plugin"]
+        elif use_ml and ml_snap is not None:
+            arm_code = ARM_CODES["ml"]
+        else:
+            arm_code = ARM_CODES[algorithm]
         shadow_mode = None
         shadow_alg = "default"
         shadow_snap = None
@@ -1540,7 +1558,12 @@ class SchedulerService:
             % max(int(getattr(self.config.scheduler, "shadow_every", 1)), 1)
             == 0
         )
-        if led is not None and self.shadow_scoring and shadow_due:
+        if (
+            led is not None
+            and self.shadow_scoring
+            and shadow_due
+            and self.plugin_evaluator is None
+        ):
             if use_ml and ml_snap is not None:
                 fb = self.ml_evaluator.fallback
                 shadow_alg = fb if fb in ("default", "nt") else "default"
@@ -1583,6 +1606,30 @@ class SchedulerService:
             value is an in-flight device tensor the drain step reads, with
             the shadow arm's re-score of the same rows when it is on."""
             bsz = _bucket_rows(e - s)
+            if self.plugin_evaluator is not None:
+                # plugin scorers run host-side on the numpy feature dict,
+                # so this path keeps the dict transport (plugin contract
+                # stability over transfer count; plugins are not the
+                # serving default); filtering and top-k run on the device
+                fd_c = {name: _pad_rows(v[s:e], bsz) for name, v in fd.items()}
+                rest = {
+                    "blocklist": _pad_rows(blocklist[s:e], bsz),
+                    "in_degree": _pad_rows(in_degree[s:e], bsz),
+                    "can_add_edge": _pad_rows(can_add_edge[s:e], bsz),
+                }
+                recorder.mark("pack")
+                # the plugin's host-side scoring is dispatch work for
+                # attribution purposes — it replaces the device scorer
+                scores = np.asarray(self.plugin_evaluator.evaluate(fd_c), np.float32)
+                rest = ev.feats_to_tensors(rest, self.device)
+                packed = ev.select_with_scores_packed(
+                    ev.feats_to_tensors(fd_c, self.device),
+                    torch.from_numpy(scores).to(self.device),
+                    rest["blocklist"], rest["in_degree"], rest["can_add_edge"],
+                    limit=limit,
+                )
+                recorder.mark("dispatch")
+                return packed, None
             buf = ev.pack_eval_batch(
                 {name: _pad_rows(v[s:e], bsz) for name, v in fd.items()},
                 blocklist=_pad_rows(blocklist[s:e], bsz),

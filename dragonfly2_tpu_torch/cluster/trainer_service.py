@@ -8,6 +8,8 @@ trains the GNN, then the attention ranker when ``config.train_attention``
 is set, then the probe-RTT MLP when the topology gives at least 8 pairs,
 publishes each with its evaluation and auto-activates it. The trainers run
 on ``device`` (CUDA unless ``device="cpu"``) or on ``mesh``'s first device.
+Setting ``stop`` (a departure from the reference) aborts a training in
+flight at its next step; it publishes nothing.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import contextlib
 import dataclasses
 import logging
 import pathlib
+import threading
 
 from dragonfly2_tpu_torch.config.config import TrainerConfig
 from dragonfly2_tpu_torch.device import resolve_device
@@ -90,6 +93,10 @@ class TrainerService:
         # the card unless the caller asks for the CPU; no CUDA raises here,
         # nothing falls back (a mesh names its own devices)
         self.device = resolve_device(device) if mesh is None else device
+        # set by a stopping transport (TrainerRPCServer.stop): a training
+        # in flight raises TrainingAborted before its next step and
+        # publishes nothing, so SIGTERM does not wait it out
+        self.stop = threading.Event()
 
     # ------------------------------------------------- TrainerSink protocol
 
@@ -109,7 +116,7 @@ class TrainerService:
         enabled) on the downloads and the MLP on the topology, publish the
         versions, clear the datasets."""
         outcome = TrainOutcome(host_id, None, None, None, None)
-        where = {"mesh": self.mesh, "device": self.device}
+        where = {"mesh": self.mesh, "device": self.device, "stop": self.stop}
         try:
             downloads = self.storage.list_downloads()
             topologies = self.storage.list_network_topologies()

@@ -1,17 +1,19 @@
-"""Service launchers — the `cmd/{scheduler,trainer,dfdaemon}` tier of the port.
+"""Service launchers — the `cmd/{scheduler,trainer,manager,dfdaemon}` tier of the port.
 
-Port of dragonfly2_tpu/cmd.py's scheduler, trainer and dfdaemon
+Port of dragonfly2_tpu/cmd.py's scheduler, trainer, manager and dfdaemon
 subcommands, with the reference's flags and `READY` lines: one module,
 one subcommand per service, a YAML/JSON config via --config plus flag
 overrides, graceful SIGINT/SIGTERM shutdown. Each service prints exactly
 one `READY <host> <port>` line once its listener is bound (the scheduler
-adds `INFER <host> <port>` with --registry-dir; the dfdaemon prints
+adds `INFER <host> <port>` with --registry-dir; the manager prints
+`READY <host> <REST port> RPC <port>`; the dfdaemon prints
 `READY <ip> <upload port>` and adds `PROXY <port>` with --proxy and
 `SNI <port>` with --sni-proxy; each adds `METRICS <port>` with
 --metrics-port), so a parent process can wait on startup without polling.
 
     python -m dragonfly2_tpu_torch.cmd scheduler --port 8002 --data-dir /var/df
     python -m dragonfly2_tpu_torch.cmd trainer   --port 8004 --data-dir ... --registry-dir ...
+    python -m dragonfly2_tpu_torch.cmd manager   --port 8080 --db manager.db
     python -m dragonfly2_tpu_torch.cmd dfdaemon  --data-dir ... --scheduler host:8002
 
 The file/cache/object CLIs (dfget/dfcache/dfstore) live in client/cli.py.
@@ -35,14 +37,16 @@ What differs from the reference:
 - the process logs at INFO on stderr (the reference configures no
   handler, so its INFO lines are lost): the scheduler's registry host id
   and each GNN version its ml arm starts serving among them.
-- the manager subcommand, and every service's manager edges
-  (`--manager`, `--tls-issue`) and the dfdaemon's `--object-storage`,
-  exit non-zero with a message naming ROADMAP A9 part 3 (the manager, its
-  dynconfig, certificate issuance and the object-storage service). None
-  of them starts a process that lacks its edge. `--tls-dir` with the
-  material already in place serves mTLS (the dfdaemon dials its
-  schedulers over it). A megascale `--scenario` (the lab's specs,
-  ROADMAP A11) exits non-zero naming A11.
+- the manager takes no `--device`: it drives no device program, and it
+  loads torch only to open its `--registry-dir`. The schedulers it
+  registers and configures run on the card unless given `--device cpu`.
+- a dfdaemon given `--manager` may omit `--scheduler` (the reference
+  requires it): it then takes its first scheduler list from the manager
+  before it starts, as the Go dfdaemon's dynconfig loads at construction
+  (client/daemon.py).
+- the dfdaemon's `--object-storage` exits non-zero with a message naming
+  ROADMAP A9 part 3a (the object-storage service). A megascale
+  `--scenario` (the lab's specs, ROADMAP A11) exits non-zero naming A11.
 """
 
 from __future__ import annotations
@@ -51,17 +55,13 @@ import argparse
 import asyncio
 import contextlib
 import logging
+import os
 import signal
 import sys
 
 NOT_PORTED = {
-    "manager": "the manager is not ported yet (ROADMAP A9 part 3)",
     "--object-storage": "--object-storage needs the daemon's object-storage service "
-                        "(objectstorage/service.py), not ported yet (ROADMAP A9 part 3)",
-    "--manager": "--manager needs the manager's RPC, registration and dynconfig, "
-                 "not ported yet (ROADMAP A9 part 3)",
-    "--tls-issue": "--tls-issue needs the manager's IssueCertificate RPC, not ported yet "
-                   "(ROADMAP A9 part 3); put cert.pem/key.pem/ca.pem in --tls-dir instead",
+                        "(objectstorage/service.py), not ported yet (ROADMAP A9 part 3a)",
 }
 
 
@@ -74,13 +74,6 @@ def idgen_host_id(ip: str, hostname: str) -> str:
     from dragonfly2_tpu_torch.utils import idgen
 
     return idgen.host_id_v2(ip, hostname)
-
-
-def _refuse_manager_edges(args) -> None:
-    for flag, value in (("--manager", getattr(args, "manager", "")),
-                        ("--tls-issue", getattr(args, "tls_issue", False))):
-        if value:
-            raise SystemExit(f"{args.cmd}: {NOT_PORTED[flag]}")
 
 
 def _device(args):
@@ -105,9 +98,12 @@ def _wire_otlp(args, service: str) -> None:
     default_tracer().add_exporter(OTLPExporter(endpoint, service=service).export)
 
 
-def _tls_material(args):
+async def _tls_material(args, common_name: str):
     """Optional cluster mTLS (scheduler.go:180-219): --tls-dir points at
-    cert.pem/key.pem/ca.pem already in place. None = plaintext."""
+    cert.pem/key.pem/ca.pem; --tls-issue certifies against --manager's
+    IssueCertificate RPC first (pkg/issuer flow; issuance itself rides
+    plaintext — bootstrap before any cert exists, like the reference's
+    insecure certify channel). None = plaintext."""
     tls_dir = getattr(args, "tls_dir", None)
     if not tls_dir:
         return None
@@ -115,11 +111,29 @@ def _tls_material(args):
 
     mat = TLSMaterial(tls_dir)
     if not mat.ready:
-        raise SystemExit(
-            f"--tls-dir {tls_dir} has no cert material (cert.pem, key.pem, ca.pem); "
-            f"{NOT_PORTED['--tls-issue']}"
-        )
+        if getattr(args, "tls_issue", False) and getattr(args, "manager", ""):
+            from dragonfly2_tpu_torch.manager.rpc import obtain_certificate
+
+            mh, mp = _parse_addr(args.manager)
+            sans = {"127.0.0.1", "localhost", getattr(args, "host", "") or "",
+                    getattr(args, "ip", "") or ""}
+            mat = await obtain_certificate(
+                mh, mp, common_name, tls_dir, san_hosts=sorted(s for s in sans if s),
+                enrollment_token=getattr(args, "tls_enrollment_token", "") or "",
+            )
+        else:
+            raise SystemExit(
+                f"--tls-dir {tls_dir} has no cert material; pass --tls-issue "
+                "with --manager to certify against the cluster CA"
+            )
     return mat
+
+
+async def _tls_context(args, common_name: str, server: bool):
+    mat = await _tls_material(args, common_name)
+    if mat is None:
+        return None
+    return mat.server_context() if server else mat.client_context()
 
 
 def _parse_addr(value: str) -> tuple[str, int]:
@@ -163,7 +177,6 @@ async def _serve_scheduler(args) -> int:
     from dragonfly2_tpu_torch.records.storage import TraceStorage
     from dragonfly2_tpu_torch.rpc.server import SchedulerRPCServer
 
-    _refuse_manager_edges(args)
     device = _device(args)
     config = Config.load(args.config) if args.config else Config()
     if args.algorithm:
@@ -172,7 +185,7 @@ async def _serve_scheduler(args) -> int:
     probes = ProbeStore(max_hosts=config.scheduler.max_hosts, device=device)
     service = SchedulerService(config=config, storage=storage, probes=probes, device=device)
     _wire_otlp(args, "scheduler")
-    tls_mat = _tls_material(args)
+    tls_mat = await _tls_material(args, "scheduler")
     tls_server_ctx = tls_mat.server_context() if tls_mat else None
     tls_client_ctx = tls_mat.client_context() if tls_mat else None
     server = SchedulerRPCServer(
@@ -184,7 +197,11 @@ async def _serve_scheduler(args) -> int:
     import socket
 
     # Overridable identity (the reference's server.host config,
-    # scheduler/config/config.go ServerConfig).
+    # scheduler/config/config.go ServerConfig): the manager dedupes
+    # scheduler registrations on (host_name, ip, cluster), so two
+    # schedulers on one machine MUST register distinct names or the
+    # second silently overwrites the first row and the manager's job
+    # ring diverges from the daemons' scheduler set.
     hostname = args.hostname or socket.gethostname()
     # ONE identity everywhere: the id the announce loop streams under is
     # the id the trainer publishes models under, which must be the id the
@@ -260,6 +277,108 @@ async def _serve_scheduler(args) -> int:
                 await asyncio.sleep(args.ml_refresh_interval)
 
         bg_tasks.append(asyncio.create_task(ml_refresh_loop()))
+    if args.manager:
+        # register with the manager + keepalive until shutdown (the
+        # scheduler bootstrap's manager edge, scheduler.go:110-299 +
+        # manager keepalive active/inactive flips). Connection handling
+        # lives INSIDE the loop: the manager may not be up yet at our
+        # startup, and may restart later — both must re-register, not
+        # crash or go silently inactive forever.
+        from dragonfly2_tpu_torch.manager.rpc import (
+            KeepAliveRequest, ManagerClient, RegisterInstanceRequest,
+        )
+
+        mh, mp = _parse_addr(args.manager)
+
+        async def manager_loop():
+            log = logging.getLogger(__name__)
+            client = None
+            # This loop holds the ONE persistent connection in the
+            # launcher; cancellation must close it, or finalization tears
+            # down a live transport under the event loop mid-teardown.
+            try:
+                while True:
+                    try:
+                        if client is None:
+                            client = await ManagerClient(
+                                mh, mp, ssl_context=tls_client_ctx
+                            ).connect()
+                            await client.call(RegisterInstanceRequest(
+                                source_type="scheduler", host_name=hostname,
+                                ip=host, port=port, cluster_id=args.cluster_id,
+                            ))
+                        response = await client.call(KeepAliveRequest(
+                            source_type="scheduler", host_name=hostname,
+                            ip=host, cluster_id=args.cluster_id,
+                        ))
+                        if response is None:  # EOF: manager went away
+                            raise ConnectionError("manager closed the connection")
+                    except (ConnectionError, RuntimeError, OSError) as e:
+                        log.warning("manager keepalive/registration failed: %s", e)
+                        if client is not None:
+                            await client.close()
+                            client = None
+                    await asyncio.sleep(args.keepalive_interval)
+            finally:
+                if client is not None:
+                    with contextlib.suppress(Exception):
+                        await client.close()
+
+        bg_tasks.append(asyncio.create_task(manager_loop()))
+
+        # Live dynconfig loop (scheduler/config/dynconfig.go:457): poll the
+        # manager's per-cluster payload on the refresh cadence and hot-apply
+        # limit changes into the tick via the service observer. The engine
+        # keeps an on-disk snapshot so a manager outage serves stale-but-
+        # sane limits instead of failing.
+        from dragonfly2_tpu_torch.manager.rpc import GetDynconfigRequest
+        from dragonfly2_tpu_torch.utils.dynconfig import Dynconfig
+
+        def fetch_dynconfig() -> dict:
+            async def go():
+                client = await ManagerClient(mh, mp, ssl_context=tls_client_ctx).connect()
+                try:
+                    resp = await client.call(
+                        GetDynconfigRequest(scheduler_cluster_id=args.cluster_id)
+                    )
+                    return resp.data
+                finally:
+                    await client.close()
+
+            # runs on a worker thread (asyncio.to_thread), so a private
+            # event loop per fetch is safe and keeps Dynconfig's sync
+            # client contract
+            return asyncio.run(go())
+
+        # Cache file keyed by cluster id (+ the CONFIGURED port when one
+        # was given): different clusters on one host never share limits,
+        # while the name stays STABLE across restarts — a
+        # bound auto-port in the name would orphan the snapshot exactly
+        # when the fallback matters (manager down + scheduler restart).
+        # Same-cluster schedulers sharing a data_dir share the file, which
+        # is the same payload; concurrent refresh writes are safe because
+        # Dynconfig uses a unique temp file per writer.
+        suffix = f"-{args.port}" if args.port else ""
+        dyn = Dynconfig(
+            fetch_dynconfig,
+            cache_path=os.path.join(
+                args.data_dir or ".",
+                f"dynconfig-cluster{args.cluster_id}{suffix}.json",
+            ),
+            expire=max(args.dynconfig_interval, 1.0),
+        )
+        dyn.register(service.apply_dynconfig)
+
+        async def dynconfig_loop():
+            log = logging.getLogger(__name__)
+            while True:
+                try:
+                    await asyncio.to_thread(dyn.get)
+                except Exception as e:  # noqa: BLE001 - manager may be down
+                    log.debug("dynconfig refresh failed: %s", e)
+                await asyncio.sleep(max(args.dynconfig_interval, 1.0))
+
+        bg_tasks.append(asyncio.create_task(dynconfig_loop()))
     if args.trainer and storage is not None:
         # periodic dataset upload to the trainer (announcer.go:127-235;
         # default cadence is the reference's 7 days). Rotation files are
@@ -320,7 +439,6 @@ async def _serve_trainer(args) -> int:
     from dragonfly2_tpu_torch.registry import ModelRegistry
     from dragonfly2_tpu_torch.rpc.server import TrainerRPCServer
 
-    _refuse_manager_edges(args)
     device = _device(args)
     config = Config.load(args.config) if args.config else Config()
     if args.epochs:
@@ -332,10 +450,9 @@ async def _serve_trainer(args) -> int:
         device=device,
     )
     _wire_otlp(args, "trainer")
-    tls_mat = _tls_material(args)
     server = TrainerRPCServer(
         service, host=args.host, port=args.port,
-        ssl_context=tls_mat.server_context() if tls_mat else None,
+        ssl_context=await _tls_context(args, "trainer", server=True),
     )
     host, port = await server.start()
     try:
@@ -343,6 +460,64 @@ async def _serve_trainer(args) -> int:
             await _run_until_signalled(line)
     finally:
         await server.stop()
+    return 0
+
+
+async def _serve_manager(args) -> int:
+    from dragonfly2_tpu_torch.manager.models import Database
+    from dragonfly2_tpu_torch.manager.rest import ManagerREST
+    from dragonfly2_tpu_torch.manager.rpc import ManagerRPCServer
+    from dragonfly2_tpu_torch.manager.service import ManagerService
+
+    registry = None
+    if args.registry_dir:  # the port's filesystem ModelRegistry (bucket layout)
+        from dragonfly2_tpu_torch.registry import ModelRegistry
+
+        registry = ModelRegistry(args.registry_dir)
+    _wire_otlp(args, "manager")
+    db = Database(args.db)
+
+    # Cross-process job edge (manager/job/preheat.go + internal/job): the
+    # launched manager fans preheat triggers out to its registered ACTIVE
+    # schedulers over their wire RPC (RemoteScheduler), resolved fresh
+    # from the DB before every job operation — schedulers register and
+    # depart at runtime, and a restarted manager re-adopts durable job
+    # records through the same resolver.
+    from dragonfly2_tpu_torch.cluster.jobs import JobManager, RemoteScheduler
+
+    tls_sched_client_ctx = await _tls_context(args, "manager", server=False)
+
+    def resolve_schedulers():
+        out = {}
+        for row in db.list("schedulers"):
+            if row.get("state") != "active":
+                continue
+            host, port = row.get("ip"), int(row.get("port") or 0)
+            if not host or not port:
+                continue
+            out[f"{host}:{port}"] = RemoteScheduler(
+                host, port, ssl_context=tls_sched_client_ctx
+            )
+        return out
+
+    service = ManagerService(
+        db=db, registry=registry, cert_dir=args.cert_dir,
+        enrollment_token=args.tls_enrollment_token or None,
+        jobs=JobManager({}), jobs_resolver=resolve_schedulers,
+    )
+    rest = ManagerREST(service, host=args.host, port=args.port)
+    host, port = rest.start()
+    rpc = ManagerRPCServer(
+        service, host=args.host, port=args.rpc_port,
+        ssl_context=await _tls_context(args, "manager", server=True),
+    )
+    rpc_host, rpc_port = await rpc.start()
+    try:
+        async with _monitored(args, f"READY {host} {port} RPC {rpc_port}") as line:
+            await _run_until_signalled(line)
+    finally:
+        await rpc.stop()
+        rest.stop()
     return 0
 
 
@@ -391,15 +566,15 @@ def _fault_injector(args):
 async def _serve_dfdaemon(args) -> int:
     from dragonfly2_tpu_torch.client.daemon import Daemon
 
-    _refuse_manager_edges(args)
     if args.object_storage:
         raise SystemExit(f"dfdaemon: {NOT_PORTED['--object-storage']}")
+    if not args.scheduler and not args.manager:
+        raise SystemExit("dfdaemon: give --scheduler (repeatable) or --manager")
     injector = _fault_injector(args)
-    tls_mat = _tls_material(args)
     daemon = Daemon(
         fault_injector=injector,
         data_dir=args.data_dir,
-        scheduler_addresses=[_parse_addr(s) for s in args.scheduler],
+        scheduler_addresses=[_parse_addr(s) for s in args.scheduler or []],
         hostname=args.hostname or "",
         ip=args.ip,
         host_type=args.host_type,
@@ -411,7 +586,9 @@ async def _serve_dfdaemon(args) -> int:
         registry_mirror=args.registry_mirror,
         sni_proxy=args.sni_proxy,
         sni_allowed_hosts=args.sni_allow or None,
-        ssl_context=tls_mat.client_context() if tls_mat else None,
+        ssl_context=await _tls_context(args, "dfdaemon", server=False),
+        manager_address=_parse_addr(args.manager) if args.manager else None,
+        dynconfig_interval=args.dynconfig_interval,
     )
     _wire_otlp(args, "dfdaemon")
     await daemon.start()
@@ -428,25 +605,28 @@ async def _serve_dfdaemon(args) -> int:
     return 0
 
 
-def _edges(p: argparse.ArgumentParser) -> None:
+def _edges(p: argparse.ArgumentParser, manager_help: str) -> None:
     p.add_argument("--otlp-endpoint", default=None,
                    help="OTLP/HTTP collector base URL for span export (--jaeger parity)")
     p.add_argument("--metrics-port", type=int, default=None,
                    help="observability HTTP: /metrics /debug/stacks /debug/profile "
                    "/debug/health")
     p.add_argument("--tls-issue", action="store_true",
-                   help="refused: certificate issuance is ROADMAP A9 part 3")
-    p.add_argument("--manager", default="",
-                   help="refused: the manager edge is ROADMAP A9 part 3")
+                   help="certify into --tls-dir via the manager's IssueCertificate RPC")
+    p.add_argument("--tls-enrollment-token",
+                   default=os.environ.get("DRAGONFLY_ENROLLMENT_TOKEN", ""),
+                   help="shared secret presented to the manager CA when issuing "
+                   "(env DRAGONFLY_ENROLLMENT_TOKEN)")
+    p.add_argument("--manager", default="", help=manager_help)
 
 
-def _common(p: argparse.ArgumentParser) -> None:
+def _common(p: argparse.ArgumentParser, manager_help: str) -> None:
     p.add_argument("--device", default=None,
                    help="torch device of the services (default: the CUDA card; "
                    "'cpu' to run without one)")
     p.add_argument("--tls-dir", default=None,
                    help="cert.pem/key.pem/ca.pem dir; serves cluster mTLS when set")
-    _edges(p)
+    _edges(p, manager_help)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -482,7 +662,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "(default: host-id-v2 of this scheduler's ip+hostname, "
                    "utils/idgen.host_id_v2 — logged at startup)")
     s.add_argument("--hostname", default=None,
-                   help="this scheduler's identity (default: socket.gethostname())")
+                   help="identity registered with the manager (default: "
+                   "socket.gethostname(); MUST differ between schedulers "
+                   "sharing one machine — registrations dedupe on "
+                   "hostname+ip+cluster)")
     s.add_argument("--ml-refresh-interval", type=float, default=30.0,
                    help="seconds between ml-evaluator refreshes (active "
                    "model version + host embeddings from the observed "
@@ -499,7 +682,12 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--vsock-port", type=int, default=None,
                    help="also listen on this AF_VSOCK port (pkg/rpc/vsock.go; "
                    "VM guests dial vsock://<cid>:<port>)")
-    _common(s)
+    s.add_argument("--cluster-id", type=int, default=1)
+    s.add_argument("--keepalive-interval", type=float, default=5.0)
+    s.add_argument("--dynconfig-interval", type=float, default=60.0,
+                   help="seconds between manager dynconfig refreshes "
+                   "(hot-applies cluster scheduling limits)")
+    _common(s, "manager RPC host:port; registers + keepalives when set")
 
     t = sub.add_parser("trainer", help="model training service")
     t.add_argument("--host", default="127.0.0.1")
@@ -508,12 +696,32 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--data-dir", required=True, help="per-host dataset dir")
     t.add_argument("--registry-dir", required=True, help="model registry dir")
     t.add_argument("--epochs", type=int, default=0)
-    _common(t)
+    _common(t, "manager RPC host:port (only needed for --tls-issue)")
+
+    m = sub.add_parser("manager", help="REST control plane")
+    m.add_argument("--host", default="127.0.0.1")
+    m.add_argument("--port", type=int, default=0)
+    m.add_argument("--db", default=":memory:", help="sqlite path")
+    m.add_argument("--registry-dir", default=None)
+    m.add_argument("--rpc-port", type=int, default=0)
+    m.add_argument("--metrics-port", type=int, default=None,
+                   help="observability HTTP: /metrics /debug/stacks /debug/profile "
+                   "/debug/health")
+    m.add_argument("--cert-dir", default=None,
+                   help="cluster CA dir; enables the IssueCertificate RPC (pkg/issuer)")
+    m.add_argument("--tls-enrollment-token",
+                   default=os.environ.get("DRAGONFLY_ENROLLMENT_TOKEN", ""),
+                   help="shared secret services must present for cert issuance; "
+                   "empty leaves the CA open (bootstrap-only setups)")
+    m.add_argument("--tls-dir", default=None,
+                   help="cert.pem/key.pem/ca.pem dir; serves the manager RPC over mTLS")
+    m.add_argument("--otlp-endpoint", default=None,
+                   help="OTLP/HTTP collector base URL for span export")
 
     d = sub.add_parser("dfdaemon", help="peer data-plane daemon")
     d.add_argument("--data-dir", required=True)
-    d.add_argument("--scheduler", action="append", required=True,
-                   help="host:port (repeatable)")
+    d.add_argument("--scheduler", action="append", default=[],
+                   help="host:port (repeatable); may be left out with --manager")
     d.add_argument("--ip", default="127.0.0.1")
     d.add_argument("--hostname", default=None,
                    help="peer identity (default: socket.gethostname(); MUST "
@@ -526,7 +734,7 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--location", default="")
     d.add_argument("--probe-interval", type=float, default=0.0)
     d.add_argument("--object-storage", action="store_true",
-                   help="refused: the object-storage service is ROADMAP A9 part 3")
+                   help="refused: the object-storage service is ROADMAP A9 part 3a")
     d.add_argument("--proxy", action="store_true",
                    help="serve the HTTP(S) forward proxy listener")
     d.add_argument("--registry-mirror", default="",
@@ -547,25 +755,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seed for --scenario fault schedules")
     d.add_argument("--tls-dir", default=None,
                    help="cert.pem/key.pem/ca.pem dir; dials schedulers over mTLS")
-    _edges(d)
-
-    sub.add_parser("manager", help=f"REST control plane: {NOT_PORTED['manager']}")
+    d.add_argument("--dynconfig-interval", type=float, default=60.0,
+                   help="seconds between manager scheduler-list refreshes")
+    _edges(d, "manager RPC host:port; refreshes the scheduler list via "
+              "dynconfig when set (also used for --tls-issue)")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if args.cmd == "manager":  # whatever flags the reference's takes
-        raise SystemExit(f"{args.cmd}: {NOT_PORTED[args.cmd]}")
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.INFO, stream=sys.stderr,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
     runner = {"scheduler": _serve_scheduler, "trainer": _serve_trainer,
-              "dfdaemon": _serve_dfdaemon}[args.cmd]
+              "manager": _serve_manager, "dfdaemon": _serve_dfdaemon}[args.cmd]
     return asyncio.run(runner(args))
 
 

@@ -818,6 +818,7 @@ class TrainerRPCServer:
         self._m_trains = self.metrics.train_runs
 
     async def start(self) -> tuple[str, int]:
+        self.service.stop.clear()  # a service outlives a stopped server
         self._server = await asyncio.start_server(
             self._tracker.tracked(self._serve_conn), self.host, self.port,
             ssl=self.ssl_context,
@@ -828,6 +829,11 @@ class TrainerRPCServer:
         return self.host, self.port
 
     async def stop(self) -> None:
+        # A training in flight runs on a worker thread that cancelling its
+        # handler cannot reach, and the interpreter joins that thread at
+        # exit: the service's stop event ends it at its next step
+        # (training/train.py TrainingAborted), so SIGTERM exits promptly.
+        self.service.stop.set()
         if self._server:
             self._server.close()
             # Cancel live Train streams before wait_closed() (3.12 waits on
@@ -922,8 +928,14 @@ class TrainerRPCServer:
             writer.close()
 
     def _train_finish(self, host_id: str):
+        from dragonfly2_tpu_torch.training.train import TrainingAborted
+
         with _on_device(self.service):
-            return self.service.train_finish(host_id)
+            try:
+                return self.service.train_finish(host_id)
+            except TrainingAborted:
+                logger.info("training for %s aborted: the trainer is stopping", host_id)
+                raise
 
     async def _abort_reply(self, reader, writer, host_id, description: str) -> None:
         """Mid-stream error: clear the host's partial files, reply, then

@@ -1,9 +1,9 @@
 """Port of dragonfly2_tpu/telemetry/series.py: the metric families the
 scheduler and trainer services export (the scheduler's, the trainer's,
 the decision ledger's, the SLO engine's, the rpc breakers', the device
-entry counters', the ml arm's activation gate's, the dfdaemon's and the
-tail plane's), the traffic label values and the version gauge. The
-manager, megascale, cost-card, timeline and process families come with
+entry counters', the ml arm's activation gate's, the dfdaemon's, the
+tail plane's and the manager's), the traffic label values and the version
+gauge. The megascale, cost-card, timeline and process families come with
 their modules.
 
 Capability parity with scheduler/metrics/metrics.go:44-454 (per-RPC
@@ -248,6 +248,28 @@ def jit_series(reg, service: str) -> _Namespace:
         cache_entries=reg.gauge(
             f"dragonfly_{service}_jit_cache_entries",
             "live compile-cache entries per wrapped jitted function", ("fn",),
+        ),
+    )
+
+
+def manager_series(reg) -> _Namespace:
+    c = reg.counter
+    return _Namespace(
+        search_scheduler_cluster=c(
+            "dragonfly_manager_search_scheduler_cluster_total",
+            "scheduler-cluster searches",
+        ),
+        search_scheduler_cluster_failure=c(
+            "dragonfly_manager_search_scheduler_cluster_failure_total",
+            "failed scheduler-cluster searches",
+        ),
+        request=c(
+            "dragonfly_manager_request_total", "REST requests", ("method", "group")
+        ),
+        request_failure=c(
+            "dragonfly_manager_request_failure_total",
+            "REST requests answered >= 400",
+            ("method", "group"),
         ),
     )
 

@@ -39,7 +39,10 @@ params tree ``params`` when given, else are drawn from ``seed`` on the CPU
 (every device starts from the same weights); ``TrainResult.params`` is the
 trained flax tree, which either package's registry can publish and serve.
 The ranker's tensor, pipeline and expert parallelism and its MoE scorer
-are not ported yet (ROADMAP A12).
+are not ported yet (ROADMAP A12). Each trainer takes a ``stop`` event (a
+departure: the reference has none), checked before every step, so a
+stopping trainer process ends a training within one step
+(TrainingAborted) instead of running it out.
 """
 
 from __future__ import annotations
@@ -644,14 +647,26 @@ def _resume_hooks(checkpointer, trainer: Trainer):
     return start_epoch, on_epoch
 
 
+class TrainingAborted(RuntimeError):
+    """A training stopped at a step boundary because its ``stop`` event
+    was set (the trainer process's SIGTERM, rpc/server.py
+    TrainerRPCServer.stop); nothing is published."""
+
+
+def _check_stop(stop) -> None:
+    if stop is not None and stop.is_set():
+        raise TrainingAborted("training aborted: the trainer is stopping")
+
+
 def _index_epochs(trainer, n_train, batch_size, epochs, epoch_fusion, rng, dev,
-                  start_epoch=0, on_epoch=None):
+                  start_epoch=0, on_epoch=None, stop=None):
     """The single-device epochs from ``start_epoch``: index batches into the
     device-resident rows, in timed blocks of ``fusion`` epochs (the fusion
     normalised to a divisor of the epochs left, as the reference's
     train.py:431-434 does); each block's losses are read once, then
-    ``on_epoch(last epoch of the block)`` runs. Returns (losses, samples
-    per block, seconds per block)."""
+    ``on_epoch(last epoch of the block)`` runs. A set ``stop`` event
+    raises TrainingAborted before the next step (a host check, no device
+    wait). Returns (losses, samples per block, seconds per block)."""
     span = max(epochs - start_epoch, 1)
     fusion = max(min(int(epoch_fusion), span), 1)
     while span % fusion:
@@ -666,7 +681,10 @@ def _index_epochs(trainer, n_train, batch_size, epochs, epoch_fusion, rng, dev,
         )
         idx_dev = torch.from_numpy(idx).to(dev)
         t0 = time.perf_counter()
-        block_losses = [trainer.step(idx_dev[s]) for s in range(idx.shape[0])]
+        block_losses = []
+        for s in range(idx.shape[0]):
+            _check_stop(stop)
+            block_losses.append(trainer.step(idx_dev[s]))
         block = torch.stack(block_losses).cpu().numpy()  # the one read per block
         block_secs.append(time.perf_counter() - t0)
         block_samples.append(idx.size)
@@ -678,22 +696,24 @@ def _index_epochs(trainer, n_train, batch_size, epochs, epoch_fusion, rng, dev,
 
 
 def _stacked_epochs(trainer, mesh, epochs, batch_size, make_epoch_batches,
-                    start_epoch=0, on_epoch=None):
+                    start_epoch=0, on_epoch=None, stop=None):
     """The mesh path's epochs from ``start_epoch`` (the reference's
     ``_stacked_epochs``, train.py:475-509): per epoch, the host batches from
     ``make_epoch_batches()`` (a dict stacked [steps, batch, ...]) placed by
     ``shard_stacked_batches`` (batch padded to a multiple of dp), then one
     step a batch, timed from the first step to the epoch's one loss read,
-    then ``on_epoch(epoch)``. Returns (losses, samples per epoch, seconds
-    per epoch)."""
+    then ``on_epoch(epoch)``; ``stop`` as in _index_epochs. Returns
+    (losses, samples per epoch, seconds per epoch)."""
     losses: list[float] = []
     epoch_samples, epoch_secs = [], []
     for e in range(start_epoch, epochs):
         stack = shard_stacked_batches(mesh, make_epoch_batches())
         steps = next(iter(stack.values())).shape[0]
         t0 = time.perf_counter()
-        ep = [trainer.step_batch({key: value[s] for key, value in stack.items()})
-              for s in range(steps)]
+        ep = []
+        for s in range(steps):
+            _check_stop(stop)
+            ep.append(trainer.step_batch({key: value[s] for key, value in stack.items()}))
         ep_losses = torch.stack(ep).cpu().numpy()  # the one read per epoch
         epoch_secs.append(time.perf_counter() - t0)
         epoch_samples.append(steps * batch_size)
@@ -727,6 +747,7 @@ def train_mlp(
     checkpointer=None,
     device: str | torch.device | None = None,
     params: dict | None = None,
+    stop=None,
 ) -> TrainResult:
     """Train the probe-RTT regressor under a weighted MSE; returns the flax
     params and the MSE and MAE on held-out pairs (the registry's
@@ -747,7 +768,7 @@ def train_mlp(
     if mesh is None:
         losses, block_samples, block_secs = _index_epochs(
             trainer, len(train_idx), batch_size, config.epochs, config.epoch_fusion, rng, dev,
-            start_epoch, on_epoch,
+            start_epoch, on_epoch, stop,
         )
     else:
         def make_epoch_batches():
@@ -756,6 +777,7 @@ def train_mlp(
 
         losses, block_samples, block_secs = _stacked_epochs(
             trainer, mesh, config.epochs, batch_size, make_epoch_batches, start_epoch, on_epoch,
+            stop,
         )
 
     model.eval()
@@ -787,6 +809,7 @@ def train_gnn(
     checkpointer=None,
     device: str | torch.device | None = None,
     params: dict | None = None,
+    stop=None,
 ) -> TrainResult:
     """Train the GraphSAGE parent ranker under the listwise loss over the
     whole graph's embedding, recomputed every step; eval = precision,
@@ -809,14 +832,14 @@ def train_gnn(
     if mesh is None:
         losses, block_samples, block_secs = _index_epochs(
             trainer, len(train_idx), batch_size, config.epochs, config.epoch_fusion, rng, dev,
-            start_epoch, on_epoch,
+            start_epoch, on_epoch, stop,
         )
     else:
         sub = _subset_rank_dataset(ds, train_idx)
         losses, block_samples, block_secs = _stacked_epochs(
             trainer, mesh, config.epochs, batch_size,
             lambda: _stack([_rank_rows(b) for b in D.rank_batches(sub, batch_size, rng)]),
-            start_epoch, on_epoch,
+            start_epoch, on_epoch, stop,
         )
 
     eb = _rank_rows(_take_rank_batch(ds, eval_idx))
@@ -851,6 +874,7 @@ def train_attention(
     sp_strategy: str | None = None,
     device: str | torch.device | None = None,
     params: dict | None = None,
+    stop=None,
 ) -> TrainResult:
     """Train the set-transformer parent ranker and evaluate its top-1 picks
     on a held-out split: on one device (CUDA unless ``device="cpu"``), or
@@ -887,12 +911,13 @@ def train_attention(
     if mesh is None:
         losses, block_samples, block_secs = _index_epochs(
             trainer, len(train_idx), batch_size, config.epochs, config.epoch_fusion, rng, dev,
-            start_epoch, on_epoch,
+            start_epoch, on_epoch, stop,
         )
     else:
         losses, block_samples, block_secs = _stacked_epochs(
             trainer, mesh, config.epochs, batch_size,
             lambda: epoch_batches(ds, train_idx, batch_size, rng), start_epoch, on_epoch,
+            stop,
         )
 
     eb = take(ds, eval_idx)

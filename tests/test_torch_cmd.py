@@ -19,8 +19,10 @@ default device without a card.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -149,6 +151,7 @@ def test_scheduler_and_trainer_processes_close_the_loop(tmp_path):
          "--registry-dir", str(registry_dir), "--config", str(config), "--metrics-port", "0"],
         tmp_path / "trainer.log")
     sched = None
+    stopped: list = []
     try:
         assert t_ready[0] == "READY" and "METRICS" in t_ready
         sched, s_ready, _ = _spawn(
@@ -164,12 +167,24 @@ def test_scheduler_and_trainer_processes_close_the_loop(tmp_path):
         assert answered == 4 * 12
 
         registry = ModelRegistry(registry_dir)
+        gnn_id = registry.model_id(GNN_MODEL_NAME, SCHED_ID)
         for name in (GNN_MODEL_NAME, MLP_MODEL_NAME):
             mid = registry.model_id(name, SCHED_ID)
             _wait(lambda mid=mid: registry.active_version(mid), 120, f"{name} to go active")
-        gnn = registry.active_version(registry.model_id(GNN_MODEL_NAME, SCHED_ID)).version
+        gnn = registry.active_version(gnn_id).version
         _wait(lambda: f"ml evaluator serving model version {gnn}"
               in (tmp_path / "sched.log").read_text(), 60, "the ml arm to serve the GNN")
+
+        # The trainer publishes a new version at every upload (every 2 s),
+        # so stop it first: no version comes after its exit, and once the
+        # ml arm serves the last one, its activations are all counted.
+        stopped.append(("trainer", *_stop(trainer)))
+        trainer = None
+        gnn = registry.active_version(gnn_id).version
+        _wait(lambda: f"ml evaluator serving model version {gnn}"
+              in (tmp_path / "sched.log").read_text(), 60, "the ml arm to serve the last GNN")
+        served = set(re.findall(r"ml evaluator serving model version (\d+)",
+                                (tmp_path / "sched.log").read_text()))
 
         import urllib.request
 
@@ -178,34 +193,70 @@ def test_scheduler_and_trainer_processes_close_the_loop(tmp_path):
         assert "dragonfly_scheduler_tick_seconds_count" in scraped
         assert 'dragonfly_scheduler_announce_peer_total{type="RegisterPeerRequest"} 48.0' in scraped
         assert "dragonfly_scheduler_version{" in scraped
-        assert "dragonfly_serving_activation_accepted_total 1.0" in scraped
+        # one accepted activation for each version the ml arm said it served
+        assert f"dragonfly_serving_activation_accepted_total {float(len(served))}" in scraped
     finally:
-        stopped = [(name, *_stop(p)) for name, p in (("scheduler", sched), ("trainer", trainer))
-                   if p is not None]
+        stopped += [(name, *_stop(p)) for name, p in (("scheduler", sched), ("trainer", trainer))
+                    if p is not None]
     for name, rc, seconds in stopped:
         assert rc == 0 and seconds < 10, (name, rc, seconds, (tmp_path / f"{name[:5]}.log"))
     rows = sum(len(p.read_text().splitlines()) - 1 for p in sched_dir.glob("download*.csv"))
     assert rows >= 48
 
 
+def test_sigterm_during_a_training_exits_promptly(tmp_path):
+    """A trainer given SIGTERM in the middle of a training ends it at the
+    next step and exits 0 within 10 s (the port's stop event; the
+    reference's trainer runs the training out first), publishing nothing."""
+    from dragonfly2_tpu_torch.records import synth
+    from dragonfly2_tpu_torch.records.storage import TraceStorage
+    from dragonfly2_tpu_torch.registry import ModelRegistry
+    from dragonfly2_tpu_torch.rpc.client import TrainerClient
+
+    cluster = synth.make_cluster(24, seed=1)
+    store = TraceStorage(tmp_path / "traces")
+    for rec in synth.gen_download_records(cluster, 120, num_tasks=8):
+        store.create_download(rec)
+    store.flush()
+    downloads = b"".join(p.read_bytes() for p in store.downloads.all_paths())
+    config = tmp_path / "trainer.json"
+    # far more epochs than the test lasts: only the abort ends this training
+    config.write_text(json.dumps({"trainer": {"epochs": 1_000_000, "batch_size": 32,
+                                              "hidden_dim": 16}}))
+    # one intra-op thread: the endless training must not starve the
+    # tests that share the machine
+    trainer, ready, _ = _spawn(
+        ["trainer", "--device", "cpu", "--data-dir", str(tmp_path / "trainer"),
+         "--registry-dir", str(tmp_path / "registry"), "--config", str(config)],
+        tmp_path / "trainer.log", env=_env(OMP_NUM_THREADS="1"))
+    try:
+        def upload():
+            client = TrainerClient(ready[1], int(ready[2]))
+            with contextlib.suppress(Exception):  # the trainer dies mid-answer
+                asyncio.run(client.train("sched-1", "127.0.0.1", "sched-node",
+                                         {"download": downloads}))
+
+        threading.Thread(target=upload, daemon=True).start()
+        _wait(lambda: any((tmp_path / "trainer").rglob("*download*")), 30, "the upload to land")
+        time.sleep(2.0)  # the stream's end marker is in: the training is under way
+    finally:
+        rc, seconds = _stop(trainer)
+    assert rc == 0 and seconds < 10, (rc, seconds, (tmp_path / "trainer.log").read_text())
+    assert "aborted: the trainer is stopping" in (tmp_path / "trainer.log").read_text()
+    assert not list(ModelRegistry(tmp_path / "registry").list_models())
+
+
 DFDAEMON = ["dfdaemon", "--data-dir", "d", "--scheduler", "127.0.0.1:1"]
 
 
 @pytest.mark.parametrize("argv,env,needle", [
-    (["manager"], {}, "ROADMAP A9 part 3"),
-    (DFDAEMON + ["--manager", "127.0.0.1:1"], {}, "ROADMAP A9 part 3"),
-    (DFDAEMON + ["--object-storage"], {}, "ROADMAP A9 part 3"),
-    (DFDAEMON + ["--tls-issue"], {}, "ROADMAP A9 part 3"),
+    (DFDAEMON + ["--object-storage"], {}, "ROADMAP A9 part 3a"),
     (DFDAEMON + ["--scenario", "soak"], {}, "ROADMAP A11"),
-    (["scheduler", "--device", "cpu", "--manager", "127.0.0.1:1"], {}, "ROADMAP A9 part 3"),
-    (["trainer", "--device", "cpu", "--data-dir", "d", "--registry-dir", "r", "--tls-issue"], {},
-     "ROADMAP A9 part 3"),
     (["scheduler"], {"CUDA_VISIBLE_DEVICES": ""}, "torch.cuda.is_available() is False"),
     (["trainer", "--data-dir", "d", "--registry-dir", "r"], {"CUDA_VISIBLE_DEVICES": ""},
      "torch.cuda.is_available() is False"),
-], ids=["manager", "dfdaemon-manager", "dfdaemon-object-storage", "dfdaemon-tls-issue",
-        "dfdaemon-megascale-scenario", "scheduler-manager", "trainer-tls-issue",
-        "scheduler-no-card", "trainer-no-card"])
+], ids=["dfdaemon-object-storage", "dfdaemon-megascale-scenario", "scheduler-no-card",
+        "trainer-no-card"])
 def test_launcher_refusals_exit_nonzero(tmp_path, argv, env, needle):
     out = subprocess.run(_cmd(*argv), cwd=tmp_path, env=_env(**env), capture_output=True,
                          text=True, timeout=120)
@@ -227,12 +278,13 @@ def test_version_and_tls_dir_without_material(tmp_path):
 
 
 class _Origin:
-    """Blobs over HTTP with Range support, counting data GETs."""
+    """Blobs over HTTP with Range support, counting data GETs and the
+    bytes they sent."""
 
     def __init__(self, blobs: dict):
         import http.server
 
-        self.blobs, self.gets = blobs, 0
+        self.blobs, self.gets, self.sent = blobs, 0, 0
         outer = self
 
         class Handler(http.server.BaseHTTPRequestHandler):
@@ -258,6 +310,7 @@ class _Origin:
                 self.send_header("Content-Length", str(len(data)))
                 self.end_headers()
                 self.wfile.write(data)
+                outer.sent += len(data)
 
         self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
         threading.Thread(target=self.server.serve_forever, daemon=True).start()
@@ -374,5 +427,124 @@ def test_dfdaemon_dials_a_tls_scheduler(tmp_path):
         stopped = [(name, *_stop(p)) for name, p in reversed(procs)]
         origin.server.shutdown()
         origin.server.server_close()
+    for name, rc, seconds in stopped:
+        assert rc == 0 and seconds < 10, (name, rc, seconds)
+
+
+# ------------------------------------------------------------- the manager
+
+
+def _rest(base: str, method: str, path: str, body=None, token=None):
+    import urllib.request
+
+    req = urllib.request.Request(base + path, method=method,
+                                 data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    if token:
+        req.add_header("Authorization", f"Bearer {token}")
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def test_manager_preheats_through_its_cluster(tmp_path):
+    """A manager process (SQLite file), a scheduler on the CPU registered
+    with it (keepalive, dynconfig), a seed and a normal dfdaemon that take
+    their scheduler list from the manager (no --scheduler): a file preheat
+    posted to the manager's REST reaches SUCCESS, the seed holds the file,
+    a pull through the other daemon's proxy is p2p with each origin byte
+    fetched once, and every process exits 0 within 10 s of SIGTERM."""
+    import hashlib
+
+    import numpy as np
+
+    from dragonfly2_tpu_torch.utils import idgen
+
+    blob = np.random.default_rng(1).integers(0, 256, 900_000, dtype=np.uint8).tobytes()
+    origin = _Origin({"/blobs/warm": blob})
+    url = origin.base + "/blobs/warm"
+    procs: list = []
+    try:
+        mgr, m_ready, _ = _spawn(
+            ["manager", "--db", str(tmp_path / "manager.db"), "--metrics-port", "0"],
+            tmp_path / "manager.log")
+        procs.append(("manager", mgr))
+        assert m_ready[0] == "READY" and m_ready[3] == "RPC" and m_ready[5] == "METRICS"
+        base, rpc = f"http://{m_ready[1]}:{m_ready[2]}", f"{m_ready[1]}:{m_ready[4]}"
+        token = _rest(base, "POST", "/api/v1/users/signin",
+                      {"name": "root", "password": "dragonfly"})["token"]
+        _rest(base, "POST", "/api/v1/clusters", {
+            "name": "c1", "is_default": True,
+            "scheduler_cluster_config": {"candidate_parent_limit": 4}}, token)
+        sched, s_ready, _ = _spawn(
+            ["scheduler", "--device", "cpu", "--data-dir", str(tmp_path / "traces"),
+             "--manager", rpc, "--hostname", "sched-a", "--keepalive-interval", "0.5",
+             "--dynconfig-interval", "1"],
+            tmp_path / "sched.log")
+        procs.append(("scheduler", sched))
+        _wait(lambda: [s for s in _rest(base, "GET", "/api/v1/schedulers", token=token)
+                       if s["state"] == "active" and s["port"] == int(s_ready[2])],
+              30, "the manager to list the scheduler active")
+        daemons = {}
+        for name, extra in (("seed", ["--host-type", "super"]),
+                            ("df-b", ["--proxy", "--proxy-rule", "/blobs/"])):
+            proc, ready, _ = _spawn(
+                ["dfdaemon", "--data-dir", str(tmp_path / name), "--manager", rpc,
+                 "--hostname", name, "--dynconfig-interval", "1", *extra],
+                tmp_path / f"{name}.log")
+            procs.append((name, proc))
+            daemons[name] = ready
+        for name in daemons:
+            assert json.loads((tmp_path / name / "dynconfig.json").read_text())["schedulers"][0][
+                "port"] == int(s_ready[2])
+
+        job = _rest(base, "POST", "/api/v1/jobs",
+                    {"type": "preheat", "args": {"type": "file", "url": url,
+                                                 "piece_length": 256 << 10}})
+        assert job["state"] == "PENDING", job
+        assert job["result"]["task_ids"] == [idgen.task_id_v1(url)]
+        done = _wait(lambda: (lambda j: j if j["state"] != "PENDING" else None)(
+            _rest(base, "GET", f"/api/v1/jobs/{job['id']}")), 60, "the preheat to finish")
+        assert done["state"] == "SUCCESS", done
+        # the seed fetched each byte once, after client/source.py's
+        # one-byte `Range: bytes=0-0` probe
+        assert origin.sent == len(blob) + 1
+
+        via, body = _via_proxy(int(daemons["df-b"][4]), url)
+        assert via == "p2p" and hashlib.sha256(body).digest() == hashlib.sha256(blob).digest()
+        assert origin.sent == len(blob) + 1  # df-b took the seed's pieces
+    finally:
+        stopped = [(name, *_stop(p)) for name, p in reversed(procs)]
+        origin.server.shutdown()
+        origin.server.server_close()
+    for name, rc, seconds in stopped:
+        assert rc == 0 and seconds < 10, (name, rc, seconds, (tmp_path / f"{name}.log"))
+
+
+def test_tls_issue_certifies_against_the_manager(tmp_path):
+    """--tls-issue with --manager: the scheduler certifies into an empty
+    --tls-dir through the manager's IssueCertificate RPC (with the
+    enrollment token), then serves mTLS; a wrong token is refused."""
+    procs: list = []
+    try:
+        mgr, m_ready, _ = _spawn(
+            ["manager", "--cert-dir", str(tmp_path / "ca"), "--tls-enrollment-token", "enroll"],
+            tmp_path / "manager.log")
+        procs.append(("manager", mgr))
+        rpc = f"{m_ready[1]}:{m_ready[4]}"
+        out = subprocess.run(
+            _cmd("scheduler", "--device", "cpu", "--tls-dir", str(tmp_path / "bad"),
+                 "--tls-issue", "--manager", rpc, "--tls-enrollment-token", "wrong"),
+            cwd=REPO, env=_env(), capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0 and "enrollment token" in out.stderr
+        sched, s_ready, _ = _spawn(
+            ["scheduler", "--device", "cpu", "--tls-dir", str(tmp_path / "tls"), "--tls-issue",
+             "--manager", rpc, "--tls-enrollment-token", "enroll"],
+            tmp_path / "sched.log")
+        procs.append(("scheduler", sched))
+        assert s_ready[0] == "READY"
+        assert (tmp_path / "tls" / "ca.pem").read_bytes() == (
+            tmp_path / "ca" / "ca.pem").read_bytes()
+    finally:
+        stopped = [(name, *_stop(p)) for name, p in reversed(procs)]
     for name, rc, seconds in stopped:
         assert rc == 0 and seconds < 10, (name, rc, seconds)

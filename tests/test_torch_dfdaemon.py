@@ -409,7 +409,7 @@ def test_dfcache_import_stat_export_delete_and_dfstore(tmp_path, capsys):
 def test_dfstore_endpoint_exits_naming_a9_part_3(capsys):
     assert cli.main(["dfstore", "get", "--endpoint", "http://127.0.0.1:1", "--bucket", "b",
                      "--key", "k"]) == 1
-    assert "A9 part 3" in capsys.readouterr().err
+    assert "A9 part 3a" in capsys.readouterr().err
 
 
 def test_dfget_from_the_origin_then_from_the_swarm(tmp_path, origin, capsys):

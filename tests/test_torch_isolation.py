@@ -57,7 +57,12 @@ def test_port_imports_no_jax_flax_or_reference():
                    "client.piece_manager", "client.dispatcher", "client.upload",
                    "client.conductor", "client.daemon", "client.transport", "client.proxy",
                    "client.cli", "utils.container", "utils.gc", "utils.hoststat",
-                   "telemetry.timeline", "telemetry.tailtrace"):
+                   "telemetry.timeline", "telemetry.tailtrace",
+                   # slice 21: the manager, its jobs and dynconfig
+                   "manager", "manager.models", "manager.auth", "manager.searcher",
+                   "manager.oauth", "manager.service", "manager.rpc", "manager.rest",
+                   "manager.console", "cluster.jobs", "cluster.image_preheat",
+                   "utils.dflog", "utils.dynconfig", "utils.plugins"):
         assert f"dragonfly2_tpu_torch.{module}" in names, module
     assert lines["TORCH"] == "True"
     assert lines["BAD"] == "", f"port pulled in: {lines['BAD']}"

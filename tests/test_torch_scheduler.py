@@ -13,8 +13,8 @@ ml shadow arm run over one GraphSAGE ranker (the reference's flax init,
 hidden 32, compute_dtype float32) published to one shared bucket, their
 embeddings refreshed inline every ML_REFRESH_EVERY rounds; the shadow
 arm's ledger counters and the SLO's shadow-regret observations are held
-equal too. The constructor's refusals of what is not ported yet are
-pinned at the end.
+equal too. The plugin arm runs one plugin file under both packages. The
+constructor's refusals are pinned at the end.
 """
 
 from __future__ import annotations
@@ -102,13 +102,16 @@ def _ml_evaluator(port: bool, bucket_dir, template):
 
 
 def _run(port: bool, topology, seed: int, tmp_path, fused=True, vectorized=True,
-         algorithm="default", rounds=10, probes=False, warm=False, ml=None):
+         algorithm="default", rounds=10, probes=False, warm=False, ml=None, plugin=None):
     """One service run; ``ml`` (the published ranker's params, see
-    _publish_ranker) attaches each package's MLEvaluator."""
+    _publish_ranker) attaches each package's MLEvaluator; ``plugin``
+    (dir, name) names the evaluator plugin of algorithm="plugin"."""
     cfg = Config() if port else RefConfig()
     cfg.scheduler.vectorized_control = vectorized
     cfg.scheduler.fused_tick = fused
     cfg.evaluator.algorithm = algorithm
+    if plugin is not None:
+        cfg.evaluator.plugin_dir, cfg.evaluator.plugin_name = plugin
     storage_cls = TraceStorage if port else RefStorage
     storage = storage_cls(tmp_path / ("port" if port else "ref"))
     evaluator = None if ml is None else _ml_evaluator(port, tmp_path / "bucket", ml)
@@ -379,17 +382,48 @@ def test_a_late_snapshot_warms_the_shadow_arm_off_the_tick(tmp_path):
         evaluator.close()
 
 
-@pytest.mark.parametrize("case", ["ml_evaluator_elsewhere", "ml_without_evaluator", "plugin"])
+# Scores on the host from the numpy features both packages hand it: a
+# parent's finished pieces and free upload slots, ties broken by a fixed
+# ramp over the candidate columns.
+PLUGIN_SOURCE = """
+import numpy as np
+
+
+class Ranked:
+    def evaluate(self, feats):
+        valid = np.asarray(feats["valid"])
+        k = valid.shape[1]
+        free = np.asarray(feats["upload_limit"]) - np.asarray(feats["upload_used"])
+        score = 4.0 * np.asarray(feats["finished_pieces"]) + free
+        return (score + np.arange(k, 0, -1) / (2.0 * k)).astype(np.float32)
+
+
+def dragonfly_plugin_init(options):
+    return Ranked()
+"""
+
+
+@pytest.mark.parametrize("topology,seed", [(None, 3), ("bandwidth_skew", 17)])
+def test_plugin_arm_matches_reference_on_paired_seeds(topology, seed, tmp_path):
+    """algorithm="plugin": one plugin file under tmp_path, loaded by each
+    package's utils/plugins; both services select identical parents (ids
+    exact, scores 1e-6) on paired seeds, unfused, the ledger's arm the
+    plugin's."""
+    (tmp_path / "df_evaluator_plugin_ranked.py").write_text(PLUGIN_SOURCE)
+    got, svc, _, ref_svc, _ = _assert_paired(
+        topology, seed, tmp_path, algorithm="plugin", plugin=(str(tmp_path), "ranked"))
+    assert svc.plugin_evaluator is not None and ref_svc.plugin_evaluator is not None
+    assert svc._tick_mirror is None
+    assert set(svc.decisions.deterministic_columns()["arm"].tolist()) - {-1} == {3}
+    assert any(parents for _, parents in got)
+
+
+@pytest.mark.parametrize("case", ["ml_evaluator_elsewhere", "ml_without_evaluator"])
 def test_unported_options_raise_naming_their_roadmap_item(case, tmp_path):
-    """algorithm="plugin" waits for A9. The ml arm is ported: an evaluator
-    on another device than the service's raises, and algorithm="ml" with
-    no evaluator runs the rule blend, unfused, as the reference does."""
-    if case == "plugin":
-        cfg = Config()
-        cfg.evaluator.algorithm = "plugin"
-        with pytest.raises(NotImplementedError, match="A9"):
-            SchedulerService(config=cfg, device="cpu")
-    elif case == "ml_evaluator_elsewhere":
+    """The ml arm is ported: an evaluator on another device than the
+    service's raises, and algorithm="ml" with no evaluator runs the rule
+    blend, unfused, as the reference does."""
+    if case == "ml_evaluator_elsewhere":
         class Elsewhere:
             device = torch.device("cuda", 0)
 
