@@ -268,7 +268,46 @@ result line:
    REST p50 and p99, the dynconfig apply time, the activation-to-serving
    times, the scheduler's tick count, mean and histogram p50 bound, and
    the exit times.
-18. the kernels JSON line and, last, the result line.
+18. object storage and the flight recorder (slice 22): an S3 stub in this
+   script (path-style, 127.0.0.1, in a thread; it recomputes every SigV4
+   signature from the shared secret with its own code, answers 403 when
+   it differs, and counts each key's GETs, ranged GETs and bytes served),
+   the port's manager with --registry-dir s3://models/registry?endpoint=
+   <stub>, one scheduler on the card (--manager, --algorithm ml, the same
+   registry), a seed dfdaemon with --object-storage
+   --object-storage-backend s3 --object-storage-endpoint <stub> (its
+   credentials in DRAGONFLY_OBJ_ACCESS_KEY / _SECRET_KEY) and 16 dfdaemons
+   whose proxies hijack ^s3://. (a) A seeded GraphSAGERanker version goes
+   in through CreateModel into the S3 registry; params.sha256 equals the
+   sha256 of the params the stub holds; a REST activation makes the
+   scheduler log "ml evaluator serving model version N" after a GET of
+   those params. (b) The stub holds one 240 MiB object; a preheat job of
+   its s3:// URL with the credentials in x-df-* headers makes the seed
+   back-source it in ranged GETs, then the 16 daemons pull it at once
+   through their proxies: every body the object's sha256, stub bytes over
+   object bytes 1.000, no signature refused, at least one ranged GET. (c)
+   dfstore --endpoint on the seed's OBJSTORE port puts a 64 MiB object,
+   the dfstore client checks it exists, dfstore gets it back with equal
+   bytes, the client copies it and dfstore sum lists both keys; deleted in
+   the stub behind the daemon's back, a GET still answers the same bytes
+   from the imported task, and the client's delete removes the task too.
+   (d) /debug/flight on the scheduler's metrics port, the wire
+   FlightRecorderRequest and the manager's /api/v1/flight-recorder (with a
+   JWT): every section of flight.DUMP_SECTIONS, ticks with phase p50s, the
+   ml arm's entries with calls, a cost card for every (entry, signature)
+   the jit section lists, each with bytes and flops, within
+   DUMP_MAX_BYTES; ?section=ticks,jit&max_bytes=4096 returns only those
+   sections within 4,096 bytes; the wire and HTTP dumps have the same
+   sections; the manager's body has its own section and the scheduler's;
+   the ledger's capture counter does not move across 20 ticks of 20 wire
+   peers. (e) SIGTERM to every process: each exits 0 within 10 s. Prints
+   the stage's wall, aggregate MiB/s and per-daemon p50 and p99, dfstore's
+   put and get MiB/s, the activation-to-serving time, the dump's size and
+   the table of cost cards beside the tick phase p50 that holds each
+   entry. After phase 14, the in-process cost cards of phases 5-14 are
+   printed the same way (the fused tick's at the recorded deployment, the
+   trainer's with their hand kernels counted).
+19. the kernels JSON line and, last, the result line.
 
 Between phases 3 and 4, the host cost of the forward with lse's wrapper at
 the ranker's two trained shapes, [256, 4, 20, 32] and [256, 4, 20, 192]:
@@ -3507,8 +3546,10 @@ def _paired_runs(make, variants, rounds, downloads, label, probe_every=PARITY_PR
 def _wrapper_cost(svc, sim) -> None:
     """The entry wrappers' cost in the tick (telemetry/flight.py): rounds
     taken in turn with the device entries bare, wrapped as they ship
-    (counting calls) and wrapped with TRACK_SIGNATURES on; each mode's
-    median fused_dispatch phase and tick, host clock."""
+    (counting calls; the cost-card entries also look each call's
+    signature up, the fused entry by its key) and wrapped with
+    TRACK_SIGNATURES on; each mode's median
+    fused_dispatch phase and tick, host clock."""
     from dragonfly2_tpu_torch.ops import evaluator as ev
     from dragonfly2_tpu_torch.ops import tick as tk
     from dragonfly2_tpu_torch.telemetry import flight
@@ -4613,9 +4654,9 @@ class _Process:
     """One launcher process: its READY line and the seconds it took, its
     stderr in a file, and a SIGTERM stop that must exit 0 in time."""
 
-    def __init__(self, name: str, args: list, tree: str, log_path: str):
+    def __init__(self, name: str, args: list, tree: str, log_path: str, env=None):
         self.name, self.log_path = name, log_path
-        env = dict(os.environ, PYTHONPATH=tree)
+        env = dict(os.environ, PYTHONPATH=tree, **(env or {}))
         start = time.perf_counter()
         with open(log_path, "w") as log:
             self.proc = subprocess.Popen(
@@ -6018,6 +6059,670 @@ def phase_manager(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
     print(f"manager phase: {time.perf_counter() - phase_start:.1f} s")
 
 
+def phase_cost_cards(card: str) -> None:
+    """The cost cards of the in-process phases 5-14 (telemetry/costcard.py):
+    a flight-recorder dump of the cost-card section drains the notes the
+    serving entries queued, by replays on zeros on the card; the trainer's
+    cards were counted on their first real steps. Prints each entry's cards
+    (at most four, the largest first) with flops, bytes, the roofline side
+    and the lower-bound time at the H100's peaks; fails on a capture error,
+    a card without bytes, or a trainer card of the attention ranker that
+    counted no hand kernel."""
+    from dragonfly2_tpu_torch.telemetry import costcard, flight
+
+    doc = flight.dump(sections=("costcards",), max_bytes=None)["costcards"]
+    if doc["capture_errors"]:
+        _fail(f"cost-card captures failed: {doc['capture_errors']}")
+    cards = doc["cards"]
+    by_entry = collections.defaultdict(list)
+    for c in cards:
+        by_entry[c["entry"]].append(c)
+    if any(c["bytes_accessed"] <= 0 for c in cards) or "scheduler.tick.fused_tick_chunk" \
+            not in by_entry:
+        _fail(f"cost cards without bytes, or none of the fused tick: {sorted(by_entry)}")
+    kernels = {name for c in cards if c["entry"].startswith("trainer.") for name, _ in c["kernels"]}
+    if not {"dfly_flash_fwd_lse", "dfly_flash_bwd_dkv", "dfly_flash_bwd_dq"} <= kernels:
+        _fail(f"the trainer's cards counted the hand kernels {sorted(kernels)}")
+    print(f"cost cards of phases 5-14 on the card: {len(cards)} cards of {len(by_entry)} entries "
+          f"(telemetry/costcard.py counting rules; bound at the H100's bf16 peak "
+          f"{costcard.H100_PEAK_FLOPS_BF16:.4g} FLOP/s and {costcard.H100_HBM_BYTES_PER_S:.4g} "
+          f"B/s), ({card}):")
+    for entry, group in sorted(by_entry.items()):
+        for c in sorted(group, key=lambda c: -c["flops"])[:4]:
+            lower_us = max(c["flops"] / costcard.H100_PEAK_FLOPS_BF16,
+                           c["bytes_accessed"] / costcard.H100_HBM_BYTES_PER_S) * 1e6
+            print(f"  {entry} [{len(group)} cards] {c['signature_repr'][:96]}: {c['flops']:.6g} "
+                  f"flops, {c['bytes_accessed']:.6g} bytes, {c['transcendentals']:.4g} "
+                  f"transcendentals, {c['bound']}-bound, lower bound {lower_us:.3f} us; "
+                  f"hand kernels {c['kernels'] or 'none'}; data-dependent "
+                  f"{c['data_dependent'] or 'none'}")
+
+
+OBJ_ACCESS, OBJ_SECRET, OBJ_REGION = "AKIDchipsmoke", "chip-smoke-secret", "us-test-1"
+OBJ_BUCKET, OBJ_KEY = "rollout", "images/layer.bin"  # the object the daemons pull
+OBJ_REGISTRY = "models"  # the S3 bucket of the model registry
+OBJ_STORE_BUCKET = "objects"  # the bucket of the daemon's object-storage service
+OBJ_PUT_MIB = 64  # the object dfstore puts through the seed daemon's service
+OBJ_SCHED_ID = "chip-smoke-objstore-scheduler"
+OBJ_TICK_ASKS = 20  # ticks, each with no new signature, across which no capture may run
+OBJ_SMALL_DUMP = 4096  # max_bytes of the bounded /debug/flight query
+# the tick phase that holds each scheduler entry's call (telemetry/flight.py
+# PhaseRecorder marks in cluster/scheduler.py); the refresh entries run on
+# the ml arm's worker, outside any tick
+OBJ_ENTRY_PHASE = {
+    "scheduler.tick.fused_tick_chunk": "fused_dispatch",
+    "scheduler.evaluator.schedule_from_packed": "shadow_score",
+    "scheduler.ml.schedule_from_packed": "dispatch",
+}
+_V4_SAFE = "-_.~"
+_OSS_SUBRESOURCES = ("acl", "uploads", "location", "tagging", "versioning", "versions")
+
+
+class _S3Stub:
+    """Phase 18's object store: path-style S3 (or, with ``scheme`` "oss" /
+    "obs", the vendors' header-signed dialect) over 127.0.0.1 in a thread.
+    It recomputes every request's signature from the shared secret with its
+    own code (SigV4: the canonical request, the scope and the HMAC chain;
+    OSS/OBS: HMAC-SHA1 over the string to sign), answers 403 when the
+    signature differs, and counts each key's GETs, ranged GETs and the body
+    bytes it served. Buckets, objects, ranged GETs, HEAD, list-type 2 pages
+    with continuation tokens, copies, conditional creates and deletes."""
+
+    def __init__(self, scheme: str = "s3", access: str = OBJ_ACCESS, secret: str = OBJ_SECRET,
+                 region: str = OBJ_REGION):
+        import http.server
+
+        self.scheme, self.access, self.secret, self.region = scheme, access, secret, region
+        self.buckets: dict = {}
+        self.etags: dict = {}  # (bucket, key) -> md5, computed once per write
+        self.lock = threading.Lock()
+        self.gets, self.served = collections.Counter(), collections.Counter()
+        self.ranged = self.refused = 0
+        stub = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args):
+                pass
+
+            def handle_one(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(n) if n else b""
+                code, data, headers = stub._serve(self, body)
+                self.send_response(code)
+                for k, v in headers.items():
+                    self.send_header(k, v)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                if self.command != "HEAD":
+                    self.wfile.write(data)
+
+            do_GET = do_PUT = do_DELETE = do_HEAD = do_POST = handle_one
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.endpoint = f"127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(5)
+
+    # -- signatures, recomputed here ----------------------------------------
+    def _sigv4_ok(self, h, body: bytes) -> bool:
+        import hashlib
+        import hmac
+        import urllib.parse
+
+        auth = h.headers.get("Authorization", "")
+        if not auth.startswith("AWS4-HMAC-SHA256 "):
+            return False
+        fields = dict(kv.strip().split("=", 1) for kv in auth.split(" ", 1)[1].split(","))
+        access, date, region, service, _ = fields["Credential"].split("/")
+        payload = h.headers.get("x-amz-content-sha256", "")
+        if access != self.access or hashlib.sha256(body).hexdigest() != payload:
+            return False
+        names = fields["SignedHeaders"].split(";")
+        canonical_headers = "".join(f"{n}:{' '.join(h.headers.get(n, '').split())}\n"
+                                    for n in names)
+        path, _, query = h.path.partition("?")
+        pairs = sorted((urllib.parse.quote(k, safe=_V4_SAFE), urllib.parse.quote(v, safe=_V4_SAFE))
+                       for k, v in urllib.parse.parse_qsl(query, keep_blank_values=True))
+        request = "\n".join((h.command, path or "/", "&".join(f"{k}={v}" for k, v in pairs),
+                             canonical_headers, fields["SignedHeaders"], payload))
+        to_sign = "\n".join(("AWS4-HMAC-SHA256", h.headers.get("x-amz-date", ""),
+                             f"{date}/{region}/{service}/aws4_request",
+                             hashlib.sha256(request.encode()).hexdigest()))
+        key = ("AWS4" + self.secret).encode()
+        for part in (date, region, service, "aws4_request"):
+            key = hmac.new(key, part.encode(), hashlib.sha256).digest()
+        want = hmac.new(key, to_sign.encode(), hashlib.sha256).hexdigest()
+        return hmac.compare_digest(want, fields["Signature"])
+
+    def _headerstyle_ok(self, h, body: bytes, bucket: str, key: str, query: str) -> bool:
+        import base64
+        import hashlib
+        import hmac
+        import urllib.parse
+
+        prefix = self.scheme.upper()
+        auth = h.headers.get("Authorization", "")
+        if not auth.startswith(prefix + " "):
+            return False
+        access, _, got = auth[len(prefix) + 1:].partition(":")
+        lowered = {k.lower(): v.strip() for k, v in h.headers.items()}
+        if access != self.access or (body and lowered.get("content-md5") != base64.b64encode(
+                hashlib.md5(body).digest()).decode()):
+            return False
+        vendor = f"x-{self.scheme}-"
+        canonical = "".join(f"{k}:{lowered[k]}\n" for k in sorted(lowered) if k.startswith(vendor))
+        resource = f"/{bucket}/{key}" if key else (f"/{bucket}/" if bucket else "/")
+        sub = sorted((k, v) for k, v in urllib.parse.parse_qsl(query, keep_blank_values=True)
+                     if k in _OSS_SUBRESOURCES)
+        if sub:
+            resource += "?" + "&".join(k if not v else f"{k}={v}" for k, v in sub)
+        to_sign = "\n".join((h.command, lowered.get("content-md5", ""),
+                             lowered.get("content-type", ""), lowered.get("date", ""),
+                             canonical + resource))
+        want = base64.b64encode(hmac.new(self.secret.encode(), to_sign.encode(),
+                                         hashlib.sha1).digest()).decode()
+        return hmac.compare_digest(want, got)
+
+    # -- the store -----------------------------------------------------------
+    def _serve(self, h, body: bytes):
+        import hashlib
+        import urllib.parse
+
+        parts = urllib.parse.urlsplit(h.path)
+        bucket, _, key = parts.path.lstrip("/").partition("/")
+        key, query = urllib.parse.unquote(key), parts.query
+        ok = (self._sigv4_ok(h, body) if self.scheme == "s3"
+              else self._headerstyle_ok(h, body, bucket, key, query))
+        if not ok:
+            with self.lock:
+                self.refused += 1
+            return 403, b"<Error><Code>SignatureDoesNotMatch</Code></Error>", {}
+        q = dict(urllib.parse.parse_qsl(query, keep_blank_values=True))
+        with self.lock:
+            store = self.buckets.get(bucket)
+            if h.command == "PUT" and not key:
+                self.buckets.setdefault(bucket, {})
+                return 200, b"", {}
+            if h.command in ("GET", "HEAD") and not bucket:
+                xml = "".join(f"<Bucket><Name>{b}</Name><CreationDate>2026-01-01T00:00:00Z"
+                              "</CreationDate></Bucket>" for b in sorted(self.buckets))
+                return 200, f"<ListAllMyBucketsResult><Buckets>{xml}</Buckets>" \
+                            "</ListAllMyBucketsResult>".encode(), {}
+            if store is None:
+                if h.command == "DELETE":
+                    return 204, b"", {}
+                return 404, b"<Error><Code>NoSuchBucket</Code></Error>", {}
+            if h.command == "DELETE":
+                if key:
+                    store.pop(key, None)
+                else:
+                    self.buckets.pop(bucket, None)
+                return 204, b"", {}
+            if h.command == "PUT":
+                source = next((v for k, v in h.headers.items()
+                               if k.lower() == f"x-{'amz' if self.scheme == 's3' else self.scheme}"
+                                               "-copy-source"), None)
+                if source:
+                    sb, _, sk = urllib.parse.unquote(source).lstrip("/").partition("/")
+                    data = self.buckets.get(sb, {}).get(sk)
+                    if data is None:
+                        return 404, b"<Error><Code>NoSuchKey</Code></Error>", {}
+                    store[key] = data
+                    self.etags[bucket, key] = self.etags[sb, sk]
+                    return 200, b"<CopyObjectResult/>", {}
+                exists = key in store
+                if exists and h.headers.get("If-None-Match") == "*":
+                    return 412, b"<Error><Code>PreconditionFailed</Code></Error>", {}
+                if exists and h.headers.get(f"x-{self.scheme}-forbid-overwrite") == "true":
+                    return 409, b"<Error><Code>FileAlreadyExists</Code></Error>", {}
+                store[key] = body
+                self.etags[bucket, key] = hashlib.md5(body).hexdigest()
+                return 200, b"", {"ETag": f'"{self.etags[bucket, key]}"'}
+            if not key:
+                if h.command == "HEAD":
+                    return 200, b"", {}
+                prefix, after = q.get("prefix", ""), q.get("continuation-token", "")
+                keys = sorted(k for k in store if k.startswith(prefix) and k > after)
+                page = keys[:int(q.get("max-keys", "1000"))]
+                more = len(keys) > len(page)
+                xml = "".join(f"<Contents><Key>{k}</Key><Size>{len(store[k])}</Size>"
+                              f"<ETag>\"{self.etags[bucket, k]}\"</ETag>"
+                              "<LastModified>2026-01-02T03:04:05Z</LastModified></Contents>"
+                              for k in page)
+                tail = (f"<IsTruncated>true</IsTruncated><NextContinuationToken>{page[-1]}"
+                        "</NextContinuationToken>" if more else "<IsTruncated>false</IsTruncated>")
+                return 200, f"<ListBucketResult>{xml}{tail}</ListBucketResult>".encode(), {}
+            data = store.get(key)
+            if data is None:
+                return 404, b"<Error><Code>NoSuchKey</Code></Error>", {}
+            headers = {"ETag": f'"{self.etags[bucket, key]}"',
+                       "Last-Modified": "Fri, 02 Jan 2026 03:04:05 GMT",
+                       "Content-Type": "application/octet-stream"}
+            if h.command == "HEAD":
+                return 200, data, headers  # the handler sends the length, not the body
+            code, rng = 200, h.headers.get("Range")
+            if rng:
+                lo, _, hi = rng.split("=", 1)[1].partition("-")
+                data, code = memoryview(data)[int(lo): int(hi) + 1], 206
+                self.ranged += 1
+            self.gets[bucket, key] += 1
+            self.served[bucket, key] += len(data)
+            return code, data, headers
+
+    def put(self, bucket: str, key: str, data: bytes) -> None:
+        """Store an object behind the clients' backs (no signature)."""
+        import hashlib
+
+        etag = hashlib.md5(data).hexdigest()
+        with self.lock:
+            self.buckets.setdefault(bucket, {})[key] = data
+            self.etags[bucket, key] = etag
+
+    def delete(self, bucket: str, key: str) -> None:
+        with self.lock:
+            self.buckets.get(bucket, {}).pop(key, None)
+
+    def object(self, bucket: str, key: str) -> bytes | None:
+        with self.lock:
+            return self.buckets.get(bucket, {}).get(key)
+
+    def keys(self, bucket: str) -> list:
+        with self.lock:
+            return sorted(self.buckets.get(bucket, {}))
+
+
+def _s3_proxy_fetch(proxy_port: int, url: str) -> tuple:
+    """GET an s3:// URL through a daemon's proxy (its rule hijacks the
+    scheme into the swarm): (sha256 of the body, bytes, X-Dragonfly-Via)."""
+    import hashlib
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", proxy_port, timeout=DATA_FETCH_S)
+    try:
+        conn.request("GET", url)
+        resp = conn.getresponse()
+        h, n = hashlib.sha256(), 0
+        while True:
+            chunk = resp.read(1 << 20)
+            if not chunk:
+                break
+            h.update(chunk)
+            n += len(chunk)
+        if resp.status != 200:
+            _fail(f"the proxy on {proxy_port} answered {url} with {resp.status}")
+        return h.hexdigest(), n, resp.getheader("X-Dragonfly-Via")
+    finally:
+        conn.close()
+
+
+async def _tick_asks(host: str, port: int, task_id: str, url: str, size: int, n: int) -> None:
+    """``n`` wire peers of one task, one after another, each asking the
+    scheduler for parents and leaving once answered: ``n`` ticks of the
+    bucket the warmup already ran."""
+    from dragonfly2_tpu_torch.cluster import messages as msg
+    from dragonfly2_tpu_torch.rpc.client import SchedulerConnection
+
+    conn = await SchedulerConnection(host, port).connect()
+    try:
+        for i in range(n):
+            h = msg.HostInfo(host_id=f"obj-host-{i}", hostname=f"obj-node-{i}",
+                             ip=f"10.97.0.{i + 1}", port=8002, download_port=8001)
+            await conn.send(msg.AnnounceHostRequest(host=h))
+            peer_id = f"obj-peer-{i}"
+            queue = conn.subscribe(peer_id)
+            await conn.send(msg.RegisterPeerRequest(peer_id=peer_id, task_id=task_id, host=h,
+                                                    url=url, content_length=size,
+                                                    piece_length=4 << 20))
+            answer = await asyncio.wait_for(queue.get(), 30)
+            await conn.send(msg.LeavePeerRequest(peer_id=peer_id))
+            if type(answer).__name__ not in ("NormalTaskResponse", "EmptyTaskResponse"):
+                _fail(f"the card's scheduler answered a peer of {task_id} with {answer}")
+    finally:
+        await conn.close()
+
+
+def _flight_get(port: int, query: str = "") -> tuple:
+    """GET /debug/flight on a scheduler's metrics port: (body bytes, doc)."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/flight{query}",
+                                timeout=120) as resp:
+        body = resp.read()
+    return body, json.loads(body)
+
+
+def _cost_table(dump: dict, card: str) -> list:
+    """The dump's cost cards as printed rows, each beside the tick phase
+    p50 that holds its entry."""
+    from dragonfly2_tpu_torch.telemetry import costcard
+
+    p50 = dump["ticks"]["p50_ms"]
+    rows = []
+    for c in dump["costcards"]["cards"]:
+        phase = OBJ_ENTRY_PHASE.get(c["entry"])
+        lower_us = max(c["flops"] / costcard.H100_PEAK_FLOPS_BF16,
+                       c["bytes_accessed"] / costcard.H100_HBM_BYTES_PER_S) * 1e6
+        held = (f"{phase} p50 {p50[phase]:.3f} ms" if phase in p50
+                else "outside the tick (the ml arm's refresh worker)")
+        rows.append(f"  {c['entry']} {c['signature']} {c['signature_repr'][:72]}: "
+                    f"{c['flops']:.6g} flops, {c['bytes_accessed']:.6g} bytes, {c['bound']}-bound, "
+                    f"lower bound {lower_us:.3f} us at the H100's bf16 peak and HBM rate; {held} "
+                    f"({card})")
+    return rows
+
+
+def phase_objects(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
+                  object_mib=sum(DATA_BLOBS_MIB), put_mib=OBJ_PUT_MIB) -> None:
+    """Slice 22's main path: object storage and the flight recorder over
+    the port's cluster on the card (the module docstring, phase 18).
+    ``device``, ``daemons``, ``object_mib`` and ``put_mib`` are for a
+    rehearsal on the CPU."""
+    import concurrent.futures
+    import hashlib
+    import urllib.parse
+
+    import torch
+
+    from dragonfly2_tpu_torch.cluster.jobs import RemoteScheduler
+    from dragonfly2_tpu_torch.cluster.trainer_service import GNN_MODEL_NAME
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.manager import rpc as mrpc
+    from dragonfly2_tpu_torch.models.convert import graphsage_params_to_flax
+    from dragonfly2_tpu_torch.models.graphsage import GraphSAGERanker
+    from dragonfly2_tpu_torch.objectstorage.service import DfstoreClient
+    from dragonfly2_tpu_torch.telemetry import flight
+    from dragonfly2_tpu_torch.training.checkpoint import params_to_bytes
+    from dragonfly2_tpu_torch.utils import dferrors, idgen
+
+    phase_start = time.perf_counter()
+    _raise_open_files()
+    rng = np.random.default_rng(SEED + 18)
+    stub = _S3Stub()
+    blob = rng.integers(0, 256, object_mib << 20, dtype=np.uint8).tobytes()
+    stub.put(OBJ_BUCKET, OBJ_KEY, blob)
+    blob_sha = hashlib.sha256(blob).hexdigest()
+    url = f"s3://{OBJ_BUCKET}/{OBJ_KEY}"
+    creds = {"x-df-endpoint": stub.endpoint, "x-df-access-key": OBJ_ACCESS,
+             "x-df-secret-key": OBJ_SECRET, "x-df-region": OBJ_REGION}
+    registry_url = f"s3://{OBJ_REGISTRY}/registry?" + urllib.parse.urlencode({
+        "endpoint": stub.endpoint, "access_key": OBJ_ACCESS, "secret_key": OBJ_SECRET,
+        "region": OBJ_REGION})
+    dev_args = ["--device", device] if device else []
+    where = device or "the card"
+    procs: list = []
+    with tempfile.TemporaryDirectory(prefix="dfly-obj-") as root:
+        def log(name):
+            return os.path.join(root, f"{name}.log")
+
+        try:
+            # -- the manager on the S3 registry, its cluster, the scheduler
+            mgr = _Process("manager", [
+                "manager", "--db", os.path.join(root, "manager.db"), "--registry-dir",
+                registry_url, "--metrics-port", "0"], tree, log("manager"))
+            procs.append(mgr)
+            rest, rpc = _Rest(f"http://{mgr.ready[1]}:{mgr.ready[2]}"), f"{mgr.ready[1]}:{mgr.ready[4]}"
+            rest.token = rest("POST", "/api/v1/users/signin",
+                              {"name": "root", "password": "dragonfly"})["token"]
+            cluster = rest("POST", "/api/v1/clusters", {
+                "name": "objects", "is_default": True,
+                "scheduler_cluster_config": {"candidate_parent_limit": MGR_LIMITS[0]}})
+            sc_id, spc_id = cluster["scheduler_cluster_id"], cluster["seed_peer_cluster_id"]
+            sched = _Process("scheduler", [
+                "scheduler", *dev_args, "--data-dir", os.path.join(root, "traces"),
+                "--manager", rpc, "--cluster-id", str(sc_id), "--hostname", "sched-obj",
+                "--keepalive-interval", str(MGR_KEEPALIVE_S),
+                "--dynconfig-interval", str(MGR_DYNCONFIG_S), "--registry-dir", registry_url,
+                "--algorithm", "ml", "--scheduler-host-id", OBJ_SCHED_ID,
+                "--ml-refresh-interval", "0.5", "--metrics-port", "0"], tree, log("scheduler"))
+            procs.append(sched)
+            s_host, s_port = sched.ready[1], int(sched.ready[2])
+            s_metrics = int(sched.ready[sched.ready.index("METRICS") + 1])  # after INFER h p
+            _wait_for(lambda: [r for r in rest("GET", "/api/v1/schedulers", timed=False)
+                               if r["state"] == "active" and r["port"] == s_port],
+                      2 * PROC_READY_S, "the manager to list the scheduler active", procs)
+            seed = _Process("seed", [
+                "dfdaemon", "--data-dir", os.path.join(root, "seed"), "--manager", rpc,
+                "--hostname", "seed", "--host-type", "super", "--object-storage",
+                "--object-storage-backend", "s3", "--object-storage-endpoint", stub.endpoint,
+                "--object-storage-region", OBJ_REGION,
+                "--dynconfig-interval", str(MGR_DYNCONFIG_S), "--metrics-port", "0"],
+                tree, log("seed"), env={"DRAGONFLY_OBJ_ACCESS_KEY": OBJ_ACCESS,
+                                        "DRAGONFLY_OBJ_SECRET_KEY": OBJ_SECRET})
+            procs.append(seed)
+            if "OBJSTORE" not in seed.ready:
+                _fail(f"the seed's READY line lacks OBJSTORE: {' '.join(seed.ready)}")
+            objstore = f"http://{seed.ready[1]}:{seed.ready[seed.ready.index('OBJSTORE') + 1]}"
+            for request in (mrpc.RegisterInstanceRequest(
+                    source_type="seed_peer", host_name="seed", ip=seed.ready[1],
+                    port=int(seed.ready[2]), cluster_id=spc_id),
+                    mrpc.KeepAliveRequest(source_type="seed_peer", host_name="seed",
+                                          ip=seed.ready[1], cluster_id=spc_id)):
+                asyncio.run(_manager_call(rpc, request))
+            snapshot = pathlib.Path(root, "traces", f"dynconfig-cluster{sc_id}.json")
+            _wait_for(lambda: snapshot.exists() and json.loads(snapshot.read_text())["seed_peers"],
+                      3 * MGR_APPLY_S, "the scheduler's dynconfig to list the seed", procs)
+
+            def start(i):
+                name = f"df-{i:02d}"
+                return _Process(name, [
+                    "dfdaemon", "--data-dir", os.path.join(root, name), "--manager", rpc,
+                    "--hostname", name, "--proxy", "--proxy-rule", "^s3://",
+                    "--dynconfig-interval", str(MGR_DYNCONFIG_S), "--metrics-port", "0"],
+                    tree, log(name))
+
+            with concurrent.futures.ThreadPoolExecutor(daemons) as pool:
+                dfs = list(pool.map(start, range(daemons)))
+            procs.extend(dfs)
+            ready = sorted(d.ready_s for d in dfs)
+            print(f"objects: READY: the manager {mgr.ready_s:.2f} s (registry on the S3 stub), "
+                  f"the scheduler {sched.ready_s:.2f} s (ml arm, --manager, the same registry) on "
+                  f"{where}, the seed {seed.ready_s:.2f} s (OBJSTORE over the stub), {daemons} "
+                  f"dfdaemons p50 {statistics.median(ready):.2f} s max {ready[-1]:.2f} s, host "
+                  f"clock ({card})")
+
+            # -- (a) a model registry on S3: publish, activate, serve
+            model = GraphSAGERanker(TrainerConfig().hidden_dim, GRAPH_LAYERS).reset_parameters(
+                torch.Generator().manual_seed(SEED + 18))
+            created = asyncio.run(_manager_call(rpc, mrpc.CreateModelRequest(
+                name=GNN_MODEL_NAME, type="gnn", scheduler_host_id=OBJ_SCHED_ID,
+                params_blob=params_to_bytes(graphsage_params_to_flax(model)), evaluation={})))
+            prefix = f"registry/{created.model_id}/{created.version}/"
+            params = stub.object(OBJ_REGISTRY, prefix + "params.msgpack")
+            manifest = stub.object(OBJ_REGISTRY, prefix + "params.sha256")
+            if params is None or manifest is None:
+                _fail(f"CreateModel left no params under {prefix} in the stub: "
+                      f"{stub.keys(OBJ_REGISTRY)}")
+            if json.loads(manifest)["sha256"] != hashlib.sha256(params).hexdigest():
+                _fail("the registry's params.sha256 differs from the sha256 of the params the "
+                      "stub holds")
+            reads = stub.gets[OBJ_REGISTRY, prefix + "params.msgpack"]
+            row = next(r for r in rest("GET", f"/api/v1/models?model_id={created.model_id}")
+                       if r["version"] == created.version)
+            start_s = time.perf_counter()
+            if rest("PATCH", f"/api/v1/models/{row['id']}", {"state": "active"})["state"] != "active":
+                _fail(f"PATCH /api/v1/models/{row['id']} did not activate it")
+            _wait_for(lambda: f"ml evaluator serving model version {created.version}"
+                      in sched.log(), MGR_SERVE_S, "the ml arm to serve the S3 version", procs)
+            serve_s = time.perf_counter() - start_s
+            if stub.gets[OBJ_REGISTRY, prefix + "params.msgpack"] <= reads:
+                _fail("the scheduler serves the version without a GET of its params from S3")
+            print(f"objects: CreateModel published GNN version {created.version} (hidden "
+                  f"{TrainerConfig().hidden_dim}, seeded) into the S3 registry; params.sha256 "
+                  f"{json.loads(manifest)['sha256'][:16]}.. equals the sha256 of the "
+                  f"{len(params)} bytes the stub holds; REST activation to 'serving model "
+                  f"version {created.version}' {serve_s:.2f} s, host clock ({card})")
+
+            # -- (b) back-source from S3 through the swarm
+            task_id = idgen.task_id_v1(url)
+            start_s = time.perf_counter()
+            job = rest("POST", "/api/v1/jobs", {"type": "preheat", "args": {
+                "type": "file", "url": url, "headers": creds}})
+            if job["result"]["task_ids"] != [task_id]:
+                _fail(f"the preheat job {job} does not hold the daemons' task id {task_id}")
+            done = _wait_for(lambda: (lambda j: j if j["state"] != "PENDING" else None)(
+                rest("GET", f"/api/v1/jobs/{job['id']}")), MGR_JOB_S, "the preheat job", procs)
+            job_s = time.perf_counter() - start_s
+            if done["state"] != "SUCCESS":
+                _fail(f"the preheat job ended {done['state']}: {done['result']}")
+            proxy = {d.name: int(d.ready[4]) for d in dfs}
+            node_s = {}
+            start_s = time.perf_counter()
+
+            def fetch(name):
+                digest, n, via = _s3_proxy_fetch(proxy[name], url)
+                if digest != blob_sha or via != "p2p":
+                    _fail(f"{name} {url} through its proxy: sha256 {digest} ({n} bytes, via {via})")
+                return name, time.perf_counter() - start_s
+
+            with concurrent.futures.ThreadPoolExecutor(daemons) as pool:
+                node_s = dict(pool.map(fetch, proxy))
+            wall = time.perf_counter() - start_s
+            served = stub.served[OBJ_BUCKET, OBJ_KEY] / len(blob)
+            if f"{served:.3f}" != "1.000" or stub.refused or not stub.ranged:
+                _fail(f"the stub served {served:.3f} of the object's bytes, refused "
+                      f"{stub.refused} signatures and served {stub.ranged} ranged GETs")
+            per_node = list(node_s.values())
+            print(f"objects: preheat of {url} ({len(blob) / 2**20:.0f} MiB, credentials in "
+                  f"x-df-* headers) from POST /api/v1/jobs to SUCCESS {job_s:.2f} s; {daemons} "
+                  f"dfdaemons pull it at once through their proxies: wall {wall:.2f} s, "
+                  f"{daemons * len(blob) / 2**20 / wall:.1f} MiB/s aggregate, per daemon p50 "
+                  f"{_pct(per_node, 50):.2f} s p99 {_pct(per_node, 99):.2f} s; every body the "
+                  f"object's sha256; stub bytes served / object bytes {served:.3f} over "
+                  f"{stub.gets[OBJ_BUCKET, OBJ_KEY]} GETs ({stub.ranged} ranged), "
+                  f"{stub.refused} signatures refused, host clock ({card})")
+
+            # -- (c) the daemon's object-storage service, through dfstore
+            data = rng.integers(0, 256, put_mib << 20, dtype=np.uint8).tobytes()
+            src = os.path.join(root, "put.bin")
+            with open(src, "wb") as f:
+                f.write(data)
+            client = DfstoreClient(objstore)
+            client.create_bucket(OBJ_STORE_BUCKET)
+
+            def dfstore(*args):
+                start = time.perf_counter()
+                got = subprocess.run(
+                    [sys.executable, "-m", "dragonfly2_tpu_torch.client.cli", "dfstore", *args,
+                     "--endpoint", objstore, "--bucket", OBJ_STORE_BUCKET],
+                    cwd=tree, env=dict(os.environ, PYTHONPATH=tree), capture_output=True,
+                    timeout=DATA_FETCH_S)
+                if got.returncode != 0:
+                    _fail(f"dfstore {' '.join(args)} exited {got.returncode}: {got.stderr[-2000:]}")
+                return got.stdout, time.perf_counter() - start
+
+            _, put_s = dfstore("put", "--key", "weights/a.bin", "--path", src)
+            if not client.is_object_exist(OBJ_STORE_BUCKET, "weights/a.bin"):
+                _fail("dfstore put left no object the service reports")
+            got, get_s = dfstore("get", "--key", "weights/a.bin")
+            if got != data:
+                _fail(f"dfstore get returned {len(got)} bytes unequal to the {len(data)} put")
+            client.copy_object(OBJ_STORE_BUCKET, "weights/a.bin", "weights/b.bin")
+            listed, _ = dfstore("sum", "--key", "weights/")
+            names = sorted(line.split()[-1] for line in listed.decode().splitlines())
+            if names != ["weights/a.bin", "weights/b.bin"] or stub.object(
+                    OBJ_STORE_BUCKET, "weights/b.bin") != data:
+                _fail(f"after the copy dfstore sum lists {names}")
+            stub.delete(OBJ_STORE_BUCKET, "weights/a.bin")  # behind the daemon's back
+            if client.get_object(OBJ_STORE_BUCKET, "weights/a.bin") != data:
+                _fail("the GET fell back to the imported task with other bytes")
+            client.delete_object(OBJ_STORE_BUCKET, "weights/a.bin")
+            try:
+                client.get_object(OBJ_STORE_BUCKET, "weights/a.bin")
+                _fail("a GET after dfstore's delete still answered: the task was kept")
+            except dferrors.NotFound:
+                pass
+            print(f"objects: dfstore --endpoint on the seed's OBJSTORE ({put_mib} MiB): put "
+                  f"{put_mib / put_s:.1f} MiB/s ({put_s:.2f} s), get {put_mib / get_s:.1f} MiB/s "
+                  f"({get_s:.2f} s), each a CLI process; exists, copy and sum listing held; "
+                  f"deleted in the stub, the GET answered from the imported task with equal "
+                  f"bytes; dfstore's delete removed the task, host clock ({card})")
+
+            # -- (d) the flight recorder
+            _flight_get(s_metrics)  # drains the notes of every signature so far
+            before = _scrape(s_metrics)
+            asyncio.run(_tick_asks(s_host, s_port, task_id, url, len(blob), OBJ_TICK_ASKS))
+            after = _scrape(s_metrics)
+            ticks = (after["dragonfly_scheduler_tick_seconds_count"]
+                     - before["dragonfly_scheduler_tick_seconds_count"])
+            captures = [m.get("dragonfly_costcard_captures_total", 0.0) for m in (before, after)]
+            if ticks < OBJ_TICK_ASKS or captures[1] != captures[0]:
+                _fail(f"across {ticks:.0f} ticks (at least {OBJ_TICK_ASKS}) the ledger's captures "
+                      f"went {captures[0]:.0f} -> {captures[1]:.0f}: a capture ran in a tick")
+            body, dump = _flight_get(s_metrics)
+            missing = [s for s in flight.DUMP_SECTIONS if s not in dump]
+            if missing or len(body) > flight.DUMP_MAX_BYTES:
+                _fail(f"/debug/flight lacks {missing} or is {len(body)} bytes "
+                      f"(cap {flight.DUMP_MAX_BYTES})")
+            if dump["ticks"]["ticks_total"] <= 0 or not dump["ticks"]["p50_ms"]:
+                _fail(f"the dump's ticks section is empty: {dump['ticks']}")
+            ran = {name: s for name, s in dump["jit"].items() if s["calls"] > 0}
+            need = ("scheduler.ml.schedule_from_packed", "scheduler.ml.embed_hosts")
+            if any(n not in ran for n in need):
+                _fail(f"the dump's jit section lacks a served entry: {dump['jit']}")
+            cards = collections.Counter(c["entry"] for c in dump["costcards"]["cards"])
+            # every (entry, signature) the jit section saw has its card (a
+            # refresh may note one more between the two sections)
+            short = {n: (s["signatures"], cards[n]) for n, s in ran.items()
+                     if cards[n] < s["signatures"]}
+            bad = [c["entry"] for c in dump["costcards"]["cards"]
+                   if c["bytes_accessed"] <= 0 or c["flops"] <= 0]
+            if short or bad or dump["costcards"]["capture_errors"]:
+                _fail(f"cost cards: (signatures, cards) {short}, without flops or bytes {bad}, "
+                      f"errors {dump['costcards']['capture_errors']}")
+            small, sdoc = _flight_get(s_metrics, f"?section=ticks,jit&max_bytes={OBJ_SMALL_DUMP}")
+            if set(sdoc) - {"generated_at_ns", "truncated"} != {"ticks", "jit"} \
+                    or len(small) > OBJ_SMALL_DUMP:
+                _fail(f"?section=ticks,jit&max_bytes={OBJ_SMALL_DUMP} gave {sorted(sdoc)} in "
+                      f"{len(small)} bytes")
+            remote = RemoteScheduler(s_host, s_port)
+            try:
+                wire = remote.flight_recorder(64)
+            finally:
+                remote.close()
+            if set(wire) != set(dump):
+                _fail(f"the wire dump's sections {sorted(wire)} differ from the HTTP dump's "
+                      f"{sorted(dump)}")
+            mgr_doc = rest("GET", "/api/v1/flight-recorder")
+            mine = [name for name, d in mgr_doc["schedulers"].items()
+                    if "error" not in d and "ticks" in d]
+            if "manager" not in mgr_doc or not mine:
+                _fail(f"the manager's flight recorder lacks its own or the scheduler's section: "
+                      f"{ {k: sorted(v) for k, v in mgr_doc['schedulers'].items()} }")
+            print(f"objects: /debug/flight {len(body)} bytes (cap {flight.DUMP_MAX_BYTES}), "
+                  f"{dump['ticks']['ticks_total']} ticks, sections {sorted(dump)}; "
+                  f"?section=ticks,jit&max_bytes={OBJ_SMALL_DUMP}: {len(small)} bytes; the wire "
+                  f"FlightRecorderRequest and the manager's /api/v1/flight-recorder (sections "
+                  f"manager and {mine}) agree; entries that ran: "
+                  + ", ".join(f"{n} {s['calls']:.0f} calls {s['signatures']} signatures"
+                              for n, s in sorted(ran.items()))
+                  + f"; captures {captures[0]:.0f} before and after {ticks:.0f} ticks, host "
+                  f"clock ({card})")
+            print(f"objects: cost cards on {where} (telemetry/costcard.py counting rules):")
+            for line in _cost_table(dump, card):
+                print(line)
+
+            # -- (e) shutdown
+            stop_s = {p.name: p.stop() for p in [*dfs, seed, sched, mgr]}
+            df_stops = sorted(stop_s[d.name] for d in dfs)
+            print(f"objects: SIGTERM -> exit 0 in p50 {statistics.median(df_stops):.2f} s max "
+                  f"{df_stops[-1]:.2f} s (dfdaemons), seed {stop_s['seed']:.2f} s, scheduler "
+                  f"{stop_s['scheduler']:.2f} s, manager {stop_s['manager']:.2f} s, host clock "
+                  f"({card})")
+        finally:
+            for p in procs:
+                p.kill()
+            stub.stop()
+    print(f"objects phase: {time.perf_counter() - phase_start:.1f} s")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--threshold", action="store_true",
@@ -6070,9 +6775,11 @@ def main() -> None:
         phase_graph_models(ds, graph, topology, card)
         rule_cost = phase_ml_arm(card)
         phase_trainer(card, storage, topology, rule_cost)
+    phase_cost_cards(card)
     phase_processes(card, tree)
     phase_data_plane(card, tree)
     phase_manager(card, tree)
+    phase_objects(card, tree)
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]

@@ -8,10 +8,8 @@ GetObject/PutObject surface (dfstore.go) re-pointed at local task storage
 the file-path surface). One binary, subcommands — `python -m
 dragonfly2_tpu_torch.client.cli <cmd>`.
 
-Port of dragonfly2_tpu/client/cli.py. ``dfstore --endpoint`` talks to a
-daemon's object-storage service, which is not ported yet (ROADMAP A9
-part 3): it exits 1 naming the item. Every other path is the
-reference's, and none of them imports torch.
+Port of dragonfly2_tpu/client/cli.py, whole; no path of it imports
+torch.
 """
 
 from __future__ import annotations
@@ -210,14 +208,28 @@ def _dfstore(args) -> int:
 
 
 def _dfstore_remote(args) -> int:
-    """dfstore against a daemon's object-storage HTTP API: the client and
-    the service are ROADMAP A9 part 3a, so this exits 1 naming it."""
-    print(
-        "dfstore --endpoint needs the daemon's object-storage service "
-        "(objectstorage/service.py), not ported yet (ROADMAP A9 part 3a)",
-        file=sys.stderr,
-    )
-    return 1
+    """dfstore against a daemon's object-storage HTTP API
+    (client/dfstore/dfstore.go wraps exactly this surface)."""
+    from dragonfly2_tpu_torch.objectstorage.service import DfstoreClient
+    from dragonfly2_tpu_torch.utils import dferrors
+
+    client = DfstoreClient(args.endpoint)
+    try:
+        if args.action == "get":
+            sys.stdout.buffer.write(client.get_object(args.bucket, args.key))
+            return 0
+        if args.action == "put":
+            client.put_object(args.bucket, args.key, pathlib.Path(args.path).read_bytes())
+            return 0
+        if args.action == "sum":
+            meta = client.object_metadatas(args.bucket, prefix=args.key)
+            for m in meta:
+                print(m["etag"] or m["content_length"], m["key"])
+            return 0
+    except dferrors.NotFound as e:
+        print(e, file=sys.stderr)
+        return 1
+    raise AssertionError(args.action)
 
 
 def build_parser() -> argparse.ArgumentParser:

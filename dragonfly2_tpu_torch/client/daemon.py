@@ -6,10 +6,10 @@ manager + announcer + probe loop + GC, one process per host. The task
 manager dedups concurrent downloads of the same task
 (peertask_manager.go:47-54) and exposes the file/stream entry points.
 
-Port of dragonfly2_tpu/client/daemon.py less its object-storage listener
-(``object_storage=True``), which needs objectstorage/service.py, not
-ported yet (ROADMAP A9 part 3a): the constructor refuses it. The
-manager-fed scheduler list (``manager_address``, the dynconfig loop) is
+Port of dragonfly2_tpu/client/daemon.py, with its object-storage
+listener (``object_storage=True``: objectstorage/service.py over the
+``fs`` backend or a signed s3/oss/obs endpoint). The manager-fed
+scheduler list (``manager_address``, the dynconfig loop) is
 the reference's, with one departure: a daemon given a manager and no
 scheduler address (the reference requires one) takes its first list
 from the manager in ``start()``, before any scheduler is dialled, as the
@@ -59,6 +59,8 @@ class Daemon:
         gc_interval: float = 60.0,
         probe_interval: float = 0.0,  # 0 disables the probe loop
         object_storage: bool = False,
+        object_storage_backend: str = "fs",
+        object_storage_options: dict | None = None,
         proxy: bool = False,
         proxy_rules: list | None = None,
         registry_mirror: str = "",
@@ -69,11 +71,6 @@ class Daemon:
         dynconfig_interval: float = 60.0,
         fault_injector=None,
     ):
-        if object_storage:
-            raise NotImplementedError(
-                "Daemon(object_storage=True) needs objectstorage/service.py, not "
-                "ported yet (ROADMAP A9 part 3a)"
-            )
         self.hostname = hostname or socket.gethostname()
         self.ip = ip
         self.host_id = idgen.host_id_v2(ip, self.hostname)
@@ -102,6 +99,21 @@ class Daemon:
                    runner=lambda: self.storage.run_gc())
         )
         self.probe_interval = probe_interval
+        self.object_storage = None
+        if object_storage:
+            # optional object-storage HTTP listener (daemon.go:525-604
+            # serves it alongside upload/proxy when configured); the
+            # vendor dispatch matches pkg/objectstorage New() — `fs`
+            # local dir or a signed s3/oss/obs endpoint
+            from dragonfly2_tpu_torch.objectstorage.backends import new_backend
+            from dragonfly2_tpu_torch.objectstorage.service import ObjectStorageService
+
+            backend = new_backend(
+                object_storage_backend,
+                base_dir=pathlib.Path(data_dir) / "objects",
+                **(object_storage_options or {}),
+            )
+            self.object_storage = ObjectStorageService(backend, storage=self.storage, host=ip)
         self.proxy = None
         self.sni_proxy = None
         if proxy:
@@ -178,6 +190,8 @@ class Daemon:
         await asyncio.to_thread(native.ensure_built)
         self.upload.start()
         self.gc.start()
+        if self.object_storage is not None:
+            self.object_storage.start()
         if self.proxy is not None:
             await self.proxy.start()
         if self.sni_proxy is not None:
@@ -239,6 +253,8 @@ class Daemon:
                     pass
         await self.pool.close()
         self.gc.stop()
+        if self.object_storage is not None:
+            self.object_storage.stop()
         self.upload.stop()
 
     # ------------------------------------------------------------ download

@@ -1,15 +1,18 @@
 """Object-store / HDFS / OCI back-to-source clients.
 
-Port of dragonfly2_tpu/client/object_sources.py apart from
-``ObjectStoreSource``: the s3/oss/obs schemes are registered as a source
-whose every call raises naming ROADMAP A9 part 3a (the signed vendor
-clients it needs). ``HdfsSource``, ``OrasSource`` and
-``fetch_bearer_token`` are the reference's.
+Port of dragonfly2_tpu/client/object_sources.py, whole; host code, no
+torch.
 
 Capability parity with pkg/source/clients/{s3,oss,hdfs,oras}protocol: the
 remaining schemes of the reference's back-source registry, implemented
 over stdlib HTTP (no cloud SDK):
 
+- `ObjectStoreSource` (s3/oss/obs): `s3://bucket/key` → signed vendor
+  HTTP via `objectstorage.remote`. Credentials come per-request from
+  `x-df-endpoint`/`x-df-access-key`/`x-df-secret-key`/`x-df-region`
+  headers (the reference's s3 client likewise reads creds from request
+  metadata rather than ambient config) with `DRAGONFLY_<SCHEME>_*` env
+  fallback.
 - `HdfsSource`: `hdfs://namenode:port/path` over the WebHDFS REST API
   (OPEN with offset/length, GETFILESTATUS, LISTSTATUS) — the reference
   links a native Go hdfs client (hdfs_source_client.go:173-211); WebHDFS
@@ -31,6 +34,7 @@ import urllib.request
 from typing import Iterator
 
 from dragonfly2_tpu_torch.client.source import URLEntry
+from dragonfly2_tpu_torch.objectstorage.backends import new_backend
 from dragonfly2_tpu_torch.utils import dferrors
 
 _CHUNK = 1 << 20
@@ -85,31 +89,88 @@ def fetch_bearer_token(
 
 
 class ObjectStoreSource:
-    """The s3/oss/obs schemes, registered so a URL of theirs names what
-    it lacks: the reference's client signs vendor HTTP through
-    objectstorage/remote.py and signing.py, which are not ported yet
-    (ROADMAP A9 part 3a). Every call raises."""
-
     def __init__(self, scheme: str):
         self.scheme = scheme
 
-    def _refuse(self):
-        raise NotImplementedError(
-            f"{self.scheme}:// back-source needs the signed object-storage "
-            "clients (objectstorage/remote.py, signing.py), not ported yet "
-            "(ROADMAP A9 part 3a)"
+    def _split(self, url: str) -> tuple[str, str]:
+        parts = urllib.parse.urlsplit(url)
+        bucket = parts.netloc
+        key = parts.path.lstrip("/")
+        if not bucket or not key:
+            raise dferrors.InvalidArgument(
+                f"{self.scheme} url needs {self.scheme}://bucket/key, got {url!r}"
+            )
+        return bucket, urllib.parse.unquote(key)
+
+    def _backend(self, headers: dict | None):
+        env = os.environ
+        up = self.scheme.upper()
+
+        def opt(h: str, e: str) -> str | None:
+            return _header(headers, h) or env.get(f"DRAGONFLY_{up}_{e}")
+
+        endpoint = opt("x-df-endpoint", "ENDPOINT")
+        if not endpoint:
+            raise dferrors.Unavailable(
+                f"{self.scheme}:// back-source needs an endpoint: set the "
+                f"x-df-endpoint request header or DRAGONFLY_{up}_ENDPOINT"
+            )
+        return new_backend(
+            self.scheme,
+            endpoint=endpoint,
+            access_key=opt("x-df-access-key", "ACCESS_KEY") or "",
+            secret_key=opt("x-df-secret-key", "SECRET_KEY") or "",
+            region=opt("x-df-region", "REGION") or "",
         )
 
     def content_length(self, url: str, headers: dict | None = None) -> int:
-        self._refuse()
+        bucket, key = self._split(url)
+        return self._backend(headers).get_object_metadata(bucket, key).content_length
 
     def download(
         self, url: str, headers: dict | None = None, offset: int = 0, length: int = -1
     ) -> Iterator[bytes]:
-        self._refuse()
+        bucket, key = self._split(url)
+        backend = self._backend(headers)
+        if offset or length > 0:
+            if length > 0:
+                range_ = (offset, offset + length - 1)
+            else:
+                total = backend.get_object_metadata(bucket, key).content_length
+                if offset >= total:
+                    return
+                range_ = (offset, total - 1)
+            data = backend.get_object(bucket, key, range_=range_)
+        else:
+            data = backend.get_object(bucket, key)
+        for i in range(0, len(data), _CHUNK):
+            yield data[i : i + _CHUNK]
 
     def list_entries(self, url: str, headers: dict | None = None) -> list[URLEntry]:
-        self._refuse()
+        """Direct children of `s3://bucket/prefix/`: object keys under the
+        prefix collapse at the next '/' (dirs are synthesized the way every
+        object-store console does — they don't exist server-side)."""
+        parts = urllib.parse.urlsplit(url)
+        bucket = parts.netloc
+        prefix = urllib.parse.unquote(parts.path.lstrip("/"))
+        if prefix and not prefix.endswith("/"):
+            prefix += "/"
+        backend = self._backend(headers)
+        base = f"{self.scheme}://{bucket}/" + urllib.parse.quote(prefix)
+        seen: dict[str, URLEntry] = {}
+        for meta in backend.get_object_metadatas(bucket, prefix=prefix):
+            rest = meta.key[len(prefix):]
+            if not rest:
+                continue
+            name, sep, _ = rest.partition("/")
+            is_dir = bool(sep)
+            if name not in seen:
+                seen[name] = URLEntry(
+                    url=base + urllib.parse.quote(name) + ("/" if is_dir else ""),
+                    name=name,
+                    is_dir=is_dir,
+                )
+        return list(seen.values())
 
 
 # ----------------------------------------------------------------- hdfs

@@ -8,8 +8,7 @@ requests) and file:// in this module; s3/oss/obs (signed vendor HTTP),
 hdfs (WebHDFS), and oras (OCI pull) in `object_sources.py`, registered
 lazily on first lookup.
 
-Port of dragonfly2_tpu/client/source.py, whole; the s3/oss/obs clients
-it registers raise naming ROADMAP A9 part 3a (object_sources.py).
+Port of dragonfly2_tpu/client/source.py, whole.
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ differs:
   jax async dispatch becomes stream-ordered launches: a chunk's dispatch
   never reads a tensor back, its drain makes the one read-back
   (``_to_host``);
-- nothing compiles, so ``warmup`` runs each bucket's program once and
-  drains no cost cards; the ml shadow arm's readiness gate
+- nothing compiles, so ``warmup`` runs each bucket's program once, then
+  drains the cost cards those calls noted (telemetry/costcard.py replays
+  each new signature on zeros and counts it); the ml shadow arm's readiness gate
   (``_shadow_ml_ready``) and its background warm thread
   (``eval-warmup-shadow``) stay, so the shadow arm starts on the tick the
   reference's does;
@@ -22,7 +23,7 @@ differs:
 - ``algorithm="plugin"`` loads the evaluator plugin (utils/plugins.py)
   and hands it the same numpy feature dict as the reference does: it
   scores on the host, then filtering and top-k run on the service's
-  device; ``flight_dump`` raises naming its ROADMAP item (A10).
+  device.
 
 Capability parity with scheduler/service/service_v2.go (AnnouncePeer
 dispatch :89-204, handleRegisterPeerRequest :820 with size-scope fast
@@ -1286,9 +1287,13 @@ class SchedulerService:
         if warm_ml_shadow:
             with self.mu:
                 self._shadow_ml_ready = True
-        # The reference drains its cost-card captures here (the one-time
-        # duplicate compile per bucket signature). PyTorch compiles
-        # nothing, so there is nothing to drain.
+        # Drain the cost-card captures the bucket calls just queued
+        # (telemetry/costcard.py): warmup is ALREADY the designed blocking
+        # cold-start phase, so the one replay per new signature lands
+        # here — never on a serving tick.
+        from dragonfly2_tpu_torch.telemetry import costcard
+
+        costcard.capture_pending()
 
     def _ensure_shadow_warm(self) -> None:
         """Spawn the one-shot background warm of the ml shadow entry
@@ -2994,9 +2999,11 @@ class SchedulerService:
         an operator can diagnose a slow tick without re-running the
         bench. `sections`/`max_bytes` bound the payload
         (telemetry/flight.DUMP_SECTIONS / DUMP_MAX_BYTES)."""
-        raise NotImplementedError(
-            "flight_dump needs the flight recorder's dump (cost cards, timelines, "
-            "tail tracers), not ported yet (ROADMAP A10)")
+        from dragonfly2_tpu_torch.telemetry import flight
+
+        kwargs = {} if max_bytes is None else {"max_bytes": max_bytes}
+        return flight.dump(last_n=last_n, recorder=self.recorder,
+                           sections=sections, **kwargs)
 
     def serving_graph_arrays(self, consume_frontier: bool = True) -> dict:
         """Host graph for MLEvaluator.refresh_embeddings, built from this

@@ -25,9 +25,12 @@ What differs from the reference:
   device.py's error unless it is given `--device cpu`; nothing falls back.
   The dfdaemon takes none: it does no tensor work and imports no torch,
   so a machine runs many daemons beside a scheduler on the card.
-- `--registry-dir` opens the port's filesystem ModelRegistry (the bucket
-  layout, registry/registry.py), and the scheduler serves its gnn, mlp
-  and attention versions through ModelServers built from their modules.
+- `--registry-dir` goes through registry/bucket.py ``open_registry``, as
+  the reference's: a path opens the port's filesystem ModelRegistry (the
+  bucket layout, registry/registry.py), an ``s3://``/``oss://``/``obs://``
+  URL the bucket registry over the signed backend; the scheduler serves
+  its gnn, mlp and attention versions through ModelServers built from
+  their modules.
 - `--network-topology-collect-interval` (scheduler): seconds between
   snapshots of the probe graph into the trace storage, the Go
   scheduler's networkTopology collect ticker (network_topology.go:124-138,
@@ -44,9 +47,8 @@ What differs from the reference:
   requires it): it then takes its first scheduler list from the manager
   before it starts, as the Go dfdaemon's dynconfig loads at construction
   (client/daemon.py).
-- the dfdaemon's `--object-storage` exits non-zero with a message naming
-  ROADMAP A9 part 3a (the object-storage service). A megascale
-  `--scenario` (the lab's specs, ROADMAP A11) exits non-zero naming A11.
+- a dfdaemon's megascale `--scenario` (the lab's specs, ROADMAP A11)
+  exits non-zero naming A11.
 """
 
 from __future__ import annotations
@@ -58,12 +60,6 @@ import logging
 import os
 import signal
 import sys
-
-NOT_PORTED = {
-    "--object-storage": "--object-storage needs the daemon's object-storage service "
-                        "(objectstorage/service.py), not ported yet (ROADMAP A9 part 3a)",
-}
-
 
 # the megascale lab's scenario specs (the reference's megascale_scenarios),
 # which a dfdaemon's --scenario may name there
@@ -221,13 +217,13 @@ async def _serve_scheduler(args) -> int:
         from dragonfly2_tpu_torch.cluster.trainer_service import (
             ATTENTION_MODEL_NAME, GNN_MODEL_NAME, MLP_MODEL_NAME,
         )
-        from dragonfly2_tpu_torch.registry import ModelRegistry, ModelServer
+        from dragonfly2_tpu_torch.registry import ModelServer, open_registry
         from dragonfly2_tpu_torch.registry.registry import (
             MODEL_TYPE_ATTENTION, MODEL_TYPE_GNN, MODEL_TYPE_MLP,
         )
         from dragonfly2_tpu_torch.rpc.inference import InferenceRPCServer
 
-        registry = ModelRegistry(args.registry_dir)
+        registry = open_registry(args.registry_dir)
         servers = {
             name: ModelServer(registry, name, sched_host_id, mtype, device=device)
             for name, mtype in (
@@ -436,7 +432,7 @@ async def _serve_trainer(args) -> int:
     from dragonfly2_tpu_torch.cluster.trainer_service import TrainerService
     from dragonfly2_tpu_torch.config.config import Config
     from dragonfly2_tpu_torch.records.storage import HostTraceStorage
-    from dragonfly2_tpu_torch.registry import ModelRegistry
+    from dragonfly2_tpu_torch.registry import open_registry
     from dragonfly2_tpu_torch.rpc.server import TrainerRPCServer
 
     device = _device(args)
@@ -445,7 +441,7 @@ async def _serve_trainer(args) -> int:
         config.trainer.epochs = args.epochs
     service = TrainerService(
         HostTraceStorage(args.data_dir),
-        ModelRegistry(args.registry_dir),
+        open_registry(args.registry_dir),
         config.trainer,
         device=device,
     )
@@ -470,10 +466,10 @@ async def _serve_manager(args) -> int:
     from dragonfly2_tpu_torch.manager.service import ManagerService
 
     registry = None
-    if args.registry_dir:  # the port's filesystem ModelRegistry (bucket layout)
-        from dragonfly2_tpu_torch.registry import ModelRegistry
+    if args.registry_dir:  # a path or a <vendor>://bucket/prefix?endpoint=... URL
+        from dragonfly2_tpu_torch.registry import open_registry
 
-        registry = ModelRegistry(args.registry_dir)
+        registry = open_registry(args.registry_dir)
     _wire_otlp(args, "manager")
     db = Database(args.db)
 
@@ -563,11 +559,29 @@ def _fault_injector(args):
     return FaultInjector(specs[args.scenario], seed=args.scenario_seed)
 
 
+def _object_storage_options(args) -> dict | None:
+    if not args.object_storage_endpoint:
+        return None
+    access = os.environ.get("DRAGONFLY_OBJ_ACCESS_KEY", "")
+    secret = os.environ.get("DRAGONFLY_OBJ_SECRET_KEY", "")
+    if not access or not secret:
+        # empty creds would boot cleanly and then fail EVERY request with
+        # vendor signature errors — refuse at startup with the real cause
+        raise SystemExit(
+            "--object-storage-endpoint needs DRAGONFLY_OBJ_ACCESS_KEY and "
+            "DRAGONFLY_OBJ_SECRET_KEY in the environment"
+        )
+    return {
+        "endpoint": args.object_storage_endpoint,
+        "access_key": access,
+        "secret_key": secret,
+        "region": args.object_storage_region,
+    }
+
+
 async def _serve_dfdaemon(args) -> int:
     from dragonfly2_tpu_torch.client.daemon import Daemon
 
-    if args.object_storage:
-        raise SystemExit(f"dfdaemon: {NOT_PORTED['--object-storage']}")
     if not args.scheduler and not args.manager:
         raise SystemExit("dfdaemon: give --scheduler (repeatable) or --manager")
     injector = _fault_injector(args)
@@ -581,6 +595,9 @@ async def _serve_dfdaemon(args) -> int:
         idc=args.idc,
         location=args.location,
         probe_interval=args.probe_interval,
+        object_storage=args.object_storage,
+        object_storage_backend=args.object_storage_backend,
+        object_storage_options=_object_storage_options(args),
         proxy=args.proxy,
         proxy_rules=_proxy_rules(args.proxy_rule or []),
         registry_mirror=args.registry_mirror,
@@ -597,6 +614,8 @@ async def _serve_dfdaemon(args) -> int:
         ready += f" PROXY {daemon.proxy.port}"
     if daemon.sni_proxy is not None:
         ready += f" SNI {daemon.sni_proxy.port}"
+    if daemon.object_storage is not None:
+        ready += f" OBJSTORE {daemon.object_storage.port}"
     try:
         async with _monitored(args, ready) as line:
             await _run_until_signalled(line)
@@ -733,8 +752,13 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--idc", default="")
     d.add_argument("--location", default="")
     d.add_argument("--probe-interval", type=float, default=0.0)
-    d.add_argument("--object-storage", action="store_true",
-                   help="refused: the object-storage service is ROADMAP A9 part 3a")
+    d.add_argument("--object-storage", action="store_true")
+    d.add_argument("--object-storage-backend", default="fs",
+                   choices=("fs", "s3", "oss", "obs"))
+    d.add_argument("--object-storage-endpoint", default="",
+                   help="vendor endpoint for s3/oss/obs (credentials via "
+                   "DRAGONFLY_OBJ_ACCESS_KEY / DRAGONFLY_OBJ_SECRET_KEY env)")
+    d.add_argument("--object-storage-region", default="")
     d.add_argument("--proxy", action="store_true",
                    help="serve the HTTP(S) forward proxy listener")
     d.add_argument("--registry-mirror", default="",

@@ -1,8 +1,7 @@
 """Manager: the control plane (SURVEY.md §2.2).
 
-Port of dragonfly2_tpu/manager/, whole but for the flight-recorder
-route's dump (ROADMAP A10). It imports no torch until a model registry
-is attached: the control plane drives no device program.
+Port of dragonfly2_tpu/manager/, whole. It imports no torch until a
+model registry is attached: the control plane drives no device program.
 
 Capability parity with manager — REST + RPC control plane,
 RBAC, searcher, jobs, model lifecycle — rebuilt host-side in Python around

@@ -1,7 +1,6 @@
 """Manager REST API.
 
-Port of dragonfly2_tpu/manager/rest.py, whole but for the flight-recorder route, which
-answers 501 naming ROADMAP A10 as /debug/flight does.
+Port of dragonfly2_tpu/manager/rest.py, whole.
 
 Capability parity with manager/router/router.go:101-246 + manager/handlers
 (gin): `/api/v1` groups — users (signup/signin/refresh_token/reset_password/
@@ -199,10 +198,7 @@ class ManagerREST:
                 last_n = min(max(int(req.query.get("last_n", 64) or 64), 1), 4096)
             except ValueError:
                 return 400, {"error": "last_n must be an integer"}
-            try:
-                return 200, self.service.flight_recorder(last_n)
-            except NotImplementedError as e:
-                return 501, {"error": str(e)}
+            return 200, self.service.flight_recorder(last_n)
         if group == "models" and method == "PATCH" and len(parts) == 1:
             return self._update_model(req)
         if group == "personal-access-tokens":

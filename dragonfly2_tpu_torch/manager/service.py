@@ -397,12 +397,32 @@ class ManagerService:
 
     def flight_recorder(self, last_n: int = 64) -> dict:
         """Flight-recorder dump for the operator (GET /api/v1/
-        flight-recorder): this manager's recorder state plus every known
-        scheduler's. Needs the flight recorder's dump, not ported yet, so
-        it raises naming ROADMAP A10, as the schedulers' flight_dump does."""
-        from dragonfly2_tpu_torch.telemetry.metrics import FLIGHT_NOT_PORTED
+        flight-recorder): this manager process's own recorder state plus
+        every known scheduler's, collected over the same job RPC edge
+        sync_peers uses (RemoteScheduler) or directly from in-proc
+        services. A dead scheduler contributes an error entry, never a
+        failed request — diagnosing a slow tick is exactly when parts of
+        the cluster may be unhealthy."""
+        from dragonfly2_tpu_torch.telemetry import flight
 
-        raise NotImplementedError(FLIGHT_NOT_PORTED)
+        # registry_fallback=False: with an in-proc scheduler the global
+        # recorder lookup would attribute ITS tick ring to the manager,
+        # duplicating the per-scheduler sections below under a wrong label
+        out: dict = {
+            "manager": flight.dump(last_n=last_n, registry_fallback=False),
+            "schedulers": {},
+        }
+        self._refresh_job_schedulers()
+        if self.jobs is not None:
+            for name, sched in self.jobs.schedulers.items():
+                try:
+                    if hasattr(sched, "flight_recorder"):
+                        out["schedulers"][name] = sched.flight_recorder(last_n)
+                    elif hasattr(sched, "flight_dump"):
+                        out["schedulers"][name] = sched.flight_dump(last_n)
+                except ConnectionError as e:
+                    out["schedulers"][name] = {"error": str(e)}
+        return out
 
     # ----------------------------------------------------------------- jobs
 

@@ -1,9 +1,11 @@
 """Object-storage backends behind one interface.
 
 Port of dragonfly2_tpu/objectstorage/backends.py (capability parity with
-pkg/objectstorage/objectstorage.go:206-211): the filesystem backend only —
-buckets are directories, objects are files — which the model registry's
-bucket layout rides. The signed vendor backends are not ported yet.
+pkg/objectstorage/objectstorage.go:206-211 — the ObjectStorage interface:
+bucket CRUD, object CRUD, metadata, existence, sign URLs, with per-vendor
+constructors). The filesystem backend is the local store (the model
+registry's bucket, tests); ``s3``/``oss``/``obs`` speak the vendor HTTP
+dialect through objectstorage/remote.py, signed with stdlib hmac.
 """
 
 from __future__ import annotations
@@ -198,18 +200,27 @@ def _etag_of(path: pathlib.Path) -> str:
     return etag
 
 
+_VENDORS = ("s3", "oss", "obs")
+
+
 def new_backend(name: str, base_dir: str | pathlib.Path | None = None, **options):
     """pkg/objectstorage New(): vendor dispatch (objectstorage.go:205-212).
-    Only ``fs``, the local store, is ported; the signed ``s3``/``oss``/``obs``
-    HTTP backends (dragonfly2_tpu/objectstorage/remote.py) are not yet."""
+    `fs` is the local store; `s3`/`oss`/`obs` speak the vendor HTTP dialect
+    directly (signed with stdlib hmac — no SDKs) and need endpoint +
+    access_key + secret_key options."""
     if name == "fs":
         if base_dir is None:
             raise dferrors.InvalidArgument("fs backend needs base_dir")
         return FilesystemBackend(base_dir)
-    if name in ("s3", "oss", "obs"):
-        raise NotImplementedError(
-            f"object-storage vendor {name!r} is not ported to the torch package yet"
-        )
+    if name in _VENDORS:
+        if not options.get("endpoint"):
+            raise dferrors.Unavailable(
+                f"object-storage vendor {name!r} needs endpoint/access_key/"
+                "secret_key options (no ambient cloud credentials here)"
+            )
+        from dragonfly2_tpu_torch.objectstorage.remote import new_remote_backend
+
+        return new_remote_backend(name, **options)
     raise dferrors.InvalidArgument(f"unknown object storage name {name!r}")
 
 

@@ -456,11 +456,14 @@ def schedule_from_packed(buf, b: int, k: int, c: int, l: int, n: int,
 
 # Call and signature counters (telemetry/flight.py), as the reference
 # instruments its jitted entry; nothing here waits for the device, so the
-# pipelined tick keeps its overlap.
+# pipelined tick keeps its overlap. costcards: each new bucket signature
+# queues a cost card (telemetry/costcard.py), counted at the next warmup
+# or /debug/flight drain, never in the tick.
 from dragonfly2_tpu_torch.telemetry.flight import instrument_entry as _instrument_entry  # noqa: E402
 
 schedule_from_packed = _instrument_entry(
-    schedule_from_packed, "evaluator.schedule_from_packed", service="scheduler"
+    schedule_from_packed, "evaluator.schedule_from_packed", service="scheduler",
+    costcards=True,
 )
 
 def find_success_parent(feats: dict, blocklist=None, in_degree=None, can_add_edge=None,

@@ -86,6 +86,7 @@ import torch.nn.functional as F
 
 from dragonfly2_tpu_torch.ops import build
 from dragonfly2_tpu_torch.parallel.ring import dense_attention
+from dragonfly2_tpu_torch.telemetry import costcard as _costcard
 
 HEAD_DIMS = (16, 32, 64, 128)  # the mma.sync and Hopper instances
 # the wide instances take any D above HEAD_DIMS[-1] with D % 8 == 0; their
@@ -200,7 +201,31 @@ def _kernel(kind: str, q, *args):
     outputs = _launch(name, q, *args, warps_for(l))
     if q.numel():
         _count(*counters)
+        if _costcard.COUNTING:
+            _count_cost(kind, name, q, args, outputs)
     return outputs
+
+
+def _count_cost(kind: str, name: str, q, args, outputs) -> None:
+    """A launch inside a cost-card count (telemetry/costcard.py) adds its
+    PERF.md §6 bound: ``KERNEL_OPS_PER_PAIR[kind]`` · D operations a
+    (query, key) pair this call's mask and causality leave valid, and its
+    inputs read and outputs written once. The count is worked out outside
+    the counting mode."""
+    count = _costcard.active_count()
+    if count is None:
+        return
+    with _costcard.uncounted():
+        b, h, l, d = q.shape
+        if kind in ("dkv", "dq"):  # (k, v, do, lse, delta, kv_mask, causal, scale)
+            kv_mask, causal = args[5], args[6]
+        else:  # (k, v, kv_mask, causal, scale), partial without causal
+            kv_mask, causal = args[2], kind != "partial" and args[3]
+        pairs = h * int(_valid_pairs(kv_mask, causal, b, l, q.device).sum())
+        outs = outputs if isinstance(outputs, (tuple, list)) else (outputs,)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (q, *args, *outs) if isinstance(t, torch.Tensor))
+    count.kernel(name, _costcard.KERNEL_OPS_PER_PAIR[kind] * d * pairs, nbytes)
 
 
 def _count(*counters: str) -> None:

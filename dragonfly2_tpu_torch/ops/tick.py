@@ -565,11 +565,27 @@ def warm_scatters(state, dag_capacity: int, device=None) -> None:
             _scatter_rows(torch.zeros(shape, dtype=dt, device=dev), idx, rows)
 
 
+def _chunk_key(inbuf, cols, b, k, c, l, n, algorithm="default",
+               limit=CONSTANTS.CANDIDATE_PARENT_LIMIT, emit_led=True, emit_packed=False):
+    """fused_tick_chunk's call signature for its entry wrapper without
+    hashing every column each call: the staging buffer, the columns that
+    carry the state's dimensions (every other column is [max_hosts] or
+    [max_tasks], of a dtype that TickMirror.sync and warm_cols fix) and
+    the statics."""
+    ps = cols["peer_scalars"]
+    return (type(inbuf), tuple(inbuf.shape), ps.shape, ps.device, cols["peer_ring"].shape,
+            cols["slot_pidx"].shape, cols["qmask"].shape, cols["host_location"].shape,
+            cols["host_numeric"].shape, b, k, c, l, n, algorithm, limit, emit_led, emit_packed)
+
+
 # Call and signature counters (telemetry/flight.py), as the reference
-# instruments its jitted entries; nothing here waits for the device.
+# instruments its jitted entries; nothing here waits for the device. The
+# fused program keeps cost cards (telemetry/costcard.py): warmup's drain
+# counts each bucket's signature on zeros; _chunk_key spots a new one.
 from dragonfly2_tpu_torch.telemetry.flight import instrument_entry as _instrument_entry  # noqa: E402
 
 fused_tick_chunk = _instrument_entry(
-    fused_tick_chunk, "tick.fused_tick_chunk", service="scheduler"
+    fused_tick_chunk, "tick.fused_tick_chunk", service="scheduler", costcards=True,
+    key=_chunk_key,
 )
 _scatter_rows = _instrument_entry(_scatter_rows, "tick.scatter_rows", service="scheduler")

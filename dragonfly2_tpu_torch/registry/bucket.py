@@ -30,11 +30,12 @@ Key layout under an optional prefix:
 Port of dragonfly2_tpu/registry/bucket.py with the same blob layout.
 Params are encoded and decoded by utils/flax_msgpack.py, byte for byte the
 layout flax.serialization writes, so a version published by either package
-loads in the other. `open_registry` opens ``fs://bucket/prefix?base_dir=``
-here and a plain path as the filesystem ``ModelRegistry``
+loads in the other. `open_registry` opens a ``<vendor>://bucket/prefix?endpoint=...``
+URL (s3, oss, obs over the signed remote backend, or ``fs://`` with
+``base_dir``) here and a plain path as the filesystem ``ModelRegistry``
 (registry/registry.py: this registry over the filesystem backend, params
-in this layout, not orbax's); the signed vendor buckets are not ported
-yet.
+in this layout, not orbax's), so every ``--registry-dir`` flag accepts
+either.
 """
 
 from __future__ import annotations
@@ -318,9 +319,11 @@ def _check_against_template(template: Any, tree: Any, path: str = "") -> None:
 def open_registry(spec) -> BucketModelRegistry:
     """Dispatch a --registry-dir value: a plain path opens the filesystem
     ``ModelRegistry`` (registry/registry.py; params in the bucket layout);
-    ``fs://bucket/prefix?base_dir=DIR`` opens the bucket registry over the
-    filesystem backend. The s3/oss/obs URLs are not ported yet and raise
-    NotImplementedError."""
+    a ``s3://bucket/prefix?endpoint=H:P&access_key=AK&secret_key=SK
+    [&region=R][&virtual_hosted=1]`` (or oss://, obs://) URL opens the
+    bucket registry over the signed remote backend;
+    ``fs://bucket/prefix?base_dir=DIR`` uses the filesystem backend through
+    the same blob layout."""
     spec = str(spec)
     if "://" not in spec:
         from dragonfly2_tpu_torch.registry.registry import ModelRegistry
@@ -330,7 +333,15 @@ def open_registry(spec) -> BucketModelRegistry:
     q = {k: v[-1] for k, v in urllib.parse.parse_qs(u.query).items()}
     bucket = u.netloc
     prefix = u.path.strip("/")
-    if u.scheme != "fs":
-        raise NotImplementedError(f"{u.scheme}:// registries are not ported yet")
-    backend = new_backend("fs", base_dir=q.get("base_dir", "."))
+    if u.scheme == "fs":
+        backend = new_backend("fs", base_dir=q.get("base_dir", "."))
+    else:
+        backend = new_backend(
+            u.scheme,
+            endpoint=q.get("endpoint", ""),
+            access_key=q.get("access_key", ""),
+            secret_key=q.get("secret_key", ""),
+            region=q.get("region", ""),
+            virtual_hosted=q.get("virtual_hosted", "") in ("1", "true"),
+        )
     return BucketModelRegistry(backend, bucket, prefix)

@@ -933,11 +933,16 @@ def _gnn_embed_subset(model, table, node_feats, edge_src, edge_dst, edge_feats,
 
 # Call and signature counters (telemetry/flight.py) on the ml serving
 # entry points, under the reference's names: the ml tick call and the
-# embedding refresh programs. Nothing here waits for the device.
+# embedding refresh programs. Nothing here waits for the device. Each
+# keeps cost cards (telemetry/costcard.py): a pending note holds shapes and
+# a weak reference to the model, so it cannot pin a params or table
+# snapshot, and the capture drains off the hot path.
 from dragonfly2_tpu_torch.telemetry.flight import instrument_entry as _instrument_entry  # noqa: E402
 
 _ml_schedule_from_packed = _instrument_entry(
-    _ml_schedule_from_packed, "ml.schedule_from_packed", service="scheduler"
+    _ml_schedule_from_packed, "ml.schedule_from_packed", service="scheduler", costcards=True,
 )
-_gnn_embed = _instrument_entry(_gnn_embed, "ml.embed_hosts", service="scheduler")
-_gnn_embed_subset = _instrument_entry(_gnn_embed_subset, "ml.embed_subset", service="scheduler")
+_gnn_embed = _instrument_entry(_gnn_embed, "ml.embed_hosts", service="scheduler",
+                               costcards=True)
+_gnn_embed_subset = _instrument_entry(_gnn_embed_subset, "ml.embed_subset",
+                                      service="scheduler", costcards=True)

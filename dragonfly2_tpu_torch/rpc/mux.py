@@ -1,8 +1,6 @@
 """Single-port multiplexing of the wire protocol and plain HTTP.
 
-Port of dragonfly2_tpu/rpc/mux.py, whole but for ``/debug/flight``: the
-flight recorder's dump is ROADMAP A10, so the route answers 501 with an
-error that names it (never a partial dump).
+Port of dragonfly2_tpu/rpc/mux.py, whole.
 
 Capability parity with pkg/rpc's mux listener (mux.go — one TCP port
 serving both gRPC and HTTP health/debug traffic) and pkg/rpc/health (the
@@ -15,7 +13,8 @@ occur on the trainer upload path, which never fronts a mux).
 
 HTTP side serves `/healthz` (liveness — the health RPC's HTTP twin),
 `/metrics` (Prometheus text), `/debug/health` (telemetry/slo.py's health
-verdict) and `/debug/flight` (see above). The wire
+verdict) and `/debug/flight` (the process's flight-recorder dump,
+telemetry/flight.py, with `parse_flight_query`'s sections and max_bytes). The wire
 side also answers `HealthCheckRequest` → SERVING on every server that
 registers it.
 """
@@ -218,9 +217,22 @@ class MuxServer:
             elif path == "/metrics" and self.metrics_registry is not None:
                 status, body = 200, self.metrics_registry.expose().encode()
             elif path == "/debug/flight":
-                from dragonfly2_tpu_torch.telemetry.metrics import FLIGHT_NOT_PORTED
+                import json
 
-                status, body = 501, FLIGHT_NOT_PORTED.encode()
+                from dragonfly2_tpu_torch.telemetry import flight
+
+                try:
+                    kwargs = flight.parse_flight_query(query)
+                except ValueError as e:
+                    status, body = 400, str(e).encode()
+                else:
+                    doc = flight.dump(**kwargs)
+                    # compact separators: the dump's max_bytes cap is
+                    # measured against compact JSON — default separators
+                    # would overshoot the promised bound by ~20%
+                    status, body = 200, json.dumps(
+                        doc, separators=(",", ":"), default=str
+                    ).encode()
             elif path == "/debug/health":
                 import json
 
@@ -248,7 +260,7 @@ class MuxServer:
                 status, body = 404, b"not found"
             reason = {
                 200: "OK", 400: "Bad Request", 404: "Not Found",
-                501: "Not Implemented", 503: "Service Unavailable",
+                503: "Service Unavailable",
             }[status]
             writer.write(
                 f"HTTP/1.1 {status} {reason}\r\nContent-Length: {len(body)}\r\n"

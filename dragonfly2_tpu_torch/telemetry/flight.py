@@ -1,5 +1,5 @@
-"""Hot-loop flight recorder: in-product phase timing and device-entry
-call accounting.
+"""Hot-loop flight recorder: in-product phase timing, device-entry call
+accounting and the operator-facing dump.
 
 Port of dragonfly2_tpu/telemetry/flight.py. ``PhaseRecorder`` lives
 inside the scheduler's tick (cluster/scheduler.py), keeping a ring of the
@@ -7,13 +7,19 @@ last-N per-phase wall-time breakdowns and feeding the Prometheus phase
 histogram, so bench numbers and production metrics read one source.
 ``instrument_entry`` wraps the port's device entry points
 (ops/evaluator.py ``schedule_from_packed``, ops/tick.py
-``fused_tick_chunk`` and the mirror scatter) to count calls, and
-distinct call signatures when ``TRACK_SIGNATURES`` is on; it stands in
-for the reference's ``instrument_jit``. PyTorch runs eagerly, so a new
-signature is no compile here: it only says which bucket shapes the
-service reached. The wrapper never synchronises with the device (the
-tick's dispatch must not). The reference's ``dump`` (with its cost
-cards, timelines and tail tracers) is not ported yet.
+``fused_tick_chunk`` and the mirror scatter, the ml arm's entries in
+registry/serving.py, the trainer's epochs) to count calls, and distinct
+call signatures when ``TRACK_SIGNATURES`` is on or the wrapper keeps cost
+cards; it stands in for the reference's ``instrument_jit``. PyTorch runs
+eagerly, so a new signature is no compile here: it says which bucket
+shapes the service reached, and with ``costcards=True`` it queues the
+signature's cost card (telemetry/costcard.py). The wrapper never
+synchronises with the device (the tick's dispatch must not). ``dump()``
+assembles the snapshot (last-N ticks, entry counters, open spans, cost
+cards, timelines, decision ledgers, SLO engines, tail tracers) served
+over the scheduler wire RPC (FlightRecorderRequest), the manager REST
+surface (GET /api/v1/flight-recorder) and the mux/monitor HTTP debug
+routes (``/debug/flight``).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from collections import deque
 
 from dragonfly2_tpu_torch.telemetry import metrics as _metrics
 from dragonfly2_tpu_torch.telemetry import series as _series
+from dragonfly2_tpu_torch.telemetry.tracing import default_tracer
 
 # module-level binding: mark() runs up to 7x per tick in the scheduler's
 # hot loop; the attribute chain lookup is measurable at that cadence
@@ -216,35 +223,61 @@ _wrappers_mu = threading.Lock()
 TRACK_SIGNATURES = False
 
 
+_STATICS = (type(None), bool, int, float, str, bytes)
+# a module argument's signature (its class and parameter shapes), cached
+# weakly: a signature must never keep a model version alive
+_MODULE_SIGS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
 def _sig_of(v) -> object:
     """Hashable call-signature component: tensors and arrays collapse to
-    (shape, dtype, device), containers recurse, hashable statics ride as
-    themselves, everything else degrades to its type."""
+    (shape, dtype, device), a module to its class and parameter shapes,
+    containers recurse, plain statics (and torch's dtypes and devices)
+    ride as themselves, everything else degrades to its type — never the
+    object itself, which the signature set would keep alive."""
     shape = getattr(v, "shape", None)
     dtype = getattr(v, "dtype", None)
     if shape is not None and dtype is not None:
-        return ("arr", tuple(shape), str(dtype), str(getattr(v, "device", "cpu")))
+        return ("arr", tuple(shape), dtype, getattr(v, "device", None))
     if isinstance(v, dict):
         return ("dict", tuple((k, _sig_of(x)) for k, x in sorted(v.items())))
     if isinstance(v, (list, tuple)):
         return ("seq", tuple(_sig_of(x) for x in v))
-    try:
-        hash(v)
-    except TypeError:
-        return ("type", type(v).__name__)
-    return v
+    if isinstance(v, _STATICS) or type(v).__module__ == "torch":
+        return v
+    if callable(getattr(v, "named_parameters", None)):
+        sig = _MODULE_SIGS.get(v)
+        if sig is None:
+            sig = _MODULE_SIGS[v] = ("module", type(v).__name__, tuple(
+                (name, tuple(p.shape), p.dtype) for name, p in v.named_parameters()))
+        return sig
+    return ("type", type(v).__name__)
 
 
 class EntryWrapper:
     """Callable wrapper around one device entry point: counts its calls,
-    and with TRACK_SIGNATURES on its distinct call signatures (``_seen``;
-    a new signature counts in the ``retraces`` family the reference's jit
-    wrapper feeds). Unknown attributes forward to the wrapped function."""
+    and with TRACK_SIGNATURES on or ``costcards`` its distinct call
+    signatures (``_seen``; a new signature counts in the ``retraces``
+    family the reference's jit wrapper feeds). Unknown attributes forward
+    to the wrapped function."""
 
-    def __init__(self, fn, name: str, service: str = "scheduler", registry=None):
+    def __init__(self, fn, name: str, service: str = "scheduler", registry=None,
+                 costcards: bool = False, key=None):
         self.__wrapped__ = fn
         self.name = name
         self.service = service
+        # ``key(*args, **kwargs)``: a cheap hashable stand-in for the call
+        # signature, for an entry on the tick whose arguments are too many
+        # to hash whole every call; it must change wherever the signature
+        # does. A key already in ``_keyed`` skips the hashing; a new one
+        # hashes the call once into ``_seen``. None hashes every call.
+        self._key = key
+        self._keyed: set = set()
+        # cost-card capture (telemetry/costcard.py): a NEW signature queues
+        # a pending note (shapes, dtypes, devices; no live tensor); the
+        # replay that counts it runs at the next off-hot-path drain
+        # (warmup / flight dump). Opt-in per wrapper: the serving entries.
+        self._costcards = costcards
         self._seen: set = set()
         self._mu = threading.Lock()
         reg = registry if registry is not None else _metrics.default_registry()
@@ -258,15 +291,38 @@ class EntryWrapper:
 
     def __call__(self, *args, **kwargs):
         self._calls.inc()
-        if TRACK_SIGNATURES:
-            sig = (_sig_of(args), _sig_of(tuple(sorted(kwargs.items(), key=lambda kv: kv[0]))))
-            with self._mu:
-                new = sig not in self._seen
-                if new:
-                    self._seen.add(sig)
-                    self._retraces.inc()
-                    self._cache.set(len(self._seen))
-        return self.__wrapped__(*args, **kwargs)
+        new = False
+        if TRACK_SIGNATURES or self._costcards:
+            key = None if self._key is None else self._key(*args, **kwargs)
+            if key is None or key not in self._keyed:
+                sig = (_sig_of(args),
+                       _sig_of(tuple(sorted(kwargs.items(), key=lambda kv: kv[0]))))
+                with self._mu:
+                    if key is not None:
+                        self._keyed.add(key)
+                    new = sig not in self._seen
+                    if new:
+                        self._seen.add(sig)
+                        self._retraces.inc()
+                        self._cache.set(len(self._seen))
+        out = self.__wrapped__(*args, **kwargs)
+        if new and self._costcards:
+            self._note_costcard(args, kwargs)
+        return out
+
+    def _note_costcard(self, args, kwargs) -> None:
+        """Queue a cost-card capture for this new signature: the note
+        keeps the arguments' shapes, dtypes and devices and the UNWRAPPED
+        function, so the eventual replay routes no call or signature
+        through this wrapper."""
+        try:
+            from dragonfly2_tpu_torch.telemetry import costcard
+
+            costcard.ledger().note_pending(
+                f"{self.service}.{self.name}", self.__wrapped__, args, kwargs
+            )
+        except Exception:  # noqa: BLE001 - telemetry must not break calls
+            pass
 
     def __getattr__(self, item: str):
         return getattr(self.__wrapped__, item)
@@ -279,12 +335,15 @@ class EntryWrapper:
 
 
 def instrument_entry(fn, name: str, service: str = "scheduler",
-                     registry=None) -> EntryWrapper:
+                     registry=None, costcards: bool = False, key=None) -> EntryWrapper:
     """Wrap a device entry point with its call counter (and signature
-    counter, under TRACK_SIGNATURES); the
-    families land in `registry` (default: the process default registry)
-    under dragonfly_<service>_jit_*, the reference's names."""
-    return EntryWrapper(fn, name, service=service, registry=registry)
+    counter, under TRACK_SIGNATURES or with ``costcards``; ``key`` as in
+    EntryWrapper); the families land in `registry` (default: the process
+    default registry) under dragonfly_<service>_jit_*, the reference's
+    names. ``costcards=True`` also queues a cost-card capture per new
+    signature (telemetry/costcard.py)."""
+    return EntryWrapper(fn, name, service=service, registry=registry,
+                        costcards=costcards, key=key)
 
 
 def entry_wrappers() -> dict[str, EntryWrapper]:
@@ -297,3 +356,237 @@ def entry_wrappers() -> dict[str, EntryWrapper]:
             else:
                 out[name] = wrapper
     return out
+
+
+# ------------------------------------------------------------------- dump
+
+
+def _plain(value) -> "bool | int | float | str | None":
+    """msgpack/json-safe scalar: pass primitives, stringify the rest."""
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return value
+    return str(value)
+
+
+def _span_summary(span) -> dict:
+    return {
+        "name": span.name,
+        "trace_id": span.trace_id,
+        "span_id": span.span_id,
+        "parent_id": span.parent_id,
+        "start_ns": span.start_ns,
+        "age_ms": round((time.time_ns() - span.start_ns) / 1e6, 3),
+        "attributes": {k: _plain(v) for k, v in span.attributes.items()},
+    }
+
+
+# Every section a dump can carry; `section=` query params and the
+# `sections` kwarg select a subset (ticks/jit/active_spans stay the
+# backward-compatible core — older consumers index them directly).
+DUMP_SECTIONS = (
+    "ticks", "jit", "active_spans", "costcards", "timelines", "decisions",
+    "slo", "tail",
+)
+# Hard payload bound for the HTTP debug surfaces: flight.dump has grown
+# costcards + timelines + decisions on top of the tick ring, and an
+# unbounded /debug/flight pull against a long soak could ship tens of MB
+# through a debug socket. Over the cap, the variable-length rings shed
+# oldest-first and the body carries a `truncated` marker.
+DUMP_MAX_BYTES = 2 << 20
+
+
+def _dump_nbytes(body: dict) -> int:
+    import json
+
+    return len(json.dumps(body, separators=(",", ":"), default=str))
+
+
+def _truncate_dump(body: dict, max_bytes: int) -> dict:
+    """Shrink the dump's ring-backed lists (oldest entries first) until
+    the JSON body fits ``max_bytes``; record what was dropped under the
+    ``truncated`` marker. The scalar sections (jit stats, counters) are
+    bounded by construction and never shed."""
+    dropped: dict[str, int] = {}
+
+    def _lists(b: dict):
+        out = []
+        ticks = b.get("ticks")
+        if isinstance(ticks, dict) and isinstance(ticks.get("last"), list):
+            out.append(("ticks.last", ticks, "last"))
+        for name, tl in (b.get("timelines") or {}).items():
+            if isinstance(tl, dict) and isinstance(tl.get("samples"), list):
+                out.append((f"timelines.{name}.samples", tl, "samples"))
+        for name, led in (b.get("decisions") or {}).items():
+            if isinstance(led, dict) and isinstance(led.get("rows"), list):
+                out.append((f"decisions.{name}.rows", led, "rows"))
+        for name, eng in (b.get("slo") or {}).items():
+            if isinstance(eng, dict) and isinstance(eng.get("alert_log"), list):
+                out.append((f"slo.{name}.alert_log", eng, "alert_log"))
+        for name, tr in (b.get("tail") or {}).items():
+            if isinstance(tr, dict) and isinstance(tr.get("exemplars"), list):
+                out.append((f"tail.{name}.exemplars", tr, "exemplars"))
+        spans = b.get("active_spans")
+        if isinstance(spans, list) and spans:
+            out.append(("active_spans", b, "active_spans"))
+        cards = b.get("costcards")
+        if isinstance(cards, dict) and isinstance(cards.get("cards"), list):
+            out.append(("costcards.cards", cards, "cards"))
+        return out
+
+    while _dump_nbytes(body) > max_bytes:
+        candidates = [
+            (key, holder, field) for key, holder, field in _lists(body)
+            if holder[field]
+        ]
+        if candidates:
+            # shed from the largest list first, oldest half at a time
+            key, holder, field = max(
+                candidates, key=lambda c: len(c[1][c[2]])
+            )
+            lst = holder[field]
+            keep = len(lst) // 2
+            dropped[key] = dropped.get(key, 0) + (len(lst) - keep)
+            holder[field] = lst[-keep:] if keep else []
+            body["truncated"] = {
+                "max_bytes": max_bytes, "dropped": dict(dropped)
+            }
+            continue
+        tails = body.get("tail")
+        if isinstance(tails, dict) and tails:
+            # every ring-backed list is already empty, yet the body still
+            # exceeds the cap: shed whole tail ledgers, largest first.
+            # Unlike every other section, the tail section's scalar floor
+            # grows with the number of LIVE tracers (the daemon singleton
+            # plus one per engine), and the byte cap is a hard promise.
+            name = max(tails, key=lambda n: _dump_nbytes(tails[n]))
+            del tails[name]
+            dropped[f"tail.{name}"] = 1
+            body["truncated"] = {
+                "max_bytes": max_bytes, "dropped": dict(dropped)
+            }
+            continue
+        break  # nothing left to shed; scalar floor
+    return body
+
+
+def parse_flight_query(query: str) -> dict:
+    """``?last_n=&section=&max_bytes=`` → :func:`dump` kwargs — shared
+    by the mux and monitor ``/debug/flight`` routes so the two debug
+    surfaces cannot drift. Raises ValueError with a client-facing
+    message on bad input (the routes answer 400)."""
+    import urllib.parse as _up
+
+    kwargs: dict = {}
+    sections: list[str] = []
+    for key, value in _up.parse_qsl(query or ""):
+        if key == "last_n":
+            try:
+                kwargs["last_n"] = max(int(value), 0)
+            except ValueError:
+                raise ValueError("last_n must be an integer") from None
+        elif key == "section":
+            for name in value.split(","):
+                name = name.strip()
+                if not name:
+                    continue
+                if name not in DUMP_SECTIONS:
+                    raise ValueError(
+                        f"unknown section {name!r}; valid: "
+                        f"{', '.join(DUMP_SECTIONS)}"
+                    )
+                sections.append(name)
+        elif key == "max_bytes":
+            try:
+                # floor keeps the truncation loop meaningful: below ~1k
+                # even the scalar skeleton cannot fit
+                kwargs["max_bytes"] = max(int(value), 1024)
+            except ValueError:
+                raise ValueError("max_bytes must be an integer") from None
+    if sections:
+        kwargs["sections"] = tuple(sections)
+    return kwargs
+
+
+def dump(last_n: int = 64, recorder: PhaseRecorder | None = None,
+         registry_fallback: bool = True,
+         sections: "tuple[str, ...] | list[str] | None" = None,
+         max_bytes: int | None = DUMP_MAX_BYTES) -> dict:
+    """The flight-recorder snapshot: last-N tick phase breakdowns, the
+    device entries' call counters, spans currently open, cost cards, soak
+    timelines, the decision ledger, the SLO engines, and the tail
+    tracers. Pure plain data (dicts/lists/
+    scalars) so it rides the wire codec and JSON as-is.
+    `registry_fallback=False` skips the process-global recorder lookup —
+    a service reporting about ITSELF (the manager's own section) must not
+    claim a co-located scheduler's tick ring as its own.
+    `sections` selects a subset of :data:`DUMP_SECTIONS`; `max_bytes`
+    (None = unbounded) is a hard JSON-size cap enforced by shedding the
+    ring-backed lists oldest-first with a ``truncated`` marker."""
+    want = set(DUMP_SECTIONS if sections is None else sections)
+    body: dict = {"generated_at_ns": time.time_ns()}
+    if "ticks" in want:
+        if recorder is None and registry_fallback:
+            # the scheduler registers under this name; last registration
+            # wins, so a process-wide dump reads the live service's recorder
+            recorder = _live_recorders().get("scheduler.tick")
+        # shape-stable when no recorder exists: consumers index ["last"] /
+        # ["p50_ms"] without guarding a sometimes-empty dict
+        body["ticks"] = (
+            recorder.dump(last_n) if recorder is not None
+            else {"ticks_total": 0, "p50_ms": {}, "last": []}
+        )
+    if "jit" in want:
+        body["jit"] = {
+            name: w.stats() for name, w in sorted(entry_wrappers().items())
+        }
+    if "active_spans" in want:
+        spans = []
+        for span in default_tracer().active_spans():
+            try:
+                spans.append(_span_summary(span))
+            except RuntimeError:
+                continue  # owner thread mutated attributes mid-copy; skip
+        body["active_spans"] = spans
+    # Perf-observatory surfaces (additive keys — older consumers index
+    # only ticks/jit/active_spans): the cost-card ledger, any live soak
+    # timelines, and the decision provenance ledger. A dump is an
+    # operator pulling /debug/flight — an explicitly off-hot-path
+    # moment, so it doubles as a cost-card capture drain (a new
+    # signature queued the note; the replay that counts it lands here or
+    # in warmup).
+    if "costcards" in want:
+        from dragonfly2_tpu_torch.telemetry import costcard as _costcard
+
+        _costcard.ledger().capture_pending()
+        body["costcards"] = _costcard.ledger().dump()
+    if "timelines" in want:
+        from dragonfly2_tpu_torch.telemetry import timeline as _timeline
+
+        body["timelines"] = {
+            name: rec.dump()
+            for name, rec in sorted(_timeline.live_timelines().items())
+        }
+    if "decisions" in want:
+        from dragonfly2_tpu_torch.telemetry import decisions as _decisions
+
+        body["decisions"] = {
+            name: led.dump(last_n=last_n)
+            for name, led in sorted(_decisions.live_ledgers().items())
+        }
+    if "slo" in want:
+        from dragonfly2_tpu_torch.telemetry import slo as _slo
+
+        body["slo"] = {
+            name: eng.dump(last_n=last_n)
+            for name, eng in sorted(_slo.live_engines().items())
+        }
+    if "tail" in want:
+        from dragonfly2_tpu_torch.telemetry import tailtrace as _tailtrace
+
+        body["tail"] = {
+            name: tr.dump(last_n=last_n)
+            for name, tr in sorted(_tailtrace.live_tracers().items())
+        }
+    if max_bytes is not None and _dump_nbytes(body) > max_bytes:
+        body = _truncate_dump(body, max_bytes)
+    return body

@@ -1,8 +1,7 @@
 """Port of dragonfly2_tpu/telemetry/metrics.py: the collectors,
 ``Registry``, ``default_registry`` and the per-service observability HTTP
 server (``serve_metrics``: ``/metrics``, ``/debug/stacks``,
-``/debug/profile``, ``/debug/health``). Its ``/debug/flight`` route
-answers an error naming ROADMAP A10, where the flight recorder's dump is.
+``/debug/profile``, ``/debug/health``, ``/debug/flight``), whole.
 
 Prometheus-compatible metrics: counters, gauges, histograms, with the
 label sets of the reference's per-service metrics packages
@@ -244,11 +243,6 @@ def default_registry() -> Registry:
     return _DEFAULT
 
 
-FLIGHT_NOT_PORTED = (
-    "the flight recorder's dump (/debug/flight) is not ported yet (ROADMAP A10)"
-)
-
-
 def _sample_stacks(seconds: float, interval_s: float = 0.01) -> str:
     """Poor-man's py-spy: aggregate `sys._current_frames()` samples into
     per-frame inclusive counts across all threads."""
@@ -312,8 +306,9 @@ def serve_metrics(registry: Registry | None = None, port: int = 0) -> MonitorSer
       return frames ranked by inclusive sample count (cProfile only sees
       the calling thread; sampling `sys._current_frames()` sees the whole
       process, like the pprof CPU profile does)
-    - `/debug/flight` — answers 501 with FLIGHT_NOT_PORTED: the
-      flight-recorder dump is ROADMAP A10
+    - `/debug/flight` — flight-recorder dump (telemetry/flight.py: last-N
+      tick phase breakdowns, entry call counters, open spans, cost cards)
+      as JSON
     - `/debug/health` — the SLO health verdict plane (telemetry/slo.py:
       ok/degraded/critical with firing-alert causes; 503 on critical)
 
@@ -349,10 +344,21 @@ def serve_metrics(registry: Registry | None = None, port: int = 0) -> MonitorSer
                 seconds = min(max(seconds, 0.1), 30.0)
                 return self._send(_sample_stacks(seconds).encode())
             if path == "/debug/flight":
-                # the flight recorder's dump is not ported (ROADMAP A10):
-                # an error that says so, never a partial dump
-                self.send_error(501, FLIGHT_NOT_PORTED)
-                return
+                import json
+
+                from dragonfly2_tpu_torch.telemetry import flight
+
+                try:
+                    kwargs = flight.parse_flight_query(query)
+                except ValueError as e:
+                    self.send_error(400, str(e))
+                    return
+                # compact separators: the dump's max_bytes cap is
+                # measured against compact JSON
+                body = json.dumps(
+                    flight.dump(**kwargs), separators=(",", ":"), default=str
+                ).encode()
+                return self._send(body, "application/json")
             if path == "/debug/health":
                 import json
 

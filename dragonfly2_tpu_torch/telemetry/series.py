@@ -2,9 +2,9 @@
 scheduler and trainer services export (the scheduler's, the trainer's,
 the decision ledger's, the SLO engine's, the rpc breakers', the device
 entry counters', the ml arm's activation gate's, the dfdaemon's, the
-tail plane's and the manager's), the traffic label values and the version
-gauge. The megascale, cost-card, timeline and process families come with
-their modules.
+tail plane's, the manager's, the cost cards' and the soak timelines'),
+the traffic label values and the version gauge. The megascale, fleet and
+process families come with the scale labs (ROADMAP A11).
 
 Capability parity with scheduler/metrics/metrics.go:44-454 (per-RPC
 totals + failure twins, `traffic` by type/task_type/task_tag/task_app/
@@ -248,6 +248,59 @@ def jit_series(reg, service: str) -> _Namespace:
         cache_entries=reg.gauge(
             f"dragonfly_{service}_jit_cache_entries",
             "live compile-cache entries per wrapped jitted function", ("fn",),
+        ),
+    )
+
+
+def costcard_series(reg) -> _Namespace:
+    """Cost-card ledger families (telemetry/costcard.py): per (entry,
+    signature) counted cost gauges of every instrumented device program,
+    captured at warmup, at a flight dump and at the trainer's first step."""
+    labels = ("entry", "signature")
+    return _Namespace(
+        flops=reg.gauge(
+            "dragonfly_costcard_flops",
+            "counted FLOPs of one call of a device program signature",
+            labels,
+        ),
+        bytes_accessed=reg.gauge(
+            "dragonfly_costcard_bytes_accessed",
+            "counted memory traffic (bytes read and written) of one call of "
+            "a device program signature",
+            labels,
+        ),
+        output_bytes=reg.gauge(
+            "dragonfly_costcard_output_bytes",
+            "bytes of the tensors one call of a device program signature "
+            "returns",
+            labels,
+        ),
+        temp_bytes=reg.gauge(
+            "dragonfly_costcard_temp_bytes",
+            "bytes of the intermediate tensors one call of a device program "
+            "signature allocates (a sum over its ops, not a peak)",
+            labels,
+        ),
+        captures=reg.counter(
+            "dragonfly_costcard_captures_total",
+            "cost cards captured (one per new (entry, signature) pair)",
+        ),
+    )
+
+
+def timeline_series(reg) -> _Namespace:
+    """Soak-timeline families (telemetry/timeline.py): the latest sample
+    of every per-interval series a TimelineRecorder tracks, labeled by
+    recorder source."""
+    return _Namespace(
+        value=reg.gauge(
+            "dragonfly_timeline_value",
+            "latest per-simulated-interval sample of a timeline series",
+            ("source", "metric"),
+        ),
+        samples=reg.counter(
+            "dragonfly_timeline_samples_total",
+            "timeline samples recorded", ("source",),
         ),
     )
 

@@ -73,16 +73,12 @@ from dragonfly2_tpu_torch.parallel.mesh import (
 from dragonfly2_tpu_torch.parallel.ring import sharded_ring_attention
 from dragonfly2_tpu_torch.parallel.ulysses import sharded_ulysses_attention
 from dragonfly2_tpu_torch.records.features import HostGraph, RankingDataset
+from dragonfly2_tpu_torch.telemetry import costcard as _costcard
+from dragonfly2_tpu_torch.telemetry.costcard import H100_HBM_BYTES_PER_S, H100_PEAK_FLOPS_BF16
+from dragonfly2_tpu_torch.telemetry.flight import instrument_entry
 from dragonfly2_tpu_torch.training import data as D
 
 SP_STRATEGIES = ("ring", "ulysses")
-
-# NVIDIA H100 80GB HBM3 (SXM, 700 W): dense bf16 tensor-core peak and HBM3
-# bandwidth, the roofline platform of gnn_roofline_bound (the reference's
-# defaults are a TPU v5e's)
-H100_PEAK_FLOPS_BF16 = 989e12
-H100_HBM_BYTES_PER_S = 3.35e12
-
 
 @dataclasses.dataclass
 class TrainResult:
@@ -93,7 +89,8 @@ class TrainResult:
     steps: int
     # model FLOPs per trained sample from a compiler's cost analysis; the
     # port runs eagerly and has none, so it stays 0.0 and flops_basis falls
-    # to the analytic floor
+    # to the analytic floor (the counted cost card of the epoch lands in
+    # telemetry/costcard.py's ledger, not here)
     flops_per_sample: float = 0.0
     # hand-counted matmul-only FLOPs per sample (a lower bound on the work
     # a step must do)
@@ -658,6 +655,60 @@ def _check_stop(stop) -> None:
         raise TrainingAborted("training aborted: the trainer is stopping")
 
 
+def _register_card(entry: str, trainer, batches, step, stop=None):
+    """The trainer's one-shot cost card (the reference's ``_epoch_flops``,
+    train.py:305-336, which hands the lowering it already pays for to the
+    ledger and runs before the timed block): where this process holds no
+    card for ``entry`` at this (model, ``batches``) signature, ``step()``,
+    the block's first step, runs under the counting mode
+    (telemetry/costcard.py), and the card holds as many such steps as
+    ``batches`` stacks. The count rides the real step, so it launches
+    nothing extra; the caller times the block from the step after it.
+    Returns the step's loss, already read, or None where the card was
+    there (the step has not run)."""
+    rep = _costcard._sig_repr((trainer.model, batches))
+    if _costcard.ledger().card(entry, _costcard._signature(rep)) is not None:
+        return None
+    _check_stop(stop)
+    with _costcard.counting() as count:
+        loss = step()
+    steps = next(iter(batches.values())).shape[0] if isinstance(batches, dict) else batches.shape[0]
+    _costcard.ledger().register_count(entry, count.scaled(steps), signature_repr=rep)
+    return float(loss)  # waits for the counted step, so none of it lands in the timing
+
+
+def _run_epoch_indexed(trainer, idx: torch.Tensor, stop=None, start: int = 0):
+    """One block of fused epochs over the device-resident rows (the
+    reference's scanned ``run_epoch``, train.py:381-406): a step for each
+    [B] row of ``idx`` [S, B] from row ``start`` (1 where the cost-card
+    registration took row 0). Returns the stacked losses, unread."""
+    losses = []
+    for s in range(start, idx.shape[0]):
+        _check_stop(stop)
+        losses.append(trainer.step(idx[s]))
+    return torch.stack(losses)
+
+
+def _run_epoch(trainer, stack: dict, stop=None, start: int = 0):
+    """One epoch of the mesh path over the host-built, sharded batches
+    ``stack`` ({name: [steps, batch, ...]}; the reference's scanned
+    ``run_epoch``, train.py:350-373), from step ``start`` as in
+    _run_epoch_indexed. Returns the stacked losses, unread."""
+    losses = []
+    for s in range(start, next(iter(stack.values())).shape[0]):
+        _check_stop(stop)
+        losses.append(trainer.step_batch({key: value[s] for key, value in stack.items()}))
+    return torch.stack(losses)
+
+
+# the epoch entries under the reference's flight-recorder names (its
+# instrument_jit wrappers at train.py:373,406): call counters; the cost
+# card comes from the one-shot registration, not from a replay
+_run_epoch_indexed = instrument_entry(_run_epoch_indexed, "trainer.epoch_indexed",
+                                      service="trainer")
+_run_epoch = instrument_entry(_run_epoch, "trainer.epoch", service="trainer")
+
+
 def _index_epochs(trainer, n_train, batch_size, epochs, epoch_fusion, rng, dev,
                   start_epoch=0, on_epoch=None, stop=None):
     """The single-device epochs from ``start_epoch``: index batches into the
@@ -666,13 +717,17 @@ def _index_epochs(trainer, n_train, batch_size, epochs, epoch_fusion, rng, dev,
     train.py:431-434 does); each block's losses are read once, then
     ``on_epoch(last epoch of the block)`` runs. A set ``stop`` event
     raises TrainingAborted before the next step (a host check, no device
-    wait). Returns (losses, samples per block, seconds per block)."""
+    wait). The first block of more than one step registers the epoch's
+    cost card with its first step, which the block's time and samples
+    leave out (a block of one step would leave nothing to time). Returns
+    (losses, samples per block, seconds per block)."""
     span = max(epochs - start_epoch, 1)
     fusion = max(min(int(epoch_fusion), span), 1)
     while span % fusion:
         fusion -= 1
     losses: list[float] = []
     block_samples, block_secs = [], []
+    register = True
     e = start_epoch
     while e < epochs:
         k = min(fusion, epochs - e)
@@ -680,14 +735,19 @@ def _index_epochs(trainer, n_train, batch_size, epochs, epoch_fusion, rng, dev,
             [np.stack(list(D.minibatches(n_train, batch_size, rng))) for _ in range(k)]
         )
         idx_dev = torch.from_numpy(idx).to(dev)
+        first = None
+        if register and idx.shape[0] > 1:
+            register = False
+            first = _register_card("trainer.trainer.epoch_indexed", trainer, idx_dev,
+                                   lambda: trainer.step(idx_dev[0]), stop)
+        start = 0 if first is None else 1
         t0 = time.perf_counter()
-        block_losses = []
-        for s in range(idx.shape[0]):
-            _check_stop(stop)
-            block_losses.append(trainer.step(idx_dev[s]))
-        block = torch.stack(block_losses).cpu().numpy()  # the one read per block
+        stacked = _run_epoch_indexed(trainer, idx_dev, stop, start)
+        block = stacked.cpu().numpy()  # the one read per block
         block_secs.append(time.perf_counter() - t0)
-        block_samples.append(idx.size)
+        block_samples.append(idx[start:].size)
+        if first is not None:
+            losses.append(first)
         losses.extend(float(v) for v in block.astype(np.float64))
         e += k
         if on_epoch is not None:
@@ -702,21 +762,30 @@ def _stacked_epochs(trainer, mesh, epochs, batch_size, make_epoch_batches,
     ``make_epoch_batches()`` (a dict stacked [steps, batch, ...]) placed by
     ``shard_stacked_batches`` (batch padded to a multiple of dp), then one
     step a batch, timed from the first step to the epoch's one loss read,
-    then ``on_epoch(epoch)``; ``stop`` as in _index_epochs. Returns
-    (losses, samples per epoch, seconds per epoch)."""
+    then ``on_epoch(epoch)``; ``stop`` and the cost card as in
+    _index_epochs. Returns (losses, samples per epoch, seconds per
+    epoch)."""
     losses: list[float] = []
     epoch_samples, epoch_secs = [], []
+    register = True
     for e in range(start_epoch, epochs):
         stack = shard_stacked_batches(mesh, make_epoch_batches())
         steps = next(iter(stack.values())).shape[0]
+        first = None
+        if register and steps > 1:
+            register = False
+            first = _register_card(
+                "trainer.trainer.epoch", trainer, stack,
+                lambda: trainer.step_batch({key: value[0] for key, value in stack.items()}),
+                stop)
+        start = 0 if first is None else 1
         t0 = time.perf_counter()
-        ep = []
-        for s in range(steps):
-            _check_stop(stop)
-            ep.append(trainer.step_batch({key: value[s] for key, value in stack.items()}))
-        ep_losses = torch.stack(ep).cpu().numpy()  # the one read per epoch
+        stacked = _run_epoch(trainer, stack, stop, start)
+        ep_losses = stacked.cpu().numpy()  # the one read per epoch
         epoch_secs.append(time.perf_counter() - t0)
-        epoch_samples.append(steps * batch_size)
+        epoch_samples.append((steps - start) * batch_size)
+        if first is not None:
+            losses.append(first)
         losses.extend(float(v) for v in ep_losses.astype(np.float64))
         if on_epoch is not None:
             on_epoch(e)

@@ -499,10 +499,34 @@ def test_source_listings_equal_the_reference(tmp_path):
 
 @pytest.mark.parametrize("scheme", ["s3", "oss", "obs"])
 def test_object_store_schemes_raise_naming_a9_part_3(scheme):
-    with pytest.raises(NotImplementedError, match="A9 part 3a"):
-        source.content_length(f"{scheme}://bucket/key")
-    with pytest.raises(NotImplementedError, match="A9 part 3a"):
-        list(source.download(f"{scheme}://bucket/key"))
+    """The s3/oss/obs back-source clients, refused before A9 part 3a, now
+    the reference's: against a signing stub of the vendor's dialect, with
+    the credentials in x-df-* headers, both packages' registries give the
+    same length, whole and ranged bytes and directory listing; without an
+    endpoint both raise Unavailable."""
+    import chip_smoke
+
+    stub = chip_smoke._S3Stub(scheme)
+    try:
+        blob = np.random.default_rng(22).integers(0, 256, 5000, dtype=np.uint8).tobytes()
+        stub.put("bucket", "dir/key one.bin", blob)
+        stub.put("bucket", "dir/sub/two.bin", b"two")
+        creds = {"x-df-endpoint": stub.endpoint, "x-df-access-key": chip_smoke.OBJ_ACCESS,
+                 "x-df-secret-key": chip_smoke.OBJ_SECRET, "x-df-region": chip_smoke.OBJ_REGION}
+        url = f"{scheme}://bucket/dir/key%20one.bin"
+        for mod in (source, ref_source):
+            assert mod.content_length(url, creds) == len(blob)
+            assert b"".join(mod.download(url, creds)) == blob
+            assert b"".join(mod.download(url, creds, 100, 900)) == blob[100:1000]
+            entries = mod.list_entries(f"{scheme}://bucket/dir/", creds)
+            assert [(e.name, e.is_dir) for e in entries] == [("key one.bin", False), ("sub", True)]
+        assert stub.refused == 0 and stub.ranged == 2
+        with pytest.raises(dferrors.Unavailable):
+            source.content_length(f"{scheme}://bucket/key")
+        with pytest.raises(ref_dferrors.Unavailable):
+            ref_source.content_length(f"{scheme}://bucket/key")
+    finally:
+        stub.stop()
 
 
 def test_hdfs_and_oras_sources_are_registered():
@@ -518,10 +542,27 @@ def test_hdfs_and_oras_sources_are_registered():
 
 @pytest.mark.parametrize("kwargs", [{"object_storage": True}])
 def test_daemon_refuses_its_manager_edges(tmp_path, kwargs):
+    """Daemon(object_storage=True), refused before A9 part 3a, now builds
+    the reference's listener: the object-storage service over the fs
+    backend under the data dir, beside the daemon's piece storage, whose
+    PUT imports the object as a task and whose GET falls back to it."""
     from dragonfly2_tpu_torch.client.daemon import Daemon
+    from dragonfly2_tpu_torch.objectstorage.backends import FilesystemBackend
+    from dragonfly2_tpu_torch.objectstorage.service import DfstoreClient
 
-    with pytest.raises(NotImplementedError, match="A9 part 3a"):
-        Daemon(tmp_path, [("127.0.0.1", 1)], **kwargs)
+    d = Daemon(tmp_path, [("127.0.0.1", 1)], **kwargs)
+    svc = d.object_storage
+    assert isinstance(svc.backend, FilesystemBackend) and svc.storage is d.storage
+    assert svc.backend.base == (tmp_path / "objects").absolute()
+    svc.start()
+    try:
+        client = DfstoreClient(f"http://{svc.host}:{svc.port}")
+        client.create_bucket("b")
+        client.put_object("b", "k", b"payload")
+        (tmp_path / "objects" / "b" / "k").unlink()  # the backend loses it
+        assert client.get_object("b", "k") == b"payload"
+    finally:
+        svc.stop()
 
 
 # ------------------------------------------------------------- isolation
@@ -532,8 +573,21 @@ import sys
 import dragonfly2_tpu_torch.client.daemon, dragonfly2_tpu_torch.client.cli
 import dragonfly2_tpu_torch.client.proxy, dragonfly2_tpu_torch.client.object_sources
 import dragonfly2_tpu_torch.manager.rpc, dragonfly2_tpu_torch.utils.dynconfig
+import dragonfly2_tpu_torch.objectstorage, dragonfly2_tpu_torch.objectstorage.remote
+import dragonfly2_tpu_torch.objectstorage.signing, dragonfly2_tpu_torch.objectstorage.service
+import dragonfly2_tpu_torch.telemetry, dragonfly2_tpu_torch.telemetry.costcard
+import dragonfly2_tpu_torch.utils.cache, dragonfly2_tpu_torch.utils.dfpath
 from dragonfly2_tpu_torch import cmd
-cmd.build_parser().parse_args(["dfdaemon", "--data-dir", "d", "--scheduler", "127.0.0.1:1"])
+args = cmd.build_parser().parse_args(["dfdaemon", "--data-dir", "d", "--scheduler", "127.0.0.1:1",
+                                      "--object-storage", "--object-storage-backend", "s3",
+                                      "--object-storage-endpoint", "127.0.0.1:9"])
+import os
+os.environ.update(DRAGONFLY_OBJ_ACCESS_KEY="ak", DRAGONFLY_OBJ_SECRET_KEY="sk")
+from dragonfly2_tpu_torch.client.daemon import Daemon
+import tempfile
+d = Daemon(tempfile.mkdtemp(), [("127.0.0.1", 1)], object_storage=True, object_storage_backend="s3",
+           object_storage_options=cmd._object_storage_options(args))
+d.object_storage._httpd.server_close()
 from dragonfly2_tpu_torch.telemetry.series import daemon_series, register_version
 from dragonfly2_tpu_torch.telemetry import default_registry
 register_version(default_registry(), "dfdaemon")

@@ -29,6 +29,7 @@ import sys
 import threading
 import time
 
+import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -250,7 +251,12 @@ DFDAEMON = ["dfdaemon", "--data-dir", "d", "--scheduler", "127.0.0.1:1"]
 
 
 @pytest.mark.parametrize("argv,env,needle", [
-    (DFDAEMON + ["--object-storage"], {}, "ROADMAP A9 part 3a"),
+    # a signed vendor backend without its credentials: the reference's
+    # startup refusal (cmd.py _object_storage_options)
+    (DFDAEMON + ["--object-storage", "--object-storage-backend", "s3",
+                 "--object-storage-endpoint", "127.0.0.1:9"],
+     {"DRAGONFLY_OBJ_ACCESS_KEY": "", "DRAGONFLY_OBJ_SECRET_KEY": ""},
+     "needs DRAGONFLY_OBJ_ACCESS_KEY and DRAGONFLY_OBJ_SECRET_KEY"),
     (DFDAEMON + ["--scenario", "soak"], {}, "ROADMAP A11"),
     (["scheduler"], {"CUDA_VISIBLE_DEVICES": ""}, "torch.cuda.is_available() is False"),
     (["trainer", "--data-dir", "d", "--registry-dir", "r"], {"CUDA_VISIBLE_DEVICES": ""},
@@ -548,3 +554,81 @@ def test_tls_issue_certifies_against_the_manager(tmp_path):
         stopped = [(name, *_stop(p)) for name, p in reversed(procs)]
     for name, rc, seconds in stopped:
         assert rc == 0 and seconds < 10, (name, rc, seconds)
+
+
+PROC_EXIT_S = 10.0  # SIGTERM to exit 0, every process test below
+
+
+def test_dfdaemon_object_storage_on_a_signed_s3_stub_with_dfstore(tmp_path):
+    """cmd.py dfdaemon --object-storage --object-storage-backend s3 on the
+    chip smoke's signing S3 stub (credentials from DRAGONFLY_OBJ_*): the
+    READY line names OBJSTORE; dfstore --endpoint puts an object that lands
+    in the stub through signed requests and gets it back; the daemon
+    exits 0 within PROC_EXIT_S of SIGTERM."""
+    import chip_smoke
+    from dragonfly2_tpu_torch.objectstorage.service import DfstoreClient
+
+    stub = chip_smoke._S3Stub()
+    daemon = None
+    try:
+        env = _env(DRAGONFLY_OBJ_ACCESS_KEY=chip_smoke.OBJ_ACCESS,
+                   DRAGONFLY_OBJ_SECRET_KEY=chip_smoke.OBJ_SECRET)
+        daemon, ready, _ = _spawn(
+            ["dfdaemon", "--data-dir", str(tmp_path / "d"), "--scheduler", "127.0.0.1:1",
+             "--object-storage", "--object-storage-backend", "s3",
+             "--object-storage-endpoint", stub.endpoint,
+             "--object-storage-region", chip_smoke.OBJ_REGION],
+            tmp_path / "dfdaemon.log", env=env)
+        endpoint = f"http://{ready[1]}:{ready[ready.index('OBJSTORE') + 1]}"
+        DfstoreClient(endpoint).create_bucket("b")
+        data = np.random.default_rng(22).integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
+        (tmp_path / "put.bin").write_bytes(data)
+        cli = [sys.executable, "-m", "dragonfly2_tpu_torch.client.cli", "dfstore"]
+        where = ["--endpoint", endpoint, "--bucket", "b", "--key", "dir/obj.bin"]
+        put = subprocess.run([*cli, "put", *where, "--path", str(tmp_path / "put.bin")],
+                             cwd=REPO, env=_env(), capture_output=True, timeout=120)
+        assert put.returncode == 0, put.stderr
+        assert stub.object("b", "dir/obj.bin") == data and stub.refused == 0
+        got = subprocess.run([*cli, "get", *where], cwd=REPO, env=_env(), capture_output=True,
+                             timeout=120)
+        assert got.returncode == 0 and got.stdout == data, got.stderr
+    finally:
+        if daemon is not None:
+            rc, seconds = _stop(daemon)
+            assert rc == 0 and seconds < PROC_EXIT_S, (rc, seconds)
+        stub.stop()
+
+
+def test_debug_flight_on_a_cpu_scheduler_answers_every_section(tmp_path):
+    """/debug/flight on a --device cpu scheduler's metrics port answers 200
+    with every section of flight.DUMP_SECTIONS (its warmup's cost cards
+    among them); a bad section answers 400; SIGTERM exits 0 within
+    PROC_EXIT_S."""
+    import urllib.error
+    import urllib.request
+
+    from dragonfly2_tpu_torch.telemetry import flight
+
+    proc, ready, _ = _spawn(["scheduler", "--device", "cpu", "--data-dir", str(tmp_path / "s"),
+                             "--metrics-port", "0"], tmp_path / "scheduler.log")
+    try:
+        base = f"http://127.0.0.1:{ready[ready.index('METRICS') + 1]}/debug/flight"
+
+        def fetch():
+            with urllib.request.urlopen(base, timeout=60) as resp:
+                assert resp.status == 200
+                return json.loads(resp.read())
+
+        # the server warms up in the background after READY: the fused
+        # tick's cards land with it (or with this dump's drain)
+        dump = _wait(lambda: (lambda d: d if any(
+            c["entry"] == "scheduler.tick.fused_tick_chunk" for c in d["costcards"]["cards"])
+            else None)(fetch()), 60, "the fused tick's cost cards")
+        assert set(dump) - {"truncated"} == {"generated_at_ns", *flight.DUMP_SECTIONS}
+        assert not dump["costcards"]["capture_errors"]
+        with pytest.raises(urllib.error.HTTPError) as bad:
+            urllib.request.urlopen(base + "?section=bogus", timeout=60)
+        assert bad.value.code == 400
+    finally:
+        rc, seconds = _stop(proc)
+    assert rc == 0 and seconds < PROC_EXIT_S, (rc, seconds, (tmp_path / "scheduler.log").read_text())

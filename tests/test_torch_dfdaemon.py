@@ -406,10 +406,38 @@ def test_dfcache_import_stat_export_delete_and_dfstore(tmp_path, capsys):
     assert capsys.readouterr().out.strip() == task_id
 
 
-def test_dfstore_endpoint_exits_naming_a9_part_3(capsys):
-    assert cli.main(["dfstore", "get", "--endpoint", "http://127.0.0.1:1", "--bucket", "b",
-                     "--key", "k"]) == 1
-    assert "A9 part 3a" in capsys.readouterr().err
+def test_dfstore_endpoint_exits_naming_a9_part_3(tmp_path, capsysbinary):
+    """dfstore --endpoint, refused before A9 part 3a, now the reference's:
+    put, get and sum through a daemon's object-storage service, the same
+    bytes and listing from both packages' CLIs against one service; a
+    missing key exits 1."""
+    from dragonfly2_tpu.client import cli as ref_cli
+    from dragonfly2_tpu_torch.objectstorage.backends import FilesystemBackend
+    from dragonfly2_tpu_torch.objectstorage.service import DfstoreClient, ObjectStorageService
+
+    svc = ObjectStorageService(FilesystemBackend(tmp_path / "objects"))
+    svc.start()
+    try:
+        endpoint = f"http://{svc.host}:{svc.port}"
+        DfstoreClient(endpoint).create_bucket("b")
+        data = np.random.default_rng(22).integers(0, 256, 3000, np.uint8).tobytes()
+        blob = tmp_path / "blob.bin"
+        blob.write_bytes(data)
+        args = ["--endpoint", endpoint, "--bucket", "b"]
+        assert cli.main(["dfstore", "put", *args, "--key", "x/one", "--path", str(blob)]) == 0
+        assert ref_cli.main(["dfstore", "put", *args, "--key", "x/two", "--path", str(blob)]) == 0
+        sums, gets = [], []
+        for main in (cli.main, ref_cli.main):
+            capsysbinary.readouterr()
+            assert main(["dfstore", "sum", *args, "--key", "x/"]) == 0
+            sums.append(capsysbinary.readouterr().out.decode().split())
+            assert main(["dfstore", "get", *args, "--key", "x/two"]) == 0
+            gets.append(capsysbinary.readouterr().out)
+        assert sums[0] == sums[1] and sums[0][1::2] == ["x/one", "x/two"]
+        assert gets == [data, data]
+        assert cli.main(["dfstore", "get", *args, "--key", "missing"]) == 1
+    finally:
+        svc.stop()
 
 
 def test_dfget_from_the_origin_then_from_the_swarm(tmp_path, origin, capsys):

@@ -1,5 +1,6 @@
 """The torch port stands alone: importing every module of
-dragonfly2_tpu_torch, and chip_smoke.py, loads no jax, flax or
+dragonfly2_tpu_torch, chip_smoke.py and the port's measurement scripts
+tools/{tick_wrapper,train_register}_cost.py loads no jax, flax or
 dragonfly2_tpu module."""
 
 import os
@@ -15,6 +16,8 @@ names = [m.name for m in pkgutil.walk_packages(dragonfly2_tpu_torch.__path__, "d
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import tools.tick_wrapper_cost
+import tools.train_register_cost
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "dragonfly2_tpu")
@@ -62,7 +65,11 @@ def test_port_imports_no_jax_flax_or_reference():
                    "manager", "manager.models", "manager.auth", "manager.searcher",
                    "manager.oauth", "manager.service", "manager.rpc", "manager.rest",
                    "manager.console", "cluster.jobs", "cluster.image_preheat",
-                   "utils.dflog", "utils.dynconfig", "utils.plugins"):
+                   "utils.dflog", "utils.dynconfig", "utils.plugins",
+                   # slice 22: object storage, the shared caches, the cost cards
+                   "objectstorage", "objectstorage.backends", "objectstorage.signing",
+                   "objectstorage.remote", "objectstorage.service", "utils.cache",
+                   "utils.dfpath", "telemetry.costcard"):
         assert f"dragonfly2_tpu_torch.{module}" in names, module
     assert lines["TORCH"] == "True"
     assert lines["BAD"] == "", f"port pulled in: {lines['BAD']}"

@@ -298,8 +298,22 @@ def test_service_issues_certificates_behind_the_enrollment_token(tmp_path):
 
 
 def test_flight_recorder_waits_for_its_dump():
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_service().flight_recorder()
+    """The manager's flight recorder, refused before A10, now the
+    reference's: its own section (every dump section, no scheduler's tick
+    ring claimed) and one section a job scheduler, an unreachable one an
+    error entry; the same shape as the reference's body."""
+    from dragonfly2_tpu_torch.cluster.jobs import JobManager, RemoteScheduler
+    from dragonfly2_tpu_torch.telemetry import flight
+
+    svc = make_service()
+    out = svc.flight_recorder(8)
+    ref = RefManagerService(RefDatabase()).flight_recorder(8)
+    assert set(out) == set(ref) == {"manager", "schedulers"}
+    assert set(out["manager"]) - {"truncated"} == {"generated_at_ns", *flight.DUMP_SECTIONS}
+    assert set(out["manager"]) == set(ref["manager"])
+    assert out["manager"]["ticks"] == {"ticks_total": 0, "p50_ms": {}, "last": []}
+    svc.jobs = JobManager({"gone": RemoteScheduler("127.0.0.1", 9)})
+    assert "error" in svc.flight_recorder(8)["schedulers"]["gone"]
 
 
 # ---------------------------------------------------------------------- REST
@@ -453,9 +467,12 @@ def test_rest_model_patch_activates_through_the_registry(tmp_path):
 
 
 def test_rest_flight_recorder_answers_501_naming_a10(rest_server):
+    """The REST route, a 501 before A10, now answers the manager's dump to
+    a signed-in caller, and 401 without a token, as the reference's."""
     token = _root_token(rest_server)
-    status, out = _http(rest_server, "GET", "/api/v1/flight-recorder", None, token)
-    assert status == 501 and "A10" in out["error"]
+    status, out = _http(rest_server, "GET", "/api/v1/flight-recorder?last_n=4", None, token)
+    assert status == 200 and set(out) == {"manager", "schedulers"}
+    assert "costcards" in out["manager"] and out["manager"]["ticks"]["last"] == []
     assert _http(rest_server, "GET", "/api/v1/flight-recorder")[0] == 401
 
 

@@ -128,8 +128,31 @@ def test_codec_matches_flax_on_mixed_leaves():
 
 
 def test_unported_registries_raise(tmp_path):
-    # a plain path is the filesystem ModelRegistry (params in the bucket
-    # layout); the signed vendor buckets are still not ported
+    """A plain path is the filesystem ModelRegistry (params in the bucket
+    layout); the s3:// URL, refused before A9 part 3a, opens the bucket
+    registry over the signed S3 backend, and the reference's registry on
+    the same URL reads what the port published, byte for byte."""
+    import urllib.parse
+
+    import chip_smoke
+    from dragonfly2_tpu.registry.bucket import open_registry as ref_open_registry
+    from dragonfly2_tpu_torch.objectstorage.remote import S3Backend
+
     assert isinstance(open_registry(str(tmp_path / "registry")), ModelRegistry)
-    with pytest.raises(NotImplementedError):
-        open_registry("s3://bucket/prefix?endpoint=localhost:9")
+    stub = chip_smoke._S3Stub()
+    try:
+        url = "s3://models/fleet?" + urllib.parse.urlencode({
+            "endpoint": stub.endpoint, "access_key": chip_smoke.OBJ_ACCESS,
+            "secret_key": chip_smoke.OBJ_SECRET, "region": chip_smoke.OBJ_REGION})
+        port = open_registry(url)
+        assert isinstance(port.backend, S3Backend) and port.prefix == "fleet"
+        params = {"params": {"w": np.arange(12, dtype=np.float32).reshape(3, 4)}}
+        mv = port.create_model_version("ranker", "gnn", "host-1", params, ModelEvaluation())
+        port.activate(mv.model_id, mv.version)
+        ref = ref_open_registry(url)
+        assert ref.active_version(mv.model_id).version == mv.version
+        got = ref.load_params(mv.model_id, mv.version)
+        np.testing.assert_array_equal(got["params"]["w"], params["params"]["w"])
+        assert stub.refused == 0
+    finally:
+        stub.stop()

@@ -385,6 +385,9 @@ def test_health_verdict_equals_the_reference(monkeypatch):
     del keep
 
 
+FLIGHT_BOUNDED = "/debug/flight?section=ticks,jit&max_bytes=4096"
+
+
 def test_mux_serves_wire_and_http_on_one_port(monkeypatch):
     from dragonfly2_tpu.rpc import mux as ref_mux
     from dragonfly2_tpu.telemetry import slo as ref_slo
@@ -405,7 +408,8 @@ def test_mux_serves_wire_and_http_on_one_port(monkeypatch):
             loop = asyncio.get_running_loop()
             got = {path: await loop.run_in_executor(None, _http, base, path)
                    for path in ("/healthz", "/metrics", "/debug/health?last_n=4",
-                                "/debug/flight", "/nope")}
+                                "/debug/flight", FLIGHT_BOUNDED, "/debug/flight?section=bogus",
+                                "/nope")}
             # the wire on the same port, through the port's client
             conn = await client.SchedulerConnection(host, port).connect()
             try:
@@ -429,8 +433,17 @@ def test_mux_serves_wire_and_http_on_one_port(monkeypatch):
     status, body = got["/debug/health?last_n=4"]
     assert status == want["/debug/health?last_n=4"][0] == 503
     assert json.loads(body) == json.loads(want["/debug/health?last_n=4"][1])
-    # the flight recorder's dump is A10: an error that names it, no dump
-    assert got["/debug/flight"][0] == 501 and b"ROADMAP A10" in got["/debug/flight"][1]
+    # the flight recorder's dump (A10, refused before): the process-wide
+    # dump with every section the reference's carries
+    status, body = got["/debug/flight"]
+    assert status == want["/debug/flight"][0] == 200
+    assert set(json.loads(body)) == set(json.loads(want["/debug/flight"][1]))
+    # its query surface: the sections and the byte cap asked for, and a 400
+    status, body = got[FLIGHT_BOUNDED]
+    assert status == want[FLIGHT_BOUNDED][0] == 200 and len(body) <= 4096
+    assert set(json.loads(body)) == set(json.loads(want[FLIGHT_BOUNDED][1])) == {
+        "generated_at_ns", "ticks", "jit"}
+    assert got["/debug/flight?section=bogus"][0] == want["/debug/flight?section=bogus"][0] == 400
     del keep
 
 
@@ -450,17 +463,25 @@ def test_monitor_serves_metrics_stacks_profile_and_names_a10():
         assert status == 200 and b"samples over" in body
         status, body = _http(base, "/debug/health")
         assert status in (200, 503) and "state" in json.loads(body)
+        # the flight recorder's dump (A10, refused before), its query
+        # surface (telemetry/flight.parse_flight_query) and its 400s
         status, body = _http(base, "/debug/flight")
-        assert status == 501 and b"ROADMAP A10" in body
+        assert status == 200 and "costcards" in json.loads(body)
+        status, body = _http(base, "/debug/flight?section=ticks&max_bytes=2048")
+        assert status == 200 and set(json.loads(body)) == {"generated_at_ns", "ticks"}
+        assert len(body) <= 2048
+        status, body = _http(base, "/debug/flight?section=bogus")
+        assert status == 400 and b"unknown section" in body
     finally:
         monitor.shutdown()
     assert monitor._serve_thread is None
 
 
 def test_flight_request_on_the_wire_fails_naming_a10():
-    """The wire FlightRecorderRequest reaches SchedulerService.flight_dump,
-    which raises naming A10; the server answers as the reference answers a
-    handler that raises (the connection ends), and sends no dump."""
+    """The wire FlightRecorderRequest reaches SchedulerService.flight_dump
+    (A10, refused before): both packages' servers answer a
+    FlightRecorderResponse whose dump has the same sections, this
+    service's tick ring among them."""
     from dragonfly2_tpu_torch.rpc import wire
 
     async def run(host, port):
@@ -472,9 +493,12 @@ def test_flight_request_on_the_wire_fails_naming_a10():
         return frame
 
     svc = _port_service()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        svc.flight_dump()
-    assert asyncio.run(_served(svc, server, run)) is None
+    assert svc.flight_dump(last_n=4)["ticks"]["ticks_total"] == 0
+    got = asyncio.run(_served(svc, server, run))
+    want = asyncio.run(_served(RefService(), ref_server, run))
+    assert type(got).__name__ == type(want).__name__ == "FlightRecorderResponse"
+    assert set(got.dump) == set(want.dump) and "costcards" in got.dump
+    assert got.dump["ticks"] == {"ticks_total": 0, "p50_ms": {}, "last": []}
 
 
 # ------------------------------------------------------------ hash ring

@@ -436,11 +436,22 @@ def test_unported_options_raise_naming_their_roadmap_item(case, tmp_path):
 
 
 def test_flight_dump_and_probe_round_wait_for_their_modules():
+    """flight_dump, refused before A10, is the reference's: this service's
+    tick ring with the process-wide sections (the same keys as the
+    reference's dump), bounded by ``sections`` and ``max_bytes``."""
+    from dragonfly2_tpu.cluster.scheduler import SchedulerService as RefService
+
     svc = SchedulerService(device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        svc.flight_dump()
     sim = ClusterSimulator(svc, num_hosts=8, num_tasks=2, seed=0)
     assert sim.run_probe_round() == 0  # no probes: nothing to probe, as the reference
+    for _ in range(3):
+        sim.run_round(new_downloads=4)
+    dump = svc.flight_dump(last_n=2)
+    assert set(dump) == set(RefService(seed=0).flight_dump(last_n=2))
+    assert dump["ticks"]["ticks_total"] == svc.recorder.ticks > 0
+    assert len(dump["ticks"]["last"]) == 2 and "emit" in dump["ticks"]["p50_ms"]
+    small = svc.flight_dump(sections=("ticks", "jit"), max_bytes=1024)
+    assert set(small) - {"truncated"} == {"generated_at_ns", "ticks", "jit"}
 
 
 def test_the_service_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
