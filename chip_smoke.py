@@ -307,7 +307,36 @@ result line:
    entry. After phase 14, the in-process cost cards of phases 5-14 are
    printed the same way (the fused tick's at the recorded deployment, the
    trainer's with their hand kernels counted).
-19. the kernels JSON line and, last, the result line.
+19. the scale labs (slice 23): the port's megascale lab and process
+   planet driving its scheduler on the card, no hand kernel launched (the
+   flash counts zeroed before and read zero after). (a) The reference's
+   1,500-host soak day (soak, 32 tasks, seed 7, 24 arrivals a round,
+   retire after 24; 108 rounds) through run_megascale twice on the card
+   and once on the CPU: the card's two runs identical (deterministic
+   view, digests included, every selection); card against CPU, every
+   selection's parent ids exactly and scores within 1e-6, the view's
+   integers, strings and digests exactly but the ledger's and the tail
+   plane's score digests, its floats within 1e-6; every fault family
+   nonzero. (b) The 10^6-host planet slice (128 tasks, seed 11, 20
+   rounds, 6 draining, 8,000 arrivals a round), three of its ticks under
+   torch.profiler: more than 40,000 registered, every one completed; then
+   the 50k-host soak smoke (64 tasks, seed 7, 8 rounds): more than 10,000
+   pieces, 500 completed, 4 regions. (c) The fleet builtin at 2,000
+   hosts, 24 tasks, seed 11, 40 rounds: the plain run, K = 1 (equal to
+   it outside the fleet columns) and K = 4 (zero lost downloads, each
+   announce page at a kill round and cleared). (d) run_procday over the
+   procday spec's 12-round day (two scheduler processes on the card with
+   --device cuda, three dfdaemons, a manager): zero lost downloads,
+   completions over P2P, kills at rounds 5 and 10 with failover, at least
+   4 restarts, a page at each kill cleared the next round, every exit
+   code set; then tools/dfproc.py's simulator leg (300 hosts, 24 tasks,
+   16 arrivals) on the card, every divergence metric within its band.
+   Prints each run's setup and wall seconds, pieces/s, events/s, the
+   engine's and the tick's phase p50s, peak RSS and
+   torch.cuda.max_memory_allocated; the profiled ticks' launches, device
+   ms and busy share; timing.fleet; the planet's wall, downloads/s and
+   each divergence metric with its band.
+20. the kernels JSON line and, last, the result line.
 
 Between phases 3 and 4, the host cost of the forward with lse's wrapper at
 the ranker's two trained shapes, [256, 4, 20, 32] and [256, 4, 20, 192]:
@@ -6723,6 +6752,302 @@ def phase_objects(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
     print(f"objects phase: {time.perf_counter() - phase_start:.1f} s")
 
 
+# slice 23: the scale labs. (a) the reference's 1,500-host soak day
+# (tests/test_megascale.py _mega_run); (b) its 10^6-host planet slice and
+# its 50k-host soak smoke; (c) the fleet builtin at
+# tests/test_wire_contract.py's size; (d) the planet of processes over
+# tools/dfproc.py's default day (the procday spec's 12 rounds: a 6-round
+# day leaves the divergence's pieces-per-download ratio at 0.236, below
+# its 0.25 band, in both packages alike; tests/test_torch_procworld.py
+# holds the 6-round day) and dfproc's simulator leg
+SCALE_SOAK = dict(scenario="soak", num_hosts=1500, num_tasks=32, seed=7,
+                  arrivals_per_round=24, retire_after_rounds=24)
+SCALE_PLANET = dict(scenario="planet", num_hosts=1_000_000, num_tasks=128, seed=11,
+                    rounds=20, drain_rounds=6, arrivals_per_round=8_000)
+SCALE_SMOKE = dict(scenario="soak", num_hosts=50_000, num_tasks=64, seed=7, rounds=8,
+                   drain_rounds=2, arrivals_per_round=600)
+SCALE_PLANET_REGISTERED = 40_000  # the 10^6 slice's registrations must exceed this
+SCALE_FLEET = dict(scenario="fleet", num_hosts=2000, num_tasks=24, seed=11, rounds=40)
+SCALE_FLEET_K = 4
+SCALE_PROFILED_TICKS = (8, 9, 10)  # ticks of the 10^6-host slice under torch.profiler
+SCALE_PROC = dict(rounds=12, schedulers=2, daemons=3, tasks_per_round=4, with_manager=True)
+SCALE_PROC_SIM = dict(num_hosts=300, num_tasks=24, arrivals_per_round=16)
+SCALE_ATOL = 1e-6
+# digests over score-bearing columns: equal between two runs of one
+# device, not across devices (scores agree to rounding there)
+_SCALE_SCORE_DIGESTS = {("decisions", "columns_digest"), ("tail", "digest")}
+
+
+def _scale_close(got, want, path: str = "") -> float:
+    """Structure, integers and strings exactly, floats within SCALE_ATOL,
+    the score-bearing digests skipped; returns the worst float gap."""
+    worst = 0.0
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got, key=str) != sorted(want, key=str):
+            _fail(f"scale labs: {path} keys differ")
+        for key in want:
+            if (path.rsplit("/", 1)[-1], key) not in _SCALE_SCORE_DIGESTS:
+                worst = max(worst, _scale_close(got[key], want[key], f"{path}/{key}"))
+    elif isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            _fail(f"scale labs: {path} lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            worst = max(worst, _scale_close(g, w, f"{path}[{i}]"))
+    elif isinstance(want, float):
+        gap = abs(got - want) if isinstance(got, float) else float("inf")
+        if not (gap <= SCALE_ATOL or (got != got and want != want)):
+            _fail(f"scale labs: {path} {got!r} vs {want!r}")
+        worst = max(worst, gap if gap == gap else 0.0)
+    elif type(got) is not type(want) or got != want:
+        _fail(f"scale labs: {path} {got!r} vs {want!r}")
+    return worst
+
+
+def _scale_run(device, profiled=(), **kw):
+    """One run_megascale with its service captured, its selections
+    recorded and the ticks in ``profiled`` under torch.profiler:
+    (report, selections, {"ticks", "launches", "device_ms"})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dragonfly2_tpu_torch.megascale import engine, soak
+
+    made, selections, prof = {}, [], {"ticks": 0, "launches": 0.0, "device_ms": 0.0,
+                                      "tick_ms": 0.0}
+    factory = engine.megascale_service
+
+    def capture(*args, **kwargs):
+        svc = made["svc"] = factory(*args, **kwargs)
+        tick, count = svc.tick, [0]
+
+        def recorded():
+            count[0] += 1
+            if count[0] not in profiled:
+                out = tick()
+            else:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                    start = time.perf_counter()
+                    out = tick()
+                    torch.cuda.synchronize()
+                    prof["tick_ms"] += (time.perf_counter() - start) * 1e3
+                prof["ticks"] += 1
+                prof["device_ms"] += sum(ms for _, ms in _kernels_of(p, 1))
+                prof["launches"] += sum(
+                    e.count for e in p.key_averages()
+                    if e.self_device_time_total > 0
+                    and e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
+            selections.extend(
+                (r.peer_id, [(p.peer_id, float(p.score)) for p in r.candidate_parents])
+                for r in out if hasattr(r, "candidate_parents"))
+            return out
+
+        svc.tick = recorded
+        return svc
+
+    engine.megascale_service = capture
+    try:
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        report = soak.run_megascale(device=device, **kw)
+    finally:
+        engine.megascale_service = factory
+    # device-dependent like the rest of `timing`, which deterministic_view drops
+    report["timing"]["max_memory_allocated_mib"] = (
+        None if device == "cpu" else torch.cuda.max_memory_allocated() / 2**20)
+    return report, selections, prof
+
+
+def _scale_line(label: str, r: dict, card: str) -> None:
+    t = r["timing"]
+    mem = t.get("max_memory_allocated_mib")
+    print(f"{label}: {r['hosts']} hosts, {r['tasks']} tasks, seed {r['seed']}, {r['rounds']} "
+          f"rounds of {r['arrivals_per_round']} arrivals: setup {t['setup_s']} s, wall "
+          f"{t['wall_s']} s, {r['stats']['pieces']} pieces = {t['pieces_per_sec']} pieces/s, "
+          f"{t['events_per_sec']} events/s; registered {r['stats']['registered']}, completed "
+          f"{r['stats']['completed']}; peak RSS {t['peak_rss_mb']} MiB, max memory allocated "
+          f"{'n/a' if mem is None else f'{mem:.1f} MiB'} (host clock after a device sync; "
+          f"{card})")
+    print(f"{label} engine step phases p50 ms: "
+          + ", ".join(f"{k} {v}" for k, v in t["step_phases_p50_ms"].items()))
+    print(f"{label} tick phases p50 ms: "
+          + ", ".join(f"{k} {v}" for k, v in t["tick_phases_p50_ms"].items()))
+
+
+def _scale_soak_pair(card: str, device: str) -> None:
+    """(a) the 1,500-host soak day twice on ``device`` (the card) and once
+    on the CPU: the card's two runs identical, digests included; card
+    against CPU, selections (ids exactly, scores within SCALE_ATOL) and
+    the deterministic view (exact but for floats within SCALE_ATOL and the
+    score-bearing digests)."""
+    from dragonfly2_tpu_torch.megascale.soak import deterministic_view
+
+    first, first_sel, _ = _scale_run(device, **SCALE_SOAK)
+    again, again_sel, _ = _scale_run(device, **SCALE_SOAK)
+    cpu, cpu_sel, _ = _scale_run("cpu", **SCALE_SOAK)
+    if deterministic_view(first) != deterministic_view(again) or first_sel != again_sel:
+        _fail("scale labs: two runs of the soak day on the card differ")
+    if [p for p, _ in first_sel] != [p for p, _ in cpu_sel]:
+        _fail("scale labs: the soak day's selections differ on the card and the CPU")
+    score_gap = 0.0
+    for (peer, g), (_, w) in zip(first_sel, cpu_sel):
+        if [pid for pid, _ in g] != [pid for pid, _ in w]:
+            _fail(f"scale labs: {peer}'s parents differ on the card and the CPU")
+        score_gap = max([score_gap] + [abs(a - b) for (_, a), (_, b) in zip(g, w)])
+    if score_gap > SCALE_ATOL:
+        _fail(f"scale labs: soak-day scores differ by {score_gap:.3g} on the card and the CPU")
+    view_gap = _scale_close(deterministic_view(first), deterministic_view(cpu))
+    fam = first["fault_families"]
+    if not all(fam.values()) or first["stats"]["pieces"] == 0:
+        _fail(f"scale labs: the soak day left a fault family at zero: {fam}")
+    print(f"scale soak day: two card runs identical (deterministic view, digests included, "
+          f"{len(first_sel)} selections); card vs CPU: selections equal (scores within "
+          f"{score_gap:.3g}), every integer, string and digest of the view equal but the "
+          f"ledger's and the tail's score digests, floats within {view_gap:.3g}; fault "
+          f"families {fam}")
+    for label, r in (("scale soak day, card run 1", first), ("scale soak day, card run 2", again),
+                     ("scale soak day, CPU run", cpu)):
+        _scale_line(label, r, card)
+
+
+def _scale_planet(card: str, device: str) -> None:
+    """(b) the 10^6-host planet slice (ticks SCALE_PROFILED_TICKS profiled)
+    and the 50k-host soak smoke, on the card."""
+    planet, _, prof = _scale_run(device, profiled=SCALE_PROFILED_TICKS, **SCALE_PLANET)
+    st = planet["stats"]
+    if st["completed"] != st["registered"] or st["registered"] <= SCALE_PLANET_REGISTERED:
+        _fail(f"scale labs: the 10^6-host slice registered {st['registered']} and completed "
+              f"{st['completed']}")
+    _scale_line("scale planet 10^6", planet, card)
+    if prof["ticks"]:
+        print(f"scale planet 10^6 profiled ticks {list(SCALE_PROFILED_TICKS)}: "
+              f"{prof['tick_ms'] / prof['ticks']:.3f} ms a tick (host clock, profiled), "
+              f"{prof['launches'] / prof['ticks']:.0f} launches and "
+              f"{prof['device_ms'] / prof['ticks']:.4f} ms of device kernels a tick, device busy "
+              f"{100 * prof['device_ms'] / max(prof['tick_ms'], 1e-9):.1f}% of the ticks ({card})")
+    smoke, _, _ = _scale_run(device, **SCALE_SMOKE)
+    st = smoke["stats"]
+    if st["pieces"] <= 10_000 or st["completed"] <= 500 or len(smoke["regions"]) != 4:
+        _fail(f"scale labs: the 50k soak smoke gave {st['pieces']} pieces, {st['completed']} "
+              f"completed, {len(smoke['regions'])} regions")
+    _scale_line("scale soak smoke 50k", smoke, card)
+    print(f"scale soak smoke 50k fault families {smoke['fault_families']}")
+
+
+def _scale_fleet(card: str, device: str) -> None:
+    """(c) the fleet builtin: the plain run, K = 1 (equal outside the
+    fleet columns) and K = SCALE_FLEET_K (a kill loses zero downloads, the
+    announce page fires at the kill round and clears)."""
+    from dragonfly2_tpu_torch.megascale.soak import run_megascale
+
+    plain = run_megascale(device=device, **SCALE_FLEET)
+    one = run_megascale(device=device, fleet_replicas=1, **SCALE_FLEET)
+    for key in ("stats", "fault_schedule_digest", "decisions", "slo", "scheduler_counts",
+                "regions", "mega", "failover", "recovery"):
+        if one[key] != plain[key]:
+            _fail(f"scale labs: the K = 1 fleet's {key} differs from the plain run's")
+    cols = {"fleet_pieces", "fleet_handoffs", "shards_in_ring", "shards_down"}
+    if one["tail"]["digest"] != plain["tail"]["digest"] or [
+            {k: v for k, v in s.items() if k not in cols} for s in one["timeline"]] \
+            != plain["timeline"]:
+        _fail("scale labs: the K = 1 fleet's tail or timeline differs from the plain run's")
+    many = run_megascale(device=device, fleet_replicas=SCALE_FLEET_K, **SCALE_FLEET)
+    st, fl = many["stats"], many["fleet"]
+    kills = [v["round"] for v in fl["crash_victims"]]
+    pages = [e for e in many["slo"]["alert_log"]
+             if e["slo"] == "announce_stability" and e["severity"] == "page"]
+    fired = [e["t"] for e in pages if e["event"] == "fired"]
+    cleared = [e["t"] for e in pages if e["event"] == "cleared"]
+    if st["failed"] or not kills or not fired or any(
+            t not in kills or not any(c > t for c in cleared) for t in fired):
+        _fail(f"scale labs: K = {SCALE_FLEET_K}: failed {st['failed']}, kills {kills}, pages "
+              f"fired {fired}, cleared {cleared}")
+    print(f"scale fleet: K = 1 equals the plain run outside the fleet columns; K = "
+          f"{SCALE_FLEET_K}: {st['injected_scheduler_crashes']} kills at rounds {kills}, 0 lost "
+          f"downloads, pages fired {fired} cleared {cleared}, handoffs {fl['handoffs']}")
+    for label, r in (("plain", plain), ("K = 1", one), (f"K = {SCALE_FLEET_K}", many)):
+        timing = r["timing"]
+        f = timing.get("fleet", {})
+        print(f"scale fleet {label}: wall {timing['wall_s']} s, {r['stats']['pieces']} pieces = "
+              f"{timing['pieces_per_sec']} pieces/s; tick p50s "
+              + ", ".join(f"{k} {v}" for k, v in timing["tick_phases_p50_ms"].items()
+                          if k in ("fused_device_call", "control_dispatch"))
+              + (f"; timing.fleet: aggregate {f['aggregate_pieces_per_sec']} pieces/s, serial "
+                 f"{f['sched_serial_s']} s, critical {f['sched_critical_s']} s, by shard "
+                 f"{f['sched_seconds_by_shard']}, modeled parallel wall "
+                 f"{f['modeled_parallel_wall_s']} s" if f else "")
+              + f" ({card})")
+
+
+def _scale_procday(card: str, device: str) -> None:
+    """(d) the planet of processes (2 schedulers on the card, 3 dfdaemons
+    and a manager) over the procday spec's day: zero lost downloads, P2P
+    completions, the kills at the spec's rounds with failover, the
+    restart waves, each page at its kill round and cleared the round
+    after, every exit code set; then the simulator leg on the card, every
+    divergence metric within its band."""
+    from dragonfly2_tpu_torch.megascale.soak import run_megascale
+    from dragonfly2_tpu_torch.procworld import compute_divergence, real_facts, run_procday
+
+    with tempfile.TemporaryDirectory() as work:
+        run = run_procday(os.path.join(work, "planet"), device=device, **SCALE_PROC)
+    st = run["stats"]
+    cleared = [e["t"] for e in run["slo"]["alert_log"]
+               if e["slo"] == "announce_stability" and e["severity"] == "page"
+               and e["event"] == "cleared"]
+    kills = [5.0, 10.0]  # the procday spec's certain kill every 5th round
+    problems = []
+    if st["lost_downloads"] or not st["completed"] or not st["via_p2p"]:
+        problems.append(f"stats {st}")
+    if run["kill_rounds"] != kills or st["kills"] != len(kills) or st["failovers"] < 1:
+        problems.append(f"kills {run['kill_rounds']}, failovers {st['failovers']}")
+    if st["restarts"] < 4 or run["page_rounds"] != kills or cleared != [k + 1 for k in kills]:
+        problems.append(f"restarts {st['restarts']}, pages {run['page_rounds']}, cleared "
+                        f"{cleared}")
+    if any(code is None for code in run["proc"]["exit_codes"].values()):
+        problems.append(f"exit codes {run['proc']['exit_codes']}")
+    print(f"scale procday: {SCALE_PROC['schedulers']} schedulers on the card, "
+          f"{SCALE_PROC['daemons']} dfdaemons and a manager, {run['rounds']} rounds: wall "
+          f"{run['timing']['wall_s']} s, {st['completed']} downloads = "
+          f"{run['timing']['downloads_per_sec']} downloads/s; stats {st}; kills at "
+          f"{run['kill_rounds']}, pages at {run['page_rounds']}, cleared at {cleared}; exit "
+          f"codes {run['proc']['exit_codes']} (host clock; {card})")
+    if problems:
+        _fail("scale labs: the planet day: " + "; ".join(problems))
+    sim = run_megascale("procday", seed=run["seed"], rounds=run["rounds"], device=device,
+                        **SCALE_PROC_SIM)
+    div = compute_divergence(real_facts(run), sim)
+    for name, m in sorted(div["metrics"].items()):
+        print(f"scale divergence {name}: real {m['real']} sim {m['sim']} value {m['value']} "
+              f"band {m['band']} {'within' if m['within'] else 'OUT OF BAND'}")
+    print(f"scale procday simulator leg: {sim['hosts']} hosts, wall {sim['timing']['wall_s']} s "
+          f"({card})")
+    if not div["all_within"]:
+        _fail("scale labs: a sim-vs-real divergence metric is out of its band")
+
+
+def phase_scale_labs(card: str, tree: str, device: str = "cuda") -> None:
+    """Slice 23's main path: the scale labs driving the port's scheduler
+    on the card (megascale/, procworld/); the planet's processes run the
+    package of ``tree``. No hand kernel is on this path: the flash counts
+    are zeroed before it and must read zero after."""
+    from dragonfly2_tpu_torch.procworld import supervisor
+
+    if supervisor.REPO != pathlib.Path(tree).resolve():
+        _fail(f"the planet would start {supervisor.REPO}'s package, not {tree}'s")
+    phase_start = time.perf_counter()
+    _zero_counts()
+    _zero_wide_counts()
+    _scale_soak_pair(card, device)
+    _scale_planet(card, device)
+    _scale_fleet(card, device)
+    _scale_procday(card, device)
+    if any(_counts().values()) or any(_wide_counts().values()):
+        _fail(f"the scale labs launched a flash kernel: {_counts()} {_wide_counts()}")
+    print(f"scale labs phase: {time.perf_counter() - phase_start:.1f} s ({card})")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--threshold", action="store_true",
@@ -6780,6 +7105,7 @@ def main() -> None:
     phase_data_plane(card, tree)
     phase_manager(card, tree)
     phase_objects(card, tree)
+    phase_scale_labs(card, tree)
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]

@@ -47,8 +47,10 @@ What differs from the reference:
   requires it): it then takes its first scheduler list from the manager
   before it starts, as the Go dfdaemon's dynconfig loads at construction
   (client/daemon.py).
-- a dfdaemon's megascale `--scenario` (the lab's specs, ROADMAP A11)
-  exits non-zero naming A11.
+- a dfdaemon's `--scenario` resolves through scenarios/spec.py's
+  `resolve_scenario` (the megascale builtins, then the scenario lab's),
+  where the reference imports it from megascale/soak.py: the daemon
+  loads no torch.
 """
 
 from __future__ import annotations
@@ -60,11 +62,6 @@ import logging
 import os
 import signal
 import sys
-
-# the megascale lab's scenario specs (the reference's megascale_scenarios),
-# which a dfdaemon's --scenario may name there
-MEGASCALE_SCENARIOS = ("planet", "soak", "fleet", "procday")
-
 
 def idgen_host_id(ip: str, hostname: str) -> str:
     from dragonfly2_tpu_torch.utils import idgen
@@ -547,16 +544,19 @@ def _fault_injector(args):
     if not args.scenario:
         return None
     from dragonfly2_tpu_torch.scenarios.engine import FaultInjector
-    from dragonfly2_tpu_torch.scenarios.spec import builtin_scenarios
+    from dragonfly2_tpu_torch.scenarios.spec import (
+        builtin_scenarios,
+        megascale_scenarios,
+        resolve_scenario,
+    )
 
-    if args.scenario in MEGASCALE_SCENARIOS:
-        raise SystemExit(f"dfdaemon: --scenario {args.scenario} is a megascale lab spec, "
-                         "not ported yet (ROADMAP A11)")
-    specs = builtin_scenarios()
-    if args.scenario not in specs:
+    try:
+        spec = resolve_scenario(args.scenario)
+    except KeyError:
+        known = sorted({*megascale_scenarios(), *builtin_scenarios()})
         raise SystemExit(f"dfdaemon: unknown --scenario {args.scenario!r}; "
-                         f"known: {', '.join(sorted(specs))}")
-    return FaultInjector(specs[args.scenario], seed=args.scenario_seed)
+                         f"known: {', '.join(known)}") from None
+    return FaultInjector(spec, seed=args.scenario_seed)
 
 
 def _object_storage_options(args) -> dict | None:

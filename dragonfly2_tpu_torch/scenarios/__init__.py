@@ -23,8 +23,9 @@ premise needs, deterministically from a (spec, seed) pair:
                 grid with paired seeds and confidence intervals; its ml
                 arm trains through the trainer service.
 
-The reference's megascale builtins come with the scale labs (ROADMAP A11),
-its ``bench_scenarios.py`` CLI with the port's bench harness (A6).
+The megascale builtins (``megascale_scenarios``) drive the megascale lab
+(megascale/) and the process planet (procworld/); the reference's
+``bench_scenarios.py`` CLI comes with the port's bench harness (A6).
 """
 
 from dragonfly2_tpu_torch.scenarios.spec import (  # noqa: F401
@@ -40,5 +41,7 @@ from dragonfly2_tpu_torch.scenarios.spec import (  # noqa: F401
     WanSpec,
     builtin_scenarios,
     load_scenario,
+    megascale_scenarios,
+    resolve_scenario,
 )
 from dragonfly2_tpu_torch.scenarios.engine import FaultInjector, ScenarioEngine  # noqa: F401

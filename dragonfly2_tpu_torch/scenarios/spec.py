@@ -182,7 +182,7 @@ class ScenarioSpec:
     flaky: FlakySpec = dataclasses.field(default_factory=FlakySpec)
     skew: SkewSpec = dataclasses.field(default_factory=SkewSpec)
     control: ControlPlaneSpec = dataclasses.field(default_factory=ControlPlaneSpec)
-    # megascale scenario lab (the reference's megascale/, ROADMAP A11): multi-region WAN
+    # megascale scenario lab (megascale/): multi-region WAN
     # topology, diurnal arrival, flash crowds, rolling upgrades — all
     # default-disabled so every pre-existing builtin is bit-unchanged
     wan: WanSpec = dataclasses.field(default_factory=WanSpec)
@@ -407,3 +407,197 @@ def builtin_scenarios() -> dict[str, ScenarioSpec]:
             ),
         ),
     }
+
+
+def megascale_scenarios() -> dict[str, ScenarioSpec]:
+    """Megascale scenario-lab builtins (megascale/): specs
+    whose WAN/traffic extensions only the event-batch engine can drive at
+    fidelity. Kept out of ``builtin_scenarios`` so the BENCH_scenarios
+    A/B grid (which replays every builtin through the per-peer oracle)
+    is unchanged.
+
+    - ``planet``: the scale proof — multi-region WAN, diurnal Zipf
+      arrivals, flash-crowd preheat storms; NO per-piece fault families,
+      so a 10^5-host run measures the engine and scheduler, not blake2b;
+    - ``soak``: the compressed "24 h in production" trace — every fault
+      family at once (control-plane chaos + partitions, corruption,
+      churn + rolling upgrades, flash crowds) on the WAN topology;
+    - ``fleet``: the sharded-control-plane soak — the chaos families
+      that exercise a SchedulerFleet's ring (scheduler crashes,
+      partitions, rolling-upgrade restarts) plus the flaky/churn
+      families that keep downloads in flight across rounds, WITHOUT
+      the corruption family, so a 10^6-host K-replica run measures
+      handoff/rebalance behavior rather than blake2b.
+    """
+    day = 96  # compressed day: 96 rounds = one "15-minute" tick per round
+    wan = WanSpec(
+        regions=4, seeds_per_region=3, wan_rtt_ms=85.0,
+        wan_bandwidth_bps=20e6, back_to_source_penalty_ms=250.0,
+    )
+    traffic = TrafficSpec(
+        day_rounds=day, peak_multiplier=3.0, trough_multiplier=0.25,
+        # moderate skew: the top task draws ~10% of arrivals — deep
+        # swarms without every hot task slamming its peer-DAG cap (the
+        # capacity-bounded swarm spill to origin is exercised by the
+        # flash crowds, not the steady state)
+        zipf_alpha=0.9, rotate_hot_tasks=4,
+    )
+    flash = FlashCrowdSpec(
+        events_per_day=3, arrival_multiplier=5.0, duration_rounds=4,
+        hot_tasks=4,
+    )
+    return {
+        "planet": ScenarioSpec(
+            name="planet",
+            description=(
+                "planet-scale day: 4 WAN regions with in-region seeds, "
+                "diurnal Zipf arrivals rotating hot content, flash-crowd "
+                "preheat storms — no injected faults, pure scale"
+            ),
+            link=LinkSpec(slow_fraction=0.3, slow_multiplier=0.25),
+            wan=wan, traffic=traffic, flash=flash,
+        ),
+        "soak": ScenarioSpec(
+            name="soak",
+            description=(
+                "24h-in-production soak: every fault family at once — "
+                "scheduler crashes + silent partitions (chaos), corrupt "
+                "parents (integrity), peer churn + rolling-upgrade waves, "
+                "flash crowds — over the 4-region WAN topology"
+            ),
+            link=LinkSpec(
+                slow_fraction=0.3, slow_multiplier=0.25,
+                spine_oversubscription=2.0,
+            ),
+            churn=ChurnSpec(
+                peer_crash_rate=0.06, crash_progress=0.5,
+                host_leave_rate=0.04, leave_epoch_rounds=16,
+            ),
+            flaky=FlakySpec(
+                parent_fraction=0.18, piece_error_rate=0.10,
+                piece_stall_rate=0.05, stall_seconds=0.2,
+                piece_corrupt_rate=0.10, corrupt_mode="bitflip",
+            ),
+            skew=SkewSpec(zipf_alpha=1.1),
+            control=ControlPlaneSpec(
+                scheduler_crash_rate=0.7, crash_epoch_rounds=16,
+                partition_rate=0.08, partition_epoch_rounds=12,
+            ),
+            wan=wan, traffic=traffic, flash=flash,
+            upgrade=UpgradeSpec(
+                waves_per_day=1, wave_rounds=24, cohort_fraction=0.04
+            ),
+        ),
+        "fleet": ScenarioSpec(
+            name="fleet",
+            description=(
+                "sharded control-plane day: scheduler crashes, silent "
+                "partitions and rolling-upgrade waves against K hashring "
+                "replicas over the 4-region WAN; flaky parents + churn "
+                "keep downloads in flight across rounds (so a replica "
+                "kill catches real in-flight peers to hand off) but NO "
+                "corruption family — 10^6-host fleet runs measure the "
+                "ring, not blake2b"
+            ),
+            link=LinkSpec(
+                slow_fraction=0.3, slow_multiplier=0.25,
+                spine_oversubscription=2.0,
+            ),
+            churn=ChurnSpec(
+                peer_crash_rate=0.06, crash_progress=0.5,
+                host_leave_rate=0.04, leave_epoch_rounds=16,
+            ),
+            flaky=FlakySpec(
+                parent_fraction=0.18, piece_error_rate=0.10,
+                piece_stall_rate=0.05, stall_seconds=0.2,
+            ),
+            # milder popularity skew than the soak's (static fallback
+            # when the diurnal traffic model is off): task sharding puts
+            # each hot swarm wholly on ONE replica, so a zipf>=1 day is
+            # a single-swarm hot-spot benchmark, not a control-plane one
+            skew=SkewSpec(zipf_alpha=0.8),
+            control=ControlPlaneSpec(
+                scheduler_crash_rate=0.7, crash_epoch_rounds=16,
+                partition_rate=0.08, partition_epoch_rounds=12,
+            ),
+            wan=wan,
+            # the scaling cell measures the RING, so the day is a broad
+            # catalog: alpha 0.5 with 12 hot-set rotations keeps
+            # popularity skewed while the busiest replica's cut of the
+            # day stays near 1/K, and flash storms burst over 16 tasks
+            # instead of slamming one shard's band — the hottest swarm
+            # also stays inside the per-task peer cap rather than
+            # spilling its overflow to origin
+            traffic=TrafficSpec(
+                day_rounds=day, peak_multiplier=3.0,
+                trough_multiplier=0.25,
+                zipf_alpha=0.5, rotate_hot_tasks=12,
+            ),
+            flash=FlashCrowdSpec(
+                events_per_day=3, arrival_multiplier=2.0,
+                duration_rounds=4, hot_tasks=16,
+            ),
+            upgrade=UpgradeSpec(
+                waves_per_day=1, wave_rounds=24, cohort_fraction=0.04
+            ),
+        ),
+        "procday": ScenarioSpec(
+            name="procday",
+            description=(
+                "process-planet day: the compressed day the REAL "
+                "multi-process deployment (procworld) drives end to end "
+                "— 12 two-hour rounds over a 3-region WAN, a certain "
+                "scheduler kill every 5th round, one rolling-restart "
+                "wave covering a third of the fleet, flaky parents "
+                "keeping downloads in flight across kills; NO "
+                "corruption family (byte identity is asserted against "
+                "the attested chain, not injected against it). The "
+                "SAME spec runs through run_megascale for the "
+                "sim-vs-real divergence report, so every knob here is "
+                "sized for a 3-daemon planet: short stalls, certain "
+                "kills, coarse rounds"
+            ),
+            link=LinkSpec(slow_fraction=0.2, slow_multiplier=0.5),
+            flaky=FlakySpec(
+                # real sockets pay these stalls in wall time — keep
+                # them short but present, so kill windows land on
+                # genuinely in-flight transfers
+                parent_fraction=0.25, piece_error_rate=0.05,
+                piece_stall_rate=0.10, stall_seconds=0.05,
+            ),
+            control=ControlPlaneSpec(
+                # crash_rate=1.0: the kill schedule is CERTAIN, so the
+                # page-at-the-kill assertion is deterministic in the
+                # spec alone — kills at rounds 5 and 10 of a 12-round
+                # day, for sim and planet alike
+                scheduler_crash_rate=1.0, crash_epoch_rounds=5,
+                partition_rate=0.25, partition_epoch_rounds=6,
+            ),
+            wan=WanSpec(
+                regions=3, seeds_per_region=1, wan_rtt_ms=85.0,
+                wan_bandwidth_bps=20e6, back_to_source_penalty_ms=250.0,
+            ),
+            traffic=TrafficSpec(
+                # 12 rounds x 120 sim-minutes: coarse enough that a real
+                # round (seconds of wall time) stands in for a tick, and
+                # the SLO burn windows clamp to single-round width — a
+                # kill-round backlog pages AT the kill, not smeared
+                day_rounds=12, peak_multiplier=2.0,
+                trough_multiplier=0.5, zipf_alpha=0.8,
+                rotate_hot_tasks=2,
+            ),
+            upgrade=UpgradeSpec(
+                waves_per_day=1, wave_rounds=4, cohort_fraction=0.34
+            ),
+        ),
+    }
+
+
+def resolve_scenario(name: str) -> ScenarioSpec:
+    """A spec by name: the megascale builtins first, then the scenario
+    lab's. Here rather than in megascale/soak.py (where the reference has
+    it) so that a dfdaemon resolving its --scenario imports no torch."""
+    mega = megascale_scenarios()
+    if name in mega:
+        return mega[name]
+    return builtin_scenarios()[name]

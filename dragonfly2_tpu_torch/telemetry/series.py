@@ -2,9 +2,9 @@
 scheduler and trainer services export (the scheduler's, the trainer's,
 the decision ledger's, the SLO engine's, the rpc breakers', the device
 entry counters', the ml arm's activation gate's, the dfdaemon's, the
-tail plane's, the manager's, the cost cards' and the soak timelines'),
-the traffic label values and the version gauge. The megascale, fleet and
-process families come with the scale labs (ROADMAP A11).
+tail plane's, the manager's, the cost cards', the soak timelines', the
+megascale engine's, the scheduler fleet's and the process planet's), the
+traffic label values and the version gauge.
 
 Capability parity with scheduler/metrics/metrics.go:44-454 (per-RPC
 totals + failure twins, `traffic` by type/task_type/task_tag/task_app/
@@ -404,6 +404,58 @@ def slo_series(reg) -> _Namespace:
     )
 
 
+def megascale_series(reg) -> _Namespace:
+    """Megascale scenario lab (megascale/): the event-batch
+    engine's per-step phase breakdown (fault application, arrivals, the
+    scheduler tick, the vectorised event batch, retirement) plus event
+    throughput — the lab's analogue of the scheduler tick phases, read by
+    the soak report through the same PhaseRecorder ring operators
+    scrape."""
+    return _Namespace(
+        step_phase=reg.histogram(
+            "dragonfly_megascale_step_phase_seconds",
+            "per-phase engine step wall time", ("phase",),
+            buckets=(.001, .005, .02, .1, .5, 2, 10, 60),
+        ),
+        piece_events=reg.counter(
+            "dragonfly_megascale_piece_events_total",
+            "piece-transfer events simulated by the event-batch engine",
+        ),
+    )
+
+
+def fleet_series(reg) -> _Namespace:
+    """Sharded control plane (megascale/fleet.py): K task-sharded
+    scheduler replicas behind one consistent hashring. Handoffs count
+    the cross-scheduler peer moves a ring rebalance forces (labelled by
+    why the owner moved), per-shard piece/restart counters attribute
+    load and churn to individual replicas, and the ring-membership gauge
+    is the live shard census a fleet dashboard alerts on."""
+    return _Namespace(
+        handoffs=reg.counter(
+            "dragonfly_fleet_peer_handoffs_total",
+            "in-flight peers handed off to a new ring-owner scheduler "
+            "replica, by cause of the ownership move",
+            ("reason",),
+        ),
+        shard_pieces=reg.counter(
+            "dragonfly_fleet_shard_pieces_total",
+            "piece-finished reports routed to each scheduler replica",
+            ("shard",),
+        ),
+        shard_restarts=reg.counter(
+            "dragonfly_fleet_shard_restarts_total",
+            "times each scheduler replica rejoined the ring after a "
+            "crash or rolling-upgrade restart",
+            ("shard",),
+        ),
+        shards_in_ring=reg.gauge(
+            "dragonfly_fleet_shards_in_ring",
+            "scheduler replicas currently serving ring ranges",
+        ),
+    )
+
+
 def daemon_series(reg) -> _Namespace:
     c = reg.counter
     return _Namespace(
@@ -491,6 +543,53 @@ def tail_series(reg) -> _Namespace:
             "exemplar downloads currently retained by the deterministic "
             "sampler (slowest-K always kept; uniform ring bounded)",
             ("source", "kind"),
+        ),
+    )
+
+
+def proc_series(reg) -> _Namespace:
+    """Real-process planet families (procworld/supervisor.py): the
+    supervision plane over actual OS processes — restarts (rolling
+    upgrades + crash recovery), SIGTERM->SIGKILL stop escalations,
+    liveness-probe failures, injected process-level chaos ops, the live
+    process census, and the sim-vs-real divergence gauges the harness
+    publishes after comparing a run against the simulated oracle."""
+    return _Namespace(
+        processes=reg.gauge(
+            "dragonfly_proc_processes",
+            "supervised service processes currently running, by role",
+            ("role",),
+        ),
+        restarts=reg.counter(
+            "dragonfly_proc_restarts_total",
+            "supervised process restarts (rolling-upgrade waves and "
+            "post-SIGKILL crash recovery), by role",
+            ("role",),
+        ),
+        stop_escalations=reg.counter(
+            "dragonfly_proc_stop_escalations_total",
+            "graceful stops that blew the grace window and escalated "
+            "to a harder signal",
+            ("signal",),
+        ),
+        liveness_failures=reg.counter(
+            "dragonfly_proc_liveness_failures_total",
+            "liveness probes that failed against a process the "
+            "supervisor believed alive, by role",
+            ("role",),
+        ),
+        chaos_ops=reg.counter(
+            "dragonfly_proc_chaos_ops_total",
+            "process-level chaos operations injected by the harness "
+            "(sigkill / sigstop / sigcont)",
+            ("op",),
+        ),
+        sim_real_divergence=reg.gauge(
+            "dragonfly_proc_sim_real_divergence",
+            "sim-vs-real divergence value per compared metric "
+            "(ratio or delta; each metric's tolerance band travels in "
+            "the BENCH_proc artifact, not here)",
+            ("metric",),
         ),
     )
 

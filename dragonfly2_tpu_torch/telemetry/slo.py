@@ -2,8 +2,10 @@
 ``scheduler_slo_specs`` and the process verdict plane
 (``health_verdict`` and its ``/debug/health`` query,
 ``parse_health_query``), what the scheduler service and its HTTP routes
-run. The megascale SLI derivation and the artifact report come with the
-modules that write them (ROADMAP A11).
+run, and the megascale SLI derivation (``megascale_slo_specs``,
+``feed_megascale_sample``, the offline ``replay_timeline`` and the
+artifact's ``slo_report``) the megascale lab and the process planet
+feed.
 
 Streaming SLO engine: declarative objectives over sliding good/bad
 counters and multi-window multi-burn-rate alerting, after the Google SRE
@@ -15,8 +17,9 @@ alerting rules in ``deploy/``:
   window, and its burn-rate alert rules (default: the fast-page 5m/1h
   pair at 14.4x budget burn and the slow-ticket 30m/6h pair at 6x).
 - :class:`SLOEngine` — sliding good/bad event counters per SLO over a
-  caller-supplied clock (the wall clock, ``perf_counter`` minutes, in
-  the live service). A burn-rate alert fires only while BOTH its windows
+  caller-supplied clock: the EVENT clock in megascale replays
+  (bit-deterministic — same spec + seed, identical alert timelines) and
+  the wall clock (``perf_counter`` minutes) in the live service. A burn-rate alert fires only while BOTH its windows
   burn above the rule factor, so it pages fast on a real spike and
   clears as soon as the short window drains. Every engine folds its
   firing alerts into a three-state verdict (``ok`` / ``degraded`` /
@@ -595,6 +598,171 @@ def health_verdict(last_n: int = 32,
                 "dropped_evaluations": True,
             }
     return body
+
+
+# ----------------------------------------------- megascale SLI derivation
+
+
+# Per-region time-to-complete tier: an interval whose streaming p95
+# exceeds this is a bad TTC interval. Generous against the measured
+# planet-day steady state (p50 ~2.2 s in the reference's BENCH_mega.json) so the clean-day
+# alert-noise gate holds; the WAN tier model (2103.10515) prices the
+# worst in-region path well under it.
+MEGASCALE_TTC_P95_MS = 60_000.0
+
+
+def megascale_slo_specs(regions: Iterable[str]) -> tuple[SLOSpec, ...]:
+    """The megascale lab's SLO set, sized against the soak/planet
+    builtins: integrity (corruption rate), announce stability
+    (scheduler-loss re-announces — the SLI a scheduler kill burns),
+    origin offload (the <10% origin-fraction north star), breaker
+    census, and one per-region TTC objective."""
+    specs = [
+        SLOSpec(
+            "integrity", sli="integrity", objective=0.995,
+            description="pieces free of digest-verified corruption",
+        ),
+        SLOSpec(
+            "announce_stability", sli="announce", objective=0.999,
+            description="completions not forced to re-announce by "
+                        "scheduler loss",
+        ),
+        SLOSpec(
+            "origin_offload", sli="origin", objective=0.90,
+            description="piece traffic served peer-to-peer instead of "
+                        "falling back to origin",
+        ),
+        SLOSpec(
+            "breaker_health", sli="breakers", objective=0.5,
+            burn_rules=SUSTAINED_BURN_RULES,
+            description="evaluation intervals without open circuit "
+                        "breakers anywhere in the process",
+        ),
+    ]
+    for region in regions:
+        specs.append(SLOSpec(
+            f"ttc_{region}", sli=f"ttc_{region}", objective=0.95,
+            min_events=4,
+            description=f"intervals whose {region} completion-time p95 "
+                        f"stays under {MEGASCALE_TTC_P95_MS / 1e3:.0f}s",
+        ))
+    return tuple(specs)
+
+
+def feed_megascale_sample(engine: SLOEngine, sample: Mapping[str, Any]) -> dict:
+    """Derive every megascale SLI from ONE timeline sample, feed the
+    engine, and step it at the sample's event clock. A pure function of
+    the sample dict — the engine inside EventBatchEngine and the
+    offline :func:`replay_timeline` path MUST produce identical alert
+    timelines from identical samples (pinned by tests/test_torch_megascale.py)."""
+    pieces = int(sample.get("pieces") or 0)
+    corruptions = int(sample.get("corruptions") or 0)
+    hint = sample.get("tail_dominant_phase")
+    engine.set_tail_hint(hint if isinstance(hint, str) else None)
+    engine.observe(
+        "integrity", good=max(pieces - corruptions, 0), bad=corruptions
+    )
+    completed = int(sample.get("completed") or 0)
+    reannounced = int(sample.get("reannounce_backlog") or 0)
+    engine.observe("announce", good=completed, bad=reannounced)
+    origin_fraction = float(sample.get("origin_fraction") or 0.0)
+    bad_origin = int(round(pieces * origin_fraction))
+    engine.observe(
+        "origin", good=max(pieces - bad_origin, 0), bad=bad_origin
+    )
+    open_breakers = int(sample.get("breaker_open") or 0)
+    engine.observe(
+        "breakers",
+        good=0 if open_breakers else 1,
+        bad=open_breakers,
+    )
+    p95_by_region = sample.get("ttc_ms_p95") or {}
+    if isinstance(p95_by_region, Mapping):
+        for region in sorted(p95_by_region):
+            p95 = p95_by_region[region]
+            if p95 is None:
+                continue
+            ok = float(p95) <= MEGASCALE_TTC_P95_MS
+            engine.observe(
+                f"ttc_{region}", good=1 if ok else 0, bad=0 if ok else 1
+            )
+    return engine.step(float(sample["t"]))
+
+
+def replay_timeline(
+    samples: Iterable[Mapping[str, Any]],
+    minutes_per_unit: float,
+    specs: Iterable[SLOSpec] | None = None,
+) -> dict:
+    """Replay a recorded megascale timeline against an SLO config on a
+    FRESH engine (isolated metrics registry — a replay must not clobber
+    the live process gauges) and return the full judgment: per-sample
+    verdict columns, the alert log, and the page/ticket verdict
+    ``tools/dfslo.py`` exits on. Bit-deterministic in the samples."""
+    from dragonfly2_tpu_torch.telemetry.metrics import Registry
+
+    samples = list(samples)
+    if specs is None:
+        regions: list[str] = []
+        for s in samples:
+            p95 = s.get("ttc_ms_p95")
+            if isinstance(p95, Mapping):
+                regions = sorted(p95)
+                break
+        specs = megascale_slo_specs(regions)
+    engine = SLOEngine(
+        specs, minutes_per_unit=minutes_per_unit, registry=Registry()
+    )
+    columns: list[dict] = []
+    for sample in samples:
+        step = feed_megascale_sample(engine, sample)
+        columns.append({
+            "t": sample["t"],
+            "slo_verdict": step["verdict_code"],
+            "slo_alerts_firing": step["alerts_firing"],
+            "slo_pages_fired": step["pages_fired"],
+            "slo_tickets_fired": step["tickets_fired"],
+        })
+    final = engine.verdict()
+    return {
+        "samples": columns,
+        "alert_log": list(engine.alert_log),
+        "pages_fired": engine.pages_fired,
+        "tickets_fired": engine.tickets_fired,
+        "paged": engine.pages_fired > 0,
+        "verdict_final": final["state"],
+        "worst_verdict": VERDICT_NAMES[
+            max((c["slo_verdict"] for c in columns), default=0)
+        ],
+        "budget_remaining": {
+            name: ev.get("budget_remaining")
+            for name, ev in engine.dump()["evaluations"].items()
+        },
+    }
+
+
+def slo_report(engine: SLOEngine, last_n: int = 256) -> dict:
+    """The flattened SLO block artifact writers consume (megascale soak
+    report, bench_megascale summary): deterministic on the event clock."""
+    d = engine.dump(last_n=last_n)
+    budgets = {
+        name: ev.get("budget_remaining")
+        for name, ev in d["evaluations"].items()
+    }
+    finite = [b for b in budgets.values() if isinstance(b, (int, float))]
+    return {
+        "verdict_final": d["verdict"]["state"],
+        "verdict_code_final": d["verdict"]["state_code"],
+        "pages_fired": d["pages_fired"],
+        "tickets_fired": d["tickets_fired"],
+        "alerts_fired": d["pages_fired"] + d["tickets_fired"],
+        "budget_remaining": budgets,
+        # worst-case budget consumption across SLOs, as a single
+        # lower-is-better artifact cell (benchwatch direction tables)
+        "budget_burn": round(1.0 - min(finite), 4) if finite else 0.0,
+        "alert_log": d["alert_log"],
+        "slos": sorted(engine.specs),
+    }
 
 
 # ------------------------------------------------- scheduler (wall clock)

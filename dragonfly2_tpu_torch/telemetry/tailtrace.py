@@ -3,8 +3,8 @@ decomposition.
 
 Port of dragonfly2_tpu/telemetry/tailtrace.py, whole: the same phases,
 the same splitmix64 sampling bit for bit, the same reports and digest.
-The megascale plane that also feeds it in the reference is ROADMAP A11;
-here the daemon feeds it.
+The dfdaemon feeds it over real transfers and the megascale engine
+(megascale/engine.py) over modeled ones, on the event clock.
 
 The observability planes before this one can say WHICH parent was chosen
 (telemetry/decisions.py), WHETHER the planet is healthy (telemetry/slo.py)

@@ -14,7 +14,7 @@
 - What the port refuses: s3/oss/obs sources and the daemon's manager and
   object-storage edges name ROADMAP A9 part 3.
 - A subprocess check that the daemon, the CLIs and ``cmd.py dfdaemon``'s
-  path load no torch.
+  path, a megascale ``--scenario soak`` among its options, load no torch.
 """
 
 from __future__ import annotations
@@ -591,6 +591,9 @@ d.object_storage._httpd.server_close()
 from dragonfly2_tpu_torch.telemetry.series import daemon_series, register_version
 from dragonfly2_tpu_torch.telemetry import default_registry
 register_version(default_registry(), "dfdaemon")
+scenario_args = cmd.build_parser().parse_args(["dfdaemon", "--data-dir", "d", "--scheduler",
+                                               "127.0.0.1:1", "--scenario", "soak"])
+assert cmd._fault_injector(scenario_args).spec.name == "soak"  # a megascale spec
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "dragonfly2_tpu"))
 print("BAD=" + ",".join(bad))
 """

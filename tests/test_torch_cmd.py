@@ -12,8 +12,9 @@ plane: a scheduler process, two dfdaemon processes and the reference's
 dfdaemon (READY lines of one format), files pulled through the daemons'
 proxies and by a dfget process, each verified, the origin fetched once;
 a dfdaemon dialing an mTLS scheduler with --tls-dir. Then what the launchers refuse: the manager, every manager edge and the
-dfdaemon's object storage (A9 part 3), a megascale scenario (A11), and a
-default device without a card.
+dfdaemon's object storage (A9 part 3), and a default device without a
+card; and a dfdaemon that starts on a megascale scenario, its fault
+injector drawing the reference's schedule.
 """
 
 from __future__ import annotations
@@ -257,17 +258,45 @@ DFDAEMON = ["dfdaemon", "--data-dir", "d", "--scheduler", "127.0.0.1:1"]
                  "--object-storage-endpoint", "127.0.0.1:9"],
      {"DRAGONFLY_OBJ_ACCESS_KEY": "", "DRAGONFLY_OBJ_SECRET_KEY": ""},
      "needs DRAGONFLY_OBJ_ACCESS_KEY and DRAGONFLY_OBJ_SECRET_KEY"),
-    (DFDAEMON + ["--scenario", "soak"], {}, "ROADMAP A11"),
     (["scheduler"], {"CUDA_VISIBLE_DEVICES": ""}, "torch.cuda.is_available() is False"),
     (["trainer", "--data-dir", "d", "--registry-dir", "r"], {"CUDA_VISIBLE_DEVICES": ""},
      "torch.cuda.is_available() is False"),
-], ids=["dfdaemon-object-storage", "dfdaemon-megascale-scenario", "scheduler-no-card",
-        "trainer-no-card"])
+], ids=["dfdaemon-object-storage", "scheduler-no-card", "trainer-no-card"])
 def test_launcher_refusals_exit_nonzero(tmp_path, argv, env, needle):
     out = subprocess.run(_cmd(*argv), cwd=tmp_path, env=_env(**env), capture_output=True,
                          text=True, timeout=120)
     assert out.returncode != 0 and needle in out.stderr, out.stderr
     assert "READY" not in out.stdout
+
+
+def test_dfdaemon_megascale_scenario(tmp_path):
+    """A dfdaemon given a megascale --scenario starts (READY) and exits 0
+    on SIGTERM; its fault injector, built from the same arguments, draws
+    the reference's schedule on the reference's spec: the same fault, the
+    same corrupted bytes, piece for piece."""
+    from dragonfly2_tpu.megascale.soak import resolve_scenario as ref_resolve
+    from dragonfly2_tpu.scenarios.engine import FaultInjector as RefInjector
+    from dragonfly2_tpu_torch import cmd
+
+    argv = ["dfdaemon", "--data-dir", str(tmp_path / "d"), "--scheduler", "127.0.0.1:1",
+            "--hostname", "mega", "--metrics-port", "0", "--scenario", "soak",
+            "--scenario-seed", "3"]
+    proc, ready, _ = _spawn(argv, tmp_path / "dfdaemon.log")
+    try:
+        assert ready[0] == "READY"
+    finally:
+        rc, seconds = _stop(proc)
+    assert rc == 0 and seconds < 10, (tmp_path / "dfdaemon.log").read_text()
+    got = cmd._fault_injector(cmd.build_parser().parse_args(argv))
+    want = RefInjector(ref_resolve("soak"), seed=3)
+    faults = [got.piece_fault(f"task-{t}", p) for t in range(40) for p in range(16)]
+    assert faults == [want.piece_fault(f"task-{t}", p) for t in range(40) for p in range(16)]
+    assert {"error", "stall", "corrupt"} <= set(faults)  # the soak spec's three families
+    data = bytes(range(256)) * 4
+    assert [got.corrupt_bytes(f"task-{t}", t % 7, data) for t in range(20)] == \
+        [want.corrupt_bytes(f"task-{t}", t % 7, data) for t in range(20)]
+    with pytest.raises(SystemExit, match="unknown --scenario 'nope'; known: .*procday"):
+        cmd._fault_injector(cmd.build_parser().parse_args(argv[:-3] + ["nope"]))
 
 
 def test_version_and_tls_dir_without_material(tmp_path):

@@ -1,7 +1,7 @@
 """The torch port stands alone: importing every module of
 dragonfly2_tpu_torch, chip_smoke.py and the port's measurement scripts
-tools/{tick_wrapper,train_register}_cost.py loads no jax, flax or
-dragonfly2_tpu module."""
+tools/{tick_wrapper,train_register}_cost.py loads no jax, flax,
+dragonfly2_tpu or tools.dflint module."""
 
 import os
 import subprocess
@@ -21,6 +21,7 @@ import tools.train_register_cost
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "dragonfly2_tpu")
+    or m == "tools.dflint" or m.startswith("tools.dflint.")
 )
 print(f"MODULES={len(names)}")
 print(f"NAMES={','.join(names)}")
@@ -69,7 +70,12 @@ def test_port_imports_no_jax_flax_or_reference():
                    # slice 22: object storage, the shared caches, the cost cards
                    "objectstorage", "objectstorage.backends", "objectstorage.signing",
                    "objectstorage.remote", "objectstorage.service", "utils.cache",
-                   "utils.dfpath", "telemetry.costcard"):
+                   "utils.dfpath", "telemetry.costcard",
+                   # slice 23: the scale labs
+                   "megascale", "megascale.topology", "megascale.engine", "megascale.soak",
+                   "megascale.fleet", "procworld", "procworld.origin", "procworld.sample",
+                   "procworld.divergence", "procworld.supervisor", "procworld.planet",
+                   "rpc.wireskew"):
         assert f"dragonfly2_tpu_torch.{module}" in names, module
     assert lines["TORCH"] == "True"
     assert lines["BAD"] == "", f"port pulled in: {lines['BAD']}"
