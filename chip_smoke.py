@@ -336,7 +336,27 @@ result line:
    torch.cuda.max_memory_allocated; the profiled ticks' launches, device
    ms and busy share; timing.fleet; the planet's wall, downloads/s and
    each divergence metric with its band.
-20. the kernels JSON line and, last, the result line.
+20. tensor, pipeline and expert parallelism (slice 24), every mesh the
+   one card repeated. (a) The bodies at the ranker's widths, float32 (F =
+   128, hidden 512, 5,120 tokens, 4 experts): sharded_tp_ffn on tp 4 and
+   on dp 2 x tp 2, sharded_pipeline_apply on pp 4 over 4 microbatches,
+   sharded_moe_ffn on ep 4 with every token of a shard in capacity and
+   with a capacity that drops, each within 1e-4 of its one-device oracle
+   on the card and of the same call on a CPU mesh, the dropped set the
+   same on both. (b) train_attention from TrainerConfig's defaults and the
+   mesh alone, one epoch each over phase 5's trace: tp on dp 2 x tp 2, ep
+   on dp 2 x ep 2 with 4 experts, pp on pp 2 over 4 microbatches, and the
+   MoE on one device; each training kernel's launches equal to the path's
+   formula, finite losses, the first steps replayed on a CPU mesh of the
+   same shape, and the eval, the step p50 and a profiler split of a step.
+   (c) embed_graph_sharded on dp 2 x graph 2 over phase 12's host graph
+   against GraphSAGERanker.embed, both p50s by CUDA events. (d)
+   make_hybrid_mesh(dcn_dp=2, dp=1, tp=2) in one process (folded to dp 2
+   x tp 2) training (b)'s tp path; then two processes sharing the card
+   over gloo (initialize_distributed, make_hybrid_mesh(dcn_dp=2, dp=1)),
+   one epoch at batch 64, their losses against one process on a dp 2
+   mesh, every exit code 0.
+21. the kernels JSON line and, last, the result line.
 
 Between phases 3 and 4, the host cost of the forward with lse's wrapper at
 the ranker's two trained shapes, [256, 4, 20, 32] and [256, 4, 20, 192]:
@@ -373,6 +393,11 @@ their plain versions at those shapes and times them, with the package
 from DIR (another commit's checkout, built there) or beside the script;
 run it for two trees in turns to compare their kernels in one call. No
 result line.
+
+    python3 chip_smoke.py --dcn-worker RANK,PORT,DIR
+
+is one process of phase 20's two-process leg, which phase 20 starts
+itself; it prints no result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1679,6 +1704,24 @@ def _prescaled_attention(q, k, v, kv_mask=None, causal=False):
     return out[..., :d]
 
 
+def trace(hosts: int = TRACE_HOSTS, n_records: int = TRACE_RECORDS, tasks: int = TRACE_TASKS):
+    """Phase 5's trace (bench_trainer.py's) from the port's synth: (the
+    ranking dataset, the host graph, the download records)."""
+    from dragonfly2_tpu_torch.records import synth
+    from dragonfly2_tpu_torch.records.features import downloads_to_ranking_dataset
+
+    start = time.perf_counter()
+    cluster = synth.make_cluster(hosts, seed=SEED)
+    records = synth.gen_download_records(cluster, n_records, num_tasks=tasks,
+                                         max_parents=MAX_PARENTS)
+    ds, graph = downloads_to_ranking_dataset(records, max_parents=MAX_PARENTS)
+    print(f"trace: {len(records)} download records on {len(graph.host_ids)} hosts "
+          f"({hosts} in the cluster), {tasks} tasks, parents {list(ds.parents.shape)}, "
+          f"valid candidates {int(ds.mask.sum())}; synth + features {time.perf_counter() - start:.1f} s "
+          "(host)")
+    return ds, graph, records
+
+
 def phase_training():
     """Slice 2's main path: trace -> train_attention on cuda -> publish ->
     serve over ModelInfer. Returns the launch counts of the training run
@@ -1687,22 +1730,11 @@ def phase_training():
 
     from dragonfly2_tpu_torch.config.config import TrainerConfig
     from dragonfly2_tpu_torch.models import metrics
-    from dragonfly2_tpu_torch.records import synth
-    from dragonfly2_tpu_torch.records.features import downloads_to_ranking_dataset
     from dragonfly2_tpu_torch.registry import ModelEvaluation, ModelServer, open_registry
     from dragonfly2_tpu_torch.registry.registry import MODEL_TYPE_ATTENTION
     from dragonfly2_tpu_torch.training import train
 
-    start = time.perf_counter()
-    cluster = synth.make_cluster(TRACE_HOSTS, seed=SEED)
-    records = synth.gen_download_records(
-        cluster, TRACE_RECORDS, num_tasks=TRACE_TASKS, max_parents=MAX_PARENTS
-    )
-    ds, graph = downloads_to_ranking_dataset(records, max_parents=MAX_PARENTS)
-    print(f"trace: {len(records)} download records on {len(graph.host_ids)} hosts "
-          f"({TRACE_HOSTS} in the cluster), {TRACE_TASKS} tasks, parents {list(ds.parents.shape)}, "
-          f"valid candidates {int(ds.mask.sum())}; synth + features {time.perf_counter() - start:.1f} s "
-          "(host)")
+    ds, graph, records = trace()
 
     config = TrainerConfig(epochs=TRAIN_EPOCHS)
     layers = config.attention_num_layers
@@ -2033,8 +2065,8 @@ def phase_mesh_training(ds, single_step_p50):
     """Slice 3's main path: train_attention on a dp x sp mesh of the one
     card with ring attention (einsum blocks under autograd, the partial
     kernel in the eval), then the checks, then train_attention with Ulysses.
-    Returns the partial launches of the ring's run and the launch counts of
-    the Ulysses run."""
+    Returns the partial launches of the ring's run, the launch counts of
+    the Ulysses run, and each strategy's step p50."""
     import torch
 
     from dragonfly2_tpu_torch.config.config import TrainerConfig
@@ -2154,7 +2186,7 @@ def phase_mesh_training(ds, single_step_p50):
     print(f"step p50 (synchronised, host clock, batch {config.batch_size}): ring "
           f"{p50['ring']:.3f} ms, ulysses {p50['ulysses']:.3f} ms on the dp {MESH_DP} x sp "
           f"{MESH_SP} mesh; one device {single_step_p50:.3f} ms (phase 5)")
-    return counts["flash_fwd_partial"], uly_counts
+    return counts["flash_fwd_partial"], uly_counts, p50
 
 
 def phase_threshold():
@@ -3834,7 +3866,8 @@ def phase_graph_models(ds, graph, topology, card: str):
     full embed's rows with every other table row unchanged, score on one
     rank_batches batch, and ProbeRTTRegressor over topology_to_pairs of the
     nt phase's snapshot. Prints each path's embed p50 (CUDA events), device
-    ms and launches (profiler). No flash kernel may launch."""
+    ms and launches (profiler), and returns the p50s by path. No flash
+    kernel may launch."""
     import copy
 
     import torch
@@ -3859,13 +3892,14 @@ def phase_graph_models(ds, graph, topology, card: str):
           f"{time.perf_counter() - start:.1f} s (host)")
     _zero_counts()
     _zero_wide_counts()
-    emb = {}
+    emb, p50 = {}, {}
     with torch.no_grad():
         for path, arrays in (("segment", seg), ("dense", dense)):
             on_card, on_cpu = _on(arrays, "cuda"), _on(arrays, "cpu")
             emb[path] = _embed(model, on_card)
             err = _hold(f"{path} embed, CUDA vs CPU", emb[path], _embed(twin, on_cpu))
             _, event_ms, _ = _event_ms(lambda: _embed(model, on_card), GRAPH_CALLS)
+            p50[path] = event_ms
             wall_ms, device_ms, _, launched = _device_split(lambda: _embed(model, on_card), "")
             print(f"graph embed, {path} path ({card}): CUDA vs CPU within {err:.4g} (atol "
                   f"{GRAPH_ATOL}, rtol {GRAPH_RTOL}); p50 {event_ms:.3f} ms (CUDA events, "
@@ -3932,6 +3966,7 @@ def phase_graph_models(ds, graph, topology, card: str):
               "events, the upload included)")
     if any(_counts().values()) or any(_wide_counts().values()):
         _fail(f"the graph models launched a flash kernel: {_counts()}")
+    return p50
 
 
 # slice 17: the ml arm on the card, at bench_loop.py phase 3's arm settings
@@ -6370,7 +6405,8 @@ class _S3Stub:
 
 def _s3_proxy_fetch(proxy_port: int, url: str) -> tuple:
     """GET an s3:// URL through a daemon's proxy (its rule hijacks the
-    scheme into the swarm): (sha256 of the body, bytes, X-Dragonfly-Via)."""
+    scheme into the swarm): (status, sha256 of the body, bytes,
+    X-Dragonfly-Via, the body's first KiB)."""
     import hashlib
     import http.client
 
@@ -6378,18 +6414,22 @@ def _s3_proxy_fetch(proxy_port: int, url: str) -> tuple:
     try:
         conn.request("GET", url)
         resp = conn.getresponse()
-        h, n = hashlib.sha256(), 0
+        h, n, head = hashlib.sha256(), 0, b""
         while True:
             chunk = resp.read(1 << 20)
             if not chunk:
                 break
             h.update(chunk)
+            head = head or chunk[:1024]
             n += len(chunk)
-        if resp.status != 200:
-            _fail(f"the proxy on {proxy_port} answered {url} with {resp.status}")
-        return h.hexdigest(), n, resp.getheader("X-Dragonfly-Via")
+        return resp.status, h.hexdigest(), n, resp.getheader("X-Dragonfly-Via"), head
     finally:
         conn.close()
+
+
+def _log_tails(procs, chars: int = 4000) -> str:
+    """The ends of the named processes' logs, for a failure message."""
+    return "".join(f"\n--- the {p.name}'s log ends:\n{p.log()[-chars:]}" for p in procs)
 
 
 async def _tick_asks(host: str, port: int, task_id: str, url: str, size: int, n: int) -> None:
@@ -6602,18 +6642,24 @@ def phase_objects(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
             if done["state"] != "SUCCESS":
                 _fail(f"the preheat job ended {done['state']}: {done['result']}")
             proxy = {d.name: int(d.ready[4]) for d in dfs}
-            node_s = {}
             start_s = time.perf_counter()
 
             def fetch(name):
-                digest, n, via = _s3_proxy_fetch(proxy[name], url)
-                if digest != blob_sha or via != "p2p":
-                    _fail(f"{name} {url} through its proxy: sha256 {digest} ({n} bytes, via {via})")
-                return name, time.perf_counter() - start_s
+                return name, _s3_proxy_fetch(proxy[name], url), time.perf_counter() - start_s
 
             with concurrent.futures.ThreadPoolExecutor(daemons) as pool:
-                node_s = dict(pool.map(fetch, proxy))
+                fetched = list(pool.map(fetch, proxy))
             wall = time.perf_counter() - start_s
+            refused = [(name, got[0], got[4]) for name, got, _ in fetched if got[0] != 200]
+            if refused:
+                name = refused[0][0]
+                _fail(f"{len(refused)} of {daemons} proxies answered {url} with an error, "
+                      f"{refused[0][0]} with {refused[0][1]}: {refused[0][2]!r}" + _log_tails(
+                          [d for d in dfs if d.name == name] + [seed, sched]))
+            for name, (_, digest, n, via, _), _ in fetched:
+                if digest != blob_sha or via != "p2p":
+                    _fail(f"{name} {url} through its proxy: sha256 {digest} ({n} bytes, via {via})")
+            node_s = {name: s for name, _, s in fetched}
             served = stub.served[OBJ_BUCKET, OBJ_KEY] / len(blob)
             if f"{served:.3f}" != "1.000" or stub.refused or not stub.ranged:
                 _fail(f"the stub served {served:.3f} of the object's bytes, refused "
@@ -7048,6 +7094,482 @@ def phase_scale_labs(card: str, tree: str, device: str = "cuda") -> None:
     print(f"scale labs phase: {time.perf_counter() - phase_start:.1f} s ({card})")
 
 
+# slice 24: tensor, pipeline and expert parallelism on meshes of the one
+# card (phase 20; every mesh is the card repeated). The bodies at the
+# ranker's widths, float32: F = 128, hidden 512, T = 5,120 tokens (one
+# batch of 256 rows x 20 candidates), E = 4 experts
+PAR_F, PAR_HIDDEN, PAR_TOKENS, PAR_EXPERTS = 128, 512, 5120, 4
+PAR_MICRO = 4  # the pipeline's microbatches, the bodies' and the pp training's
+# the bodies against their single-device oracle and against the CPU mesh,
+# float32 (the reference's dryrun holds 1e-4, __graft_entry__.py:243-290)
+PAR_ATOL = 1e-4
+# the dropping capacity: this share of a shard's even split of its tokens
+PAR_DROP_SHARE = 0.9
+PAR_CALLS = 10  # CUDA-event calls of each body and its oracle
+# the config-driven trainings on phase 5's trace: TrainerConfig's defaults,
+# one epoch; (label, mesh axes or None, config overrides)
+PAR_TRAININGS = (
+    ("tp", {"dp": 2, "tp": 2}, {"attention_tp": True}),
+    ("ep", {"dp": 2, "ep": 2}, {"attention_moe_experts": 4}),
+    ("pp", {"dp": 1, "pp": 2}, {"attention_pp": True, "attention_pp_microbatches": PAR_MICRO}),
+    ("moe", None, {"attention_moe_experts": 4}),
+)
+PAR_EMBED_MESH = {"dp": 2, "graph": 2}
+# the hybrid mesh's two-process leg: rows a batch, and each process's
+# (and the wait's) limit in seconds
+PAR_DCN_BATCH = 64
+PAR_DCN_TIMEOUT_S = 300
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _par_mesh(axes: dict, device):
+    """A mesh of ``axes`` over ``device`` repeated (the card, or the CPU)."""
+    from dragonfly2_tpu_torch.parallel.mesh import make_mesh
+
+    n = int(np.prod(list(axes.values())))
+    return make_mesh(n, devices=[device] * n, **axes)
+
+
+def _par_hold(label: str, got, oracle, cpu) -> str:
+    """got (the mesh of ``device``) within PAR_ATOL of its one-device
+    oracle and of the same call on a CPU mesh; the errors, as text."""
+    errs = [float((got.float().cpu() - other.float().cpu()).abs().max()) for other in (oracle, cpu)]
+    if not np.isfinite(got.float().cpu().numpy()).all() or max(errs) > PAR_ATOL:
+        _fail(f"{label}: max error {errs[0]:.3g} against the oracle, {errs[1]:.3g} against the "
+              f"CPU mesh (atol {PAR_ATOL})")
+    return (f"max error {errs[0]:.3g} against the one-device oracle, {errs[1]:.3g} against the "
+            f"CPU mesh (atol {PAR_ATOL})")
+
+
+def _par_ms(fn, device) -> str:
+    """p50 of PAR_CALLS calls by CUDA events, as text (not measured on
+    the CPU)."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return "not measured (CPU)"
+    return f"{_event_ms(fn, PAR_CALLS)[1]:.3f} ms"
+
+
+def _par_bodies(card: str, device) -> None:
+    """(a) sharded_tp_ffn on tp 4 and dp 2 x tp 2, sharded_pipeline_apply
+    on pp 4 over PAR_MICRO microbatches, sharded_moe_ffn on ep 4 with a
+    shard's every token in capacity and with a capacity that drops, each
+    against its one-device oracle on ``device`` and against the same call
+    on a CPU mesh."""
+    import torch
+    import torch.nn.functional as F
+
+    from dragonfly2_tpu_torch.parallel import moe, pipeline, tensor
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen) * scale
+
+    f, h, t, e = PAR_F, PAR_HIDDEN, PAR_TOKENS, PAR_EXPERTS
+    x = normal(t, f)
+    ffn = (normal(f, h, scale=f ** -0.5), normal(h, scale=0.1), normal(h, f, scale=h ** -0.5),
+           normal(f, scale=0.1))
+
+    def oracle_ffn(a, w1, b1, w2, b2):
+        return torch.matmul(F.gelu(torch.matmul(a, w1) + b1, approximate="tanh"), w2) + b2
+
+    on = [v.to(device) for v in (x, *ffn)]
+    with torch.no_grad():
+        for axes in ({"dp": 1, "tp": 4}, {"dp": 2, "tp": 2}):
+            m = _par_mesh(axes, device)
+            got = tensor.sharded_tp_ffn(m, *on)
+            held = _par_hold(f"sharded_tp_ffn {axes}", got, oracle_ffn(*on),
+                             tensor.sharded_tp_ffn(_par_mesh(axes, "cpu"), x, *ffn))
+            print(f"sharded_tp_ffn on dp {axes['dp']} x tp {axes['tp']} of the card, x [{t}, {f}], "
+                  f"hidden {h}: {held}; p50 {_par_ms(lambda: tensor.sharded_tp_ffn(m, *on), device)}"
+                  f", the oracle {_par_ms(lambda: oracle_ffn(*on), device)} ({card})")
+
+        pp = 4
+        stages = tuple(torch.stack([normal(*v.shape, scale=float(v.std())) for _ in range(pp)])
+                       for v in ffn)
+        micro = x.reshape(PAR_MICRO, t // PAR_MICRO, f)
+
+        def stage_fn(params, a):
+            return oracle_ffn(a, *params)
+
+        def sequential(params, a):
+            for i in range(pp):
+                a = stage_fn(tuple(p[i] for p in params), a)
+            return a
+
+        m = _par_mesh({"dp": 1, "pp": pp}, device)
+        st, mi = tuple(s.to(device) for s in stages), micro.to(device)
+        got = pipeline.sharded_pipeline_apply(m, stage_fn, st, mi)
+        held = _par_hold("sharded_pipeline_apply", got, sequential(st, mi),
+                         pipeline.sharded_pipeline_apply(_par_mesh({"dp": 1, "pp": pp}, "cpu"),
+                                                         stage_fn, stages, micro))
+        print(f"sharded_pipeline_apply on pp {pp} of the card, {PAR_MICRO} microbatches of "
+              f"[{t // PAR_MICRO}, {f}], each stage an FFN of hidden {h}: {held}; p50 "
+              f"{_par_ms(lambda: pipeline.sharded_pipeline_apply(m, stage_fn, st, mi), device)}, "
+              f"the stages in sequence {_par_ms(lambda: sequential(st, mi), device)} ({card})")
+
+        # tokens and gate on a 1/16 and 1/64 grid: the gate logits are exact
+        # in float32 on either device, so routing and drops are integer facts
+        ep = 4
+        xq = torch.round(x * 16) / 16
+        experts = (torch.round(normal(f, e, scale=0.1) * 64) / 64,
+                   normal(e, f, h, scale=f ** -0.5), normal(e, h, scale=0.1),
+                   normal(e, h, f, scale=h ** -0.5), normal(e, f, scale=0.1))
+        on = [v.to(device) for v in (xq, *experts)]
+        local = t // ep
+        oracle = moe.moe_reference(*on)
+        m, cpu_m = _par_mesh({"dp": 1, "ep": ep}, device), _par_mesh({"dp": 1, "ep": ep}, "cpu")
+        for capacity in (local, int(local / e * PAR_DROP_SHARE)):
+            got = moe.sharded_moe_ffn(m, *on, capacity=capacity)
+            cpu = moe.sharded_moe_ffn(cpu_m, xq, *experts, capacity=capacity)
+            keep = {}
+            for where, a, gate in (("card", on[0], on[1]), ("cpu", xq, experts[0])):
+                keep[where] = torch.cat([
+                    moe._top1_dispatch(s, s @ gate, e, capacity)[2]["keep"].cpu()
+                    for s in a.split(local)])
+            if not torch.equal(keep["card"], keep["cpu"]):
+                _fail(f"sharded_moe_ffn capacity {capacity}: the dropped sets differ, card "
+                      f"{int((~keep['card']).sum())} tokens, CPU {int((~keep['cpu']).sum())}")
+            kept = keep["card"].to(got.device)
+            dropped = int((~kept).sum())
+            if dropped and (got[~kept] != 0).any():
+                _fail(f"sharded_moe_ffn capacity {capacity}: a dropped token is not zero")
+            # Switch semantics: a dropped token comes out as zeros
+            held = _par_hold(f"sharded_moe_ffn capacity {capacity}", got,
+                             torch.where(kept[:, None], oracle, 0.0), cpu)
+            if (capacity == local) == bool(dropped):
+                _fail(f"sharded_moe_ffn capacity {capacity}: {dropped} tokens dropped")
+            print(f"sharded_moe_ffn on ep {ep} of the card, x [{t}, {f}], {e} experts of hidden "
+                  f"{h}, capacity {capacity} ({dropped} tokens dropped, the same set on the card "
+                  f"and the CPU; the oracle's dropped rows zeroed): {held}; p50 "
+                  f"{_par_ms(lambda: moe.sharded_moe_ffn(m, *on, capacity=capacity), device)}, "
+                  f"moe_reference {_par_ms(lambda: moe.moe_reference(*on), device)} ({card})")
+
+
+def _par_trainer(config, in_features: int, path: str, mesh, rows, device):
+    """A trainer of ``train_attention``'s ``path`` from SEED's weights."""
+    from dragonfly2_tpu_torch.training import train
+
+    if path == "pp":
+        model = train.build_pp_ranker(config, mesh.shape["pp"], in_features, SEED, None, device)
+    else:
+        model = train.build_ranker(config, in_features, SEED, None, device)
+    tp_fns = train.tp_attention_fns(mesh, "ring")[0] if path == "tp" else None
+    return train.AttentionTrainer(model, rows, config.learning_rate, device, mesh=mesh,
+                                  tp_attention_fns=tp_fns)
+
+
+def _par_expected(path: str, steps: int, layers: int, axes: dict) -> tuple[dict, str]:
+    """Each counter's launches on ``path``, and the formula, as text."""
+    tp, pp = axes.get("tp", 1), axes.get("pp", 1)
+    per_step, per_eval, formula = {
+        "tp": (layers * tp, layers * tp, "each training kernel steps x layers x tp (one launch "
+               "a head group), the finished forward layers x tp in the eval"),
+        "pp": (pp * PAR_MICRO, pp * PAR_MICRO, "each training kernel steps x pp x microbatches "
+               "(no bubble slot runs), the finished forward pp x microbatches in the eval"),
+    }.get(path, (layers, layers, "each training kernel steps x layers, the finished forward "
+                 "layers in the eval (the MoE is no flash kernel)"))
+    expected = {name: 0 for name in _COUNTERS}
+    expected.update({name: steps * per_step for name in TRAINING_KERNELS}, flash_fwd=per_eval)
+    return expected, formula
+
+
+def _par_train(card: str, ds, device, single_p50, mesh_p50) -> None:
+    """(b) train_attention's tp, ep, pp and MoE paths from TrainerConfig and
+    the mesh alone, one epoch each on phase 5's trace: the launches against
+    their formula, finite losses, the first REPLAY_STEPS steps replayed on a
+    CPU mesh of the same shape, the eval, and the step p50."""
+    import dataclasses
+
+    import torch
+
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.parallel.mesh import shard_stacked_batches
+    from dragonfly2_tpu_torch.training import data, train
+
+    base = TrainerConfig(epochs=1)
+    layers = base.attention_num_layers
+    for path, axes, overrides in PAR_TRAININGS:
+        config = dataclasses.replace(base, **overrides)
+        mesh = None if axes is None else _par_mesh(axes, device)
+        _zero_counts()
+        _sync(device)
+        start = time.perf_counter()
+        result = train.train_attention(ds, config, mesh=mesh, seed=SEED,
+                                       device=device if mesh is None else None)
+        _sync(device)
+        train_s = time.perf_counter() - start
+        counts = _counts()
+        expected, formula = _par_expected(path, result.steps, layers, axes or {})
+        where = "one device" if axes is None else " x ".join(f"{k} {v}" for k, v in axes.items())
+        print(f"{path} training on {where} of the card: {result.steps} steps of batch "
+              f"{config.batch_size} in {train_s:.2f} s; launches {counts} (expected {formula})")
+        # the CPU takes the kernels' plain versions, which count nothing
+        if counts != (expected if device.type == "cuda" else {k: 0 for k in expected}):
+            _fail(f"{path} training launches {counts}, expected {expected}")
+        if not np.isfinite(result.losses).all():
+            _fail(f"{path} training: non-finite loss")
+
+        # the first steps again on the CPU from the same weights and batches
+        rng = np.random.default_rng(SEED)
+        eval_idx, train_idx = train._train_eval_split(rng.permutation(len(ds.mask)), 0.2)
+        batch_size = min(config.batch_size, len(train_idx))
+        rows = train.take(ds, train_idx)
+        in_features = sum(rows[key].shape[-1] for key in ("parents", "child", "pair"))
+        if mesh is None:
+            idx = np.stack(list(data.minibatches(len(train_idx), batch_size, rng)))
+            cpu = _par_trainer(config, in_features, path, None, rows, "cpu")
+            replay = [cpu.step(torch.from_numpy(i)).item() for i in idx[:REPLAY_STEPS]]
+            timed = _par_trainer(config, in_features, path, None, rows, device)
+            batches = torch.from_numpy(idx).to(device)
+
+            def step(s, trainer=timed, batches=batches):
+                return trainer.step(batches[s])
+        else:
+            first = train.epoch_batches(ds, train_idx, batch_size, rng)
+            cpu_mesh = _par_mesh(axes, "cpu")
+            cpu = _par_trainer(config, in_features, path, cpu_mesh, None, "cpu")
+            stack = shard_stacked_batches(cpu_mesh, {k: v[:REPLAY_STEPS] for k, v in first.items()})
+            replay = [cpu.step_batch({k: v[s] for k, v in stack.items()}).item()
+                      for s in range(REPLAY_STEPS)]
+            timed = _par_trainer(config, in_features, path, mesh, None, device)
+            stack = shard_stacked_batches(mesh, {k: v[:MESH_STEPS] for k, v in first.items()})
+
+            def step(s, trainer=timed, stack=stack):
+                return trainer.step_batch({k: v[s] for k, v in stack.items()})
+        err = float(np.abs(np.array(replay) - np.array(result.losses[:REPLAY_STEPS])).max())
+        em = result.eval_metrics
+        print(f"{path}: CPU replay of the first {REPLAY_STEPS} steps max loss difference "
+              f"{err:.3g} (atol {REPLAY_LOSS_ATOL}); loss first {result.losses[0]:.4f} last "
+              f"{result.losses[-1]:.4f}; eval on {len(eval_idx)} held-out rows: precision "
+              f"{em['precision']:.4f}, recall {em['recall']:.4f} of {em['recall_ceiling']:.4f}, "
+              f"f1 {em['f1']:.4f}, regret {em['regret']:.4f}; {result.samples_per_sec:.1f} "
+              "samples/s")
+        if err > REPLAY_LOSS_ATOL:
+            _fail(f"{path}: CPU replay loss differs by {err}")
+
+        if device.type != "cuda":
+            continue
+        times = []
+        for s in range(MESH_STEPS):
+            _sync(device)
+            t0 = time.perf_counter()
+            loss = step(s).item()
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(loss):
+                _fail(f"{path}: non-finite loss in the timed steps")
+        # the MoE's routing and dispatch: the cumsum (a scan), the queue
+        # scatter (index_add), the combine's gather, and their backward
+        pattern = r"index|gather|scatter|scan" if config.attention_moe_experts else "flash_"
+        split = _device_split(lambda: step(0), "")
+        prof = _moe_split(lambda: step(0), pattern)
+        print(f"{path} step p50 {statistics.median(times[2:]):.3f} ms (synchronised, host clock, "
+              f"batch {config.batch_size}, {MESH_STEPS - 2} steps); one device "
+              + (f"{single_p50:.3f} ms (phase 5)" if single_p50 else "not measured in this run")
+              + ", the dp x sp mesh "
+              + (f"{mesh_p50:.3f} ms (phase 6, ring)" if mesh_p50 else "not measured in this run")
+              + f"; profiled {split[0]:.3f} ms a step, device kernels {split[1]:.4f} ms over "
+              f"{split[3]:.0f} launches, busy {100 * split[1] / max(split[0], 1e-9):.1f}%; "
+              f"{prof} ({card})")
+
+
+def _moe_split(fn, pattern: str) -> str:
+    """The device ms a call of the kernels whose name matches ``pattern``,
+    and their share of the call's kernel time, from a profiler window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = 3
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = _kernels_of(prof, calls)
+    total = sum(ms for _, ms in kernels)
+    matched = [(key, ms) for key, ms in kernels if re.search(pattern, key)]
+    named = sum(ms for _, ms in matched)
+    if total == 0:
+        return "device split not measured (the profiler saw no device activity)"
+    top = "; ".join(f"{key[:60]} {ms:.4f}" for key, ms in matched[:3])
+    return (f"kernels matching /{pattern}/ {named:.4f} ms a step, {100 * named / total:.1f}% of "
+            f"its kernel time (top: {top})")
+
+
+def _par_embed(card: str, graph, device, segment_p50) -> None:
+    """(c) embed_graph_sharded on a dp 2 x graph 2 mesh over phase 12's host
+    graph against GraphSAGERanker.embed on the same device, within phase
+    12's tolerance; both p50s by CUDA events."""
+    import torch
+
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.models import GraphSAGERanker
+    from dragonfly2_tpu_torch.training import embed_graph_sharded
+    from dragonfly2_tpu_torch.training.data import edge_bucket, graph_arrays
+
+    model = GraphSAGERanker(TrainerConfig().hidden_dim, GRAPH_LAYERS).reset_parameters(
+        torch.Generator().manual_seed(SEED)).to(device)
+    seg = graph_arrays(graph, pad_edges_to=edge_bucket(len(graph.edge_src)))
+    arrays = _on(seg, device)
+    mesh = _par_mesh(PAR_EMBED_MESH, device)
+    _zero_counts()
+    with torch.no_grad():
+        got = embed_graph_sharded(model, None, arrays, mesh)
+        want = _embed(model, arrays)
+        err = _hold("embed_graph_sharded vs GraphSAGERanker.embed", got, want)
+        sharded_ms = _par_ms(lambda: embed_graph_sharded(model, None, arrays, mesh), device)
+        plain_ms = _par_ms(lambda: _embed(model, arrays), device)
+    if any(_counts().values()):
+        _fail(f"the sharded embed launched a flash kernel: {_counts()}")
+    print(f"embed_graph_sharded on dp {PAR_EMBED_MESH['dp']} x graph {PAR_EMBED_MESH['graph']} "
+          f"of the card over {len(graph.host_ids)} hosts and {len(graph.edge_src)} edges (padded "
+          f"to {len(seg['edge_src'])}): vs GraphSAGERanker.embed within {err:.4g} (atol "
+          f"{GRAPH_ATOL}, rtol {GRAPH_RTOL}); p50 {sharded_ms}, the segment path {plain_ms} in this "
+          "phase, " + (f"{segment_p50:.3f} ms in phase 12" if segment_p50 else
+                       "phase 12 not run") + f" (CUDA events, {PAR_CALLS} calls; {card})")
+
+
+def _dcn_worker(spec: str) -> None:
+    """One process of phase 20's two-process leg (``--dcn-worker
+    RANK,PORT,DIR``): the dataset, the device and the batch size from DIR,
+    gloo over localhost:PORT, a hybrid mesh of dcn 2 x dp 1 on the device,
+    one epoch of train_attention; the losses and the eval to
+    DIR/RANK.json."""
+    import torch
+
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.parallel.mesh import initialize_distributed, make_hybrid_mesh
+    from dragonfly2_tpu_torch.records.features import RankingDataset
+    from dragonfly2_tpu_torch.training import train
+
+    rank, port, root = spec.split(",", 2)
+    with np.load(os.path.join(root, "ds.npz")) as f:
+        ds = RankingDataset(**{key: f[key] for key in f.files})
+    leg = json.loads(pathlib.Path(root, "leg.json").read_text())
+    initialize_distributed(f"localhost:{port}", 2, int(rank), backend="gloo")
+    try:
+        mesh = make_hybrid_mesh(dcn_dp=2, dp=1, devices=[leg["device"]])
+        result = train.train_attention(ds, TrainerConfig(epochs=1, batch_size=leg["batch"]),
+                                       mesh=mesh, seed=SEED)
+        pathlib.Path(root, f"{rank}.json").write_text(json.dumps(
+            {"losses": result.losses, "eval": result.eval_metrics, "dcn": mesh.dcn}))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _par_hybrid(card: str, ds, tree: str, device) -> None:
+    """(d) make_hybrid_mesh in one process (the dcn replicas fold into dp)
+    training (b)'s tp path; then two processes sharing the device over
+    gloo, a dcn 2 x dp 1 mesh each, against one process on a dp 2 mesh
+    from the same weights."""
+    import dataclasses
+
+    from dragonfly2_tpu_torch.config.config import TrainerConfig
+    from dragonfly2_tpu_torch.parallel.mesh import make_hybrid_mesh
+    from dragonfly2_tpu_torch.training import train
+
+    mesh = make_hybrid_mesh(dcn_dp=2, dp=1, tp=2, devices=[device] * 4)
+    if mesh.shape["dp"] != 2 or mesh.shape["tp"] != 2 or mesh.dcn != 1:
+        _fail(f"make_hybrid_mesh(dcn_dp=2, dp=1, tp=2) in one process: {mesh.shape}")
+    config = TrainerConfig(epochs=1, attention_tp=True)
+    _zero_counts()
+    result = train.train_attention(ds, config, mesh=mesh, seed=SEED)
+    expected, _ = _par_expected("tp", result.steps, config.attention_num_layers, mesh.shape)
+    if device.type != "cuda":
+        expected = {k: 0 for k in expected}
+    if _counts() != expected or not np.isfinite(result.losses).all():
+        _fail(f"the hybrid mesh's tp training: launches {_counts()} (expected {expected}), finite "
+              f"losses {bool(np.isfinite(result.losses).all())}")
+    print(f"make_hybrid_mesh(dcn_dp=2, dp=1, tp=2) in one process: folded to {mesh.shape}; "
+          f"{result.steps} tp steps, loss first {result.losses[0]:.4f} last "
+          f"{result.losses[-1]:.4f}, launches as (b)'s tp path")
+
+    config = TrainerConfig(epochs=1, batch_size=PAR_DCN_BATCH)
+    with tempfile.TemporaryDirectory(prefix="dfly-smoke-dcn-") as root:
+        np.savez(os.path.join(root, "ds.npz"), **dataclasses.asdict(ds))
+        pathlib.Path(root, "leg.json").write_text(json.dumps(
+            {"device": str(device), "batch": config.batch_size}))
+        port = _free_port()
+        start = time.perf_counter()
+        logs = [open(os.path.join(root, f"{rank}.log"), "w+") for rank in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tree", tree, "--dcn-worker",
+             f"{rank},{port},{root}"], cwd=tree, stdout=logs[rank], stderr=subprocess.STDOUT)
+            for rank in range(2)]
+        try:
+            codes = [p.wait(timeout=PAR_DCN_TIMEOUT_S) for p in procs]
+        except subprocess.TimeoutExpired:
+            codes = None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - start
+        if codes != [0, 0]:
+            tails = []
+            for log in logs:
+                log.seek(0)
+                tails.append(log.read()[-2000:])
+            _fail(f"the two-process leg exited {codes} in {wall:.1f} s: {tails}")
+        for log in logs:
+            log.close()
+        runs = [json.loads(pathlib.Path(root, f"{rank}.json").read_text()) for rank in range(2)]
+    one = train.train_attention(ds, config, mesh=_par_mesh({"dp": 2}, device), seed=SEED)
+    if runs[0]["losses"] != runs[1]["losses"] or runs[0]["dcn"] != 2:
+        _fail("the two processes' losses differ, or their mesh spans no two processes")
+    got = np.array(runs[0]["losses"])
+    if got.shape != (one.steps,):
+        _fail(f"two processes took {got.shape[0]} steps, one process {one.steps}")
+    err = np.abs(got - np.array(one.losses))
+    print(f"two processes on the card over gloo (make_hybrid_mesh(dcn_dp=2, dp=1), "
+          f"{PAR_DCN_BATCH // 2} of {PAR_DCN_BATCH} rows a batch each, exit codes {codes}, "
+          f"{wall:.1f} s with their start): {one.steps} steps, max loss difference "
+          f"{err.max():.3g} from one process on a dp 2 mesh (first {REPLAY_STEPS} steps "
+          f"{err[:REPLAY_STEPS].max():.3g}; atol {REPLAY_LOSS_ATOL}); precision "
+          f"{runs[0]['eval']['precision']:.4f} vs {one.eval_metrics['precision']:.4f} ({card})")
+    if err.max() > REPLAY_LOSS_ATOL:
+        _fail(f"the two-process losses differ from one process's by {err.max()}")
+
+
+def phase_parallel(ds, graph, card: str, tree: str, device: str = "cuda", single_p50=None,
+                   mesh_p50=None, segment_p50=None) -> None:
+    """Slice 24's main path: tensor, pipeline and expert parallelism on
+    meshes of the one card (every mesh the card repeated). (a) the three
+    bodies against their oracles; (b) train_attention's tp, ep, pp and MoE
+    paths, each training kernel's launches against the path's formula;
+    (c) the edge-sharded graph embed; (d) the hybrid mesh, folded in one
+    process and across two processes over gloo. ``device="cpu"``
+    rehearses it on the CPU (no timing)."""
+    import torch
+
+    phase_start = time.perf_counter()
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    _par_bodies(card, dev)
+    _par_train(card, ds, dev, single_p50, mesh_p50)
+    _par_embed(card, graph, dev, segment_p50)
+    _par_hybrid(card, ds, tree, dev)
+    print(f"parallel phase: {time.perf_counter() - phase_start:.1f} s ({card})")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--threshold", action="store_true",
@@ -7061,6 +7583,9 @@ def main() -> None:
                         help="import dragonfly2_tpu_torch from this checkout instead of the one "
                              "beside the script (with --rows: another commit's kernels, built "
                              "there, timed by the same code)")
+    parser.add_argument("--dcn-worker", default=None, metavar="RANK,PORT,DIR",
+                        help="run one process of phase 20's two-process leg (phase 20 starts "
+                             "two), and nothing else")
     args = parser.parse_args()
     try:
         import torch
@@ -7072,6 +7597,9 @@ def main() -> None:
         import dragonfly2_tpu_torch  # noqa: F401
     except ImportError as e:
         _fail(f"the dragonfly2_tpu_torch package is not in {tree} ({e})")
+    if args.dcn_worker:
+        _dcn_worker(args.dcn_worker)
+        return
 
     card = phase_device()
     phase_build()
@@ -7089,7 +7617,7 @@ def main() -> None:
     train_counts, serve_counts, ds, graph, breakdown = phase_training()
     partial = phase_partial_kernel(ds)
     ring_launches = phase_long_ring()
-    mesh_launches, uly_counts = phase_mesh_training(ds, breakdown["step_p50_ms"])
+    mesh_launches, uly_counts, mesh_p50 = phase_mesh_training(ds, breakdown["step_p50_ms"])
     long_counts = phase_long_ulysses()
     phase_scheduler_tick(card)
     wide = phase_wide_kernels(ds)
@@ -7097,7 +7625,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as trace_dir:  # phase 10's traces, kept for phase 14
         storage = phase_scheduler_service(card, trace_dir)
         topology = phase_scheduler_nt(card)
-        phase_graph_models(ds, graph, topology, card)
+        graph_p50 = phase_graph_models(ds, graph, topology, card)
         rule_cost = phase_ml_arm(card)
         phase_trainer(card, storage, topology, rule_cost)
     phase_cost_cards(card)
@@ -7106,6 +7634,8 @@ def main() -> None:
     phase_manager(card, tree)
     phase_objects(card, tree)
     phase_scale_labs(card, tree)
+    phase_parallel(ds, graph, card, tree, single_p50=breakdown["step_p50_ms"],
+                   mesh_p50=mesh_p50["ring"], segment_p50=graph_p50["segment"])
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]

@@ -149,8 +149,7 @@ class TrainerConfig:
     # also train and publish the attention parent ranker
     train_attention: bool = False
     # --- parallelism knobs for the attention ranker; each axis turns on
-    # from the config alone with a mesh that has it (the port trains on dp
-    # and sp; tp, pp and ep raise, ROADMAP A12)
+    # from the config alone with a mesh that has it
     # sequence parallelism: "ring" or "ulysses", when the mesh has sp > 1
     sp_strategy: str = "ring"
     # tensor parallelism of qkv/proj and the FFN, when the mesh has tp > 1

@@ -9,10 +9,18 @@ template-less msgpack restore returns):
   ``head_1``, ``head_out``; ``neigh`` and ``edge`` have no bias;
 - ``ProbeRTTRegressor``: ``Dense_0`` .. ``Dense_{n-1}``.
 
+- the attention ranker with ``moe_experts > 0``: each ``block_i`` holds
+  the raw MoE leaves ``moe_gate``, ``moe_w1``, ``moe_b1``, ``moe_w2`` and
+  ``moe_b2`` in place of ``mlp_up`` and ``mlp_down``;
+- the pipeline-parallel ranker (``PipelineRanker``): ``{"embed", "blocks",
+  "ln", "score"}``, each wrapped in ``{"params": ...}``, every leaf of
+  ``blocks`` stacked [pp, ...].
+
 The port's modules carry the same names, so the mapping is by path; a
 flax Dense kernel is (in, out) and a torch Linear weight (out, in), so
-kernels are transposed both ways. A Dense without a bias has no bias
-entry on either side.
+kernels swap their last two axes both ways (a stacked kernel keeps its
+leading dim). A Dense without a bias has no bias entry on either side. The
+MoE leaves are raw parameters, not Dense kernels: they cross unchanged.
 """
 
 from __future__ import annotations
@@ -28,21 +36,22 @@ from dragonfly2_tpu_torch.models.attention import Dense, LayerNorm
 
 def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     """Flax params tree (numpy leaves) -> the port's ``state_dict``."""
-    params = tree["params"] if "params" in tree else tree
     state: dict[str, torch.Tensor] = {}
 
     def walk(node: Any, prefix: str) -> None:
         for name, value in node.items():
             if isinstance(value, dict):
-                walk(value, f"{prefix}{name}.")
+                # a "params" level is a flax collection, not a module
+                walk(value, prefix if name == "params" else f"{prefix}{name}.")
                 continue
             array = np.array(value, dtype=np.float32)  # owned, writable copy
             if name == "kernel":
-                state[f"{prefix}weight"] = torch.from_numpy(np.ascontiguousarray(array.T))
-            else:  # bias, scale
+                state[f"{prefix}weight"] = torch.from_numpy(
+                    np.ascontiguousarray(np.swapaxes(array, -1, -2)))
+            else:  # bias, scale, the raw MoE leaves
                 state[f"{prefix}{name}"] = torch.from_numpy(array)
 
-    walk(params, "")
+    walk(tree, "")
     return state
 
 
@@ -51,18 +60,22 @@ def params_to_flax(module: nn.Module) -> dict:
     the reference's ``init`` lays it out."""
     params: dict = {}
     for path, sub in module.named_modules():
-        if not isinstance(sub, (Dense, LayerNorm)):
+        if isinstance(sub, Dense):
+            leaves = {"kernel": np.swapaxes(_to_numpy(sub.weight), -1, -2).copy()}
+            if sub.bias is not None:
+                leaves["bias"] = _to_numpy(sub.bias)
+        elif isinstance(sub, LayerNorm):
+            leaves = {"scale": _to_numpy(sub.scale), "bias": _to_numpy(sub.bias)}
+        else:  # a module's own raw parameters (the MoE leaves), if any
+            leaves = {name: _to_numpy(p) for name, p in sub.named_parameters(recurse=False)}
+        if not leaves:
             continue
         node = params
-        for part in path.split("."):
+        for part in path.split(".") if path else ():
             node = node.setdefault(part, {})
-        if isinstance(sub, Dense):
-            node["kernel"] = _to_numpy(sub.weight).T.copy()
-            if sub.bias is not None:
-                node["bias"] = _to_numpy(sub.bias)
-        else:
-            node["scale"] = _to_numpy(sub.scale)
-            node["bias"] = _to_numpy(sub.bias)
+        node.update(leaves)
+    if getattr(module, "flax_collections", False):
+        return {name: {"params": entry} for name, entry in params.items()}
     return {"params": params}
 
 

@@ -140,12 +140,13 @@ class GraphSAGERanker(nn.Module):
         return self.score(emb[child_idx.long()], emb[parent_idx.long()], pair_feats)
 
 
-def listwise_rank_loss(
+def listwise_rank_terms(
     scores: torch.Tensor, throughput: torch.Tensor, mask: torch.Tensor,
     temperature: float = 1.0,
-) -> torch.Tensor:
-    """Listwise softmax CE: target distribution = softmax of observed
-    log-throughput over valid candidates; rows need >= 2 valid entries."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the rows' losses, rows that count) of ``listwise_rank_loss``,
+    the count in the scores' dtype: the loss of a batch split across
+    processes is the sum of their sums over the sum of their counts."""
     neg = torch.tensor(_NEG, dtype=scores.dtype, device=scores.device)
     logits = torch.where(mask, scores, neg)
     target_logits = torch.where(mask, throughput / temperature, neg)
@@ -153,7 +154,17 @@ def listwise_rank_loss(
     logp = torch.log_softmax(logits, dim=-1)
     per_row = -(target * torch.where(mask, logp, 0.0)).sum(-1)
     row_ok = mask.sum(-1) >= 2
-    return (per_row * row_ok).sum() / row_ok.sum().clamp_min(1).to(per_row.dtype)
+    return (per_row * row_ok).sum(), row_ok.sum().to(per_row.dtype)
+
+
+def listwise_rank_loss(
+    scores: torch.Tensor, throughput: torch.Tensor, mask: torch.Tensor,
+    temperature: float = 1.0,
+) -> torch.Tensor:
+    """Listwise softmax CE: target distribution = softmax of observed
+    log-throughput over valid candidates; rows need >= 2 valid entries."""
+    total, count = listwise_rank_terms(scores, throughput, mask, temperature)
+    return total / count.clamp_min(1)
 
 
 @dataclasses.dataclass(frozen=True)

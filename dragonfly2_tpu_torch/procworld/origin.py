@@ -22,6 +22,8 @@ class OriginServer:
         payload: the bytes served.
         port: bound TCP port.
         gets: GET count (``get_count`` is a read alias).
+        bytes_sent: body bytes the GETs wrote (a ``Range: bytes=0-0``
+            probe adds 1, a HEAD nothing).
         srv / _server: the underlying ThreadingHTTPServer (both names
             kept — the per-instance handler class hangs off it).
         delay_s: mutable per-GET sleep applied before writing the body —
@@ -32,6 +34,8 @@ class OriginServer:
     def __init__(self, payload: bytes, *, delay_s: float = 0.0):
         self.payload = payload
         self.gets = 0
+        self.bytes_sent = 0
+        self._mu = threading.Lock()  # the handler threads add to bytes_sent
         self.delay_s = delay_s
         outer = self
 
@@ -63,6 +67,8 @@ class OriginServer:
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
+                with outer._mu:
+                    outer.bytes_sent += len(body)
 
         self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
         self._server = self.srv

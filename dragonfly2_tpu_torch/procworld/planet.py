@@ -237,7 +237,7 @@ def run_procday(workdir, *, scenario: str = "procday", seed: int = 7,
         kill_rounds = [r for r in engine.crash_rounds(rounds) if r <= rounds]
 
         observations: list[RoundObservation] = []
-        prev_origin_gets = origin.gets
+        prev_origin_bytes = origin.bytes_sent
         lost = retries = via_p2p = 0
         upgrade_restarted: set = set()
         banked: dict = {}  # counters of daemons restarted earlier in the day
@@ -373,12 +373,13 @@ def run_procday(workdir, *, scenario: str = "procday", seed: int = 7,
                 # payload): the daemon's piece_task counter mixes probe
                 # and retry fetches in ways that differ per code path,
                 # while the payload's piece count is exact — and the
-                # origin's GET count (ranged per-piece fetches) bounds
-                # the back-to-source share of that volume
+                # origin's body bytes bound the back-to-source share of
+                # that volume (origin_pieces)
                 pieces = completed * pieces_per_payload
-                origin_pieces = min(
-                    max(origin.gets - prev_origin_gets, 0), pieces)
-                prev_origin_gets = origin.gets
+                sent = origin.bytes_sent
+                origin_pieces = min(origin_pieces_of(
+                    sent - prev_origin_bytes, payload_bytes, pieces_per_payload), pieces)
+                prev_origin_bytes = sent
                 observations.append(RoundObservation(
                     round_idx=r,
                     completed=completed,
@@ -456,6 +457,17 @@ def run_procday(workdir, *, scenario: str = "procday", seed: int = 7,
             total_origin / total_pieces, 6) if total_pieces else 0.0,
     }
     return run
+
+
+def origin_pieces_of(nbytes: int, payload_bytes: int, pieces_per_payload: int) -> int:
+    """The pieces that ``nbytes`` of origin body bytes make: whole payload
+    copies times its pieces, as the simulator accounts its origin share
+    in bytes. The reference counts the origin's GETs instead, and so
+    counts each back-to-source's 1-byte ``Range: bytes=0-0`` probe
+    (client/source.py supports_range) as a piece: 4 origin pieces for a
+    3-piece payload, which put a 3-daemon day's origin share at the
+    origin_offload SLO's ticket threshold."""
+    return round(nbytes * pieces_per_payload / payload_bytes)
 
 
 def real_facts(run: dict) -> dict:

@@ -5,7 +5,8 @@ Port of dragonfly2_tpu/training/train.py: ``train_mlp`` (train.py:570),
 ``train_gnn`` (:649) and ``train_attention`` (:746) on one device and on a
 mesh, checkpoint resume (``_resume_hooks``, :512), ``TrainResult``,
 ``flops_basis``, the analytic flop floors of the three families and the
-GNN's roofline card (``gnn_roofline_bound``, :137), and the split and
+GNN's roofline card (``gnn_roofline_bound``, :137), the edge-sharded
+graph embed (``embed_graph_sharded``, :1053), and the split and
 throughput helpers they share. The models are models/graphsage.py's
 ``GraphSAGERanker``, models/mlp.py's ``ProbeRTTRegressor`` and
 models/attention.py's ``AttentionRanker``.
@@ -23,14 +24,29 @@ models/attention.py's ``AttentionRanker``.
 - A mesh (parallel/mesh.py): batches follow the reference's
   ``_stacked_epochs`` step for step, padded to a multiple of dp; the GNN
   takes the segment path and ``D.rank_batches``, the MLP ``D.minibatches``,
-  the ranker full batches of a new permutation. Only the ranker's attention
-  is sharded (ring attention or Ulysses over sp > 1, ``sp_strategy``): its
+  the ranker full batches of a new permutation. Only the ranker is
+  sharded. Its attention over sp > 1 (ring attention or Ulysses,
+  ``sp_strategy``): its
   training steps take the ring's einsum path, as the reference does (the
   partials have no gradient), and its no-grad eval forward the ring's
-  flash path, the partial kernel. The rest computes on the mesh's first
-  device, so a dp-only mesh takes the mesh path for the reference's batch
-  order and nothing else. The reference's graph-axis embed
-  (``embed_graph_sharded``) is not ported.
+  flash path, the partial kernel. With ``config.attention_tp`` and tp > 1
+  its blocks run tensor-parallel (models/attention.py), each tp shard's
+  head group through the attention of its own (dp, sp) sub-mesh; with
+  ``config.attention_moe_experts`` its MLPs are top-1 MoEs, over the ep
+  axis's all_to_alls when ep > 1 (parallel/moe.py); with
+  ``config.attention_pp`` and pp > 1 it is the reference's deep
+  ``PipelineRanker``, one block a stage (parallel/pipeline.py). The rest
+  computes on the mesh's first device, so a dp-only mesh takes the mesh
+  path for the reference's batch order and nothing else.
+- A mesh across processes (parallel/mesh.py ``make_hybrid_mesh`` after
+  ``initialize_distributed``): every process draws the same batches from
+  the same seed and trains on its block of each; each step divides the
+  loss's sum by the count of every process's rows and all-reduces the
+  gradients (and the loss) before the optimizer step, so the processes
+  keep equal weights; each evaluates every eval row.
+- ``embed_graph_sharded`` splits the GraphSAGE embed's edge set over the
+  mesh's dp x graph places and sums their float32 segment sums on the
+  first device.
 
 The host reads each block's losses once, and the throughput is timed
 against that read. The optimizer is AdamW with optax's ``adamw`` defaults,
@@ -38,11 +54,9 @@ not torch's (weight decay 1e-4, not 1e-2). Weights start from a flax
 params tree ``params`` when given, else are drawn from ``seed`` on the CPU
 (every device starts from the same weights); ``TrainResult.params`` is the
 trained flax tree, which either package's registry can publish and serve.
-The ranker's tensor, pipeline and expert parallelism and its MoE scorer
-are not ported yet (ROADMAP A12). Each trainer takes a ``stop`` event (a
-departure: the reference has none), checked before every step, so a
-stopping trainer process ends a training within one step
-(TrainingAborted) instead of running it out.
+Each trainer takes a ``stop`` event (a departure: the reference has
+none), checked before every step, so a stopping trainer process ends a
+training within one step (TrainingAborted) instead of running it out.
 """
 
 from __future__ import annotations
@@ -53,23 +67,26 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dragonfly2_tpu_torch.config.config import TrainerConfig
 from dragonfly2_tpu_torch.device import resolve_device
 from dragonfly2_tpu_torch.models import metrics as M
-from dragonfly2_tpu_torch.models.attention import AttentionRanker
+from dragonfly2_tpu_torch.models.attention import AttentionRanker, PipelineRanker
 from dragonfly2_tpu_torch.models.convert import params_from_flax, params_to_flax
-from dragonfly2_tpu_torch.models.graphsage import GraphSAGERanker, RankBatch, listwise_rank_loss
+from dragonfly2_tpu_torch.models.graphsage import GraphSAGERanker, RankBatch, listwise_rank_terms
 from dragonfly2_tpu_torch.models.mlp import ProbeRTTRegressor
 from dragonfly2_tpu_torch.ops.flash import flash_attention
+from dragonfly2_tpu_torch.ops.segment import segment_sum
 from dragonfly2_tpu_torch.parallel.mesh import (
     DP_AXIS,
-    EP_AXIS,
+    GRAPH_AXIS,
     PP_AXIS,
     SP_AXIS,
     TP_AXIS,
     shard_stacked_batches,
 )
+from dragonfly2_tpu_torch.parallel.tensor import sum_to
 from dragonfly2_tpu_torch.parallel.ring import sharded_ring_attention
 from dragonfly2_tpu_torch.parallel.ulysses import sharded_ulysses_attention
 from dragonfly2_tpu_torch.records.features import HostGraph, RankingDataset
@@ -413,11 +430,23 @@ def _initialised(model, seed: int, params: dict | None, device):
 def build_ranker(
     config: TrainerConfig, in_features: int, seed: int, params: dict | None, device
 ) -> AttentionRanker:
-    """The ranker of ``train_attention`` on ``device``."""
+    """The ranker of ``train_attention`` on ``device`` (its MLPs MoEs when
+    ``config.attention_moe_experts`` > 0)."""
     return _initialised(AttentionRanker(
         hidden_dim=config.hidden_dim,
         num_layers=config.attention_num_layers,
+        moe_experts=config.attention_moe_experts,
         in_features=in_features,
+    ), seed, params, device)
+
+
+def build_pp_ranker(config: TrainerConfig, stages: int, in_features: int, seed: int,
+                    params: dict | None, device) -> PipelineRanker:
+    """``train_attention``'s pipeline-parallel ranker on ``device``: one
+    block a stage, whatever ``config.attention_num_layers`` says, as in the
+    reference; bf16."""
+    return _initialised(PipelineRanker(
+        config.hidden_dim, stages, config.attention_pp_microbatches, in_features=in_features,
     ), seed, params, device)
 
 
@@ -448,32 +477,67 @@ class Trainer:
     one device. ``step`` runs a train step on the rows at ``idx`` (positions
     into those rows), ``step_batch`` on a batch already on the device; both
     return the loss on the device, unread. A subclass gives the loss of a
-    batch (``batch_loss``)."""
+    batch as a sum and a count (``batch_terms``). Given ``group``, the
+    processes of a mesh across processes, a step divides the sum by every
+    process's count and all-reduces the gradients and the loss."""
 
     def __init__(self, model: torch.nn.Module, rows: dict[str, np.ndarray] | None,
-                 learning_rate: float, device):
+                 learning_rate: float, device, group=None):
         self.model = model
         self.device = torch.device(device)
         self.rows = _on_device(rows, self.device)
         self.optimizer = adamw(model.parameters(), learning_rate)
+        self.group = group
+
+    def batch_terms(self, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
 
     def batch_loss(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        raise NotImplementedError
+        total, count = self.batch_terms(batch)
+        return total / count.clamp_min(1)
 
     def loss(self, idx: torch.Tensor) -> torch.Tensor:
         return self.batch_loss({key: value[idx] for key, value in self.rows.items()})
 
-    def _apply(self, loss: torch.Tensor) -> torch.Tensor:
+    def _apply(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if self.group is None:
+            loss = self.batch_loss(batch)
+            loss.backward()
+        else:
+            total, count = self.batch_terms(batch)
+            loss = total / self._all_reduce(count.detach()).clamp_min(1)
+            loss.backward()
+            loss = self._all_reduce_grads(loss.detach())
         self.optimizer.step()
         return loss.detach()
 
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the group (gloo reduces host copies)."""
+        dist = torch.distributed
+        with _costcard.uncounted():
+            buf = t.cpu().clone() if dist.get_backend(self.group) == "gloo" else t.clone()
+            dist.all_reduce(buf, group=self.group)
+        return buf.to(t.device)
+
+    def _all_reduce_grads(self, loss: torch.Tensor) -> torch.Tensor:
+        """Every parameter's gradient summed over the group, with the loss,
+        in one all-reduce; returns the summed loss."""
+        params = list(self.model.parameters())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        flat = self._all_reduce(torch.cat([g.reshape(-1).float() for g in grads]
+                                          + [loss.reshape(1).float()]))
+        start = 0
+        for p in params:
+            p.grad = flat[start:start + p.numel()].view_as(p).to(p.dtype)
+            start += p.numel()
+        return flat[-1].to(loss.dtype)
+
     def step(self, idx: torch.Tensor) -> torch.Tensor:
-        return self._apply(self.loss(idx))
+        return self._apply({key: value[idx] for key, value in self.rows.items()})
 
     def step_batch(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        return self._apply(self.batch_loss(batch))
+        return self._apply(batch)
 
     # ---------------------------------------------------- checkpoint state
 
@@ -501,17 +565,23 @@ class Trainer:
 
 
 class AttentionTrainer(Trainer):
-    """The attention ranker, trained through ``attention_fn``."""
+    """The attention ranker, trained through ``attention_fn`` (and, given
+    ``tp_attention_fns``, tensor-parallel over ``mesh``'s tp axis); the
+    model reads ``mesh`` for its MoE and its pipeline."""
 
-    def __init__(self, model: AttentionRanker, rows: dict[str, np.ndarray] | None,
-                 learning_rate: float, device, attention_fn=flash_attention):
-        super().__init__(model, rows, learning_rate, device)
+    def __init__(self, model: AttentionRanker | PipelineRanker,
+                 rows: dict[str, np.ndarray] | None, learning_rate: float, device,
+                 attention_fn=flash_attention, mesh=None, tp_attention_fns=None, group=None):
+        super().__init__(model, rows, learning_rate, device, group)
         self.attention_fn = attention_fn
+        self.mesh = mesh
+        self.tp_attention_fns = tp_attention_fns
 
-    def batch_loss(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    def batch_terms(self, batch: dict[str, torch.Tensor]):
         scores = self.model(batch["child"], batch["parents"], batch["pair"], batch["mask"],
-                            attention_fn=self.attention_fn)
-        return listwise_rank_loss(scores, batch["throughput"], batch["mask"])
+                            attention_fn=self.attention_fn, mesh=self.mesh,
+                            tp_attention_fns=self.tp_attention_fns)
+        return listwise_rank_terms(scores, batch["throughput"], batch["mask"])
 
 
 def graph_on_device(garrs: dict, device, compute_dtype: torch.dtype) -> dict[str, torch.Tensor]:
@@ -528,21 +598,21 @@ class GNNTrainer(Trainer):
     the whole graph and scores its batch's (child, parents) rows."""
 
     def __init__(self, model: GraphSAGERanker, rows: dict[str, np.ndarray] | None,
-                 garrs: dict, learning_rate: float, device):
-        super().__init__(model, rows, learning_rate, device)
+                 garrs: dict, learning_rate: float, device, group=None):
+        super().__init__(model, rows, learning_rate, device, group)
         self.graph = graph_on_device(garrs, self.device, model.compute_dtype)
 
-    def batch_loss(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    def batch_terms(self, batch: dict[str, torch.Tensor]):
         scores = self.model(self.graph, batch["child_idx"], batch["parent_idx"], batch["pair_feats"])
-        return listwise_rank_loss(scores, batch["throughput"], batch["mask"])
+        return listwise_rank_terms(scores, batch["throughput"], batch["mask"])
 
 
 class MLPTrainer(Trainer):
     """The probe-RTT regressor under the reference's weighted MSE."""
 
-    def batch_loss(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    def batch_terms(self, batch: dict[str, torch.Tensor]):
         err = (self.model(batch["x"]) - batch["y"]) ** 2
-        return (err * batch["w"]).sum() / batch["w"].sum().clamp_min(1.0)
+        return (err * batch["w"]).sum(), batch["w"].sum()
 
 
 def attention_fns(mesh, sp_strategy: str):
@@ -571,15 +641,23 @@ def epoch_batches(ds: RankingDataset, train_idx: np.ndarray, batch_size: int,
     return take(ds, idx)
 
 
-def eval_scores(model: AttentionRanker, rows: dict[str, np.ndarray],
-                attention_fn=flash_attention, mesh=None) -> torch.Tensor:
+def tp_attention_fns(mesh, sp_strategy: str):
+    """(training, eval) attention of each tp shard of the ranker's tensor-
+    parallel blocks: ``attention_fns`` over the shard's own (dp, sp)
+    sub-mesh."""
+    fns = [attention_fns(mesh.slice(TP_AXIS, j), sp_strategy) for j in range(mesh.shape[TP_AXIS])]
+    return [f[0] for f in fns], [f[1] for f in fns]
+
+
+def eval_scores(model: AttentionRanker | PipelineRanker, rows: dict[str, np.ndarray],
+                attention_fn=flash_attention, mesh=None, tp_attention_fns=None) -> torch.Tensor:
     """The ranker's scores of ``rows`` under inference mode, on the model's
     device. On a mesh the rows are padded with zero (masked-out) rows to a
-    multiple of dp and the scores sliced back, as the reference pads its
-    eval batch (train.py:877-892)."""
+    multiple of the global dp (every process's) and the scores sliced
+    back, as the reference pads its eval batch (train.py:877-892)."""
     n_real = rows["mask"].shape[0]
     if mesh is not None:
-        pad = (-n_real) % mesh.shape[DP_AXIS]
+        pad = (-n_real) % (mesh.dcn * mesh.shape[DP_AXIS])
         rows = {
             key: np.concatenate([value, np.zeros((pad,) + value.shape[1:], value.dtype)])
             for key, value in rows.items()
@@ -588,28 +666,20 @@ def eval_scores(model: AttentionRanker, rows: dict[str, np.ndarray],
     with torch.inference_mode():
         scores = model(
             *(torch.from_numpy(rows[key]).to(device) for key in ("child", "parents", "pair", "mask")),
-            attention_fn=attention_fn, mesh=mesh,
+            attention_fn=attention_fn, mesh=mesh, tp_attention_fns=tp_attention_fns,
         )
     return scores[:n_real]
 
 
-def _check_supported(config: TrainerConfig, mesh, sp_strategy: str) -> None:
+def _check_supported(sp_strategy: str) -> None:
     # validated even without a mesh, so a typo fails on one device too
     if sp_strategy not in SP_STRATEGIES:
         raise ValueError(f"unknown sp_strategy {sp_strategy!r}")
-    if mesh is not None and any(mesh.shape[axis] > 1 for axis in (TP_AXIS, PP_AXIS, EP_AXIS)):
-        raise NotImplementedError(
-            f"train_attention over a mesh with tp, pp or ep > 1 ({mesh.shape}) is not "
-            "ported yet: ROADMAP queue A12"
-        )
-    if config.attention_tp or config.attention_pp:
-        raise NotImplementedError(
-            "tensor and pipeline parallelism of the ranker are not ported yet: ROADMAP queue A12"
-        )
-    if config.attention_moe_experts > 0:
-        raise NotImplementedError(
-            "the mixture-of-experts scorer is not ported yet: ROADMAP queue A12"
-        )
+
+
+def _group(mesh):
+    """The process group a mesh's dp axis spans, or None."""
+    return None if mesh is None else mesh.group
 
 
 def _train_device(mesh, device) -> torch.device:
@@ -830,7 +900,8 @@ def train_mlp(
     model = build_regressor(config, x.shape[1], seed, params, dev)
     batch_size = min(config.batch_size, len(train_idx))
     rows = {"x": x[train_idx], "y": y[train_idx], "w": np.ones(len(train_idx), np.float32)}
-    trainer = MLPTrainer(model, rows if mesh is None else None, config.learning_rate, dev)
+    trainer = MLPTrainer(model, rows if mesh is None else None, config.learning_rate, dev,
+                         _group(mesh))
     start_epoch, on_epoch = _resume_hooks(checkpointer, trainer)
 
     model.train()
@@ -894,7 +965,7 @@ def train_gnn(
     model = build_graphsage(config, graph, seed, params, dev)
     batch_size = min(config.batch_size, len(train_idx))
     rows = _rank_rows(_take_rank_batch(ds, train_idx)) if mesh is None else None
-    trainer = GNNTrainer(model, rows, garrs, config.learning_rate, dev)
+    trainer = GNNTrainer(model, rows, garrs, config.learning_rate, dev, _group(mesh))
     start_epoch, on_epoch = _resume_hooks(checkpointer, trainer)
 
     model.train()
@@ -947,20 +1018,32 @@ def train_attention(
 ) -> TrainResult:
     """Train the set-transformer parent ranker and evaluate its top-1 picks
     on a held-out split: on one device (CUDA unless ``device="cpu"``), or
-    on a mesh (parallel/mesh.py ``make_mesh``) whose sp > 1 turns on ring
-    attention or Ulysses per ``sp_strategy`` (default
-    ``config.sp_strategy``), the model on the mesh's first device. A mesh
-    with sp = 1 computes on that one device.
+    on a mesh (parallel/mesh.py ``make_mesh``), the model on the mesh's
+    first device. Every parallelism axis turns on from the config and the
+    mesh alone, as in the reference:
 
-    The split and the minibatch order come from ``np.random.default_rng(seed)``
-    exactly as in the reference, on one device and on a mesh alike. The
-    initial weights are drawn from ``seed``
-    (``AttentionRanker.reset_parameters``), or carried across from a flax
-    params tree ``params``; ``TrainResult.params`` is the trained flax tree,
-    which either package's registry can publish and serve."""
+    - sp > 1: ring attention or Ulysses per ``sp_strategy`` (default
+      ``config.sp_strategy``);
+    - tp > 1 and ``config.attention_tp`` (not with pp): the blocks run
+      tensor-parallel, each tp shard's head group through its own
+      sub-mesh's attention;
+    - ``config.attention_moe_experts`` > 0: top-1 MoE MLPs, over the ep
+      axis's all_to_alls when ep > 1, the exact ``moe_reference`` without;
+    - pp > 1 and ``config.attention_pp``: the deep ``PipelineRanker``, one
+      block a pp stage over ``config.attention_pp_microbatches``
+      microbatches; ``TrainResult.params`` is then the reference's
+      ``{"embed", "blocks", "ln", "score"}`` tree.
+
+    A mesh axis whose flag is off trains the plain model; a flag without a
+    mesh is ignored. The split and the minibatch order come from
+    ``np.random.default_rng(seed)`` exactly as in the reference. The
+    initial weights are drawn from ``seed`` (``reset_parameters``), or
+    carried across from a flax params tree ``params``; ``TrainResult.params``
+    is the trained flax tree, which either package's registry can publish
+    and serve."""
     config = config or TrainerConfig()
     sp_strategy = sp_strategy or config.sp_strategy
-    _check_supported(config, mesh, sp_strategy)
+    _check_supported(sp_strategy)
     dev = _train_device(mesh, device)
     rng = np.random.default_rng(seed)
     n = ds.child.shape[0]
@@ -969,11 +1052,23 @@ def train_attention(
 
     train_rows = take(ds, train_idx)
     in_features = sum(train_rows[key].shape[-1] for key in ("parents", "child", "pair"))
-    model = build_ranker(config, in_features, seed, params, dev)
-    train_fn, eval_fn = attention_fns(mesh, sp_strategy)
+    use_pp = config.attention_pp and mesh is not None and mesh.shape[PP_AXIS] > 1
+    use_tp = (config.attention_tp and mesh is not None and mesh.shape[TP_AXIS] > 1
+              and not use_pp)
+    tp_train = tp_eval = None
+    if use_pp:
+        # the reference's stages apply the block's default attention
+        model = build_pp_ranker(config, mesh.shape[PP_AXIS], in_features, seed, params, dev)
+        train_fn = eval_fn = flash_attention
+    else:
+        model = build_ranker(config, in_features, seed, params, dev)
+        train_fn, eval_fn = attention_fns(mesh, sp_strategy)
+        if use_tp:
+            tp_train, tp_eval = tp_attention_fns(mesh, sp_strategy)
     batch_size = min(config.batch_size, len(train_idx))
     trainer = AttentionTrainer(model, train_rows if mesh is None else None,
-                               config.learning_rate, dev, attention_fn=train_fn)
+                               config.learning_rate, dev, attention_fn=train_fn, mesh=mesh,
+                               tp_attention_fns=tp_train, group=_group(mesh))
     start_epoch, on_epoch = _resume_hooks(checkpointer, trainer)
 
     model.train()
@@ -991,7 +1086,7 @@ def train_attention(
 
     eb = take(ds, eval_idx)
     model.eval()
-    scores = eval_scores(model, eb, eval_fn, mesh)
+    scores = eval_scores(model, eb, eval_fn, mesh, tp_eval)
     stats = M.top1_selection_stats(
         scores.float().cpu(), torch.from_numpy(eb["throughput"]), torch.from_numpy(eb["mask"])
     )
@@ -1003,3 +1098,68 @@ def train_attention(
     )
     return _result(params_to_flax(model), losses, block_samples, block_secs,
                    {key: float(value) for key, value in stats.items()}, analytic)
+
+
+def embed_graph_sharded(model: GraphSAGERanker, params: dict | None, graph_arrays: dict,
+                        mesh) -> torch.Tensor:
+    """Host embeddings with the EDGE set sharded across the mesh (the
+    reference's train.py:1053): the edges, padded to a multiple of
+    ``mesh.size`` with weight-0 pads, split into contiguous blocks over the
+    dp x graph places (dp-major), block k on its device. Each layer, every
+    block computes float32 segment sums (ops/segment.py) of its edges'
+    messages, counts and edge features into full-size node accumulators;
+    the partials are summed on the mesh's first device (the reference's
+    psum over both axes), and the layer's products run there in the
+    compute dtype. ``params`` is a flax tree, or None for ``model``'s own
+    weights. ``graph_arrays`` holds numpy arrays or tensors
+    (``training.data.graph_arrays``). Returns [nodes, hidden] on the first
+    device."""
+    dev = mesh.first_device
+    if params is not None:
+        model = GraphSAGERanker(model.hidden_dim, model.num_layers, model.compute_dtype,
+                                model.layers()[0].neigh.in_features,
+                                model.layers()[0].edge.in_features)
+        model.load_state_dict(params_from_flax(params))
+    model = model.to(dev)
+    arrays = {key: torch.as_tensor(value).to(dev) for key, value in graph_arrays.items()}
+    node_feats = arrays["node_feats"]
+    n_nodes, dt = node_feats.shape[0], model.compute_dtype
+    e = arrays["edge_src"].shape[0]
+    pad = (-e) % mesh.size
+
+    def padded(t):
+        return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+
+    edge_src, edge_dst = padded(arrays["edge_src"]), padded(arrays["edge_dst"])
+    edge_feats = padded(arrays["edge_feats"].float())
+    weight = padded(torch.ones(e, dtype=torch.float32, device=dev))[:, None]
+    devices = [mesh.at(dp=i, graph=g)
+               for i in range(mesh.shape[DP_AXIS]) for g in range(mesh.shape[GRAPH_AXIS])]
+    size = edge_src.shape[0] // len(devices)
+    blocks = [
+        {key: t[k * size:(k + 1) * size].to(d)
+         for key, t in (("src", edge_src), ("dst", edge_dst), ("feats", edge_feats),
+                        ("w", weight))}
+        for k, d in enumerate(devices)
+    ]
+    h = node_feats
+    for layer in model.layers():
+        h_c = h.to(dt)
+        partials = []
+        for block, d in zip(blocks, devices):
+            h_d = h_c.to(d)
+            w = block["w"]
+            msgs = h_d[block["dst"].long()].float() * w
+            partials.append(torch.cat([
+                segment_sum(msgs, block["src"], n_nodes),
+                segment_sum(w, block["src"], n_nodes),
+                segment_sum(block["feats"] * w, block["src"], n_nodes),
+            ], dim=-1))
+        total = sum_to(partials, dev)
+        width = h_c.shape[-1]
+        agg, cnt, e_agg = total.split([width, 1, total.shape[-1] - width - 1], dim=-1)
+        cnt = cnt.clamp_min(1.0)
+        out = (getattr(layer, "self")(h_c) + layer.neigh((agg / cnt).to(dt))
+               + layer.edge((e_agg / cnt).to(dt)))
+        h = F.gelu(out, approximate="tanh")
+    return h

@@ -124,5 +124,26 @@ def test_seeded_init_is_deterministic_and_flax_shaped():
 
 
 def test_moe_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        port_attention.AttentionRanker(HIDDEN, HEADS, LAYERS, moe_experts=4)
+    """The mixture-of-experts ranker, which raised before the port had it:
+    from the reference's flax init, on one device (the no-drop
+    ``moe_reference``), its scores match the reference's in float32 and
+    bf16, and its tree crosses models/convert.py both ways unchanged."""
+    inputs = _inputs(seed=2)
+    mask = inputs[3]
+    for dtype in ("float32", "bfloat16"):
+        model = RefRanker(hidden_dim=HIDDEN, num_heads=HEADS, num_layers=LAYERS,
+                          compute_dtype=getattr(jnp, dtype), moe_experts=4)
+        params = jax.device_get(jax.jit(model.init)(jax.random.key(0), *inputs))
+        want = np.asarray(jax.jit(model.apply)(params, *inputs))
+        port = port_attention.AttentionRanker(HIDDEN, HEADS, LAYERS, getattr(torch, dtype),
+                                              moe_experts=4)
+        port.load_state_dict(attention_params_from_flax(params))
+        with torch.no_grad():
+            got = port(*(torch.from_numpy(x) for x in inputs)).numpy()
+        np.testing.assert_allclose(got[mask], want[mask], atol=TOL[dtype], rtol=TOL[dtype],
+                                   err_msg=dtype)
+        back = dict(jax.tree_util.tree_leaves_with_path(attention_params_to_flax(port)))
+        flat_ref = jax.tree_util.tree_leaves_with_path(params)
+        assert len(back) == len(flat_ref)
+        for path, leaf in flat_ref:
+            np.testing.assert_array_equal(back[path], leaf)

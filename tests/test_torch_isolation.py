@@ -75,7 +75,10 @@ def test_port_imports_no_jax_flax_or_reference():
                    "megascale", "megascale.topology", "megascale.engine", "megascale.soak",
                    "megascale.fleet", "procworld", "procworld.origin", "procworld.sample",
                    "procworld.divergence", "procworld.supervisor", "procworld.planet",
-                   "rpc.wireskew"):
+                   "rpc.wireskew",
+                   # slice 24: tensor, pipeline and expert parallelism
+                   "parallel", "parallel.mesh", "parallel.tensor", "parallel.pipeline",
+                   "parallel.moe"):
         assert f"dragonfly2_tpu_torch.{module}" in names, module
     assert lines["TORCH"] == "True"
     assert lines["BAD"] == "", f"port pulled in: {lines['BAD']}"

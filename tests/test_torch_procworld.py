@@ -76,6 +76,31 @@ def test_origin_server_superset_surface():
         origin.stop()
 
 
+def test_origin_share_counts_payload_bytes_not_gets(tmp_path):
+    """A whole-task back-to-source through the port's piece manager makes
+    the origin answer a 1-byte range probe and one GET a piece: 4 GETs for
+    the planet's 3-piece payload, which the planet counts as 3 origin
+    pieces from the body bytes."""
+    from dragonfly2_tpu_torch.client import piece_manager, storage
+    from dragonfly2_tpu_torch.procworld import OriginServer
+    from dragonfly2_tpu_torch.procworld.planet import origin_pieces_of
+
+    payload_bytes = 2 * (4 << 20) + 1  # run_procday's default payload
+    payload = os.urandom(payload_bytes)
+    origin = OriginServer(payload)
+    try:
+        ts = storage.StorageManager(tmp_path).register_task(storage.TaskMetadata(
+            task_id="t", peer_id="p", url=origin.url(), piece_length=4 << 20))
+        length, pieces = piece_manager.PieceManager().download_source(ts, origin.url())
+        assert (length, pieces) == (payload_bytes, 3) and ts.read_range(0, length) == payload
+        assert origin.gets == 4 and origin.bytes_sent == payload_bytes + 1
+        assert origin_pieces_of(origin.bytes_sent, payload_bytes, pieces) == 3
+        assert origin_pieces_of(0, payload_bytes, pieces) == 0
+        assert origin_pieces_of(2 * origin.bytes_sent, payload_bytes, pieces) == 6
+    finally:
+        origin.stop()
+
+
 # --------------------------------------------------------- supervisor
 
 

@@ -414,13 +414,20 @@ def test_mesh_eval_scores_match_one_device(rank_data):
 
 
 def test_mesh_paths_not_ported_raise(rank_data):
+    """The tp, pp and ep paths, which raised before the port had them, now
+    train from the config and the mesh alone: a finite, falling loss on a
+    tiny mesh of each (tests/test_torch_parallel*.py hold them to the
+    reference). A mesh and a device that disagree still raise."""
     port_ds, _ = rank_data
-    cfg = TrainerConfig(hidden_dim=32, batch_size=32, epochs=1)
-    for axes in ({"tp": 2}, {"pp": 2}, {"ep": 2}):
-        with pytest.raises(NotImplementedError, match="tp, pp or ep"):
-            train.train_attention(port_ds, cfg, mesh=_cpu_mesh(4, dp=2, **axes), device="cpu")
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        train.train_attention(port_ds, dataclasses.replace(cfg, attention_moe_experts=2),
-                              mesh=_cpu_mesh(2, dp=1, sp=2), device="cpu")
+    cfg = TrainerConfig(hidden_dim=32, batch_size=32, epochs=3, attention_num_layers=1,
+                        learning_rate=3e-3)
+    for flags, axes in (({"attention_tp": True}, {"tp": 2}),
+                        ({"attention_pp": True, "attention_pp_microbatches": 2}, {"pp": 2}),
+                        ({"attention_moe_experts": 2}, {"ep": 2}),
+                        ({"attention_moe_experts": 2}, {"sp": 2})):
+        got = train.train_attention(port_ds, dataclasses.replace(cfg, **flags),
+                                    mesh=_cpu_mesh(4, dp=2, **axes), device="cpu")
+        assert got.steps == 15 and np.isfinite(got.losses).all(), axes
+        assert np.mean(got.losses[-5:]) < np.mean(got.losses[:5]), (axes, got.losses)
     with pytest.raises(ValueError, match="disagrees"):
         train.train_attention(port_ds, cfg, mesh=_cpu_mesh(2, dp=1, sp=2), device="cuda")
