@@ -285,7 +285,10 @@ result line:
    its s3:// URL with the credentials in x-df-* headers makes the seed
    back-source it in ranged GETs, then the 16 daemons pull it at once
    through their proxies: every body the object's sha256, stub bytes over
-   object bytes 1.000, no signature refused, at least one ranged GET. (c)
+   object bytes 1.000, no signature refused, at least one ranged GET; it
+   prints the scheduler's bad-node verdict on the seed, recomputed from
+   the seed's piece journal (a seed judged bad sends every child back to
+   source). (c)
    dfstore --endpoint on the seed's OBJSTORE port puts a 64 MiB object,
    the dfstore client checks it exists, dfstore gets it back with equal
    bytes, the client copies it and dfstore sum lists both keys; deleted in
@@ -326,10 +329,11 @@ result line:
    it outside the fleet columns) and K = 4 (zero lost downloads, each
    announce page at a kill round and cleared). (d) run_procday over the
    procday spec's 12-round day (two scheduler processes on the card with
-   --device cuda, three dfdaemons, a manager): zero lost downloads,
-   completions over P2P, kills at rounds 5 and 10 with failover, at least
-   4 restarts, a page at each kill cleared the next round, every exit
-   code set; then tools/dfproc.py's simulator leg (300 hosts, 24 tasks,
+   --device cuda, three dfdaemons, the spec's three seed daemons, a
+   manager): zero lost downloads, completions over P2P, kills at rounds 5
+   and 10 with failover, at least 4 restarts, a page at each kill cleared
+   the next round, every exit code set; each kill round's b, failovers
+   and the inheriting scheduler's seed triggers printed; then tools/dfproc.py's simulator leg (300 hosts, 24 tasks,
    16 arrivals) on the card, every divergence metric within its band.
    Prints each run's setup and wall seconds, pieces/s, events/s, the
    engine's and the tick's phase p50s, peak RSS and
@@ -6427,6 +6431,39 @@ def _s3_proxy_fetch(proxy_port: int, url: str) -> tuple:
         conn.close()
 
 
+def _seed_cost_verdict(seed_dir: str, task_id: str) -> tuple:
+    """The scheduler's bad-node verdict on a seed's peer of ``task_id``,
+    recomputed from the seed's piece journal: the origin piece costs in
+    the order the seed wrote and reported them, the newest
+    ``PIECE_COST_CAPACITY`` as the scheduler's cost ring holds them,
+    judged by ``ops/evaluator.is_bad_node`` (IsBadNode, evaluator.go:93-129:
+    the newest cost above 20x the mean of the rest, or above their mean +
+    3 sigma from 30 costs on). A seed judged bad is no candidate parent;
+    with no other rooted peer every child of the task goes back to
+    source. Returns (bad, the newest cost in ms, the rule's bound in ms,
+    the costs in the ring)."""
+    import torch
+
+    from dragonfly2_tpu_torch.config.constants import CONSTANTS
+    from dragonfly2_tpu_torch.ops import evaluator as ev
+    from dragonfly2_tpu_torch.state.fsm import PeerState
+
+    journal = pathlib.Path(seed_dir, task_id, "pieces.jsonl").read_text().splitlines()
+    ring = np.asarray([json.loads(line)["cost_ns"] for line in journal if line],
+                      np.float32)[-CONSTANTS.PIECE_COST_CAPACITY:]
+    if len(ring) < CONSTANTS.MIN_AVAILABLE_COST_LEN:
+        return False, float(ring[-1] / 1e6) if len(ring) else float("nan"), float("nan"), len(ring)
+    costs = np.zeros((1, 1, CONSTANTS.PIECE_COST_CAPACITY), np.float32)
+    costs[0, 0, :len(ring)] = ring
+    bad = bool(ev.is_bad_node(torch.from_numpy(costs), torch.tensor([[len(ring)]]),
+                              torch.tensor([[int(PeerState.SUCCEEDED)]]))[0, 0])
+    rest = ring[:-1].astype(np.float64)
+    bound = (rest.mean() * CONSTANTS.BAD_NODE_MEAN_MULTIPLIER
+             if len(ring) < CONSTANTS.NORMAL_DISTRIBUTION_LEN
+             else rest.mean() + CONSTANTS.BAD_NODE_SIGMA * rest.std())
+    return bad, float(ring[-1] / 1e6), float(bound / 1e6), len(ring)
+
+
 def _log_tails(procs, chars: int = 4000) -> str:
     """The ends of the named processes' logs, for a failure message."""
     return "".join(f"\n--- the {p.name}'s log ends:\n{p.log()[-chars:]}" for p in procs)
@@ -6641,6 +6678,10 @@ def phase_objects(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
             job_s = time.perf_counter() - start_s
             if done["state"] != "SUCCESS":
                 _fail(f"the preheat job ended {done['state']}: {done['result']}")
+            bad, newest_ms, bound_ms, ring_n = _seed_cost_verdict(os.path.join(root, "seed"), task_id)
+            seed_costs = (f"the seed's newest origin piece cost {newest_ms:.3f} ms against the "
+                          f"bad-node bound {bound_ms:.3f} ms of its {ring_n}-cost ring: "
+                          f"{'judged BAD' if bad else 'not judged bad'}")
             proxy = {d.name: int(d.ready[4]) for d in dfs}
             start_s = time.perf_counter()
 
@@ -6654,7 +6695,8 @@ def phase_objects(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
             if refused:
                 name = refused[0][0]
                 _fail(f"{len(refused)} of {daemons} proxies answered {url} with an error, "
-                      f"{refused[0][0]} with {refused[0][1]}: {refused[0][2]!r}" + _log_tails(
+                      f"{refused[0][0]} with {refused[0][1]}: {refused[0][2]!r}; {seed_costs}"
+                      + _log_tails(
                           [d for d in dfs if d.name == name] + [seed, sched]))
             for name, (_, digest, n, via, _), _ in fetched:
                 if digest != blob_sha or via != "p2p":
@@ -6672,7 +6714,7 @@ def phase_objects(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
                   f"{_pct(per_node, 50):.2f} s p99 {_pct(per_node, 99):.2f} s; every body the "
                   f"object's sha256; stub bytes served / object bytes {served:.3f} over "
                   f"{stub.gets[OBJ_BUCKET, OBJ_KEY]} GETs ({stub.ranged} ranged), "
-                  f"{stub.refused} signatures refused, host clock ({card})")
+                  f"{stub.refused} signatures refused; {seed_costs}, host clock ({card})")
 
             # -- (c) the daemon's object-storage service, through dfstore
             data = rng.integers(0, 256, put_mib << 20, dtype=np.uint8).tobytes()
@@ -7027,8 +7069,8 @@ def _scale_fleet(card: str, device: str) -> None:
 
 
 def _scale_procday(card: str, device: str) -> None:
-    """(d) the planet of processes (2 schedulers on the card, 3 dfdaemons
-    and a manager) over the procday spec's day: zero lost downloads, P2P
+    """(d) the planet of processes (2 schedulers on the card, 3 dfdaemons,
+    the spec's seed daemons and a manager) over the procday spec's day: zero lost downloads, P2P
     completions, the kills at the spec's rounds with failover, the
     restart waves, each page at its kill round and cleared the round
     after, every exit code set; then the simulator leg on the card, every
@@ -7054,11 +7096,19 @@ def _scale_procday(card: str, device: str) -> None:
     if any(code is None for code in run["proc"]["exit_codes"].values()):
         problems.append(f"exit codes {run['proc']['exit_codes']}")
     print(f"scale procday: {SCALE_PROC['schedulers']} schedulers on the card, "
-          f"{SCALE_PROC['daemons']} dfdaemons and a manager, {run['rounds']} rounds: wall "
+          f"{SCALE_PROC['daemons']} dfdaemons, {run['seeds']} seed daemons and a manager, "
+          f"{run['rounds']} rounds: wall "
           f"{run['timing']['wall_s']} s, {st['completed']} downloads = "
           f"{run['timing']['downloads_per_sec']} downloads/s; stats {st}; kills at "
           f"{run['kill_rounds']}, pages at {run['page_rounds']}, cleared at {cleared}; exit "
           f"codes {run['proc']['exit_codes']} (host clock; {card})")
+    for k in run["kill_log"]:
+        print(f"scale procday kill round {k['round']}: {k['victim']} killed with {k['backlog']} "
+              f"downloads waiting on it; b = {k['b']} origin copies beyond the round's "
+              f"seeders; {k['failovers']} failovers; the scheduler that inherited its tasks "
+              f"{'sent' if k['seed_downloads'] + k['reannounces'] else 'sent no'} seed "
+              f"triggers ({k['seed_downloads']} seed downloads, {k['reannounces']} seed "
+              f"re-announces); {run['seeds']} seed daemons (host clock; {card})")
     if problems:
         _fail("scale labs: the planet day: " + "; ".join(problems))
     sim = run_megascale("procday", seed=run["seed"], rounds=run["rounds"], device=device,

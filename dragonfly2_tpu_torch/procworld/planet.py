@@ -1,6 +1,7 @@
 """Port of dragonfly2_tpu/procworld/planet.py: ``run_procday`` (with
 ``device``: the schedulers' device, the card unless asked for the CPU)
-and ``real_facts``.
+and ``real_facts``. Beside the reference's processes the day starts the
+spec's seed daemons, and its run records each kill round (``kill_log``).
 
 The compressed scenario day driven through REAL processes.
 
@@ -226,6 +227,25 @@ def run_procday(workdir, *, scenario: str = "procday", seed: int = 7,
                 name, sched_addrs, location=f"{region}|z0|r{i}",
                 scenario=scenario, scenario_seed=seed,
             )
+        # The spec's seed peers (WanSpec.seeds_per_region in each
+        # region), as the simulator places them (megascale/topology.py):
+        # super hosts that announce to every scheduler of their list at
+        # start. A task's first peer triggers one, so a scheduler that
+        # inherits a task at a kill triggers a seed too, which downloads
+        # the task or, holding it, re-announces it (client/daemon.py
+        # _obtain_seed) instead of the fan-out going to the origin. They
+        # take no part in the rounds' downloads, and carry no fault
+        # injector: FlakySpec.parent_fraction (0.25) is the flaky share
+        # of parents, which the three injected daemons already exceed.
+        seeds = []
+        for i, region in enumerate(regions):
+            for j in range(spec.wan.seeds_per_region):
+                name = f"seed-{i * spec.wan.seeds_per_region + j}"
+                planet.spawn_daemon(
+                    name, sched_addrs, location=f"{region}|z0|s{j}",
+                    host_type="super",
+                )
+                seeds.append(name)
 
         # the scenario's deterministic chaos schedule, sampled over the
         # REAL host population (the daemons)
@@ -243,6 +263,7 @@ def run_procday(workdir, *, scenario: str = "procday", seed: int = 7,
         banked: dict = {}  # counters of daemons restarted earlier in the day
         paused: set = set()
         kill_counter = 0
+        kill_log: list = []
 
         pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=max(daemons * tasks_per_round, 4)
@@ -258,7 +279,8 @@ def run_procday(workdir, *, scenario: str = "procday", seed: int = 7,
                 window = engine.upgrade_window(r)
                 if window is not None:
                     lo, hi = window
-                    for i, proc in enumerate(planet.daemons()):
+                    for i, proc in enumerate(
+                            p for p in planet.daemons() if p.name in daemon_region):
                         frac = i / max(daemons, 1)
                         if lo <= frac < hi and (proc.name, r) not in \
                                 upgrade_restarted:
@@ -272,7 +294,8 @@ def run_procday(workdir, *, scenario: str = "procday", seed: int = 7,
                 # P2P off the seeder — the swarm shape the simulator
                 # models, at M=3 scale
                 active = [p for p in planet.daemons()
-                          if p.alive() and p.name not in paused]
+                          if p.name in daemon_region and p.alive()
+                          and p.name not in paused]
                 scheds = [planet.procs[f"scheduler-{i}"]
                           for i in range(schedulers)]
                 if r in kill_rounds:
@@ -322,6 +345,7 @@ def run_procday(workdir, *, scenario: str = "procday", seed: int = 7,
                 if r in kill_rounds:
                     _await_settled([f for _, _, f in futures])
                     backlog = sum(1 for _, _, f in futures if not f.done())
+                    before_kill = _daemon_totals(planet)
                     kill_counter += 1
                     planet.kill(victim)
                     crashed = 1
@@ -352,6 +376,29 @@ def run_procday(workdir, *, scenario: str = "procday", seed: int = 7,
                         ttc_ms[daemon_region[name]].append(round(ms, 2))
                     else:
                         lost += 1
+
+                if crashed:
+                    # what the scheduler that inherited the victim's tasks
+                    # made of them, from the kill to the round's end: the
+                    # seed triggers it sent (only a seed host gets one; it
+                    # downloads the task or, holding it, re-announces it),
+                    # the failovers, and the origin copies the round
+                    # fetched beyond its seeders' (b)
+                    after_kill = _daemon_totals(planet)
+
+                    def delta(family):
+                        return int(after_kill.get(family, 0.0) - before_kill.get(family, 0.0))
+
+                    kill_log.append({
+                        "round": r,
+                        "victim": victim,
+                        "backlog": backlog,
+                        "b": max(round((origin.bytes_sent - prev_origin_bytes)
+                                       / payload_bytes) - tasks_per_round, 0),
+                        "failovers": delta("dragonfly_dfdaemon_scheduler_failover_total"),
+                        "seed_downloads": delta("dragonfly_dfdaemon_seed_peer_download_total"),
+                        "reannounces": delta("dragonfly_dfdaemon_seed_task_reannounce_total"),
+                    })
 
                 # -- recovery: the killed scheduler returns on its
                 # pinned port before the next round (daemons redial it)
@@ -426,6 +473,7 @@ def run_procday(workdir, *, scenario: str = "procday", seed: int = 7,
         "scenario": scenario,
         "seed": seed,
         "hosts": daemons,
+        "seeds": len(seeds),
         "schedulers": schedulers,
         "rounds": rounds,
         "minutes_per_round": minutes_per_round,
@@ -450,6 +498,7 @@ def run_procday(workdir, *, scenario: str = "procday", seed: int = 7,
                 total_completed / max(wall_s, 1e-9), 2),
         },
         "kill_rounds": [float(r) for r in kill_rounds],
+        "kill_log": kill_log,
         "page_rounds": announce_page_rounds(timeline, slo_block),
         "proc": {**topology, "exit_codes": exit_codes},
         "ttc_ms_p95": {rg: quantile(pooled[rg], 0.95) for rg in regions},

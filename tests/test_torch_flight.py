@@ -479,14 +479,14 @@ def test_trainer_registers_an_epoch_card():
 
 def test_trainer_registration_stays_out_of_the_timing(monkeypatch):
     """A one-block training times none of its counted step: with the count
-    made 0.5 s slower, the block's samples/s still leaves it out (and
+    made 5 s slower, the block's samples/s still leaves it out (and
     the counted step's samples), every step still trains; a second
     training at the same signature counts nothing, so the registration is
     once per (entry, signature) per process."""
     from dragonfly2_tpu_torch.config.config import TrainerConfig
     from dragonfly2_tpu_torch.training.train import train_mlp
 
-    slow = 0.5
+    slow = 5.0  # a timed registration reads at least this; untimed steps take far less
     real = costcard.counting
 
     class slow_counting(real):

@@ -4,8 +4,11 @@ accountings: the origin's body bytes in payload pieces (the port's
 reference's, which counts each back-to-source's 1-byte range probe as a
 piece). Prints one JSON line a day: each accounting's origin share and
 final SLO verdict, the simulator's verdict, whether every divergence
-metric is within its band (the port's accounting), and the per-round
-origin pieces.
+metric is within its band (the port's accounting), the per-round
+origin pieces, and each kill round's record (``run_procday``'s
+``kill_log``: b, the origin copies beyond the round's seeders; the
+failovers; the seed downloads and re-announces the inheriting
+scheduler's triggers caused).
 
     python3 tools/procday_origin_ab.py --days 6 --device cpu
 
@@ -81,6 +84,9 @@ def main() -> None:
             "bytes_per_round": [o.origin_pieces for o in observations],
             "gets_per_round": [o.origin_pieces for o in by_gets],
             "lost_downloads": run["stats"]["lost_downloads"],
+            "seeds": run["seeds"],
+            "reannounces": run["stats"]["reannounces"],
+            "kill_log": run["kill_log"],
         }), flush=True)
 
 
