@@ -6,7 +6,9 @@ Run from the repository root on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py
 
 Phases, each of which must pass or the script exits non-zero without a
-result line:
+result line. Each ends with a line "<name> phase: <s> s (<card>)", and
+the run with one line of every phase's seconds and the total, printed
+before the kernels JSON line:
 
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile every CUDA source of the path and the host launcher
@@ -413,6 +415,7 @@ import asyncio
 import collections
 import contextlib
 import ctypes
+import functools
 import json
 import os
 import pathlib
@@ -495,6 +498,28 @@ ULYSSES_SHAPE, ULYSSES_SP = (2, 16, 4096, 32), 4
 def _fail(message: str) -> None:
     print(f"chip_smoke FAILED: {message}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+# each phase's seconds, in the order the phases ran, and the card's
+# nvidia-smi line (phase_device sets it)
+PHASE_SECONDS: dict[str, float] = {}
+_CARD = {"line": "no card"}
+
+
+def _phase(name: str):
+    """A phase: its closing line "<name> phase: <s> s (<card>)" and its
+    seconds in PHASE_SECONDS. A failure is not caught: it ends the run."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            start = time.perf_counter()
+            result = fn(*args, **kwargs)
+            seconds = time.perf_counter() - start
+            PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + seconds
+            print(f"{name} phase: {seconds:.1f} s ({_CARD['line']})", flush=True)
+            return result
+        return timed
+    return wrap
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -596,6 +621,7 @@ def _timed(fn, symbol: str, prefix: str = "kernel") -> dict:
     return {f"{prefix}_ms": ms, f"{prefix}_recorded": recorded, f"{prefix}_names": names}
 
 
+@_phase("device")
 def phase_device():
     import torch
 
@@ -608,12 +634,14 @@ def phase_device():
     if smi.returncode != 0 or not smi.stdout.strip():
         _fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
+    _CARD["line"] = card
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"device 0: {torch.cuda.get_device_name(0)}")
     return card
 
 
+@_phase("build")
 def phase_build():
     from dragonfly2_tpu_torch.ops import build
 
@@ -767,6 +795,7 @@ def _tolerances(shape, dtype):
     return (KERNEL_ATOL, KERNEL_RTOL), (STATS_ATOL, STATS_RTOL), (GRAD_ATOL, GRAD_RTOL)
 
 
+@_phase("kernels")
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -925,6 +954,7 @@ def _library_fwd_lse_ms(q, k, v, mask, causal, iters):
     return None if call is None else _time_ms(call, iters)
 
 
+@_phase("training kernels")
 def phase_training_kernels():
     """The training kernels against their plain versions: the forward with
     lse (o and lse), and from the same o and lse, the dK/dV and dQ kernels.
@@ -1094,6 +1124,7 @@ SETS_EDGE_DIMS = (32, 128)
 SETS_EDGE_LENGTHS = (1, 10, 15, 20, 21, 22, 32)
 
 
+@_phase("sets kernels")
 def phase_sets_kernels():
     """The packed-sets kernels of the forward (three modes), of dK/dV and
     of dQ against their plain versions at the edge shapes, causal or not,
@@ -1308,6 +1339,7 @@ class _CtypesControl:
         return o, lse
 
 
+@_phase("launch cost")
 def phase_launch_cost(card: str):
     """The host cost of the forward with lse's wrapper at the ranker's two
     trained shapes (LAUNCH_SHAPES; at L = 20 a wrapper's CUDA-event time
@@ -1461,6 +1493,7 @@ async def _serve_and_query(server, name):
     return batches, answers, latency_ms, requests, launches
 
 
+@_phase("serving")
 def phase_main_path():
     import torch
 
@@ -1726,6 +1759,7 @@ def trace(hosts: int = TRACE_HOSTS, n_records: int = TRACE_RECORDS, tasks: int =
     return ds, graph, records
 
 
+@_phase("training")
 def phase_training():
     """Slice 2's main path: trace -> train_attention on cuda -> publish ->
     serve over ModelInfer. Returns the launch counts of the training run
@@ -1864,6 +1898,7 @@ def _partial_errors(got, want, atol, rtol, stats=(STATS_ATOL, STATS_RTOL)):
     return errors, ok
 
 
+@_phase("partial kernel")
 def phase_partial_kernel(ds):
     """The partial kernel against its plain version: at the ranker's eval
     shard on the dp x sp mesh (held-out rows / dp, P / sp candidates; see
@@ -1946,6 +1981,7 @@ def phase_partial_kernel(ds):
     return results
 
 
+@_phase("long ring")
 def phase_long_ring():
     """sharded_ring_attention with the partial kernel at L = 16384 on a
     1 x 4 mesh of the one card, against flash_attention on the whole
@@ -2065,6 +2101,7 @@ def _step_p50(trainer, stack, steps: int):
     return statistics.median(times[2:]), losses
 
 
+@_phase("mesh training")
 def phase_mesh_training(ds, single_step_p50):
     """Slice 3's main path: train_attention on a dp x sp mesh of the one
     card with ring attention (einsum blocks under autograd, the partial
@@ -2268,6 +2305,7 @@ def phase_threshold():
                   f"picks {picks})")
 
 
+@_phase("long ulysses")
 def phase_long_ulysses():
     """Slices 4 and 5's main path: Ulysses over [2, 16, 4096, 32] on a
     1 x 4 mesh of the card, whose shards attend [2, 4, 4096, 32] each, the
@@ -2531,6 +2569,7 @@ def _check_wide_case(gen, b, l, d, causal, dtype, given, worst, h=4):
         + f" (outputs atol {atol} rtol {rtol}, gradients atol {g_atol} rtol {g_rtol})")
 
 
+@_phase("wide kernels")
 def phase_wide_kernels(ds):
     """Every wide instance against the plain version at the call's own D:
     at each checked D, L and causal flag with a mask holding fully masked
@@ -2838,6 +2877,7 @@ def phase_rows(tree: str) -> None:
         del q, k, v, mask, want
 
 
+@_phase("wide path")
 def phase_wide_path(ds):
     """The wide instances' main paths. The ranker at hidden WIDE_HIDDEN
     with its 4 heads (head dim 192) trained for an epoch on phase 5's trace,
@@ -3240,6 +3280,7 @@ def _host_ops(fn, launches: int, label: str, calls: int = 5) -> None:
           + f". Control: {launches} tiny in-place adds take {control_ms:.3f} ms on the host")
 
 
+@_phase("scheduler tick")
 def phase_scheduler_tick(card: str):
     """Slice 6's main path: the recorded tick's waiting peers (about
     TICK_WAITING) through the fused decision program on the card, as the
@@ -3722,6 +3763,7 @@ def _probe_summary(svc, label: str, probe_ms) -> int:
     return rows
 
 
+@_phase("scheduler service")
 def phase_scheduler_service(card: str, trace_dir: str):
     """Slice 7's main path: SchedulerService on the card driven by the
     port's ClusterSimulator through its entries (announce_host,
@@ -3787,6 +3829,7 @@ def _count_rtt_hits(store) -> list:
     return hits
 
 
+@_phase("nt arm")
 def phase_scheduler_nt(card: str):
     """Slice 16's main path: the nt arm on measured RTTs. The same
     deployment as phase 10 with ``algorithm="nt"``, its ProbeStore warmed
@@ -3861,6 +3904,7 @@ def _hold(label: str, got, want, atol=GRAPH_ATOL, rtol=GRAPH_RTOL) -> float:
     return float(err.max())
 
 
+@_phase("graph models")
 def phase_graph_models(ds, graph, topology, card: str):
     """Slice 16's models at full width on the card, each held to its CPU
     twin (the same module and weights on the CPU): GraphSAGERanker's embed
@@ -4105,6 +4149,7 @@ def _ml_paired_f32(reg, hidden: int) -> None:
           f"{got_stats.completed}, piece_cost_ns_total {got_stats.piece_cost_ns_total} equal")
 
 
+@_phase("ml arm")
 def phase_ml_arm(card: str) -> dict:
     """Slice 17's main path: the ml arm served on the card (see the
     module docstring, phase 13). Returns the mean piece cost over the first
@@ -4122,7 +4167,6 @@ def phase_ml_arm(card: str) -> dict:
                                                MLEvaluator, ModelEvaluation, ModelServer,
                                                serving)
 
-    phase_start = time.perf_counter()
     hidden = TrainerConfig().hidden_dim
     model = GraphSAGERanker(hidden, GRAPH_LAYERS).reset_parameters(
         torch.Generator().manual_seed(SEED)).cuda()
@@ -4308,7 +4352,6 @@ def phase_ml_arm(card: str) -> dict:
         _ml_paired_f32(reg, hidden)
     if any(_counts().values()) or any(_wide_counts().values()):
         _fail(f"the ml arm launched a flash kernel: {_counts()}")
-    print(f"ml arm phase: {time.perf_counter() - phase_start:.1f} s")
     return {"rule": cost, "ml": at_cut}
 
 
@@ -4576,6 +4619,7 @@ def _trainer_serve(registry, rule_cost) -> None:
         _fail("the ml arm did not serve the trained version")
 
 
+@_phase("trainer")
 def phase_trainer(card: str, storage, topology, rule_cost) -> None:
     """Slice 18's main path: the Announcer streams phase 10's traces to
     TrainerService on the card (train_gnn on the dense path, train_attention
@@ -4593,7 +4637,6 @@ def phase_trainer(card: str, storage, topology, rule_cost) -> None:
     from dragonfly2_tpu_torch.registry import ModelRegistry
     from dragonfly2_tpu_torch.training import train
 
-    phase_start = time.perf_counter()
     for rec in topology:  # phase 11's snapshot beside phase 10's
         storage.create_network_topology(rec)
     storage.flush()
@@ -4683,7 +4726,6 @@ def phase_trainer(card: str, storage, topology, rule_cost) -> None:
         _trainer_timings(calls, config, garrs)
         _trainer_resume(calls["mlp"]["args"][0], calls["mlp"]["args"][1], config, root)
         _trainer_serve(registry, rule_cost)
-    print(f"trainer phase: {time.perf_counter() - phase_start:.1f} s")
 
 
 # ------------------------------------------------------------------ phase 15
@@ -5035,6 +5077,7 @@ def _pct(values, q: float) -> float:
     return float(np.percentile(np.asarray(values, np.float64), q))
 
 
+@_phase("processes")
 def phase_processes(card: str, tree: str, device=None, trainer_config=None) -> None:
     """Slice 19's main path: the port's trainer and scheduler as processes
     on the card through python -m dragonfly2_tpu_torch.cmd, with daemons
@@ -5049,7 +5092,6 @@ def phase_processes(card: str, tree: str, device=None, trainer_config=None) -> N
     from dragonfly2_tpu_torch.registry import ModelRegistry, ModelServer
     from dragonfly2_tpu_torch.rpc.inference import InferenceClient
 
-    phase_start = time.perf_counter()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the two processes
     dev_args = ["--device", device] if device else []
@@ -5309,7 +5351,6 @@ def phase_processes(card: str, tree: str, device=None, trainer_config=None) -> N
                 watcher.join(5)
             for p in procs:
                 p.kill()
-    print(f"processes phase: {time.perf_counter() - phase_start:.1f} s")
 
 
 # ------------------------------------------------------------------ phase 16
@@ -5454,6 +5495,7 @@ def _traffic(m: dict) -> dict:
     return dict(out)
 
 
+@_phase("data plane")
 def phase_data_plane(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
                      blobs_mib=DATA_BLOBS_MIB) -> None:
     """Slice 20's main path: 16 dfdaemon processes and 2 dfget processes
@@ -5463,7 +5505,6 @@ def phase_data_plane(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
     import concurrent.futures
     import hashlib
 
-    phase_start = time.perf_counter()
     _raise_open_files()
     rng = np.random.default_rng(SEED)
     blobs = {f"/v2/library/app/blobs/sha256-{i}": rng.integers(0, 256, mib << 20, dtype=np.uint8)
@@ -5636,7 +5677,6 @@ def phase_data_plane(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
             for p in procs:
                 p.kill()
             origin.stop()
-    print(f"data plane phase: {time.perf_counter() - phase_start:.1f} s")
 
 
 MGR_KEEPALIVE_S = 2.0  # the scheduler's keepalive interval: registered to active within one
@@ -5843,6 +5883,7 @@ async def _limit_probes(host: str, port: int, task_id: str, url: str, size: int,
         await conn.close()
 
 
+@_phase("manager")
 def phase_manager(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
                   blobs_mib=DATA_BLOBS_MIB) -> None:
     """Slice 21's main path: the manager over the port's cluster on the
@@ -5862,7 +5903,6 @@ def phase_manager(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
     from dragonfly2_tpu_torch.training.checkpoint import params_to_bytes
     from dragonfly2_tpu_torch.utils import idgen
 
-    phase_start = time.perf_counter()
     _raise_open_files()
     rng = np.random.default_rng(SEED + 17)
     oci = _OCIRegistry([rng.integers(0, 256, mib << 20, dtype=np.uint8).tobytes()
@@ -6124,9 +6164,9 @@ def phase_manager(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
             for p in procs:
                 p.kill()
             oci.stop()
-    print(f"manager phase: {time.perf_counter() - phase_start:.1f} s")
 
 
+@_phase("cost cards")
 def phase_cost_cards(card: str) -> None:
     """The cost cards of the in-process phases 5-14 (telemetry/costcard.py):
     a flight-recorder dump of the cost-card section drains the notes the
@@ -6525,6 +6565,7 @@ def _cost_table(dump: dict, card: str) -> list:
     return rows
 
 
+@_phase("objects")
 def phase_objects(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
                   object_mib=sum(DATA_BLOBS_MIB), put_mib=OBJ_PUT_MIB) -> None:
     """Slice 22's main path: object storage and the flight recorder over
@@ -6548,7 +6589,6 @@ def phase_objects(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
     from dragonfly2_tpu_torch.training.checkpoint import params_to_bytes
     from dragonfly2_tpu_torch.utils import dferrors, idgen
 
-    phase_start = time.perf_counter()
     _raise_open_files()
     rng = np.random.default_rng(SEED + 18)
     stub = _S3Stub()
@@ -6837,7 +6877,6 @@ def phase_objects(card: str, tree: str, device=None, daemons=DATA_DAEMONS,
             for p in procs:
                 p.kill()
             stub.stop()
-    print(f"objects phase: {time.perf_counter() - phase_start:.1f} s")
 
 
 # slice 23: the scale labs. (a) the reference's 1,500-host soak day
@@ -7123,6 +7162,7 @@ def _scale_procday(card: str, device: str) -> None:
         _fail("scale labs: a sim-vs-real divergence metric is out of its band")
 
 
+@_phase("scale labs")
 def phase_scale_labs(card: str, tree: str, device: str = "cuda") -> None:
     """Slice 23's main path: the scale labs driving the port's scheduler
     on the card (megascale/, procworld/); the planet's processes run the
@@ -7132,7 +7172,6 @@ def phase_scale_labs(card: str, tree: str, device: str = "cuda") -> None:
 
     if supervisor.REPO != pathlib.Path(tree).resolve():
         _fail(f"the planet would start {supervisor.REPO}'s package, not {tree}'s")
-    phase_start = time.perf_counter()
     _zero_counts()
     _zero_wide_counts()
     _scale_soak_pair(card, device)
@@ -7141,7 +7180,6 @@ def phase_scale_labs(card: str, tree: str, device: str = "cuda") -> None:
     _scale_procday(card, device)
     if any(_counts().values()) or any(_wide_counts().values()):
         _fail(f"the scale labs launched a flash kernel: {_counts()} {_wide_counts()}")
-    print(f"scale labs phase: {time.perf_counter() - phase_start:.1f} s ({card})")
 
 
 # slice 24: tensor, pipeline and expert parallelism on meshes of the one
@@ -7600,6 +7638,7 @@ def _par_hybrid(card: str, ds, tree: str, device) -> None:
         _fail(f"the two-process losses differ from one process's by {err.max()}")
 
 
+@_phase("parallel")
 def phase_parallel(ds, graph, card: str, tree: str, device: str = "cuda", single_p50=None,
                    mesh_p50=None, segment_p50=None) -> None:
     """Slice 24's main path: tensor, pipeline and expert parallelism on
@@ -7611,13 +7650,11 @@ def phase_parallel(ds, graph, card: str, tree: str, device: str = "cuda", single
     rehearses it on the CPU (no timing)."""
     import torch
 
-    phase_start = time.perf_counter()
     dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
     _par_bodies(card, dev)
     _par_train(card, ds, dev, single_p50, mesh_p50)
     _par_embed(card, graph, dev, segment_p50)
     _par_hybrid(card, ds, tree, dev)
-    print(f"parallel phase: {time.perf_counter() - phase_start:.1f} s ({card})")
 
 
 def main() -> None:
@@ -7637,6 +7674,7 @@ def main() -> None:
                         help="run one process of phase 20's two-process leg (phase 20 starts "
                              "two), and nothing else")
     args = parser.parse_args()
+    run_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -7783,6 +7821,8 @@ def main() -> None:
     print(f"profiler: of {_WINDOWS['taken']} kernel windows, {_WINDOWS['short']} recorded fewer "
           f"launches than were made, {_WINDOWS['over']} more, and {_WINDOWS['uneven']} had a "
           "mean a fifth off their median; kernel times are medians over the launches recorded")
+    print("phases: " + ", ".join(f"{name} {seconds:.1f}" for name, seconds in PHASE_SECONDS.items())
+          + f"; total {time.perf_counter() - run_start:.1f} s ({card})")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -30,7 +30,7 @@ run() {  # name, command...
   rc=$?
   end=$(date +%s%N)
   echo "RUN $name rc $rc seconds $(awk -v a="$start" -v b="$end" 'BEGIN{printf "%.1f", (b - a) / 1e9}')"
-  grep -E "^objects: preheat|proxies answered|^scale procday|verdict_match|phase: [0-9.]+ s|FAILED" \
+  grep -E "^objects: preheat|proxies answered|^scale procday|verdict_match|phase: [0-9.]+ s|^phases: |^build: |FAILED" \
     "$out/$name.log" | cut -c1-700
   tail -n 1 "$out/$name.log"
 }
