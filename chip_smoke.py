@@ -39,7 +39,8 @@ before the kernels JSON line:
    layer. The answers are checked against the in-process score_set (bit
    for bit) and against the same params on the CPU with the plain version.
 5. training path (slice 2): a 20,000-record trace on 10,000 hosts from the
-   port's synth (bench_trainer.py's trace), train_attention on cuda at the
+   port's synth (bench_trainer.py's trace; made in a thread while phase 2
+   builds, and waited for before phase 3), train_attention on cuda at the
    trainer's defaults (batch 256, lr 1e-3, hidden 128) for 3 epochs, the
    trained version published and activated as parent-ranker-attention and
    served over ModelInfer on held-out rows. Counters are zeroed before the
@@ -109,7 +110,7 @@ before the kernels JSON line:
    driven by the port's ClusterSimulator at bench_loop.py's default replay
    (10,000 hosts, 512 tasks, seed 0, 64 downloads a round, Config()
    defaults, a TraceStorage, and bench_loop's ProbeStore of 2^17 pairs
-   with a probe round of 8 sources every 50 rounds), 300 rounds and one
+   with a probe round of 8 sources every 50 rounds), 100 rounds and one
    flash-crowd round of 1,024 downloads: the tick's p50 and p99, each
    phase's median, pieces per second, the probe rounds' median, the pairs
    stored, the probed-count total, the topology rows snapshot_topology
@@ -122,7 +123,7 @@ before the kernels JSON line:
    size.
 11. the nt arm on measured RTTs (slice 16): the same deployment with
    algorithm "nt", its store warmed from the simulator's link model
-   (warm_from_link_model), probed every 50 rounds, 300 timed rounds, as
+   (warm_from_link_model), probed every 50 rounds, 100 timed rounds, as
    phase 10 prints them. Checks: the tick ran unfused, candidates carried
    measured RTTs, 30 paired rounds give CUDA == CPU as in phase 10.
 12. the graph models (slice 16): GraphSAGERanker (hidden 128, 2 layers,
@@ -143,7 +144,7 @@ before the kernels JSON line:
    serving. Then bench_loop.py phase 3's ml arm (algorithm "ml", peer TTL
    10 s, GC every 1 s, 1,024 peers a task; 10,000 hosts, 32 tasks, seed
    2, 64 downloads a round), its embeddings refreshed inline once and then
-   on the worker every 10 rounds, 300 timed rounds: the tick's p50 and
+   on the worker every 10 rounds, 100 timed rounds: the tick's p50 and
    p99, the phases' medians, pieces per second and the mean piece cost,
    the refresh counts and seconds, launches and busy share of 5 profiled
    rounds; and the rule arm at the same seed with the evaluator attached,
@@ -314,9 +315,12 @@ before the kernels JSON line:
    trainer's with their hand kernels counted).
 19. the scale labs (slice 23): the port's megascale lab and process
    planet driving its scheduler on the card, no hand kernel launched (the
-   flash counts zeroed before and read zero after). (a) The reference's
-   1,500-host soak day (soak, 32 tasks, seed 7, 24 arrivals a round,
-   retire after 24; 108 rounds) through run_megascale twice on the card
+   flash counts zeroed before and read zero after). (a) to (c) run in a
+   process of their own beside phases 10 to 16, (b) first (their lines
+   printed when it ends, after phase 16); (d) runs after phase 18. (a)
+   The reference's 1,500-host soak day (soak, 32 tasks, seed 7, 24
+   arrivals a round, retire after 24; 108 rounds) through run_megascale
+   twice on the card
    and once on the CPU: the card's two runs identical (deterministic
    view, digests included, every selection); card against CPU, every
    selection's parent ids exactly and scores within 1e-6, the view's
@@ -361,8 +365,22 @@ before the kernels JSON line:
    x tp 2) training (b)'s tp path; then two processes sharing the card
    over gloo (initialize_distributed, make_hybrid_mesh(dcn_dp=2, dp=1)),
    one epoch at batch 64, their losses against one process on a dp 2
-   mesh, every exit code 0.
-21. the kernels JSON line and, last, the result line.
+   mesh (trained while they run), every exit code 0.
+21. the workload drivers (slice 26), in a process of their own beside
+   phase 20 (their lines printed when it ends): the in-process rigs of
+   tools/torch_stress.py and tools/torch_llm_prefetch.py (the reference's
+   tools/stress.py and tools/llm_prefetch.py on the port) with the
+   scheduler on the card. Stress at the reference's defaults: an origin,
+   the scheduler (tick every 0.01 s), one daemon and its proxy, one warm
+   fetch, then 16 connections for 10 s of a 4 MiB blob. Prefetch at
+   Llama-3-70B's 30 shards, each cut from ~4.6 GiB to 8 MiB for the time
+   limit: a seed back-sources every shard, then 6 hosts pull every shard
+   with back-to-source refused, in 1 MiB pieces. Checks: stress made
+   requests and no error; every shard's sha256 on every host, the fleet's
+   offload 100.0%, the origin's bytes one pass and at most 4 KiB of
+   probes; each scheduler ticked on the card; no flash kernel launched.
+   Prints each driver's JSON line and its scheduler's ticks and tick p50.
+22. the kernels JSON line and, last, the result line.
 
 Between phases 3 and 4, the host cost of the forward with lse's wrapper at
 the ranker's two trained shapes, [256, 4, 20, 32] and [256, 4, 20, 192]:
@@ -404,6 +422,16 @@ result line.
 
 is one process of phase 20's two-process leg, which phase 20 starts
 itself; it prints no result line.
+
+    python3 chip_smoke.py --side-worker LEG,DEVICE,CARD
+
+is one of the two legs that the smoke run starts as a process of its own,
+beside phases of the main process whose checks it does not touch, and
+joins later (its lines, its phase line and its failure come at the
+join): LEG scale is phase 19 (a) to (c), the megascale runs, started
+after phase 9 and joined after phase 16; LEG drivers is phase 21,
+started after phase 19 and joined after phase 20.
+It prints no result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -549,17 +577,24 @@ def _fmt(row: dict, prefix: str = "kernel") -> str:
     return f"{ms:.4f}, {row[f'{prefix}_recorded']}/{KERNEL_CALLS} launches recorded"
 
 
-def _kernels_of(prof, calls: int):
-    """(kernel name, device ms per call) from a profiler window, user
-    annotations (whose ranges overlap the kernels) left out."""
+def _kernel_rows(prof, calls: int):
+    """(kernel name, device ms per call), the longest first, and the
+    kernels launched per call, from one aggregation of a profiler window,
+    user annotations (whose ranges overlap the kernels) left out."""
     import torch
 
-    return sorted(
-        ((e.key, e.self_device_time_total / calls / 1e3) for e in prof.key_averages()
-         if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA
-         and not getattr(e, "is_user_annotation", False)),
-        key=lambda kv: -kv[1],
-    )
+    rows = [e for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    kernels = sorted(((e.key, e.self_device_time_total / calls / 1e3) for e in rows),
+                     key=lambda kv: -kv[1])
+    return kernels, sum(e.count for e in rows) / calls
+
+
+def _kernels_of(prof, calls: int):
+    """(kernel name, device ms per call) from a profiler window, the
+    longest first."""
+    return _kernel_rows(prof, calls)[0]
 
 
 # profiler windows taken by _kernel_ms, those that recorded fewer or more
@@ -650,6 +685,8 @@ def phase_build():
     reports = build.build_all([*sources, build.LAUNCHER])
     seconds = time.perf_counter() - start
     for name, (log, own_seconds) in reports.items():
+        if name not in (*sources, build.LAUNCHER):  # a part, printed with its source
+            continue
         if name == build.LAUNCHER:
             print(f"build {name} (the host launcher, g++, PyTorch's per-operator headers): "
                   + (f"{own_seconds:.2f} s of compile and link" if own_seconds else "already built")
@@ -660,8 +697,12 @@ def phase_build():
             continue
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
-        print(f"build {name}: {len(regs)} kernels in {own_seconds:.2f} s, registers "
-              f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores max "
+        parts = [reports[build.part_name(name, i)][1] for i in range(build.source_parts(name))
+                 if build.part_name(name, i) in reports]
+        print(f"build {name}: {len(regs)} kernels in {own_seconds:.2f} s"
+              + (f" ({len(parts)} parts compiled together, each "
+                 + ", ".join(f"{t:.2f}" for t in parts) + " s, then one link)" if parts else "")
+              + f", registers {min(regs, default=0)}-{max(regs, default=0)}, spill stores max "
               f"{max(spills, default=0)} bytes")
         # each instance of the Hopper sources, and the wide ones of the others
         entries = re.findall(r"Compiling entry function '(\w+)'", log)
@@ -673,7 +714,9 @@ def phase_build():
                     r"wgmma.mma_async instructions are serialized due to (.*?) for the function "
                     r"'(\w+)'", log):
                 print(f"  {_instance_label(entry)}: wgmma serialized ({why})")
-    print(f"build: {len(sources)} sources and the launcher in {seconds:.2f} s")
+    print(f"build: {len(sources)} sources in "
+          f"{sum(build.source_parts(name) for name in sources)} compiles and the launcher in "
+          f"{seconds:.2f} s")
 
 
 def _instance_label(entry: str) -> str:
@@ -1759,11 +1802,34 @@ def trace(hosts: int = TRACE_HOSTS, n_records: int = TRACE_RECORDS, tasks: int =
     return ds, graph, records
 
 
+class _Background(threading.Thread):
+    """``fn()`` in a thread of its own, started at once; ``result()`` waits
+    for it and returns its value, or raises what it raised."""
+
+    def __init__(self, fn):
+        super().__init__(daemon=True)
+        self._fn, self._value, self._error = fn, None, None
+        self.start()
+
+    def run(self) -> None:
+        try:
+            self._value = self._fn()
+        except BaseException as e:  # noqa: BLE001 - raised again in result()
+            self._error = e
+
+    def result(self):
+        self.join()
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+
 @_phase("training")
-def phase_training():
+def phase_training(traced: _Background | None = None):
     """Slice 2's main path: trace -> train_attention on cuda -> publish ->
-    serve over ModelInfer. Returns the launch counts of the training run
-    and of the serving run."""
+    serve over ModelInfer. The trace is ``traced``'s, made while the kernels
+    built, or made here. Returns the launch counts of the training run and
+    of the serving run."""
     import torch
 
     from dragonfly2_tpu_torch.config.config import TrainerConfig
@@ -1772,7 +1838,7 @@ def phase_training():
     from dragonfly2_tpu_torch.registry.registry import MODEL_TYPE_ATTENTION
     from dragonfly2_tpu_torch.training import train
 
-    ds, graph, records = trace()
+    ds, graph, records = traced.result() if traced is not None else trace()
 
     config = TrainerConfig(epochs=TRAIN_EPOCHS)
     layers = config.attention_num_layers
@@ -2053,10 +2119,11 @@ def phase_long_ring():
     return counts["flash_fwd_partial_sm90"]
 
 
-def _device_split(fn, symbol: str, calls: int = 3):
+def _device_split(fn, symbol: str, calls: int = 3, kernels_out: list | None = None):
     """Where ``fn``'s time goes, from one torch.profiler window: (wall ms a
     call, host clock and synchronised; device kernel ms a call; the kernel
-    named ``symbol``'s share of that, ms; kernels launched a call)."""
+    named ``symbol``'s share of that, ms; kernels launched a call). The
+    window's (kernel name, ms a call) rows go to ``kernels_out`` if given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2068,11 +2135,9 @@ def _device_split(fn, symbol: str, calls: int = 3):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3 / calls
-    kernels = _kernels_of(prof, calls)
-    launched = sum(e.count for e in prof.key_averages()
-                   if e.self_device_time_total > 0
-                   and e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)) / calls
+    kernels, launched = _kernel_rows(prof, calls)
+    if kernels_out is not None:
+        kernels_out.extend(kernels)
     return (wall_ms, sum(ms for _, ms in kernels),
             sum(ms for key, ms in kernels if symbol in key), launched)
 
@@ -3525,7 +3590,7 @@ def phase_scheduler_tick(card: str):
 # 141-142). bench_loop runs ~960 rounds to 1,000,000 pieces; the timed run
 # is cut to SERVICE_ROUNDS to stay in the time limit
 SERVICE_HOSTS, SERVICE_TASKS, SERVICE_DOWNLOADS = 10_000, 512, 64
-SERVICE_ROUNDS = 300
+SERVICE_ROUNDS = 100  # 300 before the whole run was cut to fit its time limit
 SERVICE_FLASH_CROWD = 1024
 SERVICE_PARITY_ROUNDS = 30  # CUDA against the CPU at the same scale
 SERVICE_PROFILED_TICKS = 5
@@ -3694,12 +3759,8 @@ def _profile_rounds(svc, sim, label: str) -> None:
                       for _ in range(SERVICE_PROFILED_TICKS))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    kernels = _kernels_of(prof, SERVICE_PROFILED_TICKS)
+    kernels, launches = _kernel_rows(prof, SERVICE_PROFILED_TICKS)
     device_ms = sum(ms for _, ms in kernels)
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.self_device_time_total > 0
-                   and e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)) / SERVICE_PROFILED_TICKS
     if device_ms == 0:
         print(f"{label} profiled rounds: device time not measured (the profiler saw no device "
               "activity)")
@@ -4026,7 +4087,7 @@ def phase_graph_models(ds, graph, topology, card: str):
 # weights (phase 12's). bench_loop runs an arm to max(pieces // 4, 2000)
 # pieces; the timed run is cut to ML_ROUNDS rounds, phase 10's cut
 ML_HOSTS, ML_TASKS, ML_SEED, ML_DOWNLOADS = 10_000, 32, 2, 64
-ML_ROUNDS = 300
+ML_ROUNDS = 100  # 300 before the whole run was cut to fit its time limit
 ML_SHADOW_ROUNDS = 100  # the rule arm with the ml shadow: cut to keep the phase near 60 s
 ML_REFRESH_EVERY = 10
 ML_PARITY_ROUNDS = 30
@@ -4356,7 +4417,7 @@ def phase_ml_arm(card: str) -> dict:
 
 
 # slice 18: the trainer on the card, through TrainerService behind the
-# Announcer, over phase 10's traces (its 300 rounds and flash crowd) and
+# Announcer, over phase 10's traces (its 100 rounds and flash crowd) and
 # the topology rows phases 10-11 snapshot; TrainerConfig's defaults (hidden
 # 128, batch 256, lr 1e-3, 10 epochs), the attention family on
 TRAINER_HOST_ID = ML_HOST_ID
@@ -4433,12 +4494,8 @@ def _profile_steps(trainer, idx, label: str) -> None:
             trainer.step(idx[i % len(idx)])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3 / n
-    kernels = _kernels_of(prof, n)
+    kernels, launches = _kernel_rows(prof, n)
     device_ms = sum(ms for _, ms in kernels)
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.self_device_time_total > 0
-                   and e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)) / n
     if device_ms == 0:
         print(f"{label} profiled steps: device time not measured (the profiler saw no device "
               "activity)")
@@ -4744,11 +4801,14 @@ PROC_DIALS = 64  # connections dialled at once (the server's listen backlog is 1
 PROC_FILES = 4 * PROC_HOSTS  # open files this process and the scheduler need
 PROC_BUCKET = TASK_BUCKETS[-2]  # a tick above this many peers fills the largest bucket
 PROC_PROBE_SOURCES, PROC_PROBE_COUNT = 64, 10
-# seconds between the scheduler's uploads: the first comes after the wire
-# play (~45 s of host time), the next this long after the first training
-# answered, long after the checks: SIGTERM must not meet a training, which
-# the trainer finishes before it exits
-PROC_ANNOUNCE_S = 60.0
+# seconds between the scheduler's uploads: the first comes at the wire
+# play's end (its 4,096 downloads end 37-63 s after READY on the card; a
+# slower play's last rows go in the next upload, which comes after the
+# checks), the next this long after the first training answered, long
+# after the checks: SIGTERM must not meet a training, which the trainer
+# finishes before it exits. 60 s before the whole run was cut to fit its
+# time limit (the phase waited up to 23 s for the first upload)
+PROC_ANNOUNCE_S = 45.0
 # the scheduler's network topology collect ticker (2 h in the Go
 # scheduler): snapshots land after the probe rounds and before the upload
 PROC_TOPOLOGY_S = 15.0
@@ -6959,12 +7019,9 @@ def _scale_run(device, profiled=(), **kw):
                     torch.cuda.synchronize()
                     prof["tick_ms"] += (time.perf_counter() - start) * 1e3
                 prof["ticks"] += 1
-                prof["device_ms"] += sum(ms for _, ms in _kernels_of(p, 1))
-                prof["launches"] += sum(
-                    e.count for e in p.key_averages()
-                    if e.self_device_time_total > 0
-                    and e.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False))
+                kernels, launches = _kernel_rows(p, 1)
+                prof["device_ms"] += sum(ms for _, ms in kernels)
+                prof["launches"] += launches
             selections.extend(
                 (r.peer_id, [(p.peer_id, float(p.score)) for p in r.candidate_parents])
                 for r in out if hasattr(r, "candidate_parents"))
@@ -7162,11 +7219,12 @@ def _scale_procday(card: str, device: str) -> None:
         _fail("scale labs: a sim-vs-real divergence metric is out of its band")
 
 
-@_phase("scale labs")
+@_phase("scale labs (d)")
 def phase_scale_labs(card: str, tree: str, device: str = "cuda") -> None:
     """Slice 23's main path: the scale labs driving the port's scheduler
-    on the card (megascale/, procworld/); the planet's processes run the
-    package of ``tree``. No hand kernel is on this path: the flash counts
+    on the card (megascale/, procworld/): (d) here, the planet's processes
+    running the package of ``tree``; (a) to (c) in a process of their own
+    (``_scale_megascale``). No hand kernel is on this path: the flash counts
     are zeroed before it and must read zero after."""
     from dragonfly2_tpu_torch.procworld import supervisor
 
@@ -7174,12 +7232,83 @@ def phase_scale_labs(card: str, tree: str, device: str = "cuda") -> None:
         _fail(f"the planet would start {supervisor.REPO}'s package, not {tree}'s")
     _zero_counts()
     _zero_wide_counts()
-    _scale_soak_pair(card, device)
-    _scale_planet(card, device)
-    _scale_fleet(card, device)
     _scale_procday(card, device)
     if any(_counts().values()) or any(_wide_counts().values()):
         _fail(f"the scale labs launched a flash kernel: {_counts()} {_wide_counts()}")
+
+
+def _scale_megascale(card: str, device: str) -> None:
+    """Phase 19 (a) to (c), the megascale runs: the 10^6-host slice first
+    (its setup is host work alone), then the soak day and the fleet. No
+    hand kernel is on this path."""
+    _zero_counts()
+    _zero_wide_counts()
+    _scale_planet(card, device)
+    _scale_soak_pair(card, device)
+    _scale_fleet(card, device)
+    if any(_counts().values()) or any(_wide_counts().values()):
+        _fail(f"the scale labs launched a flash kernel: {_counts()} {_wide_counts()}")
+
+
+# Two legs run in a process of their own (chip_smoke.py --side-worker),
+# each beside phases of the main process whose checks it does not touch,
+# so that its host work (a core of the card's machine) adds little to the
+# run's wall: phase 19 (a) to (c), the megascale runs (the largest serial
+# host cost of the run, the 10^6 hosts' announce first), beside phases 10
+# to 16, and phase 21, the workload drivers, beside phase 20. Neither runs
+# beside a phase that times kernels (3 to 9): another process's work on
+# the card, or a busy core, moves those times. A leg's lines are printed
+# when it is joined, with its phase line (its seconds from its process's
+# start to its exit), and its failure fails the run there.
+SIDE_TIMEOUT_S = {"scale": 900, "drivers": 600}
+SIDE_PHASES = {"scale": "scale labs (a)-(c)", "drivers": "workload drivers"}
+
+
+def _side_worker(spec: str) -> None:
+    """A side process: ``LEG,DEVICE,CARD`` (CARD, the card's nvidia-smi
+    line, for the labels); LEG ``scale`` is phase 19 (a) to (c),
+    ``drivers`` phase 21."""
+    leg, device, card = spec.split(",", 2)
+    {"scale": _scale_megascale, "drivers": phase_workload_drivers}[leg](card, device)
+
+
+class _SideProcess:
+    """One leg in a process of its own, its output to a file."""
+
+    def __init__(self, leg: str, tree: str, card: str, device: str = "cuda"):
+        self.leg, self.log = leg, tempfile.TemporaryFile("w+")
+        self.start = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tree", tree, "--side-worker",
+             f"{leg},{device},{card}"], cwd=tree, stdout=self.log, stderr=subprocess.STDOUT)
+
+    def join(self, card: str, beside: str) -> None:
+        """Wait for the process, print its lines and its phase line; fail
+        the run unless it exited 0."""
+        try:
+            code = self.proc.wait(timeout=max(1.0, SIDE_TIMEOUT_S[self.leg]
+                                              - (time.perf_counter() - self.start)))
+        except subprocess.TimeoutExpired:
+            code = None
+        finally:
+            self.stop()
+        seconds = time.perf_counter() - self.start
+        self.log.seek(0)
+        out = self.log.read()
+        self.log.close()
+        print(out, end="" if out.endswith("\n") or not out else "\n")
+        name = SIDE_PHASES[self.leg]
+        PHASE_SECONDS[name] = seconds
+        print(f"{name}: in a process of its own beside {beside}, its seconds from the "
+              "process's start to its exit")
+        print(f"{name} phase: {seconds:.1f} s ({card})", flush=True)
+        if code != 0:
+            _fail(f"the {name} process exited {code} after {seconds:.1f} s: {out[-3000:]}")
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
 
 
 # slice 24: tensor, pipeline and expert parallelism on meshes of the one
@@ -7458,8 +7587,9 @@ def _par_train(card: str, ds, device, single_p50, mesh_p50) -> None:
         # the MoE's routing and dispatch: the cumsum (a scan), the queue
         # scatter (index_add), the combine's gather, and their backward
         pattern = r"index|gather|scatter|scan" if config.attention_moe_experts else "flash_"
-        split = _device_split(lambda: step(0), "")
-        prof = _moe_split(lambda: step(0), pattern)
+        kernels = []
+        split = _device_split(lambda: step(0), "", kernels_out=kernels)
+        prof = _moe_split(kernels, pattern)
         print(f"{path} step p50 {statistics.median(times[2:]):.3f} ms (synchronised, host clock, "
               f"batch {config.batch_size}, {MESH_STEPS - 2} steps); one device "
               + (f"{single_p50:.3f} ms (phase 5)" if single_p50 else "not measured in this run")
@@ -7470,20 +7600,10 @@ def _par_train(card: str, ds, device, single_p50, mesh_p50) -> None:
               f"{prof} ({card})")
 
 
-def _moe_split(fn, pattern: str) -> str:
+def _moe_split(kernels, pattern: str) -> str:
     """The device ms a call of the kernels whose name matches ``pattern``,
-    and their share of the call's kernel time, from a profiler window."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    calls = 3
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = _kernels_of(prof, calls)
+    and their share of the call's kernel time, from a profiler window's
+    (kernel name, ms a call) rows."""
     total = sum(ms for _, ms in kernels)
     matched = [(key, ms) for key, ms in kernels if re.search(pattern, key)]
     named = sum(ms for _, ms in matched)
@@ -7603,6 +7723,8 @@ def _par_hybrid(card: str, ds, tree: str, device) -> None:
              f"{rank},{port},{root}"], cwd=tree, stdout=logs[rank], stderr=subprocess.STDOUT)
             for rank in range(2)]
         try:
+            # the one-process run it is held to, while the two processes start and train
+            one = train.train_attention(ds, config, mesh=_par_mesh({"dp": 2}, device), seed=SEED)
             codes = [p.wait(timeout=PAR_DCN_TIMEOUT_S) for p in procs]
         except subprocess.TimeoutExpired:
             codes = None
@@ -7621,7 +7743,6 @@ def _par_hybrid(card: str, ds, tree: str, device) -> None:
         for log in logs:
             log.close()
         runs = [json.loads(pathlib.Path(root, f"{rank}.json").read_text()) for rank in range(2)]
-    one = train.train_attention(ds, config, mesh=_par_mesh({"dp": 2}, device), seed=SEED)
     if runs[0]["losses"] != runs[1]["losses"] or runs[0]["dcn"] != 2:
         _fail("the two processes' losses differ, or their mesh spans no two processes")
     got = np.array(runs[0]["losses"])
@@ -7630,8 +7751,9 @@ def _par_hybrid(card: str, ds, tree: str, device) -> None:
     err = np.abs(got - np.array(one.losses))
     print(f"two processes on the card over gloo (make_hybrid_mesh(dcn_dp=2, dp=1), "
           f"{PAR_DCN_BATCH // 2} of {PAR_DCN_BATCH} rows a batch each, exit codes {codes}, "
-          f"{wall:.1f} s with their start): {one.steps} steps, max loss difference "
-          f"{err.max():.3g} from one process on a dp 2 mesh (first {REPLAY_STEPS} steps "
+          f"{wall:.1f} s with their start, the one-process run beside them): {one.steps} "
+          f"steps, max loss difference {err.max():.3g} from one process on a dp 2 mesh "
+          f"(first {REPLAY_STEPS} steps "
           f"{err[:REPLAY_STEPS].max():.3g}; atol {REPLAY_LOSS_ATOL}); precision "
           f"{runs[0]['eval']['precision']:.4f} vs {one.eval_metrics['precision']:.4f} ({card})")
     if err.max() > REPLAY_LOSS_ATOL:
@@ -7657,6 +7779,54 @@ def phase_parallel(ds, graph, card: str, tree: str, device: str = "cuda", single
     _par_hybrid(card, ds, tree, dev)
 
 
+# slice 26: the reference's two workload drivers on the port, their
+# in-process rigs with the scheduler on the card: tools/torch_stress.py at
+# the reference's defaults (16 connections, 10 s, a 4 MiB blob) and
+# tools/torch_llm_prefetch.py at Llama-3-70B's 30 shards, each cut from
+# ~4.6 GiB to 8 MiB for the time limit, 6 hosts, 1 MiB pieces
+DRIVER_STRESS = dict(connections=16, duration=10.0, size=4 << 20)
+DRIVER_PREFETCH = dict(shards=30, shard_bytes=8 << 20, hosts=6, piece_length=1 << 20)
+DRIVER_PROBE_BYTES = 4096  # origin bytes beyond the seed's one pass (HEAD probes)
+
+
+def phase_workload_drivers(card: str, device: str = "cuda") -> None:
+    """Slice 26's main path: the two drivers' rigs on the card (see the
+    module docstring, phase 21; the smoke run runs it in a process of its
+    own beside phase 20). No hand kernel is on this path: the flash counts
+    are zeroed before it and must read zero after."""
+    from tools import torch_llm_prefetch, torch_stress
+
+    _zero_counts()
+    _zero_wide_counts()
+    stress, clock = asyncio.run(torch_stress.run_inproc(device=device, **DRIVER_STRESS))
+    print(f"workload drivers: stress, {clock.line()}; {json.dumps(stress)} ({card})")
+    if stress["errors"] or not stress["requests"]:
+        _fail(f"the stress driver made {stress['requests']} requests with "
+              f"{stress['errors']} errors")
+    if not clock.ms or clock.svc.device.type != device:
+        _fail(f"the stress driver's scheduler ticked {len(clock.ms)} times on {clock.svc.device}")
+    with tempfile.TemporaryDirectory() as workdir:
+        prefetch, clock = asyncio.run(torch_llm_prefetch.run(workdir=workdir, device=device,
+                                                             **DRIVER_PREFETCH))
+    one_pass = DRIVER_PREFETCH["shards"] * DRIVER_PREFETCH["shard_bytes"]
+    print(f"workload drivers: prefetch of {DRIVER_PREFETCH['shards']} shards of "
+          f"{DRIVER_PREFETCH['shard_bytes'] / (1 << 20):g} MiB (Llama-3-70B's ~4.6 GiB cut for "
+          f"the time limit) to {DRIVER_PREFETCH['hosts']} hosts, every shard's sha256 on every "
+          "host; "
+          f"origin bytes {prefetch['origin_bytes']} for a pass of {one_pass}; {clock.line()}; "
+          f"{json.dumps(prefetch)} ({card})")
+    if prefetch["fleet_offload_pct"] != 100.0:
+        _fail(f"the fleet took {100.0 - prefetch['fleet_offload_pct']:.2f}% of its bytes from "
+              "the origin")
+    if prefetch["origin_bytes"] > one_pass + DRIVER_PROBE_BYTES:
+        _fail(f"the origin served {prefetch['origin_bytes']} bytes, more than one pass "
+              f"({one_pass}) and {DRIVER_PROBE_BYTES} of probes")
+    if not clock.ms or clock.svc.device.type != device:
+        _fail(f"the prefetch's scheduler ticked {len(clock.ms)} times on {clock.svc.device}")
+    if any(_counts().values()) or any(_wide_counts().values()):
+        _fail(f"the workload drivers launched a flash kernel: {_counts()} {_wide_counts()}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--threshold", action="store_true",
@@ -7673,6 +7843,9 @@ def main() -> None:
     parser.add_argument("--dcn-worker", default=None, metavar="RANK,PORT,DIR",
                         help="run one process of phase 20's two-process leg (phase 20 starts "
                              "two), and nothing else")
+    parser.add_argument("--side-worker", default=None, metavar="LEG,DEVICE,CARD",
+                        help="run one leg that the smoke run starts as a process of its own "
+                             "(planet: phase 19 (b); drivers: phase 21), and nothing else")
     args = parser.parse_args()
     run_start = time.perf_counter()
     try:
@@ -7688,8 +7861,14 @@ def main() -> None:
     if args.dcn_worker:
         _dcn_worker(args.dcn_worker)
         return
+    if args.side_worker:
+        _side_worker(args.side_worker)
+        return
 
     card = phase_device()
+    # phase 5's trace is host work alone (the port's synth and features):
+    # made in a thread while the build's processes compile
+    traced = None if args.threshold or args.rows else _Background(trace)
     phase_build()
     if args.threshold:
         phase_threshold()
@@ -7697,12 +7876,14 @@ def main() -> None:
     if args.rows:
         phase_rows(args.tree or ".")
         return
+    if traced is not None:  # done before any timing: it holds the interpreter's lock
+        traced.join()
     kernels = phase_kernels()
     training_kernels = phase_training_kernels()
     phase_sets_kernels()
     phase_launch_cost(card)
     launches = phase_main_path()
-    train_counts, serve_counts, ds, graph, breakdown = phase_training()
+    train_counts, serve_counts, ds, graph, breakdown = phase_training(traced)
     partial = phase_partial_kernel(ds)
     ring_launches = phase_long_ring()
     mesh_launches, uly_counts, mesh_p50 = phase_mesh_training(ds, breakdown["step_p50_ms"])
@@ -7710,20 +7891,30 @@ def main() -> None:
     phase_scheduler_tick(card)
     wide = phase_wide_kernels(ds)
     wide_launches = phase_wide_path(ds)
-    with tempfile.TemporaryDirectory() as trace_dir:  # phase 10's traces, kept for phase 14
-        storage = phase_scheduler_service(card, trace_dir)
-        topology = phase_scheduler_nt(card)
-        graph_p50 = phase_graph_models(ds, graph, topology, card)
-        rule_cost = phase_ml_arm(card)
-        phase_trainer(card, storage, topology, rule_cost)
-    phase_cost_cards(card)
-    phase_processes(card, tree)
-    phase_data_plane(card, tree)
+    scale = _SideProcess("scale", tree, card)  # phase 19 (a)-(c), beside phases 10 to 16
+    try:
+        with tempfile.TemporaryDirectory() as trace_dir:  # phase 10's traces, kept for 14
+            storage = phase_scheduler_service(card, trace_dir)
+            topology = phase_scheduler_nt(card)
+            graph_p50 = phase_graph_models(ds, graph, topology, card)
+            rule_cost = phase_ml_arm(card)
+            phase_trainer(card, storage, topology, rule_cost)
+        phase_cost_cards(card)
+        phase_processes(card, tree)
+        phase_data_plane(card, tree)
+        scale.join(card, "phases 10 to 16")
+    finally:
+        scale.stop()
     phase_manager(card, tree)
     phase_objects(card, tree)
     phase_scale_labs(card, tree)
-    phase_parallel(ds, graph, card, tree, single_p50=breakdown["step_p50_ms"],
-                   mesh_p50=mesh_p50["ring"], segment_p50=graph_p50["segment"])
+    drivers = _SideProcess("drivers", tree, card)  # phase 21, beside phase 20
+    try:
+        phase_parallel(ds, graph, card, tree, single_p50=breakdown["step_p50_ms"],
+                       mesh_p50=mesh_p50["ring"], segment_p50=graph_p50["segment"])
+        drivers.join(card, "phase 20")
+    finally:
+        drivers.stop()
 
     def entry(name, source, replaces, count, rows, main_shape):
         row = rows[main_shape]

@@ -2018,7 +2018,9 @@ cudaError_t launch_sets(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// The entries, declared with their layouts in flash_entries.h.
+// The entries, declared with their layouts in flash_entries.h, each in
+// the part of the build that compiles it (DFLY_IN_PART there).
+#if DFLY_IN_PART(0)
 extern "C" int dfly_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, const void* mask, void* dk,
                                   void* dv, int B, int H, int L, int D, int causal, int dtype,
@@ -2027,7 +2029,9 @@ extern "C" int dfly_flash_bwd_dkv(const void* q, const void* k, const void* v, c
                static_cast<const uint8_t*>(mask), dk, dv, B, H, L, causal, scale};
   return by_dtype<true>(a, D, dtype, warps, stream);
 }
+#endif
 
+#if DFLY_IN_PART(1)
 extern "C" int dfly_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, const void* mask, void* dq,
                                  int B, int H, int L, int D, int causal, int dtype, int warps,
@@ -2036,7 +2040,9 @@ extern "C" int dfly_flash_bwd_dq(const void* q, const void* k, const void* v, co
                static_cast<const uint8_t*>(mask), dq, nullptr, B, H, L, causal, scale};
   return by_dtype<false>(a, D, dtype, warps, stream);
 }
+#endif
 
+#if DFLY_IN_PART(2)
 extern "C" int dfly_flash_bwd_dkv_wide(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        const void* mask, void* dk, void* dv, int B, int H, int L,
@@ -2045,7 +2051,9 @@ extern "C" int dfly_flash_bwd_dkv_wide(const void* q, const void* k, const void*
                static_cast<const uint8_t*>(mask), dk, dv, B, H, L, causal, scale};
   return wide_by_dtype<true>(a, D, dtype, stream);
 }
+#endif
 
+#if DFLY_IN_PART(3)
 extern "C" int dfly_flash_bwd_dq_wide(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       const void* mask, void* dq, int B, int H, int L, int D,
@@ -2054,7 +2062,10 @@ extern "C" int dfly_flash_bwd_dq_wide(const void* q, const void* k, const void* 
                static_cast<const uint8_t*>(mask), dq, nullptr, B, H, L, causal, scale};
   return wide_by_dtype<false>(a, D, dtype, stream);
 }
+#endif
 
+#if DFLY_IN_PART(0)
 extern "C" const char* dfly_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif

@@ -16,6 +16,16 @@
 // descriptor that cuTensorMapEncodeTiled refused.
 #pragma once
 
+// A source whose entries sit under DFLY_IN_PART(i) is compiled in parts,
+// all at once (ops/build.py): part i with -DDFLY_PART=i holds those entries
+// and the kernels they instantiate, and the parts' objects link into the
+// source's one library. Compiled whole (no DFLY_PART), it holds them all.
+#ifdef DFLY_PART
+#define DFLY_IN_PART(i) (DFLY_PART == (i))
+#else
+#define DFLY_IN_PART(i) 1
+#endif
+
 // the Hopper entries' code for a refused TMA descriptor, less its CUresult
 #define DFLY_TMAP_ERROR 10000
 

@@ -1730,21 +1730,27 @@ cudaError_t launch_narrow_sets(const void* q, const void* k, const void* v, cons
 
 }  // namespace
 
-// The entries, declared with their layouts in flash_entries.h.
+// The entries, declared with their layouts in flash_entries.h, each in
+// the part of the build that compiles it (DFLY_IN_PART there).
+#if DFLY_IN_PART(0)
 extern "C" int dfly_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
                               void* o, int B, int H, int L, int D, int causal, int dtype,
                               int warps, float scale, void* stream) {
   return by_dtype<MODE_OUT>(q, k, v, mask, o, nullptr, nullptr, B, H, L, D, causal, dtype, warps,
                             scale, stream);
 }
+#endif
 
+#if DFLY_IN_PART(1)
 extern "C" int dfly_flash_fwd_lse(const void* q, const void* k, const void* v, const void* mask,
                                   void* o, void* lse, int B, int H, int L, int D, int causal,
                                   int dtype, int warps, float scale, void* stream) {
   return by_dtype<MODE_LSE>(q, k, v, mask, o, lse, nullptr, B, H, L, D, causal, dtype, warps,
                             scale, stream);
 }
+#endif
 
+#if DFLY_IN_PART(2)
 extern "C" int dfly_flash_fwd_partial(const void* q, const void* k, const void* v,
                                       const void* mask, void* acc, void* row_max, void* row_sum,
                                       int B, int H, int L, int D, int dtype, int warps,
@@ -1752,21 +1758,27 @@ extern "C" int dfly_flash_fwd_partial(const void* q, const void* k, const void* 
   return by_dtype<MODE_PARTIAL>(q, k, v, mask, acc, row_max, row_sum, B, H, L, D, 0, dtype, warps,
                                 scale, stream);
 }
+#endif
 
+#if DFLY_IN_PART(3)
 extern "C" int dfly_flash_fwd_wide(const void* q, const void* k, const void* v, const void* mask,
                                    void* o, int B, int H, int L, int D, int causal, int dtype,
                                    float scale, void* stream) {
   return wide_by_dtype<MODE_OUT>(q, k, v, mask, o, nullptr, nullptr, B, H, L, D, causal, dtype,
                                  scale, stream);
 }
+#endif
 
+#if DFLY_IN_PART(4)
 extern "C" int dfly_flash_fwd_lse_wide(const void* q, const void* k, const void* v,
                                        const void* mask, void* o, void* lse, int B, int H, int L,
                                        int D, int causal, int dtype, float scale, void* stream) {
   return wide_by_dtype<MODE_LSE>(q, k, v, mask, o, lse, nullptr, B, H, L, D, causal, dtype,
                                  scale, stream);
 }
+#endif
 
+#if DFLY_IN_PART(5)
 extern "C" int dfly_flash_fwd_partial_wide(const void* q, const void* k, const void* v,
                                            const void* mask, void* acc, void* row_max,
                                            void* row_sum, int B, int H, int L, int D, int dtype,
@@ -1774,7 +1786,10 @@ extern "C" int dfly_flash_fwd_partial_wide(const void* q, const void* k, const v
   return wide_by_dtype<MODE_PARTIAL>(q, k, v, mask, acc, row_max, row_sum, B, H, L, D, 0, dtype,
                                      scale, stream);
 }
+#endif
 
+#if DFLY_IN_PART(0)
 extern "C" const char* dfly_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif

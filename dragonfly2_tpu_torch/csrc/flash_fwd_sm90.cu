@@ -410,19 +410,25 @@ int wide_by_dim(const void* q, const void* k, const void* v, const void* mask, v
 
 }  // namespace
 
-// The entries, declared with their layouts in flash_entries.h.
+// The entries, declared with their layouts in flash_entries.h, each in
+// the part of the build that compiles it (DFLY_IN_PART there).
+#if DFLY_IN_PART(0)
 extern "C" int dfly_flash_fwd_sm90(const void* q, const void* k, const void* v, const void* mask,
                                    void* o, int B, int H, int L, int D, int causal, float scale,
                                    void* stream) {
   return by_dim<MODE_OUT>(q, k, v, mask, o, nullptr, nullptr, B, H, L, D, causal, scale, stream);
 }
+#endif
 
+#if DFLY_IN_PART(0)
 extern "C" int dfly_flash_fwd_lse_sm90(const void* q, const void* k, const void* v,
                                        const void* mask, void* o, void* lse, int B, int H, int L,
                                        int D, int causal, float scale, void* stream) {
   return by_dim<MODE_LSE>(q, k, v, mask, o, lse, nullptr, B, H, L, D, causal, scale, stream);
 }
+#endif
 
+#if DFLY_IN_PART(0)
 extern "C" int dfly_flash_fwd_partial_sm90(const void* q, const void* k, const void* v,
                                            const void* mask, void* acc, void* row_max,
                                            void* row_sum, int B, int H, int L, int D, float scale,
@@ -430,20 +436,26 @@ extern "C" int dfly_flash_fwd_partial_sm90(const void* q, const void* k, const v
   return by_dim<MODE_PARTIAL>(q, k, v, mask, acc, row_max, row_sum, B, H, L, D, 0, scale,
                               stream);
 }
+#endif
 
+#if DFLY_IN_PART(1)
 extern "C" int dfly_flash_fwd_wide_sm90(const void* q, const void* k, const void* v,
                                         const void* mask, void* o, int B, int H, int L, int D,
                                         int causal, float scale, void* stream) {
   return wide_by_dim<MODE_OUT>(q, k, v, mask, o, nullptr, nullptr, B, H, L, D, causal, scale,
                                stream);
 }
+#endif
 
+#if DFLY_IN_PART(1)
 extern "C" int dfly_flash_fwd_lse_wide_sm90(const void* q, const void* k, const void* v,
                                             const void* mask, void* o, void* lse, int B, int H,
                                             int L, int D, int causal, float scale, void* stream) {
   return wide_by_dim<MODE_LSE>(q, k, v, mask, o, lse, nullptr, B, H, L, D, causal, scale, stream);
 }
+#endif
 
+#if DFLY_IN_PART(1)
 extern "C" int dfly_flash_fwd_partial_wide_sm90(const void* q, const void* k, const void* v,
                                                 const void* mask, void* acc, void* row_max,
                                                 void* row_sum, int B, int H, int L, int D,
@@ -451,5 +463,8 @@ extern "C" int dfly_flash_fwd_partial_wide_sm90(const void* q, const void* k, co
   return wide_by_dim<MODE_PARTIAL>(q, k, v, mask, acc, row_max, row_sum, B, H, L, D, 0, scale,
                                    stream);
 }
+#endif
 
+#if DFLY_IN_PART(0)
 extern "C" const char* dfly_cuda_error_string(int err) { return sm90::error_string(err); }
+#endif

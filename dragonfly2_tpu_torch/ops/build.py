@@ -2,7 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (declared in
 ``csrc/flash_entries.h``) and is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ``_build/lib<name>-<hash>.so``, where the hash covers
+(``sm_90a``) into ``_build/lib<name>-<hash>.so``. A source whose entries
+sit under ``DFLY_IN_PART(i)`` compiles in parts, one ``nvcc -c`` a part
+with ``-DDFLY_PART=i``, all started with the other sources, and its parts'
+objects link into its one library: the build's wall is its slowest
+compile, so a source of many kernels is split. The hash covers
 the source, every header it includes from ``csrc/`` (the ``#include "..."``
 lines, followed through the headers), the flags and the compiler path, so
 an edited source or header builds anew and an unchanged one is reused.
@@ -42,7 +46,7 @@ LAUNCHER = "flash_launch"  # csrc/flash_launch.cpp
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 CXX_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-w")
@@ -52,6 +56,7 @@ LAUNCHER_LIBS = ("-lc10", "-lc10_cuda", "-ltorch_cpu", "-ltorch_python", "-lcuda
 _lock = threading.Lock()
 _launcher = None
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+_PART = re.compile(rb"DFLY_IN_PART\((\d+)\)")
 
 
 def nvcc_path() -> str:
@@ -75,6 +80,13 @@ def cxx_path() -> str:
 def kernel_sources() -> list[str]:
     """The kernel sources, ``csrc/<name>.cu``, by name."""
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def source_parts(name: str) -> int:
+    """The parts ``csrc/<name>.cu`` compiles in: one more than the highest
+    ``DFLY_IN_PART`` index it names, 1 where it names none."""
+    found = _PART.findall((CSRC_DIR / f"{name}.cu").read_bytes())
+    return max((int(i) for i in found), default=0) + 1
 
 
 def _source_files(name: str) -> list[pathlib.Path]:
@@ -155,7 +167,7 @@ def _run_together(commands: dict[str, list[str]], reports: dict) -> dict[str, in
     seconds go to ``reports``. Returns each one's exit code."""
     start, procs, codes = time.perf_counter(), {}, {}
     for name, cmd in commands.items():
-        log = pathlib.Path(cmd[cmd.index("-o") + 1] + ".log")  # beside what the command writes
+        log = pathlib.Path(f"{_output(cmd)}.log")  # beside what the command writes
         with open(log, "w") as sink:
             procs[name] = (subprocess.Popen(cmd, stdout=sink, stderr=subprocess.STDOUT), log)
     while procs:
@@ -169,52 +181,87 @@ def _run_together(commands: dict[str, list[str]], reports: dict) -> dict[str, in
     return codes
 
 
+def _output(cmd: list[str]) -> pathlib.Path:
+    """The file a compile or link command writes (its "-o")."""
+    return pathlib.Path(cmd[cmd.index("-o") + 1])
+
+
+def part_name(name: str, part: int) -> str:
+    """The report key of part ``part`` of a source compiled in parts."""
+    return f"{name}#{part}"
+
+
 def build_all(names: list[str]) -> dict[str, tuple[str, float]]:
     """Build every named source that is not built yet (the kernel sources
     by name, the launcher as LAUNCHER; naming the launcher builds every
-    kernel source too): one nvcc process per kernel source and g++ for the
-    launcher's object, all started together, then the launcher's link.
-    Raises if any step fails. Returns each one's compiler report (ptxas
-    registers, shared memory and spills for a kernel source) and seconds
-    (the launcher's: its compile's and its link's), ("", 0.0) for one
-    already built."""
+    kernel source too): one nvcc process per kernel source, or per part of
+    one compiled in parts, and g++ for the launcher's object, all started
+    together; then the parts' links, then the launcher's. Raises if any
+    step fails. Returns each one's compiler report (ptxas registers, shared
+    memory and spills for a kernel source, its parts' reports in turn) and
+    seconds (a source in parts: its slowest part's and its link's; the
+    launcher's: its compile's and its link's), ("", 0.0) for one already
+    built; and, under ``part_name(name, i)``, each part's own."""
     nvcc = nvcc_path()
     if LAUNCHER in names:
         names = sorted(set(names) | set(kernel_sources()))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    steps = {}  # name -> (command, the file it writes, the built file)
+    compiles = {}  # step -> command; its output is the file after "-o"
+    links = {}  # name -> (the steps it links, link command, the built file)
     for name in names:
         if name == LAUNCHER:
             path, cmd, link_cmd = _launcher_build()
-        else:
-            path = _library_path(name, nvcc)
-            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        if not path.exists():
-            steps[name] = (cmd, pathlib.Path(cmd[cmd.index("-o") + 1]), path)
+            if not path.exists():
+                compiles[name] = cmd
+                links[name] = ([name], link_cmd, path)
+            continue
+        path = _library_path(name, nvcc)
+        if path.exists():
+            continue
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        source = str(CSRC_DIR / f"{name}.cu")
+        parts = source_parts(name)
+        if parts == 1:
+            compiles[name] = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), source]
+            links[name] = ([], None, path)
+            continue
+        steps = [part_name(name, i) for i in range(parts)]
+        for i, step in enumerate(steps):
+            obj = path.with_name(f"{path.name}.{os.getpid()}.{i}.o")
+            compiles[step] = [nvcc, *NVCC_FLAGS, f"-DDFLY_PART={i}", "-c", "-o", str(obj), source]
+        objs = [str(_output(compiles[step])) for step in steps]
+        links[name] = (steps, [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs], path)
     reports = {name: ("", 0.0) for name in names}
-    codes = _run_together({name: cmd for name, (cmd, _, _) in steps.items()}, reports)
-    failed = []
-    for name, (cmd, out, path) in steps.items():
-        if codes[name] != 0:
-            failed.append(f"{name}: {cmd[0]} exited {codes[name]}\n{reports[name][0]}")
-            out.unlink(missing_ok=True)
-        elif name != LAUNCHER:
-            os.replace(out, path)
-    if LAUNCHER in steps and not failed:  # link once every kernel library is in place
-        _, obj, path = steps[LAUNCHER]
-        start = time.perf_counter()
-        linked = subprocess.run(link_cmd, capture_output=True, text=True)
-        obj.unlink()
-        report, seconds = reports[LAUNCHER]
-        reports[LAUNCHER] = (report + linked.stdout + linked.stderr,
-                             seconds + time.perf_counter() - start)
-        if linked.returncode != 0:
-            failed.append(f"{LAUNCHER}: link exited {linked.returncode}\n{linked.stderr}")
-        else:
-            os.replace(link_cmd[-1], path)
-    elif LAUNCHER in steps:
-        steps[LAUNCHER][1].unlink(missing_ok=True)
+    codes = _run_together(compiles, reports)
+    failed = [f"{step}: {cmd[0]} exited {codes[step]}\n{reports[step][0]}"
+              for step, cmd in compiles.items() if codes[step] != 0]
+    # the parted sources' links together, then the launcher's, which needs
+    # every library
+    for batch in ([n for n in links if n != LAUNCHER], [n for n in links if n == LAUNCHER]):
+        ready = {n: links[n][1] for n in batch if links[n][1] is not None
+                 and all(codes[step] == 0 for step in links[n][0])}
+        if LAUNCHER in batch and failed:
+            ready = {}
+        link_reports: dict = {}
+        link_codes = _run_together(ready, link_reports)
+        for n in batch:
+            steps, cmd, path = links[n]
+            if cmd is None:  # compiled and linked in one step
+                out, ok = _output(compiles[n]), codes[n] == 0
+            else:
+                out, ok = _output(cmd), link_codes.get(n) == 0
+                if n in ready:
+                    log = "".join(reports[step][0] for step in steps) + link_reports[n][0]
+                    reports[n] = (log, max(reports[step][1] for step in steps)
+                                  + link_reports[n][1])
+                    if not ok:
+                        failed.append(f"{n}: link exited {link_codes[n]}\n{link_reports[n][0]}")
+            for step in steps:  # the objects the link read
+                _output(compiles[step]).unlink(missing_ok=True)
+            if ok:
+                os.replace(out, path)
+            else:
+                out.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports

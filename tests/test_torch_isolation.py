@@ -1,7 +1,7 @@
 """The torch port stands alone: importing every module of
-dragonfly2_tpu_torch, chip_smoke.py and the port's measurement scripts
-tools/{tick_wrapper,train_register}_cost.py loads no jax, flax,
-dragonfly2_tpu or tools.dflint module."""
+dragonfly2_tpu_torch, chip_smoke.py, the port's measurement scripts
+tools/{tick_wrapper,train_register}_cost.py and its workload drivers
+tools/torch_*.py loads no jax, flax, dragonfly2_tpu or tools.dflint module."""
 
 import os
 import subprocess
@@ -10,7 +10,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, pathlib, pkgutil, sys
 import dragonfly2_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dragonfly2_tpu_torch.__path__, "dragonfly2_tpu_torch.")]
 for name in names:
@@ -18,6 +18,9 @@ for name in names:
 import chip_smoke
 import tools.tick_wrapper_cost
 import tools.train_register_cost
+drivers = sorted(p.stem for p in pathlib.Path("tools").glob("torch_*.py"))
+for driver in drivers:
+    importlib.import_module(f"tools.{driver}")
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "dragonfly2_tpu")
@@ -26,6 +29,7 @@ bad = sorted(
 print(f"MODULES={len(names)}")
 print(f"NAMES={','.join(names)}")
 print(f"TORCH={'torch' in sys.modules}")
+print(f"DRIVERS={','.join(drivers)}")
 print(f"BAD={','.join(bad)}")
 """
 
@@ -81,4 +85,5 @@ def test_port_imports_no_jax_flax_or_reference():
                    "parallel.moe"):
         assert f"dragonfly2_tpu_torch.{module}" in names, module
     assert lines["TORCH"] == "True"
+    assert {"torch_stress", "torch_llm_prefetch"} <= set(lines["DRIVERS"].split(","))
     assert lines["BAD"] == "", f"port pulled in: {lines['BAD']}"

@@ -6,7 +6,8 @@
 #
 #   bash tools/chip_repeat.sh TREE OUT
 #
-# TREE is a checkout to run from (an unpacked `git archive`); OUT a
+# TREE is a checkout to run from (an unpacked `git archive`), copied
+# afresh for each run, so that no run reuses another's kernel build; OUT a
 # directory for the logs. The counts come from the environment:
 #   N18     runs of phase 18 alone (chip_smoke.phase_objects)      default 0
 #   N19     runs of phase 19 (d) alone (chip_smoke._scale_procday) default 0
@@ -22,13 +23,16 @@ trap 'rm -rf "$scratch"' EXIT
 cd "$tree"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$out/card.txt"
 run() {  # name, command...
-  local name=$1 home tmp start end rc
+  local name=$1 home tmp copy start end rc
   shift
-  home=$(mktemp -d -p "$scratch") tmp=$(mktemp -d -p "$scratch")
+  home=$(mktemp -d -p "$scratch") tmp=$(mktemp -d -p "$scratch") copy=$(mktemp -d -p "$scratch")
+  cp -a "$tree/." "$copy/"
+  rm -rf "$copy/dragonfly2_tpu_torch/_build"
   start=$(date +%s%N)
-  HOME=$home TMPDIR=$tmp timeout 1250 "$@" > "$out/$name.log" 2>&1
+  (cd "$copy" && HOME=$home TMPDIR=$tmp timeout 1250 "$@" > "$out/$name.log" 2>&1)
   rc=$?
   end=$(date +%s%N)
+  rm -rf "$copy" "$home" "$tmp"
   echo "RUN $name rc $rc seconds $(awk -v a="$start" -v b="$end" 'BEGIN{printf "%.1f", (b - a) / 1e9}')"
   grep -E "^objects: preheat|proxies answered|^scale procday|verdict_match|phase: [0-9.]+ s|^phases: |^build: |FAILED" \
     "$out/$name.log" | cut -c1-700
